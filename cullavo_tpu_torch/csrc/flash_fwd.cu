@@ -1,0 +1,237 @@
+// Causal flash-attention forward for the LLaMA prefill (kernel K1).
+//
+// Replaces: cullavo_tpu/ops/flash_attention.py, _flash_fwd_core ->
+// _fwd_kernel_iota (with _online_softmax_qblock and _causal_kb_bounds), the
+// bias-free causal path for right-padded batches:
+//     o[b, h, i] = sum_{j <= i} softmax_j(q_i . k_j * d^-0.5) v_j
+// bf16 q/k/v/o with head dim 128, f32 scores and online-softmax state
+// (running max m, running sum l, f32 accumulator), and the probabilities
+// rounded to bf16 before the P.V product, as the TPU kernel does.  Key tiles
+// above the diagonal are skipped; the ragged end of T (648 is not a multiple
+// of the 64-row tile) is handled in the kernel: rows past T load as zeros,
+// are causally invisible to every valid query, and are not stored.  Heads
+// are read through strides, so q/k/v can be [B, T, H, d] projection outputs
+// viewed as [B, H, T, d] and the output is written the same way (no
+// transposes around the call).
+//
+// Bound on the H100: tensor-core math.  The 7B prefill at B = 14, T = 648 is
+// ~48 GFLOP per layer (4*B*H*T^2*d / 2), ~1.5 TFLOP over 32 layers.
+// Design (FlashAttention-2 shape): one block of 4 warps per (b, h, 64-query
+// tile); each warp owns 16 query rows with Q in registers as mma fragments;
+// 64-key K and V tiles are staged in padded shared memory (row stride 136
+// bf16: conflict-free fragment loads); S = Q K^T and O += P V run as
+// mma.sync m16n8k16 bf16 -> f32, V fragments through ldmatrix.trans.  The
+// heaviest query tiles launch first.  No TMA/wgmma and no load/compute
+// overlap yet: that is later work.  Launches on the caller's stream and
+// allocates nothing.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int D = 128;       // head dim
+constexpr int BQ = 64;       // query rows per block (4 warps x 16)
+constexpr int BKV = 64;      // keys per tile
+constexpr int LDS = D + 8;   // padded shared-memory row stride (bf16 elements)
+constexpr int THREADS = 128;
+constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
+
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 __nv_bfloat16* __restrict__ o, int T,
+                 long long q_sb, long long q_sh, long long q_st,
+                 long long k_sb, long long k_sh, long long k_st,
+                 long long v_sb, long long v_sh, long long v_st,
+                 long long o_sb, long long o_sh, long long o_st, float scale) {
+  __shared__ __align__(16) __nv_bfloat16 ks[BKV * LDS];
+  __shared__ __align__(16) __nv_bfloat16 vs[BKV * LDS];
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest (last) tiles first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
+  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
+  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
+  __nv_bfloat16* ob = o + b * o_sb + h * o_sh;
+
+  const int row0 = qt * BQ + warp * 16 + g;  // this thread's two query rows
+  const int row1 = row0 + 8;
+
+  // Q as A fragments (16 x 128 per warp = 8 chunks of 16 along d)
+  uint32_t qf[8][4];
+#pragma unroll
+  for (int kc = 0; kc < 8; ++kc) {
+    const int c = kc * 16 + 2 * t4;
+    qf[kc][0] = row0 < T ? ld32(qb + row0 * q_st + c) : 0u;
+    qf[kc][1] = row1 < T ? ld32(qb + row1 * q_st + c) : 0u;
+    qf[kc][2] = row0 < T ? ld32(qb + row0 * q_st + c + 8) : 0u;
+    qf[kc][3] = row1 < T ? ld32(qb + row1 * q_st + c + 8) : 0u;
+  }
+
+  float acc[16][4];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int kt = 0; kt <= qt; ++kt) {
+    __syncthreads();  // the previous tile's shared-memory reads are done
+#pragma unroll
+    for (int i = 0; i < (BKV * D / 8) / THREADS; ++i) {
+      const int c = threadIdx.x + i * THREADS;
+      const int r = c >> 4, col = (c & 15) * 8;
+      const int key = kt * BKV + r;
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+      if (key < T) {
+        kv = *reinterpret_cast<const uint4*>(kb + key * k_st + col);
+        vv = *reinterpret_cast<const uint4*>(vb + key * v_st + col);
+      }
+      *reinterpret_cast<uint4*>(ks + r * LDS + col) = kv;
+      *reinterpret_cast<uint4*>(vs + r * LDS + col) = vv;
+    }
+    __syncthreads();
+
+    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+      const __nv_bfloat16* kr = ks + (nt * 8 + g) * LDS + 2 * t4;
+#pragma unroll
+      for (int kc = 0; kc < 8; ++kc)
+        mma_bf16(s[nt], qf[kc], ld32(kr + kc * 16), ld32(kr + kc * 16 + 8));
+    }
+
+    // scale, causal mask (only the diagonal tile straddles it), row max
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float val = s[nt][e] * scale;
+        if (kt == qt) {
+          const int key = kt * BKV + nt * 8 + 2 * t4 + (e & 1);
+          if (key > (e < 2 ? row0 : row1)) val = kNegInf;
+        }
+        s[nt][e] = val;
+      }
+      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float alpha0 = expf(m0 - mn0), alpha1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+
+    // P = exp(S - m) (f32 row sums), rounded to bf16 as the PV A operand
+    float ls0 = 0.f, ls1 = 0.f;
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float p0 = expf(s[nt][0] - mn0), p1 = expf(s[nt][1] - mn0);
+      const float p2 = expf(s[nt][2] - mn1), p3 = expf(s[nt][3] - mn1);
+      ls0 += p0 + p1;
+      ls1 += p2 + p3;
+      const int kc = nt >> 1, hi = nt & 1;
+      pa[kc][hi * 2 + 0] = pack_bf16(p0, p1);
+      pa[kc][hi * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      ls0 += __shfl_xor_sync(0xffffffffu, ls0, off);
+      ls1 += __shfl_xor_sync(0xffffffffu, ls1, off);
+    }
+    l0 = l0 * alpha0 + ls0;
+    l1 = l1 * alpha1 + ls1;
+#pragma unroll
+    for (int dt = 0; dt < 16; ++dt) {
+      acc[dt][0] *= alpha0;
+      acc[dt][1] *= alpha0;
+      acc[dt][2] *= alpha1;
+      acc[dt][3] *= alpha1;
+    }
+
+    // O += P V: V fragments via ldmatrix.trans, two 8-column d tiles per load
+    const int mat = lane >> 3, mrow = lane & 7;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+#pragma unroll
+      for (int dt = 0; dt < 16; dt += 2) {
+        const __nv_bfloat16* p =
+            vs + (kc * 16 + (mat & 1) * 8 + mrow) * LDS + dt * 8 + (mat >> 1) * 8;
+        const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+        uint32_t b0, b1, b2, b3;
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
+            : "r"(addr));
+        mma_bf16(acc[dt], pa[kc], b0, b1);
+        mma_bf16(acc[dt + 1], pa[kc], b2, b3);
+      }
+    }
+  }
+
+  // O / l -> bf16 (l > 0 for every valid row: key 0 is always visible)
+  const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
+  const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+#pragma unroll
+  for (int dt = 0; dt < 16; ++dt) {
+    const int c = dt * 8 + 2 * t4;
+    if (row0 < T)
+      *reinterpret_cast<uint32_t*>(ob + row0 * o_st + c) =
+          pack_bf16(acc[dt][0] * inv0, acc[dt][1] * inv0);
+    if (row1 < T)
+      *reinterpret_cast<uint32_t*>(ob + row1 * o_st + c) =
+          pack_bf16(acc[dt][2] * inv1, acc[dt][3] * inv1);
+  }
+}
+
+}  // namespace
+
+extern "C" int cullavo_flash_fwd(const void* q, const void* k, const void* v,
+                                 void* o, int B, int H, int T, int d,
+                                 long long q_sb, long long q_sh, long long q_st,
+                                 long long k_sb, long long k_sh, long long k_st,
+                                 long long v_sb, long long v_sh, long long v_st,
+                                 long long o_sb, long long o_sh, long long o_st,
+                                 float scale, void* stream) {
+  if (d != D) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((T + BQ - 1) / BQ, H, B);
+  flash_fwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), T,
+      q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}

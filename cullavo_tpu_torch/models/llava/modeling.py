@@ -1,0 +1,324 @@
+"""LLaVA-1.5 in PyTorch: vision tower + projector + LLaMA, token merge and
+two-phase greedy generation (counterpart of
+``cullavo_tpu/models/llava/modeling.py``).
+
+Parameters are plain dicts of tensors in the JAX package's layout, and the
+prefill/decode states keep its keys and layouts (S-major cache
+``[L, S, B, KV, hd]``), so the tests compare like with like.  Where JAX
+donates a state and returns an updated copy, the port updates it in place
+(``merge_decode_state``, ``generate_decode``); the functions say so.
+Generation runs eagerly: a Python loop over decode steps, ``write_idx`` a
+host integer.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from cullavo_tpu_torch.models.llava.clip_vit import clip_vision_forward
+from cullavo_tpu_torch.models.llava.config import LlavaConfig
+from cullavo_tpu_torch.models.llava.llama import llama_forward, lm_logits
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def _normal(gen, shape, std, dtype, device):
+    return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+
+
+def init_llava_params(cfg: LlavaConfig, generator: torch.Generator,
+                      device, dtype=torch.float32) -> dict:
+    """Random parameters in the JAX layout (stacked [L, ...] layer leaves),
+    drawn from ``generator`` on ``device`` (same shapes and scales as the
+    JAX initializer; the values differ, as the generators do)."""
+    vc, tc = cfg.vision, cfg.text
+    Lv, Dv, Iv, P = vc.num_hidden_layers, vc.hidden_size, vc.intermediate_size, vc.patch_size
+    L, D, I = tc.num_hidden_layers, tc.hidden_size, tc.intermediate_size
+    H, KV, hd = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
+
+    def n(shape, std):
+        return _normal(generator, shape, std, dtype, device)
+
+    def dense(shape):
+        return n(shape, shape[-2] ** -0.5)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    vision = {
+        "class_embedding": n((Dv,), 0.02),
+        "patch_embedding": dense((P * P * 3, Dv)),
+        "position_embedding": n((vc.num_positions, Dv), 0.02),
+        "pre_ln": {"scale": ones(Dv), "bias": zeros(Dv)},
+        "layers": {
+            "ln1_scale": ones(Lv, Dv), "ln1_bias": zeros(Lv, Dv),
+            "q": dense((Lv, Dv, Dv)), "q_b": zeros(Lv, Dv),
+            "k": dense((Lv, Dv, Dv)), "k_b": zeros(Lv, Dv),
+            "v": dense((Lv, Dv, Dv)), "v_b": zeros(Lv, Dv),
+            "o": dense((Lv, Dv, Dv)), "o_b": zeros(Lv, Dv),
+            "ln2_scale": ones(Lv, Dv), "ln2_bias": zeros(Lv, Dv),
+            "fc1": dense((Lv, Dv, Iv)), "fc1_b": zeros(Lv, Iv),
+            "fc2": dense((Lv, Iv, Dv)), "fc2_b": zeros(Lv, Dv),
+        },
+        "post_ln": {"scale": ones(Dv), "bias": zeros(Dv)},
+    }
+    language = {
+        "embed_tokens": n((tc.vocab_size, D), 0.02),
+        "layers": {
+            "input_ln": ones(L, D),
+            "q": dense((L, D, H * hd)), "k": dense((L, D, KV * hd)),
+            "v": dense((L, D, KV * hd)), "o": dense((L, H * hd, D)),
+            "post_ln": ones(L, D),
+            "gate": dense((L, D, I)), "up": dense((L, D, I)), "down": dense((L, I, D)),
+        },
+        "norm": ones(D),
+    }
+    if not tc.tie_word_embeddings:
+        language["lm_head"] = dense((D, tc.vocab_size))
+    return {
+        "vision_tower": vision,
+        "projector": {"linear_1": {"kernel": dense((Dv, D)), "bias": zeros(D)},
+                      "linear_2": {"kernel": dense((D, D)), "bias": zeros(D)}},
+        "language_model": language,
+    }
+
+
+# ---------------------------------------------------------------------------
+# vision features and token merge
+# ---------------------------------------------------------------------------
+
+def image_features(params: dict, cfg: LlavaConfig, pixel_values: torch.Tensor) -> torch.Tensor:
+    """[B, 3, H, W] -> [B, num_image_tokens, D_text]."""
+    hidden = clip_vision_forward(params["vision_tower"], cfg.vision, pixel_values,
+                                 cfg.vision_feature_layer)
+    if cfg.vision_feature_select_strategy == "default":
+        hidden = hidden[:, 1:]  # drop CLS
+    proj = params["projector"]
+    x = hidden @ proj["linear_1"]["kernel"] + proj["linear_1"]["bias"]
+    x = F.gelu(x.float(), approximate="none").to(x.dtype)
+    return x @ proj["linear_2"]["kernel"] + proj["linear_2"]["bias"]
+
+
+def merge_image_features(cfg: LlavaConfig, input_ids: torch.Tensor,
+                         inputs_embeds: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+    """Place image features at the ``image_token_id`` positions of each row:
+    the k-th image slot of a row (in sequence order) gets ``feats[b, k]``."""
+    is_img = input_ids == cfg.image_token_id                        # [B, T]
+    slot_rank = (torch.cumsum(is_img.to(torch.int64), dim=1) - 1).clamp(0, feats.shape[1] - 1)
+    gathered = torch.gather(feats, 1, slot_rank[..., None].expand(-1, -1, feats.shape[-1]))
+    return torch.where(is_img[..., None], gathered.to(inputs_embeds.dtype), inputs_embeds)
+
+
+def expand_image_token(input_ids, attention_mask, labels, image_token_id: int,
+                       num_image_tokens: int, ignore_index: int = -100):
+    """Host-side (numpy) expansion of each ``<image>`` token into
+    ``num_image_tokens`` positions (mask 1, label ``ignore_index``)."""
+    out_ids, out_mask, out_labels = [], [], []
+    for i, tok in enumerate(np.asarray(input_ids).tolist()):
+        if tok == image_token_id:
+            out_ids.extend([image_token_id] * num_image_tokens)
+            out_mask.extend([1] * num_image_tokens)
+            out_labels.extend([ignore_index] * num_image_tokens)
+        else:
+            out_ids.append(tok)
+            out_mask.append(int(np.asarray(attention_mask)[i]) if attention_mask is not None else 1)
+            out_labels.append(int(np.asarray(labels)[i]) if labels is not None else ignore_index)
+    return (np.array(out_ids, np.int32), np.array(out_mask, np.int32),
+            np.array(out_labels, np.int32))
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def _positions(attention_mask):
+    return (torch.cumsum(attention_mask.to(torch.int64), dim=1) - 1).clamp_min(0)
+
+
+@torch.no_grad()
+def llava_forward(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
+                  pixel_values: Optional[torch.Tensor], attention_mask: torch.Tensor,
+                  position_ids: Optional[torch.Tensor] = None,
+                  cache: Optional[dict] = None, cache_index: Optional[int] = None,
+                  full_attention_mask: Optional[torch.Tensor] = None,
+                  key_position_ids: Optional[torch.Tensor] = None,
+                  last_logit_only: bool = False, stale_cache: bool = False,
+                  prefill_pad_len: Optional[int] = None,
+                  use_flash: Optional[bool] = None):
+    """Returns (f32 logits [B, T or 1, V], new_cache)."""
+    embed = params["language_model"]["embed_tokens"]
+    inputs_embeds = embed[input_ids.clamp(0, embed.shape[0] - 1).long()]
+    if pixel_values is not None:
+        feats = image_features(params, cfg, pixel_values)
+        inputs_embeds = merge_image_features(cfg, input_ids, inputs_embeds, feats)
+    if position_ids is None:
+        position_ids = _positions(attention_mask)
+    mask = full_attention_mask if cache is not None else attention_mask
+    hidden, new_cache = llama_forward(
+        params["language_model"], cfg.text, inputs_embeds, mask, position_ids,
+        cache, cache_index, key_position_ids, use_flash=use_flash,
+        stale_cache=stale_cache, prefill_pad_len=prefill_pad_len)
+    if last_logit_only:
+        # only the last valid position feeds sampling
+        last = attention_mask.sum(dim=1).to(torch.int64) - 1
+        hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), last][:, None]
+    return lm_logits(params["language_model"], cfg.text, hidden), new_cache
+
+
+# ---------------------------------------------------------------------------
+# generation
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GenerationConfig:
+    max_new_tokens: int = 128
+    do_sample: bool = False
+    temperature: float = 0.9
+    top_k: int = 50
+    top_p: float = 0.95
+    eos_token_id: int = 2
+
+
+def _sample_token(logits: torch.Tensor, gen: GenerationConfig) -> torch.Tensor:
+    """logits [B, V] -> [B] int32 (greedy: the first maximal index)."""
+    if gen.do_sample:
+        raise NotImplementedError("sampled decoding waits for slice 3")
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+_PRESERVE_FP32_KEYS = ("scale", "scale8")
+
+
+def _cast_params(params, compute_dtype):
+    """Cast f32/f16 leaves to the compute dtype EXCEPT scales (``scale``,
+    ``scale8`` stay f32); bf16 leaves stay as they are (JAX's
+    ``from_bf16=False``, the only mode generation uses).  Returns a new
+    dict; a leaf already in the dtype is returned as is (no copy)."""
+    def cast(key, a):
+        if isinstance(a, dict):
+            return {k: cast(k, v) for k, v in a.items()}
+        if a.dtype not in (torch.float32, torch.float16) or key in _PRESERVE_FP32_KEYS:
+            return a
+        return a.to(compute_dtype)
+
+    return {k: cast(k, v) for k, v in params.items()}
+
+
+@torch.no_grad()
+def generate_prefill(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
+                     pixel_values: Optional[torch.Tensor],
+                     attention_mask: torch.Tensor, max_len: int,
+                     compute_dtype=torch.bfloat16) -> dict:
+    """Prefill phase: build the cache and return the decode state
+    (``logits``, ``cache``, ``full_mask``, ``key_pos``, ``cur_pos``,
+    ``write_idx``, ``adapter_ids``) — the JAX state layout."""
+    B, T = input_ids.shape
+    dev = input_ids.device
+    lm = _cast_params(params, compute_dtype)
+    full_mask = torch.zeros((B, max_len), dtype=torch.int32, device=dev)
+    full_mask[:, :T] = attention_mask.to(torch.int32)
+    position_ids = _positions(attention_mask)
+    key_pos = torch.zeros((B, max_len), dtype=torch.int32, device=dev)
+    key_pos[:, :T] = position_ids.to(torch.int32)
+    logits, cache = llava_forward(lm, cfg, input_ids, pixel_values, attention_mask,
+                                  position_ids, last_logit_only=True,
+                                  prefill_pad_len=max_len)
+    last_idx = attention_mask.sum(dim=1).to(torch.int32) - 1
+    return {"logits": logits[:, 0], "cache": cache, "full_mask": full_mask,
+            "key_pos": key_pos, "cur_pos": last_idx + 1, "write_idx": T,
+            "adapter_ids": torch.zeros((B,), dtype=torch.int32, device=dev)}
+
+
+def alloc_decode_state(chunk_state: dict, total_batch: int) -> dict:
+    """A zeroed full-batch decode state shaped like ``chunk_state`` (cache
+    batch axis 2, every other leaf axis 0)."""
+    def z(a, axis):
+        shape = list(a.shape)
+        shape[axis] = total_batch
+        return torch.zeros(shape, dtype=a.dtype, device=a.device)
+
+    return {"logits": z(chunk_state["logits"], 0),
+            "cache": {name: z(a, 2) for name, a in chunk_state["cache"].items()},
+            "full_mask": z(chunk_state["full_mask"], 0),
+            "key_pos": z(chunk_state["key_pos"], 0),
+            "cur_pos": z(chunk_state["cur_pos"], 0),
+            "write_idx": chunk_state["write_idx"],
+            "adapter_ids": z(chunk_state["adapter_ids"], 0)}
+
+
+def merge_decode_state(big: dict, chunk: dict, batch_offset: int) -> dict:
+    """Write a prefill chunk's state into the full-batch state IN PLACE
+    (rows ``batch_offset:batch_offset + chunk_rows``) and return it.  All
+    chunks share the prompt length (equal ``write_idx``)."""
+    o = batch_offset
+    n = chunk["logits"].shape[0]
+    big["logits"][o:o + n] = chunk["logits"].to(big["logits"].dtype)
+    for name, a in chunk["cache"].items():
+        big["cache"][name][:, :, o:o + n] = a
+    for key in ("full_mask", "key_pos", "cur_pos", "adapter_ids"):
+        big[key][o:o + n] = chunk[key]
+    big["write_idx"] = chunk["write_idx"]
+    return big
+
+
+def generate_prefill_chunked(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
+                             pixel_values: Optional[torch.Tensor],
+                             attention_mask: torch.Tensor, max_len: int, chunk: int,
+                             compute_dtype=torch.bfloat16) -> dict:
+    """Prefill in batch chunks of ``chunk`` rows, merged into one full-batch
+    decode state (decode cost is dominated by the batch-independent weight
+    stream, so one large decode batch amortizes it).  A non-divisible batch
+    runs one smaller final chunk."""
+    B = input_ids.shape[0]
+    if chunk >= B:
+        return generate_prefill(params, cfg, input_ids, pixel_values, attention_mask,
+                                max_len, compute_dtype=compute_dtype)
+    state = None
+    for off in range(0, B, chunk):
+        cs = generate_prefill(params, cfg, input_ids[off:off + chunk],
+                              None if pixel_values is None else pixel_values[off:off + chunk],
+                              attention_mask[off:off + chunk], max_len,
+                              compute_dtype=compute_dtype)
+        if state is None:
+            state = alloc_decode_state(cs, B)
+        merge_decode_state(state, cs, off)
+        del cs   # free the chunk's cache before the next chunk's prefill
+    return state
+
+
+@torch.no_grad()
+def generate_decode(params: dict, cfg: LlavaConfig, state: dict, gen: GenerationConfig,
+                    compute_dtype=torch.bfloat16):
+    """Decode phase: ``max_new_tokens - 1`` stale-cache T=1 steps after the
+    token sampled from the prefill logits (all rows run to the end; finished
+    rows emit eos).  The state's cache, ``full_mask`` and ``key_pos`` are
+    updated IN PLACE (JAX donates the state).  Returns tokens
+    [B, max_new_tokens] int32."""
+    lm = _cast_params(params, compute_dtype)
+    eos = gen.eos_token_id
+    tok = _sample_token(state["logits"], gen)
+    done = tok == eos
+    cur_pos, write_idx = state["cur_pos"], int(state["write_idx"])
+    full_mask, key_pos, cache = state["full_mask"], state["key_pos"], state["cache"]
+    toks = [tok]
+    for _ in range(gen.max_new_tokens - 1):
+        logits, cache = llava_forward(lm, cfg, tok[:, None], None, None,
+                                      cur_pos[:, None], cache, write_idx,
+                                      full_mask, key_pos, stale_cache=True)
+        full_mask[:, write_idx] = 1
+        key_pos[:, write_idx] = cur_pos
+        nxt = _sample_token(logits[:, 0], gen)
+        nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
+        done = done | (nxt == eos)
+        toks.append(nxt)
+        tok, cur_pos, write_idx = nxt, cur_pos + 1, write_idx + 1
+    return torch.stack(toks, dim=1)

@@ -1,0 +1,121 @@
+"""VQA evaluation pipeline on the torch port (counterpart of
+``cullavo_tpu/pipelines/vqa_pipeline.py``): bucketed, batched greedy
+decoding through ``generate_prefill_chunked`` + ``generate_decode``, and
+VQA consensus accuracy.  Topic classification, speculative decoding and the
+int8 KV cache wait for later slices."""
+from __future__ import annotations
+
+import csv
+import os
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+from cullavo_tpu_torch.models.llava.config import LlavaConfig
+from cullavo_tpu_torch.models.llava.modeling import (GenerationConfig,
+                                                     expand_image_token,
+                                                     generate_decode,
+                                                     generate_prefill_chunked)
+
+# the LLaVA-1.5 system prompt (cullavo_tpu/data/step1_synthesis.py)
+SYSTEM_PROMPT = ("A chat between a curious human and an artificial intelligence "
+                 "assistant. The assistant gives helpful, detailed, and polite "
+                 "answers to the human's questions. ")
+
+
+def _bucket(n: int, buckets=(64, 96, 128, 192, 256)) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    # beyond the table (the real 576-image-token prompt is ~650 ids): round
+    # UP to the next 64-multiple, never truncate
+    return -(-n // 64) * 64
+
+
+class VQAPipeline:
+    def __init__(self, cfg, model_cfg: LlavaConfig, tokenizer, params: dict,
+                 topic_fn: Optional[Callable[[str], str]] = None,
+                 batch_size: int = 8, max_new_tokens: int = 16,
+                 prefill_chunk: Optional[int] = None):
+        self.cfg = cfg
+        self.model_cfg = model_cfg
+        self.tokenizer = tokenizer
+        self.params = params
+        self.topic_fn = topic_fn
+        self.batch_size = batch_size
+        self.max_new_tokens = max_new_tokens
+        # prefill in chunks of this many rows, decode the whole batch at once
+        self.prefill_chunk = prefill_chunk
+        self.device = params["language_model"]["embed_tokens"].device
+
+    def build_prompt(self, question: str) -> np.ndarray:
+        text = SYSTEM_PROMPT + "<image>" + f" USER: {question} ASSISTANT:"
+        ids = np.asarray(self.tokenizer.encode(text), np.int32)
+        ids, _, _ = expand_image_token(ids, None, None, self.tokenizer.image_token_id,
+                                       self.model_cfg.num_image_tokens)
+        return ids
+
+    def answer_batch(self, questions: list, pixel_values: np.ndarray) -> list:
+        """Greedy decode a batch; prompts are right-padded to a shared
+        bucket length."""
+        id_rows = [self.build_prompt(q) for q in questions]
+        L = _bucket(max(len(r) for r in id_rows))
+        B = len(id_rows)
+        ids = np.full((B, L), self.tokenizer.pad_token_id, np.int32)
+        mask = np.zeros((B, L), np.int32)
+        for i, row in enumerate(id_rows):
+            ids[i, :len(row)] = row
+            mask[i, :len(row)] = 1
+        gen = GenerationConfig(max_new_tokens=self.max_new_tokens, do_sample=False,
+                               eos_token_id=self.tokenizer.eos_token_id)
+        state = generate_prefill_chunked(
+            self.params, self.model_cfg, torch.from_numpy(ids).to(self.device),
+            torch.from_numpy(np.asarray(pixel_values, np.float32)).to(self.device),
+            torch.from_numpy(mask).to(self.device), L + self.max_new_tokens,
+            self.prefill_chunk or B, compute_dtype=torch.bfloat16)
+        out = generate_decode(self.params, self.model_cfg, state, gen,
+                              compute_dtype=torch.bfloat16).cpu().numpy()
+        answers = []
+        for b in range(B):
+            toks = out[b].tolist()
+            if self.tokenizer.eos_token_id in toks:
+                toks = toks[:toks.index(self.tokenizer.eos_token_id)]
+            answers.append(self.tokenizer.decode(toks).strip())
+        return answers
+
+    def evaluate_model(self, dataset: Iterable[dict], limit: Optional[int] = None,
+                       out_dir: Optional[str] = None) -> dict:
+        """dataset rows: {"question_id", "question", "pixel_values" [3,H,W],
+        "answers": [10 strings], optional "question_type"/"answer_type"}."""
+        # the scorer is pure Python shared with the JAX package; imported
+        # here only, so importing the port never imports cullavo_tpu
+        from cullavo_tpu.data.evaluation.vqa_eval import VQAEvaluator
+
+        evaluator = VQAEvaluator()
+        per_topic: dict = {}
+        rows = list(dataset)
+        if limit:
+            rows = rows[:limit]
+        for i in range(0, len(rows), self.batch_size):
+            chunk = rows[i:i + self.batch_size]
+            pix = np.stack([r["pixel_values"] for r in chunk])
+            answers = self.answer_batch([r["question"] for r in chunk], pix)
+            for r, ans in zip(chunk, answers):
+                evaluator.process(r["question_id"], ans, r["answers"],
+                                  r.get("question_type"), r.get("answer_type"))
+                if self.topic_fn is not None:
+                    per_topic.setdefault(self.topic_fn(r["question"]), VQAEvaluator()).process(
+                        r["question_id"], ans, r["answers"])
+        results = evaluator.evaluate()
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            evaluator.dump_results(os.path.join(out_dir, "vqa_results.json"))
+            with open(os.path.join(out_dir, "vqa_per_class.csv"), "w", newline="") as f:
+                w = csv.writer(f)
+                w.writerow(["class", "accuracy", "n"])
+                for topic, ev in sorted(per_topic.items()):
+                    r = ev.evaluate()
+                    w.writerow([topic, r["overall"], r["n"]])
+                w.writerow(["TOTAL", results["overall"], results["n"]])
+        return results
