@@ -1,28 +1,42 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cullavo_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # kernels + 7B VQA batch
-    python3 chip_smoke.py --profile   # the same + a profiled batch
+    python3 chip_smoke.py             # kernels + both 7B VQA paths
+    python3 chip_smoke.py --profile   # the same + a profiled batch of each path
 
 Phases (each raises on failure, and the script exits non-zero):
   1. print the card's name and power limit (nvidia-smi); disable TF32.
   2. build the port's CUDA kernels from ``cullavo_tpu_torch/csrc``.
   3. compare each kernel with its plain PyTorch version on the card at the
-     shapes of the LLaVA-1.5-7B int8 VQA path (K1 flash prefill, K2 row
-     quantizer, K3 int8 weight-only linear; also the library s8s8 GEMM),
-     and time both with CUDA events (L2 flushed before every launch).
+     shapes of the LLaVA-1.5-7B int8 VQA paths (K1 flash prefill, K2 row
+     quantizer, K3 int8 weight-only linear, K4/K5 W-window decode attention
+     over the stacked bf16/int8 KV cache; also the library s8s8 GEMM), time
+     both with CUDA events (L2 flushed before every launch), time the one
+     PyTorch call that computes the same function where there is one, and
+     work out each kernel's bound (bytes over 3.35 TB/s against operations
+     over the card's peak rate) from the inputs of this run.
   4. build random LLaVA-1.5-7B weights on the card from a seeded
      ``torch.Generator``: bf16 vision tower, projector, embeddings and head;
      int8 SmoothQuant LLM linears with smooth scales exp(N(0, 0.3)) shared
      per input group.
   5. check the kernel path against the plain path on a small input: the
-     first two LLM layers at full width, prefill + one decode step, on the
-     card and on the CPU.
+     first two LLM layers at full width, prefill, one decode step and a
+     W = 4 window forward with per-row write positions over a bf16 and an
+     int8 cache, on the card and on the CPU.
   6. answer 14 VQA-shaped requests (641 real tokens right-padded to 648,
      576 image tokens, 336x336 pixels, 16 greedy tokens) through
      ``generate_prefill_chunked`` (chunk 7) + ``generate_decode``, twice;
      the tokens must be in the vocabulary and equal across the runs, and
-     every kernel must have launched in the first run.
+     K1-K4 must have launched in the first run.
+  6b. the same requests with the int8 KV cache and speculative windows of 4
+     (cache of ``round_cache_len(648 + 16 + 4)`` slots) through
+     ``generate_decode_spec``, twice, and once through ``generate_decode``
+     over the int8 cache: tokens equal across the speculative runs, K5
+     launched, window and token counts consistent, every speculative token
+     the sequential step's argmax within 0.1 (teacher-forced replay), and
+     every row whose greedy top-2 logit gaps all exceed 0.1 equal to the
+     int8 greedy stream.  One more speculative run over the bf16 cache at
+     8 layers drives K4 at W = 4 and is held the same way.
 The last two lines are the kernels' JSON record and the result line.
 Imports neither JAX nor the JAX package.
 """
@@ -40,6 +54,10 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 BATCH, CHUNK, PROMPT_TEXT, PAD_TO, NEW_TOKENS = 14, 7, 64, 8, 16
+SPEC_K, SPEC_BF16_LAYERS, LOGIT_TOL = 4, 8, 0.1
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense operations/s by input type
+HBM_BPS = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 
 
 def log(*a):
@@ -68,6 +86,19 @@ def bench_ms(fn, device, reps=20):
     return statistics.median(times)
 
 
+def bound(n_bytes, n_ops, op_type):
+    """The least ms the card could take: each input byte read once and each
+    output byte written once at the memory rate, against the operations at
+    the peak rate of their type; and which of the two it is."""
+    t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, n_ops / PEAK_OPS[op_type] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def check_kernels(device):
     """Phase 3: kernel vs plain version at main-path shapes."""
     import torch
@@ -94,8 +125,13 @@ def check_kernels(device):
             raise RuntimeError(f"K1 disagrees with mha_reference: {err}")
     ms = bench_ms(lambda: fa.flash_attention(q, k, v), device)
     plain = bench_ms(lambda: fa.mha_reference(q, k, v), device)
-    log(f"K1 B={CHUNK}: kernel {ms:.4f} ms, plain {plain:.4f} ms")
-    rec["flash_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+    # a yardstick timed here only: the port never calls it
+    lib = bench_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True), device)
+    bd = bound(nbytes(q, k, v, out), 4 * CHUNK * H * T * T * d / 2, "bf16")
+    log(f"K1 B={CHUNK}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library sdpa {lib:.4f} ms, "
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    rec["flash_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **bd,
                             shape=f"q/k/v [{CHUNK},{H},{T},{d}] bf16 causal")
 
     # K2: per-row quantizer, bit-equal codes; timed at the main-path M
@@ -115,8 +151,12 @@ def check_kernels(device):
         if M == CHUNK * T and K == 4096:
             ms = bench_ms(lambda: nf4.quantize_rows(x, mult), device)
             plain = bench_ms(lambda: nf4._quantize_rows_plain(x, mult), device)
-            log(f"K2 [{M}, {K}]: kernel {ms:.4f} ms, plain {plain:.4f} ms")
-            rec["quant_rows"] = dict(ms=ms, plain_ms=plain, shape=f"x [{M},{K}] bf16 + sq_inv")
+            # ~6 f32 operations per element; no single PyTorch call does it
+            bd = bound(nbytes(x, mult, xi, sx), 6 * M * K, "f32")
+            log(f"K2 [{M}, {K}]: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+            rec["quant_rows"] = dict(ms=ms, plain_ms=plain, library_ms=None, **bd,
+                                     shape=f"x [{M},{K}] bf16 + sq_inv")
         # the library int8 GEMM of the s8s8 path, exact against f64
         if K == 11008 and M == CHUNK * T:
             q8 = torch.randint(-127, 128, (K, 4096), generator=g, device=device,
@@ -133,7 +173,7 @@ def check_kernels(device):
     rec["quant_rows"]["max_abs_err"] = float(k2_err)
 
     # K3: int8 weight-only linear at decode M = 14
-    errs, ms_sum, plain_sum, eager_sum = [], 0.0, 0.0, 0.0
+    errs, ms_sum, plain_sum, eager_sum, k3_bytes, k3_ops = [], 0.0, 0.0, 0.0, 0, 0
     for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
         x = torch.randn((BATCH, K), generator=g, device=device).to(bf)
         w = torch.randn((K, N), generator=g, device=device) * K ** -0.5
@@ -156,11 +196,129 @@ def check_kernels(device):
         log(f"K3 M={BATCH} K={K} N={N}: kernel {ms:.4f} ms, plain(f32) {plain:.4f} ms, "
             f"eager bf16 dequant {eager:.4f} ms, int8 bytes {K * N / 1e6:.1f} MB")
         ms_sum, plain_sum, eager_sum = ms_sum + ms, plain_sum + plain, eager_sum + eager
+        k3_bytes += nbytes(x, q["q8"], q["scale8"], q["sq_inv"], y)
+        k3_ops += 2 * BATCH * K * N
+    bd = bound(k3_bytes, k3_ops, "bf16")
     rec["int8_linear"] = dict(max_abs_err=max(errs), ms=ms_sum, plain_ms=plain_sum,
+                              library_ms=eager_sum, **bd,
                               shape=f"M={BATCH}, (K,N) in (4096,4096),(4096,11008),"
                                     "(11008,4096), ms summed over the three")
     log(f"K3 sum of the three shapes: kernel {ms_sum:.4f} ms, plain {plain_sum:.4f} ms, "
-        f"eager bf16 dequant {eager_sum:.4f} ms")
+        f"eager bf16 dequant (library) {eager_sum:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+        f"({bd['bound_by']})")
+    rec.update(check_wwin_kernels(device, g))
+    return rec
+
+
+def check_wwin_kernels(device, g):
+    """Phase 3, K4 and K5: the cache part of the W-window decode attention
+    against its plain version, over a stacked 32-layer cache at the two
+    paths' shapes (S = 768 for the speculative batch, a 664-slot view for
+    the plain greedy batch), per-row valid lengths, one row with no valid
+    slot.  acc within 2e-3 relative + 2^-8 * l (the kernel rounds each
+    probability to bf16 against its warp's running maximum, the plain
+    version against the final one), m and l within 2e-3 relative, the
+    merged bf16 output within 1e-2 + 1e-2 |ref| (one bf16 ulp)."""
+    import torch
+
+    from cullavo_tpu_torch.models.llava.llama import quantize_kv, round_cache_len
+    from cullavo_tpu_torch.ops import wwin_decode as ww
+
+    bf = torch.bfloat16
+    L, B, KV, hd = 32, BATCH, 32, 128
+    T = PAD_TO * -(-(1 + 576 + PROMPT_TEXT) // PAD_TO)
+    S_spec, S_plain = round_cache_len(T + NEW_TOKENS + SPEC_K), T + NEW_TOKENS
+    scale = hd ** -0.5
+    cache = {"k": torch.empty((L, S_spec, B, KV, hd), dtype=bf, device=device),
+             "v": torch.empty((L, S_spec, B, KV, hd), dtype=bf, device=device)}
+    q8 = {name: torch.empty((L, S_spec, B, KV, hd), dtype=torch.int8, device=device)
+          for name in ("k", "v")}
+    q8.update({name: torch.empty((L, S_spec, B, KV), dtype=bf, device=device)
+               for name in ("k_s", "v_s")})
+    for li in range(L):   # layer by layer: the f32 draws of a whole cache would be 11 GB
+        for name in ("k", "v"):
+            cache[name][li] = torch.randn((S_spec, B, KV, hd), generator=g, device=device)
+            q8[name][li], q8[name + "_s"][li] = quantize_kv(cache[name][li])
+    n_valid = torch.randint(T - 7, T + NEW_TOKENS, (B,), generator=g, device=device)
+    n_valid[3] = 0                                           # a row with no valid slot
+
+    def window(W, S):
+        q = torch.randn((B, W, KV, hd), generator=g, device=device).to(bf).transpose(1, 2)
+        k_cur, v_cur = (torch.randn((B, KV, W, hd), generator=g, device=device).to(bf)
+                        for _ in range(2))
+        ok = torch.arange(S, device=device)[None, :] < n_valid[:, None]
+        bias = torch.where(ok, 0.0, ww.NEG_INF)[:, None, None, :].expand(B, 1, W, S).contiguous()
+        return q, k_cur, v_cur, bias
+
+    def partial_err(got, want):
+        (acc, m, l), (acc_r, m_r, l_r) = got, want
+        for name, a, r in (("m", m, m_r), ("l", l, l_r)):
+            if not torch.allclose(a, r, rtol=2e-3, atol=1e-3):
+                raise RuntimeError(f"{name} disagrees: {(a - r).abs().max().item()}")
+        excess = (acc - acc_r).abs() - 2e-3 * acc_r.abs() - 2.0 ** -8 * l_r[..., None]
+        if not (excess <= 0).all() or acc[3].any() or l[3].any():
+            raise RuntimeError(f"acc disagrees: excess {excess.max().item()}")
+        return (acc - acc_r).abs().max().item()
+
+    rec = {}
+    for name, kernel, plain, wrapper, tensors in (
+            ("wwin_decode", ww._run_cache_part, ww._cache_part_plain, ww.wwin_decode_smajor,
+             (cache["k"], cache["v"])),
+            ("wwin_decode_q8", ww._run_cache_part_q8, ww._cache_part_q8_plain,
+             ww.wwin_decode_smajor_q8, (q8["k"], q8["k_s"], q8["v"], q8["v_s"]))):
+        worst = 0.0
+        for W, S in ((1, S_spec), (SPEC_K, S_spec), (1, S_plain), (SPEC_K, S_plain)):
+            ops = tuple(t[:, :S] for t in tensors)           # S = 664: a strided view
+            q, k_cur, v_cur, bias = window(W, S)
+            win = None
+            if name == "wwin_decode_q8" and W > 1:
+                win = (*quantize_kv(k_cur.permute(2, 0, 1, 3)),
+                       *quantize_kv(v_cur.permute(2, 0, 1, 3)))
+            for li in (0, L // 2, L - 1) if S == S_spec else (L - 1,):
+                got = kernel(q, *ops, li, bias[:, 0], 1, scale)
+                want = plain(q, *ops, li, bias[:, 0], 1, scale)
+                torch.cuda.synchronize(device)
+                acc_err = partial_err(got, want)
+                kw = {} if win is None else {"win_q8": win}
+                out = wrapper(q, *ops, li, k_cur, v_cur, bias, **kw)
+                ref = ww._merge_self_window(q, k_cur, v_cur, *want, scale, **kw)
+                torch.cuda.synchronize(device)
+                err = (out.float() - ref.float()).abs().max().item()
+                worst = max(worst, err)
+                log(f"{name} W={W} S={S} li={li}: acc max_abs_err={acc_err:.3e} (tol 2e-3 rel + "
+                    f"2^-8 l), merged bf16 output max_abs_err={err:.3e} (tol 1e-2 + 1e-2 |ref|)")
+                if not (torch.isfinite(out).all()
+                        and torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=1e-2)):
+                    raise RuntimeError(f"{name} disagrees with its plain version: {err}")
+            # what this run's data needs: the valid slots' k and v (and scale
+            # planes), q, bias and the partials; 4 operations per q.k and p.v term
+            n_slots = int(n_valid.clamp_max(S).sum().item())
+            esz = tensors[0].element_size()
+            need = (2 * n_slots * KV * hd * esz + (4 * n_slots * KV if len(tensors) == 4 else 0)
+                    + nbytes(q, bias[:, 0], *got))
+            bd = bound(need, 4 * n_slots * KV * W * hd, "bf16")
+            li = L // 2
+            ms = bench_ms(lambda: kernel(q, *ops, li, bias[:, 0], 1, scale), device)
+            plain_ms = bench_ms(lambda: plain(q, *ops, li, bias[:, 0], 1, scale), device)
+            lib = None
+            if name == "wwin_decode":
+                # a yardstick timed here only (the port never calls it): the
+                # normalised cache-only attention over the layer's slice
+                kl, vl = (t[li].permute(1, 2, 0, 3) for t in ops)
+                lib = bench_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, kl, vl, attn_mask=bias), device)
+            log(f"{name} W={W} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library sdpa "
+                f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bd['bound_ms']:.4f} ms "
+                f"({bd['bound_by']}, {need / 1e6:.1f} MB needed)")
+            # the record keeps each kernel at the shape its main path gives it:
+            # K4 the plain greedy step (W = 1, S = 664), K5 the speculative window
+            if (W, S) == ((1, S_plain) if name == "wwin_decode" else (SPEC_K, S_spec)):
+                rec[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, **bd,
+                                 shape=f"q [{B},{KV},{W},{hd}] bf16, cache [{L},{S},{B},{KV},{hd}] "
+                                       f"{str(tensors[0].dtype).split('.')[1]}, one layer")
+        rec[name]["max_abs_err"] = worst
+    del cache, q8
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -187,47 +345,61 @@ def build_params(cfg, device):
     return params
 
 
-def reference_check(params, cfg, device):
-    """Phase 5: the first two LLM layers at full width, prefill (B=2, T=40,
-    one row right-padded) and one decode step, kernel path on the card vs
-    plain path on the CPU, same weights."""
-    import torch
-
-    from cullavo_tpu_torch.models.llava.config import LlavaConfig
-    from cullavo_tpu_torch.models.llava.modeling import generate_prefill, llava_forward
-
-    cfg2 = LlavaConfig(text=dataclasses.replace(cfg.text, num_hidden_layers=2))
+def cut_layers(params, cfg, n):
+    """The model cut to its first ``n`` LLM layers (views of the stacks)."""
     lm = params["language_model"]
 
     def cut(a):
-        return {k: v[:2] for k, v in a.items()} if isinstance(a, dict) else a[:2]
+        return {k: v[:n] for k, v in a.items()} if isinstance(a, dict) else a[:n]
 
-    lm2 = {"embed_tokens": lm["embed_tokens"], "lm_head": lm["lm_head"], "norm": lm["norm"],
-           "layers": {n: cut(a) for n, a in lm["layers"].items()}}
+    lm_n = {**lm, "layers": {name: cut(a) for name, a in lm["layers"].items()}}
+    return ({**params, "language_model": lm_n},
+            dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=n)))
+
+
+def reference_check(params, cfg, device):
+    """Phase 5: the first two LLM layers at full width, kernel path on the
+    card vs plain path on the CPU, same weights: prefill (B=2, T=40, one row
+    right-padded), one decode step, and a W = 4 window forward with per-row
+    write positions over a bf16 and an int8 cache."""
+    import torch
+
+    from cullavo_tpu_torch.models.llava.modeling import generate_prefill, llava_forward
+
+    params2, cfg2 = cut_layers(params, cfg, 2)
 
     def to(tree, dev):
         return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
 
     g = torch.Generator().manual_seed(SEED + 2)
-    B, T, S = 2, 40, 44
+    B, T, S, W = 2, 40, 48, SPEC_K
     ids = torch.randint(4, 32000, (B, T), generator=g, dtype=torch.int32)
+    win = torch.randint(4, 32000, (B, W), generator=g, dtype=torch.int32)
     mask = torch.ones((B, T), dtype=torch.int32)
     mask[1, 33:] = 0
     out = {}
     for dev in (device, torch.device("cpu")):
-        p = {"language_model": to(lm2, dev)}
+        p = {"language_model": to(params2["language_model"], dev)}
+        got = {}
+        for kv_quant in (None, "int8"):
+            st = generate_prefill(p, cfg2, ids.to(dev), None, mask.to(dev), S, kv_quant=kv_quant)
+            pos = st["cur_pos"][:, None] + torch.arange(W, device=dev)[None]
+            # per-row write positions: each row's window starts at its own length
+            logits, _ = llava_forward(p, cfg2, win.to(dev), None, None, pos, st["cache"],
+                                      st["cur_pos"], st["full_mask"], st["key_pos"],
+                                      stale_cache=True)
+            got[f"window W={W}, {kv_quant or 'bf16'} cache"] = logits.float().cpu()
         st = generate_prefill(p, cfg2, ids.to(dev), None, mask.to(dev), S)
         tok = st["logits"].argmax(-1).to(torch.int32)
-        full_mask, key_pos = st["full_mask"].clone(), st["key_pos"].clone()
-        logits, _ = llava_forward(
-            {"language_model": p["language_model"]}, cfg2, tok[:, None], None, None,
-            st["cur_pos"][:, None], st["cache"], st["write_idx"], full_mask, key_pos,
-            stale_cache=True)
-        out[dev.type] = (st["logits"].float().cpu(), logits[:, 0].float().cpu())
+        logits, _ = llava_forward(p, cfg2, tok[:, None], None, None, st["cur_pos"][:, None],
+                                  st["cache"], st["write_idx"], st["full_mask"], st["key_pos"],
+                                  stale_cache=True)
+        got["prefill"], got["decode"] = st["logits"].float().cpu()[:, None], logits.float().cpu()
+        out[dev.type] = got
     worst = 0.0
-    for name, a, b in (("prefill", out["cuda"][0], out["cpu"][0]),
-                       ("decode", out["cuda"][1], out["cpu"][1])):
-        if a.shape != (B, cfg.text.vocab_size) or not torch.isfinite(a).all():
+    for name, a in out["cuda"].items():
+        b = out["cpu"][name]
+        if a.shape[0] != B or a.shape[2] != cfg.text.vocab_size or not torch.isfinite(a).all():
             raise RuntimeError(f"reference check: bad {name} logits {tuple(a.shape)}")
         err = (a - b).abs().max().item()
         worst = max(worst, err)
@@ -237,13 +409,9 @@ def reference_check(params, cfg, device):
         raise RuntimeError(f"kernel path disagrees with the plain path: {worst}")
 
 
-def run_main_path(params, cfg, device):
-    """Phase 6: the 14-request VQA batch, twice."""
+def make_requests(cfg, device):
+    """The 14 VQA-shaped requests both paths answer."""
     import torch
-
-    from cullavo_tpu_torch.models.llava.modeling import (GenerationConfig,
-                                                         generate_decode,
-                                                         generate_prefill_chunked)
 
     g = torch.Generator(device=device).manual_seed(SEED + 3)
     n_img = cfg.num_image_tokens
@@ -253,46 +421,234 @@ def run_main_path(params, cfg, device):
     ids[:, 1:1 + n_img] = cfg.image_token_id
     mask = torch.ones((BATCH, T_pad), dtype=torch.int32, device=device)
     mask[:, T:] = 0
-    pix = torch.randn((BATCH, 3, 336, 336), generator=g, device=device)
+    side = cfg.vision.image_size
+    pix = torch.randn((BATCH, 3, side, side), generator=g, device=device)
+    return ids, mask, pix, T, T_pad
+
+
+def make_run(params, cfg, device, requests, kv_quant=None, spec_k=None):
+    """One batch of the 14 requests: plain greedy decode, or speculative
+    windows with ``spec_k``; bf16 or int8 KV cache."""
+    import torch
+
+    from cullavo_tpu_torch.models.llava.llama import round_cache_len
+    from cullavo_tpu_torch.models.llava.modeling import (GenerationConfig, generate_decode,
+                                                         generate_decode_spec,
+                                                         generate_prefill_chunked)
+
+    ids, mask, pix, _, T_pad = requests
     gen = GenerationConfig(max_new_tokens=NEW_TOKENS, do_sample=False, eos_token_id=-1)
+    cache_len = (T_pad + NEW_TOKENS if not spec_k
+                 else round_cache_len(T_pad + NEW_TOKENS + spec_k))
 
     def run(phase=contextlib.nullcontext):
-        """One batch; ``phase(name)`` wraps each phase (e.g. a profiler)."""
+        """``phase(name)`` wraps each phase (e.g. a profiler).  Returns
+        (tokens, prefill s, decode s, speculative stats or None)."""
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         with phase("prefill"):
-            state = generate_prefill_chunked(params, cfg, ids, pix, mask, T_pad + NEW_TOKENS,
-                                             CHUNK, compute_dtype=torch.bfloat16)
+            state = generate_prefill_chunked(params, cfg, ids, pix, mask, cache_len, CHUNK,
+                                             compute_dtype=torch.bfloat16, kv_quant=kv_quant)
             torch.cuda.synchronize(device)
         t1 = time.perf_counter()
         with phase("decode"):
-            tokens = generate_decode(params, cfg, state, gen, compute_dtype=torch.bfloat16)
+            if spec_k:
+                tokens, stats = generate_decode_spec(params, cfg, state, gen, spec_k, ids,
+                                                     mask.sum(dim=1),
+                                                     compute_dtype=torch.bfloat16)
+            else:
+                tokens, stats = generate_decode(params, cfg, state, gen,
+                                                compute_dtype=torch.bfloat16), None
             torch.cuda.synchronize(device)
         t2 = time.perf_counter()
-        return tokens.cpu(), t1 - t0, t2 - t1
+        return tokens.cpu(), t1 - t0, t2 - t1, stats
 
-    return run, T, T_pad
+    return run
 
 
-def profile_main_path(run):
+def replay(params, cfg, device, requests, tokens, kv_quant):
+    """Teacher-forced sequential decode: prefill, then T = 1 stale-cache
+    steps fed ``tokens`` [B, N].  Returns, per position, how far the given
+    token's logit lies below the step's maximum (0 where it is the argmax)
+    and the step's top-2 gap, both [B, N] on the host."""
+    import torch
+
+    from cullavo_tpu_torch.models.llava.modeling import generate_prefill_chunked, llava_forward
+
+    ids, mask, pix, _, T_pad = requests
+    st = generate_prefill_chunked(params, cfg, ids, pix, mask, T_pad + NEW_TOKENS, CHUNK,
+                                  compute_dtype=torch.bfloat16, kv_quant=kv_quant)
+    toks = tokens.to(device).long()
+    cur_pos, write_idx = st["cur_pos"], st["write_idx"]
+    below, gap = [], []
+
+    def score(logits, i):
+        top = torch.topk(logits, 2, dim=-1).values
+        below.append(top[:, 0] - logits.gather(1, toks[:, i:i + 1])[:, 0])
+        gap.append(top[:, 0] - top[:, 1])
+
+    score(st["logits"], 0)
+    for i in range(tokens.shape[1] - 1):
+        logits, _ = llava_forward(params, cfg, toks[:, i:i + 1].int(), None, None,
+                                  cur_pos[:, None], st["cache"], write_idx, st["full_mask"],
+                                  st["key_pos"], stale_cache=True)
+        st["full_mask"][:, write_idx] = 1
+        st["key_pos"][:, write_idx] = cur_pos
+        score(logits[:, 0], i + 1)
+        cur_pos, write_idx = cur_pos + 1, write_idx + 1
+    return torch.stack(below, dim=1).cpu(), torch.stack(gap, dim=1).cpu()
+
+
+def check_streams(label, params, cfg, device, requests, kv_quant, tok_spec, tok_greedy):
+    """The speculative stream against the greedy one.  In bf16 a window
+    forward and a one-token step round at other places (another M in the
+    linears; draft keys joined in the window merge, not read back by the
+    kernel), so their logits differ by up to about the tolerance phase 5
+    holds the kernel path to, and a near-tie of the random-weight logits may
+    resolve either way.  Held: every speculative token is the sequential
+    step's argmax within ``LOGIT_TOL`` (teacher-forced replay of the
+    speculative tokens), and every row whose greedy top-2 gaps all exceed
+    ``LOGIT_TOL`` is reproduced token for token."""
+    import torch
+
+    below, _ = replay(params, cfg, device, requests, tok_spec, kv_quant)
+    self_below, gap = replay(params, cfg, device, requests, tok_greedy, kv_quant)
+    same = (tok_spec == tok_greedy).all(dim=1)
+    decisive = gap.min(dim=1).values > LOGIT_TOL
+    for b in (~same).nonzero().flatten().tolist():
+        first = int((tok_spec[b] != tok_greedy[b]).nonzero()[0])
+        log(f"{label}: row {b} leaves the greedy stream at position {first} (greedy top-2 gap "
+            f"there {gap[b, first]:.4f}, the row's least gap {gap[b].min():.4f}): speculative "
+            f"{tok_spec[b].tolist()}, greedy {tok_greedy[b].tolist()}")
+    log(f"{label}: {int(same.sum())} of {len(same)} speculative rows equal the greedy stream; "
+        f"{int(decisive.sum())} rows have every greedy top-2 gap above {LOGIT_TOL} and "
+        f"{int((decisive & same).sum())} of them are equal; worst speculative token lies "
+        f"{below.max():.4f} below the sequential step's maximum (tol {LOGIT_TOL}); the replayed "
+        f"greedy stream lies {self_below.max():.4f} below")
+    if not (below.max() <= LOGIT_TOL and (same | ~decisive).all()):
+        raise RuntimeError(f"{label}: the speculative stream is not the greedy stream")
+    return int(same.sum())
+
+
+def check_tokens(tokens, vocab):
+    if tokens.shape != (BATCH, NEW_TOKENS) or tokens.min() < 0 or tokens.max() >= vocab:
+        raise RuntimeError(f"bad tokens: shape {tuple(tokens.shape)}, "
+                           f"range [{tokens.min()}, {tokens.max()}]")
+
+
+def counted(wrappers, run):
+    """Run one batch with every launch count set to 0 just before it and
+    read just after."""
+    for w in wrappers.values():
+        w.launches = 0
+    result = run()
+    return result, {name: w.launches for name, w in wrappers.items()}
+
+
+def run_greedy_path(params, cfg, device, requests, wrappers):
+    """Phase 6: plain greedy decode over the bf16 cache, twice.  Returns the
+    first run's launch counts and the batch function."""
+    import torch
+
+    _, _, _, T, T_pad = requests
+    run = make_run(params, cfg, device, requests)
+    torch.cuda.reset_peak_memory_stats(device)
+    (tok1, pre1, dec1, _), counts = counted(wrappers, run)
+    log(f"launches on the greedy bf16-cache path: {counts}")
+    path = ("flash_fwd", "quant_rows", "int8_linear", "wwin_decode")
+    if not all(counts[name] for name in path):
+        raise RuntimeError(f"a kernel of the path never launched: {counts}")
+    tok2, pre2, dec2, _ = run()
+    check_tokens(tok1, cfg.text.vocab_size)
+    if not torch.equal(tok1, tok2):
+        raise RuntimeError("two runs of the batch gave different tokens")
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    for i, (pre, dec) in enumerate(((pre1, dec1), (pre2, dec2)), 1):
+        log(f"greedy run {i}: prefill {pre:.4f} s, decode {dec:.4f} s "
+            f"({dec / (NEW_TOKENS - 1) * 1e3:.3f} ms per decode step), "
+            f"{BATCH / (pre + dec):.4f} images/s")
+    log(f"batch {BATCH}, prompt {T} real tokens padded to {T_pad}, chunk {CHUNK}, "
+        f"{NEW_TOKENS} greedy tokens; tokens identical across runs; "
+        f"peak memory {peak:.2f} GiB; tokens[0] {tok1[0].tolist()}")
+    return counts, run
+
+
+def run_spec_path(params, cfg, device, requests, wrappers):
+    """Phase 6b: int8 KV cache + speculative windows, twice; the int8 greedy
+    stream they must reproduce; the bf16 window at a smaller depth.  Returns
+    the first run's launch counts and the batch function."""
+    import torch
+
+    B, V = BATCH, cfg.text.vocab_size
+    run = make_run(params, cfg, device, requests, kv_quant="int8", spec_k=SPEC_K)
+    torch.cuda.reset_peak_memory_stats(device)
+    (tok1, pre1, dec1, st1), counts = counted(wrappers, run)
+    log(f"launches on the speculative int8-cache path: {counts}")
+    tok2, pre2, dec2, st2 = run()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    (tok_g, pre_g, dec_g, _), counts_g = counted(
+        wrappers, make_run(params, cfg, device, requests, kv_quant="int8"))
+    log(f"launches on the greedy int8-cache path: {counts_g}")
+    if not (counts["wwin_decode_q8"] and counts_g["wwin_decode_q8"]):
+        raise RuntimeError(f"K5 never launched: {counts}, {counts_g}")
+    for tok in (tok1, tok_g):
+        check_tokens(tok, V)
+    if not torch.equal(tok1, tok2) or st1 != st2:
+        raise RuntimeError("two speculative runs gave different tokens or counts")
+    windows, emitted = st1["windows"], st1["emitted"]
+    if not (B <= emitted <= NEW_TOKENS * B
+            and -(-(NEW_TOKENS - 1) // SPEC_K) <= windows <= NEW_TOKENS - 1):
+        raise RuntimeError(f"inconsistent speculative counts: {st1}")
+    if counts["wwin_decode_q8"] != windows * cfg.text.num_hidden_layers:
+        raise RuntimeError(f"K5 launches {counts['wwin_decode_q8']} != windows x layers")
+    for i, (pre, dec) in enumerate(((pre1, dec1), (pre2, dec2)), 1):
+        log(f"speculative run {i}: prefill {pre:.4f} s, decode {dec:.4f} s "
+            f"({dec / windows * 1e3:.3f} ms per window), {B / (pre + dec):.4f} images/s")
+    log(f"int8 greedy run: prefill {pre_g:.4f} s, decode {dec_g:.4f} s "
+        f"({dec_g / (NEW_TOKENS - 1) * 1e3:.3f} ms per decode step), "
+        f"{B / (pre_g + dec_g):.4f} images/s")
+    # the acceptance formula of generate_decode_spec, per row (a row that
+    # reaches its 16 tokens early still counts the later windows: a floor)
+    log(f"int8 KV cache, spec_k {SPEC_K}: windows {windows}, emitted {emitted}, "
+        f"{(emitted - B) / (windows * B):.3f} tokens per row and window, draft acceptance "
+        f"(emitted / B - 1 - windows) / (windows * (spec_k - 1)) = "
+        f"{(emitted / B - 1 - windows) / (windows * (SPEC_K - 1)):.3f}; tokens identical "
+        f"across runs; peak memory {peak:.2f} GiB; tokens[0] {tok1[0].tolist()}")
+    check_streams("int8 cache", params, cfg, device, requests, "int8", tok1, tok_g)
+
+    # the bf16 window (K4 at W = spec_k) at a smaller depth
+    params_n, cfg_n = cut_layers(params, cfg, SPEC_BF16_LAYERS)
+    (tok_s, _, dec_s, st_s), counts_s = counted(
+        wrappers, make_run(params_n, cfg_n, device, requests, spec_k=SPEC_K))
+    tok_p = make_run(params_n, cfg_n, device, requests)()[0]
+    check_tokens(tok_s, V)
+    log(f"bf16 cache, spec_k {SPEC_K}, {SPEC_BF16_LAYERS} layers: {st_s}, "
+        f"{dec_s / st_s['windows'] * 1e3:.3f} ms per window, launches {counts_s}")
+    if counts_s["wwin_decode"] != st_s["windows"] * SPEC_BF16_LAYERS:
+        raise RuntimeError("K4 launches != windows x layers on the bf16 speculative run")
+    check_streams(f"bf16 cache, {SPEC_BF16_LAYERS} layers", params_n, cfg_n, device, requests,
+                  None, tok_s, tok_p)
+    return counts, run
+
+
+def profile_path(name, run):
     """``--profile``: one more batch under torch.profiler; per phase, the
     device-busy share of the wall time and the kernels by device time."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     profs = {}
 
     @contextlib.contextmanager
-    def phase(name):
+    def phase(label):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             yield
-        profs[name] = prof
+        profs[label] = prof
 
-    _, pre, dec = run(phase)
-    for name, wall in (("prefill", pre), ("decode", dec)):
-        ka = profs[name].key_averages()
+    _, pre, dec, _ = run(phase)
+    for label, wall in (("prefill", pre), ("decode", dec)):
+        ka = profs[label].key_averages()
         busy = sum(e.self_device_time_total for e in ka) / 1e6
-        log(f"profile {name}: wall {wall:.4f} s (profiled), device busy {busy:.4f} s "
+        log(f"profile {name} {label}: wall {wall:.4f} s (profiled), device busy {busy:.4f} s "
             f"({100 * busy / wall:.1f}%)")
         log(ka.table(sort_by="self_device_time_total", row_limit=18,
                      max_name_column_width=70))
@@ -309,6 +665,7 @@ def main(argv):
     from cullavo_tpu_torch.models.llava.config import LlavaConfig
     from cullavo_tpu_torch.ops import flash_attention as fa
     from cullavo_tpu_torch.ops import nf4
+    from cullavo_tpu_torch.ops import wwin_decode as ww
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -335,52 +692,42 @@ def main(argv):
     # phase 3
     rec = check_kernels(device)
     wrappers = {"flash_fwd": fa.flash_attention, "quant_rows": nf4.quantize_rows,
-                "int8_linear": nf4.int8_linear}
+                "int8_linear": nf4.int8_linear, "wwin_decode": ww.wwin_decode_smajor,
+                "wwin_decode_q8": ww.wwin_decode_smajor_q8}
     meta = {"flash_fwd": ("cullavo_tpu_torch/csrc/flash_fwd.cu",
                           "cullavo_tpu/ops/flash_attention.py:259"),
             "quant_rows": ("cullavo_tpu_torch/csrc/quant_rows.cu",
                            "cullavo_tpu/ops/nf4.py:1157"),
             "int8_linear": ("cullavo_tpu_torch/csrc/int8_matmul.cu",
-                            "cullavo_tpu/ops/nf4.py:912")}
+                            "cullavo_tpu/ops/nf4.py:912"),
+            "wwin_decode": ("cullavo_tpu_torch/csrc/wwin_decode.cu",
+                            "cullavo_tpu/ops/wwin_decode.py:52"),
+            "wwin_decode_q8": ("cullavo_tpu_torch/csrc/wwin_decode.cu",
+                               "cullavo_tpu/ops/wwin_decode.py:104")}
 
-    # phases 4-6
+    # phases 4-6b
     cfg = LlavaConfig()
     t0 = time.perf_counter()
     params = build_params(cfg, device)
     log(f"7B params built in {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB allocated")
     reference_check(params, cfg, device)
-
-    run, T, T_pad = run_main_path(params, cfg, device)
-    torch.cuda.reset_peak_memory_stats(device)
-    for w in wrappers.values():
-        w.launches = 0
-    tok1, pre1, dec1 = run()
-    counts = {name: w.launches for name, w in wrappers.items()}
-    log(f"launches on the main path: {counts}")
+    requests = make_requests(cfg, device)
+    counts, run_greedy = run_greedy_path(params, cfg, device, requests, wrappers)
+    counts_spec, run_spec = run_spec_path(params, cfg, device, requests, wrappers)
+    # each kernel's launches on the main path that runs it: K1-K4 the greedy
+    # bf16-cache batch, K5 the speculative int8-cache batch
+    counts["wwin_decode_q8"] = counts_spec["wwin_decode_q8"]
     if not all(counts.values()):
-        raise RuntimeError(f"a kernel of the path never launched: {counts}")
-    tok2, pre2, dec2 = run()
-    V = cfg.text.vocab_size
-    if tok1.shape != (BATCH, NEW_TOKENS) or tok1.min() < 0 or tok1.max() >= V:
-        raise RuntimeError(f"bad tokens: shape {tuple(tok1.shape)}, "
-                           f"range [{tok1.min()}, {tok1.max()}]")
-    if not torch.equal(tok1, tok2):
-        raise RuntimeError("two runs of the batch gave different tokens")
-    peak = torch.cuda.max_memory_allocated(device) / 2**30
-    for i, (pre, dec) in enumerate(((pre1, dec1), (pre2, dec2)), 1):
-        log(f"run {i}: prefill {pre:.4f} s, decode {dec:.4f} s "
-            f"({dec / (NEW_TOKENS - 1) * 1e3:.3f} ms per decode step), "
-            f"{BATCH / (pre + dec):.4f} images/s")
-    log(f"batch {BATCH}, prompt {T} real tokens padded to {T_pad}, chunk {CHUNK}, "
-        f"{NEW_TOKENS} greedy tokens; tokens identical across runs; "
-        f"peak memory {peak:.2f} GiB; tokens[0] {tok1[0].tolist()}")
-    if "--profile" in argv:
-        profile_main_path(run)
+        raise RuntimeError(f"a kernel never launched on its main path: {counts}")
+    if "--profile" in argv:   # last: an attached profiler slows every later launch
+        profile_path("greedy bf16-cache", run_greedy)
+        profile_path("speculative int8-cache", run_spec)
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     kernels = [{"name": name, "route": "cuda", "source": meta[name][0],
                 "replaces": meta[name][1], "launches": counts[name],
-                **{k: rec[name][k] for k in ("max_abs_err", "ms", "plain_ms", "shape")}}
+                **{k: rec[name][k] for k in keys}}
                for name in wrappers]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 """Builds and loads the port's CUDA kernels (``csrc/*.cu``).
 
-All sources compile with ``nvcc`` into ONE shared library with a plain C
+All sources compile with ``nvcc`` (one compiler process per source, all
+started together) and link into ONE shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers: a source that
 includes them takes minutes to compile, a plain-C one seconds).  The
 library lands in ``cullavo_tpu_torch/_build/`` under a name keyed by a hash
@@ -26,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +40,8 @@ SIGNATURES = {
                           _F, _P],
     "cullavo_quant_rows": [_P, _P, _P, _P, _I, _I, _P],
     "cullavo_int8_linear": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cullavo_wwin_decode": [_P] * 7 + [_I] * 7 + [_L] * 9 + [_F, _P],
+    "cullavo_wwin_decode_q8": [_P] * 9 + [_I] * 7 + [_L] * 13 + [_F, _P],
 }
 
 _lib = None
@@ -71,15 +74,32 @@ def lib() -> ctypes.CDLL:
     path = BUILD_DIR / f"libcullavo_kernels_{h.hexdigest()[:16]}.so"
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
         t0 = time.time()
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+            jobs.append((obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        logs = [(obj, proc, proc.communicate()[1]) for obj, proc in jobs]
+        failed = [f"{obj.name} ({proc.returncode}):\n{err}"
+                  for obj, proc, err in logs if proc.returncode != 0]
+        link = None
+        if not failed:
+            link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                                   *[str(obj) for obj, _, _ in logs]],
+                                  capture_output=True, text=True)
+        for obj, _, _ in logs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
         os.replace(tmp, path)
-        build_info.update(seconds=time.time() - t0, ptxas=res.stderr)
+        build_info.update(seconds=time.time() - t0,
+                          ptxas="".join(err for _, _, err in logs))
     else:
         build_info.update(seconds=0.0, ptxas="(cached build)")
     so = ctypes.CDLL(str(path))

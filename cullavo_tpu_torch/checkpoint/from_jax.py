@@ -1,4 +1,4 @@
-"""Weight bridge between the JAX package's parameter trees and the port.
+"""Weight and decode-state bridge between the JAX package's trees and the port.
 
 ``llava_params_from_numpy`` takes a JAX LLaVA parameter tree whose leaves
 are numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
@@ -7,6 +7,8 @@ bit for bit.  Stacked ``[L, ...]`` layer leaves stay stacked; f32, bf16
 and int8 leaves keep their dtype; int8 weight dicts ``{q8, scale8,
 sq_inv}`` pass through as dicts.  Dict kinds outside this slice raise.
 ``llava_params_to_numpy`` is the inverse (the round trip is exact).
+``decode_state_from_numpy`` does the same for a prefill/decode state, so
+both packages can continue from one prefilled cache.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 
 from cullavo_tpu_torch.ops.nf4 import check_slice_kind
 
-_PLAIN_DTYPES = (np.dtype(np.float32), np.dtype(np.int8))
+_PLAIN_DTYPES = (np.dtype(np.float32), np.dtype(np.int8), np.dtype(np.int32))
 
 
 def _leaf_to_torch(a, device) -> torch.Tensor:
@@ -25,7 +27,7 @@ def _leaf_to_torch(a, device) -> torch.Tensor:
     elif a.dtype in _PLAIN_DTYPES:
         t = torch.from_numpy(a)
     else:
-        raise TypeError(f"unsupported parameter dtype {a.dtype}")
+        raise TypeError(f"unsupported leaf dtype {a.dtype}")
     return t.to(device)
 
 
@@ -54,3 +56,20 @@ def llava_params_to_numpy(params: dict) -> dict:
         return t.numpy()
 
     return conv(params)
+
+
+def decode_state_from_numpy(state: dict, device) -> dict:
+    """A JAX decode state with numpy leaves (``logits``, ``cache`` {``k``,
+    ``v`` and, for the int8 cache, ``k_s``, ``v_s``}, ``full_mask``,
+    ``key_pos``, ``cur_pos``, ``write_idx``, optional ``adapter_ids``) ->
+    the port's state on ``device``, bit for bit.  A scalar ``write_idx``
+    becomes a host int (the plain decode loop's form), a per-row one an
+    int32 [B] tensor."""
+    out = {key: _leaf_to_torch(state[key], device)
+           for key in ("logits", "full_mask", "key_pos", "cur_pos")}
+    out["cache"] = {name: _leaf_to_torch(a, device) for name, a in state["cache"].items()}
+    widx = np.asarray(state["write_idx"])
+    out["write_idx"] = int(widx) if widx.ndim == 0 else _leaf_to_torch(widx, device)
+    out["adapter_ids"] = (_leaf_to_torch(state["adapter_ids"], device) if "adapter_ids" in state
+                          else torch.zeros_like(out["cur_pos"]))
+    return out

@@ -61,7 +61,7 @@ def clip_vision_forward(params: dict, cfg: ClipVisionConfig,
     layers = params["layers"]
     for name in ("q", "k", "v", "o", "fc1", "fc2"):
         if isinstance(layers[name], dict):
-            raise NotImplementedError("an int8 vision tower waits for slice 2")
+            raise NotImplementedError("an int8 vision tower waits for the NF4 slice")
 
     def heads(t):
         return t.reshape(B, T, H, hd).transpose(1, 2)

@@ -3,17 +3,23 @@
 Parameters are the JAX package's dict layout with every per-layer weight
 stacked on a leading layer axis (``params["layers"][name]`` is [L, ...]);
 the forward is a Python loop over layers that indexes those stacks (views,
-no copies).  The KV cache keeps the S-major ``[L, S, B, KV, hd]`` layout.
+no copies).  The KV cache keeps the S-major ``[L, S, B, KV, hd]`` layout,
+bf16 (``{"k", "v"}``) or int8 with bf16 per-vector scale planes
+(``{"k", "v", "k_s", "v_s"}``, planes ``[L, S, B, KV]``).
 
-Modes in this slice:
-  * no-cache forward, and the cache-building prefill (``prefill_pad_len``);
-    attention is the causal flash kernel (K1) on the right-padded batch;
-  * ``stale_cache`` T = 1 decode over a bf16 cache with a scalar
-    ``cache_index``: attention reads the cache without the current token,
-    folds the fresh k/v in out of band, and the fresh k/v are then written
-    into the cache IN PLACE (the returned cache is the input tensors).
-Other modes (int8 KV cache, speculative windows, per-row write positions,
-cached T > 1 forwards, adapters) wait for slice 3 and raise.
+Modes:
+  * no-cache forward, and the cache-building prefill (``prefill_pad_len``,
+    ``kv_quant``); attention is the causal flash kernel (K1) on the
+    right-padded batch;
+  * ``stale_cache`` decode of T >= 1 fresh tokens (T = 1: the classic step;
+    T > 1: a speculative-verification window) with a scalar ``cache_index``
+    or a per-row int32 ``[B]`` one: attention reads the cache without the
+    fresh tokens and folds their k/v in out of band (K4 / K5 on CUDA
+    tensors, the plain ``sdpa_decode_stale_smajor[_q8]`` on CPU tensors),
+    and the fresh k/v are then written into the cache IN PLACE (the
+    returned cache is the input tensors).
+Cached forwards without ``stale_cache`` (prefix reuse), sliding windows and
+adapters wait for later slices and raise.
 """
 from __future__ import annotations
 
@@ -25,8 +31,10 @@ import torch.nn.functional as F
 from cullavo_tpu_torch.models.llava.config import LlamaConfig
 from cullavo_tpu_torch.ops import nf4 as nf4_ops
 from cullavo_tpu_torch.ops.flash_attention import flash_attention
-
-NEG_INF = -0.7 * torch.finfo(torch.float32).max
+from cullavo_tpu_torch.ops.wwin_decode import (NEG_INF, _fold_scale, _window_scores,
+                                               _window_scores_q8, _window_values_q8,
+                                               wwin_decode_smajor,
+                                               wwin_decode_smajor_q8)
 
 
 # ---------------------------------------------------------------------------
@@ -81,28 +89,120 @@ def sdpa(q, k, v, bias: Optional[torch.Tensor]) -> torch.Tensor:
     return torch.matmul(probs.to(q.dtype).float(), v.float()).to(q.dtype)
 
 
-def sdpa_decode_stale_smajor(q, k_cache, v_cache, k_cur, v_cur, bias, n_rep=1):
-    """One-token decode attention over an S-major cache slice
-    ``[S, B, KV, hd]`` that does NOT yet hold the current token; the current
-    token's k/v (already repeated to H heads) join the softmax out of band.
-    q, k_cur, v_cur: [B, H, 1, hd]; bias: [B|1, 1|H, 1, S] additive.
-    Plain torch, as the JAX package leaves this to XLA."""
-    if q.shape[2] != 1:
-        raise NotImplementedError("decode windows W > 1 (speculative "
-                                  "verification) wait for slice 3")
-    scale = q.shape[-1] ** -0.5
+def round_cache_len(n: int) -> int:
+    """Round a KV-cache length up to a multiple of 128 slots (extra slots
+    stay masked).  Every speculative caller rounds through this, as the JAX
+    package's callers do, so both packages size their caches alike."""
+    return -(-n // 128) * 128
+
+
+def sdpa_decode_stale_smajor(q, k_cache, v_cache, k_cur, v_cur, bias, n_rep=1, scale=None):
+    """Decode attention over an S-major cache slice ``[S, B, KV, hd]`` that
+    does NOT yet hold the fresh tokens; their k/v (already repeated to H
+    heads) join the softmax out of band.  q, k_cur, v_cur: [B, H, W, hd]
+    (W = 1 classic decode; W > 1 speculative window, intra-window causal);
+    bias: [B|1, 1|H, W, S] additive.  Plain torch, as the JAX package
+    leaves this to XLA."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     k = k_cache if n_rep == 1 else torch.repeat_interleave(k_cache, n_rep, dim=2)
     v = v_cache if n_rep == 1 else torch.repeat_interleave(v_cache, n_rep, dim=2)
-    qf = q.float()
-    s_self = (qf * k_cur.float()).sum(dim=-1, keepdim=True) * scale   # [B, H, 1, 1]
-    s_cache = torch.einsum("bhqd,sbhd->bhqs", qf, k.float()) * scale + bias
-    m = torch.maximum(s_cache.amax(dim=-1, keepdim=True), s_self)
+    s_self = _window_scores(q, k_cur, scale)                          # [B, H, W, W]
+    s_cache = torch.einsum("bhqd,sbhd->bhqs", q.float(), k.float()) * scale + bias
+    m = torch.maximum(s_cache.amax(dim=-1, keepdim=True), s_self.amax(dim=-1, keepdim=True))
     e_c = torch.exp(s_cache - m)
     e_s = torch.exp(s_self - m)
-    denom = e_c.sum(dim=-1, keepdim=True) + e_s
+    denom = e_c.sum(dim=-1, keepdim=True) + e_s.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhqs,sbhd->bhqd", (e_c / denom).to(q.dtype).float(), v.float())
-    out = out + (e_s / denom) * v_cur.float()
+    out = out + torch.matmul(e_s / denom, v_cur.float())
     return out.to(q.dtype)
+
+
+def quantize_kv(x: torch.Tensor):
+    """Symmetric per-vector int8 quantization over the head dim:
+    x [..., hd] float -> (int8 [..., hd], bf16 scale [...]).  The codes are
+    made from the f32 scale; the scale is rounded to bf16 afterwards."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1).clamp_min(1e-8)
+    scale = nf4_ops._div(amax, torch.full_like(amax, 127.0))
+    q = torch.round(nf4_ops._div(xf, scale[..., None])).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def sdpa_decode_stale_smajor_q8(q, k_q, k_s, v_q, v_s, k_cur, v_cur, bias,
+                                n_rep=1, scale=None, win_q8=None):
+    """``sdpa_decode_stale_smajor`` over an int8 cache slice: k_q/v_q int8
+    [S, B, KV, hd], k_s/v_s [S, B, KV] per-vector scales folded OUTSIDE the
+    dots (scores = (q.k_int8) * k_s, out = (p * v_s).v_int8).  The fresh
+    window's k/v stay at full precision and arrive repeated to H heads.
+
+    ``win_q8`` (W > 1): the window's quantized k/v as they are about to be
+    written to the cache; the window then takes the cache's compute path
+    (``ops.wwin_decode._window_scores_q8``), which keeps the speculative
+    stream equal to the sequential one under an int8 cache."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if n_rep != 1:
+        k_q, v_q = (torch.repeat_interleave(t, n_rep, dim=2) for t in (k_q, v_q))
+        k_s, v_s = (torch.repeat_interleave(t, n_rep, dim=2) for t in (k_s, v_s))
+    s_cache = torch.einsum("bhqd,sbhd->bhqs", q.float(), k_q.to(q.dtype).float())
+    s_cache = s_cache * (_fold_scale(k_s) * scale) + bias
+    quant_win = win_q8 is not None and q.shape[2] > 1
+    if quant_win:
+        s_self, eye, v_wq, v_ws = _window_scores_q8(q, k_cur, win_q8, n_rep, scale)
+    else:
+        s_self = _window_scores(q, k_cur, scale)                      # [B, H, W, W]
+    m = torch.maximum(s_cache.amax(dim=-1, keepdim=True), s_self.amax(dim=-1, keepdim=True))
+    e_c = torch.exp(s_cache - m)
+    e_s = torch.exp(s_self - m)
+    denom = e_c.sum(dim=-1, keepdim=True) + e_s.sum(dim=-1, keepdim=True)
+    p = (e_c / denom) * _fold_scale(v_s)
+    out = torch.einsum("bhqs,sbhd->bhqd", p.to(q.dtype).float(), v_q.to(q.dtype).float())
+    if quant_win:
+        out = out + _window_values_q8(e_s / denom, eye, v_wq, v_ws, v_cur, q.dtype)
+    else:
+        out = out + torch.matmul(e_s / denom, v_cur.float())
+    return out.to(q.dtype)
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+                  kv_quant: Optional[str] = None, device=None) -> dict:
+    """Zeroed S-major KV cache ``[L, S, B, KV, hd]``.  ``kv_quant="int8"``
+    stores int8 values + per-(slot, batch, head) bf16 scale planes
+    ``k_s/v_s [L, S, B, KV]``: half the footprint and half the bytes a
+    decode step reads."""
+    L, KV, hd = cfg.num_hidden_layers, cfg.num_key_value_heads, cfg.head_dim
+    shape = (L, max_len, batch, KV, hd)
+    if kv_quant == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_s": torch.zeros(shape[:4], dtype=torch.bfloat16, device=device),
+                "v_s": torch.zeros(shape[:4], dtype=torch.bfloat16, device=device)}
+    if kv_quant is not None:
+        raise ValueError(f"unknown kv_quant {kv_quant!r}")
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _write_window(buf, li: int, cache_index, new):
+    """Write the window ``new`` [T, B, ...] into ``buf[li]`` ([S, B, ...]) IN
+    PLACE at slots ``cache_index .. cache_index + T - 1``: one slab for a
+    scalar index, one per-row scatter for an int32 [B] tensor.  A per-row
+    slot outside [0, S) is DROPPED (rows that are done or exhausted rely on
+    it), never clamped into a live slot: its entry goes to the slot modulo S
+    and rewrites that slot's own old value.  A row's T consecutive slots stay
+    distinct modulo S (T <= S), so the scatter has no duplicate target."""
+    T, B = new.shape[:2]
+    layer = buf[li]
+    if not isinstance(cache_index, torch.Tensor):
+        layer[cache_index:cache_index + T] = new
+        return
+    S = layer.shape[0]
+    if T > S:
+        raise ValueError(f"a window of {T} tokens does not fit a cache of {S} slots")
+    pos = cache_index.long()[None, :] + torch.arange(T, device=new.device)[:, None]  # [T, B]
+    keep = ((pos >= 0) & (pos < S)).reshape(T, B, *([1] * (new.dim() - 2)))
+    slot = pos % S
+    rows = torch.arange(B, device=new.device).expand(T, B)
+    layer[slot, rows] = torch.where(keep, new, layer[slot, rows])
 
 
 # ---------------------------------------------------------------------------
@@ -146,11 +246,12 @@ def llama_forward(
     attention_mask: torch.Tensor,         # [B, S] 1/0; S = T (no cache) or max_len
     position_ids: torch.Tensor,           # [B, T]
     cache: Optional[dict] = None,
-    cache_index: Optional[int] = None,    # scalar cache write offset
+    cache_index=None,                     # cache write offset: int, or int32 [B] per row
     key_position_ids: Optional[torch.Tensor] = None,  # [B, S] logical pos per slot
     use_flash: Optional[bool] = None,     # None = auto (flash without a cache)
     stale_cache: bool = False,
     prefill_pad_len: Optional[int] = None,
+    kv_quant: Optional[str] = None,       # "int8": the prefill builds a quantized cache
 ):
     """Run the decoder stack; returns (final_hidden, new_cache).
 
@@ -160,12 +261,15 @@ def llama_forward(
     right-padded batch, while padded rows (discarded downstream) also see
     padded keys.  ``use_flash=False`` runs ``sdpa`` with the full key-padding
     bias.  ``prefill_pad_len``: each layer also writes its k/v into a
-    zero-initialised ``[L, prefill_pad_len, B, KV, hd]`` cache, returned as
-    ``{"k", "v"}``.
+    zero-initialised ``[L, prefill_pad_len, B, KV, hd]`` cache (see
+    ``init_kv_cache``; ``kv_quant="int8"`` quantizes them per vector).
 
-    ``stale_cache`` (T = 1): the cache is read without the current position
-    (``attention_mask`` must not include it yet), and each layer then writes
-    the current k/v at ``cache_index`` in place."""
+    ``stale_cache`` (T >= 1 fresh tokens): the cache is read without the
+    fresh positions (``attention_mask`` must not include them yet; they are
+    mutually causal), and each layer then writes the fresh k/v at
+    ``cache_index .. cache_index + T - 1`` in place, quantized when the
+    cache carries scale planes.  A per-row ``cache_index`` drops writes that
+    fall outside the cache."""
     B, T, D = inputs_embeds.shape
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     n_rep = H // KV
@@ -173,20 +277,17 @@ def llama_forward(
     if cfg.sliding_window is not None:
         raise NotImplementedError("Mistral sliding-window attention (BakLLaVA) "
                                   "waits for slice 6")
-    if cache is not None and "k_s" in cache:
-        raise NotImplementedError("the int8 KV cache waits for slice 3")
     if cache is not None and not stale_cache:
-        raise NotImplementedError("cached T > 1 forwards (prefix reuse) wait for slice 3")
-    if stale_cache:
-        if cache is None:
-            raise ValueError("stale_cache needs a cache")
-        if T != 1:
-            raise NotImplementedError("speculative windows (T > 1) wait for slice 3")
-        if not isinstance(cache_index, int):
-            raise NotImplementedError("per-row cache write positions (serving "
-                                      "slot pools) wait for slice 3")
+        raise NotImplementedError("cached forwards without stale_cache (prefix reuse) "
+                                  "wait for slice 3")
+    if stale_cache and cache is None:
+        raise ValueError("stale_cache needs a cache")
     if prefill_pad_len is not None and cache is not None:
         raise ValueError("prefill_pad_len builds a cache; it takes no cache")
+    if kv_quant not in (None, "int8"):
+        raise ValueError(f"unknown kv_quant {kv_quant!r}")
+    # an existing quantized cache carries its scale planes; a prefill opts in
+    kv_q8 = kv_quant == "int8" or (cache is not None and "k_s" in cache)
     if use_flash is None:
         use_flash = cache is None
 
@@ -205,12 +306,11 @@ def llama_forward(
     L = layers["input_ln"].shape[0]
     new_cache = None
     if prefill_pad_len is not None:
-        new_cache = {"k": torch.zeros((L, prefill_pad_len, B, KV, hd), dtype=dtype,
-                                      device=inputs_embeds.device),
-                     "v": torch.zeros((L, prefill_pad_len, B, KV, hd), dtype=dtype,
-                                      device=inputs_embeds.device)}
+        new_cache = init_kv_cache(cfg, B, prefill_pad_len, dtype, kv_quant,
+                                  device=inputs_embeds.device)
     elif stale_cache:
         new_cache = cache
+    on_cpu = inputs_embeds.device.type == "cpu"
 
     h = inputs_embeds
     for li in range(L):
@@ -223,21 +323,48 @@ def llama_forward(
         v = yv.reshape(B, T, KV, hd)
         # [B, heads, T, hd] views of the projection layout (no copies)
         qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        k_sm, v_sm = k.transpose(0, 1), v.transpose(0, 1)          # [T, B, KV, hd] slots
         if cache is None:
-            if prefill_pad_len is not None:
-                new_cache["k"][li, :T] = k.transpose(0, 1)        # S-major slots
-                new_cache["v"][li, :T] = v.transpose(0, 1)
+            if prefill_pad_len is not None and kv_q8:
+                for name, plane, x_sm in (("k", "k_s", k_sm), ("v", "v_s", v_sm)):
+                    codes, scales = quantize_kv(x_sm)
+                    new_cache[name][li, :T] = codes
+                    new_cache[plane][li, :T] = scales
+            elif prefill_pad_len is not None:
+                new_cache["k"][li, :T] = k_sm
+                new_cache["v"][li, :T] = v_sm
             if use_flash:
                 attn = flash_attention(qh, repeat_kv(kh, n_rep), repeat_kv(vh, n_rep))
             else:
                 attn = sdpa(qh, repeat_kv(kh, n_rep), repeat_kv(vh, n_rep), bias)
+        elif kv_q8:
+            # CUDA tensors: K5 reads the stacked cache in place; CPU: plain slice
+            kr, vr = repeat_kv(kh, n_rep), repeat_kv(vh, n_rep)
+            kq, ks = quantize_kv(k_sm)
+            vq, vs = quantize_kv(v_sm)
+            win_q8 = (kq, ks, vq, vs) if T > 1 else None
+            if on_cpu:
+                attn = sdpa_decode_stale_smajor_q8(
+                    qh, cache["k"][li], cache["k_s"][li], cache["v"][li], cache["v_s"][li],
+                    kr, vr, bias, n_rep=n_rep, win_q8=win_q8)
+            else:
+                attn = wwin_decode_smajor_q8(
+                    qh, cache["k"], cache["k_s"], cache["v"], cache["v_s"], li,
+                    kr, vr, bias, n_rep=n_rep, win_q8=win_q8)
+            for name, new in (("k", kq), ("k_s", ks), ("v", vq), ("v_s", vs)):
+                _write_window(cache[name], li, cache_index, new)
         else:
-            kc, vc = cache["k"][li], cache["v"][li]
-            attn = sdpa_decode_stale_smajor(
-                qh, kc.to(dtype), vc.to(dtype), repeat_kv(kh, n_rep),
-                repeat_kv(vh, n_rep), bias, n_rep=n_rep)
-            kc[cache_index] = k[:, 0].to(kc.dtype)                # in place
-            vc[cache_index] = v[:, 0].to(vc.dtype)
+            # CUDA tensors: K4 reads the stacked cache in place; CPU: plain slice
+            kr, vr = repeat_kv(kh, n_rep), repeat_kv(vh, n_rep)
+            if on_cpu:
+                attn = sdpa_decode_stale_smajor(
+                    qh, cache["k"][li].to(dtype), cache["v"][li].to(dtype), kr, vr, bias,
+                    n_rep=n_rep)
+            else:
+                attn = wwin_decode_smajor(qh, cache["k"], cache["v"], li, kr, vr, bias,
+                                          n_rep=n_rep)
+            _write_window(cache["k"], li, cache_index, k_sm.to(cache["k"].dtype))
+            _write_window(cache["v"], li, cache_index, v_sm.to(cache["v"].dtype))
         attn = attn.transpose(1, 2).reshape(B, T, H * hd)
         h = residual + _mm(attn, w["o"])
 

@@ -1,6 +1,6 @@
 """LLM base-weight quantization (the int8 branch of
 ``cullavo_tpu/models/llava/lora.py::quantize_llm_weights``).  Adapters
-(single, multi-stacked, runtime LoRA) wait for slice 2."""
+(single, multi-stacked, runtime LoRA) wait for the NF4 slice."""
 from __future__ import annotations
 
 import torch
@@ -24,7 +24,7 @@ def quantize_llm_weights(params: dict, bits: int = 8,
     ([K] or stacked [L, K]); calibrated dicts take the s8s8 prefill path.
     Members of a shared-input group must carry equal scales."""
     if bits != 8:
-        raise NotImplementedError("NF4 (bits=4) base weights wait for slice 2")
+        raise NotImplementedError("NF4 (bits=4) base weights wait for the NF4 slice")
     smooth_scales = smooth_scales or {}
     for group in SHARED_INPUT_GROUPS:
         present = [t for t in group if smooth_scales.get(t) is not None]

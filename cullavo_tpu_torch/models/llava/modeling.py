@@ -1,14 +1,16 @@
 """LLaVA-1.5 in PyTorch: vision tower + projector + LLaMA, token merge and
-two-phase greedy generation (counterpart of
+two-phase greedy generation, plain and speculative (counterpart of
 ``cullavo_tpu/models/llava/modeling.py``).
 
 Parameters are plain dicts of tensors in the JAX package's layout, and the
 prefill/decode states keep its keys and layouts (S-major cache
-``[L, S, B, KV, hd]``), so the tests compare like with like.  Where JAX
-donates a state and returns an updated copy, the port updates it in place
-(``merge_decode_state``, ``generate_decode``); the functions say so.
-Generation runs eagerly: a Python loop over decode steps, ``write_idx`` a
-host integer.
+``[L, S, B, KV, hd]``, bf16 or int8 with scale planes), so the tests
+compare like with like.  Where JAX donates a state and returns an updated
+copy, the port updates it in place (``merge_decode_state``,
+``generate_decode``, ``generate_decode_spec``); the functions say so.
+Generation runs eagerly: a Python loop over decode steps with ``write_idx``
+a host integer, or over speculative windows with ``write_idx`` an int32
+[B] tensor on the device and one host read per window.
 """
 from __future__ import annotations
 
@@ -148,13 +150,15 @@ def _positions(attention_mask):
 def llava_forward(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
                   pixel_values: Optional[torch.Tensor], attention_mask: torch.Tensor,
                   position_ids: Optional[torch.Tensor] = None,
-                  cache: Optional[dict] = None, cache_index: Optional[int] = None,
+                  cache: Optional[dict] = None, cache_index=None,
                   full_attention_mask: Optional[torch.Tensor] = None,
                   key_position_ids: Optional[torch.Tensor] = None,
                   last_logit_only: bool = False, stale_cache: bool = False,
                   prefill_pad_len: Optional[int] = None,
-                  use_flash: Optional[bool] = None):
-    """Returns (f32 logits [B, T or 1, V], new_cache)."""
+                  use_flash: Optional[bool] = None,
+                  kv_quant: Optional[str] = None):
+    """Returns (f32 logits [B, T or 1, V], new_cache).  ``cache_index``: an
+    int, or an int32 [B] tensor of per-row write positions."""
     embed = params["language_model"]["embed_tokens"]
     inputs_embeds = embed[input_ids.clamp(0, embed.shape[0] - 1).long()]
     if pixel_values is not None:
@@ -166,7 +170,7 @@ def llava_forward(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
     hidden, new_cache = llama_forward(
         params["language_model"], cfg.text, inputs_embeds, mask, position_ids,
         cache, cache_index, key_position_ids, use_flash=use_flash,
-        stale_cache=stale_cache, prefill_pad_len=prefill_pad_len)
+        stale_cache=stale_cache, prefill_pad_len=prefill_pad_len, kv_quant=kv_quant)
     if last_logit_only:
         # only the last valid position feeds sampling
         last = attention_mask.sum(dim=1).to(torch.int64) - 1
@@ -217,10 +221,12 @@ def _cast_params(params, compute_dtype):
 def generate_prefill(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
                      pixel_values: Optional[torch.Tensor],
                      attention_mask: torch.Tensor, max_len: int,
-                     compute_dtype=torch.bfloat16) -> dict:
-    """Prefill phase: build the cache and return the decode state
-    (``logits``, ``cache``, ``full_mask``, ``key_pos``, ``cur_pos``,
-    ``write_idx``, ``adapter_ids``) — the JAX state layout."""
+                     compute_dtype=torch.bfloat16,
+                     kv_quant: Optional[str] = None) -> dict:
+    """Prefill phase: build the cache (``kv_quant="int8"``: int8 codes +
+    bf16 scale planes) and return the decode state (``logits``, ``cache``,
+    ``full_mask``, ``key_pos``, ``cur_pos``, ``write_idx``,
+    ``adapter_ids``) — the JAX state layout."""
     B, T = input_ids.shape
     dev = input_ids.device
     lm = _cast_params(params, compute_dtype)
@@ -231,7 +237,7 @@ def generate_prefill(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
     key_pos[:, :T] = position_ids.to(torch.int32)
     logits, cache = llava_forward(lm, cfg, input_ids, pixel_values, attention_mask,
                                   position_ids, last_logit_only=True,
-                                  prefill_pad_len=max_len)
+                                  prefill_pad_len=max_len, kv_quant=kv_quant)
     last_idx = attention_mask.sum(dim=1).to(torch.int32) - 1
     return {"logits": logits[:, 0], "cache": cache, "full_mask": full_mask,
             "key_pos": key_pos, "cur_pos": last_idx + 1, "write_idx": T,
@@ -273,7 +279,8 @@ def merge_decode_state(big: dict, chunk: dict, batch_offset: int) -> dict:
 def generate_prefill_chunked(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
                              pixel_values: Optional[torch.Tensor],
                              attention_mask: torch.Tensor, max_len: int, chunk: int,
-                             compute_dtype=torch.bfloat16) -> dict:
+                             compute_dtype=torch.bfloat16,
+                             kv_quant: Optional[str] = None) -> dict:
     """Prefill in batch chunks of ``chunk`` rows, merged into one full-batch
     decode state (decode cost is dominated by the batch-independent weight
     stream, so one large decode batch amortizes it).  A non-divisible batch
@@ -281,13 +288,13 @@ def generate_prefill_chunked(params: dict, cfg: LlavaConfig, input_ids: torch.Te
     B = input_ids.shape[0]
     if chunk >= B:
         return generate_prefill(params, cfg, input_ids, pixel_values, attention_mask,
-                                max_len, compute_dtype=compute_dtype)
+                                max_len, compute_dtype=compute_dtype, kv_quant=kv_quant)
     state = None
     for off in range(0, B, chunk):
         cs = generate_prefill(params, cfg, input_ids[off:off + chunk],
                               None if pixel_values is None else pixel_values[off:off + chunk],
                               attention_mask[off:off + chunk], max_len,
-                              compute_dtype=compute_dtype)
+                              compute_dtype=compute_dtype, kv_quant=kv_quant)
         if state is None:
             state = alloc_decode_state(cs, B)
         merge_decode_state(state, cs, off)
@@ -300,9 +307,9 @@ def generate_decode(params: dict, cfg: LlavaConfig, state: dict, gen: Generation
                     compute_dtype=torch.bfloat16):
     """Decode phase: ``max_new_tokens - 1`` stale-cache T=1 steps after the
     token sampled from the prefill logits (all rows run to the end; finished
-    rows emit eos).  The state's cache, ``full_mask`` and ``key_pos`` are
-    updated IN PLACE (JAX donates the state).  Returns tokens
-    [B, max_new_tokens] int32."""
+    rows emit eos), over a bf16 or an int8 cache.  The state's cache,
+    ``full_mask`` and ``key_pos`` are updated IN PLACE (JAX donates the
+    state).  Returns tokens [B, max_new_tokens] int32."""
     lm = _cast_params(params, compute_dtype)
     eos = gen.eos_token_id
     tok = _sample_token(state["logits"], gen)
@@ -322,3 +329,147 @@ def generate_decode(params: dict, cfg: LlavaConfig, state: dict, gen: Generation
         toks.append(nxt)
         tok, cur_pos, write_idx = nxt, cur_pos + 1, write_idx + 1
     return torch.stack(toks, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# speculative decode (prompt-lookup drafting)
+# ---------------------------------------------------------------------------
+
+def _ngram_draft(hist, hist_len, cur_tok, k: int):
+    """Prompt-lookup drafting on the device: propose the ``k-1`` tokens that
+    followed the most recent previous occurrence of the current context in
+    the token history.  Bigram context (prev_tok, cur_tok) preferred, unigram
+    fallback, else repeat ``cur_tok`` (a harmless always-available draft).
+
+    hist: [B, S] int32 history (prompt + emitted tokens, cur_tok LAST);
+    hist_len: [B] valid lengths; returns [B, k-1] int32."""
+    B, S = hist.shape
+    idx = torch.arange(S, device=hist.device)[None]
+    # exclude the current occurrence itself (hist_len-1 holds cur_tok)
+    uni = (hist == cur_tok[:, None]) & (idx < (hist_len - 1)[:, None])
+    prev = torch.gather(hist, 1, (hist_len - 2).clamp_min(0).long()[:, None])
+    prev_hist = torch.cat([torch.full_like(hist[:, :1], -1), hist[:, :-1]], dim=1)
+    bi = uni & (prev_hist == prev) & (hist_len[:, None] >= 2)
+    j_bi = torch.where(bi, idx, -1).amax(dim=1)
+    j_uni = torch.where(uni, idx, -1).amax(dim=1)
+    j = torch.where(j_bi >= 0, j_bi, j_uni)                       # [B], -1 = none
+    pos = j[:, None] + 1 + torch.arange(k - 1, device=hist.device)[None]
+    valid = (j >= 0)[:, None] & (pos < hist_len[:, None])
+    draft = torch.gather(hist, 1, pos.clamp(0, S - 1))
+    return torch.where(valid, draft, cur_tok[:, None]).to(torch.int32)
+
+
+def _put_rows(dst, start, keep, val):
+    """``dst[b, start[b] + j] = val[b, j]`` where ``keep[b, j]``, IN PLACE.
+    A position outside ``dst`` is dropped: its entry goes to the position
+    modulo the width and rewrites that position's own old value (a row's
+    consecutive positions stay distinct modulo the width)."""
+    B, W = keep.shape
+    N = dst.shape[1]
+    pos = start.long()[:, None] + torch.arange(W, device=dst.device)[None]
+    ok = keep & (pos >= 0) & (pos < N)
+    slot = pos % N
+    rows = torch.arange(B, device=dst.device)[:, None].expand(B, W)
+    dst[rows, slot] = torch.where(ok, val.to(dst.dtype), dst[rows, slot])
+
+
+@torch.no_grad()
+def generate_decode_spec(params: dict, cfg: LlavaConfig, state: dict,
+                         gen: GenerationConfig, spec_k: int, prompt_ids, prompt_len,
+                         compute_dtype=torch.bfloat16, extra_hist=None,
+                         return_state: bool = False):
+    """Greedy speculative decode with prompt-lookup drafting.
+
+    Each iteration runs ONE forward over a ``spec_k``-token window (cur_tok
+    + spec_k-1 drafted tokens, intra-window causal) and emits the verified
+    prefix: 1..spec_k tokens per forward.  A draft token is kept only when it
+    EQUALS the argmax the model produces, so the emitted stream is the
+    greedy stream of ``generate_decode`` whatever the drafts are; drafting
+    only changes how many forwards it takes.  Caveat: the window's logits
+    come from a T=W matmul whose f32 reduction order can differ from the T=1
+    step's in the last bit, so an EXACT tie between two logits can resolve
+    differently than in sequential decode (observable with degenerate
+    random weights, immaterial for real checkpoints).
+
+    The cache takes the speculative k/v eagerly: rejected slots never get
+    their ``full_mask`` bit and are overwritten by later windows.  The
+    state's cache, ``full_mask`` and ``key_pos`` are updated IN PLACE.  The
+    loop reads one boolean from the device per window.
+
+    prompt_ids/prompt_len: the right-padded prompt and its per-row valid
+    lengths, the lookup corpus.  ``extra_hist`` [B, E] optionally prepends
+    extra lookup text; rows must fill it fully.  Returns (tokens
+    [B, max_new_tokens] int32, stats {"windows", "emitted"} as ints);
+    ``emitted`` includes each row's prefill-sampled first token, so draft
+    acceptance = (emitted - B - windows) / (windows * (spec_k - 1)).  With
+    ``return_state`` the final decode state follows (``write_idx`` an int32
+    [B] tensor)."""
+    if gen.do_sample:
+        raise ValueError("speculative decode is greedy-only (exactness "
+                         "contract); use generate_decode for sampling")
+    if spec_k < 2:
+        raise ValueError("spec_k < 2 is plain greedy decode: use generate_decode")
+    lm = _cast_params(params, compute_dtype)
+    dev = state["logits"].device
+    B, W = prompt_ids.shape[0], spec_k
+    max_new, eos = gen.max_new_tokens, gen.eos_token_id
+
+    parts = [] if extra_hist is None else [extra_hist.to(dev, torch.int32)]
+    parts += [prompt_ids.to(dev, torch.int32),
+              torch.zeros((B, max_new + W), dtype=torch.int32, device=dev)]
+    hist = torch.cat(parts, dim=1)
+    hist_len = prompt_len.to(dev, torch.int32)
+    if extra_hist is not None:
+        hist_len = hist_len + extra_hist.shape[1]
+
+    first = torch.argmax(state["logits"], dim=-1).to(torch.int32)
+    out = torch.full((B, max_new + W), eos, dtype=torch.int32, device=dev)
+    out[:, 0] = first
+    hist[torch.arange(B, device=dev), hist_len.long()] = first
+    hist_len = hist_len + 1
+    n_emit = torch.ones((B,), dtype=torch.int32, device=dev)
+    done = first == eos
+    write_idx = state["write_idx"]
+    if not isinstance(write_idx, torch.Tensor):
+        write_idx = torch.full((B,), write_idx, dtype=torch.int32, device=dev)
+    cur_tok, cur_pos = first, state["cur_pos"]
+    full_mask, key_pos, cache = state["full_mask"], state["key_pos"], state["cache"]
+    j = torch.arange(W, device=dev)[None]
+    n_windows = 0
+
+    while bool((~done & (n_emit < max_new)).any()):
+        draft = _ngram_draft(hist, hist_len, cur_tok, W)           # [B, W-1]
+        tokens_in = torch.cat([cur_tok[:, None], draft], dim=1)
+        logits, cache = llava_forward(lm, cfg, tokens_in, None, None, cur_pos[:, None] + j,
+                                      cache, write_idx, full_mask, key_pos,
+                                      stale_cache=True)
+        t = torch.argmax(logits, dim=-1).to(torch.int32)           # [B, W]
+        match = (draft == t[:, :-1]).to(torch.int32)               # [B, W-1]
+        a = torch.cumprod(match, dim=1).sum(dim=1)
+        within = (t == eos) & (j <= a[:, None])
+        has_eos = within.any(dim=1)
+        e = torch.where(has_eos, torch.argmax(within.to(torch.int32), dim=1) + 1, a + 1)
+        # done rows and rows that already emitted max_new stop advancing
+        e = torch.where(done | (n_emit >= max_new), 0, e).to(torch.int32)   # [B] emitted
+        keep = j < e[:, None]
+        _put_rows(out, n_emit, keep, t)
+        _put_rows(hist, hist_len, keep, t)
+        # kv slot j holds tokens_in[j]; valid exactly when j < e (the
+        # rejected slots keep full_mask 0 and get overwritten later)
+        _put_rows(full_mask, write_idx, keep, torch.ones_like(t))
+        _put_rows(key_pos, write_idx, keep, cur_pos[:, None] + j)
+        last = torch.gather(t, 1, (e - 1).clamp_min(0).long()[:, None])[:, 0]
+        cur_tok = torch.where(e > 0, last, cur_tok)
+        done = done | has_eos
+        cur_pos, write_idx = cur_pos + e, write_idx + e
+        n_emit, hist_len = n_emit + e, hist_len + e
+        n_windows += 1
+
+    tokens = out[:, :max_new]
+    stats = {"windows": n_windows, "emitted": int(n_emit.clamp_max(max_new).sum())}
+    if return_state:
+        final_state = {"logits": state["logits"], "cache": cache, "full_mask": full_mask,
+                       "key_pos": key_pos, "cur_pos": cur_pos, "write_idx": write_idx,
+                       "adapter_ids": state["adapter_ids"]}
+        return tokens, stats, final_state
+    return tokens, stats

@@ -26,11 +26,11 @@ from cullavo_tpu_torch import _build
 _S8S8_MIN_M = 1024
 
 _NOT_IN_SLICE = {
-    "q8t": "the transposed int8 layout ('q8t') waits for slice 2",
+    "q8t": "the transposed int8 layout ('q8t') waits for the NF4 slice",
     "o_w": "static LLM.int8 outlier dicts ('o_w') wait for slice 4 (calibration)",
     "sa": "static activation scales ('sa') wait for slice 4 (calibration)",
-    "q4": "NF4 weights wait for slice 2",
-    "q4p": "NF4 weights wait for slice 2",
+    "q4": "NF4 weights wait for the NF4 slice",
+    "q4p": "NF4 weights wait for the NF4 slice",
 }
 
 

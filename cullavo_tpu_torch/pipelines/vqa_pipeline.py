@@ -1,8 +1,8 @@
 """VQA evaluation pipeline on the torch port (counterpart of
 ``cullavo_tpu/pipelines/vqa_pipeline.py``): bucketed, batched greedy
-decoding through ``generate_prefill_chunked`` + ``generate_decode``, and
-VQA consensus accuracy.  Topic classification, speculative decoding and the
-int8 KV cache wait for later slices."""
+decoding through ``generate_prefill_chunked`` + ``generate_decode`` (or
+``generate_decode_spec`` with ``spec_k``), over a bf16 or an int8 KV cache,
+and VQA consensus accuracy.  Topic classification waits for a later slice."""
 from __future__ import annotations
 
 import csv
@@ -12,10 +12,13 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
+from cullavo_tpu_torch.data.evaluation.vqa_eval import VQAEvaluator
 from cullavo_tpu_torch.models.llava.config import LlavaConfig
+from cullavo_tpu_torch.models.llava.llama import round_cache_len
 from cullavo_tpu_torch.models.llava.modeling import (GenerationConfig,
                                                      expand_image_token,
                                                      generate_decode,
+                                                     generate_decode_spec,
                                                      generate_prefill_chunked)
 
 # the LLaVA-1.5 system prompt (cullavo_tpu/data/step1_synthesis.py)
@@ -37,7 +40,8 @@ class VQAPipeline:
     def __init__(self, cfg, model_cfg: LlavaConfig, tokenizer, params: dict,
                  topic_fn: Optional[Callable[[str], str]] = None,
                  batch_size: int = 8, max_new_tokens: int = 16,
-                 prefill_chunk: Optional[int] = None):
+                 prefill_chunk: Optional[int] = None,
+                 kv_quant: Optional[str] = None, spec_k: Optional[int] = None):
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.tokenizer = tokenizer
@@ -47,6 +51,11 @@ class VQAPipeline:
         self.max_new_tokens = max_new_tokens
         # prefill in chunks of this many rows, decode the whole batch at once
         self.prefill_chunk = prefill_chunk
+        # "int8": quantized KV cache (llama.init_kv_cache); None = bf16 cache
+        self.kv_quant = kv_quant
+        # speculative decode window (prompt-lookup drafting, greedy-only,
+        # token-exact vs plain greedy); None/0 = plain decode
+        self.spec_k = spec_k
         self.device = params["language_model"]["embed_tokens"].device
 
     def build_prompt(self, question: str) -> np.ndarray:
@@ -69,13 +78,25 @@ class VQAPipeline:
             mask[i, :len(row)] = 1
         gen = GenerationConfig(max_new_tokens=self.max_new_tokens, do_sample=False,
                                eos_token_id=self.tokenizer.eos_token_id)
+        # speculative caches take spec_k spare slots, rounded as the JAX
+        # pipeline rounds them
+        cache_len = (L + self.max_new_tokens if not self.spec_k
+                     else round_cache_len(L + self.max_new_tokens + self.spec_k))
+        ids_t = torch.from_numpy(ids).to(self.device)
+        mask_t = torch.from_numpy(mask).to(self.device)
         state = generate_prefill_chunked(
-            self.params, self.model_cfg, torch.from_numpy(ids).to(self.device),
+            self.params, self.model_cfg, ids_t,
             torch.from_numpy(np.asarray(pixel_values, np.float32)).to(self.device),
-            torch.from_numpy(mask).to(self.device), L + self.max_new_tokens,
-            self.prefill_chunk or B, compute_dtype=torch.bfloat16)
-        out = generate_decode(self.params, self.model_cfg, state, gen,
-                              compute_dtype=torch.bfloat16).cpu().numpy()
+            mask_t, cache_len, self.prefill_chunk or B, compute_dtype=torch.bfloat16,
+            kv_quant=self.kv_quant)
+        if self.spec_k:
+            out, _ = generate_decode_spec(self.params, self.model_cfg, state, gen,
+                                          self.spec_k, ids_t, mask_t.sum(dim=1),
+                                          compute_dtype=torch.bfloat16)
+        else:
+            out = generate_decode(self.params, self.model_cfg, state, gen,
+                                  compute_dtype=torch.bfloat16)
+        out = out.cpu().numpy()
         answers = []
         for b in range(B):
             toks = out[b].tolist()
@@ -88,10 +109,6 @@ class VQAPipeline:
                        out_dir: Optional[str] = None) -> dict:
         """dataset rows: {"question_id", "question", "pixel_values" [3,H,W],
         "answers": [10 strings], optional "question_type"/"answer_type"}."""
-        # the scorer is pure Python shared with the JAX package; imported
-        # here only, so importing the port never imports cullavo_tpu
-        from cullavo_tpu.data.evaluation.vqa_eval import VQAEvaluator
-
         evaluator = VQAEvaluator()
         per_topic: dict = {}
         rows = list(dataset)

@@ -152,5 +152,31 @@ def test_out_of_slice_modes_raise():
          "o_w": torch.zeros(1, 8)}
     with pytest.raises(NotImplementedError, match="slice 4"):
         tnf4.int8_linear(torch.zeros(2, 4), q)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="NF4 slice"):
         tnf4.int8_linear(torch.zeros(2, 4), {"q8t": q["q8"].T, "scale8": q["scale8"]})
+    # the decoder: speculative windows, the int8 cache and per-row write
+    # positions run now; prefix reuse, sliding windows and sampling wait
+    import dataclasses
+
+    from cullavo_tpu_torch.models.llava import llama as tllama
+    from cullavo_tpu_torch.models.llava import modeling as tmod
+    from cullavo_tpu_torch.models.llava.config import tiny_llava_config
+
+    cfg = tiny_llava_config(64)
+    params = tmod.init_llava_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    lm, tc = params["language_model"], cfg.text
+    emb, pos = torch.ones(1, 2, tc.hidden_size), torch.arange(2)[None]
+    cache = tllama.init_kv_cache(tc, 1, 8, torch.float32)
+    with pytest.raises(NotImplementedError, match="prefix reuse"):
+        tllama.llama_forward(lm, tc, emb, torch.ones(1, 8), pos, cache, 0)
+    with pytest.raises(NotImplementedError, match="sliding-window"):
+        tllama.llama_forward(lm, dataclasses.replace(tc, sliding_window=4), emb,
+                             torch.ones(1, 2), pos)
+    with pytest.raises(NotImplementedError, match="sampled decoding"):
+        tmod._sample_token(torch.zeros(1, 4), tmod.GenerationConfig(do_sample=True))
+    for kv_quant in (None, "int8"):
+        cache = tllama.init_kv_cache(tc, 1, 8, torch.float32, kv_quant)
+        hidden, new = tllama.llama_forward(lm, tc, emb, torch.zeros(1, 8), pos, cache,
+                                           torch.tensor([3], dtype=torch.int32),
+                                           stale_cache=True)
+        assert hidden.shape == emb.shape and new["k"][:, 3:5].any() and not new["k"][:, 5:].any()

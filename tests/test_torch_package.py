@@ -1,7 +1,8 @@
 """Guards on the torch port as a package: it imports neither JAX nor the JAX
-package, its kernel wrappers never launch (or count) on CPU tensors, it
-carries no library or compiled stand-in for its kernels, and the chip smoke
-script refuses to run without a CUDA device.  The tests marked ``cuda``
+package (at import time or inside any function), its kernel wrappers never
+launch (or count) on CPU tensors, it carries no library or compiled
+stand-in for its kernels, its copy of the VQA scorer agrees with the
+original, and the chip smoke script refuses to run without a CUDA device.  The tests marked ``cuda``
 compare each CUDA kernel with its plain version on a card; this file
 imports no JAX, so on the machine with the card they run with
 ``python -m pytest tests/test_torch_package.py -m cuda --noconftest``."""
@@ -32,6 +33,8 @@ SLICE_MODULES = (
     "cullavo_tpu_torch._build",
     "cullavo_tpu_torch.ops.nf4",
     "cullavo_tpu_torch.ops.flash_attention",
+    "cullavo_tpu_torch.ops.wwin_decode",
+    "cullavo_tpu_torch.data.evaluation.vqa_eval",
     "cullavo_tpu_torch.models.llava.config",
     "cullavo_tpu_torch.models.llava.llama",
     "cullavo_tpu_torch.models.llava.clip_vit",
@@ -60,6 +63,70 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_no_source_names_jax_or_the_jax_package_in_an_import():
+    """Every import statement of the port's sources and of ``chip_smoke.py``,
+    function-level ones included (which an import-time check cannot see)."""
+    banned = re.compile(r"^\s*(import|from)\s+(jax|cullavo_tpu)(\.|\s|$)", re.M)
+    paths = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(paths) > 15
+    for path in paths:
+        hit = banned.search(path.read_text())
+        assert hit is None, f"{path.relative_to(REPO)}: {hit.group(0).strip()!r}"
+    assert banned.search("    from cullavo_tpu.data import x") and banned.search("import jax")
+    assert not banned.search("from cullavo_tpu_torch.ops import nf4")
+
+
+def test_evaluate_model_runs_without_the_jax_package():
+    """``VQAPipeline.evaluate_model`` scores with the port's own copy of the
+    VQA evaluator: ``cullavo_tpu`` and ``jax`` stay out of ``sys.modules``."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from cullavo_tpu_torch.models.llava.config import tiny_llava_config\n"
+        "from cullavo_tpu_torch.models.llava.modeling import init_llava_params\n"
+        "from cullavo_tpu_torch.pipelines.vqa_pipeline import VQAPipeline\n"
+        "class Tok:\n"
+        "    image_token_id, pad_token_id, eos_token_id = 258, 0, 2\n"
+        "    def encode(self, text):\n"
+        "        head, tail = text.split('<image>')\n"
+        "        return [1] + list(head.encode()[-8:]) + [258] + list(tail.encode())\n"
+        "    def decode(self, toks):\n"
+        "        return bytes(t for t in toks if 0 < t < 256).decode('latin-1')\n"
+        "cfg = tiny_llava_config(260)\n"
+        "params = init_llava_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "rows = [{'question_id': i, 'question': f'what is {i}?', 'answers': ['yes'] * 10,\n"
+        "         'pixel_values': np.zeros((3, 28, 28), np.float32)} for i in range(3)]\n"
+        "pipe = VQAPipeline(None, cfg, Tok(), params, batch_size=2, max_new_tokens=3,\n"
+        "                   kv_quant='int8', spec_k=2)\n"
+        "res = pipe.evaluate_model(rows)\n"
+        "assert res['n'] == 3 and 0.0 <= res['overall'] <= 100.0, res\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'cullavo_tpu')]\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+VQA_ROWS = [
+    ("Yes.", ["yes"] * 10),
+    ("two dogs", ["2 dogs"] * 4 + ["two dogs"] * 3 + ["dogs"] * 3),
+    ("a red, car", ["red car"] * 2 + ["car"] * 8),
+    ("dont know", ["don't know"] * 3 + ["unknown"] * 7),
+    ("1,000", ["1000"] * 9 + ["1,000"]),
+    ("", ["nothing"] * 10),
+]
+
+
+@pytest.mark.parametrize("answer,truths", VQA_ROWS)
+def test_vqa_eval_copy_matches_the_original(answer, truths):
+    from cullavo_tpu.data.evaluation import vqa_eval as orig
+    from cullavo_tpu_torch.data.evaluation import vqa_eval as copy
+
+    a, b = orig.VQAEvaluator(), copy.VQAEvaluator()
+    for ev in (a, b):
+        ev.process(7, answer, truths, "what", "other")
+    assert b.evaluate() == a.evaluate()
+
+
 def test_chip_smoke_fails_without_cuda_before_building():
     if torch.cuda.is_available():
         pytest.skip("checks the refusal on a machine without a CUDA device")
@@ -77,14 +144,21 @@ def test_chip_smoke_fails_without_cuda_before_building():
 def test_kernel_counters_stay_zero_on_cpu_tensors():
     from cullavo_tpu_torch.ops import flash_attention as fa
     from cullavo_tpu_torch.ops import nf4
+    from cullavo_tpu_torch.ops import wwin_decode as ww
 
-    wrappers = (fa.flash_attention, nf4.quantize_rows, nf4.int8_linear)
+    wrappers = (fa.flash_attention, nf4.quantize_rows, nf4.int8_linear,
+                ww.wwin_decode_smajor, ww.wwin_decode_smajor_q8)
     before = [w.launches for w in wrappers]
     x = torch.randn(1, 2, 5, 8)
     fa.flash_attention(x, x, x)
     nf4.quantize_rows(torch.randn(4, 16).to(torch.bfloat16), torch.ones(1, 16))
     q = nf4.quantize_linear_int8(torch.randn(16, 8), smooth_scale=torch.ones(16))
     nf4.int8_linear(torch.randn(3, 16), q)
+    qw, kv = torch.randn(2, 2, 3, 8), torch.randn(2, 6, 2, 2, 8)      # [B,H,W,hd], [L,S,B,KV,hd]
+    bias = torch.zeros(2, 1, 3, 6)
+    ww.wwin_decode_smajor(qw, kv, kv, 1, qw, qw, bias)
+    codes, planes = kv.to(torch.int8), torch.ones(2, 6, 2, 2, dtype=torch.bfloat16)
+    ww.wwin_decode_smajor_q8(qw, codes, planes, codes, planes, 0, qw, qw, bias)
     assert [w.launches for w in wrappers] == before
 
 
@@ -154,3 +228,113 @@ def test_cuda_int8_linear_matches_plain(cuda_device, M):
     ref = nf4._int8_linear_plain(x, q)
     assert torch.allclose(y.float(), ref.float(), rtol=2 ** -7,
                           atol=1e-3 * ref.float().abs().max().item())
+
+
+def _wwin_case(dev, W, n_rep, S, strided, seed):
+    """A stacked bf16 cache (optionally a strided view of a wider buffer),
+    a fresh window and per-row valid lengths with one wholly masked row."""
+    from cullavo_tpu_torch.ops import wwin_decode as ww
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L, B, KV, hd = 3, 3, 2, 128
+    H = KV * n_rep
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    if strided:   # batch rows 1..B of a [L, S, B + 2, KV, hd] pool
+        kc, vc = rnd(L, S, B + 2, KV, hd)[:, :, 1:B + 1], rnd(L, S, B + 2, KV, hd)[:, :, 1:B + 1]
+    else:
+        kc, vc = rnd(L, S, B, KV, hd), rnd(L, S, B, KV, hd)
+    q = rnd(B, W, H, hd).transpose(1, 2)                  # heads as a strided view
+    k_cur, v_cur = rnd(B, H, W, hd), rnd(B, H, W, hd)
+    bias = torch.zeros((B, 1, W, S), device=dev)
+    bias[0, :, :, S - 7:] = ww.NEG_INF
+    bias[1] = ww.NEG_INF                                   # no valid cache slot
+    bias[2, :, :, S // 2:] = ww.NEG_INF
+    return q, kc, vc, k_cur, v_cur, bias
+
+
+def _assert_partials_close(got, want):
+    """acc, m, l of a kernel against the plain version.  m and l: f32 sums
+    in another order over bf16 products (rtol 2e-3).  acc: the kernel rounds
+    each probability to bf16 relative to its warp's running maximum, the
+    plain version relative to the final one, so every term p * v carries an
+    independent bf16 rounding (2^-9 relative) on both sides: a row may
+    differ by 2^-8 * sum(p) = 2^-8 * l for |v| ~ 1."""
+    acc, m, l = got
+    acc_ref, m_ref, l_ref = want
+    assert torch.allclose(m, m_ref, rtol=2e-3, atol=1e-3), (m - m_ref).abs().max().item()
+    assert torch.allclose(l, l_ref, rtol=2e-3, atol=1e-3), (l - l_ref).abs().max().item()
+    excess = (acc - acc_ref).abs() - 2e-3 * acc_ref.abs() - 2.0 ** -8 * l_ref[..., None]
+    assert (excess <= 0).all(), excess.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,n_rep,S,strided", [
+    (1, 1, 768, False), (3, 2, 200, False), (4, 1, 664, True), (4, 4, 130, False),
+    (64, 1, 257, False), (64, 4, 96, True)])
+def test_cuda_wwin_decode_matches_plain(cuda_device, W, n_rep, S, strided):
+    from cullavo_tpu_torch.ops import wwin_decode as ww
+
+    q, kc, vc, k_cur, v_cur, bias = _wwin_case(cuda_device, W, n_rep, S, strided, seed=3)
+    n0 = ww.wwin_decode_smajor.launches
+    for li in (0, 2):
+        got = ww._run_cache_part(q, kc, vc, li, bias[:, 0], n_rep, 128 ** -0.5)
+        want = ww._cache_part_plain(q, kc, vc, li, bias[:, 0], n_rep, 128 ** -0.5)
+        _assert_partials_close(got, want)
+        assert not got[0][1].any() and not got[2][1].any()          # the masked row
+    assert ww.wwin_decode_smajor.launches == n0 + 2
+    out = ww.wwin_decode_smajor(q, kc, vc, 1, k_cur, v_cur, bias, n_rep=n_rep)
+    acc, m, l = ww._cache_part_plain(q, kc, vc, 1, bias[:, 0], n_rep, 128 ** -0.5)
+    ref = ww._merge_self_window(q, k_cur, v_cur, acc, m, l, 128 ** -0.5)
+    assert torch.isfinite(out).all()
+    assert torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,n_rep,S,strided", [
+    (1, 1, 768, False), (3, 2, 200, True), (4, 1, 664, False), (4, 4, 130, False),
+    (64, 2, 257, False)])
+def test_cuda_wwin_decode_q8_matches_plain(cuda_device, W, n_rep, S, strided):
+    from cullavo_tpu_torch.models.llava.llama import quantize_kv
+    from cullavo_tpu_torch.ops import wwin_decode as ww
+
+    q, kc, vc, k_cur, v_cur, bias = _wwin_case(cuda_device, W, n_rep, S, strided, seed=4)
+    (kq, ks), (vq, vs) = quantize_kv(kc), quantize_kv(vc)
+    if strided:   # the quantizer returns dense tensors: view them out of a wider pool
+        def widen(t):
+            pool = torch.zeros((*t.shape[:2], t.shape[2] + 2, *t.shape[3:]), dtype=t.dtype,
+                               device=t.device)
+            pool[:, :, 1:-1] = t
+            return pool[:, :, 1:-1]
+        kq, ks, vq, vs = map(widen, (kq, ks, vq, vs))
+    win = (*quantize_kv(k_cur[:, ::n_rep].permute(2, 0, 1, 3)),
+           *quantize_kv(v_cur[:, ::n_rep].permute(2, 0, 1, 3)))
+    k_cur, v_cur = (torch.repeat_interleave(x[:, ::n_rep], n_rep, dim=1) for x in (k_cur, v_cur))
+    n0 = ww.wwin_decode_smajor_q8.launches
+    got = ww._run_cache_part_q8(q, kq, ks, vq, vs, 2, bias[:, 0], n_rep, 128 ** -0.5)
+    want = ww._cache_part_q8_plain(q, kq, ks, vq, vs, 2, bias[:, 0], n_rep, 128 ** -0.5)
+    assert ww.wwin_decode_smajor_q8.launches == n0 + 1
+    _assert_partials_close(got, want)
+    out = ww.wwin_decode_smajor_q8(q, kq, ks, vq, vs, 0, k_cur, v_cur, bias, n_rep=n_rep,
+                                   win_q8=win)
+    acc, m, l = ww._cache_part_q8_plain(q, kq, ks, vq, vs, 0, bias[:, 0], n_rep, 128 ** -0.5)
+    ref = ww._merge_self_window(q, k_cur, v_cur, acc, m, l, 128 ** -0.5, win_q8=win, n_rep=n_rep)
+    assert torch.isfinite(out).all()
+    assert torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_wwin_decode_refuses_what_the_kernel_does_not_take(cuda_device):
+    from cullavo_tpu_torch.ops import wwin_decode as ww
+
+    q, kc, vc, k_cur, v_cur, bias = _wwin_case(cuda_device, 2, 1, 64, False, seed=5)
+    with pytest.raises(ValueError, match="bf16 queries"):
+        ww.wwin_decode_smajor(q.float(), kc, vc, 0, k_cur, v_cur, bias)
+    with pytest.raises(ValueError, match="kc must be"):
+        ww.wwin_decode_smajor(q, kc.float(), vc.float(), 0, k_cur, v_cur, bias)
+    wide = torch.zeros((3, 65, 2, 128), dtype=torch.bfloat16, device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError, match="W <= 64"):
+        ww.wwin_decode_smajor(wide, kc, vc, 0, wide, wide, torch.zeros(3, 1, 65, 64,
+                                                                      device=cuda_device))
