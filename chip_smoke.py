@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cullavo_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # kernels + both 7B VQA paths
-    python3 chip_smoke.py --profile   # the same + a profiled batch of each path
+    python3 chip_smoke.py               # kernels + the three 7B paths
+    python3 chip_smoke.py --profile     # the same + a profiled run of each path
 
 Phases (each raises on failure, and the script exits non-zero):
   1. print the card's name and power limit (nvidia-smi); disable TF32.
@@ -14,7 +14,14 @@ Phases (each raises on failure, and the script exits non-zero):
      both with CUDA events (L2 flushed before every launch), time the one
      PyTorch call that computes the same function where there is one, and
      work out each kernel's bound (bytes over 3.35 TB/s against operations
-     over the card's peak rate) from the inputs of this run.
+     over the card's peak rate) from the inputs of this run.  K4/K5 are held
+     at the decode windows (W = 1 and 4, B = 14) and at the serving engine's
+     suffix prefills (W = 32, 64 and 128, B = 4, cache gated to a 608-token
+     prefix).  Then the planar
+     NF4 kernels at the three 7B weight shapes: K7 (dequant to dense bf16)
+     bit-equal to its plain version, K6 (fused dequant-matmul) at M = 1, 14,
+     64, 256 and 511 within 1e-2 + 1e-2 |ref|, timed at the serving decode
+     M = 64 beside the dense bf16 matmul.
   4. build random LLaVA-1.5-7B weights on the card from a seeded
      ``torch.Generator``: bf16 vision tower, projector, embeddings and head;
      int8 SmoothQuant LLM linears with smooth scales exp(N(0, 0.3)) shared
@@ -37,6 +44,18 @@ Phases (each raises on failure, and the script exits non-zero):
      every row whose greedy top-2 logit gaps all exceed 0.1 equal to the
      int8 greedy stream.  One more speculative run over the bf16 cache at
      8 layers drives K4 at W = 4 and is held the same way.
+  7. the serving path over an NF4 base: ``entry.serve`` once in its tiny
+     smoke mode; then 7B weights with the LLM linears quantized to planar NF4
+     target by target (``maybe_quantize_base``), the 2-layer check of phase 5
+     on that base (an M = 528 prefill through K7, a W = 4 window and a
+     32-token suffix prefill through K6), and a ``ServingEngine`` built by
+     ``entry._engine_from_cfg`` from ``configs/serve.yaml``'s SERVE block
+     (int8 KV cache, spec_k 4, prefix reuse, 16 slots) answering 24
+     requests, 8 images x 3 questions, twice on fresh engines: results of the
+     right length, 8 prefix misses, 16 hits and 16 x 608 tokens saved,
+     identical tokens in both runs, every token the sequential step's argmax
+     within 0.1 in a teacher-forced replay from a FULL prefill, and K1, K5,
+     K6 and K7 launched.
 The last two lines are the kernels' JSON record and the result line.
 Imports neither JAX nor the JAX package.
 """
@@ -55,6 +74,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 BATCH, CHUNK, PROMPT_TEXT, PAD_TO, NEW_TOKENS = 14, 7, 64, 8, 16
 SPEC_K, SPEC_BF16_LAYERS, LOGIT_TOL = 4, 8, 0.1
+NF4_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))   # (K, N) of the 7B linears
+# configs/serve.yaml's SERVE block, with the prompt bucket of the traffic below
+SERVE_CFG = {"REQUESTS": None, "RESULTS": "serve_results.jsonl", "SLOTS": 16, "QUANTUM": 8,
+             "PREFILL_CHUNK": 4, "PROMPT_BUCKETS": [648], "KV_QUANT": "int8", "SPEC_K": 4,
+             "EOS_TOKEN_ID": 2, "DO_SAMPLE": False, "PREFIX": True, "ADMIT_GROUPS": 1}
+SERVE_MODEL_CFG = {"LLM": {"LOAD_PATH": None, "BITS": 4}}
+SERVE_IMAGES, SERVE_QUESTIONS, SERVE_HEAD_TEXT, SERVE_SHARED_TEXT = 8, 3, 4, 32
+SERVE_OWN_TEXT, SERVE_BUDGETS = (8, 28), (8, 16, 24, 32)
+SERVE_DECODE_M = SERVE_CFG["SLOTS"] * SERVE_CFG["SPEC_K"]
+SERVE_SUFFIX_W = (32, 64, 128)   # the engine's default suffix buckets
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense operations/s by input type
 HBM_BPS = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -207,18 +236,101 @@ def check_kernels(device):
         f"eager bf16 dequant (library) {eager_sum:.4f} ms, bound {bd['bound_ms']:.4f} ms "
         f"({bd['bound_by']})")
     rec.update(check_wwin_kernels(device, g))
+    rec.update(check_nf4_kernels(device, g))
+    return rec
+
+
+def check_nf4_kernels(device, g):
+    """Phase 3, K6 and K7: the planar NF4 kernels against their plain
+    versions at the three 7B weight shapes.  K7 bit for bit.  K6 at M = 1,
+    14, 64, 256, 511 within 1e-2 + 1e-2 |ref| on the bf16 output (one bf16
+    ulp, 2^-8 relative, plus the f32 sums taken in another order); its time
+    is the sum over the three shapes at the serving decode M (16 slots x
+    spec_k 4), K7's the widest shape's."""
+    import torch
+
+    from cullavo_tpu_torch.ops import nf4
+
+    bf = torch.bfloat16
+    k6 = dict(err=0.0, ms=0.0, plain=0.0, dense=0.0, n_bytes=0, n_ops=0)
+    rec = {}
+    for K, N in NF4_SHAPES:
+        w = torch.randn((K, N), generator=g, device=device) * K ** -0.5
+        q = nf4.quantize_linear_planar(w)
+        dense = nf4.nf4_dequant_planar(q)
+        ref_w = nf4.dequant_linear_planar(q)
+        torch.cuda.synchronize(device)
+        n_bad = int((dense.view(torch.int16) != ref_w.view(torch.int16)).sum().item())
+        qerr = (ref_w.float() - w).abs().max().item()
+        log(f"K7 nf4_dequant_planar K={K} N={N}: mismatching bf16 values={n_bad} "
+            f"(bit-equal demanded); NF4 rounding of the random weight {qerr:.3e}")
+        if n_bad or dense.shape != (K, N):
+            raise RuntimeError(f"K7 disagrees with dequant_linear_planar at K={K} N={N}")
+        ms = bench_ms(lambda: nf4.nf4_dequant_planar(q), device)
+        plain = bench_ms(lambda: nf4.dequant_linear_planar(q), device, reps=5)
+        # one f32 multiply per weight; no PyTorch call takes planar NF4 words
+        bd = bound(nbytes(q["q4p"], q["scale"], dense), K * N, "f32")
+        log(f"K7 K={K} N={N}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+            f"{nbytes(q['q4p'], q['scale'], dense) / 1e6:.1f} MB)")
+        if (K, N) == NF4_SHAPES[1]:
+            rec["nf4_dequant_planar"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                                             library_ms=None, **bd,
+                                             shape=f"q4p [{K // 8},{N}] int32 + scale "
+                                                   f"[{K},{N // 64}] f32 -> [{K},{N}] bf16")
+        for M in (1, 14, SERVE_DECODE_M, 256, 511):
+            x = torch.randn((M, K), generator=g, device=device).to(bf)
+            y = nf4.nf4_linear_planar(x, q)
+            ref = nf4._nf4_linear_planar_plain(x, q)
+            torch.cuda.synchronize(device)
+            diff = (y.float() - ref.float()).abs()
+            err = diff.max().item()
+            excess = (diff - 1e-2 - 1e-2 * ref.float().abs()).max().item()
+            log(f"K6 nf4_linear_planar M={M} K={K} N={N}: max_abs_err={err:.3e} "
+                f"(max |y| {ref.float().abs().max().item():.3f}; tol 1e-2 + 1e-2 |ref|, "
+                f"worst excess {excess:.3e})")
+            if not (torch.isfinite(y).all() and excess <= 0):
+                raise RuntimeError(f"K6 disagrees with its plain version at M={M} K={K} N={N}")
+            k6["err"] = max(k6["err"], err)
+            if M != SERVE_DECODE_M:
+                continue
+            ms = bench_ms(lambda: nf4.nf4_linear_planar(x, q), device)
+            plain = bench_ms(lambda: nf4._nf4_linear_planar_plain(x, q), device, reps=5)
+            # a yardstick only: the dense bf16 product reads 3.6x the bytes
+            dense_ms = bench_ms(lambda: x @ dense, device)
+            log(f"K6 M={M} K={K} N={N}: kernel {ms:.4f} ms, plain {plain:.4f} ms, dense bf16 "
+                f"torch.matmul on the dequantized weight {dense_ms:.4f} ms, 4-bit weight "
+                f"bytes {nbytes(q['q4p'], q['scale']) / 1e6:.1f} MB")
+            k6["ms"], k6["plain"], k6["dense"] = (k6["ms"] + ms, k6["plain"] + plain,
+                                                  k6["dense"] + dense_ms)
+            k6["n_bytes"] += nbytes(x, q["q4p"], q["scale"], y)
+            k6["n_ops"] += 2 * M * K * N
+        del w, q, dense, ref_w
+    bd = bound(k6["n_bytes"], k6["n_ops"], "bf16")
+    log(f"K6 sum of the three shapes at M={SERVE_DECODE_M}: kernel {k6['ms']:.4f} ms, plain "
+        f"{k6['plain']:.4f} ms, dense bf16 matmul {k6['dense']:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, {k6['n_bytes'] / 1e6:.1f} MB)")
+    rec["nf4_linear_planar"] = dict(max_abs_err=k6["err"], ms=k6["ms"], plain_ms=k6["plain"],
+                                    library_ms=None, **bd,
+                                    shape=f"M={SERVE_DECODE_M}, (K,N) in (4096,4096),"
+                                          "(4096,11008),(11008,4096), ms summed over the three")
+    torch.cuda.empty_cache()
     return rec
 
 
 def check_wwin_kernels(device, g):
     """Phase 3, K4 and K5: the cache part of the W-window decode attention
-    against its plain version, over a stacked 32-layer cache at the two
-    paths' shapes (S = 768 for the speculative batch, a 664-slot view for
-    the plain greedy batch), per-row valid lengths, one row with no valid
-    slot.  acc within 2e-3 relative + 2^-8 * l (the kernel rounds each
-    probability to bf16 against its warp's running maximum, the plain
-    version against the final one), m and l within 2e-3 relative, the
-    merged bf16 output within 1e-2 + 1e-2 |ref| (one bf16 ulp)."""
+    against its plain version, over a stacked 32-layer cache at the paths'
+    shapes: decode windows of W = 1 and 4 over the batch of 14 (S = 768 for
+    the speculative batch, a 664-slot view for the plain greedy batch;
+    per-row valid lengths, one row with no valid slot), and the serving
+    engine's suffix prefills, W = 32, 64 and 128 over a prefill chunk of 4
+    rows whose cache is gated to the shared 608-token prefix, as
+    ``generate_prefill_prefix`` gates it.  acc within 2e-3 relative +
+    2^-8 * l (the kernel rounds each probability to bf16 against its warp's
+    running maximum, the plain version against the final one), m and l
+    within 2e-3 relative, the merged bf16 output within 1e-2 + 1e-2 |ref|
+    (one bf16 ulp)."""
     import torch
 
     from cullavo_tpu_torch.models.llava.llama import quantize_kv, round_cache_len
@@ -239,26 +351,36 @@ def check_wwin_kernels(device, g):
         for name in ("k", "v"):
             cache[name][li] = torch.randn((S_spec, B, KV, hd), generator=g, device=device)
             q8[name][li], q8[name + "_s"][li] = quantize_kv(cache[name][li])
+    masked_row = 3
     n_valid = torch.randint(T - 7, T + NEW_TOKENS, (B,), generator=g, device=device)
-    n_valid[3] = 0                                           # a row with no valid slot
+    n_valid[masked_row] = 0                                  # a row with no valid slot
+    # a suffix prefill: every row of the chunk reads the same stored prefix
+    B_sfx = SERVE_CFG["PREFILL_CHUNK"]
+    prefix_len = (1 + SERVE_HEAD_TEXT + 576 + SERVE_SHARED_TEXT) // 32 * 32
+    n_valid_sfx = torch.full((B_sfx,), prefix_len, device=device)
 
-    def window(W, S):
-        q = torch.randn((B, W, KV, hd), generator=g, device=device).to(bf).transpose(1, 2)
-        k_cur, v_cur = (torch.randn((B, KV, W, hd), generator=g, device=device).to(bf)
+    def window(W, S, n_val):
+        Bw = n_val.shape[0]
+        q = torch.randn((Bw, W, KV, hd), generator=g, device=device).to(bf).transpose(1, 2)
+        k_cur, v_cur = (torch.randn((Bw, KV, W, hd), generator=g, device=device).to(bf)
                         for _ in range(2))
-        ok = torch.arange(S, device=device)[None, :] < n_valid[:, None]
-        bias = torch.where(ok, 0.0, ww.NEG_INF)[:, None, None, :].expand(B, 1, W, S).contiguous()
+        ok = torch.arange(S, device=device)[None, :] < n_val[:, None]
+        bias = torch.where(ok, 0.0, ww.NEG_INF)[:, None, None, :].expand(Bw, 1, W, S).contiguous()
         return q, k_cur, v_cur, bias
 
-    def partial_err(got, want):
+    def partial_err(got, want, masked):
         (acc, m, l), (acc_r, m_r, l_r) = got, want
         for name, a, r in (("m", m, m_r), ("l", l, l_r)):
             if not torch.allclose(a, r, rtol=2e-3, atol=1e-3):
                 raise RuntimeError(f"{name} disagrees: {(a - r).abs().max().item()}")
         excess = (acc - acc_r).abs() - 2e-3 * acc_r.abs() - 2.0 ** -8 * l_r[..., None]
-        if not (excess <= 0).all() or acc[3].any() or l[3].any():
+        if not (excess <= 0).all() or (masked is not None
+                                       and (acc[masked].any() or l[masked].any())):
             raise RuntimeError(f"acc disagrees: excess {excess.max().item()}")
         return (acc - acc_r).abs().max().item()
+
+    cases = [(W, S, False) for S in (S_spec, S_plain) for W in (1, SPEC_K)]
+    cases += [(W, S_spec, True) for W in SERVE_SUFFIX_W]
 
     rec = {}
     for name, kernel, plain, wrapper, tensors in (
@@ -267,9 +389,14 @@ def check_wwin_kernels(device, g):
             ("wwin_decode_q8", ww._run_cache_part_q8, ww._cache_part_q8_plain,
              ww.wwin_decode_smajor_q8, (q8["k"], q8["k_s"], q8["v"], q8["v_s"]))):
         worst = 0.0
-        for W, S in ((1, S_spec), (SPEC_K, S_spec), (1, S_plain), (SPEC_K, S_plain)):
-            ops = tuple(t[:, :S] for t in tensors)           # S = 664: a strided view
-            q, k_cur, v_cur, bias = window(W, S)
+        # the suffix prefill's cache: a dense copy of the prefix for each chunk row
+        sfx_tensors = tuple(t[:, :, :B_sfx].contiguous() for t in tensors)
+        for W, S, suffix in cases:
+            n_val, masked = (n_valid_sfx, None) if suffix else (n_valid, masked_row)
+            Bw = n_val.shape[0]
+            # S = 664: a strided view
+            ops = sfx_tensors if suffix else tuple(t[:, :S] for t in tensors)
+            q, k_cur, v_cur, bias = window(W, S, n_val)
             win = None
             if name == "wwin_decode_q8" and W > 1:
                 win = (*quantize_kv(k_cur.permute(2, 0, 1, 3)),
@@ -278,21 +405,22 @@ def check_wwin_kernels(device, g):
                 got = kernel(q, *ops, li, bias[:, 0], 1, scale)
                 want = plain(q, *ops, li, bias[:, 0], 1, scale)
                 torch.cuda.synchronize(device)
-                acc_err = partial_err(got, want)
+                acc_err = partial_err(got, want, masked)
                 kw = {} if win is None else {"win_q8": win}
                 out = wrapper(q, *ops, li, k_cur, v_cur, bias, **kw)
                 ref = ww._merge_self_window(q, k_cur, v_cur, *want, scale, **kw)
                 torch.cuda.synchronize(device)
                 err = (out.float() - ref.float()).abs().max().item()
                 worst = max(worst, err)
-                log(f"{name} W={W} S={S} li={li}: acc max_abs_err={acc_err:.3e} (tol 2e-3 rel + "
-                    f"2^-8 l), merged bf16 output max_abs_err={err:.3e} (tol 1e-2 + 1e-2 |ref|)")
+                log(f"{name} B={Bw} W={W} S={S} li={li}: acc max_abs_err={acc_err:.3e} (tol 2e-3 "
+                    f"rel + 2^-8 l), merged bf16 output max_abs_err={err:.3e} (tol 1e-2 + 1e-2 "
+                    "|ref|)")
                 if not (torch.isfinite(out).all()
                         and torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=1e-2)):
                     raise RuntimeError(f"{name} disagrees with its plain version: {err}")
             # what this run's data needs: the valid slots' k and v (and scale
             # planes), q, bias and the partials; 4 operations per q.k and p.v term
-            n_slots = int(n_valid.clamp_max(S).sum().item())
+            n_slots = int(n_val.clamp_max(S).sum().item())
             esz = tensors[0].element_size()
             need = (2 * n_slots * KV * hd * esz + (4 * n_slots * KV if len(tensors) == 4 else 0)
                     + nbytes(q, bias[:, 0], *got))
@@ -307,16 +435,18 @@ def check_wwin_kernels(device, g):
                 kl, vl = (t[li].permute(1, 2, 0, 3) for t in ops)
                 lib = bench_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                     q, kl, vl, attn_mask=bias), device)
-            log(f"{name} W={W} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library sdpa "
-                f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {bd['bound_ms']:.4f} ms "
+            log(f"{name} B={Bw} W={W} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+                f"sdpa {'none' if lib is None else f'{lib:.4f} ms'}, bound {bd['bound_ms']:.4f} ms "
                 f"({bd['bound_by']}, {need / 1e6:.1f} MB needed)")
             # the record keeps each kernel at the shape its main path gives it:
             # K4 the plain greedy step (W = 1, S = 664), K5 the speculative window
-            if (W, S) == ((1, S_plain) if name == "wwin_decode" else (SPEC_K, S_spec)):
+            if (W, S, suffix) == ((1, S_plain, False) if name == "wwin_decode"
+                                  else (SPEC_K, S_spec, False)):
                 rec[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, **bd,
                                  shape=f"q [{B},{KV},{W},{hd}] bf16, cache [{L},{S},{B},{KV},{hd}] "
                                        f"{str(tensors[0].dtype).split('.')[1]}, one layer")
         rec[name]["max_abs_err"] = worst
+        del sfx_tensors, ops
     del cache, q8
     torch.cuda.empty_cache()
     return rec
@@ -466,17 +596,17 @@ def make_run(params, cfg, device, requests, kv_quant=None, spec_k=None):
     return run
 
 
-def replay(params, cfg, device, requests, tokens, kv_quant):
-    """Teacher-forced sequential decode: prefill, then T = 1 stale-cache
-    steps fed ``tokens`` [B, N].  Returns, per position, how far the given
-    token's logit lies below the step's maximum (0 where it is the argmax)
-    and the step's top-2 gap, both [B, N] on the host."""
+def replay(params, cfg, device, requests, tokens, kv_quant, chunk=CHUNK):
+    """Teacher-forced sequential decode: a full prefill, then T = 1
+    stale-cache steps fed ``tokens`` [B, N].  Returns, per position, how far
+    the given token's logit lies below the step's maximum (0 where it is the
+    argmax) and the step's top-2 gap, both [B, N] on the host."""
     import torch
 
     from cullavo_tpu_torch.models.llava.modeling import generate_prefill_chunked, llava_forward
 
     ids, mask, pix, _, T_pad = requests
-    st = generate_prefill_chunked(params, cfg, ids, pix, mask, T_pad + NEW_TOKENS, CHUNK,
+    st = generate_prefill_chunked(params, cfg, ids, pix, mask, T_pad + tokens.shape[1], chunk,
                                   compute_dtype=torch.bfloat16, kv_quant=kv_quant)
     toks = tokens.to(device).long()
     cur_pos, write_idx = st["cur_pos"], st["write_idx"]
@@ -654,6 +784,250 @@ def profile_path(name, run):
                      max_name_column_width=70))
 
 
+def build_nf4_params(cfg, device):
+    """Phase 7: random LLaVA-1.5-7B weights on the card with the NF4 base of
+    ``MODEL.LLM.BITS: 4``: bf16 everywhere, then the seven LLM targets
+    quantized to planar NF4 one at a time (the dense target is released as
+    its packed form lands)."""
+    import torch
+
+    from cullavo_tpu_torch.models.llava.lora import maybe_quantize_base
+    from cullavo_tpu_torch.models.llava.modeling import init_llava_params
+
+    g = torch.Generator(device=device).manual_seed(SEED + 4)
+    params = init_llava_params(cfg, g, device, dtype=torch.bfloat16)
+    params = maybe_quantize_base(params, SERVE_MODEL_CFG["LLM"]["BITS"])
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    return params
+
+
+def reference_check_nf4(params, cfg, device):
+    """Phase 5 on the NF4 base: the first two LLM layers at full width, kernel
+    path on the card vs plain path on the CPU (a dense matmul against the
+    dequantized weight), same weights: a prefill of M = 2 x 264 = 528 rows
+    (K7 + a dense matmul on the card), a W = 4 window with per-row write
+    positions and a 32-token suffix prefill from row 0's prefix (K6), over
+    the int8 cache."""
+    import torch
+
+    from cullavo_tpu_torch.models.llava.modeling import (extract_prefix_state,
+                                                         generate_prefill,
+                                                         generate_prefill_prefix,
+                                                         llava_forward)
+
+    params2, cfg2 = cut_layers(params, cfg, 2)
+
+    def to(tree, dev):
+        return {k: to(v, dev) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    g = torch.Generator().manual_seed(SEED + 5)
+    B, T, S, W, P, WS = 2, 264, 384, SPEC_K, 224, 32
+    ids = torch.randint(4, 32000, (B, T), generator=g, dtype=torch.int32)
+    win = torch.randint(4, 32000, (B, W), generator=g, dtype=torch.int32)
+    sfx = torch.randint(4, 32000, (B, WS), generator=g, dtype=torch.int32)
+    mask = torch.ones((B, T), dtype=torch.int32)
+    mask[1, 250:] = 0
+    smask = torch.ones((B, WS), dtype=torch.int32)
+    smask[1, 20:] = 0
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        p = {"language_model": to(params2["language_model"], dev)}
+        st = generate_prefill(p, cfg2, ids.to(dev), None, mask.to(dev), S, kv_quant="int8")
+        got = {"prefill M=528": st["logits"].float().cpu()[:, None]}
+        prefix = extract_prefix_state(st, 0)
+        pos = st["cur_pos"][:, None] + torch.arange(W, device=dev)[None]
+        logits, _ = llava_forward(p, cfg2, win.to(dev), None, None, pos, st["cache"],
+                                  st["cur_pos"], st["full_mask"], st["key_pos"],
+                                  stale_cache=True)
+        got[f"window W={W}"] = logits.float().cpu()
+        st2 = generate_prefill_prefix(p, cfg2, prefix, sfx.to(dev), None, smask.to(dev), P)
+        got[f"suffix prefill P={P} W={WS}"] = st2["logits"].float().cpu()[:, None]
+        out[dev.type] = got
+    worst = 0.0
+    for name, a in out["cuda"].items():
+        b = out["cpu"][name]
+        if a.shape[0] != B or a.shape[2] != cfg.text.vocab_size or not torch.isfinite(a).all():
+            raise RuntimeError(f"NF4 reference check: bad {name} logits {tuple(a.shape)}")
+        err = (a - b).abs().max().item()
+        worst = max(worst, err)
+        log(f"NF4 reference check ({name} logits, 2 layers at 7B width, int8 cache, card vs "
+            f"CPU): max_abs_err={err:.3e}, max |logit| {b.abs().max().item():.3f} (tol 0.1)")
+    if not worst <= 0.1:
+        raise RuntimeError(f"NF4 kernel path disagrees with the plain path: {worst}")
+
+
+def make_serving_requests(cfg):
+    """The serving traffic: 8 random images x 3 questions, image-major.  A
+    prompt is bos + 4 text + 576 image + 32 text tokens shared by the
+    image's three requests (613), then 8-28 tokens of its own; token budgets
+    cycle through 8, 16, 24, 32."""
+    import numpy as np
+
+    from cullavo_tpu_torch.serving import Request
+
+    rng = np.random.default_rng(SEED + 6)
+    n_img, side = cfg.num_image_tokens, cfg.vision.image_size
+    reqs = []
+    for im in range(SERVE_IMAGES):
+        pix = rng.normal(size=(3, side, side)).astype(np.float32)
+        head = rng.integers(4, 32000, size=(1 + SERVE_HEAD_TEXT + n_img + SERVE_SHARED_TEXT,))
+        head[0] = 1
+        head[1 + SERVE_HEAD_TEXT:1 + SERVE_HEAD_TEXT + n_img] = cfg.image_token_id
+        for qn in range(SERVE_QUESTIONS):
+            own = rng.integers(4, 32000, size=(int(rng.integers(SERVE_OWN_TEXT[0],
+                                                                 SERVE_OWN_TEXT[1] + 1)),))
+            i = len(reqs)
+            reqs.append(Request(req_id=i, input_ids=np.concatenate([head, own]).astype(np.int32),
+                                pixel_values=pix,
+                                max_new_tokens=SERVE_BUDGETS[i % len(SERVE_BUDGETS)]))
+    return reqs
+
+
+def make_serving_run(params, cfg, device, reqs):
+    """One run of the serving traffic on a fresh engine, built as ``serve``
+    builds it: every request submitted, then ``step()`` until all are
+    answered.  Returns (results, engine, quanta, wall s)."""
+    import torch
+
+    from cullavo_tpu_torch import entry
+
+    def run():
+        buckets = SERVE_CFG["PROMPT_BUCKETS"]
+        max_len = int(SERVE_CFG.get("MAX_LEN", max(buckets) + max(r.max_new_tokens for r in reqs)))
+        _, eng = entry._engine_from_cfg(SERVE_CFG, cfg, params, None, buckets, max_len)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        quanta = 0
+        while eng.pending or eng.active:
+            eng.step()
+            quanta += 1
+        torch.cuda.synchronize(device)
+        return dict(eng.results), eng, quanta, time.perf_counter() - t0
+
+    return run
+
+
+def check_serving_streams(params, cfg, device, reqs, results):
+    """Every served token against a teacher-forced sequential replay that
+    starts from a FULL prefill of each prompt (so prefix reuse, the
+    speculative windows and the slot pool are all held): the token must be
+    the step's argmax within ``LOGIT_TOL``."""
+    import numpy as np
+    import torch
+
+    n, T_pad = len(reqs), SERVE_CFG["PROMPT_BUCKETS"][0]
+    N = max(len(results[r.req_id]) for r in reqs)
+    ids = torch.zeros((n, T_pad), dtype=torch.int32)
+    mask = torch.zeros((n, T_pad), dtype=torch.int32)
+    toks = torch.zeros((n, N), dtype=torch.int64)
+    valid = torch.zeros((n, N), dtype=torch.bool)
+    for i, r in enumerate(reqs):
+        out = results[r.req_id]
+        ids[i, :len(r.input_ids)] = torch.from_numpy(r.input_ids)
+        mask[i, :len(r.input_ids)] = 1
+        toks[i, :len(out)] = torch.tensor(out)
+        toks[i, len(out):] = out[-1]
+        valid[i, :len(out)] = True
+    pix = torch.from_numpy(np.stack([r.pixel_values for r in reqs])).to(device)
+    requests = (ids.to(device), mask.to(device), pix, None, T_pad)
+    below, gap = replay(params, cfg, device, requests, toks, SERVE_CFG["KV_QUANT"],
+                        chunk=SERVE_CFG["PREFILL_CHUNK"])
+    worst = below[valid].max().item()
+    log(f"serving replay: worst served token lies {worst:.4f} below the sequential step's "
+        f"maximum over {int(valid.sum())} tokens of {n} requests (tol {LOGIT_TOL}); "
+        f"{int((gap[valid] <= LOGIT_TOL).sum())} of those steps have a top-2 gap within "
+        f"the tolerance")
+    if not worst <= LOGIT_TOL:
+        raise RuntimeError(f"a served token is not the sequential step's argmax: {worst}")
+
+
+def run_serving_path(params, cfg, device, wrappers):
+    """Phase 7: the 24 requests through the engine twice.  Returns the first
+    run's launch counts and the run function."""
+    import torch
+
+    reqs = make_serving_requests(cfg)
+    run = make_serving_run(params, cfg, device, reqs)
+    torch.cuda.reset_peak_memory_stats(device)
+    (res1, eng, quanta, wall1), counts = counted(wrappers, run)
+    log(f"launches on the serving path: {counts}")
+    res2, _, _, wall2 = run()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    eos, V = SERVE_CFG["EOS_TOKEN_ID"], cfg.text.vocab_size
+    for r in reqs:
+        out = res1.get(r.req_id)
+        if (not out or len(out) > r.max_new_tokens or min(out) < 0 or max(out) >= V
+                or (len(out) < r.max_new_tokens and out[-1] != eos)):
+            raise RuntimeError(f"request {r.req_id}: bad result {out} "
+                               f"(budget {r.max_new_tokens})")
+    if res1 != res2:
+        raise RuntimeError("two serving runs gave different tokens")
+    n_hit = SERVE_IMAGES * (SERVE_QUESTIONS - 1)
+    head = 1 + SERVE_HEAD_TEXT + cfg.num_image_tokens + SERVE_SHARED_TEXT
+    want = {"prefix_misses": SERVE_IMAGES, "prefix_hits": n_hit,
+            "prefix_tokens_saved": n_hit * (head // 32 * 32)}
+    if any(eng.counters[k] != v for k, v in want.items()):
+        raise RuntimeError(f"prefix counters {eng.counters} != {want}")
+    for name in ("flash_fwd", "wwin_decode_q8", "nf4_linear_planar", "nf4_dequant_planar"):
+        if not counts[name]:
+            raise RuntimeError(f"{name} never launched on the serving path: {counts}")
+    n_tok = sum(len(v) for v in res1.values())
+    windows = eng.hist["n_fwd"]
+    # tokens that came out of decode windows: all but each request's first
+    lat = eng.latency()
+    for i, wall in enumerate((wall1, wall2), 1):
+        log(f"serving run {i}: {len(reqs)} requests, {n_tok} tokens in {wall:.4f} s: "
+            f"{len(reqs) / wall:.4f} requests/s, {n_tok / wall:.3f} tokens/s")
+    log(f"serving run 1: TTFT p50 {lat['ttft']['p50']} s p95 {lat['ttft']['p95']} s, E2E p50 "
+        f"{lat['e2e']['p50']} s p95 {lat['e2e']['p95']} s; {quanta} scheduler steps, {windows} "
+        f"windows of {SERVE_CFG['SPEC_K']}, {(n_tok - len(reqs)) / windows:.3f} tokens per "
+        f"forward over the pool; counters {eng.counters}; pool of {eng.num_slots} slots x "
+        f"{eng.max_len}; peak memory {peak:.2f} GiB; tokens identical across runs; "
+        f"request 0 {res1[0]}")
+    check_serving_streams(params, cfg, device, reqs, res1)
+    return counts, run
+
+
+def profile_serving(run):
+    """``--profile``: one more serving run under torch.profiler; the
+    device-busy share of the wall time and the kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, _, wall = run()
+    ka = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in ka) / 1e6
+    log(f"profile serving run: wall {wall:.4f} s (profiled), device busy {busy:.4f} s "
+        f"({100 * busy / wall:.1f}%)")
+    log(ka.table(sort_by="self_device_time_total", row_limit=24, max_name_column_width=70))
+
+
+def serve_smoke(device):
+    """Phase 7, first: ``entry.serve`` in its smoke mode (tiny random model,
+    four synthetic requests, the SERVE block's settings) on the card."""
+    import tempfile
+
+    from cullavo_tpu_torch import entry
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scfg = {**SERVE_CFG, "PROMPT_BUCKETS": None,
+                "RESULTS": os.path.join(tmp, "serve_results.jsonl")}
+        summary = entry.serve({"MODEL": {"LLM": {"LOAD_PATH": None, "BITS": 0}}, "SERVE": scfg},
+                              device=device)
+        with open(scfg["RESULTS"]) as f:
+            rows = [json.loads(line) for line in f]
+    eos = SERVE_CFG["EOS_TOKEN_ID"]
+    if summary["requests"] != 4 or len(rows) != 4 or not all(
+            len(r["tokens"]) == 4 + 2 * r["id"]
+            or (0 < len(r["tokens"]) < 4 + 2 * r["id"] and r["tokens"][-1] == eos)
+            for r in rows):
+        raise RuntimeError(f"entry.serve smoke mode: bad results {rows}")
+    log(f"entry.serve smoke mode on the card: {summary}")
+
+
 def main(argv):
     import torch
 
@@ -693,7 +1067,9 @@ def main(argv):
     rec = check_kernels(device)
     wrappers = {"flash_fwd": fa.flash_attention, "quant_rows": nf4.quantize_rows,
                 "int8_linear": nf4.int8_linear, "wwin_decode": ww.wwin_decode_smajor,
-                "wwin_decode_q8": ww.wwin_decode_smajor_q8}
+                "wwin_decode_q8": ww.wwin_decode_smajor_q8,
+                "nf4_linear_planar": nf4.nf4_linear_planar,
+                "nf4_dequant_planar": nf4.nf4_dequant_planar}
     meta = {"flash_fwd": ("cullavo_tpu_torch/csrc/flash_fwd.cu",
                           "cullavo_tpu/ops/flash_attention.py:259"),
             "quant_rows": ("cullavo_tpu_torch/csrc/quant_rows.cu",
@@ -703,7 +1079,11 @@ def main(argv):
             "wwin_decode": ("cullavo_tpu_torch/csrc/wwin_decode.cu",
                             "cullavo_tpu/ops/wwin_decode.py:52"),
             "wwin_decode_q8": ("cullavo_tpu_torch/csrc/wwin_decode.cu",
-                               "cullavo_tpu/ops/wwin_decode.py:104")}
+                               "cullavo_tpu/ops/wwin_decode.py:104"),
+            "nf4_linear_planar": ("cullavo_tpu_torch/csrc/nf4_planar.cu",
+                                  "cullavo_tpu/ops/nf4.py:627"),
+            "nf4_dequant_planar": ("cullavo_tpu_torch/csrc/nf4_planar.cu",
+                                   "cullavo_tpu/ops/nf4.py:729")}
 
     # phases 4-6b
     cfg = LlavaConfig()
@@ -715,12 +1095,28 @@ def main(argv):
     requests = make_requests(cfg, device)
     counts, run_greedy = run_greedy_path(params, cfg, device, requests, wrappers)
     counts_spec, run_spec = run_spec_path(params, cfg, device, requests, wrappers)
+    if "--profile" not in argv:   # the profiled batches at the end need the int8 model
+        del params, run_greedy, run_spec
+        torch.cuda.empty_cache()
+
+    # phase 7
+    serve_smoke(device)
+    t0 = time.perf_counter()
+    params_nf4 = build_nf4_params(cfg, device)
+    log(f"7B params with the NF4 base built in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB allocated")
+    reference_check_nf4(params_nf4, cfg, device)
+    counts_serve, run_serve = run_serving_path(params_nf4, cfg, device, wrappers)
     # each kernel's launches on the main path that runs it: K1-K4 the greedy
-    # bf16-cache batch, K5 the speculative int8-cache batch
+    # bf16-cache batch, K5 the speculative int8-cache batch, K6 and K7 the
+    # serving run
     counts["wwin_decode_q8"] = counts_spec["wwin_decode_q8"]
+    for name in ("nf4_linear_planar", "nf4_dequant_planar"):
+        counts[name] = counts_serve[name]
     if not all(counts.values()):
         raise RuntimeError(f"a kernel never launched on its main path: {counts}")
     if "--profile" in argv:   # last: an attached profiler slows every later launch
+        profile_serving(run_serve)
         profile_path("greedy bf16-cache", run_greedy)
         profile_path("speculative int8-cache", run_spec)
 

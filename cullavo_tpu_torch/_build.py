@@ -42,6 +42,8 @@ SIGNATURES = {
     "cullavo_int8_linear": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cullavo_wwin_decode": [_P] * 7 + [_I] * 7 + [_L] * 9 + [_F, _P],
     "cullavo_wwin_decode_q8": [_P] * 9 + [_I] * 7 + [_L] * 13 + [_F, _P],
+    "cullavo_nf4_linear_planar": [_P] * 5 + [_I] * 4 + [_P],
+    "cullavo_nf4_dequant_planar": [_P] * 3 + [_I] * 2 + [_P],
 }
 
 _lib = None

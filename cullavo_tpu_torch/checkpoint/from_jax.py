@@ -3,9 +3,10 @@
 ``llava_params_from_numpy`` takes a JAX LLaVA parameter tree whose leaves
 are numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
 port's parameters: the same nested dicts with torch tensors on ``device``,
-bit for bit.  Stacked ``[L, ...]`` layer leaves stay stacked; f32, bf16
-and int8 leaves keep their dtype; int8 weight dicts ``{q8, scale8,
-sq_inv}`` pass through as dicts.  Dict kinds outside this slice raise.
+bit for bit.  Stacked ``[L, ...]`` layer leaves stay stacked; f32, bf16,
+int8 and int32 leaves keep their dtype; int8 weight dicts ``{q8, scale8,
+sq_inv}`` and planar NF4 dicts ``{q4p int32, scale f32}`` pass through as
+dicts, in the layout the kernels read.  Dict kinds not ported yet raise.
 ``llava_params_to_numpy`` is the inverse (the round trip is exact).
 ``decode_state_from_numpy`` does the same for a prefill/decode state, so
 both packages can continue from one prefilled cache.

@@ -1,0 +1,152 @@
+"""Entry points of the port (counterpart of ``cullavo_tpu/entry.py``): so
+far ``serve``, the continuous-batching engine over a JSONL request stream.
+
+The entry points take the parsed config as a dict (the layout of
+``configs/serve.yaml``) and run on the GPU unless the caller names another
+device.  The command line, the other commands and the HTTP mode come with
+later slices.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+
+from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
+from cullavo_tpu_torch.models.llava.config import tiny_llava_config
+from cullavo_tpu_torch.models.llava.lora import maybe_quantize_base
+from cullavo_tpu_torch.models.llava.modeling import GenerationConfig, init_llava_params
+from cullavo_tpu_torch.serving import Request, ServingEngine
+from cullavo_tpu_torch.serving.io import request_from_row
+
+
+def _device(device):
+    """``None`` means the GPU, and raises where there is none."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+def smoke_llava_config():
+    """The tiny random model of the smoke modes: the JAX package's
+    ``tiny_llava_config(260)`` with its two text heads widened to the head
+    dim of 128 that the attention kernels take, so that the same model runs
+    on the card and on the CPU."""
+    cfg = tiny_llava_config(260)
+    text = dataclasses.replace(cfg.text, hidden_size=256, intermediate_size=512,
+                               num_attention_heads=2, num_key_value_heads=2)
+    return dataclasses.replace(cfg, text=text)
+
+
+def _build_llava(cfg: dict, device):
+    """(model config, params on ``device``, tokenizer) from ``MODEL.LLM``."""
+    llm_cfg = (cfg.get("MODEL") or {}).get("LLM") or {}
+    if llm_cfg.get("LOAD_PATH"):
+        raise NotImplementedError("loading a snapshot (MODEL.LLM.LOAD_PATH) waits for the "
+                                  "checkpoint slice; leave it null for the smoke model")
+    print("[entry] no MODEL.LLM.LOAD_PATH: using tiny random model (smoke mode)",
+          file=sys.stderr)
+    model_cfg = smoke_llava_config()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = init_llava_params(model_cfg, gen, device)
+    # the reference loads the LLM quantized (BITS: 4 = NF4 Q-LoRA base,
+    # 8 = int8): honor it
+    params = maybe_quantize_base(params, int(llm_cfg.get("BITS") or 0))
+    return model_cfg, params, ByteTokenizer()
+
+
+def _engine_from_cfg(scfg: dict, model_cfg, params, tokenizer, buckets, max_len):
+    """``SERVE.*`` config block -> (GenerationConfig, ServingEngine)."""
+    if scfg.get("ADAPTERS"):
+        raise NotImplementedError("SERVE.ADAPTERS: runtime LoRA waits for a later slice")
+    default_eos = getattr(tokenizer, "eos_token_id", 2)
+    gen = GenerationConfig(
+        do_sample=bool(scfg.get("DO_SAMPLE", False)),
+        temperature=float(scfg.get("TEMPERATURE", 0.9)),
+        eos_token_id=int(scfg.get("EOS_TOKEN_ID", 2 if default_eos is None else default_eos)))
+    eng = ServingEngine(
+        params, model_cfg, gen,
+        num_slots=int(scfg.get("SLOTS", 8)), max_len=max_len,
+        prompt_buckets=buckets,
+        prefill_chunk=int(scfg.get("PREFILL_CHUNK", 2)),
+        quantum=int(scfg.get("QUANTUM", 8)),
+        kv_quant=scfg.get("KV_QUANT") or None,
+        compute_dtype=(torch.bfloat16 if str(scfg.get("DTYPE", "bfloat16")) == "bfloat16"
+                       else torch.float32),
+        spec_k=int(scfg["SPEC_K"]) if scfg.get("SPEC_K") else None,
+        prefix_cache=bool(scfg.get("PREFIX", True)),
+        prefix_min=int(scfg.get("PREFIX_MIN", 32)),
+        suffix_buckets=tuple(scfg.get("SUFFIX_BUCKETS") or (32, 64, 128)),
+        max_prefixes=int(scfg["MAX_PREFIXES"]) if scfg.get("MAX_PREFIXES") else None,
+        admit_groups=(None if scfg.get("ADMIT_GROUPS", 1) in (None, 0)
+                      else int(scfg.get("ADMIT_GROUPS", 1))))
+    return gen, eng
+
+
+def serve(cfg: dict, device=None) -> dict:
+    """Serving workload: run the continuous-batching engine over a JSONL
+    request stream and write a JSONL result stream.
+
+    Request rows: ``{"id": int, "prompt": str | "input_ids": [int, ...],
+    "image": path(.npy [3,H,W] f32) | nested list, "max_new_tokens": int}``.
+    With ``SERVE.REQUESTS`` unset, a few random smoke requests are
+    synthesized.  Returns (and prints) the run's summary."""
+    device = _device(device)
+    model_cfg, params, tokenizer = _build_llava(cfg, device)
+    scfg = cfg.get("SERVE", {}) or {}
+    n_img = model_cfg.num_image_tokens
+    if scfg.get("PORT") is not None:
+        raise NotImplementedError("SERVE.PORT: the HTTP server waits for a later slice")
+
+    req_path = scfg.get("REQUESTS")
+    if req_path:
+        with open(req_path) as f:
+            reqs = [request_from_row(json.loads(line), model_cfg, tokenizer)
+                    for line in f if line.strip()]
+    else:
+        print("[entry] no SERVE.REQUESTS: synthesizing 4 random smoke requests",
+              file=sys.stderr)
+        rng = np.random.default_rng(0)
+        reqs = []
+        side = model_cfg.vision.image_size
+        for i in range(4):
+            ids = rng.integers(3, model_cfg.text.vocab_size - 2,
+                               size=(1 + n_img + 4 + i,)).astype(np.int32)
+            ids[1:1 + n_img] = model_cfg.image_token_id
+            pix = rng.normal(size=(3, side, side)).astype(np.float32)
+            reqs.append(Request(req_id=i, input_ids=ids, pixel_values=pix,
+                                max_new_tokens=4 + 2 * i))
+
+    # buckets: configured, or derived from the request lengths (64-multiples)
+    buckets = scfg.get("PROMPT_BUCKETS") or sorted(
+        {-(-len(r.input_ids) // 64) * 64 for r in reqs})
+    max_new_max = max(r.max_new_tokens for r in reqs)
+    max_len = int(scfg.get("MAX_LEN", max(buckets) + max_new_max))
+    gen, eng = _engine_from_cfg(scfg, model_cfg, params, tokenizer, buckets, max_len)
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.time()
+    results = eng.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+
+    out_path = scfg.get("RESULTS", "serve_results.jsonl")
+    with open(out_path, "w") as f:
+        for r in reqs:
+            toks = results[r.req_id]
+            text = tokenizer.decode(toks[:-1] if toks and toks[-1] == gen.eos_token_id else toks)
+            f.write(json.dumps({"id": r.req_id, "tokens": toks, "text": text}) + "\n")
+    summary = {"requests": len(reqs),
+               "tokens": sum(len(v) for v in results.values()),
+               "wall_s": round(dt, 3),
+               "requests_per_s": round(len(reqs) / max(dt, 1e-9), 3),
+               "results": out_path}
+    print(json.dumps(summary))
+    return summary

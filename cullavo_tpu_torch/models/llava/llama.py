@@ -18,8 +18,11 @@ Modes:
     tensors, the plain ``sdpa_decode_stale_smajor[_q8]`` on CPU tensors),
     and the fresh k/v are then written into the cache IN PLACE (the
     returned cache is the input tensors).
-Cached forwards without ``stale_cache`` (prefix reuse), sliding windows and
-adapters wait for later slices and raise.
+A prefix-reuse suffix prefill is one such window of width T at a scalar
+``cache_index``; windows wider than the kernels' 64 rows take the plain
+attention on either device.  Cached forwards without ``stale_cache`` (the
+fused ``generate``), sliding windows and adapters wait for later slices and
+raise.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch.nn.functional as F
 from cullavo_tpu_torch.models.llava.config import LlamaConfig
 from cullavo_tpu_torch.ops import nf4 as nf4_ops
 from cullavo_tpu_torch.ops.flash_attention import flash_attention
+from cullavo_tpu_torch.ops.wwin_decode import MAX_W as WWIN_MAX_W
 from cullavo_tpu_torch.ops.wwin_decode import (NEG_INF, _fold_scale, _window_scores,
                                                _window_scores_q8, _window_values_q8,
                                                wwin_decode_smajor,
@@ -217,6 +221,14 @@ def _layer_slice(w, li: int):
 
 
 def _mm(x, w):
+    """x @ w for a dense, an int8 or a planar NF4 weight.  NF4 on CUDA
+    tensors: the kernels (fused below M = 512, dequant once above); on CPU
+    tensors the JAX package's own non-TPU branch, a dense matmul against the
+    dequantized weight in x's dtype."""
+    if nf4_ops.is_quantized_planar(w):
+        if x.device.type == "cpu":
+            return x @ nf4_ops.dequant_linear_planar(w, dtype=x.dtype)
+        return nf4_ops.nf4_linear_planar_auto(x, w)
     if isinstance(w, dict):
         return nf4_ops.int8_linear_policy(x, w)
     return x @ w
@@ -224,7 +236,8 @@ def _mm(x, w):
 
 def _mm_group(x, w, names):
     """q/k/v (or gate/up) share one activation-quantization pass when every
-    member is a SmoothQuant-calibrated int8 dict and M is prefill-sized."""
+    member is a SmoothQuant-calibrated int8 dict and M is prefill-sized; NF4
+    and dense members go one by one."""
     ws = [w[n] for n in names]
     if nf4_ops.s8s8_group_enabled(ws, x):
         return list(nf4_ops.int8_linear_s8s8_group(x, tuple(ws)))
@@ -278,8 +291,8 @@ def llama_forward(
         raise NotImplementedError("Mistral sliding-window attention (BakLLaVA) "
                                   "waits for slice 6")
     if cache is not None and not stale_cache:
-        raise NotImplementedError("cached forwards without stale_cache (prefix reuse) "
-                                  "wait for slice 3")
+        raise NotImplementedError("cached forwards without stale_cache (the fused "
+                                  "generate) wait for a later slice")
     if stale_cache and cache is None:
         raise ValueError("stale_cache needs a cache")
     if prefill_pad_len is not None and cache is not None:
@@ -310,7 +323,11 @@ def llama_forward(
                                   device=inputs_embeds.device)
     elif stale_cache:
         new_cache = cache
-    on_cpu = inputs_embeds.device.type == "cpu"
+    # K4/K5 take windows of 1..WWIN_MAX_W rows, which covers the engine's
+    # default suffix buckets; only a suffix bucket configured wider than that
+    # takes the plain attention (the JAX package sends wide windows to its
+    # XLA branch), and the engine counts those in ``suffix_wide_windows``
+    plain_attn = inputs_embeds.device.type == "cpu" or T > WWIN_MAX_W
 
     h = inputs_embeds
     for li in range(L):
@@ -343,7 +360,7 @@ def llama_forward(
             kq, ks = quantize_kv(k_sm)
             vq, vs = quantize_kv(v_sm)
             win_q8 = (kq, ks, vq, vs) if T > 1 else None
-            if on_cpu:
+            if plain_attn:
                 attn = sdpa_decode_stale_smajor_q8(
                     qh, cache["k"][li], cache["k_s"][li], cache["v"][li], cache["v_s"][li],
                     kr, vr, bias, n_rep=n_rep, win_q8=win_q8)
@@ -356,7 +373,7 @@ def llama_forward(
         else:
             # CUDA tensors: K4 reads the stacked cache in place; CPU: plain slice
             kr, vr = repeat_kv(kh, n_rep), repeat_kv(vh, n_rep)
-            if on_cpu:
+            if plain_attn:
                 attn = sdpa_decode_stale_smajor(
                     qh, cache["k"][li].to(dtype), cache["v"][li].to(dtype), kr, vr, bias,
                     n_rep=n_rep)

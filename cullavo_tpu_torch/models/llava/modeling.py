@@ -1,13 +1,15 @@
-"""LLaVA-1.5 in PyTorch: vision tower + projector + LLaMA, token merge and
-two-phase greedy generation, plain and speculative (counterpart of
-``cullavo_tpu/models/llava/modeling.py``).
+"""LLaVA-1.5 in PyTorch: vision tower + projector + LLaMA, token merge,
+two-phase greedy generation, plain and speculative, and the serving
+engine's device functions: prefix reuse, the slot pool and decode quanta
+(counterpart of ``cullavo_tpu/models/llava/modeling.py``).
 
 Parameters are plain dicts of tensors in the JAX package's layout, and the
 prefill/decode states keep its keys and layouts (S-major cache
 ``[L, S, B, KV, hd]``, bf16 or int8 with scale planes), so the tests
 compare like with like.  Where JAX donates a state and returns an updated
 copy, the port updates it in place (``merge_decode_state``,
-``generate_decode``, ``generate_decode_spec``); the functions say so.
+``generate_decode``, ``generate_decode_spec``, ``decode_quantum[_spec]``,
+``write_slot[s]``); the functions say so.
 Generation runs eagerly: a Python loop over decode steps with ``write_idx``
 a host integer, or over speculative windows with ``write_idx`` an int32
 [B] tensor on the device and one host read per window.
@@ -195,7 +197,7 @@ class GenerationConfig:
 def _sample_token(logits: torch.Tensor, gen: GenerationConfig) -> torch.Tensor:
     """logits [B, V] -> [B] int32 (greedy: the first maximal index)."""
     if gen.do_sample:
-        raise NotImplementedError("sampled decoding waits for slice 3")
+        raise NotImplementedError("sampled decoding waits for a later slice")
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
@@ -473,3 +475,231 @@ def generate_decode_spec(params: dict, cfg: LlavaConfig, state: dict,
                        "adapter_ids": state["adapter_ids"]}
         return tokens, stats, final_state
     return tokens, stats
+
+
+# ---------------------------------------------------------------------------
+# serving: prefix reuse, the slot pool, decode quanta
+# ---------------------------------------------------------------------------
+
+def extract_prefix_state(state: dict, row: int) -> dict:
+    """COPY one row of a prefill/decode state into a reusable 1-row prefix
+    state (cache batch axis 2).  The serving engine keeps these in its prefix
+    registry: a copy, so that the registry does not keep the whole chunk
+    alive."""
+    r = int(row)
+    return {"cache": {name: a[:, :, r:r + 1].clone() for name, a in state["cache"].items()},
+            "full_mask": state["full_mask"][r:r + 1].clone(),
+            "key_pos": state["key_pos"][r:r + 1].clone(),
+            "write_idx": state["write_idx"]}
+
+
+@torch.no_grad()
+def generate_prefill_prefix(params: dict, cfg: LlavaConfig, prefix_state: dict,
+                            suffix_ids: torch.Tensor, pixel_values: Optional[torch.Tensor],
+                            suffix_mask: torch.Tensor, prefix_len: int,
+                            compute_dtype=torch.bfloat16) -> dict:
+    """Prefill that CONTINUES from a cached KV prefix.
+
+    ``prefix_state``: a 1-row state (``extract_prefix_state``) whose cache
+    slots ``[0, prefix_len)`` hold the KV of tokens identical across the
+    batch.  ``suffix_ids`` [B, W]: each row's remaining right-padded tokens;
+    ``pixel_values`` rides along when the image run lies in the suffix.
+    Returns a state interchangeable with ``generate_prefill``'s where row
+    b's prompt is ``prefix ++ suffix_b`` laid out in slots
+    ``[0, prefix_len + W)``.
+
+    The suffix runs as ONE ``stale_cache`` window of width W: attention reads
+    the prefix cache gated to ``[0, prefix_len)`` (slots past it in a longer
+    stored prefix stay masked) plus the intra-window causal fresh block, and
+    each layer writes its W-slot slab at ``prefix_len`` in place, into a real
+    B-row copy of the prefix (the stored row is not touched)."""
+    B, W = suffix_ids.shape
+    dev = suffix_ids.device
+    P = int(prefix_len)
+    lm = _cast_params(params, compute_dtype)
+    cache = {name: a.expand(-1, -1, B, *a.shape[3:]).contiguous()
+             for name, a in prefix_state["cache"].items()}
+    S = cache["k"].shape[1]
+    slots = torch.arange(S, device=dev)[None]
+    pfx_valid = (slots < P).to(torch.int32)
+    full_mask = pfx_valid.expand(B, S).contiguous()
+    key_pos = torch.where(pfx_valid > 0, slots, 0).to(torch.int32).expand(B, S).contiguous()
+    suffix_pos = P + _positions(suffix_mask)                           # [B, W]
+    logits, cache = llava_forward(lm, cfg, suffix_ids, pixel_values, suffix_mask, suffix_pos,
+                                  cache, P, full_mask, key_pos, stale_cache=True,
+                                  last_logit_only=True)
+    full_mask[:, P:P + W] = suffix_mask.to(torch.int32)
+    key_pos[:, P:P + W] = suffix_pos.to(torch.int32)
+    return {"logits": logits[:, 0], "cache": cache, "full_mask": full_mask,
+            "key_pos": key_pos,
+            "cur_pos": (P + suffix_mask.sum(dim=1)).to(torch.int32),
+            "write_idx": P + W,
+            "adapter_ids": torch.zeros((B,), dtype=torch.int32, device=dev)}
+
+
+@torch.no_grad()
+def decode_quantum(params: dict, cfg: LlavaConfig, state: dict, gen: GenerationConfig,
+                   num_steps: int, compute_dtype=torch.bfloat16):
+    """Continuous-batching decode: ``num_steps`` T=1 steps over a slot POOL
+    whose rows are independent requests mid-generation: per-row write
+    positions (``state["write_idx"]`` [B]), current tokens (``cur_tok``) and
+    done flags (``done``).  Never samples from ``state["logits"]`` (the
+    engine samples each row's first token at admission).  The pool's cache,
+    ``full_mask`` and ``key_pos`` are updated IN PLACE; rows whose write
+    position runs past the cache stop writing.  No host read.
+
+    Returns (tokens [B, num_steps] int32, new_state)."""
+    lm = _cast_params(params, compute_dtype)
+    eos = gen.eos_token_id
+    tok, cur_pos, write_idx = state["cur_tok"], state["cur_pos"], state["write_idx"]
+    full_mask, key_pos, cache, done = (state["full_mask"], state["key_pos"], state["cache"],
+                                       state["done"])
+    one = torch.ones((tok.shape[0], 1), dtype=torch.bool, device=tok.device)
+    toks = []
+    for _ in range(num_steps):
+        logits, cache = llava_forward(lm, cfg, tok[:, None], None, None, cur_pos[:, None],
+                                      cache, write_idx, full_mask, key_pos, stale_cache=True)
+        _put_rows(full_mask, write_idx, one, one)
+        _put_rows(key_pos, write_idx, one, cur_pos[:, None])
+        nxt = _sample_token(logits[:, 0], gen)
+        nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
+        done = done | (nxt == eos)
+        toks.append(nxt)
+        tok, cur_pos, write_idx = nxt, cur_pos + 1, write_idx + 1
+    new_state = {**state, "cache": cache, "cur_pos": cur_pos, "write_idx": write_idx,
+                 "cur_tok": tok, "done": done}
+    return torch.stack(toks, dim=1), new_state
+
+
+@torch.no_grad()
+def decode_quantum_spec(params: dict, cfg: LlavaConfig, state: dict, hist_state: dict,
+                        gen: GenerationConfig, num_steps: int, spec_k: int,
+                        compute_dtype=torch.bfloat16):
+    """``decode_quantum`` with prompt-lookup speculative windows
+    (``generate_decode_spec``'s machinery on the serving slot pool).
+
+    Each iteration runs ONE ``spec_k``-token verification forward per pool
+    row (per-row W-slot cache writes; rejected slots never get their
+    ``full_mask`` bit), and a row emits 1..``spec_k`` tokens per forward, so
+    the quantum takes between ``ceil(num_steps / spec_k)`` and ``num_steps``
+    forwards.  Greedy-only: a draft survives only when it equals the argmax,
+    so the stream is that of ``decode_quantum``.
+
+    ``hist_state``: ``{"hist": [B, Hcap] int32, "hist_len": [B] int32}``, the
+    per-slot lookup corpus (prompt + emitted tokens, current token last),
+    filled by the engine at admission and extended here.  The pool and the
+    history are updated IN PLACE; the loop reads one boolean from the device
+    per window.
+
+    Returns ``(tokens [B, num_steps], n_emit [B], new_state,
+    new_hist_state)``: row b's valid tokens are ``tokens[b, :n_emit[b]]``
+    (done and idle rows emit 0); ``new_hist_state["n_fwd"]`` counts the
+    forwards so far (a host int).  Unlike the JAX function, a window never
+    carries a row past the quantum's end (see the loop)."""
+    if gen.do_sample:
+        raise ValueError("speculative decode is greedy-only (exactness "
+                         "contract); use decode_quantum for sampling")
+    if spec_k < 2:
+        raise ValueError("spec_k < 2 is plain decode: use decode_quantum")
+    lm = _cast_params(params, compute_dtype)
+    dev = state["cur_tok"].device
+    B, W, eos = state["cur_tok"].shape[0], spec_k, gen.eos_token_id
+    out = torch.full((B, num_steps + W), eos, dtype=torch.int32, device=dev)   # W of slack
+    n_emit = torch.zeros((B,), dtype=torch.int32, device=dev)
+    cur_tok, cur_pos, write_idx = state["cur_tok"], state["cur_pos"], state["write_idx"]
+    full_mask, key_pos, cache, done = (state["full_mask"], state["key_pos"], state["cache"],
+                                       state["done"])
+    hist, hist_len = hist_state["hist"], hist_state["hist_len"]
+    j = torch.arange(W, device=dev)[None]
+    n_fwd = 0
+
+    while bool((~done & (n_emit < num_steps)).any()):
+        draft = _ngram_draft(hist, hist_len, cur_tok, W)           # [B, W-1]
+        tokens_in = torch.cat([cur_tok[:, None], draft], dim=1)
+        logits, cache = llava_forward(lm, cfg, tokens_in, None, None, cur_pos[:, None] + j,
+                                      cache, write_idx, full_mask, key_pos,
+                                      stale_cache=True)
+        t = torch.argmax(logits, dim=-1).to(torch.int32)           # [B, W]
+        match = (draft == t[:, :-1]).to(torch.int32)               # [B, W-1]
+        a = torch.cumprod(match, dim=1).sum(dim=1)
+        within = (t == eos) & (j <= a[:, None])
+        has_eos = within.any(dim=1)
+        n_eos = torch.argmax(within.to(torch.int32), dim=1) + 1
+        e = torch.where(has_eos, n_eos, a + 1)
+        # a row emits no more than the quantum has room for: the verified
+        # tokens past it are left to the next quantum, which derives them
+        # again (advancing the row over them would drop them from the stream)
+        e = torch.minimum(e, num_steps - n_emit)
+        e = torch.where(done | (n_emit >= num_steps), 0, e).to(torch.int32)   # [B] emitted
+        keep = j < e[:, None]
+        _put_rows(out, n_emit, keep, t)
+        _put_rows(hist, hist_len, keep, t)
+        _put_rows(full_mask, write_idx, keep, torch.ones_like(t))
+        _put_rows(key_pos, write_idx, keep, cur_pos[:, None] + j)
+        last = torch.gather(t, 1, (e - 1).clamp_min(0).long()[:, None])[:, 0]
+        cur_tok = torch.where(e > 0, last, cur_tok)
+        done = done | (has_eos & (e > 0) & (n_eos <= e))
+        cur_pos, write_idx = cur_pos + e, write_idx + e
+        n_emit, hist_len = n_emit + e, hist_len + e
+        n_fwd += 1
+
+    new_state = {**state, "cache": cache, "cur_pos": cur_pos, "write_idx": write_idx,
+                 "cur_tok": cur_tok, "done": done}
+    hist_out = {"hist": hist, "hist_len": hist_len,
+                "n_fwd": int(hist_state.get("n_fwd", 0)) + n_fwd}
+    return out[:, :num_steps], n_emit, new_state, hist_out
+
+
+def write_slot(pool: dict, chunk: dict, row: int, slot: int, first_tok: int,
+               done0: bool) -> dict:
+    """Admit one prefilled request into a slot of the decode pool, IN PLACE.
+
+    ``chunk`` is a ``generate_prefill`` state (scalar ``write_idx``);
+    ``row`` selects the request's row in it, ``slot`` the pool row to
+    overwrite (host ints, both inside their ranges).  ``first_tok`` and
+    ``done0`` come from sampling the chunk's prefill logits at admission."""
+    row, slot = int(row), int(slot)
+    n_rows, n_slots = chunk["full_mask"].shape[0], pool["full_mask"].shape[0]
+    if not (0 <= row < n_rows and 0 <= slot < n_slots):
+        raise IndexError(f"write_slot: row {row} of {n_rows}, slot {slot} of {n_slots}")
+    for name, a in chunk["cache"].items():
+        pool["cache"][name][:, :, slot] = a[:, :, row]
+    for key in ("full_mask", "key_pos", "cur_pos"):
+        pool[key][slot] = chunk[key][row]
+    pool["write_idx"][slot] = int(chunk["write_idx"])
+    pool["cur_tok"][slot] = int(first_tok)
+    pool["done"][slot] = bool(done0)
+    if "adapter_ids" in pool:
+        pool["adapter_ids"][slot] = chunk["adapter_ids"][row]
+    return pool
+
+
+def write_slots(pool: dict, chunk: dict, slots, first_toks, done0) -> dict:
+    """Admit a whole prefill chunk into the decode pool, IN PLACE: chunk row
+    i goes to pool row ``slots[i]``; rows whose slot lies outside the pool
+    (the engine marks prefill pad rows and requests that finished at
+    admission with -1) are NOT admitted.  ``slots`` is host data (the engine
+    builds it there): the rows to drop are taken out on the host, so that a
+    negative slot can never wrap onto a live pool row and no two chunk rows
+    share a target."""
+    slots = np.asarray(slots.cpu() if isinstance(slots, torch.Tensor) else slots).astype(np.int64)
+    n_slots = pool["full_mask"].shape[0]
+    rows = np.nonzero((slots >= 0) & (slots < n_slots))[0]
+    if len(set(slots[rows].tolist())) != len(rows):
+        raise ValueError(f"write_slots: duplicate target slots in {slots.tolist()}")
+    if not len(rows):
+        return pool
+    dev = pool["full_mask"].device
+    src = torch.as_tensor(rows, device=dev)
+    dst = torch.as_tensor(slots[rows], device=dev)
+    for name, a in chunk["cache"].items():
+        pool["cache"][name].index_copy_(2, dst, a.index_select(2, src))
+    for key in ("full_mask", "key_pos", "cur_pos") + (("adapter_ids",) if "adapter_ids" in pool
+                                                       else ()):
+        pool[key].index_copy_(0, dst, chunk[key].index_select(0, src).to(pool[key].dtype))
+    first = torch.as_tensor(np.asarray(first_toks), device=dev).to(torch.int32)
+    done = torch.as_tensor(np.asarray(done0), device=dev).to(torch.bool)
+    pool["write_idx"].index_fill_(0, dst, int(chunk["write_idx"]))
+    pool["cur_tok"].index_copy_(0, dst, first.index_select(0, src))
+    pool["done"].index_copy_(0, dst, done.index_select(0, src))
+    return pool

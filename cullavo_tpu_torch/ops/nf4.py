@@ -1,13 +1,21 @@
-"""The int8 half of ``cullavo_tpu/ops/nf4.py``: SmoothQuant W8A8 weights.
+"""Quantized linears (counterpart of ``cullavo_tpu/ops/nf4.py``): SmoothQuant
+W8A8 int8 weights and planar NF4 weights.
 
-Weight dicts keep the JAX layout: ``{"q8": int8 [..., K, N], "scale8": f32
-[..., 1, N], "sq_inv": bf16 [..., 1, K]}``.  Two kernels live here:
+Weight dicts keep the JAX layout: int8 ``{"q8": int8 [..., K, N], "scale8":
+f32 [..., 1, N], "sq_inv": bf16 [..., 1, K]}``; planar NF4 ``{"q4p": int32
+[..., K/8, N], "scale": f32 [..., K, N/64]}`` (bits 4i..4i+3 of word
+[k8, n] hold the code of element (i * K/8 + k8, n); one absmax per row and
+64-column block).  Four kernels live here:
 
 * K2 ``quantize_rows`` (``csrc/quant_rows.cu``): the per-token activation
   quantizer in front of every s8s8 prefill GEMM, bit-identical to the JAX
   chain (``_quant_inv_scale``).
 * K3 ``int8_linear`` (``csrc/int8_matmul.cu``): ``x @ (q8 * scale8)`` with
   the weight kept int8 in device memory, the decode-M linear.
+* K6 ``nf4_linear_planar`` (``csrc/nf4_planar.cu``): ``x @ dequant(q4p,
+  scale)`` with the weight kept 4-bit in device memory, for M < 512.
+* K7 ``nf4_dequant_planar`` (``csrc/nf4_planar.cu``): planar NF4 -> dense
+  bf16 once, in front of a plain matmul, for M >= 512.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel (or raises) for a CUDA tensor.  The int8 x int8 ->
@@ -17,6 +25,7 @@ matmul.  Dict kinds outside this slice raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from cullavo_tpu_torch import _build
@@ -26,11 +35,10 @@ from cullavo_tpu_torch import _build
 _S8S8_MIN_M = 1024
 
 _NOT_IN_SLICE = {
-    "q8t": "the transposed int8 layout ('q8t') waits for the NF4 slice",
+    "q8t": "the transposed int8 layout ('q8t') waits for a later slice",
     "o_w": "static LLM.int8 outlier dicts ('o_w') wait for slice 4 (calibration)",
     "sa": "static activation scales ('sa') wait for slice 4 (calibration)",
-    "q4": "NF4 weights wait for the NF4 slice",
-    "q4p": "NF4 weights wait for the NF4 slice",
+    "q4": "byte-packed NF4 weights ('q4', Pallas rows 8 and 9) are not ported yet",
 }
 
 
@@ -288,3 +296,199 @@ def int8_linear_policy(x: torch.Tensor, q: dict) -> torch.Tensor:
     if "sq_inv" in q and "q8" in q:
         return int8_linear_s8s8_auto(x, q)
     return int8_linear(x, q)
+
+
+# ---------------------------------------------------------------------------
+# planar NF4
+# ---------------------------------------------------------------------------
+
+NF4_CODE = np.array([
+    -1.0, -0.6961928009986877, -0.5250730514526367, -0.39491748809814453,
+    -0.28444138169288635, -0.18477343022823334, -0.09105003625154495, 0.0,
+    0.07958029955625534, 0.16093020141124725, 0.24611230194568634,
+    0.33791524171829224, 0.44070982933044434, 0.5626170039176941,
+    0.7229568362236023, 1.0,
+], dtype=np.float32)
+
+# midpoints between adjacent codebook entries -> nearest-value quantization
+NF4_MIDPOINTS = (NF4_CODE[1:] + NF4_CODE[:-1]) / 2.0
+
+BLOCK = 64          # values per absmax block (bnb nf4 default)
+
+# M at or above this -> dequant once (K7) + a dense matmul; below -> the fused
+# kernel (K6), which keeps the weight stream 4-bit.  The JAX default.
+_NF4_DEQ_M_THRESHOLD = 512
+
+
+def is_quantized_planar(w) -> bool:
+    return isinstance(w, dict) and "q4p" in w
+
+
+def _planar_dims(q: dict, d_in=None, d_out=None):
+    """(d_in, d_out) of a 2-D planar dict, from its leaf shapes."""
+    k8, n = q["q4p"].shape[-2], q["q4p"].shape[-1]
+    if (d_in not in (None, 8 * k8)) or (d_out not in (None, n)):
+        raise ValueError(f"planar NF4 dict is [{8 * k8}, {n}], not [{d_in}, {d_out}]")
+    return 8 * k8, n
+
+
+def quantize_linear_planar(w: torch.Tensor) -> dict:
+    """[..., d_in, d_out] -> {"q4p": int32 [..., d_in/8, d_out], "scale": f32
+    [..., d_in, d_out/BLOCK]} on w's device.  Blockwise absmax over 64
+    consecutive output columns, nearest codebook entry by midpoint
+    comparisons, eight row-planes per int32 word: codes and scales are
+    bit-equal to the JAX quantizer's.  Works one leading matrix at a time,
+    so the f32 temporaries stay one matrix large."""
+    *lead, d_in, d_out = w.shape
+    if d_in % 8 or d_out % BLOCK:
+        raise ValueError(f"planar NF4 needs d_in % 8 == 0 and d_out % {BLOCK} == 0, "
+                         f"got [{d_in}, {d_out}]")
+    k8, nb = d_in // 8, d_out // BLOCK
+    mats = w.reshape(-1, d_in, d_out)
+    words = torch.empty((mats.shape[0], k8, d_out), dtype=torch.int32, device=w.device)
+    scale = torch.empty((mats.shape[0], d_in, nb), dtype=torch.float32, device=w.device)
+    for l in range(mats.shape[0]):
+        blocks = mats[l].float().reshape(d_in, nb, BLOCK)
+        absmax = blocks.abs().amax(dim=-1)
+        normed = _div(blocks, torch.where(absmax == 0, torch.ones_like(absmax),
+                                          absmax)[..., None].expand_as(blocks))
+        codes = torch.zeros(blocks.shape, dtype=torch.int64, device=w.device)
+        for m in NF4_MIDPOINTS.tolist():
+            codes += normed > m
+        codes = codes.reshape(d_in, d_out)
+        packed = torch.zeros((k8, d_out), dtype=torch.int64, device=w.device)
+        for i in range(8):
+            packed |= codes[i * k8:(i + 1) * k8] << (4 * i)
+        # plane 7 reaches bit 31: fold into the signed 32-bit range exactly
+        packed = torch.where(packed >= 2 ** 31, packed - 2 ** 32, packed)
+        words[l] = packed.to(torch.int32)
+        scale[l] = absmax
+    return {"q4p": words.reshape(*lead, k8, d_out), "scale": scale.reshape(*lead, d_in, nb)}
+
+
+def dequant_linear_planar(q: dict, d_in=None, d_out=None, dtype=torch.bfloat16):
+    """Planar -> dense [d_in, d_out]: ``code_f32 * scale_f32`` rounded once
+    to ``dtype``.  The plain version of K7, and the weight of the plain
+    linear on CPU tensors."""
+    d_in, d_out = _planar_dims(q, d_in, d_out)
+    words = q["q4p"].reshape(d_in // 8, d_out)
+    codes = torch.cat([(words >> (4 * i)) & 0xF for i in range(8)], dim=0)   # [d_in, d_out]
+    vals = torch.from_numpy(NF4_CODE).to(words.device)[codes.long()]
+    scale = q["scale"].reshape(d_in, d_out // BLOCK).float()
+    vals = vals.reshape(d_in, d_out // BLOCK, BLOCK) * scale[..., None]
+    return vals.reshape(d_in, d_out).to(dtype)
+
+
+def _nf4_linear_planar_plain(x, q, d_in=None, d_out=None):
+    """The arithmetic of K6 (the TPU kernel's "scale on x" variant): per
+    64-column block c, ``bf16(f32(x) * scale[:, c]) @ bf16(code)`` with f32
+    products and sums, one rounding to x's dtype."""
+    d_in, d_out = _planar_dims(q, d_in, d_out)
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, d_in).float()
+    words = q["q4p"].reshape(d_in // 8, d_out)
+    codes = torch.cat([(words >> (4 * i)) & 0xF for i in range(8)], dim=0)
+    table = torch.from_numpy(NF4_CODE).to(words.device).to(torch.bfloat16).float()
+    vals = table[codes.long()].reshape(d_in, d_out // BLOCK, BLOCK)          # [K, NB, 64]
+    scale = q["scale"].reshape(d_in, d_out // BLOCK).float()
+    xs = (xf[:, :, None] * scale[None]).to(torch.bfloat16).float()           # [M, K, NB]
+    y = torch.einsum("mkc,kcn->mcn", xs, vals)
+    return y.reshape(*lead, d_out).to(x.dtype)
+
+
+def _check_planar_cuda(name, q, device):
+    words, scale = q["q4p"], q["scale"]
+    if words.dim() != 2 or scale.dim() != 2:
+        raise ValueError(f"{name}: takes one [K/8, N] matrix, got q4p {tuple(words.shape)}")
+    K, N = 8 * words.shape[0], words.shape[1]
+    if N % BLOCK:
+        raise ValueError(f"{name}: the kernel needs N % {BLOCK} == 0 (N={N})")
+    if words.dtype != torch.int32 or not words.is_contiguous() or words.data_ptr() % 16:
+        raise ValueError(f"{name}: q4p must be a contiguous, 16-byte aligned int32 [K/8, N]")
+    if (scale.dtype != torch.float32 or tuple(scale.shape) != (K, N // BLOCK)
+            or not scale.is_contiguous()):
+        raise ValueError(f"{name}: scale must be a contiguous f32 [{K}, {N // BLOCK}]")
+    if words.device != device or scale.device != device:
+        raise ValueError(f"{name}: weight and activation on different devices")
+    return K, N
+
+
+def nf4_linear_planar(x: torch.Tensor, q: dict, d_in=None, d_out=None) -> torch.Tensor:
+    """Fused planar dequant-matmul ``x [..., K] @ dequant(q)`` (K6): the
+    weight stays 4-bit in device memory."""
+    _planar_dims(q, d_in, d_out)
+    if x.device.type == "cpu":
+        return _nf4_linear_planar_plain(x, q)
+    if x.device.type != "cuda":
+        raise ValueError(f"nf4_linear_planar: unsupported device {x.device}")
+    return _nf4_linear_planar_cuda(x, q)
+
+
+nf4_linear_planar.launches = 0
+
+
+def _nf4_linear_splits(M: int, K: int, N: int, device) -> int:
+    """K splits so that the (column block x row block x split) grid fills
+    the SMs in ONE wave: the kernel's 64-column blocks of up to 128, 256 or
+    512 rows are resident 3, 2 or 1 to an SM (its shared memory and
+    registers), and a grid a little over one wave would take two."""
+    block_m, per_sm = (128, 3) if M <= 128 else (256, 2) if M <= 256 else (512, 1)
+    blocks = (N // BLOCK) * -(-M // block_m)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(-(-(K // 8) // 16), per_sm * sms // blocks))
+
+
+def _nf4_linear_planar_cuda(x, q):
+    K, N = _check_planar_cuda("nf4_linear_planar", q, x.device)
+    if x.dtype != torch.bfloat16 or x.shape[-1] != K:
+        raise ValueError(f"nf4_linear_planar: x must be bf16 [..., {K}], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, K).contiguous()
+    M = x2.shape[0]
+    if M < 1:
+        raise ValueError("nf4_linear_planar: x has no rows")
+    splits = _nf4_linear_splits(M, K, N, x.device)
+    partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    lib = _build.lib()
+    err = lib.cullavo_nf4_linear_planar(
+        x2.data_ptr(), q["q4p"].data_ptr(), q["scale"].data_ptr(), partial.data_ptr(),
+        out.data_ptr(), M, K, N, splits, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "nf4_linear_planar")
+    nf4_linear_planar.launches += 1
+    return out.reshape(*lead, N)
+
+
+def nf4_dequant_planar(q: dict, d_in=None, d_out=None, dtype=torch.bfloat16) -> torch.Tensor:
+    """Planar NF4 -> dense [d_in, d_out] in one pass (K7), bit-equal to
+    ``dequant_linear_planar``."""
+    _planar_dims(q, d_in, d_out)
+    device = q["q4p"].device
+    if device.type == "cpu":
+        return dequant_linear_planar(q, dtype=dtype)
+    if device.type != "cuda":
+        raise ValueError(f"nf4_dequant_planar: unsupported device {device}")
+    if dtype != torch.bfloat16:
+        raise ValueError(f"nf4_dequant_planar: the kernel writes bf16, not {dtype}")
+    K, N = _check_planar_cuda("nf4_dequant_planar", q, device)
+    out = torch.empty((K, N), dtype=torch.bfloat16, device=device)
+    lib = _build.lib()
+    err = lib.cullavo_nf4_dequant_planar(
+        q["q4p"].data_ptr(), q["scale"].data_ptr(), out.data_ptr(), K, N,
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, "nf4_dequant_planar")
+    nf4_dequant_planar.launches += 1
+    return out
+
+
+nf4_dequant_planar.launches = 0
+
+
+def nf4_linear_planar_auto(x: torch.Tensor, q: dict, d_in=None, d_out=None) -> torch.Tensor:
+    """Fused kernel at small M, dequant once + a dense bf16 matmul at
+    prefill-sized M (the fused kernel would spend its time decoding)."""
+    if _rows(x) >= _NF4_DEQ_M_THRESHOLD:
+        w = nf4_dequant_planar(q, d_in, d_out, torch.bfloat16)
+        return (x.to(torch.bfloat16) @ w).to(x.dtype)
+    return nf4_linear_planar(x, q, d_in, d_out)

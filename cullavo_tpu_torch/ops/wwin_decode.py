@@ -21,7 +21,7 @@ from cullavo_tpu_torch import _build
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 _VALID_FLOOR = 0.5 * NEG_INF      # scores below this are masked slots
-MAX_W = 64                        # widest window the kernels take
+MAX_W = 128                       # widest window the kernels take
 
 
 def _window_scores(q, k_cur, scale):
@@ -245,7 +245,7 @@ def wwin_decode_smajor(q, kc, vc, li, k_cur, v_cur, bias, n_rep=1, scale=None):
     """W-window stale-cache attention reading the FULL stacked cache (no
     per-layer slice copy).  q/k_cur/v_cur: [B, H, W, hd] (k_cur/v_cur may
     still have KV heads); kc/vc: [L, S, B, KV, hd]; li: layer index; bias:
-    [B|1, 1, W, S] additive key validity.  Any S; 1 <= W <= 64 on CUDA."""
+    [B|1, 1, W, S] additive key validity.  Any S; 1 <= W <= 128 on CUDA."""
     B, H, W, hd = q.shape
     scale = hd ** -0.5 if scale is None else scale
     bias_rows = _prepare("wwin_decode_smajor", q, kc, li, bias, n_rep)

@@ -152,10 +152,11 @@ def test_out_of_slice_modes_raise():
          "o_w": torch.zeros(1, 8)}
     with pytest.raises(NotImplementedError, match="slice 4"):
         tnf4.int8_linear(torch.zeros(2, 4), q)
-    with pytest.raises(NotImplementedError, match="NF4 slice"):
+    with pytest.raises(NotImplementedError, match="later slice"):
         tnf4.int8_linear(torch.zeros(2, 4), {"q8t": q["q8"].T, "scale8": q["scale8"]})
-    # the decoder: speculative windows, the int8 cache and per-row write
-    # positions run now; prefix reuse, sliding windows and sampling wait
+    # the decoder: speculative windows, the int8 cache, per-row write
+    # positions and prefix-reuse windows run now; the cached forward of the
+    # fused generate, sliding windows and sampling wait
     import dataclasses
 
     from cullavo_tpu_torch.models.llava import llama as tllama
@@ -167,7 +168,7 @@ def test_out_of_slice_modes_raise():
     lm, tc = params["language_model"], cfg.text
     emb, pos = torch.ones(1, 2, tc.hidden_size), torch.arange(2)[None]
     cache = tllama.init_kv_cache(tc, 1, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="prefix reuse"):
+    with pytest.raises(NotImplementedError, match="fused generate"):
         tllama.llama_forward(lm, tc, emb, torch.ones(1, 8), pos, cache, 0)
     with pytest.raises(NotImplementedError, match="sliding-window"):
         tllama.llama_forward(lm, dataclasses.replace(tc, sliding_window=4), emb,

@@ -42,6 +42,11 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.models.llava.modeling",
     "cullavo_tpu_torch.checkpoint.from_jax",
     "cullavo_tpu_torch.pipelines.vqa_pipeline",
+    "cullavo_tpu_torch.data.tokenizer",
+    "cullavo_tpu_torch.serving",
+    "cullavo_tpu_torch.serving.engine",
+    "cullavo_tpu_torch.serving.io",
+    "cullavo_tpu_torch.entry",
 )
 
 
@@ -55,7 +60,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in SLICE_MODULES)
             + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-              " or m == 'cullavo_tpu' or m.startswith('cullavo_tpu.')]\n"
+              " or m == 'cullavo_tpu' or m.startswith('cullavo_tpu.') or m == 'yaml']\n"
               "print(bad)\n"
               "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
@@ -66,13 +71,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_no_source_names_jax_or_the_jax_package_in_an_import():
     """Every import statement of the port's sources and of ``chip_smoke.py``,
     function-level ones included (which an import-time check cannot see)."""
-    banned = re.compile(r"^\s*(import|from)\s+(jax|cullavo_tpu)(\.|\s|$)", re.M)
+    banned = re.compile(r"^\s*(import|from)\s+(jax|cullavo_tpu|yaml)(\.|\s|$)", re.M)
     paths = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(paths) > 15
+    assert len(paths) > 20
+    assert {PORT / "entry.py", PORT / "serving" / "engine.py", PORT / "serving" / "io.py"} <= set(paths)
     for path in paths:
         hit = banned.search(path.read_text())
         assert hit is None, f"{path.relative_to(REPO)}: {hit.group(0).strip()!r}"
     assert banned.search("    from cullavo_tpu.data import x") and banned.search("import jax")
+    assert banned.search("    import yaml")
     assert not banned.search("from cullavo_tpu_torch.ops import nf4")
 
 
@@ -147,7 +154,8 @@ def test_kernel_counters_stay_zero_on_cpu_tensors():
     from cullavo_tpu_torch.ops import wwin_decode as ww
 
     wrappers = (fa.flash_attention, nf4.quantize_rows, nf4.int8_linear,
-                ww.wwin_decode_smajor, ww.wwin_decode_smajor_q8)
+                ww.wwin_decode_smajor, ww.wwin_decode_smajor_q8,
+                nf4.nf4_linear_planar, nf4.nf4_dequant_planar)
     before = [w.launches for w in wrappers]
     x = torch.randn(1, 2, 5, 8)
     fa.flash_attention(x, x, x)
@@ -159,7 +167,33 @@ def test_kernel_counters_stay_zero_on_cpu_tensors():
     ww.wwin_decode_smajor(qw, kv, kv, 1, qw, qw, bias)
     codes, planes = kv.to(torch.int8), torch.ones(2, 6, 2, 2, dtype=torch.bfloat16)
     ww.wwin_decode_smajor_q8(qw, codes, planes, codes, planes, 0, qw, qw, bias)
+    q4 = nf4.quantize_linear_planar(torch.randn(16, 64))
+    nf4.nf4_linear_planar(torch.randn(3, 16), q4)
+    nf4.nf4_dequant_planar(q4)
+    nf4.nf4_linear_planar_auto(torch.randn(600, 16), q4)
     assert [w.launches for w in wrappers] == before
+
+
+def test_nf4_wrappers_take_the_plain_version_only_for_cpu_tensors():
+    """A tensor on any other device goes to the kernel or raises: no quiet
+    step down to the plain version (a meta tensor stands for "not the CPU"
+    where there is no card)."""
+    from cullavo_tpu_torch.ops import nf4
+
+    q4 = nf4.quantize_linear_planar(torch.randn(16, 64))
+    meta = {k: v.to("meta") for k, v in q4.items()}
+    before = (nf4.nf4_linear_planar.launches, nf4.nf4_dequant_planar.launches)
+    with pytest.raises(ValueError, match="unsupported device"):
+        nf4.nf4_linear_planar(torch.randn(3, 16, device="meta"), meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        nf4.nf4_dequant_planar(meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        nf4.nf4_linear_planar_auto(torch.randn(600, 16, device="meta"), meta)
+    assert (nf4.nf4_linear_planar.launches, nf4.nf4_dequant_planar.launches) == before
+    src = (PORT / "ops" / "nf4.py").read_text()
+    cuda_half = src[src.index("def _nf4_linear_planar_cuda"):src.index("def nf4_linear_planar_auto")]
+    for banned in ("matmul", " @ ", "_plain(", "dequant_linear_planar(q", "einsum"):
+        assert banned not in cuda_half.replace("return dequant_linear_planar(q, dtype=dtype)", ""), banned
 
 
 def test_port_has_no_library_stand_ins_for_its_kernels():
@@ -273,7 +307,7 @@ def _assert_partials_close(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("W,n_rep,S,strided", [
     (1, 1, 768, False), (3, 2, 200, False), (4, 1, 664, True), (4, 4, 130, False),
-    (64, 1, 257, False), (64, 4, 96, True)])
+    (64, 1, 257, False), (64, 4, 96, True), (128, 1, 257, False), (128, 2, 96, True)])
 def test_cuda_wwin_decode_matches_plain(cuda_device, W, n_rep, S, strided):
     from cullavo_tpu_torch.ops import wwin_decode as ww
 
@@ -295,7 +329,7 @@ def test_cuda_wwin_decode_matches_plain(cuda_device, W, n_rep, S, strided):
 @pytest.mark.cuda
 @pytest.mark.parametrize("W,n_rep,S,strided", [
     (1, 1, 768, False), (3, 2, 200, True), (4, 1, 664, False), (4, 4, 130, False),
-    (64, 2, 257, False)])
+    (64, 2, 257, False), (128, 1, 200, True), (128, 2, 257, False)])
 def test_cuda_wwin_decode_q8_matches_plain(cuda_device, W, n_rep, S, strided):
     from cullavo_tpu_torch.models.llava.llama import quantize_kv
     from cullavo_tpu_torch.ops import wwin_decode as ww
@@ -334,7 +368,57 @@ def test_cuda_wwin_decode_refuses_what_the_kernel_does_not_take(cuda_device):
         ww.wwin_decode_smajor(q.float(), kc, vc, 0, k_cur, v_cur, bias)
     with pytest.raises(ValueError, match="kc must be"):
         ww.wwin_decode_smajor(q, kc.float(), vc.float(), 0, k_cur, v_cur, bias)
-    wide = torch.zeros((3, 65, 2, 128), dtype=torch.bfloat16, device=cuda_device).transpose(1, 2)
-    with pytest.raises(ValueError, match="W <= 64"):
-        ww.wwin_decode_smajor(wide, kc, vc, 0, wide, wide, torch.zeros(3, 1, 65, 64,
+    wide = torch.zeros((3, 129, 2, 128), dtype=torch.bfloat16, device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError, match="W <= 128"):
+        ww.wwin_decode_smajor(wide, kc, vc, 0, wide, wide, torch.zeros(3, 1, 129, 64,
                                                                       device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(128, 192), (1096, 64), (4096, 256)])
+def test_cuda_nf4_dequant_planar_bit_equal(cuda_device, K, N):
+    from cullavo_tpu_torch.ops import nf4
+
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q = nf4.quantize_linear_planar(torch.randn((K, N), generator=g, device=cuda_device) * K ** -0.5)
+    n0 = nf4.nf4_dequant_planar.launches
+    got = nf4.nf4_dequant_planar(q)
+    assert nf4.nf4_dequant_planar.launches == n0 + 1
+    assert torch.equal(got.view(torch.int16), nf4.dequant_linear_planar(q).view(torch.int16))
+    with pytest.raises(ValueError, match="writes bf16"):
+        nf4.nf4_dequant_planar(q, dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 17, 129, 300, 511, 700])
+@pytest.mark.parametrize("K,N", [(128, 192), (1096, 64)])
+def test_cuda_nf4_linear_planar_matches_plain(cuda_device, M, K, N):
+    """K = 1096 gives K/8 = 137 word rows: a ragged last chunk of the
+    kernel's 16-row chunks; M = 700 takes two row blocks."""
+    from cullavo_tpu_torch.ops import nf4
+
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q = nf4.quantize_linear_planar(torch.randn((K, N), generator=g, device=cuda_device) * K ** -0.5)
+    x = torch.randn((M, K), generator=g, device=cuda_device).to(torch.bfloat16)
+    n0 = nf4.nf4_linear_planar.launches
+    y = nf4.nf4_linear_planar(x, q)
+    assert nf4.nf4_linear_planar.launches == n0 + 1
+    ref = nf4._nf4_linear_planar_plain(x, q)
+    assert torch.isfinite(y).all()
+    assert torch.allclose(y.float(), ref.float(), rtol=1e-2, atol=1e-2)
+    y3 = nf4.nf4_linear_planar(x.reshape(1, M, K), q)
+    assert y3.shape == (1, M, N) and torch.equal(y3[0], y)        # deterministic split-K
+
+
+@pytest.mark.cuda
+def test_cuda_nf4_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    from cullavo_tpu_torch.ops import nf4
+
+    q = nf4.quantize_linear_planar(torch.randn((128, 192), device=cuda_device))
+    x = torch.randn((4, 128), device=cuda_device)
+    with pytest.raises(ValueError, match="x must be bf16"):
+        nf4.nf4_linear_planar(x, q)
+    with pytest.raises(ValueError, match="different devices"):
+        nf4.nf4_linear_planar(x.to(torch.bfloat16), {k: v.cpu() for k, v in q.items()})
+    with pytest.raises(ValueError, match="one \\[K/8, N\\] matrix"):
+        nf4.nf4_dequant_planar({k: v[None] for k, v in q.items()})
