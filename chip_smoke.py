@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cullavo_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py               # kernels + the three 7B paths
+    python3 chip_smoke.py               # kernels + the three 7B serving paths + the train path
     python3 chip_smoke.py --profile     # the same + a profiled run of each path
 
 Phases (each raises on failure, and the script exits non-zero):
@@ -21,7 +21,16 @@ Phases (each raises on failure, and the script exits non-zero):
      NF4 kernels at the three 7B weight shapes: K7 (dequant to dense bf16)
      bit-equal to its plain version, K6 (fused dequant-matmul) at M = 1, 14,
      64, 256 and 511 within 1e-2 + 1e-2 |ref|, timed at the serving decode
-     M = 64 beside the dense bf16 matmul.
+     M = 64 beside the dense bf16 matmul.  Then the training kernels: K1-lse
+     (the causal flash forward that also writes the log-sum-exp) at the train
+     shape [8, 32, 1024, 128], o within 1e-2 + 1e-2 |ref| and the f32 lse
+     within 2e-3; K8 (the masked flash forward with explicit positions and
+     key validity) at the probe shape [6, 32, 648, 128] with right padding,
+     with left padding (a wholly masked row), with S > T and non-causal; the
+     autograd function's dq, dk, dv against autograd through the plain
+     version (within 2e-2 of the largest entry) and its chunked backward
+     timed at the train shape; ``nf4_linear_planar_vjp``'s dx against the
+     dense matmul at M = 8192.
   4. build random LLaVA-1.5-7B weights on the card from a seeded
      ``torch.Generator``: bf16 vision tower, projector, embeddings and head;
      int8 SmoothQuant LLM linears with smooth scales exp(N(0, 0.3)) shared
@@ -56,6 +65,18 @@ Phases (each raises on failure, and the script exits non-zero):
      identical tokens in both runs, every token the sequential step's argmax
      within 0.1 in a teacher-forced replay from a FULL prefill, and K1, K5,
      K6 and K7 launched.
+  8. the train path: ``entry.train`` once in its tiny smoke mode; the
+     2-layer full-width check of the Q-LoRA train step (loss and every
+     gradient, kernel path on the card against the plain path on the CPU);
+     then, over the NF4 base of phase 7, the state built by
+     ``CuLLaVOPipeline.initialize_model`` (r = 64 adapters on the seven LLM
+     targets and on vision layers 12-22, f32 masters, AdamW) and 4 steps of
+     ``forward_step`` (remat, bf16 compute, chunked loss, dropout 0.05) on
+     one batch of 8 right-padded to T = 1024, twice from the same seed: every
+     loss finite, the loss of step 4 below step 1, ``grad_norm`` finite and
+     non-zero, the two runs equal within 1e-3 relative, the frozen base
+     bit-unchanged, and K1-lse and K7 launched as often as the shapes say.
+  8b. the package's ``attn_probe`` at its default shape, which runs K8.
 The last two lines are the kernels' JSON record and the result line.
 Imports neither JAX nor the JAX package.
 """
@@ -84,6 +105,15 @@ SERVE_IMAGES, SERVE_QUESTIONS, SERVE_HEAD_TEXT, SERVE_SHARED_TEXT = 8, 3, 4, 32
 SERVE_OWN_TEXT, SERVE_BUDGETS = (8, 28), (8, 16, 24, 32)
 SERVE_DECODE_M = SERVE_CFG["SLOTS"] * SERVE_CFG["SPEC_K"]
 SERVE_SUFFIX_W = (32, 64, 128)   # the engine's default suffix buckets
+# configs/cullavo_step1.yaml (the Q-LoRA train step), its dataset left unset
+TRAIN_CFG = {"NAME": "cullavo_step1", "PIPELINE": "CuLLaVOPipeline", "WORKLOAD": "step1",
+             "BATCH_SIZE": 8, "LR": 2.0e-5, "LAST_LR": 0.0, "GRAD_MAX": 10.0, "GRAD_CUM": 1,
+             "SEED": 0,
+             "MODEL": {"LLM": {"BITS": 4, "LORA_R": 64, "LORA_ALPHA": 16, "GRAD_CKPT": True,
+                               "LOAD_PATH": None}},
+             "DATASETS": {"TRAIN": None}}
+TRAIN_T, TRAIN_STEPS, TRAIN_LEN_RANGE = 1024, 4, (700, 1024)
+PROBE_SHAPE = (6, 32, 648, 128)   # the attention probe's default shape
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense operations/s by input type
 HBM_BPS = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -237,6 +267,181 @@ def check_kernels(device):
         f"({bd['bound_by']})")
     rec.update(check_wwin_kernels(device, g))
     rec.update(check_nf4_kernels(device, g))
+    rec.update(check_train_kernels(device, g))
+    return rec
+
+
+def check_train_kernels(device, g):
+    """Phase 3, the training kernels: K1-lse and K8 against ``mha_reference``
+    (o within 1e-2 + 1e-2 |ref|: P and O round to bf16 at other places; the
+    f32 lse within 2e-3), the autograd function's gradients against autograd
+    through the plain version, the chunked backward's time at the train
+    shape, and ``nf4_linear_planar_vjp``'s dx against the dense matmul."""
+    import torch
+
+    from cullavo_tpu_torch.models.llava.lora import dropout_mask
+    from cullavo_tpu_torch.ops import flash_attention as fa
+    from cullavo_tpu_torch.ops import nf4
+
+    bf = torch.bfloat16
+    sdpa_lib = torch.nn.functional.scaled_dot_product_attention   # a yardstick only
+    rec = {}
+
+    def qkv(B, H, T, S, d):
+        return (torch.randn((B, T, H, d), generator=g, device=device).to(bf).transpose(1, 2),
+                *(torch.randn((B, S, H, d), generator=g, device=device).to(bf).transpose(1, 2)
+                  for _ in range(2)))
+
+    def hold(name, got, want):
+        (o, lse), (o_ref, lse_ref) = got, want
+        torch.cuda.synchronize(device)
+        err = (o.float() - o_ref.float()).abs().max().item()
+        lerr = (lse - lse_ref).abs().max().item()
+        log(f"{name}: o max_abs_err={err:.3e} (tol 1e-2 + 1e-2 |ref|), lse max_abs_err="
+            f"{lerr:.3e} (f32, tol 2e-3)")
+        if not (torch.isfinite(o).all() and torch.isfinite(lse).all()
+                and torch.allclose(o.float(), o_ref.float(), rtol=1e-2, atol=1e-2)
+                and torch.allclose(lse, lse_ref, rtol=1e-5, atol=2e-3)):
+            raise RuntimeError(f"{name} disagrees with mha_reference: {err}, lse {lerr}")
+        return err
+
+    # K1-lse at the train shape
+    B, H, T, d = TRAIN_CFG["BATCH_SIZE"], 32, TRAIN_T, 128
+    q, k, v = qkv(B, H, T, T, d)
+    got = fa._flash_cuda(q, k, v, None, None, True, True)
+    err = hold(f"K1-lse flash_fwd_lse B={B} H={H} T={T} d={d}", got,
+               fa.mha_reference(q, k, v, need_lse=True))
+    if not torch.equal(got[0], fa.flash_attention(q, k, v)):
+        raise RuntimeError("K1-lse and K1 give different outputs")
+    ms = bench_ms(lambda: fa._flash_cuda(q, k, v, None, None, True, True), device)
+    plain = bench_ms(lambda: fa.mha_reference(q, k, v, need_lse=True), device, reps=5)
+    lib = bench_ms(lambda: sdpa_lib(q, k, v, is_causal=True), device)
+    flops = 4 * B * H * T * T * d / 2
+    bd = bound(nbytes(q, k, v, *got), flops, "bf16")
+    log(f"K1-lse B={B} T={T}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library sdpa {lib:.4f} "
+        f"ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    rec["flash_fwd_lse"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **bd,
+                                shape=f"q/k/v [{B},{H},{T},{d}] bf16 causal + lse f32")
+
+    # the backward of the autograd function at the train shape (plain
+    # PyTorch in the port, as it is plain XLA in the JAX package)
+    o, lse = got
+    do = torch.randn((B, T, H, d), generator=g, device=device).to(bf).transpose(1, 2)
+    bwd_ms = bench_ms(lambda: fa._flash_bwd(q, k, v, None, None, True, o, lse, do), device,
+                      reps=5)
+    ql, kl, vl = (t.detach().requires_grad_(True) for t in (q, k, v))
+    lib_out = sdpa_lib(ql, kl, vl, is_causal=True)
+    lib_bwd = bench_ms(lambda: torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True),
+                       device, reps=5)
+    plain_out = fa.mha_reference(ql, kl, vl)
+    plain_bwd = bench_ms(lambda: torch.autograd.grad(plain_out, (ql, kl, vl), do,
+                                                     retain_graph=True), device, reps=5)
+    bd = bound(nbytes(q, k, v, o, lse, do, q, k, v), 2.5 * flops, "bf16")
+    log(f"flash backward (chunked PyTorch) B={B} T={T}: {bwd_ms:.4f} ms, autograd through the "
+        f"plain version {plain_bwd:.4f} ms, library sdpa backward {lib_bwd:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    del ql, kl, vl, lib_out, plain_out, o, lse, do, got
+    torch.cuda.empty_cache()
+
+    # K8 at the probe shape: right padding (timed), left padding, S > T, non-causal
+    B, H, T, d = PROBE_SHAPE
+    for label, Tq, S, causal, left in (("right-padded", T, T, True, False),
+                                       ("left-padded", T, T, True, True),
+                                       ("S > T", 200, T, True, False),
+                                       ("non-causal", T, T, False, False)):
+        q, k, v = qkv(B, H, Tq, S, d)
+        idx = torch.arange(S, device=device)[None, :].expand(B, S)
+        valid = ((idx >= 7) if left else (idx < S - 7)).int()
+        pos = (torch.cumsum(valid, dim=1) - 1).clamp_min(0)[:, S - Tq:].int()
+        if left:   # key j sits at index j; the padded queries see no key
+            pos = torch.where(valid[:, S - Tq:] != 0, idx[:, S - Tq:], -1).int()
+        got = fa._flash_cuda(q, k, v, pos, valid, causal, True)
+        want = fa.mha_reference(q, k, v, causal, pos, valid, need_lse=True)
+        err = hold(f"K8 flash_rows {label} B={B} H={H} T={Tq} S={S}", got, want)
+        if left and not ((got[1][:, :, :7] <= -1e29).all() and torch.allclose(
+                got[0][:, :, 0].float(), v.float().mean(dim=2), atol=2e-2)):
+            raise RuntimeError("K8: a wholly masked row is not the mean of v")
+        if label != "right-padded":
+            continue
+        ms = bench_ms(lambda: fa._flash_cuda(q, k, v, pos, valid, causal, True), device)
+        plain = bench_ms(lambda: fa.mha_reference(q, k, v, causal, pos, valid, need_lse=True),
+                         device, reps=5)
+        visible = (pos[:, :, None] >= idx[:, None, :]) & (valid != 0)[:, None, :]
+        # rows with no visible key need every key (p = 1): there are none here
+        n_pairs = int(visible.sum().item())
+        lib = bench_ms(lambda: sdpa_lib(q, k, v, attn_mask=visible[:, None]), device)
+        bd = bound(nbytes(q, k, v, *got, pos, valid), 4 * H * n_pairs * d, "bf16")
+        log(f"K8 B={B} T={Tq}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library sdpa (boolean "
+            f"mask) {lib:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+            f"{n_pairs} visible pairs of {B * Tq * S})")
+        rec["flash_rows"] = dict(max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **bd,
+                                 shape=f"q/k/v [{B},{H},{Tq},{d}] bf16, qpos [{B},{Tq}], "
+                                       f"kvalid [{B},{S}], causal + lse f32")
+
+    # dq, dk, dv of the autograd function against autograd through the plain version
+    for label, masked in (("bias-free (K1-lse)", False), ("masked (K8)", True)):
+        q, k, v = qkv(2, 8, 520, 520, d)
+        do = torch.randn((2, 8, 520, d), generator=g, device=device).to(bf)
+        idx = torch.arange(520, device=device)[None, :].expand(2, 520)
+        valid = (idx >= 7).int() if masked else None
+        pos = torch.where(valid != 0, idx, -1).int() if masked else None
+        grads = []
+        for fn in (fa.flash_attention, fa.mha_reference):
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            out = (fn(*leaves, pos, valid, True) if fn is fa.flash_attention
+                   else fn(*leaves, True, pos, valid))
+            grads.append(torch.autograd.grad(out, leaves, do))
+        torch.cuda.synchronize(device)
+        for name, a, b in zip(("dq", "dk", "dv"), *grads):
+            err = (a.float() - b.float()).abs().max().item()
+            top = b.float().abs().max().item()
+            log(f"flash backward {label} {name}: max_abs_err={err:.3e}, max |ref| {top:.3f} "
+                "(tol 2e-2 of the largest entry: P, dS and dO round to bf16)")
+            if not (torch.isfinite(a).all() and err <= 2e-2 * top):
+                raise RuntimeError(f"flash backward {label}: {name} disagrees: {err}")
+        if masked and (grads[0][0][:, :, :7].any() or grads[0][1][:, :, :7].any()):
+            raise RuntimeError("flash backward: a masked row or key got a gradient")
+
+    # nf4_linear_planar_vjp: dx = dy.bf16 @ K7(q).T against the dense matmul
+    M = TRAIN_CFG["BATCH_SIZE"] * TRAIN_T
+    vjp = dict(ms=0.0, dense=0.0, n_bytes=0, n_ops=0)
+    for K, N in NF4_SHAPES:
+        qw = nf4.quantize_linear_planar(torch.randn((K, N), generator=g, device=device)
+                                        * K ** -0.5)
+        x = torch.randn((M, K), generator=g, device=device).to(bf).requires_grad_(True)
+        dy = torch.randn((M, N), generator=g, device=device).to(bf)
+        y = nf4.nf4_linear_planar_vjp(x, qw)
+        dx, = torch.autograd.grad(y, x, dy, retain_graph=True)
+        w = nf4.dequant_linear_planar(qw)
+        ref = (dy.float() @ w.float().T)
+        torch.cuda.synchronize(device)
+        err = (dx.float() - ref).abs().max().item()
+        log(f"nf4_linear_planar_vjp dx M={M} K={K} N={N}: max_abs_err={err:.3e}, max |dx| "
+            f"{ref.abs().max().item():.3f} (tol 1e-2 + 1e-2 |ref|: one bf16 rounding)")
+        if not torch.allclose(dx.float(), ref, rtol=1e-2, atol=1e-2):
+            raise RuntimeError(f"nf4_linear_planar_vjp: dx disagrees at K={K} N={N}: {err}")
+        vjp["ms"] += bench_ms(lambda: torch.autograd.grad(y, x, dy, retain_graph=True), device,
+                              reps=5)
+        vjp["dense"] += bench_ms(lambda: dy @ w.T, device, reps=5)
+        vjp["n_bytes"] += nbytes(dy, qw["q4p"], qw["scale"], dx)
+        vjp["n_ops"] += 2 * M * K * N
+        del qw, x, dy, y, dx, w, ref
+    bd = bound(vjp["n_bytes"], vjp["n_ops"], "bf16")
+    log(f"nf4_linear_planar_vjp backward, sum of the three shapes at M={M}: K7 + matmul "
+        f"{vjp['ms']:.4f} ms, the dense bf16 matmul alone {vjp['dense']:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+
+    # what a rematerialized layer pays again for its adapters: the seven
+    # u = x @ a products (the JAX remat policy saves u) and the dropout masks
+    u_ms, mask_ms = 0.0, 0.0
+    for K, n_targets in ((4096, 6), (11008, 1)):     # q k v o gate up; down
+        x = torch.randn((M, K), generator=g, device=device).to(bf)
+        a = torch.randn((K, 64), generator=g, device=device).to(bf)
+        u_ms += n_targets * bench_ms(lambda: x @ a, device, reps=5)
+        mask_ms += n_targets * bench_ms(lambda: dropout_mask(x, 0.05, 1), device, reps=5)
+    log(f"one layer's adapters at M={M}, r=64: the seven x @ a products {u_ms:.4f} ms, the "
+        f"seven dropout masks {mask_ms:.4f} ms (both run again in the rematerialized backward)")
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -1028,6 +1233,275 @@ def serve_smoke(device):
     log(f"entry.serve smoke mode on the card: {summary}")
 
 
+def train_smoke(device):
+    """Phase 8, first: ``entry.train`` in its smoke mode (tiny random model
+    over an NF4 base, one Q-LoRA step on two synthetic records) on the card."""
+    import math
+
+    from cullavo_tpu_torch import entry
+
+    metrics = entry.train(TRAIN_CFG, device=device)
+    if not (math.isfinite(metrics["loss_llm"]) and 0 < metrics["grad_norm"] < math.inf):
+        raise RuntimeError(f"entry.train smoke mode: bad metrics {metrics}")
+    log(f"entry.train smoke mode on the card: {metrics}")
+
+
+def _capture_tx():
+    """An optimizer that moves nothing and keeps the gradients as its state."""
+    import torch
+
+    from cullavo_tpu_torch.trainer.optimizer import GradientTransformation
+    from cullavo_tpu_torch.utils.tree import tree_map
+
+    return GradientTransformation(lambda p: tree_map(torch.zeros_like, p),
+                                  lambda g, s, p: (tree_map(torch.zeros_like, g), g))
+
+
+def reference_check_train(params, cfg, device):
+    """Phase 8: the Q-LoRA train step at full width and small depth, kernel
+    path on the card against plain path on the CPU from one state: 2 LLM
+    layers, 3 vision layers on a 112 x 112 image (64 image tokens), batch 2
+    right-padded to T = 264 (M = 528: K7 and K1-lse on the card), r = 64
+    adapters with random non-zero ``b``, remat, bf16 compute over f32
+    masters, chunked loss, no dropout.  Held: the loss within 2e-2 relative
+    and every gradient leaf (LoRA, projector, embed_tokens, lm_head) within
+    5e-2 of the CPU leaf's largest entry (bf16 rounds at other places on the
+    two devices)."""
+    import torch
+
+    from cullavo_tpu_torch.models.llava import lora as lora_mod
+    from cullavo_tpu_torch.trainer.step import TrainState, make_train_step
+    from cullavo_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    params2, cfg2 = cut_layers(params, cfg, 2)
+    n_vis, side = 3, 112
+    vcfg = dataclasses.replace(cfg.vision, num_hidden_layers=n_vis, image_size=side)
+    cfg2 = dataclasses.replace(cfg2, vision=vcfg)
+    vt = params2["vision_tower"]
+    params2 = {**params2, "vision_tower": {
+        **vt, "position_embedding": vt["position_embedding"][:vcfg.num_positions],
+        "layers": {k: a[:n_vis] for k, a in vt["layers"].items()}}}
+    lcfg = lora_mod.LoraConfig(r=64, alpha=16.0, dropout=0.0, vision_layer_start=0,
+                               vision_layer_stop=2)
+    g = torch.Generator(device=device).manual_seed(SEED + 7)
+    lora = lora_mod.init_lora_params(params2, cfg2, lcfg, g)
+    for tower in lora.values():
+        for ab in tower.values():
+            ab["b"] = torch.randn(ab["b"].shape, generator=g, device=device) * 0.01
+    trainable = tree_map(lambda t: t.float(), lora_mod.trainable_partition(params2, lora))
+    frozen = lora_mod.strip_trainable(params2)
+
+    gc = torch.Generator().manual_seed(SEED + 8)
+    B, T, n_img = 2, 264, cfg2.num_image_tokens
+    ids = torch.randint(4, 32000, (B, T), generator=gc, dtype=torch.int32)
+    ids[:, 1:1 + n_img] = cfg2.image_token_id
+    mask = torch.ones((B, T), dtype=torch.int32)
+    mask[1, 250:] = 0
+    labels = torch.where(mask != 0, ids, -100)
+    labels[:, :1 + n_img + 8] = -100
+    batch = {"input_ids": ids, "attention_mask": mask, "labels": labels,
+             "pixel_values": torch.randn((B, 3, side, side), generator=gc),
+             "weights": torch.tensor([1.0, 0.5])}
+    step = make_train_step(cfg2, lcfg, _capture_tx(), remat=True, compute_dtype=torch.bfloat16,
+                           loss_chunk=64)
+    out = []
+    for dev in (device, torch.device("cpu")):
+        move = lambda t: t.to(dev)   # noqa: E731
+        st, met = step(TrainState(tree_map(move, trainable), None, 0), tree_map(move, frozen),
+                       tree_map(move, batch), None)
+        out.append((float(met["loss_llm"]), float(met["grad_norm"]),
+                    tree_map(lambda t: t.float().cpu(), st.opt_state)))
+    (loss_c, norm_c, g_c), (loss_p, norm_p, g_p) = out
+    log(f"train-step check (2 LLM + {n_vis} vision layers at 7B width, card vs CPU): loss "
+        f"{loss_c:.5f} vs {loss_p:.5f} (tol 2e-2 relative), grad_norm {norm_c:.5f} vs "
+        f"{norm_p:.5f}")
+    if not abs(loss_c - loss_p) <= 2e-2 * abs(loss_p):
+        raise RuntimeError(f"train-step check: loss {loss_c} vs {loss_p}")
+
+    def named(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from named(v, f"{prefix}{k}/")
+            elif v is not None and k != "mask":
+                yield prefix + k, v
+
+    worst = ("", 0.0)
+    for (name, a), (_, b) in zip(named(g_c), named(g_p)):
+        top = b.abs().max().item()
+        rel = (a - b).abs().max().item() / top
+        worst = max(worst, (name, rel), key=lambda x: x[1])
+        if not (torch.isfinite(a).all() and top > 0 and rel <= 5e-2):
+            raise RuntimeError(f"train-step check: gradient {name} differs by {rel:.3e} of its "
+                               f"largest entry {top:.3e}")
+    log(f"train-step check: {len(tree_leaves(g_p))} gradient leaves; the worst, {worst[0]}, "
+        f"differs by {worst[1]:.3e} of its largest entry (tol 5e-2)")
+
+
+def make_train_batch(cfg, device):
+    """The train batch: 8 rows right-padded to T = 1024, real lengths spread
+    over 700-1024, 576 image tokens after bos, 336 x 336 pixels, labels on
+    the text after the first 8 text tokens, weights 1."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(SEED + 9)
+    B, T, n_img = TRAIN_CFG["BATCH_SIZE"], TRAIN_T, cfg.num_image_tokens
+    lo, hi = TRAIN_LEN_RANGE
+    lengths = torch.linspace(lo, hi, B).round().long().to(device)
+    ids = torch.randint(4, 32000, (B, T), generator=g, device=device, dtype=torch.int32)
+    ids[:, 1:1 + n_img] = cfg.image_token_id
+    mask = (torch.arange(T, device=device)[None, :] < lengths[:, None]).int()
+    labels = torch.where(mask != 0, ids, -100)
+    labels[:, :1 + n_img + 8] = -100
+    side = cfg.vision.image_size
+    return {"input_ids": ids, "attention_mask": mask, "labels": labels,
+            "pixel_values": torch.randn((B, 3, side, side), generator=g, device=device),
+            "weights": torch.ones((B,), device=device)}, int(lengths.sum())
+
+
+def _base_digest(frozen):
+    """Sums over the frozen base, leaf by leaf: equal digests mean the step
+    changed no frozen bit (int32 words summed exactly, floats as their bits)."""
+    import torch
+
+    def digest(t):
+        if t.dtype.is_floating_point:
+            t = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+        return int(t.long().sum().item())
+
+    out = []
+
+    def walk(tree):
+        for v in tree.values():
+            if isinstance(v, dict):
+                walk(v)
+            elif v is not None:
+                out.append(digest(v))
+
+    walk(frozen)
+    return out
+
+
+def run_train_path(params_nf4, cfg, device, wrappers):
+    """Phase 8: 4 Q-LoRA steps at the full width and depth of LLaVA-1.5-7B
+    over the NF4 base, twice from the same seed.  Returns the first run's
+    launch counts, the pipeline and the batch."""
+    import math
+
+    import torch
+
+    from cullavo_tpu_torch.pipelines.base import build_pipeline
+    from cullavo_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    # the masters of the trainable full modules are f32
+    lm = params_nf4["language_model"]
+    params = {**params_nf4,
+              "projector": tree_map(lambda t: t.float(), params_nf4["projector"]),
+              "language_model": {**lm, "embed_tokens": lm["embed_tokens"].float(),
+                                 "lm_head": lm["lm_head"].float()}}
+    pipe = build_pipeline(TRAIN_CFG["PIPELINE"], TRAIN_CFG, model_cfg=cfg, tokenizer=None,
+                          params=params)
+    batch, n_real = make_train_batch(cfg, device)
+    B, T, L = TRAIN_CFG["BATCH_SIZE"], TRAIN_T, cfg.text.num_hidden_layers
+
+    def run(steps=TRAIN_STEPS):
+        state = pipe.initialize_model()
+        rng = torch.Generator().manual_seed(SEED)
+        losses, norms, secs = [], [], []
+        for _ in range(steps):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            state, met = pipe.forward_step(state, batch, rng)
+            torch.cuda.synchronize(device)
+            secs.append(time.perf_counter() - t0)
+            losses.append(float(met["loss_llm"]))
+            norms.append(float(met["grad_norm"]))
+        return state, losses, norms, secs
+
+    state0 = pipe.initialize_model()
+    n_train = sum(t.numel() for t in tree_leaves(state0.trainable))
+    log(f"train state: {n_train / 1e6:.1f} M trainable parameters (r = {pipe.lora_cfg.r} "
+        f"adapters on {len(state0.trainable['lora']['language_model'])} LLM targets and "
+        f"{len(state0.trainable['lora']['vision_tower'])} vision targets, projector, lm_head, "
+        f"embed_tokens), f32 masters, {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB "
+        "allocated with the NF4 base")
+    del state0
+    before = _base_digest(pipe.frozen)
+    torch.cuda.reset_peak_memory_stats(device)
+    (state, losses, norms, secs), counts = counted(wrappers, run)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    log(f"launches on the train path: {counts}")
+    _, losses2, norms2, secs2 = run()
+    if _base_digest(pipe.frozen) != before:
+        raise RuntimeError("the train step changed the frozen base")
+    if not all(math.isfinite(x) for x in losses + norms) or min(norms) <= 0:
+        raise RuntimeError(f"train path: bad losses {losses} or grad norms {norms}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"train path: the loss did not fall: {losses}")
+    drift = max(abs(a - b) / abs(a) for a, b in zip(losses + norms, losses2 + norms2))
+    log(f"two runs from one seed: losses {losses} and {losses2}; equal bit for bit: "
+        f"{losses == losses2 and norms == norms2}; largest relative difference {drift:.3e} "
+        "(tol 1e-3: cuBLAS may pick another split of a reduction between runs)")
+    if not drift <= 1e-3:
+        raise RuntimeError(f"train path: two runs from one seed differ by {drift}")
+    # per step: every layer's attention runs in the forward and again in the
+    # rematerialized backward; every NF4 linear dequantizes there and once
+    # more for dx (M = 8192 is above the fused kernel's threshold)
+    want = {"flash_fwd_lse": TRAIN_STEPS * 2 * L, "nf4_dequant_planar": TRAIN_STEPS * 3 * 7 * L,
+            "nf4_linear_planar": 0, "flash_fwd": 0}
+    if any(counts[k] != n for k, n in want.items()):
+        raise RuntimeError(f"train path: launches {counts} != predicted {want}")
+    if state.step != TRAIN_STEPS or state.opt_state["count"] != TRAIN_STEPS:
+        raise RuntimeError(f"train path: step count {state.step}")
+    for i, sec in enumerate((secs, secs2), 1):
+        med = statistics.median(sec[1:])
+        log(f"train run {i}: s per step {[round(x, 4) for x in sec]}, median of steps 2-"
+            f"{TRAIN_STEPS} {med:.4f} s: {B * T / med:.1f} padded tokens/s, "
+            f"{n_real / med:.1f} real tokens/s")
+    log(f"batch {B} x T {T} ({n_real} real tokens), NF4 base, r 64, remat, bf16 compute, loss "
+        f"chunk 256, dropout 0.05: losses {[round(x, 5) for x in losses]}, grad_norm "
+        f"{[round(x, 4) for x in norms]}, peak memory {peak:.2f} GiB")
+    return counts, pipe, batch
+
+
+def profile_train(pipe, batch, device):
+    """``--profile``: one warm step, then one step under torch.profiler; the
+    device-busy share of the wall time and the kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    state = pipe.initialize_model()
+    rng = torch.Generator().manual_seed(SEED)
+    state, _ = pipe.forward_step(state, batch, rng)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe.forward_step(state, batch, rng)
+        torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in ka) / 1e6
+    log(f"profile train step: wall {wall:.4f} s (profiled), device busy {busy:.4f} s "
+        f"({100 * busy / wall:.1f}%)")
+    log(ka.table(sort_by="self_device_time_total", row_limit=30, max_name_column_width=70))
+
+
+def run_attn_probe(device, wrappers):
+    """Phase 8b: the package's attention probe at its default shape: plain
+    attention against ``flash_attention`` with explicit positions and a key
+    mask (K8), 8 layers.  Returns the launch counts of its run."""
+    from cullavo_tpu_torch.scripts import attn_probe
+
+    rows, counts = counted(wrappers, lambda: attn_probe.probe(device, *PROBE_SHAPE[::2], 8))
+    by = {r["variant"]: r for r in rows}
+    log(f"attn_probe B={PROBE_SHAPE[0]} T={PROBE_SHAPE[2]}: plain {by['sdpa']['ms_per_layer']} "
+        f"ms per layer, flash_attention (K8) {by['flash']['ms_per_layer']} ms per layer; "
+        f"launches {counts}")
+    # one call for the comparison, then a warm-up and 4 timed passes over 8 layers
+    if counts["flash_rows"] != 1 + 5 * 8:
+        raise RuntimeError(f"attn_probe: K8 launches {counts['flash_rows']} != 41")
+    return counts
+
+
 def main(argv):
     import torch
 
@@ -1069,7 +1543,8 @@ def main(argv):
                 "int8_linear": nf4.int8_linear, "wwin_decode": ww.wwin_decode_smajor,
                 "wwin_decode_q8": ww.wwin_decode_smajor_q8,
                 "nf4_linear_planar": nf4.nf4_linear_planar,
-                "nf4_dequant_planar": nf4.nf4_dequant_planar}
+                "nf4_dequant_planar": nf4.nf4_dequant_planar,
+                "flash_fwd_lse": fa.flash_lse, "flash_rows": fa.flash_rows}
     meta = {"flash_fwd": ("cullavo_tpu_torch/csrc/flash_fwd.cu",
                           "cullavo_tpu/ops/flash_attention.py:259"),
             "quant_rows": ("cullavo_tpu_torch/csrc/quant_rows.cu",
@@ -1083,7 +1558,11 @@ def main(argv):
             "nf4_linear_planar": ("cullavo_tpu_torch/csrc/nf4_planar.cu",
                                   "cullavo_tpu/ops/nf4.py:627"),
             "nf4_dequant_planar": ("cullavo_tpu_torch/csrc/nf4_planar.cu",
-                                   "cullavo_tpu/ops/nf4.py:729")}
+                                   "cullavo_tpu/ops/nf4.py:729"),
+            "flash_fwd_lse": ("cullavo_tpu_torch/csrc/flash_fwd.cu",
+                              "cullavo_tpu/ops/flash_attention.py:259"),
+            "flash_rows": ("cullavo_tpu_torch/csrc/flash_fwd.cu",
+                           "cullavo_tpu/ops/flash_attention.py:142")}
 
     # phases 4-6b
     cfg = LlavaConfig()
@@ -1107,15 +1586,25 @@ def main(argv):
         f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB allocated")
     reference_check_nf4(params_nf4, cfg, device)
     counts_serve, run_serve = run_serving_path(params_nf4, cfg, device, wrappers)
+
+    # phases 8 and 8b
+    train_smoke(device)
+    reference_check_train(params_nf4, cfg, device)
+    counts_train, train_pipe, train_batch = run_train_path(params_nf4, cfg, device, wrappers)
+    counts_probe = run_attn_probe(device, wrappers)
     # each kernel's launches on the main path that runs it: K1-K4 the greedy
     # bf16-cache batch, K5 the speculative int8-cache batch, K6 and K7 the
-    # serving run
+    # serving run, K1-lse the train steps, K8 the attention probe
     counts["wwin_decode_q8"] = counts_spec["wwin_decode_q8"]
     for name in ("nf4_linear_planar", "nf4_dequant_planar"):
         counts[name] = counts_serve[name]
+    counts["flash_fwd_lse"] = counts_train["flash_fwd_lse"]
+    counts["flash_rows"] = counts_probe["flash_rows"]
+    log(f"K7 launches on the train path: {counts_train['nf4_dequant_planar']}")
     if not all(counts.values()):
         raise RuntimeError(f"a kernel never launched on its main path: {counts}")
     if "--profile" in argv:   # last: an attached profiler slows every later launch
+        profile_train(train_pipe, train_batch, device)
         profile_serving(run_serve)
         profile_path("greedy bf16-cache", run_greedy)
         profile_path("speculative int8-cache", run_spec)

@@ -38,6 +38,8 @@ SIGNATURES = {
     "cullavo_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I,
                           _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
                           _F, _P],
+    "cullavo_flash_fwd_lse": [_P] * 5 + [_I] * 4 + [_L] * 12 + [_F, _P],
+    "cullavo_flash_rows": [_P] * 7 + [_I] * 6 + [_L] * 12 + [_F, _P],
     "cullavo_quant_rows": [_P, _P, _P, _P, _I, _I, _P],
     "cullavo_int8_linear": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cullavo_wwin_decode": [_P] * 7 + [_I] * 7 + [_L] * 9 + [_F, _P],

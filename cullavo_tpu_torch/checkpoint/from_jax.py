@@ -10,6 +10,14 @@ dicts, in the layout the kernels read.  Dict kinds not ported yet raise.
 ``llava_params_to_numpy`` is the inverse (the round trip is exact).
 ``decode_state_from_numpy`` does the same for a prefill/decode state, so
 both packages can continue from one prefilled cache.
+
+Training state: ``lora_from_numpy`` / ``trainable_from_numpy`` convert an
+adapter tree and the trainable partition (``{"lora", "projector", "lm_head",
+"embed_tokens"}``, an absent ``lm_head`` stays None);
+``opt_state_from_numpy`` takes the optax state of ``cullavo_optimizer``
+(its ``ScaleByAdamState`` count/mu/nu, under ``MultiStepsState`` when
+gradients accumulate) to the port's ``{count, mu, nu}`` state, leaf for
+leaf.  Each has an inverse, so both packages can continue from one state.
 """
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ import numpy as np
 import torch
 
 from cullavo_tpu_torch.ops.nf4 import check_slice_kind
+from cullavo_tpu_torch.utils.tree import tree_map
 
 _PLAIN_DTYPES = (np.dtype(np.float32), np.dtype(np.int8), np.dtype(np.int32))
 
@@ -43,20 +52,82 @@ def llava_params_from_numpy(tree: dict, device) -> dict:
     return conv(tree)
 
 
+def _leaf_to_numpy(t: torch.Tensor):
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
 def llava_params_to_numpy(params: dict) -> dict:
     """The inverse of ``llava_params_from_numpy``: bf16 leaves come back as
     ``ml_dtypes.bfloat16`` arrays."""
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        t = node.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            import ml_dtypes
+    return tree_map(_leaf_to_numpy, params)
 
-            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
-        return t.numpy()
 
-    return conv(params)
+def trainable_from_numpy(tree: dict, device) -> dict:
+    """A numpy tree of trainable leaves (the trainable partition, or a part
+    of it) -> the same tree of tensors on ``device``; None stays None."""
+    return tree_map(lambda a: _leaf_to_torch(a, device), tree)
+
+
+def trainable_to_numpy(tree: dict) -> dict:
+    return tree_map(_leaf_to_numpy, tree)
+
+
+# an adapter tree is one kind of trainable tree
+lora_from_numpy, lora_to_numpy = trainable_from_numpy, trainable_to_numpy
+
+
+def _is_adam(node) -> bool:
+    return hasattr(node, "mu") and hasattr(node, "nu")
+
+
+def opt_state_from_numpy(opt_state, device) -> dict:
+    """The optax state of ``cullavo_optimizer`` with numpy leaves
+    (``jax.tree.map(np.asarray, state)``, which keeps the named tuples) ->
+    the port's state on ``device``."""
+    if hasattr(opt_state, "inner_opt_state"):        # optax MultiStepsState
+        return {"mini_step": int(opt_state.mini_step),
+                "gradient_step": int(opt_state.gradient_step),
+                "inner": opt_state_from_numpy(opt_state.inner_opt_state, device),
+                "acc_grads": trainable_from_numpy(opt_state.acc_grads, device)}
+
+    def find(node):
+        if _is_adam(node):
+            return node
+        if isinstance(node, tuple):
+            return next((hit for hit in map(find, node) if hit is not None), None)
+        return None
+
+    adam = find(opt_state)
+    if adam is None:
+        raise TypeError("no ScaleByAdamState (count, mu, nu) in the optimizer state")
+    return {"count": int(adam.count), "mu": trainable_from_numpy(adam.mu, device),
+            "nu": trainable_from_numpy(adam.nu, device)}
+
+
+def opt_state_to_numpy(state: dict, like):
+    """The inverse: the port's state written into the structure of ``like``,
+    an optax state of the same optimizer (for instance ``tx.init(params)``)."""
+    if hasattr(like, "inner_opt_state"):
+        return like._replace(mini_step=np.int32(state["mini_step"]),
+                             gradient_step=np.int32(state["gradient_step"]),
+                             inner_opt_state=opt_state_to_numpy(state["inner"],
+                                                                like.inner_opt_state),
+                             acc_grads=trainable_to_numpy(state["acc_grads"]))
+    if _is_adam(like):
+        return like._replace(count=np.int32(state["count"]),
+                             mu=trainable_to_numpy(state["mu"]),
+                             nu=trainable_to_numpy(state["nu"]))
+    if "count" in getattr(like, "_fields", ()):      # the schedule's own count
+        return like._replace(count=np.int32(state["count"]))
+    if isinstance(like, tuple):
+        parts = [opt_state_to_numpy(state, part) for part in like]
+        return type(like)(*parts) if hasattr(like, "_fields") else tuple(parts)
+    return like
 
 
 def decode_state_from_numpy(state: dict, device) -> dict:

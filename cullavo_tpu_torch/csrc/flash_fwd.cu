@@ -1,5 +1,8 @@
-// Causal flash-attention forward for the LLaMA prefill (kernel K1).
+// Flash-attention forward: the causal prefill kernel (K1), its training form
+// that also writes the log-sum-exp (K1-lse), and the masked forward with
+// explicit query positions and key validity (K8).  One kernel template.
 //
+// K1.
 // Replaces: cullavo_tpu/ops/flash_attention.py, _flash_fwd_core ->
 // _fwd_kernel_iota (with _online_softmax_qblock and _causal_kb_bounds), the
 // bias-free causal path for right-padded batches:
@@ -24,6 +27,26 @@
 // heaviest query tiles launch first.  No TMA/wgmma and no load/compute
 // overlap yet: that is later work.  Launches on the caller's stream and
 // allocates nothing.
+//
+// K1-lse (kLse): the same launch also writes lse[b, h, i] = m_i + log(l_i),
+// f32 [B, H, T] contiguous, which the backward of the autograd function
+// needs to recompute the probabilities.  One value per query row (the TPU
+// kernel replicates it over 128 lanes for its output tiling; there is no
+// such rule here).  The inference instantiation has no lse code at all.
+//
+// K8 (kRows).  Replaces: cullavo_tpu/ops/flash_attention.py, _flash_fwd_core
+// -> _fwd_kernel_rows (and the key-validity bias of _fwd_kernel_iota):
+//     visible(i, j) = kvalid[b, j] != 0 and (not causal or qpos[b, i] >= j)
+// over q [B, H, T, d] and k/v [B, H, S, d], S and T independent and ragged.
+// qpos int32 [B, T] (null: the row index) and kvalid int32 [B, S] (null: all
+// valid) are read per batch row: no copy per head and no padding of T or S
+// to 128 in device memory.  A masked score is the FINITE -1e30, as in the TPU
+// kernel, so a row with no visible key gets p = exp(0) = 1 for every key
+// and returns the mean of v with lse = -1e30 + log(S); keys past S (the
+// ragged last tile) are excluded outright (score -inf, p = 0).  Because a
+// wholly masked row needs every key, no key tile is skipped: the kernel does
+// the full T x S work where the causal mask would allow half.  Same tiles,
+// fragments and numerics as K1 (bf16 P for the PV product, f32 state).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,17 +80,21 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+template <bool kRows, bool kLse>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int T,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 const int* __restrict__ qpos, const int* __restrict__ kvalid,
+                 int causal, int T, int S,
                  long long q_sb, long long q_sh, long long q_st,
                  long long k_sb, long long k_sh, long long k_st,
                  long long v_sb, long long v_sh, long long v_st,
                  long long o_sb, long long o_sh, long long o_st, float scale) {
   __shared__ __align__(16) __nv_bfloat16 ks[BKV * LDS];
   __shared__ __align__(16) __nv_bfloat16 vs[BKV * LDS];
+  __shared__ int kflag[BKV];  // K8: 1 valid key, 0 masked key, -1 past S
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest (last) tiles first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -80,6 +107,12 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int row0 = qt * BQ + warp * 16 + g;  // this thread's two query rows
   const int row1 = row0 + 8;
+  // K8: the logical positions of this thread's two query rows
+  int qp0 = row0, qp1 = row1;
+  if (kRows && qpos != nullptr) {
+    qp0 = row0 < T ? qpos[(long long)b * T + row0] : 0;
+    qp1 = row1 < T ? qpos[(long long)b * T + row1] : 0;
+  }
 
   // Q as A fragments (16 x 128 per warp = 8 chunks of 16 along d)
   uint32_t qf[8][4];
@@ -99,15 +132,22 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
-  for (int kt = 0; kt <= qt; ++kt) {
+  const int n_kt = kRows ? (S + BKV - 1) / BKV : qt + 1;
+  for (int kt = 0; kt < n_kt; ++kt) {
     __syncthreads();  // the previous tile's shared-memory reads are done
+    if (kRows && threadIdx.x < BKV) {
+      const int key = kt * BKV + threadIdx.x;
+      kflag[threadIdx.x] =
+          key >= S ? -1
+                   : (kvalid == nullptr || kvalid[(long long)b * S + key] != 0);
+    }
 #pragma unroll
     for (int i = 0; i < (BKV * D / 8) / THREADS; ++i) {
       const int c = threadIdx.x + i * THREADS;
       const int r = c >> 4, col = (c & 15) * 8;
       const int key = kt * BKV + r;
       uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (key < T) {
+      if (key < S) {
         kv = *reinterpret_cast<const uint4*>(kb + key * k_st + col);
         vv = *reinterpret_cast<const uint4*>(vb + key * v_st + col);
       }
@@ -135,9 +175,15 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float val = s[nt][e] * scale;
-        if (kt == qt) {
-          const int key = kt * BKV + nt * 8 + 2 * t4 + (e & 1);
-          if (key > (e < 2 ? row0 : row1)) val = kNegInf;
+        const int kk = nt * 8 + 2 * t4 + (e & 1);
+        if (kRows) {
+          const int flag = kflag[kk];
+          if (flag < 0)
+            val = -INFINITY;
+          else if (flag == 0 || (causal && kt * BKV + kk > (e < 2 ? qp0 : qp1)))
+            val = kNegInf;
+        } else if (kt == qt) {
+          if (kt * BKV + kk > (e < 2 ? row0 : row1)) val = kNegInf;
         }
         s[nt][e] = val;
       }
@@ -202,9 +248,16 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  // O / l -> bf16 (l > 0 for every valid row: key 0 is always visible)
-  const float inv0 = 1.f / (l0 == 0.f ? 1.f : l0);
-  const float inv1 = 1.f / (l1 == 0.f ? 1.f : l1);
+  // O / l -> bf16 (l > 0 for every valid row: key 0 is always visible, or,
+  // in K8, counted with p = 1 when the whole row is masked)
+  l0 = l0 == 0.f ? 1.f : l0;
+  l1 = l1 == 0.f ? 1.f : l1;
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  if (kLse && t4 == 0) {
+    float* lb = lse + ((long long)b * gridDim.y + h) * T;
+    if (row0 < T) lb[row0] = m0 + logf(l0);
+    if (row1 < T) lb[row1] = m1 + logf(l1);
+  }
 #pragma unroll
   for (int dt = 0; dt < 16; ++dt) {
     const int c = dt * 8 + 2 * t4;
@@ -217,8 +270,25 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+template <bool kRows, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           const void* qpos, const void* kvalid, int causal, int B, int H, int T,
+           int S, int d, const long long* st, float scale, void* stream) {
+  if (d != D || T < 1 || S < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((T + BQ - 1) / BQ, H, B);
+  flash_fwd_kernel<kRows, kLse>
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+          static_cast<float*>(lse), static_cast<const int*>(qpos),
+          static_cast<const int*>(kvalid), causal, T, S, st[0], st[1], st[2], st[3],
+          st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// K1: causal, right-padded, S == T; writes no lse.
 extern "C" int cullavo_flash_fwd(const void* q, const void* k, const void* v,
                                  void* o, int B, int H, int T, int d,
                                  long long q_sb, long long q_sh, long long q_st,
@@ -226,12 +296,42 @@ extern "C" int cullavo_flash_fwd(const void* q, const void* k, const void* v,
                                  long long v_sb, long long v_sh, long long v_st,
                                  long long o_sb, long long o_sh, long long o_st,
                                  float scale, void* stream) {
-  if (d != D) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), T,
-      q_sb, q_sh, q_st, k_sb, k_sh, k_st, v_sb, v_sh, v_st, o_sb, o_sh, o_st,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+  const long long st[12] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st,
+                            v_sb, v_sh, v_st, o_sb, o_sh, o_st};
+  return launch<false, false>(q, k, v, o, nullptr, nullptr, nullptr, 1, B, H, T, T,
+                              d, st, scale, stream);
+}
+
+// K1-lse: K1 that also writes lse f32 [B, H, T] (contiguous).
+extern "C" int cullavo_flash_fwd_lse(const void* q, const void* k, const void* v,
+                                     void* o, void* lse, int B, int H, int T, int d,
+                                     long long q_sb, long long q_sh, long long q_st,
+                                     long long k_sb, long long k_sh, long long k_st,
+                                     long long v_sb, long long v_sh, long long v_st,
+                                     long long o_sb, long long o_sh, long long o_st,
+                                     float scale, void* stream) {
+  const long long st[12] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st,
+                            v_sb, v_sh, v_st, o_sb, o_sh, o_st};
+  return launch<false, true>(q, k, v, o, lse, nullptr, nullptr, 1, B, H, T, T, d, st,
+                             scale, stream);
+}
+
+// K8: masked forward.  qpos int32 [B, T] or null, kvalid int32 [B, S] or
+// null, lse f32 [B, H, T] or null.
+extern "C" int cullavo_flash_rows(const void* q, const void* k, const void* v,
+                                  void* o, void* lse, const void* qpos,
+                                  const void* kvalid, int causal, int B, int H, int T,
+                                  int S, int d,
+                                  long long q_sb, long long q_sh, long long q_st,
+                                  long long k_sb, long long k_sh, long long k_st,
+                                  long long v_sb, long long v_sh, long long v_st,
+                                  long long o_sb, long long o_sh, long long o_st,
+                                  float scale, void* stream) {
+  const long long st[12] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st,
+                            v_sb, v_sh, v_st, o_sb, o_sh, o_st};
+  if (lse != nullptr)
+    return launch<true, true>(q, k, v, o, lse, qpos, kvalid, causal, B, H, T, S, d,
+                              st, scale, stream);
+  return launch<true, false>(q, k, v, o, nullptr, qpos, kvalid, causal, B, H, T, S, d,
+                             st, scale, stream);
 }

@@ -1,5 +1,6 @@
 """Entry points of the port (counterpart of ``cullavo_tpu/entry.py``): so
-far ``serve``, the continuous-batching engine over a JSONL request stream.
+far ``serve``, the continuous-batching engine over a JSONL request stream,
+and ``train`` in its smoke mode (one Q-LoRA step on synthetic records).
 
 The entry points take the parsed config as a dict (the layout of
 ``configs/serve.yaml``) and run on the GPU unless the caller names another
@@ -20,6 +21,8 @@ from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
 from cullavo_tpu_torch.models.llava.config import tiny_llava_config
 from cullavo_tpu_torch.models.llava.lora import maybe_quantize_base
 from cullavo_tpu_torch.models.llava.modeling import GenerationConfig, init_llava_params
+from cullavo_tpu_torch.pipelines import cullavo_pipeline  # noqa: F401 (registration)
+from cullavo_tpu_torch.pipelines.base import build_pipeline
 from cullavo_tpu_torch.serving import Request, ServingEngine
 from cullavo_tpu_torch.serving.io import request_from_row
 
@@ -64,7 +67,8 @@ def _build_llava(cfg: dict, device):
 def _engine_from_cfg(scfg: dict, model_cfg, params, tokenizer, buckets, max_len):
     """``SERVE.*`` config block -> (GenerationConfig, ServingEngine)."""
     if scfg.get("ADAPTERS"):
-        raise NotImplementedError("SERVE.ADAPTERS: runtime LoRA waits for a later slice")
+        raise NotImplementedError("SERVE.ADAPTERS: per-request adapter sets wait for the "
+                                  "multi-adapter serving slice")
     default_eos = getattr(tokenizer, "eos_token_id", 2)
     gen = GenerationConfig(
         do_sample=bool(scfg.get("DO_SAMPLE", False)),
@@ -150,3 +154,41 @@ def serve(cfg: dict, device=None) -> dict:
                "results": out_path}
     print(json.dumps(summary))
     return summary
+
+
+def _smoke_records():
+    """Two synthetic step-1 records: a random 64 x 64 image with two boxed
+    "thing" instances each."""
+    rng = np.random.default_rng(0)
+    return [{"image": rng.integers(0, 255, (64, 64, 3), dtype=np.uint8),
+             "classes": np.asarray([0, 2]),
+             "boxes": np.asarray([[4, 4, 30, 30], [10, 12, 40, 44]], np.float32),
+             "is_thing": np.asarray([True, True])} for _ in range(2)]
+
+
+def train(cfg: dict, device=None) -> dict:
+    """Training workload.  Without ``DATASETS.TRAIN``: one smoke step of the
+    Q-LoRA train step (``CuLLaVOPipeline``) on synthetic records; returns
+    (and prints) its metrics, ``loss_llm`` and ``grad_norm``."""
+    if "xdecoder" in cfg.get("NAME", ""):
+        raise NotImplementedError("X-Decoder training waits for the X-Decoder slice")
+    if cfg.get("RESUME_FROM"):
+        raise NotImplementedError("RESUME_FROM (reference-layout checkpoints) waits for the "
+                                  "training-loop slice")
+    if (cfg.get("DATASETS") or {}).get("TRAIN"):
+        raise NotImplementedError("DATASETS.TRAIN (the dataset path and the training loop) "
+                                  "waits for the training-loop slice")
+    device = _device(device)
+    model_cfg, params, tokenizer = _build_llava(cfg, device)
+    # the prompts carry the tokenizer's <image> id; the model merges image
+    # features at its config's id: make them one
+    model_cfg = dataclasses.replace(model_cfg, image_token_id=tokenizer.image_token_id)
+    pipe = build_pipeline(cfg.get("PIPELINE", "CuLLaVOPipeline"), cfg, model_cfg=model_cfg,
+                          tokenizer=tokenizer, params=params)
+    state = pipe.initialize_model()
+    print("[entry] no DATASETS.TRAIN configured: smoke step only", file=sys.stderr)
+    batch = pipe.make_batch(_smoke_records(), pad_to=None)
+    state, metrics = pipe.forward_step(state, batch, torch.Generator().manual_seed(0))
+    metrics = {k: float(v) for k, v in metrics.items()}
+    print(metrics)
+    return metrics

@@ -5,13 +5,18 @@ Same stacked parameter layout ([L, ...] per-layer leaves), same math: the
 patchify "conv" as reshape + matmul, class embedding prepended, learned
 position embeddings, pre-LayerNorm blocks with QuickGELU, and the hidden
 state of layer ``num_hidden_layers + feature_layer + 1`` returned.
-Attention is a plain matmul + f32 softmax, as in JAX.
+Attention is a plain matmul + f32 softmax, as in JAX.  Training: stacked
+LoRA adapters with a per-layer mask, and per-layer rematerialization.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from cullavo_tpu_torch.models.llava.config import ClipVisionConfig
+from cullavo_tpu_torch.models.llava.lora import lora_update
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -40,9 +45,15 @@ def patchify(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
 
 def clip_vision_forward(params: dict, cfg: ClipVisionConfig,
                         pixel_values: torch.Tensor,
-                        feature_layer: int = -2) -> torch.Tensor:
+                        feature_layer: int = -2,
+                        lora: Optional[dict] = None,
+                        lora_scaling: float = 0.0,
+                        remat: bool = False) -> torch.Tensor:
     """Hidden states after ``num_hidden_layers + feature_layer + 1`` encoder
-    layers (HF's ``hidden_states[feature_layer]``), shape [B, N+1, D]."""
+    layers (HF's ``hidden_states[feature_layer]``), shape [B, N+1, D].
+    ``lora``: stacked adapters with per-layer masks (no dropout in the
+    tower).  ``remat`` checkpoints each encoder layer: without it the
+    backward keeps every layer's [B, heads, N+1, N+1] attention scores."""
     B = pixel_values.shape[0]
     D, H = cfg.hidden_size, cfg.num_attention_heads
     hd = cfg.head_dim
@@ -66,20 +77,28 @@ def clip_vision_forward(params: dict, cfg: ClipVisionConfig,
     def heads(t):
         return t.reshape(B, T, H, hd).transpose(1, 2)
 
-    for li in range(n_run):
+    def layer(x, li):
         w = {name: a[li] for name, a in layers.items()}
+        ad = {t: {k: a[li] for k, a in ab.items()} for t, ab in (lora or {}).items()}
+
+        def mm(x, name):
+            y = x @ w[name] + w[name + "_b"]
+            if name in ad:
+                y = y + lora_update(x, ad[name], lora_scaling, y.dtype)
+            return y
+
         residual = x
         y = layer_norm(x, w["ln1_scale"], w["ln1_bias"], eps)
-        q = heads(y @ w["q"] + w["q_b"])
-        k = heads(y @ w["k"] + w["k_b"])
-        v = heads(y @ w["v"] + w["v_b"])
+        q, k, v = heads(mm(y, "q")), heads(mm(y, "k")), heads(mm(y, "v"))
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (hd ** -0.5)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         attn = torch.matmul(probs.float(), v.float()).to(x.dtype)
         attn = attn.transpose(1, 2).reshape(B, T, D)
-        x = residual + (attn @ w["o"] + w["o_b"])
+        x = residual + mm(attn, "o")
         residual = x
         y = layer_norm(x, w["ln2_scale"], w["ln2_bias"], eps)
-        y = quick_gelu(y @ w["fc1"] + w["fc1_b"])
-        x = residual + (y @ w["fc2"] + w["fc2_b"])
+        return residual + mm(quick_gelu(mm(y, "fc1")), "fc2")
+
+    for li in range(n_run):
+        x = checkpoint(layer, x, li, use_reentrant=False) if remat else layer(x, li)
     return x

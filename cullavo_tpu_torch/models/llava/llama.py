@@ -21,8 +21,13 @@ Modes:
 A prefix-reuse suffix prefill is one such window of width T at a scalar
 ``cache_index``; windows wider than the kernels' 64 rows take the plain
 attention on either device.  Cached forwards without ``stale_cache`` (the
-fused ``generate``), sliding windows and adapters wait for later slices and
-raise.
+fused ``generate``), sliding windows and multi-stacked adapter sets wait for
+later slices and raise.
+
+Training: the no-cache forward is differentiable end to end (no in-place
+write on that path), takes a single stack of LoRA adapters (``lora``, with
+``lora_scaling``, ``lora_dropout`` and a ``dropout_rng``) and can
+rematerialize each layer in the backward (``remat``).
 """
 from __future__ import annotations
 
@@ -30,8 +35,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from cullavo_tpu_torch.models.llava.config import LlamaConfig
+from cullavo_tpu_torch.models.llava.lora import lora_update
 from cullavo_tpu_torch.ops import nf4 as nf4_ops
 from cullavo_tpu_torch.ops.flash_attention import flash_attention
 from cullavo_tpu_torch.ops.wwin_decode import MAX_W as WWIN_MAX_W
@@ -222,26 +229,47 @@ def _layer_slice(w, li: int):
 
 def _mm(x, w):
     """x @ w for a dense, an int8 or a planar NF4 weight.  NF4 on CUDA
-    tensors: the kernels (fused below M = 512, dequant once above); on CPU
-    tensors the JAX package's own non-TPU branch, a dense matmul against the
-    dequantized weight in x's dtype."""
+    tensors: the kernels (fused below M = 512, dequant once above), with a
+    gradient for x; on CPU tensors the JAX package's own non-TPU branch, a
+    dense matmul against the dequantized weight in x's dtype."""
     if nf4_ops.is_quantized_planar(w):
-        if x.device.type == "cpu":
-            return x @ nf4_ops.dequant_linear_planar(w, dtype=x.dtype)
-        return nf4_ops.nf4_linear_planar_auto(x, w)
+        return nf4_ops.nf4_linear_planar_vjp(x, w)
     if isinstance(w, dict):
         return nf4_ops.int8_linear_policy(x, w)
     return x @ w
 
 
-def _mm_group(x, w, names):
+# order of the per-target dropout seeds within a layer
+_TARGET_INDEX = {"q": 0, "k": 1, "v": 2, "o": 3, "gate": 4, "up": 5, "down": 6}
+
+
+class _Adapters:
+    """One layer's slice of a single stack of LoRA adapters, with the
+    layer's dropout seeds (None: no dropout)."""
+
+    def __init__(self, lora, li, scaling, dropout, seeds):
+        self.ad = {t: {k: a[li] for k, a in ab.items()} for t, ab in (lora or {}).items()}
+        self.scaling, self.dropout, self.seeds = scaling, dropout, seeds
+
+    def add(self, y, x, name):
+        """y + scaling * ((drop(x) @ a) @ b) when ``name`` has an adapter."""
+        ad = self.ad.get(name)
+        if ad is None:
+            return y
+        seed = None if self.seeds is None else self.seeds[_TARGET_INDEX[name]]
+        return y + lora_update(x, ad, self.scaling, y.dtype, self.dropout, seed)
+
+
+def _mm_group(x, w, names, adapters):
     """q/k/v (or gate/up) share one activation-quantization pass when every
     member is a SmoothQuant-calibrated int8 dict and M is prefill-sized; NF4
-    and dense members go one by one."""
+    and dense members go one by one.  Each member then takes its adapter."""
     ws = [w[n] for n in names]
     if nf4_ops.s8s8_group_enabled(ws, x):
-        return list(nf4_ops.int8_linear_s8s8_group(x, tuple(ws)))
-    return [_mm(x, wn) for wn in ws]
+        ys = nf4_ops.int8_linear_s8s8_group(x, tuple(ws))
+    else:
+        ys = [_mm(x, wn) for wn in ws]
+    return [adapters.add(y, x, n) for n, y in zip(names, ys)]
 
 
 def _attention_bias(attention_mask, position_ids, key_pos):
@@ -265,6 +293,11 @@ def llama_forward(
     stale_cache: bool = False,
     prefill_pad_len: Optional[int] = None,
     kv_quant: Optional[str] = None,       # "int8": the prefill builds a quantized cache
+    lora: Optional[dict] = None,          # single stack: {target: {"a": [L, D, r], "b": [L, r, N]}}
+    lora_scaling: float = 0.0,
+    lora_dropout: float = 0.0,
+    dropout_rng: Optional[torch.Generator] = None,   # a CPU generator: the layers' seeds
+    remat: bool = False,                  # checkpoint each layer (no-cache forward only)
 ):
     """Run the decoder stack; returns (final_hidden, new_cache).
 
@@ -282,7 +315,16 @@ def llama_forward(
     mutually causal), and each layer then writes the fresh k/v at
     ``cache_index .. cache_index + T - 1`` in place, quantized when the
     cache carries scale planes.  A per-row ``cache_index`` drops writes that
-    fall outside the cache."""
+    fall outside the cache.
+
+    ``lora``: runtime LoRA, ``y = x @ w + lora_scaling * ((drop(x) @ a) @ b)``
+    per target.  Dropout is on when ``dropout_rng`` is given and
+    ``lora_dropout`` > 0: one seed per layer and target is drawn from
+    ``dropout_rng`` (a CPU generator, advanced by this call), and each mask
+    is a pure function of its seed.  ``remat`` wraps each layer in
+    ``torch.utils.checkpoint``: the backward keeps only the layer inputs
+    and recomputes the rest (the adapters' ``x @ a`` included), with the
+    same dropout masks."""
     B, T, D = inputs_embeds.shape
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     n_rep = H // KV
@@ -299,6 +341,11 @@ def llama_forward(
         raise ValueError("prefill_pad_len builds a cache; it takes no cache")
     if kv_quant not in (None, "int8"):
         raise ValueError(f"unknown kv_quant {kv_quant!r}")
+    if lora and any(ab["a"].dim() == 4 for ab in lora.values()):
+        raise NotImplementedError("multi-stacked adapter sets (per-request adapter_ids) "
+                                  "wait for the multi-adapter serving slice")
+    if remat and (cache is not None or prefill_pad_len is not None):
+        raise ValueError("remat is for the no-cache (training) forward")
     # an existing quantized cache carries its scale planes; a prefill opts in
     kv_q8 = kv_quant == "int8" or (cache is not None and "k_s" in cache)
     if use_flash is None:
@@ -329,12 +376,18 @@ def llama_forward(
     # XLA branch), and the engine counts those in ``suffix_wide_windows``
     plain_attn = inputs_embeds.device.type == "cpu" or T > WWIN_MAX_W
 
-    h = inputs_embeds
-    for li in range(L):
+    seeds = None
+    if lora and dropout_rng is not None and lora_dropout > 0.0:
+        seeds = torch.randint(0, 2 ** 62, (L, len(_TARGET_INDEX)),
+                              generator=dropout_rng).tolist()
+
+    def layer(h, li):
         w = {name: _layer_slice(a, li) for name, a in layers.items()}
+        ad = _Adapters(lora, li, lora_scaling, lora_dropout,
+                       None if seeds is None else seeds[li])
         residual = h
         x = rms_norm(h, w["input_ln"], cfg.rms_norm_eps)
-        yq, yk, yv = _mm_group(x, w, ("q", "k", "v"))
+        yq, yk, yv = _mm_group(x, w, ("q", "k", "v"), ad)
         q = apply_rope_bthd(yq.reshape(B, T, H, hd), cos, sin)     # [B, T, H, hd]
         k = apply_rope_bthd(yk.reshape(B, T, KV, hd), cos, sin)
         v = yv.reshape(B, T, KV, hd)
@@ -383,13 +436,18 @@ def llama_forward(
             _write_window(cache["k"], li, cache_index, k_sm.to(cache["k"].dtype))
             _write_window(cache["v"], li, cache_index, v_sm.to(cache["v"].dtype))
         attn = attn.transpose(1, 2).reshape(B, T, H * hd)
-        h = residual + _mm(attn, w["o"])
+        h = residual + ad.add(_mm(attn, w["o"]), attn, "o")
 
         residual = h
         x = rms_norm(h, w["post_ln"], cfg.rms_norm_eps)
-        y_gate, y_up = _mm_group(x, w, ("gate", "up"))
+        y_gate, y_up = _mm_group(x, w, ("gate", "up"), ad)
         gate = F.silu(y_gate.float()).to(dtype)
-        h = residual + _mm(gate * y_up, w["down"])
+        down_in = gate * y_up
+        return residual + ad.add(_mm(down_in, w["down"]), down_in, "down")
+
+    h = inputs_embeds
+    for li in range(L):
+        h = checkpoint(layer, h, li, use_reentrant=False) if remat else layer(h, li)
     return rms_norm(h, params["norm"], cfg.rms_norm_eps), new_cache
 
 

@@ -1,18 +1,186 @@
-"""LLM base-weight quantization (``quantize_llm_weights`` and
-``maybe_quantize_base`` of ``cullavo_tpu/models/llava/lora.py``): int8 per
-output channel, or planar NF4.  Adapters (single, multi-stacked, runtime
-LoRA) wait for a later slice."""
+"""LoRA adapters and LLM base-weight quantization for the stacked-params
+LLaVA stack (counterpart of ``cullavo_tpu/models/llava/lora.py``).
+
+Adapters: r = 64, alpha = 16, dropout 0.05 on every LLM linear
+(q/k/v/o/gate/up/down) and on layers 12..22 of the vision tower, stacked
+along the layer axis like the base weights (``{"a": [L, d_in, r], "b":
+[L, r, d_out]}``, vision adapters with a per-layer ``mask``).  The
+separately trainable full modules are the projector, ``lm_head`` and
+``embed_tokens``.  Base quantization (``quantize_llm_weights``,
+``maybe_quantize_base``): int8 per output channel, or planar NF4.
+Multi-stacked adapter sets (``stack_adapter_sets``) and the int8 vision
+tower wait for the serving slice that uses them."""
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import torch
 
+from cullavo_tpu_torch.models.llava.config import LlavaConfig
 from cullavo_tpu_torch.ops.nf4 import BLOCK, quantize_linear_int8, quantize_linear_planar
 
 LLM_TARGETS = ("q", "k", "v", "o", "gate", "up", "down")
+VISION_TARGETS = ("q", "k", "v", "o", "fc1", "fc2")
 # targets that consume the SAME input tensor share one activation
 # quantization pass (nf4.int8_linear_s8s8_group), so they must share one
 # SmoothQuant scale
 SHARED_INPUT_GROUPS = (("q", "k", "v"), ("gate", "up"))
+
+
+@dataclasses.dataclass(frozen=True)
+class LoraConfig:
+    r: int = 64
+    alpha: float = 16.0
+    dropout: float = 0.05
+    vision_layer_start: int = 12
+    vision_layer_stop: int = 23
+
+    @property
+    def scaling(self) -> float:
+        return self.alpha / self.r
+
+
+def _shapes_of(layers: dict, targets) -> dict:
+    """Logical [L, d_in, d_out] shapes, also of quantized weights (the
+    production order loads, quantizes, THEN attaches LoRA)."""
+    out = {}
+    for t in targets:
+        if t not in layers:
+            continue
+        w = layers[t]
+        if not isinstance(w, dict):
+            out[t] = tuple(w.shape)
+        elif "q4p" in w:                   # planar NF4: q4p [L, d_in/8, d_out]
+            L, k8, d_out = w["q4p"].shape
+            out[t] = (L, k8 * 8, d_out)
+        elif "q8" in w:                    # int8 keeps the logical shape
+            out[t] = tuple(w["q8"].shape)
+        else:
+            raise NotImplementedError(f"adapter shapes for a weight dict with keys "
+                                      f"{sorted(w)} (a layout the port does not run)")
+    return out
+
+
+def init_lora_params(params: dict, cfg: LlavaConfig, lora: LoraConfig,
+                     generator: torch.Generator, dtype=torch.float32) -> dict:
+    """A/B pairs for each targeted stacked weight, on the device of the base:
+    A ~ N(0, 1/d_in) drawn from ``generator`` (which must live on that
+    device), B = 0.  Vision adapters exist for all layers; a ``mask`` zeroes
+    the layers outside [vision_layer_start, vision_layer_stop)."""
+    out: dict = {"language_model": {}, "vision_tower": {}}
+    device = params["language_model"]["embed_tokens"].device
+
+    def normal_a(L, d_in):
+        a = torch.randn((L, d_in, lora.r), generator=generator, device=device)
+        return (a * d_in ** -0.5).to(dtype)
+
+    for t, (L, d_in, d_out) in _shapes_of(params["language_model"]["layers"],
+                                          LLM_TARGETS).items():
+        out["language_model"][t] = {
+            "a": normal_a(L, d_in),
+            "b": torch.zeros((L, lora.r, d_out), dtype=dtype, device=device)}
+    vl = params["vision_tower"]["layers"]
+    Lv = vl["q"].shape[0]
+    start, stop = lora.vision_layer_start, min(lora.vision_layer_stop, Lv)
+    if start < stop:
+        for t, (L, d_in, d_out) in _shapes_of(vl, VISION_TARGETS).items():
+            mask = torch.zeros((L, 1, 1), dtype=dtype, device=device)
+            mask[start:stop] = 1.0
+            out["vision_tower"][t] = {
+                "a": normal_a(L, d_in) * mask,
+                "b": torch.zeros((L, lora.r, d_out), dtype=dtype, device=device),
+                "mask": mask}
+    return out
+
+
+def dropout_mask(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Keep-mask for LoRA dropout on x, a pure function of ``seed`` (so a
+    rematerialized layer draws the same mask again)."""
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    return torch.rand(x.shape, generator=g, device=x.device) >= rate
+
+
+def lora_update(x, adapter: dict, scaling: float, out_dtype,
+                dropout: float = 0.0, seed: Optional[int] = None):
+    """The low-rank term ``scaling * ((drop(x) @ a) @ b)`` (times the
+    per-layer mask of a vision adapter) for ONE layer's adapter slice.
+    Dropout (``seed`` given and ``dropout`` > 0) zeroes inputs and scales
+    the kept ones by 1 / (1 - dropout)."""
+    xa = x
+    if seed is not None and dropout > 0.0:
+        xa = torch.where(dropout_mask(x, dropout, seed), x / (1.0 - dropout),
+                         torch.zeros_like(x))
+    update = (xa @ adapter["a"]) @ adapter["b"]
+    if "mask" in adapter:
+        update = update * adapter["mask"].reshape(())
+    return scaling * update.to(out_dtype)
+
+
+def lora_matmul(x, w, adapter: Optional[dict], scaling: float,
+                dropout_seed: Optional[int] = None, dropout: float = 0.0):
+    """``x @ w`` plus the low-rank update when an adapter is present."""
+    y = x @ w
+    if adapter is None:
+        return y
+    return y + lora_update(x, adapter, scaling, y.dtype, dropout, dropout_seed)
+
+
+def merge_lora(params: dict, lora_params: dict, lora: LoraConfig) -> dict:
+    """Fold adapters into (unquantized) base weights; returns a new tree."""
+    merged = dict(params)
+    for tower in ("language_model", "vision_tower"):
+        adapters = lora_params.get(tower, {})
+        base_layers = dict(merged[tower]["layers"])
+        for t, ab in adapters.items():
+            update = torch.einsum("lir,lro->lio", ab["a"], ab["b"]) * lora.scaling
+            if "mask" in ab:
+                update = update * ab["mask"]
+            base_layers[t] = (base_layers[t].float() + update.float()).to(base_layers[t].dtype)
+        merged[tower] = {**merged[tower], "layers": base_layers}
+    return merged
+
+
+def trainable_partition(params: dict, lora_params: dict) -> dict:
+    """The trainable leaves: LoRA adapters + projector + lm_head +
+    embed_tokens; everything else is frozen."""
+    return {"lora": lora_params,
+            "projector": params["projector"],
+            "lm_head": params["language_model"].get("lm_head"),
+            "embed_tokens": params["language_model"]["embed_tokens"]}
+
+
+def strip_trainable(params: dict) -> dict:
+    """The base tree without the trainable leaves (projector / lm_head /
+    embed_tokens): their live copies are in the train state."""
+    lm = {k: v for k, v in params["language_model"].items()
+          if k not in ("lm_head", "embed_tokens")}
+    out = {k: v for k, v in params.items() if k != "projector"}
+    out["language_model"] = lm
+    return out
+
+
+def apply_trainable(params: dict, trainable: dict):
+    """Recombine trainable leaves into the full tree; returns
+    (full_params, lora_params)."""
+    lm = dict(params["language_model"])
+    lm["embed_tokens"] = trainable["embed_tokens"]
+    if trainable.get("lm_head") is not None:
+        lm["lm_head"] = trainable["lm_head"]
+    full = {**params, "projector": trainable["projector"], "language_model": lm}
+    return full, trainable["lora"]
+
+
+def add_step2_adapters(params: dict, step1_lora: dict, cfg: LlavaConfig, lora: LoraConfig,
+                       generator: torch.Generator, merge_step1: bool = False,
+                       dtype=torch.float32):
+    """A fresh adapter set for step-2 training over the same targets;
+    returns ``(base_params, step2_lora)``.  ``merge_step1`` folds the step-1
+    adapters into the (unquantized) base first."""
+    base = params
+    if merge_step1 and step1_lora:
+        base = merge_lora(params, step1_lora, lora)
+    return base, init_lora_params(base, cfg, lora, generator, dtype)
 
 
 def _quantize_target(w, bits: int, name: str, smooth_scale=None):

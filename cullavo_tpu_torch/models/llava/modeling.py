@@ -100,10 +100,14 @@ def init_llava_params(cfg: LlavaConfig, generator: torch.Generator,
 # vision features and token merge
 # ---------------------------------------------------------------------------
 
-def image_features(params: dict, cfg: LlavaConfig, pixel_values: torch.Tensor) -> torch.Tensor:
+def image_features(params: dict, cfg: LlavaConfig, pixel_values: torch.Tensor,
+                   lora: Optional[dict] = None, lora_scaling: float = 0.0,
+                   remat: bool = False) -> torch.Tensor:
     """[B, 3, H, W] -> [B, num_image_tokens, D_text]."""
     hidden = clip_vision_forward(params["vision_tower"], cfg.vision, pixel_values,
-                                 cfg.vision_feature_layer)
+                                 cfg.vision_feature_layer,
+                                 lora=(lora or {}).get("vision_tower"),
+                                 lora_scaling=lora_scaling, remat=remat)
     if cfg.vision_feature_select_strategy == "default":
         hidden = hidden[:, 1:]  # drop CLS
     proj = params["projector"]
@@ -115,7 +119,9 @@ def image_features(params: dict, cfg: LlavaConfig, pixel_values: torch.Tensor) -
 def merge_image_features(cfg: LlavaConfig, input_ids: torch.Tensor,
                          inputs_embeds: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
     """Place image features at the ``image_token_id`` positions of each row:
-    the k-th image slot of a row (in sequence order) gets ``feats[b, k]``."""
+    the k-th image slot of a row (in sequence order) gets ``feats[b, k]``.
+    Differentiable in ``feats`` and ``inputs_embeds`` (the gradient reaches
+    the projector and the embedding table)."""
     is_img = input_ids == cfg.image_token_id                        # [B, T]
     slot_rank = (torch.cumsum(is_img.to(torch.int64), dim=1) - 1).clamp(0, feats.shape[1] - 1)
     gathered = torch.gather(feats, 1, slot_rank[..., None].expand(-1, -1, feats.shape[-1]))
@@ -148,7 +154,6 @@ def _positions(attention_mask):
     return (torch.cumsum(attention_mask.to(torch.int64), dim=1) - 1).clamp_min(0)
 
 
-@torch.no_grad()
 def llava_forward(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
                   pixel_values: Optional[torch.Tensor], attention_mask: torch.Tensor,
                   position_ids: Optional[torch.Tensor] = None,
@@ -158,13 +163,25 @@ def llava_forward(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
                   last_logit_only: bool = False, stale_cache: bool = False,
                   prefill_pad_len: Optional[int] = None,
                   use_flash: Optional[bool] = None,
-                  kv_quant: Optional[str] = None):
-    """Returns (f32 logits [B, T or 1, V], new_cache).  ``cache_index``: an
-    int, or an int32 [B] tensor of per-row write positions."""
+                  kv_quant: Optional[str] = None,
+                  lora: Optional[dict] = None, lora_scaling: float = 0.0,
+                  lora_dropout: float = 0.0,
+                  dropout_rng: Optional[torch.Generator] = None,
+                  remat: bool = False, return_hidden: bool = False):
+    """Returns (f32 logits [B, T or 1, V], new_cache), or with
+    ``return_hidden`` the final hidden states in place of the logits (the
+    trainer projects them chunk by chunk).  ``cache_index``: an int, or an
+    int32 [B] tensor of per-row write positions.  ``lora``:
+    ``{"language_model": ..., "vision_tower": ...}`` adapter stacks.
+    Differentiable where the inputs ask for it; the generation functions
+    call it without gradients."""
     embed = params["language_model"]["embed_tokens"]
+    # indexing, not F.embedding: its backward (index_put with accumulation)
+    # sorts the indices and is deterministic, where the embedding backward
+    # adds with atomics
     inputs_embeds = embed[input_ids.clamp(0, embed.shape[0] - 1).long()]
     if pixel_values is not None:
-        feats = image_features(params, cfg, pixel_values)
+        feats = image_features(params, cfg, pixel_values, lora, lora_scaling, remat=remat)
         inputs_embeds = merge_image_features(cfg, input_ids, inputs_embeds, feats)
     if position_ids is None:
         position_ids = _positions(attention_mask)
@@ -172,12 +189,33 @@ def llava_forward(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
     hidden, new_cache = llama_forward(
         params["language_model"], cfg.text, inputs_embeds, mask, position_ids,
         cache, cache_index, key_position_ids, use_flash=use_flash,
-        stale_cache=stale_cache, prefill_pad_len=prefill_pad_len, kv_quant=kv_quant)
+        stale_cache=stale_cache, prefill_pad_len=prefill_pad_len, kv_quant=kv_quant,
+        lora=(lora or {}).get("language_model"), lora_scaling=lora_scaling,
+        lora_dropout=lora_dropout, dropout_rng=dropout_rng, remat=remat)
     if last_logit_only:
         # only the last valid position feeds sampling
         last = attention_mask.sum(dim=1).to(torch.int64) - 1
         hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), last][:, None]
+    if return_hidden:
+        return hidden, new_cache
     return lm_logits(params["language_model"], cfg.text, hidden), new_cache
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor, attention_mask: torch.Tensor,
+                   ignore_index: int = -100):
+    """Shifted masked cross-entropy: predict token t+1 from position t,
+    positions with ``ignore_index`` or mask 0 excluded, mean over the valid
+    ones.  Returns (loss, n_valid)."""
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:].long()
+    shift_mask = (attention_mask[:, 1:] != 0) & (shift_labels != ignore_index)
+    safe_labels = torch.where(shift_mask, shift_labels, torch.zeros_like(shift_labels))
+    logprobs = torch.log_softmax(shift_logits, dim=-1)
+    token_ll = logprobs.gather(-1, safe_labels[..., None])[..., 0]
+    n_valid = shift_mask.sum()
+    loss = -(torch.where(shift_mask, token_ll, torch.zeros_like(token_ll))).sum() \
+        / n_valid.clamp_min(1)
+    return loss, n_valid
 
 
 # ---------------------------------------------------------------------------

@@ -492,3 +492,34 @@ def nf4_linear_planar_auto(x: torch.Tensor, q: dict, d_in=None, d_out=None) -> t
         w = nf4_dequant_planar(q, d_in, d_out, torch.bfloat16)
         return (x.to(torch.bfloat16) @ w).to(x.dtype)
     return nf4_linear_planar(x, q, d_in, d_out)
+
+
+class _Nf4LinearPlanar(torch.autograd.Function):
+    """``nf4_linear_planar_auto`` with a gradient for x only: the packed
+    base is frozen (Q-LoRA), so the codes and scales get none."""
+
+    @staticmethod
+    def forward(ctx, x, words, scale):
+        ctx.save_for_backward(words, scale)
+        return nf4_linear_planar_auto(x, {"q4p": words, "scale": scale})
+
+    @staticmethod
+    def backward(ctx, dy):
+        words, scale = ctx.saved_tensors
+        w = nf4_dequant_planar({"q4p": words, "scale": scale}, dtype=torch.bfloat16)
+        dx = dy.to(torch.bfloat16) @ w.T
+        return dx.to(dy.dtype), None, None
+
+
+def nf4_linear_planar_vjp(x: torch.Tensor, q: dict, d_in=None, d_out=None) -> torch.Tensor:
+    """Differentiable ``x @ dequant(q)`` over a frozen planar NF4 weight:
+    forward ``nf4_linear_planar_auto`` (K6 below M = 512, K7 + a dense bf16
+    matmul above), backward ``dx = dy.bf16 @ K7(q).T``; no gradient for the
+    weight.  The backward saves only the 4-bit words and scales, never the
+    dense weight.  On CPU tensors: a dense matmul against the dequantized
+    weight in x's dtype, differentiated by autograd (the JAX package's own
+    branch off the TPU)."""
+    _planar_dims(q, d_in, d_out)
+    if x.device.type == "cpu":
+        return x @ dequant_linear_planar(q, dtype=x.dtype)
+    return _Nf4LinearPlanar.apply(x, q["q4p"], q["scale"])

@@ -1,0 +1,139 @@
+"""The CuLLaVO training step: Q-LoRA fine-tuning of LLaVA (counterpart of
+``cullavo_tpu/trainer/step.py``): forward, masked cross-entropy, backward,
+clip, AdamW step.
+
+Per-sample ``weights`` make an empty-sample batch a no-op.  The sharded
+step (``shard_train_step``) comes with the multi-chip slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from cullavo_tpu_torch.models.llava.config import LlavaConfig
+from cullavo_tpu_torch.models.llava.lora import LoraConfig, apply_trainable
+from cullavo_tpu_torch.models.llava.modeling import _cast_params, llava_forward
+from cullavo_tpu_torch.trainer.optimizer import (GradientTransformation, apply_updates,
+                                                 global_norm)
+from cullavo_tpu_torch.utils.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Trainable parameters (LoRA adapters + projector + lm_head +
+    embed_tokens), optimizer state and step count."""
+    trainable: Any
+    opt_state: Any
+    step: int
+
+
+def _shifted_targets(labels, attention_mask, weights, ignore_index):
+    """(safe labels, validity, per-token weights) of the shifted targets."""
+    lab = labels[:, 1:].long()
+    valid = (attention_mask[:, 1:] != 0) & (lab != ignore_index)
+    safe = torch.where(valid, lab, torch.zeros_like(lab))
+    return safe, valid, valid.float() * weights[:, None].float()
+
+
+def _weighted_nll(logits, safe, valid, w):
+    """(sum of -log p(target) * w over valid positions, sum of w)."""
+    logprobs = torch.log_softmax(logits.float(), dim=-1)
+    ll = logprobs.gather(-1, safe[..., None])[..., 0]
+    return (torch.where(valid, -ll, torch.zeros_like(ll)) * w).sum(), w.sum()
+
+
+def weighted_causal_lm_loss(logits, labels, attention_mask, weights,
+                            ignore_index: int = -100):
+    """Shifted CE with per-sample weights; mean over weighted valid tokens."""
+    safe, valid, w = _shifted_targets(labels, attention_mask, weights, ignore_index)
+    total, denom = _weighted_nll(logits[:, :-1], safe, valid, w)
+    return total / denom.clamp_min(1.0)
+
+
+def chunked_weighted_causal_lm_loss(hidden, lm_head, labels, attention_mask, weights,
+                                    chunk: int = 512, ignore_index: int = -100):
+    """``weighted_causal_lm_loss(lm_logits(hidden), ...)`` computed in
+    sequence chunks, each under ``torch.utils.checkpoint``: a chunk's
+    ``hidden @ lm_head`` and softmax are rematerialized in the backward, so
+    the [B, T, V] f32 logits never exist."""
+    safe, valid, w = _shifted_targets(labels, attention_mask, weights, ignore_index)
+
+    def chunk_fn(h_c, safe_c, valid_c, w_c):
+        logits = torch.matmul(h_c.float(), lm_head.float())
+        return torch.stack(_weighted_nll(logits, safe_c, valid_c, w_c))
+
+    sums = hidden.new_zeros((2,), dtype=torch.float32)
+    for c0 in range(0, hidden.shape[1] - 1, chunk):
+        sl = slice(c0, min(c0 + chunk, hidden.shape[1] - 1))
+        sums = sums + checkpoint(chunk_fn, hidden[:, sl], safe[:, sl], valid[:, sl], w[:, sl],
+                                 use_reentrant=False)
+    return sums[0] / sums[1].clamp_min(1.0)
+
+
+def make_train_step(cfg: LlavaConfig, lora_cfg: Optional[LoraConfig],
+                    tx: GradientTransformation, remat: bool = True, compute_dtype=None,
+                    loss_chunk: Optional[int] = None):
+    """Returns ``step_fn(state, frozen_params, batch, rng) -> (state, metrics)``.
+
+    ``frozen_params`` is the base tree (NF4 / bf16, not updated);
+    ``state.trainable`` holds the LoRA adapters, projector, lm_head and
+    embed_tokens.  ``compute_dtype=torch.bfloat16`` casts the f32 masters
+    (and the other f32 leaves, scales of quantized weights excepted) for
+    the forward: mixed precision over f32 masters.  ``rng`` is a CPU
+    ``torch.Generator`` for the LoRA dropout (None: no dropout).  ``batch``:
+    ``input_ids``, ``attention_mask``, ``labels``, ``weights`` and
+    optionally ``pixel_values``.  The returned state is made of new tensors;
+    ``metrics`` are ``loss_llm`` and the UNCLIPPED ``grad_norm``, as f32
+    scalar tensors.  A vision adapter's ``mask`` is a constant: its
+    gradient is zero and it never moves."""
+    scaling = lora_cfg.scaling if lora_cfg else 0.0
+    dropout = lora_cfg.dropout if lora_cfg else 0.0
+
+    def _cast(tree):
+        if tree is None or compute_dtype is None:
+            return tree
+        return _cast_params(tree, compute_dtype)
+
+    def loss_fn(trainable, frozen_params, batch, rng):
+        full, lora = apply_trainable(frozen_params, trainable)
+        full, lora = _cast(full), _cast(lora)
+        out, _ = llava_forward(full, cfg, batch["input_ids"], batch.get("pixel_values"),
+                               batch["attention_mask"], lora=lora, lora_scaling=scaling,
+                               lora_dropout=dropout, dropout_rng=rng, remat=remat,
+                               return_hidden=loss_chunk is not None)
+        if loss_chunk is None:
+            return weighted_causal_lm_loss(out, batch["labels"], batch["attention_mask"],
+                                           batch["weights"])
+        lm = full["language_model"]
+        head = lm["lm_head"] if "lm_head" in lm else lm["embed_tokens"].T
+        return chunked_weighted_causal_lm_loss(out, head, batch["labels"],
+                                               batch["attention_mask"], batch["weights"],
+                                               chunk=loss_chunk)
+
+    def value_and_grad(trainable, frozen_params, batch, rng):
+        """(loss, gradient tree shaped like ``trainable``)."""
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), trainable)
+        for ab in ((leaves.get("lora") or {}).get("vision_tower") or {}).values():
+            if "mask" in ab:
+                ab["mask"].requires_grad_(False)
+        with torch.enable_grad():
+            loss = loss_fn(leaves, frozen_params, batch, rng)
+        wanted = [t for t in tree_leaves(leaves) if t.requires_grad]
+        got = dict(zip(map(id, wanted), torch.autograd.grad(loss, wanted, allow_unused=True)))
+        grads = tree_map(lambda t: torch.zeros_like(t) if got.get(id(t)) is None
+                         else got[id(t)], leaves)
+        return loss.detach(), grads
+
+    def step_fn(state: TrainState, frozen_params, batch, rng):
+        loss, grads = value_and_grad(state.trainable, frozen_params, batch, rng)
+        with torch.no_grad():
+            updates, new_opt = tx.update(grads, state.opt_state, state.trainable)
+            new_trainable = apply_updates(state.trainable, updates)
+            gnorm = global_norm(grads)
+        return (TrainState(new_trainable, new_opt, state.step + 1),
+                {"loss_llm": loss, "grad_norm": gnorm})
+
+    return step_fn

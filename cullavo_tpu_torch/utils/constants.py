@@ -1,0 +1,27 @@
+"""Dataset class-name constants (the port's own copy of what it needs from
+``cullavo_tpu/utils/constants.py``): so far the COCO panoptic label set of
+the step-1 synthesis.  Public dataset metadata, stored as JSON in
+``assets/class_names.json`` and loaded at first use."""
+from __future__ import annotations
+
+import functools
+import json
+import os
+
+_ASSET = os.path.join(os.path.dirname(__file__), "assets", "class_names.json")
+
+_NAMES = ("COCO_PANOPTIC_CLASSES",)
+
+__all__ = list(_NAMES)
+
+
+@functools.lru_cache(maxsize=1)
+def _load() -> dict:
+    with open(_ASSET) as f:
+        return json.load(f)
+
+
+def __getattr__(name: str):
+    if name in _NAMES:
+        return _load()[name]
+    raise AttributeError(name)

@@ -143,11 +143,19 @@ def test_flash_attention_plain_matches_jax():
 
 
 def test_out_of_slice_modes_raise():
-    x = torch.zeros(2, 3, 8, 16)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tfa.flash_attention(x, x, x, kv_valid=torch.ones(2, 8))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tfa.flash_attention(x, x, x, causal=False)
+    # key masks and non-causal attention run since the training slice; what
+    # the function cannot take still raises
+    x = torch.randn(2, 3, 8, 16, generator=torch.Generator().manual_seed(0))
+    valid = torch.ones(2, 8, dtype=torch.int32)
+    valid[1, 5:] = 0
+    assert torch.equal(tfa.flash_attention(x, x, x, kv_valid=valid),
+                       tfa.mha_reference(x, x, x, kv_valid=valid))
+    assert torch.equal(tfa.flash_attention(x, x, x, causal=False),
+                       tfa.mha_reference(x, x, x, causal=False))
+    with pytest.raises(ValueError, match="kv_valid must be"):
+        tfa.flash_attention(x, x, x, kv_valid=torch.ones(2, 7))
+    with pytest.raises(ValueError, match="are not"):
+        tfa.flash_attention(x, x[:, :2], x[:, :2])
     q = {"q8": torch.zeros(4, 8, dtype=torch.int8), "scale8": torch.ones(1, 8),
          "o_w": torch.zeros(1, 8)}
     with pytest.raises(NotImplementedError, match="slice 4"):

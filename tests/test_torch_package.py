@@ -47,7 +47,23 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.serving.engine",
     "cullavo_tpu_torch.serving.io",
     "cullavo_tpu_torch.entry",
+    "cullavo_tpu_torch.utils.tree",
+    "cullavo_tpu_torch.utils.constants",
+    "cullavo_tpu_torch.trainer.optimizer",
+    "cullavo_tpu_torch.trainer.step",
+    "cullavo_tpu_torch.pipelines.base",
+    "cullavo_tpu_torch.pipelines.cullavo_pipeline",
+    "cullavo_tpu_torch.data.text_format",
+    "cullavo_tpu_torch.data.step1_synthesis",
+    "cullavo_tpu_torch.data.image_processing",
+    "cullavo_tpu_torch.scripts.attn_probe",
 )
+
+
+def test_every_module_of_the_port_is_in_the_import_guard():
+    found = {".".join(p.relative_to(REPO).with_suffix("").parts)
+             for p in PORT.rglob("*.py") if p.name != "__init__.py"}
+    assert found <= set(SLICE_MODULES), sorted(found - set(SLICE_MODULES))
 
 
 def _env():
@@ -60,7 +76,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in SLICE_MODULES)
             + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-              " or m == 'cullavo_tpu' or m.startswith('cullavo_tpu.') or m == 'yaml']\n"
+              " or m == 'cullavo_tpu' or m.startswith('cullavo_tpu.') or m in ('yaml', 'optax')]\n"
               "print(bad)\n"
               "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
@@ -71,15 +87,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_no_source_names_jax_or_the_jax_package_in_an_import():
     """Every import statement of the port's sources and of ``chip_smoke.py``,
     function-level ones included (which an import-time check cannot see)."""
-    banned = re.compile(r"^\s*(import|from)\s+(jax|cullavo_tpu|yaml)(\.|\s|$)", re.M)
+    banned = re.compile(r"^\s*(import|from)\s+(jax|cullavo_tpu|yaml|optax)(\.|\s|$)", re.M)
     paths = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(paths) > 20
-    assert {PORT / "entry.py", PORT / "serving" / "engine.py", PORT / "serving" / "io.py"} <= set(paths)
+    assert {PORT / "entry.py", PORT / "serving" / "engine.py", PORT / "serving" / "io.py",
+            PORT / "trainer" / "step.py", PORT / "trainer" / "optimizer.py",
+            PORT / "pipelines" / "cullavo_pipeline.py", PORT / "scripts" / "attn_probe.py",
+            PORT / "data" / "step1_synthesis.py"} <= set(paths)
     for path in paths:
         hit = banned.search(path.read_text())
         assert hit is None, f"{path.relative_to(REPO)}: {hit.group(0).strip()!r}"
     assert banned.search("    from cullavo_tpu.data import x") and banned.search("import jax")
-    assert banned.search("    import yaml")
+    assert banned.search("    import yaml") and banned.search("import optax")
     assert not banned.search("from cullavo_tpu_torch.ops import nf4")
 
 
@@ -153,12 +172,16 @@ def test_kernel_counters_stay_zero_on_cpu_tensors():
     from cullavo_tpu_torch.ops import nf4
     from cullavo_tpu_torch.ops import wwin_decode as ww
 
-    wrappers = (fa.flash_attention, nf4.quantize_rows, nf4.int8_linear,
-                ww.wwin_decode_smajor, ww.wwin_decode_smajor_q8,
+    wrappers = (fa.flash_attention, fa.flash_lse, fa.flash_rows, nf4.quantize_rows,
+                nf4.int8_linear, ww.wwin_decode_smajor, ww.wwin_decode_smajor_q8,
                 nf4.nf4_linear_planar, nf4.nf4_dequant_planar)
     before = [w.launches for w in wrappers]
     x = torch.randn(1, 2, 5, 8)
     fa.flash_attention(x, x, x)
+    xg = x.clone().requires_grad_(True)
+    fa.flash_attention(xg, xg, xg).sum().backward()                  # the lse form
+    fa.flash_attention(xg, x, x, kv_valid=torch.ones(1, 5, dtype=torch.int32),
+                       causal=False).sum().backward()                # the masked form
     nf4.quantize_rows(torch.randn(4, 16).to(torch.bfloat16), torch.ones(1, 16))
     q = nf4.quantize_linear_int8(torch.randn(16, 8), smooth_scale=torch.ones(16))
     nf4.int8_linear(torch.randn(3, 16), q)
@@ -171,6 +194,8 @@ def test_kernel_counters_stay_zero_on_cpu_tensors():
     nf4.nf4_linear_planar(torch.randn(3, 16), q4)
     nf4.nf4_dequant_planar(q4)
     nf4.nf4_linear_planar_auto(torch.randn(600, 16), q4)
+    xq = torch.randn(600, 16, requires_grad=True)
+    nf4.nf4_linear_planar_vjp(xq, q4).sum().backward()
     assert [w.launches for w in wrappers] == before
 
 
@@ -189,11 +214,34 @@ def test_nf4_wrappers_take_the_plain_version_only_for_cpu_tensors():
         nf4.nf4_dequant_planar(meta)
     with pytest.raises(ValueError, match="unsupported device"):
         nf4.nf4_linear_planar_auto(torch.randn(600, 16, device="meta"), meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        nf4.nf4_linear_planar_vjp(torch.randn(3, 16, device="meta"), meta)
     assert (nf4.nf4_linear_planar.launches, nf4.nf4_dequant_planar.launches) == before
     src = (PORT / "ops" / "nf4.py").read_text()
     cuda_half = src[src.index("def _nf4_linear_planar_cuda"):src.index("def nf4_linear_planar_auto")]
     for banned in ("matmul", " @ ", "_plain(", "dequant_linear_planar(q", "einsum"):
         assert banned not in cuda_half.replace("return dequant_linear_planar(q, dtype=dtype)", ""), banned
+
+
+def test_flash_attention_takes_the_plain_version_only_for_cpu_tensors():
+    """The forward on a tensor that is not on the CPU goes to a kernel or
+    raises; the part of the module that serves CUDA tensors holds no matmul,
+    softmax or plain-version call."""
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    x = torch.randn(1, 1, 4, 128, device="meta", dtype=torch.bfloat16)
+    before = (fa.flash_attention.launches, fa.flash_lse.launches, fa.flash_rows.launches)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention(x, x, x, kv_valid=torch.ones(1, 4, device="meta"), causal=False)
+    assert (fa.flash_attention.launches, fa.flash_lse.launches, fa.flash_rows.launches) == before
+    src = (PORT / "ops" / "flash_attention.py").read_text()
+    cuda_half = src[src.index("def _flash_cuda"):]
+    for banned in ("matmul", " @ ", "mha_reference", "softmax", "einsum", "bmm"):
+        assert banned not in cuda_half, banned
+    fwd = src[src.index("class _FlashAttention"):src.index("    def backward")]
+    assert fwd.count("mha_reference") == 1 and 'if q.device.type == "cpu":' in fwd
 
 
 def test_port_has_no_library_stand_ins_for_its_kernels():
@@ -422,3 +470,114 @@ def test_cuda_nf4_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         nf4.nf4_linear_planar(x.to(torch.bfloat16), {k: v.cpu() for k, v in q.items()})
     with pytest.raises(ValueError, match="one \\[K/8, N\\] matrix"):
         nf4.nf4_dequant_planar({k: v[None] for k, v in q.items()})
+
+
+def _flash_case(dev, B, H, T, S, seed, left_pad=False):
+    """bf16 q/k/v as strided head views, positions continuing each row's
+    valid run, and a key mask: right padding, or left padding (whose padded
+    query rows see no key at all)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, T, H, 128), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+    k, v = (torch.randn((B, S, H, 128), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+            for _ in range(2))
+    n_pad = torch.arange(B, device=dev) * 5 % 11
+    idx = torch.arange(S, device=dev)[None, :]
+    valid = (idx >= n_pad[:, None]) if left_pad else (idx < S - n_pad[:, None])
+    pos = (torch.cumsum(valid[:, S - T:].int(), dim=1) - 1).clamp_min(0) + (S - T)
+    if left_pad:   # padded query rows sit before every valid key
+        pos = torch.where(valid[:, S - T:], pos, torch.full_like(pos, -1))
+    return q, k, v, pos.int(), valid.int()
+
+
+def _assert_attention_close(got, want, what):
+    """bf16 outputs within one bf16 ulp of |ref| plus 1e-2 (P and O are
+    rounded to bf16 at other places); the f32 lse within 2e-3."""
+    (o, lse), (o_ref, lse_ref) = got, want
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all(), what
+    assert torch.allclose(o.float(), o_ref.float(), rtol=1e-2, atol=1e-2), \
+        (what, (o.float() - o_ref.float()).abs().max().item())
+    assert torch.allclose(lse, lse_ref, rtol=1e-5, atol=2e-3), \
+        (what, (lse - lse_ref).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [200, 1024])
+def test_cuda_flash_attention_lse_matches_plain(cuda_device, T):
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _, _ = _flash_case(cuda_device, 2, 4, T, T, seed=8)
+    n0, n1 = fa.flash_lse.launches, fa.flash_attention.launches
+    got = fa._flash_cuda(q, k, v, None, None, True, True)
+    assert (fa.flash_lse.launches, fa.flash_attention.launches) == (n0 + 1, n1)
+    _assert_attention_close(got, fa.mha_reference(q, k, v, need_lse=True), f"K1-lse T={T}")
+    assert torch.equal(got[0], fa.flash_attention(q, k, v))      # the inference launch's o
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,causal,left_pad", [
+    (648, 648, True, False), (648, 648, True, True), (100, 333, True, False),
+    (130, 64, True, False), (200, 200, False, False), (77, 201, False, True)])
+def test_cuda_flash_rows_matches_plain(cuda_device, T, S, causal, left_pad):
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, pos, valid = _flash_case(cuda_device, 3, 2, T, S, seed=9, left_pad=left_pad)
+    if S < T:
+        pos = torch.arange(T, device=cuda_device, dtype=torch.int32)[None].expand(3, T)
+    n0 = fa.flash_rows.launches
+    got = fa._flash_cuda(q, k, v, pos, valid, causal, True)
+    assert fa.flash_rows.launches == n0 + 1
+    want = fa.mha_reference(q, k, v, causal, pos, valid, need_lse=True)
+    _assert_attention_close(got, want, f"K8 T={T} S={S}")
+    if left_pad and causal:     # a wholly masked row: the mean of v, lse = NEG_INF + log S
+        assert (got[1][1, :, 0] <= -1e29).all()
+        assert torch.allclose(got[0][1, :, 0].float(), v[1].float().mean(dim=1), atol=2e-2)
+    o_only = fa._flash_cuda(q, k, v, pos, valid, causal, False)
+    assert torch.equal(o_only, got[0])
+    # the implicit forms: no positions, no key mask
+    got = fa._flash_cuda(q, k, v, None, None if S != T or not causal else valid, causal, True)
+    want = fa.mha_reference(q, k, v, causal, None, None if S != T or not causal else valid,
+                            need_lse=True)
+    _assert_attention_close(got, want, f"K8 implicit T={T} S={S}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,causal,masked", [(256, 256, True, False), (648, 648, True, True),
+                                               (96, 160, False, True)])
+def test_cuda_flash_attention_gradients_match_plain(cuda_device, T, S, causal, masked):
+    """dq, dk, dv of the autograd function (kernel forward + chunked
+    backward with bf16 operands) against autograd through the plain version:
+    within 2e-2 of the largest gradient entry (bf16 rounding of P, dS, dO)."""
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, pos, valid = _flash_case(cuda_device, 2, 2, T, S, seed=10, left_pad=masked)
+    if not masked:
+        pos = valid = None
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    do = torch.randn((2, 2, T, 128), generator=g, device=cuda_device).to(torch.bfloat16)
+    grads = []
+    for fn in (fa.flash_attention, fa.mha_reference):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = (fn(*leaves, pos, valid, causal) if fn is fa.flash_attention
+               else fn(*leaves, causal, pos, valid))
+        grads.append(torch.autograd.grad(out, leaves, do))
+    for name, a, b in zip(("dq", "dk", "dv"), *grads):
+        tol = 2e-2 * b.float().abs().max().item()
+        assert torch.isfinite(a).all()
+        assert (a.float() - b.float()).abs().max().item() <= tol, name
+    if masked and causal:       # the wholly masked row gives no gradient
+        assert not grads[0][0][1, :, 0].any()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_what_the_kernels_do_not_take(cuda_device):
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, pos, valid = _flash_case(cuda_device, 1, 1, 16, 16, seed=12)
+    with pytest.raises(ValueError, match="must be bf16"):
+        fa.flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="head dim 128"):
+        fa.flash_attention(q[..., :64], k[..., :64], v[..., :64])
+    with pytest.raises(ValueError, match="kv_valid must be"):
+        fa.flash_attention(q, k, v, kv_valid=valid[:, :8])
+    with pytest.raises(ValueError, match="integer or boolean"):
+        fa.flash_attention(q, k, v, q_positions=pos.float())
