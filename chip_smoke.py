@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cullavo_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py               # kernels + the three 7B serving paths + the train path
+    python3 chip_smoke.py               # kernels, the 7B serving and train paths, X-Decoder eval
     python3 chip_smoke.py --profile     # the same + a profiled run of each path
 
 Phases (each raises on failure, and the script exits non-zero):
@@ -30,7 +30,16 @@ Phases (each raises on failure, and the script exits non-zero):
      autograd function's dq, dk, dv against autograd through the plain
      version (within 2e-2 of the largest entry) and its chunked backward
      timed at the train shape; ``nf4_linear_planar_vjp``'s dx against the
-     dense matmul at M = 8192.
+     dense matmul at M = 8192.  Then the X-Decoder kernels: K9
+     (multi-scale deformable attention) at the deformable encoder's shape
+     at a 512² image (value [8, 5376, 8, 64], 3 levels x 4 points), at
+     the 512 x 640 bucket's non-square levels and at a ragged Q, points
+     partly outside the maps; K10 (the gated focal-modulation context) at
+     each FocalNet-L stage at 512², batch 8; both in bf16 (within 1e-2 +
+     1e-2 |ref|) and f32 (within 1e-5 + 1e-5 |ref|), K10 with both GELU
+     forms; timed beside a yardstick (K9: one ``grid_sample`` per level,
+     the reference's composition; K10: the cuDNN depthwise ``conv2d``
+     chain in bf16, the model's own), K10 summed over one forward.
   4. build random LLaVA-1.5-7B weights on the card from a seeded
      ``torch.Generator``: bf16 vision tower, projector, embeddings and head;
      int8 SmoothQuant LLM linears with smooth scales exp(N(0, 0.3)) shared
@@ -77,6 +86,19 @@ Phases (each raises on failure, and the script exits non-zero):
      non-zero, the two runs equal within 1e-3 relative, the frozen base
      bit-unchanged, and K1-lse and K7 launched as often as the shapes say.
   8b. the package's ``attn_probe`` at its default shape, which runs K8.
+  9. the X-Decoder eval path: ``entry.evaluate`` on
+     configs/xdecoder_test.yaml with ``DATASETS.TEST`` unset (returns {});
+     then both configurations (FocalNet-L + FPN, SAM-ViT-B + deformable
+     encoder) at full width and cut depth, f32, on one 256 x 320 image,
+     card (kernels) against CPU (plain versions): class embeddings, class
+     and mask logits within 1e-3 of their largest entry; then each at full
+     width and depth in bf16 (random weights, the 133 COCO panoptic
+     classes + background through the 12-layer text encoder):
+     ``XDecoderPipeline.evaluate_model`` with the semantic,
+     panoptic and instance tasks on 16 synthetic images (12 of 512², 4 of
+     480 x 640) with synthetic ground truth, batch 8, twice: identical
+     outputs, ids in range, finite metrics, K10 24 and K9 6 launches per
+     forward; images/s, compute s per batch and peak memory printed.
 The last two lines are the kernels' JSON record and the result line.
 Imports neither JAX nor the JAX package.
 """
@@ -117,6 +139,39 @@ PROBE_SHAPE = (6, 32, 648, 128)   # the attention probe's default shape
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense operations/s by input type
 HBM_BPS = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# the X-Decoder eval path: configs/xdecoder_test.yaml (FocalNet-L + FPN) and
+# configs/xdecoder/samvitb_deform_lang.yaml (SAM-ViT-B + deformable encoder),
+# as the dicts their yaml files hold (this script reads no yaml); images
+# as bench_xdecoder.py evaluates them (512^2, batch 8, bf16)
+_XDEC_DECODER = {"HIDDEN_DIM": 512, "NUM_OBJECT_QUERIES": 201, "NHEADS": 8,
+                 "DIM_FEEDFORWARD": 2048, "DEC_LAYERS": 10}
+_XDEC_TEXT = {"WIDTH": 512, "HEADS": 8, "LAYERS": 12, "CONTEXT_LENGTH": 77}
+XDEC_CONFIGS = {
+    "configs/xdecoder_test.yaml": {
+        "NAME": "xdecoder_test", "PIPELINE": "XDecoderPipeline",
+        "MODEL": {"BACKBONE": {"NAME": "focal", "EMBED_DIM": 192, "DEPTHS": [2, 2, 18, 2],
+                               "FOCAL_LEVELS": [4, 4, 4, 4], "FOCAL_WINDOWS": [3, 3, 3, 3]},
+                  "ENCODER": {"NAME": "transformer_encoder_fpn", "CONVS_DIM": 512,
+                              "MASK_DIM": 512, "NUM_CLASSES": 133},
+                  "DECODER": dict(_XDEC_DECODER), "TEXT": dict(_XDEC_TEXT)},
+        "DATASETS": {"TEST": None}},
+    "configs/xdecoder/samvitb_deform_lang.yaml": {
+        "NAME": "xdecoder_test_samvitb_deform", "PIPELINE": "XDecoderPipeline",
+        "MODEL": {"BACKBONE": {"NAME": "vit", "VIT": {"SIZE": "base", "OUT_FEATURES": [
+                      "res2", "res3", "res4", "res5"]}},
+                  "ENCODER": {"NAME": "transformer_encoder_deform", "CONVS_DIM": 512,
+                              "MASK_DIM": 512, "NUM_CLASSES": 133,
+                              "DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES": [
+                                  "res3", "res4", "res5"],
+                              "COMMON_STRIDE": 4, "TRANSFORMER_ENC_LAYERS": 6},
+                  "DECODER": dict(_XDEC_DECODER), "TEXT": dict(_XDEC_TEXT)},
+        "DATASETS": {"TEST": None}},
+}
+XDEC_FOCAL, XDEC_DEFORM = XDEC_CONFIGS   # the two paths, by config file
+XDEC_BATCH, XDEC_SIDE, XDEC_DATASET = 8, 512, "coco_2017_val_panoptic_with_sem_seg"
+XDEC_SIZES = ((512, 512),) * 12 + ((480, 640),) * 4   # the last four: bucket 512 x 640
+XDEC_CHECK_HW = (256, 320)
+XDEC_THINGS = frozenset(range(80))   # COCO panoptic: the first 80 classes are things
 
 
 def log(*a):
@@ -152,6 +207,15 @@ def bound(n_bytes, n_ops, op_type):
     t_bytes, t_ops = n_bytes / HBM_BPS * 1e3, n_ops / PEAK_OPS[op_type] * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_seconds(ka):
+    """The device time of a profile's ``key_averages()``: the self times of
+    its device-side events (kernels, copies); an operator's row repeats the
+    time of the kernels it launched, so summing every row counts it twice."""
+    from torch.autograd import DeviceType
+
+    return sum(e.self_device_time_total for e in ka if e.device_type == DeviceType.CUDA) / 1e6
 
 
 def nbytes(*tensors):
@@ -268,6 +332,7 @@ def check_kernels(device):
     rec.update(check_wwin_kernels(device, g))
     rec.update(check_nf4_kernels(device, g))
     rec.update(check_train_kernels(device, g))
+    rec.update(check_xdecoder_kernels(device, g))
     return rec
 
 
@@ -442,6 +507,168 @@ def check_train_kernels(device, g):
     log(f"one layer's adapters at M={M}, r=64: the seven x @ a products {u_ms:.4f} ms, the "
         f"seven dropout masks {mask_ms:.4f} ms (both run again in the rematerialized backward)")
     torch.cuda.empty_cache()
+    return rec
+
+
+def msdeform_grid_sample(value, shapes, loc, att):
+    """The reference's PyTorch composition of multi-scale deformable
+    attention (one ``grid_sample`` per level, then the weighted sum): a
+    yardstick timed here only, the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    B, S, Hh, hd = value.shape
+    Q, L, P = loc.shape[1], loc.shape[3], loc.shape[4]
+    grids = (2 * loc - 1).to(value.dtype)
+    sampled, start = [], 0
+    for lvl, (h, w) in enumerate(shapes):
+        v = value[:, start:start + h * w].flatten(2).transpose(1, 2).reshape(B * Hh, hd, h, w)
+        start += h * w
+        sampled.append(F.grid_sample(v, grids[:, :, :, lvl].transpose(1, 2).flatten(0, 1),
+                                     mode="bilinear", padding_mode="zeros", align_corners=False))
+    a = att.transpose(1, 2).reshape(B * Hh, 1, Q, L * P)
+    out = (torch.stack(sampled, dim=-2).flatten(-2) * a).sum(-1)
+    return out.view(B, Hh * hd, Q).transpose(1, 2)
+
+
+def focal_chain_cudnn(ctx, gates, level_weights, H, W, kernels):
+    """The FocalNet model's own chain in the working dtype: cuDNN's
+    depthwise ``conv2d(groups=C)``, tanh GELU, gates, the global term, the
+    scaling (what JAX's XLA branch computes at bf16): a yardstick timed
+    here only, the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    B, C, _ = ctx.shape
+    L = len(kernels)
+    x = ctx.reshape(B, C, H, W)
+    g = gates.reshape(B, L + 1, H, W)
+    acc = torch.zeros_like(x)
+    for lvl, w in enumerate(level_weights):
+        x = F.gelu(F.conv2d(x, w, padding=w.shape[-1] // 2, groups=C), approximate="tanh")
+        acc = acc + x * g[:, lvl:lvl + 1]
+    acc = acc + F.gelu(x.mean((2, 3), keepdim=True), approximate="tanh") * g[:, L:L + 1]
+    return (acc / (L + 1)).reshape(B, C, H * W)
+
+
+def check_xdecoder_kernels(device, g):
+    """Phase 3, the X-Decoder kernels.  K9 (multi-scale deformable
+    attention) at the deformable encoder's shape at a 512^2 image (B 8, S = Q
+    = 64^2 + 32^2 + 16^2, 8 heads x 64, 3 levels x 4 points), at the 512 x 640
+    bucket's non-square levels and at a Q that fills no tile; points drawn
+    in [-0.1, 1.1] (some outside every map).  K10 (the gated focal context)
+    at each FocalNet-L stage at a 512^2 image, batch 8, both GELU forms.
+    Both within 1e-2 + 1e-2 |ref| of the plain version in bf16 (one
+    rounding of the output) and within 1e-5 + 1e-5 |ref| in f32 (sums in
+    another order: the plain focal chain runs on cuDNN)."""
+    import torch
+
+    from cullavo_tpu_torch.models.xdecoder.focalnet import FocalNetConfig
+    from cullavo_tpu_torch.ops import focal, msdeform
+
+    bf, f32 = torch.bfloat16, torch.float32
+    rec = {}
+
+    def hold(name, got, ref, dtype):
+        torch.cuda.synchronize(device)
+        err = (got.float() - ref.float()).abs().max().item()
+        tol = (1e-5, 1e-5) if dtype == f32 else (1e-2, 1e-2)
+        log(f"{name}: max_abs_err={err:.3e} (tol {tol[0]:g} + {tol[1]:g} |ref|)")
+        if not (got.dtype == dtype and torch.isfinite(got).all()
+                and torch.allclose(got.float(), ref.float(), atol=tol[0], rtol=tol[1])):
+            raise RuntimeError(f"{name} disagrees with its plain version: {err}")
+        return err
+
+    # K9
+    side = XDEC_SIDE // 8
+    path_shapes = ((side // 4, side // 4), (side // 2, side // 2), (side, side))
+    bucket_shapes = ((16, 20), (32, 40), (64, 80))
+    Hh, hd, P = 8, 64, 4
+
+    def deform_case(shapes, B, Q, dtype):
+        S, L = sum(h * w for h, w in shapes), len(shapes)
+        value = torch.randn((B, S, Hh, hd), generator=g, device=device).to(dtype)
+        loc = torch.rand((B, Q, Hh, L, P, 2), generator=g, device=device) * 1.2 - 0.1
+        att = torch.softmax(torch.randn((B, Q, Hh, L * P), generator=g, device=device), -1)
+        return value, loc, att.reshape(B, Q, Hh, L, P).to(dtype)
+
+    errs = []
+    S_path = sum(h * w for h, w in path_shapes)
+    for shapes, B, Q in ((path_shapes, XDEC_BATCH, S_path), (bucket_shapes, 2, 6720),
+                         (path_shapes, 2, 3001)):
+        for dtype in (bf, f32):
+            value, loc, att = deform_case(shapes, B, Q, dtype)
+            got = msdeform.ms_deform_attn_kernel(value, shapes, loc, att)
+            ref = msdeform.ms_deform_attn(value, shapes, loc, att)
+            errs.append(hold(f"K9 ms_deform_attn levels {shapes} B={B} Q={Q} {dtype}", got, ref,
+                             dtype))
+            if dtype == f32 and Q == S_path:
+                lib_out = msdeform_grid_sample(value, shapes, loc, att)
+                if not torch.allclose(lib_out, ref, atol=1e-4, rtol=1e-4):
+                    raise RuntimeError("the grid_sample yardstick disagrees with the plain version")
+    value, loc, att = deform_case(path_shapes, XDEC_BATCH, S_path, bf)
+    out = msdeform.ms_deform_attn_kernel(value, path_shapes, loc, att)
+    ms = bench_ms(lambda: msdeform.ms_deform_attn_kernel(value, path_shapes, loc, att), device)
+    plain = bench_ms(lambda: msdeform.ms_deform_attn(value, path_shapes, loc, att), device)
+    lib = bench_ms(lambda: msdeform_grid_sample(value, path_shapes, loc, att), device)
+    # the least work: per sampling point and channel 4 corner multiply-adds,
+    # the attention weight folded into the corner weights (f32)
+    points = XDEC_BATCH * S_path * Hh * len(path_shapes) * P
+    bd = bound(nbytes(value, loc, att, out), 2 * 4 * hd * points, "f32")
+    log(f"K9 B={XDEC_BATCH} Q=S={S_path}: kernel {ms:.4f} ms, plain {plain:.4f} ms, grid_sample "
+        f"yardstick {lib:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+        f"{nbytes(value, loc, att, out) / 1e6:.1f} MB)")
+    rec["ms_deform_attn"] = dict(
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, library_ms=lib, **bd,
+        shape=f"value [{XDEC_BATCH},{S_path},{Hh},{hd}] bf16, levels {path_shapes}, "
+              f"loc [{XDEC_BATCH},{S_path},{Hh},3,{P},2] f32, one launch (6 per forward); "
+              "library_ms: one grid_sample per level + weighted sum")
+
+    # K10: one launch per FocalNet-L block, stage by stage
+    fcfg = FocalNetConfig()
+    kernels = tuple(fcfg.focal_factor * lvl + fcfg.focal_windows[0]
+                    for lvl in range(fcfg.focal_levels[0]))
+    L, taps_per = len(kernels), sum(k * k for k in kernels)
+    errs, tot = [], dict(ms=0.0, plain=0.0, lib=0.0, bytes=0, ops=0)
+    for i, depth in enumerate(fcfg.depths):
+        C, s = fcfg.num_features[i], XDEC_SIDE // 4 // 2 ** i
+        for dtype in (f32, bf):
+            fx = torch.randn((XDEC_BATCH, 2 * C + L + 1, s * s), generator=g,
+                             device=device).to(dtype)
+            # taps of std 0.6 / k: every level's output stays of order one
+            taps = torch.cat([torch.randn((C, k * k), generator=g, device=device) * (0.6 / k)
+                              for k in kernels], dim=1)
+            ctx, gates = fx[:, C:2 * C], fx[:, 2 * C:]       # views, as focal_modulation passes
+            for approximate in (True, False):
+                got = focal.focal_ctx_kernel(ctx, gates, taps, s, s, kernels, True, approximate)
+                ref = focal.focal_ctx_plain(ctx, gates, taps, s, s, kernels, True, approximate)
+                errs.append(hold(f"K10 focal_ctx stage {i + 1} [{XDEC_BATCH},{C},{s}x{s}] {dtype} "
+                                 f"{'tanh' if approximate else 'erf'}", got, ref, dtype))
+        cols = [sum(kk * kk for kk in kernels[:j]) for j in range(L + 1)]
+        weights = [taps[:, cols[j]:cols[j + 1]].to(bf).reshape(C, 1, k, k)
+                   for j, k in enumerate(kernels)]
+        ms = bench_ms(lambda: focal.focal_ctx_kernel(ctx, gates, taps, s, s, kernels, True, True),
+                      device)
+        plain = bench_ms(lambda: focal.focal_ctx_plain(ctx, gates, taps, s, s, kernels, True, True),
+                         device)
+        lib = bench_ms(lambda: focal_chain_cudnn(ctx, gates, weights, s, s, kernels), device)
+        ops = 2 * taps_per * XDEC_BATCH * C * s * s
+        n_bytes = nbytes(ctx, gates, taps, got)
+        bd = bound(n_bytes, ops, "f32")
+        log(f"K10 stage {i + 1} (x{depth} blocks): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"cuDNN chain {lib:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        tot = dict(ms=tot["ms"] + depth * ms, plain=tot["plain"] + depth * plain,
+                   lib=tot["lib"] + depth * lib, bytes=tot["bytes"] + depth * n_bytes,
+                   ops=tot["ops"] + depth * ops)
+    bd = bound(tot["bytes"], tot["ops"], "f32")
+    log(f"K10 one FocalNet-L forward ({sum(fcfg.depths)} launches): kernel {tot['ms']:.4f} ms, "
+        f"plain {tot['plain']:.4f} ms, cuDNN chain {tot['lib']:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, {tot['ops'] / 1e9:.1f} GFLOP)")
+    rec["focal_ctx"] = dict(
+        max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain"], library_ms=tot["lib"], **bd,
+        shape=f"FocalNet-L at {XDEC_SIDE}^2, batch {XDEC_BATCH}, bf16, tanh GELU, L=4 (k 3-9): "
+              "ms summed over one forward's 24 launches (2, 2, 18, 2 blocks at C 192-1536); "
+              "library_ms: the cuDNN depthwise conv2d chain in bf16")
     return rec
 
 
@@ -982,7 +1209,7 @@ def profile_path(name, run):
     _, pre, dec, _ = run(phase)
     for label, wall in (("prefill", pre), ("decode", dec)):
         ka = profs[label].key_averages()
-        busy = sum(e.self_device_time_total for e in ka) / 1e6
+        busy = device_seconds(ka)
         log(f"profile {name} {label}: wall {wall:.4f} s (profiled), device busy {busy:.4f} s "
             f"({100 * busy / wall:.1f}%)")
         log(ka.table(sort_by="self_device_time_total", row_limit=18,
@@ -1204,7 +1431,7 @@ def profile_serving(run):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, _, _, wall = run()
     ka = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in ka) / 1e6
+    busy = device_seconds(ka)
     log(f"profile serving run: wall {wall:.4f} s (profiled), device busy {busy:.4f} s "
         f"({100 * busy / wall:.1f}%)")
     log(ka.table(sort_by="self_device_time_total", row_limit=24, max_name_column_width=70))
@@ -1479,7 +1706,7 @@ def profile_train(pipe, batch, device):
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
     ka = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in ka) / 1e6
+    busy = device_seconds(ka)
     log(f"profile train step: wall {wall:.4f} s (profiled), device busy {busy:.4f} s "
         f"({100 * busy / wall:.1f}%)")
     log(ka.table(sort_by="self_device_time_total", row_limit=30, max_name_column_width=70))
@@ -1502,6 +1729,252 @@ def run_attn_probe(device, wrappers):
     return counts
 
 
+def _tree_to(node, **kw):
+    """An X-Decoder parameter tree (nested dicts and lists of tensors) with
+    ``.to(**kw)`` applied to every leaf."""
+    if isinstance(node, dict):
+        return {k: _tree_to(v, **kw) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_tree_to(v, **kw) for v in node]
+    return node.to(**kw)
+
+
+def xdecoder_entry_smoke(device):
+    """Phase 9a: ``entry.evaluate`` on configs/xdecoder_test.yaml with
+    ``DATASETS.TEST`` unset: the full model's random weights and the text
+    tokenizer are built on the card, and the result is ``{}`` as in JAX."""
+    from cullavo_tpu_torch import entry
+
+    t0 = time.perf_counter()
+    results = entry.evaluate(XDEC_CONFIGS[XDEC_FOCAL], device=device)
+    if results != {}:
+        raise RuntimeError(f"entry.evaluate({XDEC_FOCAL}): {results}, not {{}}")
+    log(f"entry.evaluate({XDEC_FOCAL}) on the card: {results} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def xdecoder_cut(path):
+    """The config of ``path`` at full width with its depth cut: one block
+    per FocalNet stage and one FPN encoder layer, or two SAM-ViT blocks (the
+    second global) and one deformable layer; 2 decoder and 2 text layers."""
+    from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
+
+    full = xdecoder_model_config_from(XDEC_CONFIGS[path])
+    if path == XDEC_FOCAL:
+        backbone = dataclasses.replace(full.backbone, depths=(1, 1, 1, 1))
+        encoder = dataclasses.replace(full.fpn, enc_layers=1)
+    else:
+        backbone = dataclasses.replace(full.backbone, depth=2, global_attn_indexes=(1,))
+        encoder = dataclasses.replace(full.fpn, num_layers=1)
+    return dataclasses.replace(full, backbone=backbone, fpn=encoder,
+                               decoder=dataclasses.replace(full.decoder, dec_layers=2),
+                               text=dataclasses.replace(full.text, layers=2))
+
+
+def reference_check_xdecoder(device, wrappers):
+    """Phase 9b: each configuration at full width and cut depth, f32, on one
+    256 x 320 image, kernels on the card against the plain versions on the
+    CPU (same weights, drawn on the CPU): class embeddings of 8 classes and
+    the background, the class and mask logits of ``forward_eval`` within
+    1e-3 of their largest entry (TF32 off; a mask logit near 0 can flip a
+    cross-attention bit between the two)."""
+    import numpy as np
+    import torch
+
+    from cullavo_tpu_torch.entry import _make_text_tokenize
+    from cullavo_tpu_torch.models.xdecoder.model import forward_eval, init_xdecoder_model_params
+    from cullavo_tpu_torch.models.xdecoder.text_encoder import class_embeddings_ensembled
+    from cullavo_tpu_torch.utils.constants import COCO_PANOPTIC_CLASSES
+
+    h, w = XDEC_CHECK_HW
+    image = np.random.default_rng(SEED).normal(size=(1, h, w, 3)).astype(np.float32)
+    for path in XDEC_CONFIGS:
+        cfg = xdecoder_cut(path)
+        tokenize = _make_text_tokenize(XDEC_CONFIGS[path], cfg.text)
+        params = init_xdecoder_model_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        outs = []
+        for dev in (torch.device("cpu"), device):
+            p = _tree_to(params, device=dev)
+
+            def run():
+                with torch.inference_mode():
+                    emb = class_embeddings_ensembled(p["text"], cfg.text, tokenize,
+                                                     COCO_PANOPTIC_CLASSES[:8],
+                                                     add_background=True)
+                    return (emb,) + forward_eval(p, cfg, torch.as_tensor(image, device=dev),
+                                                 emb)[:2]
+
+            got, counts = counted(wrappers, run)
+            outs.append([t.float().cpu() for t in got])
+        worst = []
+        for name, b, a in zip(("class embeddings", "pred_logits", "pred_masks"), *outs):
+            rel = ((a - b).abs().max() / b.abs().max()).item()
+            worst.append(rel)
+            log(f"{path} cut ({h}x{w}, f32) {name} {tuple(a.shape)}: card vs CPU "
+                f"max |d| / max |ref| = {rel:.3e} (tol 1e-3)")
+        need = "focal_ctx" if path == XDEC_FOCAL else "ms_deform_attn"
+        if not (max(worst) <= 1e-3 and counts[need]):
+            raise RuntimeError(f"{path}: the card's cut model disagrees with the CPU's "
+                               f"({worst}) or {need} never launched ({counts})")
+
+
+def xdecoder_rows(num_classes):
+    """The eval set: 16 normalized random images (12 of 512^2, 4 of 480 x
+    640) with synthetic ground truth of 64-pixel blocks: a semantic map, a
+    panoptic map with one segment per class, up to 4 instance masks."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for i, (h, w) in enumerate(XDEC_SIZES):
+        blocks = rng.integers(0, num_classes, (-(-h // 64), -(-w // 64)))
+        sem = np.kron(blocks, np.ones((64, 64), np.int64))[:h, :w]
+        cats = np.unique(sem)
+        rows.append({
+            "image": rng.normal(size=(h, w, 3)).astype(np.float32), "image_id": i,
+            "sem_seg": sem, "pan_seg_gt": (sem + 1).astype(np.int32),
+            "segments_gt": [{"id": int(c) + 1, "category_id": int(c),
+                             "isthing": int(c) in XDEC_THINGS} for c in cats],
+            "instances_gt": {"masks": np.stack([sem == c for c in cats[:4]]),
+                             "classes": cats[:4]}})
+    return rows
+
+
+def _same(a, b) -> bool:
+    """Two nested dicts of numpy arrays hold equal arrays."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same(a[k], b[k]) for k in a)
+    return np.array_equal(a, b)
+
+
+def check_xdecoder_results(res, batches, num_classes):
+    """Ids in range, finite scores and metrics."""
+    import numpy as np
+
+    for out in batches:
+        if "sem" in out and not (0 <= out["sem"].min() and out["sem"].max() < num_classes):
+            raise RuntimeError("semantic ids out of range")
+        inst = out["inst"]
+        if not (np.isfinite(inst["scores"]).all() and 0 <= inst["classes"].min()
+                and inst["classes"].max() < num_classes):
+            raise RuntimeError("instance scores or classes out of range")
+    for o in res["panoptic_outputs"]:
+        ids = {s["id"] for s in o["segments"]}
+        if not (set(np.unique(o["panoptic"]).tolist()) <= ids | {0}
+                and all(0 <= s["category_id"] < num_classes for s in o["segments"])):
+            raise RuntimeError(f"panoptic ids out of range: {o['segments']}")
+    metrics = [v for key in ("sem_seg", "panoptic", "instance_ap") for v in res.get(key, {}).values()]
+    if "sem_seg" not in res or not all(np.isfinite(v) for v in metrics):
+        raise RuntimeError(f"metrics not finite: {res.get('sem_seg')} {res.get('panoptic')} "
+                           f"{res.get('instance_ap')}")
+
+
+def run_xdecoder_path(path, device, wrappers, smi):
+    """Phase 9c: one configuration at full width and depth in bf16 (random
+    weights from a seeded generator on the card), class embeddings of the
+    133 COCO panoptic classes and the background through the 12-layer text
+    encoder, then ``XDecoderPipeline.evaluate_model`` with the semantic,
+    panoptic and instance tasks on the 16 images at ``EVAL_BATCH`` 8, twice.
+    Returns the first run's launch counts and the pipeline."""
+    import torch
+
+    from cullavo_tpu_torch.entry import _make_text_tokenize
+    from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
+    from cullavo_tpu_torch.models.xdecoder.model import init_xdecoder_model_params
+    from cullavo_tpu_torch.models.xdecoder.text_encoder import class_embeddings_ensembled
+    from cullavo_tpu_torch.pipelines.base import build_pipeline
+    from cullavo_tpu_torch.pipelines.xdecoder_pipeline import tasks_for_dataset
+    from cullavo_tpu_torch.utils.constants import COCO_PANOPTIC_CLASSES
+
+    cfg_dict = XDEC_CONFIGS[path]
+    model_cfg = xdecoder_model_config_from(cfg_dict)
+    t0 = time.perf_counter()
+    params = init_xdecoder_model_params(model_cfg, torch.Generator(device=device).manual_seed(SEED),
+                                        device, dtype=torch.bfloat16)
+    with torch.inference_mode():
+        text = class_embeddings_ensembled(params["text"], model_cfg.text,
+                                          _make_text_tokenize(cfg_dict, model_cfg.text),
+                                          COCO_PANOPTIC_CLASSES, add_background=True)
+    torch.cuda.synchronize(device)
+    log(f"{path}: bf16 weights and {tuple(text.shape)} class embeddings in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated(device) / 2**30:.2f} GiB "
+        "allocated")
+    pipe = build_pipeline(cfg_dict["PIPELINE"], cfg_dict, model_cfg=model_cfg, params=params,
+                          text_class_embeds=text, tasks=tasks_for_dataset(XDEC_DATASET),
+                          eval_batch=XDEC_BATCH)
+    rows = xdecoder_rows(model_cfg.num_classes)
+    run_batch = pipe._run_batch
+    runs = []
+    for _ in range(2):
+        batches = []
+
+        def recording(*a, _batches=batches):
+            out = run_batch(*a)
+            _batches.append(out)
+            return out
+
+        pipe._run_batch = recording
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        res, counts = counted(wrappers, lambda: pipe.evaluate_model(rows, thing_ids=XDEC_THINGS))
+        wall = time.perf_counter() - t0
+        runs.append((res, batches, counts, wall, torch.cuda.max_memory_allocated(device) / 2**30))
+    pipe._run_batch = run_batch
+    (res, batches, counts, _, _), (res2, batches2, _, _, _) = runs
+    log(f"launches on the {path} eval path: {counts}")
+    forwards = len(batches)
+    if path == XDEC_FOCAL:
+        want = {"focal_ctx": sum(model_cfg.backbone.depths) * forwards, "ms_deform_attn": 0}
+    else:
+        want = {"ms_deform_attn": model_cfg.fpn.num_layers * forwards, "focal_ctx": 0}
+    if any(counts[k] != n for k, n in want.items()):
+        raise RuntimeError(f"{path}: launches {counts} != predicted {want} ({forwards} forwards)")
+    check_xdecoder_results(res, batches, model_cfg.num_classes)
+    pan = [(o["image_id"], o["segments"]) for o in res["panoptic_outputs"]]
+    if not (all(_same(a, b) for a, b in zip(batches, batches2)) and len(batches) == len(batches2)
+            and pan == [(o["image_id"], o["segments"]) for o in res2["panoptic_outputs"]]):
+        raise RuntimeError(f"{path}: two runs gave different outputs")
+    n_seg = sum(len(s) for _, s in pan)
+    n_inst = sum(len(o["scores"]) for o in res["instance_outputs"])
+    n_keep = sum(int(out["pan"]["keep"].sum()) for out in batches)
+    log(f"{path}: {len(rows)} images in {forwards} batches of {XDEC_BATCH}; outputs identical "
+        f"across the two runs; {n_keep} queries kept for the panoptic map (class score > "
+        f"{model_cfg.object_mask_threshold}, not the background) over the batches' "
+        f"{forwards * XDEC_BATCH} rows, {n_seg} panoptic segments, {n_inst} instances; sem_seg "
+        f"{res['sem_seg']}, panoptic {res.get('panoptic')}, instance AP {res.get('instance_ap')}")
+    for i, (r, _, _, wall, peak) in enumerate(runs, 1):
+        t = r["timing"]
+        log(f"{path} run {i} ({smi}): {t.get('images_per_s', 0.0):.4f} images/s after the first "
+            f"batch, compute {t['compute_s']:.4f} s per batch (data {t['data_s']:.4f}, eval "
+            f"{t['eval_s']:.4f}), wall {wall:.3f} s, peak memory {peak:.2f} GiB")
+    return counts, pipe, rows
+
+
+def profile_xdecoder(pipe, rows, device):
+    """``--profile``: one more 512^2 batch of 8 through the pipeline's
+    device part under torch.profiler; the device-busy share of the wall
+    time and the kernels by device time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = rows[:XDEC_BATCH]
+    img = np.stack([r["image"] for r in batch])
+    hw = np.asarray([r["image"].shape[:2] for r in batch], np.int32)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe._run_batch(img, hw, (XDEC_SIDE, XDEC_SIDE))
+    wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    busy = device_seconds(ka)
+    log(f"profile X-Decoder eval batch ({pipe.cfg['NAME']}): wall {wall:.4f} s (profiled), device "
+        f"busy {busy:.4f} s ({100 * busy / wall:.1f}%)")
+    log(ka.table(sort_by="self_device_time_total", row_limit=24, max_name_column_width=70))
+
+
 def main(argv):
     import torch
 
@@ -1512,7 +1985,7 @@ def main(argv):
     from cullavo_tpu_torch import _build
     from cullavo_tpu_torch.models.llava.config import LlavaConfig
     from cullavo_tpu_torch.ops import flash_attention as fa
-    from cullavo_tpu_torch.ops import nf4
+    from cullavo_tpu_torch.ops import focal, msdeform, nf4
     from cullavo_tpu_torch.ops import wwin_decode as ww
 
     device = torch.device("cuda", 0)
@@ -1544,7 +2017,9 @@ def main(argv):
                 "wwin_decode_q8": ww.wwin_decode_smajor_q8,
                 "nf4_linear_planar": nf4.nf4_linear_planar,
                 "nf4_dequant_planar": nf4.nf4_dequant_planar,
-                "flash_fwd_lse": fa.flash_lse, "flash_rows": fa.flash_rows}
+                "flash_fwd_lse": fa.flash_lse, "flash_rows": fa.flash_rows,
+                "ms_deform_attn": msdeform.ms_deform_attn_kernel,
+                "focal_ctx": focal.focal_ctx_kernel}
     meta = {"flash_fwd": ("cullavo_tpu_torch/csrc/flash_fwd.cu",
                           "cullavo_tpu/ops/flash_attention.py:259"),
             "quant_rows": ("cullavo_tpu_torch/csrc/quant_rows.cu",
@@ -1562,7 +2037,11 @@ def main(argv):
             "flash_fwd_lse": ("cullavo_tpu_torch/csrc/flash_fwd.cu",
                               "cullavo_tpu/ops/flash_attention.py:259"),
             "flash_rows": ("cullavo_tpu_torch/csrc/flash_fwd.cu",
-                           "cullavo_tpu/ops/flash_attention.py:142")}
+                           "cullavo_tpu/ops/flash_attention.py:142"),
+            "ms_deform_attn": ("cullavo_tpu_torch/csrc/msdeform.cu",
+                               "cullavo_tpu/ops/msdeform_pallas.py:43"),
+            "focal_ctx": ("cullavo_tpu_torch/csrc/focal_ctx.cu",
+                          "cullavo_tpu/ops/focal_pallas.py:34")}
 
     # phases 4-6b
     cfg = LlavaConfig()
@@ -1592,18 +2071,31 @@ def main(argv):
     reference_check_train(params_nf4, cfg, device)
     counts_train, train_pipe, train_batch = run_train_path(params_nf4, cfg, device, wrappers)
     counts_probe = run_attn_probe(device, wrappers)
+    if "--profile" not in argv:
+        del params_nf4, train_pipe, train_batch, run_serve
+        torch.cuda.empty_cache()
+
+    # phase 9
+    xdecoder_entry_smoke(device)
+    reference_check_xdecoder(device, wrappers)
+    counts_focal, focal_pipe, xdec_rows = run_xdecoder_path(XDEC_FOCAL, device, wrappers, smi)
+    counts_deform, _, _ = run_xdecoder_path(XDEC_DEFORM, device, wrappers, smi)
     # each kernel's launches on the main path that runs it: K1-K4 the greedy
     # bf16-cache batch, K5 the speculative int8-cache batch, K6 and K7 the
-    # serving run, K1-lse the train steps, K8 the attention probe
+    # serving run, K1-lse the train steps, K8 the attention probe, K9 the
+    # SAM-ViT-B + deformable eval, K10 the FocalNet-L + FPN eval
     counts["wwin_decode_q8"] = counts_spec["wwin_decode_q8"]
     for name in ("nf4_linear_planar", "nf4_dequant_planar"):
         counts[name] = counts_serve[name]
     counts["flash_fwd_lse"] = counts_train["flash_fwd_lse"]
     counts["flash_rows"] = counts_probe["flash_rows"]
+    counts["focal_ctx"] = counts_focal["focal_ctx"]
+    counts["ms_deform_attn"] = counts_deform["ms_deform_attn"]
     log(f"K7 launches on the train path: {counts_train['nf4_dequant_planar']}")
     if not all(counts.values()):
         raise RuntimeError(f"a kernel never launched on its main path: {counts}")
     if "--profile" in argv:   # last: an attached profiler slows every later launch
+        profile_xdecoder(focal_pipe, xdec_rows, device)
         profile_train(train_pipe, train_batch, device)
         profile_serving(run_serve)
         profile_path("greedy bf16-cache", run_greedy)

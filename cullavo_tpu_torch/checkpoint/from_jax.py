@@ -18,6 +18,13 @@ adapter tree and the trainable partition (``{"lora", "projector", "lm_head",
 (its ``ScaleByAdamState`` count/mu/nu, under ``MultiStepsState`` when
 gradients accumulate) to the port's ``{count, mu, nu}`` state, leaf for
 leaf.  Each has an inverse, so both packages can continue from one state.
+
+X-Decoder: ``xdecoder_params_from_numpy`` takes the JAX model tree (NHWC
+activations, HWIO convolution kernels, stacked depthwise ``(depth, k, k, 1,
+C)`` focal and dw kernels, SAM's ``HWOI`` transposed-convolution kernels)
+to the port's layouts (PyTorch's ``[out, in, k, k]``, ``[depth, C, 1, k,
+k]``, ``[in, out, 2, 2]`` spatially flipped); every other leaf keeps its
+layout.  ``xdecoder_params_to_numpy`` is the inverse (exact).
 """
 from __future__ import annotations
 
@@ -145,3 +152,40 @@ def decode_state_from_numpy(state: dict, device) -> dict:
     out["adapter_ids"] = (_leaf_to_torch(state["adapter_ids"], device) if "adapter_ids" in state
                           else torch.zeros_like(out["cur_pos"]))
     return out
+
+
+def _xdecoder_leaf(path: tuple, a: torch.Tensor, to_port: bool) -> torch.Tensor:
+    """One X-Decoder leaf between the JAX layout and the port's."""
+    name = path[-1]
+    if name == "kernel" and len(path) > 1 and path[-2] in ("up1", "up2"):
+        # transposed conv: JAX (kh, kw, out, in) applied unflipped over the
+        # dilated input == PyTorch's (in, out, kh, kw) flipped
+        return (a.permute(3, 2, 0, 1).flip(2, 3) if to_port
+                else a.flip(2, 3).permute(2, 3, 1, 0)).contiguous()
+    if name == "kernel" and a.dim() == 4:
+        return (a.permute(3, 2, 0, 1) if to_port else a.permute(2, 3, 1, 0)).contiguous()
+    if (name.startswith("focal") or name in ("dw1_w", "dw2_w")) and a.dim() == 5:
+        # stacked depthwise kernels: (depth, k, k, 1, C) <-> (depth, C, 1, k, k)
+        return (a.permute(0, 4, 3, 1, 2) if to_port else a.permute(0, 3, 4, 2, 1)).contiguous()
+    return a
+
+
+def _walk(node, path, fn):
+    if isinstance(node, dict):
+        return {k: _walk(v, path + (k,), fn) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_walk(v, path + (str(i),), fn) for i, v in enumerate(node)]
+    return fn(path, node)
+
+
+def xdecoder_params_from_numpy(tree: dict, device) -> dict:
+    """numpy X-Decoder parameter tree (JAX layout) -> the port's parameters
+    on ``device``."""
+    return _walk(tree, (), lambda path, a: _xdecoder_leaf(path, _leaf_to_torch(a, "cpu"),
+                                                          True).to(device))
+
+
+def xdecoder_params_to_numpy(params: dict) -> dict:
+    """The inverse of ``xdecoder_params_from_numpy``."""
+    return _walk(params, (), lambda path, t: _leaf_to_numpy(
+        _xdecoder_leaf(path, t.detach().cpu(), False)))

@@ -1,6 +1,8 @@
 """Entry points of the port (counterpart of ``cullavo_tpu/entry.py``): so
 far ``serve``, the continuous-batching engine over a JSONL request stream,
-and ``train`` in its smoke mode (one Q-LoRA step on synthetic records).
+``train`` in its smoke mode (one Q-LoRA step on synthetic records), and
+``evaluate`` for the X-Decoder workloads (model, weights and text
+tokenizer built from the config; the datasets come with the data slice).
 
 The entry points take the parsed config as a dict (the layout of
 ``configs/serve.yaml``) and run on the GPU unless the caller names another
@@ -10,6 +12,7 @@ later slices.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import sys
 import time
@@ -20,8 +23,11 @@ import torch
 from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
 from cullavo_tpu_torch.models.llava.config import tiny_llava_config
 from cullavo_tpu_torch.models.llava.lora import maybe_quantize_base
+from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
 from cullavo_tpu_torch.models.llava.modeling import GenerationConfig, init_llava_params
+from cullavo_tpu_torch.models.xdecoder.model import init_xdecoder_model_params
 from cullavo_tpu_torch.pipelines import cullavo_pipeline  # noqa: F401 (registration)
+from cullavo_tpu_torch.pipelines import xdecoder_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines.base import build_pipeline
 from cullavo_tpu_torch.serving import Request, ServingEngine
 from cullavo_tpu_torch.serving.io import request_from_row
@@ -171,7 +177,8 @@ def train(cfg: dict, device=None) -> dict:
     Q-LoRA train step (``CuLLaVOPipeline``) on synthetic records; returns
     (and prints) its metrics, ``loss_llm`` and ``grad_norm``."""
     if "xdecoder" in cfg.get("NAME", ""):
-        raise NotImplementedError("X-Decoder training waits for the X-Decoder slice")
+        raise NotImplementedError("X-Decoder training waits for the training part of the "
+                                  "X-Decoder slice")
     if cfg.get("RESUME_FROM"):
         raise NotImplementedError("RESUME_FROM (reference-layout checkpoints) waits for the "
                                   "training-loop slice")
@@ -192,3 +199,80 @@ def train(cfg: dict, device=None) -> dict:
     metrics = {k: float(v) for k, v in metrics.items()}
     print(metrics)
     return metrics
+
+
+def _dataset_names(cfg: dict) -> list:
+    names = (cfg.get("DATASETS") or {}).get("TEST")
+    if not names:
+        return []
+    return [names] if isinstance(names, str) else list(names)
+
+
+def _make_text_tokenize(cfg: dict, text_cfg):
+    """``tokenize(texts) -> (ids, mask)`` padded to the context length: the
+    deterministic md5 word hash of the smoke mode (a CLIP BPE tokenizer,
+    ``MODEL.TEXT.TOKENIZER``, waits for the checkpoint slice)."""
+    if ((cfg.get("MODEL") or {}).get("TEXT") or {}).get("TOKENIZER"):
+        raise NotImplementedError("MODEL.TEXT.TOKENIZER (the CLIP BPE tokenizer) waits for the "
+                                  "checkpoint slice; leave it unset for the hash tokenizer")
+    T, V = text_cfg.context_length, text_cfg.vocab_size
+
+    def _word_id(w: str) -> int:
+        # md5, not hash(): the same table in every process and run
+        h = int.from_bytes(hashlib.md5(w.encode()).digest()[:4], "little")
+        return 2 + h % (V - 3)
+
+    def tokenize(texts):
+        ids = np.zeros((len(texts), T), np.int32)
+        mask = np.zeros((len(texts), T), np.int32)
+        for i, t in enumerate(texts):
+            row = [1] + [_word_id(w) for w in t.lower().split()[: T - 2]]
+            ids[i, :len(row)] = row
+            ids[i, len(row)] = V - 1          # EOT = the argmax id (CLIP convention)
+            mask[i, :len(row) + 1] = 1
+        return ids, mask
+
+    return tokenize
+
+
+def _load_xdecoder_params(cfg: dict, model_cfg, device):
+    """Random weights from seed 0 (smoke mode); ``RESUME_FROM`` waits for
+    the checkpoint slice."""
+    if cfg.get("RESUME_FROM"):
+        raise NotImplementedError("RESUME_FROM (X-Decoder checkpoints) waits for the "
+                                  "checkpoint slice")
+    print("[entry] no RESUME_FROM: random weights (smoke mode)", file=sys.stderr)
+    return init_xdecoder_model_params(model_cfg, torch.Generator(device=device).manual_seed(0),
+                                      device)
+
+
+def _eval_xdecoder(cfg: dict, device) -> dict:
+    """The xdecoder workload: the model, its weights and the text tokenizer
+    from the config, then ``XDecoderPipeline`` per ``DATASETS.TEST`` entry."""
+    model_cfg = xdecoder_model_config_from(cfg)
+    _load_xdecoder_params(cfg, model_cfg, device)
+    _make_text_tokenize(cfg, model_cfg.text)
+    if _dataset_names(cfg):
+        raise NotImplementedError("DATASETS.TEST: the dataset registry and eval mappers wait "
+                                  "for the data slice")
+    return {}
+
+
+def evaluate(cfg: dict, device=None) -> dict:
+    """Eval workload by ``NAME``: ``xdecoder*`` runs here; step2-pre data
+    generation, ImageNet and the VL eval wait for their slices."""
+    device = _device(device)
+    name = cfg.get("NAME", "")
+    if "step2_pre" in name:
+        raise NotImplementedError("step2-pre data generation waits for the training-loop slice")
+    if "imagenet" in name:
+        raise NotImplementedError("ImageNet eval waits for the VL-zoo slice")
+    if "vl_test" in name or name == "vl":
+        raise NotImplementedError("the VL eval entry (vl_test) waits for a later slice")
+    if "xdecoder" not in name:
+        print(f"[entry] unknown eval workload {name!r} (expect one of xdecoder_test / "
+              "vl_test / imagenet_test / cullavo_step2_pre)", file=sys.stderr)
+        raise SystemExit(2)
+    results = _eval_xdecoder(cfg, device)
+    print(json.dumps(results, default=float))
+    return results

@@ -1,0 +1,342 @@
+"""GeneralizedXdecoder, eval part (counterpart of
+``cullavo_tpu/models/xdecoder/model.py``): backbone (FocalNet or SAM-ViT)
++ pixel decoder (FPN or deformable encoder) + X-Decoder + language encoder,
+the dense eval forward, and the semantic / panoptic / instance inferences.
+
+``forward_eval`` takes images ``[B, H, W, 3]`` as JAX does and runs the
+trunk channels-first in the parameters' dtype.  The per-pixel parts of the
+inferences (``semantic_inference_argmax``, ``panoptic_inference_device``,
+``instance_inference_device``) run on the tensors' device, so only compact
+maps and Q-sized vectors reach the host; ``panoptic_assemble_host`` and
+``unpack_mask_planes`` are their numpy tails.  Training (the set criterion,
+joint and VLP forwards), grounding, classification and retrieval eval, and
+the DaViT backbone wait for their slices and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from cullavo_tpu_torch.models.xdecoder.decoder import (XDecoderConfig, init_xdecoder_params,
+                                                       resize, xdecoder_forward)
+from cullavo_tpu_torch.models.xdecoder.deform_encoder import (DeformEncoderConfig,
+                                                              deform_encoder_forward,
+                                                              init_deform_encoder_params)
+from cullavo_tpu_torch.models.xdecoder.focalnet import (FocalNetConfig, focalnet_forward,
+                                                        init_focalnet_params)
+from cullavo_tpu_torch.models.xdecoder.fpn import FPNConfig, fpn_forward, init_fpn_params
+from cullavo_tpu_torch.models.xdecoder.sam_vit import (SamVitConfig, init_sam_vit_params,
+                                                       sam_vit_forward)
+from cullavo_tpu_torch.models.xdecoder.text_encoder import (TextEncoderConfig,
+                                                            init_text_encoder_params)
+
+PIXEL_MEAN = (123.675, 116.28, 103.53)
+PIXEL_STD = (58.395, 57.12, 57.375)
+
+
+@dataclasses.dataclass(frozen=True)
+class CriterionConfig:
+    """The set criterion's settings (the field of the model config; the
+    criterion itself waits for the X-Decoder training slice)."""
+    num_classes: int = 133
+    eos_coef: float = 0.1
+    num_points: int = 12544
+    oversample_ratio: float = 3.0
+    importance_sample_ratio: float = 0.75
+    cost_class: float = 2.0
+    cost_mask: float = 5.0
+    cost_dice: float = 5.0
+    weight_ce: float = 2.0
+    weight_mask: float = 5.0
+    weight_dice: float = 5.0
+    weight_bbox: float = 5.0
+    weight_giou: float = 2.0
+    weight_caption: float = 1.0
+    weight_captioning: float = 2.0
+    weight_retrieval_decoder: float = 2.0
+    weight_retrieval_backbone: float = 8.0
+    weight_grounding_ce: float = 0.4
+    weight_grounding_bce: float = 1.0
+    weight_grounding_dice: float = 1.0
+    top_x_layers_mask: int = 10
+    top_x_layers_class: int = 10
+    top_x_layers_box: int = 10
+    top_x_layers_caption: int = 3
+    top_x_layers_captioning: int = 3
+    top_x_layers_retrieval: int = 3
+    top_x_layers_grounding: int = 3
+
+
+@dataclasses.dataclass(frozen=True)
+class XDecoderModelConfig:
+    # ``backbone`` matches ``backbone_name`` (FocalNetConfig | SamVitConfig);
+    # ``fpn`` matches ``encoder_name`` (FPNConfig | DeformEncoderConfig)
+    backbone: object = dataclasses.field(default_factory=FocalNetConfig)
+    fpn: object = dataclasses.field(default_factory=FPNConfig)
+    decoder: XDecoderConfig = dataclasses.field(default_factory=XDecoderConfig)
+    text: TextEncoderConfig = dataclasses.field(default_factory=TextEncoderConfig)
+    criterion: CriterionConfig = dataclasses.field(default_factory=CriterionConfig)
+    num_classes: int = 133
+    object_mask_threshold: float = 0.8
+    overlap_threshold: float = 0.8
+    test_topk_per_image: int = 100
+    backbone_name: str = "focal"
+    encoder_name: str = "transformer_encoder_fpn"
+
+
+_DAVIT = "the DaViT backbone waits for a later part of the X-Decoder slice"
+
+
+def _backbone_apply(params, cfg: XDecoderModelConfig, images):
+    if cfg.backbone_name in ("focal", "focal_dw"):
+        return focalnet_forward(params, cfg.backbone, images)
+    if cfg.backbone_name == "vit":
+        return sam_vit_forward(params, cfg.backbone, images)
+    if cfg.backbone_name == "davit":
+        raise NotImplementedError(_DAVIT)
+    raise KeyError(f"backbone {cfg.backbone_name!r}")
+
+
+def _encoder_apply(params, cfg: XDecoderModelConfig, feats):
+    if cfg.encoder_name == "transformer_encoder_fpn":
+        return fpn_forward(params, cfg.fpn, feats)
+    if cfg.encoder_name == "transformer_encoder_deform":
+        return deform_encoder_forward(params, cfg.fpn, feats)
+    raise KeyError(f"encoder {cfg.encoder_name!r}")
+
+
+def _backbone_last_channels(cfg: XDecoderModelConfig) -> int:
+    bb = cfg.backbone
+    if isinstance(bb, FocalNetConfig):
+        return bb.num_features[-1]
+    if isinstance(bb, SamVitConfig):
+        return bb.out_dims[-1]
+    raise NotImplementedError(_DAVIT)
+
+
+def tiny_xdecoder_config() -> XDecoderModelConfig:
+    return XDecoderModelConfig(
+        backbone=FocalNetConfig(embed_dim=16, depths=(1, 1, 1, 1), focal_levels=(2, 2, 2, 2),
+                                focal_windows=(3, 3, 3, 3)),
+        fpn=FPNConfig(in_channels=(16, 32, 64, 128), conv_dim=64, mask_dim=32, gn_groups=8,
+                      enc_layers=2, enc_heads=4, enc_ffn=128),
+        decoder=XDecoderConfig(hidden_dim=64, num_queries=9, nheads=4, dim_feedforward=128,
+                               dec_layers=3, mask_dim=32, dim_proj=64, contxt_len=8,
+                               in_channels=64),
+        text=TextEncoderConfig(vocab_size=64, width=32, heads=4, layers=2, context_length=8,
+                               dim_lang=64),
+        criterion=CriterionConfig(num_classes=6, num_points=256),
+        num_classes=6,
+    )
+
+
+def init_xdecoder_model_params(cfg: XDecoderModelConfig, gen: torch.Generator, device,
+                               dtype=torch.float32) -> dict:
+    """Random parameters from ``gen`` on ``device`` (the port's layouts)."""
+    if cfg.backbone_name in ("focal", "focal_dw"):
+        backbone = init_focalnet_params(cfg.backbone, gen, device, dtype)
+    elif cfg.backbone_name == "vit":
+        backbone = init_sam_vit_params(cfg.backbone, gen, device, dtype)
+    else:
+        raise NotImplementedError(_DAVIT)
+    if cfg.encoder_name == "transformer_encoder_fpn":
+        fpn = init_fpn_params(cfg.fpn, gen, device, dtype)
+    else:
+        fpn = init_deform_encoder_params(cfg.fpn, gen, device, dtype)
+    return {
+        "backbone": backbone, "fpn": fpn,
+        "decoder": init_xdecoder_params(cfg.decoder, gen, device, dtype),
+        "text": init_text_encoder_params(cfg.text, gen, device, dtype),
+        # res5 -> language space, for the backbone-ensemble retrieval (not run by eval)
+        "backbone_proj": (torch.randn((_backbone_last_channels(cfg), cfg.text.dim_lang),
+                                      generator=gen, device=device) * 0.02).to(dtype),
+    }
+
+
+def normalize_images(images_uint8_nhwc: torch.Tensor) -> torch.Tensor:
+    mean = torch.tensor(PIXEL_MEAN, dtype=torch.float32, device=images_uint8_nhwc.device)
+    std = torch.tensor(PIXEL_STD, dtype=torch.float32, device=images_uint8_nhwc.device)
+    return (images_uint8_nhwc.float() - mean) / std
+
+
+def _param_dtype(params):
+    return params["decoder"]["query_feat"].dtype
+
+
+def backbone_and_pixel_decoder(params, cfg: XDecoderModelConfig, images):
+    """images [B, H, W, 3] -> (mask_features [B, mask_dim, H/4, W/4], the
+    pyramid [res5', res4', res3'] channels-first)."""
+    x = images.permute(0, 3, 1, 2).to(_param_dtype(params))
+    feats = _backbone_apply(params["backbone"], cfg, x)
+    mask_features, _, pyramid = _encoder_apply(params["fpn"], cfg, feats)
+    return mask_features, pyramid
+
+
+def forward_eval(params, cfg: XDecoderModelConfig, images, text_class_embeds,
+                 out_size: Optional[tuple] = None):
+    """Dense eval forward: (class logits [B, Q, C+1], mask logits [B, Q, h, w]
+    resized to ``out_size`` (bicubic) when given, boxes [B, Q, 4])."""
+    mask_features, pyramid = backbone_and_pixel_decoder(params, cfg, images)
+    out = xdecoder_forward(params["decoder"], cfg.decoder, pyramid, mask_features,
+                           text_class_embeds=text_class_embeds,
+                           logit_scale=params["text"]["logit_scale"], task="eval")
+    mask_pred = out["pred_masks"]
+    if out_size is not None:
+        mask_pred = resize(mask_pred, out_size, "bicubic")
+    return out["pred_logits"], mask_pred, out["pred_boxes"]
+
+
+def semantic_inference(mask_cls, mask_pred, keep_background=False):
+    """[Q, C+1], [Q, H, W] -> [C, H, W]."""
+    probs = torch.softmax(mask_cls, dim=-1)
+    if not keep_background:
+        probs = probs[..., :-1]
+    return torch.einsum("qc,qhw->chw", probs, torch.sigmoid(mask_pred))
+
+
+def semantic_inference_argmax(mask_cls, mask_pred, keep_background=False):
+    """``argmax_c semantic_inference(...)`` -> [H, W] int32, as one
+    [C, Q] @ [Q, H*W] product in f32."""
+    Q, H, W = mask_pred.shape
+    probs = torch.softmax(mask_cls.float(), dim=-1)
+    if not keep_background:
+        probs = probs[..., :-1]
+    m = torch.sigmoid(mask_pred.float()).reshape(Q, H * W)
+    scores = probs.t() @ m
+    return torch.argmax(scores, dim=0).to(torch.int32).reshape(H, W)
+
+
+def _valid_map(H, W, valid_hw, device):
+    if valid_hw is None:
+        return torch.ones((H, W), dtype=torch.bool, device=device)
+    hw = torch.as_tensor(valid_hw, device=device)
+    return ((torch.arange(H, device=device)[:, None] < hw[0])
+            & (torch.arange(W, device=device)[None, :] < hw[1]))
+
+
+def instance_inference(mask_cls, mask_pred, num_classes: int, topk: int, thing_mask=None):
+    """Top-k (query, class) detections: binary masks [K, H, W], scores [K],
+    classes [K]."""
+    Q = mask_cls.shape[0]
+    flat = torch.softmax(mask_cls, dim=-1)[:, :-1].reshape(-1)
+    if thing_mask is not None:
+        flat = flat * thing_mask.to(flat.dtype).repeat(Q)
+    top_scores, top_idx = torch.topk(flat, min(topk, flat.shape[0]))
+    masks = mask_pred[top_idx // num_classes]
+    binary = (masks > 0).to(torch.float32)
+    mask_score = (torch.sigmoid(masks) * binary).sum(dim=(1, 2)) / (binary.sum(dim=(1, 2)) + 1e-6)
+    return {"masks": binary, "scores": top_scores * mask_score,
+            "classes": top_idx % num_classes}
+
+
+def panoptic_inference_device(mask_cls, mask_pred, object_mask_threshold=0.8, valid_hw=None):
+    """The per-pixel part of the stuff-merge panoptic assembly: the winner
+    query map, whether the winner's own sigmoid is >= 0.5, per-query counts
+    (restricted to ``valid_hw``) and the kept queries' scores and labels."""
+    Q, H, W = mask_pred.shape
+    C = mask_cls.shape[-1] - 1
+    probs = torch.softmax(mask_cls.float(), dim=-1)
+    scores = probs.amax(dim=-1)
+    labels = torch.argmax(probs, dim=-1)
+    keep = (labels != C) & (scores > object_mask_threshold)
+    sig = torch.sigmoid(mask_pred.float()).reshape(Q, H * W)
+    prob_masks = torch.where(keep[:, None], scores[:, None] * sig, torch.full_like(sig, -1.0))
+    mask_ids = torch.argmax(prob_masks, dim=0)
+    winner_sig = torch.gather(sig, 0, mask_ids[None])[0]
+    valid = _valid_map(H, W, valid_hw, mask_pred.device).reshape(H * W)
+    winner_ok = (winner_sig >= 0.5) & valid
+    mask_area = torch.zeros((Q,), dtype=torch.int32, device=mask_pred.device).scatter_add_(
+        0, mask_ids, winner_ok.to(torch.int32))
+    original_area = ((sig >= 0.5) & valid[None]).sum(dim=1).to(torch.int32)
+    return {"mask_ids": mask_ids.reshape(H, W).to(torch.int32),
+            "winner_ok": winner_ok.reshape(H, W), "mask_area": mask_area,
+            "original_area": original_area, "scores": scores,
+            "labels": labels.to(torch.int32), "keep": keep}
+
+
+def panoptic_assemble_host(dev: dict, thing_ids, overlap_threshold=0.8):
+    """The host tail: the sequential seg-id / stuff-merge / overlap-filter
+    loop over Q scalars, then one lookup over the winner map."""
+    mask_ids = np.asarray(dev["mask_ids"], np.int64)
+    winner_ok = np.asarray(dev["winner_ok"], bool)
+    mask_area = np.asarray(dev["mask_area"])
+    original_area = np.asarray(dev["original_area"])
+    labels = np.asarray(dev["labels"])
+    keep = np.asarray(dev["keep"], bool)
+    lut = np.zeros((mask_area.shape[0],), np.int32)
+    segments: list = []
+    seg_id = 0
+    stuff_memory: dict = {}
+    for k in np.nonzero(keep)[0]:
+        cls = int(labels[k])
+        isthing = cls in thing_ids
+        ma, oa = int(mask_area[k]), int(original_area[k])
+        if ma > 0 and oa > 0:
+            if ma / oa < overlap_threshold:
+                continue
+            if not isthing and cls in stuff_memory:
+                lut[k] = stuff_memory[cls]
+                continue
+            seg_id += 1
+            if not isthing:
+                stuff_memory[cls] = seg_id
+            lut[k] = seg_id
+            segments.append({"id": seg_id, "isthing": isthing, "category_id": cls})
+    return (lut[mask_ids] * winner_ok).astype(np.int32), segments
+
+
+def instance_inference_device(mask_cls, mask_pred, num_classes: int, topk: int,
+                              thing_mask=None, valid_hw=None):
+    """``instance_inference`` with compact outputs: the top-k binary masks
+    bit-packed into int32 planes [ceil(K/32), H, W]; the mask scores count
+    only the ``valid_hw`` region."""
+    Q = mask_cls.shape[0]
+    H, W = mask_pred.shape[-2:]
+    flat = torch.softmax(mask_cls.float(), dim=-1)[:, :-1].reshape(-1)
+    if thing_mask is not None:
+        flat = flat * thing_mask.to(flat.dtype).repeat(Q)
+    K = min(topk, flat.shape[0])
+    top_scores, top_idx = torch.topk(flat, K)
+    masks = mask_pred[top_idx // num_classes]
+    binary = (masks > 0) & _valid_map(H, W, valid_hw, mask_pred.device)[None]
+    binf = binary.to(torch.float32)
+    mask_score = (torch.sigmoid(masks.float()) * binf).sum(dim=(1, 2)) / (binf.sum(dim=(1, 2))
+                                                                          + 1e-6)
+    n_planes = -(-K // 32)
+    bits = torch.zeros((n_planes * 32, H, W), dtype=torch.int32, device=mask_pred.device)
+    bits[:K] = binary.to(torch.int32)
+    shifts = torch.bitwise_left_shift(
+        torch.ones((32,), dtype=torch.int32, device=mask_pred.device),
+        torch.arange(32, dtype=torch.int32, device=mask_pred.device))
+    planes = (bits.reshape(n_planes, 32, H, W) * shifts[None, :, None, None]).sum(
+        dim=1).to(torch.int32)
+    return {"mask_planes": planes, "scores": top_scores * mask_score,
+            "classes": (top_idx % num_classes).to(torch.int32)}
+
+
+def unpack_mask_planes(planes, k: int) -> np.ndarray:
+    """[ceil(K/32), H, W] int32 bit planes -> [K, H, W] bool."""
+    planes = np.asarray(planes)
+    _, H, W = planes.shape
+    out = np.zeros((k, H, W), bool)
+    for i in range(k):
+        out[i] = (planes[i // 32] >> (i % 32)) & 1
+    return out
+
+
+def _waits(what):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(f"{what} waits for a later part of the X-Decoder slice")
+    fn.__name__ = what
+    return fn
+
+
+forward_seg_train = _waits("forward_seg_train")
+forward_joint_train = _waits("forward_joint_train")
+forward_vlp_train = _waits("forward_vlp_train")
+evaluate_grounding = _waits("evaluate_grounding")
+evaluate_classification = _waits("evaluate_classification")
+evaluate_retrieval_embedding = _waits("evaluate_retrieval_embedding")

@@ -1,0 +1,144 @@
+"""X-Decoder language encoder (counterpart of
+``cullavo_tpu/models/xdecoder/text_encoder.py``): the CLIP-style causal text
+transformer (learned positions, pre-LN blocks with QuickGELU, final LN,
+TF-style LayerNorm eps 1e-12), the sentence embedding at the argmax-id
+(end-of-text) position through ``lang_proj``, and the eval-time class
+embeddings averaged over the prompt-template ensemble.
+
+Parameters keep the JAX layout: stacked ``[L, ...]`` layer leaves, linear
+weights ``[in, out]``.  The training half (``class_embeddings_train``) and
+the HF CLIP import wait for their slices and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from cullavo_tpu_torch.models.llava.clip_vit import layer_norm, quick_gelu
+from cullavo_tpu_torch.models.xdecoder.decoder import l2_normalize
+from cullavo_tpu_torch.utils.constants import get_prompt_templates
+
+NEG_INF = -1e30
+CLASS_CHUNK = 16   # classes per forward of the eval-time embeddings (x ~81 templates)
+
+
+@dataclasses.dataclass(frozen=True)
+class TextEncoderConfig:
+    vocab_size: int = 49408       # CLIP BPE
+    width: int = 512
+    heads: int = 8
+    layers: int = 12
+    context_length: int = 77
+    autoregressive: bool = True
+    layer_norm_eps: float = 1e-12  # the reference's TF-style LayerNorm
+    dim_lang: int = 512           # projection output
+
+
+def init_text_encoder_params(cfg: TextEncoderConfig, gen: torch.Generator, device,
+                             dtype=torch.float32) -> dict:
+    W, L = cfg.width, cfg.layers
+
+    def dense(*shape):
+        return (torch.randn(shape, generator=gen, device=device) * 0.02).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {
+        "token_embedding": dense(cfg.vocab_size, W),
+        "positional_embedding": dense(cfg.context_length, W),
+        "layers": {
+            "ln1_s": ones(L, W), "ln1_b": zeros(L, W),
+            "qkv_w": dense(L, W, 3 * W), "qkv_b": zeros(L, 3 * W),
+            "o_w": dense(L, W, W), "o_b": zeros(L, W),
+            "ln2_s": ones(L, W), "ln2_b": zeros(L, W),
+            "fc_w": dense(L, W, 4 * W), "fc_b": zeros(L, 4 * W),
+            "proj_w": dense(L, 4 * W, W), "proj_b": zeros(L, W),
+        },
+        "ln_final": {"scale": ones(W), "bias": zeros(W)},
+        "lang_proj": dense(W, cfg.dim_lang),
+        "logit_scale": zeros(),   # exp(0) = 1; a loaded checkpoint sets it
+    }
+
+
+def text_transformer_forward(params, cfg: TextEncoderConfig, input_ids, attention_mask):
+    """[B, T] ids -> last hidden state [B, T, W]."""
+    B, T = input_ids.shape
+    W, H = cfg.width, cfg.heads
+    hd = W // H
+    eps = cfg.layer_norm_eps
+    dev = params["token_embedding"].device
+    input_ids = input_ids.to(dev).long()
+    x = params["token_embedding"][input_ids] + params["positional_embedding"][None, :T]
+    if cfg.autoregressive:
+        # the reference applies only the causal mask here: padded keys stay
+        # visible (the EOT row and those before it are unaffected)
+        ok = torch.tril(torch.ones((T, T), dtype=torch.bool, device=dev))[None, None]
+    else:
+        ok = (attention_mask.to(dev) != 0)[:, None, None, :]
+    bias = torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+    lw = params["layers"]
+    for i in range(lw["qkv_w"].shape[0]):
+        w = {k: v[i] for k, v in lw.items()}
+        y = layer_norm(x, w["ln1_s"], w["ln1_b"], eps)
+        q, k, v = (y @ w["qkv_w"] + w["qkv_b"]).split(W, dim=-1)
+        q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2) for t in (q, k, v))
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (hd ** -0.5)
+        p = torch.softmax(s + bias, dim=-1).to(x.dtype)
+        a = torch.matmul(p.float(), v.float()).to(x.dtype)
+        x = x + (a.transpose(1, 2).reshape(B, T, W) @ w["o_w"] + w["o_b"])
+        y = layer_norm(x, w["ln2_s"], w["ln2_b"], eps)
+        x = x + (quick_gelu(y @ w["fc_w"] + w["fc_b"]) @ w["proj_w"] + w["proj_b"])
+    return layer_norm(x, params["ln_final"]["scale"], params["ln_final"]["bias"], eps)
+
+
+def forward_language(params, cfg, input_ids, attention_mask, norm=True):
+    """Sentence embeddings [B, dim_lang] at the argmax-id (EOT) position."""
+    hidden = text_transformer_forward(params, cfg, input_ids, attention_mask)
+    eot = torch.argmax(input_ids.to(hidden.device).long(), dim=-1)
+    cls = hidden[torch.arange(hidden.shape[0], device=hidden.device), eot]
+    cls = cls @ params["lang_proj"]
+    return l2_normalize(cls) if norm else cls
+
+
+def _clean(name: str) -> str:
+    return name.replace("-other", "").replace("-merged", "").replace("-stuff", "")
+
+
+def class_embeddings_ensembled(params, cfg, tokenize: Callable, class_names: Sequence[str],
+                               add_background: bool = False):
+    """Eval-time class embeddings: the mean over the prompt-template
+    ensemble per class, renormalized.  ``tokenize(texts) -> (ids [N, T],
+    mask [N, T])`` numpy arrays.  The classes are encoded ``CLASS_CHUNK``
+    at a time (one forward over all their templates' sentences)."""
+    templates = get_prompt_templates()
+    names = list(class_names) + (["A background in coco."] if add_background else [])
+    groups = [[name] if name == "A background in coco."
+              else [t.format(_clean(name)) for t in templates] for name in names]
+    dev = params["token_embedding"].device
+    out = []
+    for i in range(0, len(groups), CLASS_CHUNK):
+        part = groups[i:i + CLASS_CHUNK]
+        ids, mask = tokenize([t for g in part for t in g])
+        emb = forward_language(params, cfg, torch.as_tensor(np.asarray(ids), device=dev),
+                               torch.as_tensor(np.asarray(mask), device=dev), norm=True)
+        start = 0
+        for g in part:
+            mean = emb[start:start + len(g)].mean(dim=0)
+            out.append(mean / (torch.linalg.vector_norm(mean) + 1e-7))
+            start += len(g)
+    return torch.stack(out)
+
+
+def class_embeddings_train(*args, **kwargs):
+    raise NotImplementedError("class_embeddings_train waits for the X-Decoder training slice")
+
+
+def import_hf_clip_text(*args, **kwargs):
+    raise NotImplementedError("import_hf_clip_text waits for the checkpoint slice")

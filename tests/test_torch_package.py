@@ -34,6 +34,8 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.ops.nf4",
     "cullavo_tpu_torch.ops.flash_attention",
     "cullavo_tpu_torch.ops.wwin_decode",
+    "cullavo_tpu_torch.ops.msdeform",
+    "cullavo_tpu_torch.ops.focal",
     "cullavo_tpu_torch.data.evaluation.vqa_eval",
     "cullavo_tpu_torch.models.llava.config",
     "cullavo_tpu_torch.models.llava.llama",
@@ -57,6 +59,16 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.data.step1_synthesis",
     "cullavo_tpu_torch.data.image_processing",
     "cullavo_tpu_torch.scripts.attn_probe",
+    "cullavo_tpu_torch.data.evaluation.evaluators",
+    "cullavo_tpu_torch.models.from_config",
+    "cullavo_tpu_torch.models.xdecoder.text_encoder",
+    "cullavo_tpu_torch.models.xdecoder.focalnet",
+    "cullavo_tpu_torch.models.xdecoder.fpn",
+    "cullavo_tpu_torch.models.xdecoder.sam_vit",
+    "cullavo_tpu_torch.models.xdecoder.deform_encoder",
+    "cullavo_tpu_torch.models.xdecoder.decoder",
+    "cullavo_tpu_torch.models.xdecoder.model",
+    "cullavo_tpu_torch.pipelines.xdecoder_pipeline",
 )
 
 
@@ -169,12 +181,13 @@ def test_chip_smoke_fails_without_cuda_before_building():
 
 def test_kernel_counters_stay_zero_on_cpu_tensors():
     from cullavo_tpu_torch.ops import flash_attention as fa
-    from cullavo_tpu_torch.ops import nf4
+    from cullavo_tpu_torch.ops import focal, msdeform, nf4
     from cullavo_tpu_torch.ops import wwin_decode as ww
 
     wrappers = (fa.flash_attention, fa.flash_lse, fa.flash_rows, nf4.quantize_rows,
                 nf4.int8_linear, ww.wwin_decode_smajor, ww.wwin_decode_smajor_q8,
-                nf4.nf4_linear_planar, nf4.nf4_dequant_planar)
+                nf4.nf4_linear_planar, nf4.nf4_dequant_planar,
+                msdeform.ms_deform_attn_kernel, focal.focal_ctx_kernel)
     before = [w.launches for w in wrappers]
     x = torch.randn(1, 2, 5, 8)
     fa.flash_attention(x, x, x)
@@ -196,6 +209,10 @@ def test_kernel_counters_stay_zero_on_cpu_tensors():
     nf4.nf4_linear_planar_auto(torch.randn(600, 16), q4)
     xq = torch.randn(600, 16, requires_grad=True)
     nf4.nf4_linear_planar_vjp(xq, q4).sum().backward()
+    msdeform.ms_deform_attn_kernel(torch.randn(1, 20, 2, 32), ((4, 5),),
+                                   torch.rand(1, 3, 2, 1, 4, 2), torch.rand(1, 3, 2, 1, 4))
+    focal.focal_ctx_kernel(torch.randn(1, 4, 30), torch.randn(1, 3, 30),
+                           torch.randn(4, 9 + 25), 5, 6, (3, 5), True, True)
     assert [w.launches for w in wrappers] == before
 
 
@@ -245,14 +262,23 @@ def test_flash_attention_takes_the_plain_version_only_for_cpu_tensors():
 
 
 def test_port_has_no_library_stand_ins_for_its_kernels():
-    """No fused-attention library call, torch.compile, CPU fallback after a
-    failed launch, or import of JAX anywhere in the port's sources."""
-    banned = (r"scaled_dot_product_attention", r"torch\.compile", r"^\s*import jax",
-              r"^\s*from jax", r"^\s*try\s*:")
+    """No fused-attention or grid-sampling library call, torch.compile, CPU
+    fallback after a failed launch, or import of JAX anywhere in the port's
+    sources; the CUDA routes of K9 and K10 hold no gather and no
+    (depthwise) convolution."""
+    banned = (r"scaled_dot_product_attention", r"grid_sample\s*\(", r"torch\.compile",
+              r"^\s*import jax", r"^\s*from jax", r"^\s*try\s*:")
     for path in sorted(PORT.rglob("*.py")):
         text = path.read_text()
         for pat in banned:
             assert not re.search(pat, text, re.M), f"{path.name}: {pat}"
+    for name, start, end in (("msdeform.py", "def _ms_deform_attn_cuda",
+                              "def msdeform_attn_module_forward"),
+                             ("focal.py", "def _focal_ctx_cuda", None)):
+        src = (PORT / "ops" / name).read_text()
+        cuda_half = src[src.index(start):src.index(end) if end else None]
+        for word in ("conv2d", "conv(", "gather", "_plain(", "ms_deform_attn(", "einsum", "@"):
+            assert word not in cuda_half, (name, word)
 
 
 # ---------------------------------------------------------------------------
@@ -581,3 +607,78 @@ def test_cuda_flash_attention_refuses_what_the_kernels_do_not_take(cuda_device):
         fa.flash_attention(q, k, v, kv_valid=valid[:, :8])
     with pytest.raises(ValueError, match="integer or boolean"):
         fa.flash_attention(q, k, v, q_positions=pos.float())
+
+
+def _msdeform_case(dev, dtype, shapes, B, Q, Hh, hd, P, seed):
+    """Value, locations (about a tenth outside [0, 1]) and softmaxed weights."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    S = sum(h * w for h, w in shapes)
+    L = len(shapes)
+    value = torch.randn((B, S, Hh, hd), generator=g, device=dev).to(dtype)
+    loc = torch.rand((B, Q, Hh, L, P, 2), generator=g, device=dev) * 1.2 - 0.1
+    att = torch.softmax(torch.randn((B, Q, Hh, L * P), generator=g, device=dev), -1)
+    return value, loc, att.reshape(B, Q, Hh, L, P)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes,Q,Hh,hd,P", [
+    (((64, 64), (32, 32), (16, 16)), 5376, 8, 64, 4),       # the deform encoder at 512^2
+    (((40, 48), (20, 24), (10, 12)), 3001, 8, 64, 4),       # non-square, Q ragged
+    (((9, 13), (5, 7)), 77, 2, 32, 3), (((6, 4),), 50, 1, 128, 2)])
+def test_cuda_ms_deform_attn_matches_plain(cuda_device, dtype, shapes, Q, Hh, hd, P):
+    """K9 against the plain version: within 1e-5 in f32 (sums in another
+    order), within 1e-2 + 1e-2 |ref| in bf16 (one rounding of the output)."""
+    from cullavo_tpu_torch.ops import msdeform
+
+    value, loc, att = _msdeform_case(cuda_device, dtype, shapes, 2, Q, Hh, hd, P, seed=13)
+    n0 = msdeform.ms_deform_attn_kernel.launches
+    got = msdeform.ms_deform_attn_kernel(value, shapes, loc, att)
+    assert msdeform.ms_deform_attn_kernel.launches == n0 + 1
+    ref = msdeform.ms_deform_attn(value, shapes, loc, att)
+    assert got.dtype == dtype and got.shape == ref.shape
+    tol = (1e-5, 0.0) if dtype == torch.float32 else (1e-2, 1e-2)
+    assert torch.allclose(got.float(), ref.float(), atol=tol[0], rtol=tol[1]), \
+        (got.float() - ref.float()).abs().max().item()
+
+
+def _focal_case(dev, dtype, B, C, H, W, kernels, seed, strided):
+    """ctx and gates as slices of one projection output [B, 2C + L + 1, HW]
+    (the layout focal_modulation hands over), or contiguous."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    L = len(kernels)
+    fx = torch.randn((B, 2 * C + L + 1, H * W), generator=g, device=dev).to(dtype)
+    # taps of std 0.6 / k: every level's output stays of order one
+    taps = torch.cat([torch.randn((C, k * k), generator=g, device=dev) * (0.6 / k)
+                      for k in kernels], dim=1)
+    if strided:
+        return fx[:, C:2 * C], fx[:, 2 * C:], taps
+    return fx[:, C:2 * C].contiguous(), fx[:, 2 * C:].contiguous(), taps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("approximate", [True, False])
+@pytest.mark.parametrize("B,C,H,W,kernels,strided", [
+    (2, 192, 128, 128, (3, 5, 7, 9), True), (2, 1536, 16, 16, (3, 5, 7, 9), True),
+    (1, 96, 100, 75, (3, 5, 7), False), (3, 8, 5, 3, (3, 5, 7, 9), False),
+    (1, 16, 70, 130, (3, 5, 7, 9, 11, 13, 15, 17), False), (1, 4, 33, 17, (1,), False)])
+def test_cuda_focal_ctx_matches_plain(cuda_device, dtype, approximate, B, C, H, W, kernels,
+                                      strided):
+    """K10 against the plain version (cuDNN's depthwise conv in f32): within
+    1e-5 + 1e-5 |ref| in f32 (the chain sums in another order than cuDNN),
+    1e-2 + 1e-2 |ref| in bf16; any map size (tiles of 64, a map smaller than
+    the widest kernel), any level count."""
+    from cullavo_tpu_torch.ops import focal
+
+    torch.backends.cudnn.allow_tf32 = False
+    ctx, gates, taps = _focal_case(cuda_device, dtype, B, C, H, W, kernels, 14, strided)
+    for scaling in (True, False):
+        n0 = focal.focal_ctx_kernel.launches
+        got = focal.focal_ctx_kernel(ctx, gates, taps, H, W, kernels, scaling, approximate)
+        assert focal.focal_ctx_kernel.launches == n0 + 1
+        ref = focal.focal_ctx_plain(ctx, gates, taps, H, W, kernels, scaling, approximate)
+        assert got.dtype == dtype and got.shape == ref.shape
+        tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-2, 1e-2)
+        assert torch.allclose(got.float(), ref.float(), atol=tol[0], rtol=tol[1]), \
+            (got.float() - ref.float()).abs().max().item()

@@ -1,0 +1,178 @@
+"""The X-Decoder's two kernel ops of the torch port against the JAX package.
+
+``ms_deform_attn`` (the plain version of K9) against JAX's XLA gather, its
+Pallas kernel (interpret mode on the CPU, as ``tests/test_ops.py`` runs it)
+and its python oracle; ``focal_ctx_plain`` (the plain version of K10)
+against JAX's Pallas ``fused_focal_ctx`` (tanh GELU) and against the
+FocalNet model's own XLA chain (erf GELU at f32).  Inputs come from a numpy
+seed, f32, small non-square shapes, 2-4 levels, sampling points outside the
+maps; atol 1e-5.  The kernels themselves are held against these plain
+versions on a card in ``tests/test_torch_package.py`` (marked ``cuda``).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from cullavo_tpu.models.xdecoder.focalnet import _depthwise_conv
+from cullavo_tpu.ops import msdeform as jms
+from cullavo_tpu.ops.focal_pallas import fused_focal_ctx
+from cullavo_tpu.ops.focal_pallas import pack_level_weights as jpack
+from cullavo_tpu.ops.msdeform_pallas import ms_deform_attn_pallas
+from cullavo_tpu_torch.ops import focal as tfocal
+from cullavo_tpu_torch.ops import msdeform as tms
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Tier-1 runs 6 xdist workers: 2 torch threads in this file, and the
+    worker's own setting back for the files that follow."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+MSDEFORM_CASES = [
+    # (levels, Q, Hh, hd, P): non-square levels, Q not a multiple of 128
+    (((6, 10), (3, 5)), 37, 2, 32, 4),
+    (((8, 6), (4, 3), (2, 2)), 150, 4, 32, 4),
+    (((7, 9), (4, 5), (2, 3), (1, 2)), 20, 2, 64, 3),
+]
+
+
+def _msdeform_inputs(shapes, Q, Hh, hd, P, seed):
+    rng = np.random.default_rng(seed)
+    L = len(shapes)
+    S = sum(h * w for h, w in shapes)
+    B = 2
+    value = rng.normal(size=(B, S, Hh, hd)).astype(np.float32)
+    # about a tenth of the points fall outside [0, 1]
+    loc = rng.uniform(-0.1, 1.1, (B, Q, Hh, L, P, 2)).astype(np.float32)
+    att = rng.random((B, Q, Hh, L, P)).astype(np.float32)
+    att = att / att.sum(axis=(3, 4), keepdims=True)
+    return value, loc, att
+
+
+@pytest.mark.parametrize("shapes,Q,Hh,hd,P", MSDEFORM_CASES)
+def test_ms_deform_attn_plain_matches_jax(shapes, Q, Hh, hd, P):
+    value, loc, att = _msdeform_inputs(shapes, Q, Hh, hd, P, seed=len(shapes))
+    got = tms.ms_deform_attn(torch.from_numpy(value), shapes, torch.from_numpy(loc),
+                             torch.from_numpy(att)).numpy()
+    xla = jms.ms_deform_attn(jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(att))
+    pallas = ms_deform_attn_pallas(jnp.asarray(value), tuple(shapes), jnp.asarray(loc),
+                                   jnp.asarray(att))
+    np.testing.assert_allclose(got, np.asarray(xla), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=1e-5, rtol=0)
+    if len(shapes) == 2:   # the python oracle is slow: one case
+        oracle = jms.ms_deform_attn_reference(value, shapes, loc, att)
+        np.testing.assert_allclose(got, oracle, atol=1e-5, rtol=0)
+
+
+def test_ms_deform_attn_kernel_wrapper_takes_the_plain_version_on_cpu():
+    shapes, Q, Hh, hd, P = MSDEFORM_CASES[0]
+    value, loc, att = (torch.from_numpy(a) for a in _msdeform_inputs(shapes, Q, Hh, hd, P, 0))
+    n0 = tms.ms_deform_attn_kernel.launches
+    got = tms.ms_deform_attn_kernel(value, shapes, loc, att)
+    assert tms.ms_deform_attn_kernel.launches == n0
+    assert torch.equal(got, tms.ms_deform_attn(value, shapes, loc, att))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tms.ms_deform_attn_kernel(value.to("meta"), shapes, loc.to("meta"), att.to("meta"))
+
+
+def test_msdeform_module_forward_matches_jax():
+    rng = np.random.default_rng(7)
+    shapes = ((6, 10), (3, 5), (2, 3))
+    B, D, heads, L, P = 2, 64, 4, 3, 4
+    S = sum(h * w for h, w in shapes)
+    Q = S
+    f32 = np.float32
+    params = {"value_proj": {"w": rng.normal(0, 0.1, (D, D)).astype(f32),
+                             "b": rng.normal(0, 0.1, (D,)).astype(f32)},
+              "offset": {"w": rng.normal(0, 0.1, (D, heads * L * P * 2)).astype(f32),
+                         "b": rng.normal(0, 1.0, (heads * L * P * 2,)).astype(f32)},
+              "weight": {"w": rng.normal(0, 0.1, (D, heads * L * P)).astype(f32),
+                         "b": np.zeros((heads * L * P,), f32)},
+              "output": {"w": rng.normal(0, 0.1, (D, D)).astype(f32),
+                         "b": np.zeros((D,), f32)}}
+    query = rng.normal(size=(B, Q, D)).astype(f32)
+    value = rng.normal(size=(B, S, D)).astype(f32)
+    ref_pts = rng.uniform(0, 1, (B, Q, L, 2)).astype(f32)
+    want = jms.msdeform_attn_module_forward(jax.tree.map(jnp.asarray, params),
+                                            jnp.asarray(query), jnp.asarray(value), shapes,
+                                            jnp.asarray(ref_pts), heads, L, P)
+    tp = {k: {n: torch.from_numpy(a) for n, a in v.items()} for k, v in params.items()}
+    got = tms.msdeform_attn_module_forward(tp, torch.from_numpy(query), torch.from_numpy(value),
+                                           shapes, torch.from_numpy(ref_pts), heads, L, P)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+FOCAL_CASES = [
+    # (B, C, H, W, kernels): non-square maps, L = 2..4
+    (2, 8, 7, 12, (3, 5)),
+    (1, 16, 10, 6, (3, 5, 7)),
+    (2, 8, 9, 13, (3, 5, 7, 9)),
+    (1, 8, 4, 5, (3, 5, 7, 9)),    # the map is smaller than the widest kernel
+]
+
+
+def _focal_inputs(B, C, H, W, kernels, seed):
+    rng = np.random.default_rng(seed)
+    L = len(kernels)
+    ctx = rng.normal(size=(B, C, H * W)).astype(np.float32)
+    gates = rng.normal(size=(B, L + 1, H * W)).astype(np.float32)
+    kws = [(rng.normal(size=(k, k, 1, C)) * 0.3).astype(np.float32) for k in kernels]
+    return ctx, gates, kws
+
+
+def _port_taps(kws):
+    """HWIO (k, k, 1, C) -> the port's [C, 1, k, k], packed."""
+    return tfocal.pack_level_weights([torch.from_numpy(k).permute(3, 2, 0, 1) for k in kws])
+
+
+@pytest.mark.parametrize("B,C,H,W,kernels", FOCAL_CASES)
+@pytest.mark.parametrize("scaling", [True, False])
+def test_focal_ctx_plain_matches_pallas_tanh(B, C, H, W, kernels, scaling):
+    ctx, gates, kws = _focal_inputs(B, C, H, W, kernels, seed=C + H)
+    lw = _port_taps(kws)
+    assert torch.equal(lw, torch.from_numpy(np.array(jpack([jnp.asarray(k) for k in kws]))))
+    got = tfocal.focal_ctx_plain(torch.from_numpy(ctx), torch.from_numpy(gates), lw, H, W,
+                                 kernels, scaling, approximate=True)
+    want = fused_focal_ctx(jnp.asarray(ctx), jnp.asarray(gates), jpack([jnp.asarray(k) for k in kws]),
+                           H, W, kernels, scaling)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("B,C,H,W,kernels", FOCAL_CASES[:3])
+def test_focal_ctx_plain_matches_the_models_erf_chain(B, C, H, W, kernels):
+    """The f32 model's chain (focalnet.py focal_modulation, XLA branch):
+    exact-erf GELU, NHWC depthwise convs."""
+    ctx, gates, kws = _focal_inputs(B, C, H, W, kernels, seed=3 * C + W)
+    L = len(kernels)
+    x = jnp.asarray(ctx).reshape(B, C, H, W).transpose(0, 2, 3, 1)
+    g = jnp.asarray(gates).reshape(B, L + 1, H, W).transpose(0, 2, 3, 1)
+    acc = jnp.zeros_like(x)
+    for lvl in range(L):
+        x = jax.nn.gelu(_depthwise_conv(x, jnp.asarray(kws[lvl])), approximate=False)
+        acc = acc + x * g[..., lvl:lvl + 1]
+    glob = jax.nn.gelu(jnp.mean(x, axis=(1, 2), keepdims=True), approximate=False)
+    acc = (acc + glob * g[..., L:L + 1]) / (L + 1)
+    want = np.asarray(acc.transpose(0, 3, 1, 2).reshape(B, C, H * W))
+    got = tfocal.focal_ctx_plain(torch.from_numpy(ctx), torch.from_numpy(gates),
+                                 _port_taps(kws), H, W, kernels, True, approximate=False)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_focal_ctx_kernel_wrapper_takes_the_plain_version_on_cpu():
+    B, C, H, W, kernels = FOCAL_CASES[0]
+    ctx, gates, kws = _focal_inputs(B, C, H, W, kernels, seed=0)
+    ctx, gates, lw = torch.from_numpy(ctx), torch.from_numpy(gates), _port_taps(kws)
+    n0 = tfocal.focal_ctx_kernel.launches
+    got = tfocal.focal_ctx_kernel(ctx, gates, lw, H, W, kernels, True, True)
+    assert tfocal.focal_ctx_kernel.launches == n0
+    assert torch.equal(got, tfocal.focal_ctx_plain(ctx, gates, lw, H, W, kernels, True, True))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfocal.focal_ctx_kernel(ctx.to("meta"), gates.to("meta"), lw.to("meta"), H, W,
+                                kernels, True, True)
