@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cullavo_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py               # kernels, the 7B serving and train paths, X-Decoder eval
+    python3 chip_smoke.py               # kernels, the 7B serving and train paths, X-Decoder
+                                        # eval, vl_test from a written 7B snapshot
     python3 chip_smoke.py --profile     # the same + a profiled run of each path
 
 Phases (each raises on failure, and the script exits non-zero):
@@ -39,7 +40,13 @@ Phases (each raises on failure, and the script exits non-zero):
      1e-2 |ref|) and f32 (within 1e-5 + 1e-5 |ref|), K10 with both GELU
      forms; timed beside a yardstick (K9: one ``grid_sample`` per level,
      the reference's composition; K10: the cuDNN depthwise ``conv2d``
-     chain in bf16, the model's own), K10 summed over one forward.
+     chain in bf16, the model's own), K10 summed over one forward.  Then
+     K11, the byte-packed NF4 kernel, at the three 7B weight shapes: its
+     dequant entry bit-equal to ``dequant_linear``, its fused entry at M = 1,
+     14, 64, 256 and 511 within 1e-2 + 1e-2 |ref| of the f32 plain version,
+     and as row 8 (an NF4Tensor with its absmax decoded on the card) against
+     ``dequantize_nf4`` + the product; timed at M = 14 and 64 beside the
+     bound and the dense bf16 matmul on the dequantized weight.
   4. build random LLaVA-1.5-7B weights on the card from a seeded
      ``torch.Generator``: bf16 vision tower, projector, embeddings and head;
      int8 SmoothQuant LLM linears with smooth scales exp(N(0, 0.3)) shared
@@ -99,6 +106,22 @@ Phases (each raises on failure, and the script exits non-zero):
      480 x 640) with synthetic ground truth, batch 8, twice: identical
      outputs, ids in range, finite metrics, K10 24 and K9 6 launches per
      forward; images/s, compute s per batch and peak memory printed.
+  10. the vl_test eval from a snapshot: random LLaVA-1.5-7B bf16 weights
+     written as a snapshot in the HF layout (config.json with
+     llava-hf/llava-1.5-7b-hf's widths, a LLaMA-style BPE tokenizer.json
+     with <image> and <pad> at 32000/32001, bf16 safetensors shards by the
+     port's own writer; full depth) and read back through the port's loader,
+     bit for bit; then ``entry.evaluate`` on configs/vl_test.yaml (BITS 8,
+     batch 8, 16 new tokens) with ``LOAD_PATH`` the snapshot over an
+     in-memory VQA dataset of 16 questions on 8 random images, twice:
+     n = 16, a finite accuracy in [0, 100], identical answers, K1, K3 and
+     K4 launched; load seconds, images/s and peak memory printed.
+  10b. the byte-packed NF4 base: those weights' LLM linears as q4
+     (``quantize_linear``) and as planar NF4; one weight's K11 dequant
+     bit-equal to K7's; phase 5's 2-layer check on the q4 base; the
+     14-request greedy batch over the q4 base twice (K11 launched 7 x 32 x
+     15 times fused plus 7 x 32 per prefill chunk through its dequant
+     entry); rows with decisive logits equal to the planar base's stream.
 The last two lines are the kernels' JSON record and the result line.
 Imports neither JAX nor the JAX package.
 """
@@ -172,6 +195,33 @@ XDEC_BATCH, XDEC_SIDE, XDEC_DATASET = 8, 512, "coco_2017_val_panoptic_with_sem_s
 XDEC_SIZES = ((512, 512),) * 12 + ((480, 640),) * 4   # the last four: bucket 512 x 640
 XDEC_CHECK_HW = (256, 320)
 XDEC_THINGS = frozenset(range(80))   # COCO panoptic: the first 80 classes are things
+# the VL eval path: configs/vl_test.yaml as the dict it holds, over a
+# LLaVA-1.5-7B snapshot written in llava-hf/llava-1.5-7b-hf's layout and an
+# in-memory VQA dataset (records carry decoded images: no PIL beside the card)
+VL_CFG = {"NAME": "vl_test", "PIPELINE": "LLaVAVQAVALPipeline", "BATCH_SIZE": 8,
+          "MAX_NEW_TOKENS": 16, "LIMIT": 0, "MODEL": {"LLM": {"LOAD_PATH": None, "BITS": 8}},
+          "DATASETS": {"TEST": None}}
+VL_DATASET, VL_IMAGES, VL_QUESTIONS = "chip_vqa_synthetic", 8, 16
+VL_IMAGE_HW = ((480, 640), (336, 336), (640, 480), (375, 500))
+VL_SHARD_LAYERS = 8          # LLM layers per safetensors shard
+TOKENIZER_MERGES = 400
+_OBJECTS = ("car", "dog", "cat", "man", "woman", "bicycle", "table", "plate", "sofa", "window",
+            "giraffe", "horse", "bus", "train", "umbrella", "kite", "pizza", "clock", "bird",
+            "boat")
+_ATTRS = ("color", "size", "shape", "name", "number", "type")
+TOKENIZER_CORPUS = tuple(
+    ["A chat between a curious human and an artificial intelligence assistant. The assistant "
+     "gives helpful, detailed, and polite answers to the human's questions."]
+    + [f"USER: What is the {a} of the {o}? ASSISTANT: the {o} is {a}"
+       for o in _OBJECTS for a in _ATTRS]
+    + [f"USER: How many {o}s are there in the picture? ASSISTANT: two {o}s" for o in _OBJECTS]
+    + [f"USER: Is the {o} next to the {o2}? ASSISTANT: yes, it is"
+       for o, o2 in zip(_OBJECTS, _OBJECTS[1:])])
+VL_QUESTION_TEXT = ("What is the color of the car?", "How many dogs are there?",
+                    "Is the man riding a bicycle?", "What is on the table?",
+                    "Where is the cat sitting?", "What sport is being played?",
+                    "What time of day is it?", "Are there any people in the picture?")
+VL_ANSWERS = ("red", "two", "yes", "no", "food", "sofa", "tennis", "night")
 
 
 def log(*a):
@@ -331,6 +381,7 @@ def check_kernels(device):
         f"({bd['bound_by']})")
     rec.update(check_wwin_kernels(device, g))
     rec.update(check_nf4_kernels(device, g))
+    rec.update(check_q4_kernels(device, g))
     rec.update(check_train_kernels(device, g))
     rec.update(check_xdecoder_kernels(device, g))
     return rec
@@ -746,6 +797,113 @@ def check_nf4_kernels(device, g):
                                     library_ms=None, **bd,
                                     shape=f"M={SERVE_DECODE_M}, (K,N) in (4096,4096),"
                                           "(4096,11008),(11008,4096), ms summed over the three")
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_q4_kernels(device, g):
+    """Phase 3, K11: the byte-packed NF4 kernel against its plain versions at
+    the three 7B weight shapes.  The dequant entry bit for bit against
+    ``dequant_linear``; the fused entry at M = 1, 14, 64, 256, 511 within
+    1e-2 + 1e-2 |ref| of the f32 plain version (the kernel takes the f32
+    weight as two bf16 terms, 2^-17 relative, and sums in another order;
+    both sides round once to bf16, so they differ by one ulp); row 8's
+    form: ``quantize_nf4`` of the same weight, its absmax decoded on the card,
+    through K11, against ``dequantize_nf4`` + an f32 product.  Timed at
+    M = 14 (the greedy batch's decode, the JSON record) and M = 64, summed
+    over the three shapes, beside the bound and a yardstick: the dense bf16
+    ``torch.matmul`` on the dequantized weight (no PyTorch call takes
+    byte-packed NF4)."""
+    import torch
+
+    from cullavo_tpu_torch.ops import nf4
+
+    bf = torch.bfloat16
+    timed = {M: dict(ms=0.0, plain=0.0, dense=0.0, n_bytes=0, n_ops=0) for M in (BATCH, 64)}
+    row8 = dict(err=0.0, ms=0.0, k11=0.0, plain=0.0, n_bytes=0, n_ops=0)
+    err, rec = 0.0, {}
+    for K, N in NF4_SHAPES:
+        w = torch.randn((K, N), generator=g, device=device) * K ** -0.5
+        q = nf4.quantize_linear(w)
+        dense = nf4.nf4_dequant_q4(q, K)
+        ref_w = nf4.dequant_linear(q, K, N)
+        torch.cuda.synchronize(device)
+        n_bad = int((dense.view(torch.int16) != ref_w.view(torch.int16)).sum().item())
+        log(f"K11 nf4_dequant_q4 K={K} N={N}: mismatching bf16 values={n_bad} (bit-equal "
+            "demanded)")
+        if n_bad or dense.shape != (K, N):
+            raise RuntimeError(f"K11 dequant disagrees with dequant_linear at K={K} N={N}")
+        if (K, N) == NF4_SHAPES[1]:
+            ms = bench_ms(lambda: nf4.nf4_dequant_q4(q, K), device)
+            plain = bench_ms(lambda: nf4.dequant_linear(q, K, N), device, reps=5)
+            bd = bound(nbytes(q["q4"], q["scale"], dense), K * N, "f32")
+            log(f"K11 dequant K={K} N={N}: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+            rec["nf4_dequant_q4"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
+                                         **bd, shape=f"q4 [{K},{N // 2}] uint8 + scale "
+                                                     f"[{K},{N // 64}] f32 -> [{K},{N}] bf16")
+        for M in (1, BATCH, 64, 256, 511):
+            x = torch.randn((M, K), generator=g, device=device).to(bf)
+            y = nf4.nf4_linear_q4(x, q, K)
+            ref = nf4._nf4_linear_q4_plain(x, q, K, N)
+            torch.cuda.synchronize(device)
+            diff = (y.float() - ref.float()).abs()
+            excess = (diff - 1e-2 - 1e-2 * ref.float().abs()).max().item()
+            log(f"K11 nf4_linear_q4 M={M} K={K} N={N}: max_abs_err={diff.max().item():.3e} (max "
+                f"|y| {ref.float().abs().max().item():.3f}; tol 1e-2 + 1e-2 |ref|, worst excess "
+                f"{excess:.3e})")
+            if not (torch.isfinite(y).all() and excess <= 0):
+                raise RuntimeError(f"K11 disagrees with its plain version at M={M} K={K} N={N}")
+            err = max(err, diff.max().item())
+            if M not in timed:
+                continue
+            ms = bench_ms(lambda: nf4.nf4_linear_q4(x, q, K), device)
+            plain = bench_ms(lambda: nf4._nf4_linear_q4_plain(x, q, K, N), device, reps=5)
+            dense_ms = bench_ms(lambda: x @ dense, device)
+            log(f"K11 M={M} K={K} N={N}: kernel {ms:.4f} ms, plain {plain:.4f} ms, dense bf16 "
+                f"torch.matmul on the dequantized weight {dense_ms:.4f} ms")
+            t = timed[M]
+            t["ms"], t["plain"], t["dense"] = t["ms"] + ms, t["plain"] + plain, t["dense"] + dense_ms
+            t["n_bytes"] += nbytes(x, q["q4"], q["scale"], y)
+            t["n_ops"] += 2 * M * K * N
+        # row 8: an NF4Tensor (double-quantized absmax) through the same kernel
+        t8 = nf4.quantize_nf4(w)
+        x = torch.randn((BATCH, K), generator=g, device=device).to(bf)
+        y8 = nf4.nf4_matmul_fused(x, t8)
+        ref8 = (x.float() @ nf4.dequantize_nf4(t8, torch.float32)).to(bf)
+        torch.cuda.synchronize(device)
+        d8 = (y8.float() - ref8.float()).abs()
+        excess = (d8 - 1e-2 - 1e-2 * ref8.float().abs()).max().item()
+        log(f"K11 as row 8 (nf4_matmul_fused, NF4Tensor, absmax decoded on the card) M={BATCH} "
+            f"K={K} N={N}: max_abs_err={d8.max().item():.3e} (worst excess {excess:.3e})")
+        if not (torch.isfinite(y8).all() and excess <= 0):
+            raise RuntimeError(f"row 8 through K11 disagrees with dequantize_nf4 at K={K} N={N}")
+        row8["err"] = max(row8["err"], d8.max().item())
+        row8["ms"] += bench_ms(lambda: nf4.nf4_matmul_fused(x, t8), device)
+        absmax8 = nf4._decode_absmax(t8)
+        row8["k11"] += bench_ms(lambda: nf4._nf4_q4_cuda("nf4_matmul_fused", x, t8.packed,
+                                                          absmax8, K, N), device)
+        row8["plain"] += bench_ms(
+            lambda: (x.float() @ nf4.dequantize_nf4(t8, torch.float32)).to(bf), device, reps=5)
+        row8["n_bytes"] += nbytes(x, t8.packed, t8.absmax, t8.absmax_scale, t8.absmax_offset, y8)
+        row8["n_ops"] += 2 * BATCH * K * N
+        del w, q, dense, ref_w, t8
+    for M, t in timed.items():
+        bd = bound(t["n_bytes"], t["n_ops"], "bf16")
+        log(f"K11 sum of the three shapes at M={M}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain']:.4f} ms, dense bf16 matmul {t['dense']:.4f} ms, bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, {t['n_bytes'] / 1e6:.1f} MB)")
+    bd = bound(row8["n_bytes"], row8["n_ops"], "bf16")
+    log(f"K11 as row 8, sum of the three shapes at M={BATCH} (absmax decode included): "
+        f"{row8['ms']:.4f} ms (K11 alone {row8['k11']:.4f} ms), plain (dequantize_nf4 + f32 "
+        f"product) {row8['plain']:.4f} ms, "
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, {row8['n_bytes'] / 1e6:.1f} MB), "
+        f"max_abs_err {row8['err']:.3e}")
+    t = timed[BATCH]
+    rec["nf4_linear_q4"] = dict(max_abs_err=max(err, row8["err"]), ms=t["ms"], plain_ms=t["plain"],
+                                library_ms=None, **bound(t["n_bytes"], t["n_ops"], "bf16"),
+                                shape=f"M={BATCH}, (K,N) in (4096,4096),(4096,11008),"
+                                      "(11008,4096), ms summed over the three")
     torch.cuda.empty_cache()
     return rec
 
@@ -1234,7 +1392,7 @@ def build_nf4_params(cfg, device):
     return params
 
 
-def reference_check_nf4(params, cfg, device):
+def reference_check_nf4(params, cfg, device, label="NF4"):
     """Phase 5 on the NF4 base: the first two LLM layers at full width, kernel
     path on the card vs plain path on the CPU (a dense matmul against the
     dequantized weight), same weights: a prefill of M = 2 x 264 = 528 rows
@@ -1280,13 +1438,13 @@ def reference_check_nf4(params, cfg, device):
     for name, a in out["cuda"].items():
         b = out["cpu"][name]
         if a.shape[0] != B or a.shape[2] != cfg.text.vocab_size or not torch.isfinite(a).all():
-            raise RuntimeError(f"NF4 reference check: bad {name} logits {tuple(a.shape)}")
+            raise RuntimeError(f"{label} reference check: bad {name} logits {tuple(a.shape)}")
         err = (a - b).abs().max().item()
         worst = max(worst, err)
-        log(f"NF4 reference check ({name} logits, 2 layers at 7B width, int8 cache, card vs "
+        log(f"{label} reference check ({name} logits, 2 layers at 7B width, int8 cache, card vs "
             f"CPU): max_abs_err={err:.3e}, max |logit| {b.abs().max().item():.3f} (tol 0.1)")
     if not worst <= 0.1:
-        raise RuntimeError(f"NF4 kernel path disagrees with the plain path: {worst}")
+        raise RuntimeError(f"{label} kernel path disagrees with the plain path: {worst}")
 
 
 def make_serving_requests(cfg):
@@ -1975,6 +2133,337 @@ def profile_xdecoder(pipe, rows, device):
     log(ka.table(sort_by="self_device_time_total", row_limit=24, max_name_column_width=70))
 
 
+def _merge_pair(seq, a, b):
+    out, i = [], 0
+    while i < len(seq):
+        if i + 1 < len(seq) and seq[i] == a and seq[i + 1] == b:
+            out.append(a + b)
+            i += 2
+        else:
+            out.append(seq[i])
+            i += 1
+    return out
+
+
+def write_tokenizer(path):
+    """A LLaMA-style ``tokenizer.json`` (the family llava-hf/llava-1.5-7b-hf
+    ships) as plain JSON: <unk>, <s>, </s> at 0-2, the 256 byte-fallback
+    tokens <0x00>..<0xFF>, the corpus' characters ("▁" among them), then
+    ``TOKENIZER_MERGES`` BPE merges learned here on a small corpus (the most
+    frequent pair first); <image> and <pad> as added tokens at 32000 and
+    32001; the legacy Prepend/Replace normalizer and the Replace,
+    ByteFallback, Fuse, Strip decoder; and its tokenizer_config.json."""
+    from collections import Counter
+
+    words = ["\u2581" + t.replace(" ", "\u2581") for t in TOKENIZER_CORPUS]
+    vocab = (["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+             + sorted({c for w in words for c in w}))
+    seqs, merges = [list(w) for w in words], []
+    for _ in range(TOKENIZER_MERGES):
+        counts = Counter(pair for seq in seqs for pair in zip(seq, seq[1:]))
+        if not counts:
+            break
+        (a, b), n = max(counts.items(), key=lambda kv: (kv[1], kv[0]))
+        if n < 2:
+            break
+        merges.append(f"{a} {b}")
+        if a + b not in vocab:
+            vocab.append(a + b)
+        seqs = [_merge_pair(seq, a, b) for seq in seqs]
+    added = [(0, "<unk>"), (1, "<s>"), (2, "</s>"), (32000, "<image>"), (32001, "<pad>")]
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": c, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}
+                         for i, c in added],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": "\u2581"},
+            {"type": "Replace", "pattern": {"String": " "}, "content": "\u2581"}]},
+        "pre_tokenizer": None,
+        "post_processor": {"type": "TemplateProcessing",
+                           "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                                      {"Sequence": {"id": "A", "type_id": 0}}],
+                           "pair": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                                    {"Sequence": {"id": "A", "type_id": 0}},
+                                    {"SpecialToken": {"id": "<s>", "type_id": 1}},
+                                    {"Sequence": {"id": "B", "type_id": 1}}],
+                           "special_tokens": {"<s>": {"id": "<s>", "ids": [1],
+                                                      "tokens": ["<s>"]}}},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": "\u2581"}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                  "fuse_unk": True, "byte_fallback": True,
+                  "vocab": {t: i for i, t in enumerate(vocab)}, "merges": merges}}
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "LlamaTokenizer", "add_bos_token": True,
+                   "add_eos_token": False, "bos_token": "<s>", "eos_token": "</s>",
+                   "unk_token": "<unk>", "pad_token": "<pad>", "legacy": False,
+                   "clean_up_tokenization_spaces": False, "model_max_length": 4096}, f)
+    return len(vocab), len(merges)
+
+
+def write_snapshot(params, cfg, path):
+    """A LLaVA-1.5-7B snapshot in the HF layout: config.json with
+    llava-hf/llava-1.5-7b-hf's widths, the tokenizer files, and the weights as
+    bf16 safetensors shards (``VL_SHARD_LAYERS`` LLM layers each, the rest in
+    the first) written by the port's own writer, with the shard index.
+    Returns the bytes of weights written."""
+    import re
+
+    from cullavo_tpu_torch.checkpoint.hf_import import to_hf_state_dict
+    from cullavo_tpu_torch.checkpoint.safetensors_io import write_safetensors
+
+    t, v = cfg.text, cfg.vision
+    hf = {"architectures": ["LlavaForConditionalGeneration"], "model_type": "llava",
+          "ignore_index": -100, "image_token_index": cfg.image_token_id,
+          "pad_token_id": cfg.pad_token_id, "projector_hidden_act": cfg.projector_hidden_act,
+          "vision_feature_layer": cfg.vision_feature_layer,
+          "vision_feature_select_strategy": cfg.vision_feature_select_strategy,
+          "tie_word_embeddings": False, "torch_dtype": "bfloat16", "vocab_size": t.vocab_size,
+          "text_config": {"model_type": "llama", "vocab_size": t.vocab_size,
+                          "hidden_size": t.hidden_size, "intermediate_size": t.intermediate_size,
+                          "num_hidden_layers": t.num_hidden_layers,
+                          "num_attention_heads": t.num_attention_heads,
+                          "num_key_value_heads": t.num_key_value_heads,
+                          "max_position_embeddings": t.max_position_embeddings,
+                          "rms_norm_eps": t.rms_norm_eps, "rope_theta": t.rope_theta},
+          "vision_config": {"model_type": "clip_vision_model", "hidden_size": v.hidden_size,
+                            "intermediate_size": v.intermediate_size,
+                            "num_hidden_layers": v.num_hidden_layers,
+                            "num_attention_heads": v.num_attention_heads,
+                            "image_size": v.image_size, "patch_size": v.patch_size,
+                            "projection_dim": 768, "hidden_act": v.hidden_act}}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f, indent=1)
+    n_vocab, n_merges = write_tokenizer(path)
+    shards = {}
+    for name, a in to_hf_state_dict(params, cfg).items():
+        m = re.match(r"model\.language_model\.layers\.(\d+)\.", name)
+        shards.setdefault(1 + int(m.group(1)) // VL_SHARD_LAYERS if m else 0, {})[name] = a
+    weight_map, total = {}, 0
+    for k in sorted(shards):
+        fname = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        write_safetensors(shards[k], os.path.join(path, fname), {"format": "pt"})
+        weight_map.update({name: fname for name in shards[k]})
+        total += nbytes(*shards[k].values())
+    shards.clear()
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    log(f"tokenizer.json: {n_vocab} tokens, {n_merges} merges, <image> 32000, <pad> 32001")
+    return total
+
+
+def vqa_records():
+    """The in-memory VQA dataset: ``VL_QUESTIONS`` questions on
+    ``VL_IMAGES`` random images of four sizes, ten answers each."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 9)
+    images = [rng.integers(0, 256, VL_IMAGE_HW[i % len(VL_IMAGE_HW)] + (3,), dtype=np.uint8)
+              for i in range(VL_IMAGES)]
+    return [{"question_id": 1000 + i, "image_id": i % VL_IMAGES, "image": images[i % VL_IMAGES],
+             "question": VL_QUESTION_TEXT[i % len(VL_QUESTION_TEXT)],
+             "answers": [VL_ANSWERS[(i + j) % len(VL_ANSWERS)] for j in (0,) * 6 + (1,) * 4],
+             "question_type": "what", "answer_type": "other"} for i in range(VL_QUESTIONS)]
+
+
+def _tree_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items() for kv in _tree_leaves(v, f"{prefix}{k}/")]
+    return [(prefix, tree)]
+
+
+def run_vl_snapshot_path(cfg, device, wrappers, smi):
+    """Phase 10: random LLaVA-1.5-7B bf16 weights from a seeded generator on
+    the card, written as a snapshot in the HF layout (``write_snapshot``)
+    into a temporary directory and read back through the port's loader (the
+    config equal, every tensor bit-equal to the written one, before any
+    quantization); then ``entry.evaluate`` on configs/vl_test.yaml with
+    ``LOAD_PATH`` the snapshot (``BITS: 8``, batch 8, 16 new tokens) over the
+    registered in-memory dataset of 16 questions, twice: n = 16, a finite
+    overall accuracy in [0, 100], identical answers in both runs'
+    vqa_results.json, and K1, K3 and K4 launched (K2 quantizes activations
+    only for SmoothQuant-calibrated dicts, which ``BITS: 8`` from a snapshot
+    does not make, in either package).  Returns the run's launch counts and
+    the written weights (for phase 10b)."""
+    import math
+    import tempfile
+
+    import torch
+
+    from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.checkpoint.hf_import import (llava_config_from_json,
+                                                        load_llava_safetensors)
+    from cullavo_tpu_torch.data.registry import register_dataset
+    from cullavo_tpu_torch.models.llava.modeling import init_llava_params
+    from cullavo_tpu_torch.pipelines import vqa_pipeline
+
+    params = init_llava_params(cfg, torch.Generator(device=device).manual_seed(SEED + 6), device,
+                               dtype=torch.bfloat16)
+    records = vqa_records()
+    register_dataset(VL_DATASET, lambda: records, {})
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="cullavo_snapshot_") as snap:
+        t0 = time.perf_counter()
+        total = write_snapshot(params, cfg, snap)
+        t_write = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        if llava_config_from_json(snap) != cfg:
+            raise RuntimeError("the snapshot's config.json does not give back the 7B config")
+        t0 = time.perf_counter()
+        loaded = load_llava_safetensors(snap, cfg, device=device)
+        torch.cuda.synchronize(device)
+        t_load = time.perf_counter() - t0
+        want, got = dict(_tree_leaves(params)), dict(_tree_leaves(loaded))
+        bad = [k for k, a in want.items()
+               if k not in got or a.dtype != got[k].dtype or a.shape != got[k].shape
+               or not torch.equal(a.view(torch.int16), got[k].view(torch.int16))]
+        log(f"snapshot: {total / 1e9:.3f} GB of bf16 weights in "
+            f"{len([f for f in os.listdir(snap) if f.endswith('.safetensors')])} shards, "
+            f"written in {t_write:.2f} s, loaded onto the card in {t_load:.2f} s "
+            f"({total / 1e9 / t_load:.2f} GB/s); {len(got)} tensors, mismatching {len(bad)} "
+            "(bit-equal demanded)")
+        if bad or len(want) != len(got):
+            raise RuntimeError(f"the loaded snapshot differs from the written weights: {bad[:5]}")
+        del loaded, want, got
+        torch.cuda.empty_cache()
+        # time the load (+ quantization), the prefills and the decodes of
+        # each run through the module functions the entry and the pipeline call
+        timers = {"build": (entry, "_build_llava"),
+                  "prefill": (vqa_pipeline, "generate_prefill_chunked"),
+                  "decode": (vqa_pipeline, "generate_decode")}
+        spent = {k: [] for k in timers}
+        shapes = []
+
+        def timed(key, fn):
+            def run(*a, **kw):
+                torch.cuda.synchronize(device)
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize(device)
+                spent[key].append(time.perf_counter() - t)
+                if key == "prefill":
+                    shapes.append(tuple(a[2].shape))
+                return out
+            return run
+
+        originals = {k: getattr(mod, name) for k, (mod, name) in timers.items()}
+        for k, (mod, name) in timers.items():
+            setattr(mod, name, timed(k, originals[k]))
+        for i in range(2):
+            out_dir = os.path.join(snap, f"out{i}")
+            vl = {**VL_CFG, "MODEL": {"LLM": {**VL_CFG["MODEL"]["LLM"], "LOAD_PATH": snap}},
+                  "DATASETS": {"TEST": [VL_DATASET]}, "SAVE_DIR": out_dir}
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            res, counts = counted(wrappers, lambda: entry.evaluate(vl))
+            wall = time.perf_counter() - t0
+            with open(os.path.join(out_dir, "vqa_results.json")) as f:
+                answers = json.load(f)
+            runs.append((res[VL_DATASET], counts, wall, {k: sum(v) for k, v in spent.items()},
+                         answers, torch.cuda.max_memory_allocated(device) / 2**30))
+            for v in spent.values():
+                v.clear()
+            torch.cuda.empty_cache()
+        for k, (mod, name) in timers.items():
+            setattr(mod, name, originals[k])
+    (res, counts, _, _, answers, _), (res2, _, _, _, answers2, _) = runs
+    log(f"launches on the vl_test path: {counts}")
+    if not (res["n"] == VL_QUESTIONS and math.isfinite(res["overall"])
+            and 0.0 <= res["overall"] <= 100.0 and len(answers) == VL_QUESTIONS):
+        raise RuntimeError(f"vl_test: bad metrics {res}")
+    if answers != answers2 or res != res2:
+        raise RuntimeError("vl_test: two runs gave different answers")
+    if not all(counts[k] for k in ("flash_fwd", "int8_linear", "wwin_decode")):
+        raise RuntimeError(f"vl_test: a kernel of the path never launched: {counts}")
+    log(f"vl_test: {res}; answers identical across the two runs; answers[:3] "
+        f"{[a['answer'] for a in answers[:3]]}")
+    log(f"vl_test prefill shapes (ids [rows, bucket]): {shapes[:2]}")
+    for i, (_, _, wall, t, _, peak) in enumerate(runs, 1):
+        ev = wall - t["build"]
+        log(f"vl_test run {i} ({smi}): snapshot load + int8 quantization {t['build']:.3f} s, "
+            f"eval {ev:.3f} s (prefill {t['prefill']:.3f} s, decode {t['decode']:.3f} s, the "
+            f"rest on the host {ev - t['prefill'] - t['decode']:.3f} s), "
+            f"{VL_QUESTIONS / ev:.4f} images/s (eval only), {VL_QUESTIONS / wall:.4f} images/s "
+            f"with the load, peak memory {peak:.2f} GiB")
+    return counts, params
+
+
+def run_q4_path(params, cfg, device, requests, wrappers, smi):
+    """Phase 10b: phase 10's bf16 weights with the seven LLM targets quantized
+    to byte-packed NF4 (``quantize_linear``, q4) and, for comparison, to
+    planar NF4.  One target's dequantized weight through K11 bit-equal to
+    K7's, its codes and scales equal across the layouts; phase 5's 2-layer
+    check on the q4 base (card K11 against the CPU plain path, within 0.1);
+    the 14-request greedy batch of phase 6 over the q4 base twice (tokens in
+    the vocabulary, equal across runs, K11 launched as the shapes predict:
+    7 x 32 x 15 fused at the decode M = 14, 7 x 32 per prefill chunk through
+    the dequant entry); every row whose top-2 logit gaps all exceed 0.1 equal
+    to the stream over the planar base.  Returns the run's launch counts."""
+    import torch
+
+    from cullavo_tpu_torch.models.llava.lora import LLM_TARGETS
+    from cullavo_tpu_torch.ops import nf4
+
+    lm = params["language_model"]
+    q4, planar = dict(lm["layers"]), dict(lm["layers"])
+    t0 = time.perf_counter()
+    for t in LLM_TARGETS:
+        q4[t] = nf4.quantize_linear(lm["layers"][t])
+        planar[t] = nf4.quantize_linear_planar(lm["layers"][t])
+    torch.cuda.synchronize(device)
+    log(f"q4 and planar NF4 bases quantized on the card in {time.perf_counter() - t0:.2f} s")
+    K, N = lm["layers"]["gate"].shape[-2:]
+    a, b = {k: v[0] for k, v in q4["gate"].items()}, {k: v[0] for k, v in planar["gate"].items()}
+    deq_q4, deq_planar = nf4.nf4_dequant_q4(a, K), nf4.nf4_dequant_planar(b)
+    codes_q4 = nf4._unpack_nibbles(a["q4"]).reshape(K, N)
+    codes_planar = torch.cat([(b["q4p"] >> (4 * i)) & 0xF for i in range(8)], dim=0)
+    same = (torch.equal(deq_q4.view(torch.int16), deq_planar.view(torch.int16))
+            and torch.equal(codes_q4, codes_planar.long())
+            and torch.equal(a["scale"].reshape(K, N // 64), b["scale"]))
+    log(f"gate of layer 0 [{K}, {N}]: K11 dequant {'bit-equal to' if same else 'DIFFERS from'} "
+        "K7, codes and scales equal across the two layouts")
+    if not same:
+        raise RuntimeError("the q4 and planar layouts disagree on one weight")
+    del deq_q4, deq_planar, codes_q4, codes_planar
+    p_q4 = {**params, "language_model": {**lm, "layers": q4}}
+    p_planar = {**params, "language_model": {**lm, "layers": planar}}
+    reference_check_nf4(p_q4, cfg, device, label="q4")
+    run = make_run(p_q4, cfg, device, requests)
+    torch.cuda.reset_peak_memory_stats(device)
+    (tok1, pre1, dec1, _), counts = counted(wrappers, run)
+    tok2, pre2, dec2, _ = run()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    check_tokens(tok1, cfg.text.vocab_size)
+    if not torch.equal(tok1, tok2):
+        raise RuntimeError("two runs of the q4 batch gave different tokens")
+    L, n = cfg.text.num_hidden_layers, len(LLM_TARGETS)
+    want = {"nf4_linear_q4": n * L * (NEW_TOKENS - 1),
+            "nf4_dequant_q4": n * L * -(-BATCH // CHUNK)}
+    log(f"launches on the q4 greedy path: {counts}; K11 predicted {want}")
+    if any(counts[k] != v for k, v in want.items()):
+        raise RuntimeError(f"K11 launches {counts} != predicted {want}")
+    tok_p = make_run(p_planar, cfg, device, requests)()[0]
+    _, gap = replay(p_q4, cfg, device, requests, tok1, None)
+    rows_same = (tok1 == tok_p).all(dim=1)
+    decisive = gap.min(dim=1).values > LOGIT_TOL
+    log(f"q4 vs planar base: {int(rows_same.sum())} of {BATCH} rows equal; {int(decisive.sum())} "
+        f"rows have every top-2 gap above {LOGIT_TOL}, {int((decisive & rows_same).sum())} of "
+        "them equal")
+    if not (rows_same | ~decisive).all():
+        raise RuntimeError("a decisive row of the q4 base left the planar base's stream")
+    for i, (pre, dec) in enumerate(((pre1, dec1), (pre2, dec2)), 1):
+        log(f"q4 greedy run {i} ({smi}): prefill {pre:.4f} s, decode {dec:.4f} s "
+            f"({dec / (NEW_TOKENS - 1) * 1e3:.3f} ms per decode step), "
+            f"{BATCH / (pre + dec):.4f} images/s, peak memory {peak:.2f} GiB")
+    return counts
+
+
 def main(argv):
     import torch
 
@@ -2019,7 +2508,8 @@ def main(argv):
                 "nf4_dequant_planar": nf4.nf4_dequant_planar,
                 "flash_fwd_lse": fa.flash_lse, "flash_rows": fa.flash_rows,
                 "ms_deform_attn": msdeform.ms_deform_attn_kernel,
-                "focal_ctx": focal.focal_ctx_kernel}
+                "focal_ctx": focal.focal_ctx_kernel,
+                "nf4_linear_q4": nf4.nf4_linear_q4, "nf4_dequant_q4": nf4.nf4_dequant_q4}
     meta = {"flash_fwd": ("cullavo_tpu_torch/csrc/flash_fwd.cu",
                           "cullavo_tpu/ops/flash_attention.py:259"),
             "quant_rows": ("cullavo_tpu_torch/csrc/quant_rows.cu",
@@ -2041,7 +2531,14 @@ def main(argv):
             "ms_deform_attn": ("cullavo_tpu_torch/csrc/msdeform.cu",
                                "cullavo_tpu/ops/msdeform_pallas.py:43"),
             "focal_ctx": ("cullavo_tpu_torch/csrc/focal_ctx.cu",
-                          "cullavo_tpu/ops/focal_pallas.py:34")}
+                          "cullavo_tpu/ops/focal_pallas.py:34"),
+            # K11 replaces row 9 and, fed the decoded absmax, row 8
+            # (cullavo_tpu/ops/nf4.py:222, nf4_matmul_fused); its dequant
+            # entry serves row 9's prefill M
+            "nf4_linear_q4": ("cullavo_tpu_torch/csrc/nf4_q4.cu",
+                              "cullavo_tpu/ops/nf4.py:464"),
+            "nf4_dequant_q4": ("cullavo_tpu_torch/csrc/nf4_q4.cu",
+                               "cullavo_tpu/ops/nf4.py:464")}
 
     # phases 4-6b
     cfg = LlavaConfig()
@@ -2080,6 +2577,15 @@ def main(argv):
     reference_check_xdecoder(device, wrappers)
     counts_focal, focal_pipe, xdec_rows = run_xdecoder_path(XDEC_FOCAL, device, wrappers, smi)
     counts_deform, _, _ = run_xdecoder_path(XDEC_DEFORM, device, wrappers, smi)
+    if "--profile" not in argv:
+        del focal_pipe, xdec_rows
+        torch.cuda.empty_cache()
+
+    # phases 10 and 10b
+    counts_vl, params_vl = run_vl_snapshot_path(cfg, device, wrappers, smi)
+    counts_q4 = run_q4_path(params_vl, cfg, device, requests, wrappers, smi)
+    del params_vl
+    torch.cuda.empty_cache()
     # each kernel's launches on the main path that runs it: K1-K4 the greedy
     # bf16-cache batch, K5 the speculative int8-cache batch, K6 and K7 the
     # serving run, K1-lse the train steps, K8 the attention probe, K9 the
@@ -2091,6 +2597,9 @@ def main(argv):
     counts["flash_rows"] = counts_probe["flash_rows"]
     counts["focal_ctx"] = counts_focal["focal_ctx"]
     counts["ms_deform_attn"] = counts_deform["ms_deform_attn"]
+    for name in ("nf4_linear_q4", "nf4_dequant_q4"):
+        counts[name] = counts_q4[name]
+    log(f"launches on the vl_test path (BITS 8 from the snapshot): {counts_vl}")
     log(f"K7 launches on the train path: {counts_train['nf4_dequant_planar']}")
     if not all(counts.values()):
         raise RuntimeError(f"a kernel never launched on its main path: {counts}")
@@ -2106,6 +2615,9 @@ def main(argv):
                 "replaces": meta[name][1], "launches": counts[name],
                 **{k: rec[name][k] for k in keys}}
                for name in wrappers]
+    for k in kernels:
+        if k["name"] == "nf4_linear_q4":
+            k["also_replaces"] = "cullavo_tpu/ops/nf4.py:222"
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

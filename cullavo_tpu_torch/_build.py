@@ -46,6 +46,8 @@ SIGNATURES = {
     "cullavo_wwin_decode_q8": [_P] * 9 + [_I] * 7 + [_L] * 13 + [_F, _P],
     "cullavo_nf4_linear_planar": [_P] * 5 + [_I] * 4 + [_P],
     "cullavo_nf4_dequant_planar": [_P] * 3 + [_I] * 2 + [_P],
+    "cullavo_nf4_linear_q4": [_P] * 5 + [_I] * 4 + [_P],
+    "cullavo_nf4_dequant_q4": [_P] * 3 + [_I] * 2 + [_P],
     "cullavo_msdeform": [_P] * 6 + [_I] * 8 + [_P],
     "cullavo_focal_ctx": [_P] * 7 + [_I] * 5 + [_L] * 4 + [_I] * 3 + [_P],
     "cullavo_focal_ctx_tiles": [_P, _I, _I, _I],

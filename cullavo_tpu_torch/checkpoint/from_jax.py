@@ -4,10 +4,14 @@
 are numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
 port's parameters: the same nested dicts with torch tensors on ``device``,
 bit for bit.  Stacked ``[L, ...]`` layer leaves stay stacked; f32, bf16,
-int8 and int32 leaves keep their dtype; int8 weight dicts ``{q8, scale8,
-sq_inv}`` and planar NF4 dicts ``{q4p int32, scale f32}`` pass through as
-dicts, in the layout the kernels read.  Dict kinds not ported yet raise.
+int8, uint8 and int32 leaves keep their dtype; int8 weight dicts ``{q8,
+scale8, sq_inv}``, planar NF4 dicts ``{q4p int32, scale f32}`` and
+byte-packed NF4 dicts ``{q4 uint8, scale f32}`` pass through as dicts, in
+the layout the kernels read.  Dict kinds not ported yet raise.
 ``llava_params_to_numpy`` is the inverse (the round trip is exact).
+``nf4_tensor_from_numpy`` / ``nf4_tensor_to_numpy`` carry a JAX
+``NF4Tensor`` (its arrays as numpy) to the port's ``ops.nf4.NF4Tensor``
+and back.
 ``decode_state_from_numpy`` does the same for a prefill/decode state, so
 both packages can continue from one prefilled cache.
 
@@ -31,10 +35,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cullavo_tpu_torch.ops.nf4 import check_slice_kind
+from cullavo_tpu_torch.ops.nf4 import NF4Tensor, check_slice_kind
 from cullavo_tpu_torch.utils.tree import tree_map
 
-_PLAIN_DTYPES = (np.dtype(np.float32), np.dtype(np.int8), np.dtype(np.int32))
+_PLAIN_DTYPES = (np.dtype(np.float32), np.dtype(np.int8), np.dtype(np.uint8),
+                 np.dtype(np.int32))
+# an NF4Tensor's original dtype, by numpy name
+_TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
 
 
 def _leaf_to_torch(a, device) -> torch.Tensor:
@@ -57,6 +65,27 @@ def llava_params_from_numpy(tree: dict, device) -> dict:
         return _leaf_to_torch(node, device)
 
     return conv(tree)
+
+
+def nf4_tensor_from_numpy(t, device) -> NF4Tensor:
+    """A JAX ``NF4Tensor`` whose arrays are numpy -> the port's, on device."""
+    def conv(a):
+        return None if a is None else _leaf_to_torch(a, device)
+
+    return NF4Tensor(conv(t.packed), conv(t.absmax), tuple(t.shape),
+                     _TORCH_DTYPES[np.dtype(t.dtype).name], conv(t.absmax_scale),
+                     conv(t.absmax_offset))
+
+
+def nf4_tensor_to_numpy(t: NF4Tensor) -> dict:
+    """The port's NF4Tensor -> its fields as numpy arrays (``shape`` a tuple,
+    ``dtype`` the torch dtype's name), the arguments of JAX's NF4Tensor."""
+    def conv(a):
+        return None if a is None else _leaf_to_numpy(a)
+
+    return {"packed": conv(t.packed), "absmax": conv(t.absmax), "shape": tuple(t.shape),
+            "dtype": str(t.dtype).removeprefix("torch."),
+            "absmax_scale": conv(t.absmax_scale), "absmax_offset": conv(t.absmax_offset)}
 
 
 def _leaf_to_numpy(t: torch.Tensor):

@@ -1,8 +1,16 @@
 """Entry points of the port (counterpart of ``cullavo_tpu/entry.py``): so
 far ``serve``, the continuous-batching engine over a JSONL request stream,
 ``train`` in its smoke mode (one Q-LoRA step on synthetic records), and
-``evaluate`` for the X-Decoder workloads (model, weights and text
-tokenizer built from the config; the datasets come with the data slice).
+``evaluate`` for the VL eval (``vl_test``: LLaVA from a local HF snapshot
+or the smoke model, over registered VQA datasets) and the X-Decoder
+workloads (model, weights and text tokenizer built from the config; their
+dataset kinds come with a later data slice).
+
+``MODEL.LLM.LOAD_PATH`` names a local snapshot: ``config.json``,
+``*.safetensors`` shards and ``tokenizer.json`` (read by the port's own
+readers, kept in the snapshot's dtype, loaded onto the device).  A missing
+file raises; the JAX entry's quiet fallbacks (the 7B config, the byte
+tokenizer) are not copied.
 
 The entry points take the parsed config as a dict (the layout of
 ``configs/serve.yaml``) and run on the GPU unless the caller names another
@@ -14,19 +22,25 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
 import sys
 import time
 
 import numpy as np
 import torch
 
-from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
+from cullavo_tpu_torch.checkpoint.hf_import import llava_config_from_json, load_llava_safetensors
+from cullavo_tpu_torch.data.datasets import register_vqa
+from cullavo_tpu_torch.data.mappers.eval_mappers import VQAEvalMapper
+from cullavo_tpu_torch.data.registry import get_dataset
+from cullavo_tpu_torch.data.tokenizer import ByteTokenizer, HFTokenizer
 from cullavo_tpu_torch.models.llava.config import tiny_llava_config
 from cullavo_tpu_torch.models.llava.lora import maybe_quantize_base
 from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
 from cullavo_tpu_torch.models.llava.modeling import GenerationConfig, init_llava_params
 from cullavo_tpu_torch.models.xdecoder.model import init_xdecoder_model_params
 from cullavo_tpu_torch.pipelines import cullavo_pipeline  # noqa: F401 (registration)
+from cullavo_tpu_torch.pipelines import vqa_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines import xdecoder_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines.base import build_pipeline
 from cullavo_tpu_torch.serving import Request, ServingEngine
@@ -54,20 +68,27 @@ def smoke_llava_config():
 
 
 def _build_llava(cfg: dict, device):
-    """(model config, params on ``device``, tokenizer) from ``MODEL.LLM``."""
+    """(model config, params on ``device``, tokenizer) from ``MODEL.LLM``:
+    a local HF snapshot (``LOAD_PATH``), or the tiny random smoke model; then
+    the base quantization of ``BITS`` (4 = NF4, 8 = int8)."""
     llm_cfg = (cfg.get("MODEL") or {}).get("LLM") or {}
-    if llm_cfg.get("LOAD_PATH"):
-        raise NotImplementedError("loading a snapshot (MODEL.LLM.LOAD_PATH) waits for the "
-                                  "checkpoint slice; leave it null for the smoke model")
-    print("[entry] no MODEL.LLM.LOAD_PATH: using tiny random model (smoke mode)",
-          file=sys.stderr)
-    model_cfg = smoke_llava_config()
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = init_llava_params(model_cfg, gen, device)
+    model_path = llm_cfg.get("LOAD_PATH")
+    if model_path:
+        model_cfg = llava_config_from_json(model_path)
+        # before the weights: a snapshot without a tokenizer fails at once
+        tokenizer = HFTokenizer(model_path)
+        params = load_llava_safetensors(model_path, model_cfg, device=device)
+    else:
+        print("[entry] no MODEL.LLM.LOAD_PATH: using tiny random model (smoke mode)",
+              file=sys.stderr)
+        model_cfg = smoke_llava_config()
+        gen = torch.Generator(device=device).manual_seed(0)
+        params = init_llava_params(model_cfg, gen, device)
+        tokenizer = ByteTokenizer()
     # the reference loads the LLM quantized (BITS: 4 = NF4 Q-LoRA base,
     # 8 = int8): honor it
     params = maybe_quantize_base(params, int(llm_cfg.get("BITS") or 0))
-    return model_cfg, params, ByteTokenizer()
+    return model_cfg, params, tokenizer
 
 
 def _engine_from_cfg(scfg: dict, model_cfg, params, tokenizer, buckets, max_len):
@@ -246,6 +267,53 @@ def _load_xdecoder_params(cfg: dict, model_cfg, device):
                                       device)
 
 
+def register_datasets_from_cfg(cfg: dict) -> None:
+    """``DATASETS.REGISTER: {name: {KIND: vqa, QUESTIONS_JSON, ANNOTATIONS_JSON,
+    IMAGE_DIR, IMAGE_TEMPLATE}}``.  The other kinds and the bulk registration
+    from a ``DETECTRON2_DATASETS`` / ``DATASET`` root raise: they wait for
+    the slices that evaluate them (the JAX entry swallows the bulk errors)."""
+    root = os.environ.get("DETECTRON2_DATASETS") or os.environ.get("DATASET")
+    if root and os.path.isdir(root):
+        raise NotImplementedError(f"bulk dataset registration from {root!r} waits for the "
+                                  "X-Decoder data slice; unset DETECTRON2_DATASETS / DATASET")
+    for name, spec in dict((cfg.get("DATASETS") or {}).get("REGISTER") or {}).items():
+        kind = spec.get("KIND", "semseg")
+        if kind != "vqa":
+            raise NotImplementedError(f"DATASETS.REGISTER kind {kind!r} ({name}): only 'vqa' "
+                                      "is ported")
+        kw = {"image_template": str(spec["IMAGE_TEMPLATE"])} if spec.get("IMAGE_TEMPLATE") else {}
+        register_vqa(name, spec["QUESTIONS_JSON"], spec.get("ANNOTATIONS_JSON"),
+                     spec["IMAGE_DIR"], **kw)
+
+
+def _eval_vl(cfg: dict, device) -> dict:
+    """vl_test: LLaVA (``MODEL.LLM``) through the VQA pipeline of ``PIPELINE``
+    over each ``DATASETS.TEST`` entry, with ``KV_QUANT``, ``SPEC_K``,
+    ``BATCH_SIZE``, ``MAX_NEW_TOKENS``, ``LIMIT`` and ``SAVE_DIR``."""
+    model = cfg.get("MODEL") or {}
+    if model.get("ZOO"):
+        raise NotImplementedError("MODEL.ZOO (BLIP-2, KOSMOS-2, BakLLaVA towers) waits for the "
+                                  "VL-zoo slice")
+    if model.get("TOPIC"):
+        raise NotImplementedError("MODEL.TOPIC (the per-class topic classifier) waits for the "
+                                  "VL-zoo slice")
+    model_cfg, params, tokenizer = _build_llava(cfg, device)
+    extra = {}
+    if cfg.get("KV_QUANT"):
+        extra["kv_quant"] = cfg["KV_QUANT"]
+    if cfg.get("SPEC_K"):
+        extra["spec_k"] = int(cfg["SPEC_K"])
+    pipe = build_pipeline(cfg.get("PIPELINE", "LLaVAVQAVALPipeline"), cfg,
+                          model_cfg=model_cfg, tokenizer=tokenizer, params=params,
+                          batch_size=int(cfg.get("BATCH_SIZE", 8)),
+                          max_new_tokens=int(cfg.get("MAX_NEW_TOKENS", 16)), **extra)
+    limit = int(cfg.get("LIMIT", 0)) or None
+    mapper = VQAEvalMapper(image_size=model_cfg.vision.image_size)
+    return {name: pipe.evaluate_model(map(mapper, get_dataset(name)), limit=limit,
+                                      out_dir=cfg.get("SAVE_DIR"))
+            for name in _dataset_names(cfg)}
+
+
 def _eval_xdecoder(cfg: dict, device) -> dict:
     """The xdecoder workload: the model, its weights and the text tokenizer
     from the config, then ``XDecoderPipeline`` per ``DATASETS.TEST`` entry."""
@@ -253,26 +321,28 @@ def _eval_xdecoder(cfg: dict, device) -> dict:
     _load_xdecoder_params(cfg, model_cfg, device)
     _make_text_tokenize(cfg, model_cfg.text)
     if _dataset_names(cfg):
-        raise NotImplementedError("DATASETS.TEST: the dataset registry and eval mappers wait "
-                                  "for the data slice")
+        raise NotImplementedError("DATASETS.TEST for the X-Decoder: its dataset kinds and eval "
+                                  "mappers wait for the X-Decoder data slice")
     return {}
 
 
 def evaluate(cfg: dict, device=None) -> dict:
-    """Eval workload by ``NAME``: ``xdecoder*`` runs here; step2-pre data
-    generation, ImageNet and the VL eval wait for their slices."""
+    """Eval workload by ``NAME``: ``vl_test`` and ``xdecoder*`` run here;
+    step2-pre data generation and ImageNet wait for their slices."""
     device = _device(device)
+    register_datasets_from_cfg(cfg)
     name = cfg.get("NAME", "")
     if "step2_pre" in name:
         raise NotImplementedError("step2-pre data generation waits for the training-loop slice")
     if "imagenet" in name:
         raise NotImplementedError("ImageNet eval waits for the VL-zoo slice")
     if "vl_test" in name or name == "vl":
-        raise NotImplementedError("the VL eval entry (vl_test) waits for a later slice")
-    if "xdecoder" not in name:
+        results = _eval_vl(cfg, device)
+    elif "xdecoder" in name:
+        results = _eval_xdecoder(cfg, device)
+    else:
         print(f"[entry] unknown eval workload {name!r} (expect one of xdecoder_test / "
               "vl_test / imagenet_test / cullavo_step2_pre)", file=sys.stderr)
         raise SystemExit(2)
-    results = _eval_xdecoder(cfg, device)
     print(json.dumps(results, default=float))
     return results

@@ -228,12 +228,15 @@ def _layer_slice(w, li: int):
 
 
 def _mm(x, w):
-    """x @ w for a dense, an int8 or a planar NF4 weight.  NF4 on CUDA
-    tensors: the kernels (fused below M = 512, dequant once above), with a
-    gradient for x; on CPU tensors the JAX package's own non-TPU branch, a
-    dense matmul against the dequantized weight in x's dtype."""
+    """x @ w for a dense, an int8, a planar NF4 or a byte-packed NF4 (q4)
+    weight.  NF4 on CUDA tensors: the kernels (K6/K11 fused below M = 512,
+    K7/K11's dequant entry once above), with a gradient for x; on CPU
+    tensors the JAX package's own branch, a dense matmul against the
+    dequantized weight in x's dtype.  A q4 dict's d_in is x's last dim."""
     if nf4_ops.is_quantized_planar(w):
         return nf4_ops.nf4_linear_planar_vjp(x, w)
+    if nf4_ops.is_quantized(w):
+        return nf4_ops.nf4_linear_fused_vjp(x, w, x.shape[-1])
     if isinstance(w, dict):
         return nf4_ops.int8_linear_policy(x, w)
     return x @ w

@@ -7,7 +7,9 @@ along the layer axis like the base weights (``{"a": [L, d_in, r], "b":
 [L, r, d_out]}``, vision adapters with a per-layer ``mask``).  The
 separately trainable full modules are the projector, ``lm_head`` and
 ``embed_tokens``.  Base quantization (``quantize_llm_weights``,
-``maybe_quantize_base``): int8 per output channel, or planar NF4.
+``maybe_quantize_base``): int8 per output channel, or NF4 (planar where
+the dims allow it, byte-packed ``q4`` otherwise, as the JAX quantizer
+picks).
 Multi-stacked adapter sets (``stack_adapter_sets``) and the int8 vision
 tower wait for the serving slice that uses them."""
 from __future__ import annotations
@@ -18,7 +20,8 @@ from typing import Optional
 import torch
 
 from cullavo_tpu_torch.models.llava.config import LlavaConfig
-from cullavo_tpu_torch.ops.nf4 import BLOCK, quantize_linear_int8, quantize_linear_planar
+from cullavo_tpu_torch.ops.nf4 import (BLOCK, quantize_linear, quantize_linear_int8,
+                                       quantize_linear_planar)
 
 LLM_TARGETS = ("q", "k", "v", "o", "gate", "up", "down")
 VISION_TARGETS = ("q", "k", "v", "o", "fc1", "fc2")
@@ -43,7 +46,8 @@ class LoraConfig:
 
 def _shapes_of(layers: dict, targets) -> dict:
     """Logical [L, d_in, d_out] shapes, also of quantized weights (the
-    production order loads, quantizes, THEN attaches LoRA)."""
+    production order loads, quantizes, THEN attaches LoRA); None for a
+    byte-packed q4 dict, whose flat leaves do not carry them."""
     out = {}
     for t in targets:
         if t not in layers:
@@ -56,6 +60,8 @@ def _shapes_of(layers: dict, targets) -> dict:
             out[t] = (L, k8 * 8, d_out)
         elif "q8" in w:                    # int8 keeps the logical shape
             out[t] = tuple(w["q8"].shape)
+        elif "q4" in w:                    # flat q4: the caller supplies cfg dims
+            out[t] = None
         else:
             raise NotImplementedError(f"adapter shapes for a weight dict with keys "
                                       f"{sorted(w)} (a layout the port does not run)")
@@ -75,8 +81,16 @@ def init_lora_params(params: dict, cfg: LlavaConfig, lora: LoraConfig,
         a = torch.randn((L, d_in, lora.r), generator=generator, device=device)
         return (a * d_in ** -0.5).to(dtype)
 
-    for t, (L, d_in, d_out) in _shapes_of(params["language_model"]["layers"],
-                                          LLM_TARGETS).items():
+    tc = cfg.text
+    cfg_dims = {"q": (tc.hidden_size, tc.num_attention_heads * tc.head_dim),
+                "k": (tc.hidden_size, tc.num_key_value_heads * tc.head_dim),
+                "v": (tc.hidden_size, tc.num_key_value_heads * tc.head_dim),
+                "o": (tc.num_attention_heads * tc.head_dim, tc.hidden_size),
+                "gate": (tc.hidden_size, tc.intermediate_size),
+                "up": (tc.hidden_size, tc.intermediate_size),
+                "down": (tc.intermediate_size, tc.hidden_size)}
+    for t, shape in _shapes_of(params["language_model"]["layers"], LLM_TARGETS).items():
+        L, d_in, d_out = shape or (tc.num_hidden_layers,) + cfg_dims[t]
         out["language_model"][t] = {
             "a": normal_a(L, d_in),
             "b": torch.zeros((L, lora.r, d_out), dtype=dtype, device=device)}
@@ -183,23 +197,22 @@ def add_step2_adapters(params: dict, step1_lora: dict, cfg: LlavaConfig, lora: L
     return base, init_lora_params(base, cfg, lora, generator, dtype)
 
 
-def _quantize_target(w, bits: int, name: str, smooth_scale=None):
+def _quantize_target(w, bits: int, smooth_scale=None):
     if bits == 8:
         return quantize_linear_int8(w, smooth_scale=smooth_scale)
     d_in, d_out = w.shape[-2], w.shape[-1]
-    if d_in % 8 or d_out % BLOCK:
-        # not left dense silently, and not quantized to a layout nothing runs
-        raise NotImplementedError(
-            f"NF4 target {name!r} is [{d_in}, {d_out}]: the planar layout needs "
-            f"d_in % 8 == 0 and d_out % {BLOCK} == 0; the byte-packed layout for other "
-            "dims (Pallas rows 8 and 9) is not ported yet")
-    return quantize_linear_planar(w)
+    # the planar layout where the dims allow it, the flat byte layout
+    # otherwise (the JAX quantizer's choice)
+    if d_in % 8 == 0 and d_out % BLOCK == 0:
+        return quantize_linear_planar(w)
+    return quantize_linear(w)
 
 
 def quantize_llm_weights(params: dict, bits: int = 4,
                          smooth_scales: dict | None = None) -> dict:
     """Quantize the stacked LLaMA linear weights (the frozen Q-LoRA base):
-    ``bits=4`` planar NF4, ``bits=8`` int8 per output channel (the
+    ``bits=4`` NF4 (planar, or byte-packed q4 where d_in % 8 or d_out % 64
+    is not 0), ``bits=8`` int8 per output channel (the
     reference's load_in_8bit eval mode).  Embeddings, lm_head, norms,
     projector and vision tower stay in high precision.
 
@@ -221,7 +234,7 @@ def quantize_llm_weights(params: dict, bits: int = 4,
     lm = dict(params["language_model"])
     layers = dict(lm["layers"])
     for t in LLM_TARGETS:
-        layers[t] = _quantize_target(layers[t], bits, t, smooth_scales.get(t))
+        layers[t] = _quantize_target(layers[t], bits, smooth_scales.get(t))
     lm["layers"] = layers
     return {**params, "language_model": lm}
 
@@ -241,6 +254,6 @@ def maybe_quantize_base(params: dict, bits: int) -> dict:
     lm = dict(params["language_model"])
     layers = dict(layers_in)
     for t in LLM_TARGETS:
-        layers[t] = _quantize_target(layers_in.pop(t), bits, t)
+        layers[t] = _quantize_target(layers_in.pop(t), bits)
     lm["layers"] = layers
     return {**params, "language_model": lm}

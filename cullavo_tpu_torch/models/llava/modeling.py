@@ -239,12 +239,12 @@ def _sample_token(logits: torch.Tensor, gen: GenerationConfig) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-_PRESERVE_FP32_KEYS = ("scale", "scale8")
+_PRESERVE_FP32_KEYS = ("scale", "scale8", "absmax", "absmax_scale", "absmax_offset")
 
 
 def _cast_params(params, compute_dtype):
-    """Cast f32/f16 leaves to the compute dtype EXCEPT scales (``scale``,
-    ``scale8`` stay f32); bf16 leaves stay as they are (JAX's
+    """Cast f32/f16 leaves to the compute dtype EXCEPT quantization scales
+    (``_PRESERVE_FP32_KEYS`` stay f32); bf16 leaves stay as they are (JAX's
     ``from_bf16=False``, the only mode generation uses).  Returns a new
     dict; a leaf already in the dtype is returned as is (no copy)."""
     def cast(key, a):

@@ -1,11 +1,15 @@
 """Quantized linears (counterpart of ``cullavo_tpu/ops/nf4.py``): SmoothQuant
-W8A8 int8 weights and planar NF4 weights.
+W8A8 int8 weights, planar NF4 weights and the byte-packed NF4 formats.
 
 Weight dicts keep the JAX layout: int8 ``{"q8": int8 [..., K, N], "scale8":
 f32 [..., 1, N], "sq_inv": bf16 [..., 1, K]}``; planar NF4 ``{"q4p": int32
 [..., K/8, N], "scale": f32 [..., K, N/64]}`` (bits 4i..4i+3 of word
 [k8, n] hold the code of element (i * K/8 + k8, n); one absmax per row and
-64-column block).  Four kernels live here:
+64-column block); byte-packed NF4 ``{"q4": uint8 [..., K*N/2], "scale": f32
+[..., K*N/64]}`` (``quantize_linear``: the flat row-major weight in blocks of
+64, two codes per byte, high nibble first) and ``NF4Tensor`` (the same
+packing of any 2-D array, with a double-quantized absmax).  Five kernels
+live here:
 
 * K2 ``quantize_rows`` (``csrc/quant_rows.cu``): the per-token activation
   quantizer in front of every s8s8 prefill GEMM, bit-identical to the JAX
@@ -16,6 +20,10 @@ f32 [..., 1, N], "sq_inv": bf16 [..., 1, K]}``; planar NF4 ``{"q4p": int32
   scale)`` with the weight kept 4-bit in device memory, for M < 512.
 * K7 ``nf4_dequant_planar`` (``csrc/nf4_planar.cu``): planar NF4 -> dense
   bf16 once, in front of a plain matmul, for M >= 512.
+* K11 ``nf4_linear_q4`` / ``nf4_dequant_q4`` (``csrc/nf4_q4.cu``): the
+  byte-packed counterparts of K6 and K7, for ``q4`` dicts whose N is a
+  multiple of 64 (one absmax per row and 64-column block) and for
+  ``nf4_matmul_fused`` over an ``NF4Tensor`` (absmax decoded first).
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel (or raises) for a CUDA tensor.  The int8 x int8 ->
@@ -24,6 +32,9 @@ JAX leaves it to XLA's ``dot_general``; on the CPU it is an exact int32
 matmul.  Dict kinds outside this slice raise ``NotImplementedError``.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,7 +49,6 @@ _NOT_IN_SLICE = {
     "q8t": "the transposed int8 layout ('q8t') waits for a later slice",
     "o_w": "static LLM.int8 outlier dicts ('o_w') wait for slice 4 (calibration)",
     "sa": "static activation scales ('sa') wait for slice 4 (calibration)",
-    "q4": "byte-packed NF4 weights ('q4', Pallas rows 8 and 9) are not ported yet",
 }
 
 
@@ -523,3 +533,343 @@ def nf4_linear_planar_vjp(x: torch.Tensor, q: dict, d_in=None, d_out=None) -> to
     if x.device.type == "cpu":
         return x @ dequant_linear_planar(q, dtype=x.dtype)
     return _Nf4LinearPlanar.apply(x, q["q4p"], q["scale"])
+
+
+# ---------------------------------------------------------------------------
+# byte-packed NF4: quantize_linear dicts ("q4") and NF4Tensor
+# ---------------------------------------------------------------------------
+
+ABSMAX_BLOCK = 256  # absmax values per double-quant block
+
+
+def _create_dynamic_map(signed: bool = True, max_exponent_bits: int = 7,
+                        total_bits: int = 8) -> np.ndarray:
+    """bitsandbytes' dynamic 8-bit map (sorted, 256 entries): the port's copy
+    of ``create_dynamic_map`` in ``cullavo_tpu/ops/nf4_oracle.py``, which the
+    JAX quantizer's double quantization uses."""
+    data = []
+    non_sign_bits = total_bits - 1
+    additional_items = 2 ** (non_sign_bits - max_exponent_bits) - 1
+    for i in range(max_exponent_bits):
+        fraction_items = int(
+            2 ** (i + non_sign_bits - max_exponent_bits) + 1 if signed
+            else 2 ** (i + non_sign_bits - max_exponent_bits + 1) + 1)
+        boundaries = np.linspace(0.1, 1, fraction_items)
+        means = (boundaries[:-1] + boundaries[1:]) / 2.0
+        data += ((10 ** (-(max_exponent_bits - 1) + i)) * means).tolist()
+        if signed:
+            data += (-(10 ** (-(max_exponent_bits - 1) + i)) * means).tolist()
+    if additional_items > 0:
+        boundaries = np.linspace(0.1, 1, additional_items + 1)
+        means = (boundaries[:-1] + boundaries[1:]) / 2.0
+        data += ((10 ** (-(max_exponent_bits - 1) + max_exponent_bits - 1))
+                 * means).tolist()
+        if signed:
+            data += (-(10 ** (-(max_exponent_bits - 1) + max_exponent_bits - 1))
+                     * means).tolist()
+    data.append(0)
+    data.append(1.0)
+    if len(data) != 2 ** total_bits:
+        raise ValueError(f"dynamic map has {len(data)} entries, not {2 ** total_bits}")
+    data.sort()
+    return np.asarray(data, dtype=np.float32)
+
+
+DYNAMIC_MAP = _create_dynamic_map(signed=True)
+DYNAMIC_MIDPOINTS = (DYNAMIC_MAP[1:] + DYNAMIC_MAP[:-1]) / 2.0
+
+
+@dataclasses.dataclass
+class NF4Tensor:
+    """Packed NF4 representation of a 2-D array (flattened blockwise)."""
+    packed: torch.Tensor          # uint8 [n/2]: two 4-bit codes per byte (high nibble first)
+    absmax: torch.Tensor          # f32 [n/BLOCK], or uint8 dynamic-map codes when
+                                  # double-quantized
+    shape: tuple                  # original shape
+    dtype: torch.dtype            # original dtype
+    absmax_scale: Optional[torch.Tensor] = None   # f32 per-256-block absmax
+    absmax_offset: Optional[torch.Tensor] = None  # f32 scalar (mean of absmax)
+
+
+def _codes_by_midpoints(normed: torch.Tensor, midpoints: np.ndarray, dtype) -> torch.Tensor:
+    """Nearest codebook entry by strict comparisons against the midpoints
+    (bitsandbytes' rule: a value on a midpoint takes the lower code), each
+    midpoint an f32 constant, as the JAX quantizer compares them."""
+    codes = torch.zeros(normed.shape, dtype=dtype, device=normed.device)
+    for m in midpoints.tolist():
+        codes += normed > m
+    return codes
+
+
+def _encode_blockwise(x_flat: torch.Tensor):
+    """f32 [n] -> (uint8 codes [n], f32 absmax [n/BLOCK])."""
+    n = x_flat.shape[0]
+    if n % BLOCK:
+        raise ValueError(f"size {n} is not a multiple of the NF4 block {BLOCK}")
+    blocks = x_flat.reshape(-1, BLOCK)
+    absmax = blocks.abs().amax(dim=1)
+    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax)
+    normed = _div(blocks, scale[:, None].expand_as(blocks))
+    return _codes_by_midpoints(normed, NF4_MIDPOINTS, torch.uint8).reshape(-1), absmax
+
+
+def _pack_nibbles(codes: torch.Tensor) -> torch.Tensor:
+    return (codes[0::2] << 4) | codes[1::2]
+
+
+def _unpack_nibbles(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., n/2] -> int64 codes [..., n], high nibble first."""
+    return torch.stack([(packed >> 4).long(), (packed & 0xF).long()], dim=-1).flatten(-2)
+
+
+def quantize_nf4(x: torch.Tensor, double_quant: bool = True) -> NF4Tensor:
+    """Blockwise NF4 of any array (bitsandbytes' quantize_4bit, nf4), with
+    the absmax double-quantized by default: the mean of the absmax array is
+    the offset, the centred absmax goes through the dynamic 8-bit map in
+    blocks of 256 with an f32 scale per block.  Codes bit-equal to the JAX
+    quantizer's; the offset is an f32 mean whose summation order may differ
+    from XLA's by an ulp."""
+    shape, dtype = tuple(x.shape), x.dtype
+    codes, absmax = _encode_blockwise(x.float().reshape(-1))
+    packed = _pack_nibbles(codes)
+    if not double_quant:
+        return NF4Tensor(packed, absmax, shape, dtype)
+    offset = absmax.mean()
+    q, ab_scale = _quantize_absmax(absmax, offset)
+    return NF4Tensor(packed, q, shape, dtype, absmax_scale=ab_scale, absmax_offset=offset)
+
+
+def _quantize_absmax(absmax: torch.Tensor, offset: torch.Tensor):
+    """Double quantization of the f32 absmax array around ``offset``: uint8
+    dynamic-map codes [m] and the f32 scale of each 256-block."""
+    m = absmax.shape[0]
+    pad = (-m) % ABSMAX_BLOCK
+    ab = torch.nn.functional.pad(absmax - offset, (0, pad)).reshape(-1, ABSMAX_BLOCK)
+    ab_absmax = ab.abs().amax(dim=1)
+    ab_scale = torch.where(ab_absmax == 0, torch.ones_like(ab_absmax), ab_absmax)
+    normed = _div(ab, ab_scale[:, None].expand_as(ab))
+    q = _codes_by_midpoints(normed, DYNAMIC_MIDPOINTS, torch.int32)
+    return q.reshape(-1)[:m].to(torch.uint8), ab_scale
+
+
+def _decode_absmax(t: NF4Tensor) -> torch.Tensor:
+    """The f32 per-block absmax of an NF4Tensor (double quantization undone)."""
+    if t.absmax_scale is None:
+        return t.absmax.float()
+    m = t.absmax.shape[0]
+    pad = (-m) % ABSMAX_BLOCK
+    idx = torch.nn.functional.pad(t.absmax.long(), (0, pad)).reshape(-1, ABSMAX_BLOCK)
+    dyn = torch.from_numpy(DYNAMIC_MAP).to(t.absmax.device)
+    ab = dyn[idx] * t.absmax_scale[:, None]
+    return ab.reshape(-1)[:m] + t.absmax_offset
+
+
+def dequantize_nf4(t: NF4Tensor, dtype=None) -> torch.Tensor:
+    """Packed NF4 -> dense array of the original shape: ``code_f32 *
+    absmax_f32`` rounded once to ``dtype`` (the original dtype by default)."""
+    code = torch.from_numpy(NF4_CODE).to(t.packed.device)
+    vals = code[_unpack_nibbles(t.packed)]
+    vals = vals.reshape(-1, BLOCK) * _decode_absmax(t)[:, None]
+    return vals.reshape(t.shape).to(dtype or t.dtype)
+
+
+def nf4_matmul(x: torch.Tensor, w: NF4Tensor, dtype=None) -> torch.Tensor:
+    """x @ dequant(w): the JAX package's XLA form."""
+    return x @ dequantize_nf4(w, dtype or x.dtype)
+
+
+def quantize_linear(w: torch.Tensor) -> dict:
+    """[..., d_in, d_out] -> {"q4": uint8 [..., d_in*d_out/2], "scale": f32
+    [..., d_in*d_out/BLOCK]}: each matrix flattened row-major and encoded in
+    blocks of 64 (any shape whose size is a multiple of 64), codes and
+    scales bit-equal to the JAX quantizer's.  One leading matrix at a time,
+    so the f32 temporaries stay one matrix large."""
+    *lead, d_in, d_out = w.shape
+    n = d_in * d_out
+    mats = w.reshape(-1, n)
+    packed = torch.empty((mats.shape[0], n // 2), dtype=torch.uint8, device=w.device)
+    scale = torch.empty((mats.shape[0], n // BLOCK), dtype=torch.float32, device=w.device)
+    for l in range(mats.shape[0]):
+        codes, absmax = _encode_blockwise(mats[l].float())
+        packed[l] = _pack_nibbles(codes)
+        scale[l] = absmax
+    return {"q4": packed.reshape(*lead, n // 2), "scale": scale.reshape(*lead, n // BLOCK)}
+
+
+def is_quantized(w) -> bool:
+    return isinstance(w, dict) and "q4" in w
+
+
+def _q4_dims(q: dict, d_in: int, d_out=None):
+    """(d_in, d_out) of one layer's q4 dict; d_out from the leaf sizes."""
+    n2 = q["q4"].numel()
+    if d_out is None:
+        d_out = 2 * n2 // d_in
+    if d_in * d_out != 2 * n2 or q["scale"].numel() * BLOCK != 2 * n2:
+        raise ValueError(f"q4 dict of {2 * n2} values is not [{d_in}, {d_out}]")
+    return d_in, d_out
+
+
+def dequant_linear(q: dict, d_in: int, d_out: int, dtype=torch.bfloat16) -> torch.Tensor:
+    """One layer's q4 dict -> dense [d_in, d_out]: ``code_f32 * scale_f32``
+    rounded once to ``dtype``.  The plain version of K11's dequant entry."""
+    _q4_dims(q, d_in, d_out)
+    code = torch.from_numpy(NF4_CODE).to(q["q4"].device)
+    vals = code[_unpack_nibbles(q["q4"].reshape(-1))]
+    vals = vals.reshape(-1, BLOCK) * q["scale"].reshape(-1)[:, None].float()
+    return vals.reshape(d_in, d_out).to(dtype)
+
+
+def nf4_linear(x: torch.Tensor, q: dict, d_in: int, d_out: int) -> torch.Tensor:
+    """x @ dequant(q) in x's dtype: the JAX package's XLA form."""
+    return x @ dequant_linear(q, d_in, d_out, x.dtype)
+
+
+def _nf4_linear_q4_plain(x, q, d_in, d_out):
+    """The arithmetic of the TPU kernel (row 9): the f32 dequantized weight,
+    an f32 product, one rounding to x's dtype."""
+    w = dequant_linear(q, d_in, d_out, torch.float32)
+    y = x.reshape(-1, d_in).float() @ w
+    return y.reshape(*x.shape[:-1], d_out).to(x.dtype)
+
+
+def _check_q4_cuda(name, q4, scale, K, N, device):
+    """q4 as uint8 [K, N/2] (a flat leaf viewed 2-D), scale f32 [K, N/64]."""
+    if K % 8 or N % BLOCK:
+        raise ValueError(f"{name}: the kernel needs K % 8 == 0 and N % {BLOCK} == 0 "
+                         f"(K={K}, N={N}): one absmax per row and 64-column block")
+    if q4.dtype != torch.uint8 or not q4.is_contiguous() or q4.data_ptr() % 16:
+        raise ValueError(f"{name}: q4 must be a contiguous, 16-byte aligned uint8 leaf")
+    if scale.dtype != torch.float32 or not scale.is_contiguous():
+        raise ValueError(f"{name}: scale must be a contiguous f32 leaf")
+    if q4.numel() * 2 != K * N or scale.numel() * BLOCK != K * N:
+        raise ValueError(f"{name}: q4/scale hold {q4.numel() * 2} / {scale.numel() * BLOCK} "
+                         f"values, not [{K}, {N}]")
+    if q4.device != device or scale.device != device:
+        raise ValueError(f"{name}: weight and activation on different devices")
+
+
+def _nf4_q4_cuda(name, x, q4, scale, K, N):
+    """K11 on CUDA tensors: bf16 x [..., K] @ deq(q4 [K, N/2], scale [K, N/64])."""
+    _check_q4_cuda(name, q4, scale, K, N, x.device)
+    if x.dtype != torch.bfloat16 or x.shape[-1] != K:
+        raise ValueError(f"{name}: x must be bf16 [..., {K}], got {x.dtype} {tuple(x.shape)}")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, K).contiguous()
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
+    M = x2.shape[0]
+    if M < 1:
+        raise ValueError(f"{name}: x has no rows")
+    splits = _nf4_linear_splits(M, K, N, x.device)
+    partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
+    lib = _build.lib()
+    err = lib.cullavo_nf4_linear_q4(
+        x2.data_ptr(), q4.data_ptr(), scale.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        M, K, N, splits, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, name)
+    nf4_linear_q4.launches += 1
+    return out.reshape(*lead, N)
+
+
+def nf4_linear_q4(x: torch.Tensor, q: dict, d_in: int, d_out=None) -> torch.Tensor:
+    """Fused byte-packed dequant-matmul ``x [..., d_in] @ dequant(q)`` (K11,
+    Pallas row 9, ``nf4_linear_pallas``): the weight stays 4-bit in device
+    memory.  One layer's q4 dict."""
+    d_in, d_out = _q4_dims(q, d_in, d_out)
+    if x.device.type == "cpu":
+        return _nf4_linear_q4_plain(x, q, d_in, d_out)
+    if x.device.type != "cuda":
+        raise ValueError(f"nf4_linear_q4: unsupported device {x.device}")
+    return _nf4_q4_cuda("nf4_linear_q4", x, q["q4"], q["scale"], d_in, d_out)
+
+
+nf4_linear_q4.launches = 0
+
+
+def nf4_dequant_q4(q: dict, d_in: int, d_out=None, dtype=torch.bfloat16) -> torch.Tensor:
+    """One layer's q4 dict -> dense bf16 [d_in, d_out] in one pass (K11's
+    dequant entry), bit-equal to ``dequant_linear``."""
+    d_in, d_out = _q4_dims(q, d_in, d_out)
+    device = q["q4"].device
+    if device.type == "cpu":
+        return dequant_linear(q, d_in, d_out, dtype)
+    if device.type != "cuda":
+        raise ValueError(f"nf4_dequant_q4: unsupported device {device}")
+    if dtype != torch.bfloat16:
+        raise ValueError(f"nf4_dequant_q4: the kernel writes bf16, not {dtype}")
+    _check_q4_cuda("nf4_dequant_q4", q["q4"], q["scale"], d_in, d_out, device)
+    out = torch.empty((d_in, d_out), dtype=torch.bfloat16, device=device)
+    lib = _build.lib()
+    err = lib.cullavo_nf4_dequant_q4(
+        q["q4"].data_ptr(), q["scale"].data_ptr(), out.data_ptr(), d_in, d_out,
+        torch.cuda.current_stream(device).cuda_stream)
+    _build.check(err, "nf4_dequant_q4")
+    nf4_dequant_q4.launches += 1
+    return out
+
+
+nf4_dequant_q4.launches = 0
+
+
+def nf4_linear_q4_auto(x: torch.Tensor, q: dict, d_in: int, d_out=None) -> torch.Tensor:
+    """K11 fused below M = 512; at prefill-sized M, K11's dequant entry once
+    and a dense bf16 matmul (JAX leaves the q4 product to XLA's dequant +
+    dot)."""
+    if _rows(x) >= _NF4_DEQ_M_THRESHOLD:
+        w = nf4_dequant_q4(q, d_in, d_out, torch.bfloat16)
+        return (x.to(torch.bfloat16) @ w).to(x.dtype)
+    return nf4_linear_q4(x, q, d_in, d_out)
+
+
+def nf4_matmul_fused(x: torch.Tensor, w: NF4Tensor) -> torch.Tensor:
+    """``x [M, K] @ dequantize_nf4(w)`` for a 2-D NF4Tensor (Pallas row 8):
+    the absmax is decoded first (``_decode_absmax``, outside the TPU kernel
+    too); its packed bytes are the row-major [K, N/2] layout of a q4 dict,
+    so on CUDA tensors it is K11 fed the decoded absmax as its [K, N/64]
+    scale.  On CPU tensors: the f32 dequantized weight, an f32 product, one
+    rounding to x's dtype (the TPU kernel's arithmetic)."""
+    K, N = w.shape
+    if x.dim() != 2 or x.shape[1] != K:
+        raise ValueError(f"nf4_matmul_fused: x must be [M, {K}], got {tuple(x.shape)}")
+    if N % BLOCK:
+        raise ValueError(f"nf4_matmul_fused: N={N} must be a multiple of the NF4 block {BLOCK}")
+    absmax = _decode_absmax(w)
+    if x.device.type == "cpu":
+        y = x.float() @ dequantize_nf4(w, torch.float32)
+        return y.to(x.dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"nf4_matmul_fused: unsupported device {x.device}")
+    return _nf4_q4_cuda("nf4_matmul_fused", x, w.packed, absmax, K, N)
+
+
+class _Nf4LinearQ4(torch.autograd.Function):
+    """``nf4_linear_q4_auto`` with a gradient for x only (the packed base is
+    frozen): backward ``dx = dy @ dequant(q).T``, as JAX's ``_nf4f_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, q4, scale, d_in, d_out):
+        ctx.save_for_backward(q4, scale)
+        ctx.dims = (d_in, d_out)
+        return nf4_linear_q4_auto(x, {"q4": q4, "scale": scale}, d_in, d_out)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q4, scale = ctx.saved_tensors
+        w = nf4_dequant_q4({"q4": q4, "scale": scale}, *ctx.dims, dtype=torch.bfloat16)
+        dx = dy.to(torch.bfloat16) @ w.T
+        return dx.to(dy.dtype), None, None, None, None
+
+
+def nf4_linear_fused_vjp(x: torch.Tensor, q: dict, d_in: int, d_out=None) -> torch.Tensor:
+    """Differentiable ``x @ dequant(q)`` over a frozen q4 weight.  CUDA
+    tensors: K11 (fused below M = 512, dequant entry + a dense bf16 matmul
+    above), backward ``dx = dy.bf16 @ K11-dequant(q).T``, saving only the
+    4-bit bytes and scales.  CPU tensors: the JAX package's own branch for
+    q4 dicts (``nf4_linear``: dequant in x's dtype, then the product),
+    differentiated by autograd."""
+    d_in, d_out = _q4_dims(q, d_in, d_out)
+    if x.device.type == "cpu":
+        return nf4_linear(x, q, d_in, d_out)
+    return _Nf4LinearQ4.apply(x, q["q4"], q["scale"], d_in, d_out)

@@ -2,7 +2,9 @@
 ``cullavo_tpu/pipelines/vqa_pipeline.py``): bucketed, batched greedy
 decoding through ``generate_prefill_chunked`` + ``generate_decode`` (or
 ``generate_decode_spec`` with ``spec_k``), over a bf16 or an int8 KV cache,
-and VQA consensus accuracy.  Topic classification waits for a later slice."""
+and VQA consensus accuracy (``LLaVAVQAVALPipeline``), or the VQAv2
+test-dev submission file (``LLaVAVQATESTPipeline``).  Topic classification
+waits for a later slice."""
 from __future__ import annotations
 
 import csv
@@ -20,6 +22,7 @@ from cullavo_tpu_torch.models.llava.modeling import (GenerationConfig,
                                                      generate_decode,
                                                      generate_decode_spec,
                                                      generate_prefill_chunked)
+from cullavo_tpu_torch.pipelines.base import register_pipeline
 
 # the LLaVA-1.5 system prompt (cullavo_tpu/data/step1_synthesis.py)
 SYSTEM_PROMPT = ("A chat between a curious human and an artificial intelligence "
@@ -36,6 +39,7 @@ def _bucket(n: int, buckets=(64, 96, 128, 192, 256)) -> int:
     return -(-n // 64) * 64
 
 
+@register_pipeline("LLaVAVQAVALPipeline")
 class VQAPipeline:
     def __init__(self, cfg, model_cfg: LlavaConfig, tokenizer, params: dict,
                  topic_fn: Optional[Callable[[str], str]] = None,
@@ -136,3 +140,28 @@ class VQAPipeline:
                     w.writerow([topic, r["overall"], r["n"]])
                 w.writerow(["TOTAL", results["overall"], results["n"]])
         return results
+
+
+@register_pipeline("LLaVAVQATESTPipeline")
+class VQATestPipeline(VQAPipeline):
+    """VQAv2 test / test-dev submission run: the val pipeline's decode path
+    over rows without annotations; no accuracy, the product is the EvalAI
+    submission JSON (``vqa_submission.json``, a list of ``{"question_id",
+    "answer"}``)."""
+
+    def evaluate_model(self, dataset: Iterable[dict], limit: Optional[int] = None,
+                       out_dir: Optional[str] = None) -> dict:
+        evaluator = VQAEvaluator()
+        rows = list(dataset)
+        if limit:
+            rows = rows[:limit]
+        for i in range(0, len(rows), self.batch_size):
+            chunk = rows[i:i + self.batch_size]
+            pix = np.stack([r["pixel_values"] for r in chunk])
+            answers = self.answer_batch([r["question"] for r in chunk], pix)
+            for r, ans in zip(chunk, answers):
+                evaluator.process(r["question_id"], ans, r.get("answers"))
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            evaluator.dump_results(os.path.join(out_dir, "vqa_submission.json"))
+        return {"n": len(evaluator.results), "submission": True}

@@ -4,7 +4,7 @@
 A request row is a plain dict:
 
     {"id": int, "prompt": str | "input_ids": [int, ...],
-     "image": path(.npy [3,H,W] f32) | nested list [3,H,W] | null,
+     "image": path(.npy [3,H,W] f32 | image file) | nested list [3,H,W] | null,
      "max_new_tokens": int}
 
 ``request_from_row`` turns it into a ``serving.Request`` with the engine's
@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from cullavo_tpu_torch.data.image_processing import preprocess_numpy
+from cullavo_tpu_torch.data.mappers.eval_mappers import load_image_rgb
 from cullavo_tpu_torch.models.llava.modeling import expand_image_token
 from cullavo_tpu_torch.serving.engine import Request
 
@@ -23,14 +25,11 @@ __all__ = ["load_pixels", "request_from_row"]
 
 
 def load_pixels(path: str, image_size: int) -> np.ndarray:
-    """``.npy`` -> as stored (preprocessed pixels).  Decoding an image file
-    needs the CLIP preprocessing, which is not ported yet."""
+    """``.npy`` -> as stored (preprocessed pixels); any other file -> decoded
+    (``load_image_rgb``, which needs PIL) and CLIP-preprocessed."""
     if path.endswith(".npy"):
         return np.load(path).astype(np.float32)
-    raise NotImplementedError(
-        f"image file {path!r}: the CLIP image preprocessing is not ported yet; "
-        f"send preprocessed pixels as a .npy [3, {image_size}, {image_size}] f32 file "
-        "or inline")
+    return preprocess_numpy([load_image_rgb(path)], size=image_size)[0]
 
 
 def request_from_row(row: dict, model_cfg, tokenizer) -> Request:

@@ -194,14 +194,18 @@ def test_quantize_llm_weights_nf4_and_bridge(nf4_models):
 
 
 def test_non_planar_target_raises_and_q4_stays_out():
-    """The tiny config's k and v are [64, 32]: not planar.  The port names
-    the byte-packed layout instead of leaving the target dense."""
+    """The tiny config's k and v are [64, 32]: not planar.  They take the
+    byte-packed q4 layout (as the JAX quantizer picks it) instead of staying
+    dense; the dict kinds still outside the port raise; so do bits other
+    than 4 and 8."""
     cfg = t_tiny(VOCAB)
     params = tm.init_llava_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="rows 8 and 9"):
-        t_quantize(params, bits=4)
-    with pytest.raises(NotImplementedError, match="rows 8 and 9"):
-        tnf4.check_slice_kind({"q4": torch.zeros(4, dtype=torch.uint8)})
+    layers = t_quantize(params, bits=4)["language_model"]["layers"]
+    assert sorted(layers["k"]) == sorted(layers["v"]) == ["q4", "scale"]
+    assert "q4p" in layers["q"] and "q4p" in layers["down"]
+    tnf4.check_slice_kind({"q4": torch.zeros(4, dtype=torch.uint8)})
+    with pytest.raises(NotImplementedError, match="q8t"):
+        tnf4.check_slice_kind({"q8t": torch.zeros(4, dtype=torch.int8)})
     with pytest.raises(ValueError, match="bits must be"):
         t_quantize(params, bits=3)
 

@@ -69,6 +69,11 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.models.xdecoder.decoder",
     "cullavo_tpu_torch.models.xdecoder.model",
     "cullavo_tpu_torch.pipelines.xdecoder_pipeline",
+    "cullavo_tpu_torch.checkpoint.safetensors_io",
+    "cullavo_tpu_torch.checkpoint.hf_import",
+    "cullavo_tpu_torch.data.registry",
+    "cullavo_tpu_torch.data.datasets",
+    "cullavo_tpu_torch.data.mappers.eval_mappers",
 )
 
 
@@ -87,8 +92,8 @@ def _env():
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in SLICE_MODULES)
-            + "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-              " or m == 'cullavo_tpu' or m.startswith('cullavo_tpu.') or m in ('yaml', 'optax')]\n"
+            + "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'cullavo_tpu', 'yaml',"
+              " 'optax', 'transformers', 'tokenizers', 'safetensors', 'PIL')]\n"
               "print(bad)\n"
               "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
@@ -112,6 +117,26 @@ def test_no_source_names_jax_or_the_jax_package_in_an_import():
     assert banned.search("    from cullavo_tpu.data import x") and banned.search("import jax")
     assert banned.search("    import yaml") and banned.search("import optax")
     assert not banned.search("from cullavo_tpu_torch.ops import nf4")
+
+
+def test_port_reads_snapshots_without_the_hf_libraries():
+    """No import of transformers, tokenizers or safetensors anywhere in the
+    port or in ``chip_smoke.py`` (the machine with the card has none of
+    them: the port reads safetensors and tokenizer.json itself); PIL only
+    inside ``load_image_rgb``."""
+    hf = re.compile(r"^\s*(import|from)\s+(transformers|tokenizers|safetensors)(\.|\s|$)", re.M)
+    pil = re.compile(r"^(\s*)(import|from)\s+PIL(\.|\s|$)", re.M)
+    paths = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for path in paths:
+        text = path.read_text()
+        hit = hf.search(text)
+        assert hit is None, f"{path.relative_to(REPO)}: {hit.group(0).strip()!r}"
+        for m in pil.finditer(text):
+            fn = text[:m.start()].rsplit("\ndef ", 1)[-1].split("(", 1)[0]
+            assert (path.name, fn, m.group(1)) == ("eval_mappers.py", "load_image_rgb", "    "), (
+                f"{path.relative_to(REPO)}: PIL imported in {fn!r}")
+    assert hf.search("from safetensors import safe_open") and hf.search("    import tokenizers")
+    assert not hf.search("from cullavo_tpu_torch.checkpoint import safetensors_io")
 
 
 def test_evaluate_model_runs_without_the_jax_package():
@@ -187,7 +212,8 @@ def test_kernel_counters_stay_zero_on_cpu_tensors():
     wrappers = (fa.flash_attention, fa.flash_lse, fa.flash_rows, nf4.quantize_rows,
                 nf4.int8_linear, ww.wwin_decode_smajor, ww.wwin_decode_smajor_q8,
                 nf4.nf4_linear_planar, nf4.nf4_dequant_planar,
-                msdeform.ms_deform_attn_kernel, focal.focal_ctx_kernel)
+                msdeform.ms_deform_attn_kernel, focal.focal_ctx_kernel,
+                nf4.nf4_linear_q4, nf4.nf4_dequant_q4)
     before = [w.launches for w in wrappers]
     x = torch.randn(1, 2, 5, 8)
     fa.flash_attention(x, x, x)
@@ -209,6 +235,12 @@ def test_kernel_counters_stay_zero_on_cpu_tensors():
     nf4.nf4_linear_planar_auto(torch.randn(600, 16), q4)
     xq = torch.randn(600, 16, requires_grad=True)
     nf4.nf4_linear_planar_vjp(xq, q4).sum().backward()
+    qb = nf4.quantize_linear(torch.randn(16, 64))
+    nf4.nf4_linear_q4(torch.randn(3, 16), qb, 16)
+    nf4.nf4_dequant_q4(qb, 16)
+    nf4.nf4_linear_q4_auto(torch.randn(600, 16), qb, 16)
+    nf4.nf4_linear_fused_vjp(xq, qb, 16).sum().backward()
+    nf4.nf4_matmul_fused(torch.randn(3, 16), nf4.quantize_nf4(torch.randn(16, 64)))
     msdeform.ms_deform_attn_kernel(torch.randn(1, 20, 2, 32), ((4, 5),),
                                    torch.rand(1, 3, 2, 1, 4, 2), torch.rand(1, 3, 2, 1, 4))
     focal.focal_ctx_kernel(torch.randn(1, 4, 30), torch.randn(1, 3, 30),
@@ -496,6 +528,74 @@ def test_cuda_nf4_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         nf4.nf4_linear_planar(x.to(torch.bfloat16), {k: v.cpu() for k, v in q.items()})
     with pytest.raises(ValueError, match="one \\[K/8, N\\] matrix"):
         nf4.nf4_dequant_planar({k: v[None] for k, v in q.items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(128, 192), (1096, 64), (4096, 256)])
+def test_cuda_nf4_dequant_q4_bit_equal(cuda_device, K, N):
+    """K11's dequant entry against ``dequant_linear``, bit for bit."""
+    from cullavo_tpu_torch.ops import nf4
+
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    q = nf4.quantize_linear(torch.randn((K, N), generator=g, device=cuda_device) * K ** -0.5)
+    n0 = nf4.nf4_dequant_q4.launches
+    got = nf4.nf4_dequant_q4(q, K)
+    assert nf4.nf4_dequant_q4.launches == n0 + 1
+    assert torch.equal(got.view(torch.int16), nf4.dequant_linear(q, K, N).view(torch.int16))
+    with pytest.raises(ValueError, match="writes bf16"):
+        nf4.nf4_dequant_q4(q, K, dtype=torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 14, 64, 129, 300, 511, 700])
+@pytest.mark.parametrize("K,N", [(128, 192), (1096, 64), (4096, 256)])
+def test_cuda_nf4_linear_q4_matches_plain(cuda_device, M, K, N):
+    """K11 against its f32 plain version within 1e-2 + 1e-2 |ref| (the f32
+    weight as two bf16 terms, f32 sums in another order, one bf16 rounding
+    on each side).  K = 1096: a
+    ragged last chunk of the kernel's 128-row chunks; M = 700: two row
+    blocks.  Row 8: the same kernel fed an NF4Tensor's decoded absmax."""
+    from cullavo_tpu_torch.ops import nf4
+
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    w = torch.randn((K, N), generator=g, device=cuda_device) * K ** -0.5
+    q = nf4.quantize_linear(w)
+    x = torch.randn((M, K), generator=g, device=cuda_device).to(torch.bfloat16)
+    n0 = nf4.nf4_linear_q4.launches
+    y = nf4.nf4_linear_q4(x, q, K)
+    assert nf4.nf4_linear_q4.launches == n0 + 1
+    ref = nf4._nf4_linear_q4_plain(x, q, K, N)
+    assert torch.isfinite(y).all()
+    assert torch.allclose(y.float(), ref.float(), rtol=1e-2, atol=1e-2)
+    y3 = nf4.nf4_linear_q4(x.reshape(1, M, K), q, K)
+    assert y3.shape == (1, M, N) and torch.equal(y3[0], y)        # deterministic split-K
+    t = nf4.quantize_nf4(w)
+    y8 = nf4.nf4_matmul_fused(x, t)
+    ref8 = (x.float() @ nf4.dequantize_nf4(t, torch.float32)).to(torch.bfloat16)
+    assert torch.allclose(y8.float(), ref8.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_cuda_nf4_q4_vjp_and_refusals(cuda_device):
+    """dx = dy @ K11-dequant(q).T; a dtype, a device or a width the kernel
+    does not take raises instead of stepping down to the plain version."""
+    from cullavo_tpu_torch.ops import nf4
+
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    K, N = 256, 320
+    q = nf4.quantize_linear(torch.randn((K, N), generator=g, device=cuda_device) * K ** -0.5)
+    x = torch.randn((9, K), generator=g, device=cuda_device).to(torch.bfloat16).requires_grad_(True)
+    dy = torch.randn((9, N), generator=g, device=cuda_device).to(torch.bfloat16)
+    nf4.nf4_linear_fused_vjp(x, q, K).backward(dy)
+    ref = dy.float() @ nf4.dequant_linear(q, K, N).float().T
+    assert torch.allclose(x.grad.float(), ref, rtol=1e-2, atol=1e-2)
+    with pytest.raises(ValueError, match="x must be bf16"):
+        nf4.nf4_linear_q4(x.detach().float(), q, K)
+    with pytest.raises(ValueError, match="different devices"):
+        nf4.nf4_linear_q4(x.detach(), {k: v.cpu() for k, v in q.items()}, K)
+    qn = nf4.quantize_linear(torch.randn((64, 32), device=cuda_device))
+    with pytest.raises(ValueError, match="N % 64 == 0"):
+        nf4.nf4_linear_q4(torch.randn((3, 64), device=cuda_device).to(torch.bfloat16), qn, 64)
 
 
 def _flash_case(dev, B, H, T, S, seed, left_pad=False):

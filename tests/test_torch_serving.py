@@ -779,7 +779,7 @@ def test_request_from_row(tmp_path):
                           cfg, None)
     assert r2.max_new_tokens == 32 and r2.input_ids.tolist() == r.input_ids.tolist()
     assert request_from_row({"id": 5, "input_ids": [1, 2, 3]}, cfg, None).pixel_values is None
-    with pytest.raises(NotImplementedError, match="preprocessing"):
+    with pytest.raises(FileNotFoundError, match="cat.jpg"):
         request_from_row({"id": 6, "input_ids": [1, 5], "image": "cat.jpg"}, cfg, None)
     with pytest.raises(ValueError, match="no tokenizer"):
         request_from_row({"id": 7, "prompt": "hi"}, cfg, None)
@@ -831,7 +831,7 @@ def test_entry_serve_smoke_mode_on_cpu(tmp_path, capsys, bits):
     cfg["SERVE"]["REQUESTS"] = str(reqs)
     t_entry.serve(cfg, device="cpu")
     assert [json.loads(line) for line in out.read_text().splitlines()] == rows
-    with pytest.raises(NotImplementedError, match="checkpoint slice"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         t_entry.serve({"MODEL": {"LLM": {"LOAD_PATH": "/some/snapshot"}}}, device="cpu")
     with pytest.raises(NotImplementedError, match="HTTP"):
         t_entry.serve({"SERVE": {"PORT": 0}}, device="cpu")

@@ -591,10 +591,11 @@ def test_data_copies_match_the_originals():
 
 def test_pipeline_builds_state_and_batches_and_trains(models):
     _, tcfg, jp, _, _ = models
-    # the X-Decoder's pipelines register when their module is imported
-    # (by entry, or by another test file in this worker)
+    # the X-Decoder's and the VQA eval's pipelines register when their
+    # module is imported (by entry, or by another test file in this worker)
     assert "CuLLaVOPipeline" in list_pipelines()
-    assert set(list_pipelines()) <= {"CuLLaVOPipeline", "XDecoderPipeline", "RefCOCOPipeline"}
+    assert set(list_pipelines()) <= {"CuLLaVOPipeline", "XDecoderPipeline", "RefCOCOPipeline",
+                                     "LLaVAVQAVALPipeline", "LLaVAVQATESTPipeline"}
     with pytest.raises(KeyError, match="not registered"):
         build_pipeline("NoSuchPipeline", {})
     tp = bridge.llava_params_from_numpy(_np(jp), "cpu")
