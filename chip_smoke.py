@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``cullavo_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py               # kernels, the 7B serving and train paths, X-Decoder
-                                        # eval, vl_test from a written 7B snapshot
+                                        # eval, vl_test from a written 7B snapshot, the VL zoo
     python3 chip_smoke.py --profile     # the same + a profiled run of each path
 
 Phases (each raises on failure, and the script exits non-zero):
@@ -46,7 +46,14 @@ Phases (each raises on failure, and the script exits non-zero):
      14, 64, 256 and 511 within 1e-2 + 1e-2 |ref| of the f32 plain version,
      and as row 8 (an NF4Tensor with its absmax decoded on the card) against
      ``dequantize_nf4`` + the product; timed at M = 14 and 64 beside the
-     bound and the dense bf16 matmul on the dequantized weight.
+     bound and the dense bf16 matmul on the dequantized weight.  Then K12,
+     the one-token decode attention, through ``flash_decode`` at the 7B
+     decode shape [14, 32, 768, 128] bf16 (KV = 32 and 8, S = 700, a wholly
+     masked row) and through ``sdpa_decode_stale`` at the T5-XL and
+     KOSMOS-2 decode shapes in f32 (the current token merged), within 1e-2
+     + 1e-2 |ref| (bf16) and 1e-5 + 1e-5 |ref| (f32); timed at the 7B shape
+     beside the bound, the plain version and ``scaled_dot_product_attention``
+     with a boolean mask, and at the zoo's shapes.
   4. build random LLaVA-1.5-7B weights on the card from a seeded
      ``torch.Generator``: bf16 vision tower, projector, embeddings and head;
      int8 SmoothQuant LLM linears with smooth scales exp(N(0, 0.3)) shared
@@ -122,6 +129,16 @@ Phases (each raises on failure, and the script exits non-zero):
      14-request greedy batch over the q4 base twice (K11 launched 7 x 32 x
      15 times fused plus 7 x 32 per prefill chunk through its dequant
      entry); rows with decisive logits equal to the planar base's stream.
+  11. the VL zoo: ``entry.evaluate`` with ``MODEL.ZOO`` blip2 and kosmos2
+     at the JAX package's tiny configs on the card (4 questions each, K12
+     launched); BLIP-2 Flan-T5-XL and KOSMOS-2 at full width and 2 layers
+     per tower, f32 on the card against f64 on the CPU (the forward's
+     logits and four decode steps); then each at full width and depth in
+     f32 (3.94 G and 1.66 G random parameters built on the card) answering
+     16 questions on 8 random 224^2 images through
+     ``VLZooVQAPipeline.evaluate_model`` with its native answerer and the
+     byte tokenizer, twice: n = 16, identical answers, K12 launched as the
+     shapes predict; questions/s, ms per question by phase, peak memory.
 The last two lines are the kernels' JSON record and the result line.
 Imports neither JAX nor the JAX package.
 """
@@ -222,6 +239,15 @@ VL_QUESTION_TEXT = ("What is the color of the car?", "How many dogs are there?",
                     "Where is the cat sitting?", "What sport is being played?",
                     "What time of day is it?", "Are there any people in the picture?")
 VL_ANSWERS = ("red", "two", "yes", "no", "food", "sofa", "tennis", "night")
+# the VL zoo path: Salesforce/blip2-flan-t5-xl and microsoft/kosmos-2-patch14-224
+# at full width and depth in f32 (as the pipeline's ModelSpec loads them), each
+# answering 16 questions on 8 random 224^2 images with its reference decode
+# (BLIP-2: beam 5, length penalty -1; KOSMOS-2: greedy), <= 10 new tokens
+ZOO_DATASET, ZOO_IMAGES, ZOO_QUESTIONS, ZOO_SIDE, ZOO_NEW, ZOO_BEAMS = (
+    "chip_vqa_zoo", 8, 16, 224, 10, 5)
+# the card-vs-CPU check: layers per tower; the card's f32 error against the
+# CPU's f64 result may be ZOO_TOL times the CPU's own f32 error, + 1e-5 max |ref|
+ZOO_CUT, ZOO_TOL = 2, 4.0
 
 
 def log(*a):
@@ -384,6 +410,7 @@ def check_kernels(device):
     rec.update(check_q4_kernels(device, g))
     rec.update(check_train_kernels(device, g))
     rec.update(check_xdecoder_kernels(device, g))
+    rec.update(check_decode_kernels(device, g))
     return rec
 
 
@@ -1040,6 +1067,140 @@ def check_wwin_kernels(device, g):
     del cache, q8
     torch.cuda.empty_cache()
     return rec
+
+
+def check_decode_kernels(device, g):
+    """Phase 3, K12 (one-token decode attention) against its plain version
+    on the same inputs.  Row 5's form through ``flash_decode``'s mask
+    (``kv_valid[b, s] & s <= q_position[b]`` as an additive bias): the
+    LLaMA-7B decode shape [14, 32, 768, 128] bf16 with KV = H, a GQA case
+    with KV = 8, S = 700 (not a multiple of 128) and a wholly masked row
+    at S = 768 (the mean of v).  The zoo's forms through
+    ``sdpa_decode_stale`` (the current token merged in f32) against
+    ``sdpa_decode_stale_plain`` (JAX's arithmetic), each over a layer of
+    the stacked f32 cache read in place: T5-XL's decoder (5 beams, 32
+    heads, S = 11, d = 64, scale 1, a per-head relative bias + the causal
+    mask, ``self_bias``) and KOSMOS-2's (1 row, 32 heads, S = its longest
+    prompt + 10, d = 64, scaled, a key-validity mask) at the first, a middle
+    and the last decode step.  Tolerances: 1e-5 + 1e-5 |ref| in f32 and
+    1e-2 + 1e-2 |ref| in bf16 (the plain version widens the same inputs to
+    f32 and sums in another order; in bf16 the output rounds once, at up to
+    one ulp).  Timed at the 7B shape with every key valid beside the plain
+    version, the bound (the valid cache bytes over 3.35 TB/s) and
+    ``scaled_dot_product_attention`` with a boolean mask (a yardstick the
+    port never calls); and at the zoo's shapes."""
+    import torch
+
+    from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
+    from cullavo_tpu_torch.models.llava.llama import sdpa_decode_stale, sdpa_decode_stale_plain
+    from cullavo_tpu_torch.ops import flash_attention as fa
+    from cullavo_tpu_torch.pipelines.vl_zoo_pipeline import MODEL_SPECS
+
+    bf, f32 = torch.bfloat16, torch.float32
+    tols = {f32: 1e-5, bf: 1e-2}
+
+    def hold(label, got, want, dtype):
+        err = (got.float() - want.float()).abs().max().item()
+        log(f"K12 {label}: max_abs_err={err:.3e} (tol {tols[dtype]:g} + {tols[dtype]:g} |ref|)")
+        if not (torch.isfinite(got).all()
+                and torch.allclose(got.float(), want.float(), atol=tols[dtype],
+                                   rtol=tols[dtype])):
+            raise RuntimeError(f"K12 disagrees with its plain version at {label}: {err}")
+        return err
+
+    def partials(label, q, k, v, bias, scale):
+        """K12 against the plain version: o within the tolerance, m and l
+        within 1e-5 relative (one f32 rounding of the dot each)."""
+        B, H, S = q.shape[0], q.shape[1], k.shape[2]
+        got = fa.decode_partials(q, k, v, bias, scale)
+        want = fa._decode_partials_plain(q, k, v, bias.float().expand(B, H, S), scale)
+        torch.cuda.synchronize(device)
+        for name, a, r in zip("ml", got[1:], want[1:]):
+            if not torch.allclose(a, r, atol=1e-5, rtol=1e-5):
+                raise RuntimeError(f"K12 {name} disagrees at {label}: {(a - r).abs().max()}")
+        return hold(label, got[0], want[0], q.dtype), got, want
+
+    worst = 0.0
+    B, H, S, d = BATCH, 32, 768, 128
+    for KV, S_case, masked in ((32, S, False), (8, S, False), (32, 700, False), (32, S, True)):
+        q = torch.randn((B, H, 1, d), generator=g, device=device).to(bf)
+        k, v = (torch.randn((B, KV, S_case, d), generator=g, device=device).to(bf)
+                for _ in range(2))
+        pos = torch.randint(S_case // 2, S_case, (B,), generator=g, device=device)
+        valid = (torch.rand((B, S_case), generator=g, device=device) > 0.05).to(torch.int32)
+        if masked:
+            pos[5] = -1                                  # row 5 sees no key
+        label = f"flash_decode [{B},{H}/{KV},{S_case},{d}] bf16" + (" masked row" if masked else "")
+        err, _, want = partials(label, q, k, v, fa.decode_bias(pos, valid), d ** -0.5)
+        out = fa.flash_decode(q, k, v, pos, valid)
+        worst = max(worst, err, hold(label + " (entry)", out[:, :, 0], want[0], bf))
+        if masked and not torch.allclose(out[5, :, 0].float(), v[5].float().mean(dim=1),
+                                         atol=1e-2, rtol=1e-2):
+            raise RuntimeError("K12: the wholly masked row is not the mean of v")
+
+    # timing at the 7B decode shape, every key valid (the bound's bytes)
+    q = torch.randn((B, H, 1, d), generator=g, device=device).to(bf)
+    k, v = (torch.randn((B, H, S, d), generator=g, device=device).to(bf) for _ in range(2))
+    valid = torch.ones((B, S), dtype=torch.int32, device=device)
+    pos = torch.full((B,), S - 1, device=device)
+    bias = fa.decode_bias(pos, valid)
+    err, got, _ = partials(f"timing case [{B},{H},{S},{d}] bf16", q, k, v, bias, d ** -0.5)
+    worst = max(worst, err)
+    ms = bench_ms(lambda: fa.decode_partials(q, k, v, bias, d ** -0.5), device)
+    plain = bench_ms(lambda: fa._decode_partials_plain(q, k, v, bias.expand(B, H, S), d ** -0.5),
+                     device)
+    mask = (bias == 0)[:, :, None, :]                      # [B, 1, 1, S] boolean
+    lib = bench_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), device)
+    bd = bound(nbytes(q, k, v, bias, *got), 4 * B * H * S * d, "bf16")
+    log(f"K12 [{B},{H},{S},{d}] bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, library sdpa "
+        f"(boolean mask) {lib:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+        f"{nbytes(k, v) / 1e6:.1f} MB of cache)")
+    rec = dict(ms=ms, plain_ms=plain, library_ms=lib, **bd,
+               shape=f"q [{B},{H},1,{d}], k/v [{B},{H},{S},{d}] bf16, every key valid")
+    del q, k, v, bias, got, mask
+
+    # the zoo's forms, over one layer of a stacked f32 cache
+    tok = ByteTokenizer()
+    prompt = 1 + 64 + max(len(tok.encode(MODEL_SPECS["kosmos2"].prompt.format(q=x)))
+                          for x in VL_QUESTION_TEXT)
+    for name, Bz, Sz, n0, scale, t5 in (("T5-XL decoder", ZOO_BEAMS, ZOO_NEW + 1, 0, 1.0, True),
+                                        ("KOSMOS-2 decoder", 1, prompt + ZOO_NEW, prompt,
+                                         64 ** -0.5, False)):
+        kc, vc = (torch.randn((24, Bz, 32, Sz, 64), generator=g, device=device) for _ in range(2))
+        li = 11
+        for step in (0, ZOO_NEW // 2, ZOO_NEW - 1):
+            q, k_cur, v_cur = (torch.randn((Bz, 32, 1, 64), generator=g, device=device)
+                               for _ in range(3))
+            written = torch.arange(Sz, device=device) < n0 + step
+            if t5:
+                bias = (torch.randn((1, 32, 1, Sz), generator=g, device=device)
+                        + torch.where(written, 0.0, -1e9))
+                self_bias = torch.randn((1, 32, 1, 1), generator=g, device=device)
+            else:
+                bias = torch.where(written, 0.0, -1e9).expand(Bz, 1, 1, Sz)
+                self_bias = None
+            label = f"{name} B={Bz} S={Sz} step {step}"
+            worst = max(worst, partials(label, q, kc[li], vc[li], bias[:, :, 0], scale)[0])
+            out = sdpa_decode_stale(q, kc[li], vc[li], k_cur, v_cur, bias, self_bias=self_bias,
+                                    scale=scale)
+            ref = sdpa_decode_stale_plain(q, kc[li], vc[li], k_cur, v_cur, bias,
+                                          self_bias=self_bias, scale=scale)
+            worst = max(worst, hold(label + " merged", out, ref, f32))
+        z_ms = bench_ms(lambda: fa.decode_partials(q, kc[li], vc[li], bias[:, :, 0], scale),
+                        device)
+        z_plain = bench_ms(lambda: fa._decode_partials_plain(
+            q, kc[li], vc[li], bias[:, :, 0].expand(Bz, 32, Sz), scale), device)
+        z_merged = bench_ms(lambda: sdpa_decode_stale(q, kc[li], vc[li], k_cur, v_cur, bias,
+                                                      self_bias=self_bias, scale=scale), device)
+        z_bd = bound(nbytes(q, kc[li], vc[li], bias), 4 * Bz * 32 * Sz * 64, "f32")
+        log(f"K12 {name} [{Bz},32,{Sz},64] f32: kernel {z_ms:.4f} ms, plain {z_plain:.4f} ms, "
+            f"sdpa_decode_stale (K12 + the f32 merge) {z_merged:.4f} ms, bound "
+            f"{z_bd['bound_ms']:.6f} ms ({z_bd['bound_by']})")
+        del kc, vc
+    rec["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return {"flash_decode": rec}
 
 
 def build_params(cfg, device):
@@ -2464,6 +2625,304 @@ def run_q4_path(params, cfg, device, requests, wrappers, smi):
     return counts
 
 
+def zoo_records():
+    """``ZOO_QUESTIONS`` VQA-shaped questions on ``ZOO_IMAGES`` random
+    224^2 images, ten answers each."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 11)
+    images = [rng.integers(0, 256, (ZOO_SIDE, ZOO_SIDE, 3), dtype=np.uint8)
+              for _ in range(ZOO_IMAGES)]
+    return [{"question_id": 2000 + i, "image_id": i % ZOO_IMAGES, "image": images[i % ZOO_IMAGES],
+             "question": VL_QUESTION_TEXT[i % len(VL_QUESTION_TEXT)],
+             "answers": [VL_ANSWERS[(i + j) % len(VL_ANSWERS)] for j in (0,) * 6 + (1,) * 4],
+             "question_type": "what", "answer_type": "other"} for i in range(ZOO_QUESTIONS)]
+
+
+def _zoo_models():
+    """(name, config, initializer, answerer factory, decoder layers) of the
+    two zoo towers, at the published widths and depths."""
+    from cullavo_tpu_torch.models import kosmos2 as k2
+    from cullavo_tpu_torch.models.blip2 import blip2_flant5xl_config, init_blip2_params
+    from cullavo_tpu_torch.pipelines import vl_zoo_pipeline as zoo
+
+    b2 = blip2_flant5xl_config()
+    kc = k2.Kosmos2Config()
+    return (("blip2", b2, init_blip2_params, zoo.native_blip2_answer_fn, b2.text.num_decoder_layers),
+            ("kosmos2", kc, k2.init_kosmos2_params, zoo.native_kosmos2_answer_fn, kc.text.layers))
+
+
+def _cut_zoo_config(name, cfg):
+    r = dataclasses.replace
+    if name == "blip2":
+        return r(cfg, vision=r(cfg.vision, num_hidden_layers=ZOO_CUT),
+                 qformer=r(cfg.qformer, num_hidden_layers=ZOO_CUT),
+                 text=r(cfg.text, num_layers=ZOO_CUT, num_decoder_layers=ZOO_CUT))
+    return r(cfg, vision=r(cfg.vision, num_hidden_layers=ZOO_CUT),
+             text=r(cfg.text, layers=ZOO_CUT))
+
+
+def _zoo_probe(name, cfg, params, inputs):
+    """The forward's logits and the hidden states of four one-token decode
+    steps over the cache (K12 on the card), on one device."""
+    import torch
+
+    from cullavo_tpu_torch.models import kosmos2 as k2
+    from cullavo_tpu_torch.models.blip2 import modeling as b2m
+    from cullavo_tpu_torch.models.blip2 import t5 as t5m
+
+    pix, ids, dec = inputs
+    dev = pix.device
+    mask = torch.ones_like(ids)
+    steps = []
+    if name == "blip2":
+        logits = b2m.blip2_forward(params, cfg, pix, ids, mask, decoder_input_ids=dec)
+        lm = params["language_model"]
+        embeds, emask = b2m._t5_inputs(params, b2m.encode_image(params, cfg, pix), ids, mask)
+        enc = t5m.t5_encode(lm, cfg.text, embeds, emask)
+        cache = t5m.t5_init_cache(cfg.text, 1, dec.shape[1], enc.dtype, dev)
+        for i in range(dec.shape[1]):
+            h, cache = t5m.t5_decode_step(lm, cfg.text, lm["embed_tokens"][dec[:, i:i + 1]], enc,
+                                          emask, torch.tensor([i], device=dev), cache, i,
+                                          stale_cache=True)
+            steps.append(h[:, 0])
+        return logits, torch.stack(steps, 1)
+    n_img, T = cfg.latent_query_num, ids.shape[1]
+    img_mask = torch.zeros_like(ids)
+    img_mask[:, 1:1 + n_img] = 1
+    logits = k2.kosmos2_forward(params, cfg, pix, ids, img_mask, mask)
+    emb = k2._scatter_image_embeds(params["embed_tokens"][ids],
+                                   k2.kosmos2_image_features(params, cfg, pix), img_mask != 0)
+    n = dec.shape[1]
+    full = torch.cat([mask, torch.zeros((1, n), dtype=mask.dtype, device=dev)], dim=1)
+    pos = k2.kosmos2_position_ids(mask, cfg.text.pad_token_id)
+    key_pos = torch.cat([pos, torch.zeros((1, n), dtype=pos.dtype, device=dev)], dim=1)
+    cache = k2.kosmos2_init_cache(cfg.text, 1, T + n, emb.dtype, dev)
+    k2.kosmos2_text_forward(params, cfg.text, emb, full, pos, cache, 0, key_pos)
+    for i in range(n):
+        p = pos[:, -1:] + 1 + i
+        h, cache = k2.kosmos2_text_forward(params, cfg.text, params["embed_tokens"][dec[:, i:i + 1]],
+                                           full, p, cache, T + i, key_pos, stale_cache=True)
+        full[:, T + i] = 1
+        key_pos[:, T + i] = p[:, 0]
+        steps.append(h[:, 0])
+    return logits, torch.stack(steps, 1)
+
+
+def reference_check_zoo(device, wrappers):
+    """Phase 11's card-vs-CPU check: each zoo model at full width and
+    ``ZOO_CUT`` layers per tower: the forward's logits and four decode
+    steps' hidden states (K12 on the card, its plain version on the CPU),
+    f32 on the card (TF32 off) against f64 on the CPU (the softmaxes and
+    K12's plain version stay f32, as the models compute them), within ``ZOO_TOL``
+    times the CPU's own f32 error plus 1e-5 of the largest entry.  The
+    measure is relative because the random-weight T5 is sensitive: its
+    unscaled attention scores reach about +-100, and the CPU's f32 result
+    alone differs from f64 by about 2.6e-4 of the largest logit (KOSMOS-2:
+    about 2e-7)."""
+    import numpy as np
+    import torch
+
+    from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
+    from cullavo_tpu_torch.pipelines import vl_zoo_pipeline as zoo
+    from cullavo_tpu_torch.utils.tree import tree_map
+
+    tok = ByteTokenizer()
+    for name, cfg, init, _, _ in _zoo_models():
+        cut = _cut_zoo_config(name, cfg)
+        params = init(cut, torch.Generator(device=device).manual_seed(SEED + 12), device)
+        vocab = cut.text.vocab_size
+        ids = zoo._fold_ids(np.asarray(tok.encode("Question: What is on the table? Answer:")),
+                            vocab).tolist()
+        if name == "kosmos2":
+            ids = [1] + [3] * cut.latent_query_num + ids
+        ids = torch.tensor([ids], device=device)
+        g = torch.Generator(device=device).manual_seed(SEED + 13)
+        pix = torch.randn((1, 3, ZOO_SIDE, ZOO_SIDE), generator=g, device=device)
+        dec = torch.randint(4, min(vocab, 260), (1, 4), generator=g, device=device)
+        inputs = (pix, ids, dec)
+        got, counts = counted(wrappers, lambda: _zoo_probe(name, cut, params, inputs))
+        cpu_inputs = tuple(t.cpu() for t in inputs)
+        cpu = tree_map(lambda t: t.cpu(), params)
+        want32 = _zoo_probe(name, cut, cpu, cpu_inputs)
+        cpu = tree_map(lambda t: t.double(), cpu)
+        want = _zoo_probe(name, cut, cpu, (cpu_inputs[0].double(), *cpu_inputs[1:]))
+        for what, a, r32, r in zip(("logits", "decode-step hidden states"), got, want32, want):
+            err = (a.cpu().double() - r).abs().max().item()
+            err_cpu = (r32.double() - r).abs().max().item()
+            scale = r.abs().max().item()
+            tol = ZOO_TOL * err_cpu + 1e-5 * scale
+            log(f"{name} card (f32) vs CPU (f64), {ZOO_CUT} layers per tower at full width, "
+                f"{what} {tuple(r.shape)}: max_abs_err={err:.3e}; the CPU's f32 {err_cpu:.3e}; "
+                f"max |ref| {scale:.3f}; tol {tol:.3e}")
+            if not (torch.isfinite(a).all() and err <= tol):
+                raise RuntimeError(f"{name}: the card disagrees with the CPU on {what}: {err}")
+        if counts["flash_decode"] != ZOO_CUT * dec.shape[1]:
+            raise RuntimeError(f"{name} check: K12 launched {counts['flash_decode']} times, "
+                               f"expected {ZOO_CUT * dec.shape[1]}")
+        del params, cpu
+        torch.cuda.empty_cache()
+
+
+def zoo_entry_smoke(device, wrappers):
+    """``entry.evaluate`` with ``MODEL.ZOO: blip2`` and ``kosmos2`` at the
+    JAX package's tiny configs (the checkpoint-free path) on the card, over
+    four of phase 11's questions: n = 4, an accuracy in [0, 100], K12
+    launched."""
+    import math
+
+    from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.data.registry import register_dataset
+
+    records = zoo_records()
+    register_dataset(ZOO_DATASET, lambda: records, {})
+    for zoo_name in ("blip2", "kosmos2"):
+        cfg = {"NAME": "vl_test", "MAX_NEW_TOKENS": ZOO_NEW, "LIMIT": 4,
+               "MODEL": {"ZOO": zoo_name}, "DATASETS": {"TEST": [ZOO_DATASET]}}
+        res, counts = counted(wrappers, lambda: entry.evaluate(cfg))
+        r = res[ZOO_DATASET]
+        log(f"entry.evaluate MODEL.ZOO {zoo_name} (tiny config, card): {r}; K12 launches "
+            f"{counts['flash_decode']}")
+        if not (r["n"] == 4 and math.isfinite(r["overall"]) and 0 <= r["overall"] <= 100
+                and counts["flash_decode"] > 0):
+            raise RuntimeError(f"entry.evaluate MODEL.ZOO {zoo_name}: {r}, {counts}")
+
+
+def run_zoo_path(device, wrappers, smi, profile):
+    """Phase 11: each zoo model at full width and depth in f32 with seeded
+    random weights built on the card answers ``ZOO_QUESTIONS`` questions
+    (CLIP-preprocessed at 224^2 beforehand, as ``entry.evaluate``'s mapper
+    does) through ``VLZooVQAPipeline.evaluate_model`` with its native
+    answerer and the byte tokenizer, twice: n = 16, a finite accuracy,
+    identical answers, and K12 launched as the shapes predict (BLIP-2:
+    decoder layers x 10 beam steps x questions; KOSMOS-2: decoder layers x
+    the greedy steps each question ran, one per token up to its first eos).
+    Prints questions/s, ms per question by phase, peak memory and K12's
+    launches.  Returns the K12 launches of the two models' first runs."""
+    import math
+
+    import torch
+
+    from cullavo_tpu_torch.data.mappers.eval_mappers import VQAEvalMapper
+    from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
+    from cullavo_tpu_torch.models import kosmos2 as k2
+    from cullavo_tpu_torch.models.blip2 import modeling as b2m
+    from cullavo_tpu_torch.models.blip2 import t5 as t5m
+    from cullavo_tpu_torch.pipelines import vl_zoo_pipeline as zoo
+    from cullavo_tpu_torch.utils.tree import tree_leaves
+
+    mapper = VQAEvalMapper(image_size=ZOO_SIDE)
+    rows = []
+    for rec in zoo_records():
+        m = mapper(rec)
+        m["image"] = m.pop("pixel_values")
+        rows.append(m)
+    total = {}
+    for name, cfg, init, answer_fn, n_layers in _zoo_models():
+        t0 = time.perf_counter()
+        params = init(cfg, torch.Generator(device=device).manual_seed(SEED + 14), device)
+        torch.cuda.synchronize(device)
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        log(f"{name}: {n_params / 1e9:.3f} G parameters in f32 built on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        fn = answer_fn(cfg, params, ByteTokenizer(), max_new_tokens=ZOO_NEW)
+        # phase timers around the module functions the answerer reaches
+        if name == "blip2":
+            timers = {"answer": (zoo, "blip2_beam_generate"), "vision": (b2m, "encode_image"),
+                      "encoder": (t5m, "t5_encode")}
+        else:
+            timers = {"answer": (zoo, "kosmos2_generate"),
+                      "vision": (k2, "kosmos2_image_features"), "text": (k2, "kosmos2_text_forward")}
+        spent = dict.fromkeys(("answer", "vision", "encoder"), 0.0)
+        outs = []
+
+        def timed(key, fn_):
+            def run(*a, **kw):
+                torch.cuda.synchronize(device)
+                t = time.perf_counter()
+                out = fn_(*a, **kw)
+                torch.cuda.synchronize(device)
+                dt = time.perf_counter() - t
+                if key != "text":
+                    spent[key] += dt
+                elif not kw.get("stale_cache"):     # the prompt's cached forward
+                    spent["encoder"] += dt
+                if key == "answer":
+                    outs.append(out.cpu())
+                return out
+            return run
+
+        originals = {k: getattr(mod, attr) for k, (mod, attr) in timers.items()}
+        for k, (mod, attr) in timers.items():
+            setattr(mod, attr, timed(k, originals[k]))
+        runs = []
+        for _ in range(2):
+            pipe = zoo.VLZooVQAPipeline(None, name, answer_fn=fn)
+            spent.update(dict.fromkeys(spent, 0.0))
+            outs.clear()
+            torch.cuda.reset_peak_memory_stats(device)
+            t0 = time.perf_counter()
+            res, counts = counted(wrappers, lambda: pipe.evaluate_model(rows))
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            runs.append((res, counts, wall, dict(spent), list(outs),
+                         [r["answer"] for r in pipe.evaluator.results],
+                         torch.cuda.max_memory_allocated(device) / 2**30))
+        for k, (mod, attr) in timers.items():
+            setattr(mod, attr, originals[k])
+        (res, counts, _, _, toks, answers, _), (res2, _, _, _, toks2, answers2, _) = runs
+        if name == "blip2":
+            want = n_layers * ZOO_NEW * ZOO_QUESTIONS
+        else:   # greedy with the early stop: one step per token up to the first eos
+            steps = [int((o[0] == 2).nonzero()[0]) + 1 if (o[0] == 2).any() else ZOO_NEW
+                     for o in toks]
+            want = n_layers * sum(steps)
+        log(f"launches on the {name} zoo path: {counts}; K12 predicted {want}")
+        if counts["flash_decode"] != want:
+            raise RuntimeError(f"{name}: K12 launched {counts['flash_decode']} times, not {want}")
+        if not (res["n"] == ZOO_QUESTIONS and math.isfinite(res["overall"])
+                and 0.0 <= res["overall"] <= 100.0):
+            raise RuntimeError(f"{name}: bad metrics {res}")
+        if answers != answers2 or res != res2 or not all(
+                torch.equal(a, b) for a, b in zip(toks, toks2)):
+            raise RuntimeError(f"{name}: two runs gave different answers")
+        log(f"{name}: {res}; answers identical across the two runs; answers[:3] {answers[:3]}")
+        for i, (_, c, wall, t, _, _, peak) in enumerate(runs, 1):
+            per_q = 1e3 / ZOO_QUESTIONS
+            decode = t["answer"] - t["vision"] - t["encoder"]
+            log(f"{name} run {i} ({smi}): {ZOO_QUESTIONS / wall:.4f} questions/s "
+                f"({wall:.3f} s for {ZOO_QUESTIONS}); ms per question: vision + "
+                f"{'Q-Former/projection' if name == 'blip2' else 'latent-query projection'} "
+                f"{t['vision'] * per_q:.2f}, {'T5 encoder' if name == 'blip2' else 'prompt prefill'} "
+                f"{t['encoder'] * per_q:.2f}, decode {decode * per_q:.2f}, the rest (host: "
+                f"tokenizer, pipeline, scoring) {(wall - t['answer']) * per_q:.2f}; peak memory "
+                f"{peak:.2f} GiB; K12 launches {c['flash_decode']}")
+        total[name] = counts["flash_decode"]
+        if profile:
+            profile_zoo(name, fn, rows[0])
+        del params, fn, pipe
+        torch.cuda.empty_cache()
+    return total
+
+
+def profile_zoo(name, fn, row):
+    """``--profile``: one more answer under torch.profiler; the device-busy
+    share of its wall time and the kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(row["question"], row["image"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    busy = device_seconds(ka)
+    log(f"profile {name} one answer: wall {wall:.4f} s (profiled), device busy {busy:.4f} s "
+        f"({100 * busy / wall:.1f}%)")
+    log(ka.table(sort_by="self_device_time_total", row_limit=18, max_name_column_width=70))
+
+
 def main(argv):
     import torch
 
@@ -2509,7 +2968,8 @@ def main(argv):
                 "flash_fwd_lse": fa.flash_lse, "flash_rows": fa.flash_rows,
                 "ms_deform_attn": msdeform.ms_deform_attn_kernel,
                 "focal_ctx": focal.focal_ctx_kernel,
-                "nf4_linear_q4": nf4.nf4_linear_q4, "nf4_dequant_q4": nf4.nf4_dequant_q4}
+                "nf4_linear_q4": nf4.nf4_linear_q4, "nf4_dequant_q4": nf4.nf4_dequant_q4,
+                "flash_decode": fa.decode_partials}
     meta = {"flash_fwd": ("cullavo_tpu_torch/csrc/flash_fwd.cu",
                           "cullavo_tpu/ops/flash_attention.py:259"),
             "quant_rows": ("cullavo_tpu_torch/csrc/quant_rows.cu",
@@ -2538,7 +2998,11 @@ def main(argv):
             "nf4_linear_q4": ("cullavo_tpu_torch/csrc/nf4_q4.cu",
                               "cullavo_tpu/ops/nf4.py:464"),
             "nf4_dequant_q4": ("cullavo_tpu_torch/csrc/nf4_q4.cu",
-                               "cullavo_tpu/ops/nf4.py:464")}
+                               "cullavo_tpu/ops/nf4.py:464"),
+            # K12: row 5's decode kernel in the general form the zoo's
+            # stale-cache decode needs (cullavo_tpu/models/llava/llama.py:174)
+            "flash_decode": ("cullavo_tpu_torch/csrc/flash_decode.cu",
+                             "cullavo_tpu/ops/flash_attention.py:687")}
 
     # phases 4-6b
     cfg = LlavaConfig()
@@ -2586,6 +3050,11 @@ def main(argv):
     counts_q4 = run_q4_path(params_vl, cfg, device, requests, wrappers, smi)
     del params_vl
     torch.cuda.empty_cache()
+
+    # phase 11
+    zoo_entry_smoke(device, wrappers)
+    reference_check_zoo(device, wrappers)
+    counts_zoo = run_zoo_path(device, wrappers, smi, "--profile" in argv)
     # each kernel's launches on the main path that runs it: K1-K4 the greedy
     # bf16-cache batch, K5 the speculative int8-cache batch, K6 and K7 the
     # serving run, K1-lse the train steps, K8 the attention probe, K9 the
@@ -2599,6 +3068,8 @@ def main(argv):
     counts["ms_deform_attn"] = counts_deform["ms_deform_attn"]
     for name in ("nf4_linear_q4", "nf4_dequant_q4"):
         counts[name] = counts_q4[name]
+    # K12: the two zoo models' first runs of phase 11, each counted from 0
+    counts["flash_decode"] = sum(counts_zoo.values())
     log(f"launches on the vl_test path (BITS 8 from the snapshot): {counts_vl}")
     log(f"K7 launches on the train path: {counts_train['nf4_dequant_planar']}")
     if not all(counts.values()):

@@ -51,6 +51,7 @@ SIGNATURES = {
     "cullavo_msdeform": [_P] * 6 + [_I] * 8 + [_P],
     "cullavo_focal_ctx": [_P] * 7 + [_I] * 5 + [_L] * 4 + [_I] * 3 + [_P],
     "cullavo_focal_ctx_tiles": [_P, _I, _I, _I],
+    "cullavo_flash_decode": [_P] * 7 + [_I] * 6 + [_L] * 11 + [_F, _P],
 }
 
 _lib = None

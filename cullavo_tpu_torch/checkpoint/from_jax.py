@@ -29,6 +29,10 @@ C)`` focal and dw kernels, SAM's ``HWOI`` transposed-convolution kernels)
 to the port's layouts (PyTorch's ``[out, in, k, k]``, ``[depth, C, 1, k,
 k]``, ``[in, out, 2, 2]`` spatially flipped); every other leaf keeps its
 layout.  ``xdecoder_params_to_numpy`` is the inverse (exact).
+
+VL zoo: ``blip2_params_from_numpy`` (the Q-Former's per-layer list stays a
+list) and ``kosmos2_params_from_numpy`` keep every leaf's layout and dtype;
+their ``_to_numpy`` inverses are exact.
 """
 from __future__ import annotations
 
@@ -218,3 +222,16 @@ def xdecoder_params_to_numpy(params: dict) -> dict:
     """The inverse of ``xdecoder_params_from_numpy``."""
     return _walk(params, (), lambda path, t: _leaf_to_numpy(
         _xdecoder_leaf(path, t.detach().cpu(), False)))
+
+
+def blip2_params_from_numpy(tree: dict, device) -> dict:
+    """A JAX BLIP-2 tree of numpy leaves -> the port's, on ``device``."""
+    return tree_map(lambda a: _leaf_to_torch(a, device), tree)
+
+
+def blip2_params_to_numpy(params: dict) -> dict:
+    return tree_map(_leaf_to_numpy, params)
+
+
+# a KOSMOS-2 tree carries no layout of its own either
+kosmos2_params_from_numpy, kosmos2_params_to_numpy = blip2_params_from_numpy, blip2_params_to_numpy

@@ -47,7 +47,9 @@ _SPACE = "▁"   # "▁", sentencepiece's word-boundary mark
 class ByteTokenizer:
     """Deterministic byte-level tokenizer.
 
-    ids: 0=pad, 1=bos, 2=eos, 3=<image>, byte b -> b + 4.
+    ids: 0=pad, 1=bos, 2=eos, 3=<image>, byte b -> b + 4.  ``decode``
+    skips ids past the byte range (a model with a larger vocabulary may
+    emit them; the JAX package's decode raises on them).
     """
 
     pad_token_id = 0
@@ -76,7 +78,7 @@ class ByteTokenizer:
         for t in np.asarray(ids).tolist():
             if t == self.image_token_id and not skip_special_tokens:
                 out.extend(b"<image>")
-            elif t >= 4:
+            elif 4 <= t < self.vocab_size:
                 out.append(t - 4)
             elif t == self.eos_token_id and not skip_special_tokens:
                 out.extend(b"</s>")

@@ -2,7 +2,8 @@
 far ``serve``, the continuous-batching engine over a JSONL request stream,
 ``train`` in its smoke mode (one Q-LoRA step on synthetic records), and
 ``evaluate`` for the VL eval (``vl_test``: LLaVA from a local HF snapshot
-or the smoke model, over registered VQA datasets) and the X-Decoder
+or the smoke model, or a zoo tower, BLIP-2 Flan-T5 or KOSMOS-2, with tiny
+random weights, over registered VQA datasets) and the X-Decoder
 workloads (model, weights and text tokenizer built from the config; their
 dataset kinds come with a later data slice).
 
@@ -34,6 +35,8 @@ from cullavo_tpu_torch.data.datasets import register_vqa
 from cullavo_tpu_torch.data.mappers.eval_mappers import VQAEvalMapper
 from cullavo_tpu_torch.data.registry import get_dataset
 from cullavo_tpu_torch.data.tokenizer import ByteTokenizer, HFTokenizer
+from cullavo_tpu_torch.models.blip2 import tiny_blip2_config
+from cullavo_tpu_torch.models.kosmos2 import tiny_kosmos2_config
 from cullavo_tpu_torch.models.llava.config import tiny_llava_config
 from cullavo_tpu_torch.models.llava.lora import maybe_quantize_base
 from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
@@ -43,6 +46,9 @@ from cullavo_tpu_torch.pipelines import cullavo_pipeline  # noqa: F401 (registra
 from cullavo_tpu_torch.pipelines import vqa_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines import xdecoder_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines.base import build_pipeline
+from cullavo_tpu_torch.pipelines.vl_zoo_pipeline import (MODEL_SPECS, VLZooVQAPipeline,
+                                                         native_blip2_answer_fn,
+                                                         native_kosmos2_answer_fn)
 from cullavo_tpu_torch.serving import Request, ServingEngine
 from cullavo_tpu_torch.serving.io import request_from_row
 
@@ -292,11 +298,10 @@ def _eval_vl(cfg: dict, device) -> dict:
     ``BATCH_SIZE``, ``MAX_NEW_TOKENS``, ``LIMIT`` and ``SAVE_DIR``."""
     model = cfg.get("MODEL") or {}
     if model.get("ZOO"):
-        raise NotImplementedError("MODEL.ZOO (BLIP-2, KOSMOS-2, BakLLaVA towers) waits for the "
-                                  "VL-zoo slice")
+        return _eval_vl_zoo(cfg, model["ZOO"], device)
     if model.get("TOPIC"):
         raise NotImplementedError("MODEL.TOPIC (the per-class topic classifier) waits for the "
-                                  "VL-zoo slice")
+                                  "rest of the VL-zoo slice")
     model_cfg, params, tokenizer = _build_llava(cfg, device)
     extra = {}
     if cfg.get("KV_QUANT"):
@@ -312,6 +317,52 @@ def _eval_vl(cfg: dict, device) -> dict:
     return {name: pipe.evaluate_model(map(mapper, get_dataset(name)), limit=limit,
                                       out_dir=cfg.get("SAVE_DIR"))
             for name in _dataset_names(cfg)}
+
+
+def _eval_vl_zoo(cfg: dict, zoo: str, device) -> dict:
+    """vl_test with a zoo tower (``MODEL.ZOO``): the native answerer with
+    the tiny config and seeded random weights (the JAX entry's
+    checkpoint-free path) through ``VLZooVQAPipeline`` over each
+    ``DATASETS.TEST`` entry, ``MAX_NEW_TOKENS`` (10), ``LIMIT`` and
+    ``SAVE_DIR``.  BLIP-2 (Flan-T5) and KOSMOS-2 run; the rest raise."""
+    model = cfg.get("MODEL") or {}
+    if zoo not in MODEL_SPECS:
+        raise SystemExit(f"unknown MODEL.ZOO {zoo!r}; one of {sorted(MODEL_SPECS)}")
+    if model.get("ZOO_PATH"):
+        raise NotImplementedError("MODEL.ZOO_PATH (a local HF snapshot of a zoo model) waits for "
+                                  "the zoo snapshot slice: its Unigram and WordPiece tokenizers")
+    if model.get("ZOO_TORCH"):
+        raise NotImplementedError("MODEL.ZOO_TORCH (the transformers harness) has no counterpart: "
+                                  "the port answers through its native towers")
+    if zoo == "instructblip":
+        raise NotImplementedError("MODEL.ZOO: instructblip (Vicuna tower, text-input Q-Former) "
+                                  "waits for the InstructBLIP slice")
+    if zoo == "bakllava":
+        raise NotImplementedError("MODEL.ZOO: bakllava (Mistral's sliding-window attention) "
+                                  "waits for the BakLLaVA slice")
+    mnt = int(cfg.get("MAX_NEW_TOKENS", 10))
+    if zoo == "blip2":
+        answer_fn = native_blip2_answer_fn(max_new_tokens=mnt, device=device)
+        img_size = tiny_blip2_config("t5").vision.image_size
+    else:
+        answer_fn = native_kosmos2_answer_fn(max_new_tokens=mnt, device=device)
+        img_size = tiny_kosmos2_config().vision.image_size
+    pipe = VLZooVQAPipeline(cfg, zoo, answer_fn=answer_fn)
+    limit = int(cfg.get("LIMIT", 0)) or None
+    mapper = VQAEvalMapper(image_size=img_size)
+    out_dir = cfg.get("SAVE_DIR")
+    results = {}
+    for name in _dataset_names(cfg):
+        def rows():
+            for rec in get_dataset(name):
+                m = mapper(rec)
+                m["image"] = m.pop("pixel_values")
+                yield m
+        results[name] = pipe.evaluate_model(rows(), limit=limit)
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            pipe.evaluator.dump_results(os.path.join(out_dir, "vqa_results.json"))
+    return results
 
 
 def _eval_xdecoder(cfg: dict, device) -> dict:
@@ -335,7 +386,7 @@ def evaluate(cfg: dict, device=None) -> dict:
     if "step2_pre" in name:
         raise NotImplementedError("step2-pre data generation waits for the training-loop slice")
     if "imagenet" in name:
-        raise NotImplementedError("ImageNet eval waits for the VL-zoo slice")
+        raise NotImplementedError("ImageNet eval waits for the rest of the VL-zoo slice")
     if "vl_test" in name or name == "vl":
         results = _eval_vl(cfg, device)
     elif "xdecoder" in name:

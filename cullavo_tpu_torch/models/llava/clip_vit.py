@@ -29,6 +29,44 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (xf * scale.float() + bias.float()).to(dtype)
 
 
+def init_clip_vision_params(cfg: ClipVisionConfig, generator: torch.Generator, device,
+                            dtype=torch.float32) -> dict:
+    """Random tower parameters in the JAX layout (stacked [L, ...] layer
+    leaves; N(0, 0.02) embeddings, N(0, 1/fan_in) weights, zero biases, unit
+    LayerNorm gains) drawn from ``generator`` on ``device``."""
+    Lv, Dv, Iv, P = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size, cfg.patch_size
+
+    def n(shape, std):
+        return (torch.randn(shape, generator=generator, device=device) * std).to(dtype)
+
+    def dense(shape):
+        return n(shape, shape[-2] ** -0.5)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return {
+        "class_embedding": n((Dv,), 0.02),
+        "patch_embedding": dense((P * P * 3, Dv)),
+        "position_embedding": n((cfg.num_positions, Dv), 0.02),
+        "pre_ln": {"scale": ones(Dv), "bias": zeros(Dv)},
+        "layers": {
+            "ln1_scale": ones(Lv, Dv), "ln1_bias": zeros(Lv, Dv),
+            "q": dense((Lv, Dv, Dv)), "q_b": zeros(Lv, Dv),
+            "k": dense((Lv, Dv, Dv)), "k_b": zeros(Lv, Dv),
+            "v": dense((Lv, Dv, Dv)), "v_b": zeros(Lv, Dv),
+            "o": dense((Lv, Dv, Dv)), "o_b": zeros(Lv, Dv),
+            "ln2_scale": ones(Lv, Dv), "ln2_bias": zeros(Lv, Dv),
+            "fc1": dense((Lv, Dv, Iv)), "fc1_b": zeros(Lv, Iv),
+            "fc2": dense((Lv, Iv, Dv)), "fc2_b": zeros(Lv, Dv),
+        },
+        "post_ln": {"scale": ones(Dv), "bias": zeros(Dv)},
+    }
+
+
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 

@@ -40,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from cullavo_tpu_torch.models.llava.config import LlamaConfig
 from cullavo_tpu_torch.models.llava.lora import lora_update
 from cullavo_tpu_torch.ops import nf4 as nf4_ops
-from cullavo_tpu_torch.ops.flash_attention import flash_attention
+from cullavo_tpu_torch.ops.flash_attention import decode_partials, flash_attention
 from cullavo_tpu_torch.ops.wwin_decode import MAX_W as WWIN_MAX_W
 from cullavo_tpu_torch.ops.wwin_decode import (NEG_INF, _fold_scale, _window_scores,
                                                _window_scores_q8, _window_values_q8,
@@ -98,6 +98,49 @@ def sdpa(q, k, v, bias: Optional[torch.Tensor]) -> torch.Tensor:
         scores = scores + bias
     probs = torch.softmax(scores, dim=-1)
     return torch.matmul(probs.to(q.dtype).float(), v.float()).to(q.dtype)
+
+
+def sdpa_decode_stale(q, k_cache, v_cache, k_cur, v_cur, bias, self_bias=None, scale=None):
+    """One-token decode attention over a cache that does NOT hold the
+    current token, whose k/v join the softmax out of band (joint f32
+    softmax over S + 1 keys); the VL zoo's decode step.
+
+    q, k_cur, v_cur: [B, H, 1, hd]; k_cache, v_cache: [B, KV, S, hd] (KV = H
+    in the zoo; a layer of the stacked cache, read in place); bias: [B|1,
+    H|1, 1, S] additive f32 (a large negative value on unwritten slots);
+    self_bias: optional [B|1, H|1, 1, 1] bias on the current position (T5's
+    relative-position bucket 0); scale: default 1/sqrt(hd), 1.0 for T5.
+    The cache part is ``decode_partials`` (K12 on CUDA tensors, its plain
+    version on CPU ones); the current token is merged here in f32."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    o, m, l = decode_partials(q, k_cache, v_cache, bias[:, :, 0], scale)
+    s_self = (q.float() * k_cur.float()).sum(dim=-1)[..., 0] * scale       # [B, H]
+    if self_bias is not None:
+        s_self = s_self + self_bias.float()[:, :, 0, 0]
+    m_tot = torch.maximum(m, s_self)
+    w_cache = l * torch.exp(m - m_tot)
+    w_self = torch.exp(s_self - m_tot)
+    out = (o * w_cache[..., None] + w_self[..., None] * v_cur.float()[:, :, 0])
+    return (out / (w_cache + w_self)[..., None]).to(q.dtype)[:, :, None]
+
+
+def sdpa_decode_stale_plain(q, k_cache, v_cache, k_cur, v_cur, bias, self_bias=None,
+                            scale=None):
+    """``sdpa_decode_stale`` in the JAX package's arithmetic (one softmax
+    over the cache scores and the current score, the probabilities rounded
+    to q's dtype for the cache's PV product); KV = H.  The yardstick of the
+    kernel route on the card."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    s_cache = torch.matmul(q.float(), k_cache.float().transpose(-1, -2)) * scale + bias
+    s_self = (q.float() * k_cur.float()).sum(dim=-1, keepdim=True) * scale
+    if self_bias is not None:
+        s_self = s_self + self_bias
+    m = torch.maximum(s_cache.amax(dim=-1, keepdim=True), s_self)
+    e_c = torch.exp(s_cache - m)
+    e_s = torch.exp(s_self - m)
+    denom = e_c.sum(dim=-1, keepdim=True) + e_s
+    out = torch.matmul((e_c / denom).to(q.dtype).float(), v_cache.float())
+    return (out + (e_s / denom) * v_cur.float()).to(q.dtype)
 
 
 def round_cache_len(n: int) -> int:

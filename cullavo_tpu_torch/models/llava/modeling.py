@@ -23,7 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cullavo_tpu_torch.models.llava.clip_vit import clip_vision_forward
+from cullavo_tpu_torch.models.llava.clip_vit import clip_vision_forward, init_clip_vision_params
 from cullavo_tpu_torch.models.llava.config import LlavaConfig
 from cullavo_tpu_torch.models.llava.llama import llama_forward, lm_logits
 
@@ -42,7 +42,7 @@ def init_llava_params(cfg: LlavaConfig, generator: torch.Generator,
     drawn from ``generator`` on ``device`` (same shapes and scales as the
     JAX initializer; the values differ, as the generators do)."""
     vc, tc = cfg.vision, cfg.text
-    Lv, Dv, Iv, P = vc.num_hidden_layers, vc.hidden_size, vc.intermediate_size, vc.patch_size
+    Dv = vc.hidden_size
     L, D, I = tc.num_hidden_layers, tc.hidden_size, tc.intermediate_size
     H, KV, hd = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
 
@@ -58,23 +58,7 @@ def init_llava_params(cfg: LlavaConfig, generator: torch.Generator,
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    vision = {
-        "class_embedding": n((Dv,), 0.02),
-        "patch_embedding": dense((P * P * 3, Dv)),
-        "position_embedding": n((vc.num_positions, Dv), 0.02),
-        "pre_ln": {"scale": ones(Dv), "bias": zeros(Dv)},
-        "layers": {
-            "ln1_scale": ones(Lv, Dv), "ln1_bias": zeros(Lv, Dv),
-            "q": dense((Lv, Dv, Dv)), "q_b": zeros(Lv, Dv),
-            "k": dense((Lv, Dv, Dv)), "k_b": zeros(Lv, Dv),
-            "v": dense((Lv, Dv, Dv)), "v_b": zeros(Lv, Dv),
-            "o": dense((Lv, Dv, Dv)), "o_b": zeros(Lv, Dv),
-            "ln2_scale": ones(Lv, Dv), "ln2_bias": zeros(Lv, Dv),
-            "fc1": dense((Lv, Dv, Iv)), "fc1_b": zeros(Lv, Iv),
-            "fc2": dense((Lv, Iv, Dv)), "fc2_b": zeros(Lv, Dv),
-        },
-        "post_ln": {"scale": ones(Dv), "bias": zeros(Dv)},
-    }
+    vision = init_clip_vision_params(vc, generator, device, dtype)
     language = {
         "embed_tokens": n((tc.vocab_size, D), 0.02),
         "layers": {

@@ -20,6 +20,14 @@ For a tensor on the CPU the forward is ``mha_reference``; on any other
 device it raises.  A masked score is the finite ``NEG_INF``: a row with no
 visible key returns the mean of v and ``lse = NEG_INF + log(S)``, and gets
 no gradient (the backward zeroes its probabilities).
+
+One-token decode (``csrc/flash_decode.cu``, K12; f32 or bf16, head dim a
+multiple of 8 up to 128): ``decode_partials(q, k_cache, v_cache, bias,
+scale)`` returns the normalised f32 output with the row max and sum, so a
+caller can fold in keys the kernel did not see (the zoo's
+``sdpa_decode_stale``); ``flash_decode(q, k_cache, v_cache, q_position,
+kv_valid)`` is the JAX function's entry on top of it.  On CPU tensors both
+take ``_decode_partials_plain``.
 """
 from __future__ import annotations
 
@@ -187,6 +195,72 @@ flash_lse = types.SimpleNamespace(launches=0)
 flash_rows = types.SimpleNamespace(launches=0)
 
 
+def _decode_partials_plain(q, k_cache, v_cache, bias, scale):
+    """Plain version of K12: q [B, H, 1, d], caches [B, KV, S, d] (head h
+    reads kv head h // (H / KV)), bias f32 [B, H, S] -> (o [B, H, d]
+    normalised, m, l [B, H]), all f32.  A key at -inf counts 0; a row of
+    such keys gives o = 0, m = -inf, l = 0."""
+    B, H, _, d = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    q4 = q.reshape(B, KV, H // KV, d).float()
+    s = torch.einsum("bgrd,bgsd->bgrs", q4, k_cache.float()).reshape(B, H, S) * scale + bias
+    m = s.amax(dim=-1)
+    p = torch.where(s == -torch.inf, torch.zeros_like(s), torch.exp(s - m[..., None]))
+    l = p.sum(dim=-1)
+    o = torch.einsum("bgrs,bgsd->bgrd", p.reshape(B, KV, H // KV, S), v_cache.float())
+    o = o.reshape(B, H, d) / torch.where(l == 0, torch.ones_like(l), l)[..., None]
+    return o, m, l
+
+
+def decode_partials(q, k_cache, v_cache, bias, scale):
+    """Attention of one new token per (b, h) over S cache keys: returns
+    ``(o, m, l)``, o f32 [B, H, d] = softmax(scale * q.k + bias) @ v, and the
+    f32 row max m and sum l [B, H] of that softmax (its lse is m + log l).
+
+    q [B, H, 1, d]; k_cache / v_cache [B, KV, S, d] with H a multiple of KV
+    (any strides: a layer of a stacked cache is read in place); bias
+    additive, broadcastable to [B, H, S] (a broadcast axis is read with
+    stride 0, not copied).  K12 on CUDA tensors (counted on
+    ``decode_partials.launches``), the plain version on CPU tensors."""
+    B, H, one, d = q.shape
+    if k_cache.dim() != 4 or k_cache.shape != v_cache.shape or one != 1 \
+            or k_cache.shape[0] != B or k_cache.shape[3] != d or H % k_cache.shape[1]:
+        raise ValueError(f"decode_partials: q {tuple(q.shape)}, caches {tuple(k_cache.shape)} / "
+                         f"{tuple(v_cache.shape)} are not [B, H, 1, d] / [B, KV, S, d]")
+    bias = bias.float().expand(B, H, k_cache.shape[2])
+    if q.device.type == "cpu":
+        return _decode_partials_plain(q, k_cache, v_cache, bias, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_partials: unsupported device {q.device}")
+    return _decode_cuda(q, k_cache, v_cache, bias, scale)
+
+
+decode_partials.launches = 0
+
+
+def flash_decode(q, k_cache, v_cache, q_position, kv_valid):
+    """One new token against a KV-grouped cache (the JAX function's entry):
+    q [B, H, 1, d], caches [B, KV, S, d], ``q_position`` [B] the token's
+    logical position, ``kv_valid`` [B, S]; key s is visible where
+    ``kv_valid[b, s] != 0 and s <= q_position[b]``.  Returns [B, H, 1, d]
+    in q's dtype.  A masked score is ``NEG_INF``, as in JAX, so a row with
+    no visible key averages v, over the S keys (JAX pads S to a multiple of
+    128 and averages over the padding too)."""
+    o, _, _ = decode_partials(q, k_cache, v_cache, decode_bias(q_position, kv_valid),
+                              q.shape[-1] ** -0.5)
+    return o.to(q.dtype)[:, :, None]
+
+
+def decode_bias(q_position, kv_valid):
+    """``flash_decode``'s mask as an additive f32 bias [B, 1, S]: 0 where
+    ``kv_valid[b, s] != 0 and s <= q_position[b]``, else ``NEG_INF`` (added
+    to a score it gives NEG_INF, as the Pallas kernel's ``where`` does)."""
+    B, S = kv_valid.shape
+    keys = torch.arange(S, device=kv_valid.device)
+    visible = (kv_valid != 0) & (keys[None, :] <= q_position.reshape(B, 1))
+    return torch.where(visible, 0.0, NEG_INF).float()[:, None, :]
+
+
 def _flash_cuda(q, k, v, q_positions, kv_valid, causal, need_lse):
     B, H, T, d = q.shape
     S = k.shape[2]
@@ -232,3 +306,33 @@ def _flash_cuda(q, k, v, q_positions, kv_valid, causal, need_lse):
     _build.check(err, "flash_attention")
     counter.launches += 1
     return (out, lse) if need_lse else out
+
+
+def _decode_cuda(q, k_cache, v_cache, bias, scale):
+    B, H, _, d = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    if q.dtype not in (torch.float32, torch.bfloat16) or d % 8 or not 8 <= d <= 128:
+        raise ValueError("decode_partials: the CUDA kernel takes f32 or bf16 with a head dim "
+                         f"that is a multiple of 8 up to 128, got {q.dtype} d={d}")
+    vec = 16 // q.element_size()
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache), ("bias", bias)):
+        if t.device != q.device:
+            raise ValueError(f"decode_partials: {name} must be on {q.device}")
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.dtype != q.dtype or t.stride(3) != 1 or any(s % vec for s in t.stride()[:3]) \
+                or t.data_ptr() % 16:
+            raise ValueError(f"decode_partials: {name} must be {q.dtype} with a contiguous "
+                             "head dim, 16-byte aligned rows and a 16-byte aligned base")
+    if q.stride(3) != 1:
+        raise ValueError("decode_partials: q needs a contiguous head dim")
+    o = torch.empty((B, H, d), dtype=torch.float32, device=q.device)
+    m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    err = _build.lib().cullavo_flash_decode(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), bias.data_ptr(), o.data_ptr(),
+        m.data_ptr(), l.data_ptr(), int(q.dtype == torch.bfloat16), B, H, KV, S, d,
+        *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3], *bias.stride(),
+        float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "decode_partials")
+    decode_partials.launches += 1
+    return o, m, l

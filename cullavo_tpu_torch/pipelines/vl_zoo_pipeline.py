@@ -1,0 +1,210 @@
+"""Zero-shot VQA over the VL zoo (counterpart of
+``cullavo_tpu/pipelines/vl_zoo_pipeline.py``): the reference's BLIP-2,
+InstructBLIP, KOSMOS-2 and BakLLaVA baselines, each a ``ModelSpec`` (prompt
+format, generation settings) run on the VQA harness by
+``VLZooVQAPipeline``.
+
+The port answers through its native towers: ``native_blip2_answer_fn``
+(Flan-T5 BLIP-2: beam 5, length penalty -1, at most 10 new tokens) and
+``native_kosmos2_answer_fn`` (greedy, the text after the last 'Answer:').
+Without weights they build the JAX package's tiny configs with seeded
+random weights and the byte tokenizer (the checkpoint-free smoke path); a
+caller may pass a config, weights and a tokenizer.  The HF harness (a
+pipeline without an ``answer_fn`` loads the checkpoint with transformers),
+local snapshots (``hf_model_dir``), InstructBLIP and BakLLaVA wait for
+later slices and raise.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+from cullavo_tpu_torch.data.evaluation.vqa_eval import VQAEvaluator
+from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
+from cullavo_tpu_torch.models.blip2 import (blip2_beam_generate, init_blip2_params,
+                                            tiny_blip2_config)
+from cullavo_tpu_torch.models.kosmos2 import (init_kosmos2_params, kosmos2_generate,
+                                              tiny_kosmos2_config)
+from cullavo_tpu_torch.pipelines.base import register_pipeline
+from cullavo_tpu_torch.utils.tree import tree_leaves
+
+
+@dataclasses.dataclass
+class ModelSpec:
+    name: str
+    model_cls: str                      # transformers class name
+    prompt: str = "Question: {q} Short answer:"
+    gen_kwargs: dict = dataclasses.field(default_factory=dict)
+    dtype: str = "float32"
+
+
+MODEL_SPECS = {
+    # the reference's BLIP2VQAVALPipeline (beam 5, length penalty -1, <= 10 tokens)
+    "blip2": ModelSpec("Salesforce/blip2-flan-t5-xl",
+                       "Blip2ForConditionalGeneration",
+                       prompt="Question: {q} Short answer:",
+                       gen_kwargs=dict(num_beams=5, max_new_tokens=10,
+                                       length_penalty=-1.0)),
+    # its InstructBLIPVQAVALPipeline
+    "instructblip": ModelSpec("Salesforce/instructblip-vicuna-7b",
+                              "InstructBlipForConditionalGeneration",
+                              prompt="{q} Answer briefly.",
+                              gen_kwargs=dict(num_beams=5, max_new_tokens=10,
+                                              length_penalty=-1.0)),
+    # its KOSMOS2VQAVALPipeline (f32, no <grounding> prefix, the text after
+    # the last 'Answer:')
+    "kosmos2": ModelSpec("microsoft/kosmos-2-patch14-224",
+                         "Kosmos2ForConditionalGeneration",
+                         prompt="Question: {q} Answer:",
+                         gen_kwargs=dict(max_new_tokens=10)),
+    # its BakLLaVAVQAVALPipeline (greedy)
+    "bakllava": ModelSpec("llava-hf/bakLlava-v1-hf",
+                          "LlavaForConditionalGeneration",
+                          prompt="USER: <image>\n{q} ASSISTANT:",
+                          gen_kwargs=dict(do_sample=False, max_new_tokens=128)),
+}
+
+
+def _resolve_device(device, params):
+    """The caller's device, else the weights', else the GPU (raising where
+    there is none)."""
+    if device is not None:
+        return torch.device(device)
+    if params is not None:
+        return tree_leaves(params)[0].device
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _fold_ids(ids: np.ndarray, vocab: int) -> np.ndarray:
+    """Fold ids past a tiny vocabulary into it (smoke mode only: a real
+    checkpoint's tokenizer fits its own vocabulary), as JAX folds them."""
+    return np.where(ids >= vocab, 4 + ids % max(vocab - 4, 1), ids)
+
+
+def _fit_image(image, side: int) -> np.ndarray:
+    """[3, H, W] f32 pixels, nearest-resampled to side x side if needed."""
+    pix = np.asarray(image, np.float32)
+    if pix.ndim == 3 and pix.shape[0] == 3 and pix.shape[1:] != (side, side):
+        ri = np.linspace(0, pix.shape[1] - 1, side).astype(int)
+        ci = np.linspace(0, pix.shape[2] - 1, side).astype(int)
+        pix = pix[:, ri][:, :, ci]
+    return pix
+
+
+def _decode(tokenizer, toks) -> str:
+    return (tokenizer.decode(toks) if hasattr(tokenizer, "decode")
+            else " ".join(map(str, toks)))
+
+
+def native_blip2_answer_fn(model_cfg=None, params=None, tokenizer=None,
+                           max_new_tokens: int = 10, num_beams: int = 5,
+                           length_penalty: float = -1.0, hf_model_dir: Optional[str] = None,
+                           kind: str = "flant5", device=None) -> Callable:
+    """``answer(question, image) -> str`` through the Flan-T5 BLIP-2 tower
+    with the reference's decode (beam 5, length penalty -1, <= 10 tokens).
+    With no ``model_cfg`` the JAX package's tiny T5 config with random
+    weights from seed 0 (values differ from JAX's PRNG) and the byte
+    tokenizer drive the whole path; answers are arbitrary strings.
+    ``device``: default the weights' device, else the GPU."""
+    if hf_model_dir is not None:
+        raise NotImplementedError("native_blip2_answer_fn(hf_model_dir=...): local BLIP-2 "
+                                  "snapshots wait for the zoo snapshot slice (Unigram tokenizer)")
+    if kind != "flant5":
+        raise NotImplementedError(f"native_blip2_answer_fn(kind={kind!r}): only the Flan-T5 "
+                                  "tower is ported; InstructBLIP and BLIP-2 OPT wait for their "
+                                  "slices")
+    dev = _resolve_device(device, params)
+    if model_cfg is None:
+        model_cfg = tiny_blip2_config("t5")
+        params = init_blip2_params(model_cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokenizer = ByteTokenizer() if tokenizer is None else tokenizer
+    vocab = model_cfg.text.vocab_size
+    side = model_cfg.vision.image_size
+    spec = MODEL_SPECS["blip2"]
+
+    def answer(question: str, image) -> str:
+        text = spec.prompt.format(q=question)
+        ids = _fold_ids(np.asarray(tokenizer.encode(text), np.int64), vocab)
+        pix = torch.from_numpy(_fit_image(image, side)[None]).to(dev)
+        out = blip2_beam_generate(
+            params, model_cfg, pix, torch.from_numpy(ids[None]).to(dev),
+            torch.ones((1, len(ids)), dtype=torch.int64, device=dev), max_new_tokens,
+            num_beams=num_beams, length_penalty=length_penalty, eos_token_id=1)
+        return _decode(tokenizer, [int(t) for t in out[0].tolist() if int(t) > 1])
+
+    return answer
+
+
+def native_kosmos2_answer_fn(model_cfg=None, params=None, tokenizer=None,
+                             max_new_tokens: int = 10, hf_model_dir: Optional[str] = None,
+                             device=None) -> Callable:
+    """``answer(question, image) -> str`` through KOSMOS-2: the prompt
+    ``[bos, <image> x latent_query_num, 'Question: {q} Answer:']``, greedy
+    decode with eos 2, the text after the last 'Answer:'.  With no
+    ``model_cfg`` the tiny config with random weights from seed 0 and the
+    byte tokenizer (smoke mode)."""
+    if hf_model_dir is not None:
+        raise NotImplementedError("native_kosmos2_answer_fn(hf_model_dir=...): local KOSMOS-2 "
+                                  "snapshots wait for the zoo snapshot slice (Unigram tokenizer)")
+    dev = _resolve_device(device, params)
+    if model_cfg is None:
+        model_cfg = tiny_kosmos2_config()
+        params = init_kosmos2_params(model_cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokenizer = ByteTokenizer() if tokenizer is None else tokenizer
+    vocab = model_cfg.text.vocab_size
+    n_img = model_cfg.latent_query_num
+    side = model_cfg.vision.image_size
+    spec = MODEL_SPECS["kosmos2"]
+
+    def answer(question: str, image) -> str:
+        text = spec.prompt.format(q=question)
+        tids = _fold_ids(np.asarray(tokenizer.encode(text), np.int64), vocab)
+        # HF kosmos2 prompt layout: [bos, <image> * latent_query_num, text...]
+        ids = np.concatenate([[1], np.full((n_img,), 3, np.int64), tids])
+        img_mask = np.zeros_like(ids)
+        img_mask[1:1 + n_img] = 1
+        pix = torch.from_numpy(_fit_image(image, side)[None]).to(dev)
+        out = kosmos2_generate(
+            params, model_cfg, pix, torch.from_numpy(ids[None]).to(dev),
+            torch.from_numpy(img_mask[None]).to(dev),
+            torch.ones((1, len(ids)), dtype=torch.int64, device=dev), max_new_tokens,
+            eos_token_id=2)
+        ans = _decode(tokenizer, [int(t) for t in out[0].tolist() if int(t) > 2])
+        return ans.split("Answer:")[-1].strip() if "Answer:" in ans else ans
+
+    return answer
+
+
+@register_pipeline("VLZooVQAPipeline")
+class VLZooVQAPipeline:
+    """Runs a ``MODEL_SPECS`` entry (or a custom spec) on the VQA harness
+    through an injected ``answer_fn`` (a native answerer above)."""
+
+    def __init__(self, cfg, spec, model_path: Optional[str] = None,
+                 answer_fn: Optional[Callable] = None):
+        self.cfg = cfg
+        self.spec = MODEL_SPECS[spec] if isinstance(spec, str) else spec
+        self.model_path = model_path or self.spec.name
+        self._answer_fn = answer_fn
+        self.evaluator = VQAEvaluator()
+
+    def answer(self, question: str, image) -> str:
+        if self._answer_fn is None:
+            raise NotImplementedError(
+                f"VLZooVQAPipeline({self.spec.name}): the HF harness loads the checkpoint with "
+                "transformers, which the port does not use; pass a native answer_fn")
+        return self._answer_fn(question, image)
+
+    def evaluate_model(self, dataset: Iterable[dict], limit: Optional[int] = None) -> dict:
+        rows = itertools.islice(dataset, limit) if limit else dataset
+        for r in rows:
+            ans = self.answer(r["question"], r.get("image"))
+            self.evaluator.process(r["question_id"], ans, r["answers"],
+                                   r.get("question_type"), r.get("answer_type"))
+        return self.evaluator.evaluate()

@@ -74,6 +74,15 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.data.registry",
     "cullavo_tpu_torch.data.datasets",
     "cullavo_tpu_torch.data.mappers.eval_mappers",
+    "cullavo_tpu_torch.models.beam",
+    "cullavo_tpu_torch.models.blip2",
+    "cullavo_tpu_torch.models.blip2.config",
+    "cullavo_tpu_torch.models.blip2.vision",
+    "cullavo_tpu_torch.models.blip2.qformer",
+    "cullavo_tpu_torch.models.blip2.t5",
+    "cullavo_tpu_torch.models.blip2.modeling",
+    "cullavo_tpu_torch.models.kosmos2",
+    "cullavo_tpu_torch.pipelines.vl_zoo_pipeline",
 )
 
 
@@ -209,11 +218,13 @@ def test_kernel_counters_stay_zero_on_cpu_tensors():
     from cullavo_tpu_torch.ops import focal, msdeform, nf4
     from cullavo_tpu_torch.ops import wwin_decode as ww
 
+    from cullavo_tpu_torch.models.llava.llama import sdpa_decode_stale
+
     wrappers = (fa.flash_attention, fa.flash_lse, fa.flash_rows, nf4.quantize_rows,
                 nf4.int8_linear, ww.wwin_decode_smajor, ww.wwin_decode_smajor_q8,
                 nf4.nf4_linear_planar, nf4.nf4_dequant_planar,
                 msdeform.ms_deform_attn_kernel, focal.focal_ctx_kernel,
-                nf4.nf4_linear_q4, nf4.nf4_dequant_q4)
+                nf4.nf4_linear_q4, nf4.nf4_dequant_q4, fa.decode_partials)
     before = [w.launches for w in wrappers]
     x = torch.randn(1, 2, 5, 8)
     fa.flash_attention(x, x, x)
@@ -245,6 +256,12 @@ def test_kernel_counters_stay_zero_on_cpu_tensors():
                                    torch.rand(1, 3, 2, 1, 4, 2), torch.rand(1, 3, 2, 1, 4))
     focal.focal_ctx_kernel(torch.randn(1, 4, 30), torch.randn(1, 3, 30),
                            torch.randn(4, 9 + 25), 5, 6, (3, 5), True, True)
+    qd, cache = torch.randn(2, 4, 1, 16), torch.randn(2, 2, 7, 16)
+    fa.flash_decode(qd, cache, cache, torch.tensor([3, 6]), torch.ones(2, 7))
+    fa.decode_partials(qd, cache, cache, torch.zeros(1, 4, 7), 1.0)
+    full = torch.randn(2, 4, 7, 16)
+    sdpa_decode_stale(qd, full, full, qd, qd, torch.zeros(2, 1, 1, 7),
+                      self_bias=torch.zeros(1, 4, 1, 1), scale=1.0)
     assert [w.launches for w in wrappers] == before
 
 
@@ -291,6 +308,16 @@ def test_flash_attention_takes_the_plain_version_only_for_cpu_tensors():
         assert banned not in cuda_half, banned
     fwd = src[src.index("class _FlashAttention"):src.index("    def backward")]
     assert fwd.count("mha_reference") == 1 and 'if q.device.type == "cpu":' in fwd
+    # K12 (one-token decode): the same rule
+    qd, cache = (torch.randn(1, 2, 1, 16, device="meta"), torch.randn(1, 2, 5, 16, device="meta"))
+    n0 = fa.decode_partials.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_decode(qd, cache, cache, torch.zeros(1, device="meta"),
+                        torch.ones(1, 5, device="meta"))
+    assert fa.decode_partials.launches == n0
+    entry = src[src.index("def decode_partials"):src.index("def flash_decode")]
+    assert entry.count("_decode_partials_plain(") == 1 and 'if q.device.type == "cpu":' in entry
+    assert "def _decode_cuda" in cuda_half
 
 
 def test_port_has_no_library_stand_ins_for_its_kernels():
@@ -782,3 +809,72 @@ def test_cuda_focal_ctx_matches_plain(cuda_device, dtype, approximate, B, C, H, 
         tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-2, 1e-2)
         assert torch.allclose(got.float(), ref.float(), atol=tol[0], rtol=tol[1]), \
             (got.float() - ref.float()).abs().max().item()
+
+
+def _decode_case(dev, dtype, B, H, KV, S, d, seed, stacked=False):
+    """q [B, H, 1, d]; caches [B, KV, S, d], or layer 1 of a stacked
+    [3, B, KV, S + 5, d] cache sliced to S slots (read in place through its
+    strides); a key-validity bias [B, 1, S] (about a fifth masked at -1e9)
+    plus a per-head bias [1, H, S] (T5's form)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, H, 1, d), generator=g, device=dev).to(dtype)
+    if stacked:
+        kc, vc = (torch.randn((3, B, KV, S + 5, d), generator=g, device=dev).to(dtype)
+                  for _ in range(2))
+        k, v = kc[1, :, :, :S], vc[1, :, :, :S]
+    else:
+        k, v = (torch.randn((B, KV, S, d), generator=g, device=dev).to(dtype) for _ in range(2))
+    valid = torch.rand((B, 1, S), generator=g, device=dev) > 0.2
+    bias = torch.where(valid, 0.0, -1e9) + torch.randn((1, H, S), generator=g, device=dev)
+    return q, k, v, bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,S,d,stacked", [
+    (14, 32, 32, 768, 128, False), (3, 32, 8, 300, 128, False), (5, 32, 32, 11, 64, True),
+    (1, 32, 32, 84, 64, True), (2, 4, 1, 1, 16, False), (2, 6, 2, 97, 80, True),
+    (10, 4, 4, 11, 8, True)])
+def test_cuda_decode_partials_match_plain(cuda_device, dtype, B, H, KV, S, d, stacked):
+    """K12 against its plain version: o within 1e-5 + 1e-5 |ref| in f32 and
+    1e-2 + 1e-2 |ref| in bf16 (the plain version widens the same bf16
+    inputs; sums in another order), m equal up to the dot's rounding, l
+    within 1e-5 relative."""
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, bias = _decode_case(cuda_device, dtype, B, H, KV, S, d, seed=S + d, stacked=stacked)
+    for scale in (d ** -0.5, 1.0):
+        n0 = fa.decode_partials.launches
+        o, m, l = fa.decode_partials(q, k, v, bias, scale)
+        assert fa.decode_partials.launches == n0 + 1
+        ro, rm, rl = fa._decode_partials_plain(q, k, v, bias.expand(B, H, S), scale)
+        tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-2, 1e-2)
+        assert torch.allclose(o, ro, atol=tol[0], rtol=tol[1]), (o - ro).abs().max().item()
+        assert torch.allclose(m, rm, atol=1e-4, rtol=1e-5)
+        assert torch.allclose(l, rl, atol=0, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_masked_rows_and_refusals(cuda_device):
+    """Row 5's entry: a wholly masked row averages v over the S keys; a row
+    of -inf keys gives o = 0, l = 0; what the kernel does not take raises."""
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _decode_case(cuda_device, torch.bfloat16, 2, 8, 2, 768, 128, seed=21)
+    pos = torch.tensor([-1, 500], device=cuda_device)
+    valid = torch.ones((2, 768), dtype=torch.int32, device=cuda_device)
+    got = fa.flash_decode(q, k, v, pos, valid)
+    mean = v[0].float().mean(dim=1).repeat_interleave(4, dim=0)
+    assert torch.allclose(got[0, :, 0].float(), mean, atol=1e-2, rtol=1e-2)
+    bias = torch.zeros((2, 8, 768), device=cuda_device)
+    bias[1, 3] = -torch.inf
+    o, m, l = fa.decode_partials(q, k, v, bias, 1.0)
+    assert float(l[1, 3]) == 0.0 and not o[1, 3].any() and torch.isfinite(o).all()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.decode_partials(q[..., :12], k[..., :12], v[..., :12], bias, 1.0)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.decode_partials(q.half(), k.half(), v.half(), bias, 1.0)
+    with pytest.raises(ValueError, match="must be torch.bfloat16"):
+        fa.decode_partials(q, k.float(), v.float(), bias, 1.0)
+    with pytest.raises(ValueError, match="are not"):
+        fa.decode_partials(q, k[:, :, :, :64], v, bias, 1.0)
