@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``cullavo_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py               # kernels, the 7B serving and train paths, X-Decoder
-                                        # eval, vl_test from a written 7B snapshot, the VL zoo
+                                        # eval, vl_test from a written 7B snapshot, the VL
+                                        # zoo, the training loop, the matmul probe
     python3 chip_smoke.py --profile     # the same + a profiled run of each path
 
 Phases (each raises on failure, and the script exits non-zero):
@@ -53,7 +54,18 @@ Phases (each raises on failure, and the script exits non-zero):
      KOSMOS-2 decode shapes in f32 (the current token merged), within 1e-2
      + 1e-2 |ref| (bf16) and 1e-5 + 1e-5 |ref| (f32); timed at the 7B shape
      beside the bound, the plain version and ``scaled_dot_product_attention``
-     with a boolean mask, and at the zoo's shapes.
+     with a boolean mask, and at the zoo's shapes.  Then K13, the packed-heads
+     causal forward (Pallas rows 3 and 4), at the prefill shape [7, 648,
+     32*128], the train shape [8, 1024, 32*128], a ragged T with S > T and a
+     ragged T = S, within 1e-2 + 1e-2 |ref| of its plain version, its autograd
+     function's dq, dk, dv within 2e-2 of the largest entry against autograd
+     through the plain version, timed beside the bound, the plain version and
+     ``scaled_dot_product_attention(is_causal=True)`` on the transposed views;
+     and K14, the p32 product of the matmul probe (row 16): ``pack_p32``
+     bit-equal to a numpy re-statement of the JAX script's packing, K14 at
+     M = 1, 8 and 64 over [4096, 11008] within 1e-2 + 1e-2 |ref| of the f32
+     plain version, timed at M = 8 beside the bound and the dense bf16
+     matmul on the unpacked weight.
   4. build random LLaVA-1.5-7B weights on the card from a seeded
      ``torch.Generator``: bf16 vision tower, projector, embeddings and head;
      int8 SmoothQuant LLM linears with smooth scales exp(N(0, 0.3)) shared
@@ -76,6 +88,9 @@ Phases (each raises on failure, and the script exits non-zero):
      every row whose greedy top-2 logit gaps all exceed 0.1 equal to the
      int8 greedy stream.  One more speculative run over the bf16 cache at
      8 layers drives K4 at W = 4 and is held the same way.
+  6c. the greedy batch's prefill once more with ``CULLAVO_FLASH_PACKED=1``:
+     last-token logits within 0.1 of the K1 prefill's, K13 launched 32 per
+     chunk and K1 never, prefill seconds of both forms in turns.
   7. the serving path over an NF4 base: ``entry.serve`` once in its tiny
      smoke mode; then 7B weights with the LLM linears quantized to planar NF4
      target by target (``maybe_quantize_base``), the 2-layer check of phase 5
@@ -139,6 +154,24 @@ Phases (each raises on failure, and the script exits non-zero):
      ``VLZooVQAPipeline.evaluate_model`` with its native answerer and the
      byte tokenizer, twice: n = 16, identical answers, K12 launched as the
      shapes predict; questions/s, ms per question by phase, peak memory.
+  12. the training loop: ``entry.train`` on configs/cullavo_step1.yaml
+     (``BITS: 4``) with ``LOAD_PATH`` phase 10's snapshot (full width and
+     depth) over a registered ``coco_panoptic`` dataset of 16 synthetic
+     480 x 640 images (PNG images, id-encoded panoptic PNGs and a
+     panopticapi JSON written with the port's PNG writer; thing and stuff
+     segments, one crowd), batch 8, 2 epochs (4 steps), ``SAVE_DIR`` a
+     temporary directory: every loss finite, ``step_2``, ``step_4``,
+     ``epoch0`` and ``epoch1`` written, the npz store read back with the
+     TrainState as template and the reference layout read back, both
+     bit-equal to the state they saved; then ``RESUME_FROM`` epoch1 for 2
+     steps (its trainable partition before the first step bit-equal to the
+     first run's final one); then 2 steps with ``CULLAVO_FLASH_PACKED=1``:
+     step-1 loss within 1e-3 relative of the first run's, K13 launched 64 and
+     K1-lse 32 per step.  Seconds per step, checkpoint write seconds and
+     peak memory printed.
+  13. the port's matmul probe (``scripts/matmul_probe.main``) at M = 8 over
+     24 stacked [4096, 11008] weights with the p32 variants: every variant's
+     JSON line, parity to the first within 2e-2, K14 launched as predicted.
 The last two lines are the kernels' JSON record and the result line.
 Imports neither JAX nor the JAX package.
 """
@@ -151,6 +184,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -169,13 +203,16 @@ SERVE_DECODE_M = SERVE_CFG["SLOTS"] * SERVE_CFG["SPEC_K"]
 SERVE_SUFFIX_W = (32, 64, 128)   # the engine's default suffix buckets
 # configs/cullavo_step1.yaml (the Q-LoRA train step), its dataset left unset
 TRAIN_CFG = {"NAME": "cullavo_step1", "PIPELINE": "CuLLaVOPipeline", "WORKLOAD": "step1",
-             "BATCH_SIZE": 8, "LR": 2.0e-5, "LAST_LR": 0.0, "GRAD_MAX": 10.0, "GRAD_CUM": 1,
-             "SEED": 0,
+             "EPOCHS": 1, "BATCH_SIZE": 8, "LR": 2.0e-5, "LAST_LR": 0.0, "GRAD_MAX": 10.0,
+             "GRAD_CUM": 1, "PERIOD": 10, "SEED": 0, "SAVE_DIR": None,
              "MODEL": {"LLM": {"BITS": 4, "LORA_R": 64, "LORA_ALPHA": 16, "GRAD_CKPT": True,
                                "LOAD_PATH": None}},
              "DATASETS": {"TRAIN": None}}
 TRAIN_T, TRAIN_STEPS, TRAIN_LEN_RANGE = 1024, 4, (700, 1024)
 PROBE_SHAPE = (6, 32, 648, 128)   # the attention probe's default shape
+# the training loop (phase 12): a registered coco_panoptic dataset of this
+# many synthetic images of COCO's common 480 x 640
+LOOP_DATASET, LOOP_IMAGES, LOOP_IMAGE_HW = "coco_2017_train_panoptic_synthetic", 16, (480, 640)
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense operations/s by input type
 HBM_BPS = 3.35e12
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -411,6 +448,8 @@ def check_kernels(device):
     rec.update(check_train_kernels(device, g))
     rec.update(check_xdecoder_kernels(device, g))
     rec.update(check_decode_kernels(device, g))
+    rec.update(check_packed_kernel(device, g))
+    rec.update(check_p32_kernel(device, g))
     return rec
 
 
@@ -2439,10 +2478,10 @@ def _tree_leaves(tree, prefix=""):
     return [(prefix, tree)]
 
 
-def run_vl_snapshot_path(cfg, device, wrappers, smi):
+def run_vl_snapshot_path(cfg, device, wrappers, smi, snap):
     """Phase 10: random LLaVA-1.5-7B bf16 weights from a seeded generator on
     the card, written as a snapshot in the HF layout (``write_snapshot``)
-    into a temporary directory and read back through the port's loader (the
+    into the directory ``snap`` and read back through the port's loader (the
     config equal, every tensor bit-equal to the written one, before any
     quantization); then ``entry.evaluate`` on configs/vl_test.yaml with
     ``LOAD_PATH`` the snapshot (``BITS: 8``, batch 8, 16 new tokens) over the
@@ -2453,7 +2492,6 @@ def run_vl_snapshot_path(cfg, device, wrappers, smi):
     does not make, in either package).  Returns the run's launch counts and
     the written weights (for phase 10b)."""
     import math
-    import tempfile
 
     import torch
 
@@ -2469,70 +2507,69 @@ def run_vl_snapshot_path(cfg, device, wrappers, smi):
     records = vqa_records()
     register_dataset(VL_DATASET, lambda: records, {})
     runs = []
-    with tempfile.TemporaryDirectory(prefix="cullavo_snapshot_") as snap:
-        t0 = time.perf_counter()
-        total = write_snapshot(params, cfg, snap)
-        t_write = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        if llava_config_from_json(snap) != cfg:
-            raise RuntimeError("the snapshot's config.json does not give back the 7B config")
-        t0 = time.perf_counter()
-        loaded = load_llava_safetensors(snap, cfg, device=device)
-        torch.cuda.synchronize(device)
-        t_load = time.perf_counter() - t0
-        want, got = dict(_tree_leaves(params)), dict(_tree_leaves(loaded))
-        bad = [k for k, a in want.items()
-               if k not in got or a.dtype != got[k].dtype or a.shape != got[k].shape
-               or not torch.equal(a.view(torch.int16), got[k].view(torch.int16))]
-        log(f"snapshot: {total / 1e9:.3f} GB of bf16 weights in "
-            f"{len([f for f in os.listdir(snap) if f.endswith('.safetensors')])} shards, "
-            f"written in {t_write:.2f} s, loaded onto the card in {t_load:.2f} s "
-            f"({total / 1e9 / t_load:.2f} GB/s); {len(got)} tensors, mismatching {len(bad)} "
-            "(bit-equal demanded)")
-        if bad or len(want) != len(got):
-            raise RuntimeError(f"the loaded snapshot differs from the written weights: {bad[:5]}")
-        del loaded, want, got
-        torch.cuda.empty_cache()
-        # time the load (+ quantization), the prefills and the decodes of
-        # each run through the module functions the entry and the pipeline call
-        timers = {"build": (entry, "_build_llava"),
-                  "prefill": (vqa_pipeline, "generate_prefill_chunked"),
-                  "decode": (vqa_pipeline, "generate_decode")}
-        spent = {k: [] for k in timers}
-        shapes = []
+    t0 = time.perf_counter()
+    total = write_snapshot(params, cfg, snap)
+    t_write = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    if llava_config_from_json(snap) != cfg:
+        raise RuntimeError("the snapshot's config.json does not give back the 7B config")
+    t0 = time.perf_counter()
+    loaded = load_llava_safetensors(snap, cfg, device=device)
+    torch.cuda.synchronize(device)
+    t_load = time.perf_counter() - t0
+    want, got = dict(_tree_leaves(params)), dict(_tree_leaves(loaded))
+    bad = [k for k, a in want.items()
+           if k not in got or a.dtype != got[k].dtype or a.shape != got[k].shape
+           or not torch.equal(a.view(torch.int16), got[k].view(torch.int16))]
+    log(f"snapshot: {total / 1e9:.3f} GB of bf16 weights in "
+        f"{len([f for f in os.listdir(snap) if f.endswith('.safetensors')])} shards, "
+        f"written in {t_write:.2f} s, loaded onto the card in {t_load:.2f} s "
+        f"({total / 1e9 / t_load:.2f} GB/s); {len(got)} tensors, mismatching {len(bad)} "
+        "(bit-equal demanded)")
+    if bad or len(want) != len(got):
+        raise RuntimeError(f"the loaded snapshot differs from the written weights: {bad[:5]}")
+    del loaded, want, got
+    torch.cuda.empty_cache()
+    # time the load (+ quantization), the prefills and the decodes of
+    # each run through the module functions the entry and the pipeline call
+    timers = {"build": (entry, "_build_llava"),
+              "prefill": (vqa_pipeline, "generate_prefill_chunked"),
+              "decode": (vqa_pipeline, "generate_decode")}
+    spent = {k: [] for k in timers}
+    shapes = []
 
-        def timed(key, fn):
-            def run(*a, **kw):
-                torch.cuda.synchronize(device)
-                t = time.perf_counter()
-                out = fn(*a, **kw)
-                torch.cuda.synchronize(device)
-                spent[key].append(time.perf_counter() - t)
-                if key == "prefill":
-                    shapes.append(tuple(a[2].shape))
-                return out
-            return run
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize(device)
+            spent[key].append(time.perf_counter() - t)
+            if key == "prefill":
+                shapes.append(tuple(a[2].shape))
+            return out
+        return run
 
-        originals = {k: getattr(mod, name) for k, (mod, name) in timers.items()}
-        for k, (mod, name) in timers.items():
-            setattr(mod, name, timed(k, originals[k]))
-        for i in range(2):
-            out_dir = os.path.join(snap, f"out{i}")
-            vl = {**VL_CFG, "MODEL": {"LLM": {**VL_CFG["MODEL"]["LLM"], "LOAD_PATH": snap}},
-                  "DATASETS": {"TEST": [VL_DATASET]}, "SAVE_DIR": out_dir}
-            torch.cuda.reset_peak_memory_stats(device)
-            t0 = time.perf_counter()
-            res, counts = counted(wrappers, lambda: entry.evaluate(vl))
-            wall = time.perf_counter() - t0
-            with open(os.path.join(out_dir, "vqa_results.json")) as f:
-                answers = json.load(f)
-            runs.append((res[VL_DATASET], counts, wall, {k: sum(v) for k, v in spent.items()},
-                         answers, torch.cuda.max_memory_allocated(device) / 2**30))
-            for v in spent.values():
-                v.clear()
-            torch.cuda.empty_cache()
-        for k, (mod, name) in timers.items():
-            setattr(mod, name, originals[k])
+    originals = {k: getattr(mod, name) for k, (mod, name) in timers.items()}
+    for k, (mod, name) in timers.items():
+        setattr(mod, name, timed(k, originals[k]))
+    for i in range(2):
+        out_dir = os.path.join(snap, f"out{i}")
+        vl = {**VL_CFG, "MODEL": {"LLM": {**VL_CFG["MODEL"]["LLM"], "LOAD_PATH": snap}},
+              "DATASETS": {"TEST": [VL_DATASET]}, "SAVE_DIR": out_dir}
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        res, counts = counted(wrappers, lambda: entry.evaluate(vl))
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out_dir, "vqa_results.json")) as f:
+            answers = json.load(f)
+        runs.append((res[VL_DATASET], counts, wall, {k: sum(v) for k, v in spent.items()},
+                     answers, torch.cuda.max_memory_allocated(device) / 2**30))
+        for v in spent.values():
+            v.clear()
+        torch.cuda.empty_cache()
+    for k, (mod, name) in timers.items():
+        setattr(mod, name, originals[k])
     (res, counts, _, _, answers, _), (res2, _, _, _, answers2, _) = runs
     log(f"launches on the vl_test path: {counts}")
     if not (res["n"] == VL_QUESTIONS and math.isfinite(res["overall"])
@@ -2923,6 +2960,391 @@ def profile_zoo(name, fn, row):
     log(ka.table(sort_by="self_device_time_total", row_limit=18, max_name_column_width=70))
 
 
+def check_packed_kernel(device, g):
+    """Phase 3, K13 (the packed-heads causal forward, Pallas rows 3 and 4)
+    against its plain version (the heads as views + ``mha_reference``) at
+    the prefill shape [7, 648, 32*128], the train shape [8, 1024, 32*128], a
+    ragged T and S > T: o within 1e-2 + 1e-2 |ref|; the autograd function's
+    dq, dk, dv within 2e-2 of the largest entry against autograd through the
+    plain version; timed at both shapes beside the bound, the plain version
+    and ``scaled_dot_product_attention(is_causal=True)`` on the transposed
+    views (a yardstick the port never calls)."""
+    import torch
+
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    bf, H, d = torch.bfloat16, 32, 128
+    T_pre = PAD_TO * -(-(1 + 576 + PROMPT_TEXT) // PAD_TO)
+    rec = {}
+
+    def qkv(B, T, S):
+        return (torch.randn((B, T, H * d), generator=g, device=device).to(bf),
+                *(torch.randn((B, S, H * d), generator=g, device=device).to(bf)
+                  for _ in range(2)))
+
+    for label, B, T, S in (("prefill", CHUNK, T_pre, T_pre),
+                           ("train", TRAIN_CFG["BATCH_SIZE"], TRAIN_T, TRAIN_T),
+                           ("ragged T, S > T", 3, 601, 648), ("ragged T = S", 2, 37, 37)):
+        q, k, v = qkv(B, T, S)
+        out = fa.flash_attention_packed(q, k, v, H)
+        ref = fa._packed_plain(q, k, v, H)
+        torch.cuda.synchronize(device)
+        err = (out.float() - ref.float()).abs().max().item()
+        log(f"K13 flash_packed {label} [{B}, {T}, {H}*{d}] S={S}: max_abs_err={err:.3e} "
+            "(tol 1e-2 + 1e-2 |ref|: bf16 rounding of P and O)")
+        if not torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=1e-2):
+            raise RuntimeError(f"K13 disagrees with its plain version ({label}): {err}")
+        if label in ("prefill", "train"):
+            ms = bench_ms(lambda: fa.flash_attention_packed(q, k, v, H), device)
+            plain = bench_ms(lambda: fa._packed_plain(q, k, v, H), device, reps=5)
+            views = [t.view(t.shape[0], t.shape[1], H, d).transpose(1, 2) for t in (q, k, v)]
+            lib = bench_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                *views, is_causal=True), device)
+            # visible pairs: query i sees keys 0..i
+            bd = bound(nbytes(q, k, v, out), 4 * B * H * d * T * (T + 1) / 2, "bf16")
+            log(f"K13 {label} B={B} T={T}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+                f"sdpa on the transposed views {lib:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+                f"({bd['bound_by']})")
+            if label == "train":
+                rec["flash_packed"] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain, library_ms=lib, **bd,
+                    shape=f"q/k/v [{B},{T},{H}*{d}] bf16 causal (prefill [{CHUNK},{T_pre},"
+                          f"{H}*{d}]: see the log)")
+        del q, k, v, out, ref
+    # gradients through the autograd function: K13 forward, then the
+    # standard K1-lse (S == T) or K8 (S > T) forward and the chunked backward
+    for T, S in ((TRAIN_T, TRAIN_T), (301, 512)):
+        q, k, v = qkv(TRAIN_CFG["BATCH_SIZE"] if S == T else 2, T, S)
+        do = torch.randn(q.shape, generator=g, device=device).to(bf)
+        grads = []
+        for fn in (fa.flash_attention_packed, fa._packed_plain):
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            grads.append(torch.autograd.grad(fn(*leaves, H), leaves, do))
+        torch.cuda.synchronize(device)
+        for name, a, b in zip(("dq", "dk", "dv"), *grads):
+            err = (a.float() - b.float()).abs().max().item()
+            top = b.float().abs().max().item()
+            log(f"K13 autograd T={T} S={S} {name}: max_abs_err={err:.3e}, max |ref| {top:.3f} "
+                "(tol 2e-2 of the largest entry: P, dS and dO round to bf16)")
+            if not (torch.isfinite(a).all() and err <= 2e-2 * top):
+                raise RuntimeError(f"K13 autograd: {name} disagrees at T={T} S={S}: {err}")
+        del q, k, v, do, grads
+    torch.cuda.empty_cache()
+    return rec
+
+
+def check_p32_kernel(device, g):
+    """Phase 3, K14 (the p32 product of the matmul probe, Pallas row 16):
+    ``pack_p32`` bit-equal to a numpy re-statement of the JAX script's
+    packing; K14 within 1e-2 + 1e-2 |ref| of the f32 plain version at M = 1,
+    8 and 64 over [4096, 11008]; timed at M = 8 beside the bound (the
+    45.1 MB weight read), the plain version and the dense bf16
+    ``torch.matmul`` on the unpacked, scaled weight (the yardstick)."""
+    import numpy as np
+    import torch
+
+    from cullavo_tpu_torch.scripts import matmul_probe as mp
+
+    K, N = mp.K, mp.N
+    w8 = torch.randint(-128, 128, (K, N), generator=g, device=device, dtype=torch.int8)
+    w32 = mp.pack_p32(w8)
+    kq = K // 4
+    b = w8.cpu().numpy().astype(np.int32) & 0xFF
+    want = (b[0 * kq:1 * kq] | (b[1 * kq:2 * kq] << 8) | (b[2 * kq:3 * kq] << 16)
+            | (b[3 * kq:4 * kq] << 24)).astype(np.int32)
+    n_bad = int((w32.cpu().numpy() != want).sum())
+    log(f"K14 pack_p32 [{K}, {N}] -> [{kq}, {N}] int32: {n_bad} words differ from the numpy "
+        "packing (bit-equal demanded)")
+    if n_bad:
+        raise RuntimeError("pack_p32 differs from the JAX script's packing")
+    scale = torch.rand((N,), generator=g, device=device) * 0.01
+    rec, errs = {}, []
+    for M in (1, 8, 64):
+        x = torch.randn((M, K), generator=g, device=device).to(torch.bfloat16)
+        y = mp.p32_linear(x, w32, scale)
+        ref = mp.p32_linear_plain(x, w32, scale)
+        torch.cuda.synchronize(device)
+        err = (y.float() - ref.float()).abs().max().item()
+        errs.append(err)
+        log(f"K14 p32_linear M={M} K={K} N={N}: max_abs_err={err:.3e}, max |ref| "
+            f"{ref.float().abs().max().item():.3f} (tol 1e-2 + 1e-2 |ref|: one bf16 rounding)")
+        if not torch.allclose(y.float(), ref.float(), rtol=1e-2, atol=1e-2):
+            raise RuntimeError(f"K14 disagrees with its plain version at M={M}: {err}")
+        if M == 8:
+            ms = bench_ms(lambda: mp.p32_linear(x, w32, scale), device)
+            plain = bench_ms(lambda: mp.p32_linear_plain(x, w32, scale), device)
+            wb = (w8.float() * scale).to(torch.bfloat16)
+            dense = bench_ms(lambda: x @ wb, device)
+            bd = bound(nbytes(x, w32, scale, y), 2 * M * K * N, "bf16")
+            log(f"K14 M={M}: kernel {ms:.4f} ms, plain {plain:.4f} ms, dense bf16 matmul on the "
+                f"unpacked weight {dense:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+                f"({bd['bound_by']}, {nbytes(w32) / 1e6:.1f} MB of packed weight)")
+            rec["p32_linear"] = dict(ms=ms, plain_ms=plain, library_ms=dense, **bd,
+                                     shape=f"x [{M},{K}] bf16 @ int32 [{kq},{N}], f32 scale")
+            del wb
+    rec["p32_linear"]["max_abs_err"] = max(errs)
+    return rec
+
+
+def run_packed_prefill(params, cfg, device, requests, wrappers):
+    """Phase 6c: the 14-request greedy batch's prefill (chunks of 7, int8
+    base, bf16 cache) with ``CULLAVO_FLASH_PACKED=1``: K13 in every layer of
+    each chunk instead of K1.  Last-token logits within ``LOGIT_TOL`` of the
+    K1 prefill's; K13 launched 32 per chunk and K1 never; prefill seconds of
+    both forms in turns (K1, packed, packed, K1).  The A/B that JAX's
+    comment leaves for other topologies.  Returns the packed run's counts."""
+    import torch
+
+    from cullavo_tpu_torch.models.llava.modeling import generate_prefill_chunked
+
+    ids, mask, pix, _, T_pad = requests
+
+    def prefill(packed):
+        os.environ["CULLAVO_FLASH_PACKED"] = "1" if packed else "0"
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        st = generate_prefill_chunked(params, cfg, ids, pix, mask, T_pad + NEW_TOKENS, CHUNK,
+                                      compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize(device)
+        os.environ.pop("CULLAVO_FLASH_PACKED")
+        return st["logits"].float(), time.perf_counter() - t0
+
+    ref, t_k1 = prefill(False)
+    (got, t_packed), counts = counted(wrappers, lambda: prefill(True))
+    t_packed2 = prefill(True)[1]
+    t_k1_2 = prefill(False)[1]
+    err = (got - ref).abs().max().item()
+    n_chunks = -(-BATCH // CHUNK)
+    log(f"phase 6c, packed prefill: launches {counts}; last-token logits within {err:.4f} of "
+        f"the K1 prefill's (tol {LOGIT_TOL})")
+    log(f"prefill s (batch {BATCH}, chunks of {CHUNK}, T {T_pad}), in turns: K1 {t_k1:.4f}, "
+        f"packed {t_packed:.4f}, packed {t_packed2:.4f}, K1 {t_k1_2:.4f}")
+    want = {"flash_packed": n_chunks * cfg.text.num_hidden_layers, "flash_fwd": 0}
+    if any(counts[k] != n for k, n in want.items()):
+        raise RuntimeError(f"packed prefill: launches {counts} != predicted {want}")
+    if not err <= LOGIT_TOL:
+        raise RuntimeError(f"packed prefill: logits differ from the K1 prefill's by {err}")
+    return counts
+
+
+# COCO panoptic's 133 categories: ids 1..200 with gaps in the real table;
+# here 80 thing ids then 53 stuff ids, with gaps, for the contiguous map
+PANOPTIC_CATEGORIES = ([{"id": 1 + i + i // 10, "name": f"thing{i}", "isthing": 1}
+                        for i in range(80)]
+                       + [{"id": 92 + 2 * i, "name": f"stuff{i}", "isthing": 0}
+                          for i in range(53)])
+
+
+def write_panoptic_dataset(root, n=LOOP_IMAGES, hw=LOOP_IMAGE_HW):
+    """A COCO-panoptic dataset of ``n`` random images of ``hw`` written with
+    the port's PNG writer (as ``.jpg`` names, the annotation's ``.png`` names
+    renamed, as the reference's loader expects), id-encoded panoptic PNGs
+    and a panopticapi JSON: per image two stuff halves, 2-4 thing boxes and,
+    in image 0, one crowd segment.  Returns (json, image dir, panoptic dir)."""
+    import numpy as np
+
+    from cullavo_tpu_torch.data.coco_panoptic import id2rgb
+    from cullavo_tpu_torch.data.png_io import write_png
+
+    rng = np.random.default_rng(SEED + 12)
+    img_dir, pan_dir = os.path.join(root, "train2017"), os.path.join(root, "panoptic_train2017")
+    os.makedirs(img_dir)
+    os.makedirs(pan_dir)
+    H, W = hw
+    things = [c["id"] for c in PANOPTIC_CATEGORIES if c["isthing"]]
+    stuff = [c["id"] for c in PANOPTIC_CATEGORIES if not c["isthing"]]
+    anns = []
+    for i in range(n):
+        write_png(os.path.join(img_dir, f"{i:012d}.jpg"),
+                  rng.integers(0, 256, (H, W, 3), dtype=np.uint8))
+        ids = np.ones((H, W), np.int64)
+        ids[H // 2:] = 2
+        segs = [{"id": 1, "category_id": int(rng.choice(stuff)), "iscrowd": 0},
+                {"id": 2, "category_id": int(rng.choice(stuff)), "iscrowd": 0}]
+        for j in range(2 + i % 3):
+            y0, x0 = int(rng.integers(0, H - 120)), int(rng.integers(0, W - 160))
+            h, w = int(rng.integers(40, 120)), int(rng.integers(40, 160))
+            ids[y0:y0 + h, x0:x0 + w] = 10 + j
+            segs.append({"id": 10 + j, "category_id": int(rng.choice(things)), "iscrowd": 0})
+        if i == 0:
+            ids[:30, :30] = 99
+            segs.append({"id": 99, "category_id": things[0], "iscrowd": 1})
+        write_png(os.path.join(pan_dir, f"{i:012d}.png"), id2rgb(ids))
+        anns.append({"image_id": i, "file_name": f"{i:012d}.png", "segments_info": segs})
+    path = os.path.join(root, "panoptic_train2017.json")
+    with open(path, "w") as f:
+        json.dump({"images": [{"id": i, "file_name": f"{i:012d}.jpg", "height": H, "width": W}
+                              for i in range(n)],
+                   "annotations": anns, "categories": PANOPTIC_CATEGORIES}, f)
+    return path, img_dir, pan_dir
+
+
+def _same_tree(a, b, prefix=""):
+    """Paths where two trees (dicts of tensors, ints, None) differ bit for bit."""
+    import torch
+
+    if isinstance(a, dict):
+        return [p for k in a for p in _same_tree(a[k], b[k], f"{prefix}/{k}")] + (
+            [prefix + "/<keys>"] if sorted(a) != sorted(b) else [])
+    if torch.is_tensor(a):
+        return [] if (a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)) \
+            else [prefix]
+    return [] if a == b else [prefix]
+
+
+def run_train_loop_path(snap, cfg, device, wrappers, smi, work):
+    """Phase 12: ``entry.train`` on configs/cullavo_step1.yaml from phase 10's
+    7B bf16 snapshot (``BITS: 4``, full width and depth) over a registered
+    ``coco_panoptic`` dataset of 16 synthetic 480 x 640 images, batch 8, 2
+    epochs (4 steps), ``SAVE_DIR`` a temporary directory: every loss finite;
+    ``step_2``, ``step_4``, ``epoch0`` and ``epoch1`` written;
+    ``load_checkpoint(template=...)`` and ``load_reference_layout`` bit-equal
+    to the trainable state they saved.  Then ``RESUME_FROM`` epoch1 for 2
+    steps (the trainable partition bit-equal to the first run's final one
+    before its first step, losses finite), then 2 steps with
+    ``CULLAVO_FLASH_PACKED=1`` without saving (step-1 loss within 1e-3
+    relative of the first run's; K13 64 and K1-lse 32 launches per step).
+    Returns the packed run's launch counts."""
+    import math
+
+    import torch
+
+    from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.checkpoint.reference_layout import load_reference_layout
+    from cullavo_tpu_torch.checkpoint.store import load_checkpoint
+
+    t0 = time.perf_counter()
+    json_file, img_dir, pan_dir = write_panoptic_dataset(os.path.join(work, "coco"))
+    log(f"coco_panoptic dataset: {LOOP_IMAGES} images of {LOOP_IMAGE_HW} written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    save_dir = os.path.join(work, "step1_out")
+    base = {**TRAIN_CFG, "LOG_EVERY": 1,
+            "MODEL": {"LLM": {**TRAIN_CFG["MODEL"]["LLM"], "LOAD_PATH": snap}},
+            "DATASETS": {"TRAIN": LOOP_DATASET}}
+    cfg1 = {**base, "EPOCHS": 2, "SAVE_DIR": save_dir,
+            "DATASETS": {"TRAIN": LOOP_DATASET, "REGISTER": {LOOP_DATASET: {
+                "KIND": "coco_panoptic", "JSON": json_file, "IMAGE_DIR": img_dir,
+                "PANOPTIC_DIR": pan_dir, "NUM_CLASSES": 133}}}}
+
+    # record what each run's loop starts from, its step and save seconds
+    real_loop = entry.train_loop
+    seen = {}
+
+    def loop(state, frozen, step_fn, data_iter_fn, steps_per_epoch, cfg, rng, log_fn=None,
+             save_fn=None):
+        seen.update(start=state, steps=[], saves=[])
+
+        def step(*a):
+            torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            out = step_fn(*a)
+            torch.cuda.synchronize(device)
+            seen["steps"].append(time.perf_counter() - t)
+            return out
+
+        def save(*a):
+            t = time.perf_counter()
+            save_fn(*a)
+            seen["saves"].append(time.perf_counter() - t)
+
+        return real_loop(state, frozen, step, data_iter_fn, steps_per_epoch, cfg, rng,
+                         log_fn, save if save_fn else None)
+
+    def train(c):
+        seen.clear()
+        torch.cuda.reset_peak_memory_stats(device)
+        t = time.perf_counter()
+        res, counts = counted(wrappers, lambda: entry.train(c))
+        wall = time.perf_counter() - t
+        losses = [h["loss_llm"] for h in res["history"]]
+        if not (losses and all(math.isfinite(x) for x in losses)):
+            raise RuntimeError(f"train loop: bad losses {losses}")
+        return res, counts, losses, dict(seen, wall=wall,
+                                         peak=torch.cuda.max_memory_allocated(device) / 2**30)
+
+    entry.train_loop = loop
+    res1, counts1, losses1, info1 = train(cfg1)
+    state1 = res1["state"]
+    written = sorted(os.listdir(save_dir))
+    log(f"train loop run 1 (K1): losses {losses1}; launches {counts1}; written {written}")
+    if len(losses1) != 4 or state1.step != 4 or not {"step_2", "step_4", "epoch0",
+                                                     "epoch1"} <= set(written):
+        raise RuntimeError(f"train loop run 1: {len(losses1)} steps, wrote {written}")
+    L = cfg.text.num_hidden_layers
+    if counts1["flash_fwd_lse"] != 4 * 2 * L or counts1["flash_packed"]:
+        raise RuntimeError(f"train loop run 1: launches {counts1}")
+    t = time.perf_counter()
+    back = load_checkpoint(save_dir, 4, template=state1)
+    t_ckpt = time.perf_counter() - t
+    bad = _same_tree({"t": back.trainable, "o": back.opt_state, "s": back.step},
+                     {"t": state1.trainable, "o": state1.opt_state, "s": state1.step})
+    t = time.perf_counter()
+    ref_back = load_reference_layout(os.path.join(save_dir, "epoch1"), state1.trainable)
+    t_ref = time.perf_counter() - t
+    bad += _same_tree(ref_back, state1.trainable)
+    log(f"step_4 read back with the TrainState template in {t_ckpt:.2f} s, epoch1 in "
+        f"{t_ref:.2f} s: {len(bad)} leaves differ (bit-equal demanded)")
+    if bad:
+        raise RuntimeError(f"train loop: checkpoints read back differ: {bad[:5]}")
+    du = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(save_dir) for f in fs)
+    del back, ref_back
+    final1 = state1.trainable
+    del res1, state1
+    torch.cuda.empty_cache()
+
+    cfg2 = {**base, "RESUME_FROM": os.path.join(save_dir, "epoch1", "CuLLaVO.pt")}
+    res2, counts2, losses2, info2 = train(cfg2)
+    bad = _same_tree(info2["start"].trainable, final1)
+    log(f"train loop run 2 (RESUME_FROM epoch1): losses {losses2}; its trainable partition "
+        f"before step 1: {len(bad)} leaves differ from run 1's final one (bit-equal demanded)")
+    if bad or len(losses2) != 2 or info2["start"].opt_state["count"] != 0:
+        raise RuntimeError(f"train loop: the resumed state differs: {bad[:5]}")
+    del res2, info2["start"], final1
+    torch.cuda.empty_cache()
+
+    os.environ["CULLAVO_FLASH_PACKED"] = "1"
+    res3, counts3, losses3, info3 = train(base)
+    os.environ.pop("CULLAVO_FLASH_PACKED")
+    entry.train_loop = real_loop
+    rel = abs(losses3[0] - losses1[0]) / abs(losses1[0])
+    log(f"train loop run 3 (CULLAVO_FLASH_PACKED=1): losses {losses3}; launches {counts3}; "
+        f"step-1 loss {rel:.3e} relative from run 1's (tol 1e-3)")
+    want = {"flash_packed": 2 * 2 * L, "flash_fwd_lse": 2 * L, "flash_fwd": 0}
+    if any(counts3[k] != n for k, n in want.items()) or not rel <= 1e-3:
+        raise RuntimeError(f"train loop, packed: launches {counts3} (want {want}), "
+                           f"step-1 loss {losses3[0]} vs {losses1[0]}")
+    del res3
+    torch.cuda.empty_cache()
+    for label, info in (("run 1, K1", info1), ("run 2, resumed", info2),
+                        ("run 3, packed", info3)):
+        s = info["steps"]
+        log(f"train loop {label} ({smi}): s per step {[round(x, 4) for x in s]}, median "
+            f"{statistics.median(s[1:] if len(s) > 2 else s):.4f} s; checkpoint writes (step_N "
+            f"+ epochN) {[round(x, 2) for x in info['saves']]} s; wall {info['wall']:.2f} s "
+            f"(snapshot load and NF4 quantization included); peak memory {info['peak']:.2f} GiB")
+    log(f"checkpoints on disk: {du / 1e9:.3f} GB (step_2, step_4, epoch0, epoch1)")
+    return counts3
+
+
+def run_matmul_probe(device, wrappers):
+    """Phase 13: the port's matmul probe at JAX's defaults (M = 8, 24 stacked
+    [4096, 11008] weights) with the p32 variants, on the card: every
+    variant's JSON line, parity to the first within 2e-2 (the probe raises
+    otherwise).  Returns its launch counts (K14: the parity call, a warm-up
+    pass and 10 timed passes over the 24 weights)."""
+    from cullavo_tpu_torch.scripts import matmul_probe as mp
+
+    rows, counts = counted(wrappers, lambda: mp.main(M=8, L=24, p32=True, device=device))
+    names = [r["variant"] for r in rows]
+    if names != ["conv", "conv_pre", "conv_t", "s8s8", "conv_p32_xla", "p32_pallas", "bf16"]:
+        raise RuntimeError(f"matmul probe: variants {names}")
+    want = 1 + (1 + mp.REPS) * 24
+    if counts["p32_linear"] != want:
+        raise RuntimeError(f"matmul probe: K14 launches {counts['p32_linear']} != {want}")
+    log(f"matmul probe launches: {counts}")
+    return counts
+
+
 def main(argv):
     import torch
 
@@ -2935,6 +3357,7 @@ def main(argv):
     from cullavo_tpu_torch.ops import flash_attention as fa
     from cullavo_tpu_torch.ops import focal, msdeform, nf4
     from cullavo_tpu_torch.ops import wwin_decode as ww
+    from cullavo_tpu_torch.scripts import matmul_probe as mp
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -2969,7 +3392,8 @@ def main(argv):
                 "ms_deform_attn": msdeform.ms_deform_attn_kernel,
                 "focal_ctx": focal.focal_ctx_kernel,
                 "nf4_linear_q4": nf4.nf4_linear_q4, "nf4_dequant_q4": nf4.nf4_dequant_q4,
-                "flash_decode": fa.decode_partials}
+                "flash_decode": fa.decode_partials, "flash_packed": fa.flash_attention_packed,
+                "p32_linear": mp.p32_linear}
     meta = {"flash_fwd": ("cullavo_tpu_torch/csrc/flash_fwd.cu",
                           "cullavo_tpu/ops/flash_attention.py:259"),
             "quant_rows": ("cullavo_tpu_torch/csrc/quant_rows.cu",
@@ -3002,7 +3426,12 @@ def main(argv):
             # K12: row 5's decode kernel in the general form the zoo's
             # stale-cache decode needs (cullavo_tpu/models/llava/llama.py:174)
             "flash_decode": ("cullavo_tpu_torch/csrc/flash_decode.cu",
-                             "cullavo_tpu/ops/flash_attention.py:687")}
+                             "cullavo_tpu/ops/flash_attention.py:687"),
+            # K13: row 4's _fwd_kernel_iota_packed and, the same function in
+            # another TPU tiling, row 3 (_fwd_kernel_iota in batch groups, :596)
+            "flash_packed": ("cullavo_tpu_torch/csrc/flash_fwd.cu",
+                             "cullavo_tpu/ops/flash_attention.py:623"),
+            "p32_linear": ("cullavo_tpu_torch/csrc/p32_matmul.cu", "scripts/matmul_probe.py:154")}
 
     # phases 4-6b
     cfg = LlavaConfig()
@@ -3014,6 +3443,8 @@ def main(argv):
     requests = make_requests(cfg, device)
     counts, run_greedy = run_greedy_path(params, cfg, device, requests, wrappers)
     counts_spec, run_spec = run_spec_path(params, cfg, device, requests, wrappers)
+    # phase 6c
+    run_packed_prefill(params, cfg, device, requests, wrappers)
     if "--profile" not in argv:   # the profiled batches at the end need the int8 model
         del params, run_greedy, run_spec
         torch.cuda.empty_cache()
@@ -3045,16 +3476,27 @@ def main(argv):
         del focal_pipe, xdec_rows
         torch.cuda.empty_cache()
 
-    # phases 10 and 10b
-    counts_vl, params_vl = run_vl_snapshot_path(cfg, device, wrappers, smi)
-    counts_q4 = run_q4_path(params_vl, cfg, device, requests, wrappers, smi)
-    del params_vl
-    torch.cuda.empty_cache()
+    # phases 10-13 share a working directory: phase 10's snapshot is phase 12's
+    with tempfile.TemporaryDirectory(prefix="cullavo_chip_") as work:
+        snap = os.path.join(work, "snapshot")
+        os.makedirs(snap)
+        # phases 10 and 10b
+        counts_vl, params_vl = run_vl_snapshot_path(cfg, device, wrappers, smi, snap)
+        counts_q4 = run_q4_path(params_vl, cfg, device, requests, wrappers, smi)
+        del params_vl
+        torch.cuda.empty_cache()
 
-    # phase 11
-    zoo_entry_smoke(device, wrappers)
-    reference_check_zoo(device, wrappers)
-    counts_zoo = run_zoo_path(device, wrappers, smi, "--profile" in argv)
+        # phase 11
+        zoo_entry_smoke(device, wrappers)
+        reference_check_zoo(device, wrappers)
+        counts_zoo = run_zoo_path(device, wrappers, smi, "--profile" in argv)
+        torch.cuda.empty_cache()
+
+        # phase 12
+        counts_loop = run_train_loop_path(snap, cfg, device, wrappers, smi, work)
+
+    # phase 13
+    counts_probe13 = run_matmul_probe(device, wrappers)
     # each kernel's launches on the main path that runs it: K1-K4 the greedy
     # bf16-cache batch, K5 the speculative int8-cache batch, K6 and K7 the
     # serving run, K1-lse the train steps, K8 the attention probe, K9 the
@@ -3070,6 +3512,9 @@ def main(argv):
         counts[name] = counts_q4[name]
     # K12: the two zoo models' first runs of phase 11, each counted from 0
     counts["flash_decode"] = sum(counts_zoo.values())
+    # K13: phase 12's packed training run; K14: phase 13's probe
+    counts["flash_packed"] = counts_loop["flash_packed"]
+    counts["p32_linear"] = counts_probe13["p32_linear"]
     log(f"launches on the vl_test path (BITS 8 from the snapshot): {counts_vl}")
     log(f"K7 launches on the train path: {counts_train['nf4_dequant_planar']}")
     if not all(counts.values()):
@@ -3089,6 +3534,8 @@ def main(argv):
     for k in kernels:
         if k["name"] == "nf4_linear_q4":
             k["also_replaces"] = "cullavo_tpu/ops/nf4.py:222"
+        if k["name"] == "flash_packed":
+            k["also_replaces"] = "cullavo_tpu/ops/flash_attention.py:596"
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -52,6 +52,8 @@ SIGNATURES = {
     "cullavo_focal_ctx": [_P] * 7 + [_I] * 5 + [_L] * 4 + [_I] * 3 + [_P],
     "cullavo_focal_ctx_tiles": [_P, _I, _I, _I],
     "cullavo_flash_decode": [_P] * 7 + [_I] * 6 + [_L] * 11 + [_F, _P],
+    "cullavo_flash_packed": [_P] * 4 + [_I] * 5 + [_F, _P],
+    "cullavo_p32_linear": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 _lib = None

@@ -47,6 +47,23 @@
 // wholly masked row needs every key, no key tile is skipped: the kernel does
 // the full T x S work where the causal mask would allow half.  Same tiles,
 // fragments and numerics as K1 (bf16 P for the PV product, f32 state).
+//
+// K13 (kPacked).  Replaces: cullavo_tpu/ops/flash_attention.py,
+// _packed_fwd_core -> _fwd_kernel_iota with batch groups (Pallas row 3,
+// CULLAVO_FLASH_PACKED_BG=1) and _fwd_kernel_iota_packed (row 4, G heads per
+// program): the causal forward on the packed-heads projection layout, q
+// [B, T, H*d] and k/v [B, S, H*d] with S >= T, head h in columns
+// [h*d, (h+1)*d), output [B, T, H*d].  Query i sees keys j <= i (global iota
+// positions, no key mask), so keys past T never reach a valid row.  Rows 3
+// and 4 compute one function and differ only in how the TPU tiles lanes
+// (one 128-lane head per program, or G heads sliced inside the program);
+// Hopper has no lane blocks, so one kernel serves both and
+// CULLAVO_FLASH_PACKED_BG has no meaning here.  The kernel derives the
+// head's column offset h*d and the row stride H*d from its grid and T, S
+// itself (no stride arguments); everything else is K1's body (same tiles,
+// causal tile skip, f32 online softmax, bf16 P) and bound (tensor-core math
+// at training and prefill shapes).  It is its own entry so that its launches
+// are counted apart from K1's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,7 +97,7 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <bool kRows, bool kLse>
+template <bool kRows, bool kLse, bool kPacked>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -98,6 +115,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest (last) tiles first
   const int h = blockIdx.y, b = blockIdx.z;
+  if (kPacked) {  // K13: [B, T|S, H*d] rows, head h at column h*d
+    const long long row = (long long)gridDim.y * D;
+    q_sb = o_sb = (long long)T * row;
+    k_sb = v_sb = (long long)S * row;
+    q_sh = k_sh = v_sh = o_sh = D;
+    q_st = k_st = v_st = o_st = row;
+  }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
@@ -270,13 +294,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <bool kRows, bool kLse>
+template <bool kRows, bool kLse, bool kPacked = false>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            const void* qpos, const void* kvalid, int causal, int B, int H, int T,
            int S, int d, const long long* st, float scale, void* stream) {
   if (d != D || T < 1 || S < 1) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<kRows, kLse>
+  flash_fwd_kernel<kRows, kLse, kPacked>
       <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -334,4 +358,15 @@ extern "C" int cullavo_flash_rows(const void* q, const void* k, const void* v,
                               st, scale, stream);
   return launch<true, false>(q, k, v, o, nullptr, qpos, kvalid, causal, B, H, T, S, d,
                              st, scale, stream);
+}
+
+// K13: causal forward on the packed layout, q [B, T, H*d] and k/v/o
+// [B, S|T, H*d] contiguous, S >= T (query i sees keys j <= i).
+extern "C" int cullavo_flash_packed(const void* q, const void* k, const void* v, void* o,
+                                    int B, int H, int T, int S, int d, float scale,
+                                    void* stream) {
+  if (S < T) return static_cast<int>(cudaErrorInvalidValue);
+  const long long st[12] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  return launch<false, false, true>(q, k, v, o, nullptr, nullptr, nullptr, 1, B, H, T, S,
+                                    d, st, scale, stream);
 }

@@ -1,0 +1,148 @@
+"""COCO panoptic records and the mapper that turns one into a step-1
+training sample (counterpart of ``cullavo_tpu/data/coco_panoptic.py``).
+
+  * ``rgb2id`` / ``id2rgb`` — panopticapi's RGB <-> segment-id encoding.
+  * ``load_coco_panoptic_json`` / ``register_coco_panoptic`` — the
+    panoptic JSON walked into one record per image (image file names as
+    the annotation's ``.png`` renamed ``.jpg``; category ids mapped to
+    contiguous ids; thing flags from the categories).
+  * ``resize_image`` — the square bicubic resize of ``jax.image.resize``
+    (``models/xdecoder/decoder.resize``), clipped and truncated to uint8.
+  * ``PanopticMapper`` — record -> image at the model's resolution, the
+    non-crowd segments' classes, boxes (in model pixels), thing flags and
+    nearest-resized masks.  Its default loader picks by a file's magic
+    bytes: a PNG goes to the port's own reader (``png_io``), any other file
+    to ``load_image_rgb``, which needs PIL (PIL itself opens a PNG named
+    ``.jpg``, so the two agree).
+
+``pad_targets`` (the X-Decoder's padded targets) comes with X-Decoder
+training.
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from cullavo_tpu_torch.data import png_io
+from cullavo_tpu_torch.data.mappers.eval_mappers import load_image_rgb
+from cullavo_tpu_torch.data.registry import register_dataset
+from cullavo_tpu_torch.models.xdecoder.decoder import resize
+
+
+def rgb2id(color: np.ndarray) -> np.ndarray:
+    """[H, W, 3] uint8 -> [H, W] int64 (panopticapi encoding)."""
+    color = color.astype(np.int64)
+    return color[..., 0] + 256 * color[..., 1] + 256 * 256 * color[..., 2]
+
+
+def id2rgb(ids: np.ndarray) -> np.ndarray:
+    out = np.zeros(ids.shape + (3,), np.uint8)
+    out[..., 0] = ids % 256
+    out[..., 1] = (ids // 256) % 256
+    out[..., 2] = (ids // 65536) % 256
+    return out
+
+
+def load_coco_panoptic_json(json_file: str, image_dir: str, panoptic_dir: str,
+                            metadata: dict) -> list:
+    """Panoptic annotation JSON -> list of records (one per image)."""
+    with open(json_file) as f:
+        info = json.load(f)
+    cat_id_to_contiguous = metadata.get("dataset_id_to_contiguous_id") or {
+        c["id"]: i for i, c in enumerate(sorted(info.get("categories", []),
+                                                key=lambda c: c["id"]))}
+    thing_ids = metadata.get("thing_dataset_ids") or {
+        c["id"] for c in info.get("categories", []) if c.get("isthing")}
+    records = []
+    for ann in info["annotations"]:
+        records.append({
+            "image_id": ann["image_id"],
+            "file_name": os.path.join(image_dir, ann["file_name"].replace(".png", ".jpg")),
+            "pan_seg_file_name": os.path.join(panoptic_dir, ann["file_name"]),
+            "segments_info": [
+                {"id": s["id"],
+                 "category_id": cat_id_to_contiguous.get(s["category_id"], s["category_id"]),
+                 "iscrowd": s.get("iscrowd", 0),
+                 "isthing": s["category_id"] in thing_ids}
+                for s in ann["segments_info"]],
+        })
+    return records
+
+
+def register_coco_panoptic(name: str, json_file: str, image_dir: str, panoptic_dir: str,
+                           metadata: Optional[dict] = None):
+    md = dict(metadata or {})
+    register_dataset(name, lambda: load_coco_panoptic_json(json_file, image_dir,
+                                                           panoptic_dir, md), md)
+
+
+def resize_image(img: np.ndarray, size: int, method: str = "bicubic") -> np.ndarray:
+    """Square resize of a uint8 [H, W, C] image as ``jax.image.resize`` does
+    it (f32, antialiased when shrinking), clipped to [0, 255] and truncated
+    to uint8."""
+    x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).permute(2, 0, 1)[None]
+    out = resize(x, (size, size), method)[0].permute(1, 2, 0).numpy()
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def load_image_file(path: str) -> np.ndarray:
+    """An image file -> uint8 RGB [H, W, 3], by its magic bytes: a PNG through
+    ``png_io``, anything else through ``load_image_rgb`` (PIL)."""
+    with open(path, "rb") as f:
+        magic = f.read(len(png_io.SIGNATURE))
+    if magic == png_io.SIGNATURE:
+        return png_io.read_png(path)
+    return load_image_rgb(path)
+
+
+class PanopticMapper:
+    """record -> {"image" [S, S, 3] u8, "image_id", "classes" [N], "boxes"
+    [N, 4] abs xyxy in model pixels, "is_thing" [N], "masks" [N, S, S]};
+    crowd segments and segments absent from the map are dropped, and a
+    record left with none maps to None."""
+
+    def __init__(self, image_size: int = 336, load_image=None):
+        self.image_size = image_size
+        self._load_image = load_image or load_image_file
+
+    def __call__(self, record: dict) -> Optional[dict]:
+        img = record.get("image")
+        if img is None:
+            img = self._load_image(record["file_name"])
+        pan = record.get("pan_seg")
+        if pan is None:
+            pan = self._load_image(record["pan_seg_file_name"])
+        seg_ids = rgb2id(pan)
+
+        S = self.image_size
+        H, W = seg_ids.shape
+        img = resize_image(img, S)
+        # nearest resize of the masks to the model resolution
+        yy = np.clip((np.arange(S) + 0.5) * H / S, 0, H - 1).astype(np.int64)
+        xx = np.clip((np.arange(S) + 0.5) * W / S, 0, W - 1).astype(np.int64)
+
+        classes, boxes, is_thing, masks = [], [], [], []
+        for seg in record["segments_info"]:
+            if seg.get("iscrowd", 0):
+                continue
+            m = seg_ids == seg["id"]
+            if not m.any():
+                continue
+            ys, xs = np.nonzero(m)
+            scale_x, scale_y = S / W, S / H
+            boxes.append([xs.min() * scale_x, ys.min() * scale_y,
+                          (xs.max() + 1) * scale_x, (ys.max() + 1) * scale_y])
+            classes.append(seg["category_id"])
+            is_thing.append(bool(seg.get("isthing", True)))
+            masks.append(m[yy][:, xx])
+        if not classes:
+            return None
+        return {"image": img, "image_id": record.get("image_id"),
+                "classes": np.asarray(classes, np.int32),
+                "boxes": np.asarray(boxes, np.float32),
+                "is_thing": np.asarray(is_thing, bool),
+                "masks": np.stack(masks).astype(np.float32)}

@@ -1,6 +1,8 @@
 """Entry points of the port (counterpart of ``cullavo_tpu/entry.py``): so
 far ``serve``, the continuous-batching engine over a JSONL request stream,
-``train`` in its smoke mode (one Q-LoRA step on synthetic records), and
+``train`` (the Q-LoRA epoch loop over a registered COCO-panoptic dataset
+with ``step_{N}`` and reference ``epoch{N}`` checkpoints and
+``RESUME_FROM``, or one smoke step on synthetic records), and
 ``evaluate`` for the VL eval (``vl_test``: LLaVA from a local HF snapshot
 or the smoke model, or a zoo tower, BLIP-2 Flan-T5 or KOSMOS-2, with tiny
 random weights, over registered VQA datasets) and the X-Decoder
@@ -31,6 +33,10 @@ import numpy as np
 import torch
 
 from cullavo_tpu_torch.checkpoint.hf_import import llava_config_from_json, load_llava_safetensors
+from cullavo_tpu_torch.checkpoint.reference_layout import (load_reference_layout,
+                                                           save_reference_layout)
+from cullavo_tpu_torch.checkpoint.store import save_checkpoint
+from cullavo_tpu_torch.data.coco_panoptic import PanopticMapper, register_coco_panoptic
 from cullavo_tpu_torch.data.datasets import register_vqa
 from cullavo_tpu_torch.data.mappers.eval_mappers import VQAEvalMapper
 from cullavo_tpu_torch.data.registry import get_dataset
@@ -51,6 +57,8 @@ from cullavo_tpu_torch.pipelines.vl_zoo_pipeline import (MODEL_SPECS, VLZooVQAPi
                                                          native_kosmos2_answer_fn)
 from cullavo_tpu_torch.serving import Request, ServingEngine
 from cullavo_tpu_torch.serving.io import request_from_row
+from cullavo_tpu_torch.trainer.loop import LoopConfig, train_loop
+from cullavo_tpu_torch.trainer.step import TrainState
 
 
 def _device(device):
@@ -200,18 +208,25 @@ def _smoke_records():
 
 
 def train(cfg: dict, device=None) -> dict:
-    """Training workload.  Without ``DATASETS.TRAIN``: one smoke step of the
-    Q-LoRA train step (``CuLLaVOPipeline``) on synthetic records; returns
-    (and prints) its metrics, ``loss_llm`` and ``grad_norm``."""
+    """Training workload (``configs/cullavo_step1.yaml``): LLaVA from
+    ``MODEL.LLM`` (a snapshot, or the tiny smoke model) with the base
+    quantized at ``BITS``, the Q-LoRA state of ``CuLLaVOPipeline``, the
+    trainable partition read from ``RESUME_FROM`` when set (the reference
+    ``epoch{N}`` layout; the optimizer state stays fresh, as in JAX).
+
+    With ``DATASETS.TRAIN`` (a registered dataset; ``DATASETS.REGISTER``
+    registers it first): the epoch loop over its records, mapped lazily by
+    ``PanopticMapper`` at the vision tower's resolution, shuffled per epoch
+    by ``np.random.default_rng(epoch)``, in batches of ``BATCH_SIZE`` (a
+    record that maps to None is skipped; the short tail is dropped), with
+    ``EPOCHS``, ``PERIOD``, ``LOG_EVERY`` and ``SAVE_DIR`` (each save writes
+    ``step_{N}/`` and ``epoch{N}/``); returns ``{"state", "history"}``.
+    Without it: one smoke step on synthetic records; returns (and prints)
+    its metrics, ``loss_llm`` and ``grad_norm``."""
+    register_datasets_from_cfg(cfg)
     if "xdecoder" in cfg.get("NAME", ""):
         raise NotImplementedError("X-Decoder training waits for the training part of the "
                                   "X-Decoder slice")
-    if cfg.get("RESUME_FROM"):
-        raise NotImplementedError("RESUME_FROM (reference-layout checkpoints) waits for the "
-                                  "training-loop slice")
-    if (cfg.get("DATASETS") or {}).get("TRAIN"):
-        raise NotImplementedError("DATASETS.TRAIN (the dataset path and the training loop) "
-                                  "waits for the training-loop slice")
     device = _device(device)
     model_cfg, params, tokenizer = _build_llava(cfg, device)
     # the prompts carry the tokenizer's <image> id; the model merges image
@@ -220,12 +235,50 @@ def train(cfg: dict, device=None) -> dict:
     pipe = build_pipeline(cfg.get("PIPELINE", "CuLLaVOPipeline"), cfg, model_cfg=model_cfg,
                           tokenizer=tokenizer, params=params)
     state = pipe.initialize_model()
-    print("[entry] no DATASETS.TRAIN configured: smoke step only", file=sys.stderr)
-    batch = pipe.make_batch(_smoke_records(), pad_to=None)
-    state, metrics = pipe.forward_step(state, batch, torch.Generator().manual_seed(0))
-    metrics = {k: float(v) for k, v in metrics.items()}
-    print(metrics)
-    return metrics
+    if cfg.get("RESUME_FROM"):
+        state = TrainState(load_reference_layout(cfg["RESUME_FROM"], state.trainable),
+                           state.opt_state, state.step)
+        pipe.state = state
+        print(f"[entry] resumed trainable state from {cfg['RESUME_FROM']}", file=sys.stderr)
+
+    dataset_name = (cfg.get("DATASETS") or {}).get("TRAIN")
+    if not dataset_name:
+        print("[entry] no DATASETS.TRAIN configured: smoke step only", file=sys.stderr)
+        batch = pipe.make_batch(_smoke_records(), pad_to=None)
+        state, metrics = pipe.forward_step(state, batch, torch.Generator().manual_seed(0))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        print(metrics)
+        return metrics
+
+    records = get_dataset(dataset_name)
+    batch_size = int(cfg.get("BATCH_SIZE", 8))
+    mapper = PanopticMapper(image_size=model_cfg.vision.image_size)
+
+    def data_iter(epoch):
+        order = np.random.default_rng(epoch).permutation(len(records))
+        buf = []
+        for j in order:
+            rec = records[j] if "is_thing" in records[j] else mapper(records[j])
+            if rec is not None:
+                buf.append(rec)
+            if len(buf) == batch_size:
+                yield pipe.make_batch(buf)
+                buf = []
+
+    def save_fn(save_dir, global_step, st, epoch):
+        save_checkpoint(save_dir, global_step, st)
+        ep = save_reference_layout(save_dir, epoch, st.trainable, pipe.lora_cfg)
+        print(f"[entry] reference-layout checkpoint at {ep}", file=sys.stderr)
+
+    loop_cfg = LoopConfig(max_epochs=int(cfg.get("EPOCHS", 1)),
+                          checkpoint_period=int(cfg.get("PERIOD", 0) or 0),
+                          log_every=int(cfg.get("LOG_EVERY", 10)),
+                          save_dir=cfg.get("SAVE_DIR"))
+    state, history = train_loop(state, pipe.frozen, pipe.step_fn, data_iter,
+                                steps_per_epoch=len(records) // batch_size, cfg=loop_cfg,
+                                rng=torch.Generator().manual_seed(0),
+                                log_fn=lambda d: print(d, file=sys.stderr), save_fn=save_fn)
+    return {"state": state, "history": history}
 
 
 def _dataset_names(cfg: dict) -> list:
@@ -274,19 +327,29 @@ def _load_xdecoder_params(cfg: dict, model_cfg, device):
 
 
 def register_datasets_from_cfg(cfg: dict) -> None:
-    """``DATASETS.REGISTER: {name: {KIND: vqa, QUESTIONS_JSON, ANNOTATIONS_JSON,
-    IMAGE_DIR, IMAGE_TEMPLATE}}``.  The other kinds and the bulk registration
-    from a ``DETECTRON2_DATASETS`` / ``DATASET`` root raise: they wait for
-    the slices that evaluate them (the JAX entry swallows the bulk errors)."""
+    """``DATASETS.REGISTER: {name: {KIND: ..., ...}}`` for two kinds: ``vqa``
+    (``QUESTIONS_JSON``, ``ANNOTATIONS_JSON``, ``IMAGE_DIR``,
+    ``IMAGE_TEMPLATE``) and ``coco_panoptic`` (``JSON``, ``IMAGE_DIR``,
+    ``PANOPTIC_DIR``, ``NUM_CLASSES``, ``CLASS_NAMES``, ``TASKS``).  The other
+    kinds and the bulk registration from a ``DETECTRON2_DATASETS`` /
+    ``DATASET`` root raise: they wait for the slices that use them (the JAX
+    entry swallows the bulk errors)."""
     root = os.environ.get("DETECTRON2_DATASETS") or os.environ.get("DATASET")
     if root and os.path.isdir(root):
         raise NotImplementedError(f"bulk dataset registration from {root!r} waits for the "
                                   "X-Decoder data slice; unset DETECTRON2_DATASETS / DATASET")
     for name, spec in dict((cfg.get("DATASETS") or {}).get("REGISTER") or {}).items():
         kind = spec.get("KIND", "semseg")
+        if kind == "coco_panoptic":
+            register_coco_panoptic(
+                name, spec["JSON"], spec["IMAGE_DIR"], spec["PANOPTIC_DIR"],
+                metadata={"num_classes": int(spec.get("NUM_CLASSES", 133)),
+                          "class_names": list(spec.get("CLASS_NAMES", [])) or None,
+                          "tasks": spec.get("TASKS")})
+            continue
         if kind != "vqa":
             raise NotImplementedError(f"DATASETS.REGISTER kind {kind!r} ({name}): only 'vqa' "
-                                      "is ported")
+                                      "and 'coco_panoptic' are ported")
         kw = {"image_template": str(spec["IMAGE_TEMPLATE"])} if spec.get("IMAGE_TEMPLATE") else {}
         register_vqa(name, spec["QUESTIONS_JSON"], spec.get("ANNOTATIONS_JSON"),
                      spec["IMAGE_DIR"], **kw)

@@ -10,7 +10,8 @@ bf16 (``{"k", "v"}``) or int8 with bf16 per-vector scale planes
 Modes:
   * no-cache forward, and the cache-building prefill (``prefill_pad_len``,
     ``kv_quant``); attention is the causal flash kernel (K1) on the
-    right-padded batch;
+    right-padded batch, or, with ``CULLAVO_FLASH_PACKED=1`` (MHA, head dim a
+    multiple of 128), K13 on the packed projection layout;
   * ``stale_cache`` decode of T >= 1 fresh tokens (T = 1: the classic step;
     T > 1: a speculative-verification window) with a scalar ``cache_index``
     or a per-row int32 ``[B]`` one: attention reads the cache without the
@@ -31,6 +32,7 @@ rematerialize each layer in the backward (``remat``).
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -40,7 +42,8 @@ from torch.utils.checkpoint import checkpoint
 from cullavo_tpu_torch.models.llava.config import LlamaConfig
 from cullavo_tpu_torch.models.llava.lora import lora_update
 from cullavo_tpu_torch.ops import nf4 as nf4_ops
-from cullavo_tpu_torch.ops.flash_attention import decode_partials, flash_attention
+from cullavo_tpu_torch.ops.flash_attention import (decode_partials, flash_attention,
+                                                   flash_attention_packed)
 from cullavo_tpu_torch.ops.wwin_decode import MAX_W as WWIN_MAX_W
 from cullavo_tpu_torch.ops.wwin_decode import (NEG_INF, _fold_scale, _window_scores,
                                                _window_scores_q8, _window_values_q8,
@@ -396,6 +399,11 @@ def llama_forward(
     kv_q8 = kv_quant == "int8" or (cache is not None and "k_s" in cache)
     if use_flash is None:
         use_flash = cache is None
+    # JAX's opt-in packed-heads forward (CULLAVO_FLASH_PACKED=1, read per
+    # call): q/k/v stay [B, T, H*hd] from the projections to the o-projection
+    # (K13); MHA with a head dim that is a multiple of 128, no cache
+    packed = (use_flash and cache is None and hd % 128 == 0 and H == KV
+              and os.environ.get("CULLAVO_FLASH_PACKED", "0") == "1")
 
     cos, sin = rope_cos_sin(position_ids, hd, cfg.rope_theta)
     bias = None
@@ -449,7 +457,10 @@ def llama_forward(
             elif prefill_pad_len is not None:
                 new_cache["k"][li, :T] = k_sm
                 new_cache["v"][li, :T] = v_sm
-            if use_flash:
+            if packed:
+                attn = flash_attention_packed(q.reshape(B, T, H * hd), k.reshape(B, T, KV * hd),
+                                              v.reshape(B, T, KV * hd), H)
+            elif use_flash:
                 attn = flash_attention(qh, repeat_kv(kh, n_rep), repeat_kv(vh, n_rep))
             else:
                 attn = sdpa(qh, repeat_kv(kh, n_rep), repeat_kv(vh, n_rep), bias)
@@ -481,7 +492,8 @@ def llama_forward(
                                           n_rep=n_rep)
             _write_window(cache["k"], li, cache_index, k_sm.to(cache["k"].dtype))
             _write_window(cache["v"], li, cache_index, v_sm.to(cache["v"].dtype))
-        attn = attn.transpose(1, 2).reshape(B, T, H * hd)
+        if not packed:
+            attn = attn.transpose(1, 2).reshape(B, T, H * hd)
         h = residual + ad.add(_mm(attn, w["o"]), attn, "o")
 
         residual = h

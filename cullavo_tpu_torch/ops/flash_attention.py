@@ -21,6 +21,15 @@ device it raises.  A masked score is the finite ``NEG_INF``: a row with no
 visible key returns the mean of v and ``lse = NEG_INF + log(S)``, and gets
 no gradient (the backward zeroes its probabilities).
 
+``flash_attention_packed(q, k, v, num_heads)`` is the transpose-free causal
+forward on the projection layout: q ``[B, T, H*d]``, k/v ``[B, S, H*d]``,
+S >= T, head h in columns ``[h*d, (h+1)*d)``, output ``[B, T, H*d]``.  On a
+CUDA tensor it is K13 (``cullavo_flash_packed``, counted on
+``flash_attention_packed.launches``), on a CPU tensor the plain version
+(``_packed_plain``: heads as views plus ``mha_reference``).  Its gradient
+restages q, k, v as ``[B, H, T, d]`` views and runs the standard path: the
+K1-lse (or K8 where S != T) forward for o and lse, then ``_flash_bwd``.
+
 One-token decode (``csrc/flash_decode.cu``, K12; f32 or bf16, head dim a
 multiple of 8 up to 128): ``decode_partials(q, k_cache, v_cache, bias,
 scale)`` returns the normalised f32 output with the row max and sum, so a
@@ -110,7 +119,9 @@ def _flash_bwd(q, k, v, q_positions, kv_valid, causal, o, lse, do):
     B, H, T, d = q.shape
     S = k.shape[2]
     scale = d ** -0.5
-    ch = _fit_block(512, T, 8)
+    # JAX's chunk of its 8-padded T; a ragged T ends in a shorter chunk (the
+    # largest divisor of a ragged T itself can be 1)
+    ch = _fit_block(512, -(-T // 8) * 8, 8)
     op_dt = q.dtype
     kT = k.transpose(-1, -2)
     vT = v.transpose(-1, -2)
@@ -118,14 +129,15 @@ def _flash_bwd(q, k, v, q_positions, kv_valid, causal, o, lse, do):
     dv = torch.zeros((B, H, S, d), dtype=torch.float32, device=q.device)
     dq = torch.empty((B, H, T, d), dtype=q.dtype, device=q.device)
     for c0 in range(0, T, ch):
-        sl = slice(c0, c0 + ch)
+        n = min(ch, T - c0)
+        sl = slice(c0, c0 + n)
         qc, doc = q[:, :, sl], do[:, :, sl].to(op_dt)
         p = torch.exp(_mm_f32(qc, kT) * scale - lse[:, :, sl, None])
         pos = None
         if causal:
             pos = (q_positions[:, sl] if q_positions is not None
-                   else torch.arange(c0, c0 + ch, device=q.device)[None, :])
-        mask = _visible(ch, S, q.device, causal, pos, kv_valid)
+                   else torch.arange(c0, c0 + n, device=q.device)[None, :])
+        mask = _visible(n, S, q.device, causal, pos, kv_valid)
         if mask is not None:
             p = torch.where(mask, p, torch.zeros_like(p))
         dv += _mm_f32(p.to(op_dt).transpose(-1, -2), doc)
@@ -157,6 +169,81 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, q_positions, kv_valid, o, lse = ctx.saved_tensors
         dq, dk, dv = _flash_bwd(q, k, v, q_positions, kv_valid, ctx.causal, o, lse, do)
         return dq, dk, dv, None, None, None
+
+
+def _packed_to_heads(x, num_heads):
+    """[B, T, H*d] -> a [B, H, T, d] view (no copy)."""
+    B, T, Hd = x.shape
+    return x.reshape(B, T, num_heads, Hd // num_heads).transpose(1, 2)
+
+
+def _heads_to_packed(x):
+    """[B, H, T, d] -> [B, T, H*d]."""
+    B, H, T, d = x.shape
+    return x.transpose(1, 2).reshape(B, T, H * d)
+
+
+def _packed_plain(q, k, v, num_heads):
+    """Plain version of K13: the heads as views plus ``mha_reference``
+    (causal over global positions, no key mask)."""
+    return _heads_to_packed(mha_reference(_packed_to_heads(q, num_heads),
+                                          _packed_to_heads(k, num_heads),
+                                          _packed_to_heads(v, num_heads)))
+
+
+class _FlashPacked(torch.autograd.Function):
+    """K13 forward (saves q, k, v); the backward restages them as [B, H, T,
+    d] views and differentiates through the standard path, as the JAX
+    package's ``_packed_vjp_bwd`` does: a forward that writes o and the
+    lse, then the chunked backward.  The JAX backward is no Pallas kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads = num_heads
+        if q.device.type == "cpu":
+            return _packed_plain(q, k, v, num_heads)
+        return _packed_cuda(q, k, v, num_heads)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = (_packed_to_heads(t, ctx.num_heads) for t in ctx.saved_tensors)
+        if q.device.type == "cpu":
+            o, lse = mha_reference(q, k, v, need_lse=True)
+        else:
+            o, lse = _flash_cuda(q, k, v, None, None, True, True)
+        grads = _flash_bwd(q, k, v, None, None, True, o, lse,
+                           _packed_to_heads(do, ctx.num_heads))
+        return (*(_heads_to_packed(g) for g in grads), None)
+
+
+def flash_attention_packed(q, k, v, num_heads, causal=True):
+    """Causal attention on the packed-heads layout the projections produce:
+    q [B, T, H*d], k/v [B, S, H*d] (MHA: kv heads already repeated), head h
+    in columns [h*d, (h+1)*d).  Query i sees keys j <= i (global iota
+    positions, no key-validity mask), so valid rows of a right-padded batch
+    are exact when S >= T.  Returns [B, T, H*d] in the input dtype,
+    differentiable in q, k and v.  Raises where the JAX function does: a
+    head dim that is not a multiple of 128, H*d not divisible by H,
+    ``causal=False`` and S < T.  JAX pads T and S to multiples of 8; K13
+    masks the ragged tiles itself, with the same valid rows."""
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape or q.shape[0] != k.shape[0] \
+            or q.shape[2] != k.shape[2]:
+        raise ValueError(f"flash_attention_packed: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} are not [B, T, H*d] / [B, S, H*d]")
+    T, Hd, S = q.shape[1], q.shape[2], k.shape[1]
+    if (Hd // num_heads) % 128 or Hd % num_heads or not causal:
+        raise ValueError(f"flash_attention_packed needs causal=True and a head dim that is a "
+                         f"multiple of 128 (got H={num_heads}, H*d={Hd}, causal={causal})")
+    if S < T:
+        raise ValueError(f"flash_attention_packed needs S >= T (got T={T}, S={S}); use "
+                         "flash_attention for T > S shapes")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention_packed: unsupported device {q.device}")
+    return _FlashPacked.apply(q, k, v, num_heads)
+
+
+flash_attention_packed.launches = 0
 
 
 def flash_attention(q, k, v, q_positions=None, kv_valid=None, causal=True):
@@ -306,6 +393,25 @@ def _flash_cuda(q, k, v, q_positions, kv_valid, causal, need_lse):
     _build.check(err, "flash_attention")
     counter.launches += 1
     return (out, lse) if need_lse else out
+
+
+def _packed_cuda(q, k, v, num_heads):
+    B, T, Hd = q.shape
+    S, d = k.shape[1], Hd // num_heads
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16 or t.device != q.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_packed: {name} must be a contiguous, 16-byte "
+                             f"aligned bf16 tensor on {q.device}")
+    if d != 128:
+        raise ValueError(f"flash_attention_packed: the CUDA kernel takes head dim 128, got {d}")
+    out = torch.empty_like(q)
+    err = _build.lib().cullavo_flash_packed(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, num_heads, T, S, d,
+        d ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_packed")
+    flash_attention_packed.launches += 1
+    return out
 
 
 def _decode_cuda(q, k_cache, v_cache, bias, scale):

@@ -19,6 +19,7 @@ from cullavo_tpu_torch.models.llava.lora import (LoraConfig, init_lora_params,
 from cullavo_tpu_torch.pipelines.base import register_pipeline
 from cullavo_tpu_torch.trainer.optimizer import cullavo_optimizer
 from cullavo_tpu_torch.trainer.step import TrainState, make_train_step
+from cullavo_tpu_torch.utils.tree import tree_map
 
 
 @register_pipeline("CuLLaVOPipeline")
@@ -59,7 +60,8 @@ class CuLLaVOPipeline:
         device = self.params["language_model"]["embed_tokens"].device
         lora = init_lora_params(self.params, self.model_cfg, lora_cfg,
                                 torch.Generator(device=device).manual_seed(1))
-        trainable = trainable_partition(self.params, lora)
+        # f32 masters whatever the snapshot's dtype (JAX reads snapshots in f32)
+        trainable = tree_map(lambda t: t.float(), trainable_partition(self.params, lora))
         frozen = strip_trainable(self.params)
         tx = cullavo_optimizer(float(self.cfg.get("LR", 2e-5)),
                                int(self.cfg.get("TOTAL_STEPS", 1000)),

@@ -83,6 +83,12 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.models.blip2.modeling",
     "cullavo_tpu_torch.models.kosmos2",
     "cullavo_tpu_torch.pipelines.vl_zoo_pipeline",
+    "cullavo_tpu_torch.data.png_io",
+    "cullavo_tpu_torch.data.coco_panoptic",
+    "cullavo_tpu_torch.checkpoint.store",
+    "cullavo_tpu_torch.checkpoint.reference_layout",
+    "cullavo_tpu_torch.trainer.loop",
+    "cullavo_tpu_torch.scripts.matmul_probe",
 )
 
 
@@ -119,7 +125,10 @@ def test_no_source_names_jax_or_the_jax_package_in_an_import():
     assert {PORT / "entry.py", PORT / "serving" / "engine.py", PORT / "serving" / "io.py",
             PORT / "trainer" / "step.py", PORT / "trainer" / "optimizer.py",
             PORT / "pipelines" / "cullavo_pipeline.py", PORT / "scripts" / "attn_probe.py",
-            PORT / "data" / "step1_synthesis.py"} <= set(paths)
+            PORT / "data" / "step1_synthesis.py", PORT / "trainer" / "loop.py",
+            PORT / "checkpoint" / "store.py", PORT / "checkpoint" / "reference_layout.py",
+            PORT / "data" / "coco_panoptic.py", PORT / "data" / "png_io.py",
+            PORT / "scripts" / "matmul_probe.py"} <= set(paths)
     for path in paths:
         hit = banned.search(path.read_text())
         assert hit is None, f"{path.relative_to(REPO)}: {hit.group(0).strip()!r}"
@@ -219,12 +228,14 @@ def test_kernel_counters_stay_zero_on_cpu_tensors():
     from cullavo_tpu_torch.ops import wwin_decode as ww
 
     from cullavo_tpu_torch.models.llava.llama import sdpa_decode_stale
+    from cullavo_tpu_torch.scripts import matmul_probe as mp
 
     wrappers = (fa.flash_attention, fa.flash_lse, fa.flash_rows, nf4.quantize_rows,
                 nf4.int8_linear, ww.wwin_decode_smajor, ww.wwin_decode_smajor_q8,
                 nf4.nf4_linear_planar, nf4.nf4_dequant_planar,
                 msdeform.ms_deform_attn_kernel, focal.focal_ctx_kernel,
-                nf4.nf4_linear_q4, nf4.nf4_dequant_q4, fa.decode_partials)
+                nf4.nf4_linear_q4, nf4.nf4_dequant_q4, fa.decode_partials,
+                fa.flash_attention_packed, mp.p32_linear)
     before = [w.launches for w in wrappers]
     x = torch.randn(1, 2, 5, 8)
     fa.flash_attention(x, x, x)
@@ -262,6 +273,10 @@ def test_kernel_counters_stay_zero_on_cpu_tensors():
     full = torch.randn(2, 4, 7, 16)
     sdpa_decode_stale(qd, full, full, qd, qd, torch.zeros(2, 1, 1, 7),
                       self_bias=torch.zeros(1, 4, 1, 1), scale=1.0)
+    xp = torch.randn(1, 5, 256, requires_grad=True)
+    fa.flash_attention_packed(xp, xp, xp, 2).sum().backward()          # K13's form + its vjp
+    w8 = torch.randint(-127, 128, (32, 16), dtype=torch.int8)
+    mp.p32_linear(torch.randn(3, 32).to(torch.bfloat16), mp.pack_p32(w8), torch.ones(16))
     assert [w.launches for w in wrappers] == before
 
 
@@ -318,6 +333,32 @@ def test_flash_attention_takes_the_plain_version_only_for_cpu_tensors():
     entry = src[src.index("def decode_partials"):src.index("def flash_decode")]
     assert entry.count("_decode_partials_plain(") == 1 and 'if q.device.type == "cpu":' in entry
     assert "def _decode_cuda" in cuda_half
+    # K13 (packed heads): the same rule, forward and backward
+    xp = torch.randn(1, 4, 256, device="meta", dtype=torch.bfloat16)
+    n0 = fa.flash_attention_packed.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention_packed(xp, xp, xp, 2)
+    assert fa.flash_attention_packed.launches == n0
+    packed = src[src.index("class _FlashPacked"):src.index("def flash_attention_packed")]
+    assert packed.count("_packed_plain(") == 1 and packed.count("mha_reference(") == 1
+    assert packed.count('if q.device.type == "cpu":') == 2
+    assert "def _packed_cuda" in cuda_half
+
+
+def test_p32_wrapper_takes_the_plain_version_only_for_cpu_tensors():
+    """K14's wrapper: a tensor that is not on the CPU goes to the kernel or
+    raises; its CUDA half holds no product of its own."""
+    from cullavo_tpu_torch.scripts import matmul_probe as mp
+
+    meta = torch.zeros(2, 16, device="meta", dtype=torch.bfloat16)
+    n0 = mp.p32_linear.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        mp.p32_linear(meta, meta, meta)
+    assert mp.p32_linear.launches == n0
+    src = (PORT / "scripts" / "matmul_probe.py").read_text()
+    cuda_half = src[src.index("def _p32_cuda"):src.index("def _s8s8")]
+    for banned in ("matmul", " @ ", "_plain(", "einsum", "_int_mm"):
+        assert banned not in cuda_half, banned
 
 
 def test_port_has_no_library_stand_ins_for_its_kernels():
@@ -878,3 +919,89 @@ def test_cuda_flash_decode_masked_rows_and_refusals(cuda_device):
         fa.decode_partials(q, k.float(), v.float(), bias, 1.0)
     with pytest.raises(ValueError, match="are not"):
         fa.decode_partials(q, k[:, :, :, :64], v, bias, 1.0)
+
+
+def _packed_case(dev, B, T, S, H, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((B, T, H * 128), generator=g, device=dev).to(torch.bfloat16),
+            *(torch.randn((B, S, H * 128), generator=g, device=dev).to(torch.bfloat16)
+              for _ in range(2)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,S,H", [(2, 648, 648, 4), (1, 1024, 1024, 2), (3, 37, 45, 2),
+                                     (2, 200, 333, 3), (1, 1, 1, 1)])
+def test_cuda_flash_attention_packed_matches_plain(cuda_device, B, T, S, H):
+    """K13 against its plain version: o within 1e-2 + 1e-2 |ref| (P and O
+    round to bf16 at other places), the packed layout written in place of
+    the transposes; one launch counted; ragged T and S > T."""
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _packed_case(cuda_device, B, T, S, H, seed=T + S)
+    n0, n1 = fa.flash_attention_packed.launches, fa.flash_attention.launches
+    got = fa.flash_attention_packed(q, k, v, H)
+    assert (fa.flash_attention_packed.launches, fa.flash_attention.launches) == (n0 + 1, n1)
+    ref = fa._packed_plain(q, k, v, H)
+    assert got.shape == (B, T, H * 128) and got.dtype == torch.bfloat16
+    assert torch.allclose(got.float(), ref.float(), rtol=1e-2, atol=1e-2), \
+        (got.float() - ref.float()).abs().max().item()
+    if S == T:   # the same function as K1 on head views
+        std = fa.flash_attention(*(fa._packed_to_heads(t, H) for t in (q, k, v)))
+        assert torch.equal(got, fa._heads_to_packed(std))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S", [(256, 256), (100, 160)])
+def test_cuda_flash_attention_packed_gradients_match_plain(cuda_device, T, S):
+    """dq, dk, dv of the packed autograd function (K13 forward; the K1-lse or
+    K8 forward and the chunked backward) against autograd through the plain
+    version: within 2e-2 of the largest entry."""
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _packed_case(cuda_device, 2, T, S, 2, seed=31)
+    do = torch.randn((2, T, 256), device=cuda_device).to(torch.bfloat16)
+    grads = []
+    for fn in (lambda a, b, c: fa.flash_attention_packed(a, b, c, 2),
+               lambda a, b, c: fa._packed_plain(a, b, c, 2)):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*leaves), leaves, do))
+    for name, a, b in zip(("dq", "dk", "dv"), *grads):
+        assert torch.isfinite(a).all()
+        assert (a.float() - b.float()).abs().max().item() <= 2e-2 * b.float().abs().max().item(), name
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_packed_refusals(cuda_device):
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _packed_case(cuda_device, 1, 16, 16, 2, seed=32)
+    with pytest.raises(ValueError, match="contiguous, 16-byte aligned bf16"):
+        fa.flash_attention_packed(q.float(), k.float(), v.float(), 2)
+    with pytest.raises(ValueError, match="contiguous, 16-byte aligned bf16"):
+        fa.flash_attention_packed(torch.cat([q, q], dim=-1)[..., :256], k, v, 2)   # strided
+    with pytest.raises(ValueError, match="head dim 128"):
+        fa.flash_attention_packed(*(torch.cat([t, t], dim=-1) for t in (q, k, v)), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(1, 4096, 11008), (8, 4096, 11008), (64, 4096, 11008),
+                                   (13, 1024, 4100), (3, 11008, 4096)])
+def test_cuda_p32_linear_matches_plain(cuda_device, M, K, N):
+    """K14 against the f32 plain version: within 1e-2 + 1e-2 |ref| (one bf16
+    rounding of the output; f32 sums in another order)."""
+    from cullavo_tpu_torch.scripts import matmul_probe as mp
+
+    g = torch.Generator(device=cuda_device).manual_seed(M + K)
+    w8 = torch.randint(-128, 128, (K, N), generator=g, device=cuda_device, dtype=torch.int8)
+    w32 = mp.pack_p32(w8)
+    x = torch.randn((M, K), generator=g, device=cuda_device).to(torch.bfloat16)
+    scale = torch.rand((N,), generator=g, device=cuda_device) * 0.01
+    n0 = mp.p32_linear.launches
+    got = mp.p32_linear(x, w32, scale)
+    assert mp.p32_linear.launches == n0 + 1
+    ref = mp.p32_linear_plain(x, w32, scale)
+    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+    assert torch.allclose(got.float(), ref.float(), rtol=1e-2, atol=1e-2), \
+        (got.float() - ref.float()).abs().max().item()
+    with pytest.raises(ValueError, match="x must be bf16"):
+        mp.p32_linear(x.float(), w32, scale)

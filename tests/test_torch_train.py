@@ -639,11 +639,14 @@ def test_entry_train_smoke_mode_on_the_cpu(capsys):
     assert "loss_llm" in capsys.readouterr().out
     again = t_entry.train(cfg, device="cpu")
     assert again == metrics                          # seeded end to end
-    for bad, match in (({"NAME": "xdecoder_step"}, "X-Decoder"),
-                       ({"RESUME_FROM": "x"}, "RESUME_FROM"),
-                       ({"DATASETS": {"TRAIN": "coco"}}, "DATASETS.TRAIN")):
-        with pytest.raises(NotImplementedError, match=match):
-            t_entry.train({**cfg, **bad}, device="cpu")
+    with pytest.raises(NotImplementedError, match="X-Decoder"):
+        t_entry.train({**cfg, "NAME": "xdecoder_step"}, device="cpu")
+    # RESUME_FROM and DATASETS.TRAIN run now: a path without the reference
+    # layout and a dataset nobody registered raise
+    with pytest.raises(FileNotFoundError, match="cullavo"):
+        t_entry.train({**cfg, "RESUME_FROM": "x"}, device="cpu")
+    with pytest.raises(KeyError, match="not registered"):
+        t_entry.train({**cfg, "DATASETS": {"TRAIN": "coco"}}, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_entry.train(cfg)
