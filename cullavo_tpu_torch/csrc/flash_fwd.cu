@@ -1,11 +1,11 @@
-// Flash-attention forward: the causal prefill kernel (K1), its training form
-// that also writes the log-sum-exp (K1-lse), and the masked forward with
-// explicit query positions and key validity (K8).  One kernel template.
+// Flash-attention forward on the mma.sync body: the masked forward with
+// explicit query positions and key validity (K8) and the causal forward on
+// the packed-heads layout (K13).  One kernel template.
 //
-// K1.
-// Replaces: cullavo_tpu/ops/flash_attention.py, _flash_fwd_core ->
-// _fwd_kernel_iota (with _online_softmax_qblock and _causal_kb_bounds), the
-// bias-free causal path for right-padded batches:
+// K1 and K1-lse, the bias-free causal forward of Pallas row 1 and its lse
+// form, ran on this body until they moved to csrc/flash_fwd_sm90.cu (TMA
+// loads, an mbarrier ring, wgmma); K8 and K13 move there next.  K13 is
+// that causal form on the packed layout, K8 adds masks to it:
 //     o[b, h, i] = sum_{j <= i} softmax_j(q_i . k_j * d^-0.5) v_j
 // bf16 q/k/v/o with head dim 128, f32 scores and online-softmax state
 // (running max m, running sum l, f32 accumulator), and the probabilities
@@ -28,11 +28,11 @@
 // overlap yet: that is later work.  Launches on the caller's stream and
 // allocates nothing.
 //
-// K1-lse (kLse): the same launch also writes lse[b, h, i] = m_i + log(l_i),
-// f32 [B, H, T] contiguous, which the backward of the autograd function
-// needs to recompute the probabilities.  One value per query row (the TPU
-// kernel replicates it over 128 lanes for its output tiling; there is no
-// such rule here).  The inference instantiation has no lse code at all.
+// kLse: the same launch also writes lse[b, h, i] = m_i + log(l_i), f32
+// [B, H, T] contiguous, which the backward of the autograd function needs to
+// recompute the probabilities (K8 with an lse).  One value per query row
+// (the TPU kernel replicates it over 128 lanes for its output tiling; there
+// is no such rule here).
 //
 // K8 (kRows).  Replaces: cullavo_tpu/ops/flash_attention.py, _flash_fwd_core
 // -> _fwd_kernel_rows (and the key-validity bias of _fwd_kernel_iota):
@@ -46,7 +46,8 @@
 // ragged last tile) are excluded outright (score -inf, p = 0).  Because a
 // wholly masked row needs every key, no key tile is skipped: the kernel does
 // the full T x S work where the causal mask would allow half.  Same tiles,
-// fragments and numerics as K1 (bf16 P for the PV product, f32 state).
+// fragments and numerics as the causal form (bf16 P for the PV product, f32
+// state).
 //
 // K13 (kPacked).  Replaces: cullavo_tpu/ops/flash_attention.py,
 // _packed_fwd_core -> _fwd_kernel_iota with batch groups (Pallas row 3,
@@ -60,10 +61,9 @@
 // Hopper has no lane blocks, so one kernel serves both and
 // CULLAVO_FLASH_PACKED_BG has no meaning here.  The kernel derives the
 // head's column offset h*d and the row stride H*d from its grid and T, S
-// itself (no stride arguments); everything else is K1's body (same tiles,
-// causal tile skip, f32 online softmax, bf16 P) and bound (tensor-core math
-// at training and prefill shapes).  It is its own entry so that its launches
-// are counted apart from K1's.
+// itself (no stride arguments); everything else is the causal form's body
+// (same tiles, causal tile skip, f32 online softmax, bf16 P) and bound
+// (tensor-core math at training and prefill shapes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -311,34 +311,6 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 }
 
 }  // namespace
-
-// K1: causal, right-padded, S == T; writes no lse.
-extern "C" int cullavo_flash_fwd(const void* q, const void* k, const void* v,
-                                 void* o, int B, int H, int T, int d,
-                                 long long q_sb, long long q_sh, long long q_st,
-                                 long long k_sb, long long k_sh, long long k_st,
-                                 long long v_sb, long long v_sh, long long v_st,
-                                 long long o_sb, long long o_sh, long long o_st,
-                                 float scale, void* stream) {
-  const long long st[12] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st,
-                            v_sb, v_sh, v_st, o_sb, o_sh, o_st};
-  return launch<false, false>(q, k, v, o, nullptr, nullptr, nullptr, 1, B, H, T, T,
-                              d, st, scale, stream);
-}
-
-// K1-lse: K1 that also writes lse f32 [B, H, T] (contiguous).
-extern "C" int cullavo_flash_fwd_lse(const void* q, const void* k, const void* v,
-                                     void* o, void* lse, int B, int H, int T, int d,
-                                     long long q_sb, long long q_sh, long long q_st,
-                                     long long k_sb, long long k_sh, long long k_st,
-                                     long long v_sb, long long v_sh, long long v_st,
-                                     long long o_sb, long long o_sh, long long o_st,
-                                     float scale, void* stream) {
-  const long long st[12] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st,
-                            v_sb, v_sh, v_st, o_sb, o_sh, o_st};
-  return launch<false, true>(q, k, v, o, lse, nullptr, nullptr, 1, B, H, T, T, d, st,
-                             scale, stream);
-}
 
 // K8: masked forward.  qpos int32 [B, T] or null, kvalid int32 [B, S] or
 // null, lse f32 [B, H, T] or null.

@@ -9,13 +9,16 @@ validity ``[B, S]``, causal or not, S and T independent.  It is a
 JAX package's chunked recomputation in plain PyTorch (there it is plain XLA
 too, no TPU kernel).
 
-Forward on a CUDA tensor (``csrc/flash_fwd.cu``; bf16, head dim 128):
+Forward on a CUDA tensor (bf16, head dim 128):
   * K1, the bias-free contract (causal, iota positions, no key mask,
-    S == T): exact for every valid row of a right-padded batch;
-  * K1-lse, the same launch that also writes the f32 log-sum-exp
+    S == T; ``csrc/flash_fwd_sm90.cu``, TMA and wgmma): exact for every
+    valid row of a right-padded batch.  q, k, v and o reach it as tensor
+    maps (``_tma_layout``): a layout TMA cannot take raises here;
+  * K1-lse, the same kernel that also writes the f32 log-sum-exp
     ``[B, H, T]``, whenever a gradient is needed;
-  * K8, every other mode: scores masked by ``kv_valid[b, s] != 0 and (not
-    causal or q_positions[b, t] >= s)``, with or without the lse.
+  * K8, every other mode (``csrc/flash_fwd.cu``): scores masked by
+    ``kv_valid[b, s] != 0 and (not causal or q_positions[b, t] >= s)``,
+    with or without the lse.
 For a tensor on the CPU the forward is ``mha_reference``; on any other
 device it raises.  A masked score is the finite ``NEG_INF``: a row with no
 visible key returns the mean of v and ``lse = NEG_INF + log(S)``, and gets
@@ -40,6 +43,7 @@ take ``_decode_partials_plain``.
 """
 from __future__ import annotations
 
+import ctypes
 import types
 
 import torch
@@ -348,6 +352,40 @@ def decode_bias(q_position, kv_valid):
     return torch.where(visible, 0.0, NEG_INF).float()[:, None, :]
 
 
+def _tma_layout(shape, stride, elem_bytes=2):
+    """How K1 reads or writes a [B, H, T, d] view through a TMA tensor map:
+    ``[H, T, B, stride_H, stride_T, stride_B]``, the extents of the map's
+    head, row and batch axes (its inner axis is the d contiguous elements)
+    and their strides in bytes, from the view's shape and element strides.
+
+    An axis of extent 1 is never stepped: its stride is given as d *
+    elem_bytes.  A head or batch axis with stride 0 (a broadcast, as
+    ``expand`` makes) gets extent 1 and is read at coordinate 0.  Raises
+    ValueError on what ``cuTensorMapEncodeTiled`` does not take: a head dim
+    that is not contiguous, a stride that is not a multiple of 16 bytes or
+    not below 2**40 bytes, and a row axis with stride 0."""
+    B, H, T, d = shape
+    sb, sh, st, sd = stride
+    if sd != 1:
+        raise ValueError(f"flash_attention: TMA needs a contiguous head dim, got stride {sd}")
+    extents, strides = [], []
+    for axis, n, s in (("head", H, sh), ("row", T, st), ("batch", B, sb)):
+        if n > 1 and s == 0 and axis == "row":
+            raise ValueError("flash_attention: TMA cannot read rows with stride 0 (an "
+                             "expanded sequence axis)")
+        if n == 1 or s == 0:
+            extents.append(1)
+            strides.append(d * elem_bytes)
+            continue
+        nbytes = s * elem_bytes
+        if nbytes % 16 or not 0 < nbytes < 1 << 40:
+            raise ValueError(f"flash_attention: TMA needs {axis} strides that are multiples of "
+                             f"16 bytes below 2**40, got {nbytes} bytes")
+        extents.append(n)
+        strides.append(nbytes)
+    return extents + strides
+
+
 def _flash_cuda(q, k, v, q_positions, kv_valid, causal, need_lse):
     B, H, T, d = q.shape
     S = k.shape[2]
@@ -362,20 +400,23 @@ def _flash_cuda(q, k, v, q_positions, kv_valid, causal, need_lse):
     out = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if need_lse else None
     lib = _build.lib()
-    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if causal and q_positions is None and kv_valid is None and S == T:
+        # K1 / K1-lse (csrc/flash_fwd_sm90.cu) read and write through tensor maps
+        layout = (ctypes.c_longlong * 24)(
+            *(x for t in (q, k, v, out) for x in _tma_layout(t.shape, t.stride())))
         if need_lse:
             err = lib.cullavo_flash_fwd_lse(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                B, H, T, d, *strides, d ** -0.5, stream)
+                B, H, T, d, layout, d ** -0.5, stream)
             counter = flash_lse
         else:
             err = lib.cullavo_flash_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, T, d,
-                *strides, d ** -0.5, stream)
+                layout, d ** -0.5, stream)
             counter = flash_attention
     else:
+        strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
         masks = []
         for name, m in (("q_positions", q_positions), ("kv_valid", kv_valid)):
             if m is not None:

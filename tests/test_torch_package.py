@@ -323,6 +323,8 @@ def test_flash_attention_takes_the_plain_version_only_for_cpu_tensors():
         assert banned not in cuda_half, banned
     fwd = src[src.index("class _FlashAttention"):src.index("    def backward")]
     assert fwd.count("mha_reference") == 1 and 'if q.device.type == "cpu":' in fwd
+    # K1 / K1-lse (csrc/flash_fwd_sm90.cu) take tensor maps laid out on the host
+    assert cuda_half.count("_tma_layout(") == 1 and "cullavo_flash_fwd_lse(" in cuda_half
     # K12 (one-token decode): the same rule
     qd, cache = (torch.randn(1, 2, 1, 16, device="meta"), torch.randn(1, 2, 5, 16, device="meta"))
     n0 = fa.decode_partials.launches
@@ -343,6 +345,52 @@ def test_flash_attention_takes_the_plain_version_only_for_cpu_tensors():
     assert packed.count("_packed_plain(") == 1 and packed.count("mha_reference(") == 1
     assert packed.count('if q.device.type == "cpu":') == 2
     assert "def _packed_cuda" in cuda_half
+
+
+# K1 / K1-lse read q, k, v and write o through TMA tensor maps whose
+# extents and byte strides the wrapper computes from the views on the host
+_B, _T, _H, _D = 3, 648, 32, 128
+
+
+@pytest.mark.parametrize("case,make,want", [
+    ("strided head views of [B, T, H, d]",
+     lambda: torch.empty(_B, _T, _H, _D).transpose(1, 2),
+     [_H, _T, _B, 2 * _D, 2 * _H * _D, 2 * _T * _H * _D]),
+    ("contiguous [B, H, T, d]",
+     lambda: torch.empty(_B, _H, _T, _D),
+     [_H, _T, _B, 2 * _T * _D, 2 * _D, 2 * _H * _T * _D]),
+    ("heads expanded (stride 0): extent 1, read at head 0",
+     lambda: torch.empty(_B, 1, _T, _D).expand(_B, _H, _T, _D),
+     [1, _T, _B, 2 * _D, 2 * _D, 2 * _T * _D]),
+    ("batch expanded (stride 0): extent 1, read at batch row 0",
+     lambda: torch.empty(1, _H, _T, _D).expand(_B, _H, _T, _D),
+     [_H, _T, 1, 2 * _T * _D, 2 * _D, 2 * _D]),
+    ("a single row: its axis is never stepped",
+     lambda: torch.empty(_B, 1, _H, _D).transpose(1, 2),
+     [_H, 1, _B, 2 * _D, 2 * _D, 2 * _H * _D]),
+])
+def test_tma_layout_of_k1_operands(case, make, want):
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    t = make()
+    assert fa._tma_layout(t.shape, t.stride()) == want, case
+
+
+@pytest.mark.parametrize("case,shape,stride,match", [
+    ("rows expanded (stride 0)", (2, 4, 8, 128), (4 * 128, 128, 0, 1), "rows with stride 0"),
+    ("a head stride of 260 bytes", (2, 4, 8, 128), (8 * 4 * 130, 130, 4 * 130, 1),
+     "multiples of 16 bytes"),
+    ("a batch stride of 2**40 bytes", (2, 4, 8, 128), (2 ** 39, 1024, 128, 1),
+     "multiples of 16 bytes below 2\\*\\*40"),
+    ("a head dim with stride 2", (2, 4, 8, 128), (8192, 2048, 256, 2), "contiguous head dim"),
+])
+def test_tma_layout_refuses_what_tma_cannot_take(case, shape, stride, match):
+    """Raised on the host, before a tensor map is encoded or a kernel
+    launched (the wrapper computes every layout first)."""
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    with pytest.raises(ValueError, match=match):
+        fa._tma_layout(shape, stride)
 
 
 def test_p32_wrapper_takes_the_plain_version_only_for_cpu_tensors():
@@ -708,6 +756,51 @@ def test_cuda_flash_attention_lse_matches_plain(cuda_device, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 64, 127, 128, 129, 200, 648])
+@pytest.mark.parametrize("strided", [True, False])
+def test_cuda_flash_sm90_k1_and_lse_match_plain(cuda_device, T, strided):
+    """K1 and K1-lse (csrc/flash_fwd_sm90.cu) against mha_reference at the
+    edge values of T, on strided head views and contiguous tensors: o within
+    1e-2 + 1e-2 |ref|, the f32 lse within 2e-3; K1-lse's o bit-equal to
+    K1's, a second launch bit-equal to the first, each launch counted."""
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda_device).manual_seed(13 + T)
+    shape = (2, T, 4, 128) if strided else (2, 4, T, 128)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(torch.bfloat16)
+               for _ in range(3))
+    if strided:
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    n0, n1 = fa.flash_attention.launches, fa.flash_lse.launches
+    o1 = fa.flash_attention(q, k, v)
+    got = fa._flash_cuda(q, k, v, None, None, True, True)
+    again = fa._flash_cuda(q, k, v, None, None, True, True)
+    assert (fa.flash_attention.launches, fa.flash_lse.launches) == (n0 + 1, n1 + 2)
+    _assert_attention_close(got, fa.mha_reference(q, k, v, need_lse=True), f"K1 T={T}")
+    assert torch.equal(got[0], o1)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+def test_cuda_flash_sm90_broadcast_heads_and_refusals(cuda_device):
+    """k/v expanded over heads (a stride-0 axis read at coordinate 0) match
+    the plain version; rows expanded with stride 0 raise before any launch."""
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    q = torch.randn((2, 4, 300, 128), generator=g, device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randn((2, 1, 300, 128), generator=g, device=cuda_device)
+            .to(torch.bfloat16).expand(2, 4, 300, 128) for _ in range(2))
+    _assert_attention_close(fa._flash_cuda(q, k, v, None, None, True, True),
+                            fa.mha_reference(q, k, v, need_lse=True), "K1 expanded k/v")
+    rows = q[:, :, :1].expand(2, 4, 300, 128)
+    n0 = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="rows with stride 0"):
+        fa.flash_attention(q, rows, rows)
+    assert fa.flash_attention.launches == n0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T,S,causal,left_pad", [
     (648, 648, True, False), (648, 648, True, True), (100, 333, True, False),
     (130, 64, True, False), (200, 200, False, False), (77, 201, False, True)])
@@ -945,9 +1038,12 @@ def test_cuda_flash_attention_packed_matches_plain(cuda_device, B, T, S, H):
     assert got.shape == (B, T, H * 128) and got.dtype == torch.bfloat16
     assert torch.allclose(got.float(), ref.float(), rtol=1e-2, atol=1e-2), \
         (got.float() - ref.float()).abs().max().item()
-    if S == T:   # the same function as K1 on head views
-        std = fa.flash_attention(*(fa._packed_to_heads(t, H) for t in (q, k, v)))
-        assert torch.equal(got, fa._heads_to_packed(std))
+    if S == T:   # the same function as K1 on head views (K1 runs the sm90
+        # body, K13 still the mma.sync one: the sums round in other orders)
+        std = fa._heads_to_packed(
+            fa.flash_attention(*(fa._packed_to_heads(t, H) for t in (q, k, v))))
+        assert torch.allclose(got.float(), std.float(), rtol=1e-2, atol=1e-2), \
+            (got.float() - std.float()).abs().max().item()
 
 
 @pytest.mark.cuda
