@@ -35,11 +35,11 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # C signatures of the kernels' entry points (csrc/*.cu, extern "C")
 SIGNATURES = {
-    # K1 / K1-lse: the layout pointer is 24 int64 (tensor-map extents and
-    # byte strides of q, k, v, o)
+    # K1 / K1-lse / K8: the layout pointer is 24 int64 (tensor-map extents
+    # and byte strides of q, k, v, o)
     "cullavo_flash_fwd": [_P] * 4 + [_I] * 4 + [_P, _F, _P],
     "cullavo_flash_fwd_lse": [_P] * 5 + [_I] * 4 + [_P, _F, _P],
-    "cullavo_flash_rows": [_P] * 7 + [_I] * 6 + [_L] * 12 + [_F, _P],
+    "cullavo_flash_rows": [_P] * 7 + [_I] * 6 + [_P, _F, _P],
     "cullavo_quant_rows": [_P, _P, _P, _P, _I, _I, _P],
     "cullavo_int8_linear": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cullavo_wwin_decode": [_P] * 7 + [_I] * 7 + [_L] * 9 + [_F, _P],

@@ -1,25 +1,47 @@
-// K1 and K1-lse on Hopper: the causal flash-attention forward, written for the
+// The forward flash-attention kernels on Hopper: one template written for the
 // H100 with TMA loads, an mbarrier ring, wgmma and warp specialisation.
 //
-// Replaces: cullavo_tpu/ops/flash_attention.py, _flash_fwd_core ->
-// _fwd_kernel_iota (Pallas row 1), the bias-free causal path for right-padded
-// batches with S == T:
-//     o[b, h, i] = sum_{j <= i} softmax_j(q_i . k_j * d^-0.5) v_j
-// bf16 q/k/v/o with head dim 128, f32 scores and online-softmax state
-// (running max m, running sum l, f32 accumulator), the probabilities rounded
-// to bf16 before the P.V product, as the TPU kernel does.  K1-lse (kLse) also
-// writes lse[b, h, i] = m_i + log(l_i), f32 [B, H, T] contiguous, one value
-// per row (the TPU kernel's need_lse output); K1 has no lse code at all, and
-// K1-lse's o is bit-equal to K1's.  q/k/v/o are read and written through
-// tensor maps built from the tensors' own strides, so [B, H, T, d] views of
-// [B, T, H, d] projection outputs need no transposes.  Deterministic: one
-// block owns a query tile and walks its key tiles in a fixed order.
+// Replaces, in cullavo_tpu/ops/flash_attention.py (Pallas rows 1-4):
+//  * K1 / K1-lse: _flash_fwd_core -> _fwd_kernel_iota (row 1), the bias-free
+//    causal path for right-padded batches with S == T:
+//        o[b, h, i] = sum_{j <= i} softmax_j(q_i . k_j * d^-0.5) v_j
+//    K1-lse (kLse) also writes lse[b, h, i] = m_i + log(l_i), f32 [B, H, T]
+//    contiguous, one value per row (the TPU kernel's need_lse output); K1 has
+//    no lse code at all, and K1-lse's o is bit-equal to K1's.
+//  * K8 / K8-lse (kMasked): _flash_fwd_core -> _fwd_kernel_rows (row 2), the
+//    masked form over q [B, H, T, d] and k/v [B, H, S, d], S and T
+//    independent:
+//        visible(i, j) = kvalid[b, j] != 0 and (not causal or qpos[b, i] >= j)
+//    qpos int32 [B, T] (null: the row index), kvalid int32 [B, S] (null: all
+//    valid).  A masked score is the FINITE -1e30 in scaled units, as in the
+//    TPU kernel, so a row with no visible key averages v over the S keys with
+//    lse = -1e30 + log(S); keys past S are excluded outright (-inf).
+//  * K13: _packed_fwd_core -> _fwd_kernel_iota in batch groups (row 3) and
+//    _fwd_kernel_iota_packed (row 4): K1's function on the packed-heads
+//    projection layout, q [B, T, H*d] and k/v [B, S, H*d] with S >= T, head h
+//    at columns [h*d, (h+1)*d).  It IS the K1 instantiation behind tensor
+//    maps that its entry point encodes from (B, H, T, S); keys in [T, S) only
+//    reach the diagonal tile, where causality masks them.  Rows 3 and 4
+//    differ only in how the TPU tiles lanes, so one kernel serves both.
+// bf16 q/k/v/o with head dim 128, f32 scores and online-softmax state (running
+// max m, running sum l, f32 accumulator), the probabilities rounded to bf16
+// before the P.V product, as the TPU kernels do.  q/k/v/o are read and
+// written through tensor maps built from the tensors' own strides, so
+// [B, H, T, d] views of [B, T, H, d] projection outputs need no transposes.
+// Deterministic: one block owns a query tile and walks its key tiles in a
+// fixed order (no split over keys, no atomics).
 //
-// Bound on the H100: at the train shape [8, 32, 1024, 128] the 268 MB of
-// q/k/v/o take 0.080 ms at 3.35 TB/s and the 68.7 GFLOP of causal products
-// 0.069 ms at 989 TFLOP/s, so bytes and tensor-core math are close; the
-// kernel reads each K/V tile from L2 for every query tile of its head, and
-// the softmax's exponentials compete with the products for issue slots.
+// Bounds on the H100 (3.35 TB/s, 989 TFLOP/s bf16):
+//  * K1 / K1-lse / K13: at the train shape [8, 32, 1024, 128] the 268 MB of
+//    q/k/v/o take 0.080 ms and the 68.7 GFLOP of causal products 0.069 ms,
+//    so bytes and tensor-core math are close; at the prefill [7, 32, 648]
+//    bytes (0.044 ms).  The kernel reads each K/V tile from L2 for every
+//    query tile of its head, and the softmax's exponentials compete with the
+//    products for issue slots.
+//  * K8: the bound counts the visible pairs (0.038 ms at the probe shape
+//    [6, 32, 648, 128]: bytes), but a row with no visible key needs every
+//    key (p = 1 for each), so the kernel computes the full T x S products
+//    (41.3 GFLOP there), about twice the causal work, plus the mask.
 //
 // Design (FlashAttention-3 shape):
 //  * a block of three warpgroups per (128-row query tile, head, batch row),
@@ -29,10 +51,10 @@
 //    each (setmaxnreg.inc 232); a consumer whose rows all lie past T leaves
 //    at once and the other runs alone.
 //  * TMA: one 4-D tensor map (d, H, T, B) per tensor with a 128-byte swizzle,
-//    so a 128-column row is two 64-column boxes.  Rows past T load as zeros
-//    (the hardware's out-of-bounds fill) and are not stored; keys past T are
-//    causally invisible to every valid row, so no load carries a mask.  A
-//    head or batch axis of extent 1 (a broadcast axis) is read at coordinate 0.
+//    so a 128-column row is two 64-column boxes.  Rows past T (keys past S)
+//    load as zeros (the hardware's out-of-bounds fill) and are not stored.
+//    A head or batch axis of extent 1 (a broadcast axis) is read at
+//    coordinate 0.
 //  * ring: Q is loaded once per block (32 KB); K and V tiles of 128 keys
 //    (32 KB each) go through two stages with full and empty mbarriers of
 //    their own, so K of tile j+1 loads while tile j is computed and V is
@@ -50,8 +72,17 @@
 //    2), so one's softmax runs under the other's products.
 //  * softmax: exp2 with scale * log2(e) folded into one FMA; the row max is
 //    reduced across the quad by shuffles, the row sum per thread until the
-//    end.  Tiles above the diagonal are never loaded; only the diagonal tile,
-//    processed first, is masked (-inf: every row sees its own key there).
+//    end.  K1: tiles above the diagonal are never loaded; only the diagonal
+//    tile, processed first, is masked (-inf: every row sees its own key).
+//  * K8 walks every key tile 0 .. ceil(S/128) - 1 (no causal skip) and masks
+//    each: a producer warp writes the tile's key-validity bits (four ballots
+//    over kvalid) beside the K stage and arrives on its full barrier; each
+//    consumer thread reads its two rows' positions once.  Tile 0 holds key
+//    0 < S, so no row's running max stays -inf.  Its exponent takes (s - m)
+//    exactly before the scale: the FMA form leaves the rounding error of
+//    m * scale * log2(e) (~1e23 at m ~ -1e30 / scale), which would turn a
+//    wholly masked row's p = 1 into 0 or inf.  K1's instruction stream is
+//    the kMasked = false instantiation, untouched by any of this.
 //  * epilogue: O / l to bf16 into the consumer's own Q rows of shared memory
 //    (swizzled as the map expects), then two TMA stores, which clip rows
 //    past T.  Launches on the caller's stream and allocates nothing.
@@ -82,10 +113,13 @@ constexpr uint32_t KV_HALF = BN * 128;
 constexpr int STAGES = 2;
 constexpr uint32_t OFF_KV = Q_BYTES;           // stage s: K, then V
 constexpr uint32_t OFF_BAR = Q_BYTES + STAGES * 2 * KV_BYTES;
-// barriers: q_full; full_k[2]; full_v[2]; empty_k[2]; empty_v[2]
+// barriers: q_full; full_k[2]; full_v[2]; empty_k[2]; empty_v[2]; then K8's
+// key-validity words, 4 x 32 bits per K stage (written and released with it)
 constexpr uint32_t BAR_FULL_K = 8, BAR_FULL_V = 24, BAR_EMPTY_K = 40, BAR_EMPTY_V = 56;
+constexpr uint32_t BAR_FLAGS = 80;
 constexpr int SMEM_BYTES = OFF_BAR + 128 + 1024;   // + barriers + 1024-B alignment slack
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNegInf = -1e30f;   // the TPU kernel's finite mask value (scaled units)
 
 // ---- shared-memory barriers and TMA -----------------------------------------
 
@@ -107,6 +141,12 @@ __device__ __forceinline__ void mbar_arrive_lane0(uint32_t bar, int lane) {
       " @p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
       "r"(lane)
       : "memory");
+}
+
+// one thread's arrival (release: its shared-memory stores before it are seen
+// by a thread whose wait completes the phase)
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
@@ -253,9 +293,39 @@ __device__ __forceinline__ void mask_diagonal(float (&s)[64], int r0, int t4) {
       if (8 * j + 2 * t4 + (e & 1) > r0 + 8 * (e >> 1)) s[4 * j + e] = -INFINITY;
 }
 
+// K8's mask of one key tile.  w: the tile's four key-validity words shifted
+// right by 2 t4, so bit 8 (j & 3) + (e & 1) of w[j >> 2] is entry (j, e)'s
+// key.  lim0 / lim1: the last causally visible key of this thread's two rows,
+// lim_s the first key past S, all relative to the tile's key 2 t4.  A key
+// past S is -inf; an invisible one the finite mask value in unscaled units.
+__device__ __forceinline__ void mask_tile(float (&s)[64], const uint32_t (&w)[4], int lim0,
+                                          int lim1, int lim_s, float neg) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + (e & 1);
+      const bool valid = (w[j >> 2] >> (8 * (j & 3) + (e & 1))) & 1u;
+      const bool ok = valid && col <= (e < 2 ? lim0 : lim1);
+      s[4 * j + e] = col >= lim_s ? -INFINITY : (ok ? s[4 * j + e] : neg);
+    }
+}
+
+// K8: the four validity words of a stage, shifted right by 2 t4 (see mask_tile)
+__device__ __forceinline__ void load_flags(uint32_t (&w)[4], uint32_t addr, int t4) {
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+               : "r"(addr)
+               : "memory");
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[j] >>= 2 * t4;
+}
+
 // online softmax of one tile: s becomes exp(scale (s - m_new)); m, the
 // per-thread partial l and the factor alpha = exp(scale (m_old - m_new)) by
-// which O must be rescaled before this tile's P V is added
+// which O must be rescaled before this tile's P V is added.  kExact (K8)
+// takes s - m_new exactly before scaling (a wholly masked row: 0, so p = 1).
+template <bool kExact>
 __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], float sl2) {
   float mx[2] = {m[0], m[1]};
@@ -271,16 +341,28 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
     alpha[r] = ex2((m[r] - mx[r]) * sl2);   // m = -inf before the first tile: 0
     m[r] = mx[r];
   }
-  const float ms0 = mx[0] * sl2, ms1 = mx[1] * sl2;
   float sum0 = 0.f, sum1 = 0.f;
+  if constexpr (kExact) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    s[4 * j] = ex2(fmaf(s[4 * j], sl2, -ms0));
-    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], sl2, -ms0));
-    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], sl2, -ms1));
-    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], sl2, -ms1));
-    sum0 += s[4 * j] + s[4 * j + 1];
-    sum1 += s[4 * j + 2] + s[4 * j + 3];
+    for (int j = 0; j < 16; ++j) {
+      s[4 * j] = ex2((s[4 * j] - mx[0]) * sl2);
+      s[4 * j + 1] = ex2((s[4 * j + 1] - mx[0]) * sl2);
+      s[4 * j + 2] = ex2((s[4 * j + 2] - mx[1]) * sl2);
+      s[4 * j + 3] = ex2((s[4 * j + 3] - mx[1]) * sl2);
+      sum0 += s[4 * j] + s[4 * j + 1];
+      sum1 += s[4 * j + 2] + s[4 * j + 3];
+    }
+  } else {
+    const float ms0 = mx[0] * sl2, ms1 = mx[1] * sl2;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      s[4 * j] = ex2(fmaf(s[4 * j], sl2, -ms0));
+      s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], sl2, -ms0));
+      s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], sl2, -ms1));
+      s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], sl2, -ms1));
+      sum0 += s[4 * j] + s[4 * j + 1];
+      sum1 += s[4 * j + 2] + s[4 * j + 3];
+    }
   }
   l[0] = l[0] * alpha[0] + sum0;
   l[1] = l[1] * alpha[1] + sum1;
@@ -310,21 +392,24 @@ __device__ __forceinline__ void rescale(float (&o)[64], const float (&alpha)[2])
 // ---- the kernel ---------------------------------------------------------------
 
 // bcast: bit 2i / 2i + 1 set when tensor i (q, k, v) has a head / batch axis
-// of extent 1 in its map (read at coordinate 0)
-template <bool kLse>
+// of extent 1 in its map (read at coordinate 0).  qpos, kvalid (either may be
+// null), S and causal are K8's (kMasked); K1 and K13 never read them.
+template <bool kLse, bool kMasked>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
-                      const __grid_constant__ CUtensorMap tm_o, float* __restrict__ lse, int T,
-                      float scale, int bcast) {
+                      const __grid_constant__ CUtensorMap tm_o, float* __restrict__ lse,
+                      const int* __restrict__ qpos, const int* __restrict__ kvalid, int T,
+                      int S, int causal, float scale, int bcast) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base =
       (static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw)) + 1023u) & ~1023u;
   const uint32_t bar = base + OFF_BAR;
   const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest query tiles first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int n_kt = qt + 1;                     // key tiles qt, qt - 1, ..., 0
+  // K1: key tiles qt, qt - 1, ..., 0; K8: every key tile 0, 1, ...
+  const int n_kt = kMasked ? (S + BN - 1) / BN : qt + 1;
   const int n_live = qt * BM + 64 < T ? 2 : 1; // consumers with a row < T
   const int wg = threadIdx.x / 128;
 
@@ -332,7 +417,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_init(bar, 1);
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(bar + BAR_FULL_K + 8 * s, 1);
+      // K8: the TMA thread's arrival and the validity warp's
+      mbar_init(bar + BAR_FULL_K + 8 * s, kMasked ? 2 : 1);
       mbar_init(bar + BAR_FULL_V + 8 * s, 1);
       mbar_init(bar + BAR_EMPTY_K + 8 * s, 4 * n_live);   // one arrival per consumer warp
       mbar_init(bar + BAR_EMPTY_V + 8 * s, 4 * n_live);
@@ -356,7 +442,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
           tma_load(base + (2 * c + half) * Q_HALF, &tm_q, bar, half * BOX_COLS, qh,
                    qt * BM + c * 64, qb);
       for (int i = 0; i < n_kt; ++i) {
-        const int s = i & 1, row = (qt - i) * BN;
+        const int s = i & 1, row = (kMasked ? i : qt - i) * BN;
         const uint32_t parity = ((i >> 1) & 1) ^ 1;   // the first round finds the stage free
         const uint32_t sk = base + OFF_KV + s * 2 * KV_BYTES, sv = sk + KV_BYTES;
         mbar_wait(bar + BAR_EMPTY_K + 8 * s, parity);
@@ -367,6 +453,29 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_expect_tx(bar + BAR_FULL_V + 8 * s, KV_BYTES);
         tma_load(sv, &tm_v, bar + BAR_FULL_V + 8 * s, 0, vh, row, vb);
         tma_load(sv + KV_HALF, &tm_v, bar + BAR_FULL_V + 8 * s, BOX_COLS, vh, row, vb);
+      }
+    } else if (kMasked && threadIdx.x / 32 == 1) {
+      // K8's validity warp: bit k of word j is key 32 j + k of the tile
+      // (valid and < S), stored beside the K stage and released with it
+      const int lane = threadIdx.x & 31;
+      const int* kv = kvalid == nullptr ? nullptr : kvalid + static_cast<long long>(b) * S;
+      for (int i = 0; i < n_kt; ++i) {
+        const int s = i & 1;
+        mbar_wait(bar + BAR_EMPTY_K + 8 * s, ((i >> 1) & 1) ^ 1);
+        uint32_t w[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = i * BN + 32 * j + lane;
+          w[j] = __ballot_sync(0xffffffffu, key < S && (kv == nullptr || kv[key] != 0));
+        }
+        if (lane == 0) {
+          asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(bar + BAR_FLAGS +
+                                                                          16 * s),
+                       "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+                       : "memory");
+          mbar_arrive(bar + BAR_FULL_K + 8 * s);
+        }
+        __syncwarp();
       }
     }
   } else {
@@ -386,11 +495,30 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     uint32_t p[8][4];
 #pragma unroll
     for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    // K8: the last visible key of this thread's two rows (positions clamped
+    // to [-1, S], which sees the same keys and cannot overflow below), the
+    // mask value in unscaled units, the tile's validity words
+    int qp0 = S, qp1 = S;
+    float neg = 0.f;
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    if constexpr (kMasked) {
+      const int r0 = row_base + warp * 16 + g, r1 = r0 + 8;
+      if (causal) {
+        const int* qp = qpos == nullptr ? nullptr : qpos + static_cast<long long>(b) * T;
+        qp0 = qp == nullptr ? r0 : (r0 < T ? qp[r0] : 0);
+        qp1 = qp == nullptr ? r1 : (r1 < T ? qp[r1] : 0);
+        qp0 = min(max(qp0, -1), S);
+        qp1 = min(max(qp1, -1), S);
+      }
+      neg = kNegInf / scale;
+    }
     if (pingpong && c == 1) named_arrive(1, 256);   // consumer 0 goes first
 
     mbar_wait(bar, 0);
-    // the diagonal tile (i = 0, stage 0): S, the mask, the first softmax
+    // the first tile (i = 0, stage 0; K1: the diagonal): S, the mask, the
+    // first softmax
     mbar_wait(bar + BAR_FULL_K, 0);
+    if constexpr (kMasked) load_flags(w, bar + BAR_FLAGS, t4);
     if (pingpong) named_sync(bar_mine, 256);
     wg_fence();
     gemm_qk(s, sq, base + OFF_KV);
@@ -399,8 +527,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     wg_wait<0>();
     fence_regs(s);
     mbar_arrive_lane0(bar + BAR_EMPTY_K, lane);
-    mask_diagonal(s, c * 64 + warp * 16 + g, t4);
-    softmax_tile(s, m, l, alpha, sl2);
+    if constexpr (kMasked)
+      mask_tile(s, w, qp0 - 2 * t4, qp1 - 2 * t4, S - 2 * t4, neg);
+    else
+      mask_diagonal(s, c * 64 + warp * 16 + g, t4);
+    softmax_tile<kMasked>(s, m, l, alpha, sl2);
     to_bf16_frags(s, p);
 
     for (int i = 1; i < n_kt; ++i) {
@@ -409,6 +540,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       const uint32_t sk = base + OFF_KV + st * 2 * KV_BYTES;
       const uint32_t sv_prev = base + OFF_KV + sp * 2 * KV_BYTES + KV_BYTES;
       mbar_wait(bar + BAR_FULL_K + 8 * st, par);
+      if constexpr (kMasked) load_flags(w, bar + BAR_FLAGS + 16 * st, t4);
       if (pingpong) named_sync(bar_mine, 256);
       wg_fence();
       gemm_qk(s, sq, sk);           // S of tile i ...
@@ -422,7 +554,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
       wg_wait<1>();
       fence_regs(s);
       mbar_arrive_lane0(bar + BAR_EMPTY_K + 8 * st, lane);
-      softmax_tile(s, m, l, alpha, sl2);
+      if constexpr (kMasked) {
+        const int kb2 = i * BN + 2 * t4;
+        mask_tile(s, w, qp0 - kb2, qp1 - kb2, S - kb2, neg);
+      }
+      softmax_tile<kMasked>(s, m, l, alpha, sl2);
       wg_wait<0>();
       fence_regs(o);
       fence_regs(p);
@@ -442,7 +578,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(p);
     if (pingpong && c == 0) named_sync(bar_mine, 256);   // the other's last turn
 
-    // the row sums over the quad; O / l (l > 0: every row sees its own key)
+    // the row sums over the quad; O / l (l > 0: K1's rows see their own key,
+    // K8's the largest score of tile 0, which holds key 0 < S)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -522,10 +659,23 @@ bool encode(CUtensorMap* map, EncodeTiled fn, const void* ptr, const long long* 
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <bool kLse>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int T,
-           int d, const long long* layout, float scale, void* stream) {
-  if (d != D || B < 1 || H < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+// K13's maps: the packed [B, rows, H*d] tensor's head views, (H, rows, B)
+// extents and byte strides as the wrapper's _tma_layout gives them for a
+// [B, H, rows, d] view (an axis of extent 1 is never stepped: stride 2 d)
+void packed_layout(long long* layout, int B, int H, int rows) {
+  const long long n[3] = {H, rows, B};
+  const long long st[3] = {2LL * D, 2LL * H * D, 2LL * rows * H * D};
+  for (int i = 0; i < 3; ++i) {
+    layout[i] = n[i];
+    layout[3 + i] = n[i] == 1 ? 2LL * D : st[i];
+  }
+}
+
+template <bool kLse, bool kMasked>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, const void* qpos,
+           const void* kvalid, int causal, int B, int H, int T, int S, int d,
+           const long long* layout, float scale, void* stream) {
+  if (d != D || B < 1 || H < 1 || T < 1 || S < 1) return static_cast<int>(cudaErrorInvalidValue);
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap maps[4];
@@ -540,30 +690,67 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   }
   static bool attr = false;
   if (!attr) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_sm90_kernel<kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    const cudaError_t err =
+        cudaFuncSetAttribute(flash_fwd_sm90_kernel<kLse, kMasked>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr = true;
   }
   const dim3 grid((T + BM - 1) / BM, H, B);
-  flash_fwd_sm90_kernel<kLse><<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<float*>(lse), T, scale, bcast);
+  flash_fwd_sm90_kernel<kLse, kMasked>
+      <<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+          maps[0], maps[1], maps[2], maps[3], static_cast<float*>(lse),
+          static_cast<const int*>(qpos), static_cast<const int*>(kvalid), T, S, causal, scale,
+          bcast);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K1: causal, right-padded, S == T; writes no lse.  layout: 24 int64, the
-// (H, T, B) extents and byte strides of q, k, v and o in turn.
+// layout (K1, K1-lse, K8): 24 int64, the (H, T|S, B) extents and byte strides
+// of q, k, v and o in turn, as the wrapper's _tma_layout gives them.
+
+// K1: causal, right-padded, S == T; writes no lse.
 extern "C" int cullavo_flash_fwd(const void* q, const void* k, const void* v, void* o, int B,
                                  int H, int T, int d, const long long* layout, float scale,
                                  void* stream) {
-  return launch<false>(q, k, v, o, nullptr, B, H, T, d, layout, scale, stream);
+  return launch<false, false>(q, k, v, o, nullptr, nullptr, nullptr, 1, B, H, T, T, d, layout,
+                              scale, stream);
 }
 
 // K1-lse: K1 that also writes lse f32 [B, H, T] (contiguous).
 extern "C" int cullavo_flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
                                      void* lse, int B, int H, int T, int d,
                                      const long long* layout, float scale, void* stream) {
-  return launch<true>(q, k, v, o, lse, B, H, T, d, layout, scale, stream);
+  return launch<true, false>(q, k, v, o, lse, nullptr, nullptr, 1, B, H, T, T, d, layout, scale,
+                             stream);
+}
+
+// K8 / K8-lse: the masked forward.  qpos int32 [B, T] or null (the row
+// index), kvalid int32 [B, S] or null (all valid), lse f32 [B, H, T] or null.
+extern "C" int cullavo_flash_rows(const void* q, const void* k, const void* v, void* o,
+                                  void* lse, const void* qpos, const void* kvalid, int causal,
+                                  int B, int H, int T, int S, int d, const long long* layout,
+                                  float scale, void* stream) {
+  if (lse != nullptr)
+    return launch<true, true>(q, k, v, o, lse, qpos, kvalid, causal, B, H, T, S, d, layout,
+                              scale, stream);
+  return launch<false, true>(q, k, v, o, nullptr, qpos, kvalid, causal, B, H, T, S, d, layout,
+                             scale, stream);
+}
+
+// K13: causal forward on the packed layout, q/o [B, T, H*d] and k/v
+// [B, S, H*d] contiguous, S >= T (query i sees keys j <= i): K1's kernel
+// behind maps encoded here.
+extern "C" int cullavo_flash_packed(const void* q, const void* k, const void* v, void* o,
+                                    int B, int H, int T, int S, int d, float scale,
+                                    void* stream) {
+  if (S < T || B < 1 || H < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  long long layout[24];
+  packed_layout(layout, B, H, T);        // q
+  packed_layout(layout + 6, B, H, S);    // k
+  packed_layout(layout + 12, B, H, S);   // v
+  packed_layout(layout + 18, B, H, T);   // o
+  return launch<false, false>(q, k, v, o, nullptr, nullptr, nullptr, 1, B, H, T, S, d, layout,
+                              scale, stream);
 }

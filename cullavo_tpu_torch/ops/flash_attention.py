@@ -9,16 +9,17 @@ validity ``[B, S]``, causal or not, S and T independent.  It is a
 JAX package's chunked recomputation in plain PyTorch (there it is plain XLA
 too, no TPU kernel).
 
-Forward on a CUDA tensor (bf16, head dim 128):
+Forward on a CUDA tensor (bf16, head dim 128), one Hopper kernel
+(``csrc/flash_fwd_sm90.cu``: TMA, an mbarrier ring, wgmma) in three forms.
+q, k, v and o reach it as tensor maps (``_tma_layout``): a layout TMA
+cannot take raises here.
   * K1, the bias-free contract (causal, iota positions, no key mask,
-    S == T; ``csrc/flash_fwd_sm90.cu``, TMA and wgmma): exact for every
-    valid row of a right-padded batch.  q, k, v and o reach it as tensor
-    maps (``_tma_layout``): a layout TMA cannot take raises here;
+    S == T): exact for every valid row of a right-padded batch;
   * K1-lse, the same kernel that also writes the f32 log-sum-exp
     ``[B, H, T]``, whenever a gradient is needed;
-  * K8, every other mode (``csrc/flash_fwd.cu``): scores masked by
-    ``kv_valid[b, s] != 0 and (not causal or q_positions[b, t] >= s)``,
-    with or without the lse.
+  * K8, every other mode: scores masked by
+    ``kv_valid[b, s] != 0 and (not causal or q_positions[b, t] >= s)``
+    over every key tile, with or without the lse.
 For a tensor on the CPU the forward is ``mha_reference``; on any other
 device it raises.  A masked score is the finite ``NEG_INF``: a row with no
 visible key returns the mean of v and ``lse = NEG_INF + log(S)``, and gets
@@ -28,7 +29,8 @@ no gradient (the backward zeroes its probabilities).
 forward on the projection layout: q ``[B, T, H*d]``, k/v ``[B, S, H*d]``,
 S >= T, head h in columns ``[h*d, (h+1)*d)``, output ``[B, T, H*d]``.  On a
 CUDA tensor it is K13 (``cullavo_flash_packed``, counted on
-``flash_attention_packed.launches``), on a CPU tensor the plain version
+``flash_attention_packed.launches``: K1's kernel behind maps that its
+entry point encodes), on a CPU tensor the plain version
 (``_packed_plain``: heads as views plus ``mha_reference``).  Its gradient
 restages q, k, v as ``[B, H, T, d]`` views and runs the standard path: the
 K1-lse (or K8 where S != T) forward for o and lse, then ``_flash_bwd``.
@@ -353,7 +355,8 @@ def decode_bias(q_position, kv_valid):
 
 
 def _tma_layout(shape, stride, elem_bytes=2):
-    """How K1 reads or writes a [B, H, T, d] view through a TMA tensor map:
+    """How the forward kernel (K1, K8) reads or writes a [B, H, T, d] view
+    through a TMA tensor map:
     ``[H, T, B, stride_H, stride_T, stride_B]``, the extents of the map's
     head, row and batch axes (its inner axis is the d contiguous elements)
     and their strides in bytes, from the view's shape and element strides.
@@ -392,31 +395,29 @@ def _flash_cuda(q, k, v, q_positions, kv_valid, causal, need_lse):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16 or t.device != q.device:
             raise ValueError(f"flash_attention: {name} must be bf16 on {q.device}")
-        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} needs a contiguous head dim, "
-                             "strides that are multiples of 8 and 16-byte alignment")
+        if t.data_ptr() % 16:   # strides: _tma_layout
+            raise ValueError(f"flash_attention: {name} needs 16-byte alignment")
     if d != 128:
         raise ValueError(f"flash_attention: the CUDA kernels take head dim 128, got {d}")
     out = torch.empty((B, T, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device) if need_lse else None
+    # every form reads and writes through tensor maps (csrc/flash_fwd_sm90.cu)
+    layout = (ctypes.c_longlong * 24)(
+        *(x for t in (q, k, v, out) for x in _tma_layout(t.shape, t.stride())))
     lib = _build.lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if causal and q_positions is None and kv_valid is None and S == T:
-        # K1 / K1-lse (csrc/flash_fwd_sm90.cu) read and write through tensor maps
-        layout = (ctypes.c_longlong * 24)(
-            *(x for t in (q, k, v, out) for x in _tma_layout(t.shape, t.stride())))
-        if need_lse:
+        if need_lse:   # K1-lse
             err = lib.cullavo_flash_fwd_lse(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 B, H, T, d, layout, d ** -0.5, stream)
             counter = flash_lse
-        else:
+        else:          # K1
             err = lib.cullavo_flash_fwd(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, T, d,
                 layout, d ** -0.5, stream)
             counter = flash_attention
-    else:
-        strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    else:              # K8 / K8-lse
         masks = []
         for name, m in (("q_positions", q_positions), ("kv_valid", kv_valid)):
             if m is not None:
@@ -429,7 +430,7 @@ def _flash_cuda(q, k, v, q_positions, kv_valid, causal, need_lse):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if need_lse else None,
             *(None if m is None else m.data_ptr() for m in masks), int(causal),
-            B, H, T, S, d, *strides, d ** -0.5, stream)
+            B, H, T, S, d, layout, d ** -0.5, stream)
         counter = flash_rows
     _build.check(err, "flash_attention")
     counter.launches += 1

@@ -6,10 +6,12 @@ original, and the chip smoke script refuses to run without a CUDA device.  The t
 compare each CUDA kernel with its plain version on a card; this file
 imports no JAX, so on the machine with the card they run with
 ``python -m pytest tests/test_torch_package.py -m cuda --noconftest``."""
+import ctypes
 import os
 import re
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -89,6 +91,7 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.checkpoint.reference_layout",
     "cullavo_tpu_torch.trainer.loop",
     "cullavo_tpu_torch.scripts.matmul_probe",
+    "cullavo_tpu_torch.scripts.flash_bench",
 )
 
 
@@ -323,8 +326,17 @@ def test_flash_attention_takes_the_plain_version_only_for_cpu_tensors():
         assert banned not in cuda_half, banned
     fwd = src[src.index("class _FlashAttention"):src.index("    def backward")]
     assert fwd.count("mha_reference") == 1 and 'if q.device.type == "cpu":' in fwd
-    # K1 / K1-lse (csrc/flash_fwd_sm90.cu) take tensor maps laid out on the host
-    assert cuda_half.count("_tma_layout(") == 1 and "cullavo_flash_fwd_lse(" in cuda_half
+    # K1, K1-lse and K8 (csrc/flash_fwd_sm90.cu) take tensor maps laid out on
+    # the host by one _tma_layout call ahead of the choice of form; K13's
+    # entry encodes its own, from no strides
+    flash = cuda_half[:cuda_half.index("def _packed_cuda")]
+    assert flash.count("_tma_layout(") == 1
+    assert flash.index("_tma_layout(") < flash.index("if causal and q_positions is None")
+    for entry in ("cullavo_flash_fwd(", "cullavo_flash_fwd_lse(", "cullavo_flash_rows("):
+        call = flash[flash.index(entry):]
+        assert "layout, d ** -0.5, stream)" in call[:call.index(")\n") + 2], entry
+    packed_cuda = cuda_half[cuda_half.index("def _packed_cuda"):cuda_half.index("def _decode_cuda")]
+    assert "_tma_layout" not in packed_cuda and "stride(" not in packed_cuda
     # K12 (one-token decode): the same rule
     qd, cache = (torch.randn(1, 2, 1, 16, device="meta"), torch.randn(1, 2, 5, 16, device="meta"))
     n0 = fa.decode_partials.launches
@@ -347,7 +359,7 @@ def test_flash_attention_takes_the_plain_version_only_for_cpu_tensors():
     assert "def _packed_cuda" in cuda_half
 
 
-# K1 / K1-lse read q, k, v and write o through TMA tensor maps whose
+# K1, K1-lse and K8 read q, k, v and write o through TMA tensor maps whose
 # extents and byte strides the wrapper computes from the views on the host
 _B, _T, _H, _D = 3, 648, 32, 128
 
@@ -391,6 +403,163 @@ def test_tma_layout_refuses_what_tma_cannot_take(case, shape, stride, match):
 
     with pytest.raises(ValueError, match=match):
         fa._tma_layout(shape, stride)
+
+
+def _packed_layout_of_the_c_entry(B, H, rows, d=128):
+    """``packed_layout`` of csrc/flash_fwd_sm90.cu, which K13's entry point
+    encodes for q/o (rows = T) and k/v (rows = S): dims (d, H, rows, B),
+    byte strides (2d, 2Hd, 2 rows Hd), an axis of extent 1 stepped by 2d."""
+    n, st = (H, rows, B), (2 * d, 2 * H * d, 2 * rows * H * d)
+    return list(n) + [2 * d if n_ == 1 else s for n_, s in zip(n, st)]
+
+
+def test_packed_layout_of_the_c_entry_is_the_transcribed_one():
+    """The transcription above is the C helper's rule, line for line."""
+    src = (PORT / "csrc" / "flash_fwd_sm90.cu").read_text()
+    helper = src[src.index("void packed_layout("):src.index("template <bool kLse, bool kMasked>\nint launch(")]
+    assert "const long long n[3] = {H, rows, B};" in helper
+    assert "const long long st[3] = {2LL * D, 2LL * H * D, 2LL * rows * H * D};" in helper
+    assert "layout[3 + i] = n[i] == 1 ? 2LL * D : st[i];" in helper
+    entry = src[src.index('extern "C" int cullavo_flash_packed('):]
+    for rows, off in (("T", ""), ("S", " + 6"), ("S", " + 12"), ("T", " + 18")):
+        assert f"packed_layout(layout{off}, B, H, {rows});" in entry
+
+
+@pytest.mark.parametrize("B,T,S,H", [(3, 648, 648, 32), (8, 1024, 1024, 32), (3, 601, 648, 32),
+                                     (2, 37, 45, 2), (1, 1, 1, 1), (1, 200, 333, 1),
+                                     (2, 1, 130, 4)])
+def test_packed_head_views_take_the_layout_k13_encodes(B, T, S, H):
+    """K13's entry encodes, without strides from Python, the maps that
+    ``_tma_layout`` gives the [B, H, T|S, d] head views of the packed
+    tensors (so K13 runs K1's kernel on K1's own layouts); both equal the
+    byte strides numpy gives the same views of a 2-byte array."""
+    import numpy as np
+
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    d = 128
+    for rows in (T, S):
+        view = fa._packed_to_heads(torch.empty(B, rows, H * d, dtype=torch.bfloat16), H)
+        got = fa._tma_layout(view.shape, view.stride())
+        a = np.empty((B, rows, H * d), np.float16).reshape(B, rows, H, d).transpose(0, 2, 1, 3)
+        want = [H, rows, B] + [2 * d if n == 1 else int(a.strides[ax])
+                               for n, ax in ((H, 1), (rows, 2), (B, 0))]
+        assert got == want == _packed_layout_of_the_c_entry(B, H, rows), (rows, got, want)
+
+
+class _FakeKernels:
+    """Stands in for ``_build.lib()``: records each entry point's call (the
+    layout array and the int32 masks read through their pointers while the
+    call lasts) and returns 0."""
+
+    def __init__(self):
+        self.calls = []
+
+    def _record(self, name, args, masks=()):
+        import numpy as np
+
+        rec = {"name": name, "args": args}
+        for key, ptr, n in masks:
+            rec[key] = None if ptr is None else np.ctypeslib.as_array(
+                (ctypes.c_int32 * n).from_address(ptr)).copy()
+        self.calls.append(rec)
+        return 0
+
+    def cullavo_flash_fwd(self, q, k, v, o, B, H, T, d, layout, scale, stream):
+        return self._record("fwd", dict(B=B, H=H, T=T, d=d, layout=list(layout), scale=scale,
+                                        stream=stream, ptrs=(q, k, v, o)))
+
+    def cullavo_flash_fwd_lse(self, q, k, v, o, lse, B, H, T, d, layout, scale, stream):
+        return self._record("fwd_lse", dict(B=B, H=H, T=T, d=d, layout=list(layout),
+                                            scale=scale, stream=stream, ptrs=(q, k, v, o, lse)))
+
+    def cullavo_flash_rows(self, q, k, v, o, lse, qpos, kvalid, causal, B, H, T, S, d, layout,
+                           scale, stream):
+        return self._record("rows", dict(B=B, H=H, T=T, S=S, d=d, causal=causal,
+                                         layout=list(layout), scale=scale, stream=stream,
+                                         ptrs=(q, k, v, o, lse)),
+                            (("qpos", qpos, B * T), ("kvalid", kvalid, B * S)))
+
+    def cullavo_flash_packed(self, q, k, v, o, B, H, T, S, d, scale, stream):
+        return self._record("packed", dict(B=B, H=H, T=T, S=S, d=d, scale=scale, stream=stream,
+                                           ptrs=(q, k, v, o)))
+
+
+@pytest.mark.parametrize("mode", ["K1", "K1-lse", "K8 positions", "K8-lse kv_valid, non-causal",
+                                  "K8 S > T", "K8-lse both masks", "K13", "K13 S > T"])
+def test_forward_forms_reach_their_entry_points(monkeypatch, mode):
+    """With a fake kernel library and stream (no card here): each mode of
+    ``_flash_cuda`` / ``_packed_cuda`` reaches its C entry with the layouts
+    ``_tma_layout`` gives q, k, v and the output, the masks as int32 rows,
+    the scale d^-0.5 and the caller's stream, and counts one launch on its
+    own counter only."""
+    import numpy as np
+
+    from cullavo_tpu_torch import _build
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    fake = _FakeKernels()
+    monkeypatch.setattr(_build, "lib", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=4242))
+    counters = {"K1": fa.flash_attention, "K1-lse": fa.flash_lse, "K8": fa.flash_rows,
+                "K13": fa.flash_attention_packed}
+    before = {n: c.launches for n, c in counters.items()}
+    rng = np.random.default_rng(7)
+    B, H, d = 2, 3, 128
+    T, S = (5, 9) if "S > T" in mode else (6, 6)
+
+    def bf(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(torch.bfloat16)
+
+    if mode.startswith("K13"):
+        q, k, v = bf(B, T, H * d), bf(B, S, H * d), bf(B, S, H * d)
+        out = fa._packed_cuda(q, k, v, H)
+        (call,) = fake.calls
+        assert call["name"] == "packed" and out.shape == q.shape
+        assert {k_: call["args"][k_] for k_ in ("B", "H", "T", "S", "d")} == \
+            dict(B=B, H=H, T=T, S=S, d=d)
+        assert call["args"]["ptrs"] == tuple(t.data_ptr() for t in (q, k, v, out))
+        assert call["args"]["stream"] == 4242 and call["args"]["scale"] == d ** -0.5
+        name = "K13"
+    else:
+        q = bf(B, T, H, d).transpose(1, 2)                  # head views of [B, T, H, d]
+        k, v = bf(B, H, S, d), bf(B, 1, S, d).expand(B, H, S, d)
+        pos = valid = None
+        causal = "non-causal" not in mode
+        if "positions" in mode or "both" in mode:
+            pos = torch.from_numpy(rng.integers(-1, S + 2, (B, T))).to(torch.int64)
+        if "kv_valid" in mode or "both" in mode:
+            valid = torch.from_numpy(rng.random((B, S)) < 0.7)   # bool
+        need_lse = "-lse" in mode
+        res = fa._flash_cuda(q, k, v, pos, valid, causal, need_lse)
+        out, lse = res if need_lse else (res, None)
+        (call,) = fake.calls
+        args = call["args"]
+        want = [x for t in (q, k, v, out) for x in fa._tma_layout(t.shape, t.stride())]
+        assert args["layout"] == want and len(want) == 24
+        assert want[12:15] == [1, S, B]                      # v's heads: extent 1, read at 0
+        assert out.shape == (B, H, T, d) and out.stride() == (T * H * d, d, H * d, 1)
+        assert args["stream"] == 4242 and args["scale"] == d ** -0.5
+        assert args["ptrs"][:4] == tuple(t.data_ptr() for t in (q, k, v, out))
+        assert (args["B"], args["H"], args["T"], args["d"]) == (B, H, T, d)
+        name = mode.split()[0].split("-")[0]
+        if name == "K1":
+            assert call["name"] == ("fwd_lse" if need_lse else "fwd")
+            if need_lse:
+                assert lse.shape == (B, H, T) and args["ptrs"][4] == lse.data_ptr()
+            name = "K1-lse" if need_lse else "K1"
+        else:
+            assert call["name"] == "rows"
+            assert (args["S"], args["causal"]) == (S, int(causal))
+            assert args["ptrs"][4] == (lse.data_ptr() if need_lse else None)
+            for key, m in (("qpos", pos), ("kvalid", valid)):
+                if m is None:
+                    assert call[key] is None, key
+                else:
+                    np.testing.assert_array_equal(call[key], m.to(torch.int32).numpy().ravel())
+    after = {n: c.launches for n, c in counters.items()}
+    assert after == {n: before[n] + (n == name) for n in counters}, (mode, before, after)
 
 
 def test_p32_wrapper_takes_the_plain_version_only_for_cpu_tensors():
@@ -828,6 +997,79 @@ def test_cuda_flash_rows_matches_plain(cuda_device, T, S, causal, left_pad):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 127, 128, 129, 648])
+@pytest.mark.parametrize("T", [1, 127, 128, 129, 648])
+def test_cuda_flash_rows_sm90_edges_match_plain(cuda_device, T, S, causal):
+    """K8 on the Hopper kernel (csrc/flash_fwd_sm90.cu) at the edge values of
+    T and S (one row or key, the ragged tiles either side of 128, the
+    probe's 648), S < T, S == T and S > T, causal or not: positions drawn
+    from [-2, S + 2) (rows with no visible key, positions past S) and 80%
+    of the keys valid; o within 1e-2 + 1e-2 |ref|, the lse within 2e-3 (rtol
+    1e-5 for the masked rows' -1e30); the o-only form bit-equal to the lse
+    form, a second launch bit-equal to the first."""
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda_device).manual_seed(100 + 7 * T + S)
+    q = torch.randn((2, T, 2, 128), generator=g, device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randn((2, S, 2, 128), generator=g, device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    pos = torch.randint(-2, S + 2, (2, T), generator=g, device=cuda_device, dtype=torch.int32)
+    valid = (torch.rand((2, S), generator=g, device=cuda_device) < 0.8).int()
+    n0 = fa.flash_rows.launches
+    got = fa._flash_cuda(q, k, v, pos, valid, causal, True)
+    again = fa._flash_cuda(q, k, v, pos, valid, causal, True)
+    o_only = fa._flash_cuda(q, k, v, pos, valid, causal, False)
+    assert fa.flash_rows.launches == n0 + 3
+    _assert_attention_close(got, fa.mha_reference(q, k, v, causal, pos, valid, need_lse=True),
+                            f"K8 T={T} S={S} causal={causal}")
+    assert torch.equal(o_only, got[0])
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S", [(150, 200), (64, 300), (300, 77)])
+def test_cuda_flash_rows_wholly_masked_rows_average_v(cuda_device, T, S):
+    """Rows with no visible key (batch row 1: every key invalid; batch row
+    0: its first rows at position -1), S not a multiple of 128: o is the mean
+    of v over the S keys (keys past S excluded), the lse <= -1e29."""
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _, _ = _flash_case(cuda_device, 2, 2, T, S, seed=40 + S)
+    pos = torch.arange(T, device=cuda_device, dtype=torch.int32)[None].repeat(2, 1)
+    pos[0, :5] = -1
+    valid = torch.ones((2, S), device=cuda_device, dtype=torch.int32)
+    valid[1] = 0
+    o, lse = fa._flash_cuda(q, k, v, pos, valid, True, True)
+    _assert_attention_close((o, lse), fa.mha_reference(q, k, v, True, pos, valid, need_lse=True),
+                            f"K8 masked rows T={T} S={S}")
+    mean = v.float().mean(dim=2)                        # [B, H, d]
+    for bi, rows in ((0, slice(0, 5)), (1, slice(0, T))):
+        assert (lse[bi, :, rows] <= -1e29).all()
+        assert torch.allclose(o[bi, :, rows].float(), mean[bi][:, None].expand_as(
+            o[bi, :, rows]), atol=2e-2), (bi, (o[bi, :, rows].float() - mean[bi][:, None]).abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_flash_rows_expanded_kv_heads(cuda_device):
+    """K8 with k/v expanded over heads (stride 0, one map extent, read at
+    head 0) and over the batch, against the plain version."""
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda_device).manual_seed(41)
+    q = torch.randn((2, 4, 300, 128), generator=g, device=cuda_device).to(torch.bfloat16)
+    k, v = (torch.randn((1, 1, 333, 128), generator=g, device=cuda_device)
+            .to(torch.bfloat16).expand(2, 4, 333, 128) for _ in range(2))
+    pos = torch.arange(300, device=cuda_device, dtype=torch.int32)[None].repeat(2, 1) + 20
+    valid = (torch.arange(333, device=cuda_device) % 7 != 3).int()[None].repeat(2, 1)
+    for causal in (True, False):
+        _assert_attention_close(fa._flash_cuda(q, k, v, pos, valid, causal, True),
+                                fa.mha_reference(q, k, v, causal, pos, valid, need_lse=True),
+                                f"K8 expanded k/v causal={causal}")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T,S,causal,masked", [(256, 256, True, False), (648, 648, True, True),
                                                (96, 160, False, True)])
 def test_cuda_flash_attention_gradients_match_plain(cuda_device, T, S, causal, masked):
@@ -1038,12 +1280,10 @@ def test_cuda_flash_attention_packed_matches_plain(cuda_device, B, T, S, H):
     assert got.shape == (B, T, H * 128) and got.dtype == torch.bfloat16
     assert torch.allclose(got.float(), ref.float(), rtol=1e-2, atol=1e-2), \
         (got.float() - ref.float()).abs().max().item()
-    if S == T:   # the same function as K1 on head views (K1 runs the sm90
-        # body, K13 still the mma.sync one: the sums round in other orders)
+    if S == T:   # K1's kernel on K1's layouts: bit-equal to K1 on the head views
         std = fa._heads_to_packed(
             fa.flash_attention(*(fa._packed_to_heads(t, H) for t in (q, k, v))))
-        assert torch.allclose(got.float(), std.float(), rtol=1e-2, atol=1e-2), \
-            (got.float() - std.float()).abs().max().item()
+        assert torch.equal(got, std), (got.float() - std.float()).abs().max().item()
 
 
 @pytest.mark.cuda
