@@ -31,7 +31,9 @@ Phases (each raises on failure, and the script exits non-zero):
      over the card's peak rate) from the inputs of this run.  K4/K5 are held
      at the decode windows (W = 1 and 4, B = 14) and at the serving engine's
      suffix prefills (W = 32, 64 and 128, B = 4, cache gated to a 608-token
-     prefix).  Then the planar
+     prefix), K4 also at its edges (batch 1 at S = 4000 with a wholly
+     masked range of 500 slots, S = 40, GQA); K4 and its library yardstick
+     timed in turns, the card kept busy ahead of each timed call.  Then the planar
      NF4 kernels at the three 7B weight shapes: K7 (dequant to dense bf16)
      bit-equal to its plain version, K6 (fused dequant-matmul) at M = 1, 14,
      64, 256 and 511 within 1e-2 + 1e-2 |ref|, timed at the serving decode
@@ -65,9 +67,12 @@ Phases (each raises on failure, and the script exits non-zero):
      decode shape [14, 32, 768, 128] bf16 (KV = 32 and 8, S = 700, a wholly
      masked row) and through ``sdpa_decode_stale`` at the T5-XL and
      KOSMOS-2 decode shapes in f32 (the current token merged), within 1e-2
-     + 1e-2 |ref| (bf16) and 1e-5 + 1e-5 |ref| (f32); timed at the 7B shape
-     beside the bound, the plain version and ``scaled_dot_product_attention``
-     with a boolean mask, and at the zoo's shapes.  Then K13, the packed-heads
+     + 1e-2 |ref| (bf16) and 1e-5 + 1e-5 |ref| (f32), and at its edges
+     (batch 1 at S = 4000: MHA, GQA, f32, a wholly masked range; S = 100);
+     timed at the 7B shape and at the zoo's shapes in turns with
+     ``scaled_dot_product_attention`` (a boolean mask; the zoo's f32
+     additive bias), the card kept busy ahead of each timed call, beside
+     the bound and the plain version.  Then K13, the packed-heads
      causal forward (Pallas rows 3 and 4: K1's kernel behind maps its entry
      encodes), at the prefill shape [7, 648, 32*128], the train shape [8,
      1024, 32*128], a ragged T with S > T and a ragged T = S, within 1e-2 +
@@ -105,8 +110,10 @@ Phases (each raises on failure, and the script exits non-zero):
      8 layers drives K4 at W = 4 and is held the same way.
   6c. the greedy batch's prefill once more with ``CULLAVO_FLASH_PACKED=1``:
      its last-token logits ``torch.equal`` to the K1 prefill's (K13 is K1's
-     kernel behind its own maps), K13 launched 32 per chunk and K1 never,
-     prefill seconds of both forms in turns.
+     kernel behind its own maps) and within 0.44 (largest) and 0.075 (mean)
+     of a prefill through the plain attention, which a planted lost key tile
+     must exceed; K13 launched 32 per chunk and K1 never, prefill seconds of
+     both forms in turns.
   7. the serving path over an NF4 base: ``entry.serve`` once in its tiny
      smoke mode; then 7B weights with the LLM linears quantized to planar NF4
      target by target (``maybe_quantize_base``), the 2-layer check of phase 5
@@ -207,6 +214,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 BATCH, CHUNK, PROMPT_TEXT, PAD_TO, NEW_TOKENS = 14, 7, 64, 8, 16
 SPEC_K, SPEC_BF16_LAYERS, LOGIT_TOL = 4, 8, 0.1
+# phase 6c: the packed (K13) prefill's last-token logits against a prefill
+# through the plain attention, absolute (the logits reach |4.1|, 0.8 on
+# average).  The sound kernel sits 0.2275 at most and 0.0400 on average from
+# it after 32 random-weight bf16 layers (its P and O round at other places);
+# a planted lost key tile (``faulty_attention``) sits 0.8402 / 0.1408 away
+# (NVIDIA H100 80GB HBM3, 700.00 W).  Each bound is the geometric mean of
+# the two readings, about 1.9x from each
+PACKED_LOGIT_TOL, PACKED_LOGIT_MEAN_TOL = 0.44, 0.075
 NF4_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))   # (K, N) of the 7B linears
 # configs/serve.yaml's SERVE block, with the prompt bucket of the traffic below
 SERVE_CFG = {"REQUESTS": None, "RESULTS": "serve_results.jsonl", "SLOTS": 16, "QUANTUM": 8,
@@ -507,6 +522,17 @@ def host_us(fn, device, n=50):
     t1 = time.perf_counter()
     torch.cuda.synchronize(device)
     return (t1 - t0) / n * 1e6
+
+
+def timed_turns(fns, device, rounds=3):
+    """Each of ``fns`` timed in turns (``rounds`` rounds), the card kept busy
+    ~0.5 ms ahead of each timed call so that the events time the card alone;
+    host microseconds per call measured apart.  Returns (median ms by name,
+    the rounds' medians by name, host us by name)."""
+    t = bench_turns(fns, device, rounds=rounds, lead_cycles=1_000_000)
+    return ({n: statistics.median(x) for n, x in t.items()},
+            {n: [round(y, 4) for y in x] for n, x in t.items()},
+            {n: round(host_us(fn, device), 1) for n, fn in fns.items()})
 
 
 def check_flash_sm90(device, g):
@@ -1159,7 +1185,11 @@ def check_wwin_kernels(device, g):
     2^-8 * l (the kernel rounds each probability to bf16 against its warp's
     running maximum, the plain version against the final one), m and l
     within 2e-3 relative, the merged bf16 output within 1e-2 + 1e-2 |ref|
-    (one bf16 ulp)."""
+    (one bf16 ulp).  Each shape timed in turns with the library's
+    ``scaled_dot_product_attention`` over the layer's slice (K4 only; a
+    yardstick the port never calls), the card kept busy ahead of each timed
+    call (host microseconds per call apart).  Then K4 at its edges
+    (``check_wwin_edges``)."""
     import torch
 
     from cullavo_tpu_torch.models.llava.llama import quantize_kv, round_cache_len
@@ -1255,30 +1285,101 @@ def check_wwin_kernels(device, g):
                     + nbytes(q, bias[:, 0], *got))
             bd = bound(need, 4 * n_slots * KV * W * hd, "bf16")
             li = L // 2
-            ms = bench_ms(lambda: kernel(q, *ops, li, bias[:, 0], 1, scale), device)
-            plain_ms = bench_ms(lambda: plain(q, *ops, li, bias[:, 0], 1, scale), device)
-            lib = None
+            fns = {"kernel": lambda: kernel(q, *ops, li, bias[:, 0], 1, scale)}
             if name == "wwin_decode":
                 # a yardstick timed here only (the port never calls it): the
                 # normalised cache-only attention over the layer's slice
                 kl, vl = (t[li].permute(1, 2, 0, 3) for t in ops)
-                lib = bench_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, kl, vl, attn_mask=bias), device)
+                fns["library"] = lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, kl, vl, attn_mask=bias)
+            med, turns, host = timed_turns(fns, device)
+            ms, lib = med["kernel"], med.get("library")
+            plain_ms = bench_ms(lambda: plain(q, *ops, li, bias[:, 0], 1, scale), device, reps=5)
             log(f"{name} B={Bw} W={W} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
                 f"sdpa {'none' if lib is None else f'{lib:.4f} ms'}, bound {bd['bound_ms']:.4f} ms "
-                f"({bd['bound_by']}, {need / 1e6:.1f} MB needed)")
+                f"({bd['bound_by']}, {need / 1e6:.1f} MB needed); in turns {turns}; host us per "
+                f"call {host}")
+            shape = (f"q [{Bw},{KV},{W},{hd}] bf16, cache [{L},{S},{B},{KV},{hd}] "
+                     f"{str(tensors[0].dtype).split('.')[1]}"
+                     + (f", a dense copy of rows 0-{Bw - 1}" if suffix else "") + ", one layer")
+            times = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, **bd, times_in_turns=turns,
+                         host_us=host, shape=shape)
             # the record keeps each kernel at the shape its main path gives it:
-            # K4 the plain greedy step (W = 1, S = 664), K5 the speculative window
+            # K4 the plain greedy step (W = 1, S = 664), K5 the speculative
+            # window; the other shapes beside it
             if (W, S, suffix) == ((1, S_plain, False) if name == "wwin_decode"
                                   else (SPEC_K, S_spec, False)):
-                rec[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, **bd,
-                                 shape=f"q [{B},{KV},{W},{hd}] bf16, cache [{L},{S},{B},{KV},{hd}] "
-                                       f"{str(tensors[0].dtype).split('.')[1]}, one layer")
+                rec.setdefault(name, {}).update(times)
+            else:
+                rec.setdefault(name, {}).setdefault("other_shapes", {})[
+                    f"W={W} S={S} B={Bw}"] = times
         rec[name]["max_abs_err"] = worst
         del sfx_tensors, ops
+    rec["wwin_decode"]["max_abs_err"] = max(rec["wwin_decode"]["max_abs_err"],
+                                            check_wwin_edges(device, g, cache, n_valid,
+                                                             partial_err, window))
     del cache, q8
     torch.cuda.empty_cache()
     return rec
+
+
+def check_wwin_edges(device, g, cache, n_valid, partial_err, window):
+    """Phase 3, K4 at its edges, each body against the plain version at
+    phase 3's K4 tolerances: batch 1 at S = 4000 (one block per kv head
+    walking every slot; W = 1 on the lane-group body, W = 8 on the mma
+    body) with slots 500-999 wholly masked and the slots past 3900 masked
+    too; S = 40, shorter than the mma body's 64-slot stage; and GQA, 32
+    query heads on the first 8 kv heads of the cache (n_rep = 4, a strided
+    view).  Returns the largest merged-output error."""
+    import torch
+
+    from cullavo_tpu_torch.ops import wwin_decode as ww
+
+    bf, hd, scale = torch.bfloat16, 128, 128 ** -0.5
+    S_long, KV = 4000, 32
+    long_cache = [torch.randn((2, S_long, 1, KV, hd), generator=g, device=device).to(bf)
+                  for _ in range(2)]
+    worst = 0.0
+
+    def hold(label, q, kc, vc, li, k_cur, v_cur, bias, n_rep=1, masked=None):
+        got = ww._run_cache_part(q, kc, vc, li, bias[:, 0], n_rep, scale)
+        want = ww._cache_part_plain(q, kc, vc, li, bias[:, 0], n_rep, scale)
+        again = ww._run_cache_part(q, kc, vc, li, bias[:, 0], n_rep, scale)
+        torch.cuda.synchronize(device)
+        acc_err = partial_err(got, want, masked)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"wwin_decode {label}: a second launch is not bit-equal")
+        out = ww.wwin_decode_smajor(q, kc, vc, li, k_cur, v_cur, bias, n_rep=n_rep)
+        ref = ww._merge_self_window(q, torch.repeat_interleave(k_cur, n_rep, dim=1),
+                                    torch.repeat_interleave(v_cur, n_rep, dim=1), *want, scale)
+        torch.cuda.synchronize(device)
+        err = (out.float() - ref.float()).abs().max().item()
+        log(f"wwin_decode {label}: acc max_abs_err={acc_err:.3e} (tol 2e-3 rel + 2^-8 l), "
+            f"merged bf16 output max_abs_err={err:.3e} (tol 1e-2 + 1e-2 |ref|)")
+        if not (torch.isfinite(out).all()
+                and torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=1e-2)):
+            raise RuntimeError(f"wwin_decode {label} disagrees with its plain version: {err}")
+        return err
+
+    for W in (1, 8):
+        q, k_cur, v_cur, bias = window(W, S_long, torch.tensor([3900], device=device))
+        bias[:, :, :, 500:1000] = ww.NEG_INF                 # a masked run of slots
+        worst = max(worst, hold(f"B=1 W={W} S={S_long}, slots 500-999 masked", q, *long_cache,
+                                1, k_cur, v_cur, bias))
+    q, k_cur, v_cur, bias = window(8, 40, torch.tensor([37], device=device))
+    short = [t[:, :40] for t in long_cache]
+    worst = max(worst, hold("B=1 W=8 S=40 (below one 64-slot stage)", q, *short, 0, k_cur, v_cur,
+                            bias))
+    T = n_valid.shape[0]
+    # GQA: 32 query heads over the cache's first 8 kv heads (a strided view)
+    q, k_cur, v_cur, bias = window(1, 664, n_valid)
+    q = torch.randn((T, 1, 32, hd), generator=g, device=device).to(bf).transpose(1, 2)
+    k_cur, v_cur = (t[:, :8] for t in (k_cur, v_cur))
+    worst = max(worst, hold(f"B={T} W=1 S=664 GQA (32 heads on 8 kv heads)", q,
+                            cache["k"][:, :664, :, :8], cache["v"][:, :664, :, :8], 5, k_cur,
+                            v_cur, bias, n_rep=4, masked=3))
+    del long_cache
+    return worst
 
 
 def check_decode_kernels(device, g):
@@ -1287,20 +1388,26 @@ def check_decode_kernels(device, g):
     (``kv_valid[b, s] & s <= q_position[b]`` as an additive bias): the
     LLaMA-7B decode shape [14, 32, 768, 128] bf16 with KV = H, a GQA case
     with KV = 8, S = 700 (not a multiple of 128) and a wholly masked row
-    at S = 768 (the mean of v).  The zoo's forms through
-    ``sdpa_decode_stale`` (the current token merged in f32) against
-    ``sdpa_decode_stale_plain`` (JAX's arithmetic), each over a layer of
-    the stacked f32 cache read in place: T5-XL's decoder (5 beams, 32
-    heads, S = 11, d = 64, scale 1, a per-head relative bias + the causal
-    mask, ``self_bias``) and KOSMOS-2's (1 row, 32 heads, S = its longest
-    prompt + 10, d = 64, scaled, a key-validity mask) at the first, a middle
-    and the last decode step.  Tolerances: 1e-5 + 1e-5 |ref| in f32 and
-    1e-2 + 1e-2 |ref| in bf16 (the plain version widens the same inputs to
-    f32 and sums in another order; in bf16 the output rounds once, at up to
-    one ulp).  Timed at the 7B shape with every key valid beside the plain
-    version, the bound (the valid cache bytes over 3.35 TB/s) and
-    ``scaled_dot_product_attention`` with a boolean mask (a yardstick the
-    port never calls); and at the zoo's shapes."""
+    at S = 768 (the mean of v).  The edges of the lane-group body: batch 1
+    at S = 4000 (one block per kv head walking every key) with keys 500-999
+    wholly masked by the finite mask and, through ``decode_partials``, at
+    -inf for half the heads; GQA (KV = 8); f32 at d = 64; S = 100.  The
+    zoo's forms through ``sdpa_decode_stale`` (the current
+    token merged in f32) against ``sdpa_decode_stale_plain`` (JAX's
+    arithmetic), each over a layer of the stacked f32 cache read in place:
+    T5-XL's decoder (5 beams, 32 heads, S = 11, d = 64, scale 1, a per-head
+    relative bias + the causal mask, ``self_bias``) and KOSMOS-2's (1 row,
+    32 heads, S = its longest prompt + 10, d = 64, scaled, a key-validity
+    mask) at the first, a middle and the last decode step.  Tolerances:
+    1e-5 + 1e-5 |ref| in f32 and 1e-2 + 1e-2 |ref| in bf16 (the plain
+    version widens the same inputs to f32 and sums in another order; in
+    bf16 the output rounds once, at up to one ulp); m and l within 1e-5.
+    Timed at the 7B shape with every key valid and at the zoo's shapes,
+    each in turns with ``scaled_dot_product_attention`` (a boolean mask at 7B, the f32
+    additive bias at the zoo's shapes; a yardstick the port never calls),
+    the card kept busy ahead of each timed call so that the events time the
+    card alone (host microseconds per call apart); the plain version once;
+    the bound from the valid cache bytes over 3.35 TB/s."""
     import torch
 
     from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
@@ -1310,6 +1417,8 @@ def check_decode_kernels(device, g):
 
     bf, f32 = torch.bfloat16, torch.float32
     tols = {f32: 1e-5, bf: 1e-2}
+    sdpa_lib = torch.nn.functional.scaled_dot_product_attention   # a yardstick only
+    lead = 1_000_000
 
     def hold(label, got, want, dtype):
         err = (got.float() - want.float()).abs().max().item()
@@ -1330,6 +1439,9 @@ def check_decode_kernels(device, g):
         for name, a, r in zip("ml", got[1:], want[1:]):
             if not torch.allclose(a, r, atol=1e-5, rtol=1e-5):
                 raise RuntimeError(f"K12 {name} disagrees at {label}: {(a - r).abs().max()}")
+        again = fa.decode_partials(q, k, v, bias, scale)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise RuntimeError(f"K12 at {label}: a second launch is not bit-equal")
         return hold(label, got[0], want[0], q.dtype), got, want
 
     worst = 0.0
@@ -1350,6 +1462,28 @@ def check_decode_kernels(device, g):
                                          atol=1e-2, rtol=1e-2):
             raise RuntimeError("K12: the wholly masked row is not the mean of v")
 
+    # batch 1 at S = 4000: one block per kv head walks every key
+    S_long = 4000
+    for KV, dt, dd in ((32, bf, 128), (8, bf, 128), (32, f32, 64)):
+        q = torch.randn((1, H, 1, dd), generator=g, device=device).to(dt)
+        k, v = (torch.randn((1, KV, S_long, dd), generator=g, device=device).to(dt)
+                for _ in range(2))
+        valid = torch.ones((1, S_long), dtype=torch.int32, device=device)
+        valid[:, 500:1000] = 0                            # a run of masked keys
+        pos = torch.full((1,), S_long - 1, device=device)
+        label = f"flash_decode [1,{H}/{KV},{S_long},{dd}] {str(dt).split('.')[1]}"
+        bias = fa.decode_bias(pos, valid)
+        worst = max(worst, partials(label + ", keys 500-999 masked", q, k, v, bias,
+                                    dd ** -0.5)[0])
+        bias_inf = bias.expand(1, H, S_long).clone()
+        bias_inf[:, : H // 2, 500:1000] = -torch.inf      # -inf keys count 0
+        worst = max(worst, partials(label + ", keys 500-999 at -inf for 16 heads", q, k, v,
+                                    bias_inf, dd ** -0.5)[0])
+    q = torch.randn((1, H, 1, d), generator=g, device=device).to(bf)
+    k, v = (torch.randn((1, H, 100, d), generator=g, device=device).to(bf) for _ in range(2))
+    worst = max(worst, partials("flash_decode [1,32,100,128] bf16", q, k, v,
+                                torch.zeros((1, 1, 100), device=device), d ** -0.5)[0])
+
     # timing at the 7B decode shape, every key valid (the bound's bytes)
     q = torch.randn((B, H, 1, d), generator=g, device=device).to(bf)
     k, v = (torch.randn((B, H, S, d), generator=g, device=device).to(bf) for _ in range(2))
@@ -1358,17 +1492,19 @@ def check_decode_kernels(device, g):
     bias = fa.decode_bias(pos, valid)
     err, got, _ = partials(f"timing case [{B},{H},{S},{d}] bf16", q, k, v, bias, d ** -0.5)
     worst = max(worst, err)
-    ms = bench_ms(lambda: fa.decode_partials(q, k, v, bias, d ** -0.5), device)
-    plain = bench_ms(lambda: fa._decode_partials_plain(q, k, v, bias.expand(B, H, S), d ** -0.5),
-                     device)
     mask = (bias == 0)[:, :, None, :]                      # [B, 1, 1, S] boolean
-    lib = bench_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask), device)
+    med, turns, host = timed_turns(
+        {"kernel": lambda: fa.decode_partials(q, k, v, bias, d ** -0.5),
+         "library": lambda: sdpa_lib(q, k, v, attn_mask=mask)}, device)
+    plain = bench_ms(lambda: fa._decode_partials_plain(q, k, v, bias.expand(B, H, S), d ** -0.5),
+                     device, reps=5)
     bd = bound(nbytes(q, k, v, bias, *got), 4 * B * H * S * d, "bf16")
-    log(f"K12 [{B},{H},{S},{d}] bf16: kernel {ms:.4f} ms, plain {plain:.4f} ms, library sdpa "
-        f"(boolean mask) {lib:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
-        f"{nbytes(k, v) / 1e6:.1f} MB of cache)")
-    rec = dict(ms=ms, plain_ms=plain, library_ms=lib, **bd,
+    log(f"K12 [{B},{H},{S},{d}] bf16: kernel {med['kernel']:.4f} ms, plain {plain:.4f} ms, "
+        f"library sdpa (boolean mask) {med['library']:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+        f"({bd['bound_by']}, {nbytes(k, v) / 1e6:.1f} MB of cache); in turns {turns}; host us "
+        f"per call {host}")
+    rec = dict(ms=med["kernel"], plain_ms=plain, library_ms=med["library"], **bd,
+               times_in_turns=turns, host_us=host,
                shape=f"q [{B},{H},1,{d}], k/v [{B},{H},{S},{d}] bf16, every key valid")
     del q, k, v, bias, got, mask
 
@@ -1376,6 +1512,7 @@ def check_decode_kernels(device, g):
     tok = ByteTokenizer()
     prompt = 1 + 64 + max(len(tok.encode(MODEL_SPECS["kosmos2"].prompt.format(q=x)))
                           for x in VL_QUESTION_TEXT)
+    rec["zoo_shapes"] = {}
     for name, Bz, Sz, n0, scale, t5 in (("T5-XL decoder", ZOO_BEAMS, ZOO_NEW + 1, 0, 1.0, True),
                                         ("KOSMOS-2 decoder", 1, prompt + ZOO_NEW, prompt,
                                          64 ** -0.5, False)):
@@ -1399,17 +1536,28 @@ def check_decode_kernels(device, g):
             ref = sdpa_decode_stale_plain(q, kc[li], vc[li], k_cur, v_cur, bias,
                                           self_bias=self_bias, scale=scale)
             worst = max(worst, hold(label + " merged", out, ref, f32))
-        z_ms = bench_ms(lambda: fa.decode_partials(q, kc[li], vc[li], bias[:, :, 0], scale),
-                        device)
+        kl, vl, bl = kc[li], vc[li], bias[:, :, 0]
+        # the library's sdpa with the same f32 additive bias [B|1, 32|1, 1, S]
+        med, turns, host = timed_turns({
+            "kernel": lambda: fa.decode_partials(q, kl, vl, bl, scale),
+            "library": lambda: sdpa_lib(q, kl, vl, attn_mask=bias, scale=scale)}, device)
         z_plain = bench_ms(lambda: fa._decode_partials_plain(
-            q, kc[li], vc[li], bias[:, :, 0].expand(Bz, 32, Sz), scale), device)
-        z_merged = bench_ms(lambda: sdpa_decode_stale(q, kc[li], vc[li], k_cur, v_cur, bias,
-                                                      self_bias=self_bias, scale=scale), device)
-        z_bd = bound(nbytes(q, kc[li], vc[li], bias), 4 * Bz * 32 * Sz * 64, "f32")
-        log(f"K12 {name} [{Bz},32,{Sz},64] f32: kernel {z_ms:.4f} ms, plain {z_plain:.4f} ms, "
+            q, kl, vl, bl.expand(Bz, 32, Sz), scale), device)
+        z_merged = bench_ms(lambda: sdpa_decode_stale(q, kl, vl, k_cur, v_cur, bias,
+                                                      self_bias=self_bias, scale=scale), device,
+                            lead_cycles=lead)
+        z_bd = bound(nbytes(q, kl, vl, bias), 4 * Bz * 32 * Sz * 64, "f32")
+        log(f"K12 {name} [{Bz},32,{Sz},64] f32: kernel {med['kernel']:.4f} ms, plain "
+            f"{z_plain:.4f} ms, library sdpa (f32 bias) {med['library']:.4f} ms, "
             f"sdpa_decode_stale (K12 + the f32 merge) {z_merged:.4f} ms, bound "
-            f"{z_bd['bound_ms']:.6f} ms ({z_bd['bound_by']})")
-        del kc, vc
+            f"{z_bd['bound_ms']:.6f} ms ({z_bd['bound_by']}); in turns {turns}; host us per "
+            f"call {host}")
+        rec["zoo_shapes"][name] = dict(ms=med["kernel"], plain_ms=z_plain,
+                                       library_ms=med["library"], merged_ms=z_merged,
+                                       bound_ms=z_bd["bound_ms"], times_in_turns=turns,
+                                       host_us=host, shape=f"q [{Bz},32,1,64], k/v one layer of "
+                                                           f"[24,{Bz},32,{Sz},64] f32")
+        del kc, vc, kl, vl
     rec["max_abs_err"] = worst
     torch.cuda.empty_cache()
     return {"flash_decode": rec}
@@ -3138,8 +3286,12 @@ def check_packed_kernel(device, g):
     K1's kernel behind maps its entry encodes) against its plain version
     (the heads as views + ``mha_reference``) at the prefill shape [7, 648,
     32*128], the train shape [8, 1024, 32*128], a ragged T and S > T: o
-    within 1e-2 + 1e-2 |ref|, and where S == T ``torch.equal`` to K1 on the
-    head views of the same bytes; the autograd function's dq, dk, dv within
+    within 1e-2 + 1e-2 |ref| of the plain version run on the inputs widened
+    to f64, so without its own bf16 rounding of P and O (the bf16 plain
+    version's error is printed beside it: at a query row of a few keys whose
+    values cancel, its rounding of the normalised P alone takes ~0.7 of
+    that bound, and the two roundings together can pass it), and where S ==
+    T ``torch.equal`` to K1 on the head views of the same bytes; the autograd function's dq, dk, dv within
     2e-2 of the largest entry against autograd through the plain version;
     timed at both shapes in turns with K1 on those head views and
     ``scaled_dot_product_attention(is_causal=True)`` on them (a yardstick
@@ -3164,15 +3316,19 @@ def check_packed_kernel(device, g):
                            ("ragged T, S > T", 3, 601, 648), ("ragged T = S", 2, 37, 37)):
         q, k, v = qkv(B, T, S)
         out = fa.flash_attention_packed(q, k, v, H)
-        ref = fa._packed_plain(q, k, v, H)
+        ref = fa._packed_plain(q.double(), k.double(), v.double(), H).float()
+        plain_bf16 = fa._packed_plain(q, k, v, H).float()
         views = [fa._packed_to_heads(t, H) for t in (q, k, v)]
         torch.cuda.synchronize(device)
-        err = (out.float() - ref.float()).abs().max().item()
+        err = (out.float() - ref).abs().max().item()
         same = S == T and torch.equal(out, fa._heads_to_packed(fa.flash_attention(*views)))
         log(f"K13 flash_packed {label} [{B}, {T}, {H}*{d}] S={S}: max_abs_err={err:.3e} "
-            f"(tol 1e-2 + 1e-2 |ref|: bf16 rounding of P and O)"
+            f"(tol 1e-2 + 1e-2 |ref|: bf16 rounding of P and O; ref: the plain version on f64 "
+            f"inputs, no bf16 rounding); "
+            f"the bf16 plain version from it {(plain_bf16 - ref).abs().max().item():.3e}, from "
+            f"the kernel {(out.float() - plain_bf16).abs().max().item():.3e}"
             + (f"; equal to K1 on the head views: {same}" if S == T else ""))
-        if not torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=1e-2):
+        if not torch.allclose(out.float(), ref, rtol=1e-2, atol=1e-2):
             raise RuntimeError(f"K13 disagrees with its plain version ({label}): {err}")
         if S == T and not same:
             raise RuntimeError(f"K13 ({label}) is not bit-equal to K1 on the same bytes")
@@ -3202,7 +3358,7 @@ def check_packed_kernel(device, g):
             else:
                 rec["flash_packed"]["prefill_shape"] = dict(T=T, B=B, max_abs_err=err, **row)
             del fns
-        del q, k, v, out, ref, views
+        del q, k, v, out, ref, plain_bf16, views
     # gradients through the autograd function: K13 forward, then the
     # standard K1-lse (S == T) or K8 (S > T) forward and the chunked backward
     for T, S in ((TRAIN_T, TRAIN_T), (301, 512)):
@@ -3282,35 +3438,59 @@ def run_packed_prefill(params, cfg, device, requests, wrappers):
     """Phase 6c: the 14-request greedy batch's prefill (chunks of 7, int8
     base, bf16 cache) with ``CULLAVO_FLASH_PACKED=1``: K13 in every layer of
     each chunk instead of K1.  K13 is K1's kernel behind maps its entry
-    encodes, so the two prefills' logits must be ``torch.equal``.  K13
-    launched 32 per chunk and K1 never; prefill seconds of both forms in
-    turns (K1, packed, packed, K1).  The A/B that JAX's comment leaves for
-    other topologies.  Returns the packed run's counts."""
+    encodes, so the two prefills' logits must be ``torch.equal``; that
+    equality cannot see a fault of the kernel they share, so both are also
+    held against a third prefill whose attention is the plain version
+    (``mha_reference``, the kernels' spec): the packed prefill's last-token
+    logits within ``PACKED_LOGIT_TOL`` of it (largest) and within
+    ``PACKED_LOGIT_MEAN_TOL`` on average.  The bounds must catch a fault:
+    a prefill whose attention loses a key tile (``faulty_attention``) must
+    land outside them; one whose keys are narrowed to fp8 is printed beside
+    it, a fault these logits cannot tell from bf16 rounding.  K13 launched 32 per chunk and K1 never; prefill seconds of both
+    forms in turns (K1, packed, packed, K1).  The A/B that JAX's comment
+    leaves for other topologies.  Returns the packed run's counts."""
     import torch
 
+    from cullavo_tpu_torch.models.llava import llama
     from cullavo_tpu_torch.models.llava.modeling import generate_prefill_chunked
+    from cullavo_tpu_torch.ops import flash_attention as fa
 
     ids, mask, pix, _, T_pad = requests
 
-    def prefill(packed):
+    def prefill(packed, attention=None):
         os.environ["CULLAVO_FLASH_PACKED"] = "1" if packed else "0"
+        if attention is not None:   # every layer's attention through this function
+            llama.flash_attention = attention
         torch.cuda.synchronize(device)
         t0 = time.perf_counter()
         st = generate_prefill_chunked(params, cfg, ids, pix, mask, T_pad + NEW_TOKENS, CHUNK,
                                       compute_dtype=torch.bfloat16)
         torch.cuda.synchronize(device)
         os.environ.pop("CULLAVO_FLASH_PACKED")
+        llama.flash_attention = fa.flash_attention
         return st["logits"], time.perf_counter() - t0
 
     ref, t_k1 = prefill(False)
     (got, t_packed), counts = counted(wrappers, lambda: prefill(True))
     t_packed2 = prefill(True)[1]
     t_k1_2 = prefill(False)[1]
+    spec = prefill(False, lambda q, k, v: fa.mha_reference(q, k, v))[0].float()
     same = torch.equal(got, ref)
+    err = (got.float() - spec).abs()
+    err_k1 = (ref.float() - spec).abs()
+    caught = {}
+    for fault in ("lost_key_tile", "fp8_keys"):
+        bad = (prefill(False, faulty_attention(fault))[0].float() - spec).abs()
+        caught[fault] = (round(bad.max().item(), 4), round(bad.mean().item(), 5))
     n_chunks = -(-BATCH // CHUNK)
     log(f"phase 6c, packed prefill: launches {counts}; last-token logits equal to the K1 "
         f"prefill's: {same} (largest difference "
-        f"{(got.float() - ref.float()).abs().max().item():.4f})")
+        f"{(got.float() - ref.float()).abs().max().item():.4f}); against the plain-attention "
+        f"prefill: packed largest {err.max().item():.4f} (tol {PACKED_LOGIT_TOL}), mean "
+        f"{err.mean().item():.5f} (tol {PACKED_LOGIT_MEAN_TOL}); K1 largest "
+        f"{err_k1.max().item():.4f}, mean {err_k1.mean().item():.5f}; |logits| up to "
+        f"{spec.abs().max().item():.2f} (mean {spec.abs().mean().item():.3f}); planted faults "
+        f"(largest, mean): {caught}")
     log(f"prefill s (batch {BATCH}, chunks of {CHUNK}, T {T_pad}), in turns: K1 {t_k1:.4f}, "
         f"packed {t_packed:.4f}, packed {t_packed2:.4f}, K1 {t_k1_2:.4f}")
     want = {"flash_packed": n_chunks * cfg.text.num_hidden_layers, "flash_fwd": 0}
@@ -3318,7 +3498,40 @@ def run_packed_prefill(params, cfg, device, requests, wrappers):
         raise RuntimeError(f"packed prefill: launches {counts} != predicted {want}")
     if not same:
         raise RuntimeError("packed prefill: logits differ from the K1 prefill's")
+    if not (torch.isfinite(got).all() and err.max().item() <= PACKED_LOGIT_TOL
+            and err.mean().item() <= PACKED_LOGIT_MEAN_TOL):
+        raise RuntimeError(f"packed prefill: last-token logits {err.max().item()} (mean "
+                           f"{err.mean().item()}) from the plain-attention prefill's")
+    worst, mean = caught["lost_key_tile"]
+    if worst <= PACKED_LOGIT_TOL and mean <= PACKED_LOGIT_MEAN_TOL:
+        raise RuntimeError(f"packed prefill: a lost key tile ({worst}, mean {mean}) passes the "
+                           "bounds")
     return counts
+
+
+def faulty_attention(fault):
+    """Causal attention q [B, H, T, d] against k/v [B, H, T, d] as
+    ``mha_reference`` computes it, with one planted fault, for phase 6c to
+    measure what its bounds catch: ``lost_key_tile`` drops, for every query
+    row, the 128-key tile just before the tile of its own position (K1's key
+    tile, skipped once; the first tile's rows lose nothing), ``fp8_keys``
+    rounds the keys to float8 e4m3 (a kernel that stages them too narrow)."""
+    import torch
+
+    from cullavo_tpu_torch.ops.flash_attention import NEG_INF
+
+    def attention(q, k, v):
+        if fault == "fp8_keys":
+            k = k.to(torch.float8_e4m3fn).to(q.dtype)
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+        i = torch.arange(q.shape[2], device=q.device)[:, None]
+        j = torch.arange(k.shape[2], device=q.device)[None, :]
+        keep = j <= i
+        if fault == "lost_key_tile":
+            keep = keep & (j // 128 != i // 128 - 1)
+        probs = torch.softmax(torch.where(keep, scores, torch.full_like(scores, NEG_INF)), dim=-1)
+        return torch.matmul(probs.to(q.dtype).float(), v.float()).to(q.dtype)
+    return attention
 
 
 # COCO panoptic's 133 categories: ids 1..200 with gaps in the real table;
@@ -3609,7 +3822,7 @@ def main(argv):
                            "cullavo_tpu/ops/nf4.py:1157"),
             "int8_linear": ("cullavo_tpu_torch/csrc/int8_matmul.cu",
                             "cullavo_tpu/ops/nf4.py:912"),
-            "wwin_decode": ("cullavo_tpu_torch/csrc/wwin_decode.cu",
+            "wwin_decode": ("cullavo_tpu_torch/csrc/wwin_decode_sm90.cu",
                             "cullavo_tpu/ops/wwin_decode.py:52"),
             "wwin_decode_q8": ("cullavo_tpu_torch/csrc/wwin_decode.cu",
                                "cullavo_tpu/ops/wwin_decode.py:104"),
@@ -3741,10 +3954,10 @@ def main(argv):
                 **{k: rec[name][k] for k in keys}}
                for name in wrappers]
     for k in kernels:
-        # the forward flash forms: the other forms' times on the same inputs,
-        # times in turns, host time per call, extra shapes, ptxas
+        # the other forms' times on the same inputs, times in turns, host
+        # time per call, extra shapes, ptxas
         for extra in ("k13_same_inputs_ms", "k1_same_inputs_ms", "times_in_turns", "host_us",
-                      "loop_shape", "prefill_shape", "ptxas"):
+                      "loop_shape", "prefill_shape", "ptxas", "zoo_shapes", "other_shapes"):
             if extra in rec[k["name"]]:
                 k[extra] = rec[k["name"]][extra]
         if k["name"] == "nf4_linear_q4":

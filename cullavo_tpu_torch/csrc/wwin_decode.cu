@@ -1,30 +1,29 @@
-// W-window decode attention over the stacked S-major KV cache: the cache
-// part of the stale-cache decode step (kernels K4, bf16 cache, and K5, int8
-// cache with bf16 scale planes).
+// W-window decode attention over the stacked S-major int8 KV cache with bf16
+// scale planes: the cache part of the stale-cache decode step (kernel K5).
+// K4, the bf16 cache's form, is csrc/wwin_decode_sm90.cu; K5 moves onto that
+// body once it stages codes and scale planes.
 //
-// Replaces: cullavo_tpu/ops/wwin_decode.py, _run_cache_part -> _cache_kernel
-// (K4) and _cache_kernel_q8 (K5).  For layer li, batch row b and kv head g,
-// the R = n_rep * W query rows that share the kv head (row r is head
-// g * n_rep + r / W, window position r % W) attend over all S cache slots:
-//     s[r, j]  = (q[r] . k[li, j, b, g]) * scale + bias[b, r % W, j]
-//     K5:        (q[r] . codes_k[li, j, b, g]) * (k_s[li, j, b, g] * scale) + bias
+// Replaces: cullavo_tpu/ops/wwin_decode.py, _run_cache_part_q8 ->
+// _cache_kernel_q8.  For layer li, batch row b and kv head g, the R = n_rep *
+// W query rows that share the kv head (row r is head g * n_rep + r / W,
+// window position r % W) attend over all S cache slots:
+//     s[r, j]  = (q[r] . codes_k[li, j, b, g]) * (k_s[li, j, b, g] * scale)
+//                + bias[b, r % W, j]
 //     m[r]     = max_j s[r, j]            (floor: the mask value NEG_INF)
 //     p[r, j]  = s[r, j] > NEG_INF / 2 ? exp(s[r, j] - m[r]) : 0
 //     l[r]     = sum_j p[r, j]
-//     acc[r]   = sum_j bf16(p[r, j]) v[li, j, b, g]      (f32 accumulation)
-//     K5:        sum_j bf16(p[r, j] * v_s[li, j, b, g]) codes_v[li, j, b, g]
+//     acc[r]   = sum_j bf16(p[r, j] * v_s[li, j, b, g]) codes_v[li, j, b, g]
 // and the kernel returns the UNNORMALISED acc with m and l; the caller merges
 // them with the W x W intra-window part and divides.  A masked slot is gated
 // to p = 0 (a wholly masked row would otherwise see exp(NEG_INF - NEG_INF)
 // = 1 per slot) and comes back as m = NEG_INF, l = 0, acc = 0.
 //
-// Bound on the H100: bytes.  One launch reads layer li's k and v once
-// (2 * S * B * KV * 128 values; 88 MB of bf16 or 44 MB of int8 at S = 768,
-// B = 14, KV = 32) for ~4 * B * KV * R * S * 128 operations, far below the
-// card's 295 operations per byte.  What the design does about it: the cache
+// Bound on the H100: bytes.  One launch reads layer li's codes and planes
+// once (44 MB of int8 at S = 768, B = 14, KV = 32) for ~4 * B * KV * R * S *
+// 128 operations, far below the card's 295 operations per byte.  The cache
 // is read in place through the layer index and its strides (no per-layer
-// slice, no copy, no f32 staging), every k/v byte is fetched once per block
-// with 16-byte loads, and scores and probabilities never leave the SM.
+// slice, no copy, no f32 staging), every byte is fetched once per block with
+// 16-byte loads, and scores and probabilities never leave the SM.
 // One block of 4 warps per (16-row query tile, kv head, batch row); a tile
 // of 64 slots is staged in padded shared memory (int8 codes are widened to
 // bf16 on the way, exactly), each warp takes 16 of the 64 slots and keeps its
@@ -81,42 +80,28 @@ __device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo, uint32_t& hi) {
 }
 
 // Stage cache slots [slot0, slot0 + BKV) of one (layer, batch row, kv head)
-// into shared memory as bf16 rows of LDS elements; slots past S load as zeros.
-template <bool Q8>
+// into shared memory as bf16 rows of LDS elements (int8 codes widened
+// exactly); slots past S load as zeros.
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const void* base,
                                           long long stride_s, int slot0, int S) {
-  if (Q8) {
-    const int8_t* src = static_cast<const int8_t*>(base);
+  const int8_t* src = static_cast<const int8_t*>(base);
 #pragma unroll
-    for (int i = 0; i < (BKV * D / 16) / THREADS; ++i) {
-      const int c = threadIdx.x + i * THREADS;
-      const int r = c >> 3, col = (c & 7) * 16;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (slot0 + r < S)
-        raw = *reinterpret_cast<const uint4*>(src + (slot0 + r) * stride_s + col);
-      uint4 a, b;
-      widen4(raw.x, a.x, a.y);
-      widen4(raw.y, a.z, a.w);
-      widen4(raw.z, b.x, b.y);
-      widen4(raw.w, b.z, b.w);
-      *reinterpret_cast<uint4*>(dst + r * LDS + col) = a;
-      *reinterpret_cast<uint4*>(dst + r * LDS + col + 8) = b;
-    }
-  } else {
-    const __nv_bfloat16* src = static_cast<const __nv_bfloat16*>(base);
-#pragma unroll
-    for (int i = 0; i < (BKV * D / 8) / THREADS; ++i) {
-      const int c = threadIdx.x + i * THREADS;
-      const int r = c >> 4, col = (c & 15) * 8;
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (slot0 + r < S)
-        raw = *reinterpret_cast<const uint4*>(src + (slot0 + r) * stride_s + col);
-      *reinterpret_cast<uint4*>(dst + r * LDS + col) = raw;
-    }
+  for (int i = 0; i < (BKV * D / 16) / THREADS; ++i) {
+    const int c = threadIdx.x + i * THREADS;
+    const int r = c >> 3, col = (c & 7) * 16;
+    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+    if (slot0 + r < S)
+      raw = *reinterpret_cast<const uint4*>(src + (slot0 + r) * stride_s + col);
+    uint4 a, b;
+    widen4(raw.x, a.x, a.y);
+    widen4(raw.y, a.z, a.w);
+    widen4(raw.z, b.x, b.y);
+    widen4(raw.w, b.z, b.w);
+    *reinterpret_cast<uint4*>(dst + r * LDS + col) = a;
+    *reinterpret_cast<uint4*>(dst + r * LDS + col + 8) = b;
   }
 }
 
-template <bool Q8>
 __global__ void __launch_bounds__(THREADS)
 wwin_decode_kernel(const __nv_bfloat16* __restrict__ q,
                    const void* __restrict__ kc, const void* __restrict__ vc,
@@ -131,8 +116,8 @@ wwin_decode_kernel(const __nv_bfloat16* __restrict__ q,
                    long long b_sb, long long b_sw, float scale) {
   // k and v tiles; reused as the merge buffer once the slot loop is over
   __shared__ __align__(16) unsigned char smem[2 * BKV * LDS * sizeof(__nv_bfloat16)];
-  __shared__ float ks_scale[BKV];   // K5: k_s * scale per slot of the tile
-  __shared__ float vs_scale[BKV];   // K5: v_s per slot of the tile
+  __shared__ float ks_scale[BKV];   // k_s * scale per slot of the tile
+  __shared__ float vs_scale[BKV];   // v_s per slot of the tile
   static_assert(sizeof(smem) >= (WARPS * ROWS * D + 2 * WARPS * ROWS) * sizeof(float),
                 "merge buffer must fit in the tile buffers");
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -171,18 +156,15 @@ wwin_decode_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
-  const int esz = Q8 ? 1 : 2;
-  const unsigned char* kbase =
-      static_cast<const unsigned char*>(kc) + (li * c_sl + b * c_sb + gh * c_sg) * esz;
-  const unsigned char* vbase =
-      static_cast<const unsigned char*>(vc) + (li * c_sl + b * c_sb + gh * c_sg) * esz;
+  const int8_t* kbase = static_cast<const int8_t*>(kc) + li * c_sl + b * c_sb + gh * c_sg;
+  const int8_t* vbase = static_cast<const int8_t*>(vc) + li * c_sl + b * c_sb + gh * c_sg;
   const long long pbase = li * p_sl + b * p_sb + gh * p_sg;
 
   for (int slot0 = 0; slot0 < S; slot0 += BKV) {
     __syncthreads();  // the previous tile's shared-memory reads are done
-    load_tile<Q8>(ks, kbase, c_ss, slot0, S);
-    load_tile<Q8>(vs, vbase, c_ss, slot0, S);
-    if (Q8) {
+    load_tile(ks, kbase, c_ss, slot0, S);
+    load_tile(vs, vbase, c_ss, slot0, S);
+    {
       const int j = threadIdx.x & (BKV - 1);
       const bool in = slot0 + j < S;
       if (threadIdx.x < BKV)
@@ -205,7 +187,7 @@ wwin_decode_kernel(const __nv_bfloat16* __restrict__ q,
         mma_bf16(s[nt], qf[kc8], ld32(kr + kc8 * 16), ld32(kr + kc8 * 16 + 8));
     }
 
-    // scale (K5: folded per-slot key scale), bias, row max
+    // per-slot key scale (folded with scale), bias, row max
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
@@ -216,8 +198,7 @@ wwin_decode_kernel(const __nv_bfloat16* __restrict__ q,
         const bool ok = (e < 2 ? ok0 : ok1) && slot < S;
         float val = kNegInf;
         if (ok) {
-          const float f = Q8 ? ks_scale[j] : scale;
-          val = s[nt][e] * f + (e < 2 ? bias0 : bias1)[slot];
+          val = s[nt][e] * ks_scale[j] + (e < 2 ? bias0 : bias1)[slot];
         }
         s[nt][e] = val;
       }
@@ -235,7 +216,7 @@ wwin_decode_kernel(const __nv_bfloat16* __restrict__ q,
     m1 = mn1;
 
     // P = exp(S - m) gated to 0 on masked slots (f32 row sums); the PV A
-    // operand is bf16(P) (K5: bf16(P * v_s))
+    // operand is bf16(P * v_s)
     float ls0 = 0.f, ls1 = 0.f;
     uint32_t pa[4];
 #pragma unroll
@@ -246,7 +227,7 @@ wwin_decode_kernel(const __nv_bfloat16* __restrict__ q,
         p[e] = s[nt][e] > kValidFloor ? expf(s[nt][e] - (e < 2 ? mn0 : mn1)) : 0.f;
       ls0 += p[0] + p[1];
       ls1 += p[2] + p[3];
-      if (Q8) {
+      {
         const int j = wj + nt * 8 + 2 * t4;
         const float v0 = vs_scale[j], v1 = vs_scale[j + 1];
         p[0] *= v0;
@@ -334,7 +315,6 @@ wwin_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <bool Q8>
 int launch(const void* q, const void* kc, const void* vc, const void* ksc,
            const void* vsc, const void* bias, void* acc, void* m, void* l,
            int li, int B, int KV, int n_rep, int W, int S, int d,
@@ -345,7 +325,7 @@ int launch(const void* q, const void* kc, const void* vc, const void* ksc,
   if (d != D || B < 1 || KV < 1 || n_rep < 1 || W < 1 || S < 1 || KV > 65535 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n_rep * W + ROWS - 1) / ROWS, KV, B);
-  wwin_decode_kernel<Q8><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  wwin_decode_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), kc, vc,
       static_cast<const __nv_bfloat16*>(ksc), static_cast<const __nv_bfloat16*>(vsc),
       static_cast<const float*>(bias), static_cast<float*>(acc),
@@ -357,18 +337,6 @@ int launch(const void* q, const void* kc, const void* vc, const void* ksc,
 
 }  // namespace
 
-// K4: bf16 cache kc/vc [L, S, B, KV, 128] (strides c_* in elements).
-extern "C" int cullavo_wwin_decode(
-    const void* q, const void* kc, const void* vc, const void* bias, void* acc,
-    void* m, void* l, int li, int B, int KV, int n_rep, int W, int S, int d,
-    long long q_sb, long long q_sh, long long q_sw,
-    long long c_sl, long long c_ss, long long c_sb, long long c_sg,
-    long long b_sb, long long b_sw, float scale, void* stream) {
-  return launch<false>(q, kc, vc, nullptr, nullptr, bias, acc, m, l, li, B, KV,
-                       n_rep, W, S, d, q_sb, q_sh, q_sw, c_sl, c_ss, c_sb, c_sg,
-                       0, 0, 0, 0, b_sb, b_sw, scale, stream);
-}
-
 // K5: int8 codes kc/vc [L, S, B, KV, 128] and bf16 scale planes ksc/vsc
 // [L, S, B, KV] (strides p_*).
 extern "C" int cullavo_wwin_decode_q8(
@@ -379,7 +347,6 @@ extern "C" int cullavo_wwin_decode_q8(
     long long c_sl, long long c_ss, long long c_sb, long long c_sg,
     long long p_sl, long long p_ss, long long p_sb, long long p_sg,
     long long b_sb, long long b_sw, float scale, void* stream) {
-  return launch<true>(q, kc, vc, ksc, vsc, bias, acc, m, l, li, B, KV, n_rep, W,
-                      S, d, q_sb, q_sh, q_sw, c_sl, c_ss, c_sb, c_sg, p_sl, p_ss,
-                      p_sb, p_sg, b_sb, b_sw, scale, stream);
+  return launch(q, kc, vc, ksc, vsc, bias, acc, m, l, li, B, KV, n_rep, W, S, d, q_sb, q_sh,
+                q_sw, c_sl, c_ss, c_sb, c_sg, p_sl, p_ss, p_sb, p_sg, b_sb, b_sw, scale, stream);
 }

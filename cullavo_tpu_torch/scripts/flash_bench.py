@@ -1,26 +1,38 @@
-"""Times the forward flash kernels (K1, K1-lse, K8, K13) at the shapes of
-their main paths on one CUDA card, so that two checkouts of the port can be
-compared on the same card and the same inputs.
+"""Times the forward flash kernels (K1, K1-lse, K8, K13) and the decode
+attention kernels (K12, K4) at the shapes of their main paths on one CUDA
+card, so that two checkouts of the port can be compared on the same card
+and the same inputs.
 
     python3 cullavo_tpu_torch/scripts/flash_bench.py [--root DIR] [--rounds N]
+                                                      [--forms all|flash|decode]
 
 ``--root`` names the checkout whose ``cullavo_tpu_torch`` is imported
 (default: the one holding this file): one copy of this script times an
 older checkout's kernels through the entry points both share
-(``flash_attention``, ``_flash_cuda``, ``flash_attention_packed``).  Run
-it once per checkout in turns (older, newer, newer, older) and compare
-within one machine.  The inputs are drawn from a seeded generator on the
-card, so every run sees the same bytes.  Each form is timed as the median
-of 20 launches between CUDA events, the 50 MB L2 flushed and the card kept
-busy ~0.5 ms ahead of each launch, so that the events time the card and not
-the wrapper's host work; the forms take turns, ``--rounds`` times.
+(``flash_attention``, ``_flash_cuda``, ``flash_attention_packed``,
+``decode_partials``, ``wwin_decode._run_cache_part``).  Run it once per
+checkout in turns (older, newer, newer, older) and compare within one
+machine.  The inputs are drawn from a seeded generator on the card, so
+every run sees the same bytes.  Each form is timed as the median of 20
+launches between CUDA events, the 50 MB L2 flushed and the card kept busy
+~0.5 ms ahead of each launch, so that the events time the card and not the
+wrapper's host work.  The host's microseconds per call (checks, allocation,
+launch) are measured apart, as the least of five means over 100 calls
+queued without a sync.  The forms take turns, ``--rounds`` times.
 
 Shapes (``PERF.md`` §6): K1 at the greedy prefill [7, 32, 648, 128]; K1-lse
 at the train step [8, 32, 1024, 128]; K8 with its lse at the attention
 probe [6, 32, 648, 128] (positions, 7 right-padded keys, causal); K13 at
-[8, 1024, 32*128] and [7, 648, 32*128].  Prints the card's name and power
+[8, 1024, 32*128] and [7, 648, 32*128].  K12 at the LLaMA-7B decode shape
+[14, 32, 768, 128] bf16 (every key valid) and at the VL zoo's f32 decode
+shapes, T5-XL [5, 32, 11, 64] (unscaled, a per-head bias) and KOSMOS-2 [1,
+32, 130, 64], each over one layer of a stacked [24, B, 32, S, 64] cache; K4
+at the greedy step (W = 1 over a 664-slot view of a 768-slot stacked cache,
+batch 14, 32 kv heads, per-row valid lengths), the speculative window (W =
+4, S = 768) and the serving engine's suffix prefills (W = 32, 64, 128 over
+a dense 4-row copy of a 608-slot prefix).  Prints the card's name and power
 limit, then one JSON line: ``{"root", "device", "power_limit", "ms": {form:
-[median per round]}}``.
+[median per round]}, "host_us": {form: [least per round]}}``.
 """
 from __future__ import annotations
 
@@ -30,6 +42,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 LEAD_CYCLES = 1_000_000
@@ -52,7 +65,23 @@ def _bench_ms(torch, fn, device, reps=20):
     return statistics.median(times)
 
 
-def _forms(torch, fa, device):
+def _host_us(torch, fn, device, n=100, rounds=5):
+    """The least of ``rounds`` means over ``n`` calls queued without a sync:
+    the host's own cost per call, with the machine's other load least in
+    the way."""
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize(device)
+        best = min(best, (t1 - t0) / n * 1e6)
+    return best
+
+
+def _flash_forms(torch, fa, device):
     """name -> a call of one forward form on its inputs (made here, once)."""
     g = torch.Generator(device=device).manual_seed(0)
     bf, H, d = torch.bfloat16, 32, 128
@@ -78,11 +107,59 @@ def _forms(torch, fa, device):
             "K13 [7,648,32*128]": lambda: fa.flash_attention_packed(*k13_prefill, H)}
 
 
+def _decode_forms(torch, fa, ww, device):
+    """name -> a call of K12 or K4 on its inputs (made here, once)."""
+    g = torch.Generator(device=device).manual_seed(0)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rnd(*shape, dtype=f32):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    forms = {}
+    # K12, the 7B shape: q [14, 32, 1, 128], caches [14, 32, 768, 128], every key valid
+    q7, k7, v7 = (rnd(*s, dtype=bf) for s in ((14, 32, 1, 128), (14, 32, 768, 128),
+                                                (14, 32, 768, 128)))
+    b7 = torch.zeros((14, 1, 768), device=device)
+    forms["K12 [14,32,768,128] bf16"] = lambda: fa.decode_partials(q7, k7, v7, b7, 128 ** -0.5)
+    # K12, the zoo: one layer of a stacked f32 cache [24, B, 32, S, 64]
+    for name, B, S, scale in (("T5-XL [5,32,11,64] f32", 5, 11, 1.0),
+                              ("KOSMOS-2 [1,32,130,64] f32", 1, 130, 64 ** -0.5)):
+        kc, vc = rnd(24, B, 32, S, 64), rnd(24, B, 32, S, 64)
+        q = rnd(B, 32, 1, 64)
+        written = torch.arange(S, device=device) < S - 3
+        bias = torch.where(written, 0.0, -1e9)[None, None, :]
+        if scale == 1.0:   # T5: a per-head relative bias over the cache
+            bias = rnd(1, 32, S) + bias
+        forms[f"K12 {name}"] = (
+            lambda a=(q, kc[11], vc[11], bias, scale): fa.decode_partials(*a))
+    # K4: a stacked bf16 cache [2, 768, 14, 32, 128], layer 1
+    L, S_full, B, KV, hd = 2, 768, 14, 32, 128
+    kc, vc = rnd(L, S_full, B, KV, hd, dtype=bf), rnd(L, S_full, B, KV, hd, dtype=bf)
+    n_valid = torch.randint(640, 664, (B,), generator=g, device=device)
+    for W, S in ((1, 664), (4, 768)):
+        q = rnd(B, W, KV, hd, dtype=bf).transpose(1, 2)
+        ok = torch.arange(S, device=device)[None, :] < n_valid[:, None]
+        bias = torch.where(ok, 0.0, ww.NEG_INF)[:, None, :].expand(B, W, S).contiguous()
+        caches = (kc[:, :S], vc[:, :S])   # S = 664: a strided view
+        forms[f"K4 W={W} S={S} B={B}"] = (
+            lambda a=(q, *caches, 1, bias, 1, hd ** -0.5): ww._run_cache_part(*a))
+    # K4: the suffix prefills over a dense 4-row copy of a 608-slot prefix
+    ks, vs = (t[:, :, :4].contiguous() for t in (kc, vc))
+    ok = torch.arange(S_full, device=device) < 608
+    for W in (32, 64, 128):
+        q = rnd(4, W, KV, hd, dtype=bf).transpose(1, 2)
+        bias = torch.where(ok, 0.0, ww.NEG_INF)[None, None, :].expand(4, W, S_full).contiguous()
+        forms[f"K4 W={W} S={S_full} B=4 suffix"] = (
+            lambda a=(q, ks, vs, 1, bias, 1, hd ** -0.5): ww._run_cache_part(*a))
+    return forms
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)),
                     help="the checkout whose cullavo_tpu_torch is timed")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--forms", choices=("all", "flash", "decode"), default="all")
     args = ap.parse_args(argv)
     import torch
 
@@ -91,20 +168,29 @@ def main(argv=None):
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     from cullavo_tpu_torch.ops import flash_attention as fa
+    from cullavo_tpu_torch.ops import wwin_decode as ww
 
-    if not os.path.abspath(fa.__file__).startswith(root + os.sep):
-        raise SystemExit(f"flash_bench: imported {fa.__file__}, not from {root}")
+    for mod in (fa, ww):
+        if not os.path.abspath(mod.__file__).startswith(root + os.sep):
+            raise SystemExit(f"flash_bench: imported {mod.__file__}, not from {root}")
     device = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout
     name, limit = (x.strip() for x in smi.splitlines()[0].split(","))
     print(smi.splitlines()[0], flush=True)
-    forms = _forms(torch, fa, device)
+    forms = {}
+    if args.forms in ("all", "flash"):
+        forms.update(_flash_forms(torch, fa, device))
+    if args.forms in ("all", "decode"):
+        forms.update(_decode_forms(torch, fa, ww, device))
     ms = {n: [] for n in forms}
+    host = {n: [] for n in forms}
     for _ in range(args.rounds):
         for n, fn in forms.items():
             ms[n].append(round(_bench_ms(torch, fn, device), 4))
-    print(json.dumps({"root": root, "device": name, "power_limit": limit, "ms": ms}), flush=True)
+            host[n].append(round(_host_us(torch, fn, device), 1))
+    print(json.dumps({"root": root, "device": name, "power_limit": limit, "ms": ms,
+                      "host_us": host}), flush=True)
 
 
 if __name__ == "__main__":

@@ -48,7 +48,17 @@ def _decode_case(B, H, KV, S, d, positions, valid_len, seed):
     (3, 4, 4, 100, 64, [99, 50, 7], [100, 60, 8]),   # S not a multiple of 128, valid keys
     (2, 4, 2, 128, 16, [-1, 60], [128, 61]),         # row 0 wholly masked (mean of v)
     (2, 4, 1, 300, 32, [299, 150], [280, 151]),      # one kv head for all, padding at 280
-], ids=["gqa", "ragged_s", "masked_row", "mqa_padded"])
+    # the edges of K12's lane-group body (csrc/decode_rows.cuh): S below one
+    # 16-key stage at d = 8 with 3 heads per kv head (a block of 4 rows, one
+    # absent); d = 80 (BLIP-2 OPT; idle lanes in each key's lane group) over
+    # 1000 keys with 8 heads per kv head (two blocks of 4); the last stages
+    # wholly masked for one row at d = 128; a single key
+    (1, 24, 8, 5, 8, [4], [5]),
+    (1, 16, 2, 1000, 80, [999], [1000]),
+    (2, 4, 4, 300, 128, [299, 100], [300, 40]),
+    (1, 6, 3, 1, 16, [0], [1]),
+], ids=["gqa", "ragged_s", "masked_row", "mqa_padded", "below_one_stage_d8_gqa3",
+        "long_d80_gqa8", "masked_tail_d128", "one_key"])
 def test_flash_decode_matches_jax(B, H, KV, S, d, positions, valid_len):
     q, k, v, pos, valid = _decode_case(B, H, KV, S, d, positions, valid_len, seed=S + d)
     ref = np.asarray(j_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -70,6 +80,23 @@ def test_flash_decode_matches_jax_in_bf16():
     tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
     got = fa.flash_decode(tq, tk, tv, torch.from_numpy(pos), torch.from_numpy(valid))
     assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), ref, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("H,KV,S,d", [(12, 4, 37, 64), (8, 8, 300, 80), (8, 4, 129, 128)],
+                         ids=["gqa3_d64", "d80", "gqa2_d128"])
+def test_flash_decode_matches_jax_in_bf16_at_the_kernel_edges(H, KV, S, d):
+    """bf16 at the lane-group body's other widths: 8 lanes per key (d = 64,
+    3 heads per kv head), 16 lanes with 6 idle (d = 80), two heads per
+    block (d = 128); S ragged against both packages' tiles."""
+    q, k, v, pos, valid = _decode_case(2, H, KV, S, d, [S - 1, S // 2], [S, S // 2 + 3],
+                                       seed=S + d)
+    as_bf16 = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    ref = np.asarray(j_flash_decode(*as_bf16, jnp.asarray(pos), jnp.asarray(valid))
+                     .astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    got = fa.flash_decode(tq, tk, tv, torch.from_numpy(pos), torch.from_numpy(valid))
+    assert got.dtype == torch.bfloat16 and got.shape == (2, H, 1, d)
     np.testing.assert_allclose(got.float().numpy(), ref, atol=1e-2, rtol=1e-2)
 
 

@@ -1256,6 +1256,75 @@ def test_cuda_flash_decode_masked_rows_and_refusals(cuda_device):
         fa.decode_partials(q, k[:, :, :, :64], v, bias, 1.0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,H,KV,S,d", [
+    (torch.bfloat16, 1, 32, 32, 4096, 128), (torch.bfloat16, 1, 32, 8, 4096, 128),
+    (torch.float32, 1, 32, 32, 2048, 64), (torch.bfloat16, 1, 32, 4, 100, 64),
+    (torch.bfloat16, 2, 24, 8, 5, 80), (torch.float32, 3, 6, 6, 1, 8)],
+    ids=["long", "long_gqa", "long_f32", "gqa8_short", "below_one_stage_d80_gqa3", "one_key_d8"])
+def test_cuda_decode_partials_edges_match_plain(cuda_device, dtype, B, H, KV, S, d):
+    """K12's lane-group body at its edges against its plain version: one
+    block walking 4096 keys at batch 1 (a third of them at -inf for half
+    the heads and at the finite mask for the rest), GQA of 4 and 8 heads per
+    kv head (two blocks of 4), f32, S below one 16-key stage with 3 heads
+    per kv head at d = 80, a single key at d = 8; a second launch
+    bit-equal."""
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    scale = d ** -0.5
+    g = torch.Generator(device=cuda_device).manual_seed(S + d)
+    q = torch.randn((B, H, 1, d), generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn((B, KV, S, d), generator=g, device=cuda_device).to(dtype)
+            for _ in range(2))
+    bias = torch.randn((B, H, S), generator=g, device=cuda_device)
+    if S >= 100:
+        bias[:, : H // 2, S // 3:2 * S // 3] = -torch.inf
+        bias[:, H // 2:, S // 3:2 * S // 3] = fa.NEG_INF
+    n0 = fa.decode_partials.launches
+    o, m, l = fa.decode_partials(q, k, v, bias, scale)
+    again = fa.decode_partials(q, k, v, bias, scale)
+    assert fa.decode_partials.launches == n0 + 2
+    ro, rm, rl = fa._decode_partials_plain(q, k, v, bias, scale)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert torch.allclose(o, ro, atol=tol, rtol=tol), (o - ro).abs().max().item()
+    assert torch.allclose(m, rm, atol=1e-4, rtol=1e-5)
+    assert torch.allclose(l, rl, atol=0, rtol=1e-5)
+    assert all(torch.equal(a, b) for a, b in zip((o, m, l), again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,n_rep,S,B", [
+    (1, 1, 4096, 1), (8, 1, 4096, 1), (8, 1, 40, 1), (1, 1, 700, 3), (4, 1, 777, 3),
+    (1, 4, 664, 3), (64, 2, 300, 2), (128, 1, 1000, 1)],
+    ids=["long_greedy", "long_mma", "below_one_stage", "ragged_greedy", "ragged_window",
+         "gqa", "wide_gqa", "widest"])
+def test_cuda_wwin_decode_edges_match_plain(cuda_device, W, n_rep, S, B):
+    """K4's two bodies at their edges against the plain version: one block
+    walking 4096 slots at batch 1, S below one 64-slot stage, S ragged
+    against both bodies' stages, GQA (n_rep = 4), the suffix widths with
+    two and one row blocks; two whole 64-slot stages masked where S allows,
+    the last 3 slots masked too; a second launch bit-equal."""
+    from cullavo_tpu_torch.ops import wwin_decode as ww
+
+    H, hd, scale = 32, 128, 128 ** -0.5
+    KV = H // n_rep
+    g = torch.Generator(device=cuda_device).manual_seed(S + W)
+    kc, vc = (torch.randn((2, S, B, KV, hd), generator=g, device=cuda_device).to(torch.bfloat16)
+              for _ in range(2))
+    q = torch.randn((B, W, H, hd), generator=g, device=cuda_device).to(torch.bfloat16)
+    q = q.transpose(1, 2)
+    bias = torch.zeros((B, W, S), device=cuda_device)
+    bias[:, :, S - 3:] = ww.NEG_INF
+    if S >= 256:
+        bias[:, :, 64:192] = ww.NEG_INF
+    n0 = ww.wwin_decode_smajor.launches
+    got = ww._run_cache_part(q, kc, vc, 1, bias, n_rep, scale)
+    again = ww._run_cache_part(q, kc, vc, 1, bias, n_rep, scale)
+    assert ww.wwin_decode_smajor.launches == n0 + 2
+    _assert_partials_close(got, ww._cache_part_plain(q, kc, vc, 1, bias, n_rep, scale))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 def _packed_case(dev, B, T, S, H, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     return (torch.randn((B, T, H * 128), generator=g, device=dev).to(torch.bfloat16),

@@ -156,6 +156,28 @@ def test_wwin_bf16_cache_matches_jax_pallas(W, n_rep):
         np.testing.assert_allclose(out.numpy(), own.numpy(), **TOL, err_msg=f"li={li}")
 
 
+@pytest.mark.parametrize("W,n_rep,S", [(32, 1, 256), (64, 2, 256), (128, 1, 128), (1, 1, 40),
+                                       (8, 1, 200), (1, 4, 200)],
+                         ids=["two_row_tiles", "wide_gqa", "widest", "below_one_stage",
+                              "ragged_s", "greedy_gqa"])
+def test_wwin_bf16_cache_at_the_kernel_edges_matches_jax_pallas(W, n_rep, S):
+    """The shapes that reach K4's other bodies and edges
+    (``csrc/wwin_decode_sm90.cu``): the suffix prefills' wide windows (R =
+    32 and 128 rows on the mma body's 2- and 4-tile blocks, W = 128 its
+    widest), S below one 64-slot stage, a ragged S, GQA at W = 1; the port
+    against the JAX function through its Pallas kernel (interpret mode, one
+    block of S where S is not a multiple of 128)."""
+    kc, vc, q, k_cur, v_cur, bias = _setup(W, n_rep=n_rep, S=S, L=2, seed=W + S)
+    block_s = 128 if S % 128 == 0 else S
+    ref = jw.wwin_decode_smajor(*map(jnp.asarray, (q, kc, vc)), 1,
+                                *map(jnp.asarray, (k_cur, v_cur, bias)), n_rep=n_rep,
+                                block_s=block_s)
+    out = tw.wwin_decode_smajor(_t(q), _t(kc), _t(vc), 1, _t(k_cur), _t(v_cur), _t(bias),
+                                n_rep=n_rep)
+    assert out.shape == (2, n_rep * 2, W, 128)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
 def test_wwin_fully_masked_cache_row_matches_jax_pallas():
     """A row whose cache is wholly invalid takes everything from the self
     window (a masked block must not count exp(0) = 1 per slot), and the
