@@ -9,9 +9,11 @@
 Phases (each raises on failure, and the script exits non-zero):
   1. print the card's name and power limit (nvidia-smi); disable TF32.
   2. build the port's CUDA kernels from ``cullavo_tpu_torch/csrc``; print
-     the ptxas report of every instantiation of the forward flash kernel
-     (K1 / K13, K1-lse, K8, K8-lse: registers, spills, wgmma warnings) and
-     raise if one spills.
+     the ptxas report of every instantiation of the Hopper templates (the
+     forward flash kernel: K1 / K13, K1-lse, K8, K8-lse; the fused NF4
+     dequant-matmul: K6 and K11 at token tiles 16, 32, 64 and 1, 2, 4
+     blocks per CTA: registers,
+     spills, wgmma warnings) and raise if one is missing or spills.
   3. compare each kernel with its plain PyTorch version on the card.  First
      K1 and K1-lse, the causal flash forward on TMA and wgmma
      (``csrc/flash_fwd_sm90.cu``): at T = 1, 64, 127, 128, 129 and 200 on
@@ -35,9 +37,10 @@ Phases (each raises on failure, and the script exits non-zero):
      masked range of 500 slots, S = 40, GQA); K4 and its library yardstick
      timed in turns, the card kept busy ahead of each timed call.  Then the planar
      NF4 kernels at the three 7B weight shapes: K7 (dequant to dense bf16)
-     bit-equal to its plain version, K6 (fused dequant-matmul) at M = 1, 14,
-     64, 256 and 511 within 1e-2 + 1e-2 |ref|, timed at the serving decode
-     M = 64 beside the dense bf16 matmul.  Then the training kernels: K8
+     bit-equal to its plain version, K6 (fused dequant-matmul, the Hopper
+     template of csrc/nf4_gemv_sm90.cu) at M = 1, 14, 64, 256 and 511
+     within 1e-2 + 1e-2 |ref|, timed at the serving decode M = 64 beside
+     the dense bf16 matmul, the card kept busy ahead of each timed call.  Then the training kernels: K8
      (the masked flash forward with explicit positions and
      key validity, on K1's kernel) at the probe shape [6, 32, 648, 128] with
      right padding, with left padding (wholly masked rows: the mean of v),
@@ -58,11 +61,12 @@ Phases (each raises on failure, and the script exits non-zero):
      the reference's composition; K10: the cuDNN depthwise ``conv2d``
      chain in bf16, the model's own), K10 summed over one forward.  Then
      K11, the byte-packed NF4 kernel, at the three 7B weight shapes: its
-     dequant entry bit-equal to ``dequant_linear``, its fused entry at M = 1,
-     14, 64, 256 and 511 within 1e-2 + 1e-2 |ref| of the f32 plain version,
-     and as row 8 (an NF4Tensor with its absmax decoded on the card) against
-     ``dequantize_nf4`` + the product; timed at M = 14 and 64 beside the
-     bound and the dense bf16 matmul on the dequantized weight.  Then K12,
+     dequant entry bit-equal to ``dequant_linear``, its fused entry (the
+     same template as K6) at M = 1, 14, 64, 129 and 511 within 1e-2 + 1e-2
+     |ref| of the f32 plain version, and as row 8 (an NF4Tensor with its
+     absmax decoded on the card) against ``dequantize_nf4`` + the product;
+     timed at M = 14 and 64 beside the bound and the dense bf16 matmul on
+     the dequantized weight, the card kept busy ahead of each timed call.  Then K12,
      the one-token decode attention, through ``flash_decode`` at the 7B
      decode shape [14, 32, 768, 128] bf16 (KV = 32 and 8, S = 700, a wholly
      masked row) and through ``sdpa_decode_stale`` at the T5-XL and
@@ -469,25 +473,34 @@ def check_kernels(device):
 
 # flash_fwd_sm90_kernel<kLse, kMasked>: each instantiation by its mangled
 # template arguments, and the kernel-line names of the forms it serves
-SM90_FORMS = {"ILb0ELb0E": ("K1 / K13", ("flash_fwd", "flash_packed")),
-              "ILb1ELb0E": ("K1-lse", ("flash_fwd_lse",)),
-              "ILb0ELb1E": ("K8", ("flash_rows",)),
-              "ILb1ELb1E": ("K8-lse", ("flash_rows",))}
+# the Hopper templates' instantiations: mangled-name key -> (label, the
+# records they serve, source)
+_FLASH_SRC, _GEMV_SRC = "csrc/flash_fwd_sm90.cu", "csrc/nf4_gemv_sm90.cu"
+SM90_FORMS = {"flash_fwd_sm90_kernelILb0ELb0E": ("K1 / K13", ("flash_fwd", "flash_packed"),
+                                                 _FLASH_SRC),
+              "flash_fwd_sm90_kernelILb1ELb0E": ("K1-lse", ("flash_fwd_lse",), _FLASH_SRC),
+              "flash_fwd_sm90_kernelILb0ELb1E": ("K8", ("flash_rows",), _FLASH_SRC),
+              "flash_fwd_sm90_kernelILb1ELb1E": ("K8-lse", ("flash_rows",), _FLASH_SRC),
+              **{f"nf4_gemv_kernelILi{f}ELi{nt}ELi{g}E": (f"{k} NT={nt} G={g}", (rec,), _GEMV_SRC)
+                 for f, k, rec in ((0, "K6", "nf4_linear_planar"), (1, "K11", "nf4_linear_q4"))
+                 for nt in (16, 32, 64) for g in (1, 2, 4)}}
 
 
 def sm90_report():
-    """The ptxas report of every instantiation of the forward flash kernel
-    (csrc/flash_fwd_sm90.cu: K1 / K13, K1-lse, K8, K8-lse): registers, spill
-    stores and loads, and any wgmma serialization warning (C7515), from this
-    process's build; keyed by ``SM90_FORMS``'s labels."""
+    """The ptxas report of every instantiation of the Hopper templates (the
+    forward flash kernel, csrc/flash_fwd_sm90.cu: K1 / K13, K1-lse, K8,
+    K8-lse; the fused NF4 dequant-matmul, csrc/nf4_gemv_sm90.cu: K6 and K11
+    at each token tile): registers, spill stores and loads, and any wgmma
+    serialization warning (C7515), from this process's build; keyed by
+    ``SM90_FORMS``'s labels."""
     from cullavo_tpu_torch import _build
 
     rows, name = {}, None
     for line in _build.build_info.get("ptxas", "").splitlines():
         if "Compiling entry" in line:
-            name = None
-            if "flash_fwd_sm90_kernel" in line:
-                name = next(label for key, (label, _) in SM90_FORMS.items() if key in line)
+            name = next((label for key, (label, _, _) in SM90_FORMS.items() if key in line),
+                        None)
+            if name:
                 rows[name] = {"warnings": []}
         elif name and "spill stores" in line:
             nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
@@ -1042,10 +1055,10 @@ def check_nf4_kernels(device, g):
             k6["err"] = max(k6["err"], err)
             if M != SERVE_DECODE_M:
                 continue
-            ms = bench_ms(lambda: nf4.nf4_linear_planar(x, q), device)
+            ms = bench_ms(lambda: nf4.nf4_linear_planar(x, q), device, lead_cycles=1_000_000)
             plain = bench_ms(lambda: nf4._nf4_linear_planar_plain(x, q), device, reps=5)
             # a yardstick only: the dense bf16 product reads 3.6x the bytes
-            dense_ms = bench_ms(lambda: x @ dense, device)
+            dense_ms = bench_ms(lambda: x @ dense, device, lead_cycles=1_000_000)
             log(f"K6 M={M} K={K} N={N}: kernel {ms:.4f} ms, plain {plain:.4f} ms, dense bf16 "
                 f"torch.matmul on the dequantized weight {dense_ms:.4f} ms, 4-bit weight "
                 f"bytes {nbytes(q['q4p'], q['scale']) / 1e6:.1f} MB")
@@ -1069,7 +1082,7 @@ def check_nf4_kernels(device, g):
 def check_q4_kernels(device, g):
     """Phase 3, K11: the byte-packed NF4 kernel against its plain versions at
     the three 7B weight shapes.  The dequant entry bit for bit against
-    ``dequant_linear``; the fused entry at M = 1, 14, 64, 256, 511 within
+    ``dequant_linear``; the fused entry at M = 1, 14, 64, 129, 511 within
     1e-2 + 1e-2 |ref| of the f32 plain version (the kernel takes the f32
     weight as two bf16 terms, 2^-17 relative, and sums in another order;
     both sides round once to bf16, so they differ by one ulp); row 8's
@@ -1107,7 +1120,7 @@ def check_q4_kernels(device, g):
             rec["nf4_dequant_q4"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, library_ms=None,
                                          **bd, shape=f"q4 [{K},{N // 2}] uint8 + scale "
                                                      f"[{K},{N // 64}] f32 -> [{K},{N}] bf16")
-        for M in (1, BATCH, 64, 256, 511):
+        for M in (1, BATCH, 64, 129, 511):
             x = torch.randn((M, K), generator=g, device=device).to(bf)
             y = nf4.nf4_linear_q4(x, q, K)
             ref = nf4._nf4_linear_q4_plain(x, q, K, N)
@@ -1122,9 +1135,9 @@ def check_q4_kernels(device, g):
             err = max(err, diff.max().item())
             if M not in timed:
                 continue
-            ms = bench_ms(lambda: nf4.nf4_linear_q4(x, q, K), device)
+            ms = bench_ms(lambda: nf4.nf4_linear_q4(x, q, K), device, lead_cycles=1_000_000)
             plain = bench_ms(lambda: nf4._nf4_linear_q4_plain(x, q, K, N), device, reps=5)
-            dense_ms = bench_ms(lambda: x @ dense, device)
+            dense_ms = bench_ms(lambda: x @ dense, device, lead_cycles=1_000_000)
             log(f"K11 M={M} K={K} N={N}: kernel {ms:.4f} ms, plain {plain:.4f} ms, dense bf16 "
                 f"torch.matmul on the dequantized weight {dense_ms:.4f} ms")
             t = timed[M]
@@ -1144,10 +1157,12 @@ def check_q4_kernels(device, g):
         if not (torch.isfinite(y8).all() and excess <= 0):
             raise RuntimeError(f"row 8 through K11 disagrees with dequantize_nf4 at K={K} N={N}")
         row8["err"] = max(row8["err"], d8.max().item())
-        row8["ms"] += bench_ms(lambda: nf4.nf4_matmul_fused(x, t8), device)
+        row8["ms"] += bench_ms(lambda: nf4.nf4_matmul_fused(x, t8), device,
+                               lead_cycles=1_000_000)
         absmax8 = nf4._decode_absmax(t8)
         row8["k11"] += bench_ms(lambda: nf4._nf4_q4_cuda("nf4_matmul_fused", x, t8.packed,
-                                                          absmax8, K, N), device)
+                                                          absmax8, K, N), device,
+                                lead_cycles=1_000_000)
         row8["plain"] += bench_ms(
             lambda: (x.float() @ nf4.dequantize_nf4(t8, torch.float32)).to(bf), device, reps=5)
         row8["n_bytes"] += nbytes(x, t8.packed, t8.absmax, t8.absmax_scale, t8.absmax_offset, y8)
@@ -3788,8 +3803,9 @@ def main(argv):
         if "registers" in line or "Compiling entry" in line:
             log("  ptxas:", line.strip())
     sm90 = sm90_report()
+    sources = {label: src for label, _, src in SM90_FORMS.values()}
     for name, row in sm90.items():
-        log(f"forward flash kernel, {name} (csrc/flash_fwd_sm90.cu): {row.get('registers')} "
+        log(f"Hopper kernel {name} ({sources[name]}): {row.get('registers')} "
             f"registers, {row.get('spill_store_bytes')} bytes spill stores, "
             f"{row.get('spill_load_bytes')} bytes spill loads, {row.get('stack_bytes')} bytes "
             f"stack; wgmma warnings: {row['warnings'] or 'none'}")
@@ -3797,11 +3813,11 @@ def main(argv):
             len(sm90) != len(SM90_FORMS)
             or any(row.get("spill_store_bytes") or row.get("spill_load_bytes")
                    for row in sm90.values())):
-        raise RuntimeError(f"forward flash kernel: an instantiation is missing or spills: {sm90}")
+        raise RuntimeError(f"Hopper kernels: an instantiation is missing or spills: {sm90}")
 
     # phase 3
     rec = check_kernels(device)
-    for key, (label, forms) in SM90_FORMS.items():   # each instantiation's report
+    for key, (label, forms, _) in SM90_FORMS.items():   # each instantiation's report
         for form in forms:
             if label in sm90:
                 rec[form].setdefault("ptxas", {})[label] = sm90[label]
@@ -3826,7 +3842,7 @@ def main(argv):
                             "cullavo_tpu/ops/wwin_decode.py:52"),
             "wwin_decode_q8": ("cullavo_tpu_torch/csrc/wwin_decode.cu",
                                "cullavo_tpu/ops/wwin_decode.py:104"),
-            "nf4_linear_planar": ("cullavo_tpu_torch/csrc/nf4_planar.cu",
+            "nf4_linear_planar": ("cullavo_tpu_torch/csrc/nf4_gemv_sm90.cu",
                                   "cullavo_tpu/ops/nf4.py:627"),
             "nf4_dequant_planar": ("cullavo_tpu_torch/csrc/nf4_planar.cu",
                                    "cullavo_tpu/ops/nf4.py:729"),
@@ -3841,7 +3857,7 @@ def main(argv):
             # K11 replaces row 9 and, fed the decoded absmax, row 8
             # (cullavo_tpu/ops/nf4.py:222, nf4_matmul_fused); its dequant
             # entry serves row 9's prefill M
-            "nf4_linear_q4": ("cullavo_tpu_torch/csrc/nf4_q4.cu",
+            "nf4_linear_q4": ("cullavo_tpu_torch/csrc/nf4_gemv_sm90.cu",
                               "cullavo_tpu/ops/nf4.py:464"),
             "nf4_dequant_q4": ("cullavo_tpu_torch/csrc/nf4_q4.cu",
                                "cullavo_tpu/ops/nf4.py:464"),

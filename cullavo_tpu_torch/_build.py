@@ -44,9 +44,11 @@ SIGNATURES = {
     "cullavo_int8_linear": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cullavo_wwin_decode": [_P] * 7 + [_I] * 7 + [_L] * 9 + [_F, _P],
     "cullavo_wwin_decode_q8": [_P] * 9 + [_I] * 7 + [_L] * 13 + [_F, _P],
-    "cullavo_nf4_linear_planar": [_P] * 5 + [_I] * 4 + [_P],
+    # K6 / K11: x, weight, scale, out, split-K workspace and counters, M, K,
+    # N (K6: x's plane stride) and the plan (nt, g, splits)
+    "cullavo_nf4_gemv_planar": [_P] * 6 + [_I] * 7 + [_P],
+    "cullavo_nf4_gemv_q4": [_P] * 6 + [_I] * 6 + [_P],
     "cullavo_nf4_dequant_planar": [_P] * 3 + [_I] * 2 + [_P],
-    "cullavo_nf4_linear_q4": [_P] * 5 + [_I] * 4 + [_P],
     "cullavo_nf4_dequant_q4": [_P] * 3 + [_I] * 2 + [_P],
     "cullavo_msdeform": [_P] * 6 + [_I] * 8 + [_P],
     "cullavo_focal_ctx": [_P] * 7 + [_I] * 5 + [_L] * 4 + [_I] * 3 + [_P],

@@ -16,14 +16,16 @@ live here:
   chain (``_quant_inv_scale``).
 * K3 ``int8_linear`` (``csrc/int8_matmul.cu``): ``x @ (q8 * scale8)`` with
   the weight kept int8 in device memory, the decode-M linear.
-* K6 ``nf4_linear_planar`` (``csrc/nf4_planar.cu``): ``x @ dequant(q4p,
+* K6 ``nf4_linear_planar`` (``csrc/nf4_gemv_sm90.cu``): ``x @ dequant(q4p,
   scale)`` with the weight kept 4-bit in device memory, for M < 512.
 * K7 ``nf4_dequant_planar`` (``csrc/nf4_planar.cu``): planar NF4 -> dense
   bf16 once, in front of a plain matmul, for M >= 512.
-* K11 ``nf4_linear_q4`` / ``nf4_dequant_q4`` (``csrc/nf4_q4.cu``): the
-  byte-packed counterparts of K6 and K7, for ``q4`` dicts whose N is a
-  multiple of 64 (one absmax per row and 64-column block) and for
-  ``nf4_matmul_fused`` over an ``NF4Tensor`` (absmax decoded first).
+* K11 ``nf4_linear_q4`` (``csrc/nf4_gemv_sm90.cu``, K6's template over
+  bytes) / ``nf4_dequant_q4`` (``csrc/nf4_q4.cu``): the byte-packed
+  counterparts of K6 and K7, for ``q4`` dicts whose N is a multiple of 64
+  (one absmax per row and 64-column block) and for ``nf4_matmul_fused``
+  over an ``NF4Tensor`` (absmax decoded first).  ``nf4_gemv_plan`` picks
+  the fused kernels' tiles and splits.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU and
 launches its kernel (or raises) for a CUDA tensor.  The int8 x int8 ->
@@ -34,6 +36,7 @@ matmul.  Dict kinds outside this slice raise ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -437,15 +440,60 @@ def nf4_linear_planar(x: torch.Tensor, q: dict, d_in=None, d_out=None) -> torch.
 nf4_linear_planar.launches = 0
 
 
-def _nf4_linear_splits(M: int, K: int, N: int, device) -> int:
-    """K splits so that the (column block x row block x split) grid fills
-    the SMs in ONE wave: the kernel's 64-column blocks of up to 128, 256 or
-    512 rows are resident 3, 2 or 1 to an SM (its shared memory and
-    registers), and a grid a little over one wave would take two."""
-    block_m, per_sm = (128, 3) if M <= 128 else (256, 2) if M <= 256 else (512, 1)
-    blocks = (N // BLOCK) * -(-M // block_m)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-(K // 8) // 16), per_sm * sms // blocks))
+# the fused kernels' tiling (csrc/nf4_gemv_sm90.cu): k values per ring stage,
+# token tiles (the wgmma N side), 64-column blocks per CTA (one consumer
+# warpgroup each; a CTA of 4 measured faster than more CTAs of 1 or 2) and
+# the most splits along K
+_GEMV_KSTAGE = 64
+_GEMV_TOKENS = (16, 32, 64)
+_GEMV_WIDTHS = (4, 2, 1)
+_GEMV_MAX_SPLITS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def nf4_gemv_plan(M: int, K: int, N: int, sms: int) -> dict:
+    """The launch of K6 / K11 for ``x [M, K] @ w [K, N]`` on a card of ``sms``
+    SMs, as a pure function: token tile ``nt`` (M above 64 takes several),
+    64-column blocks per CTA ``g`` (the widest that N has), splits along K
+    (split ``r`` takes the ring stages ``[r * n_kst // splits, (r + 1) *
+    n_kst // splits)`` of ``n_kst`` stages of 64 k, as the kernel computes
+    them: ``k_ranges``), the most that keep the grid ``(splits, ncol, ntok)``
+    within one wave (one CTA per SM), and the split-K workspace in floats."""
+    if M < 1 or K < 8 or K % 8 or N < BLOCK or N % BLOCK or sms < 1:
+        raise ValueError(f"nf4_gemv_plan: no plan for M={M} K={K} N={N} on {sms} SMs "
+                         f"(M >= 1, K % 8 == 0, N % {BLOCK} == 0)")
+    nt = next((t for t in _GEMV_TOKENS if M <= t), _GEMV_TOKENS[-1])
+    ntok = -(-M // nt)
+    nb, n_kst = N // BLOCK, -(-K // _GEMV_KSTAGE)
+    g = next(g for g in _GEMV_WIDTHS if g <= nb)
+    ncol = -(-nb // g)
+    splits = max(1, min(_GEMV_MAX_SPLITS, n_kst, sms // (ncol * ntok)))
+    kst = [r * n_kst // splits for r in range(splits + 1)]
+    k_ranges = tuple((a * _GEMV_KSTAGE, min(b * _GEMV_KSTAGE, K)) for a, b in zip(kst, kst[1:]))
+    return dict(nt=nt, g=g, splits=splits, ntok=ntok, ncol=ncol, n_kst=n_kst, k_ranges=k_ranges,
+                grid=(splits, ncol, ntok), ctas=splits * ncol * ntok,
+                workspace=splits * ncol * ntok * 64 * g * nt if splits > 1 else 0)
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# per device: the split-K tile counters of the fused kernels (two per tile),
+# zero between launches (the kernel's last split of a tile resets them);
+# launches that use them run in order on one stream
+_GEMV_COUNTERS: dict = {}
+
+
+def _gemv_scratch(plan: dict, device):
+    """(workspace f32, counters int32) for one launch of K6 / K11."""
+    if plan["splits"] == 1:
+        return None, None
+    n = 2 * plan["ncol"] * plan["ntok"]
+    ctr = _GEMV_COUNTERS.get(device)
+    if ctr is None or ctr.numel() < n:
+        ctr = _GEMV_COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return torch.empty(plan["workspace"], dtype=torch.float32, device=device), ctr
 
 
 def _nf4_linear_planar_cuda(x, q):
@@ -458,13 +506,21 @@ def _nf4_linear_planar_cuda(x, q):
     M = x2.shape[0]
     if M < 1:
         raise ValueError("nf4_linear_planar: x has no rows")
-    splits = _nf4_linear_splits(M, K, N, x.device)
-    partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+    # the kernel reads x's planes through a map whose plane stride must be a
+    # multiple of 16 bytes: where K/8 is not a multiple of 8, pad each plane
+    xp = -(-(K // 8) // 8) * 8
+    if xp != K // 8:
+        x2 = torch.nn.functional.pad(x2.reshape(M, 8, K // 8), (0, xp - K // 8)).reshape(M, 8 * xp)
+    elif x2.data_ptr() % 16:
+        x2 = x2.clone()
+    plan = nf4_gemv_plan(M, K, N, _sm_count(x.device))
+    ws, ctr = _gemv_scratch(plan, x.device)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     lib = _build.lib()
-    err = lib.cullavo_nf4_linear_planar(
-        x2.data_ptr(), q["q4p"].data_ptr(), q["scale"].data_ptr(), partial.data_ptr(),
-        out.data_ptr(), M, K, N, splits, torch.cuda.current_stream(x.device).cuda_stream)
+    err = lib.cullavo_nf4_gemv_planar(
+        x2.data_ptr(), q["q4p"].data_ptr(), q["scale"].data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), None if ctr is None else ctr.data_ptr(), M, K, N,
+        xp, plan["nt"], plan["g"], plan["splits"], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "nf4_linear_planar")
     nf4_linear_planar.launches += 1
     return out.reshape(*lead, N)
@@ -761,13 +817,14 @@ def _nf4_q4_cuda(name, x, q4, scale, K, N):
     M = x2.shape[0]
     if M < 1:
         raise ValueError(f"{name}: x has no rows")
-    splits = _nf4_linear_splits(M, K, N, x.device)
-    partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+    plan = nf4_gemv_plan(M, K, N, _sm_count(x.device))
+    ws, ctr = _gemv_scratch(plan, x.device)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     lib = _build.lib()
-    err = lib.cullavo_nf4_linear_q4(
-        x2.data_ptr(), q4.data_ptr(), scale.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        M, K, N, splits, torch.cuda.current_stream(x.device).cuda_stream)
+    err = lib.cullavo_nf4_gemv_q4(
+        x2.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), None if ctr is None else ctr.data_ptr(), M, K, N,
+        plan["nt"], plan["g"], plan["splits"], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, name)
     nf4_linear_q4.launches += 1
     return out.reshape(*lead, N)

@@ -1,16 +1,17 @@
-"""Times the forward flash kernels (K1, K1-lse, K8, K13) and the decode
-attention kernels (K12, K4) at the shapes of their main paths on one CUDA
-card, so that two checkouts of the port can be compared on the same card
-and the same inputs.
+"""Times the forward flash kernels (K1, K1-lse, K8, K13), the decode
+attention kernels (K12, K4) and the fused NF4 dequant-matmuls (K6, K11) at
+the shapes of their main paths on one CUDA card, so that two checkouts of
+the port can be compared on the same card and the same inputs.
 
     python3 cullavo_tpu_torch/scripts/flash_bench.py [--root DIR] [--rounds N]
-                                                      [--forms all|flash|decode]
+                                                      [--forms all|flash|decode|nf4]
 
 ``--root`` names the checkout whose ``cullavo_tpu_torch`` is imported
 (default: the one holding this file): one copy of this script times an
 older checkout's kernels through the entry points both share
 (``flash_attention``, ``_flash_cuda``, ``flash_attention_packed``,
-``decode_partials``, ``wwin_decode._run_cache_part``).  Run it once per
+``decode_partials``, ``wwin_decode._run_cache_part``, ``nf4_linear_planar``,
+``nf4_linear_q4``).  Run it once per
 checkout in turns (older, newer, newer, older) and compare within one
 machine.  The inputs are drawn from a seeded generator on the card, so
 every run sees the same bytes.  Each form is timed as the median of 20
@@ -30,7 +31,11 @@ shapes, T5-XL [5, 32, 11, 64] (unscaled, a per-head bias) and KOSMOS-2 [1,
 at the greedy step (W = 1 over a 664-slot view of a 768-slot stacked cache,
 batch 14, 32 kv heads, per-row valid lengths), the speculative window (W =
 4, S = 768) and the serving engine's suffix prefills (W = 32, 64, 128 over
-a dense 4-row copy of a 608-slot prefix).  Prints the card's name and power
+a dense 4-row copy of a 608-slot prefix).  K6 (planar NF4) and K11
+(byte-packed NF4) at the three LLaMA-2-7B weight shapes (4096, 4096),
+(4096, 11008) and (11008, 4096) and M = 14 (the greedy batch), 64 (the
+serving decode) and 511 (the largest fused M), the weights quantized from a
+seeded draw.  Prints the card's name and power
 limit, then one JSON line: ``{"root", "device", "power_limit", "ms": {form:
 [median per round]}, "host_us": {form: [least per round]}}``.
 """
@@ -154,12 +159,27 @@ def _decode_forms(torch, fa, ww, device):
     return forms
 
 
+def _nf4_forms(torch, nf4, device):
+    """name -> a call of K6 or K11 on its inputs (made here, once)."""
+    g = torch.Generator(device=device).manual_seed(0)
+    forms = {}
+    for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
+        w = torch.randn((K, N), generator=g, device=device) * K ** -0.5
+        planar, q4 = nf4.quantize_linear_planar(w), nf4.quantize_linear(w)
+        for M in (14, 64, 511):
+            x = torch.randn((M, K), generator=g, device=device).to(torch.bfloat16)
+            forms[f"K6 M={M} ({K},{N})"] = lambda a=(x, planar): nf4.nf4_linear_planar(*a)
+            forms[f"K11 M={M} ({K},{N})"] = lambda a=(x, q4, K): nf4.nf4_linear_q4(*a)
+        del w
+    return forms
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)),
                     help="the checkout whose cullavo_tpu_torch is timed")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--forms", choices=("all", "flash", "decode"), default="all")
+    ap.add_argument("--forms", choices=("all", "flash", "decode", "nf4"), default="all")
     args = ap.parse_args(argv)
     import torch
 
@@ -168,9 +188,10 @@ def main(argv=None):
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     from cullavo_tpu_torch.ops import flash_attention as fa
+    from cullavo_tpu_torch.ops import nf4
     from cullavo_tpu_torch.ops import wwin_decode as ww
 
-    for mod in (fa, ww):
+    for mod in (fa, ww, nf4):
         if not os.path.abspath(mod.__file__).startswith(root + os.sep):
             raise SystemExit(f"flash_bench: imported {mod.__file__}, not from {root}")
     device = torch.device("cuda", 0)
@@ -183,6 +204,8 @@ def main(argv=None):
         forms.update(_flash_forms(torch, fa, device))
     if args.forms in ("all", "decode"):
         forms.update(_decode_forms(torch, fa, ww, device))
+    if args.forms in ("all", "nf4"):
+        forms.update(_nf4_forms(torch, nf4, device))
     ms = {n: [] for n in forms}
     host = {n: [] for n in forms}
     for _ in range(args.rounds):

@@ -120,6 +120,77 @@ def test_nf4_linear_planar_plain_matches_pallas_interpret(K, N, M):
     np.testing.assert_allclose(got_b.float().numpy(), want_b, rtol=2.0 ** -7, atol=1e-6)
 
 
+SHAPES_7B = [(4096, 4096), (4096, 11008), (11008, 4096)]
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("M", [1, 14, 64, 511])
+@pytest.mark.parametrize("K,N", SHAPES_7B)
+def test_nf4_gemv_plan_covers_k_once_and_fills_one_wave(K, N, M):
+    """The launch planner of the fused kernels (K6, K11): every k row in
+    exactly one split, at most 8 splits (the kernel's limit) forming the
+    grid's first axis, tiles that cover M and N, a workspace of one partial
+    tile per CTA, and one wave of CTAs (one per SM) where the shape allows
+    it (at M = 511 the 64-token tiles of the widest weight need more); at
+    the decode M of the main paths at least 7/8 of the card."""
+    plan = tnf4.nf4_gemv_plan(M, K, N, H100_SMS)
+    S = plan["splits"]
+    assert 1 <= S <= 8 and plan["grid"][0] == S
+    assert plan["workspace"] == (plan["ctas"] * 64 * plan["g"] * plan["nt"] if S > 1 else 0)
+    rows = np.zeros(K, dtype=int)
+    for a, b in plan["k_ranges"]:
+        assert 0 <= a < b <= K and a % 64 == 0
+        rows[a:b] += 1
+    assert len(plan["k_ranges"]) == S and (rows == 1).all()
+    nt, g = plan["nt"], plan["g"]
+    assert nt in (16, 32, 64) and (nt == 64 or M <= nt) and g in (1, 2, 4)
+    assert plan["grid"] == (S, -(-(N // 64) // g), -(-M // nt))
+    assert plan["ctas"] == S * plan["grid"][1] * plan["grid"][2]
+    fewest = -(-(N // 64) // 4) * -(-M // nt)
+    if fewest <= H100_SMS:
+        assert plan["ctas"] <= H100_SMS
+    else:
+        assert plan["ctas"] == fewest
+    if M in (14, 64):
+        assert plan["ctas"] >= 7 * H100_SMS // 8
+
+
+@pytest.mark.parametrize("M,K,N,sms", [(0, 4096, 4096, 132), (14, 0, 4096, 132),
+                                       (14, 1092, 4096, 132), (14, 4096, 32, 132),
+                                       (14, 4096, 4100, 132), (14, 4096, 4096, 0)])
+def test_nf4_gemv_plan_refuses_degenerate_shapes(M, K, N, sms):
+    with pytest.raises(ValueError, match="no plan"):
+        tnf4.nf4_gemv_plan(M, K, N, sms)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 8, 64), (9, 1096, 320), (700, 4096, 192)])
+def test_nf4_gemv_plan_small_and_ragged_shapes(M, K, N):
+    """A K of one ring stage takes no split; a width of a few blocks gets
+    no more warpgroups than blocks; many token tiles still cover M."""
+    plan = tnf4.nf4_gemv_plan(M, K, N, H100_SMS)
+    assert plan["splits"] <= plan["n_kst"] == -(-K // 64)
+    assert plan["g"] <= N // 64 and plan["nt"] * plan["grid"][2] >= M
+    assert plan["ctas"] <= H100_SMS
+
+
+def test_nf4_gemv_decode_tables_are_the_bf16_codebook():
+    """K6 decodes a nibble by byte permutes against immediates in
+    csrc/nf4_gemv_sm90.cu: their bytes are the low and high bytes of
+    bf16(NF4_CODE), entry 4 i + q in byte q of word i."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tnf4.__file__).resolve().parents[1] / "csrc" / "nf4_gemv_sm90.cu").read_text()
+    consts = dict(re.findall(r"k(Lo\d|Hi\d) = (0x[0-9a-f]+)u", src))
+    bits = torch.from_numpy(tnf4.NF4_CODE).to(torch.bfloat16).view(torch.int16).numpy()
+    bits = bits.astype(np.uint16).astype(np.int64)
+    for i in range(4):
+        for q in range(4):
+            lo = (int(consts[f"Lo{i}"], 16) >> (8 * q)) & 0xFF
+            hi = (int(consts[f"Hi{i}"], 16) >> (8 * q)) & 0xFF
+            assert lo | hi << 8 == bits[4 * i + q]
+
+
 def test_nf4_linear_planar_auto_both_sides_of_threshold():
     """M = 511 takes the fused kernel's arithmetic, M = 512 the dequant-once
     weight and a bf16 matmul, as in JAX; leading dims fold into M."""

@@ -780,12 +780,21 @@ def test_cuda_nf4_dequant_planar_bit_equal(cuda_device, K, N):
         nf4.nf4_dequant_planar(q, dtype=torch.float32)
 
 
+# the fused kernels' tile edges (csrc/nf4_gemv_sm90.cu): token tiles of 16,
+# 32 and 64 (M = 65 and up take several), 4 blocks of 64 columns per CTA
+# (N = 320: a CTA with one live block), 64 k per ring stage (K = 1096:
+# K/8 = 137 word rows, not a multiple of 8, and a ragged last stage), split-K
+# in clusters of up to 8 CTAs (K = 4096)
+NF4_GEMV_M = [1, 8, 9, 14, 16, 17, 63, 64, 65, 129, 255, 256, 257, 300, 511, 700]
+NF4_GEMV_KN = [(128, 192), (1096, 64), (1096, 320), (4096, 256)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 17, 129, 300, 511, 700])
-@pytest.mark.parametrize("K,N", [(128, 192), (1096, 64)])
+@pytest.mark.parametrize("M", NF4_GEMV_M)
+@pytest.mark.parametrize("K,N", NF4_GEMV_KN)
 def test_cuda_nf4_linear_planar_matches_plain(cuda_device, M, K, N):
-    """K = 1096 gives K/8 = 137 word rows: a ragged last chunk of the
-    kernel's 16-row chunks; M = 700 takes two row blocks."""
+    """K6 against its plain version within 1e-2 + 1e-2 |ref| at the tile
+    edges; two calls bit-identical (split-K is summed in a fixed order)."""
     from cullavo_tpu_torch.ops import nf4
 
     g = torch.Generator(device=cuda_device).manual_seed(7)
@@ -832,14 +841,13 @@ def test_cuda_nf4_dequant_q4_bit_equal(cuda_device, K, N):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 14, 64, 129, 300, 511, 700])
-@pytest.mark.parametrize("K,N", [(128, 192), (1096, 64), (4096, 256)])
+@pytest.mark.parametrize("M", NF4_GEMV_M)
+@pytest.mark.parametrize("K,N", NF4_GEMV_KN)
 def test_cuda_nf4_linear_q4_matches_plain(cuda_device, M, K, N):
     """K11 against its f32 plain version within 1e-2 + 1e-2 |ref| (the f32
     weight as two bf16 terms, f32 sums in another order, one bf16 rounding
-    on each side).  K = 1096: a
-    ragged last chunk of the kernel's 128-row chunks; M = 700: two row
-    blocks.  Row 8: the same kernel fed an NF4Tensor's decoded absmax."""
+    on each side) at the tile edges of K6's test; two calls bit-identical.
+    Row 8: the same kernel fed an NF4Tensor's decoded absmax."""
     from cullavo_tpu_torch.ops import nf4
 
     g = torch.Generator(device=cuda_device).manual_seed(17)
