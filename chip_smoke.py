@@ -10,10 +10,11 @@ Phases (each raises on failure, and the script exits non-zero):
   1. print the card's name and power limit (nvidia-smi); disable TF32.
   2. build the port's CUDA kernels from ``cullavo_tpu_torch/csrc``; print
      the ptxas report of every instantiation of the Hopper templates (the
-     forward flash kernel: K1 / K13, K1-lse, K8, K8-lse; the fused NF4
-     dequant-matmul: K6 and K11 at token tiles 16, 32, 64 and 1, 2, 4
-     blocks per CTA: registers,
-     spills, wgmma warnings) and raise if one is missing or spills.
+     forward flash kernel: K1 / K13, K1-lse, K8, K8-lse; the fused
+     weight-only linears: K6 and K11 at token tiles 16, 32, 64 and 1, 2, 4
+     blocks per CTA, K3 at 16 to 256 with 1, 2; the decode bodies
+     of K12, K4 and K5: registers, spills, wgmma warnings) and raise if one
+     is missing or spills.
   3. compare each kernel with its plain PyTorch version on the card.  First
      K1 and K1-lse, the causal flash forward on TMA and wgmma
      (``csrc/flash_fwd_sm90.cu``): at T = 1, 64, 127, 128, 129 and 200 on
@@ -25,7 +26,9 @@ Phases (each raises on failure, and the script exits non-zero):
      the last three shapes in turns with the library's causal
      ``scaled_dot_product_attention`` and K13 (the same kernel behind its
      own maps) on the same bytes.  Then the kernels of the LLaVA-1.5-7B int8 VQA paths at
-     their shapes (K2 row quantizer, K3 int8 weight-only linear, K4/K5
+     their shapes (K2 row quantizer, K3 int8 weight-only linear at M = 8,
+     14, 56 and 5632 with and without sq_inv beside the dense bf16 matmul
+     on the dequantized weight, K4/K5
      W-window decode attention over the stacked bf16/int8 KV cache; also the
      library s8s8 GEMM): time kernel and plain version with CUDA events (L2 flushed before every launch), time the one
      PyTorch call that computes the same function where there is one, and
@@ -33,9 +36,10 @@ Phases (each raises on failure, and the script exits non-zero):
      over the card's peak rate) from the inputs of this run.  K4/K5 are held
      at the decode windows (W = 1 and 4, B = 14) and at the serving engine's
      suffix prefills (W = 32, 64 and 128, B = 4, cache gated to a 608-token
-     prefix), K4 also at its edges (batch 1 at S = 4000 with a wholly
+     prefix), both also at their edges (batch 1 at S = 4000 with a wholly
      masked range of 500 slots, S = 40, GQA); K4 and its library yardstick
-     timed in turns, the card kept busy ahead of each timed call.  Then the planar
+     timed in turns, K5 with K4 on the bf16 cache and sdpa on the
+     dequantized slice, the card kept busy ahead of each timed call.  Then the planar
      NF4 kernels at the three 7B weight shapes: K7 (dequant to dense bf16)
      bit-equal to its plain version, K6 (fused dequant-matmul, the Hopper
      template of csrc/nf4_gemv_sm90.cu) at M = 1, 14, 64, 256 and 511
@@ -164,7 +168,9 @@ Phases (each raises on failure, and the script exits non-zero):
      batch 8, 16 new tokens) with ``LOAD_PATH`` the snapshot over an
      in-memory VQA dataset of 16 questions on 8 random images, twice:
      n = 16, a finite accuracy in [0, 100], identical answers, K1, K3 and
-     K4 launched; load seconds, images/s and peak memory printed.
+     K4 launched, the prefill's linears through K3 (its launches by M
+     printed); load seconds, prefill seconds, images/s and peak memory
+     printed.
   10b. the byte-packed NF4 base: those weights' LLM linears as q4
      (``quantize_linear``) and as planar NF4; one weight's K11 dequant
      bit-equal to K7's; phase 5's 2-layer check on the q4 base; the
@@ -204,6 +210,7 @@ Imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
@@ -227,6 +234,9 @@ SPEC_K, SPEC_BF16_LAYERS, LOGIT_TOL = 4, 8, 0.1
 # the two readings, about 1.9x from each
 PACKED_LOGIT_TOL, PACKED_LOGIT_MEAN_TOL = 0.44, 0.075
 NF4_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096))   # (K, N) of the 7B linears
+# K3's M on the paths: vl_test's decode (8 prompts), the greedy batch, the
+# speculative windows (14 x 4), vl_test's prefill (8 x 704)
+INT8_M = (8, BATCH, BATCH * SPEC_K, 5632)
 # configs/serve.yaml's SERVE block, with the prompt bucket of the traffic below
 SERVE_CFG = {"REQUESTS": None, "RESULTS": "serve_results.jsonl", "SLOTS": 16, "QUANTUM": 8,
              "PREFILL_CHUNK": 4, "PROMPT_BUCKETS": [648], "KV_QUANT": "int8", "SPEC_K": 4,
@@ -426,40 +436,7 @@ def check_kernels(device):
                 "row-major weight as stored")
     rec["quant_rows"]["max_abs_err"] = float(k2_err)
 
-    # K3: int8 weight-only linear at decode M = 14
-    errs, ms_sum, plain_sum, eager_sum, k3_bytes, k3_ops = [], 0.0, 0.0, 0.0, 0, 0
-    for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
-        x = torch.randn((BATCH, K), generator=g, device=device).to(bf)
-        w = torch.randn((K, N), generator=g, device=device) * K ** -0.5
-        s = torch.exp(torch.randn((K,), generator=g, device=device) * 0.3)
-        q = nf4.quantize_linear_int8(w, smooth_scale=s)
-        y = nf4.int8_linear(x, q)
-        ref = nf4._int8_linear_plain(x, q)
-        torch.cuda.synchronize(device)
-        err = (y.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        ok = torch.allclose(y.float(), ref.float(), rtol=2 ** -7, atol=1e-3 * scale)
-        log(f"K3 int8_linear M={BATCH} K={K} N={N}: max_abs_err={err:.3e} "
-            f"(max |y| {scale:.3f}; tol one bf16 ulp + 1e-3 max|y|)")
-        if not ok:
-            raise RuntimeError(f"K3 disagrees with its plain version at K={K} N={N}")
-        errs.append(err)
-        ms = bench_ms(lambda: nf4.int8_linear(x, q), device)
-        plain = bench_ms(lambda: nf4._int8_linear_plain(x, q), device)
-        eager = bench_ms(lambda: (x * q["sq_inv"]) @ q["q8"].to(bf) * q["scale8"].to(bf), device)
-        log(f"K3 M={BATCH} K={K} N={N}: kernel {ms:.4f} ms, plain(f32) {plain:.4f} ms, "
-            f"eager bf16 dequant {eager:.4f} ms, int8 bytes {K * N / 1e6:.1f} MB")
-        ms_sum, plain_sum, eager_sum = ms_sum + ms, plain_sum + plain, eager_sum + eager
-        k3_bytes += nbytes(x, q["q8"], q["scale8"], q["sq_inv"], y)
-        k3_ops += 2 * BATCH * K * N
-    bd = bound(k3_bytes, k3_ops, "bf16")
-    rec["int8_linear"] = dict(max_abs_err=max(errs), ms=ms_sum, plain_ms=plain_sum,
-                              library_ms=eager_sum, **bd,
-                              shape=f"M={BATCH}, (K,N) in (4096,4096),(4096,11008),"
-                                    "(11008,4096), ms summed over the three")
-    log(f"K3 sum of the three shapes: kernel {ms_sum:.4f} ms, plain {plain_sum:.4f} ms, "
-        f"eager bf16 dequant (library) {eager_sum:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-        f"({bd['bound_by']})")
+    rec.update(check_int8_kernel(device, g))
     rec.update(check_wwin_kernels(device, g))
     rec.update(check_nf4_kernels(device, g))
     rec.update(check_q4_kernels(device, g))
@@ -471,11 +448,100 @@ def check_kernels(device):
     return rec
 
 
+def check_int8_kernel(device, g):
+    """Phase 3, K3: the int8 weight-only linear (the int8 instantiation of
+    csrc/nf4_gemv_sm90.cu) at the paths' M: 8 (``vl_test``'s decode and the
+    matmul probe), 14 (the greedy batch), 56 (the speculative windows) and
+    5632 (``vl_test``'s prefill: 8 prompts of 704 tokens), at the three 7B
+    shapes, with ``sq_inv`` (SmoothQuant dicts: the greedy and speculative
+    batches) and without (``BITS: 8`` from a snapshot: ``vl_test``).  Within
+    rtol 2^-7 + 1e-3 max|y| of the plain version (one bf16 ulp after an f32
+    sum in another order); two calls bit-equal.  Timed per M and dict kind,
+    summed over the three shapes, the card kept busy ahead of each timed call
+    (host microseconds per call apart), beside the bound, the plain version,
+    the eager composition ``(x * sq_inv) @ q8.to(bf16) * scale8`` (the
+    record's library column) and a yardstick: the dense bf16
+    ``torch.matmul`` on the weight dequantized beforehand (2x the bytes)."""
+    import torch
+
+    from cullavo_tpu_torch.ops import nf4
+
+    bf = torch.bfloat16
+    ms_by = {}
+    worst = 0.0
+    for K, N in NF4_SHAPES:
+        w = torch.randn((K, N), generator=g, device=device) * K ** -0.5
+        s = torch.exp(torch.randn((K,), generator=g, device=device) * 0.3)
+        for kind in ("sq_inv", "no sq_inv"):
+            q = nf4.quantize_linear_int8(w, smooth_scale=s if kind == "sq_inv" else None)
+            dense = (q["q8"].float() * q["scale8"]).to(bf)
+            for M in INT8_M:
+                x = torch.randn((M, K), generator=g, device=device).to(bf)
+                y = nf4.int8_linear(x, q)
+                y2 = nf4.int8_linear(x, q)
+                ref = nf4._int8_linear_plain(x, q)
+                torch.cuda.synchronize(device)
+                err = (y.float() - ref.float()).abs().max().item()
+                top = ref.float().abs().max().item()
+                ok = torch.allclose(y.float(), ref.float(), rtol=2 ** -7, atol=1e-3 * top)
+                log(f"K3 int8_linear M={M} K={K} N={N} {kind}: max_abs_err={err:.3e} (max |y| "
+                    f"{top:.3f}; tol one bf16 ulp + 1e-3 max|y|); two calls bit-equal: "
+                    f"{torch.equal(y, y2)}")
+                if not (ok and torch.isfinite(y).all() and torch.equal(y, y2)):
+                    raise RuntimeError(f"K3 disagrees with its plain version at M={M} K={K} "
+                                       f"N={N} ({kind}), or two calls differ")
+                worst = max(worst, err)
+                xs = x * q["sq_inv"] if kind == "sq_inv" else x
+                fns = {"kernel": lambda: nf4.int8_linear(x, q),
+                       "dense": lambda: xs @ dense,
+                       "eager": lambda: (x * q["sq_inv"] if kind == "sq_inv" else x)
+                       @ q["q8"].to(bf) * q["scale8"].to(bf)}
+                med, _, host = timed_turns(fns, device, rounds=1)
+                plain = bench_ms(lambda: nf4._int8_linear_plain(x, q), device, reps=5)
+                t = ms_by.setdefault((M, kind), dict(ms=0.0, plain=0.0, dense=0.0, eager=0.0,
+                                                    host=0.0, n_bytes=0, n_ops=0))
+                t["ms"] += med["kernel"]
+                t["dense"] += med["dense"]
+                t["eager"] += med["eager"]
+                t["plain"] += plain
+                t["host"] += host["kernel"]
+                t["n_bytes"] += nbytes(x, q["q8"], q["scale8"], y,
+                                       *((q["sq_inv"],) if kind == "sq_inv" else ()))
+                t["n_ops"] += 2 * M * K * N
+                log(f"K3 M={M} K={K} N={N} {kind}: kernel {med['kernel']:.4f} ms, dense bf16 "
+                    f"{med['dense']:.4f} ms, eager {med['eager']:.4f} ms, plain {plain:.4f} ms; "
+                    f"host us per call {host}")
+                del x, y, y2, ref
+            del q, dense
+        del w
+    rec = {}
+    for (M, kind), t in ms_by.items():
+        bd = bound(t["n_bytes"], t["n_ops"], "bf16")
+        log(f"K3 sum of the three shapes at M={M} ({kind}): kernel {t['ms']:.4f} ms, dense bf16 "
+            f"matmul (yardstick) {t['dense']:.4f} ms, eager composition {t['eager']:.4f} ms, "
+            f"plain {t['plain']:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+            f"{t['n_bytes'] / 1e6:.1f} MB), host us per call {t['host'] / 3:.1f} (mean of three)")
+        times = dict(ms=t["ms"], plain_ms=t["plain"], library_ms=t["eager"],
+                     dense_bf16_ms=t["dense"], host_us=round(t["host"] / 3, 1), **bd,
+                     shape=f"M={M}, {kind}, (K,N) in (4096,4096),(4096,11008),(11008,4096), "
+                           "ms summed over the three")
+        if (M, kind) == (BATCH, "sq_inv"):   # the greedy batch's decode
+            rec["int8_linear"] = {**times, **rec.get("int8_linear", {})}
+        else:
+            rec.setdefault("int8_linear", {}).setdefault("other_shapes", {})[
+                f"M={M} {kind}"] = times
+    rec["int8_linear"]["max_abs_err"] = worst
+    torch.cuda.empty_cache()
+    return rec
+
+
 # flash_fwd_sm90_kernel<kLse, kMasked>: each instantiation by its mangled
 # template arguments, and the kernel-line names of the forms it serves
 # the Hopper templates' instantiations: mangled-name key -> (label, the
 # records they serve, source)
 _FLASH_SRC, _GEMV_SRC = "csrc/flash_fwd_sm90.cu", "csrc/nf4_gemv_sm90.cu"
+_DECODE_SRC, _WWIN_SRC = "csrc/flash_decode.cu", "csrc/wwin_decode_sm90.cu"
+_BF = "13__nv_bfloat16"
 SM90_FORMS = {"flash_fwd_sm90_kernelILb0ELb0E": ("K1 / K13", ("flash_fwd", "flash_packed"),
                                                  _FLASH_SRC),
               "flash_fwd_sm90_kernelILb1ELb0E": ("K1-lse", ("flash_fwd_lse",), _FLASH_SRC),
@@ -483,33 +549,54 @@ SM90_FORMS = {"flash_fwd_sm90_kernelILb0ELb0E": ("K1 / K13", ("flash_fwd", "flas
               "flash_fwd_sm90_kernelILb1ELb1E": ("K8-lse", ("flash_rows",), _FLASH_SRC),
               **{f"nf4_gemv_kernelILi{f}ELi{nt}ELi{g}E": (f"{k} NT={nt} G={g}", (rec,), _GEMV_SRC)
                  for f, k, rec in ((0, "K6", "nf4_linear_planar"), (1, "K11", "nf4_linear_q4"))
-                 for nt in (16, 32, 64) for g in (1, 2, 4)}}
+                 for nt in (16, 32, 64) for g in (1, 2, 4)},
+              **{f"nf4_gemv_kernelILi2ELi{nt}ELi{g}E": (f"K3 NT={nt} G={g}", ("int8_linear",),
+                                                        _GEMV_SRC)
+                 for nt in (16, 32, 64, 128, 256) for g in (1, 2)},
+              # the decode bodies (csrc/decode_rows.cuh's lane-group body by
+              # cache type, rows a block and mode; the W-window mma body by
+              # row tiles a block and cache type)
+              **{f"rows_kernelI{t}Li{nr}ELi0E": (f"K12 {n} {nr} heads a block", ("flash_decode",),
+                                                 _DECODE_SRC)
+                 for t, n in (("f", "f32"), (_BF, "bf16")) for nr in (1, 2, 4)},
+              f"rows_kernelI{_BF}Li1ELi1E": ("K4 R=1", ("wwin_decode",), _WWIN_SRC),
+              "rows_kernelIaLi1ELi1E": ("K5 R=1", ("wwin_decode_q8",), _WWIN_SRC),
+              **{f"wwin_mma_kernelILi{wr}ELb{q}E": (f"{k} R>1 WR={wr}", (rec,), _WWIN_SRC)
+                 for q, k, rec in ((0, "K4", "wwin_decode"), (1, "K5", "wwin_decode_q8"))
+                 for wr in (1, 2, 4)}}
 
 
 def sm90_report():
     """The ptxas report of every instantiation of the Hopper templates (the
     forward flash kernel, csrc/flash_fwd_sm90.cu: K1 / K13, K1-lse, K8,
-    K8-lse; the fused NF4 dequant-matmul, csrc/nf4_gemv_sm90.cu: K6 and K11
-    at each token tile): registers, spill stores and loads, and any wgmma
-    serialization warning (C7515), from this process's build; keyed by
-    ``SM90_FORMS``'s labels."""
+    K8-lse; the fused weight-only linears, csrc/nf4_gemv_sm90.cu: K6, K11
+    and K3 at each token tile; the decode bodies: K12, K4 and K5):
+    registers, spill stores and loads, and any wgmma serialization warning
+    (C75xx: C7513 where registers that feed a wgmma are written while one is
+    in flight), from this process's build; keyed by ``SM90_FORMS``'s labels."""
     from cullavo_tpu_torch import _build
 
-    rows, name = {}, None
+    def label_of(line):
+        return next((label for key, (label, _, _) in SM90_FORMS.items() if key in line), None)
+
+    rows, name, warned = {}, None, {}
     for line in _build.build_info.get("ptxas", "").splitlines():
         if "Compiling entry" in line:
-            name = next((label for key, (label, _, _) in SM90_FORMS.items() if key in line),
-                        None)
+            name = label_of(line)
             if name:
                 rows[name] = {"warnings": []}
+        elif "C75" in line and label_of(line):
+            # a wgmma warning names its function and comes before its entry
+            warned.setdefault(label_of(line), []).append(line.split(" : ")[-1])
         elif name and "spill stores" in line:
             nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
             rows[name].update(stack_bytes=nums[0], spill_store_bytes=nums[1],
                               spill_load_bytes=nums[2])
         elif name and "Used" in line and "registers" in line:
             rows[name]["registers"] = int(line.split("Used")[1].split()[0])
-        elif name and ("C7515" in line or "wgmma" in line):
-            rows[name]["warnings"].append(line.strip())
+    for label, lines in warned.items():
+        if label in rows:
+            rows[label]["warnings"] = [w.split(" in the function")[0] for w in lines]
     return rows
 
 
@@ -1201,10 +1288,12 @@ def check_wwin_kernels(device, g):
     running maximum, the plain version against the final one), m and l
     within 2e-3 relative, the merged bf16 output within 1e-2 + 1e-2 |ref|
     (one bf16 ulp).  Each shape timed in turns with the library's
-    ``scaled_dot_product_attention`` over the layer's slice (K4 only; a
-    yardstick the port never calls), the card kept busy ahead of each timed
-    call (host microseconds per call apart).  Then K4 at its edges
-    (``check_wwin_edges``)."""
+    ``scaled_dot_product_attention`` over the layer's slice (a yardstick the
+    port never calls; for K5 over the slice dequantized to bf16 beforehand,
+    twice K5's bytes) and, for K5, K4 over the bf16 cache the int8 one was
+    quantized from (twice the bytes too), the card kept busy ahead of each
+    timed call (host microseconds per call apart).  Then K4 and K5 at their
+    edges (``check_wwin_edges``)."""
     import torch
 
     from cullavo_tpu_torch.models.llava.llama import quantize_kv, round_cache_len
@@ -1257,6 +1346,7 @@ def check_wwin_kernels(device, g):
     cases += [(W, S_spec, True) for W in SERVE_SUFFIX_W]
 
     rec = {}
+    bf16_sfx = tuple(t[:, :, :B_sfx].contiguous() for t in (cache["k"], cache["v"]))
     for name, kernel, plain, wrapper, tensors in (
             ("wwin_decode", ww._run_cache_part, ww._cache_part_plain, ww.wwin_decode_smajor,
              (cache["k"], cache["v"])),
@@ -1301,24 +1391,35 @@ def check_wwin_kernels(device, g):
             bd = bound(need, 4 * n_slots * KV * W * hd, "bf16")
             li = L // 2
             fns = {"kernel": lambda: kernel(q, *ops, li, bias[:, 0], 1, scale)}
+            # a yardstick timed here only (the port never calls it): the
+            # normalised cache-only attention over the layer's slice (K5:
+            # dequantized to bf16 outside the timed call)
             if name == "wwin_decode":
-                # a yardstick timed here only (the port never calls it): the
-                # normalised cache-only attention over the layer's slice
                 kl, vl = (t[li].permute(1, 2, 0, 3) for t in ops)
-                fns["library"] = lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, kl, vl, attn_mask=bias)
+            else:
+                kl, vl = ((c[li].float() * s_[li].float()[..., None]).to(bf).permute(1, 2, 0, 3)
+                          for c, s_ in ((ops[0], ops[1]), (ops[2], ops[3])))
+                bf_ops = bf16_sfx if suffix else (cache["k"][:, :S], cache["v"][:, :S])
+                fns["k4_bf16"] = lambda: ww._run_cache_part(q, *bf_ops, li, bias[:, 0], 1, scale)
+            fns["library"] = lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, kl, vl, attn_mask=bias)
             med, turns, host = timed_turns(fns, device)
-            ms, lib = med["kernel"], med.get("library")
+            ms, lib = med["kernel"], med["library"]
             plain_ms = bench_ms(lambda: plain(q, *ops, li, bias[:, 0], 1, scale), device, reps=5)
+            k4 = f", K4 on the bf16 cache {med['k4_bf16']:.4f} ms" if "k4_bf16" in med else ""
             log(f"{name} B={Bw} W={W} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-                f"sdpa {'none' if lib is None else f'{lib:.4f} ms'}, bound {bd['bound_ms']:.4f} ms "
-                f"({bd['bound_by']}, {need / 1e6:.1f} MB needed); in turns {turns}; host us per "
-                f"call {host}")
+                f"sdpa{' (dequantized slice, a yardstick)' if 'k4_bf16' in med else ''} "
+                f"{lib:.4f} ms{k4}, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, "
+                f"{need / 1e6:.1f} MB needed); in turns {turns}; host us per call {host}")
             shape = (f"q [{Bw},{KV},{W},{hd}] bf16, cache [{L},{S},{B},{KV},{hd}] "
                      f"{str(tensors[0].dtype).split('.')[1]}"
                      + (f", a dense copy of rows 0-{Bw - 1}" if suffix else "") + ", one layer")
             times = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, **bd, times_in_turns=turns,
                          host_us=host, shape=shape)
+            if name == "wwin_decode_q8":
+                # no PyTorch call takes int8 codes with scale planes: the
+                # kernel line's library column stays empty, the yardsticks beside it
+                times.update(library_ms=None, sdpa_dequantized_ms=lib, k4_bf16_ms=med["k4_bf16"])
             # the record keeps each kernel at the shape its main path gives it:
             # K4 the plain greedy step (W = 1, S = 664), K5 the speculative
             # window; the other shapes beside it
@@ -1330,24 +1431,27 @@ def check_wwin_kernels(device, g):
                     f"W={W} S={S} B={Bw}"] = times
         rec[name]["max_abs_err"] = worst
         del sfx_tensors, ops
-    rec["wwin_decode"]["max_abs_err"] = max(rec["wwin_decode"]["max_abs_err"],
-                                            check_wwin_edges(device, g, cache, n_valid,
-                                                             partial_err, window))
-    del cache, q8
+    for name in ("wwin_decode", "wwin_decode_q8"):
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"],
+                                       check_wwin_edges(device, g, cache, n_valid, partial_err,
+                                                        window, q8=name == "wwin_decode_q8"))
+    del cache, q8, bf16_sfx
     torch.cuda.empty_cache()
     return rec
 
 
-def check_wwin_edges(device, g, cache, n_valid, partial_err, window):
-    """Phase 3, K4 at its edges, each body against the plain version at
-    phase 3's K4 tolerances: batch 1 at S = 4000 (one block per kv head
-    walking every slot; W = 1 on the lane-group body, W = 8 on the mma
-    body) with slots 500-999 wholly masked and the slots past 3900 masked
-    too; S = 40, shorter than the mma body's 64-slot stage; and GQA, 32
-    query heads on the first 8 kv heads of the cache (n_rep = 4, a strided
-    view).  Returns the largest merged-output error."""
+def check_wwin_edges(device, g, cache, n_valid, partial_err, window, q8=False):
+    """Phase 3, K4 (or, with ``q8``, K5 over the same caches quantized) at
+    its edges, each body against the plain version at phase 3's K4
+    tolerances: batch 1 at S = 4000 (one block per kv head walking every
+    slot; W = 1 on the lane-group body, W = 8 on the mma body) with slots
+    500-999 wholly masked and the slots past 3900 masked too; S = 40,
+    shorter than the mma body's 64-slot stage; and GQA, 32 query heads on
+    the first 8 kv heads of the cache (n_rep = 4, a strided view).  Returns
+    the largest merged-output error."""
     import torch
 
+    from cullavo_tpu_torch.models.llava.llama import quantize_kv
     from cullavo_tpu_torch.ops import wwin_decode as ww
 
     bf, hd, scale = torch.bfloat16, 128, 128 ** -0.5
@@ -1355,25 +1459,31 @@ def check_wwin_edges(device, g, cache, n_valid, partial_err, window):
     long_cache = [torch.randn((2, S_long, 1, KV, hd), generator=g, device=device).to(bf)
                   for _ in range(2)]
     worst = 0.0
+    name = "wwin_decode_q8" if q8 else "wwin_decode"
+    run, plain, wrapper = ((ww._run_cache_part_q8, ww._cache_part_q8_plain,
+                            ww.wwin_decode_smajor_q8) if q8 else
+                           (ww._run_cache_part, ww._cache_part_plain, ww.wwin_decode_smajor))
 
     def hold(label, q, kc, vc, li, k_cur, v_cur, bias, n_rep=1, masked=None):
-        got = ww._run_cache_part(q, kc, vc, li, bias[:, 0], n_rep, scale)
-        want = ww._cache_part_plain(q, kc, vc, li, bias[:, 0], n_rep, scale)
-        again = ww._run_cache_part(q, kc, vc, li, bias[:, 0], n_rep, scale)
+        # K5: codes and planes quantized from the view (dense copies)
+        ops = (*quantize_kv(kc), *quantize_kv(vc)) if q8 else (kc, vc)
+        got = run(q, *ops, li, bias[:, 0], n_rep, scale)
+        want = plain(q, *ops, li, bias[:, 0], n_rep, scale)
+        again = run(q, *ops, li, bias[:, 0], n_rep, scale)
         torch.cuda.synchronize(device)
         acc_err = partial_err(got, want, masked)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise RuntimeError(f"wwin_decode {label}: a second launch is not bit-equal")
-        out = ww.wwin_decode_smajor(q, kc, vc, li, k_cur, v_cur, bias, n_rep=n_rep)
+            raise RuntimeError(f"{name} {label}: a second launch is not bit-equal")
+        out = wrapper(q, *ops, li, k_cur, v_cur, bias, n_rep=n_rep)
         ref = ww._merge_self_window(q, torch.repeat_interleave(k_cur, n_rep, dim=1),
                                     torch.repeat_interleave(v_cur, n_rep, dim=1), *want, scale)
         torch.cuda.synchronize(device)
         err = (out.float() - ref.float()).abs().max().item()
-        log(f"wwin_decode {label}: acc max_abs_err={acc_err:.3e} (tol 2e-3 rel + 2^-8 l), "
+        log(f"{name} {label}: acc max_abs_err={acc_err:.3e} (tol 2e-3 rel + 2^-8 l), "
             f"merged bf16 output max_abs_err={err:.3e} (tol 1e-2 + 1e-2 |ref|)")
         if not (torch.isfinite(out).all()
                 and torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=1e-2)):
-            raise RuntimeError(f"wwin_decode {label} disagrees with its plain version: {err}")
+            raise RuntimeError(f"{name} {label} disagrees with its plain version: {err}")
         return err
 
     for W in (1, 8):
@@ -2836,6 +2946,7 @@ def run_vl_snapshot_path(cfg, device, wrappers, smi, snap):
                                                         load_llava_safetensors)
     from cullavo_tpu_torch.data.registry import register_dataset
     from cullavo_tpu_torch.models.llava.modeling import init_llava_params
+    from cullavo_tpu_torch.ops import nf4
     from cullavo_tpu_torch.pipelines import vqa_pipeline
 
     params = init_llava_params(cfg, torch.Generator(device=device).manual_seed(SEED + 6), device,
@@ -2889,6 +3000,15 @@ def run_vl_snapshot_path(cfg, device, wrappers, smi, snap):
     originals = {k: getattr(mod, name) for k, (mod, name) in timers.items()}
     for k, (mod, name) in timers.items():
         setattr(mod, name, timed(k, originals[k]))
+    # K3's launches by M (rows of x): the prefill's M = 5632 and the decode's
+    k3_by_m = collections.Counter()
+    k3_cuda = nf4._int8_linear_cuda
+
+    def k3_tally(x, q):
+        k3_by_m[x.numel() // x.shape[-1]] += 1
+        return k3_cuda(x, q)
+
+    nf4._int8_linear_cuda = k3_tally
     for i in range(2):
         out_dir = os.path.join(snap, f"out{i}")
         vl = {**VL_CFG, "MODEL": {"LLM": {**VL_CFG["MODEL"]["LLM"], "LOAD_PATH": snap}},
@@ -2906,6 +3026,7 @@ def run_vl_snapshot_path(cfg, device, wrappers, smi, snap):
         torch.cuda.empty_cache()
     for k, (mod, name) in timers.items():
         setattr(mod, name, originals[k])
+    nf4._int8_linear_cuda = k3_cuda
     (res, counts, _, _, answers, _), (res2, _, _, _, answers2, _) = runs
     log(f"launches on the vl_test path: {counts}")
     if not (res["n"] == VL_QUESTIONS and math.isfinite(res["overall"])
@@ -2918,6 +3039,11 @@ def run_vl_snapshot_path(cfg, device, wrappers, smi, snap):
     log(f"vl_test: {res}; answers identical across the two runs; answers[:3] "
         f"{[a['answer'] for a in answers[:3]]}")
     log(f"vl_test prefill shapes (ids [rows, bucket]): {shapes[:2]}")
+    prefill_m = {m: n for m, n in k3_by_m.items() if m >= 1024}
+    log(f"vl_test K3 launches by M over both runs: {dict(sorted(k3_by_m.items()))}; at the "
+        f"prefill M: {prefill_m}")
+    if not prefill_m:
+        raise RuntimeError("vl_test: no prefill linear went through K3")
     for i, (_, _, wall, t, _, peak) in enumerate(runs, 1):
         ev = wall - t["build"]
         log(f"vl_test run {i} ({smi}): snapshot load + int8 quantization {t['build']:.3f} s, "
@@ -3836,11 +3962,11 @@ def main(argv):
                           "cullavo_tpu/ops/flash_attention.py:259"),
             "quant_rows": ("cullavo_tpu_torch/csrc/quant_rows.cu",
                            "cullavo_tpu/ops/nf4.py:1157"),
-            "int8_linear": ("cullavo_tpu_torch/csrc/int8_matmul.cu",
+            "int8_linear": ("cullavo_tpu_torch/csrc/nf4_gemv_sm90.cu",
                             "cullavo_tpu/ops/nf4.py:912"),
             "wwin_decode": ("cullavo_tpu_torch/csrc/wwin_decode_sm90.cu",
                             "cullavo_tpu/ops/wwin_decode.py:52"),
-            "wwin_decode_q8": ("cullavo_tpu_torch/csrc/wwin_decode.cu",
+            "wwin_decode_q8": ("cullavo_tpu_torch/csrc/wwin_decode_sm90.cu",
                                "cullavo_tpu/ops/wwin_decode.py:104"),
             "nf4_linear_planar": ("cullavo_tpu_torch/csrc/nf4_gemv_sm90.cu",
                                   "cullavo_tpu/ops/nf4.py:627"),

@@ -41,7 +41,9 @@ SIGNATURES = {
     "cullavo_flash_fwd_lse": [_P] * 5 + [_I] * 4 + [_P, _F, _P],
     "cullavo_flash_rows": [_P] * 7 + [_I] * 6 + [_P, _F, _P],
     "cullavo_quant_rows": [_P, _P, _P, _P, _I, _I, _P],
-    "cullavo_int8_linear": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # K3: x, sq_inv, q8, scale8, xs, out, workspace, counters, M, K, N and
+    # the plan (nt, g, splits)
+    "cullavo_int8_linear": [_P] * 8 + [_I] * 6 + [_P],
     "cullavo_wwin_decode": [_P] * 7 + [_I] * 7 + [_L] * 9 + [_F, _P],
     "cullavo_wwin_decode_q8": [_P] * 9 + [_I] * 7 + [_L] * 13 + [_F, _P],
     # K6 / K11: x, weight, scale, out, split-K workspace and counters, M, K,

@@ -1,5 +1,5 @@
 // One-token decode attention over the heads that share one kv head: the
-// body of K12 (csrc/flash_decode.cu) and of K4's one-row form
+// body of K12 (csrc/flash_decode.cu) and of the one-row forms of K4 and K5
 // (csrc/wwin_decode_sm90.cu, the greedy step: W = 1, n_rep = 1).
 //
 // For batch row b, kv head g and one chunk of that kv head's n_rep query
@@ -11,7 +11,11 @@
 // m = -inf, l = 0, acc = 0) and the output is normalised, o = acc / l.
 // kWindow (K4): m starts at the mask value NEG_INF, a score at or below
 // NEG_INF / 2 is gated to p = 0, acc takes bf16(p) (the probability rounded
-// as the PV product's operand) and stays unnormalised.
+// as the PV product's operand) and stays unnormalised.  Over an int8 cache
+// (K5: T = int8_t, bf16 queries) with bf16 per-slot scale planes k_s, v_s:
+//     s[j] = (q . codes_k[j]) * (k_s[j] * scale) + bias[j]
+//     acc  = sum_j bf16(p[j] * v_s[j]) codes_v[j]
+// the two scales fetched with the codes, NST - 1 stages ahead.
 //
 // Bound on the H100: bytes (each k/v slot is read once per block; ~4 d
 // operations per slot and row against 2 d or 4 d bytes).  Design:
@@ -25,7 +29,9 @@
 //     two of d / VEC, VEC elements of 16 bytes per lane), each lane copies
 //     and reads only its own 16 bytes, so the ring needs no barrier, and the
 //     dot reduces with log2(LPK) shuffles;
-//   * bf16 stays bf16 in shared memory and is widened in the dot;
+//   * bf16 and int8 stay narrow in shared memory and are widened in the
+//     dot, an int8 code exactly by a byte permute into the mantissa of 2^23
+//     and one subtraction;
 //   * each lane group keeps its own online softmax, merged by shuffles
 //     within the warp and through shared memory across the four warps, once.
 #pragma once
@@ -34,6 +40,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace decode_rows {
 
@@ -61,7 +69,12 @@ struct Params {
   long long k_sb, k_sg, k_ss, v_sb, v_sg, v_ss;
   long long b_sb, b_sh, b_sw, b_ss;
   float scale;
+  // K5's bf16 scale planes: slot (b, g, j) at ks + b * s_sb + g * s_sg + j * s_ss
+  const void* ks;
+  const void* vs;
+  long long s_sb, s_sg, s_ss;
 };
+
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -107,6 +120,54 @@ __device__ __forceinline__ void widen(const uint4& raw, float* dst, const __nv_b
     dst[2 * j + 1] = f.y;
   }
 }
+// four int8 codes (lowest byte first) -> the f32 bit patterns of their
+// values, exactly: a byte biased by 128 becomes the mantissa of 2^23, and
+// 2^23 + 128 is subtracted; the high half of each is the value in bf16
+__device__ __forceinline__ void i8x4_bits(uint32_t w, uint32_t (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440u + i)) -
+                           8388736.0f);
+}
+// the bf16 pair (low: a's value, high: b's) from two such f32 patterns
+__device__ __forceinline__ uint32_t hi_pair(uint32_t a, uint32_t b) {
+  return __byte_perm(a, b, 0x7632u);
+}
+// 16 int8 codes
+__device__ __forceinline__ void widen(const uint4& raw, float* dst, const int8_t*) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t f[4];
+    i8x4_bits(w[j], f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dst[4 * j + i] = __uint_as_float(f[i]);
+  }
+}
+
+// the 4-byte aligned word holding a bf16 (cp.async copies at least 4 bytes;
+// a tensor's storage starts 4-byte aligned, so the word lies inside it) and
+// the bf16 as f32 from that word: its high half where the element's index
+// from an aligned base is odd.  Element j of a plane row at `row` with
+// stride s is odd where odd_base(row) ^ (j & s) is 1.
+__device__ __forceinline__ const void* word_of(const __nv_bfloat16* p) {
+  return reinterpret_cast<const void*>(reinterpret_cast<uintptr_t>(p) & ~uintptr_t(3));
+}
+__device__ __forceinline__ int odd_base(const __nv_bfloat16* row) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(row) >> 1) & 1;
+}
+__device__ __forceinline__ float half_at(uint32_t word, int odd) {
+  return __uint_as_float(odd & 1 ? word & 0xFFFF0000u : word << 16);
+}
+
+// K5's scale ring (the k and v scale words of every lane's keys), in shared
+// memory only in the kernels that read it
+template <int NST, int U, int WARPS>
+__device__ __forceinline__ uint32_t* scale_ring() {
+  __shared__ uint32_t ring[NST * U * 2 * WARPS * 32];
+  return ring;
+}
 
 // weight of a partial softmax state with maximum m against the joint maximum
 // M: exp(m - M), 0 for a state that saw only -inf keys
@@ -116,6 +177,9 @@ __device__ __forceinline__ float rescale(float m, float M) {
 
 template <typename T, int NR, int MODE>
 __global__ void __launch_bounds__(THREADS) rows_kernel(const Params p) {
+  constexpr bool kQ8 = std::is_same<T, int8_t>::value;   // K5: int8 codes, bf16 q and planes
+  using QT = typename std::conditional<kQ8, __nv_bfloat16, T>::type;
+  static_assert(!kQ8 || (MODE == kWindow && NR == 1), "the int8 cache is K5's, one row a block");
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   constexpr int NST = NR == 2 ? 4 : 3;            // ring stages per warp (< 48 KB in all)
   const float kInit = MODE == kFlash ? -INFINITY : kNegInf;
@@ -137,7 +201,7 @@ __global__ void __launch_bounds__(THREADS) rows_kernel(const Params p) {
   const int grp = lane >> lg, sub = lane & (lpk - 1);
   const bool active = sub < nv;
 
-  const T* q = static_cast<const T*>(p.q);
+  const QT* q = static_cast<const QT*>(p.q);
   float qf[NR][VEC];
   const float* brow[NR];
   long long orow[NR];
@@ -148,7 +212,7 @@ __global__ void __launch_bounds__(THREADS) rows_kernel(const Params p) {
     rok[i] = r < p.n_rep;
     const int h = g * p.n_rep + (rok[i] ? r : 0);
     // q is read once, element by element (its strides need no alignment)
-    const T* qp = q + b * p.q_sb + h * p.q_sh + sub * VEC;
+    const QT* qp = q + b * p.q_sb + h * p.q_sh + sub * VEC;
 #pragma unroll
     for (int e = 0; e < VEC; ++e) qf[i][e] = rok[i] && active ? to_f32(qp[e]) : 0.f;
     brow[i] = p.bias + b * p.b_sb + h * p.b_sh;
@@ -156,6 +220,19 @@ __global__ void __launch_bounds__(THREADS) rows_kernel(const Params p) {
   }
   const T* krow = static_cast<const T*>(p.k) + b * p.k_sb + g * p.k_sg;
   const T* vrow = static_cast<const T*>(p.v) + b * p.v_sb + g * p.v_sg;
+  // K5: this lane's slot of the scale ring is [st][u][k or v][warp][lane]
+  const __nv_bfloat16* ksrow = nullptr;
+  const __nv_bfloat16* vsrow = nullptr;
+  uint32_t* sring = nullptr;
+  int kodd = 0, vodd = 0, sodd = 0;
+  if constexpr (kQ8) {
+    ksrow = static_cast<const __nv_bfloat16*>(p.ks) + b * p.s_sb + g * p.s_sg;
+    vsrow = static_cast<const __nv_bfloat16*>(p.vs) + b * p.s_sb + g * p.s_sg;
+    sring = scale_ring<NST, U, WARPS>() + warp * 32 + lane;
+    kodd = odd_base(ksrow);
+    vodd = odd_base(vsrow);
+    sodd = static_cast<int>(p.s_ss & 1);
+  }
 
   const int bk = WARPS * U * kpw;                 // keys per block stage
   const int n_st = (p.S + bk - 1) / bk;
@@ -174,6 +251,11 @@ __global__ void __launch_bounds__(THREADS) rows_kernel(const Params p) {
 #pragma unroll
         for (int i = 0; i < NR; ++i)
           cp_async4(&ring_b[st][u][i][warp][lane], brow[i] + j * p.b_ss, in && rok[i]);
+        if constexpr (kQ8) {
+          uint32_t* sr = sring + (st * U + u) * 2 * WARPS * 32;
+          cp_async4(sr, word_of(ksrow + j * p.s_ss), in);
+          cp_async4(sr + WARPS * 32, word_of(vsrow + j * p.s_ss), in);
+        }
       }
     }
     cp_async_commit();
@@ -195,13 +277,19 @@ __global__ void __launch_bounds__(THREADS) rows_kernel(const Params p) {
     issue(t + NST - 1);
     cp_async_wait<NST - 1>();
     const int st = t % NST;
-    float s[U][NR], vf[U][VEC];
+    float s[U][NR], vf[U][VEC], v_s[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int key = t * bk + (warp * U + u) * kpw + grp;
       float kf[VEC];
       widen(ring_k[st][u][warp][lane], kf, static_cast<const T*>(nullptr));
       widen(ring_v[st][u][warp][lane], vf[u], static_cast<const T*>(nullptr));
+      float kscale = p.scale;
+      if constexpr (kQ8) {
+        const uint32_t* sr = sring + (st * U + u) * 2 * WARPS * 32;
+        kscale = __fmul_rn(half_at(sr[0], kodd ^ (key & sodd)), p.scale);
+        v_s[u] = half_at(sr[WARPS * 32], vodd ^ (key & sodd));
+      }
 #pragma unroll
       for (int i = 0; i < NR; ++i) {
         float dot = 0.f;
@@ -209,7 +297,7 @@ __global__ void __launch_bounds__(THREADS) rows_kernel(const Params p) {
         for (int e = 0; e < VEC; ++e) dot = fmaf(qf[i][e], kf[e], dot);
         for (int off = lpk >> 1; off > 0; off >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
-        s[u][i] = key < p.S ? dot * p.scale + ring_b[st][u][i][warp][lane] : kInit;
+        s[u][i] = key < p.S ? dot * kscale + ring_b[st][u][i][warp][lane] : kInit;
       }
     }
 #pragma unroll
@@ -227,6 +315,7 @@ __global__ void __launch_bounds__(THREADS) rows_kernel(const Params p) {
         else
           pu[u] = s[u][i] > kValidFloor ? expf(s[u][i] - m_new) : 0.f;
         psum += pu[u];
+        if constexpr (kQ8) pu[u] = __fmul_rn(pu[u], v_s[u]);
         if (MODE == kWindow) pu[u] = __bfloat162float(__float2bfloat16_rn(pu[u]));
       }
       l_run[i] = l_run[i] * alpha + psum;

@@ -1,7 +1,7 @@
-// The fused NF4 dequant-matmul at decode M on Hopper (kernels K6 and K11):
-// one template over the weight format, written for the H100 with TMA loads
-// into an mbarrier ring, the weight decoded in registers straight into the
-// A fragments of wgmma, and split-K reduced in the same launch.
+// The fused weight-only linears on Hopper (kernels K6, K11 and K3): one
+// template over the weight format, written for the H100 with TMA loads into
+// an mbarrier ring, the weight decoded in registers straight into the A
+// fragments of wgmma, and split-K reduced in the same launch.
 //
 // Replaces, in cullavo_tpu/ops/nf4.py:
 //  * K6 (kPlanar): nf4_linear_planar -> _nf4_planar_sx_kernel (Pallas row
@@ -16,30 +16,45 @@
 //    same scale layout.  The f32 weight w = f32(code * scale) is taken as two
 //    bf16 terms, hi = bf16(w) and lo = bf16(w - hi), each against the exact
 //    bf16 x:  y[m, n] = sum_k x[m, k] * hi[k, n] + x[m, k] * lo[k, n]
-// Both sum in f32 and round once to bf16.
+//  * K3 (kInt8): int8_linear_pallas -> _int8_matmul_kernel (row 12), as
+//    int8_linear computes it (the scale after the dot):
+//        xs = bf16(x * sq_inv)        (only for a dict with sq_inv: a prologue)
+//        y[m, n] = bf16( (sum_k xs[m, k] * q8[k, n]) * scale8[n] )
+//    Weight int8 [K, N], N % 16 == 0; an int8 code is exact in bf16 and a
+//    bf16 product exact in f32, so only the order of the f32 sum differs
+//    from the plain version.
+// All sum in f32 and round once to bf16.
 //
-// Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16): bytes.  0.5625 byte per
-// weight (the 4-bit code and 1/64 of an f32 scale) against 2 M operations
-// (K11: 4 M with its two terms); at the serving M = 64 K6 is 228 operations
-// per byte, close to the card's ~295, so the tensor cores must run at ~3/4
-// of their peak just to keep pace with the weight stream.  What limits a
-// kernel here is the work around the stream: decoding 4-bit codes (and, for
-// K6, scaling x once per 64-column block) costs issue slots and shared
-// memory bandwidth per weight.
+// Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16).  At decode M, bytes:
+// 0.5625 byte per weight for NF4 (the 4-bit code and 1/64 of an f32 scale),
+// 1 for int8, against 2 M operations (K11: 4 M with its two terms); at the
+// serving M = 64 K6 is 228 operations per byte, close to the card's ~295, so
+// the tensor cores must run at ~3/4 of their peak just to keep pace with the
+// weight stream.  What limits a kernel here is the work around the stream:
+// decoding 4-bit codes (and, for K6, scaling x once per 64-column block)
+// costs issue slots and shared memory bandwidth per weight; an int8 code is
+// widened exactly in a few ALU instructions.  At prefill M (K3 at M = 5632,
+// the vl_test prompts), operations: 2 M K N at the bf16 peak, and the token
+// tile grows to 256 (wgmma's widest N) so that one decoded weight stage
+// feeds 256 tokens and its decode is small beside the stage's wgmmas.
 //
 // Design:
-//  * orientation: y^T = W^T x^T.  One 64-column absmax block is one wgmma
-//    M = 64 tile; the tokens are its N side (NT = 16, 32 or 64; a larger M
-//    takes several token tiles, grid z).  x is the K-major B operand.
+//  * orientation: y^T = W^T x^T.  One 64-column block is one wgmma M = 64
+//    tile; the tokens are its N side (NT = 16, 32 or 64; K3 also 128 and
+//    256; a larger M takes several token tiles, grid z).  x is the K-major B
+//    operand.
 //  * a CTA: G consumer warpgroups (G = 1, 2 or 4 blocks of 64 columns, one
-//    each; a template parameter, so every shared-memory offset folds) and
-//    one producer warp.  The producer keeps a ring of up to 16 stages of 64
-//    k in flight, each signalled on its full mbarrier: the weight tile by
-//    TMA (K11: one box of 32G bytes x 64 rows, swizzled over its 32G-byte
-//    width; K6: 2G boxes of 32 words x 8 word rows, 128-byte swizzle; both
-//    conflict-free for the consumers' reads), the x tile [NT][64] by TMA
-//    with the 128-byte swizzle, and the scales [G][64] by 4-byte cp.async (a
-//    scale row need not be 16-byte aligned) through
+//    each; K3 1 or 2, for the 256-token accumulator's registers, and at
+//    decode M two measured at least as fast as four; a template parameter,
+//    so every shared-memory offset folds) and one producer warp.
+//    The producer keeps a ring of up to 16 stages of 64 k in flight, each
+//    signalled on its full mbarrier: the weight tile by TMA (K11: one box of
+//    32G bytes x 64 rows, swizzled over its 32G-byte width; K6: 2G boxes of
+//    32 words x 8 word rows, 128-byte swizzle; K3: boxes of min(64G, 128)
+//    bytes x 64 rows, swizzled over their width, a box wholly past N not
+//    loaded; all conflict-free for the consumers' reads), the x tile
+//    [NT][64] by TMA with the 128-byte swizzle, and (NF4) the scales [G][64]
+//    by 4-byte cp.async (a scale row need not be 16-byte aligned) through
 //    cp.async.mbarrier.arrive.noinc.  K6's stage needs x at 8 planes (k =
 //    pl K/8 + 8 i + r): one box of a 3-D map of x (k8, row, plane) brings
 //    the eight plane slices as [plane][NT][8].
@@ -61,32 +76,50 @@
 //      the row order is free; the epilogue undoes it).  w = f32(code * s)
 //      through a 16-entry f32 table in shared memory, split into hi and lo;
 //      two wgmmas per k-step against the same B, one commit per stage.
-//  * x once per CTA: the G warpgroups share the raw x tile.  K11 uses it as
-//    B directly.  K6 needs bf16(x * s[:, c]) for its block c: each
+//    - K3: fragment rows g and g + 8 are the weight columns 2g and 2g + 1 of
+//      the warp's 16 (the per-column scale comes after the dot, so the row
+//      order is free), so ldmatrix.trans over the byte tile, its 16-bit
+//      elements being column pairs, hands each thread the four bytes (k 2t,
+//      2t + 1) x (columns 2g, 2g + 1): two ldmatrix.x4 a stage.  Four bytes
+//      become two bf16 pairs exactly by byte permutes into the mantissa of
+//      2^23, one subtraction each and two permutes that keep the high
+//      halves.
+//  * x once per CTA: the G warpgroups share the raw x tile.  K11 and K3 use
+//    it as B directly.  K6 needs bf16(x * s[:, c]) for its block c: each
 //    warpgroup scales the raw tile into its own swizzled B buffer (double
 //    buffered), in the permuted column order above, and syncs on its own
-//    named barrier.
+//    named barrier.  K3 with sq_inv reads xs, written by a prologue kernel
+//    in the same entry point.
 //  * split-K over S <= 8 CTAs along K, reduced in the same launch: each CTA
 //    sums its K range in registers and writes the partial tile to an f32
 //    workspace; the launch is cooperative (all CTAs resident), so once a
 //    tile's S partials are in (a per-tile counter) each of its CTAs adds its
-//    1/S of the entries over the S partials in split order and writes bf16,
-//    then drops the lines it read unwritten (discard.global.L2): the
-//    workspace costs L2 traffic, no device-memory write-back.  Two calls are
-//    bit-identical.  (One CTA adding all S partials was the slowest part of
-//    the kernel at M = 64.  A cluster along K reduced through distributed
-//    shared memory needs no workspace, but on the H100 clusters of 3, 7 and
-//    8 of these CTAs, one per SM, did not co-schedule and ran slower, so the
-//    cluster sizes that did left a quarter of the SMs idle at the 7B
-//    shapes.)
+//    1/S of the entries over the S partials in split order and writes bf16
+//    (K3: times scale8 first), then drops the lines it read unwritten
+//    (discard.global.L2): the workspace costs L2 traffic, no device-memory
+//    write-back.  Two calls are bit-identical.  (One CTA adding all S
+//    partials was the slowest part of the kernel at M = 64.  A cluster along
+//    K reduced through distributed shared memory needs no workspace, but on
+//    the H100 clusters of 3, 7 and 8 of these CTAs, one per SM, did not
+//    co-schedule and ran slower, so the cluster sizes that did left a
+//    quarter of the SMs idle at the 7B shapes.)  At prefill M the planner
+//    takes S = 1: no workspace.
 //  * the plan (NT, G, S) comes from the wrapper's pure planner
-//    (ops/nf4.nf4_gemv_plan); the entry point checks it and sizes the ring
-//    to the shared memory left.
-//  * what bounds it: the consumers.  With their work taken out, the
+//    (ops/nf4.nf4_gemv_plan, ops/nf4.int8_gemv_plan); the entry point checks
+//    it and sizes the ring to the shared memory left.
+//  * what bounds K6 and K11: the consumers.  With their work taken out, the
 //    producer's loads alone run several times faster: the decode's issue
 //    slots and shared-memory loads (K11: one table lookup per weight), K6's
 //    per-block scaling of x, and wgmma at N = 16 keep the kernels at 5-6x
 //    the byte bound on the H100 (chip_smoke.py, phase 3).
+//  * K3 on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 3, card alone,
+//    sums over the three 7B shapes): at M = 14 ~0.09-0.10 ms against the
+//    0.032 byte bound, under the dense bf16 product on a dequantized weight
+//    (0.118); at M = 5632 ~1.9 ms against the 1.22 operations bound, 1.2x
+//    that dense product (1.58).  ptxas reports every instantiation of this
+//    template serialized (C7513: the A registers are written by the decode
+//    while the previous stage's wgmmas may be in flight); two warpgroups
+//    interleave around it.
 // Launches on the caller's stream and allocates nothing.  The host reaches
 // cuTensorMapEncodeTiled through cudaGetDriverEntryPoint (no -lcuda).
 
@@ -97,7 +130,7 @@
 
 namespace {
 
-constexpr int kPlanar = 0, kBytes = 1;
+constexpr int kPlanar = 0, kBytes = 1, kInt8 = 2;
 constexpr int QB = 64;               // columns per absmax block = rows of a wgmma tile
 constexpr int KSTAGE = 64;           // k values per ring stage
 constexpr int MAX_STAGES = 16;
@@ -121,11 +154,11 @@ constexpr uint32_t kHi0 = 0xbebfbfbfu, kHi1 = 0x00bdbebeu, kHi2 = 0x3e3e3e3du,
                    kHi3 = 0x3f3f3f3eu;
 
 struct Params {
-  const float* scale;
+  const float* scale;    // NF4: the absmax [K, N/64]; K3: scale8 [N]
   __nv_bfloat16* out;
   float* ws;     // split-K partial sums, [tile][split][64 G NT] (S > 1)
   int* ctr;      // per output tile: splits done (0 between launches)
-  int M, K, N, K8, NB;   // NB = N / 64
+  int M, K, N, K8, NB;   // NB = ceil(N / 64)
   int S, stages, n_kst;
   uint32_t off_bc, off_bar;
 };
@@ -270,12 +303,90 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// K3's token tiles of 128 and 256 (one wgmma as wide as the card takes)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // ---- decoding -------------------------------------------------------------------
+
+// four 8 x 8 matrices of 16-bit elements, transposed: lanes 8i .. 8i + 7
+// address the rows of matrix i; r[i] holds (row 2t, column g) in its low and
+// (row 2t + 1, column g) in its high half (t = lane % 4, g = lane / 4)
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
 
 __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
   uint32_t d;
   asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
   return d;
+}
+
+// K3: four int8 bytes (b0 b1 b2 b3, lowest first) -> the bf16 pairs (b0, b2)
+// and (b1, b3), exactly: each byte, biased by 128, becomes the mantissa of
+// 2^23 (a byte permute), 2^23 + 128 is subtracted, and the high half of an
+// f32 holding an integer of at most 8 bits is that integer in bf16
+__device__ __forceinline__ void widen_i8(uint32_t w, uint32_t& p02, uint32_t& p13) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(prmt(u, 0x4B000000u, 0x7440u + i)) - 8388736.0f;
+  p02 = prmt(__float_as_uint(f[0]), __float_as_uint(f[2]), 0x7632u);
+  p13 = prmt(__float_as_uint(f[1]), __float_as_uint(f[3]), 0x7632u);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -320,7 +431,9 @@ __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v 
 // C++ pointers (the compiler batches a stage's loads), ordered by the
 // barrier and wgmma asm statements, which clobber memory.  Every stage sits
 // at a 1024-byte boundary, so a swizzled offset within a stage is the same
-// in every stage and is computed once.
+// in every stage and is computed once.  A stage holds the weight tile, the x
+// tile [NT][64] and (NF4) the scales [G][64]; K3's weight tile is NBOX boxes
+// of [64][BOXW] bytes, BOXW = min(64 G, 128).
 template <int FMT, int NT, int G>
 __global__ void __launch_bounds__(128 * G + 32, 1)
 nf4_gemv_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant__ CUtensorMap tm_x,
@@ -328,9 +441,11 @@ nf4_gemv_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __shared__ float lut[16];
   constexpr int NACC = NT / 2;
-  constexpr uint32_t OFF_X = 2048u * G;              // stage: weights, x [NT][64], scales
+  constexpr bool kQ8 = FMT == kInt8;
+  constexpr uint32_t OFF_X = (kQ8 ? 4096u : 2048u) * G;   // stage: weights, x [NT][64], scales
   constexpr uint32_t OFF_SC = OFF_X + 128u * NT;
-  constexpr uint32_t STAGE = OFF_SC + SC_BYTES;
+  constexpr uint32_t STAGE = OFF_SC + (kQ8 ? 0u : SC_BYTES);
+  constexpr int BOXW = 64 * G < 128 ? 64 * G : 128, NBOX = 64 * G / BOXW;
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
   uint8_t* const gbase = smem_raw + (base - raw);   // the same byte, as a generic pointer
@@ -346,7 +461,7 @@ nf4_gemv_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
   if (tid < 16) lut[tid] = kCode[tid];
   if (tid == 0) {
     for (int s = 0; s < p.stages; ++s) {
-      mbar_init(bar_full + 8 * s, 33);          // the TMA thread + 32 cp.async arrivals
+      mbar_init(bar_full + 8 * s, kQ8 ? 1 : 33);   // the TMA thread (+ 32 cp.async arrivals)
       mbar_init(bar_empty + 8 * s, 4 * G);      // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -360,13 +475,30 @@ nf4_gemv_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
   if (warp == 4 * G) {
     // ---- producer ----
     // TMA: the weight tile (K11: one [64][32G] box; K6: 2G boxes of [8][32]
-    // words) and the x tile [NT][64]; cp.async: the scales [G][64]
+    // words; K3: NBOX boxes of [64][BOXW] bytes) and the x tile [NT][64];
+    // cp.async (NF4): the scales [G][64]
     int st = 0;
     uint32_t ph = 0;
+    // K3: a box wholly past N is not loaded (its warpgroups store nothing)
+    const int nbox = kQ8 ? min(NBOX, (p.N - col0 + BOXW - 1) / BOXW) : 0;
     for (int i = 0; i < n_local; ++i) {
       const int kst = kst0 + i;
       mbar_wait(bar_empty + 8 * st, ph ^ 1);   // the first round finds every stage free
       const uint32_t sb = base + st * STAGE, full = bar_full + 8 * st;
+      if constexpr (kQ8) {
+        if (lane == 0) {
+          mbar_expect_tx(full, nbox * 64u * BOXW + 128u * NT);
+#pragma unroll
+          for (int b = 0; b < NBOX; ++b)
+            if (b < nbox) tma_load(sb + b * 64 * BOXW, &tm_w, full, col0 + b * BOXW, kst * KSTAGE);
+          tma_load(sb + OFF_X, &tm_x, full, kst * KSTAGE, m0);
+        }
+        if (++st == p.stages) {
+          st = 0;
+          ph ^= 1;
+        }
+        continue;
+      }
       if (lane == 0) {
         mbar_expect_tx(full, STAGE - SC_BYTES);
         if (FMT == kBytes) {
@@ -402,6 +534,64 @@ nf4_gemv_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
         ph ^= 1;
       }
     }
+  } else if constexpr (kQ8) {
+    // ---- K3 consumers ----
+    // fragment rows g and g + 8 of warp w are the weight columns 16 w + 2g
+    // and 16 w + 2g + 1 of the block.  ldmatrix.x4.trans over half a stage
+    // (32 k): lane 8 i + r addresses k row 32 h + 8 i + r (= 32 h + lane) at
+    // the warp's 16 bytes, 64 c + 16 w, of the tile's row; matrix i gives
+    // k-step 2 h + i / 2, k 2t, 2t + 1 (i even) or 2t + 8, 2t + 9 (i odd).
+    const int c = warp >> 2, w = warp & 3;
+    uint32_t lofs[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = 64 * c + 16 * w, k = 32 * h + lane;
+      lofs[h] = (col / BOXW) * 64 * BOXW + swz<BOXW>(k * BOXW + col % BOXW);
+    }
+    uint32_t a0[4][4], a1[4][4];
+    auto stage = [&](int st, uint32_t ph, int prev, bool release, uint32_t (&a)[4][4],
+                     uint32_t (&other)[4][4]) {
+      mbar_wait(bar_full + 8 * st, ph);
+      const uint32_t sb = base + st * STAGE;
+      uint32_t r[2][4];
+      ldsm_x4_trans(r[0], sb + lofs[0]);
+      ldsm_x4_trans(r[1], sb + lofs[1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          widen_i8(r[h][i], a[2 * h + (i >> 1)][2 * (i & 1)], a[2 * h + (i >> 1)][2 * (i & 1) + 1]);
+      const uint64_t dx = smem_desc(sb + OFF_X, 16, 1024);
+      wg_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) wgmma_rs(acc, a[ks], dx + ((32 * ks) >> 4));
+      wg_commit();
+      // the previous stage's wgmmas are done: its A registers and x are free
+      wg_wait<1>();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) fence_regs(other[ks]);
+      if (release && lane == 0) mbar_arrive(bar_empty + 8 * prev);
+    };
+    int st = 0, prev = 0;
+    uint32_t ph = 0;
+    for (int i = 0; i < n_local; i += 2) {
+      stage(st, ph, prev, i > 0, a0, a1);
+      prev = st;
+      if (++st == p.stages) {
+        st = 0;
+        ph ^= 1;
+      }
+      if (i + 1 < n_local) {
+        stage(st, ph, prev, true, a1, a0);
+        prev = st;
+        if (++st == p.stages) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+    wg_wait<0>();
+    fence_regs(acc);
   } else if (FMT == kBytes) {
     // ---- K11 consumers ----
     constexpr uint32_t PITCH = 32u * G;            // bytes per k row of the weight tile
@@ -575,20 +765,41 @@ nf4_gemv_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
   }
 
   // ---- epilogue: acc entry 4 j + e is row 16 w + g + 8 (e >> 1) of the block
-  // (K6: that column; K11: column 16 w + 2 g + (e >> 1)), token 8 j + 2 t + (e & 1)
+  // (K6: that column; K11, K3: column 16 w + 2 g + (e >> 1)), token 8 j + 2 t
+  // + (e & 1); K3 scales the f32 sum by scale8 of its column, then rounds
   const bool consumer = warp < 4 * G;
   const int c = warp >> 2, w = warp & 3, g = lane >> 2, t = lane & 3, ctid = tid & 127;
   auto store = [&](int i, float v) {
     const int j = i >> 2, e = i & 3;
     const int n = col0 + c * QB +
-                  (FMT == kBytes ? 16 * w + 2 * g + (e >> 1) : 16 * w + g + 8 * (e >> 1));
+                  (FMT != kPlanar ? 16 * w + 2 * g + (e >> 1) : 16 * w + g + 8 * (e >> 1));
     const int m = m0 + 8 * j + 2 * t + (e & 1);
-    if (m < p.M && n < p.N) p.out[static_cast<long long>(m) * p.N + n] = __float2bfloat16_rn(v);
+    if (m < p.M && n < p.N) {
+      if (kQ8) v = __fmul_rn(v, p.scale[n]);
+      p.out[static_cast<long long>(m) * p.N + n] = __float2bfloat16_rn(v);
+    }
   };
   if (p.S == 1) {
     if (consumer) {
+      if constexpr (kQ8) {
+        // columns n, n + 1 (both below N or both not: N % 16 == 0) as one pair
+        const int n = col0 + c * QB + 16 * w + 2 * g;
+        if (n < p.N) {
+          const float s0 = p.scale[n], s1 = p.scale[n + 1];
 #pragma unroll
-      for (int i = 0; i < NACC; ++i) store(i, acc[i]);
+          for (int i = 0; i < NACC; i += 4)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int m = m0 + 2 * i + 2 * t + e;   // token 8 (i / 4) + 2 t + e
+              if (m < p.M)
+                *reinterpret_cast<uint32_t*>(p.out + static_cast<long long>(m) * p.N + n) =
+                    pack_bf16(__fmul_rn(acc[i + e], s0), __fmul_rn(acc[i + 2 + e], s1));
+            }
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) store(i, acc[i]);
+      }
     }
     return;
   }
@@ -713,8 +924,10 @@ template <int FMT, int NT, int G>
 int launch(const void* x, const void* wq, const void* scale, void* out, void* ws, void* ctr, int M,
            int K, int N, int xp, int S, cudaStream_t stream) {
   const int n_kst = (K + KSTAGE - 1) / KSTAGE;
-  if (M < 1 || K < 8 || K % 8 || N < QB || N % QB || G > N / QB || S < 1 || S > 8 || S > n_kst ||
-      (S > 1 && (ws == nullptr || ctr == nullptr)) ||
+  constexpr int NALIGN = FMT == kInt8 ? 16 : QB;   // K3 takes N % 16 == 0
+  const int nb = (N + QB - 1) / QB;
+  if (M < 1 || K < 8 || K % 8 || N < NALIGN || N % NALIGN || G > nb || S < 1 || S > 8 ||
+      S > n_kst || (S > 1 && (ws == nullptr || ctr == nullptr)) ||
       (FMT == kPlanar && (xp < K / 8 || xp % 8 || xp > 8 * n_kst)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(wq) % 16)
@@ -723,7 +936,15 @@ int launch(const void* x, const void* wq, const void* scale, void* out, void* ws
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tm_w, tm_x;
   bool ok;
-  if (FMT == kBytes) {
+  if (FMT == kInt8) {
+    // the weight tile: boxes of min(64 G, 128) bytes x 64 rows, swizzled
+    // over their width (zeros past N and K); x [M, K] as K11's
+    constexpr int BOXW = 64 * G < 128 ? 64 * G : 128;
+    ok = encode2d(&tm_w, fn, CU_TENSOR_MAP_DATA_TYPE_UINT8, wq, N, K, N, BOXW, KSTAGE,
+                  BOXW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B) &&
+         encode2d(&tm_x, fn, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, 2LL * K, KSTAGE, NT,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+  } else if (FMT == kBytes) {
     // the weight tile: one box of the CTA's 32 G bytes x 64 rows, swizzled over its width
     const CUtensorMapSwizzle sw = G == 1   ? CU_TENSOR_MAP_SWIZZLE_32B
                                   : G == 2 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -746,9 +967,10 @@ int launch(const void* x, const void* wq, const void* scale, void* out, void* ws
   p.out = static_cast<__nv_bfloat16*>(out);
   p.ws = static_cast<float*>(ws);
   p.ctr = static_cast<int*>(ctr);
-  p.M = M, p.K = K, p.N = N, p.K8 = K / 8, p.NB = N / QB;
+  p.M = M, p.K = K, p.N = N, p.K8 = K / 8, p.NB = nb;
   p.S = S, p.n_kst = n_kst;
-  const uint32_t stage_bytes = 2048u * G + 128u * NT + SC_BYTES;
+  const uint32_t stage_bytes =
+      FMT == kInt8 ? 4096u * G + 128u * NT : 2048u * G + 128u * NT + SC_BYTES;
   const uint32_t bc = FMT == kPlanar ? 256u * G * NT : 0u;   // K6's B buffers, 2 per warpgroup
   const int longest = (n_kst + S - 1) / S;
   const int fit = static_cast<int>((SMEM_LIMIT - 1024 - BAR_BYTES - bc) / stage_bytes);
@@ -769,7 +991,7 @@ int launch(const void* x, const void* wq, const void* scale, void* out, void* ws
   // split-K waits for a tile's S CTAs: launched cooperatively (every CTA
   // resident at once, or the launch fails)
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(S, (N / QB + G - 1) / G, (M + NT - 1) / NT);
+  cfg.gridDim = dim3(S, (nb + G - 1) / G, (M + NT - 1) / NT);
   cfg.blockDim = dim3(128 * G + 32);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -802,6 +1024,49 @@ int dispatch(const void* x, const void* wq, const void* scale, void* out, void* 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// K3: one or two 64-column blocks a CTA at every token tile (a 64 x 256 f32
+// accumulator per thread of a warpgroup leaves room for at most two
+// warpgroups; at decode M two measured at least as fast as four)
+template <int NT>
+int launch_int8(const void* x, const void* q8, const void* scale8, void* out, void* ws, void* ctr,
+                int M, int K, int N, int G, int S, cudaStream_t st) {
+  if (G == 1) return launch<kInt8, NT, 1>(x, q8, scale8, out, ws, ctr, M, K, N, 0, S, st);
+  if (G == 2) return launch<kInt8, NT, 2>(x, q8, scale8, out, ws, ctr, M, K, N, 0, S, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int dispatch_int8(const void* x, const void* q8, const void* scale8, void* out, void* ws, void* ctr,
+                  int M, int K, int N, int nt, int G, int S, cudaStream_t st) {
+  if (nt == 16) return launch_int8<16>(x, q8, scale8, out, ws, ctr, M, K, N, G, S, st);
+  if (nt == 32) return launch_int8<32>(x, q8, scale8, out, ws, ctr, M, K, N, G, S, st);
+  if (nt == 64) return launch_int8<64>(x, q8, scale8, out, ws, ctr, M, K, N, G, S, st);
+  if (nt == 128) return launch_int8<128>(x, q8, scale8, out, ws, ctr, M, K, N, G, S, st);
+  if (nt == 256) return launch_int8<256>(x, q8, scale8, out, ws, ctr, M, K, N, G, S, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K3's prologue for a dict with sq_inv: xs[m, k] = bf16(x[m, k] * sq_inv[k]),
+// the one rounding of int8_linear; eight values a thread
+__global__ void int8_linear_prep(const __nv_bfloat16* __restrict__ x,
+                                 const __nv_bfloat16* __restrict__ sq_inv,
+                                 __nv_bfloat16* __restrict__ xs, int K, long long n8) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n8) return;
+  const int k0 = static_cast<int>((8 * i) % K);
+  const uint4 xv = reinterpret_cast<const uint4*>(x)[i];
+  const uint4 sv = *reinterpret_cast<const uint4*>(sq_inv + k0);
+  const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&xv);
+  const __nv_bfloat162* sp = reinterpret_cast<const __nv_bfloat162*>(&sv);
+  uint4 o;
+  uint32_t* op = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 a = __bfloat1622float2(xp[j]), b = __bfloat1622float2(sp[j]);
+    op[j] = pack_bf16(__fmul_rn(a.x, b.x), __fmul_rn(a.y, b.y));
+  }
+  reinterpret_cast<uint4*>(xs)[i] = o;
+}
+
 }  // namespace
 
 // K6: x bf16 [M, 8 xp] (16-byte aligned), plane pl's values at columns
@@ -825,4 +1090,32 @@ extern "C" int cullavo_nf4_gemv_q4(const void* x, const void* q4, const void* sc
                                    void* ws, void* ctr, int M, int K, int N, int nt, int G, int S,
                                    void* stream) {
   return dispatch<kBytes>(x, q4, scale, out, ws, ctr, M, K, N, 0, nt, G, S, stream);
+}
+
+// K3: x bf16 [M, K] (16-byte aligned); sq_inv bf16 [K] or null (16-byte
+// aligned); q8 int8 [K, N] (16-byte aligned); scale8 f32 [N]; xs: bf16 [M, K]
+// scratch for bf16(x * sq_inv) (16-byte aligned; unused without sq_inv); out
+// bf16 [M, N].  K % 8 == 0 (x's rows are a tensor map's 16-byte strides),
+// N % 16 == 0.  (nt, G, S) as int8_gemv_plan gives them (nt up to 256, G 1
+// or 2); ws and ctr as for K6.
+extern "C" int cullavo_int8_linear(const void* x, const void* sq_inv, const void* q8,
+                                   const void* scale8, void* xs, void* out, void* ws, void* ctr,
+                                   int M, int K, int N, int nt, int G, int S, void* stream) {
+  if (M < 1 || K < 8 || K % 8) return static_cast<int>(cudaErrorInvalidValue);
+  const void* xin = x;
+  if (sq_inv != nullptr) {
+    if (xs == nullptr || reinterpret_cast<uintptr_t>(x) % 16 ||
+        reinterpret_cast<uintptr_t>(sq_inv) % 16 || reinterpret_cast<uintptr_t>(xs) % 16)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+    const long long n8 = static_cast<long long>(M) * K / 8;
+    int8_linear_prep<<<static_cast<unsigned>((n8 + 255) / 256), 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(sq_inv),
+        static_cast<__nv_bfloat16*>(xs), K, n8);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    xin = xs;
+  }
+  return dispatch_int8(xin, q8, scale8, out, ws, ctr, M, K, N, nt, G, S,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -14,8 +14,10 @@ live here:
 * K2 ``quantize_rows`` (``csrc/quant_rows.cu``): the per-token activation
   quantizer in front of every s8s8 prefill GEMM, bit-identical to the JAX
   chain (``_quant_inv_scale``).
-* K3 ``int8_linear`` (``csrc/int8_matmul.cu``): ``x @ (q8 * scale8)`` with
-  the weight kept int8 in device memory, the decode-M linear.
+* K3 ``int8_linear`` (``csrc/nf4_gemv_sm90.cu``, the int8 instantiation of
+  K6's template): ``x @ (q8 * scale8)`` with the weight kept int8 in device
+  memory, at every M (decode, and the prefill of dicts without ``sq_inv``);
+  ``int8_gemv_plan`` picks its tiles and splits.
 * K6 ``nf4_linear_planar`` (``csrc/nf4_gemv_sm90.cu``): ``x @ dequant(q4p,
   scale)`` with the weight kept 4-bit in device memory, for M < 512.
 * K7 ``nf4_dequant_planar`` (``csrc/nf4_planar.cu``): planar NF4 -> dense
@@ -132,15 +134,10 @@ def int8_linear(x: torch.Tensor, q: dict) -> torch.Tensor:
 int8_linear.launches = 0
 
 
-def _int8_linear_splits(M: int, K: int, N: int, device) -> int:
-    """K splits so that the (column block x row block x split) grid covers
-    the SMs about twice (the kernel's 128-column, 16-row, 64-k tiles)."""
-    blocks = -(-N // 128) * -(-M // 16)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-K // 64), -(-2 * sms // blocks)))
-
-
 def _int8_linear_cuda(x, q):
+    """K3 on CUDA tensors: one launch of the int8 instantiation of the fused
+    template at every M (with ``sq_inv``, its prologue writes bf16(x *
+    sq_inv) first, in the same C entry point)."""
     q8, scale8, sq_inv = q["q8"], q["scale8"], q.get("sq_inv")
     K, N = q8.shape[-2], q8.shape[-1]
     if x.dtype != torch.bfloat16 or x.shape[-1] != K:
@@ -148,8 +145,8 @@ def _int8_linear_cuda(x, q):
                          f"{x.dtype} {tuple(x.shape)}")
     if q8.dtype != torch.int8 or q8.dim() != 2 or not q8.is_contiguous():
         raise ValueError("int8_linear: q8 must be a contiguous int8 [K, N] matrix")
-    if N % 16 or K % 4 or q8.data_ptr() % 16:
-        raise ValueError(f"int8_linear: the kernel needs N % 16 == 0, K % 4 == 0 "
+    if N % 16 or K % 8 or q8.data_ptr() % 16:
+        raise ValueError(f"int8_linear: the kernel needs N % 16 == 0, K % 8 == 0 "
                          f"and a 16-byte aligned weight (K={K}, N={N})")
     if scale8.dtype != torch.float32 or scale8.numel() != N or not scale8.is_contiguous():
         raise ValueError("int8_linear: scale8 must be a contiguous f32 [1, N]")
@@ -160,18 +157,25 @@ def _int8_linear_cuda(x, q):
         sq_inv = sq_inv.to(torch.bfloat16).contiguous()
         if sq_inv.numel() != K:
             raise ValueError("int8_linear: sq_inv must hold K values")
+        if sq_inv.data_ptr() % 16:
+            sq_inv = sq_inv.clone()
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K).contiguous()
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
     M = x2.shape[0]
-    splits = _int8_linear_splits(M, K, N, x.device)
-    xs = torch.empty((-(-M // 16) * 16, K), dtype=torch.float32, device=x.device)
-    partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+    if M < 1:
+        raise ValueError("int8_linear: x has no rows")
+    plan = int8_gemv_plan(M, K, N, _sm_count(x.device))
+    ws, ctr = _gemv_scratch(plan, x.device)
+    xs = None if sq_inv is None else torch.empty_like(x2)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=x.device)
     lib = _build.lib()
     err = lib.cullavo_int8_linear(
-        x2.data_ptr(), None if sq_inv is None else sq_inv.data_ptr(),
-        q8.data_ptr(), scale8.data_ptr(), xs.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), M, K, N, splits, torch.cuda.current_stream(x.device).cuda_stream)
+        x2.data_ptr(), None if sq_inv is None else sq_inv.data_ptr(), q8.data_ptr(),
+        scale8.data_ptr(), None if xs is None else xs.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), None if ctr is None else ctr.data_ptr(), M, K, N,
+        plan["nt"], plan["g"], plan["splits"], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "int8_linear")
     int8_linear.launches += 1
     return out.reshape(*lead, N)
@@ -441,13 +445,31 @@ nf4_linear_planar.launches = 0
 
 
 # the fused kernels' tiling (csrc/nf4_gemv_sm90.cu): k values per ring stage,
-# token tiles (the wgmma N side), 64-column blocks per CTA (one consumer
-# warpgroup each; a CTA of 4 measured faster than more CTAs of 1 or 2) and
-# the most splits along K
+# token tiles (the wgmma N side; K3 also 128 and 256 at prefill M), 64-column
+# blocks per CTA (one consumer warpgroup each; for K6 / K11 a CTA of 4
+# measured faster than more CTAs of 1 or 2; for K3 2 measured at least as
+# fast as 4 at the 7B shapes and decode M, and 2 is the most beside a 256-token
+# accumulator) and the most splits along K
 _GEMV_KSTAGE = 64
 _GEMV_TOKENS = (16, 32, 64)
+_INT8_TOKENS = (16, 32, 64, 128, 256)
 _GEMV_WIDTHS = (4, 2, 1)
+_INT8_WIDTHS = (2, 1)
 _GEMV_MAX_SPLITS = 8
+
+
+def _gemv_plan(M, K, N, sms, tokens, widths):
+    nt = next((t for t in tokens if M <= t), tokens[-1])
+    ntok = -(-M // nt)
+    nb, n_kst = -(-N // BLOCK), -(-K // _GEMV_KSTAGE)
+    g = next(g for g in widths if g <= nb)
+    ncol = -(-nb // g)
+    splits = max(1, min(_GEMV_MAX_SPLITS, n_kst, sms // (ncol * ntok)))
+    kst = [r * n_kst // splits for r in range(splits + 1)]
+    k_ranges = tuple((a * _GEMV_KSTAGE, min(b * _GEMV_KSTAGE, K)) for a, b in zip(kst, kst[1:]))
+    return dict(nt=nt, g=g, splits=splits, ntok=ntok, ncol=ncol, n_kst=n_kst, k_ranges=k_ranges,
+                grid=(splits, ncol, ntok), ctas=splits * ncol * ntok,
+                workspace=splits * ncol * ntok * 64 * g * nt if splits > 1 else 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -462,17 +484,20 @@ def nf4_gemv_plan(M: int, K: int, N: int, sms: int) -> dict:
     if M < 1 or K < 8 or K % 8 or N < BLOCK or N % BLOCK or sms < 1:
         raise ValueError(f"nf4_gemv_plan: no plan for M={M} K={K} N={N} on {sms} SMs "
                          f"(M >= 1, K % 8 == 0, N % {BLOCK} == 0)")
-    nt = next((t for t in _GEMV_TOKENS if M <= t), _GEMV_TOKENS[-1])
-    ntok = -(-M // nt)
-    nb, n_kst = N // BLOCK, -(-K // _GEMV_KSTAGE)
-    g = next(g for g in _GEMV_WIDTHS if g <= nb)
-    ncol = -(-nb // g)
-    splits = max(1, min(_GEMV_MAX_SPLITS, n_kst, sms // (ncol * ntok)))
-    kst = [r * n_kst // splits for r in range(splits + 1)]
-    k_ranges = tuple((a * _GEMV_KSTAGE, min(b * _GEMV_KSTAGE, K)) for a, b in zip(kst, kst[1:]))
-    return dict(nt=nt, g=g, splits=splits, ntok=ntok, ncol=ncol, n_kst=n_kst, k_ranges=k_ranges,
-                grid=(splits, ncol, ntok), ctas=splits * ncol * ntok,
-                workspace=splits * ncol * ntok * 64 * g * nt if splits > 1 else 0)
+    return _gemv_plan(M, K, N, sms, _GEMV_TOKENS, _GEMV_WIDTHS)
+
+
+@functools.lru_cache(maxsize=None)
+def int8_gemv_plan(M: int, K: int, N: int, sms: int) -> dict:
+    """The launch of K3 (the int8 instantiation of the same template), as
+    ``nf4_gemv_plan`` but with token tiles up to 256 (a prefill M takes
+    tiles of 256 and, with the grid past one wave, no split: no workspace),
+    at most 2 blocks per CTA, and any N % 16 == 0 (``ceil(N / 64)`` column
+    blocks, the last one ragged)."""
+    if M < 1 or K < 8 or K % 8 or N < 16 or N % 16 or sms < 1:
+        raise ValueError(f"int8_gemv_plan: no plan for M={M} K={K} N={N} on {sms} SMs "
+                         f"(M >= 1, K % 8 == 0, N % 16 == 0)")
+    return _gemv_plan(M, K, N, sms, _INT8_TOKENS, _INT8_WIDTHS)
 
 
 def _sm_count(device) -> int:
@@ -486,7 +511,7 @@ _GEMV_COUNTERS: dict = {}
 
 
 def _gemv_scratch(plan: dict, device):
-    """(workspace f32, counters int32) for one launch of K6 / K11."""
+    """(workspace f32, counters int32) for one launch of K6 / K11 / K3."""
     if plan["splits"] == 1:
         return None, None
     n = 2 * plan["ncol"] * plan["ntok"]

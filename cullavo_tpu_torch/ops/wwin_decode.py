@@ -10,8 +10,10 @@ buffer in place through the layer index and returns flash-style partials
 ``(acc [B, H, W, hd] f32 unnormalised, m, l [B, H, W] f32)``;
 ``_merge_self_window`` joins them with the W x W intra-window block and
 divides.  For tensors on the CPU the cache part is ``_cache_part_plain`` /
-``_cache_part_q8_plain``; for CUDA tensors it launches K4
-(``csrc/wwin_decode_sm90.cu``) or K5 (``csrc/wwin_decode.cu``), or raises.
+``_cache_part_q8_plain``; for CUDA tensors it launches K4 or K5 (both in
+``csrc/wwin_decode_sm90.cu``: the one-row step on ``csrc/decode_rows.cuh``'s
+lane-group body, wider windows on its ``mma.sync`` body, each a template
+over the cache type), or raises.
 """
 from __future__ import annotations
 

@@ -1,17 +1,19 @@
 """Times the forward flash kernels (K1, K1-lse, K8, K13), the decode
-attention kernels (K12, K4) and the fused NF4 dequant-matmuls (K6, K11) at
-the shapes of their main paths on one CUDA card, so that two checkouts of
-the port can be compared on the same card and the same inputs.
+attention kernels (K12, K4, K5), the fused NF4 dequant-matmuls (K6, K11)
+and the int8 weight-only linear (K3) at the shapes of their main paths on
+one CUDA card, so that two checkouts of the port can be compared on the
+same card and the same inputs.
 
     python3 cullavo_tpu_torch/scripts/flash_bench.py [--root DIR] [--rounds N]
-                                                      [--forms all|flash|decode|nf4]
+                                                      [--forms all|flash|decode|nf4|int8 ...]
 
 ``--root`` names the checkout whose ``cullavo_tpu_torch`` is imported
 (default: the one holding this file): one copy of this script times an
 older checkout's kernels through the entry points both share
 (``flash_attention``, ``_flash_cuda``, ``flash_attention_packed``,
-``decode_partials``, ``wwin_decode._run_cache_part``, ``nf4_linear_planar``,
-``nf4_linear_q4``).  Run it once per
+``decode_partials``, ``wwin_decode._run_cache_part``,
+``wwin_decode._run_cache_part_q8``, ``nf4_linear_planar``, ``nf4_linear_q4``,
+``int8_linear``).  Run it once per
 checkout in turns (older, newer, newer, older) and compare within one
 machine.  The inputs are drawn from a seeded generator on the card, so
 every run sees the same bytes.  Each form is timed as the median of 20
@@ -31,11 +33,15 @@ shapes, T5-XL [5, 32, 11, 64] (unscaled, a per-head bias) and KOSMOS-2 [1,
 at the greedy step (W = 1 over a 664-slot view of a 768-slot stacked cache,
 batch 14, 32 kv heads, per-row valid lengths), the speculative window (W =
 4, S = 768) and the serving engine's suffix prefills (W = 32, 64, 128 over
-a dense 4-row copy of a 608-slot prefix).  K6 (planar NF4) and K11
+a dense 4-row copy of a 608-slot prefix); K5 at the same shapes over the
+cache quantized to int8 codes and bf16 scale planes.  K6 (planar NF4) and K11
 (byte-packed NF4) at the three LLaMA-2-7B weight shapes (4096, 4096),
 (4096, 11008) and (11008, 4096) and M = 14 (the greedy batch), 64 (the
 serving decode) and 511 (the largest fused M), the weights quantized from a
-seeded draw.  Prints the card's name and power
+seeded draw.  K3 at the same three shapes and the M of its paths: 8
+(``vl_test``'s decode, a dict without ``sq_inv``), 14 and 56 (the greedy
+batch and the speculative windows, SmoothQuant dicts with ``sq_inv``) and
+5632 (``vl_test``'s prefill, no ``sq_inv``).  Prints the card's name and power
 limit, then one JSON line: ``{"root", "device", "power_limit", "ms": {form:
 [median per round]}, "host_us": {form: [least per round]}}``.
 """
@@ -113,7 +119,9 @@ def _flash_forms(torch, fa, device):
 
 
 def _decode_forms(torch, fa, ww, device):
-    """name -> a call of K12 or K4 on its inputs (made here, once)."""
+    """name -> a call of K12, K4 or K5 on its inputs (made here, once)."""
+    from cullavo_tpu_torch.models.llava.llama import quantize_kv
+
     g = torch.Generator(device=device).manual_seed(0)
     bf, f32 = torch.bfloat16, torch.float32
 
@@ -141,21 +149,33 @@ def _decode_forms(torch, fa, ww, device):
     L, S_full, B, KV, hd = 2, 768, 14, 32, 128
     kc, vc = rnd(L, S_full, B, KV, hd, dtype=bf), rnd(L, S_full, B, KV, hd, dtype=bf)
     n_valid = torch.randint(640, 664, (B,), generator=g, device=device)
-    for W, S in ((1, 664), (4, 768)):
+    # K5: the same cache as int8 codes [L, S, B, KV, hd] and bf16 planes [L, S, B, KV]
+    q8 = (*quantize_kv(kc), *quantize_kv(vc))
+    for W, S in ((1, 664), (1, 768), (4, 768)):
         q = rnd(B, W, KV, hd, dtype=bf).transpose(1, 2)
         ok = torch.arange(S, device=device)[None, :] < n_valid[:, None]
         bias = torch.where(ok, 0.0, ww.NEG_INF)[:, None, :].expand(B, W, S).contiguous()
-        caches = (kc[:, :S], vc[:, :S])   # S = 664: a strided view
-        forms[f"K4 W={W} S={S} B={B}"] = (
-            lambda a=(q, *caches, 1, bias, 1, hd ** -0.5): ww._run_cache_part(*a))
-    # K4: the suffix prefills over a dense 4-row copy of a 608-slot prefix
+        if S == 664:   # the greedy bf16 step: a strided view
+            forms[f"K4 W={W} S={S} B={B}"] = (
+                lambda a=(q, kc[:, :S], vc[:, :S], 1, bias, 1, hd ** -0.5):
+                ww._run_cache_part(*a))
+            continue
+        if W == 4:
+            forms[f"K4 W={W} S={S} B={B}"] = (
+                lambda a=(q, kc, vc, 1, bias, 1, hd ** -0.5): ww._run_cache_part(*a))
+        forms[f"K5 W={W} S={S} B={B}"] = (
+            lambda a=(q, *q8, 1, bias, 1, hd ** -0.5): ww._run_cache_part_q8(*a))
+    # K4 and K5: the suffix prefills over a dense 4-row copy of a 608-slot prefix
     ks, vs = (t[:, :, :4].contiguous() for t in (kc, vc))
+    q8s = tuple(t[:, :, :4].contiguous() for t in q8)
     ok = torch.arange(S_full, device=device) < 608
     for W in (32, 64, 128):
         q = rnd(4, W, KV, hd, dtype=bf).transpose(1, 2)
         bias = torch.where(ok, 0.0, ww.NEG_INF)[None, None, :].expand(4, W, S_full).contiguous()
         forms[f"K4 W={W} S={S_full} B=4 suffix"] = (
             lambda a=(q, ks, vs, 1, bias, 1, hd ** -0.5): ww._run_cache_part(*a))
+        forms[f"K5 W={W} S={S_full} B=4 suffix"] = (
+            lambda a=(q, *q8s, 1, bias, 1, hd ** -0.5): ww._run_cache_part_q8(*a))
     return forms
 
 
@@ -174,12 +194,29 @@ def _nf4_forms(torch, nf4, device):
     return forms
 
 
+def _int8_forms(torch, nf4, device):
+    """name -> a call of K3 on its inputs (made here, once)."""
+    g = torch.Generator(device=device).manual_seed(0)
+    forms = {}
+    for K, N in ((4096, 4096), (4096, 11008), (11008, 4096)):
+        w = torch.randn((K, N), generator=g, device=device) * K ** -0.5
+        s = torch.exp(torch.randn((K,), generator=g, device=device) * 0.3)
+        smooth, plain = nf4.quantize_linear_int8(w, smooth_scale=s), nf4.quantize_linear_int8(w)
+        for M, q in ((8, plain), (14, smooth), (56, smooth), (5632, plain)):
+            x = torch.randn((M, K), generator=g, device=device).to(torch.bfloat16)
+            kind = "sq_inv" if "sq_inv" in q else "no sq_inv"
+            forms[f"K3 M={M} ({K},{N}) {kind}"] = lambda a=(x, q): nf4.int8_linear(*a)
+        del w
+    return forms
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)),
                     help="the checkout whose cullavo_tpu_torch is timed")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--forms", choices=("all", "flash", "decode", "nf4"), default="all")
+    ap.add_argument("--forms", nargs="+", choices=("all", "flash", "decode", "nf4", "int8"),
+                    default=["all"])
     args = ap.parse_args(argv)
     import torch
 
@@ -200,12 +237,14 @@ def main(argv=None):
     name, limit = (x.strip() for x in smi.splitlines()[0].split(","))
     print(smi.splitlines()[0], flush=True)
     forms = {}
-    if args.forms in ("all", "flash"):
+    if {"all", "flash"} & set(args.forms):
         forms.update(_flash_forms(torch, fa, device))
-    if args.forms in ("all", "decode"):
+    if {"all", "decode"} & set(args.forms):
         forms.update(_decode_forms(torch, fa, ww, device))
-    if args.forms in ("all", "nf4"):
+    if {"all", "nf4"} & set(args.forms):
         forms.update(_nf4_forms(torch, nf4, device))
+    if {"all", "int8"} & set(args.forms):
+        forms.update(_int8_forms(torch, nf4, device))
     ms = {n: [] for n in forms}
     host = {n: [] for n in forms}
     for _ in range(args.rounds):

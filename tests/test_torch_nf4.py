@@ -173,6 +173,46 @@ def test_nf4_gemv_plan_small_and_ragged_shapes(M, K, N):
     assert plan["ctas"] <= H100_SMS
 
 
+@pytest.mark.parametrize("M", [1, 8, 14, 56, 64, 511, 5632])
+@pytest.mark.parametrize("K,N", SHAPES_7B)
+def test_int8_gemv_plan_tiles_and_waves(K, N, M):
+    """K3's launch planner (the int8 instantiation of the fused template):
+    token tiles of at most 256 that cover M (the smallest that holds M, 256
+    beyond), at most 2 blocks per CTA, no split at the prefill M (the grid
+    is many waves: no workspace), the split ranges tiling K in 64-k stages,
+    and the grid within one wave wherever it splits, at least 7/8 of the
+    card there; no split only where a second one would pass a wave."""
+    plan = tnf4.int8_gemv_plan(M, K, N, H100_SMS)
+    nt, g, S = plan["nt"], plan["g"], plan["splits"]
+    assert nt in (16, 32, 64, 128, 256) and nt * plan["grid"][2] >= M
+    assert nt == 256 or (M <= nt and (nt == 16 or M > nt // 2))
+    assert g == min(2, -(-N // 64))
+    assert plan["grid"] == (S, -(-(-(-N // 64)) // g), -(-M // nt))
+    rows = np.zeros(K, dtype=int)
+    for a, b in plan["k_ranges"]:
+        assert 0 <= a < b <= K and a % 64 == 0
+        rows[a:b] += 1
+    assert len(plan["k_ranges"]) == S and (rows == 1).all()
+    if S > 1:
+        assert 7 * H100_SMS // 8 <= plan["ctas"] <= H100_SMS
+        assert plan["workspace"] == plan["ctas"] * 64 * g * nt
+    else:
+        assert plan["workspace"] == 0
+        assert plan["ctas"] > H100_SMS // 2 or plan["n_kst"] == 1
+    if M == 5632:
+        assert (nt, g, S) == (256, 2, 1) and plan["ctas"] > H100_SMS
+
+
+@pytest.mark.parametrize("M,K,N", [(14, 324, 272), (14, 320, 264), (0, 320, 272),
+                                   (14, 4, 272)])
+def test_int8_gemv_plan_refuses_what_the_kernel_does_not_take(M, K, N):
+    """K3 takes K % 8 == 0 (x's rows are a tensor map's 16-byte strides) and
+    N % 16 == 0 (any N beyond: the last 64-column block may be ragged)."""
+    with pytest.raises(ValueError, match="no plan"):
+        tnf4.int8_gemv_plan(M, K, N, H100_SMS)
+    assert tnf4.int8_gemv_plan(14, 320, 272, H100_SMS)["grid"][1] == 3   # 5 blocks, 2 a CTA
+
+
 def test_nf4_gemv_decode_tables_are_the_bf16_codebook():
     """K6 decodes a nibble by byte permutes against immediates in
     csrc/nf4_gemv_sm90.cu: their bytes are the low and high bytes of

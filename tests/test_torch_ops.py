@@ -105,7 +105,7 @@ def test_int8_s8s8_group_and_auto_match_jax(K):
     assert not tnf4.s8s8_group_enabled([p[1] for p in pairs], torch.zeros(1023, K))
 
 
-@pytest.mark.parametrize("M", [1, 14, 64])
+@pytest.mark.parametrize("M", [1, 14, 64, 300])
 def test_int8_linear_plain_matches_jax(M):
     """The K3 plain version against nf4.int8_linear (with sq_inv) and the
     TPU kernel int8_linear_pallas (interpret mode).  Activations are bf16
@@ -128,6 +128,37 @@ def test_int8_linear_plain_matches_jax(M):
     np.testing.assert_allclose(tnf4.int8_linear(torch.from_numpy(x), tq).numpy(),
                                np.asarray(jnf4.int8_linear(jnp.asarray(x), jq)),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("smooth", [False, True], ids=["no_sq_inv", "sq_inv"])
+@pytest.mark.parametrize("M", [1, 8, 14, 56, 300])
+def test_int8_linear_plain_matches_jax_in_bf16(M, smooth):
+    """K3's plain version in the kernel's working type (bf16 x and output,
+    bf16 sq_inv) against JAX's int8_linear and the TPU kernel
+    int8_linear_pallas (interpret mode) on the same bf16 inputs, at the paths'
+    decode M and beyond one 256-token tile, with and without the SmoothQuant
+    prologue.  x * sq_inv rounds once to bf16 in all three; the column scales
+    are powers of two, so the Pallas kernel's scale before the dot is exact;
+    each sums exact products in f32 in its own order and rounds once to
+    bf16, so they agree within one bf16 ulp (rtol 2^-7) + 1e-6."""
+    rng = np.random.default_rng(50 + M + smooth)
+    K, N = 320, 272
+    x = jnp.asarray(rng.normal(size=(M, K)), jnp.bfloat16)
+    q8 = rng.integers(-127, 128, size=(K, N)).astype(np.int8)
+    scale8 = (2.0 ** rng.integers(-9, -5, size=(1, N))).astype(np.float32)
+    jq = {"q8": jnp.asarray(q8), "scale8": jnp.asarray(scale8)}
+    tq = {"q8": torch.from_numpy(q8), "scale8": torch.from_numpy(scale8)}
+    if smooth:
+        sq = jnp.asarray(np.exp(rng.normal(0, 0.3, (1, K))), jnp.bfloat16)
+        jq["sq_inv"] = sq
+        tq["sq_inv"] = torch.from_numpy(np.asarray(sq.astype(jnp.float32))).to(torch.bfloat16)
+    tx = torch.from_numpy(np.asarray(x.astype(jnp.float32))).to(torch.bfloat16)
+    ty = tnf4.int8_linear(tx, tq)
+    assert ty.dtype == torch.bfloat16 and ty.shape == (M, N)
+    ty = ty.float().numpy()
+    for jy in (jnf4.int8_linear(x, jq), jnf4.int8_linear_pallas(x, jq)):
+        np.testing.assert_allclose(ty, np.asarray(jy.astype(jnp.float32)), rtol=2.0 ** -7,
+                                   atol=1e-6)
 
 
 def test_flash_attention_plain_matches_jax():

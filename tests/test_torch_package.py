@@ -485,6 +485,48 @@ class _FakeKernels:
                                            ptrs=(q, k, v, o)))
 
 
+@pytest.mark.parametrize("smooth", [True, False], ids=["sq_inv", "no_sq_inv"])
+@pytest.mark.parametrize("M", [8, 14, 56, 5632])
+def test_int8_linear_reaches_its_entry_with_the_plan(monkeypatch, M, smooth):
+    """With a fake kernel library (no card here): K3's wrapper makes one call
+    of ``cullavo_int8_linear`` at every M, the prefill's too, with the plan
+    of ``int8_gemv_plan`` on a 132-SM card, the bf16 scratch for bf16(x *
+    sq_inv) only for a dict with sq_inv, the split-K workspace and counters
+    only where the plan splits, and counts one launch."""
+    from cullavo_tpu_torch import _build
+    from cullavo_tpu_torch.ops import nf4
+
+    calls = []
+
+    class Fake:
+        def cullavo_int8_linear(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(_build, "lib", lambda: Fake())
+    monkeypatch.setattr(nf4, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=77))
+    K, N = 4096, 11008
+    q = nf4.quantize_linear_int8(torch.randn(K, N), smooth_scale=torch.rand(K) + 0.5
+                                 if smooth else None)
+    x = torch.randn(M, K).to(torch.bfloat16)
+    n0 = nf4.int8_linear.launches
+    out = nf4._int8_linear_cuda(x, q)
+    assert out.shape == (M, N) and out.dtype == torch.bfloat16
+    assert nf4.int8_linear.launches == n0 + 1
+    (args,) = calls
+    xp, sq, q8, s8, xs, o, ws, ctr, m, k, n, nt, g, S, stream = args
+    plan = nf4.int8_gemv_plan(M, K, N, 132)
+    assert (m, k, n, nt, g, S, stream) == (M, K, N, plan["nt"], plan["g"], plan["splits"], 77)
+    assert (xp, q8, s8, o) == (x.data_ptr(), q["q8"].data_ptr(), q["scale8"].data_ptr(),
+                               out.data_ptr())
+    assert (sq is None, xs is None) == (not smooth, not smooth)
+    assert (ws is None, ctr is None) == (S == 1, S == 1)
+    if M == 5632:
+        assert (nt, S) == (256, 1)
+
+
 @pytest.mark.parametrize("mode", ["K1", "K1-lse", "K8 positions", "K8-lse kv_valid, non-causal",
                                   "K8 S > T", "K8-lse both masks", "K13", "K13 S > T"])
 def test_forward_forms_reach_their_entry_points(monkeypatch, mode):
@@ -638,21 +680,53 @@ def test_cuda_quantize_rows_bit_equal(cuda_device, M, K):
     assert torch.equal(sx, sr)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 14, 33])
-def test_cuda_int8_linear_matches_plain(cuda_device, M):
+def _int8_case(dev, M, K, N, smooth, seed=2):
     from cullavo_tpu_torch.ops import nf4
 
-    g = torch.Generator(device=cuda_device).manual_seed(2)
-    K, N = 320, 272
-    x = torch.randn((M, K), generator=g, device=cuda_device).to(torch.bfloat16)
-    w = torch.randn((K, N), generator=g, device=cuda_device) * K ** -0.5
-    q = nf4.quantize_linear_int8(w, smooth_scale=torch.exp(
-        torch.randn((K,), generator=g, device=cuda_device) * 0.3))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn((K, N), generator=g, device=dev) * K ** -0.5
+    s = torch.exp(torch.randn((K,), generator=g, device=dev) * 0.3) if smooth else None
+    return x, nf4.quantize_linear_int8(w, smooth_scale=s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smooth", [True, False], ids=["sq_inv", "no_sq_inv"])
+@pytest.mark.parametrize("M", [1, 8, 14, 33, 56, 64, 300, 1100])
+def test_cuda_int8_linear_matches_plain(cuda_device, M, smooth):
+    """K3 at the decode M of the paths (1-64: token tiles of 16-64, split-K)
+    and beyond one 256-token tile (300, 1100: the prefill tiles), with and
+    without the SmoothQuant prologue, N = 272 (a ragged last 64-column
+    block) and K = 320 (five 64-k stages): one bf16 ulp (the one rounding,
+    after an f32 sum in another order) + 1e-3 of the largest |y|."""
+    from cullavo_tpu_torch.ops import nf4
+
+    x, q = _int8_case(cuda_device, M, 320, 272, smooth)
+    n0 = nf4.int8_linear.launches
     y = nf4.int8_linear(x, q)
+    assert nf4.int8_linear.launches == n0 + 1
     ref = nf4._int8_linear_plain(x, q)
     assert torch.allclose(y.float(), ref.float(), rtol=2 ** -7,
                           atol=1e-3 * ref.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [14, 56, 600])
+def test_cuda_int8_linear_bit_equal_and_refusals(cuda_device, M):
+    """Two calls of K3 are bit-equal (split-K sums its partials in split
+    order; M = 600 takes no split) at a 7B weight shape; a K that is not a
+    multiple of 8 (x's rows feed a tensor map of 16-byte strides) and an N
+    that is not a multiple of 16 are refused."""
+    from cullavo_tpu_torch.ops import nf4
+
+    x, q = _int8_case(cuda_device, M, 4096, 11008, True, seed=3)
+    assert torch.equal(nf4.int8_linear(x, q), nf4.int8_linear(x, q))
+    xk, qk = _int8_case(cuda_device, 4, 324, 272, True)
+    with pytest.raises(ValueError, match="K % 8 == 0"):
+        nf4.int8_linear(xk, qk)
+    xn, qn = _int8_case(cuda_device, 4, 320, 264, False)
+    with pytest.raises(ValueError, match="N % 16 == 0"):
+        nf4.int8_linear(xn, qn)
 
 
 def _wwin_case(dev, W, n_rep, S, strided, seed):
@@ -748,6 +822,32 @@ def test_cuda_wwin_decode_q8_matches_plain(cuda_device, W, n_rep, S, strided):
     ref = ww._merge_self_window(q, k_cur, v_cur, acc, m, l, 128 ** -0.5, win_q8=win, n_rep=n_rep)
     assert torch.isfinite(out).all()
     assert torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 4, 40])
+def test_cuda_wwin_decode_q8_odd_plane_strides(cuda_device, W):
+    """K5 reads each bf16 scale as the aligned 4-byte word holding it and
+    picks the half by the element's parity: with B = 3 rows of one kv head
+    the planes' slot stride is 3 elements, so the parity alternates from
+    slot to slot, on the lane-group body (W = 1), the mma body widening in
+    its fragments (W = 4) and widening each stage once (W = 40)."""
+    from cullavo_tpu_torch.models.llava.llama import quantize_kv
+    from cullavo_tpu_torch.ops import wwin_decode as ww
+
+    g = torch.Generator(device=cuda_device).manual_seed(60 + W)
+    B, KV, S, hd = 3, 1, 150, 128
+    kc, vc = (torch.randn((2, S, B, KV, hd), generator=g, device=cuda_device) * 2
+              for _ in range(2))
+    (kq, ks), (vq, vs) = quantize_kv(kc), quantize_kv(vc)
+    assert ks.stride(1) == 3
+    q = torch.randn((B, W, KV, hd), generator=g, device=cuda_device).to(torch.bfloat16)
+    q = q.transpose(1, 2)
+    bias = torch.zeros((B, W, S), device=cuda_device)
+    bias[1, :, S - 5:] = ww.NEG_INF
+    got = ww._run_cache_part_q8(q, kq, ks, vq, vs, 1, bias, 1, 128 ** -0.5)
+    _assert_partials_close(got, ww._cache_part_q8_plain(q, kq, ks, vq, vs, 1, bias, 1,
+                                                        128 ** -0.5))
 
 
 @pytest.mark.cuda
@@ -1301,17 +1401,20 @@ def test_cuda_decode_partials_edges_match_plain(cuda_device, dtype, B, H, KV, S,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
 @pytest.mark.parametrize("W,n_rep,S,B", [
     (1, 1, 4096, 1), (8, 1, 4096, 1), (8, 1, 40, 1), (1, 1, 700, 3), (4, 1, 777, 3),
     (1, 4, 664, 3), (64, 2, 300, 2), (128, 1, 1000, 1)],
     ids=["long_greedy", "long_mma", "below_one_stage", "ragged_greedy", "ragged_window",
          "gqa", "wide_gqa", "widest"])
-def test_cuda_wwin_decode_edges_match_plain(cuda_device, W, n_rep, S, B):
-    """K4's two bodies at their edges against the plain version: one block
-    walking 4096 slots at batch 1, S below one 64-slot stage, S ragged
+def test_cuda_wwin_decode_edges_match_plain(cuda_device, W, n_rep, S, B, cache):
+    """K4's two bodies (bf16 cache) and K5 on the same bodies (int8 codes
+    with bf16 scale planes) at their edges against the plain versions: one
+    block walking 4096 slots at batch 1, S below one 64-slot stage, S ragged
     against both bodies' stages, GQA (n_rep = 4), the suffix widths with
     two and one row blocks; two whole 64-slot stages masked where S allows,
     the last 3 slots masked too; a second launch bit-equal."""
+    from cullavo_tpu_torch.models.llava.llama import quantize_kv
     from cullavo_tpu_torch.ops import wwin_decode as ww
 
     H, hd, scale = 32, 128, 128 ** -0.5
@@ -1325,11 +1428,18 @@ def test_cuda_wwin_decode_edges_match_plain(cuda_device, W, n_rep, S, B):
     bias[:, :, S - 3:] = ww.NEG_INF
     if S >= 256:
         bias[:, :, 64:192] = ww.NEG_INF
-    n0 = ww.wwin_decode_smajor.launches
-    got = ww._run_cache_part(q, kc, vc, 1, bias, n_rep, scale)
-    again = ww._run_cache_part(q, kc, vc, 1, bias, n_rep, scale)
-    assert ww.wwin_decode_smajor.launches == n0 + 2
-    _assert_partials_close(got, ww._cache_part_plain(q, kc, vc, 1, bias, n_rep, scale))
+    if cache == "bf16":
+        counter, run, plain, ops = (ww.wwin_decode_smajor, ww._run_cache_part,
+                                    ww._cache_part_plain, (kc, vc))
+    else:
+        (kq, ks), (vq, vs) = quantize_kv(kc), quantize_kv(vc)
+        counter, run, plain, ops = (ww.wwin_decode_smajor_q8, ww._run_cache_part_q8,
+                                    ww._cache_part_q8_plain, (kq, ks, vq, vs))
+    n0 = counter.launches
+    got = run(q, *ops, 1, bias, n_rep, scale)
+    again = run(q, *ops, 1, bias, n_rep, scale)
+    assert counter.launches == n0 + 2
+    _assert_partials_close(got, plain(q, *ops, 1, bias, n_rep, scale))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

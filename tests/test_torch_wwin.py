@@ -178,6 +178,28 @@ def test_wwin_bf16_cache_at_the_kernel_edges_matches_jax_pallas(W, n_rep, S):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("W,n_rep,S", [(32, 1, 256), (64, 2, 256), (128, 1, 128), (1, 1, 40),
+                                       (8, 1, 200), (1, 4, 200)],
+                         ids=["two_row_tiles", "wide_gqa", "widest", "below_one_stage",
+                              "ragged_s", "greedy_gqa"])
+def test_wwin_q8_cache_at_the_kernel_edges_matches_jax_pallas(W, n_rep, S):
+    """K5 now runs on K4's two bodies (``csrc/wwin_decode_sm90.cu``), so it
+    meets their edges: the int8 cache at K4's edge shapes, the port against
+    the JAX function through ``_cache_kernel_q8`` (interpret mode, one block
+    of S where S is not a multiple of 128)."""
+    kc, vc, q, k_cur, v_cur, bias = _setup(W, n_rep=n_rep, S=S, L=2, seed=W + S + 1)
+    kq, ks = jl.quantize_kv(jnp.asarray(kc))
+    vq, vs = jl.quantize_kv(jnp.asarray(vc))
+    block_s = 128 if S % 128 == 0 else S
+    ref = jw.wwin_decode_smajor_q8(jnp.asarray(q), kq, ks, vq, vs, 1, jnp.asarray(k_cur),
+                                   jnp.asarray(v_cur), jnp.asarray(bias), n_rep=n_rep,
+                                   block_s=block_s)
+    out = tw.wwin_decode_smajor_q8(_t(q), *map(_t, (kq, ks, vq, vs)), 1, _t(k_cur), _t(v_cur),
+                                   _t(bias), n_rep=n_rep)
+    assert out.shape == (2, n_rep * 2, W, 128)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+
+
 def test_wwin_fully_masked_cache_row_matches_jax_pallas():
     """A row whose cache is wholly invalid takes everything from the self
     window (a masked block must not count exp(0) = 1 per slot), and the
