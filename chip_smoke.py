@@ -59,11 +59,13 @@ Phases (each raises on failure, and the script exits non-zero):
      at a 512² image (value [8, 5376, 8, 64], 3 levels x 4 points), at
      the 512 x 640 bucket's non-square levels and at a ragged Q, points
      partly outside the maps; K10 (the gated focal-modulation context) at
-     each FocalNet-L stage at 512², batch 8; both in bf16 (within 1e-2 +
-     1e-2 |ref|) and f32 (within 1e-5 + 1e-5 |ref|), K10 with both GELU
-     forms; timed beside a yardstick (K9: one ``grid_sample`` per level,
-     the reference's composition; K10: the cuDNN depthwise ``conv2d``
-     chain in bf16, the model's own), K10 summed over one forward.  Then
+     each FocalNet-L stage map of the 512² and 512 x 640 buckets, batch 8;
+     both in bf16 (within 1e-2 + 1e-2 |ref|) and f32 (within 1e-5 + 1e-5
+     |ref|), K10 with both GELU forms; timed beside a yardstick (K9: one
+     ``grid_sample`` per level, the reference's composition; K10: the cuDNN
+     depthwise ``conv2d`` chain in bf16, the model's own), K10 per stage with
+     the card kept busy ahead of each timed call (host us apart) and summed
+     over one forward.  Then
      K11, the byte-packed NF4 kernel, at the three 7B weight shapes: its
      dequant entry bit-equal to ``dequant_linear``, its fused entry (the
      same template as K6) at M = 1, 14, 64, 129 and 511 within 1e-2 + 1e-2
@@ -92,8 +94,9 @@ Phases (each raises on failure, and the script exits non-zero):
      and K14, the p32 product of the matmul probe (row 16): ``pack_p32``
      bit-equal to a numpy re-statement of the JAX script's packing, K14 at
      M = 1, 8 and 64 over [4096, 11008] within 1e-2 + 1e-2 |ref| of the f32
-     plain version, timed at M = 8 beside the bound and the dense bf16
-     matmul on the unpacked weight.
+     plain version, two calls bit-identical, timed at M = 8 (the card kept
+     busy ahead of each timed call, host us apart) beside the bound and the
+     dense bf16 matmul on the unpacked weight.
   4. build random LLaVA-1.5-7B weights on the card from a seeded
      ``torch.Generator``: bf16 vision tower, projector, embeddings and head;
      int8 SmoothQuant LLM linears with smooth scales exp(N(0, 0.3)) shared
@@ -553,6 +556,13 @@ SM90_FORMS = {"flash_fwd_sm90_kernelILb0ELb0E": ("K1 / K13", ("flash_fwd", "flas
               **{f"nf4_gemv_kernelILi2ELi{nt}ELi{g}E": (f"K3 NT={nt} G={g}", ("int8_linear",),
                                                         _GEMV_SRC)
                  for nt in (16, 32, 64, 128, 256) for g in (1, 2)},
+              **{f"nf4_gemv_kernelILi3ELi{nt}ELi{g}E": (f"K14 NT={nt} G={g}", ("p32_linear",),
+                                                        _GEMV_SRC)
+                 for nt in (16, 32, 64) for g in (1, 2, 4)},
+              # K10 by dtype and slots a thread (csrc/focal_ctx.cu)
+              **{f"focal_kernelI{t}Li{ns}E": (f"K10 {n} {ns} slots a thread", ("focal_ctx",),
+                                              "csrc/focal_ctx.cu")
+                 for t, n in (("f", "f32"), (_BF, "bf16")) for ns in (1, 2, 3)},
               # the decode bodies (csrc/decode_rows.cuh's lane-group body by
               # cache type, rows a block and mode; the W-window mma body by
               # row tiles a block and cache type)
@@ -973,7 +983,9 @@ def check_xdecoder_kernels(device, g):
     = 64^2 + 32^2 + 16^2, 8 heads x 64, 3 levels x 4 points), at the 512 x 640
     bucket's non-square levels and at a Q that fills no tile; points drawn
     in [-0.1, 1.1] (some outside every map).  K10 (the gated focal context)
-    at each FocalNet-L stage at a 512^2 image, batch 8, both GELU forms.
+    at each FocalNet-L stage map of the 512^2 and 512 x 640 buckets, batch
+    8, both GELU forms; timed per 512^2 stage with the card kept busy ahead
+    of each timed call (host us per call apart), then per forward.
     Both within 1e-2 + 1e-2 |ref| of the plain version in bf16 (one
     rounding of the output) and within 1e-5 + 1e-5 |ref| in f32 (sums in
     another order: the plain focal chain runs on cuDNN)."""
@@ -1045,34 +1057,54 @@ def check_xdecoder_kernels(device, g):
     kernels = tuple(fcfg.focal_factor * lvl + fcfg.focal_windows[0]
                     for lvl in range(fcfg.focal_levels[0]))
     L, taps_per = len(kernels), sum(k * k for k in kernels)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     errs, tot = [], dict(ms=0.0, plain=0.0, lib=0.0, bytes=0, ops=0)
+    stages, host = {}, {}
+
+    def focal_case(C, h, w, dtype):
+        fx = torch.randn((XDEC_BATCH, 2 * C + L + 1, h * w), generator=g,
+                         device=device).to(dtype)
+        # taps of std 0.6 / k: every level's output stays of order one
+        taps = torch.cat([torch.randn((C, k * k), generator=g, device=device) * (0.6 / k)
+                          for k in kernels], dim=1)
+        return fx[:, C:2 * C], fx[:, 2 * C:], taps       # views, as focal_modulation passes
+
     for i, depth in enumerate(fcfg.depths):
         C, s = fcfg.num_features[i], XDEC_SIDE // 4 // 2 ** i
-        for dtype in (f32, bf):
-            fx = torch.randn((XDEC_BATCH, 2 * C + L + 1, s * s), generator=g,
-                             device=device).to(dtype)
-            # taps of std 0.6 / k: every level's output stays of order one
-            taps = torch.cat([torch.randn((C, k * k), generator=g, device=device) * (0.6 / k)
-                              for k in kernels], dim=1)
-            ctx, gates = fx[:, C:2 * C], fx[:, 2 * C:]       # views, as focal_modulation passes
-            for approximate in (True, False):
-                got = focal.focal_ctx_kernel(ctx, gates, taps, s, s, kernels, True, approximate)
-                ref = focal.focal_ctx_plain(ctx, gates, taps, s, s, kernels, True, approximate)
-                errs.append(hold(f"K10 focal_ctx stage {i + 1} [{XDEC_BATCH},{C},{s}x{s}] {dtype} "
-                                 f"{'tanh' if approximate else 'erf'}", got, ref, dtype))
+        # the 512 x 640 bucket's map of this stage, then the 512^2 one (timed)
+        for h, w in ((s, s * 5 // 4), (s, s)):
+            plan = focal.focal_plan(h, w, C, kernels, focal.FOCAL_SMEM, XDEC_BATCH, sms)
+            for dtype in (f32, bf):
+                ctx, gates, taps = focal_case(C, h, w, dtype)
+                for approximate in (True, False):
+                    got = focal.focal_ctx_kernel(ctx, gates, taps, h, w, kernels, True,
+                                                 approximate)
+                    ref = focal.focal_ctx_plain(ctx, gates, taps, h, w, kernels, True,
+                                                approximate)
+                    errs.append(hold(f"K10 focal_ctx stage {i + 1} [{XDEC_BATCH},{C},{h}x{w}] "
+                                     f"{dtype} {'tanh' if approximate else 'erf'} ({plan['path']}"
+                                     f", {plan['planes']} planes a block)", got, ref, dtype))
         cols = [sum(kk * kk for kk in kernels[:j]) for j in range(L + 1)]
         weights = [taps[:, cols[j]:cols[j + 1]].to(bf).reshape(C, 1, k, k)
                    for j, k in enumerate(kernels)]
-        ms = bench_ms(lambda: focal.focal_ctx_kernel(ctx, gates, taps, s, s, kernels, True, True),
-                      device)
+
+        def run():
+            return focal.focal_ctx_kernel(ctx, gates, taps, s, s, kernels, True, True)
+
+        ms = bench_ms(run, device, lead_cycles=1_000_000)
+        host[f"stage {i + 1}"] = round(host_us(run, device), 1)
         plain = bench_ms(lambda: focal.focal_ctx_plain(ctx, gates, taps, s, s, kernels, True, True),
                          device)
-        lib = bench_ms(lambda: focal_chain_cudnn(ctx, gates, weights, s, s, kernels), device)
+        lib = bench_ms(lambda: focal_chain_cudnn(ctx, gates, weights, s, s, kernels), device,
+                       lead_cycles=1_000_000)
         ops = 2 * taps_per * XDEC_BATCH * C * s * s
         n_bytes = nbytes(ctx, gates, taps, got)
         bd = bound(n_bytes, ops, "f32")
-        log(f"K10 stage {i + 1} (x{depth} blocks): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-            f"cuDNN chain {lib:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        stages[f"stage {i + 1} [{XDEC_BATCH},{C},{s}x{s}]"] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib, **bd)
+        log(f"K10 stage {i + 1} (x{depth} blocks): kernel {ms:.4f} ms (host "
+            f"{host[f'stage {i + 1}']} us per call), plain {plain:.4f} ms, cuDNN chain "
+            f"{lib:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
         tot = dict(ms=tot["ms"] + depth * ms, plain=tot["plain"] + depth * plain,
                    lib=tot["lib"] + depth * lib, bytes=tot["bytes"] + depth * n_bytes,
                    ops=tot["ops"] + depth * ops)
@@ -1082,6 +1114,7 @@ def check_xdecoder_kernels(device, g):
         f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, {tot['ops'] / 1e9:.1f} GFLOP)")
     rec["focal_ctx"] = dict(
         max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain"], library_ms=tot["lib"], **bd,
+        host_us=host, other_shapes=stages,
         shape=f"FocalNet-L at {XDEC_SIDE}^2, batch {XDEC_BATCH}, bf16, tanh GELU, L=4 (k 3-9): "
               "ms summed over one forward's 24 launches (2, 2, 18, 2 blocks at C 192-1536); "
               "library_ms: the cuDNN depthwise conv2d chain in bf16")
@@ -3553,6 +3586,8 @@ def check_p32_kernel(device, g):
         y = mp.p32_linear(x, w32, scale)
         ref = mp.p32_linear_plain(x, w32, scale)
         torch.cuda.synchronize(device)
+        if not torch.equal(y, mp.p32_linear(x, w32, scale)):
+            raise RuntimeError(f"K14: two calls at M={M} differ (bit-identical demanded)")
         err = (y.float() - ref.float()).abs().max().item()
         errs.append(err)
         log(f"K14 p32_linear M={M} K={K} N={N}: max_abs_err={err:.3e}, max |ref| "
@@ -3560,15 +3595,17 @@ def check_p32_kernel(device, g):
         if not torch.allclose(y.float(), ref.float(), rtol=1e-2, atol=1e-2):
             raise RuntimeError(f"K14 disagrees with its plain version at M={M}: {err}")
         if M == 8:
-            ms = bench_ms(lambda: mp.p32_linear(x, w32, scale), device)
+            ms = bench_ms(lambda: mp.p32_linear(x, w32, scale), device, lead_cycles=1_000_000)
+            host = round(host_us(lambda: mp.p32_linear(x, w32, scale), device), 1)
             plain = bench_ms(lambda: mp.p32_linear_plain(x, w32, scale), device)
             wb = (w8.float() * scale).to(torch.bfloat16)
-            dense = bench_ms(lambda: x @ wb, device)
+            dense = bench_ms(lambda: x @ wb, device, lead_cycles=1_000_000)
             bd = bound(nbytes(x, w32, scale, y), 2 * M * K * N, "bf16")
-            log(f"K14 M={M}: kernel {ms:.4f} ms, plain {plain:.4f} ms, dense bf16 matmul on the "
-                f"unpacked weight {dense:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+            log(f"K14 M={M}: kernel {ms:.4f} ms (host {host} us per call), plain {plain:.4f} ms, "
+                f"dense bf16 matmul on the unpacked weight {dense:.4f} ms, bound "
+                f"{bd['bound_ms']:.4f} ms "
                 f"({bd['bound_by']}, {nbytes(w32) / 1e6:.1f} MB of packed weight)")
-            rec["p32_linear"] = dict(ms=ms, plain_ms=plain, library_ms=dense, **bd,
+            rec["p32_linear"] = dict(ms=ms, plain_ms=plain, library_ms=dense, **bd, host_us=host,
                                      shape=f"x [{M},{K}] bf16 @ int32 [{kq},{N}], f32 scale")
             del wb
     rec["p32_linear"]["max_abs_err"] = max(errs)
@@ -3995,7 +4032,8 @@ def main(argv):
             # another TPU tiling, row 3 (_fwd_kernel_iota in batch groups, :596)
             "flash_packed": ("cullavo_tpu_torch/csrc/flash_fwd_sm90.cu",
                              "cullavo_tpu/ops/flash_attention.py:623"),
-            "p32_linear": ("cullavo_tpu_torch/csrc/p32_matmul.cu", "scripts/matmul_probe.py:154")}
+            "p32_linear": ("cullavo_tpu_torch/csrc/nf4_gemv_sm90.cu",
+                           "scripts/matmul_probe.py:154")}
 
     # phases 4-6b
     cfg = LlavaConfig()

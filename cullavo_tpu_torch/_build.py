@@ -53,11 +53,14 @@ SIGNATURES = {
     "cullavo_nf4_dequant_planar": [_P] * 3 + [_I] * 2 + [_P],
     "cullavo_nf4_dequant_q4": [_P] * 3 + [_I] * 2 + [_P],
     "cullavo_msdeform": [_P] * 6 + [_I] * 8 + [_P],
-    "cullavo_focal_ctx": [_P] * 7 + [_I] * 5 + [_L] * 4 + [_I] * 3 + [_P],
-    "cullavo_focal_ctx_tiles": [_P, _I, _I, _I],
+    # K10: ctx, gates, taps, acc, partial, out, kernels, L, B, C, H, W, the
+    # strides, scaling, erf, bf16 and the plan (planes, tile h/w, gap, pitch,
+    # slots a thread)
+    "cullavo_focal_ctx": [_P] * 7 + [_I] * 5 + [_L] * 4 + [_I] * 9 + [_P],
     "cullavo_flash_decode": [_P] * 7 + [_I] * 6 + [_L] * 11 + [_F, _P],
     "cullavo_flash_packed": [_P] * 4 + [_I] * 5 + [_F, _P],
-    "cullavo_p32_linear": [_P] * 4 + [_I] * 3 + [_P],
+    # K14: x, words, scale, out, workspace, counters, M, K, N and the plan
+    "cullavo_p32_linear": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 _lib = None

@@ -1,4 +1,4 @@
-// The fused weight-only linears on Hopper (kernels K6, K11 and K3): one
+// The fused weight-only linears on Hopper (kernels K6, K11, K3 and K14): one
 // template over the weight format, written for the H100 with TMA loads into
 // an mbarrier ring, the weight decoded in registers straight into the A
 // fragments of wgmma, and split-K reduced in the same launch.
@@ -23,6 +23,11 @@
 //    Weight int8 [K, N], N % 16 == 0; an int8 code is exact in bf16 and a
 //    bf16 product exact in f32, so only the order of the f32 sum differs
 //    from the plain version.
+//  * K14 (kP32): scripts/matmul_probe.py, p32_pallas -> p32_kernel (row 16):
+//    int8 weights packed four to an int32 word, byte j of word (kk, n) the
+//    weight of k = j K/4 + kk; the scale per column after the dot, as K3:
+//        y[m, n] = bf16( (sum_j sum_kk x[m, j K/4 + kk] * W_j[kk, n]) * scale[n] )
+//    Words int32 [K/4, N], N % 4 == 0 (a word row is a multiple of 16 bytes).
 // All sum in f32 and round once to bf16.
 //
 // Bound on the H100 (3.35 TB/s, 989 TFLOP/s bf16).  At decode M, bytes:
@@ -112,6 +117,16 @@
 //    slots and shared-memory loads (K11: one table lookup per weight), K6's
 //    per-block scaling of x, and wgmma at N = 16 keep the kernels at 5-6x
 //    the byte bound on the H100 (chip_smoke.py, phase 3).
+//  * K14: a stage is 64 word rows (256 k): 2G boxes of [64][32 words],
+//    128-byte swizzle, and four x boxes [NT][64], one per K quarter (k = j K/4
+//    + 64 kst + 0..63), each laid out as K3's x tile.  A stage runs as four
+//    sub-stages of 16 word rows; per sub-stage a thread loads the words of
+//    rows 2t, 2t + 1, 2t + 8, 2t + 9 at its columns 2g, 2g + 1 (fragment rows
+//    g, g + 8, as K3; four 8-byte loads, conflict-free under the swizzle),
+//    byte permutes gather byte j of two rows into the pair K3 widens, and the
+//    four k-steps of the sub-stage (one per quarter, each against its x box)
+//    take the A fragments of the same sixteen word rows.  x is read once per
+//    CTA and stage by TMA, in its own layout: no copy of x, no prologue.
 //  * K3 on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 3, card alone,
 //    sums over the three 7B shapes): at M = 14 ~0.09-0.10 ms against the
 //    0.032 byte bound, under the dense bf16 product on a dequantized weight
@@ -130,7 +145,7 @@
 
 namespace {
 
-constexpr int kPlanar = 0, kBytes = 1, kInt8 = 2;
+constexpr int kPlanar = 0, kBytes = 1, kInt8 = 2, kP32 = 3;
 constexpr int QB = 64;               // columns per absmax block = rows of a wgmma tile
 constexpr int KSTAGE = 64;           // k values per ring stage
 constexpr int MAX_STAGES = 16;
@@ -154,11 +169,11 @@ constexpr uint32_t kHi0 = 0xbebfbfbfu, kHi1 = 0x00bdbebeu, kHi2 = 0x3e3e3e3du,
                    kHi3 = 0x3f3f3f3eu;
 
 struct Params {
-  const float* scale;    // NF4: the absmax [K, N/64]; K3: scale8 [N]
+  const float* scale;    // NF4: the absmax [K, N/64]; K3: scale8 [N]; K14: scale [N]
   __nv_bfloat16* out;
   float* ws;     // split-K partial sums, [tile][split][64 G NT] (S > 1)
   int* ctr;      // per output tile: splits done (0 between launches)
-  int M, K, N, K8, NB;   // NB = ceil(N / 64)
+  int M, K, N, K8, NB;   // NB = ceil(N / 64); K14: K8 = K / 4, the word rows
   int S, stages, n_kst;
   uint32_t off_bc, off_bar;
 };
@@ -433,7 +448,8 @@ __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v 
 // at a 1024-byte boundary, so a swizzled offset within a stage is the same
 // in every stage and is computed once.  A stage holds the weight tile, the x
 // tile [NT][64] and (NF4) the scales [G][64]; K3's weight tile is NBOX boxes
-// of [64][BOXW] bytes, BOXW = min(64 G, 128).
+// of [64][BOXW] bytes, BOXW = min(64 G, 128); K14's stage is 2G boxes of
+// [64][32] words and four x tiles [NT][64].
 template <int FMT, int NT, int G>
 __global__ void __launch_bounds__(128 * G + 32, 1)
 nf4_gemv_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant__ CUtensorMap tm_x,
@@ -441,10 +457,12 @@ nf4_gemv_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
   extern __shared__ __align__(16) uint8_t smem_raw[];
   __shared__ float lut[16];
   constexpr int NACC = NT / 2;
-  constexpr bool kQ8 = FMT == kInt8;
-  constexpr uint32_t OFF_X = (kQ8 ? 4096u : 2048u) * G;   // stage: weights, x [NT][64], scales
-  constexpr uint32_t OFF_SC = OFF_X + 128u * NT;
-  constexpr uint32_t STAGE = OFF_SC + (kQ8 ? 0u : SC_BYTES);
+  constexpr bool kQ8 = FMT == kInt8, kP = FMT == kP32;
+  constexpr bool kAfter = kQ8 || kP;   // scale per column after the dot: no scale tile
+  // stage: weights, x [NT][64] (K14: four), scales
+  constexpr uint32_t OFF_X = (kP ? 16384u : kQ8 ? 4096u : 2048u) * G;
+  constexpr uint32_t OFF_SC = OFF_X + (kP ? 512u : 128u) * NT;
+  constexpr uint32_t STAGE = OFF_SC + (kAfter ? 0u : SC_BYTES);
   constexpr int BOXW = 64 * G < 128 ? 64 * G : 128, NBOX = 64 * G / BOXW;
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -461,7 +479,7 @@ nf4_gemv_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
   if (tid < 16) lut[tid] = kCode[tid];
   if (tid == 0) {
     for (int s = 0; s < p.stages; ++s) {
-      mbar_init(bar_full + 8 * s, kQ8 ? 1 : 33);   // the TMA thread (+ 32 cp.async arrivals)
+      mbar_init(bar_full + 8 * s, kAfter ? 1 : 33);   // the TMA thread (+ 32 cp.async arrivals)
       mbar_init(bar_empty + 8 * s, 4 * G);      // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -485,6 +503,25 @@ nf4_gemv_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
       const int kst = kst0 + i;
       mbar_wait(bar_empty + 8 * st, ph ^ 1);   // the first round finds every stage free
       const uint32_t sb = base + st * STAGE, full = bar_full + 8 * st;
+      if constexpr (kP) {
+        // K14: the words of rows 64 kst .. + 63 in boxes of 32 columns (a box
+        // wholly past N not loaded), then x at the four quarters' k
+        if (lane == 0) {
+          const int nb = min(2 * G, (p.N - col0 + 31) / 32);
+          mbar_expect_tx(full, nb * 8192u + 512u * NT);
+#pragma unroll
+          for (int b = 0; b < 2 * G; ++b)
+            if (b < nb) tma_load(sb + b * 8192, &tm_w, full, col0 + 32 * b, kst * KSTAGE);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            tma_load(sb + OFF_X + j * 128 * NT, &tm_x, full, j * p.K8 + kst * KSTAGE, m0);
+        }
+        if (++st == p.stages) {
+          st = 0;
+          ph ^= 1;
+        }
+        continue;
+      }
       if constexpr (kQ8) {
         if (lane == 0) {
           mbar_expect_tx(full, nbox * 64u * BOXW + 128u * NT);
@@ -588,6 +625,63 @@ nf4_gemv_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
           st = 0;
           ph ^= 1;
         }
+      }
+    }
+    wg_wait<0>();
+    fence_regs(acc);
+  } else if constexpr (kP) {
+    // ---- K14 consumers ----
+    // fragment rows g and g + 8 of warp w are the weight columns 16 w + 2g
+    // and 16 w + 2g + 1 of the block (as K3), in box 2c + w / 2 at words
+    // 16 (w & 1) + 2g, + 1.  Sub-stage q takes word rows 16 q + 2t + {0, 1,
+    // 8, 9}: one 8-byte load each (the two columns); byte j of rows (2t,
+    // 2t + 1) and (2t + 8, 2t + 9) are A's k pairs of k-step j, whose B is
+    // quarter j's x box at k 16 q.
+    const int c = warp >> 2, w = warp & 3, g = lane >> 2, t = lane & 3;
+    uint32_t wofs[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      wofs[i] = (2 * c + (w >> 1)) * 8192u +
+                swz<128>((2 * t + (i & 1) + 8 * (i >> 1)) * 128 + 64 * (w & 1) + 8 * g);
+    uint32_t a0[4][4], a1[4][4];
+    auto sub = [&](uint32_t sb, int q, uint32_t (&a)[4][4], uint32_t (&other)[4][4]) {
+      const uint8_t* sm = gbase + (sb - base);
+      uint2 v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = *reinterpret_cast<const uint2*>(sm + wofs[i] + 2048 * q);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const uint32_t u0 = e ? v[2 * h].y : v[2 * h].x, u1 = e ? v[2 * h + 1].y : v[2 * h + 1].x;
+          widen_i8(prmt(u0, u1, 0x5410u), a[0][2 * h + e], a[1][2 * h + e]);   // bytes 0, 1
+          widen_i8(prmt(u0, u1, 0x7632u), a[2][2 * h + e], a[3][2 * h + e]);   // bytes 2, 3
+        }
+      const uint64_t dx = smem_desc(sb + OFF_X, 16, 1024);
+      wg_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_rs(acc, a[j], dx + ((j * 128 * NT + 32 * q) >> 4));
+      wg_commit();
+      // the previous sub-stage's wgmmas are done: its A registers are free
+      wg_wait<1>();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) fence_regs(other[j]);
+    };
+    int st = 0, prev = 0;
+    uint32_t ph = 0;
+    for (int i = 0; i < n_local; ++i) {
+      mbar_wait(bar_full + 8 * st, ph);
+      const uint32_t sb = base + st * STAGE;
+      sub(sb, 0, a0, a1);
+      // the previous stage's last wgmmas are done: its words and x are free
+      if (i > 0 && lane == 0) mbar_arrive(bar_empty + 8 * prev);
+      sub(sb, 1, a1, a0);
+      sub(sb, 2, a0, a1);
+      sub(sb, 3, a1, a0);
+      prev = st;
+      if (++st == p.stages) {
+        st = 0;
+        ph ^= 1;
       }
     }
     wg_wait<0>();
@@ -765,8 +859,8 @@ nf4_gemv_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
   }
 
   // ---- epilogue: acc entry 4 j + e is row 16 w + g + 8 (e >> 1) of the block
-  // (K6: that column; K11, K3: column 16 w + 2 g + (e >> 1)), token 8 j + 2 t
-  // + (e & 1); K3 scales the f32 sum by scale8 of its column, then rounds
+  // (K6: that column; K11, K3, K14: column 16 w + 2 g + (e >> 1)), token 8 j +
+  // 2 t + (e & 1); K3 and K14 scale the f32 sum by the column's scale, then round
   const bool consumer = warp < 4 * G;
   const int c = warp >> 2, w = warp & 3, g = lane >> 2, t = lane & 3, ctid = tid & 127;
   auto store = [&](int i, float v) {
@@ -775,14 +869,14 @@ nf4_gemv_kernel(const __grid_constant__ CUtensorMap tm_w, const __grid_constant_
                   (FMT != kPlanar ? 16 * w + 2 * g + (e >> 1) : 16 * w + g + 8 * (e >> 1));
     const int m = m0 + 8 * j + 2 * t + (e & 1);
     if (m < p.M && n < p.N) {
-      if (kQ8) v = __fmul_rn(v, p.scale[n]);
+      if (kAfter) v = __fmul_rn(v, p.scale[n]);
       p.out[static_cast<long long>(m) * p.N + n] = __float2bfloat16_rn(v);
     }
   };
   if (p.S == 1) {
     if (consumer) {
-      if constexpr (kQ8) {
-        // columns n, n + 1 (both below N or both not: N % 16 == 0) as one pair
+      if constexpr (kAfter) {
+        // columns n, n + 1 (both below N or both not: N is even) as one pair
         const int n = col0 + c * QB + 16 * w + 2 * g;
         if (n < p.N) {
           const float s0 = p.scale[n], s1 = p.scale[n + 1];
@@ -923,8 +1017,9 @@ bool encode_x3(CUtensorMap* map, EncodeTiled fn, const void* x, int xp, int M, u
 template <int FMT, int NT, int G>
 int launch(const void* x, const void* wq, const void* scale, void* out, void* ws, void* ctr, int M,
            int K, int N, int xp, int S, cudaStream_t stream) {
-  const int n_kst = (K + KSTAGE - 1) / KSTAGE;
-  constexpr int NALIGN = FMT == kInt8 ? 16 : QB;   // K3 takes N % 16 == 0
+  const int n_kst = ((FMT == kP32 ? K / 4 : K) + KSTAGE - 1) / KSTAGE;
+  // K3 takes N % 16 == 0, K14 N % 4 == 0 (its word rows are 16-byte multiples)
+  constexpr int NALIGN = FMT == kInt8 ? 16 : FMT == kP32 ? 4 : QB;
   const int nb = (N + QB - 1) / QB;
   if (M < 1 || K < 8 || K % 8 || N < NALIGN || N % NALIGN || G > nb || S < 1 || S > 8 ||
       S > n_kst || (S > 1 && (ws == nullptr || ctr == nullptr)) ||
@@ -936,7 +1031,14 @@ int launch(const void* x, const void* wq, const void* scale, void* out, void* ws
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   CUtensorMap tm_w, tm_x;
   bool ok;
-  if (FMT == kInt8) {
+  if (FMT == kP32) {
+    // the words [K/4, N]: boxes of 32 words x 64 rows, 128-byte swizzle
+    // (zeros past N and K/4); x [M, K] as K3's, one box per quarter
+    ok = encode2d(&tm_w, fn, CU_TENSOR_MAP_DATA_TYPE_INT32, wq, N, K / 4, 4LL * N, 32, KSTAGE,
+                  CU_TENSOR_MAP_SWIZZLE_128B) &&
+         encode2d(&tm_x, fn, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, 2LL * K, KSTAGE, NT,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
+  } else if (FMT == kInt8) {
     // the weight tile: boxes of min(64 G, 128) bytes x 64 rows, swizzled
     // over their width (zeros past N and K); x [M, K] as K11's
     constexpr int BOXW = 64 * G < 128 ? 64 * G : 128;
@@ -967,16 +1069,19 @@ int launch(const void* x, const void* wq, const void* scale, void* out, void* ws
   p.out = static_cast<__nv_bfloat16*>(out);
   p.ws = static_cast<float*>(ws);
   p.ctr = static_cast<int*>(ctr);
-  p.M = M, p.K = K, p.N = N, p.K8 = K / 8, p.NB = nb;
+  p.M = M, p.K = K, p.N = N, p.K8 = FMT == kP32 ? K / 4 : K / 8, p.NB = nb;
   p.S = S, p.n_kst = n_kst;
-  const uint32_t stage_bytes =
-      FMT == kInt8 ? 4096u * G + 128u * NT : 2048u * G + 128u * NT + SC_BYTES;
+  const uint32_t stage_bytes = FMT == kP32   ? 16384u * G + 512u * NT
+                               : FMT == kInt8 ? 4096u * G + 128u * NT
+                                              : 2048u * G + 128u * NT + SC_BYTES;
   const uint32_t bc = FMT == kPlanar ? 256u * G * NT : 0u;   // K6's B buffers, 2 per warpgroup
   const int longest = (n_kst + S - 1) / S;
   const int fit = static_cast<int>((SMEM_LIMIT - 1024 - BAR_BYTES - bc) / stage_bytes);
   p.stages = fit < longest ? fit : longest;
   if (p.stages > MAX_STAGES) p.stages = MAX_STAGES;
-  if (p.stages < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // a consumer frees a stage once it has begun the next, so a ring of one
+  // stage takes no second
+  if (p.stages < 1 || (p.stages < 2 && longest > 1)) return static_cast<int>(cudaErrorInvalidValue);
   p.off_bc = p.stages * stage_bytes;
   p.off_bar = p.off_bc + bc;
   const int smem = static_cast<int>(p.off_bar + BAR_BYTES + 1024);
@@ -1090,6 +1195,17 @@ extern "C" int cullavo_nf4_gemv_q4(const void* x, const void* q4, const void* sc
                                    void* ws, void* ctr, int M, int K, int N, int nt, int G, int S,
                                    void* stream) {
   return dispatch<kBytes>(x, q4, scale, out, ws, ctr, M, K, N, 0, nt, G, S, stream);
+}
+
+// K14: x bf16 [M, K] (16-byte aligned); w32 int32 [K/4, N] (16-byte
+// aligned), byte j of word (kk, n) the int8 weight of k = j K/4 + kk; scale
+// f32 [N]; out bf16 [M, N].  K % 8 == 0, N % 4 == 0.  (nt, G, S) as
+// p32_gemv_plan gives them (nt 16, 32 or 64; G 1, 2 or 4); ws and ctr as for
+// K6.
+extern "C" int cullavo_p32_linear(const void* x, const void* w32, const void* scale, void* out,
+                                  void* ws, void* ctr, int M, int K, int N, int nt, int G, int S,
+                                  void* stream) {
+  return dispatch<kP32>(x, w32, scale, out, ws, ctr, M, K, N, 0, nt, G, S, stream);
 }
 
 // K3: x bf16 [M, K] (16-byte aligned); sq_inv bf16 [K] or null (16-byte

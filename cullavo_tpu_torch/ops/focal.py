@@ -15,11 +15,15 @@ bf16 model's), the erf form otherwise (the f32 model's).
 ``focal_ctx_kernel.launches``): the plain version for a tensor on the CPU,
 the kernel for a CUDA tensor (bf16 or f32, any map size, 1 to 8 levels of
 odd k), and it raises on any other device.  There is no size guard and no
-opt-out: on the card every FocalNet block launches K10.
+opt-out: on the card every FocalNet block launches K10.  ``focal_plan``
+(pure, cached) lays the launch out: whole planes a block where a plane and
+its zero ring fit in shared memory (one kernel, nothing but the output
+allocated), tiles with a halo and a second, elementwise pass where not.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +63,101 @@ def focal_ctx_plain(ctx, gates, level_weights, H: int, W: int, kernels, scaling:
     return acc.reshape(B, C, HW).to(ctx.dtype)
 
 
+# the kernel's fixed shape (csrc/focal_ctx.cu): threads a block, outputs a
+# slot (a thread's column strip), slots a thread, and the shared memory a
+# block may take on the H100 (and H200): 227 KB
+FOCAL_THREADS = 512
+FOCAL_SLOT_ROWS = 16
+FOCAL_MAX_SLOTS = 3
+FOCAL_SMEM = 232448
+_FOCAL_TILES = (128, 112, 96, 80, 64, 48, 32, 16)   # tiled path: tile sides, widest first
+
+
+def _focal_levels(kernels) -> tuple:
+    ks = tuple(int(k) for k in kernels)
+    if not 1 <= len(ks) <= 8 or any(k < 1 or k % 2 == 0 for k in ks):
+        raise ValueError(f"focal_plan: the kernel takes 1 to 8 levels of odd k, got {ks}")
+    return ks
+
+
+def _focal_layout(wh, ww, planes, ring, tap_pitch):
+    """(bytes, gap, pitch, cols) of a block's shared memory for ``planes``
+    windows of wh x ww: two column-major buffers of ``cols`` columns (the
+    window and a zero ring of ``ring`` columns each side) of ``pitch`` floats
+    (the planes stacked with ``gap`` zero rows between and around them, the
+    last plane's overhang to whole 16-row groups and the 16-byte strips'
+    overreach of 4 rows), the planes' taps and their sums.  Plane rows start
+    at multiples of 4 (gap and wh + gap) where wh allows, so a strip is six
+    16-byte loads; a pitch of 4 modulo 8 floats puts any 8 consecutive
+    columns' 16-byte loads on distinct banks."""
+    gap = -(-ring // 4) * 4
+    groups = -(-wh // FOCAL_SLOT_ROWS)
+    rows = gap + planes * (wh + gap) + groups * FOCAL_SLOT_ROWS - wh + 4
+    pitch = rows + (4 - rows) % 8
+    cols = ww + 2 * ring
+    return 4 * (2 * cols * pitch + planes * (tap_pitch + FOCAL_THREADS // 32)), gap, pitch, cols
+
+
+@functools.lru_cache(maxsize=None)
+def focal_plan(H: int, W: int, C: int, kernels, smem_bytes: int = FOCAL_SMEM, batch: int = 1,
+               sms: int = 132) -> dict:
+    """The launch of K10 for ``batch`` x ``C`` planes of H x W on a card of
+    ``sms`` SMs whose blocks may take ``smem_bytes`` of shared memory, as a
+    pure function.  ``path`` "one_pass": ``planes`` whole planes of one b a
+    block (the count that minimises waves x slots a thread, then the most
+    planes: a block's prologue and reductions are paid once for all of
+    them); "tiled" where no plane fits: one tile of one
+    plane a block, the widest square tile whose window (the tile and the
+    halo of every level's radius, clipped to the map) fits.  ``tiles``:
+    each block's output rectangle (y0, x0, h, w) of the map; ``channels``:
+    each block's channel range; ``ns``: slots a thread; ``smem``: bytes a
+    block.  Raises on what the kernel does not take."""
+    ks = _focal_levels(kernels)
+    if min(H, W, C, batch, sms) < 1:
+        raise ValueError(f"focal_plan: no plan for H={H} W={W} C={C} batch={batch} sms={sms}")
+    ring, halo = max(k // 2 for k in ks), sum(k // 2 for k in ks)
+    tap_pitch = -(-sum(k * k for k in ks) // 16) * 16
+    tap_pitch += 16 if tap_pitch % 32 == 0 else 0
+    cap = FOCAL_THREADS * FOCAL_MAX_SLOTS
+    per_plane = -(-H // FOCAL_SLOT_ROWS) * W
+
+    def plan(path, planes, th, tw, wh, ww, layout):
+        n, gap, pitch, cols = layout
+        slots = planes * -(-wh // FOCAL_SLOT_ROWS) * ww
+        tiles = tuple((y, x, min(th, H - y), min(tw, W - x))
+                      for y in range(0, H, th) for x in range(0, W, tw))
+        channels = tuple((c, min(c + planes, C)) for c in range(0, C, planes))
+        return dict(path=path, planes=planes, tile=(th, tw), window=(wh, ww), gap=gap,
+                    pitch=pitch, cols=cols, ring=ring, halo=halo, smem=n, slots=slots,
+                    ns=-(-slots // FOCAL_THREADS), threads=FOCAL_THREADS, tiles=tiles,
+                    channels=channels, ctas=batch * len(tiles) * len(channels))
+
+    best = None
+    for planes in range(1, C + 1):
+        if planes * per_plane > cap:
+            break
+        layout = _focal_layout(H, W, planes, ring, tap_pitch)
+        if layout[0] > smem_bytes:
+            break
+        ns = -(-planes * per_plane // FOCAL_THREADS)
+        waves = -(-batch * -(-C // planes) // sms)
+        key = (waves * ns, -planes)
+        if best is None or key < best[0]:
+            best = (key, planes, layout)
+    if best is not None:
+        return plan("one_pass", best[1], H, W, H, W, best[2])
+    for side in _FOCAL_TILES:
+        th, tw = min(side, H), min(side, W)
+        wh, ww = min(H, th + 2 * halo), min(W, tw + 2 * halo)
+        if -(-wh // FOCAL_SLOT_ROWS) * ww > cap:
+            continue
+        layout = _focal_layout(wh, ww, 1, ring, tap_pitch)
+        if layout[0] <= smem_bytes:
+            return plan("tiled", 1, th, tw, wh, ww, layout)
+    raise ValueError(f"focal_plan: levels {ks} (halo {halo}) leave no tile of H={H} W={W} "
+                     f"within {smem_bytes} bytes of shared memory")
+
+
 def focal_ctx_kernel(ctx, gates, level_weights, H: int, W: int, kernels, scaling: bool,
                      approximate: bool):
     """K10 on CUDA tensors, the plain version on CPU tensors; same contract
@@ -93,20 +192,21 @@ def _focal_ctx_cuda(ctx, gates, level_weights, H, W, kernels, scaling, approxima
     if gates.stride(2) != 1:
         gates = gates.contiguous()
     taps = level_weights.float().contiguous()
+    plan = focal_plan(H, W, C, kernels, FOCAL_SMEM, B,
+                      torch.cuda.get_device_properties(ctx.device).multi_processor_count)
     ks = (ctypes.c_int * L)(*[int(k) for k in kernels])
     lib = _build.lib()
-    n_tiles = lib.cullavo_focal_ctx_tiles(ctypes.addressof(ks), L, H, W)
-    if n_tiles < 0:
-        raise ValueError(f"focal_ctx_kernel: the kernel takes 1 to 8 levels of odd k whose "
-                         f"halo fits a 16-pixel tile, got {kernels}")
-    acc = torch.empty((B, C, HW), dtype=torch.float32, device=ctx.device)
-    partial = torch.empty((B, C, n_tiles), dtype=torch.float32, device=ctx.device)
     out = torch.empty((B, C, HW), dtype=ctx.dtype, device=ctx.device)
+    acc = partial = None
+    if plan["path"] == "tiled":   # the second pass's inputs
+        acc = torch.empty((B, C, HW), dtype=torch.float32, device=ctx.device)
+        partial = torch.empty((B, C, len(plan["tiles"])), dtype=torch.float32, device=ctx.device)
     err = lib.cullavo_focal_ctx(
-        ctx.data_ptr(), gates.data_ptr(), taps.data_ptr(), acc.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), ctypes.addressof(ks), L, B, C, H, W, ctx.stride(0), ctx.stride(1),
-        gates.stride(0), gates.stride(1), int(scaling), int(not approximate),
-        int(ctx.dtype == torch.bfloat16), torch.cuda.current_stream(ctx.device).cuda_stream)
+        ctx.data_ptr(), gates.data_ptr(), taps.data_ptr(), None if acc is None else acc.data_ptr(),
+        None if partial is None else partial.data_ptr(), out.data_ptr(), ctypes.addressof(ks), L,
+        B, C, H, W, ctx.stride(0), ctx.stride(1), gates.stride(0), gates.stride(1), int(scaling),
+        int(not approximate), int(ctx.dtype == torch.bfloat16), plan["planes"], *plan["tile"],
+        plan["gap"], plan["pitch"], plan["ns"], torch.cuda.current_stream(ctx.device).cuda_stream)
     _build.check(err, "focal_ctx_kernel")
     focal_ctx_kernel.launches += 1
     return out

@@ -500,6 +500,32 @@ def int8_gemv_plan(M: int, K: int, N: int, sms: int) -> dict:
     return _gemv_plan(M, K, N, sms, _INT8_TOKENS, _INT8_WIDTHS)
 
 
+_P32_WIDTHS = (1, 2, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def p32_gemv_plan(M: int, K: int, N: int, sms: int) -> dict:
+    """The launch of K14 (the matmul probe's int8 weights packed four to an
+    int32 word, ``[K/4, N]``: the fourth format of the same template) as a
+    pure function.  A ring stage is 64 word rows (256 k); ``kq_ranges`` are
+    the word rows of each split (word row kk holds k = j * K/4 + kk, j = 0..3).
+    The narrowest of 1, 2 and 4 blocks per CTA whose grid fits one wave
+    before any split (else 4), then splits only to fill the wave, as the
+    other formats: at M = 1-64 over [4096, 11008] 2 blocks a CTA and no
+    split, 86 CTAs, which measured faster on an H100 than 4 blocks in 3
+    splits (129 CTAs) or 1 block in two waves.  Any N % 4 == 0 (the last
+    column block ragged), K % 8 == 0."""
+    if M < 1 or K < 8 or K % 8 or N < 4 or N % 4 or sms < 1:
+        raise ValueError(f"p32_gemv_plan: no plan for M={M} K={K} N={N} on {sms} SMs "
+                         f"(M >= 1, K % 8 == 0, N % 4 == 0)")
+    nb, ntok = -(-N // BLOCK), -(-M // next((t for t in _GEMV_TOKENS if M <= t), _GEMV_TOKENS[-1]))
+    widths = [g for g in _P32_WIDTHS if g <= nb]
+    g = next((g for g in widths if -(-nb // g) * ntok <= sms), widths[-1])
+    plan = dict(_gemv_plan(M, K // 4, N, sms, _GEMV_TOKENS, (g,)))
+    plan["kq_ranges"] = plan.pop("k_ranges")
+    return plan
+
+
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 

@@ -1,11 +1,12 @@
 """Times the forward flash kernels (K1, K1-lse, K8, K13), the decode
-attention kernels (K12, K4, K5), the fused NF4 dequant-matmuls (K6, K11)
-and the int8 weight-only linear (K3) at the shapes of their main paths on
-one CUDA card, so that two checkouts of the port can be compared on the
-same card and the same inputs.
+attention kernels (K12, K4, K5), the fused NF4 dequant-matmuls (K6, K11),
+the int8 weight-only linear (K3), the focal-modulation context (K10) and
+the probe's p32 product (K14) at the shapes of their main paths on one
+CUDA card, so that two checkouts of the port can be compared on the same
+card and the same inputs.
 
     python3 cullavo_tpu_torch/scripts/flash_bench.py [--root DIR] [--rounds N]
-                                                      [--forms all|flash|decode|nf4|int8 ...]
+        [--forms all|flash|decode|nf4|int8|focal|p32 ...]
 
 ``--root`` names the checkout whose ``cullavo_tpu_torch`` is imported
 (default: the one holding this file): one copy of this script times an
@@ -13,7 +14,8 @@ older checkout's kernels through the entry points both share
 (``flash_attention``, ``_flash_cuda``, ``flash_attention_packed``,
 ``decode_partials``, ``wwin_decode._run_cache_part``,
 ``wwin_decode._run_cache_part_q8``, ``nf4_linear_planar``, ``nf4_linear_q4``,
-``int8_linear``).  Run it once per
+``int8_linear``, ``focal.focal_ctx_kernel``, ``matmul_probe.p32_linear``).
+Run it once per
 checkout in turns (older, newer, newer, older) and compare within one
 machine.  The inputs are drawn from a seeded generator on the card, so
 every run sees the same bytes.  Each form is timed as the median of 20
@@ -41,9 +43,16 @@ serving decode) and 511 (the largest fused M), the weights quantized from a
 seeded draw.  K3 at the same three shapes and the M of its paths: 8
 (``vl_test``'s decode, a dict without ``sq_inv``), 14 and 56 (the greedy
 batch and the speculative windows, SmoothQuant dicts with ``sq_inv``) and
-5632 (``vl_test``'s prefill, no ``sq_inv``).  Prints the card's name and power
-limit, then one JSON line: ``{"root", "device", "power_limit", "ms": {form:
-[median per round]}, "host_us": {form: [least per round]}}``.
+5632 (``vl_test``'s prefill, no ``sq_inv``).  K10 at each FocalNet-L stage
+of the X-Decoder eval (batch 8, a 512^2 image: maps 128^2 to 16^2 at C =
+192 to 1536, levels k = 3, 5, 7, 9, bf16, tanh GELU, ctx and gates the
+strided views of the ``f`` projection that ``focal_modulation`` passes) and
+at stage 1 of the 512 x 640 bucket (128 x 160); ``focal_forward`` is one
+forward's 24 launches (2, 2, 18, 2 blocks) summed from the stage medians.
+K14 at M = 1, 8 and 64 over the probe's [4096, 11008] weight.  Prints the
+card's name and power limit, then one JSON line: ``{"root", "device",
+"power_limit", "ms": {form: [median per round]}, "host_us": {form: [least
+per round]}}`` (and ``focal_forward`` with the K10 stages).
 """
 from __future__ import annotations
 
@@ -210,12 +219,46 @@ def _int8_forms(torch, nf4, device):
     return forms
 
 
+FOCAL_STAGES = ((128, 128, 192, 2), (64, 64, 384, 2), (32, 32, 768, 18), (16, 16, 1536, 2))
+FOCAL_KERNELS = (3, 5, 7, 9)
+
+
+def _focal_forms(torch, focal, device):
+    """name -> a call of K10 at a FocalNet-L stage (inputs made here, once)."""
+    g = torch.Generator(device=device).manual_seed(0)
+    L = len(FOCAL_KERNELS)
+    forms = {}
+    for i, (H, W, C, _) in enumerate(FOCAL_STAGES + ((128, 160, 192, 0),)):
+        fx = torch.randn((8, 2 * C + L + 1, H * W), generator=g, device=device).to(torch.bfloat16)
+        taps = torch.cat([torch.randn((C, k * k), generator=g, device=device) * (0.6 / k)
+                          for k in FOCAL_KERNELS], dim=1)
+        a = (fx[:, C:2 * C], fx[:, 2 * C:], taps, H, W, FOCAL_KERNELS, True, True)
+        name = (f"K10 stage {i + 1} [8,{C},{H}x{W}]" if i < 4
+                else f"K10 bucket stage 1 [8,{C},{H}x{W}]")
+        forms[name] = lambda a=a: focal.focal_ctx_kernel(*a)
+    return forms
+
+
+def _p32_forms(torch, mp, device):
+    """name -> a call of K14 on the probe's weight (inputs made here, once)."""
+    g = torch.Generator(device=device).manual_seed(0)
+    w8 = torch.randint(-128, 128, (mp.K, mp.N), generator=g, device=device, dtype=torch.int8)
+    w32 = mp.pack_p32(w8)
+    scale = torch.rand((mp.N,), generator=g, device=device) * 0.01
+    forms = {}
+    for M in (1, 8, 64):
+        x = torch.randn((M, mp.K), generator=g, device=device).to(torch.bfloat16)
+        forms[f"K14 M={M} [{mp.K},{mp.N}]"] = lambda a=(x, w32, scale): mp.p32_linear(*a)
+    return forms
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)),
                     help="the checkout whose cullavo_tpu_torch is timed")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--forms", nargs="+", choices=("all", "flash", "decode", "nf4", "int8"),
+    ap.add_argument("--forms", nargs="+",
+                    choices=("all", "flash", "decode", "nf4", "int8", "focal", "p32"),
                     default=["all"])
     args = ap.parse_args(argv)
     import torch
@@ -225,10 +268,11 @@ def main(argv=None):
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     from cullavo_tpu_torch.ops import flash_attention as fa
-    from cullavo_tpu_torch.ops import nf4
+    from cullavo_tpu_torch.ops import focal, nf4
     from cullavo_tpu_torch.ops import wwin_decode as ww
+    from cullavo_tpu_torch.scripts import matmul_probe as mp
 
-    for mod in (fa, ww, nf4):
+    for mod in (fa, ww, nf4, focal, mp):
         if not os.path.abspath(mod.__file__).startswith(root + os.sep):
             raise SystemExit(f"flash_bench: imported {mod.__file__}, not from {root}")
     device = torch.device("cuda", 0)
@@ -245,14 +289,23 @@ def main(argv=None):
         forms.update(_nf4_forms(torch, nf4, device))
     if {"all", "int8"} & set(args.forms):
         forms.update(_int8_forms(torch, nf4, device))
+    if {"all", "focal"} & set(args.forms):
+        forms.update(_focal_forms(torch, focal, device))
+    if {"all", "p32"} & set(args.forms):
+        forms.update(_p32_forms(torch, mp, device))
     ms = {n: [] for n in forms}
     host = {n: [] for n in forms}
     for _ in range(args.rounds):
         for n, fn in forms.items():
             ms[n].append(round(_bench_ms(torch, fn, device), 4))
             host[n].append(round(_host_us(torch, fn, device), 1))
-    print(json.dumps({"root": root, "device": name, "power_limit": limit, "ms": ms,
-                      "host_us": host}), flush=True)
+    res = {"root": root, "device": name, "power_limit": limit, "ms": ms, "host_us": host}
+    stages = [n for n in ms if n.startswith("K10 stage")]
+    if len(stages) == len(FOCAL_STAGES):   # one FocalNet-L forward, per round
+        res["focal_forward"] = [
+            round(sum(st[3] * ms[n][r] for st, n in zip(FOCAL_STAGES, stages)), 4)
+            for r in range(args.rounds)]
+    print(json.dumps(res), flush=True)
 
 
 if __name__ == "__main__":

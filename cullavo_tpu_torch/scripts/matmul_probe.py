@@ -19,8 +19,8 @@ the JAX script's names:
                 rows the library call needs)
   conv_p32_xla  int8 weights packed four to an int32 word, the plain version
                 (``p32_linear_plain``)                 [with p32]
-  p32_pallas    the same through K14 (``csrc/p32_matmul.cu``, ``p32_linear``)
-                                                       [with p32]
+  p32_pallas    the same through K14 (``p32_linear``: the packed format of
+                the fused template, ``csrc/nf4_gemv_sm90.cu``)   [with p32]
   bf16          dense bf16 weights (the int8 values times their scale)
 
 Every variant computes the same function and is held to the first (conv)
@@ -97,10 +97,13 @@ def _p32_cuda(x, w32, scale):
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"p32_linear: {name} must be contiguous, 16-byte aligned and on "
                              f"{x.device}")
+    plan = nf4.p32_gemv_plan(M, Kx, n, nf4._sm_count(x.device))
+    ws, ctr = nf4._gemv_scratch(plan, x.device)
     out = torch.empty((M, n), dtype=torch.bfloat16, device=x.device)
-    err = _build.lib().cullavo_p32_linear(x.data_ptr(), w32.data_ptr(), scale.data_ptr(),
-                                          out.data_ptr(), M, Kx, n,
-                                          torch.cuda.current_stream(x.device).cuda_stream)
+    err = _build.lib().cullavo_p32_linear(
+        x.data_ptr(), w32.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), None if ctr is None else ctr.data_ptr(), M, Kx, n,
+        plan["nt"], plan["g"], plan["splits"], torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "p32_linear")
     p32_linear.launches += 1
     return out
@@ -191,7 +194,7 @@ def main(M=None, L=None, p32=None, device=None) -> list:
                                    f"largest output (tol {PARITY_TOL})")
             ms = _time_ms(lambda: [dot(l) for l in range(L)], device, reps) / L
             row = {"variant": name, "ms_per_dot": round(ms, 4),
-                   "gb_per_s": round(per_dot_bytes / ms / 1e6, 1), "M": M, "layers": L,
+                   "gb_per_s": round(per_dot_bytes / ms / 1e6, 4), "M": M, "layers": L,
                    "parity_rel_err": err, "device": str(device)}
             print(json.dumps(row), flush=True)
             rows.append(row)

@@ -213,6 +213,50 @@ def test_int8_gemv_plan_refuses_what_the_kernel_does_not_take(M, K, N):
     assert tnf4.int8_gemv_plan(14, 320, 272, H100_SMS)["grid"][1] == 3   # 5 blocks, 2 a CTA
 
 
+@pytest.mark.parametrize("M", [1, 8, 13, 64, 600])
+@pytest.mark.parametrize("K,N", [(4096, 11008), (1024, 4100), (11008, 4096), (32, 16)])
+def test_p32_gemv_plan_covers_k_once_and_fills_at_most_one_wave(K, N, M):
+    """K14's launch planner (the packed format of the fused template): the
+    word rows K/4 in stages of 64, every word row (so every k = j K/4 + kk)
+    in exactly one split, token tiles that cover M, and the grid within one
+    wave wherever the token tiles allow (always where it splits), with the
+    narrowest blocks a CTA that fit it; at the probe's M = 1, 8 and 64 over
+    [4096, 11008] 2 blocks a CTA, no split, 86 CTAs."""
+    plan = tnf4.p32_gemv_plan(M, K, N, H100_SMS)
+    nt, g, S = plan["nt"], plan["g"], plan["splits"]
+    kq = K // 4
+    assert plan["n_kst"] == -(-kq // 64) and 1 <= S <= min(8, plan["n_kst"])
+    rows = np.zeros(kq, dtype=int)
+    for a, b in plan["kq_ranges"]:
+        assert 0 <= a < b <= kq and a % 64 == 0
+        rows[a:b] += 1
+    assert len(plan["kq_ranges"]) == S and (rows == 1).all()
+    covered = np.zeros(K, dtype=int)
+    for a, b in plan["kq_ranges"]:
+        for j in range(4):
+            covered[j * kq + a:j * kq + b] += 1
+    assert (covered == 1).all()
+    assert nt in (16, 32, 64) and nt * plan["grid"][2] >= M and g <= -(-N // 64)
+    assert plan["grid"] == (S, -(-(-(-N // 64)) // g), -(-M // nt))
+    if S > 1 or -(-M // nt) * -(-N // 256) <= H100_SMS:
+        assert plan["ctas"] <= H100_SMS
+    assert plan["workspace"] == (plan["ctas"] * 64 * g * nt if S > 1 else 0)
+    nb, ntok = -(-N // 64), plan["grid"][2]
+    fits = [w for w in (1, 2, 4) if w <= nb and -(-nb // w) * ntok <= H100_SMS]
+    assert g == (fits[0] if fits else min(4, nb))
+    if (K, N) == (4096, 11008) and M <= 64:
+        assert (g, S, plan["ctas"]) == (2, 1, 86)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 4100, 11008), (8, 4096, 11006), (8, 4096, 11010),
+                                   (0, 4096, 11008), (8, 4, 16), (8, 4096, 0)])
+def test_p32_gemv_plan_refuses_what_the_kernel_does_not_take(M, K, N):
+    """K14 takes K % 8 == 0 (x's rows are a tensor map's 16-byte strides) and
+    N % 4 == 0 (a word row of the weight a multiple of 16 bytes)."""
+    with pytest.raises(ValueError, match="no plan"):
+        tnf4.p32_gemv_plan(M, K, N, H100_SMS)
+
+
 def test_nf4_gemv_decode_tables_are_the_bf16_codebook():
     """K6 decodes a nibble by byte permutes against immediates in
     csrc/nf4_gemv_sm90.cu: their bytes are the low and high bytes of

@@ -92,6 +92,7 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.trainer.loop",
     "cullavo_tpu_torch.scripts.matmul_probe",
     "cullavo_tpu_torch.scripts.flash_bench",
+    "cullavo_tpu_torch.scripts.focal_phases",
 )
 
 
@@ -1273,16 +1274,24 @@ def _focal_case(dev, dtype, B, C, H, W, kernels, seed, strided):
 @pytest.mark.parametrize("B,C,H,W,kernels,strided", [
     (2, 192, 128, 128, (3, 5, 7, 9), True), (2, 1536, 16, 16, (3, 5, 7, 9), True),
     (1, 96, 100, 75, (3, 5, 7), False), (3, 8, 5, 3, (3, 5, 7, 9), False),
-    (1, 16, 70, 130, (3, 5, 7, 9, 11, 13, 15, 17), False), (1, 4, 33, 17, (1,), False)])
+    (1, 16, 70, 130, (3, 5, 7, 9, 11, 13, 15, 17), False), (1, 4, 33, 17, (1,), False),
+    (1, 192, 128, 160, (3, 5, 7, 9), True),      # the 512 x 640 bucket's stage 1
+    (1, 8, 154, 154, (3, 5, 7, 9), False),       # just past one pass: tiles of 128
+    (2, 3, 300, 200, (3, 5, 7, 9), True)])
 def test_cuda_focal_ctx_matches_plain(cuda_device, dtype, approximate, B, C, H, W, kernels,
                                       strided):
     """K10 against the plain version (cuDNN's depthwise conv in f32): within
     1e-5 + 1e-5 |ref| in f32 (the chain sums in another order than cuDNN),
-    1e-2 + 1e-2 |ref| in bf16; any map size (tiles of 64, a map smaller than
-    the widest kernel), any level count."""
+    1e-2 + 1e-2 |ref| in bf16; any map size (whole planes, several a block
+    for small maps, tiles with a halo past the one-pass limit, a map smaller
+    than the widest kernel), any level count."""
     from cullavo_tpu_torch.ops import focal
 
     torch.backends.cudnn.allow_tf32 = False
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = focal.focal_plan(H, W, C, kernels, focal.FOCAL_SMEM, B, sms)
+    # one pass while a plane's 16-row strips fit the block's 512 x 3 slots
+    assert plan["path"] == ("tiled" if -(-H // 16) * W > 1536 else "one_pass")
     ctx, gates, taps = _focal_case(cuda_device, dtype, B, C, H, W, kernels, 14, strided)
     for scaling in (True, False):
         n0 = focal.focal_ctx_kernel.launches
@@ -1528,3 +1537,21 @@ def test_cuda_p32_linear_matches_plain(cuda_device, M, K, N):
         (got.float() - ref.float()).abs().max().item()
     with pytest.raises(ValueError, match="x must be bf16"):
         mp.p32_linear(x.float(), w32, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,splits", [(8, 4096, 11008, 1), (3, 11008, 4096, 2)])
+def test_cuda_p32_linear_two_calls_are_bit_identical(cuda_device, M, K, N, splits):
+    """K14 at the probe's M = 8 (no split) and where its plan splits K across
+    CTAs (the splits added in a fixed order): two calls agree bit for bit."""
+    from cullavo_tpu_torch.ops import nf4
+    from cullavo_tpu_torch.scripts import matmul_probe as mp
+
+    g = torch.Generator(device=cuda_device).manual_seed(M + K)
+    w8 = torch.randint(-128, 128, (K, N), generator=g, device=cuda_device, dtype=torch.int8)
+    w32 = mp.pack_p32(w8)
+    x = torch.randn((M, K), generator=g, device=cuda_device).to(torch.bfloat16)
+    scale = torch.rand((N,), generator=g, device=cuda_device) * 0.01
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert nf4.p32_gemv_plan(M, K, N, sms)["splits"] == splits
+    assert torch.equal(mp.p32_linear(x, w32, scale), mp.p32_linear(x, w32, scale))

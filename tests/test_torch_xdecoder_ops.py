@@ -176,3 +176,112 @@ def test_focal_ctx_kernel_wrapper_takes_the_plain_version_on_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         tfocal.focal_ctx_kernel(ctx.to("meta"), gates.to("meta"), lw.to("meta"), H, W,
                                 kernels, True, True)
+
+
+# ---------------------------------------------------------------------------
+# K10's launch planner (pure: ``focal_plan``), held on the CPU
+# ---------------------------------------------------------------------------
+
+FOCALNET_L_KERNELS = (3, 5, 7, 9)
+# FocalNet-L's four stage maps and channels at a 512^2 image and at the
+# 512 x 640 bucket
+FOCALNET_L_MAPS = [(128, 128, 192), (64, 64, 384), (32, 32, 768), (16, 16, 1536),
+                   (128, 160, 192), (64, 80, 384), (32, 40, 768), (16, 20, 1536)]
+
+
+@pytest.mark.parametrize("H,W,C,kernels,smem", [
+    (128, 128, 192, FOCALNET_L_KERNELS, tfocal.FOCAL_SMEM),
+    (16, 20, 1536, FOCALNET_L_KERNELS, tfocal.FOCAL_SMEM),
+    (160, 160, 8, FOCALNET_L_KERNELS, tfocal.FOCAL_SMEM),       # just past one pass
+    (300, 200, 3, FOCALNET_L_KERNELS, tfocal.FOCAL_SMEM),
+    (128, 128, 192, FOCALNET_L_KERNELS, 100_000),                 # a smaller card
+    (100, 75, 96, (3, 5, 7), 60_000),
+    (70, 130, 16, (3, 5, 7, 9, 11, 13, 15, 17), tfocal.FOCAL_SMEM),
+    (5, 3, 8, FOCALNET_L_KERNELS, tfocal.FOCAL_SMEM),
+    (33, 17, 4, (1,), 20_000)])
+def test_focal_plan_covers_every_pixel_once_within_shared_memory(H, W, C, kernels, smem):
+    """Every (channel, pixel) of the map in exactly one block's output, the
+    blocks' shared memory within the limit given, every slot of a block's
+    widest window held by its threads, the buffer's ring as wide as the
+    widest radius, its columns the window and the ring on both sides, its
+    column pitch room for the stacked planes and their gaps (rows at
+    multiples of 4, a pitch of 4 modulo 8 floats); a tiled window is its tile
+    with the halo of every level's radius, clipped to the map."""
+    plan = tfocal.focal_plan(H, W, C, kernels, smem, 8, 132)
+    cover = np.zeros((C, H, W), dtype=int)
+    for c0, c1 in plan["channels"]:
+        for y0, x0, h, w in plan["tiles"]:
+            cover[c0:c1, y0:y0 + h, x0:x0 + w] += 1
+    assert (cover == 1).all()
+    assert plan["smem"] <= smem
+    assert plan["slots"] <= plan["threads"] * plan["ns"] and plan["ns"] <= tfocal.FOCAL_MAX_SLOTS
+    ring, halo = max(k // 2 for k in kernels), sum(k // 2 for k in kernels)
+    wh, ww = plan["window"]
+    th, tw = plan["tile"]
+    assert plan["ring"] == ring and plan["halo"] == halo
+    assert plan["gap"] >= ring and plan["gap"] % 4 == 0 and plan["cols"] == ww + 2 * ring
+    assert plan["pitch"] % 8 == 4
+    assert plan["pitch"] >= plan["gap"] + plan["planes"] * (wh + plan["gap"]) + 4
+    assert plan["ctas"] == 8 * len(plan["tiles"]) * len(plan["channels"])
+    if plan["path"] == "one_pass":
+        assert plan["tiles"] == ((0, 0, H, W),) and (wh, ww) == (H, W)
+    else:
+        assert plan["planes"] == 1 and (wh, ww) == (min(H, th + 2 * halo), min(W, tw + 2 * halo))
+        assert (th, tw) != (H, W)
+
+
+@pytest.mark.parametrize("H,W,C", FOCALNET_L_MAPS)
+def test_focal_plan_takes_one_pass_at_every_focalnet_l_stage(H, W, C):
+    """At both X-Decoder buckets every FocalNet-L stage map fits a block
+    whole: one kernel, no scratch; small maps put several planes in a block
+    and keep every thread's slot count at the least the grid allows."""
+    plan = tfocal.focal_plan(H, W, C, FOCALNET_L_KERNELS, tfocal.FOCAL_SMEM, 8, 132)
+    assert plan["path"] == "one_pass"
+    assert plan["planes"] == 1 if H == 128 else plan["planes"] > 1
+    slots_per_plane = -(-H // 16) * W
+    assert plan["slots"] == plan["planes"] * slots_per_plane
+
+
+@pytest.mark.parametrize("kernels", [(3, 4), (2,), (), (3,) * 9, (0, 3), (-1,)])
+def test_focal_plan_refuses_even_k_and_more_than_eight_levels(kernels):
+    with pytest.raises(ValueError, match="1 to 8 levels of odd k"):
+        tfocal.focal_plan(32, 32, 8, kernels)
+
+
+def test_focal_plan_refuses_a_halo_no_tile_can_hold():
+    with pytest.raises(ValueError, match="no tile"):
+        tfocal.focal_plan(64, 64, 8, (15,) * 8, 20_000)
+
+
+@pytest.mark.parametrize("H,W,C,kernels,smem", [(40, 37, 3, (3, 5, 7), 16_000),
+                                                (23, 50, 2, (3, 5, 7, 9), 20_000)])
+def test_focal_plan_tiles_and_their_halo_give_the_plain_chain(H, W, C, kernels, smem):
+    """The tiled path's arithmetic restated with the plan's tiles: each tile's
+    window (the tile and its halo, clipped to the map) run through every
+    level with zero padding at the window's edge, then cut to the tile,
+    gives the plain version's gated sum (the global term added apart):
+    the halo of the summed radii is enough."""
+    plan = tfocal.focal_plan(H, W, C, kernels, smem, 1, 132)
+    assert plan["path"] == "tiled" and len(plan["tiles"]) > 1
+    rng = np.random.default_rng(H * W)
+    L = len(kernels)
+    ctx = torch.from_numpy(rng.normal(size=(1, C, H, W)).astype(np.float32))
+    gates = torch.from_numpy(rng.normal(size=(1, L + 1, H, W)).astype(np.float32))
+    taps = [torch.from_numpy((rng.normal(size=(C, 1, k, k)) * 0.3).astype(np.float32))
+            for k in kernels]
+    acc = torch.zeros_like(ctx)
+    x = ctx
+    for lvl, k in enumerate(kernels):        # the plain chain, less the global term
+        x = tfocal.gelu(torch.nn.functional.conv2d(x, taps[lvl], padding=k // 2, groups=C), True)
+        acc = acc + x * gates[:, lvl:lvl + 1]
+    halo = plan["halo"]
+    for y0, x0, h, w in plan["tiles"]:
+        wy0, wx0 = max(0, y0 - halo), max(0, x0 - halo)
+        wy1, wx1 = min(H, y0 + h + halo), min(W, x0 + w + halo)
+        xw, aw = ctx[:, :, wy0:wy1, wx0:wx1], 0
+        for lvl, k in enumerate(kernels):
+            xw = tfocal.gelu(torch.nn.functional.conv2d(xw, taps[lvl], padding=k // 2, groups=C),
+                             True)
+            aw = aw + xw * gates[:, lvl:lvl + 1, wy0:wy1, wx0:wx1]
+        got = aw[:, :, y0 - wy0:y0 - wy0 + h, x0 - wx0:x0 - wx0 + w]
+        torch.testing.assert_close(got, acc[:, :, y0:y0 + h, x0:x0 + w], atol=1e-5, rtol=1e-5)
