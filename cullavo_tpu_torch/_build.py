@@ -40,7 +40,10 @@ SIGNATURES = {
     "cullavo_flash_fwd": [_P] * 4 + [_I] * 4 + [_P, _F, _P],
     "cullavo_flash_fwd_lse": [_P] * 5 + [_I] * 4 + [_P, _F, _P],
     "cullavo_flash_rows": [_P] * 7 + [_I] * 6 + [_P, _F, _P],
-    "cullavo_quant_rows": [_P, _P, _P, _P, _I, _I, _P],
+    # K2: x, mult, xi, sx, M, K, the multiplier's kind and the plan (vectors
+    # a thread, threads, blocks); its residency query
+    "cullavo_quant_rows": [_P] * 4 + [_I] * 6 + [_P],
+    "cullavo_quant_rows_resident": [_I] * 3,
     # K3: x, sq_inv, q8, scale8, xs, out, workspace, counters, M, K, N and
     # the plan (nt, g, splits)
     "cullavo_int8_linear": [_P] * 8 + [_I] * 6 + [_P],
@@ -52,7 +55,9 @@ SIGNATURES = {
     "cullavo_nf4_gemv_q4": [_P] * 6 + [_I] * 6 + [_P],
     "cullavo_nf4_dequant_planar": [_P] * 3 + [_I] * 2 + [_P],
     "cullavo_nf4_dequant_q4": [_P] * 3 + [_I] * 2 + [_P],
-    "cullavo_msdeform": [_P] * 6 + [_I] * 8 + [_P],
+    # K9: value, loc, att, out, the level shapes and starts, L, B, S, Q, Hh,
+    # hd, P, the dtypes and the plan (queries a tile, tiles)
+    "cullavo_msdeform": [_P] * 6 + [_I] * 11 + [_P],
     # K10: ctx, gates, taps, acc, partial, out, kernels, L, B, C, H, W, the
     # strides, scaling, erf, bf16 and the plan (planes, tile h/w, gap, pitch,
     # slots a thread)

@@ -12,8 +12,10 @@ the weighted sum over levels and points is taken in f32.
 ``ms_deform_attn_kernel`` is K9 (``csrc/msdeform.cu``, counted on
 ``ms_deform_attn_kernel.launches``): the plain version for a tensor on the
 CPU, the kernel for a CUDA tensor (bf16 or f32 value, head dim 32, 64 or
-128, up to 8 levels), and it raises on any other device.  There is no size
-guard and no opt-out: on the card the module always launches K9.
+128, up to 8 levels, weights in bf16 or f32 read as they are), and it raises
+on any other device.  There is no size guard and no opt-out: on the card
+the module always launches K9.  ``msdeform_plan`` (pure) picks K9's query
+tiles and grid.
 ``msdeform_attn_module_forward`` is the MSDeformAttn module around it.
 """
 from __future__ import annotations
@@ -79,6 +81,21 @@ def ms_deform_attn_kernel(value, spatial_shapes, sampling_locations, attention_w
 ms_deform_attn_kernel.launches = 0
 
 
+# K9's block: 8 warps over a tile of 64 queries of one (b, head)
+MSDEFORM_WARPS, MSDEFORM_TILE = 8, 64
+
+
+def msdeform_plan(B: int, Q: int, Hh: int) -> dict:
+    """K9's launch (pure): a block of ``warps`` warps serves one (b, head)
+    and a tile of ``tile_q`` consecutive queries (warp w takes queries w, w
+    + warps, ... of its tile), so that neighbouring queries share L1 lines;
+    ``grid`` is (tiles, Hh, B)."""
+    if min(B, Q, Hh) < 1:
+        raise ValueError(f"msdeform_plan: needs B, Q, Hh >= 1 (B={B}, Q={Q}, Hh={Hh})")
+    return {"warps": MSDEFORM_WARPS, "tile_q": MSDEFORM_TILE,
+            "grid": (-(-Q // MSDEFORM_TILE), Hh, B)}
+
+
 def _ms_deform_attn_cuda(value, spatial_shapes, loc, att):
     B, S, Hh, hd = value.shape
     Q = loc.shape[1]
@@ -86,33 +103,42 @@ def _ms_deform_attn_cuda(value, spatial_shapes, loc, att):
     P = loc.shape[4]
     if value.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"ms_deform_attn_kernel: value must be bf16 or f32, got {value.dtype}")
+    if att.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"ms_deform_attn_kernel: weights must be bf16 or f32, got {att.dtype}")
     if hd not in (32, 64, 128):
         raise ValueError(f"ms_deform_attn_kernel: the kernel takes head dim 32, 64 or 128, got {hd}")
     if not 1 <= L <= 8:
         raise ValueError(f"ms_deform_attn_kernel: the kernel takes 1 to 8 levels, got {L}")
     if sum(h * w for h, w in spatial_shapes) != S:
         raise ValueError("ms_deform_attn_kernel: the levels do not add up to S")
+    if S * Hh * hd >= 2 ** 31:
+        raise ValueError("ms_deform_attn_kernel: a batch's value map must hold < 2^31 elements")
     if loc.shape != (B, Q, Hh, L, P, 2) or att.shape != (B, Q, Hh, L, P):
         raise ValueError(f"ms_deform_attn_kernel: locations {tuple(loc.shape)} / weights "
                          f"{tuple(att.shape)} do not match [B, Q, Hh, L, P(, 2)]")
     for t in (loc, att):
         if t.device != value.device:
             raise ValueError("ms_deform_attn_kernel: inputs on different devices")
-    value = value.contiguous()
+    value, att = value.contiguous(), att.contiguous()
     loc = loc.float().contiguous()
-    att = att.float().contiguous()
+    if value.data_ptr() % 16:
+        raise ValueError("ms_deform_attn_kernel: value must be 16-byte aligned")
     out = torch.empty((B, Q, Hh * hd), dtype=value.dtype, device=value.device)
+    if B * Q == 0:
+        return out
+    plan = msdeform_plan(B, Q, Hh)
     shapes = (ctypes.c_int * (2 * L))(*[int(x) for hw in spatial_shapes for x in hw])
     starts, s = [], 0
     for h, w in spatial_shapes:
         starts.append(s)
         s += h * w
-    starts = (ctypes.c_longlong * L)(*starts)
+    starts = (ctypes.c_int * L)(*starts)
     lib = _build.lib()
     err = lib.cullavo_msdeform(
         value.data_ptr(), loc.data_ptr(), att.data_ptr(), out.data_ptr(),
         ctypes.addressof(shapes), ctypes.addressof(starts), L, B, S, Q, Hh, hd, P,
-        int(value.dtype == torch.bfloat16), torch.cuda.current_stream(value.device).cuda_stream)
+        int(value.dtype == torch.bfloat16), int(att.dtype == torch.bfloat16),
+        plan["tile_q"], plan["grid"][0], torch.cuda.current_stream(value.device).cuda_stream)
     _build.check(err, "ms_deform_attn_kernel")
     ms_deform_attn_kernel.launches += 1
     return out

@@ -216,24 +216,70 @@ def quantize_rows(x2: torch.Tensor, mult=None):
 
 quantize_rows.launches = 0
 
+# K2's vectors of 8 bf16 a thread (its instantiations) and row width
+QUANT_VPT = (2, 4, 6, 8)
+QUANT_MAX_K = 24576
+
+
+def quant_rows_plan(M: int, K: int, sms: int, resident: Optional[int] = None) -> dict:
+    """K2's launch (pure): ``vpt`` 16-byte vectors a thread (the fewest of
+    ``QUANT_VPT`` that keep a row within 256 threads; 8 past that), the
+    ``threads`` of a block (a multiple of 32, at most 384), and ``blocks``:
+    ``resident`` blocks an SM (what the card reports for the instantiation;
+    by default as many as 2048 threads allow) on ``sms`` SMs, never more
+    than M.  Block b quantizes rows b, b + blocks, ...; thread t owns
+    vectors t + j * threads (j < vpt) of each row."""
+    if K % 8 or not 0 < K <= QUANT_MAX_K or M < 1:
+        raise ValueError(f"quant_rows_plan: needs M >= 1, K % 8 == 0 and K <= "
+                         f"{QUANT_MAX_K} (M={M}, K={K})")
+    nvec = K // 8
+    vpt = next((v for v in QUANT_VPT if -(-nvec // v) <= 256), QUANT_VPT[-1])
+    per_row = -(-nvec // vpt)        # threads a row needs
+    threads = 32 * -(-per_row // 32)
+    resident = resident if resident is not None else 2048 // threads
+    return {"vpt": vpt, "threads": threads, "blocks": min(M, sms * max(1, resident))}
+
+
+_QUANT_MULT = {None: 0, torch.bfloat16: 1, torch.float32: 2}
+
+
+@functools.lru_cache(maxsize=None)
+def _quant_card(device_index: int, vpt: int, kind: int, threads: int):
+    """(SMs, K2 blocks an SM holds) as the card reports them for one
+    instantiation and block size."""
+    resident = _build.lib().cullavo_quant_rows_resident(vpt, kind, threads)
+    if resident < 1:
+        raise RuntimeError(f"quantize_rows: no block of {threads} threads fits an SM")
+    return torch.cuda.get_device_properties(device_index).multi_processor_count, resident
+
 
 def _quantize_rows_cuda(x2, mult):
     if x2.dtype != torch.bfloat16 or x2.dim() != 2 or not x2.is_contiguous():
         raise ValueError("quantize_rows: x2 must be a contiguous bf16 [M, K]")
     M, K = x2.shape
-    if K % 8 or K * 2 > 48 * 1024 or x2.data_ptr() % 16:
+    if K % 8 or K > QUANT_MAX_K or x2.data_ptr() % 16:
         raise ValueError(f"quantize_rows: the kernel needs K % 8 == 0, "
-                         f"K <= 24576 and 16-byte alignment (K={K})")
+                         f"K <= {QUANT_MAX_K} and 16-byte alignment (K={K})")
     if mult is not None:
         if mult.numel() != K or mult.device != x2.device:
             raise ValueError("quantize_rows: mult must hold K values on x2's device")
-        mult = mult.reshape(K).float().contiguous()
+        if mult.dtype not in _QUANT_MULT:
+            raise ValueError(f"quantize_rows: mult must be bf16 or f32, got {mult.dtype}")
+        mult = mult.reshape(K)
+        if not mult.is_contiguous() or mult.data_ptr() % 16:
+            raise ValueError("quantize_rows: mult must be contiguous and 16-byte aligned")
     xi = torch.empty((M, K), dtype=torch.int8, device=x2.device)
     sx = torch.empty((M, 1), dtype=torch.float32, device=x2.device)
+    if M == 0:
+        return xi, sx
+    kind = _QUANT_MULT[None if mult is None else mult.dtype]
+    plan = quant_rows_plan(M, K, 1)
+    plan = quant_rows_plan(M, K, *_quant_card(x2.device.index, plan["vpt"], kind,
+                                               plan["threads"]))
     lib = _build.lib()
     err = lib.cullavo_quant_rows(
         x2.data_ptr(), None if mult is None else mult.data_ptr(),
-        xi.data_ptr(), sx.data_ptr(), M, K,
+        xi.data_ptr(), sx.data_ptr(), M, K, kind, plan["vpt"], plan["threads"], plan["blocks"],
         torch.cuda.current_stream(x2.device).cuda_stream)
     _build.check(err, "quantize_rows")
     quantize_rows.launches += 1

@@ -1,12 +1,13 @@
 """Times the forward flash kernels (K1, K1-lse, K8, K13), the decode
 attention kernels (K12, K4, K5), the fused NF4 dequant-matmuls (K6, K11),
-the int8 weight-only linear (K3), the focal-modulation context (K10) and
-the probe's p32 product (K14) at the shapes of their main paths on one
-CUDA card, so that two checkouts of the port can be compared on the same
-card and the same inputs.
+the int8 weight-only linear (K3), the focal-modulation context (K10), the
+probe's p32 product (K14), the row quantizer (K2), the planar NF4 dequant
+(K7) and multi-scale deformable attention (K9) at the shapes of their main
+paths on one CUDA card, so that two checkouts of the port can be compared
+on the same card and the same inputs.
 
     python3 cullavo_tpu_torch/scripts/flash_bench.py [--root DIR] [--rounds N]
-        [--forms all|flash|decode|nf4|int8|focal|p32 ...]
+        [--forms all|flash|decode|nf4|int8|focal|p32|quant|dequant|deform ...]
 
 ``--root`` names the checkout whose ``cullavo_tpu_torch`` is imported
 (default: the one holding this file): one copy of this script times an
@@ -14,7 +15,8 @@ older checkout's kernels through the entry points both share
 (``flash_attention``, ``_flash_cuda``, ``flash_attention_packed``,
 ``decode_partials``, ``wwin_decode._run_cache_part``,
 ``wwin_decode._run_cache_part_q8``, ``nf4_linear_planar``, ``nf4_linear_q4``,
-``int8_linear``, ``focal.focal_ctx_kernel``, ``matmul_probe.p32_linear``).
+``int8_linear``, ``focal.focal_ctx_kernel``, ``matmul_probe.p32_linear``,
+``quantize_rows``, ``nf4_dequant_planar``, ``msdeform.ms_deform_attn_kernel``).
 Run it once per
 checkout in turns (older, newer, newer, older) and compare within one
 machine.  The inputs are drawn from a seeded generator on the card, so
@@ -49,7 +51,16 @@ of the X-Decoder eval (batch 8, a 512^2 image: maps 128^2 to 16^2 at C =
 strided views of the ``f`` projection that ``focal_modulation`` passes) and
 at stage 1 of the 512 x 640 bucket (128 x 160); ``focal_forward`` is one
 forward's 24 launches (2, 2, 18, 2 blocks) summed from the stage medians.
-K14 at M = 1, 8 and 64 over the probe's [4096, 11008] weight.  Prints the
+K14 at M = 1, 8 and 64 over the probe's [4096, 11008] weight.  K2 at the
+greedy batch's prefill chunk, [4536, 4096] and [4536, 11008] (7 prompts of
+648 tokens; the down projection's K), bf16 x times a bf16 ``sq_inv``.  K7
+at (4096, 11008).  K9 at the deformable encoder's shape at 512^2 (B 8, S =
+Q = 16^2 + 32^2 + 64^2, 8 heads x 64, 3 levels x 4 points, bf16) at two
+draws: (u) points uniform over [-0.1, 1.1] with softmaxed weights (phase 3
+of ``chip_smoke.py``), and (p) the locations and weights that
+``msdeform_attn_module_forward`` builds in one layer of the seeded encoder
+(``init_deform_encoder_params``: each point a few pixels from its query's
+own pixel centre, uniform weights).  Prints the
 card's name and power limit, then one JSON line: ``{"root", "device",
 "power_limit", "ms": {form: [median per round]}, "host_us": {form: [least
 per round]}}`` (and ``focal_forward`` with the K10 stages).
@@ -252,13 +263,87 @@ def _p32_forms(torch, mp, device):
     return forms
 
 
+def _quant_forms(torch, nf4, device):
+    """name -> a call of K2 on its inputs (made here, once)."""
+    g = torch.Generator(device=device).manual_seed(0)
+    forms = {}
+    for K in (4096, 11008):
+        x = (torch.randn((4536, K), generator=g, device=device) * 3).to(torch.bfloat16)
+        mult = (1.0 / torch.exp(torch.randn((1, K), generator=g, device=device) * 0.3)).to(
+            torch.bfloat16)
+        forms[f"K2 [4536,{K}] sq_inv bf16"] = lambda a=(x, mult): nf4.quantize_rows(*a)
+    return forms
+
+
+def _dequant_forms(torch, nf4, device):
+    """name -> a call of K7 on its inputs (made here, once)."""
+    g = torch.Generator(device=device).manual_seed(0)
+    q = nf4.quantize_linear_planar(torch.randn((4096, 11008), generator=g, device=device)
+                                   * 4096 ** -0.5)
+    return {"K7 (4096,11008)": lambda: nf4.nf4_dequant_planar(q)}
+
+
+DEFORM_LEVELS = ((16, 16), (32, 32), (64, 64))
+
+
+def deform_draws(torch, device, B=8, dtype=None):
+    """(value, levels, loc, att) of K9 at the encoder's shape (B, S = Q =
+    5376, 8 heads x 64, 3 levels x 4 points) at draw "u" (points uniform
+    over [-0.1, 1.1], softmaxed weights) and draw "p" (what
+    ``msdeform_attn_module_forward`` hands K9 in one layer of the seeded
+    encoder); seeded, on ``device``.  Uses only entry points every checkout
+    of the port has."""
+    from cullavo_tpu_torch.models.xdecoder import deform_encoder as de
+    from cullavo_tpu_torch.ops import msdeform
+
+    dtype = dtype or torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(0)
+    cfg = de.DeformEncoderConfig()
+    Hh, L, P = cfg.num_heads, len(DEFORM_LEVELS), cfg.num_points
+    hd, S = cfg.conv_dim // Hh, sum(h * w for h, w in DEFORM_LEVELS)
+    value = torch.randn((B, S, Hh, hd), generator=g, device=device).to(dtype)
+    loc = torch.rand((B, S, Hh, L, P, 2), generator=g, device=device) * 1.2 - 0.1
+    att = torch.softmax(torch.randn((B, S, Hh, L * P), generator=g, device=device), -1)
+    draws = {"u": (value, DEFORM_LEVELS, loc, att.reshape(B, S, Hh, L, P).to(dtype))}
+    # draw p: one encoder layer's module, its core call captured
+    params = de.init_deform_encoder_params(cfg, g, device, dtype)["layers"][0]["attn"]
+    refs = []
+    for h, w in DEFORM_LEVELS:      # each level's pixel centres, as the encoder builds them
+        ys = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
+        xs = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
+        yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+        refs.append(torch.stack([xx, yy], -1).reshape(-1, 2))
+    ref = torch.cat(refs, 0)[None, :, None, :].expand(B, S, L, 2)
+    query = torch.randn((B, S, cfg.conv_dim), generator=g, device=device).to(dtype)
+    src = torch.randn((B, S, cfg.conv_dim), generator=g, device=device).to(dtype)
+    seen = []
+
+    def capture(v, levels, loc_, att_):     # the module's core call, not launched
+        seen.append((v, levels, loc_, att_))
+        return torch.zeros((B, S, Hh * hd), dtype=v.dtype, device=device)
+
+    kernel = msdeform.ms_deform_attn_kernel
+    msdeform.ms_deform_attn_kernel = capture
+    msdeform.msdeform_attn_module_forward(params, query, src, DEFORM_LEVELS, ref, Hh, L, P)
+    msdeform.ms_deform_attn_kernel = kernel
+    draws["p"] = seen[0]
+    return draws
+
+
+def _deform_forms(torch, msdeform, device):
+    """name -> a call of K9 at draws (u) and (p) (inputs made here, once)."""
+    return {f"K9 [8,5376,8,64] bf16 draw {d}": lambda a=a: msdeform.ms_deform_attn_kernel(*a)
+            for d, a in deform_draws(torch, device).items()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)),
                     help="the checkout whose cullavo_tpu_torch is timed")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--forms", nargs="+",
-                    choices=("all", "flash", "decode", "nf4", "int8", "focal", "p32"),
+                    choices=("all", "flash", "decode", "nf4", "int8", "focal", "p32", "quant",
+                             "dequant", "deform"),
                     default=["all"])
     args = ap.parse_args(argv)
     import torch
@@ -268,11 +353,11 @@ def main(argv=None):
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     from cullavo_tpu_torch.ops import flash_attention as fa
-    from cullavo_tpu_torch.ops import focal, nf4
+    from cullavo_tpu_torch.ops import focal, msdeform, nf4
     from cullavo_tpu_torch.ops import wwin_decode as ww
     from cullavo_tpu_torch.scripts import matmul_probe as mp
 
-    for mod in (fa, ww, nf4, focal, mp):
+    for mod in (fa, ww, nf4, focal, mp, msdeform):
         if not os.path.abspath(mod.__file__).startswith(root + os.sep):
             raise SystemExit(f"flash_bench: imported {mod.__file__}, not from {root}")
     device = torch.device("cuda", 0)
@@ -293,6 +378,12 @@ def main(argv=None):
         forms.update(_focal_forms(torch, focal, device))
     if {"all", "p32"} & set(args.forms):
         forms.update(_p32_forms(torch, mp, device))
+    if {"all", "quant"} & set(args.forms):
+        forms.update(_quant_forms(torch, nf4, device))
+    if {"all", "dequant"} & set(args.forms):
+        forms.update(_dequant_forms(torch, nf4, device))
+    if {"all", "deform"} & set(args.forms):
+        forms.update(_deform_forms(torch, msdeform, device))
     ms = {n: [] for n in forms}
     host = {n: [] for n in forms}
     for _ in range(args.rounds):

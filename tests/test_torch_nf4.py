@@ -163,6 +163,39 @@ def test_nf4_gemv_plan_refuses_degenerate_shapes(M, K, N, sms):
         tnf4.nf4_gemv_plan(M, K, N, sms)
 
 
+@pytest.mark.parametrize("M", [1, 7, 1296, 4536, 4537])
+@pytest.mark.parametrize("K", [16, 4096, 11008, 24576])
+@pytest.mark.parametrize("resident", [None, 1, 3])
+def test_quant_rows_plan_covers_every_row_and_column_once(M, K, resident):
+    """K2's planner: every row in exactly one block's walk (block b takes
+    rows b, b + blocks, ...), every 16-byte vector of a row in exactly one
+    thread's slots (vector t + j * threads), blocks of whole warps within
+    the kernel's 512 threads, one instantiation's vectors a thread, and no
+    more blocks than rows or than the SMs hold at once; at the greedy
+    batch's K = 4096, 2 vectors a thread in 256 threads."""
+    plan = tnf4.quant_rows_plan(M, K, H100_SMS, resident)
+    vpt, threads, blocks = plan["vpt"], plan["threads"], plan["blocks"]
+    assert vpt in tnf4.QUANT_VPT and threads % 32 == 0 and 32 <= threads <= 512
+    held = H100_SMS * (resident if resident is not None else 2048 // threads)
+    assert blocks == min(M, held)
+    rows = np.zeros(M, dtype=int)
+    for b in range(blocks):
+        rows[b::blocks] += 1
+    assert (rows == 1).all()
+    nvec = K // 8
+    slots = (np.arange(threads)[:, None] + np.arange(vpt)[None, :] * threads).ravel()
+    cols = np.bincount(slots[slots < nvec], minlength=nvec)
+    assert (cols == 1).all() and threads * vpt < nvec + 32 * vpt
+    if K == 4096:
+        assert (vpt, threads) == (2, 256)
+
+
+@pytest.mark.parametrize("M,K", [(0, 4096), (7, 12), (7, 0), (7, 24584)])
+def test_quant_rows_plan_refuses_what_the_kernel_cannot_take(M, K):
+    with pytest.raises(ValueError, match="quant_rows_plan"):
+        tnf4.quant_rows_plan(M, K, H100_SMS)
+
+
 @pytest.mark.parametrize("M,K,N", [(1, 8, 64), (9, 1096, 320), (700, 4096, 192)])
 def test_nf4_gemv_plan_small_and_ragged_shapes(M, K, N):
     """A K of one ring stage takes no split; a width of a few blocks gets

@@ -681,6 +681,33 @@ def test_cuda_quantize_rows_bit_equal(cuda_device, M, K):
     assert torch.equal(sx, sr)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mult", [None, "bf16", "f32"])
+@pytest.mark.parametrize("K", [16, 4096, 11008, 24576])
+@pytest.mark.parametrize("M", [1, 7, 1296, 4536, 4537])
+def test_cuda_quantize_rows_edges_bit_equal(cuda_device, M, K, mult):
+    """K2 at the greedy batch's M (7 x 648 = 4536) and around it, one row,
+    a row of 16 and of the kernel's widest 24576: codes and sx bit-equal to
+    the plain version, with no multiplier, the bf16 ``sq_inv`` [1, K] of a
+    SmoothQuant dict or an f32 one, and one launch a call."""
+    from cullavo_tpu_torch.ops import nf4
+
+    g = torch.Generator(device=cuda_device).manual_seed(M + K)
+    x = (torch.randn((M, K), generator=g, device=cuda_device) * 3).to(torch.bfloat16)
+    x[0, K // 3] = 40.0                   # one outlier sets row 0's scale
+    m = None if mult is None else torch.exp(
+        torch.randn((1, K), generator=g, device=cuda_device) * 0.3)
+    if mult == "bf16":
+        m = m.to(torch.bfloat16)
+    n0 = nf4.quantize_rows.launches
+    xi, sx = nf4.quantize_rows(x, m)
+    assert nf4.quantize_rows.launches == n0 + 1
+    xr, sr = nf4._quantize_rows_plain(x, m)
+    assert xi.dtype == torch.int8 and sx.shape == (M, 1)
+    assert torch.equal(xi, xr)
+    assert torch.equal(sx, sr)
+
+
 def _int8_case(dev, M, K, N, smooth, seed=2):
     from cullavo_tpu_torch.ops import nf4
 
@@ -1249,6 +1276,44 @@ def test_cuda_ms_deform_attn_matches_plain(cuda_device, dtype, shapes, Q, Hh, hd
     assert msdeform.ms_deform_attn_kernel.launches == n0 + 1
     ref = msdeform.ms_deform_attn(value, shapes, loc, att)
     assert got.dtype == dtype and got.shape == ref.shape
+    tol = (1e-5, 0.0) if dtype == torch.float32 else (1e-2, 1e-2)
+    assert torch.allclose(got.float(), ref.float(), atol=tol[0], rtol=tol[1]), \
+        (got.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes,Q,Hh,hd,P", [
+    (((64, 64), (32, 32), (16, 16)), 3001, 8, 64, 4),   # the encoder's levels, Q ragged
+    (((12, 10), (6, 5), (3, 3)), 130, 2, 128, 4),        # the 3 x 4 body at hd 128
+    (((12, 10), (6, 5), (3, 3)), 64, 3, 32, 4),          # the 3 x 4 body at hd 32, one tile
+    (((9, 13), (5, 7)), 77, 2, 32, 3),                   # the generic body at hd 32
+    (((5, 6), (3, 3), (2, 2), (1, 1)), 41, 3, 64, 5),    # 20 points: two chunks
+    (((6, 4),), 1, 1, 128, 1)])                          # one query, one point
+def test_cuda_ms_deform_attn_edges(cuda_device, dtype, shapes, Q, Hh, hd, P):
+    """K9 at its edges against the plain version: both bodies, every head
+    dim, Q that fills no tile of 64, points outside the maps (about a
+    tenth, and some at +-1e30) that contribute nothing, points that are not
+    finite and are skipped (the plain version, which would give NaN, is fed
+    weight 0 there), weights in the value's dtype; within 1e-5 in f32,
+    1e-2 + 1e-2 |ref| in bf16."""
+    from cullavo_tpu_torch.ops import msdeform
+
+    B = 2
+    value, loc, att = _msdeform_case(cuda_device, dtype, shapes, B, Q, Hh, hd, P, seed=Q + hd)
+    att = att.to(dtype)
+    loc[0, :5, 0, 0, 0] = float("nan")
+    loc[1, -3:, -1, -1, -1, 1] = float("inf")
+    loc[1, Q // 2, 0] = float("-inf")
+    loc[0, Q // 3, :, :, -1, 0] = 1e30
+    loc[0, Q // 4, :, :, 0, 1] = -1e30
+    skip = ~torch.isfinite(loc).all(-1)
+    n0 = msdeform.ms_deform_attn_kernel.launches
+    got = msdeform.ms_deform_attn_kernel(value, shapes, loc, att)
+    assert msdeform.ms_deform_attn_kernel.launches == n0 + 1
+    ref = msdeform.ms_deform_attn(value, shapes, torch.where(skip[..., None], 0.5, loc),
+                                  torch.where(skip, 0.0, att.float()).to(dtype))
+    assert got.dtype == dtype and got.shape == ref.shape and torch.isfinite(got).all()
     tol = (1e-5, 0.0) if dtype == torch.float32 else (1e-2, 1e-2)
     assert torch.allclose(got.float(), ref.float(), atol=tol[0], rtol=tol[1]), \
         (got.float() - ref.float()).abs().max().item()

@@ -285,3 +285,69 @@ def test_focal_plan_tiles_and_their_halo_give_the_plain_chain(H, W, C, kernels, 
             aw = aw + xw * gates[:, lvl:lvl + 1, wy0:wy1, wx0:wx1]
         got = aw[:, :, y0 - wy0:y0 - wy0 + h, x0 - wx0:x0 - wx0 + w]
         torch.testing.assert_close(got, acc[:, :, y0:y0 + h, x0:x0 + w], atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K9's launch planner (pure: ``msdeform_plan``), held on the CPU; and the
+# plain K9 at the deform encoder's own draw
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,Q,Hh", [(8, 5376, 8), (2, 6720, 8), (2, 3001, 8), (2, 77, 2),
+                                    (1, 1, 1), (3, 64, 1), (2, 65, 4)])
+def test_msdeform_plan_covers_every_query_once(B, Q, Hh):
+    """Every query of every (b, head) in exactly one (tile, warp) walk: the
+    deform encoder's Q = S at 512^2 and at the 512 x 640 bucket, Q that
+    fills no tile, one query, exactly one tile, one past it."""
+    plan = tms.msdeform_plan(B, Q, Hh)
+    tiles, heads, batch = plan["grid"]
+    assert (heads, batch) == (Hh, B)
+    warps, tile_q = plan["warps"], plan["tile_q"]
+    assert 1 <= warps <= 32 and tile_q >= warps
+    seen = np.zeros(Q, dtype=int)
+    for t in range(tiles):
+        q0, q1 = t * tile_q, min(Q, (t + 1) * tile_q)
+        assert q0 < q1                       # no tile without queries
+        for w in range(warps):
+            seen[q0 + w:q1:warps] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("B,Q,Hh", [(0, 10, 8), (2, 0, 8), (2, 10, 0)])
+def test_msdeform_plan_refuses_empty_grids(B, Q, Hh):
+    with pytest.raises(ValueError, match="msdeform_plan"):
+        tms.msdeform_plan(B, Q, Hh)
+
+
+def test_ms_deform_attn_plain_matches_jax_at_the_encoders_draw():
+    """The encoder's own draw (draw p): every query's reference point is its
+    pixel centre, the offset projection is the Deformable-DETR bias (point p
+    at (p + 1) pixels along its head's direction, on every level) and the
+    weights are uniform, as ``init_deform_encoder_params`` starts them.  The
+    plain K9 against JAX's XLA gather and its Pallas kernel (interpret
+    mode)."""
+    from cullavo_tpu_torch.models.xdecoder import deform_encoder as tde
+
+    cfg = tde.DeformEncoderConfig()
+    shapes = ((2, 3), (4, 6), (8, 12))
+    Hh, L, P, hd, B = cfg.num_heads, len(shapes), cfg.num_points, 32, 2
+    S = sum(h * w for h, w in shapes)
+    rng = np.random.default_rng(11)
+    value = rng.normal(size=(B, S, Hh, hd)).astype(np.float32)
+    refs = []
+    for h, w in shapes:
+        yy, xx = np.meshgrid((np.arange(h) + 0.5) / h, (np.arange(w) + 0.5) / w, indexing="ij")
+        refs.append(np.stack([xx, yy], -1).reshape(-1, 2))
+    ref = np.concatenate(refs).astype(np.float32)                        # [Q, 2]
+    off = tde._offset_bias(cfg).reshape(Hh, L, P, 2).astype(np.float32)
+    norm = np.array([[w, h] for h, w in shapes], np.float32)            # (W, H) a level
+    loc = ref[None, :, None, None, None, :] + (off / norm[None, :, None, :])[None, None]
+    loc = np.ascontiguousarray(np.broadcast_to(loc, (B, S, Hh, L, P, 2)), np.float32)
+    att = np.full((B, S, Hh, L, P), 1.0 / (L * P), np.float32)
+    assert (loc < 0).any() and (loc > 1).any()    # the edge queries reach past their maps
+    got = tms.ms_deform_attn(torch.from_numpy(value), shapes, torch.from_numpy(loc),
+                             torch.from_numpy(att)).numpy()
+    xla = jms.ms_deform_attn(jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(att))
+    pallas = ms_deform_attn_pallas(jnp.asarray(value), shapes, jnp.asarray(loc),
+                                   jnp.asarray(att))
+    np.testing.assert_allclose(got, np.asarray(xla), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got, np.asarray(pallas), atol=1e-5, rtol=0)
