@@ -212,6 +212,18 @@ Phases (each raises on failure, and the script exits non-zero):
   13. the port's matmul probe (``scripts/matmul_probe.main``) at M = 8 over
      24 stacked [4096, 11008] weights with the p32 variants: every variant's
      JSON line, parity to the first within 2e-2, K14 launched as predicted.
+  14. step2_pre data generation from phase 10's snapshot (run before phase
+     13, while the snapshot exists): ``python -m cullavo_tpu_torch eval
+     --conf_files configs/cullavo_step2_pre.yaml`` in a subprocess over a
+     registered conversations dataset of 12 rows (PNG images of 336^2 and
+     480 x 640), 256 sampled tokens (temperature 0.9, top-k 50, top-p 0.95)
+     in two chunks of 8, the second padded by repetition: exit 0,
+     ``lbk_new_version.json`` well-formed; then in this process the first
+     chunk's sampled fused ``generate`` twice from its seed (equal tokens;
+     K1 32 and K4 32 per decode step launched; seconds, tokens/s, peak
+     memory), the greedy fused ``generate`` against ``generate_prefill`` +
+     ``generate_decode`` at 32 tokens (equal streams), and the top-k/top-p
+     filter of the prefill's logits on the card equal to the CPU's.
 The last two lines are the kernels' JSON record and the result line.
 Imports neither JAX nor the JAX package.
 """
@@ -221,6 +233,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -337,6 +350,14 @@ ZOO_DATASET, ZOO_IMAGES, ZOO_QUESTIONS, ZOO_SIDE, ZOO_NEW, ZOO_BEAMS = (
 # the card-vs-CPU check: layers per tower; the card's f32 error against the
 # CPU's f64 result may be ZOO_TOL times the CPU's own f32 error, + 1e-5 max |ref|
 ZOO_CUT, ZOO_TOL = 2, 4.0
+# step2_pre (phase 14): configs/cullavo_step2_pre.yaml through the command line
+# over a registered conversations dataset of this many rows whose images are
+# PNGs of these sizes; its MAX_NEW_TOKENS (256) and the default BATCH_SIZE (8);
+# the greedy fused-vs-two-phase check decodes STEP2_CHECK_NEW tokens
+STEP2_CFG = "configs/cullavo_step2_pre.yaml"
+STEP2_DATASET, STEP2_ROWS, STEP2_IMAGE_HW = "chip_conversations_synthetic", 12, (
+    (336, 336), (480, 640))
+STEP2_NEW, STEP2_BATCH, STEP2_CHECK_NEW, STEP2_TURNS = 256, 8, 32, 3
 
 
 def log(*a):
@@ -3978,6 +3999,283 @@ def run_matmul_probe(device, wrappers):
     return counts
 
 
+def write_conversations(root):
+    """A conversations dataset: ``STEP2_ROWS`` ShareGPT4V-style rows (one
+    human/gpt turn each) over PNG images of ``STEP2_IMAGE_HW`` sizes in
+    turns, written by the port's PNG writer, and ``rows.json``."""
+    import numpy as np
+
+    from cullavo_tpu_torch.data import png_io
+
+    rng = np.random.default_rng(SEED + 14)
+    rows = []
+    for i in range(STEP2_ROWS):
+        name = f"conv_{i:03d}.png"
+        hw = STEP2_IMAGE_HW[i % len(STEP2_IMAGE_HW)]
+        png_io.write_png(os.path.join(root, name), rng.integers(0, 256, hw + (3,), dtype=np.uint8))
+        rows.append({"id": i, "image": name, "conversations": [
+            {"from": "human", "value": "<image>\nWhat is in the picture?"},
+            {"from": "gpt", "value": VL_ANSWERS[i % len(VL_ANSWERS)]}]})
+    with open(os.path.join(root, "rows.json"), "w") as f:
+        json.dump(rows, f)
+    return os.path.join(root, "rows.json")
+
+
+def check_step2_rows(out_dir, printed):
+    """``lbk_new_version.json`` under ``out_dir``: a list of well-formed rows
+    (image file written, as many boxes as classes, finite coordinates), as
+    many as the run printed.  Returns the rows."""
+    with open(os.path.join(out_dir, "lbk_new_version.json")) as f:
+        made = json.load(f)
+    bad = [r for r in made if not (
+        set(r) == {"image", "boxes", "classes", "text"}
+        and os.path.isfile(os.path.join(out_dir, r["image"]))
+        and len(r["boxes"]) == len(r["classes"]) > 0
+        and all(len(b) == 4 and all(math.isfinite(v) for v in b) for b in r["boxes"]))]
+    if not isinstance(made, list) or bad or printed.get("rows") != len(made):
+        raise RuntimeError(f"step2_pre: bad rows {bad[:2]} (printed {printed}, {len(made)} "
+                           f"in {out_dir}/lbk_new_version.json)")
+    return made
+
+
+def run_step2_pre_path(snap, device, wrappers, smi, work):
+    """Phase 14: step2_pre data generation at LLaVA-1.5-7B from phase 10's
+    bf16 snapshot, over a registered conversations dataset of 12 rows
+    (``--config_overrides``) with ``LOAD_PATH`` the snapshot
+    (``--overrides``): 256 sampled tokens, batch 8, so two chunks, the
+    second padded by repetition.  (1) ``python -m cullavo_tpu_torch eval
+    --conf_files configs/cullavo_step2_pre.yaml ...`` in a subprocess: exit
+    0 and well-formed rows.  (2) The main path: ``entry.main`` on the same
+    arguments in this process, launches counted; the pipeline's ``generate``
+    calls are recorded, their prefill and decode steps timed apart; exit
+    and rows as in (1).  (3) The first chunk's call again with its recorded
+    seed: equal tokens.  (4) On the first chunk's inputs at 32 new tokens:
+    the sampled fused ``generate``, the greedy fused ``generate`` and
+    ``generate_prefill`` + ``generate_decode``, each with prefill and steps
+    timed apart (the sampler's cost and the early stop's host read apart);
+    greedy fused = two-phase (a row that differs is reported with its top-2
+    margin at the first differing step, and fails).  (5) ``_filter_logits``
+    of the prefill's logits on the card equal to the CPU's.  Returns the
+    launch counts of (2)."""
+    import io
+
+    import torch
+
+    from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.models.llava import modeling as tm
+    from cullavo_tpu_torch.pipelines import cullavo_pipeline as cp
+
+    root = os.path.join(work, "conversations")
+    os.makedirs(root)
+    rows_json = write_conversations(root)
+    over = {"DATASETS.TEST": [STEP2_DATASET], "DATASETS.REGISTER": {STEP2_DATASET: {
+        "KIND": "conversations", "JSON": rows_json, "IMAGE_ROOT": root}}}
+
+    def argv(out_dir):
+        return ["eval", "--conf_files", os.path.join(REPO, STEP2_CFG),
+                "--config_overrides", json.dumps(over),
+                "--overrides", "MODEL.LLM.LOAD_PATH", snap, "SAVE_DIR", out_dir]
+
+    cli_dir = os.path.join(work, "step2_pre_cli")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "cullavo_tpu_torch"] + argv(cli_dir), cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=600)
+    t_cli = time.perf_counter() - t0
+    for line in (res.stdout + res.stderr).strip().splitlines()[-6:]:
+        log(f"  step2_pre CLI: {line}")
+    if res.returncode != 0:
+        raise RuntimeError(f"step2_pre: python -m cullavo_tpu_torch exited {res.returncode}")
+    made_cli = check_step2_rows(cli_dir, json.loads(res.stdout.strip().splitlines()[-1]))
+    log(f"step2_pre CLI ({smi}): exit 0 in {t_cli:.2f} s (process start, snapshot load, both "
+        f"chunks); {len(made_cli)} rows")
+
+    # the pipeline's generate calls, and every prefill and decode loop timed
+    # (a decode loop also keeps the host clock at each of its forwards: the
+    # fused loop's per-step read of the device makes that a step's wall)
+    calls, spans, forwards, stamps = [], [], [0], []
+    originals = {"generate_prefill": tm.generate_prefill, "_decode_steps": tm._decode_steps,
+                 "llava_forward": tm.llava_forward, "_sample_token": tm._sample_token}
+    seen = []
+
+    def timed(name):
+        def run(*a, **kw):
+            torch.cuda.synchronize(device)
+            n0, t = forwards[0], time.perf_counter()
+            out = originals[name](*a, **kw)
+            torch.cuda.synchronize(device)
+            end = time.perf_counter()
+            spans.append((name, end - t, forwards[0] - n0, stamps[n0:] + [end]))
+            return out
+        return run
+
+    def counting_forward(*a, **kw):
+        forwards[0] += 1
+        stamps.append(time.perf_counter())
+        return originals["llava_forward"](*a, **kw)
+
+    def recording_sample(logits, gen, *a):
+        seen.append(logits.float().clone())
+        return originals["_sample_token"](logits, gen, *a)
+
+    def recorded_generate(params, cfg, ids, pix, mask, gen, max_len, rng, compute_dtype):
+        seed = rng.initial_seed()
+        out = tm.generate(params, cfg, ids, pix, mask, gen, max_len, rng=rng,
+                          compute_dtype=compute_dtype)
+        calls.append({"args": (params, cfg, ids, pix, mask), "gen": gen, "max_len": max_len,
+                      "seed": seed, "dtype": compute_dtype, "out": out})
+        return out
+
+    def take_spans():
+        got = {name: [(s, n, st) for k, s, n, st in spans if k == name]
+               for name in ("generate_prefill", "_decode_steps")}
+        spans.clear()
+        stamps.clear()
+        forwards[0] = 0
+        return got
+
+    tm.generate_prefill = timed("generate_prefill")
+    tm._decode_steps = timed("_decode_steps")
+    tm.llava_forward = counting_forward
+    pipeline_generate, cp.generate = cp.generate, recorded_generate
+    out_dir = os.path.join(work, "step2_pre_out")
+    printed = io.StringIO()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        result, counts = counted(wrappers, lambda: entry.main(argv(out_dir), device=device))
+    t_main = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    cp.generate = pipeline_generate
+    main_spans = take_spans()
+    log(f"  step2_pre entry.main printed: {printed.getvalue().strip()}")
+    made = check_step2_rows(out_dir, result)
+    layers = calls[0]["args"][1].text.num_hidden_layers
+    steps = sum(n for _, n, _ in main_spans["_decode_steps"])
+    if len(calls) != 2 or counts["flash_fwd"] != layers * len(calls) or \
+            counts["wwin_decode"] != layers * steps:
+        raise RuntimeError(f"step2_pre: {len(calls)} generate calls, K1/K4 launches "
+                           f"{counts['flash_fwd']}/{counts['wwin_decode']} for {steps} steps")
+    eos = calls[0]["gen"].eos_token_id
+    emitted = 0
+    for c in calls:
+        tok = c["out"]
+        if tok.shape != (STEP2_BATCH, STEP2_NEW) or tok.min() < 0 or \
+                tok.max() >= c["args"][1].text.vocab_size:
+            raise RuntimeError(f"step2_pre: bad tokens {tuple(tok.shape)}")
+        emitted += sum(r.index(eos) + 1 if eos in r else STEP2_NEW for r in tok.tolist())
+    pre_s = [s for s, _, _ in main_spans["generate_prefill"]]
+    dec = main_spans["_decode_steps"]
+    gen_s = sum(pre_s) + sum(s for s, _, _ in dec)
+    # each step's wall from one forward to the next: the first and the last
+    # STEP2_CHECK_NEW - 1 steps of each chunk (is a late step dearer?)
+    k = STEP2_CHECK_NEW - 1
+    ends = [[1e3 * (b - a) for a, b in zip(st, st[1:])] for _, _, st in dec]
+    first_last = [(round(statistics.median(e[:k]), 3), round(statistics.median(e[-k:]), 3))
+                  for e in ends]
+    T = calls[0]["args"][2].shape[1]
+    log(f"step2_pre main path ({smi}): entry.main {t_main:.3f} s (snapshot load included), "
+        f"{len(calls)} chunks of {STEP2_BATCH} x prompt {T} tokens, cache {T + STEP2_NEW} "
+        f"slots; prefill s {[round(s, 4) for s in pre_s]}; decode "
+        f"{[round(s, 4) for s, _, _ in dec]} s over {[n for _, n, _ in dec]} steps = "
+        f"{[round(1e3 * s / n, 3) for s, n, _ in dec]} ms per step (median of the first / "
+        f"last {k} steps {first_last} ms); {emitted} tokens emitted "
+        f"in {gen_s:.3f} s of generate = {emitted / gen_s:.1f} tokens/s; peak memory "
+        f"{peak:.2f} GiB; K1 {counts['flash_fwd']} and K4 {counts['wwin_decode']} launches; "
+        f"{len(made)} rows (random weights: a sampled text rarely parses into boxes); "
+        f"rows equal to the CLI's: {made == made_cli}")
+
+    first = calls[0]
+    params, model_cfg, ids, pix, mask = first["args"]
+    again = tm.generate(params, model_cfg, ids, pix, mask, first["gen"], first["max_len"],
+                        rng=torch.Generator(device=device).manual_seed(first["seed"]),
+                        compute_dtype=first["dtype"])
+    take_spans()
+    if not torch.equal(again, first["out"]):
+        raise RuntimeError("step2_pre: the first chunk again from its seed gave other tokens")
+    log(f"step2_pre sampled: the first chunk again from seed {first['seed']}: tokens identical; "
+        f"tokens[0][:12] {again[0, :12].tolist()}")
+
+    short = T + STEP2_CHECK_NEW
+    sampled = dataclasses.replace(first["gen"], max_new_tokens=STEP2_CHECK_NEW)
+    greedy = tm.GenerationConfig(max_new_tokens=STEP2_CHECK_NEW, eos_token_id=-1)
+
+    def sampled_fused():
+        return tm.generate(params, model_cfg, ids, pix, mask, sampled, short,
+                           compute_dtype=torch.bfloat16,
+                           rng=torch.Generator(device=device).manual_seed(first["seed"]))
+
+    def greedy_fused():
+        return tm.generate(params, model_cfg, ids, pix, mask, greedy, short,
+                           compute_dtype=torch.bfloat16)
+
+    def two_phase():
+        state = tm.generate_prefill(params, model_cfg, ids, pix, mask, short,
+                                    compute_dtype=torch.bfloat16)
+        outs["prefill logits"] = state["logits"].float().clone()
+        return tm.generate_decode(params, model_cfg, state, greedy,
+                                  compute_dtype=torch.bfloat16)
+
+    # in turns, so that the host clock's drift from one run to the next
+    # shows beside the differences
+    variants = {"sampled fused": sampled_fused, "greedy fused": greedy_fused,
+                "greedy two-phase": two_phase}
+    split, outs = {name: [] for name in variants}, {}
+    for turn in range(STEP2_TURNS):
+        for name, run in variants.items():
+            if turn == 0 and name == "greedy two-phase":
+                tm._sample_token = recording_sample
+            out = run()
+            tm._sample_token = originals["_sample_token"]
+            sp = take_spans()
+            (pre, _, _), = sp["generate_prefill"]
+            (d, n, _), = sp["_decode_steps"]
+            split[name].append((pre, 1e3 * d / n))
+            if turn == 0:
+                outs[name] = out
+    for name, f in originals.items():
+        setattr(tm, name, f)
+    fused, two, logits0 = outs["greedy fused"], outs["greedy two-phase"], outs["prefill logits"]
+    differ = (fused != two).any(dim=1)
+    for b in differ.nonzero().flatten().tolist():
+        at = int((fused[b] != two[b]).nonzero()[0])
+        top = torch.topk(seen[at][b], 2).values
+        log(f"step2_pre: greedy row {b} differs at step {at}: fused {fused[b].tolist()}, "
+            f"two-phase {two[b].tolist()}; top-2 margin there {float(top[0] - top[1]):.4f}")
+    if differ.any():
+        raise RuntimeError("step2_pre: the greedy fused generate is not the two-phase stream")
+    med = {}
+    for name, runs in split.items():
+        med[name] = statistics.median(ms for _, ms in runs)
+        log(f"step2_pre {name} ({smi}): {STEP2_BATCH} rows, cache {short} slots, "
+            f"{STEP2_CHECK_NEW} new tokens, {STEP2_TURNS} turns: prefill "
+            f"{[round(p, 4) for p, _ in runs]} s, decode {[round(ms, 3) for _, ms in runs]} "
+            f"ms per step (median {med[name]:.3f})")
+    log(f"step2_pre decode split ({smi}), medians: the sampler "
+        f"{med['sampled fused'] - med['greedy fused']:.3f} ms per step (sampled fused - "
+        f"greedy fused), the fused loop's host read "
+        f"{med['greedy fused'] - med['greedy two-phase']:.3f} ms per step (greedy fused - "
+        f"two-phase); greedy fused = two-phase over {STEP2_BATCH} rows x "
+        f"{STEP2_CHECK_NEW} tokens")
+
+    card_sets = []
+    for k, p in ((50, 0.95), (0, 0.95), (50, 1.0)):
+        gen = tm.GenerationConfig(do_sample=True, top_k=k, top_p=p)
+        card = tm._filter_logits(logits0, gen).cpu()
+        cpu = tm._filter_logits(logits0.cpu(), gen)
+        if not torch.equal(card, cpu):
+            raise RuntimeError(f"step2_pre: filtered logits (top_k {k}, top_p {p}) differ "
+                               "between the card and the CPU")
+        card_sets.append(int((card > tm.NEG_INF / 2).sum()))
+    log(f"step2_pre filter: card = CPU on the prefill logits [{STEP2_BATCH}, "
+        f"{logits0.shape[1]}]; kept tokens (top-k 50 + top-p 0.95 / top-p 0.95 / top-k 50): "
+        f"{card_sets}")
+    del params, calls, first, variants
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv):
     import torch
 
@@ -4144,6 +4442,10 @@ def main(argv):
 
         # phase 12
         counts_loop = run_train_loop_path(snap, cfg, device, wrappers, smi, work)
+        torch.cuda.empty_cache()
+
+        # phase 14
+        counts_step2 = run_step2_pre_path(snap, device, wrappers, smi, work)
 
     # phase 13
     counts_probe13 = run_matmul_probe(device, wrappers)
@@ -4192,6 +4494,8 @@ def main(argv):
             k["also_replaces"] = "cullavo_tpu/ops/nf4.py:222"
         if k["name"] == "flash_packed":
             k["also_replaces"] = "cullavo_tpu/ops/flash_attention.py:596"
+        if k["name"] in ("flash_fwd", "wwin_decode"):   # phase 14's entry.main run
+            k["step2_pre_launches"] = counts_step2[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

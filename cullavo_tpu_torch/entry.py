@@ -1,13 +1,18 @@
-"""Entry points of the port (counterpart of ``cullavo_tpu/entry.py``): so
-far ``serve``, the continuous-batching engine over a JSONL request stream,
-``train`` (the Q-LoRA epoch loop over a registered COCO-panoptic dataset
-with ``step_{N}`` and reference ``epoch{N}`` checkpoints and
-``RESUME_FROM``, or one smoke step on synthetic records), and
-``evaluate`` for the VL eval (``vl_test``: LLaVA from a local HF snapshot
-or the smoke model, or a zoo tower, BLIP-2 Flan-T5 or KOSMOS-2, with tiny
-random weights, over registered VQA datasets) and the X-Decoder
-workloads (model, weights and text tokenizer built from the config; their
-dataset kinds come with a later data slice).
+"""Entry points of the port (counterpart of ``cullavo_tpu/entry.py``):
+``main``, the command line (``python -m cullavo_tpu_torch
+{train,eval,serve} --conf_files ... [--config_overrides JSON] [--overrides
+K V ...]``, read by the port's own config reader); ``serve``, the
+continuous-batching engine over a JSONL request stream; ``train`` (the
+Q-LoRA epoch loop over a registered COCO-panoptic dataset with
+``step_{N}`` and reference ``epoch{N}`` checkpoints and ``RESUME_FROM``,
+or one smoke step on synthetic records); and ``evaluate`` for the VL eval
+(``vl_test``: LLaVA from a local HF snapshot or the smoke model, or a zoo
+tower, BLIP-2 Flan-T5 or KOSMOS-2, with tiny random weights, over
+registered VQA datasets), the step2_pre data generation
+(``cullavo_step2_pre``: sampled captions with boxes over a registered
+``conversations`` dataset) and the X-Decoder workloads (model, weights and
+text tokenizer built from the config; their dataset kinds come with a
+later data slice).
 
 ``MODEL.LLM.LOAD_PATH`` names a local snapshot: ``config.json``,
 ``*.safetensors`` shards and ``tokenizer.json`` (read by the port's own
@@ -17,8 +22,8 @@ tokenizer) are not copied.
 
 The entry points take the parsed config as a dict (the layout of
 ``configs/serve.yaml``) and run on the GPU unless the caller names another
-device.  The command line, the other commands and the HTTP mode come with
-later slices.
+device; ``main`` too (its ``device`` is a keyword for tests, not a flag).
+The HTTP mode and several processes come with later slices.
 """
 from __future__ import annotations
 
@@ -36,17 +41,22 @@ from cullavo_tpu_torch.checkpoint.hf_import import llava_config_from_json, load_
 from cullavo_tpu_torch.checkpoint.reference_layout import (load_reference_layout,
                                                            save_reference_layout)
 from cullavo_tpu_torch.checkpoint.store import save_checkpoint
-from cullavo_tpu_torch.data.coco_panoptic import PanopticMapper, register_coco_panoptic
+from cullavo_tpu_torch.config import load_opt_command
+from cullavo_tpu_torch.data.coco_panoptic import (PanopticMapper, load_image_file,
+                                                   register_coco_panoptic)
 from cullavo_tpu_torch.data.datasets import register_vqa
+from cullavo_tpu_torch.data.instruction_data import load_conversation_json
 from cullavo_tpu_torch.data.mappers.eval_mappers import VQAEvalMapper
-from cullavo_tpu_torch.data.registry import get_dataset
+from cullavo_tpu_torch.data.registry import get_dataset, register_dataset
+from cullavo_tpu_torch.data.step1_synthesis import SYSTEM_PROMPT
 from cullavo_tpu_torch.data.tokenizer import ByteTokenizer, HFTokenizer
 from cullavo_tpu_torch.models.blip2 import tiny_blip2_config
 from cullavo_tpu_torch.models.kosmos2 import tiny_kosmos2_config
 from cullavo_tpu_torch.models.llava.config import tiny_llava_config
 from cullavo_tpu_torch.models.llava.lora import maybe_quantize_base
 from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
-from cullavo_tpu_torch.models.llava.modeling import GenerationConfig, init_llava_params
+from cullavo_tpu_torch.models.llava.modeling import (GenerationConfig, expand_image_token,
+                                                     init_llava_params)
 from cullavo_tpu_torch.models.xdecoder.model import init_xdecoder_model_params
 from cullavo_tpu_torch.pipelines import cullavo_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines import vqa_pipeline  # noqa: F401 (registration)
@@ -222,11 +232,19 @@ def train(cfg: dict, device=None) -> dict:
     ``EPOCHS``, ``PERIOD``, ``LOG_EVERY`` and ``SAVE_DIR`` (each save writes
     ``step_{N}/`` and ``epoch{N}/``); returns ``{"state", "history"}``.
     Without it: one smoke step on synthetic records; returns (and prints)
-    its metrics, ``loss_llm`` and ``grad_norm``."""
+    its metrics, ``loss_llm`` and ``grad_norm``.  A conversations dataset in
+    ``DATASETS.TRAIN`` raises a ``ValueError`` before the model is built."""
     register_datasets_from_cfg(cfg)
     if "xdecoder" in cfg.get("NAME", ""):
         raise NotImplementedError("X-Decoder training waits for the training part of the "
                                   "X-Decoder slice")
+    dataset_name = (cfg.get("DATASETS") or {}).get("TRAIN")
+    records = get_dataset(dataset_name) if dataset_name else []
+    if records and "conversations" in records[0]:
+        raise ValueError(f"DATASETS.TRAIN {dataset_name!r} is a conversations dataset: the "
+                         "training loop takes coco_panoptic records (step-2 training on "
+                         "conversations is no path of the JAX entry either; there its rows "
+                         "fail in PanopticMapper)")
     device = _device(device)
     model_cfg, params, tokenizer = _build_llava(cfg, device)
     # the prompts carry the tokenizer's <image> id; the model merges image
@@ -241,7 +259,6 @@ def train(cfg: dict, device=None) -> dict:
         pipe.state = state
         print(f"[entry] resumed trainable state from {cfg['RESUME_FROM']}", file=sys.stderr)
 
-    dataset_name = (cfg.get("DATASETS") or {}).get("TRAIN")
     if not dataset_name:
         print("[entry] no DATASETS.TRAIN configured: smoke step only", file=sys.stderr)
         batch = pipe.make_batch(_smoke_records(), pad_to=None)
@@ -250,7 +267,6 @@ def train(cfg: dict, device=None) -> dict:
         print(metrics)
         return metrics
 
-    records = get_dataset(dataset_name)
     batch_size = int(cfg.get("BATCH_SIZE", 8))
     mapper = PanopticMapper(image_size=model_cfg.vision.image_size)
 
@@ -327,13 +343,15 @@ def _load_xdecoder_params(cfg: dict, model_cfg, device):
 
 
 def register_datasets_from_cfg(cfg: dict) -> None:
-    """``DATASETS.REGISTER: {name: {KIND: ..., ...}}`` for two kinds: ``vqa``
-    (``QUESTIONS_JSON``, ``ANNOTATIONS_JSON``, ``IMAGE_DIR``,
-    ``IMAGE_TEMPLATE``) and ``coco_panoptic`` (``JSON``, ``IMAGE_DIR``,
-    ``PANOPTIC_DIR``, ``NUM_CLASSES``, ``CLASS_NAMES``, ``TASKS``).  The other
-    kinds and the bulk registration from a ``DETECTRON2_DATASETS`` /
-    ``DATASET`` root raise: they wait for the slices that use them (the JAX
-    entry swallows the bulk errors)."""
+    """``DATASETS.REGISTER: {name: {KIND: ..., ...}}`` for three kinds:
+    ``vqa`` (``QUESTIONS_JSON``, ``ANNOTATIONS_JSON``, ``IMAGE_DIR``,
+    ``IMAGE_TEMPLATE``), ``coco_panoptic`` (``JSON``, ``IMAGE_DIR``,
+    ``PANOPTIC_DIR``, ``NUM_CLASSES``, ``CLASS_NAMES``, ``TASKS``) and
+    ``conversations`` (``JSON``, ``IMAGE_ROOT``: ``load_conversation_json``,
+    read when the dataset is first asked for).  The other kinds and the
+    bulk registration from a ``DETECTRON2_DATASETS`` / ``DATASET`` root
+    raise: they wait for the slices that use them (the JAX entry swallows
+    the bulk errors)."""
     root = os.environ.get("DETECTRON2_DATASETS") or os.environ.get("DATASET")
     if root and os.path.isdir(root):
         raise NotImplementedError(f"bulk dataset registration from {root!r} waits for the "
@@ -346,13 +364,17 @@ def register_datasets_from_cfg(cfg: dict) -> None:
                 metadata={"num_classes": int(spec.get("NUM_CLASSES", 133)),
                           "class_names": list(spec.get("CLASS_NAMES", [])) or None,
                           "tasks": spec.get("TASKS")})
-            continue
-        if kind != "vqa":
-            raise NotImplementedError(f"DATASETS.REGISTER kind {kind!r} ({name}): only 'vqa' "
-                                      "and 'coco_panoptic' are ported")
-        kw = {"image_template": str(spec["IMAGE_TEMPLATE"])} if spec.get("IMAGE_TEMPLATE") else {}
-        register_vqa(name, spec["QUESTIONS_JSON"], spec.get("ANNOTATIONS_JSON"),
-                     spec["IMAGE_DIR"], **kw)
+        elif kind == "conversations":
+            register_dataset(name, (lambda j=spec["JSON"], r=spec.get("IMAGE_ROOT"):
+                                    load_conversation_json(j, r)), {})
+        elif kind == "vqa":
+            kw = ({"image_template": str(spec["IMAGE_TEMPLATE"])} if spec.get("IMAGE_TEMPLATE")
+                  else {})
+            register_vqa(name, spec["QUESTIONS_JSON"], spec.get("ANNOTATIONS_JSON"),
+                         spec["IMAGE_DIR"], **kw)
+        else:
+            raise NotImplementedError(f"DATASETS.REGISTER kind {kind!r} ({name}): only 'vqa', "
+                                      "'coco_panoptic' and 'conversations' are ported")
 
 
 def _eval_vl(cfg: dict, device) -> dict:
@@ -440,17 +462,82 @@ def _eval_xdecoder(cfg: dict, device) -> dict:
     return {}
 
 
+STEP2_PRE_QUESTION = ("provide multiple object names with their numbering index and the "
+                      "objects' bounding box coordinates in the image.")
+
+
+def step2_pre_prompt_ids(tokenizer, num_image_tokens: int) -> np.ndarray:
+    """step2_pre's one prompt (the system prompt, the image, the boxes
+    question) as int32 ids [T], its ``<image>`` expanded to
+    ``num_image_tokens`` positions."""
+    prompt = SYSTEM_PROMPT + "<image>" + f" USER: {STEP2_PRE_QUESTION} ASSISTANT:"
+    ids, _, _ = expand_image_token(np.asarray(tokenizer.encode(prompt), np.int32), None, None,
+                                   tokenizer.image_token_id, num_image_tokens)
+    return ids
+
+
+class _LazyImages:
+    """The rows' images, decoded when the pipeline asks for one: an
+    in-memory ``image`` array, else the file at ``image_path`` (PNG by the
+    port's reader, other formats through PIL)."""
+
+    def __init__(self, rows: list):
+        self.rows = rows
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i):
+        r = self.rows[int(i)]
+        img = r.get("image")
+        if not isinstance(img, np.ndarray):
+            # conversation rows carry "image" as a relative path string
+            img = load_image_file(r["image_path"])
+        return np.asarray(img)
+
+
+def _eval_step2_pre(cfg: dict, device) -> dict:
+    """cullavo_step2_pre: model-in-the-loop dataset generation over the first
+    ``DATASETS.TEST`` entry (``LIMIT`` rows; rows without an image are
+    skipped): one prompt, the system prompt with the image and the boxes
+    question, through ``CuLLaVOPipeline.generate_step2_rows`` with
+    ``MAX_NEW_TOKENS``, ``BATCH_SIZE`` and ``SAVE_DIR`` (default
+    ``step2_pre_out``).  One process (JAX shards the rows over processes)."""
+    model_cfg, params, tokenizer = _build_llava(cfg, device)
+    # the prompt carries the tokenizer's <image> id; the model merges image
+    # features at its config's id: make them one
+    model_cfg = dataclasses.replace(model_cfg, image_token_id=tokenizer.image_token_id)
+    pipe = build_pipeline("CuLLaVOPipeline", cfg, model_cfg=model_cfg, tokenizer=tokenizer,
+                          params=params)
+    out_dir = cfg.get("SAVE_DIR") or "step2_pre_out"
+    limit = int(cfg.get("LIMIT", 0)) or None
+    names = _dataset_names(cfg)
+    records = get_dataset(names[0]) if names else []
+    if limit:
+        records = records[:limit]
+    ids_row = step2_pre_prompt_ids(tokenizer, model_cfg.num_image_tokens)
+    keep = [r for r in records if isinstance(r.get("image"), np.ndarray) or r.get("image_path")]
+    if not keep:
+        print("[entry] step2_pre: no images in dataset", file=sys.stderr)
+        return {"rows": 0}
+    ids = np.tile(ids_row[None], (len(keep), 1))
+    rows = pipe.generate_step2_rows(_LazyImages(keep), ids, np.ones_like(ids), out_dir,
+                                    max_new_tokens=int(cfg.get("MAX_NEW_TOKENS", 256)),
+                                    batch_size=int(cfg.get("BATCH_SIZE", 8)))
+    return {"rows": len(rows), "out_dir": out_dir}
+
+
 def evaluate(cfg: dict, device=None) -> dict:
-    """Eval workload by ``NAME``: ``vl_test`` and ``xdecoder*`` run here;
-    step2-pre data generation and ImageNet wait for their slices."""
+    """Eval workload by ``NAME``: ``cullavo_step2_pre``, ``vl_test`` and
+    ``xdecoder*`` run here; ImageNet waits for its slice."""
     device = _device(device)
     register_datasets_from_cfg(cfg)
     name = cfg.get("NAME", "")
     if "step2_pre" in name:
-        raise NotImplementedError("step2-pre data generation waits for the training-loop slice")
-    if "imagenet" in name:
+        results = _eval_step2_pre(cfg, device)
+    elif "imagenet" in name:
         raise NotImplementedError("ImageNet eval waits for the rest of the VL-zoo slice")
-    if "vl_test" in name or name == "vl":
+    elif "vl_test" in name or name == "vl":
         results = _eval_vl(cfg, device)
     elif "xdecoder" in name:
         results = _eval_xdecoder(cfg, device)
@@ -460,3 +547,30 @@ def evaluate(cfg: dict, device=None) -> dict:
         raise SystemExit(2)
     print(json.dumps(results, default=float))
     return results
+
+
+def _maybe_init_distributed():
+    """``CULLAVO_NUM_PROCS`` > 1 asks for several processes, which the port
+    does not run yet."""
+    num = os.environ.get("CULLAVO_NUM_PROCS")
+    if num and int(num) > 1:
+        raise NotImplementedError(f"CULLAVO_NUM_PROCS={num}: several processes wait for the "
+                                  "parallelism slice; run one process")
+
+
+def main(argv=None, device=None):
+    """The command line: parse ``argv`` (``sys.argv[1:]`` when None) with
+    ``load_opt_command`` and run ``train``, ``evaluate`` (``eval``) or
+    ``serve`` on the config, on the GPU unless ``device`` names another."""
+    _maybe_init_distributed()
+    cfg, args = load_opt_command(argv)
+    cfg = cfg.to_dict()
+    if args.command == "train":
+        return train(cfg, device=device)
+    if args.command == "serve":
+        return serve(cfg, device=device)
+    return evaluate(cfg, device=device)
+
+
+if __name__ == "__main__":
+    main()

@@ -382,8 +382,9 @@ def llama_forward(
         raise NotImplementedError("Mistral sliding-window attention (BakLLaVA) "
                                   "waits for slice 6")
     if cache is not None and not stale_cache:
-        raise NotImplementedError("cached forwards without stale_cache (the fused "
-                                  "generate) wait for a later slice")
+        raise NotImplementedError("cached forwards without stale_cache (JAX's sdpa_smajor "
+                                  "path, which no JAX module calls; the fused generate "
+                                  "decodes with stale_cache) are not ported")
     if stale_cache and cache is None:
         raise ValueError("stale_cache needs a cache")
     if prefill_pad_len is not None and cache is not None:

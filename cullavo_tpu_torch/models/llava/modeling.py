@@ -1,5 +1,6 @@
 """LLaVA-1.5 in PyTorch: vision tower + projector + LLaMA, token merge,
-two-phase greedy generation, plain and speculative, and the serving
+the fused ``generate`` (greedy or sampled), two-phase greedy generation,
+plain and speculative, and the serving
 engine's device functions: prefix reuse, the slot pool and decode quanta
 (counterpart of ``cullavo_tpu/models/llava/modeling.py``).
 
@@ -11,7 +12,8 @@ copy, the port updates it in place (``merge_decode_state``,
 ``generate_decode``, ``generate_decode_spec``, ``decode_quantum[_spec]``,
 ``write_slot[s]``); the functions say so.
 Generation runs eagerly: a Python loop over decode steps with ``write_idx``
-a host integer, or over speculative windows with ``write_idx`` an int32
+a host integer (the fused ``generate`` reads one done flag per step to
+stop early), or over speculative windows with ``write_idx`` an int32
 [B] tensor on the device and one host read per window.
 """
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 
 from cullavo_tpu_torch.models.llava.clip_vit import clip_vision_forward, init_clip_vision_params
 from cullavo_tpu_torch.models.llava.config import LlavaConfig
-from cullavo_tpu_torch.models.llava.llama import llama_forward, lm_logits
+from cullavo_tpu_torch.models.llava.llama import NEG_INF, llama_forward, lm_logits
 
 # ---------------------------------------------------------------------------
 # init
@@ -216,29 +218,100 @@ class GenerationConfig:
     eos_token_id: int = 2
 
 
-def _sample_token(logits: torch.Tensor, gen: GenerationConfig) -> torch.Tensor:
-    """logits [B, V] -> [B] int32 (greedy: the first maximal index)."""
-    if gen.do_sample:
-        raise NotImplementedError("sampled decoding waits for a later slice")
-    return torch.argmax(logits, dim=-1).to(torch.int32)
+def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(u))`` in f32, ``u`` uniform in
+    [tiny, 1) drawn from ``generator`` on ``device``: the form of
+    ``jax.random.gumbel`` (its default "low" mode) on torch's stream.  The
+    samplers look it up here at every draw, so a test can replay JAX's
+    noise through it."""
+    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(torch.float32).tiny)))
+
+
+def _filter_logits(logits: torch.Tensor, gen: GenerationConfig) -> torch.Tensor:
+    """logits [B, V] -> f32 [B, V] with the dropped tokens at ``NEG_INF``, in
+    HF's order: temperature, then top-k (every token below the k-th largest
+    value goes, so ties at the k-th value all stay), then top-p (the sorted
+    tokens whose preceding mass exceeds ``top_p`` go, the first always
+    stays).  The top-p mass is summed in f64 against ``top_p`` rounded to
+    f32 (JAX's threshold), so the kept set does not depend on the device's
+    summation order; JAX sums in f32, and can differ on a token whose
+    preceding mass lies within f32 rounding of ``top_p``."""
+    logits = logits.float() / torch.tensor(gen.temperature, dtype=torch.float32,
+                                           device=logits.device)
+    if gen.top_k > 0:
+        kth = torch.topk(logits, gen.top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, torch.full_like(logits, NEG_INF), logits)
+    if gen.top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits.double(), dim=-1)
+        top_p = torch.tensor(gen.top_p, dtype=torch.float32).item()
+        cutoff_mask = torch.cumsum(probs, dim=-1) - probs > top_p
+        cutoff = torch.where(cutoff_mask, torch.full_like(sorted_logits, torch.inf),
+                             sorted_logits).amin(dim=-1, keepdim=True)
+        logits = torch.where(logits < cutoff, torch.full_like(logits, NEG_INF), logits)
+    return logits
+
+
+def _sample_token(logits: torch.Tensor, gen: GenerationConfig,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """logits [B, V] -> [B] int32.  Greedy: the first maximal index.
+    Sampled: ``argmax(filtered + gumbel)``, the Gumbel-max draw that
+    ``jax.random.categorical`` makes, with the noise from ``gumbel_noise``
+    on ``generator``; a sampled draw without a generator raises."""
+    if not gen.do_sample:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if generator is None:
+        raise NotImplementedError("sampled decoding needs an explicit torch.Generator: the "
+                                  "fused generate takes one; the two-phase decode and the "
+                                  "serving engine's DO_SAMPLE wait for a later slice")
+    filtered = _filter_logits(logits, gen)
+    noise = gumbel_noise(filtered.shape, generator, filtered.device)
+    return torch.argmax(filtered + noise, dim=-1).to(torch.int32)
 
 
 _PRESERVE_FP32_KEYS = ("scale", "scale8", "absmax", "absmax_scale", "absmax_offset")
 
 
-def _cast_params(params, compute_dtype):
-    """Cast f32/f16 leaves to the compute dtype EXCEPT quantization scales
-    (``_PRESERVE_FP32_KEYS`` stay f32); bf16 leaves stay as they are (JAX's
-    ``from_bf16=False``, the only mode generation uses).  Returns a new
+def _cast_params(params, compute_dtype, from_bf16: bool = False):
+    """Cast float leaves to the compute dtype EXCEPT quantization scales
+    (``_PRESERVE_FP32_KEYS`` stay f32).  ``from_bf16=False`` (the default
+    here, the mode of the two-phase functions and the trainer) casts only
+    f32/f16 leaves and leaves bf16 ones alone; ``from_bf16=True`` (the
+    fused ``generate``, as in JAX) casts bf16 leaves too.  Returns a new
     dict; a leaf already in the dtype is returned as is (no copy)."""
+    src = ((torch.float32, torch.bfloat16, torch.float16) if from_bf16
+           else (torch.float32, torch.float16))
+
     def cast(key, a):
         if isinstance(a, dict):
             return {k: cast(k, v) for k, v in a.items()}
-        if a.dtype not in (torch.float32, torch.float16) or key in _PRESERVE_FP32_KEYS:
+        if a.dtype not in src or key in _PRESERVE_FP32_KEYS:
             return a
         return a.to(compute_dtype)
 
     return {k: cast(k, v) for k, v in params.items()}
+
+
+@torch.no_grad()
+def generate(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
+             pixel_values: Optional[torch.Tensor], attention_mask: torch.Tensor,
+             gen: GenerationConfig, max_len: int, rng: Optional[torch.Generator] = None,
+             compute_dtype=torch.float32) -> torch.Tensor:
+    """Prefill + decode in one call (JAX's fused ``generate``):
+    ``generate_prefill`` with every float leaf cast to ``compute_dtype``
+    (bf16 ones too), then the steps of ``_decode_steps`` drawing from
+    ``rng`` (a ``torch.Generator`` on the inputs' device; None: seed 0).
+    Like JAX's ``while_loop`` it stops once every row is done; the output
+    is eos-padded to ``max_new_tokens``, equal to a run without the stop.
+    Returns [B, max_new_tokens] int32."""
+    if rng is None:
+        rng = torch.Generator(device=input_ids.device).manual_seed(0)
+    lm = _cast_params(params, compute_dtype, from_bf16=True)
+    state = generate_prefill(lm, cfg, input_ids, pixel_values, attention_mask, max_len,
+                             compute_dtype=compute_dtype)
+    return _decode_steps(lm, cfg, state, gen, lambda lg: _sample_token(lg, gen, rng),
+                         early_stop=True)
 
 
 @torch.no_grad()
@@ -326,33 +399,47 @@ def generate_prefill_chunked(params: dict, cfg: LlavaConfig, input_ids: torch.Te
     return state
 
 
-@torch.no_grad()
-def generate_decode(params: dict, cfg: LlavaConfig, state: dict, gen: GenerationConfig,
-                    compute_dtype=torch.bfloat16):
-    """Decode phase: ``max_new_tokens - 1`` stale-cache T=1 steps after the
-    token sampled from the prefill logits (all rows run to the end; finished
-    rows emit eos), over a bf16 or an int8 cache.  The state's cache,
-    ``full_mask`` and ``key_pos`` are updated IN PLACE (JAX donates the
-    state).  Returns tokens [B, max_new_tokens] int32."""
-    lm = _cast_params(params, compute_dtype)
+def _decode_steps(lm: dict, cfg: LlavaConfig, state: dict, gen: GenerationConfig,
+                  draw, early_stop: bool) -> torch.Tensor:
+    """The token that ``draw`` (logits [B, V] -> [B] int32) takes from the
+    prefill logits, then stale-cache T = 1 steps over ``lm`` (already cast)
+    up to ``max_new_tokens``, each drawing its token; finished rows emit
+    eos.  ``early_stop``: stop once every row is done, reading one flag from
+    the device per step (the rest of the output stays eos).  The state's
+    cache, ``full_mask`` and ``key_pos`` are updated IN PLACE (JAX donates
+    the state).  Returns [B, max_new_tokens] int32."""
     eos = gen.eos_token_id
-    tok = _sample_token(state["logits"], gen)
+    tok = draw(state["logits"])
+    out = torch.full((tok.shape[0], gen.max_new_tokens), eos, dtype=torch.int32,
+                     device=tok.device)
+    out[:, 0] = tok
     done = tok == eos
     cur_pos, write_idx = state["cur_pos"], int(state["write_idx"])
     full_mask, key_pos, cache = state["full_mask"], state["key_pos"], state["cache"]
-    toks = [tok]
-    for _ in range(gen.max_new_tokens - 1):
+    for step in range(1, gen.max_new_tokens):
+        if early_stop and bool(done.all()):
+            break
         logits, cache = llava_forward(lm, cfg, tok[:, None], None, None,
                                       cur_pos[:, None], cache, write_idx,
                                       full_mask, key_pos, stale_cache=True)
         full_mask[:, write_idx] = 1
         key_pos[:, write_idx] = cur_pos
-        nxt = _sample_token(logits[:, 0], gen)
+        nxt = draw(logits[:, 0])
         nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
+        out[:, step] = nxt
         done = done | (nxt == eos)
-        toks.append(nxt)
         tok, cur_pos, write_idx = nxt, cur_pos + 1, write_idx + 1
-    return torch.stack(toks, dim=1)
+    return out
+
+
+@torch.no_grad()
+def generate_decode(params: dict, cfg: LlavaConfig, state: dict, gen: GenerationConfig,
+                    compute_dtype=torch.bfloat16):
+    """Decode phase: ``_decode_steps`` without the early stop (all rows run
+    to the end), over a bf16 or an int8 cache, greedy only.  Returns tokens
+    [B, max_new_tokens] int32."""
+    return _decode_steps(_cast_params(params, compute_dtype), cfg, state, gen,
+                         lambda lg: _sample_token(lg, gen), early_stop=False)
 
 
 # ---------------------------------------------------------------------------

@@ -576,20 +576,29 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-# per device: the split-K tile counters of the fused kernels (two per tile),
-# zero between launches (the kernel's last split of a tile resets them);
-# launches that use them run in order on one stream
+# per device: the split-K tile counters of the fused kernels (two per tile)
+# and the stream they were made for; zero between launches (the kernel's
+# last split of a tile resets them), so every launch that uses them runs in
+# order on that one stream
 _GEMV_COUNTERS: dict = {}
 
 
 def _gemv_scratch(plan: dict, device):
-    """(workspace f32, counters int32) for one launch of K6 / K11 / K3."""
+    """(workspace f32, counters int32) for one launch of K6 / K11 / K3 / K14.
+    A split launch on another stream than the counters' raises: two streams
+    at once would share them."""
     if plan["splits"] == 1:
         return None, None
     n = 2 * plan["ncol"] * plan["ntok"]
-    ctr = _GEMV_COUNTERS.get(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    ctr, owner = _GEMV_COUNTERS.get(device, (None, stream))
+    if owner != stream:
+        raise RuntimeError(f"split-K launch on stream {stream:#x}: the tile counters of "
+                           f"{device} belong to stream {owner:#x}, and launches that share "
+                           "them must run in order on one stream")
     if ctr is None or ctr.numel() < n:
-        ctr = _GEMV_COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        ctr = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _GEMV_COUNTERS[device] = (ctr, stream)
     return torch.empty(plan["workspace"], dtype=torch.float32, device=device), ctr
 
 

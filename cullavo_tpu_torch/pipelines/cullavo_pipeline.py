@@ -1,18 +1,25 @@
-"""CuLLaVO training pipeline (counterpart of
+"""CuLLaVO pipeline (counterpart of
 ``cullavo_tpu/pipelines/cullavo_pipeline.py``): step-1 Q-LoRA training over
-LLaVA: model and optimizer state, batch synthesis, the train step.  The
-step2_pre dataset generation (``generate_step2_rows``) needs sampling and
-the fused ``generate`` and waits for their slice.
+LLaVA (model and optimizer state, batch synthesis, the train step) and the
+step2_pre model-in-the-loop dataset generation (``generate_step2_rows``:
+sampled continuations through the fused ``generate``, parsed for boxes and
+classes, drawn, written as PNGs and ``lbk_new_version.json`` rows).
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Optional
 
 import numpy as np
 import torch
 
+from cullavo_tpu_torch.data import png_io
+from cullavo_tpu_torch.data.image_processing import preprocess_numpy
 from cullavo_tpu_torch.data.step1_synthesis import collate_step1, synthesize_step1
+from cullavo_tpu_torch.data.text_format import COLOR_LIST, draw_boxes, parse_boxes_and_classes
 from cullavo_tpu_torch.models.llava.config import LlavaConfig
+from cullavo_tpu_torch.models.llava.modeling import GenerationConfig, generate
 from cullavo_tpu_torch.models.llava.lora import (LoraConfig, init_lora_params,
                                                  maybe_quantize_base, strip_trainable,
                                                  trainable_partition)
@@ -92,9 +99,68 @@ class CuLLaVOPipeline:
         return self.step_fn(state, self.frozen, batch, rng)
 
     # -- step2_pre data generation ----------------------------------------
-    def generate_step2_rows(self, *args, **kwargs):
-        raise NotImplementedError("generate_step2_rows needs sampled decoding and the fused "
-                                  "generate; it comes with the step2 training slice")
+    def generate_step2_rows(self, images_u8, prompts_ids: np.ndarray,
+                            attention_mask: np.ndarray, out_dir: str, max_new_tokens: int = 256,
+                            batch_size: Optional[int] = None) -> list:
+        """Model-in-the-loop enrichment: sample a caption + boxes
+        continuation per row (temperature 0.9, top-k 50, top-p 0.95), parse
+        it, draw the boxes on the row's image, and emit the dataset rows.
+
+        Generation runs in chunks of ``batch_size`` rows (default: the
+        config's BATCH_SIZE, 8); the last short chunk is padded by repeating
+        its last row, so every chunk has one shape.  Each chunk draws its
+        seed from the pipeline's numpy rng, as JAX draws its PRNG key, and
+        samples from a ``torch.Generator`` on the parameters' device seeded
+        with it.  Each chunk's pixels are preprocessed from ``images_u8``
+        (any sequence of uint8 [H, W, 3] arrays, indexed lazily).  The
+        compute dtype is the base's own (its embedding table's): f32 for an
+        f32 snapshot or the smoke model, bf16 for a bf16 snapshot; on the
+        card the attention kernels take bf16 only, so an f32 base there
+        raises.  Images go to ``out_dir`` as
+        ``step2_{b}.png`` through the port's PNG writer, the rows to
+        ``out_dir/lbk_new_version.json``.  One process: JAX's rank offset
+        and all-gather of the ranks' rows have no counterpart."""
+        emb = self.params["language_model"]["embed_tokens"]
+        device, dtype = emb.device, emb.dtype
+        if device.type == "cuda" and dtype != torch.bfloat16:
+            raise ValueError(f"generate_step2_rows: a {dtype} base on {device}; the card's "
+                             "attention kernels (K1, K4) take bf16 only")
+        gen = GenerationConfig(max_new_tokens=max_new_tokens, do_sample=True,
+                               temperature=0.9, top_k=50, top_p=0.95,
+                               eos_token_id=self.tokenizer.eos_token_id)
+        N = prompts_ids.shape[0]
+        bs = max(1, min(int(batch_size or self.cfg.get("BATCH_SIZE", 8)), N))
+        rows = []
+        os.makedirs(out_dir, exist_ok=True)
+        for start in range(0, N, bs):
+            sel = np.arange(start, min(start + bs, N))
+            pad = (np.concatenate([sel, np.full(bs - len(sel), sel[-1])])
+                   if len(sel) < bs else sel)
+            pix = preprocess_numpy([np.asarray(images_u8[b]) for b in pad],
+                                   size=self.model_cfg.vision.image_size)
+            rng = torch.Generator(device=device).manual_seed(int(self._rng.integers(1 << 31)))
+            out = generate(
+                self.params, self.model_cfg, torch.from_numpy(prompts_ids[pad]).to(device),
+                torch.from_numpy(np.ascontiguousarray(pix)).to(device),
+                torch.from_numpy(attention_mask[pad]).to(device), gen,
+                max_len=prompts_ids.shape[1] + max_new_tokens, rng=rng,
+                compute_dtype=dtype).cpu()
+            for j, b in enumerate(sel):
+                text = self.tokenizer.decode(out[j].tolist())
+                boxes, classes, err = parse_boxes_and_classes(text)
+                if err or boxes is None or len(boxes) == 0:
+                    continue
+                img = np.asarray(images_u8[b])
+                H, W = img.shape[:2]
+                abs_boxes = boxes * np.asarray([W, H, W, H], np.float32)
+                drawn = draw_boxes(img, abs_boxes, COLOR_LIST[:len(boxes)])
+                img_name = f"step2_{b}.png"
+                png_io.write_png(os.path.join(out_dir, img_name), drawn)
+                rows.append({"image": img_name, "boxes": boxes.tolist(),
+                             "classes": classes, "text": text})
+        with open(os.path.join(out_dir, "lbk_new_version.json"), "w") as f:
+            json.dump(rows, f)
+        return rows
 
     def evaluate_model(self):
         raise NotImplementedError("use generate_step2_rows for step2_pre")

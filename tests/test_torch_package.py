@@ -93,6 +93,10 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.scripts.matmul_probe",
     "cullavo_tpu_torch.scripts.flash_bench",
     "cullavo_tpu_torch.scripts.focal_phases",
+    "cullavo_tpu_torch.config",
+    "cullavo_tpu_torch.__main__",
+    "cullavo_tpu_torch.data.instruction_data",
+    "cullavo_tpu_torch.data.integrity",
 )
 
 
@@ -1620,3 +1624,91 @@ def test_cuda_p32_linear_two_calls_are_bit_identical(cuda_device, M, K, N, split
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert nf4.p32_gemv_plan(M, K, N, sms)["splits"] == splits
     assert torch.equal(mp.p32_linear(x, w32, scale), mp.p32_linear(x, w32, scale))
+
+
+# ---------------------------------------------------------------------------
+# sampled decoding, the fused generate and step2_pre on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_sampled_generate_is_reproducible_from_one_seed(cuda_device):
+    """The fused generate on the smoke model (head dim 128) in bf16 on the
+    card: one seed gives one stream, another seed another; K1 and K4 ran."""
+    from cullavo_tpu_torch.entry import smoke_llava_config
+    from cullavo_tpu_torch.models.llava import modeling as tm
+    from cullavo_tpu_torch.ops import flash_attention as fa
+    from cullavo_tpu_torch.ops import wwin_decode as ww
+
+    cfg = smoke_llava_config()
+    params = tm.init_llava_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                                  cuda_device, dtype=torch.bfloat16)
+    B, T, n_img = 4, 40, cfg.num_image_tokens
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    ids = torch.randint(4, cfg.text.vocab_size - 2, (B, T), generator=g, device=cuda_device)
+    ids[:, 1:1 + n_img] = cfg.image_token_id
+    mask = torch.ones((B, T), dtype=torch.int32, device=cuda_device)
+    S = cfg.vision.image_size
+    pix = torch.randn((B, 3, S, S), generator=g, device=cuda_device).to(torch.bfloat16)
+    gen = tm.GenerationConfig(max_new_tokens=12, do_sample=True, eos_token_id=-1)
+    k1, k4 = fa.flash_attention.launches, ww.wwin_decode_smajor.launches
+
+    def run(seed):
+        return tm.generate(params, cfg, ids, pix, mask, gen, T + 12,
+                           rng=torch.Generator(device=cuda_device).manual_seed(seed),
+                           compute_dtype=torch.bfloat16)
+
+    a, b, c = run(5), run(5), run(6)
+    assert a.shape == (B, 12) and torch.equal(a, b) and not torch.equal(a, c)
+    assert fa.flash_attention.launches > k1 and ww.wwin_decode_smajor.launches > k4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k,top_p", [(50, 0.95), (0, 0.95), (50, 1.0)])
+def test_cuda_filtered_logits_equal_the_cpu(cuda_device, top_k, top_p):
+    """Kept sets and kept values of ``_filter_logits`` on the card equal the
+    CPU's on the same logits (the top-p mass is summed in f64)."""
+    from cullavo_tpu_torch.models.llava import modeling as tm
+
+    g = torch.Generator().manual_seed(top_k + 3)
+    logits = torch.randn((8, 32000), generator=g) * 3
+    logits[:, :40] = torch.round(logits[:, :40])                 # ties
+    gen = tm.GenerationConfig(do_sample=True, top_k=top_k, top_p=top_p)
+    cpu = tm._filter_logits(logits, gen)
+    card = tm._filter_logits(logits.to(cuda_device), gen).cpu()
+    assert torch.equal(card, cpu)
+
+
+@pytest.mark.cuda
+def test_cuda_step2_rows_refuse_an_f32_base_on_the_card(cuda_device):
+    from cullavo_tpu_torch.entry import smoke_llava_config
+    from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
+    from cullavo_tpu_torch.models.llava.modeling import init_llava_params
+    from cullavo_tpu_torch.pipelines.cullavo_pipeline import CuLLaVOPipeline
+
+    cfg = smoke_llava_config()
+    params = init_llava_params(cfg, torch.Generator(device=cuda_device).manual_seed(0),
+                               cuda_device)
+    pipe = CuLLaVOPipeline({}, cfg, ByteTokenizer(), params)
+    ids = torch.zeros((1, 8), dtype=torch.int32).numpy()
+    with pytest.raises(ValueError, match="take bf16 only"):
+        pipe.generate_step2_rows([], ids, ids, "unused")
+
+
+@pytest.mark.cuda
+def test_cuda_split_k_launch_on_a_second_stream_raises(cuda_device):
+    """The split-K tile counters belong to the stream of their first launch:
+    a split launch on another stream raises, and the first stream goes on."""
+    from cullavo_tpu_torch.ops import nf4
+
+    M, K, N = 1, 11008, 4096
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert nf4.nf4_gemv_plan(M, K, N, sms)["splits"] > 1
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q = nf4.quantize_linear_planar(torch.randn((K, N), generator=g, device=cuda_device) * K ** -0.5)
+    x = torch.randn((M, K), generator=g, device=cuda_device).to(torch.bfloat16)
+    y = nf4.nf4_linear_planar(x, q)
+    other = torch.cuda.Stream(device=cuda_device)
+    with torch.cuda.stream(other):
+        with pytest.raises(RuntimeError, match="belong to stream"):
+            nf4.nf4_linear_planar(x, q)
+    assert torch.equal(nf4.nf4_linear_planar(x, q), y)

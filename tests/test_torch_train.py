@@ -10,6 +10,7 @@ torch); the port's dropout is held by its own tests.  A vision adapter's
 it as if it were a parameter, the port keeps it constant.
 """
 import dataclasses
+import json
 
 import numpy as np
 import optax
@@ -589,7 +590,7 @@ def test_data_copies_match_the_originals():
         t_syn.collate_step1(tsamples, ttok, 4, pad_to=16, image_size=28)
 
 
-def test_pipeline_builds_state_and_batches_and_trains(models):
+def test_pipeline_builds_state_and_batches_and_trains(models, tmp_path):
     _, tcfg, jp, _, _ = models
     # the X-Decoder's, the VQA eval's and the VL zoo's pipelines register when
     # their module is imported (by entry, or by another test file in this worker)
@@ -625,8 +626,18 @@ def test_pipeline_builds_state_and_batches_and_trains(models):
         losses.append(float(metrics["loss_llm"]))
     assert all(np.isfinite(losses)) and losses[2] < losses[0] and state.step == 3
     assert state.trainable["embed_tokens"].dtype == torch.float32
+    # the same pipeline generates step-2 rows (sampled, through the fused
+    # generate) over its quantized base; evaluate_model still points there
+    row, _, _ = tm.expand_image_token(ids[:20], None, None, tok.image_token_id,
+                                      tcfg.num_image_tokens)
+    prompts = np.tile(row[None], (3, 1))
+    rows = pipe.generate_step2_rows([np.zeros((30, 40, 3), np.uint8)] * 3, prompts,
+                                    np.ones_like(prompts), str(tmp_path), max_new_tokens=3,
+                                    batch_size=2)
+    with open(tmp_path / "lbk_new_version.json") as f:
+        assert json.load(f) == rows
     with pytest.raises(NotImplementedError, match="step2"):
-        pipe.generate_step2_rows()
+        pipe.evaluate_model()
 
 
 def test_entry_train_smoke_mode_on_the_cpu(capsys):
