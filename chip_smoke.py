@@ -224,6 +224,25 @@ Phases (each raises on failure, and the script exits non-zero):
      memory), the greedy fused ``generate`` against ``generate_prefill`` +
      ``generate_decode`` at 32 tokens (equal streams), and the top-k/top-p
      filter of the prefill's logits on the card equal to the CPU's.
+  15. X-Decoder joint training (configs/xdecoder_train.yaml: FocalNet-L +
+     FPN, 201 queries, 10 decoder layers, 12-layer text encoder, batch 8
+     at 512^2, bf16 over f32 masters, remat): (a) ``entry.train`` without
+     ``DATASETS.TRAIN`` returns None; (b) K10's autograd Function at the
+     train step's stage-1 shape [8, 192, 128 x 128] in f32 and bf16 and
+     K9's at phase 9's deformable shape: every input gradient within 1e-3
+     of autograd through the plain version (K10's forward and plain
+     backward timed); (c) full width at cut depth, f32, 2 images of 512^2,
+     points pinned: every loss within 1e-3 and every gradient leaf within
+     1e-3 in its 2-norm (1e-2 entry by entry: ReLU / GroupNorm kinks flip
+     on f32 rounding), card against CPU; (d) over a registered caption-grounding dataset of 16 synthetic
+     images (12 of 512^2, 4 of 480 x 640), ``python -m cullavo_tpu_torch
+     train`` in a subprocess and ``entry.train`` in process, 2 steps each:
+     every reference loss key finite, grad_norm > 0, the checkpoint read back
+     bit-equal, K10 launched 48 times a step; (e) 4 steps on one batch
+     twice from one seed (step-1 losses within 1e-3 relative; s per step,
+     images/s, the matcher's host seconds, peak memory); (f) 6 steps at
+     BASE_LR 1e-3: the loss falls.  The kernels line gains
+     ``xdecoder_train_launches``.
 The last two lines are the kernels' JSON record and the result line.
 Imports neither JAX nor the JAX package.
 """
@@ -314,6 +333,23 @@ XDEC_BATCH, XDEC_SIDE, XDEC_DATASET = 8, 512, "coco_2017_val_panoptic_with_sem_s
 XDEC_SIZES = ((512, 512),) * 12 + ((480, 640),) * 4   # the last four: bucket 512 x 640
 XDEC_CHECK_HW = (256, 320)
 XDEC_THINGS = frozenset(range(80))   # COCO panoptic: the first 80 classes are things
+# X-Decoder joint training (phase 15): configs/xdecoder_train.yaml (FocalNet-L +
+# FPN, batch 8 at 512^2, bf16 over f32 masters, remat) over a registered
+# coco_panoptic_caption_grounding dataset of 16 synthetic images (phase 9's
+# sizes), 1 epoch = 2 steps; the card-vs-CPU check runs 2 images of 512^2 at
+# cut depth in f32; the determinism and learning runs take 4 and 6 steps on
+# the first batch (learning: BASE_LR 1e-3, no warmup); K10 launches a step:
+# the 24 blocks' forwards and their 24 remat recomputations
+XTRAIN_CFG = "configs/xdecoder_train.yaml"
+XTRAIN_DATASET = "coco_2017_train_panoptic_caption_grounding_synthetic"
+XTRAIN_CUT_IMAGES, XTRAIN_DET_STEPS, XTRAIN_LEARN_STEPS, XTRAIN_LEARN_LR = 2, 4, 6, 1e-3
+XTRAIN_FOCAL_PER_STEP = 2 * 24
+XTRAIN_LOSS_KEYS = tuple(
+    [f"loss_{n}_{r}" for n in ("mask_ce", "mask_bce", "mask_dice", "bbox", "giou")
+     for r in range(10)]
+    + [f"loss_{n}_{r}" for n in ("caption", "captioning", "retrieval_decoder", "grounding_bce",
+                                 "grounding_dice", "grounding_ce") for r in range(3)]
+    + ["loss_retrieval_backbone_0"])
 # the VL eval path: configs/vl_test.yaml as the dict it holds, over a
 # LLaVA-1.5-7B snapshot written in llava-hf/llava-1.5-7b-hf's layout and an
 # in-memory VQA dataset (records carry decoded images: no PIL beside the card)
@@ -2724,6 +2760,527 @@ def reference_check_xdecoder(device, wrappers):
                                f"({worst}) or {need} never launched ({counts})")
 
 
+def _rle_counts(mask):
+    """Uncompressed COCO RLE runs of a boolean [H, W] mask (column-major,
+    starting with a run of zeros)."""
+    import numpy as np
+
+    flat = np.asarray(mask, bool).T.reshape(-1).astype(np.int8)
+    edges = np.flatnonzero(np.diff(np.concatenate([[0], flat, [1 - flat[-1]]])))
+    return np.diff(np.concatenate([[0], edges])).tolist()
+
+
+def write_joint_dataset(root, sizes, class_names, n_things, seed=0, captions=5):
+    """A COCO-format panoptic + caption + grounding dataset of random images
+    under ``root``, written with the port's PNG writer: per image of
+    ``sizes`` a PNG (named ``.jpg``, as the panoptic loader names it), an
+    id-encoded panoptic PNG with a stuff segment, three thing rectangles
+    and one crowd rectangle, ``captions`` captions, and two grounding
+    annotations (a polygon and an uncompressed RLE, two sentences and
+    one).  Category ids are 2 i + 1 (the first ``n_things`` are things).
+    Returns the ``DATASETS.REGISTER`` entry of kind
+    ``coco_panoptic_caption_grounding``."""
+    import numpy as np
+
+    from cullavo_tpu_torch.data import png_io
+    from cullavo_tpu_torch.data.coco_panoptic import id2rgb
+
+    rng = np.random.default_rng(seed)
+    img_dir, pan_dir = os.path.join(root, "images"), os.path.join(root, "panoptic")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(pan_dir, exist_ok=True)
+    cats = [{"id": 2 * i + 1, "name": n, "isthing": int(i < n_things)}
+            for i, n in enumerate(class_names)]
+    pan_anns, cap_anns, grd_anns = [], [], []
+    for k, (H, W) in enumerate(sizes):
+        ids = np.zeros((H, W), np.int64)
+        stuff = int(rng.integers(n_things, len(class_names)))
+        ids[int(0.6 * H):] = 1
+        segs = [{"id": 1, "category_id": cats[stuff]["id"], "iscrowd": 0}]
+        rects, things = [], []
+        for j in range(4):
+            h, w = int(rng.integers(H // 6, H // 3)), int(rng.integers(W // 6, W // 3))
+            y, x = int(rng.integers(0, H - h)), int(rng.integers(0, W - w))
+            ids[y:y + h, x:x + w] = 2 + j
+            thing = int(rng.integers(0, n_things))
+            segs.append({"id": 2 + j, "category_id": cats[thing]["id"], "iscrowd": int(j == 3)})
+            rects.append((x, y, w, h))
+            things.append(class_names[thing])
+        img = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+        name = f"{k:012d}"
+        png_io.write_png(os.path.join(img_dir, name + ".jpg"), img)
+        png_io.write_png(os.path.join(pan_dir, name + ".png"), id2rgb(ids))
+        pan_anns.append({"image_id": k, "file_name": name + ".png", "segments_info": segs})
+        sname = class_names[stuff]
+        for c in range(captions):
+            cap_anns.append({"image_id": k, "id": k * captions + c,
+                             "caption": f"a {things[c % 3]} sitting near the {sname} with "
+                                        f"{c + 1} lamps and a wooden fence"})
+        x, y, w, h = rects[0]
+        grd_anns.append({"image_id": k, "id": 2 * k, "height": H, "width": W,
+                         "category_id": segs[1]["category_id"],
+                         "segmentation": [[x, y, x + w, y, x + w, y + h, x, y + h]],
+                         "sentences": [{"raw": f"The {things[0]} on the left"},
+                                       {"raw": f"a {things[0]}"}]})
+        grd_anns.append({"image_id": k, "id": 2 * k + 1, "height": H, "width": W,
+                         "category_id": segs[0]["category_id"],
+                         "segmentation": {"counts": _rle_counts(ids == 1), "size": [H, W]},
+                         "sentences": [{"raw": f"the {sname} below"}]})
+    files = {"JSON": ("panoptic.json", {"categories": cats, "annotations": pan_anns}),
+             "CAPTION_JSON": ("captions.json", {"annotations": cap_anns}),
+             "GROUNDING_JSON": ("grounding.json", {"annotations": grd_anns})}
+    spec = {"KIND": "coco_panoptic_caption_grounding", "IMAGE_DIR": img_dir,
+            "PANOPTIC_DIR": pan_dir, "NUM_CLASSES": len(class_names),
+            "CLASS_NAMES": list(class_names)}
+    for key, (fname, obj) in files.items():
+        spec[key] = os.path.join(root, fname)
+        with open(spec[key], "w") as f:
+            json.dump(obj, f)
+    return spec
+
+
+def xtrain_argv(over, save_dir):
+    """The command line of phase 15: ``train`` on configs/xdecoder_train.yaml
+    with ``over`` as ``--config_overrides`` and ``SAVE_DIR``."""
+    return ["train", "--conf_files", os.path.join(REPO, XTRAIN_CFG), "--config_overrides",
+            json.dumps(over), "--overrides", "SAVE_DIR", save_dir]
+
+
+def xtrain_config(over=None, save_dir="unused"):
+    """configs/xdecoder_train.yaml as the port's own reader gives it."""
+    from cullavo_tpu_torch.config import load_opt_command
+
+    return load_opt_command(xtrain_argv(over or {}, save_dir))[0].to_dict()
+
+
+def xtrain_entry_smoke(device, smi):
+    """Phase 15a: ``entry.train`` on configs/xdecoder_train.yaml with
+    ``DATASETS.TRAIN`` unset: the full model, its optimizer and step are
+    built on the card and the entry returns None without a step, as JAX's."""
+    from cullavo_tpu_torch import entry
+
+    t0 = time.perf_counter()
+    res = entry.train(xtrain_config(), device=device)
+    if res is not None:
+        raise RuntimeError(f"entry.train({XTRAIN_CFG}) without DATASETS.TRAIN: {res}")
+    log(f"entry.train({XTRAIN_CFG}) without DATASETS.TRAIN on the card ({smi}): None in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _grad_errors(got, want):
+    """max |d| / max |ref| of each pair of gradients."""
+    return [((g.float() - w.float()).abs().max() / w.float().abs().max()).item()
+            for g, w in zip(got, want)]
+
+
+def check_train_functions(device, rec, smi):
+    """Phase 15b: K10 and K9 under autograd on the card.  K10's Function at
+    FocalNet-L's stage-1 shape of the train step ([8, 192, 128 x 128], 4
+    levels) and K9's at phase 9's deformable-encoder shape (value [8, 5376,
+    8, 64], 3 levels x 4 points), f32 and bf16: the gradients of every
+    input within 1e-3 of their largest entry of autograd through the plain
+    version on the card (K9's bf16 value gradient: within twice the plain
+    version's own run-to-run spread, its atomic bf16 sums), the output's
+    grad_fn set, one launch each.  Times
+    K10's forward and its backward (the plain version's autograd, JAX's
+    custom-VJP form) in bf16, and K9's, into ``rec``."""
+    import torch
+
+    from cullavo_tpu_torch.ops import focal, msdeform
+
+    B, C, H, W, kernels = 8, 192, 128, 128, (3, 5, 7, 9)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    for dtype in (torch.float32, torch.bfloat16):
+        fx = torch.randn((B, 2 * C + 5, H * W), generator=g, device=device).to(dtype)
+        taps = torch.cat([torch.randn((C, k * k), generator=g, device=device) * (0.6 / k)
+                          for k in kernels], dim=1)
+        up = torch.randn((B, C, H * W), generator=g, device=device)
+        approx = dtype == torch.bfloat16
+        leaves = [[t.detach().clone().requires_grad_(True)
+                   for t in (fx[:, C:2 * C], fx[:, 2 * C:], taps)] for _ in range(2)]
+        n0 = focal.focal_ctx_kernel.launches
+        out = focal.focal_ctx_kernel(*leaves[0], H, W, kernels, True, approx)
+        if focal.focal_ctx_kernel.launches != n0 + 1 or out.grad_fn is None:
+            raise RuntimeError("K10 under autograd: no launch or no grad_fn")
+        ref = focal.focal_ctx_plain(*leaves[1], H, W, kernels, True, approx)
+        got = torch.autograd.grad((out.float() * up).sum(), leaves[0])
+        want = torch.autograd.grad((ref.float() * up).sum(), leaves[1])
+        errs = _grad_errors(got, want)
+        log(f"K10 Function [{B}, {C}, {H}x{W}] {dtype} ({smi}): d ctx, d gates, d taps vs "
+            f"autograd through the plain version: {', '.join(f'{e:.2e}' for e in errs)} "
+            f"(tol 1e-3)")
+        if max(errs) > 1e-3:
+            raise RuntimeError(f"K10 gradients disagree with the plain version's: {errs}")
+        if dtype == torch.bfloat16:
+            ins = [t.detach().requires_grad_(True) for t in leaves[0]]
+
+            def fwd():
+                return focal.focal_ctx_kernel(*ins, H, W, kernels, True, approx)
+
+            o = fwd()
+            bwd = bench_ms(lambda: torch.autograd.grad(o, ins, up.to(o.dtype),
+                                                       retain_graph=True), device)
+            fwd_ms = bench_ms(fwd, device)
+            rec["focal_ctx"]["train_shape"] = [B, C, H * W]
+            rec["focal_ctx"]["train_fwd_ms"] = fwd_ms
+            rec["focal_ctx"]["plain_backward_ms"] = bwd
+            log(f"K10 at the train step's stage 1 [{B}, {C}, {H}x{W}] bf16 ({smi}): forward "
+                f"(K10) {fwd_ms:.4f} ms, backward (plain version's autograd) {bwd:.4f} ms")
+    shapes = ((64, 64), (32, 32), (16, 16))
+    S = sum(h * w for h, w in shapes)
+    for dtype in (torch.float32, torch.bfloat16):
+        value = torch.randn((8, S, 8, 64), generator=g, device=device).to(dtype)
+        loc = torch.rand((8, S, 8, 3, 4, 2), generator=g, device=device) * 1.2 - 0.1
+        att = torch.softmax(torch.randn((8, S, 8, 12), generator=g, device=device),
+                            -1).reshape(8, S, 8, 3, 4)
+        up = torch.randn((8, S, 8 * 64), generator=g, device=device)
+        leaves = [[t.detach().clone().requires_grad_(True) for t in (value, loc, att)]
+                  for _ in range(3)]
+        n0 = msdeform.ms_deform_attn_kernel.launches
+        out = msdeform.ms_deform_attn_kernel(leaves[0][0], shapes, leaves[0][1], leaves[0][2])
+        if msdeform.ms_deform_attn_kernel.launches != n0 + 1 or out.grad_fn is None:
+            raise RuntimeError("K9 under autograd: no launch or no grad_fn")
+        got = torch.autograd.grad((out.float() * up).sum(), leaves[0])
+        want, again = (torch.autograd.grad((msdeform.ms_deform_attn(
+            ls[0], shapes, ls[1], ls[2]).float() * up).sum(), ls) for ls in leaves[1:])
+        errs, spread = _grad_errors(got, want), _grad_errors(again, want)
+        log(f"K9 Function [8, {S}, 8, 64] {dtype} ({smi}): d value, d loc, d weights vs "
+            f"autograd through the plain version: {', '.join(f'{e:.2e}' for e in errs)} (tol "
+            f"1e-3; the plain version against itself: "
+            f"{', '.join(f'{e:.2e}' for e in spread)})")
+        # d value sums by atomic adds in value's dtype: in bf16 their order
+        # moves it from run to run, the plain version's own too; it may stray
+        # by twice the plain version's own spread
+        if max(errs[1:]) > 1e-3 or errs[0] > max(1e-3, 2 * spread[0]):
+            raise RuntimeError(f"K9 gradients disagree with the plain version's: {errs}")
+        if dtype == torch.bfloat16:
+            ins = [t.detach().requires_grad_(True) for t in leaves[0]]
+            o = msdeform.ms_deform_attn_kernel(ins[0], shapes, ins[1], ins[2])
+            rec["ms_deform_attn"]["plain_backward_ms"] = bench_ms(
+                lambda: torch.autograd.grad(o, ins, up.to(o.dtype), retain_graph=True), device)
+            log(f"K9's backward (plain version's autograd) at that shape, bf16 ({smi}): "
+                f"{rec['ms_deform_attn']['plain_backward_ms']:.4f} ms")
+
+
+def pinned_points(seed):
+    """Replace the criterion's and matcher's random points (uniform draws and
+    the importance sampler) by one seeded numpy sequence in call order, so
+    the card and the CPU sample the same points.  Returns the restore
+    function."""
+    import numpy as np
+    import torch
+
+    from cullavo_tpu_torch.models.xdecoder import criterion, matcher
+
+    rng = np.random.default_rng(seed)
+
+    def uniform(shape, generator, device):
+        return torch.from_numpy(rng.random(tuple(shape), dtype=np.float32)).to(device)
+
+    saved = (matcher.uniform_points, criterion.uniform_points, criterion.uncertain_point_coords)
+    matcher.uniform_points = criterion.uniform_points = uniform
+    criterion.uncertain_point_coords = lambda m, gen, n, *a, **k: uniform((m.shape[0], n, 2),
+                                                                           gen, m.device)
+
+    def restore():
+        matcher.uniform_points, criterion.uniform_points, criterion.uncertain_point_coords = saved
+    return restore
+
+
+def xtrain_batch(spec, model_cfg, n, seed=SEED):
+    """The first ``n`` records of the registered spec mapped at the config's
+    512^2 and collated as the entry collates them (plus class tokens and
+    the normalized image)."""
+    import numpy as np
+
+    from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.data.coco_caption_grounding import (
+        JointTrainMapper, collate_joint, load_coco_panoptic_caption_grounding_json)
+
+    names = spec["CLASS_NAMES"]
+    recs = load_coco_panoptic_caption_grounding_json(
+        spec["JSON"], spec["IMAGE_DIR"], spec["PANOPTIC_DIR"], spec["CAPTION_JSON"],
+        spec["GROUNDING_JSON"], {})[:n]
+    mapper = JointTrainMapper(image_size=XDEC_SIDE, class_names=names)
+    mapped = [mapper(r) for r in recs]
+    tokenize = entry._make_text_tokenize({}, model_cfg.text)
+    batch = collate_joint(mapped, tokenize, names, np.random.default_rng(seed))
+    batch["image"] = np.stack([entry._normalize_np(m["image"]) for m in mapped])
+    batch["class_ids"], batch["class_mask"] = tokenize(
+        [f"a photo of a {c}." for c in names] + ["A background in coco."])
+    return batch
+
+
+def reference_check_xtrain(spec, device, wrappers, smi):
+    """Phase 15c: the joint objective at full width and cut depth (one block
+    per FocalNet stage, one FPN encoder layer, 2 decoder and 2 text layers),
+    f32, on 2 images of 512^2, points pinned: every loss and every gradient
+    leaf of the kernel path on the card (remat on) against the plain path on
+    the CPU (remat off), same weights drawn on the CPU.  Losses within 1e-3
+    of the largest; each gradient leaf within 1e-3 in its 2-norm (|d| /
+    |ref|) and within 1e-2 of its largest entry (a leaf whose gradient is
+    zero in exact arithmetic holds rounding noise: 1e-6 of the largest entry
+    of all is the floor).  Not 1e-3 entry by entry: the FPN's ReLU and
+    GroupNorm kinks flip on f32 rounding, and one flip moves single entries
+    of a leaf by ~2e-3 of its largest even between two CPU runs whose
+    images differ by one ulp (measured on this check's inputs:
+    output_convs/1/kernel 2.0e-3, its 2-norm 3.7e-4)."""
+    import torch
+
+    from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
+    from cullavo_tpu_torch.models.xdecoder.model import (forward_joint_train,
+                                                         init_xdecoder_model_params)
+    from cullavo_tpu_torch.trainer.xdecoder_step import _value_and_grad
+
+    full = xdecoder_model_config_from(xtrain_config())
+    cfg = dataclasses.replace(full, backbone=dataclasses.replace(full.backbone,
+                                                                 depths=(1, 1, 1, 1)),
+                              fpn=dataclasses.replace(full.fpn, enc_layers=1),
+                              decoder=dataclasses.replace(full.decoder, dec_layers=2),
+                              text=dataclasses.replace(full.text, layers=2))
+    batch = xtrain_batch(spec, cfg, XTRAIN_CUT_IMAGES)
+    params = init_xdecoder_model_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    runs = []
+    for dev, remat in ((torch.device("cpu"), False), (device, True)):
+        restore = pinned_points(SEED)
+        t0 = time.perf_counter()
+
+        def loss_fn(p, b, gen, remat=remat):
+            losses = forward_joint_train(p, cfg, b, gen, remat=remat)
+            return sum(losses.values()), losses
+
+        (total, losses, grads), counts = counted(wrappers, lambda: _value_and_grad(
+            loss_fn, _tree_to(params, device=dev), batch, None))
+        restore()
+        runs.append((losses, {k: g.float().cpu() for k, g in _tree_leaves(grads)}, counts))
+        log(f"X-Decoder train cut ({XTRAIN_CUT_IMAGES} x {XDEC_SIDE}^2, f32) on {dev} "
+            f"({smi}): {len(losses)} losses, total {float(total):.6f}, "
+            f"{time.perf_counter() - t0:.1f} s")
+    (want_l, want_g, _), (got_l, got_g, counts) = runs
+    big = max(abs(float(v)) for v in want_l.values())
+    loss_err = max(abs(float(got_l[k]) - float(want_l[k])) for k in want_l) / big
+    floor = 1e-6 * max(float(w.abs().max()) for w in want_g.values())
+    rows = sorted(((float((got_g[k] - w).norm()) / max(float(w.norm()), floor),
+                    float((got_g[k] - w).abs().max()) / max(float(w.abs().max()), floor), k)
+                   for k, w in want_g.items()), reverse=True)
+    worst_max = max(rows, key=lambda r: r[1])
+    log(f"X-Decoder train cut ({smi}): card vs CPU, losses max |d| / max |loss| = "
+        f"{loss_err:.3e} (tol "
+        f"1e-3); gradients ({len(want_g)} leaves) per leaf |d| / |ref| (2-norms) up to "
+        f"{rows[0][0]:.3e} (tol 1e-3), max |d| / max |ref| up to {worst_max[1]:.3e} (tol "
+        f"1e-2) at {worst_max[2]}; K10 launches {counts['focal_ctx']}; worst leaves "
+        + ", ".join(f"{k} {n:.2e} / {m:.2e}" for n, m, k in rows[:3]))
+    if set(got_l) != set(want_l) or loss_err > 1e-3 or rows[0][0] > 1e-3 or \
+            worst_max[1] > 1e-2 or counts["focal_ctx"] != 2 * 4:
+        raise RuntimeError(f"X-Decoder train cut: the card disagrees with the CPU (losses "
+                           f"{loss_err}, gradients {rows[:3]}, {worst_max}) or K10 launched "
+                           f"{counts['focal_ctx']} times, not 8")
+
+
+def _check_losses(label, metrics):
+    import math
+
+    missing = [k for k in XTRAIN_LOSS_KEYS if k not in metrics]
+    bad = [k for k in XTRAIN_LOSS_KEYS + ("loss_total", "grad_norm")
+           if k in metrics and not math.isfinite(float(metrics[k]))]
+    if missing or bad or not float(metrics["grad_norm"]) > 0:
+        raise RuntimeError(f"{label}: loss keys missing {missing}, not finite {bad}, "
+                           f"grad_norm {metrics.get('grad_norm')}")
+
+
+def _train_steps(cfg, sol, batch, device, steps, base_lr, warmup, timed=False):
+    """``steps`` joint steps on one batch from a fresh model (seed 0) and
+    generator (seed SEED), bf16 over f32 masters with remat, as the entry
+    builds them: (metrics of every step, per-step seconds, matcher host
+    seconds, forward seconds)."""
+    import torch
+
+    from cullavo_tpu_torch.entry import _load_xdecoder_params
+    from cullavo_tpu_torch.models.xdecoder import matcher
+    from cullavo_tpu_torch.trainer import xdecoder_step
+    from cullavo_tpu_torch.trainer.optimizer import xdecoder_optimizer
+    from cullavo_tpu_torch.trainer.step import TrainState
+
+    params = _load_xdecoder_params({}, cfg, device)
+    tx = xdecoder_optimizer(base_lr=base_lr, total_steps=int(sol["MAX_ITER"]),
+                            grad_clip=float(sol["CLIP_VALUE"]), warmup_steps=warmup)
+    state = TrainState(params, tx.init(params), 0)
+    step = xdecoder_step.make_xdecoder_joint_train_step(cfg, tx, remat=True,
+                                                       compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    fwd = xdecoder_step.forward_joint_train
+    fwd_s = []
+
+    def timed_forward(*a, **k):
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        out = fwd(*a, **k)
+        torch.cuda.synchronize(device)
+        fwd_s.append(time.perf_counter() - t)
+        return out
+
+    if timed:
+        xdecoder_step.forward_joint_train = timed_forward
+    history, secs, host = [], [], []
+    for _ in range(steps):
+        torch.cuda.synchronize(device)
+        h0, t0 = matcher.hungarian_match.host_seconds, time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        history.append({k: float(v) for k, v in metrics.items()})
+        secs.append(time.perf_counter() - t0)
+        host.append(matcher.hungarian_match.host_seconds - h0)
+    xdecoder_step.forward_joint_train = fwd
+    return history, secs, host, fwd_s
+
+
+def run_xtrain_path(device, wrappers, smi, work, rec):
+    """Phase 15: X-Decoder joint training.  (a) and (b) as their functions
+    say; then a registered coco_panoptic_caption_grounding dataset of 16
+    synthetic images (12 of 512^2, 4 of 480 x 640; PNGs and id-encoded
+    panoptic PNGs by the port's writer, thing and stuff segments and a
+    crowd one, 5 captions an image, polygon and RLE grounding segments; the
+    133 COCO panoptic names); (c) the cut-depth card-vs-CPU check on its
+    first 2 images; (d) ``python -m cullavo_tpu_torch train --conf_files
+    configs/xdecoder_train.yaml`` in a subprocess (exit 0, 2 steps, its
+    checkpoint finite, peak memory of a fresh process), then the main path:
+    ``entry.train`` on the same arguments in this process, launches counted
+    (K10: 48 a step), every reference loss key present and finite in both
+    steps, grad_norm finite and > 0, the checkpoint read back bit-equal;
+    (e) 4 steps on the first batch twice from one seed: step-1 losses
+    within 1e-3 relative, s per step (median of steps 2-4), images/s, the
+    matcher's host seconds and the forward's seconds a step, K10's plain
+    backward a step; (f) 6 steps at BASE_LR 1e-3 without warmup: the loss
+    at step 6 below step 1.  Returns the launch counts of (d)."""
+    import statistics as st
+
+    import torch
+
+    from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.checkpoint.store import load_checkpoint
+    from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
+    from cullavo_tpu_torch.ops import focal
+    from cullavo_tpu_torch.utils.constants import COCO_PANOPTIC_CLASSES
+    from cullavo_tpu_torch.utils.tree import tree_leaves
+
+    xtrain_entry_smoke(device, smi)
+    check_train_functions(device, rec, smi)
+    root = os.path.join(work, "xtrain_data")
+    t0 = time.perf_counter()
+    spec = write_joint_dataset(root, XDEC_SIZES, list(COCO_PANOPTIC_CLASSES), len(XDEC_THINGS),
+                               seed=SEED)
+    log(f"phase 15 dataset ({smi}): {len(XDEC_SIZES)} images written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reference_check_xtrain(spec, device, wrappers, smi)
+
+    over = {"DATASETS.TRAIN": [XTRAIN_DATASET],
+            "DATASETS.REGISTER": {XTRAIN_DATASET: spec}}
+    cli_dir = os.path.join(work, "xtrain_cli")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "cullavo_tpu_torch"]
+                         + xtrain_argv(over, cli_dir), cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    t_cli = time.perf_counter() - t0
+    lines = (res.stdout + res.stderr).strip().splitlines()
+    for line in lines[-6:]:
+        log(f"  xdecoder train CLI: {line}")
+    if res.returncode != 0:
+        raise RuntimeError(f"xdecoder train: python -m cullavo_tpu_torch exited "
+                           f"{res.returncode}")
+    steps_cli = [line for line in lines if line.startswith("{'step'")]
+    peak_cli = [line for line in lines if line.startswith("[entry] peak device memory")]
+    ckpt = tree_leaves(load_checkpoint(cli_dir)["params"])
+    if len(steps_cli) != 2 or not all(np_isfinite(a) for a in ckpt):
+        raise RuntimeError(f"xdecoder train CLI: {len(steps_cli)} steps, checkpoint finite: "
+                           f"{all(np_isfinite(a) for a in ckpt)}")
+    log(f"xdecoder train CLI ({smi}): exit 0 in {t_cli:.2f} s (process start, model, 2 "
+        f"steps); {peak_cli[-1] if peak_cli else ''}; checkpoint {len(ckpt)} leaves, finite")
+
+    in_dir = os.path.join(work, "xtrain_in_process")
+    cfg = xtrain_config(over, in_dir)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    out, counts = counted(wrappers, lambda: entry.train(cfg, device=device))
+    torch.cuda.synchronize(device)
+    t_in = time.perf_counter() - t0
+    peak_in = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    history = out["history"]
+    for i, m in enumerate(history):
+        _check_losses(f"entry.train step {i + 1}", m)
+    saved = tree_leaves(load_checkpoint(in_dir)["params"])
+    final = [t.cpu().numpy() for t in tree_leaves(out["state"].trainable)]
+    if len(history) != 2 or len(saved) != len(final) or not all(
+            a.dtype == b.dtype and (a == b).all() for a, b in zip(saved, final)):
+        raise RuntimeError("entry.train: not 2 steps, or the checkpoint does not read back "
+                           "bit-equal")
+    log(f"xdecoder train entry.train in process ({smi}): 2 steps in {t_in:.2f} s, losses "
+        f"{[round(m['loss_total'], 4) for m in history]}, grad_norm "
+        f"{[round(m['grad_norm'], 6) for m in history]}, {len(XTRAIN_LOSS_KEYS)} reference "
+        f"loss keys finite; peak {peak_in:.2f} GiB; checkpoint bit-equal; launches {counts}")
+    if counts["focal_ctx"] != 2 * XTRAIN_FOCAL_PER_STEP:
+        raise RuntimeError(f"K10 launched {counts['focal_ctx']} times in 2 steps, not "
+                           f"{2 * XTRAIN_FOCAL_PER_STEP} (24 blocks + their remat)")
+    del out
+    torch.cuda.empty_cache()
+
+    model_cfg = xdecoder_model_config_from(cfg)
+    batch = xtrain_batch(spec, model_cfg, XDEC_BATCH)
+    sol = cfg["SOLVER"]
+    events = []
+    orig = focal._FocalCtx.backward
+
+    def timed_backward(fctx, grad):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        result = orig(fctx, grad)
+        b.record()
+        events.append((a, b))
+        return result
+
+    focal._FocalCtx.backward = staticmethod(timed_backward)
+    first = _train_steps(model_cfg, sol, batch, device, XTRAIN_DET_STEPS, float(sol["BASE_LR"]),
+                         10, timed=True)
+    focal._FocalCtx.backward = staticmethod(orig)
+    torch.cuda.synchronize(device)
+    k10_bwd_ms = sum(a.elapsed_time(b) for a, b in events) / XTRAIN_DET_STEPS
+    second = _train_steps(model_cfg, sol, batch, device, XTRAIN_DET_STEPS,
+                          float(sol["BASE_LR"]), 10)
+    a, b = first[0][0], second[0][0]
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for k in XTRAIN_LOSS_KEYS)
+    hist, secs, host, fwd = first
+    s_step = st.median(secs[1:])
+    log(f"xdecoder train determinism ({smi}): step-1 losses of two runs from one seed agree "
+        f"within {worst:.2e} relative (tol 1e-3); losses "
+        f"{[round(m['loss_total'], 4) for m in hist]}")
+    if worst > 1e-3:
+        raise RuntimeError(f"xdecoder train: two runs from one seed differ at step 1 ({worst})")
+    log(f"xdecoder train at full width and depth ({smi}): {s_step:.4f} s per step (median of "
+        f"steps 2-{XTRAIN_DET_STEPS}; steps {[round(x, 4) for x in secs]}), "
+        f"{XDEC_BATCH / s_step:.2f} images/s, forward {st.median(fwd[1:]):.4f} s a step, "
+        f"matcher host {st.median(host[1:]):.4f} s a step, K10's plain backward "
+        f"{k10_bwd_ms:.2f} ms a step")
+    rec["focal_ctx"]["xdecoder_train"] = {
+        "s_per_step": s_step, "images_per_s": XDEC_BATCH / s_step,
+        "forward_s": st.median(fwd[1:]), "matcher_host_s": st.median(host[1:]),
+        "k10_plain_backward_ms_per_step": k10_bwd_ms, "peak_gib_in_process": peak_in,
+        "peak_fresh_process": peak_cli[-1] if peak_cli else None}
+    learn = _train_steps(model_cfg, sol, batch, device, XTRAIN_LEARN_STEPS, XTRAIN_LEARN_LR, 0)[0]
+    losses = [m["loss_total"] for m in learn]
+    log(f"xdecoder train learning (BASE_LR {XTRAIN_LEARN_LR}, no warmup; {smi}): losses "
+        f"{[round(x, 4) for x in losses]}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"xdecoder train: the loss at step {len(losses)} is not below step 1")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def np_isfinite(a):
+    import numpy as np
+
+    return bool(np.isfinite(a).all())
+
+
 def xdecoder_rows(num_classes):
     """The eval set: 16 normalized random images (12 of 512^2, 4 of 480 x
     640) with synthetic ground truth of 64-pixel blocks: a semantic map, a
@@ -3021,9 +3578,12 @@ def vqa_records():
 
 
 def _tree_leaves(tree, prefix=""):
+    """(path, leaf) of every leaf of a nested dict / list tree (None: none)."""
     if isinstance(tree, dict):
         return [kv for k, v in tree.items() for kv in _tree_leaves(v, f"{prefix}{k}/")]
-    return [(prefix, tree)]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in _tree_leaves(v, f"{prefix}{i}/")]
+    return [] if tree is None else [(prefix, tree)]
 
 
 def run_vl_snapshot_path(cfg, device, wrappers, smi, snap):
@@ -4449,6 +5009,9 @@ def main(argv):
 
     # phase 13
     counts_probe13 = run_matmul_probe(device, wrappers)
+    # phase 15
+    with tempfile.TemporaryDirectory(prefix="cullavo_chip_xtrain_") as work:
+        counts_xtrain = run_xtrain_path(device, wrappers, smi, work, rec)
     # each kernel's launches on the main path that runs it: K1-K4 the greedy
     # bf16-cache batch, K5 the speculative int8-cache batch, K6 and K7 the
     # serving run, K1-lse the train steps, K8 the attention probe, K9 the
@@ -4487,7 +5050,8 @@ def main(argv):
         # the other forms' times on the same inputs, times in turns, host
         # time per call, extra shapes, ptxas
         for extra in ("k13_same_inputs_ms", "k1_same_inputs_ms", "times_in_turns", "host_us",
-                      "loop_shape", "prefill_shape", "ptxas", "zoo_shapes", "other_shapes"):
+                      "loop_shape", "prefill_shape", "ptxas", "zoo_shapes", "other_shapes",
+                      "train_shape", "train_fwd_ms", "plain_backward_ms", "xdecoder_train"):
             if extra in rec[k["name"]]:
                 k[extra] = rec[k["name"]][extra]
         if k["name"] == "nf4_linear_q4":
@@ -4496,6 +5060,7 @@ def main(argv):
             k["also_replaces"] = "cullavo_tpu/ops/flash_attention.py:596"
         if k["name"] in ("flash_fwd", "wwin_decode"):   # phase 14's entry.main run
             k["step2_pre_launches"] = counts_step2[k["name"]]
+        k["xdecoder_train_launches"] = counts_xtrain[k["name"]]   # phase 15's entry.train
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,8 @@ training sample (counterpart of ``cullavo_tpu/data/coco_panoptic.py``).
     to ``load_image_rgb``, which needs PIL (PIL itself opens a PNG named
     ``.jpg``, so the two agree).
 
-``pad_targets`` (the X-Decoder's padded targets) comes with X-Decoder
-training.
+  * ``pad_targets`` — mapped records stacked into the X-Decoder's padded
+    targets (classes, masks, normalized cxcywh boxes, validity).
 """
 from __future__ import annotations
 
@@ -146,3 +146,39 @@ class PanopticMapper:
                 "boxes": np.asarray(boxes, np.float32),
                 "is_thing": np.asarray(is_thing, bool),
                 "masks": np.stack(masks).astype(np.float32)}
+
+
+def pad_targets(mapped: list, max_instances: int, mask_size: Optional[int] = None) -> dict:
+    """Mapped records (None for a dropped one) -> {"image" [B, S, S, 3] u8,
+    "classes" [B, N] i32, "boxes" [B, N, 4] normalized cxcywh, "valid" [B,
+    N], "masks" [B, N, ms, ms] f32}, N = ``max_instances``; masks
+    nearest-resized to ``mask_size`` when it differs from S."""
+    B = len(mapped)
+    first = next((m for m in mapped if m is not None), None)
+    if first is None:
+        raise ValueError("all records empty")
+    S = first["image"].shape[0]
+    ms = mask_size or S
+    classes = np.zeros((B, max_instances), np.int32)
+    boxes = np.zeros((B, max_instances, 4), np.float32)
+    valid = np.zeros((B, max_instances), bool)
+    masks = np.zeros((B, max_instances, ms, ms), np.float32)
+    images = np.zeros((B, S, S, 3), np.uint8)
+    for i, m in enumerate(mapped):
+        if m is None:
+            continue
+        n = min(len(m["classes"]), max_instances)
+        images[i] = m["image"]
+        classes[i, :n] = m["classes"][:n]
+        valid[i, :n] = True
+        b = m["boxes"][:n] / S
+        boxes[i, :n] = np.stack([(b[:, 0] + b[:, 2]) / 2, (b[:, 1] + b[:, 3]) / 2,
+                                 b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]], -1)
+        if ms != S:
+            mm = resize(torch.from_numpy(np.ascontiguousarray(m["masks"][:n]))[None],
+                        (ms, ms), "nearest")[0]
+            masks[i, :n] = mm.numpy()
+        else:
+            masks[i, :n] = m["masks"][:n]
+    return {"image": images, "classes": classes, "boxes": boxes, "valid": valid,
+            "masks": masks}

@@ -10,9 +10,11 @@ or one smoke step on synthetic records); and ``evaluate`` for the VL eval
 tower, BLIP-2 Flan-T5 or KOSMOS-2, with tiny random weights, over
 registered VQA datasets), the step2_pre data generation
 (``cullavo_step2_pre``: sampled captions with boxes over a registered
-``conversations`` dataset) and the X-Decoder workloads (model, weights and
-text tokenizer built from the config; their dataset kinds come with a
-later data slice).
+``conversations`` dataset) and the X-Decoder workloads: joint training
+(``train`` with an "xdecoder" ``NAME``, over registered
+``coco_panoptic_caption_grounding`` datasets) and eval (model, weights and
+text tokenizer built from the config; its dataset kinds come with a later
+data slice).
 
 ``MODEL.LLM.LOAD_PATH`` names a local snapshot: ``config.json``,
 ``*.safetensors`` shards and ``tokenizer.json`` (read by the port's own
@@ -42,12 +44,14 @@ from cullavo_tpu_torch.checkpoint.reference_layout import (load_reference_layout
                                                            save_reference_layout)
 from cullavo_tpu_torch.checkpoint.store import save_checkpoint
 from cullavo_tpu_torch.config import load_opt_command
+from cullavo_tpu_torch.data.coco_caption_grounding import (
+    JointTrainMapper, collate_joint, register_coco_panoptic_caption_grounding)
 from cullavo_tpu_torch.data.coco_panoptic import (PanopticMapper, load_image_file,
                                                    register_coco_panoptic)
 from cullavo_tpu_torch.data.datasets import register_vqa
 from cullavo_tpu_torch.data.instruction_data import load_conversation_json
 from cullavo_tpu_torch.data.mappers.eval_mappers import VQAEvalMapper
-from cullavo_tpu_torch.data.registry import get_dataset, register_dataset
+from cullavo_tpu_torch.data.registry import get_dataset, get_metadata, register_dataset
 from cullavo_tpu_torch.data.step1_synthesis import SYSTEM_PROMPT
 from cullavo_tpu_torch.data.tokenizer import ByteTokenizer, HFTokenizer
 from cullavo_tpu_torch.models.blip2 import tiny_blip2_config
@@ -57,7 +61,8 @@ from cullavo_tpu_torch.models.llava.lora import maybe_quantize_base
 from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
 from cullavo_tpu_torch.models.llava.modeling import (GenerationConfig, expand_image_token,
                                                      init_llava_params)
-from cullavo_tpu_torch.models.xdecoder.model import init_xdecoder_model_params
+from cullavo_tpu_torch.models.xdecoder.model import (PIXEL_MEAN, PIXEL_STD,
+                                                     init_xdecoder_model_params)
 from cullavo_tpu_torch.pipelines import cullavo_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines import vqa_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines import xdecoder_pipeline  # noqa: F401 (registration)
@@ -68,7 +73,10 @@ from cullavo_tpu_torch.pipelines.vl_zoo_pipeline import (MODEL_SPECS, VLZooVQAPi
 from cullavo_tpu_torch.serving import Request, ServingEngine
 from cullavo_tpu_torch.serving.io import request_from_row
 from cullavo_tpu_torch.trainer.loop import LoopConfig, train_loop
+from cullavo_tpu_torch.trainer.optimizer import xdecoder_optimizer
 from cullavo_tpu_torch.trainer.step import TrainState
+from cullavo_tpu_torch.trainer.xdecoder_step import make_xdecoder_joint_train_step
+from cullavo_tpu_torch.utils import constants
 
 
 def _device(device):
@@ -233,11 +241,11 @@ def train(cfg: dict, device=None) -> dict:
     ``step_{N}/`` and ``epoch{N}/``); returns ``{"state", "history"}``.
     Without it: one smoke step on synthetic records; returns (and prints)
     its metrics, ``loss_llm`` and ``grad_norm``.  A conversations dataset in
-    ``DATASETS.TRAIN`` raises a ``ValueError`` before the model is built."""
+    ``DATASETS.TRAIN`` raises a ``ValueError`` before the model is built.
+    A ``NAME`` with "xdecoder" goes to ``train_xdecoder``."""
     register_datasets_from_cfg(cfg)
     if "xdecoder" in cfg.get("NAME", ""):
-        raise NotImplementedError("X-Decoder training waits for the training part of the "
-                                  "X-Decoder slice")
+        return train_xdecoder(cfg, device=device)
     dataset_name = (cfg.get("DATASETS") or {}).get("TRAIN")
     records = get_dataset(dataset_name) if dataset_name else []
     if records and "conversations" in records[0]:
@@ -297,6 +305,105 @@ def train(cfg: dict, device=None) -> dict:
     return {"state": state, "history": history}
 
 
+def _resolve_class_names(ds_name: str, md: dict) -> list:
+    """A dataset's class vocabulary: its ``class_names`` metadata, else the
+    COCO panoptic table for a name with "coco" in it.  Anything else raises:
+    the JAX entry's other tables wait for the slices that train on them, and
+    its last resort, COCO's names for any dataset, is a silent fallback the
+    port does not copy."""
+    if md.get("class_names"):
+        return list(md["class_names"])
+    if "coco" in ds_name.lower():
+        return list(constants.COCO_PANOPTIC_CLASSES)
+    raise NotImplementedError(f"no class names for dataset {ds_name!r}: give CLASS_NAMES (the "
+                              "JAX entry's other tables wait for their slices)")
+
+
+def _normalize_np(img: np.ndarray) -> np.ndarray:
+    """uint8 [H, W, 3] -> the X-Decoder's normalized f32, on the host."""
+    return ((img.astype(np.float32) - np.asarray(PIXEL_MEAN, np.float32))
+            / np.asarray(PIXEL_STD, np.float32))
+
+
+def train_xdecoder(cfg: dict, device=None):
+    """X-Decoder joint training (``NAME`` with "xdecoder"): the model, its
+    weights (seed 0) and the text tokenizer from the config,
+    ``xdecoder_optimizer`` (``SOLVER.BASE_LR``, ``MAX_ITER``,
+    ``CLIP_VALUE``), the joint step (``REMAT``, default on; bf16 compute over
+    f32 masters unless ``FP32_TRAIN``), then the epochs over every
+    ``DATASETS.TRAIN`` dataset (class names from ``CLASS_NAMES`` or, for a
+    COCO dataset, the COCO panoptic table):
+    records in ``np.random.default_rng(SEED)`` order through
+    ``JointTrainMapper`` (``INPUT.IMAGE_SIZE``), constant batches of
+    ``BATCH_SIZE`` (records that map to None are skipped, the tail dropped),
+    collated by ``collate_joint`` (``MAX_INSTANCES``).  ``SAVE_DIR``: the
+    parameters through the npz store at the last step.  Without
+    ``DATASETS.TRAIN``, returns None after building the model, as JAX
+    does; else ``{"state", "history"}`` (every step's metrics as floats).
+    One process: a ``MESH_*`` other than 0 raises."""
+    if any(int(cfg.get(k, 0) or 0) != 0 for k in ("MESH_DATA", "MESH_FSDP", "MESH_TENSOR")):
+        raise NotImplementedError("MESH_*: the sharded X-Decoder step waits for the "
+                                  "multi-process training slice")
+    device = _device(device)
+    model_cfg = xdecoder_model_config_from(cfg)
+    params = _load_xdecoder_params(cfg, model_cfg, device)
+    tokenize = _make_text_tokenize(cfg, model_cfg.text)
+    sol = cfg.get("SOLVER") or {}
+    tx = xdecoder_optimizer(base_lr=float(sol.get("BASE_LR", 1e-4)),
+                            total_steps=int(sol.get("MAX_ITER", 1000)),
+                            grad_clip=float(sol.get("CLIP_VALUE", 0.01)))
+    state = TrainState(params, tx.init(params), 0)
+    step_fn = make_xdecoder_joint_train_step(
+        model_cfg, tx, remat=bool(cfg.get("REMAT", True)),
+        compute_dtype=None if cfg.get("FP32_TRAIN") else torch.bfloat16)
+    names = (cfg.get("DATASETS") or {}).get("TRAIN")
+    if isinstance(names, str):
+        names = [names]
+    if not names:
+        print("[entry] no DATASETS.TRAIN: nothing to do", file=sys.stderr)
+        return None
+    records = [r for nm in names for r in get_dataset(nm)]
+    md = get_metadata(names[0]) or {}
+    class_names = _resolve_class_names(names[0], md)
+    image_size = int((cfg.get("INPUT") or {}).get("IMAGE_SIZE", 512))
+    mapper = JointTrainMapper(image_size=image_size, class_names=class_names)
+    cls_ids, cls_mask = tokenize([f"a photo of a {c}." for c in class_names]
+                                 + ["A background in coco."])
+    batch_size = int(cfg.get("BATCH_SIZE", 8))
+    seed = int(cfg.get("SEED", 0))
+    rng_np = np.random.default_rng(seed)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    history = []
+
+    def full_batches(order):
+        buf = []
+        for j in order:
+            m = mapper(records[j])
+            if m is not None:
+                buf.append(m)
+                if len(buf) == batch_size:
+                    yield buf
+                    buf = []
+
+    for _ in range(int(cfg.get("EPOCHS", 1))):
+        for mapped in full_batches(rng_np.permutation(len(records))):
+            batch = collate_joint(mapped, tokenize, class_names, rng_np,
+                                  max_instances=int(cfg.get("MAX_INSTANCES", 20)))
+            batch["image"] = np.stack([_normalize_np(m["image"]) for m in mapped])
+            batch["class_ids"], batch["class_mask"] = cls_ids, cls_mask
+            state, metrics = step_fn(state, batch, generator)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            history.append(metrics)
+            print({"step": len(history), "loss_total": metrics["loss_total"],
+                   "grad_norm": metrics["grad_norm"]}, file=sys.stderr)
+    if cfg.get("SAVE_DIR"):
+        save_checkpoint(cfg["SAVE_DIR"], len(history), {"params": state.trainable})
+    if device.type == "cuda":
+        print(f"[entry] peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f}"
+              " GiB", file=sys.stderr)
+    return {"state": state, "history": history}
+
+
 def _dataset_names(cfg: dict) -> list:
     names = (cfg.get("DATASETS") or {}).get("TEST")
     if not names:
@@ -343,15 +450,17 @@ def _load_xdecoder_params(cfg: dict, model_cfg, device):
 
 
 def register_datasets_from_cfg(cfg: dict) -> None:
-    """``DATASETS.REGISTER: {name: {KIND: ..., ...}}`` for three kinds:
+    """``DATASETS.REGISTER: {name: {KIND: ..., ...}}`` for four kinds:
     ``vqa`` (``QUESTIONS_JSON``, ``ANNOTATIONS_JSON``, ``IMAGE_DIR``,
     ``IMAGE_TEMPLATE``), ``coco_panoptic`` (``JSON``, ``IMAGE_DIR``,
-    ``PANOPTIC_DIR``, ``NUM_CLASSES``, ``CLASS_NAMES``, ``TASKS``) and
-    ``conversations`` (``JSON``, ``IMAGE_ROOT``: ``load_conversation_json``,
-    read when the dataset is first asked for).  The other kinds and the
-    bulk registration from a ``DETECTRON2_DATASETS`` / ``DATASET`` root
-    raise: they wait for the slices that use them (the JAX entry swallows
-    the bulk errors)."""
+    ``PANOPTIC_DIR``, ``NUM_CLASSES``, ``CLASS_NAMES``, ``TASKS``),
+    ``coco_panoptic_caption_grounding`` (those of ``coco_panoptic`` but
+    ``TASKS``, plus ``CAPTION_JSON``, ``GROUNDING_JSON`` and ``LVIS_JSON``)
+    and ``conversations`` (``JSON``, ``IMAGE_ROOT``:
+    ``load_conversation_json``, read when the dataset is first asked for).
+    The other kinds and the bulk registration from a
+    ``DETECTRON2_DATASETS`` / ``DATASET`` root raise: they wait for the
+    slices that use them (the JAX entry swallows the bulk errors)."""
     root = os.environ.get("DETECTRON2_DATASETS") or os.environ.get("DATASET")
     if root and os.path.isdir(root):
         raise NotImplementedError(f"bulk dataset registration from {root!r} waits for the "
@@ -364,6 +473,13 @@ def register_datasets_from_cfg(cfg: dict) -> None:
                 metadata={"num_classes": int(spec.get("NUM_CLASSES", 133)),
                           "class_names": list(spec.get("CLASS_NAMES", [])) or None,
                           "tasks": spec.get("TASKS")})
+        elif kind == "coco_panoptic_caption_grounding":
+            register_coco_panoptic_caption_grounding(
+                name, spec["JSON"], spec["IMAGE_DIR"], spec["PANOPTIC_DIR"], spec["CAPTION_JSON"],
+                spec["GROUNDING_JSON"],
+                metadata={"num_classes": int(spec.get("NUM_CLASSES", 133)),
+                          "class_names": list(spec.get("CLASS_NAMES", [])) or None},
+                lvis_json=spec.get("LVIS_JSON"))
         elif kind == "conversations":
             register_dataset(name, (lambda j=spec["JSON"], r=spec.get("IMAGE_ROOT"):
                                     load_conversation_json(j, r)), {})

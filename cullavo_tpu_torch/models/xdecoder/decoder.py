@@ -1,4 +1,4 @@
-"""X-Decoder mask-transformer decoder, eval task (counterpart of
+"""X-Decoder mask-transformer decoder (counterpart of
 ``cullavo_tpu/models/xdecoder/decoder.py``).
 
 Learnable queries (the last slot a class token) over a 3-level pyramid
@@ -14,7 +14,9 @@ counterpart of ``jax.image.resize`` for the methods the X-Decoder uses
 (nearest, bilinear, bicubic; antialiased on downscale, weights renormalized
 over in-bounds taps, which ``F.interpolate(antialias=True)`` computes).
 
-Captioning, grounding and caption tokens wait for their slice and raise.
+Training runs the seg task with grounding tokens (duplicated queries) and
+the vlp task with caption tokens; greedy captioning eval
+(``forward_captioning``) waits for its slice and raises.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from cullavo_tpu_torch.models.llava.clip_vit import layer_norm
 
@@ -200,19 +203,27 @@ def _prepare_memories(params, cfg, features: list):
 
 
 def forward_prediction_heads(params, cfg: XDecoderConfig, output, mask_features,
-                             target_size, text_class_embeds=None, logit_scale=None):
+                             target_size, text_class_embeds=None, logit_scale=None,
+                             num_grounding: int = 0):
     """output [B, N, D]; mask_features [B, mask_dim, Hm, Wm].  Returns the
-    class/mask/box/caption predictions and the next layer's cross-attention
-    "allowed" mask [B, N, Ht * Wt]."""
+    class/mask/box/caption(ing) predictions and the next layer's
+    cross-attention "allowed" mask [B, N, Ht * Wt].  With ``num_grounding``
+    the decoder output is the object queries, the class token and the nq - 1
+    grounding queries; rows past nq (caption or grounding slots) give the
+    captioning embeddings."""
     nq = cfg.num_queries
     x = layer_norm(output, params["decoder_norm"]["scale"], params["decoder_norm"]["bias"],
                    cfg.layer_norm_eps)
+    outputs_captioning = x[:, nq:] @ params["caping_embed"] if x.shape[1] > nq else None
     # class-token recomputation: similarity-weighted mix of the object tokens
     normed = l2_normalize(x)
     obj, cls = normed[:, :nq - 1], normed[:, nq - 1:nq]
     sim = torch.softmax(torch.einsum("bod,bcd->bco", obj, cls), dim=-1)[:, 0, :, None]
     cls_tok = torch.sum(sim * x[:, :nq - 1], dim=1, keepdim=True)
-    decoder_output = torch.cat([x[:, :nq - 1], cls_tok], dim=1)
+    parts = [x[:, :nq - 1], cls_tok]
+    if num_grounding > 0:
+        parts.append(x[:, nq:2 * nq - 1])
+    decoder_output = torch.cat(parts, dim=1)
 
     class_embed = decoder_output @ params["class_embed"]
     outputs_class = None
@@ -224,47 +235,126 @@ def forward_prediction_heads(params, cfg: XDecoderConfig, output, mask_features,
     outputs_mask = torch.einsum("bqc,bchw->bqhw", mask_embed, mask_features)
 
     # next layer's cross-attention mask: bicubic (antialiased) resize,
-    # sigmoid >= 0.5; a fully masked row attends everywhere
+    # sigmoid >= 0.5; row nq (the first grounding query, when there) sees
+    # everything; a fully masked row attends everywhere
     B, N = decoder_output.shape[:2]
     Ht, Wt = target_size
-    resized = resize(outputs_mask, (Ht, Wt), "bicubic")
-    allowed = (torch.sigmoid(resized) >= 0.5).reshape(B, N, Ht * Wt)
-    dead = ~allowed.any(dim=-1, keepdim=True)
-    allowed = allowed | dead
+    with torch.no_grad():
+        resized = resize(outputs_mask, (Ht, Wt), "bicubic")
+        allowed = (torch.sigmoid(resized) >= 0.5).reshape(B, N, Ht * Wt)
+        if N > nq:
+            allowed[:, nq:nq + 1] = True
+        allowed = allowed | ~allowed.any(dim=-1, keepdim=True)
     return {"outputs_class": outputs_class, "outputs_mask": outputs_mask,
             "outputs_bbox": _mlp3(params["bbox_embed"], decoder_output),
-            "outputs_caption": class_embed, "attn_allowed": allowed}
+            "outputs_caption": class_embed, "outputs_captioning": outputs_captioning,
+            "attn_allowed": allowed}
+
+
+def grounding_self_attn_allowed(cfg: XDecoderConfig, num_extra: int, device=None):
+    """The grounding-mode self-attention mask: the structured mask on the
+    first nq slots, the extra block (duplicated queries + grounding tokens)
+    fully self-attending, nothing between the two blocks."""
+    nq = cfg.num_queries
+    n = nq + num_extra
+    allowed = torch.zeros((n, n), dtype=torch.bool, device=device)
+    allowed[:nq, :nq] = structured_self_attn_allowed(cfg, False, device)
+    allowed[nq:, nq:] = True
+    return allowed
 
 
 def xdecoder_forward(params, cfg: XDecoderConfig, features: list, mask_features,
                      text_class_embeds=None, logit_scale=None, grounding_tokens=None,
-                     caption_tokens=None, task: str = "seg", is_train: bool = False):
-    """The decoder loop, for the eval task: pred_logits / pred_masks /
-    pred_boxes / pred_captions (+ aux_outputs).  Grounding and caption
-    tokens (train, grounding eval, captioning) wait for their slice."""
-    if grounding_tokens is not None or caption_tokens is not None or is_train:
-        raise NotImplementedError("grounding, captioning and training in the X-Decoder "
-                                  "wait for the captioning/grounding slice")
+                     grounding_token_mask=None, caption_tokens=None,
+                     captioning_spatial_mask=None, task: str = "seg", is_train: bool = False,
+                     remat: bool = False):
+    """The decoder loop: pred_logits / pred_masks / pred_boxes /
+    pred_captions (+ aux_outputs); for ``task="vlp"`` pred_captionings /
+    pred_captions (+ aux_outputs).
+
+    ``grounding_tokens`` [B, G, D] (seg training, grounding eval): the
+    object queries are duplicated as grounding queries and the tokens ride
+    along in self-attention.  ``caption_tokens`` [B, contxt_len, D] (vlp
+    training): caption slots after the queries, causal among themselves.
+    ``remat`` checkpoints each decoder layer
+    (``torch.utils.checkpoint``, recomputed in the backward)."""
     mems = _prepare_memories(params, cfg, features)
     B = features[0].shape[0]
     nq = cfg.num_queries
     eps = cfg.layer_norm_eps
+    dev = mask_features.device
     output = params["query_feat"][None].expand(B, nq, cfg.hidden_dim)
     query_pos = params["query_embed"][None].expand(B, nq, cfg.hidden_dim)
-    self_allowed = structured_self_attn_allowed(cfg, False, output.device)[None]
+    use_grounding = (grounding_tokens is not None and cfg.task_grounding
+                     and ((is_train and task == "seg") or task == "grounding_eval"))
+    use_caption = (caption_tokens is not None and cfg.task_captioning and is_train
+                   and task == "vlp")
+    num_grounding = 0
+    g_tokens = None
+    if use_caption:
+        output = torch.cat([output, caption_tokens.detach()], dim=1)
+        query_pos = torch.cat([query_pos, caption_tokens + params["pos_embed_caping"][None]],
+                              dim=1)
+        self_allowed = structured_self_attn_allowed(cfg, True, dev)[None]
+    elif use_grounding:
+        num_grounding = G = grounding_tokens.shape[1]
+        output = torch.cat([output, output[:, :-1]], dim=1)
+        query_pos = torch.cat([query_pos, query_pos[:, :-1]], dim=1)
+        self_allowed = grounding_self_attn_allowed(cfg, (nq - 1) + G, dev)[None]
+        if grounding_token_mask is not None:
+            # padded phrase slots are invisible to every query
+            col = torch.cat([torch.ones((B, 2 * nq - 1), dtype=torch.bool, device=dev),
+                             grounding_token_mask.to(dev).bool()], dim=1)
+            self_allowed = self_allowed & col[:, None, :]
+        g_tokens = grounding_tokens.detach()
+    else:
+        self_allowed = structured_self_attn_allowed(cfg, False, dev)[None]
+
+    def layer_step(i, lw, output, g_tokens, attn_allowed):
+        src, pos, size = mems[i % cfg.num_feature_levels]
+        ca_allowed = attn_allowed
+        if use_caption:
+            # caption tokens attend the whole memory, but an excluded region
+            extra = torch.ones((B, cfg.contxt_len, ca_allowed.shape[-1]), dtype=torch.bool,
+                               device=dev)
+            if captioning_spatial_mask is not None:
+                m = resize(captioning_spatial_mask.float()[:, None], size, "nearest") > 0.5
+                extra = extra & ~m.reshape(B, 1, -1)
+            ca_allowed = torch.cat([ca_allowed, extra], dim=1)
+        output = _post_norm_attn(lw["cross"], output, src, cfg.nheads, ca_allowed, query_pos,
+                                 pos, eps)
+        query_pos_g = query_pos
+        if use_grounding:
+            output = torch.cat([output, g_tokens], dim=1)
+            query_pos_g = torch.cat([query_pos, grounding_tokens], dim=1)
+        output = _post_norm_attn(lw["self"], output, output, cfg.nheads, self_allowed,
+                                 query_pos_g, query_pos_g, eps)
+        output = _ffn(lw["ffn"], output, eps)
+        if use_grounding:
+            g_tokens = output[:, -num_grounding:]
+            output = output[:, :-num_grounding]
+        results = forward_prediction_heads(
+            params, cfg, output, mask_features, mems[(i + 1) % cfg.num_feature_levels][2],
+            text_class_embeds, logit_scale, num_grounding)
+        return output, g_tokens, results
 
     preds = [forward_prediction_heads(params, cfg, output, mask_features, mems[0][2],
-                                      text_class_embeds, logit_scale)]
+                                      text_class_embeds, logit_scale, num_grounding)]
     for i, lw in enumerate(params["layers"]):
-        src, pos, _ = mems[i % cfg.num_feature_levels]
-        output = _post_norm_attn(lw["cross"], output, src, cfg.nheads,
-                                 preds[-1]["attn_allowed"], query_pos, pos, eps)
-        output = _post_norm_attn(lw["self"], output, output, cfg.nheads, self_allowed,
-                                 query_pos, query_pos, eps)
-        output = _ffn(lw["ffn"], output, eps)
-        next_size = mems[(i + 1) % cfg.num_feature_levels][2]
-        preds.append(forward_prediction_heads(params, cfg, output, mask_features, next_size,
-                                              text_class_embeds, logit_scale))
+        if remat:
+            output, g_tokens, results = checkpoint(
+                layer_step, i, lw, output, g_tokens, preds[-1]["attn_allowed"],
+                use_reentrant=False, preserve_rng_state=False)
+        else:
+            output, g_tokens, results = layer_step(i, lw, output, g_tokens,
+                                                   preds[-1]["attn_allowed"])
+        preds.append(results)
+
+    if task == "vlp":
+        return {"pred_captionings": preds[-1]["outputs_captioning"],
+                "pred_captions": preds[-1]["outputs_caption"],
+                "aux_outputs": [{"pred_captionings": p["outputs_captioning"],
+                                 "pred_captions": p["outputs_caption"]} for p in preds[:-1]]}
     return {
         "pred_logits": preds[-1]["outputs_class"],
         "pred_masks": preds[-1]["outputs_mask"],
@@ -278,8 +368,5 @@ def xdecoder_forward(params, cfg: XDecoderConfig, features: list, mask_features,
 
 
 def forward_captioning(*args, **kwargs):
-    raise NotImplementedError("forward_captioning waits for the captioning/grounding slice")
-
-
-def grounding_self_attn_allowed(*args, **kwargs):
-    raise NotImplementedError("grounding waits for the captioning/grounding slice")
+    raise NotImplementedError("forward_captioning (greedy captioning eval) waits for the "
+                              "captioning eval slice")

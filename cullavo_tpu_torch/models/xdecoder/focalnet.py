@@ -20,6 +20,7 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from cullavo_tpu_torch.ops.focal import focal_ctx_kernel, gelu, pack_level_weights
 
@@ -181,8 +182,10 @@ def _block(h, w, cfg: FocalNetConfig, L: int):
     return h + _per_channel(w["gamma2"]) * mlp(layer_norm_cf(h, w["norm2_s"], w["norm2_b"], eps))
 
 
-def focalnet_forward(params, cfg: FocalNetConfig, images) -> dict:
-    """images [B, 3, H, W] (normalized) -> {"res2".."res5": [B, C, h, w]}."""
+def focalnet_forward(params, cfg: FocalNetConfig, images, remat: bool = False) -> dict:
+    """images [B, 3, H, W] (normalized) -> {"res2".."res5": [B, C, h, w]}.
+    ``remat`` checkpoints each block (``torch.utils.checkpoint``: its
+    activations, K10's launch included, are recomputed in the backward)."""
     eps = cfg.layer_norm_eps
     stem = params["stem"]
     stride = 4 if cfg.use_conv_embed else cfg.patch_size
@@ -194,7 +197,12 @@ def focalnet_forward(params, cfg: FocalNetConfig, images) -> dict:
     for i, stage in enumerate(params["stages"]):
         blocks = stage["blocks"]
         for d in range(blocks["f_w"].shape[0]):
-            x = _block(x, {k: v[d] for k, v in blocks.items()}, cfg, cfg.focal_levels[i])
+            w = {k: v[d] for k, v in blocks.items()}
+            if remat:
+                x = checkpoint(_block, x, w, cfg, cfg.focal_levels[i], use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = _block(x, w, cfg, cfg.focal_levels[i])
         if str(i) in params["out_norms"]:
             n = params["out_norms"][str(i)]
             outs[f"res{i + 2}"] = layer_norm_cf(x, n["scale"], n["bias"], eps)

@@ -1,4 +1,4 @@
-"""GeneralizedXdecoder, eval part (counterpart of
+"""GeneralizedXdecoder (counterpart of
 ``cullavo_tpu/models/xdecoder/model.py``): backbone (FocalNet or SAM-ViT)
 + pixel decoder (FPN or deformable encoder) + X-Decoder + language encoder,
 the dense eval forward, and the semantic / panoptic / instance inferences.
@@ -8,9 +8,11 @@ trunk channels-first in the parameters' dtype.  The per-pixel parts of the
 inferences (``semantic_inference_argmax``, ``panoptic_inference_device``,
 ``instance_inference_device``) run on the tensors' device, so only compact
 maps and Q-sized vectors reach the host; ``panoptic_assemble_host`` and
-``unpack_mask_planes`` are their numpy tails.  Training (the set criterion,
-joint and VLP forwards), grounding, classification and retrieval eval, and
-the DaViT backbone wait for their slices and raise.
+``unpack_mask_planes`` are their numpy tails.  Training: the seg forward
+(``forward_seg_train``) and the joint objective (``forward_joint_train``)
+through ``criterion.set_criterion``.  The VLP-only forward, grounding,
+classification and retrieval eval, and the DaViT backbone wait for their
+slices and raise.
 """
 from __future__ import annotations
 
@@ -20,6 +22,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from cullavo_tpu_torch.models.xdecoder import text_encoder as te
+from cullavo_tpu_torch.models.xdecoder.criterion import (CriterionConfig, loss_captionings,
+                                                         loss_captions, loss_grounding_ce,
+                                                         loss_groundings, match_groundings,
+                                                         set_criterion)
 from cullavo_tpu_torch.models.xdecoder.decoder import (XDecoderConfig, init_xdecoder_params,
                                                        resize, xdecoder_forward)
 from cullavo_tpu_torch.models.xdecoder.deform_encoder import (DeformEncoderConfig,
@@ -28,6 +35,8 @@ from cullavo_tpu_torch.models.xdecoder.deform_encoder import (DeformEncoderConfi
 from cullavo_tpu_torch.models.xdecoder.focalnet import (FocalNetConfig, focalnet_forward,
                                                         init_focalnet_params)
 from cullavo_tpu_torch.models.xdecoder.fpn import FPNConfig, fpn_forward, init_fpn_params
+from cullavo_tpu_torch.models.xdecoder.language_loss import (fine_grained_itc_loss,
+                                                             image_text_contrastive_loss)
 from cullavo_tpu_torch.models.xdecoder.sam_vit import (SamVitConfig, init_sam_vit_params,
                                                        sam_vit_forward)
 from cullavo_tpu_torch.models.xdecoder.text_encoder import (TextEncoderConfig,
@@ -35,39 +44,6 @@ from cullavo_tpu_torch.models.xdecoder.text_encoder import (TextEncoderConfig,
 
 PIXEL_MEAN = (123.675, 116.28, 103.53)
 PIXEL_STD = (58.395, 57.12, 57.375)
-
-
-@dataclasses.dataclass(frozen=True)
-class CriterionConfig:
-    """The set criterion's settings (the field of the model config; the
-    criterion itself waits for the X-Decoder training slice)."""
-    num_classes: int = 133
-    eos_coef: float = 0.1
-    num_points: int = 12544
-    oversample_ratio: float = 3.0
-    importance_sample_ratio: float = 0.75
-    cost_class: float = 2.0
-    cost_mask: float = 5.0
-    cost_dice: float = 5.0
-    weight_ce: float = 2.0
-    weight_mask: float = 5.0
-    weight_dice: float = 5.0
-    weight_bbox: float = 5.0
-    weight_giou: float = 2.0
-    weight_caption: float = 1.0
-    weight_captioning: float = 2.0
-    weight_retrieval_decoder: float = 2.0
-    weight_retrieval_backbone: float = 8.0
-    weight_grounding_ce: float = 0.4
-    weight_grounding_bce: float = 1.0
-    weight_grounding_dice: float = 1.0
-    top_x_layers_mask: int = 10
-    top_x_layers_class: int = 10
-    top_x_layers_box: int = 10
-    top_x_layers_caption: int = 3
-    top_x_layers_captioning: int = 3
-    top_x_layers_retrieval: int = 3
-    top_x_layers_grounding: int = 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,9 +66,9 @@ class XDecoderModelConfig:
 _DAVIT = "the DaViT backbone waits for a later part of the X-Decoder slice"
 
 
-def _backbone_apply(params, cfg: XDecoderModelConfig, images):
+def _backbone_apply(params, cfg: XDecoderModelConfig, images, remat: bool = False):
     if cfg.backbone_name in ("focal", "focal_dw"):
-        return focalnet_forward(params, cfg.backbone, images)
+        return focalnet_forward(params, cfg.backbone, images, remat=remat)
     if cfg.backbone_name == "vit":
         return sam_vit_forward(params, cfg.backbone, images)
     if cfg.backbone_name == "davit":
@@ -166,12 +142,19 @@ def _param_dtype(params):
     return params["decoder"]["query_feat"].dtype
 
 
-def backbone_and_pixel_decoder(params, cfg: XDecoderModelConfig, images):
-    """images [B, H, W, 3] -> (mask_features [B, mask_dim, H/4, W/4], the
-    pyramid [res5', res4', res3'] channels-first)."""
+def _trunk(params, cfg: XDecoderModelConfig, images, remat: bool = False):
+    """images [B, H, W, 3] -> (backbone features, mask_features, pyramid)."""
     x = images.permute(0, 3, 1, 2).to(_param_dtype(params))
-    feats = _backbone_apply(params["backbone"], cfg, x)
+    feats = _backbone_apply(params["backbone"], cfg, x, remat=remat)
     mask_features, _, pyramid = _encoder_apply(params["fpn"], cfg, feats)
+    return feats, mask_features, pyramid
+
+
+def backbone_and_pixel_decoder(params, cfg: XDecoderModelConfig, images, remat: bool = False):
+    """images [B, H, W, 3] -> (mask_features [B, mask_dim, H/4, W/4], the
+    pyramid [res5', res4', res3'] channels-first).  ``remat`` checkpoints
+    each backbone block."""
+    _, mask_features, pyramid = _trunk(params, cfg, images, remat)
     return mask_features, pyramid
 
 
@@ -327,6 +310,165 @@ def unpack_mask_planes(planes, k: int) -> np.ndarray:
     return out
 
 
+def _object_queries(out: dict, nq: int) -> dict:
+    """The criterion's view of a decoder output: the object queries only
+    ([:nq - 1]; the class token and grounding slots left out), every layer."""
+    def obj(o):
+        return {k: (v[:, :nq - 1] if k in ("pred_logits", "pred_masks", "pred_boxes")
+                    and v is not None else v)
+                for k, v in o.items() if k != "aux_outputs"}
+    crit = obj(out)
+    crit["aux_outputs"] = [obj(a) for a in out.get("aux_outputs", [])]
+    return crit
+
+
+def _to_device(batch: dict, device) -> dict:
+    return {k: (torch.as_tensor(v).to(device) if isinstance(v, (np.ndarray, torch.Tensor))
+                else v) for k, v in batch.items()}
+
+
+def forward_seg_train(params, cfg: XDecoderModelConfig, images, targets, text_class_embeds,
+                      generator, grounding_tokens=None, data_axis=None, remat: bool = False):
+    """The seg training forward: the loss dict of ``set_criterion`` over the
+    object queries, plus ``loss_grounding_bce_0`` / ``_dice_0`` when
+    ``grounding_tokens`` [B, G, D] are given and the targets carry
+    ``grounding_masks`` [B, G, H, W] and ``grounding_valid`` [B, G]."""
+    mask_features, pyramid = backbone_and_pixel_decoder(params, cfg, images, remat=remat)
+    out = xdecoder_forward(params["decoder"], cfg.decoder, pyramid, mask_features,
+                           text_class_embeds=text_class_embeds,
+                           logit_scale=params["text"]["logit_scale"],
+                           grounding_tokens=grounding_tokens, task="seg", is_train=True,
+                           remat=remat)
+    nq = cfg.decoder.num_queries
+    losses = set_criterion(_object_queries(out, nq), targets, cfg.criterion, generator,
+                           data_axis)
+    if grounding_tokens is not None and "grounding_masks" in targets:
+        g_masks_all = out["pred_masks"][:, nq:]
+        g_src, g_valid, _ = match_groundings(
+            g_masks_all, out["pred_captions"][:, nq:], targets["grounding_masks"],
+            grounding_tokens, targets["grounding_valid"], params["text"]["logit_scale"],
+            generator, cfg.criterion)
+        bce, dice = loss_groundings(torch.gather(
+            g_masks_all, 1, g_src[:, :, None, None].expand(-1, -1, *g_masks_all.shape[2:])),
+            targets["grounding_masks"], g_valid, generator, cfg.criterion)
+        losses["loss_grounding_bce_0"] = cfg.criterion.weight_grounding_bce * bce
+        losses["loss_grounding_dice_0"] = cfg.criterion.weight_grounding_dice * dice
+    return losses
+
+
+_RENAME = {"loss_ce": "loss_mask_ce", "loss_mask_bce": "loss_mask_bce",
+           "loss_mask_dice": "loss_mask_dice", "loss_bbox": "loss_bbox", "loss_giou": "loss_giou"}
+
+
+def forward_joint_train(params, cfg: XDecoderModelConfig, batch, generator, data_axis=None,
+                        remat: bool = False):
+    """The joint objective of one step: mask / class / box losses, caption,
+    grounding, captioning and retrieval losses, under the reference's key
+    names (``loss_mask_ce_0``, ``loss_caption_{r}``, ...).
+
+    ``batch`` (``collate_joint`` plus the class-name tokens, numpy or
+    tensors): ``image`` [B, H, W, 3] normalized; ``classes`` / ``masks`` /
+    ``boxes`` / ``valid``; ``labels_hash``; ``class_ids`` / ``class_mask``;
+    ``caption_ids`` / ``caption_mask`` [B, P, T] with ``caption_hash`` /
+    ``caption_valid``; ``caption_text_ids`` / ``_mask`` [B, T];
+    ``grounding_ids`` / ``grounding_token_mask`` [B, G, T] with
+    ``grounding_hash`` / ``grounding_valid`` / ``grounding_masks``.  The text
+    embeddings are computed here, so the text encoder trains.  The text-side
+    losses supervise the top layers: reference layer_id r is prediction
+    ``aux[L - 1 - r]`` (0 = final); grounding is re-matched at every one of
+    them.  Random points come from ``generator``, in call order."""
+    dev = params["text"]["token_embedding"].device
+    batch = _to_device(batch, dev)
+    tp, tc = params["text"], cfg.text
+    class_embs = te.forward_language(tp, tc, batch["class_ids"], batch["class_mask"], norm=True,
+                                     remat=remat)
+    B, P, T = batch["caption_ids"].shape
+    cap_embs = te.forward_language(tp, tc, batch["caption_ids"].reshape(B * P, T),
+                                   batch["caption_mask"].reshape(B * P, T),
+                                   remat=remat).reshape(B, P, -1)
+    G = batch["grounding_ids"].shape[1]
+    _, g_cls = te.forward_language_token(tp, tc, batch["grounding_ids"].reshape(B * G, T),
+                                         batch["grounding_token_mask"].reshape(B * G, T),
+                                         remat=remat)
+    # padded phrase slots zeroed: their embeddings are noise
+    grounding_tokens = g_cls.reshape(B, G, -1) * batch["grounding_valid"][:, :, None].to(
+        g_cls.dtype)
+    cap_tok, cap_sent = te.forward_language_token(tp, tc, batch["caption_text_ids"],
+                                                  batch["caption_text_mask"], remat=remat)
+    vocab_embs = tp["token_embedding"] @ tp["lang_proj"]
+    logit_scale = tp["logit_scale"]
+
+    feats, mask_features, pyramid = _trunk(params, cfg, batch["image"], remat)
+    out = xdecoder_forward(params["decoder"], cfg.decoder, pyramid, mask_features,
+                           text_class_embeds=class_embs, logit_scale=logit_scale,
+                           grounding_tokens=grounding_tokens, task="seg", is_train=True,
+                           remat=remat)
+    targets = {k: batch[k] for k in ("classes", "masks", "boxes", "valid")}
+    nq = cfg.decoder.num_queries
+    raw, all_idx = set_criterion(_object_queries(out, nq), targets, cfg.criterion, generator,
+                                 data_axis, return_indices="all")
+    losses = {}
+    for k, v in raw.items():
+        for old, new in _RENAME.items():
+            if k == old:
+                losses[f"{new}_0"] = v
+                break
+            if k.startswith(old + "_"):
+                losses[f"{new}_{int(k[len(old) + 1:])}"] = v
+                break
+    crit = cfg.criterion
+    aux = out.get("aux_outputs", [])
+    L = len(aux) + 1
+
+    def seg_pred(r):
+        return out if r == 0 else aux[L - 1 - r]
+
+    for r in range(min(crit.top_x_layers_caption, L)):
+        losses[f"loss_caption_{r}"] = crit.weight_caption * loss_captions(
+            seg_pred(r)["pred_captions"][:, :nq - 1], *all_idx[r], batch["classes"],
+            batch["labels_hash"], class_embs, cap_embs, batch["caption_hash"],
+            batch["caption_valid"], logit_scale)
+    for r in range(min(crit.top_x_layers_grounding, L)):
+        p = seg_pred(r)
+        g_masks_all = p["pred_masks"][:, nq:]
+        g_src, g_valid, g_sim = match_groundings(
+            g_masks_all, p["pred_captions"][:, nq:], batch["grounding_masks"], grounding_tokens,
+            batch["grounding_valid"], logit_scale, generator, crit)
+        g_masks_pred = torch.gather(
+            g_masks_all, 1, g_src[:, :, None, None].expand(-1, -1, *g_masks_all.shape[2:]))
+        bce, dice = loss_groundings(g_masks_pred, batch["grounding_masks"], g_valid, generator,
+                                    crit)
+        losses[f"loss_grounding_bce_{r}"] = crit.weight_grounding_bce * bce
+        losses[f"loss_grounding_dice_{r}"] = crit.weight_grounding_dice * dice
+        losses[f"loss_grounding_ce_{r}"] = crit.weight_grounding_ce * loss_grounding_ce(
+            g_sim, g_src, g_valid, batch["grounding_hash"])
+
+    out_vlp = xdecoder_forward(params["decoder"], cfg.decoder, pyramid, mask_features,
+                               caption_tokens=cap_tok, task="vlp", is_train=True, remat=remat)
+    aux_vlp = out_vlp.get("aux_outputs", [])
+    Lv = len(aux_vlp) + 1
+
+    def vlp_pred(r):
+        return out_vlp if r == 0 else aux_vlp[Lv - 1 - r]
+
+    for r in range(min(crit.top_x_layers_captioning, Lv)):
+        losses[f"loss_captioning_{r}"] = crit.weight_captioning * loss_captionings(
+            vlp_pred(r)["pred_captionings"], cap_tok, batch["caption_text_ids"],
+            batch["caption_text_mask"], vocab_embs, logit_scale)
+    for r in range(min(crit.top_x_layers_retrieval, Lv)):
+        pc = vlp_pred(r)["pred_captions"]
+        coarse = image_text_contrastive_loss(pc[:, nq - 1], cap_sent, logit_scale, data_axis)
+        fine = fine_grained_itc_loss(pc[:, :nq - 1], cap_tok, batch["caption_text_mask"],
+                                     logit_scale)
+        losses[f"loss_retrieval_decoder_{r}"] = crit.weight_retrieval_decoder * (
+            coarse + 0.5 * fine)
+    if "backbone_proj" in params:
+        v5 = feats["res5"].mean(dim=(2, 3)) @ params["backbone_proj"]
+        losses["loss_retrieval_backbone_0"] = crit.weight_retrieval_backbone * (
+            image_text_contrastive_loss(v5, cap_sent, logit_scale, data_axis))
+    return losses
+
+
 def _waits(what):
     def fn(*args, **kwargs):
         raise NotImplementedError(f"{what} waits for a later part of the X-Decoder slice")
@@ -334,8 +476,6 @@ def _waits(what):
     return fn
 
 
-forward_seg_train = _waits("forward_seg_train")
-forward_joint_train = _waits("forward_joint_train")
 forward_vlp_train = _waits("forward_vlp_train")
 evaluate_grounding = _waits("evaluate_grounding")
 evaluate_classification = _waits("evaluate_classification")

@@ -3,11 +3,12 @@
 transformer (learned positions, pre-LN blocks with QuickGELU, final LN,
 TF-style LayerNorm eps 1e-12), the sentence embedding at the argmax-id
 (end-of-text) position through ``lang_proj``, and the eval-time class
-embeddings averaged over the prompt-template ensemble.
+embeddings averaged over the prompt-template ensemble, the token
+embeddings (``forward_language_token``) and the train-time class
+embeddings (one random template per class).
 
 Parameters keep the JAX layout: stacked ``[L, ...]`` layer leaves, linear
-weights ``[in, out]``.  The training half (``class_embeddings_train``) and
-the HF CLIP import wait for their slices and raise.
+weights ``[in, out]``.  The HF CLIP import waits for its slice and raises.
 """
 from __future__ import annotations
 
@@ -16,10 +17,11 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from cullavo_tpu_torch.models.llava.clip_vit import layer_norm, quick_gelu
 from cullavo_tpu_torch.models.xdecoder.decoder import l2_normalize
-from cullavo_tpu_torch.utils.constants import get_prompt_templates
+from cullavo_tpu_torch.utils.constants import get_prompt_templates, prompt_engineering
 
 NEG_INF = -1e30
 CLASS_CHUNK = 16   # classes per forward of the eval-time embeddings (x ~81 templates)
@@ -67,12 +69,27 @@ def init_text_encoder_params(cfg: TextEncoderConfig, gen: torch.Generator, devic
     }
 
 
-def text_transformer_forward(params, cfg: TextEncoderConfig, input_ids, attention_mask):
-    """[B, T] ids -> last hidden state [B, T, W]."""
-    B, T = input_ids.shape
-    W, H = cfg.width, cfg.heads
+def _text_layer(x, w, bias, cfg: TextEncoderConfig):
+    B, T, W = x.shape
+    H = cfg.heads
     hd = W // H
     eps = cfg.layer_norm_eps
+    y = layer_norm(x, w["ln1_s"], w["ln1_b"], eps)
+    q, k, v = (y @ w["qkv_w"] + w["qkv_b"]).split(W, dim=-1)
+    q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2) for t in (q, k, v))
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (hd ** -0.5)
+    p = torch.softmax(s + bias, dim=-1).to(x.dtype)
+    a = torch.matmul(p.float(), v.float()).to(x.dtype)
+    x = x + (a.transpose(1, 2).reshape(B, T, W) @ w["o_w"] + w["o_b"])
+    y = layer_norm(x, w["ln2_s"], w["ln2_b"], eps)
+    return x + (quick_gelu(y @ w["fc_w"] + w["fc_b"]) @ w["proj_w"] + w["proj_b"])
+
+
+def text_transformer_forward(params, cfg: TextEncoderConfig, input_ids, attention_mask,
+                             remat: bool = False):
+    """[B, T] ids -> last hidden state [B, T, W].  ``remat`` checkpoints
+    each layer (``torch.utils.checkpoint``)."""
+    B, T = input_ids.shape
     dev = params["token_embedding"].device
     input_ids = input_ids.to(dev).long()
     x = params["token_embedding"][input_ids] + params["positional_embedding"][None, :T]
@@ -86,25 +103,36 @@ def text_transformer_forward(params, cfg: TextEncoderConfig, input_ids, attentio
     lw = params["layers"]
     for i in range(lw["qkv_w"].shape[0]):
         w = {k: v[i] for k, v in lw.items()}
-        y = layer_norm(x, w["ln1_s"], w["ln1_b"], eps)
-        q, k, v = (y @ w["qkv_w"] + w["qkv_b"]).split(W, dim=-1)
-        q, k, v = (t.reshape(B, T, H, hd).transpose(1, 2) for t in (q, k, v))
-        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (hd ** -0.5)
-        p = torch.softmax(s + bias, dim=-1).to(x.dtype)
-        a = torch.matmul(p.float(), v.float()).to(x.dtype)
-        x = x + (a.transpose(1, 2).reshape(B, T, W) @ w["o_w"] + w["o_b"])
-        y = layer_norm(x, w["ln2_s"], w["ln2_b"], eps)
-        x = x + (quick_gelu(y @ w["fc_w"] + w["fc_b"]) @ w["proj_w"] + w["proj_b"])
+        if remat:
+            x = checkpoint(_text_layer, x, w, bias, cfg, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _text_layer(x, w, bias, cfg)
+    eps = cfg.layer_norm_eps
     return layer_norm(x, params["ln_final"]["scale"], params["ln_final"]["bias"], eps)
 
 
-def forward_language(params, cfg, input_ids, attention_mask, norm=True):
-    """Sentence embeddings [B, dim_lang] at the argmax-id (EOT) position."""
-    hidden = text_transformer_forward(params, cfg, input_ids, attention_mask)
+def _eot_rows(hidden, input_ids):
     eot = torch.argmax(input_ids.to(hidden.device).long(), dim=-1)
-    cls = hidden[torch.arange(hidden.shape[0], device=hidden.device), eot]
-    cls = cls @ params["lang_proj"]
+    return hidden[torch.arange(hidden.shape[0], device=hidden.device), eot]
+
+
+def forward_language(params, cfg, input_ids, attention_mask, norm=True, remat=False):
+    """Sentence embeddings [B, dim_lang] at the argmax-id (EOT) position."""
+    hidden = text_transformer_forward(params, cfg, input_ids, attention_mask, remat=remat)
+    cls = _eot_rows(hidden, input_ids) @ params["lang_proj"]
     return l2_normalize(cls) if norm else cls
+
+
+def forward_language_token(params, cfg, input_ids, attention_mask, norm=False, remat=False):
+    """(token embeddings [B, T, dim_lang], sentence embedding [B, dim_lang]),
+    both through ``lang_proj``."""
+    hidden = text_transformer_forward(params, cfg, input_ids, attention_mask, remat=remat)
+    token = hidden @ params["lang_proj"]
+    cls = _eot_rows(hidden, input_ids) @ params["lang_proj"]
+    if norm:
+        return l2_normalize(token), l2_normalize(cls)
+    return token, cls
 
 
 def _clean(name: str) -> str:
@@ -136,8 +164,17 @@ def class_embeddings_ensembled(params, cfg, tokenize: Callable, class_names: Seq
     return torch.stack(out)
 
 
-def class_embeddings_train(*args, **kwargs):
-    raise NotImplementedError("class_embeddings_train waits for the X-Decoder training slice")
+def class_embeddings_train(params, cfg, tokenize, class_names, rng: np.random.Generator,
+                           add_background: bool = False):
+    """Train-time class embeddings: one random prompt template per class
+    (drawn from ``rng``), normalized."""
+    texts = [prompt_engineering(_clean(c), topk=10000, suffix=".", rng=rng) for c in class_names]
+    if add_background:
+        texts.append("A background in coco.")
+    ids, mask = tokenize(texts)
+    dev = params["token_embedding"].device
+    return forward_language(params, cfg, torch.as_tensor(np.asarray(ids), device=dev),
+                            torch.as_tensor(np.asarray(mask), device=dev), norm=True)
 
 
 def import_hf_clip_text(*args, **kwargs):

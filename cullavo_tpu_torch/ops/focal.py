@@ -14,7 +14,10 @@ bf16 model's), the erf form otherwise (the f32 model's).
 ``focal_ctx_kernel`` is K10 (``csrc/focal_ctx.cu``, counted on
 ``focal_ctx_kernel.launches``): the plain version for a tensor on the CPU,
 the kernel for a CUDA tensor (bf16 or f32, any map size, 1 to 8 levels of
-odd k), and it raises on any other device.  There is no size guard and no
+odd k), and it raises on any other device.  It is a
+``torch.autograd.Function``: the backward differentiates the plain version
+on the saved inputs, as the JAX kernel's custom VJP differentiates its XLA
+chain; a launch that would return an output with no gradient raises.  There is no size guard and no
 opt-out: on the card every FocalNet block launches K10.  ``focal_plan``
 (pure, cached) lays the launch out: whole planes a block where a plane and
 its zero ring fit in shared memory (one kernel, nothing but the output
@@ -161,19 +164,47 @@ def focal_plan(H: int, W: int, C: int, kernels, smem_bytes: int = FOCAL_SMEM, ba
 def focal_ctx_kernel(ctx, gates, level_weights, H: int, W: int, kernels, scaling: bool,
                      approximate: bool):
     """K10 on CUDA tensors, the plain version on CPU tensors; same contract
-    as ``focal_ctx_plain``."""
-    if ctx.device.type == "cpu":
-        return focal_ctx_plain(ctx, gates, level_weights, H, W, kernels, scaling, approximate)
-    if ctx.device.type != "cuda":
+    as ``focal_ctx_plain``.  Differentiable in ctx, gates and
+    level_weights: the backward differentiates ``focal_ctx_plain`` on the
+    saved inputs (the JAX kernel's custom VJP, an XLA backward)."""
+    if ctx.device.type not in ("cpu", "cuda"):
         raise ValueError(f"focal_ctx_kernel: unsupported device {ctx.device}")
-    return _focal_ctx_cuda(ctx, gates, level_weights, H, W, tuple(kernels), scaling,
-                           approximate)
+    return _FocalCtx.apply(ctx, gates, level_weights, H, W, tuple(int(k) for k in kernels),
+                           bool(scaling), bool(approximate))
 
 
 focal_ctx_kernel.launches = 0
 
 
+class _FocalCtx(torch.autograd.Function):
+    """K10 (or, on the CPU, the plain version) forward; the plain
+    version's autograd backward, with the incoming gradient cast to ctx's
+    dtype."""
+
+    @staticmethod
+    def forward(fctx, ctx, gates, level_weights, H, W, kernels, scaling, approximate):
+        fctx.save_for_backward(ctx, gates, level_weights)
+        fctx.meta = (H, W, kernels, scaling, approximate)
+        if ctx.device.type == "cpu":
+            return focal_ctx_plain(ctx, gates, level_weights, H, W, kernels, scaling,
+                                   approximate)
+        return _focal_ctx_cuda(ctx, gates, level_weights, H, W, kernels, scaling, approximate)
+
+    @staticmethod
+    def backward(fctx, grad):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(fctx.saved_tensors, fctx.needs_input_grad[:3])]
+        with torch.enable_grad():
+            out = focal_ctx_plain(*inputs, *fctx.meta)
+        wanted = [t for t in inputs if t.requires_grad]
+        got = iter(torch.autograd.grad(out, wanted, grad.to(out.dtype)) if wanted else ())
+        return tuple(next(got) if t.requires_grad else None for t in inputs) + (None,) * 5
+
+
 def _focal_ctx_cuda(ctx, gates, level_weights, H, W, kernels, scaling, approximate):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (ctx, gates, level_weights)):
+        raise RuntimeError("focal_ctx_kernel: a launch outside its autograd Function would "
+                           "return an output with no gradient")
     B, C, HW = ctx.shape
     L = len(kernels)
     if ctx.dtype not in (torch.bfloat16, torch.float32) or gates.dtype != ctx.dtype:

@@ -13,7 +13,10 @@ the weighted sum over levels and points is taken in f32.
 ``ms_deform_attn_kernel.launches``): the plain version for a tensor on the
 CPU, the kernel for a CUDA tensor (bf16 or f32 value, head dim 32, 64 or
 128, up to 8 levels, weights in bf16 or f32 read as they are), and it raises
-on any other device.  There is no size guard and no opt-out: on the card
+on any other device.  It is a ``torch.autograd.Function`` whose backward
+differentiates the plain version on the saved inputs (the JAX kernel's
+custom VJP); a launch that would return an output with no gradient
+raises.  There is no size guard and no opt-out: on the card
 the module always launches K9.  ``msdeform_plan`` (pure) picks K9's query
 tiles and grid.
 ``msdeform_attn_module_forward`` is the MSDeformAttn module around it.
@@ -70,15 +73,40 @@ def ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights)
 
 def ms_deform_attn_kernel(value, spatial_shapes, sampling_locations, attention_weights):
     """K9 on CUDA tensors, the plain version on CPU tensors; same contract
-    as ``ms_deform_attn``."""
-    if value.device.type == "cpu":
-        return ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights)
-    if value.device.type != "cuda":
+    as ``ms_deform_attn``.  Differentiable in value, locations and weights:
+    the backward differentiates ``ms_deform_attn`` on the saved inputs (the
+    JAX kernel's custom VJP, an XLA backward)."""
+    if value.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ms_deform_attn_kernel: unsupported device {value.device}")
-    return _ms_deform_attn_cuda(value, spatial_shapes, sampling_locations, attention_weights)
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    return _MsDeformAttn.apply(value, shapes, sampling_locations, attention_weights)
 
 
 ms_deform_attn_kernel.launches = 0
+
+
+class _MsDeformAttn(torch.autograd.Function):
+    """K9 (or, on the CPU, the plain version) forward; the plain version's
+    autograd backward, with the incoming gradient cast to value's dtype."""
+
+    @staticmethod
+    def forward(fctx, value, spatial_shapes, loc, att):
+        fctx.save_for_backward(value, loc, att)
+        fctx.shapes = spatial_shapes
+        if value.device.type == "cpu":
+            return ms_deform_attn(value, spatial_shapes, loc, att)
+        return _ms_deform_attn_cuda(value, spatial_shapes, loc, att)
+
+    @staticmethod
+    def backward(fctx, grad):
+        need = (fctx.needs_input_grad[0],) + fctx.needs_input_grad[2:4]
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(fctx.saved_tensors, need)]
+        with torch.enable_grad():
+            out = ms_deform_attn(inputs[0], fctx.shapes, inputs[1], inputs[2])
+        wanted = [t for t in inputs if t.requires_grad]
+        got = iter(torch.autograd.grad(out, wanted, grad.to(out.dtype)) if wanted else ())
+        g_value, g_loc, g_att = (next(got) if t.requires_grad else None for t in inputs)
+        return g_value, None, g_loc, g_att
 
 
 # K9's block: 8 warps over a tile of 64 queries of one (b, head)
@@ -97,6 +125,9 @@ def msdeform_plan(B: int, Q: int, Hh: int) -> dict:
 
 
 def _ms_deform_attn_cuda(value, spatial_shapes, loc, att):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (value, loc, att)):
+        raise RuntimeError("ms_deform_attn_kernel: a launch outside its autograd Function "
+                           "would return an output with no gradient")
     B, S, Hh, hd = value.shape
     Q = loc.shape[1]
     L = len(spatial_shapes)

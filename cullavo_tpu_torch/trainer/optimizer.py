@@ -15,14 +15,21 @@ State without accumulation: ``{"count", "mu", "nu"}`` (optax's
 ``ScaleByAdamState``; its schedule count is the same number).  With it:
 ``{"mini_step", "gradient_step", "inner": {count, mu, nu}, "acc_grads"}``
 (optax's ``MultiStepsState``).  The update functions return new tensors
-and leave their inputs as they were.  ``warmup_*`` schedules and the
-X-Decoder optimizer come with the X-Decoder slice.
+and leave their inputs as they were.
+
+X-Decoder: the ``warmup_cosine`` / ``warmup_multistep`` schedules (computed
+in f32, as JAX computes them) and ``xdecoder_optimizer``: one global-norm
+clip, then AdamW per parameter group, each leaf's group named by
+``xdecoder_param_labels`` from its path string as JAX's ``classify`` names
+it ("backbone", "lang", "norm", "embed", "default"), with the backbone and
+language learning-rate multipliers and the norm / embedding weight decays.
 """
 from __future__ import annotations
 
 import math
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from cullavo_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -56,32 +63,45 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
 
+def _clip(grads, grad_clip: float):
+    """Clip by global norm: unchanged while norm < grad_clip."""
+    norm = global_norm(grads)
+    # one host read: the step already reads the loss and the norm
+    if not float(norm) < grad_clip:
+        grads = tree_map(lambda g: (g / norm.to(g.dtype)) * grad_clip, grads)
+    return grads
+
+
+def _adam_update(grads, state, params, lr, wd):
+    """One AdamW step; ``lr`` and ``wd``: trees like params of per-leaf
+    floats (the learning rate already read at the count before the step)."""
+    mu = tree_map(lambda g, m: (1 - B1) * g + B1 * m, grads, state["mu"])
+    nu = tree_map(lambda g, n: (1 - B2) * (g * g) + B2 * n, grads, state["nu"])
+    count = state["count"] + 1
+    c1, c2 = 1 - B1 ** count, 1 - B2 ** count
+
+    def step(m, n, p, lr_, wd_):
+        u = (m / c1) / (torch.sqrt(n / c2) + EPS)
+        if wd_:
+            u = u + wd_ * p
+        return -lr_ * u
+
+    return tree_map(step, mu, nu, params, lr, wd), {"count": count, "mu": mu, "nu": nu}
+
+
+def _adam_init(params):
+    return {"count": 0, "mu": tree_map(torch.zeros_like, params),
+            "nu": tree_map(torch.zeros_like, params)}
+
+
 def _adamw(schedule, weight_decay: float, grad_clip: float) -> GradientTransformation:
-    def init(params):
-        return {"count": 0,
-                "mu": tree_map(torch.zeros_like, params),
-                "nu": tree_map(torch.zeros_like, params)}
-
     def update(grads, state, params):
-        norm = global_norm(grads)
-        # one host read: the step already reads the loss and the norm
-        if not float(norm) < grad_clip:
-            grads = tree_map(lambda g: (g / norm.to(g.dtype)) * grad_clip, grads)
-        mu = tree_map(lambda g, m: (1 - B1) * g + B1 * m, grads, state["mu"])
-        nu = tree_map(lambda g, n: (1 - B2) * (g * g) + B2 * n, grads, state["nu"])
-        count = state["count"] + 1
-        c1, c2 = 1 - B1 ** count, 1 - B2 ** count
         lr = schedule(state["count"])
+        return _adam_update(_clip(grads, grad_clip), state, params,
+                            tree_map(lambda _: lr, params),
+                            tree_map(lambda _: weight_decay, params))
 
-        def step(m, n, p):
-            u = (m / c1) / (torch.sqrt(n / c2) + EPS)
-            if weight_decay:
-                u = u + weight_decay * p
-            return -lr * u
-
-        return tree_map(step, mu, nu, params), {"count": count, "mu": mu, "nu": nu}
-
-    return GradientTransformation(init, update)
+    return GradientTransformation(_adam_init, update)
 
 
 def _multi_steps(inner: GradientTransformation, k: int) -> GradientTransformation:
@@ -108,3 +128,95 @@ def cullavo_optimizer(base_lr: float, total_steps: int, eta_min: float = 0.0,
     """AdamW + cosine annealing + total-norm clip (+ accumulation)."""
     tx = _adamw(cosine_annealing(base_lr, total_steps, eta_min), weight_decay, grad_clip)
     return _multi_steps(tx, grad_accum) if grad_accum > 1 else tx
+
+
+def _warmup(s, warmup_steps: int, warmup_factor: float):
+    """The linear warmup's factor at f32 step ``s``: ``warmup_factor`` to 1."""
+    f32 = np.float32
+    alpha = np.clip(s / f32(max(warmup_steps, 1)), f32(0), f32(1))
+    return f32(warmup_factor) * (f32(1) - alpha) + alpha
+
+
+def warmup_cosine(base_lr: float, total_steps: int, warmup_steps: int,
+                  warmup_factor: float = 1e-3):
+    """detectron2's WarmupCosineLR: a linear warmup from ``warmup_factor``,
+    then a cosine to 0 over ``total_steps`` (in f32)."""
+    f32 = np.float32
+
+    def schedule(step) -> float:
+        s = f32(step)
+        if s < warmup_steps:
+            return float(f32(base_lr) * _warmup(s, warmup_steps, warmup_factor))
+        cos = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * s / f32(total_steps)))
+        return float(f32(base_lr) * cos)
+
+    return schedule
+
+
+def warmup_multistep(base_lr: float, milestones, gamma: float, warmup_steps: int,
+                     warmup_factor: float = 1e-3):
+    """A linear warmup, then ``gamma`` per milestone passed (in f32)."""
+    f32 = np.float32
+
+    def schedule(step) -> float:
+        s = f32(step)
+        if s < warmup_steps:
+            return float(f32(base_lr) * _warmup(s, warmup_steps, warmup_factor))
+        return float(f32(base_lr) * f32(gamma) ** f32(sum(bool(s >= m) for m in milestones)))
+
+    return schedule
+
+
+def _classify(path: str) -> str:
+    names = path.lower()
+    if "backbone" in names:
+        return "backbone"
+    if "lang" in names or "text" in names:
+        return "lang"
+    if any(t in names for t in ("norm", "ln", "bias", "_b")):
+        return "norm"
+    if "embed" in names or "query_feat" in names or "pos" in names:
+        return "embed"
+    return "default"
+
+
+def _paths(params, path: str = ""):
+    """The path string of every leaf: dict keys and list indices ("[i]"),
+    joined by "/"."""
+    if isinstance(params, dict):
+        return {k: _paths(v, f"{path}/{k}" if path else str(k)) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(_paths(v, f"{path}/[{i}]" if path else f"[{i}]")
+                            for i, v in enumerate(params))
+    return None if params is None else path
+
+
+def xdecoder_param_labels(params, path_class=None):
+    """The group of every leaf, from its path string, as the JAX
+    optimizer's ``classify`` names it (or as ``path_class`` does)."""
+    return tree_map(path_class or _classify, _paths(params))
+
+
+def xdecoder_optimizer(base_lr: float, total_steps: int, weight_decay: float = 0.05,
+                       wd_norm: float = 0.0, wd_embed: float = 0.0,
+                       backbone_lr_multiplier: float = 0.1, lang_lr_multiplier: float = 0.1,
+                       grad_clip: float = 0.01, warmup_steps: int = 10,
+                       schedule: str = "cosine", milestones=(), gamma: float = 0.1,
+                       path_class=None) -> GradientTransformation:
+    """Clip by global norm, then AdamW per group: learning rate
+    ``schedule(count) * multiplier`` and weight decay by group.
+    ``path_class(path string) -> group`` replaces the default labels."""
+    sched = (warmup_cosine(base_lr, total_steps, warmup_steps) if schedule == "cosine"
+             else warmup_multistep(base_lr, milestones, gamma, warmup_steps))
+    groups = {"backbone": (backbone_lr_multiplier, weight_decay),
+              "lang": (lang_lr_multiplier, weight_decay),
+              "norm": (1.0, wd_norm), "embed": (1.0, wd_embed), "default": (1.0, weight_decay)}
+
+    def update(grads, state, params):
+        labels = xdecoder_param_labels(params, path_class)
+        base = np.float32(sched(state["count"]))
+        lr = tree_map(lambda g: float(base * np.float32(groups[g][0])), labels)
+        wd = tree_map(lambda g: groups[g][1], labels)
+        return _adam_update(_clip(grads, grad_clip), state, params, lr, wd)
+
+    return GradientTransformation(_adam_init, update)

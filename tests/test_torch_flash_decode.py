@@ -14,10 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from cullavo_tpu.models.llava.llama import sdpa_decode_stale as j_stale
-from cullavo_tpu.ops.flash_attention import flash_decode as j_flash_decode
+from cullavo_tpu.ops.flash_attention import flash_decode
 from cullavo_tpu_torch.models.llava.llama import sdpa_decode_stale, sdpa_decode_stale_plain
 from cullavo_tpu_torch.ops import flash_attention as fa
 
@@ -30,6 +31,11 @@ def _two_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
+
+# JAX's Pallas decode kernel in interpret mode, jitted: one compile instead of
+# its op-by-op dispatch (the same values)
+j_flash_decode = jax.jit(flash_decode)
 
 
 def _decode_case(B, H, KV, S, d, positions, valid_len, seed):

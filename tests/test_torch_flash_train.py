@@ -83,10 +83,16 @@ def _both(T, S, kind, causal, seed=0):
     def jf(q, k, v):
         return jfa.flash_attention(q, k, v, *jargs, causal=causal, block_q=64, block_k=64)
 
-    jo, vjp = jax.vjp(jf, *map(jnp.asarray, (q, k, v)))
-    jg = vjp(jnp.asarray(do))
-    _, jlse, _, _ = jfa._flash_fwd_expanded(*map(jnp.asarray, (q, k, v)), *jargs, causal,
-                                            64, 64, need_lse=True)
+    @jax.jit
+    def jax_ref(q, k, v, do):
+        """Value, vjp and lse in one compile (the Pallas kernels in interpret
+        mode, without their op-by-op dispatch)."""
+        jo, vjp = jax.vjp(jf, q, k, v)
+        _, jlse, _, _ = jfa._flash_fwd_expanded(q, k, v, *jargs, causal, 64, 64,
+                                                need_lse=True)
+        return jo, vjp(do), jlse
+
+    jo, jg, jlse = jax_ref(*map(jnp.asarray, (q, k, v, do)))
     tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
     targs = [None if a is None else torch.from_numpy(a) for a in (pos, valid)]
     to = tfa.flash_attention(tq, tk, tv, *targs, causal=causal)

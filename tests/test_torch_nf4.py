@@ -109,11 +109,13 @@ def test_nf4_linear_planar_plain_matches_pallas_interpret(K, N, M):
     tests run it on the CPU."""
     _, jq, tq = _planar(K, N, 2)
     x = np.random.default_rng(3 + M).normal(size=(M, K)).astype(np.float32)
-    want = np.asarray(jnf4.nf4_linear_planar(jnp.asarray(x), jq, K, N))
+    # jitted: one compile of the interpret-mode kernel, not its op-by-op dispatch
+    jax_ref = jax.jit(lambda x, q: jnf4.nf4_linear_planar(x, q, K, N))
+    want = np.asarray(jax_ref(jnp.asarray(x), jq))
     got = tnf4.nf4_linear_planar(torch.from_numpy(x), tq)       # CPU tensor -> plain version
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
     xb = jnp.asarray(x).astype(jnp.bfloat16)
-    want_b = np.asarray(jnf4.nf4_linear_planar(xb, jq, K, N).astype(jnp.float32))
+    want_b = np.asarray(jax_ref(xb, jq).astype(jnp.float32))
     got_b = tnf4._nf4_linear_planar_plain(torch.from_numpy(x).to(torch.bfloat16), tq)
     assert got_b.dtype == torch.bfloat16
     # one bf16 ulp: 2^-8 relative to the larger neighbour, i.e. 2^-7 of the value

@@ -97,6 +97,13 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.__main__",
     "cullavo_tpu_torch.data.instruction_data",
     "cullavo_tpu_torch.data.integrity",
+    "cullavo_tpu_torch.utils.box_ops",
+    "cullavo_tpu_torch.ops.point_sample",
+    "cullavo_tpu_torch.models.xdecoder.matcher",
+    "cullavo_tpu_torch.models.xdecoder.language_loss",
+    "cullavo_tpu_torch.models.xdecoder.criterion",
+    "cullavo_tpu_torch.data.coco_caption_grounding",
+    "cullavo_tpu_torch.trainer.xdecoder_step",
 )
 
 
@@ -1371,6 +1378,75 @@ def test_cuda_focal_ctx_matches_plain(cuda_device, dtype, approximate, B, C, H, 
         tol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-2, 1e-2)
         assert torch.allclose(got.float(), ref.float(), atol=tol[0], rtol=tol[1]), \
             (got.float() - ref.float()).abs().max().item()
+
+
+def _grads_match(kernel_out, plain_out, k_inputs, p_inputs, up):
+    """Gradients through the kernel's Function against autograd through the
+    plain version, within 1e-3 of each one's largest entry."""
+    assert kernel_out.grad_fn is not None
+    got = torch.autograd.grad((kernel_out.float() * up).sum(), k_inputs)
+    want = torch.autograd.grad((plain_out.float() * up).sum(), p_inputs)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 1e-3 * w.float().abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,H,W,kernels", [(2, 192, 128, 128, (3, 5, 7, 9)),
+                                             (1, 8, 154, 154, (3, 5, 7, 9))])
+def test_cuda_focal_ctx_gradients_match_plain(cuda_device, dtype, B, C, H, W, kernels):
+    """K10's Function under autograd: ctx, gates and taps gradients equal
+    autograd through the plain version (its backward), one launch."""
+    from cullavo_tpu_torch.ops import focal
+
+    torch.backends.cudnn.allow_tf32 = False
+    ctx, gates, taps = _focal_case(cuda_device, dtype, B, C, H, W, kernels, 15, True)
+    leaves = [[t.detach().clone().requires_grad_(True) for t in (ctx, gates, taps)]
+              for _ in range(2)]
+    n0 = focal.focal_ctx_kernel.launches
+    out = focal.focal_ctx_kernel(*leaves[0], H, W, kernels, True, dtype == torch.bfloat16)
+    assert focal.focal_ctx_kernel.launches == n0 + 1
+    ref = focal.focal_ctx_plain(*leaves[1], H, W, kernels, True, dtype == torch.bfloat16)
+    up = torch.randn(out.shape, generator=torch.Generator(device=cuda_device).manual_seed(3),
+                     device=cuda_device)
+    _grads_match(out, ref, leaves[0], leaves[1], up)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        focal._focal_ctx_cuda(*leaves[0], H, W, kernels, True, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ms_deform_attn_gradients_match_plain(cuda_device, dtype):
+    """K9's Function under autograd at the deformable encoder's shape:
+    value, location and weight gradients equal autograd through the plain
+    version within 1e-3 of their largest entry, one launch; the value
+    gradient sums by atomic adds in value's dtype, so in bf16 it may stray
+    by twice the plain version's own run-to-run spread."""
+    from cullavo_tpu_torch.ops import msdeform
+
+    shapes = ((64, 64), (32, 32), (16, 16))
+    value, loc, att = _msdeform_case(cuda_device, dtype, shapes, 2, 5376, 8, 64, 4, seed=16)
+    leaves = [[t.detach().clone().requires_grad_(True) for t in (value, loc, att)]
+              for _ in range(3)]
+    n0 = msdeform.ms_deform_attn_kernel.launches
+    out = msdeform.ms_deform_attn_kernel(leaves[0][0], shapes, leaves[0][1], leaves[0][2])
+    assert msdeform.ms_deform_attn_kernel.launches == n0 + 1 and out.grad_fn is not None
+    up = torch.randn(out.shape, generator=torch.Generator(device=cuda_device).manual_seed(4),
+                     device=cuda_device)
+
+    def rel(a, b):
+        return [((x.float() - y.float()).abs().max() / y.float().abs().max()).item()
+                for x, y in zip(a, b)]
+
+    got = torch.autograd.grad((out.float() * up).sum(), leaves[0])
+    want, again = (torch.autograd.grad((msdeform.ms_deform_attn(
+        ls[0], shapes, ls[1], ls[2]).float() * up).sum(), ls) for ls in leaves[1:])
+    errs, spread = rel(got, want), rel(again, want)
+    assert max(errs[1:]) <= 1e-3 and errs[0] <= max(1e-3, 2 * spread[0]), (errs, spread)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        msdeform._ms_deform_attn_cuda(leaves[0][0], shapes, leaves[0][1], leaves[0][2])
 
 
 def _decode_case(dev, dtype, B, H, KV, S, d, seed, stacked=False):

@@ -650,8 +650,12 @@ def test_entry_train_smoke_mode_on_the_cpu(capsys):
     assert "loss_llm" in capsys.readouterr().out
     again = t_entry.train(cfg, device="cpu")
     assert again == metrics                          # seeded end to end
-    with pytest.raises(NotImplementedError, match="X-Decoder"):
-        t_entry.train({**cfg, "NAME": "xdecoder_step"}, device="cpu")
+    # an X-Decoder NAME goes to the joint trainer (tests/test_torch_xdecoder_train.py):
+    # without DATASETS.TRAIN it builds the model and returns None; a mesh raises
+    xdec = {**cfg, "NAME": "xdecoder_step", "MODEL": {**cfg["MODEL"], "TINY": True}}
+    assert t_entry.train(xdec, device="cpu") is None
+    with pytest.raises(NotImplementedError, match="MESH"):
+        t_entry.train({**xdec, "MESH_DATA": 2}, device="cpu")
     # RESUME_FROM and DATASETS.TRAIN run now: a path without the reference
     # layout and a dataset nobody registered raise
     with pytest.raises(FileNotFoundError, match="cullavo"):

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from cullavo_tpu.models.llava import llama as jl
@@ -31,6 +32,21 @@ def _two_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
+
+def _jit_ref(fn, *args, **kw):
+    """One jitted call of a JAX reference: the array arguments traced, the
+    rest (layer index, keywords) fixed; one compile of the interpret-mode
+    kernel instead of its op-by-op dispatch (the same values)."""
+    where = [i for i, a in enumerate(args) if isinstance(a, (np.ndarray, jax.Array))]
+
+    def call(*traced):
+        full = list(args)
+        for i, t in zip(where, traced):
+            full[i] = t
+        return fn(*full, **kw)
+
+    return jax.jit(call)(*(args[i] for i in where))
 
 
 def _t(a):
@@ -108,8 +124,8 @@ def test_round_cache_len_and_init_kv_cache_match_jax():
 def test_plain_stale_attention_matches_jax(W, n_rep):
     """``sdpa_decode_stale_smajor`` on a per-layer cache slice."""
     kc, vc, q, k_cur, v_cur, bias = _setup(W, n_rep=n_rep, S=96, hd=16, seed=W)
-    ref = jl.sdpa_decode_stale_smajor(*map(jnp.asarray, (q, kc[1], vc[1], k_cur, v_cur, bias)),
-                                      n_rep=n_rep)
+    ref = _jit_ref(jl.sdpa_decode_stale_smajor,
+                   *map(jnp.asarray, (q, kc[1], vc[1], k_cur, v_cur, bias)), n_rep=n_rep)
     out = tl.sdpa_decode_stale_smajor(*map(_t, (q, kc[1], vc[1], k_cur, v_cur, bias)),
                                       n_rep=n_rep)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
@@ -131,9 +147,9 @@ def test_plain_stale_attention_q8_matches_jax(W, n_rep, with_win_q8):
         k_w, v_w = _win_q8(k_cur, v_cur, n_rep)
         jwin = (*jl.quantize_kv(jnp.asarray(k_w)), *jl.quantize_kv(jnp.asarray(v_w)))
         twin = tuple(_t(a) for a in jwin)
-    ref = jl.sdpa_decode_stale_smajor_q8(jnp.asarray(q), kq, ks, vq, vs, jnp.asarray(k_cur),
-                                         jnp.asarray(v_cur), jnp.asarray(bias), n_rep=n_rep,
-                                         win_q8=jwin)
+    ref = _jit_ref(jl.sdpa_decode_stale_smajor_q8, jnp.asarray(q), kq, ks, vq, vs,
+                   jnp.asarray(k_cur), jnp.asarray(v_cur), jnp.asarray(bias), n_rep=n_rep,
+                   win_q8=jwin)
     out = tl.sdpa_decode_stale_smajor_q8(_t(q), *map(_t, (kq, ks, vq, vs)), _t(k_cur), _t(v_cur),
                                          _t(bias), n_rep=n_rep, win_q8=twin)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
@@ -146,8 +162,8 @@ def test_wwin_bf16_cache_matches_jax_pallas(W, n_rep):
     the port's own per-slice plain attention."""
     kc, vc, q, k_cur, v_cur, bias = _setup(W, n_rep=n_rep)
     for li in (0, kc.shape[0] - 1):
-        ref = jw.wwin_decode_smajor(*map(jnp.asarray, (q, kc, vc)), li,
-                                    *map(jnp.asarray, (k_cur, v_cur, bias)), n_rep=n_rep)
+        ref = _jit_ref(jw.wwin_decode_smajor, *map(jnp.asarray, (q, kc, vc)), li,
+                       *map(jnp.asarray, (k_cur, v_cur, bias)), n_rep=n_rep)
         out = tw.wwin_decode_smajor(_t(q), _t(kc), _t(vc), li, _t(k_cur), _t(v_cur), _t(bias),
                                     n_rep=n_rep)
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL, err_msg=f"li={li}")
@@ -169,9 +185,8 @@ def test_wwin_bf16_cache_at_the_kernel_edges_matches_jax_pallas(W, n_rep, S):
     block of S where S is not a multiple of 128)."""
     kc, vc, q, k_cur, v_cur, bias = _setup(W, n_rep=n_rep, S=S, L=2, seed=W + S)
     block_s = 128 if S % 128 == 0 else S
-    ref = jw.wwin_decode_smajor(*map(jnp.asarray, (q, kc, vc)), 1,
-                                *map(jnp.asarray, (k_cur, v_cur, bias)), n_rep=n_rep,
-                                block_s=block_s)
+    ref = _jit_ref(jw.wwin_decode_smajor, *map(jnp.asarray, (q, kc, vc)), 1,
+                   *map(jnp.asarray, (k_cur, v_cur, bias)), n_rep=n_rep, block_s=block_s)
     out = tw.wwin_decode_smajor(_t(q), _t(kc), _t(vc), 1, _t(k_cur), _t(v_cur), _t(bias),
                                 n_rep=n_rep)
     assert out.shape == (2, n_rep * 2, W, 128)
@@ -191,9 +206,9 @@ def test_wwin_q8_cache_at_the_kernel_edges_matches_jax_pallas(W, n_rep, S):
     kq, ks = jl.quantize_kv(jnp.asarray(kc))
     vq, vs = jl.quantize_kv(jnp.asarray(vc))
     block_s = 128 if S % 128 == 0 else S
-    ref = jw.wwin_decode_smajor_q8(jnp.asarray(q), kq, ks, vq, vs, 1, jnp.asarray(k_cur),
-                                   jnp.asarray(v_cur), jnp.asarray(bias), n_rep=n_rep,
-                                   block_s=block_s)
+    ref = _jit_ref(jw.wwin_decode_smajor_q8, jnp.asarray(q), kq, ks, vq, vs, 1,
+                   jnp.asarray(k_cur), jnp.asarray(v_cur), jnp.asarray(bias), n_rep=n_rep,
+                   block_s=block_s)
     out = tw.wwin_decode_smajor_q8(_t(q), *map(_t, (kq, ks, vq, vs)), 1, _t(k_cur), _t(v_cur),
                                    _t(bias), n_rep=n_rep)
     assert out.shape == (2, n_rep * 2, W, 128)
@@ -206,8 +221,8 @@ def test_wwin_fully_masked_cache_row_matches_jax_pallas():
     cache part reports it as m = NEG_INF, l = 0, acc = 0."""
     kc, vc, q, k_cur, v_cur, bias = _setup(4)
     bias[1] = jl.NEG_INF
-    ref = jw.wwin_decode_smajor(*map(jnp.asarray, (q, kc, vc)), 1,
-                                *map(jnp.asarray, (k_cur, v_cur, bias)))
+    ref = _jit_ref(jw.wwin_decode_smajor, *map(jnp.asarray, (q, kc, vc)), 1,
+                   *map(jnp.asarray, (k_cur, v_cur, bias)))
     out = tw.wwin_decode_smajor(_t(q), _t(kc), _t(vc), 1, _t(k_cur), _t(v_cur), _t(bias))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
     assert torch.isfinite(out).all()
@@ -232,9 +247,9 @@ def test_wwin_q8_cache_matches_jax_pallas(W, n_rep, with_win_q8):
         jwin = (*jl.quantize_kv(jnp.asarray(k_w)), *jl.quantize_kv(jnp.asarray(v_w)))
         twin = tuple(_t(a) for a in jwin)
     li = 2
-    ref = jw.wwin_decode_smajor_q8(jnp.asarray(q), kq, ks, vq, vs, li, jnp.asarray(k_cur),
-                                   jnp.asarray(v_cur), jnp.asarray(bias), n_rep=n_rep,
-                                   win_q8=jwin)
+    ref = _jit_ref(jw.wwin_decode_smajor_q8, jnp.asarray(q), kq, ks, vq, vs, li,
+                   jnp.asarray(k_cur), jnp.asarray(v_cur), jnp.asarray(bias), n_rep=n_rep,
+                   win_q8=jwin)
     out = tw.wwin_decode_smajor_q8(_t(q), *map(_t, (kq, ks, vq, vs)), li, _t(k_cur), _t(v_cur),
                                    _t(bias), n_rep=n_rep, win_q8=twin)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)

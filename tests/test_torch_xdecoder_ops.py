@@ -56,14 +56,21 @@ def _msdeform_inputs(shapes, Q, Hh, hd, P, seed):
     return value, loc, att
 
 
+def _jax_msdeform(value, shapes, loc, att):
+    """JAX's XLA gather and its Pallas kernel (interpret mode), each jitted:
+    one compile instead of op-by-op dispatch (the same values)."""
+    shapes = tuple(tuple(hw) for hw in shapes)
+    args = (jnp.asarray(value), jnp.asarray(loc), jnp.asarray(att))
+    return (jax.jit(lambda v, lo, a: jms.ms_deform_attn(v, shapes, lo, a))(*args),
+            jax.jit(lambda v, lo, a: ms_deform_attn_pallas(v, shapes, lo, a))(*args))
+
+
 @pytest.mark.parametrize("shapes,Q,Hh,hd,P", MSDEFORM_CASES)
 def test_ms_deform_attn_plain_matches_jax(shapes, Q, Hh, hd, P):
     value, loc, att = _msdeform_inputs(shapes, Q, Hh, hd, P, seed=len(shapes))
     got = tms.ms_deform_attn(torch.from_numpy(value), shapes, torch.from_numpy(loc),
                              torch.from_numpy(att)).numpy()
-    xla = jms.ms_deform_attn(jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(att))
-    pallas = ms_deform_attn_pallas(jnp.asarray(value), tuple(shapes), jnp.asarray(loc),
-                                   jnp.asarray(att))
+    xla, pallas = _jax_msdeform(value, shapes, loc, att)
     np.testing.assert_allclose(got, np.asarray(xla), atol=1e-5, rtol=0)
     np.testing.assert_allclose(got, np.asarray(pallas), atol=1e-5, rtol=0)
     if len(shapes) == 2:   # the python oracle is slow: one case
@@ -100,9 +107,9 @@ def test_msdeform_module_forward_matches_jax():
     query = rng.normal(size=(B, Q, D)).astype(f32)
     value = rng.normal(size=(B, S, D)).astype(f32)
     ref_pts = rng.uniform(0, 1, (B, Q, L, 2)).astype(f32)
-    want = jms.msdeform_attn_module_forward(jax.tree.map(jnp.asarray, params),
-                                            jnp.asarray(query), jnp.asarray(value), shapes,
-                                            jnp.asarray(ref_pts), heads, L, P)
+    want = jax.jit(lambda p, q, v, r: jms.msdeform_attn_module_forward(
+        p, q, v, shapes, r, heads, L, P))(jax.tree.map(jnp.asarray, params), jnp.asarray(query),
+                                          jnp.asarray(value), jnp.asarray(ref_pts))
     tp = {k: {n: torch.from_numpy(a) for n, a in v.items()} for k, v in params.items()}
     got = tms.msdeform_attn_module_forward(tp, torch.from_numpy(query), torch.from_numpy(value),
                                            shapes, torch.from_numpy(ref_pts), heads, L, P)
@@ -140,8 +147,8 @@ def test_focal_ctx_plain_matches_pallas_tanh(B, C, H, W, kernels, scaling):
     assert torch.equal(lw, torch.from_numpy(np.array(jpack([jnp.asarray(k) for k in kws]))))
     got = tfocal.focal_ctx_plain(torch.from_numpy(ctx), torch.from_numpy(gates), lw, H, W,
                                  kernels, scaling, approximate=True)
-    want = fused_focal_ctx(jnp.asarray(ctx), jnp.asarray(gates), jpack([jnp.asarray(k) for k in kws]),
-                           H, W, kernels, scaling)
+    want = jax.jit(lambda c, g, lw: fused_focal_ctx(c, g, lw, H, W, kernels, scaling))(
+        jnp.asarray(ctx), jnp.asarray(gates), jpack([jnp.asarray(k) for k in kws]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
@@ -151,15 +158,20 @@ def test_focal_ctx_plain_matches_the_models_erf_chain(B, C, H, W, kernels):
     exact-erf GELU, NHWC depthwise convs."""
     ctx, gates, kws = _focal_inputs(B, C, H, W, kernels, seed=3 * C + W)
     L = len(kernels)
-    x = jnp.asarray(ctx).reshape(B, C, H, W).transpose(0, 2, 3, 1)
-    g = jnp.asarray(gates).reshape(B, L + 1, H, W).transpose(0, 2, 3, 1)
-    acc = jnp.zeros_like(x)
-    for lvl in range(L):
-        x = jax.nn.gelu(_depthwise_conv(x, jnp.asarray(kws[lvl])), approximate=False)
-        acc = acc + x * g[..., lvl:lvl + 1]
-    glob = jax.nn.gelu(jnp.mean(x, axis=(1, 2), keepdims=True), approximate=False)
-    acc = (acc + glob * g[..., L:L + 1]) / (L + 1)
-    want = np.asarray(acc.transpose(0, 3, 1, 2).reshape(B, C, H * W))
+
+    @jax.jit
+    def chain(ctx, gates, kws):
+        x = ctx.reshape(B, C, H, W).transpose(0, 2, 3, 1)
+        g = gates.reshape(B, L + 1, H, W).transpose(0, 2, 3, 1)
+        acc = jnp.zeros_like(x)
+        for lvl in range(L):
+            x = jax.nn.gelu(_depthwise_conv(x, kws[lvl]), approximate=False)
+            acc = acc + x * g[..., lvl:lvl + 1]
+        glob = jax.nn.gelu(jnp.mean(x, axis=(1, 2), keepdims=True), approximate=False)
+        acc = (acc + glob * g[..., L:L + 1]) / (L + 1)
+        return acc.transpose(0, 3, 1, 2).reshape(B, C, H * W)
+
+    want = np.asarray(chain(jnp.asarray(ctx), jnp.asarray(gates), [jnp.asarray(k) for k in kws]))
     got = tfocal.focal_ctx_plain(torch.from_numpy(ctx), torch.from_numpy(gates),
                                  _port_taps(kws), H, W, kernels, True, approximate=False)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
@@ -346,8 +358,6 @@ def test_ms_deform_attn_plain_matches_jax_at_the_encoders_draw():
     assert (loc < 0).any() and (loc > 1).any()    # the edge queries reach past their maps
     got = tms.ms_deform_attn(torch.from_numpy(value), shapes, torch.from_numpy(loc),
                              torch.from_numpy(att)).numpy()
-    xla = jms.ms_deform_attn(jnp.asarray(value), shapes, jnp.asarray(loc), jnp.asarray(att))
-    pallas = ms_deform_attn_pallas(jnp.asarray(value), shapes, jnp.asarray(loc),
-                                   jnp.asarray(att))
+    xla, pallas = _jax_msdeform(value, shapes, loc, att)
     np.testing.assert_allclose(got, np.asarray(xla), atol=1e-5, rtol=0)
     np.testing.assert_allclose(got, np.asarray(pallas), atol=1e-5, rtol=0)
