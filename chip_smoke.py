@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py               # kernels, the 7B serving and train paths, X-Decoder
                                         # eval, vl_test from a written 7B snapshot, the VL
-                                        # zoo, the training loop, the matmul probe
+                                        # zoo, the training loop, the matmul probe, X-Decoder
+                                        # training and eval from a checkpoint
     python3 chip_smoke.py --profile     # the same + a profiled run of each path
 
 Phases (each raises on failure, and the script exits non-zero):
@@ -243,6 +244,27 @@ Phases (each raises on failure, and the script exits non-zero):
      images/s, the matcher's host seconds, peak memory); (f) 6 steps at
      BASE_LR 1e-3: the loss falls.  The kernels line gains
      ``xdecoder_train_launches``.
+  16. the X-Decoder eval from a reference checkpoint (in phase 15's working
+     directory): (a) random FocalNet-L + FPN and SAM-ViT-B + deformable
+     weights at full width and depth written in the reference's key names
+     as ``.pt`` files (``checkpoint.xdecoder_import``'s inverse table) and
+     read back through ``RESUME_FROM`` bit-equal; the FocalNet-L file under
+     FocalNet-T widths raises; (b) a CLIP ``vocab.json`` + ``merges.txt`` of
+     49408 ids synthesized here (<|startoftext|> 49406, <|endoftext|>
+     49407); (c) ``semseg`` (phase 9's 16 sizes, 150 ADE20K names, grey
+     annotation PNGs), ``coco_panoptic`` (phase 12's writer) and
+     ``refcoco`` (16 sentences on 8 images, polygons and an RLE) datasets of
+     PNGs; (d) ``evaluate_grounding`` at full width and cut depth, f32,
+     card against CPU within 1e-3 of the largest mask logit; (e) ``python
+     -m cullavo_tpu_torch eval --conf_files configs/xdecoder_test.yaml`` in
+     a subprocess with ``RESUME_FROM``, ``MODEL.TEXT.TOKENIZER`` and the
+     three datasets (exit 0; mIoU, PQ, grounding cIoU / mIoU finite and in
+     [0, 100]), then ``entry.evaluate`` on the same arguments in bf16 in
+     this process twice (equal metrics; K10 24 a forward), and the
+     grounding set from phase 15's trained checkpoint; (f) load seconds,
+     tokenizer seconds per 1000 texts, images/s and compute seconds per
+     batch by dataset, peak memory.  The kernels line gains
+     ``xdecoder_eval_launches``.
 The last two lines are the kernels' JSON record and the result line.
 Imports neither JAX nor the JAX package.
 """
@@ -394,6 +416,11 @@ STEP2_CFG = "configs/cullavo_step2_pre.yaml"
 STEP2_DATASET, STEP2_ROWS, STEP2_IMAGE_HW = "chip_conversations_synthetic", 12, (
     (336, 336), (480, 640))
 STEP2_NEW, STEP2_BATCH, STEP2_CHECK_NEW, STEP2_TURNS = 256, 8, 32, 3
+# the X-Decoder eval from a checkpoint (phase 16): configs/xdecoder_test.yaml
+# through the command line and entry.evaluate, RESUME_FROM a reference-layout
+# .pt of random weights, MODEL.TEXT.TOKENIZER a synthesized CLIP vocabulary of
+# CLIP's size, and three registered datasets of phase 9's image sizes
+CLIP_VOCAB = 49408
 
 
 def log(*a):
@@ -2839,6 +2866,133 @@ def write_joint_dataset(root, sizes, class_names, n_things, seed=0, captions=5):
     return spec
 
 
+def write_clip_tokenizer(path, corpus, n_ids=CLIP_VOCAB, learn=2000):
+    """A CLIP-layout ``vocab.json`` + ``merges.txt`` of exactly ``n_ids``
+    ids, synthesized deterministically: the 256 byte characters, the same
+    with ``</w>``, up to ``learn`` merges learned on ``corpus`` (the most
+    frequent pair first, ties to the pair counted first, while a pair occurs
+    twice), two-character merges in byte order up to ``n_ids - 2`` tokens,
+    then <|startoftext|> and <|endoftext|> (49406 and 49407 at the full
+    size).  Returns the number of learned merges."""
+    from cullavo_tpu_torch.data.clip_tokenizer import (BOS, EOS, SUFFIX, bytes_to_unicode,
+                                                       normalize, split_pieces)
+
+    byte_char = bytes_to_unicode()
+    chars = list(byte_char.values())
+    vocab = chars + [c + SUFFIX for c in chars]
+    have = set(vocab)
+    counts = collections.Counter()
+    for text in corpus:
+        for piece in split_pieces(normalize(text)):
+            syms = [byte_char[b] for b in piece.encode("utf-8")]
+            syms[-1] += SUFFIX
+            counts[tuple(syms)] += 1
+    words, freqs = [list(w) for w in counts], list(counts.values())
+    n_merges = n_ids - len(vocab) - 2
+    merges = []
+    while len(merges) < min(learn, n_merges):
+        pairs = collections.Counter()
+        for syms, f in zip(words, freqs):
+            for pair in zip(syms, syms[1:]):
+                pairs[pair] += f
+        if not pairs or pairs.most_common(1)[0][1] < 2:
+            break
+        a, b = pairs.most_common(1)[0][0]
+        merges.append((a, b))
+        have.add(a + b)
+        for syms in words:
+            i = 0
+            while i < len(syms) - 1:
+                if syms[i] == a and syms[i + 1] == b:
+                    syms[i:i + 2] = [a + b]
+                i += 1
+    learned = len(merges)
+    for a in chars:
+        for b in vocab[:2 * len(chars)]:
+            if len(merges) < n_merges and a + b not in have:
+                merges.append((a, b))
+                have.add(a + b)
+    vocab += [a + b for a, b in merges] + [BOS, EOS]
+    if len(vocab) != n_ids or len(set(vocab)) != n_ids:
+        raise RuntimeError(f"CLIP vocabulary of {len(vocab)} tokens, not {n_ids} distinct")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({t: i for i, t in enumerate(vocab)}, f, ensure_ascii=False)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+    return learned
+
+
+def write_semseg_dataset(root, sizes, class_names, seed=0):
+    """A ``semseg`` dataset under ``root``: per size a random image (a PNG
+    named ``.jpg``, as the reference's images are named) and a grey
+    annotation PNG of 32-pixel blocks of random class ids, 255 (ignore) in
+    every seventh block.  Returns its ``DATASETS.REGISTER`` entry."""
+    import numpy as np
+
+    from cullavo_tpu_torch.data import png_io
+
+    rng = np.random.default_rng(seed)
+    img_dir, ann_dir = os.path.join(root, "images"), os.path.join(root, "annotations")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(ann_dir, exist_ok=True)
+    for k, (H, W) in enumerate(sizes):
+        blocks = rng.integers(0, len(class_names), (-(-H // 32), -(-W // 32)))
+        blocks.reshape(-1)[::7] = 255
+        ann = np.kron(blocks, np.ones((32, 32), np.int64))[:H, :W].astype(np.uint8)
+        png_io.write_png(os.path.join(img_dir, f"{k:012d}.jpg"),
+                         rng.integers(0, 256, (H, W, 3), dtype=np.uint8))
+        png_io.write_png(os.path.join(ann_dir, f"{k:012d}.png"), ann)
+    return {"KIND": "semseg", "IMAGE_DIR": img_dir, "ANN_DIR": ann_dir,
+            "NUM_CLASSES": len(class_names), "CLASS_NAMES": list(class_names)}
+
+
+def write_refcoco_dataset(root, sizes, class_names, seed=0):
+    """A ``refcoco`` dataset under ``root``: per size a random image (a PNG
+    named ``.jpg``) with one referred object, a rectangle given as a
+    polygon (the last image's as an uncompressed RLE), two sentences each
+    (split "val"), and one reference of split "train" that the val loader
+    skips.  Returns its ``DATASETS.REGISTER`` entry."""
+    import numpy as np
+
+    from cullavo_tpu_torch.data import png_io
+
+    rng = np.random.default_rng(seed)
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    images, anns, refs = [], [], []
+    for k, (H, W) in enumerate(sizes):
+        name = f"{k:012d}.jpg"
+        png_io.write_png(os.path.join(img_dir, name),
+                         rng.integers(0, 256, (H, W, 3), dtype=np.uint8))
+        images.append({"id": k, "file_name": name, "height": H, "width": W})
+        h, w = int(rng.integers(H // 4, H // 2)), int(rng.integers(W // 4, W // 2))
+        y, x = int(rng.integers(0, H - h)), int(rng.integers(0, W - w))
+        if k == len(sizes) - 1:
+            m = np.zeros((H, W), bool)
+            m[y:y + h, x:x + w] = True
+            seg = {"counts": _rle_counts(m), "size": [H, W]}
+        else:
+            seg = [[x, y, x + w, y, x + w, y + h, x, y + h]]
+        cat = int(rng.integers(0, len(class_names)))
+        anns.append({"id": 100 + k, "image_id": k, "category_id": cat, "bbox": [x, y, w, h],
+                     "segmentation": seg, "iscrowd": 0})
+        c = class_names[cat]
+        refs.append({"ann_id": 100 + k, "image_id": k, "split": "val", "category_id": cat,
+                     "sentences": [{"sent": f"the {c} on the {('left', 'right')[k % 2]}"},
+                                   {"sent": f"a {c} next to {k + 2} others, near the edge"}]})
+    refs.append(dict(refs[0], split="train"))
+    spec = {"KIND": "refcoco", "IMAGE_DIR": img_dir,
+            "REFS_JSON": os.path.join(root, "refs.json"),
+            "INSTANCES_JSON": os.path.join(root, "instances.json")}
+    with open(spec["REFS_JSON"], "w") as f:
+        json.dump(refs, f)
+    with open(spec["INSTANCES_JSON"], "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": i, "name": n} for i, n in enumerate(class_names)]}, f)
+    return spec
+
+
 def xtrain_argv(over, save_dir):
     """The command line of phase 15: ``train`` on configs/xdecoder_train.yaml
     with ``over`` as ``--config_overrides`` and ``SAVE_DIR``."""
@@ -2921,11 +3075,19 @@ def check_train_functions(device, rec, smi):
             bwd = bench_ms(lambda: torch.autograd.grad(o, ins, up.to(o.dtype),
                                                        retain_graph=True), device)
             fwd_ms = bench_ms(fwd, device)
+            # the backward's least work: per level the input gradient and the
+            # tap gradient, each a depthwise pass of k^2 multiply-adds an
+            # output (f32); bytes: ctx, gates, taps and the output gradient
+            # read once, their three gradients written once
+            bbd = bound(2 * nbytes(*ins) + up.numel() * o.element_size(),
+                        4 * sum(k * k for k in kernels) * B * C * H * W, "f32")
             rec["focal_ctx"]["train_shape"] = [B, C, H * W]
             rec["focal_ctx"]["train_fwd_ms"] = fwd_ms
             rec["focal_ctx"]["plain_backward_ms"] = bwd
+            rec["focal_ctx"]["plain_backward_bound"] = bbd
             log(f"K10 at the train step's stage 1 [{B}, {C}, {H}x{W}] bf16 ({smi}): forward "
-                f"(K10) {fwd_ms:.4f} ms, backward (plain version's autograd) {bwd:.4f} ms")
+                f"(K10) {fwd_ms:.4f} ms, backward (plain version's autograd) {bwd:.4f} ms, "
+                f"backward bound {bbd['bound_ms']:.4f} ms ({bbd['bound_by']})")
     shapes = ((64, 64), (32, 32), (16, 16))
     S = sum(h * w for h, w in shapes)
     for dtype in (torch.float32, torch.bfloat16):
@@ -2958,8 +3120,18 @@ def check_train_functions(device, rec, smi):
             o = msdeform.ms_deform_attn_kernel(ins[0], shapes, ins[1], ins[2])
             rec["ms_deform_attn"]["plain_backward_ms"] = bench_ms(
                 lambda: torch.autograd.grad(o, ins, up.to(o.dtype), retain_graph=True), device)
+            # the backward's least work per sampling point and channel (f32
+            # multiply-adds): the 4-corner sample again (4), its scatter into
+            # d value (4), d weight (1), d loc in x and y (2 x 4); bytes: value,
+            # loc, weights and the output gradient read once, their three
+            # gradients written once
+            points = 8 * S * 8 * len(shapes) * 4
+            bbd = bound(2 * nbytes(*ins) + up.numel() * o.element_size(),
+                        2 * 17 * 64 * points, "f32")
+            rec["ms_deform_attn"]["plain_backward_bound"] = bbd
             log(f"K9's backward (plain version's autograd) at that shape, bf16 ({smi}): "
-                f"{rec['ms_deform_attn']['plain_backward_ms']:.4f} ms")
+                f"{rec['ms_deform_attn']['plain_backward_ms']:.4f} ms, bound "
+                f"{bbd['bound_ms']:.4f} ms ({bbd['bound_by']})")
 
 
 def pinned_points(seed):
@@ -2996,6 +3168,7 @@ def xtrain_batch(spec, model_cfg, n, seed=SEED):
     from cullavo_tpu_torch import entry
     from cullavo_tpu_torch.data.coco_caption_grounding import (
         JointTrainMapper, collate_joint, load_coco_panoptic_caption_grounding_json)
+    from cullavo_tpu_torch.data.mappers.eval_mappers import normalize_np
 
     names = spec["CLASS_NAMES"]
     recs = load_coco_panoptic_caption_grounding_json(
@@ -3005,7 +3178,7 @@ def xtrain_batch(spec, model_cfg, n, seed=SEED):
     mapped = [mapper(r) for r in recs]
     tokenize = entry._make_text_tokenize({}, model_cfg.text)
     batch = collate_joint(mapped, tokenize, names, np.random.default_rng(seed))
-    batch["image"] = np.stack([entry._normalize_np(m["image"]) for m in mapped])
+    batch["image"] = np.stack([normalize_np(m["image"]) for m in mapped])
     batch["class_ids"], batch["class_mask"] = tokenize(
         [f"a photo of a {c}." for c in names] + ["A background in coco."])
     return batch
@@ -3271,6 +3444,269 @@ def run_xtrain_path(device, wrappers, smi, work, rec):
         f"{[round(x, 4) for x in losses]}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"xdecoder train: the loss at step {len(losses)} is not below step 1")
+    torch.cuda.empty_cache()
+    return counts
+
+
+XEVAL_SEMSEG, XEVAL_PANOPTIC, XEVAL_REFCOCO = (
+    "ade20k_val_sem_seg_synthetic", "coco_2017_val_panoptic_with_sem_seg", "refcocog_val_umd")
+XEVAL_REF_IMAGES = 8          # 16 sentences, two a referred object
+XEVAL_TOKENIZER_TEXTS = 1000
+
+
+def xeval_argv(over, *pairs):
+    """The command line of phase 16: ``eval`` on configs/xdecoder_test.yaml."""
+    return ["eval", "--conf_files", os.path.join(REPO, XDEC_FOCAL), "--config_overrides",
+            json.dumps(over), "--overrides", *pairs]
+
+
+def _noisy_params(cfg, device, seed):
+    """The port's random initial weights with N(0, 0.01) added to every
+    leaf (zero biases and unit norms take part in the round trip)."""
+    import torch
+
+    from cullavo_tpu_torch.models.xdecoder.model import init_xdecoder_model_params
+    from cullavo_tpu_torch.utils.tree import tree_map
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_xdecoder_model_params(cfg, gen, device)
+    return tree_map(lambda t: t + 0.01 * torch.randn(t.shape, generator=gen, device=device),
+                    params)
+
+
+def checkpoint_round_trip(path_cfg, device, work, smi):
+    """Phase 16a for one configuration: random weights at full width and
+    depth written in the reference's key names as a ``.pt`` (the inverse
+    table), read back through ``RESUME_FROM``: every leaf bit-equal.
+    Returns the file and the load seconds."""
+    import torch
+
+    from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.checkpoint.xdecoder_import import reference_state_from_params
+    from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
+    from cullavo_tpu_torch.utils.tree import tree_leaves
+
+    cfg = xdecoder_model_config_from(XDEC_CONFIGS[path_cfg])
+    params = _noisy_params(cfg, device, SEED + 16)
+    state = reference_state_from_params(params, cfg)
+    path = os.path.join(work, os.path.basename(path_cfg).replace(".yaml", ".pt"))
+    t0 = time.perf_counter()
+    torch.save({"model": state}, path)
+    t_write = time.perf_counter() - t0
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    back = entry._load_xdecoder_params({"RESUME_FROM": path}, cfg, device)
+    torch.cuda.synchronize(device)
+    t_load = time.perf_counter() - t0
+    a, b = tree_leaves(params), tree_leaves(back)
+    if len(a) != len(b) or not all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b)):
+        raise RuntimeError(f"{path_cfg}: the checkpoint does not read back bit-equal")
+    n = sum(t.numel() for t in a)
+    log(f"phase 16 checkpoint {path_cfg} ({smi}): {len(state)} reference keys, {n / 1e6:.1f} M "
+        f"f32 parameters, {os.path.getsize(path) / 2**30:.2f} GiB .pt written in {t_write:.2f} s, "
+        f"read through RESUME_FROM in {t_load:.2f} s; {len(b)} leaves bit-equal")
+    del params, back, state
+    torch.cuda.empty_cache()
+    return path, t_load
+
+
+def _xeval_forwards(spec_sizes, batch):
+    """Forward passes of the eval over datasets whose rows have these image
+    sizes (a batch per bucket chunk; refcoco rows share one text bucket)."""
+    from cullavo_tpu_torch.pipelines.xdecoder_pipeline import _bucket_hw
+
+    total = 0
+    for sizes in spec_sizes:
+        buckets = collections.Counter(_bucket_hw(h, w) for h, w in sizes)
+        total += sum(-(-n // batch) for n in buckets.values())
+    return total
+
+
+def _check_xeval(res, label):
+    """mIoU, PQ, grounding cIoU / mIoU present, finite and in [0, 100]."""
+    vals = {"mIoU": res[XEVAL_SEMSEG]["sem_seg"]["mIoU"],
+            "panoptic mIoU": res[XEVAL_PANOPTIC]["sem_seg"]["mIoU"],
+            "PQ": res[XEVAL_PANOPTIC]["panoptic"]["PQ"],
+            "grounding cIoU": res[XEVAL_REFCOCO]["cIoU"],
+            "grounding mIoU": res[XEVAL_REFCOCO]["mIoU"]}
+    if not all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in vals.values()):
+        raise RuntimeError(f"{label}: metrics out of range: {vals}")
+    return vals
+
+
+def _strip_timing(res):
+    return {name: {k: v for k, v in r.items() if k != "timing"} for name, r in res.items()}
+
+
+def run_xeval_path(device, wrappers, smi, work, rec):
+    """Phase 16: the X-Decoder eval from a checkpoint (run in phase 15's
+    working directory).  (a) FocalNet-L + FPN and SAM-ViT-B + the
+    deformable encoder: ``checkpoint_round_trip``; the FocalNet-L file under
+    FocalNet-T widths raises.  (b) a CLIP ``vocab.json`` + ``merges.txt`` of
+    49408 ids (``write_clip_tokenizer``), its read and tokenize seconds per
+    1000 texts.  (c) a ``semseg`` dataset (phase 9's 16 sizes, the 150
+    ADE20K names), phase 12's ``coco_panoptic`` writer (16 of 480 x 640, the
+    133 COCO panoptic classes) and a ``refcoco`` dataset (16 sentences on 8
+    images of 512^2, polygons and one RLE), PNGs by the port's writer.
+    (d) ``evaluate_grounding`` at full width and cut depth, f32, one 256 x
+    320 image: card against CPU within 1e-3 of the largest mask logit.
+    (e) ``python -m cullavo_tpu_torch eval --conf_files
+    configs/xdecoder_test.yaml`` in a subprocess (f32) with ``RESUME_FROM``
+    the .pt, ``MODEL.TEXT.TOKENIZER`` and the three datasets: exit 0,
+    metrics in range; then ``entry.evaluate`` on the same arguments in this
+    process in bf16, twice: equal metrics, K10 24 a forward (the main path:
+    the first run's counts are returned), images/s, compute s per batch and
+    peak memory by dataset; then the grounding dataset from phase 15's
+    checkpoint directory (train -> eval)."""
+    import numpy as np
+    import torch
+
+    from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.config import load_opt_command
+    from cullavo_tpu_torch.data.clip_tokenizer import CLIPTokenizer
+    from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
+    from cullavo_tpu_torch.models.xdecoder.model import evaluate_grounding, init_xdecoder_model_params
+    from cullavo_tpu_torch.utils.constants import (ADE_PANOPTIC_CLASSES, COCO_PANOPTIC_CLASSES,
+                                                   get_prompt_templates)
+
+    t_phase = time.perf_counter()
+    # (a)
+    pt_focal, t_load = checkpoint_round_trip(XDEC_FOCAL, device, work, smi)
+    pt_deform, _ = checkpoint_round_trip(XDEC_DEFORM, device, work, smi)
+    os.remove(pt_deform)
+    focal_t = json.loads(json.dumps(XDEC_CONFIGS[XDEC_FOCAL]))
+    focal_t["MODEL"]["BACKBONE"]["FOCAL"] = {"EMBED_DIM": 96, "DEPTHS": [2, 2, 6, 2],
+                                             "FOCAL_LEVELS": [3, 3, 3, 3],
+                                             "FOCAL_WINDOWS": [3, 3, 3, 3]}
+    loaded = False
+    with contextlib.suppress(ValueError):
+        entry._load_xdecoder_params({"RESUME_FROM": pt_focal},
+                                    xdecoder_model_config_from(focal_t), device)
+        loaded = True
+    if loaded:
+        raise RuntimeError("a FocalNet-L checkpoint loaded under FocalNet-T widths")
+    log("phase 16: the FocalNet-L checkpoint under FocalNet-T widths raises ValueError (shape)")
+    torch.cuda.empty_cache()
+
+    # (b)
+    templates = get_prompt_templates()
+    texts = [t.format(c) for c in COCO_PANOPTIC_CLASSES for t in templates]
+    tok_dir = os.path.join(work, "clip_tokenizer")
+    t0 = time.perf_counter()
+    learned = write_clip_tokenizer(tok_dir, texts[::7] + list(ADE_PANOPTIC_CLASSES))
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tk = CLIPTokenizer.from_dir(tok_dir)
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids, mask = tk(texts[:XEVAL_TOKENIZER_TEXTS], 77)
+    t_tok = time.perf_counter() - t0
+    if ids.shape != (XEVAL_TOKENIZER_TEXTS, 77) or ids[0, 0] != 49406 or ids.max() > 49407:
+        raise RuntimeError(f"CLIP tokenizer: ids {ids.shape}, first {ids[0, :4]}")
+    log(f"phase 16 CLIP tokenizer ({smi}): {len(tk.vocab)} ids ({learned} merges learned on the "
+        f"corpus) written in {t_write:.2f} s, read in {t_read:.2f} s, "
+        f"{t_tok:.3f} s per {XEVAL_TOKENIZER_TEXTS} texts (cold word cache)")
+
+    # (c)
+    root = os.path.join(work, "xeval_data")
+    ref_sizes = XDEC_SIZES[:XEVAL_REF_IMAGES]
+    sem = write_semseg_dataset(os.path.join(root, "semseg"), XDEC_SIZES,
+                               list(ADE_PANOPTIC_CLASSES), seed=SEED + 16)
+    json_file, img_dir, pan_dir = write_panoptic_dataset(os.path.join(root, "coco"))
+    pan = {"KIND": "coco_panoptic", "JSON": json_file, "IMAGE_DIR": img_dir,
+           "PANOPTIC_DIR": pan_dir}
+    ref = write_refcoco_dataset(os.path.join(root, "refcoco"), ref_sizes,
+                                list(COCO_PANOPTIC_CLASSES), seed=SEED + 16)
+    register = {XEVAL_SEMSEG: sem, XEVAL_PANOPTIC: pan, XEVAL_REFCOCO: ref}
+
+    # (d)
+    cut = xdecoder_cut(XDEC_FOCAL)
+    params = init_xdecoder_model_params(cut, torch.Generator().manual_seed(SEED), "cpu")
+    h, w = XDEC_CHECK_HW
+    image = torch.from_numpy(np.random.default_rng(SEED).normal(size=(1, h, w, 3)).astype(
+        np.float32))
+    sids, smask = tk(["the dog on the left, next to a red car"], cut.text.context_length)
+    outs = []
+    for dev in (torch.device("cpu"), device):
+        p = _tree_to(params, device=dev)
+        got, counts = counted(wrappers, lambda: evaluate_grounding(
+            p, cut, image.to(dev), sids, smask, out_size=(h, w)))
+        outs.append(got.float().cpu())
+    rel = ((outs[1] - outs[0]).abs().max() / outs[0].abs().max()).item()
+    log(f"phase 16 evaluate_grounding cut ({h}x{w}, f32): card vs CPU max |d| / max |ref| = "
+        f"{rel:.3e} (tol 1e-3); launches {counts}")
+    if not (rel <= 1e-3 and counts["focal_ctx"] == sum(cut.backbone.depths)):
+        raise RuntimeError(f"evaluate_grounding: the card disagrees with the CPU ({rel}) or K10 "
+                           f"launched {counts['focal_ctx']} times")
+    del params, p
+
+    # (e) the command line, f32
+    over = {"DATASETS.TEST": list(register), "DATASETS.REGISTER": register,
+            "MODEL.TEXT.TOKENIZER": tok_dir}
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [q for q in os.environ.get("PYTHONPATH", "").split(os.pathsep) if q]))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "cullavo_tpu_torch"]
+                         + xeval_argv(over, "RESUME_FROM", pt_focal, "SAVE_DIR",
+                                      os.path.join(work, "xeval_cli")),
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    t_cli = time.perf_counter() - t0
+    for line in (res.stderr.strip().splitlines()[-4:]):
+        log(f"  xdecoder eval CLI: {line}")
+    if res.returncode != 0:
+        raise RuntimeError(f"xdecoder eval: python -m cullavo_tpu_torch exited {res.returncode}")
+    cli = json.loads(res.stdout.strip().splitlines()[-1])
+    vals = _check_xeval(cli, "xdecoder eval CLI")
+    log(f"xdecoder eval CLI ({smi}): exit 0 in {t_cli:.2f} s (process start, checkpoint, class "
+        f"embeddings, 3 datasets, f32); {vals}")
+
+    # (e) in this process, bf16, twice
+    cfg = load_opt_command(xeval_argv(over, "RESUME_FROM", pt_focal, "DTYPE", "bfloat16"))[0]
+    cfg = cfg.to_dict()
+    runs = []
+    for i in range(2):
+        if i:
+            cfg["DATASETS"].pop("REGISTER")     # registered by the first run
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        out, counts = counted(wrappers, lambda: entry.evaluate(cfg, device=device))
+        torch.cuda.synchronize(device)
+        runs.append((out, counts, time.perf_counter() - t0,
+                     torch.cuda.max_memory_allocated(device) / 2**30))
+    (res1, counts, wall, peak), (res2, _, wall2, _) = runs
+    _check_xeval(res1, "entry.evaluate")
+    # the refcoco rows: two sentences an image
+    forwards = _xeval_forwards([XDEC_SIZES, [LOOP_IMAGE_HW] * LOOP_IMAGES,
+                                [hw for hw in ref_sizes for _ in range(2)]], XDEC_BATCH)
+    blocks = sum(xdecoder_model_config_from(XDEC_CONFIGS[XDEC_FOCAL]).backbone.depths)
+    log(f"xdecoder eval in process ({smi}): {forwards} forwards, launches {counts}")
+    if counts["focal_ctx"] != blocks * forwards or counts["ms_deform_attn"]:
+        raise RuntimeError(f"K10 launched {counts['focal_ctx']} times, not {blocks} x {forwards}")
+    if _strip_timing(res1) != _strip_timing(res2):
+        raise RuntimeError(f"two evals gave different metrics: {res1} {res2}")
+    timing = {name: r["timing"] for name, r in res1.items()}
+    for name, t in timing.items():
+        log(f"xdecoder eval {name} ({smi}, bf16, batch {t['eval_batch']}): "
+            f"{t.get('images_per_s', 0.0):.3f} images/s after the first batch, compute "
+            f"{t['compute_s']:.4f} s per batch (data {t['data_s']:.4f}, eval {t['eval_s']:.4f})")
+    log(f"xdecoder eval in process ({smi}): run 1 {wall:.2f} s, run 2 {wall2:.2f} s (checkpoint "
+        f"load, class embeddings, 3 datasets), metrics equal; peak memory {peak:.2f} GiB; "
+        f"{_check_xeval(res1, 'entry.evaluate')}")
+    # train -> eval: phase 15's store directory through RESUME_FROM
+    t0 = time.perf_counter()
+    trained = entry.evaluate({**cfg, "RESUME_FROM": os.path.join(work, "xtrain_in_process"),
+                              "DTYPE": "float32", "DATASETS": {"TEST": [XEVAL_REFCOCO]}},
+                             device=device)[XEVAL_REFCOCO]
+    if not all(math.isfinite(trained[k]) for k in ("cIoU", "mIoU")):
+        raise RuntimeError(f"eval from phase 15's checkpoint: {trained}")
+    log(f"xdecoder eval from phase 15's trained checkpoint ({smi}): {XEVAL_REFCOCO} cIoU "
+        f"{trained['cIoU']:.4f}, mIoU {trained['mIoU']:.4f} in {time.perf_counter() - t0:.2f} s")
+    rec["focal_ctx"]["xdecoder_eval"] = {
+        "checkpoint_load_s": t_load, "tokenizer_s_per_1000_texts":
+            t_tok * 1000 / XEVAL_TOKENIZER_TEXTS, "forwards": forwards,
+        "timing": timing, "peak_gib": peak, "cli_s": t_cli, "card": smi}
+    log(f"phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    os.remove(pt_focal)
     torch.cuda.empty_cache()
     return counts
 
@@ -5012,6 +5448,8 @@ def main(argv):
     # phase 15
     with tempfile.TemporaryDirectory(prefix="cullavo_chip_xtrain_") as work:
         counts_xtrain = run_xtrain_path(device, wrappers, smi, work, rec)
+        # phase 16 (its train -> eval step reads phase 15's checkpoint)
+        counts_xeval = run_xeval_path(device, wrappers, smi, work, rec)
     # each kernel's launches on the main path that runs it: K1-K4 the greedy
     # bf16-cache batch, K5 the speculative int8-cache batch, K6 and K7 the
     # serving run, K1-lse the train steps, K8 the attention probe, K9 the
@@ -5051,7 +5489,8 @@ def main(argv):
         # time per call, extra shapes, ptxas
         for extra in ("k13_same_inputs_ms", "k1_same_inputs_ms", "times_in_turns", "host_us",
                       "loop_shape", "prefill_shape", "ptxas", "zoo_shapes", "other_shapes",
-                      "train_shape", "train_fwd_ms", "plain_backward_ms", "xdecoder_train"):
+                      "train_shape", "train_fwd_ms", "plain_backward_ms",
+                      "plain_backward_bound", "xdecoder_train", "xdecoder_eval"):
             if extra in rec[k["name"]]:
                 k[extra] = rec[k["name"]][extra]
         if k["name"] == "nf4_linear_q4":
@@ -5061,6 +5500,7 @@ def main(argv):
         if k["name"] in ("flash_fwd", "wwin_decode"):   # phase 14's entry.main run
             k["step2_pre_launches"] = counts_step2[k["name"]]
         k["xdecoder_train_launches"] = counts_xtrain[k["name"]]   # phase 15's entry.train
+        k["xdecoder_eval_launches"] = counts_xeval[k["name"]]     # phase 16's entry.evaluate
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

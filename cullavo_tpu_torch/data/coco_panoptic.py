@@ -1,7 +1,8 @@
 """COCO panoptic records and the mapper that turns one into a step-1
 training sample (counterpart of ``cullavo_tpu/data/coco_panoptic.py``).
 
-  * ``rgb2id`` / ``id2rgb`` — panopticapi's RGB <-> segment-id encoding.
+  * ``rgb2id`` / ``id2rgb`` — panopticapi's RGB <-> segment-id encoding
+    (``png_io``'s).
   * ``load_coco_panoptic_json`` / ``register_coco_panoptic`` — the
     panoptic JSON walked into one record per image (image file names as
     the annotation's ``.png`` renamed ``.jpg``; category ids mapped to
@@ -10,10 +11,9 @@ training sample (counterpart of ``cullavo_tpu/data/coco_panoptic.py``).
     (``models/xdecoder/decoder.resize``), clipped and truncated to uint8.
   * ``PanopticMapper`` — record -> image at the model's resolution, the
     non-crowd segments' classes, boxes (in model pixels), thing flags and
-    nearest-resized masks.  Its default loader picks by a file's magic
-    bytes: a PNG goes to the port's own reader (``png_io``), any other file
-    to ``load_image_rgb``, which needs PIL (PIL itself opens a PNG named
-    ``.jpg``, so the two agree).
+    nearest-resized masks.  Its default loader is ``load_image_file``
+    (``mappers.eval_mappers``'s): by a file's magic bytes, a PNG through
+    the port's own reader (``png_io``), any other file through PIL.
 
   * ``pad_targets`` — mapped records stacked into the X-Decoder's padded
     targets (classes, masks, normalized cxcywh boxes, validity).
@@ -27,24 +27,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cullavo_tpu_torch.data import png_io
-from cullavo_tpu_torch.data.mappers.eval_mappers import load_image_rgb
+from cullavo_tpu_torch.data.mappers.eval_mappers import load_image_file
+from cullavo_tpu_torch.data.png_io import id2rgb, rgb2id  # noqa: F401 (id2rgb re-exported)
 from cullavo_tpu_torch.data.registry import register_dataset
 from cullavo_tpu_torch.models.xdecoder.decoder import resize
-
-
-def rgb2id(color: np.ndarray) -> np.ndarray:
-    """[H, W, 3] uint8 -> [H, W] int64 (panopticapi encoding)."""
-    color = color.astype(np.int64)
-    return color[..., 0] + 256 * color[..., 1] + 256 * 256 * color[..., 2]
-
-
-def id2rgb(ids: np.ndarray) -> np.ndarray:
-    out = np.zeros(ids.shape + (3,), np.uint8)
-    out[..., 0] = ids % 256
-    out[..., 1] = (ids // 256) % 256
-    out[..., 2] = (ids // 65536) % 256
-    return out
 
 
 def load_coco_panoptic_json(json_file: str, image_dir: str, panoptic_dir: str,
@@ -87,16 +73,6 @@ def resize_image(img: np.ndarray, size: int, method: str = "bicubic") -> np.ndar
     x = torch.from_numpy(np.ascontiguousarray(img, np.float32)).permute(2, 0, 1)[None]
     out = resize(x, (size, size), method)[0].permute(1, 2, 0).numpy()
     return np.clip(out, 0, 255).astype(np.uint8)
-
-
-def load_image_file(path: str) -> np.ndarray:
-    """An image file -> uint8 RGB [H, W, 3], by its magic bytes: a PNG through
-    ``png_io``, anything else through ``load_image_rgb`` (PIL)."""
-    with open(path, "rb") as f:
-        magic = f.read(len(png_io.SIGNATURE))
-    if magic == png_io.SIGNATURE:
-        return png_io.read_png(path)
-    return load_image_rgb(path)
 
 
 class PanopticMapper:

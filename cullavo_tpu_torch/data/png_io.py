@@ -6,8 +6,11 @@ with the card has no PIL).
 Average, Paeth) and returns uint8 RGB ``[H, W, 3]``: grey repeated over the
 three channels and alpha dropped, as PIL's ``convert("RGB")`` gives them.
 Any other PNG (palette, 16-bit, interlaced, grey with alpha) raises.
-``write_png`` writes uint8 ``[H, W]``, ``[H, W, 3]`` or ``[H, W, 4]`` with
-filter 0 on every row.
+``read_png_array`` returns the file's own channels, as PIL's
+``np.asarray(Image.open(path))`` does: ``[H, W]`` for grey (a label map),
+``[H, W, 3]`` or ``[H, W, 4]``.  ``write_png`` writes uint8 ``[H, W]``,
+``[H, W, 3]`` or ``[H, W, 4]`` with filter 0 on every row.  ``rgb2id`` /
+``id2rgb`` are panopticapi's RGB <-> segment-id encoding of panoptic PNGs.
 """
 from __future__ import annotations
 
@@ -108,6 +111,27 @@ def read_png(path: str) -> np.ndarray:
     if img.shape[2] == 1:
         return np.repeat(img, 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
+
+
+def read_png_array(path: str) -> np.ndarray:
+    """A PNG file -> uint8 [H, W] (grey), [H, W, 3] or [H, W, 4]."""
+    with open(path, "rb") as f:
+        img = decode_png(f.read())
+    return img[..., 0] if img.shape[2] == 1 else img
+
+
+def rgb2id(color: np.ndarray) -> np.ndarray:
+    """[H, W, 3] uint8 -> [H, W] int64 (panopticapi encoding)."""
+    color = color.astype(np.int64)
+    return color[..., 0] + 256 * color[..., 1] + 256 * 256 * color[..., 2]
+
+
+def id2rgb(ids: np.ndarray) -> np.ndarray:
+    out = np.zeros(ids.shape + (3,), np.uint8)
+    out[..., 0] = ids % 256
+    out[..., 1] = (ids // 256) % 256
+    out[..., 2] = (ids // 65536) % 256
+    return out
 
 
 def write_png(path: str, img: np.ndarray) -> None:

@@ -12,9 +12,11 @@ registered VQA datasets), the step2_pre data generation
 (``cullavo_step2_pre``: sampled captions with boxes over a registered
 ``conversations`` dataset) and the X-Decoder workloads: joint training
 (``train`` with an "xdecoder" ``NAME``, over registered
-``coco_panoptic_caption_grounding`` datasets) and eval (model, weights and
-text tokenizer built from the config; its dataset kinds come with a later
-data slice).
+``coco_panoptic_caption_grounding`` datasets) and eval (``RESUME_FROM`` a
+reference checkpoint or the port's own, the CLIP BPE tokenizer of
+``MODEL.TEXT.TOKENIZER``, then ``XDecoderPipeline`` or ``RefCOCOPipeline``
+per ``DATASETS.TEST`` entry over registered ``semseg``, ``coco_panoptic``
+and ``refcoco`` datasets or the bulk table under ``DETECTRON2_DATASETS``).
 
 ``MODEL.LLM.LOAD_PATH`` names a local snapshot: ``config.json``,
 ``*.safetensors`` shards and ``tokenizer.json`` (read by the port's own
@@ -42,15 +44,21 @@ import torch
 from cullavo_tpu_torch.checkpoint.hf_import import llava_config_from_json, load_llava_safetensors
 from cullavo_tpu_torch.checkpoint.reference_layout import (load_reference_layout,
                                                            save_reference_layout)
-from cullavo_tpu_torch.checkpoint.store import save_checkpoint
+from cullavo_tpu_torch.checkpoint.store import load_checkpoint, save_checkpoint
+from cullavo_tpu_torch.checkpoint.xdecoder_import import (align_and_update,
+                                                          import_xdecoder_checkpoint, unused_keys)
 from cullavo_tpu_torch.config import load_opt_command
 from cullavo_tpu_torch.data.coco_caption_grounding import (
     JointTrainMapper, collate_joint, register_coco_panoptic_caption_grounding)
+from cullavo_tpu_torch.data.clip_tokenizer import CLIPTokenizer
 from cullavo_tpu_torch.data.coco_panoptic import (PanopticMapper, load_image_file,
                                                    register_coco_panoptic)
-from cullavo_tpu_torch.data.datasets import register_vqa
+from cullavo_tpu_torch.data.datasets import (load_semseg_pairs, register_all_segmentation,
+                                             register_refcoco, register_vqa)
 from cullavo_tpu_torch.data.instruction_data import load_conversation_json
-from cullavo_tpu_torch.data.mappers.eval_mappers import VQAEvalMapper
+from cullavo_tpu_torch.data.mappers.eval_mappers import (PanopticEvalMapper, RefCOCOEvalMapper,
+                                                         SemSegEvalMapper, VQAEvalMapper,
+                                                         normalize_np)
 from cullavo_tpu_torch.data.registry import get_dataset, get_metadata, register_dataset
 from cullavo_tpu_torch.data.step1_synthesis import SYSTEM_PROMPT
 from cullavo_tpu_torch.data.tokenizer import ByteTokenizer, HFTokenizer
@@ -61,12 +69,13 @@ from cullavo_tpu_torch.models.llava.lora import maybe_quantize_base
 from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
 from cullavo_tpu_torch.models.llava.modeling import (GenerationConfig, expand_image_token,
                                                      init_llava_params)
-from cullavo_tpu_torch.models.xdecoder.model import (PIXEL_MEAN, PIXEL_STD,
-                                                     init_xdecoder_model_params)
+from cullavo_tpu_torch.models.xdecoder.model import init_xdecoder_model_params
+from cullavo_tpu_torch.models.xdecoder.text_encoder import class_embeddings_ensembled
 from cullavo_tpu_torch.pipelines import cullavo_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines import vqa_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines import xdecoder_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines.base import build_pipeline
+from cullavo_tpu_torch.pipelines.xdecoder_pipeline import EvalTasks, tasks_for_dataset
 from cullavo_tpu_torch.pipelines.vl_zoo_pipeline import (MODEL_SPECS, VLZooVQAPipeline,
                                                          native_blip2_answer_fn,
                                                          native_kosmos2_answer_fn)
@@ -77,6 +86,7 @@ from cullavo_tpu_torch.trainer.optimizer import xdecoder_optimizer
 from cullavo_tpu_torch.trainer.step import TrainState
 from cullavo_tpu_torch.trainer.xdecoder_step import make_xdecoder_joint_train_step
 from cullavo_tpu_torch.utils import constants
+from cullavo_tpu_torch.utils.tree import tree_map
 
 
 def _device(device):
@@ -307,22 +317,17 @@ def train(cfg: dict, device=None) -> dict:
 
 def _resolve_class_names(ds_name: str, md: dict) -> list:
     """A dataset's class vocabulary: its ``class_names`` metadata, else the
-    COCO panoptic table for a name with "coco" in it.  Anything else raises:
-    the JAX entry's other tables wait for the slices that train on them, and
-    its last resort, COCO's names for any dataset, is a silent fallback the
-    port does not copy."""
+    table its ``class_names_key`` names (bulk registration writes one), else
+    the table of a fragment of its name (``constants.class_names_for``).
+    Anything else raises: the JAX entry's last resort, COCO's names for any
+    dataset, is a silent fallback the port does not copy."""
     if md.get("class_names"):
         return list(md["class_names"])
-    if "coco" in ds_name.lower():
-        return list(constants.COCO_PANOPTIC_CLASSES)
-    raise NotImplementedError(f"no class names for dataset {ds_name!r}: give CLASS_NAMES (the "
-                              "JAX entry's other tables wait for their slices)")
-
-
-def _normalize_np(img: np.ndarray) -> np.ndarray:
-    """uint8 [H, W, 3] -> the X-Decoder's normalized f32, on the host."""
-    return ((img.astype(np.float32) - np.asarray(PIXEL_MEAN, np.float32))
-            / np.asarray(PIXEL_STD, np.float32))
+    key = md.get("class_names_key") or constants.class_names_key_for(ds_name)
+    if key is None:
+        raise ValueError(f"no class names for dataset {ds_name!r}: give CLASS_NAMES, or a "
+                         "name with a fragment of constants._DATASET_CLASS_KEYS")
+    return constants.class_names_by_key(key)
 
 
 def train_xdecoder(cfg: dict, device=None):
@@ -389,7 +394,7 @@ def train_xdecoder(cfg: dict, device=None):
         for mapped in full_batches(rng_np.permutation(len(records))):
             batch = collate_joint(mapped, tokenize, class_names, rng_np,
                                   max_instances=int(cfg.get("MAX_INSTANCES", 20)))
-            batch["image"] = np.stack([_normalize_np(m["image"]) for m in mapped])
+            batch["image"] = np.stack([normalize_np(m["image"]) for m in mapped])
             batch["class_ids"], batch["class_mask"] = cls_ids, cls_mask
             state, metrics = step_fn(state, batch, generator)
             metrics = {k: float(v) for k, v in metrics.items()}
@@ -412,13 +417,17 @@ def _dataset_names(cfg: dict) -> list:
 
 
 def _make_text_tokenize(cfg: dict, text_cfg):
-    """``tokenize(texts) -> (ids, mask)`` padded to the context length: the
-    deterministic md5 word hash of the smoke mode (a CLIP BPE tokenizer,
-    ``MODEL.TEXT.TOKENIZER``, waits for the checkpoint slice)."""
-    if ((cfg.get("MODEL") or {}).get("TEXT") or {}).get("TOKENIZER"):
-        raise NotImplementedError("MODEL.TEXT.TOKENIZER (the CLIP BPE tokenizer) waits for the "
-                                  "checkpoint slice; leave it unset for the hash tokenizer")
+    """``tokenize(texts) -> (ids, mask)`` int32, padded to the context
+    length: the CLIP BPE tokenizer of ``MODEL.TEXT.TOKENIZER`` (HF's CLIP
+    layout, read by ``data.clip_tokenizer``), else the deterministic md5
+    word hash of the smoke mode."""
     T, V = text_cfg.context_length, text_cfg.vocab_size
+    path = ((cfg.get("MODEL") or {}).get("TEXT") or {}).get("TOKENIZER")
+    if path:
+        tk = CLIPTokenizer.from_dir(path)
+        if len(tk.vocab) > V:
+            raise ValueError(f"{path}: {len(tk.vocab)} tokens for a text encoder of {V}")
+        return lambda texts: tk(list(texts), T)
 
     def _word_id(w: str) -> int:
         # md5, not hash(): the same table in every process and run
@@ -438,36 +447,80 @@ def _make_text_tokenize(cfg: dict, text_cfg):
     return tokenize
 
 
+def _read_reference_state(path: str) -> dict:
+    """A reference-layout state dict file -> {key: f32 numpy}: a torch
+    file (``.pt``, ``.pth``, ``.bin``; its ``model`` sub-dict when it has
+    one) or an ``.npz``."""
+    if path.endswith((".pt", ".pth", ".bin")):
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(raw, dict) and isinstance(raw.get("model"), dict):
+            raw = raw["model"]
+        return {k: v.float().numpy() for k, v in raw.items() if isinstance(v, torch.Tensor)}
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k].astype(np.float32) for k in z.files}
+
+
 def _load_xdecoder_params(cfg: dict, model_cfg, device):
-    """Random weights from seed 0 (smoke mode); ``RESUME_FROM`` waits for
-    the checkpoint slice."""
-    if cfg.get("RESUME_FROM"):
-        raise NotImplementedError("RESUME_FROM (X-Decoder checkpoints) waits for the "
-                                  "checkpoint slice")
-    print("[entry] no RESUME_FROM: random weights (smoke mode)", file=sys.stderr)
-    return init_xdecoder_model_params(model_cfg, torch.Generator(device=device).manual_seed(0),
-                                      device)
+    """The model's parameters on ``device``: random from seed 0 without
+    ``RESUME_FROM`` (smoke mode); else the checkpoint it names, every leaf
+    of the model read from it (``checkpoint.xdecoder_import``; a missing,
+    extra or misshapen leaf raises): a directory of the port's own store
+    (``step_{N}/`` of an X-Decoder ``train``; its ``params``), or a
+    reference-layout state dict file.  ``DTYPE: bfloat16`` casts them."""
+    params = init_xdecoder_model_params(model_cfg, torch.Generator(device=device).manual_seed(0),
+                                        device)
+    resume = cfg.get("RESUME_FROM")
+    if not resume:
+        print("[entry] no RESUME_FROM: random weights (smoke mode)", file=sys.stderr)
+    elif os.path.isdir(resume):
+        state = load_checkpoint(resume)
+        params = align_and_update(params, state.get("params", state))
+    else:
+        state = _read_reference_state(resume)
+        unused = unused_keys(state, model_cfg)
+        if unused:
+            print(f"[entry] {resume}: {len(unused)} keys the model does not read, e.g. "
+                  f"{unused[:4]}", file=sys.stderr)
+        params = align_and_update(params, import_xdecoder_checkpoint(state, model_cfg))
+    dtype = str(cfg.get("DTYPE") or "float32")
+    if dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"DTYPE {dtype!r}: float32 or bfloat16")
+    if dtype == "bfloat16":
+        params = tree_map(lambda t: t.to(torch.bfloat16), params)
+    return params
 
 
 def register_datasets_from_cfg(cfg: dict) -> None:
-    """``DATASETS.REGISTER: {name: {KIND: ..., ...}}`` for four kinds:
-    ``vqa`` (``QUESTIONS_JSON``, ``ANNOTATIONS_JSON``, ``IMAGE_DIR``,
+    """The bulk table under a ``DETECTRON2_DATASETS`` / ``DATASET`` root
+    (``datasets.register_all_segmentation``), then ``DATASETS.REGISTER:
+    {name: {KIND: ..., ...}}`` for six kinds: ``semseg`` (``IMAGE_DIR``,
+    ``ANN_DIR``, ``IMAGE_EXT``, ``NUM_CLASSES``, ``IGNORE_LABEL``,
+    ``CLASS_NAMES``, ``TASKS``), ``refcoco`` (``REFS_JSON``,
+    ``INSTANCES_JSON``, ``IMAGE_DIR``, ``SPLIT``), ``vqa``
+    (``QUESTIONS_JSON``, ``ANNOTATIONS_JSON``, ``IMAGE_DIR``,
     ``IMAGE_TEMPLATE``), ``coco_panoptic`` (``JSON``, ``IMAGE_DIR``,
     ``PANOPTIC_DIR``, ``NUM_CLASSES``, ``CLASS_NAMES``, ``TASKS``),
     ``coco_panoptic_caption_grounding`` (those of ``coco_panoptic`` but
     ``TASKS``, plus ``CAPTION_JSON``, ``GROUNDING_JSON`` and ``LVIS_JSON``)
-    and ``conversations`` (``JSON``, ``IMAGE_ROOT``:
-    ``load_conversation_json``, read when the dataset is first asked for).
-    The other kinds and the bulk registration from a
-    ``DETECTRON2_DATASETS`` / ``DATASET`` root raise: they wait for the
-    slices that use them (the JAX entry swallows the bulk errors)."""
+    and ``conversations`` (``JSON``, ``IMAGE_ROOT``).  Loaders run when a
+    dataset is first asked for; ``imagenet`` raises (its slice)."""
     root = os.environ.get("DETECTRON2_DATASETS") or os.environ.get("DATASET")
     if root and os.path.isdir(root):
-        raise NotImplementedError(f"bulk dataset registration from {root!r} waits for the "
-                                  "X-Decoder data slice; unset DETECTRON2_DATASETS / DATASET")
+        register_all_segmentation(root)
     for name, spec in dict((cfg.get("DATASETS") or {}).get("REGISTER") or {}).items():
         kind = spec.get("KIND", "semseg")
-        if kind == "coco_panoptic":
+        if kind == "semseg":
+            register_dataset(
+                name, (lambda d=spec["IMAGE_DIR"], a=spec["ANN_DIR"],
+                       e=spec.get("IMAGE_EXT", ".jpg"): load_semseg_pairs(d, a, image_ext=e)),
+                {"num_classes": int(spec.get("NUM_CLASSES", 133)),
+                 "ignore_label": int(spec.get("IGNORE_LABEL", 255)),
+                 "class_names": list(spec.get("CLASS_NAMES", [])) or None,
+                 "tasks": spec.get("TASKS")})
+        elif kind == "refcoco":
+            register_refcoco(name, spec["REFS_JSON"], spec["INSTANCES_JSON"], spec["IMAGE_DIR"],
+                             split=spec.get("SPLIT", "val"))
+        elif kind == "coco_panoptic":
             register_coco_panoptic(
                 name, spec["JSON"], spec["IMAGE_DIR"], spec["PANOPTIC_DIR"],
                 metadata={"num_classes": int(spec.get("NUM_CLASSES", 133)),
@@ -488,9 +541,11 @@ def register_datasets_from_cfg(cfg: dict) -> None:
                   else {})
             register_vqa(name, spec["QUESTIONS_JSON"], spec.get("ANNOTATIONS_JSON"),
                          spec["IMAGE_DIR"], **kw)
+        elif kind == "imagenet":
+            raise NotImplementedError(f"DATASETS.REGISTER kind 'imagenet' ({name}) waits for the "
+                                      "ImageNet eval slice")
         else:
-            raise NotImplementedError(f"DATASETS.REGISTER kind {kind!r} ({name}): only 'vqa', "
-                                      "'coco_panoptic' and 'conversations' are ported")
+            raise ValueError(f"unknown DATASETS.REGISTER KIND {kind!r} ({name})")
 
 
 def _eval_vl(cfg: dict, device) -> dict:
@@ -566,16 +621,65 @@ def _eval_vl_zoo(cfg: dict, zoo: str, device) -> dict:
     return results
 
 
+def _eval_tasks(ds_name: str, md: dict) -> EvalTasks:
+    """The semantic / instance / panoptic switches: the dataset's ``TASKS``
+    (a list of names or a dict of flags; other keys dropped), else the
+    reference's per-dataset table, else semantic only."""
+    t = md.get("tasks")
+    if isinstance(t, (list, tuple)):
+        t = {k: True for k in t}
+    if t:
+        known = {"semantic", "instance", "panoptic"}
+        return EvalTasks(**{str(k).lower(): bool(v) for k, v in dict(t).items()
+                            if str(k).lower() in known})
+    return tasks_for_dataset(ds_name, default=EvalTasks(semantic=True))
+
+
 def _eval_xdecoder(cfg: dict, device) -> dict:
     """The xdecoder workload: the model, its weights and the text tokenizer
-    from the config, then ``XDecoderPipeline`` per ``DATASETS.TEST`` entry."""
+    from the config, then per ``DATASETS.TEST`` entry (``LIMIT`` rows,
+    ``EVAL_BATCH``, ``SAVE_DIR``): a dataset with "ref" in its name, or
+    whose rows carry ``text``, through ``RefCOCOPipeline``; any other
+    through ``XDecoderPipeline`` with its class names' prompt-ensembled
+    embeddings, ``PanopticEvalMapper`` for panoptic records else
+    ``SemSegEvalMapper``, and the thing ids of its segments.  Returns the
+    metric dicts by dataset.  Retrieval and captioning datasets raise."""
     model_cfg = xdecoder_model_config_from(cfg)
-    _load_xdecoder_params(cfg, model_cfg, device)
-    _make_text_tokenize(cfg, model_cfg.text)
-    if _dataset_names(cfg):
-        raise NotImplementedError("DATASETS.TEST for the X-Decoder: its dataset kinds and eval "
-                                  "mappers wait for the X-Decoder data slice")
-    return {}
+    params = _load_xdecoder_params(cfg, model_cfg, device)
+    tokenize = _make_text_tokenize(cfg, model_cfg.text)
+    limit = int(cfg.get("LIMIT", 0)) or None
+    out_dir = cfg.get("SAVE_DIR")
+    eval_batch = int(cfg.get("EVAL_BATCH", 8))
+    results = {}
+    for ds_name in _dataset_names(cfg):
+        every = get_dataset(ds_name)
+        records = every[:limit]
+        md = get_metadata(ds_name) or {}
+        if md.get("evaluator_type") in ("retrieval", "captioning") or ds_name.startswith("vlp"):
+            raise NotImplementedError(f"{ds_name}: retrieval and captioning eval wait for the VLP "
+                                      "slice (a port-owned Arrow IPC reader)")
+        if "ref" in ds_name or (records and "text" in records[0]):
+            pipe = build_pipeline("RefCOCOPipeline", cfg, model_cfg=model_cfg, params=params,
+                                  tokenize=tokenize, eval_batch=eval_batch)
+            results[ds_name] = pipe.evaluate_model(map(RefCOCOEvalMapper(), records),
+                                                   out_dir=out_dir)
+            continue
+        with torch.inference_mode():
+            text_embeds = class_embeddings_ensembled(params["text"], model_cfg.text, tokenize,
+                                                     _resolve_class_names(ds_name, md),
+                                                     add_background=True)
+        panoptic = bool(records and "pan_seg_file_name" in records[0])
+        mapper = PanopticEvalMapper() if panoptic else SemSegEvalMapper()
+        thing_ids = frozenset(s["category_id"] for r in every if panoptic
+                              for s in r["segments_info"] if s.get("isthing", True))
+        pipe = build_pipeline("XDecoderPipeline", cfg, model_cfg=model_cfg, params=params,
+                              text_class_embeds=text_embeds, tasks=_eval_tasks(ds_name, md),
+                              eval_batch=eval_batch)
+        out = pipe.evaluate_model(map(mapper, records), thing_ids=thing_ids)
+        # the metrics only: the per-image outputs stay out of the report
+        results[ds_name] = {k: v for k, v in out.items()
+                            if k not in ("panoptic_outputs", "instance_outputs")}
+    return results
 
 
 STEP2_PRE_QUESTION = ("provide multiple object names with their numbering index and the "

@@ -4,13 +4,15 @@
 the dense eval forward, and the semantic / panoptic / instance inferences.
 
 ``forward_eval`` takes images ``[B, H, W, 3]`` as JAX does and runs the
-trunk channels-first in the parameters' dtype.  The per-pixel parts of the
+trunk channels-first in the parameters' dtype; ``evaluate_grounding``
+(referring segmentation) runs the decoder's grounding slots on the same
+trunk.  The per-pixel parts of the
 inferences (``semantic_inference_argmax``, ``panoptic_inference_device``,
 ``instance_inference_device``) run on the tensors' device, so only compact
 maps and Q-sized vectors reach the host; ``panoptic_assemble_host`` and
 ``unpack_mask_planes`` are their numpy tails.  Training: the seg forward
 (``forward_seg_train``) and the joint objective (``forward_joint_train``)
-through ``criterion.set_criterion``.  The VLP-only forward, grounding,
+through ``criterion.set_criterion``.  The VLP-only forward,
 classification and retrieval eval, and the DaViT backbone wait for their
 slices and raise.
 """
@@ -28,7 +30,7 @@ from cullavo_tpu_torch.models.xdecoder.criterion import (CriterionConfig, loss_c
                                                          loss_groundings, match_groundings,
                                                          set_criterion)
 from cullavo_tpu_torch.models.xdecoder.decoder import (XDecoderConfig, init_xdecoder_params,
-                                                       resize, xdecoder_forward)
+                                                       l2_normalize, resize, xdecoder_forward)
 from cullavo_tpu_torch.models.xdecoder.deform_encoder import (DeformEncoderConfig,
                                                               deform_encoder_forward,
                                                               init_deform_encoder_params)
@@ -469,6 +471,39 @@ def forward_joint_train(params, cfg: XDecoderModelConfig, batch, generator, data
     return losses
 
 
+def evaluate_grounding(params, cfg: XDecoderModelConfig, images, text_ids, text_mask,
+                       out_size: Optional[tuple] = None):
+    """Referring segmentation: one phrase per image (``text_ids`` /
+    ``text_mask`` [B, L] or [B, 1, L]); its token embeddings (through
+    ``lang_proj``) ride in the decoder's grounding slots, and the answer is
+    the grounding query whose caption embedding is closest (cosine) to the
+    phrase's sentence embedding.  Returns its mask logits [B, h, w],
+    resized (bicubic, antialiased) to ``out_size`` when given."""
+    B = images.shape[0]
+    dev = params["text"]["token_embedding"].device
+    text_ids = torch.as_tensor(text_ids, device=dev)
+    text_mask = torch.as_tensor(text_mask, device=dev)
+    L = text_ids.shape[-1]
+    token_emb, class_emb = te.forward_language_token(params["text"], cfg.text,
+                                                     text_ids.reshape(-1, L),
+                                                     text_mask.reshape(-1, L), norm=False)
+    mask_features, pyramid = backbone_and_pixel_decoder(params, cfg, images)
+    out = xdecoder_forward(params["decoder"], cfg.decoder, pyramid, mask_features,
+                           grounding_tokens=token_emb.reshape(B, -1, token_emb.shape[-1]),
+                           grounding_token_mask=text_mask.reshape(B, -1), task="grounding_eval")
+    nq = cfg.decoder.num_queries
+    # the grounding queries' outputs sit in slots [nq, 2 nq - 1)
+    g_masks = out["pred_masks"][:, nq:]
+    v = l2_normalize(out["pred_captions"][:, nq:])
+    t = l2_normalize(class_emb.reshape(B, -1, class_emb.shape[-1]))
+    best = torch.argmax(torch.einsum("bqd,btd->bqt", v, t)[..., 0], dim=-1)
+    picked = torch.gather(g_masks, 1, best[:, None, None, None].expand(
+        B, 1, *g_masks.shape[2:]))
+    if out_size is not None:
+        picked = resize(picked, out_size, "bicubic")
+    return picked[:, 0]
+
+
 def _waits(what):
     def fn(*args, **kwargs):
         raise NotImplementedError(f"{what} waits for a later part of the X-Decoder slice")
@@ -477,6 +512,5 @@ def _waits(what):
 
 
 forward_vlp_train = _waits("forward_vlp_train")
-evaluate_grounding = _waits("evaluate_grounding")
 evaluate_classification = _waits("evaluate_classification")
 evaluate_retrieval_embedding = _waits("evaluate_retrieval_embedding")

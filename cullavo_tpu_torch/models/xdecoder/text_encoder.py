@@ -8,7 +8,8 @@ embeddings (``forward_language_token``) and the train-time class
 embeddings (one random template per class).
 
 Parameters keep the JAX layout: stacked ``[L, ...]`` layer leaves, linear
-weights ``[in, out]``.  The HF CLIP import waits for its slice and raises.
+weights ``[in, out]``.  ``import_hf_clip_text`` maps an HF CLIP text state
+dict onto them (``clip_text_config`` gives its geometry).
 """
 from __future__ import annotations
 
@@ -177,5 +178,49 @@ def class_embeddings_train(params, cfg, tokenize, class_names, rng: np.random.Ge
                             torch.as_tensor(np.asarray(mask), device=dev), norm=True)
 
 
-def import_hf_clip_text(*args, **kwargs):
-    raise NotImplementedError("import_hf_clip_text waits for the checkpoint slice")
+def clip_text_config(width: int = 768, heads: int = 12, layers: int = 12,
+                     dim_lang: int = 768) -> TextEncoderConfig:
+    """HF ``CLIPTextModelWithProjection`` geometry (CLIP-L/336 defaults);
+    HF's LayerNorms use eps 1e-5, the reference's own text tower 1e-12."""
+    return TextEncoderConfig(width=width, heads=heads, layers=layers, dim_lang=dim_lang,
+                             layer_norm_eps=1e-5)
+
+
+def import_hf_clip_text(state, cfg: TextEncoderConfig, device="cpu") -> dict:
+    """An HF ``CLIPModel`` / ``CLIPTextModelWithProjection`` state dict
+    (numpy arrays or tensors) -> the text encoder's parameters on
+    ``device``: q, k, v packed into ``qkv``, linear weights transposed; a
+    state without ``logit_scale`` (a text-only export) gets 0 (scale 1)."""
+    sd = {k.replace("text_model.", ""): np.asarray(v, np.float32) for k, v in state.items()}
+
+    def stack(fmt, transpose=False):
+        return np.stack([sd[fmt.format(i)].T if transpose else sd[fmt.format(i)]
+                         for i in range(cfg.layers)])
+
+    enc = "encoder.layers.{}."
+    qkv_w = np.concatenate([stack(enc + f"self_attn.{n}_proj.weight", True) for n in "qkv"],
+                           axis=2)
+    qkv_b = np.concatenate([stack(enc + f"self_attn.{n}_proj.bias") for n in "qkv"], axis=1)
+    params = {
+        "token_embedding": sd["embeddings.token_embedding.weight"],
+        "positional_embedding": sd["embeddings.position_embedding.weight"],
+        "layers": {
+            "ln1_s": stack(enc + "layer_norm1.weight"), "ln1_b": stack(enc + "layer_norm1.bias"),
+            "qkv_w": qkv_w, "qkv_b": qkv_b,
+            "o_w": stack(enc + "self_attn.out_proj.weight", True),
+            "o_b": stack(enc + "self_attn.out_proj.bias"),
+            "ln2_s": stack(enc + "layer_norm2.weight"), "ln2_b": stack(enc + "layer_norm2.bias"),
+            "fc_w": stack(enc + "mlp.fc1.weight", True), "fc_b": stack(enc + "mlp.fc1.bias"),
+            "proj_w": stack(enc + "mlp.fc2.weight", True), "proj_b": stack(enc + "mlp.fc2.bias"),
+        },
+        "ln_final": {"scale": sd["final_layer_norm.weight"], "bias": sd["final_layer_norm.bias"]},
+        "lang_proj": sd["text_projection.weight"].T,
+        "logit_scale": sd.get("logit_scale", np.zeros((), np.float32)).reshape(()),
+    }
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return torch.from_numpy(np.array(node, np.float32)).to(device)
+
+    return conv(params)

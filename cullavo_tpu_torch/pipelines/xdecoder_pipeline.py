@@ -9,13 +9,22 @@ Per batch, everything per pixel stays on the device, as in JAX's fused
 program: the bicubic upsample to the bucket, the semantic argmax map, the
 panoptic winner maps with their per-query counts and the instance bit
 planes; only those compact tensors cross to the host, where the panoptic
-seg-id loop and the metrics run.  ``RefCOCOPipeline`` (grounding eval)
-waits for the captioning/grounding slice.
+seg-id loop and the metrics run.
+
+``RefCOCOPipeline`` is the referring-segmentation eval: one phrase per
+row through ``evaluate_grounding``, rows grouped by image bucket and text
+length (a multiple of 16, capped at the text encoder's context), batched
+(a short batch padded with zero images that repeat row 0's phrase; their
+outputs are not read), cIoU / mIoU / precision@tau in total and per
+category, ``ref_coco.csv`` under ``out_dir``, and timing as
+``XDecoderPipeline``'s.
 """
 from __future__ import annotations
 
 import collections
+import csv
 import dataclasses
+import os
 import time
 from typing import Iterable, Optional
 
@@ -23,7 +32,8 @@ import numpy as np
 import torch
 
 from cullavo_tpu_torch.data.evaluation.evaluators import InstanceSegEvaluator, PanopticEvaluator
-from cullavo_tpu_torch.models.xdecoder.model import (XDecoderModelConfig, forward_eval,
+from cullavo_tpu_torch.models.xdecoder.model import (XDecoderModelConfig, evaluate_grounding,
+                                                     forward_eval,
                                                      instance_inference_device,
                                                      panoptic_assemble_host,
                                                      panoptic_inference_device,
@@ -57,7 +67,9 @@ _NO_SEG = {"vlp_val", "vlp_captioning_val", "vlp_val2017",
            "vqav2_test", "vqav2_test-dev", "vqav2_val", "sharegpt4v"}
 
 
-def tasks_for_dataset(name: str) -> EvalTasks:
+def tasks_for_dataset(name: str, default: Optional[EvalTasks] = None) -> EvalTasks:
+    """The reference's per-dataset switches; a name it does not define
+    gives ``default``, or raises ValueError without one."""
     if name in _SEM_ONLY:
         return EvalTasks(semantic=True, instance=False, panoptic=False)
     if name in _INST_ONLY or "seginw" in name:
@@ -68,6 +80,8 @@ def tasks_for_dataset(name: str) -> EvalTasks:
         return EvalTasks(semantic=True, instance=True, panoptic=True)
     if name in _NO_SEG:
         return EvalTasks(semantic=False, instance=False, panoptic=False)
+    if default is not None:
+        return default
     raise ValueError(f"dataset switcher is not defined for {name!r}")
 
 
@@ -132,6 +146,21 @@ def _bucket_hw(h: int, w: int, step: int = 128) -> tuple:
     return (-(-h // step) * step, -(-w // step) * step)
 
 
+def _timing(data_t, compute_t, eval_t, n_images, batch, warmup) -> dict:
+    """Per-batch means over the batches after the first ``warmup`` ones,
+    and the images per second over them."""
+    w = min(warmup, max(len(compute_t) - 1, 0))
+    out = {"data_s": float(np.mean(data_t[w:])) if data_t[w:] else 0.0,
+           "compute_s": float(np.mean(compute_t[w:])) if compute_t[w:] else 0.0,
+           "eval_s": float(np.mean(eval_t[w:])) if eval_t[w:] else 0.0,
+           "eval_batch": batch}
+    total = sum(data_t[w:]) + sum(compute_t[w:]) + sum(eval_t[w:])
+    imgs = max(n_images - w * batch, 0)
+    if total > 0 and imgs > 0:
+        out["images_per_s"] = imgs / total
+    return out
+
+
 @register_pipeline("XDecoderPipeline")
 class XDecoderPipeline:
     def __init__(self, cfg, model_cfg: XDecoderModelConfig, params, text_class_embeds,
@@ -144,6 +173,11 @@ class XDecoderPipeline:
         self.bucket_step = bucket_step
         self.eval_batch = max(1, int(eval_batch))
         self.device = params["decoder"]["query_feat"].device
+        # the classes scored are the class embeddings' (the background row
+        # last), which may be more than the config's NUM_CLASSES: the JAX
+        # pipeline counts the config's, and a 150-class dataset under a
+        # 133-class config overflows its confusion matrix there
+        self.num_classes = int(text_class_embeds.shape[0]) - 1
 
     @torch.inference_mode()
     def _run_batch(self, img: np.ndarray, hw: np.ndarray, out_size) -> dict:
@@ -164,7 +198,7 @@ class XDecoderPipeline:
                     for j in range(B)]
             out["pan"] = {k: torch.stack([p[k] for p in pans]) for k in pans[0]}
         if tasks.instance:
-            insts = [instance_inference_device(mask_cls[j], mask_pred[j], cfgm.num_classes,
+            insts = [instance_inference_device(mask_cls[j], mask_pred[j], self.num_classes,
                                                cfgm.test_topk_per_image, valid_hw=hw[j])
                      for j in range(B)]
             out["inst"] = {k: torch.stack([p[k] for p in insts]) for k in insts[0]}
@@ -185,10 +219,10 @@ class XDecoderPipeline:
         rows = list(dataset)
         if limit:
             rows = rows[:limit]
-        sem_metrics = SemSegMetrics(self.model_cfg.num_classes)
+        sem_metrics = SemSegMetrics(self.num_classes)
         pan_outputs, inst_outputs = [], []
         inst_metrics = InstanceSegEvaluator() if self.tasks.instance else None
-        pan_metrics = PanopticEvaluator(self.model_cfg.num_classes) if self.tasks.panoptic else None
+        pan_metrics = PanopticEvaluator(self.num_classes) if self.tasks.panoptic else None
         data_t, compute_t, eval_t = [], [], []
         n_images = 0
         t_last = time.perf_counter()
@@ -254,23 +288,97 @@ class XDecoderPipeline:
             out["instance_outputs"] = inst_outputs
             if inst_metrics.n_gt:
                 out["instance_ap"] = inst_metrics.results()
-        w = min(warmup, max(len(compute_t) - 1, 0))
-        out["timing"] = {
-            # per-batch means over the batches after the warm-up ones
-            "data_s": float(np.mean(data_t[w:])) if data_t[w:] else 0.0,
-            "compute_s": float(np.mean(compute_t[w:])) if compute_t[w:] else 0.0,
-            "eval_s": float(np.mean(eval_t[w:])) if eval_t[w:] else 0.0,
-            "eval_batch": self.eval_batch,
-        }
-        total = sum(data_t[w:]) + sum(compute_t[w:]) + sum(eval_t[w:])
-        imgs = max(n_images - w * self.eval_batch, 0)
-        if total > 0 and imgs > 0:
-            out["timing"]["images_per_s"] = imgs / total
+        out["timing"] = _timing(data_t, compute_t, eval_t, n_images, self.eval_batch, warmup)
         return out
 
 
 @register_pipeline("RefCOCOPipeline")
 class RefCOCOPipeline:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("RefCOCOPipeline (grounding eval) waits for the "
-                                  "captioning/grounding slice")
+    def __init__(self, cfg, model_cfg: XDecoderModelConfig, params, tokenize,
+                 eval_batch: int = 8):
+        self.cfg = cfg
+        self.model_cfg = model_cfg
+        self.params = params
+        self.tokenize = tokenize
+        self.eval_batch = max(1, int(eval_batch))
+        self.device = params["decoder"]["query_feat"].device
+        self.total = GroundingMetrics()
+        self.per_class: dict = {}
+
+    def _prep(self, row):
+        """row -> (image bucket, text length, ids [L], mask [L])."""
+        ids, mask = self.tokenize([row["text"]])
+        ids, mask = np.asarray(ids).reshape(-1), np.asarray(mask).reshape(-1)
+        tlen = min(-(-max(len(ids), 1) // 16) * 16, self.model_cfg.text.context_length)
+        if len(ids) >= tlen:
+            ids, mask = ids[:tlen], mask[:tlen]
+        else:
+            ids, mask = np.pad(ids, (0, tlen - len(ids))), np.pad(mask, (0, tlen - len(mask)))
+        h, w = row["image"].shape[:2]
+        return _bucket_hw(h, w), tlen, ids, mask
+
+    @torch.inference_mode()
+    def _run_batch(self, img, ids, mask, out_size) -> np.ndarray:
+        pred = evaluate_grounding(self.params, self.model_cfg,
+                                  torch.as_tensor(img, device=self.device), ids, mask,
+                                  out_size=out_size)
+        return pred.float().cpu().numpy()
+
+    def evaluate_model(self, dataset: Iterable[dict], limit: Optional[int] = None,
+                       out_dir: Optional[str] = None, warmup: int = 1) -> dict:
+        """dataset rows: {"image" [H, W, 3] float (normalized), "text",
+        "gt_mask" [H, W], optional "category"}.  Returns cIoU, mIoU and
+        precision@{0.5, ..., 0.9} over every row, and "timing"."""
+        rows = list(dataset)
+        if limit:
+            rows = rows[:limit]
+        prepped = [self._prep(r) for r in rows]
+        by_bucket = collections.OrderedDict()
+        for i, (ib, tb, _, _) in enumerate(prepped):
+            by_bucket.setdefault((ib, tb), []).append(i)
+        B = self.eval_batch
+        data_t, compute_t, eval_t = [], [], []
+        n_images = 0
+        t_last = time.perf_counter()
+        for ((bh, bw), tlen), idxs in by_bucket.items():
+            for off in range(0, len(idxs), B):
+                group = idxs[off:off + B]
+                first = rows[group[0]]["image"]
+                img = np.zeros((B, bh, bw, first.shape[2]), first.dtype)
+                ids_b = np.zeros((B, tlen), np.int32)
+                mask_b = np.zeros((B, tlen), np.int32)
+                for j, i in enumerate(group):
+                    r = rows[i]["image"]
+                    img[j, :r.shape[0], :r.shape[1]] = r
+                    ids_b[j], mask_b[j] = prepped[i][2], prepped[i][3]
+                # pad rows repeat row 0's phrase (all-zero ids would send the
+                # text encoder's argmax pooling to position 0)
+                ids_b[len(group):], mask_b[len(group):] = ids_b[0], mask_b[0]
+                t0 = time.perf_counter()
+                data_t.append(t0 - t_last)
+                pred = self._run_batch(img, ids_b, mask_b, (bh, bw))
+                t1 = time.perf_counter()
+                compute_t.append(t1 - t0)
+                n_images += len(group)
+                for j, i in enumerate(group):
+                    row = rows[i]
+                    h, w = row["image"].shape[:2]
+                    p = pred[j][:h, :w]
+                    self.total.add(p, row["gt_mask"])
+                    if row.get("category") is not None:
+                        self.per_class.setdefault(row["category"], GroundingMetrics()).add(
+                            p, row["gt_mask"])
+                t_last = time.perf_counter()
+                eval_t.append(t_last - t1)
+        results = self.total.results()
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            with open(os.path.join(out_dir, "ref_coco.csv"), "w", newline="") as f:
+                w = csv.writer(f)
+                w.writerow(["class"] + list(results))
+                for cls, gm in sorted(self.per_class.items()):
+                    r = gm.results()
+                    w.writerow([cls] + [round(r[k], 2) for k in results])
+                w.writerow(["TOTAL"] + [round(results[k], 2) for k in results])
+        results["timing"] = _timing(data_t, compute_t, eval_t, n_images, B, warmup)
+        return results

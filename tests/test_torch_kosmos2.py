@@ -28,7 +28,7 @@ from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
 from cullavo_tpu_torch.models import kosmos2 as tk
 from cullavo_tpu_torch.ops import flash_attention as fa
 from cullavo_tpu_torch.pipelines import vl_zoo_pipeline as t_zoo
-from test_torch_zoo import QUESTIONS, vqa_files, zoo_cfg  # noqa: F401 (fixture)
+from test_torch_zoo import QUESTIONS, jit_decode, vqa_files, zoo_cfg  # noqa: F401 (fixture)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -43,6 +43,19 @@ def _two_threads():
 
 CFG = jk.tiny_kosmos2_config()
 N_IMG = CFG.latent_query_num
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jitted_jax_decoder():
+    """JAX's KOSMOS-2 greedy decode and initializer jitted for this file
+    (``test_torch_zoo.jit_decode``; the answerer and the zoo entry import
+    them from their module at call time); the originals back afterwards."""
+    gen, init = jk.kosmos2_generate, jk.init_kosmos2_params
+    jk.kosmos2_generate = jit_decode(gen, ("cfg", "max_new_tokens", "eos_token_id",
+                                           "compute_dtype"))
+    jk.init_kosmos2_params = jit_decode(init, ("cfg", "dtype"))
+    yield
+    jk.kosmos2_generate, jk.init_kosmos2_params = gen, init
 
 
 @pytest.fixture(scope="module")

@@ -104,6 +104,8 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.models.xdecoder.criterion",
     "cullavo_tpu_torch.data.coco_caption_grounding",
     "cullavo_tpu_torch.trainer.xdecoder_step",
+    "cullavo_tpu_torch.data.clip_tokenizer",
+    "cullavo_tpu_torch.checkpoint.xdecoder_import",
 )
 
 
@@ -1788,3 +1790,37 @@ def test_cuda_split_k_launch_on_a_second_stream_raises(cuda_device):
         with pytest.raises(RuntimeError, match="belong to stream"):
             nf4.nf4_linear_planar(x, q)
     assert torch.equal(nf4.nf4_linear_planar(x, q), y)
+
+
+@pytest.mark.cuda
+def test_cuda_evaluate_grounding_matches_cpu(cuda_device):
+    """``evaluate_grounding`` on the tiny X-Decoder in f32: the card (K10 in
+    every FocalNet block) against the CPU (the plain versions), mask logits
+    within 1e-3 of their largest entry; a reference-layout round trip of
+    its weights is bit-equal."""
+    from cullavo_tpu_torch.checkpoint import xdecoder_import as xi
+    from cullavo_tpu_torch.models.xdecoder import model as xm
+    from cullavo_tpu_torch.ops import focal
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = xm.tiny_xdecoder_config()
+    params = xm.init_xdecoder_model_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    state = {k: v.numpy() for k, v in xi.reference_state_from_params(params, cfg).items()}
+    on_card = xi.align_and_update(
+        xm.init_xdecoder_model_params(cfg, torch.Generator(device=cuda_device).manual_seed(1),
+                                      cuda_device),
+        xi.import_xdecoder_checkpoint(state, cfg))
+    g = torch.Generator().manual_seed(2)
+    images = torch.randn((2, 96, 128, 3), generator=g)
+    ids = torch.randint(2, cfg.text.vocab_size - 1, (2, cfg.text.context_length), generator=g)
+    ids[:, -1] = cfg.text.vocab_size - 1
+    mask = torch.ones_like(ids)
+    with torch.inference_mode():
+        want = xm.evaluate_grounding(params, cfg, images, ids, mask, out_size=(96, 128))
+        n0 = focal.focal_ctx_kernel.launches
+        got = xm.evaluate_grounding(on_card, cfg, images.to(cuda_device), ids, mask,
+                                    out_size=(96, 128))
+    assert focal.focal_ctx_kernel.launches == n0 + sum(cfg.backbone.depths)
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= 1e-3 * want.abs().max().item(), err

@@ -418,9 +418,9 @@ def test_evaluate_vl_test_keeps_raising_for_the_zoo_and_topics():
                          ({"TOPIC": "tiny"}, "VL-zoo")):
         with pytest.raises(NotImplementedError, match=match):
             t_entry.evaluate({"NAME": "vl_test", "MODEL": model}, device="cpu")
-    with pytest.raises(NotImplementedError, match="only 'vqa'"):
+    with pytest.raises(NotImplementedError, match="ImageNet"):
         t_entry.evaluate({"NAME": "vl_test", "DATASETS": {"REGISTER": {
-            "x": {"KIND": "semseg", "IMAGE_DIR": "i", "ANN_DIR": "a"}}}}, device="cpu")
+            "x": {"KIND": "imagenet", "ROOT": "i"}}}}, device="cpu")
 
 
 # ---------------------------------------------------------------------------

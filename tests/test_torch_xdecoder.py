@@ -427,8 +427,7 @@ def test_tasks_for_dataset_matches_jax():
     with pytest.raises(ValueError):
         tpipe.tasks_for_dataset("no_such_set")
     assert tpipe._bucket_hw(480, 640) == jpipe._bucket_hw(480, 640) == (512, 640)
-    with pytest.raises(NotImplementedError, match="grounding"):
-        tpipe.RefCOCOPipeline(None, None, None, None)
+    assert tpipe.tasks_for_dataset("no_such_set", default=tpipe.EvalTasks()) == tpipe.EvalTasks()
 
 
 # ---------------------------------------------------------------------------
@@ -494,12 +493,13 @@ def test_entry_evaluate_on_cpu():
     cfg = {"NAME": "xdecoder_test", "PIPELINE": "XDecoderPipeline", "MODEL": {"TINY": True},
            "DATASETS": {"TEST": None}}
     assert tentry.evaluate(cfg, device="cpu") == {}
-    with pytest.raises(NotImplementedError, match="data slice"):
+    # an unregistered dataset, a missing checkpoint and a missing tokenizer raise
+    with pytest.raises(KeyError, match="not registered"):
         tentry.evaluate({**cfg, "DATASETS": {"TEST": ["coco_2017_val_panoptic_with_sem_seg"]}},
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint slice"):
+    with pytest.raises(FileNotFoundError):
         tentry.evaluate({**cfg, "RESUME_FROM": "x.pt"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint slice"):
+    with pytest.raises(FileNotFoundError, match="vocab.json"):
         tentry.evaluate({**cfg, "MODEL": {"TINY": True, "TEXT": {"TOKENIZER": "/x"}}},
                         device="cpu")
     assert tentry.evaluate({"NAME": "vl_test"}, device="cpu") == {}   # no DATASETS.TEST

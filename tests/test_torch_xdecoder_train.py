@@ -44,6 +44,7 @@ from cullavo_tpu_torch.checkpoint.from_jax import (xdecoder_params_from_numpy,
                                                    xdecoder_params_to_numpy)
 from cullavo_tpu_torch.data import coco_caption_grounding as tcg
 from cullavo_tpu_torch.data import registry as treg
+from cullavo_tpu_torch.data.mappers.eval_mappers import normalize_np
 from cullavo_tpu_torch.models.xdecoder import model as tmodel
 from cullavo_tpu_torch.ops import focal, msdeform
 from cullavo_tpu_torch.trainer import optimizer as topt
@@ -95,7 +96,7 @@ class Slice:
         mapped = [mapper(r) for r in recs[:B]]
         batch = tcg.collate_joint(mapped, self.tokenize, CLASS_NAMES, np.random.default_rng(3),
                                   max_instances=MAX_INSTANCES)
-        batch["image"] = np.stack([tentry._normalize_np(m["image"]) for m in mapped])
+        batch["image"] = np.stack([normalize_np(m["image"]) for m in mapped])
         batch["class_ids"], batch["class_mask"] = self.tokenize(
             [f"a photo of a {c}." for c in CLASS_NAMES] + ["A background in coco."])
         self.batch = batch

@@ -8,8 +8,11 @@ shared beam search (ties included), ``native_blip2_answer_fn`` and
 ``entry.evaluate`` with ``MODEL.ZOO: blip2``; and the branches that raise.
 
 f32 values agree within 1e-5 (sums in other orders); decoding is
-token-exact.  JAX stages are jitted once per file.
+token-exact.  JAX stages are jitted once per file, the JAX decoders too:
+``jit_decode`` replaces them in their modules for the file (op by op, one
+BLIP-2 answer took ~10-29 s of JAX dispatch on the CPU, jitted ~5 s).
 """
+import inspect
 import json
 
 import numpy as np
@@ -53,6 +56,42 @@ def _two_threads():
 
 CFG = j_cfg.tiny_blip2_config("t5")
 T5 = CFG.text
+
+
+def jit_decode(fn, static):
+    """``fn`` under ``jax.jit``, its arguments bound by name, with ``static``
+    (the config and the decode settings) as static arguments: one compiled
+    program per input shape and setting, shared by every caller."""
+    sig = inspect.signature(fn)
+    jitted = jax.jit(fn, static_argnames=static)
+
+    def call(*args, **kwargs):
+        bound = sig.bind(*args, **kwargs)
+        bound.apply_defaults()
+        return jitted(**bound.arguments)
+
+    return call
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _jitted_jax_decoders():
+    """The JAX package's T5 / BLIP-2 decoders and its BLIP-2 initializer
+    jitted for this file (the answerers and the zoo entry import them from
+    their modules at call time); the originals back afterwards."""
+    saved = [(j_t5, "t5_generate"), (j_t5, "t5_beam_generate"), (j_mod, "blip2_beam_generate"),
+             (j_mod, "init_blip2_params")]
+    originals = [getattr(m, n) for m, n in saved]
+    # the smoke weights of the fixture and of JAX's zoo entry come from this one program
+    j_mod.init_blip2_params = jit_decode(j_mod.init_blip2_params, ("cfg", "dtype"))
+    j_t5.t5_generate = jit_decode(j_t5.t5_generate, ("cfg", "max_new_tokens", "eos_token_id"))
+    j_t5.t5_beam_generate = jit_decode(j_t5.t5_beam_generate, (
+        "cfg", "max_new_tokens", "num_beams", "length_penalty", "eos_token_id"))
+    j_mod.blip2_beam_generate = jit_decode(j_mod.blip2_beam_generate, (
+        "cfg", "max_new_tokens", "num_beams", "length_penalty", "eos_token_id", "pad_token_id",
+        "compute_dtype"))
+    yield
+    for (m, n), f in zip(saved, originals):
+        setattr(m, n, f)
 
 
 @pytest.fixture(scope="module")
@@ -331,7 +370,9 @@ def test_evaluate_zoo_blip2_matches_jax(tmp_path, vqa_files, weights, monkeypatc
     monkeypatch.setattr(t_zoo, "init_blip2_params", lambda cfg, gen, dev: params)
     out = {}
     for pkg, run in (("jax", j_entry.evaluate), ("port", t_entry.evaluate)):
-        cfg = zoo_cfg("blip2", vqa_files, f"zoo_blip2_{pkg}", tmp_path / pkg)
+        # 5 new tokens, as test_native_blip2_answer_fn: JAX's jitted
+        # answers to the questions both ask are compiled once
+        cfg = zoo_cfg("blip2", vqa_files, f"zoo_blip2_{pkg}", tmp_path / pkg, max_new=5)
         res = run(cfg) if pkg == "jax" else run(cfg, device="cpu")
         out[pkg] = res[f"zoo_blip2_{pkg}"]
     assert out["port"] == out["jax"] and out["port"]["n"] == len(QUESTIONS)
