@@ -4,7 +4,8 @@
     python3 chip_smoke.py               # kernels, the 7B serving and train paths, X-Decoder
                                         # eval, vl_test from a written 7B snapshot, the VL
                                         # zoo, the training loop, the matmul probe, X-Decoder
-                                        # training and eval from a checkpoint
+                                        # training and eval from a checkpoint, the VLP eval
+                                        # and DaViT
     python3 chip_smoke.py --profile     # the same + a profiled run of each path
 
 Phases (each raises on failure, and the script exits non-zero):
@@ -64,13 +65,15 @@ Phases (each raises on failure, and the script exits non-zero):
      at a 512² image (value [8, 5376, 8, 64], 3 levels x 4 points), at
      the 512 x 640 bucket's non-square levels and at a ragged Q, points
      partly outside the maps; K10 (the gated focal-modulation context) at
-     each FocalNet-L stage map of the 512² and 512 x 640 buckets, batch 8;
+     each FocalNet-L stage map of the 512² and 512 x 640 buckets and of the
+     VLP eval's 224² (56², 28², 14², 7²: the last under the 9 x 9 level),
+     batch 8;
      both in bf16 (within 1e-2 + 1e-2 |ref|) and f32 (within 1e-5 + 1e-5
      |ref|), K10 with both GELU forms; timed beside a yardstick (K9: one
      ``grid_sample`` per level, the reference's composition; K10: the cuDNN
      depthwise ``conv2d`` chain in bf16, the model's own), K10 per stage with
      the card kept busy ahead of each timed call (host us apart) and summed
-     over one forward.  Then
+     over one forward, at 512² and at 224².  Then
      K11, the byte-packed NF4 kernel, at the three 7B weight shapes: its
      dequant entry bit-equal to ``dequant_linear``, its fused entry (the
      same template as K6) at M = 1, 14, 64, 129 and 511 within 1e-2 + 1e-2
@@ -265,6 +268,30 @@ Phases (each raises on failure, and the script exits non-zero):
      tokenizer seconds per 1000 texts, images/s and compute seconds per
      batch by dataset, peak memory.  The kernels line gains
      ``xdecoder_eval_launches``.
+  17. the X-Decoder's VLP eval and DaViT (in phase 16's working directory,
+     from its FocalNet-L ``.pt`` and CLIP files): (a) a
+     ``DETECTRON2_DATASETS`` root whose ``vlp/pretrain_arrows_code224``
+     holds a karpathy test arrow written by the port's writer (phase 9's 16
+     sizes as PNG bytes, 5-7 captions, two record batches), read back equal;
+     (b) FocalNet-L at full width and cut depth in f32 on two 224² images,
+     card against CPU: ``evaluate_retrieval_embedding`` within 1e-3, greedy
+     ``forward_captioning``'s step logits replayed teacher-forced on the
+     card's ids within 1e-3 of the largest, ids equal where every step's
+     top-2 gap exceeds 0.1; (c) ``python -m cullavo_tpu_torch eval
+     --conf_files configs/xdecoder_test.yaml`` in a subprocess on
+     ``vlp_val`` and ``vlp_captioning_val`` (exit 0, recall in [0, 100],
+     CIDEr / BLEU / ROUGE-L / METEOR_approx finite, 16 captions written);
+     (d) ``entry.evaluate`` on the same arguments in bf16 twice (equal
+     metrics and captions; K10 24 times a forward, 2 retrieval and 2
+     captioning forwards); (e) DaViT-d3: random weights at full width and
+     depth written through the inverse table and read back bit-equal, a
+     cut-depth card-vs-CPU check (res2-res5, class and mask logits within
+     1e-3), then configs/xdecoder/davitd3_unicl_lang.yaml at full depth in
+     bf16 on phase 16's ``semseg`` and ``coco_panoptic`` sets and
+     ``vlp_val`` (metrics in range, no kernel launched); (f) load seconds,
+     retrieval images/s, captioning s a batch and ms a decode step, DaViT-d3
+     images/s and compute s a batch, peak memory.  The kernels line gains
+     ``vlp_eval_launches``.
 The last two lines are the kernels' JSON record and the result line.
 Imports neither JAX nor the JAX package.
 """
@@ -354,6 +381,9 @@ XDEC_FOCAL, XDEC_DEFORM = XDEC_CONFIGS   # the two paths, by config file
 XDEC_BATCH, XDEC_SIDE, XDEC_DATASET = 8, 512, "coco_2017_val_panoptic_with_sem_seg"
 XDEC_SIZES = ((512, 512),) * 12 + ((480, 640),) * 4   # the last four: bucket 512 x 640
 XDEC_CHECK_HW = (256, 320)
+# the VLP eval (phase 17): VLP_IMAGE_SIZE, the karpathy-style arrow's images
+# (phase 9's sizes) and their captions
+VLP_SIDE = 224
 XDEC_THINGS = frozenset(range(80))   # COCO panoptic: the first 80 classes are things
 # X-Decoder joint training (phase 15): configs/xdecoder_train.yaml (FocalNet-L +
 # FPN, batch 8 at 512^2, bf16 over f32 masters, remat) over a registered
@@ -474,6 +504,18 @@ def device_seconds(ka):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def focal_taps_in_map(h, w, kernels):
+    """The taps of K10's depthwise levels that land inside an h x w map,
+    summed over its output pixels: a tap on the zero padding is no work the
+    function needs.  Per level the count is separable, the in-map taps of
+    the rows times those of the columns."""
+    def axis(n, k):
+        p = k // 2
+        return sum(min(i + p, n - 1) - max(i - p, 0) + 1 for i in range(n))
+
+    return sum(axis(h, k) * axis(w, k) for k in kernels)
 
 
 def check_kernels(device):
@@ -1093,9 +1135,11 @@ def check_xdecoder_kernels(device, g):
     builds: each point a few pixels from its query's pixel centre); timed
     card alone at both draws (``flash_bench.deform_draws``, the inputs
     ``flash_bench.py --forms deform`` times).  K10 (the gated focal context)
-    at each FocalNet-L stage map of the 512^2 and 512 x 640 buckets, batch
-    8, both GELU forms; timed per 512^2 stage with the card kept busy ahead
-    of each timed call (host us per call apart), then per forward.
+    at each FocalNet-L stage map of the 512^2 and 512 x 640 buckets and of
+    the VLP eval's 224^2 (stage 4 is 7 x 7, under the 9 x 9 level), batch 8,
+    both GELU forms; timed per 512^2 and 224^2 stage with the card kept
+    busy ahead of each timed call (host us per call apart), then per
+    forward.
     Both within 1e-2 + 1e-2 |ref| of the plain version in bf16 (one
     rounding of the output) and within 1e-5 + 1e-5 |ref| in f32 (sums in
     another order: the plain focal chain runs on cuDNN)."""
@@ -1186,10 +1230,9 @@ def check_xdecoder_kernels(device, g):
     fcfg = FocalNetConfig()
     kernels = tuple(fcfg.focal_factor * lvl + fcfg.focal_windows[0]
                     for lvl in range(fcfg.focal_levels[0]))
-    L, taps_per = len(kernels), sum(k * k for k in kernels)
+    L = len(kernels)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    errs, tot = [], dict(ms=0.0, plain=0.0, lib=0.0, bytes=0, ops=0)
-    stages, host = {}, {}
+    errs = []
 
     def focal_case(C, h, w, dtype):
         fx = torch.randn((XDEC_BATCH, 2 * C + L + 1, h * w), generator=g,
@@ -1199,21 +1242,23 @@ def check_xdecoder_kernels(device, g):
                           for k in kernels], dim=1)
         return fx[:, C:2 * C], fx[:, 2 * C:], taps       # views, as focal_modulation passes
 
-    for i, depth in enumerate(fcfg.depths):
-        C, s = fcfg.num_features[i], XDEC_SIDE // 4 // 2 ** i
-        # the 512 x 640 bucket's map of this stage, then the 512^2 one (timed)
-        for h, w in ((s, s * 5 // 4), (s, s)):
-            plan = focal.focal_plan(h, w, C, kernels, focal.FOCAL_SMEM, XDEC_BATCH, sms)
-            for dtype in (f32, bf):
-                ctx, gates, taps = focal_case(C, h, w, dtype)
-                for approximate in (True, False):
-                    got = focal.focal_ctx_kernel(ctx, gates, taps, h, w, kernels, True,
-                                                 approximate)
-                    ref = focal.focal_ctx_plain(ctx, gates, taps, h, w, kernels, True,
-                                                approximate)
-                    errs.append(hold(f"K10 focal_ctx stage {i + 1} [{XDEC_BATCH},{C},{h}x{w}] "
-                                     f"{dtype} {'tanh' if approximate else 'erf'} ({plan['path']}"
-                                     f", {plan['planes']} planes a block)", got, ref, dtype))
+    def focal_hold(i, C, h, w):
+        """K10 against the plain version at one map, f32 and bf16, both
+        GELU forms; returns the bf16 inputs and an output."""
+        plan = focal.focal_plan(h, w, C, kernels, focal.FOCAL_SMEM, XDEC_BATCH, sms)
+        for dtype in (f32, bf):
+            ctx, gates, taps = focal_case(C, h, w, dtype)
+            for approximate in (True, False):
+                got = focal.focal_ctx_kernel(ctx, gates, taps, h, w, kernels, True, approximate)
+                ref = focal.focal_ctx_plain(ctx, gates, taps, h, w, kernels, True, approximate)
+                errs.append(hold(f"K10 focal_ctx stage {i + 1} [{XDEC_BATCH},{C},{h}x{w}] "
+                                 f"{dtype} {'tanh' if approximate else 'erf'} ({plan['path']}"
+                                 f", {plan['planes']} planes a block)", got, ref, dtype))
+        return ctx, gates, taps, got
+
+    def focal_time(label, C, s, ctx, gates, taps, got, host):
+        """K10 card alone (host us apart), the plain version and the cuDNN
+        chain at an s x s map in bf16; (record, bytes, operations)."""
         cols = [sum(kk * kk for kk in kernels[:j]) for j in range(L + 1)]
         weights = [taps[:, cols[j]:cols[j + 1]].to(bf).reshape(C, 1, k, k)
                    for j, k in enumerate(kernels)]
@@ -1222,32 +1267,60 @@ def check_xdecoder_kernels(device, g):
             return focal.focal_ctx_kernel(ctx, gates, taps, s, s, kernels, True, True)
 
         ms = bench_ms(run, device, lead_cycles=1_000_000)
-        host[f"stage {i + 1}"] = round(host_us(run, device), 1)
+        host[label] = round(host_us(run, device), 1)
         plain = bench_ms(lambda: focal.focal_ctx_plain(ctx, gates, taps, s, s, kernels, True, True),
                          device)
         lib = bench_ms(lambda: focal_chain_cudnn(ctx, gates, weights, s, s, kernels), device,
                        lead_cycles=1_000_000)
-        ops = 2 * taps_per * XDEC_BATCH * C * s * s
+        ops = 2 * focal_taps_in_map(s, s, kernels) * XDEC_BATCH * C
         n_bytes = nbytes(ctx, gates, taps, got)
         bd = bound(n_bytes, ops, "f32")
-        stages[f"stage {i + 1} [{XDEC_BATCH},{C},{s}x{s}]"] = dict(
-            ms=ms, plain_ms=plain, library_ms=lib, **bd)
-        log(f"K10 stage {i + 1} (x{depth} blocks): kernel {ms:.4f} ms (host "
-            f"{host[f'stage {i + 1}']} us per call), plain {plain:.4f} ms, cuDNN chain "
-            f"{lib:.4f} ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
-        tot = dict(ms=tot["ms"] + depth * ms, plain=tot["plain"] + depth * plain,
-                   lib=tot["lib"] + depth * lib, bytes=tot["bytes"] + depth * n_bytes,
-                   ops=tot["ops"] + depth * ops)
-    bd = bound(tot["bytes"], tot["ops"], "f32")
-    log(f"K10 one FocalNet-L forward ({sum(fcfg.depths)} launches): kernel {tot['ms']:.4f} ms, "
-        f"plain {tot['plain']:.4f} ms, cuDNN chain {tot['lib']:.4f} ms, bound "
-        f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, {tot['ops'] / 1e9:.1f} GFLOP)")
+        log(f"K10 {label}: kernel {ms:.4f} ms (host {host[label]} us per call), plain "
+            f"{plain:.4f} ms, cuDNN chain {lib:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']})")
+        return dict(ms=ms, plain_ms=plain, library_ms=lib, **bd), n_bytes, ops
+
+    def forward_sum(stage_recs, side):
+        """One FocalNet-L forward's 24 launches: the stages' times by depth."""
+        tot = dict(ms=0.0, plain=0.0, lib=0.0, bytes=0, ops=0)
+        for depth, (r, n_bytes, ops) in zip(fcfg.depths, stage_recs):
+            tot = dict(ms=tot["ms"] + depth * r["ms"], plain=tot["plain"] + depth * r["plain_ms"],
+                       lib=tot["lib"] + depth * r["library_ms"],
+                       bytes=tot["bytes"] + depth * n_bytes, ops=tot["ops"] + depth * ops)
+        bd = bound(tot["bytes"], tot["ops"], "f32")
+        log(f"K10 one FocalNet-L forward at {side}^2 ({sum(fcfg.depths)} launches): kernel "
+            f"{tot['ms']:.4f} ms, plain {tot['plain']:.4f} ms, cuDNN chain {tot['lib']:.4f} ms, "
+            f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, {tot['ops'] / 1e9:.1f} GFLOP)")
+        return tot, bd
+
+    stages, host, timed = {}, {}, []
+    for i, depth in enumerate(fcfg.depths):
+        C, s = fcfg.num_features[i], XDEC_SIDE // 4 // 2 ** i
+        # the 512 x 640 bucket's map of this stage, then the 512^2 one (timed)
+        focal_hold(i, C, s, s * 5 // 4)
+        case = focal_hold(i, C, s, s)
+        label = f"stage {i + 1} [{XDEC_BATCH},{C},{s}x{s}]"
+        timed.append(focal_time(label, C, s, *case, host))
+        stages[label] = timed[-1][0]
+    tot, bd = forward_sum(timed, XDEC_SIDE)
+    # the VLP eval's maps at 224^2 (stage 4: 7 x 7 under the 9 x 9 level)
+    vlp_stages, vlp_timed = {}, []
+    for i in range(len(fcfg.depths)):
+        C, s = fcfg.num_features[i], VLP_SIDE // 4 // 2 ** i
+        case = focal_hold(i, C, s, s)
+        label = f"stage {i + 1} [{XDEC_BATCH},{C},{s}x{s}]"
+        vlp_timed.append(focal_time(label, C, s, *case, host))
+        vlp_stages[label] = vlp_timed[-1][0]
+    vtot, vbd = forward_sum(vlp_timed, VLP_SIDE)
     rec["focal_ctx"] = dict(
         max_abs_err=max(errs), ms=tot["ms"], plain_ms=tot["plain"], library_ms=tot["lib"], **bd,
         host_us=host, other_shapes=stages,
+        vlp_224=dict(stages=vlp_stages, forward=dict(
+            ms=vtot["ms"], plain_ms=vtot["plain"], library_ms=vtot["lib"], **vbd)),
         shape=f"FocalNet-L at {XDEC_SIDE}^2, batch {XDEC_BATCH}, bf16, tanh GELU, L=4 (k 3-9): "
               "ms summed over one forward's 24 launches (2, 2, 18, 2 blocks at C 192-1536); "
-              "library_ms: the cuDNN depthwise conv2d chain in bf16")
+              "library_ms: the cuDNN depthwise conv2d chain in bf16; vlp_224: the same at "
+              f"{VLP_SIDE}^2 (the VLP eval's maps)")
     return rec
 
 
@@ -3076,11 +3149,11 @@ def check_train_functions(device, rec, smi):
                                                        retain_graph=True), device)
             fwd_ms = bench_ms(fwd, device)
             # the backward's least work: per level the input gradient and the
-            # tap gradient, each a depthwise pass of k^2 multiply-adds an
-            # output (f32); bytes: ctx, gates, taps and the output gradient
-            # read once, their three gradients written once
+            # tap gradient, each a depthwise pass over the in-map taps, one
+            # multiply-add each (f32); bytes: ctx, gates, taps and the output
+            # gradient read once, their three gradients written once
             bbd = bound(2 * nbytes(*ins) + up.numel() * o.element_size(),
-                        4 * sum(k * k for k in kernels) * B * C * H * W, "f32")
+                        4 * focal_taps_in_map(H, W, kernels) * B * C, "f32")
             rec["focal_ctx"]["train_shape"] = [B, C, H * W]
             rec["focal_ctx"]["train_fwd_ms"] = fwd_ms
             rec["focal_ctx"]["plain_backward_ms"] = bwd
@@ -3454,10 +3527,11 @@ XEVAL_REF_IMAGES = 8          # 16 sentences, two a referred object
 XEVAL_TOKENIZER_TEXTS = 1000
 
 
-def xeval_argv(over, *pairs):
-    """The command line of phase 16: ``eval`` on configs/xdecoder_test.yaml."""
-    return ["eval", "--conf_files", os.path.join(REPO, XDEC_FOCAL), "--config_overrides",
-            json.dumps(over), "--overrides", *pairs]
+def xeval_argv(over, *pairs, path_cfg=None):
+    """The command line of phases 16 and 17: ``eval`` on ``path_cfg``
+    (configs/xdecoder_test.yaml by default)."""
+    return ["eval", "--conf_files", os.path.join(REPO, path_cfg or XDEC_FOCAL),
+            "--config_overrides", json.dumps(over), "--overrides", *pairs]
 
 
 def _noisy_params(cfg, device, seed):
@@ -3474,11 +3548,12 @@ def _noisy_params(cfg, device, seed):
                     params)
 
 
-def checkpoint_round_trip(path_cfg, device, work, smi):
-    """Phase 16a for one configuration: random weights at full width and
-    depth written in the reference's key names as a ``.pt`` (the inverse
-    table), read back through ``RESUME_FROM``: every leaf bit-equal.
-    Returns the file and the load seconds."""
+def checkpoint_round_trip(path_cfg, device, work, smi, cfg_dict=None):
+    """Phase 16a for one configuration (``path_cfg``'s dict, or
+    ``cfg_dict``): random weights at full width and depth written in the
+    reference's key names as a ``.pt`` (the inverse table), read back
+    through ``RESUME_FROM``: every leaf bit-equal.  Returns the file and the
+    load seconds."""
     import torch
 
     from cullavo_tpu_torch import entry
@@ -3486,7 +3561,7 @@ def checkpoint_round_trip(path_cfg, device, work, smi):
     from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
     from cullavo_tpu_torch.utils.tree import tree_leaves
 
-    cfg = xdecoder_model_config_from(XDEC_CONFIGS[path_cfg])
+    cfg = xdecoder_model_config_from(cfg_dict or XDEC_CONFIGS[path_cfg])
     params = _noisy_params(cfg, device, SEED + 16)
     state = reference_state_from_params(params, cfg)
     path = os.path.join(work, os.path.basename(path_cfg).replace(".yaml", ".pt"))
@@ -3502,7 +3577,7 @@ def checkpoint_round_trip(path_cfg, device, work, smi):
     if len(a) != len(b) or not all(x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b)):
         raise RuntimeError(f"{path_cfg}: the checkpoint does not read back bit-equal")
     n = sum(t.numel() for t in a)
-    log(f"phase 16 checkpoint {path_cfg} ({smi}): {len(state)} reference keys, {n / 1e6:.1f} M "
+    log(f"checkpoint {path_cfg} ({smi}): {len(state)} reference keys, {n / 1e6:.1f} M "
         f"f32 parameters, {os.path.getsize(path) / 2**30:.2f} GiB .pt written in {t_write:.2f} s, "
         f"read through RESUME_FROM in {t_load:.2f} s; {len(b)} leaves bit-equal")
     del params, back, state
@@ -3557,7 +3632,8 @@ def run_xeval_path(device, wrappers, smi, work, rec):
     process in bf16, twice: equal metrics, K10 24 a forward (the main path:
     the first run's counts are returned), images/s, compute s per batch and
     peak memory by dataset; then the grounding dataset from phase 15's
-    checkpoint directory (train -> eval)."""
+    checkpoint directory (train -> eval).  Returns the first run's counts
+    and the FocalNet-L ``.pt``, which phase 17 reads."""
     import numpy as np
     import torch
 
@@ -3706,7 +3782,331 @@ def run_xeval_path(device, wrappers, smi, work, rec):
             t_tok * 1000 / XEVAL_TOKENIZER_TEXTS, "forwards": forwards,
         "timing": timing, "peak_gib": peak, "cli_s": t_cli, "card": smi}
     log(f"phase 16 in {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return counts, pt_focal
+
+
+VLP_DATASETS = ("vlp_val", "vlp_captioning_val")
+# the karpathy test arrow: phase 9's 16 sizes three times over in two record
+# batches, so the in-process evals time 5 batches of 8 after the first; the
+# command line reads the first 16 (LIMIT)
+VLP_SIZES, VLP_BATCH_ROWS, VLP_CLI_ROWS = XDEC_SIZES * 3, 24, 16
+VLP_WORDS = ("a man woman dog cat person rides sits stands on in the red blue white car horse "
+             "bus park street two three with table plate of food near water boat field grass "
+             "holding next to large small").split()
+DAVIT_CFG = "configs/xdecoder/davitd3_unicl_lang.yaml"
+
+
+def write_vlp_dataset(root, sizes, seed=0, batch_rows=8):
+    """``<root>/vlp/pretrain_arrows_code224/coco_caption_karpathy_test.arrow``
+    by the port's writer: per size a random image as PNG bytes, 5 captions
+    (6 for every fifth image, 7 for every seventh), string ids
+    ``COCO_val2014_%012d.jpg``, record batches of ``batch_rows``.  Returns
+    the file and its columns as written."""
+    import numpy as np
+
+    from cullavo_tpu_torch.data import arrow_ipc, png_io
+
+    rng = np.random.default_rng(seed)
+    n = len(sizes)
+    columns = {
+        "image": ("binary", [png_io.encode_png(rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+                             for h, w in sizes]),
+        "caption": ("list<utf8>", [[" ".join(rng.choice(VLP_WORDS, int(rng.integers(6, 12))))
+                                    for _ in range(5 + (i % 5 == 0) + 2 * (i % 7 == 3))]
+                                   for i in range(n)]),
+        "image_id": ("utf8", [f"COCO_val2014_{9 + 37 * i:012d}.jpg" for i in range(n)])}
+    path = os.path.join(root, "vlp", "pretrain_arrows_code224",
+                        "coco_caption_karpathy_test.arrow")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    arrow_ipc.write_arrow(path, columns, batch_rows=batch_rows)
+    return path, columns
+
+
+def _check_vlp(res, label, n):
+    """Recall in [0, 100]; CIDEr, BLEU, ROUGE-L and METEOR_approx finite;
+    ``n`` images captioned."""
+    ret, cap = res["vlp_val"], res["vlp_captioning_val"]
+    vals = {k: ret[k] for k in ("ir@1", "ir@5", "ir@10", "tr@1", "tr@5", "tr@10")}
+    scores = {k: cap[k] for k in ("CIDEr", "Bleu_1", "Bleu_4", "ROUGE_L", "METEOR_approx")}
+    if not (all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in vals.values())
+            and all(math.isfinite(v) for v in scores.values())
+            and cap["n"] == n):
+        raise RuntimeError(f"{label}: VLP metrics out of range: {vals} {scores} n={cap['n']}")
+    return {**vals, **scores}
+
+
+def _read_captions(out_dir, n):
+    with open(os.path.join(out_dir, "vlp_captioning_val_captions.json")) as f:
+        rows = json.load(f)
+    if len(rows) != n:
+        raise RuntimeError(f"{out_dir}: {len(rows)} captions, not {n}")
+    return rows
+
+
+def _datasets_root(root):
+    """``DETECTRON2_DATASETS`` set to ``root`` for an in-process entry call."""
+    from unittest import mock
+
+    return mock.patch.dict(os.environ, {"DETECTRON2_DATASETS": root})
+
+
+def check_vlp_cut(device, wrappers, smi):
+    """Phase 17b: FocalNet-L + FPN at full width and cut depth (one block a
+    stage, 2 decoder and 2 text layers), f32, two random 224^2 images, card
+    against CPU: ``evaluate_retrieval_embedding`` within 1e-3; greedy
+    ``forward_captioning`` (the raw token table, 512 = 512), every step's
+    vocabulary logits replayed teacher-forced on the card's ids within 1e-3
+    of their largest entry, each card id within ``LOGIT_TOL`` of its step's
+    largest replayed logit, and the ids equal on every row whose every step
+    has a top-2 gap above ``LOGIT_TOL`` (phase 6b's rule)."""
+    import numpy as np
+    import torch
+
+    from cullavo_tpu_torch.models.xdecoder.decoder import xdecoder_forward
+    from cullavo_tpu_torch.models.xdecoder.model import (backbone_and_pixel_decoder,
+                                                         evaluate_retrieval_embedding,
+                                                         init_xdecoder_model_params)
+    from cullavo_tpu_torch.pipelines.vlp_pipeline import VLPCaptioningPipeline
+
+    cut = xdecoder_cut(XDEC_FOCAL)
+    params = init_xdecoder_model_params(cut, torch.Generator().manual_seed(SEED + 17), "cpu")
+    x = np.random.default_rng(SEED + 17).normal(size=(2, VLP_SIDE, VLP_SIDE, 3)).astype(
+        np.float32)
+    steps = min(cut.decoder.captioning_step, cut.decoder.contxt_len - 1)
+    emb, ids, logits = [], None, []
+    for dev in (device, torch.device("cpu")):      # the card first: its ids are replayed
+        p = _tree_to(params, device=dev)
+        pipe = VLPCaptioningPipeline(None, cut, p, None, None, cut.text.vocab_size - 2, VLP_SIDE)
+        with torch.inference_mode():
+            got, counts = counted(wrappers, lambda: evaluate_retrieval_embedding(
+                p, cut, torch.as_tensor(x, device=dev)))
+            emb.append([t.float().cpu() for t in got])
+            if ids is None:
+                ids, _, loop_s = pipe.decode(x)
+            ids_dev = torch.as_tensor(ids, device=dev)
+            mask_features, pyramid = backbone_and_pixel_decoder(p, cut, torch.as_tensor(
+                x, device=dev))
+            out = xdecoder_forward(p["decoder"], cut.decoder, pyramid, mask_features,
+                                   caption_tokens=pipe.token_embeddings(ids_dev), task="vlp",
+                                   is_train=True)
+            logits.append((out["pred_captionings"] @ pipe.vocab_table().t())[:, :steps]
+                          .float().cpu())
+        if dev.type == "cuda" and counts["focal_ctx"] != sum(cut.backbone.depths):
+            raise RuntimeError(f"phase 17b: K10 launched {counts['focal_ctx']} times")
+    rel_emb = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(emb[0], emb[1]))
+    rel = ((logits[0] - logits[1]).abs().max() / logits[1].abs().max()).item()
+    top2 = logits[1].topk(2, dim=-1).values
+    clear = ((top2[..., 0] - top2[..., 1]) > LOGIT_TOL).all(dim=1)
+    card_ids = torch.as_tensor(ids[:, 1:steps + 1]).long()
+    chosen = logits[0].gather(-1, card_ids[..., None])[..., 0]
+    own_gap = (logits[0].amax(-1) - chosen).max().item()
+    cpu_ids = logits[1].argmax(-1)
+    same = [bool(torch.equal(cpu_ids[b], card_ids[b])) for b in range(len(ids))]
+    log(f"phase 17b cut ({VLP_SIDE}^2, f32, {steps} steps): card vs CPU retrieval embeddings "
+        f"max |d| / max |ref| {rel_emb:.3e}, teacher-forced step logits {rel:.3e} (tol 1e-3); "
+        f"largest |logit| {logits[1].abs().max().item():.3e}, card ids below their step's "
+        f"largest replayed logit by at most {own_gap:.3e}; rows clear of near-ties "
+        f"{clear.tolist()}, ids equal {same}; card decode loop {loop_s:.2f} s")
+    if not (rel_emb <= 1e-3 and rel <= 1e-3 and own_gap <= LOGIT_TOL
+            and all(s for s, c in zip(same, clear.tolist()) if c)):
+        raise RuntimeError(f"phase 17b: the card disagrees with the CPU (embeddings {rel_emb}, "
+                           f"logits {rel}, own gap {own_gap}, ids {same}, clear {clear})")
+
+
+def check_davit_cut(device, smi, davit_dict):
+    """Phase 17e: DaViT-d3 + FPN at full width and cut depth (one dual block
+    a stage, 2 decoder and 2 text layers), f32, one 256 x 320 image
+    (stage 1 is 64 x 80: windows of 12 pad it), card against CPU: res2-res5
+    and the class and mask logits within 1e-3 of their largest entry."""
+    import numpy as np
+    import torch
+
+    from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
+    from cullavo_tpu_torch.models.xdecoder.model import (_backbone_apply, forward_eval,
+                                                         init_xdecoder_model_params)
+
+    full = xdecoder_model_config_from(davit_dict)
+    cut = dataclasses.replace(
+        full, backbone=dataclasses.replace(full.backbone, depths=(1, 1, 1, 1)),
+        fpn=dataclasses.replace(full.fpn, enc_layers=1),
+        decoder=dataclasses.replace(full.decoder, dec_layers=2),
+        text=dataclasses.replace(full.text, layers=2))
+    params = init_xdecoder_model_params(cut, torch.Generator().manual_seed(SEED + 18), "cpu")
+    h, w = XDEC_CHECK_HW
+    rng = np.random.default_rng(SEED + 18)
+    x = rng.normal(size=(1, h, w, 3)).astype(np.float32)
+    t_emb = rng.normal(size=(cut.num_classes + 1, cut.decoder.dim_proj)).astype(np.float32)
+    outs = []
+    for dev in (torch.device("cpu"), device):
+        p = _tree_to(params, device=dev)
+        im = torch.as_tensor(x, device=dev)
+        with torch.inference_mode():
+            feats = _backbone_apply(p["backbone"], cut, im.permute(0, 3, 1, 2))
+            cls, masks, _ = forward_eval(p, cut, im, torch.as_tensor(t_emb, device=dev))
+        outs.append({**{k: v.float().cpu() for k, v in feats.items()},
+                     "class logits": cls.float().cpu(), "mask logits": masks.float().cpu()})
+    rel = {k: ((outs[1][k] - outs[0][k]).abs().max() / outs[0][k].abs().max()).item()
+           for k in outs[0]}
+    log(f"phase 17e DaViT-d3 cut ({h}x{w}, f32): card vs CPU max |d| / max |ref| "
+        f"{ {k: f'{v:.3e}' for k, v in rel.items()} } (tol 1e-3)")
+    if not all(v <= 1e-3 for v in rel.values()):
+        raise RuntimeError(f"phase 17e: the card disagrees with the CPU: {rel}")
+
+
+def run_vlp_path(device, wrappers, smi, work, rec, pt_focal):
+    """Phase 17: the X-Decoder's VLP eval and the DaViT backbone (in phase
+    16's working directory, with its FocalNet-L ``.pt`` and CLIP files).
+    (a) a ``DETECTRON2_DATASETS`` root with the karpathy test arrow
+    (``write_vlp_dataset``: ``VLP_SIZES``, 48 images of phase 9's sizes,
+    PNG bytes, 5-7 captions, two record batches) read back through the
+    port's reader, every value equal.  (b) ``check_vlp_cut``.  (c) ``python
+    -m cullavo_tpu_torch eval --conf_files configs/xdecoder_test.yaml`` in a
+    subprocess (f32) on ``vlp_val`` and ``vlp_captioning_val`` with
+    ``RESUME_FROM``, ``MODEL.TEXT.TOKENIZER``, ``SAVE_DIR`` and ``LIMIT``
+    16: exit 0, recall in [0, 100], the caption metrics finite, 16 captions
+    written.  (d) ``entry.evaluate`` on all 48 rows in bf16 in this
+    process, twice: equal metrics and captions, K10 24 times a forward (6
+    retrieval and 6 captioning forwards; the first run's counts are
+    returned; its timing covers the 5 batches after the first).  (e) DaViT-d3: random
+    weights at full width and depth through the inverse table and back
+    through ``RESUME_FROM`` bit-equal; ``check_davit_cut``; then
+    configs/xdecoder/davitd3_unicl_lang.yaml at full depth in bf16 on phase
+    16's ``semseg`` and ``coco_panoptic`` datasets and ``vlp_val``: metrics
+    finite and in range, no kernel launched.  (f) load seconds, retrieval
+    images/s, captioning seconds a batch and ms a decode step, DaViT-d3
+    images/s and compute seconds a batch, peak memory."""
+    import torch
+
+    from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.config import load_opt_command
+    from cullavo_tpu_torch.data.arrow_ipc import ArrowFile
+    from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
+
+    t_phase = time.perf_counter()
+    tok_dir = os.path.join(work, "clip_tokenizer")
+    # (a)
+    root = os.path.join(work, "vlp_root")
+    t0 = time.perf_counter()
+    path, columns = write_vlp_dataset(root, VLP_SIZES, seed=SEED + 17,
+                                      batch_rows=VLP_BATCH_ROWS)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f = ArrowFile(path)
+    back = {name: [f.column(name)[i] for i in range(len(f))] for name in columns}
+    back["image"] = [bytes(v) for v in back["image"]]
+    t_read = time.perf_counter() - t0
+    if f.num_batches != -(-len(VLP_SIZES) // VLP_BATCH_ROWS) or any(back[k] != v
+                                                          for k, (_, v) in columns.items()):
+        raise RuntimeError("phase 17a: the arrow file does not read back equal")
+    log(f"phase 17a ({smi}): {path}: {len(f)} rows in {f.num_batches} record batches, "
+        f"{os.path.getsize(path) / 2**20:.1f} MiB written in {t_write:.2f} s (PNG encode "
+        f"included), read back equal in {t_read:.3f} s")
+    del f, back
+
+    # (b)
+    check_vlp_cut(device, wrappers, smi)
+    torch.cuda.empty_cache()
+
+    # (c) the command line, f32
+    over = {"DATASETS.TEST": list(VLP_DATASETS), "MODEL.TEXT.TOKENIZER": tok_dir,
+            "BATCH_SIZE": XDEC_BATCH}
+    env = dict(os.environ, DETECTRON2_DATASETS=root, PYTHONPATH=os.pathsep.join(
+        [REPO] + [q for q in os.environ.get("PYTHONPATH", "").split(os.pathsep) if q]))
+    cli_dir = os.path.join(work, "vlp_cli")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "cullavo_tpu_torch"]
+                         + xeval_argv(over, "RESUME_FROM", pt_focal, "SAVE_DIR", cli_dir,
+                                      "LIMIT", str(VLP_CLI_ROWS)),
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    t_cli = time.perf_counter() - t0
+    for line in res.stderr.strip().splitlines()[-4:]:
+        log(f"  vlp eval CLI: {line}")
+    if res.returncode != 0:
+        raise RuntimeError(f"vlp eval: python -m cullavo_tpu_torch exited {res.returncode}")
+    cli = json.loads(res.stdout.strip().splitlines()[-1])
+    vals = _check_vlp(cli, "vlp eval CLI", VLP_CLI_ROWS)
+    caps = _read_captions(cli_dir, VLP_CLI_ROWS)
+    log(f"vlp eval CLI ({smi}): exit 0 in {t_cli:.2f} s (process start, checkpoint, 2 "
+        f"datasets of {VLP_CLI_ROWS} rows, f32); {vals}; first caption {caps[0]['caption']!r}")
+
+    # (d) in this process, bf16, twice
+    runs = []
+    for i in range(2):
+        out_dir = os.path.join(work, f"vlp_run{i}")
+        cfg = load_opt_command(xeval_argv(over, "RESUME_FROM", pt_focal, "DTYPE", "bfloat16",
+                                          "SAVE_DIR", out_dir))[0].to_dict()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        with _datasets_root(root):
+            out, counts = counted(wrappers, lambda: entry.evaluate(cfg, device=device))
+        torch.cuda.synchronize(device)
+        runs.append((out, counts, time.perf_counter() - t0,
+                     torch.cuda.max_memory_allocated(device) / 2**30,
+                     _read_captions(out_dir, len(VLP_SIZES))))
+    (res1, counts, wall, peak, caps1), (res2, _, wall2, _, caps2) = runs
+    vals = _check_vlp(res1, "vlp entry.evaluate", len(VLP_SIZES))
+    forwards = 2 * -(-len(VLP_SIZES) // XDEC_BATCH)   # retrieval + captioning batches
+    blocks = sum(xdecoder_model_config_from(XDEC_CONFIGS[XDEC_FOCAL]).backbone.depths)
+    log(f"vlp eval in process ({smi}): {forwards} forwards, launches {counts}")
+    if counts["focal_ctx"] != blocks * forwards or sum(counts.values()) != counts["focal_ctx"]:
+        raise RuntimeError(f"vlp eval: K10 launched {counts['focal_ctx']} times, not "
+                           f"{blocks} x {forwards}: {counts}")
+    if _strip_timing(res1) != _strip_timing(res2) or caps1 != caps2:
+        raise RuntimeError(f"two VLP evals differ: {res1} {res2}")
+    timing = {name: r["timing"] for name, r in res1.items()}
+    for i, res in enumerate((res1, res2), 1):
+        t_ret, t_cap = res["vlp_val"]["timing"], res["vlp_captioning_val"]["timing"]
+        log(f"vlp retrieval run {i} ({smi}, bf16, batch {t_ret['eval_batch']}, {VLP_SIDE}^2): "
+            f"{t_ret.get('images_per_s', 0.0):.3f} images/s over the {t_ret['batches_timed']} "
+            f"batches after the first, compute {t_ret['compute_s']:.4f} s a batch (data "
+            f"{t_ret['data_s']:.4f})")
+        log(f"vlp captioning run {i} ({smi}, bf16, batch {t_cap['eval_batch']}): "
+            f"{t_cap['compute_s']:.4f} s a batch over the {t_cap['batches_timed']} after the "
+            f"first (trunk {t_cap['trunk_s']:.4f} s, {t_cap['step_ms']:.2f} ms a decode step), "
+            f"{t_cap.get('images_per_s', 0.0):.3f} images/s")
+    log(f"vlp eval in process ({smi}): run 1 {wall:.2f} s, run 2 {wall2:.2f} s (checkpoint "
+        f"load, 2 datasets of {len(VLP_SIZES)} rows), metrics and captions equal; peak memory {peak:.2f} GiB; {vals}")
+
+    # (e) DaViT-d3
+    davit_dict = load_opt_command(["eval", "--conf_files",
+                                   os.path.join(REPO, DAVIT_CFG)])[0].to_dict()
+    pt_davit, t_load_davit = checkpoint_round_trip(DAVIT_CFG, device, work, smi, davit_dict)
+    check_davit_cut(device, smi, davit_dict)
+    torch.cuda.empty_cache()
+    names = [XEVAL_SEMSEG, XEVAL_PANOPTIC, "vlp_val"]
+    cfg = load_opt_command(xeval_argv({"DATASETS.TEST": names, "BATCH_SIZE": XDEC_BATCH,
+                                       "EVAL_BATCH": XDEC_BATCH, "MODEL.TEXT.TOKENIZER": tok_dir},
+                                      "RESUME_FROM", pt_davit, "DTYPE", "bfloat16",
+                                      path_cfg=DAVIT_CFG))[0].to_dict()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with _datasets_root(root):
+        dres, dcounts = counted(wrappers, lambda: entry.evaluate(cfg, device=device))
+    torch.cuda.synchronize(device)
+    d_wall, d_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated(device) / 2**30
+    seg = {"mIoU": dres[XEVAL_SEMSEG]["sem_seg"]["mIoU"],
+           "panoptic mIoU": dres[XEVAL_PANOPTIC]["sem_seg"]["mIoU"],
+           "PQ": dres[XEVAL_PANOPTIC]["panoptic"]["PQ"],
+           **{k: dres["vlp_val"][k] for k in ("ir@1", "tr@1", "ir@10", "tr@10")}}
+    if not all(math.isfinite(v) and 0.0 <= v <= 100.0 for v in seg.values()) or any(
+            dcounts.values()):
+        raise RuntimeError(f"DaViT-d3 eval: metrics {seg}, launches {dcounts}")
+    d_timing = {name: r["timing"] for name, r in dres.items()}
+    for name, t in d_timing.items():
+        log(f"DaViT-d3 eval {name} ({smi}, bf16, batch {t['eval_batch']}): "
+            f"{t.get('images_per_s', 0.0):.3f} images/s over the {t['batches_timed']} batches "
+            f"after the first, compute {t['compute_s']:.4f} s a batch")
+    log(f"DaViT-d3 eval ({smi}): {d_wall:.2f} s (checkpoint load, class embeddings, 3 "
+        f"datasets), peak memory {d_peak:.2f} GiB, no kernel launched; {seg}")
+    os.remove(pt_davit)
     os.remove(pt_focal)
+    rec["focal_ctx"]["vlp_eval"] = {
+        "forwards": forwards, "timing": timing, "peak_gib": peak, "cli_s": t_cli,
+        "davit_d3": {"checkpoint_load_s": t_load_davit, "timing": d_timing, "peak_gib": d_peak},
+        "card": smi}
+    log(f"phase 17 in {time.perf_counter() - t_phase:.1f} s")
     torch.cuda.empty_cache()
     return counts
 
@@ -5449,7 +5849,9 @@ def main(argv):
     with tempfile.TemporaryDirectory(prefix="cullavo_chip_xtrain_") as work:
         counts_xtrain = run_xtrain_path(device, wrappers, smi, work, rec)
         # phase 16 (its train -> eval step reads phase 15's checkpoint)
-        counts_xeval = run_xeval_path(device, wrappers, smi, work, rec)
+        counts_xeval, pt_focal = run_xeval_path(device, wrappers, smi, work, rec)
+        # phase 17 (phase 16's checkpoint and CLIP files)
+        counts_vlp = run_vlp_path(device, wrappers, smi, work, rec, pt_focal)
     # each kernel's launches on the main path that runs it: K1-K4 the greedy
     # bf16-cache batch, K5 the speculative int8-cache batch, K6 and K7 the
     # serving run, K1-lse the train steps, K8 the attention probe, K9 the
@@ -5490,7 +5892,8 @@ def main(argv):
         for extra in ("k13_same_inputs_ms", "k1_same_inputs_ms", "times_in_turns", "host_us",
                       "loop_shape", "prefill_shape", "ptxas", "zoo_shapes", "other_shapes",
                       "train_shape", "train_fwd_ms", "plain_backward_ms",
-                      "plain_backward_bound", "xdecoder_train", "xdecoder_eval"):
+                      "plain_backward_bound", "xdecoder_train", "xdecoder_eval", "vlp_224",
+                      "vlp_eval"):
             if extra in rec[k["name"]]:
                 k[extra] = rec[k["name"]][extra]
         if k["name"] == "nf4_linear_q4":
@@ -5501,6 +5904,7 @@ def main(argv):
             k["step2_pre_launches"] = counts_step2[k["name"]]
         k["xdecoder_train_launches"] = counts_xtrain[k["name"]]   # phase 15's entry.train
         k["xdecoder_eval_launches"] = counts_xeval[k["name"]]     # phase 16's entry.evaluate
+        k["vlp_eval_launches"] = counts_vlp[k["name"]]            # phase 17's entry.evaluate
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -24,8 +24,9 @@ gradients accumulate) to the port's ``{count, mu, nu}`` state, leaf for
 leaf.  Each has an inverse, so both packages can continue from one state.
 
 X-Decoder: ``xdecoder_params_from_numpy`` takes the JAX model tree (NHWC
-activations, HWIO convolution kernels, stacked depthwise ``(depth, k, k, 1,
-C)`` focal and dw kernels, SAM's ``HWOI`` transposed-convolution kernels)
+activations, HWIO convolution kernels, DaViT's depthwise ``conv1`` /
+``conv2`` among them, stacked depthwise ``(depth, k, k, 1, C)`` focal and dw
+kernels, SAM's ``HWOI`` transposed-convolution kernels)
 to the port's layouts (PyTorch's ``[out, in, k, k]``, ``[depth, C, 1, k,
 k]``, ``[in, out, 2, 2]`` spatially flipped); every other leaf keeps its
 layout.  ``xdecoder_params_to_numpy`` is the inverse (exact).
@@ -195,7 +196,8 @@ def _xdecoder_leaf(path: tuple, a: torch.Tensor, to_port: bool) -> torch.Tensor:
         # dilated input == PyTorch's (in, out, kh, kw) flipped
         return (a.permute(3, 2, 0, 1).flip(2, 3) if to_port
                 else a.flip(2, 3).permute(2, 3, 1, 0)).contiguous()
-    if name == "kernel" and a.dim() == 4:
+    if (name == "kernel" or name in ("conv1", "conv2")) and a.dim() == 4:
+        # HWIO <-> [out, in/groups, k, k] (DaViT's conv1 / conv2 are depthwise)
         return (a.permute(3, 2, 0, 1) if to_port else a.permute(2, 3, 1, 0)).contiguous()
     if (name.startswith("focal") or name in ("dw1_w", "dw2_w")) and a.dim() == 5:
         # stacked depthwise kernels: (depth, k, k, 1, C) <-> (depth, C, 1, k, k)

@@ -1,7 +1,7 @@
 """Reference X-Decoder checkpoints in the port's parameter layout
 (counterpart of ``cullavo_tpu/checkpoint/xdecoder_import.py``).
 
-The reference's state dict (``backbone.*``: FocalNet or SAM-ViT;
+The reference's state dict (``backbone.*``: FocalNet, DaViT or SAM-ViT;
 ``sem_seg_head.pixel_decoder.*``: the FPN or the deformable encoder;
 ``sem_seg_head.predictor.*``: the X-Decoder; ``sem_seg_head.predictor.
 lang_encoder.*``: the text tower; ``backbone_proj``) maps onto the port's
@@ -30,7 +30,6 @@ loaded leaves into the target tree's dtype and device and raises
 ``ValueError`` on any leaf that is missing, extra or of another shape (the
 JAX function keeps the random initial value of such a leaf and only logs).
 ``unused_keys(state, cfg)`` lists the state's keys the table does not read.
-DaViT raises until its backbone is ported.
 """
 from __future__ import annotations
 
@@ -249,17 +248,38 @@ def text_encoder_table(cfg, prefix: str = "sem_seg_head.predictor.lang_encoder."
                   Entry(prefix + "logit_scale", ("logit_scale",))]
 
 
-def _davit(*args, **kwargs):
-    raise NotImplementedError("import_davit: the DaViT backbone waits for its slice")
+def davit_table(cfg, prefix: str = "backbone.") -> list:
+    """The reference's DaViT: ``convs.{i}`` patch embeds; per dual block
+    ``blocks.{i}.{j}.{spatial,channel}_block`` with ``conv1`` / ``conv2``
+    (``.fn.dw``), the attention's pre-norm and ``.fn.qkv`` / ``.fn.proj``,
+    and the MLP's pre-norm and ``.fn.net.fc1`` / ``fc2``."""
+    p = prefix
+    out = []
+    for i, depth in enumerate(cfg.depths):
+        pe = ("patch_embeds", i)
+        out += [*_pair(f"{p}convs.{i}.proj", pe, ("kernel", "bias")),
+                *_pair(f"{p}convs.{i}.norm", pe + ("norm",), ("scale", "bias"))]
+        for j in range(depth):
+            for kind, attn in (("spatial", "window_attn"), ("channel", "channel_attn")):
+                b, blk = f"{p}blocks.{i}.{j}.{kind}_block.", ("stages", i, j, kind)
+                out += [*_pair(b + "conv1.fn.dw", blk, ("conv1", "conv1_b")),
+                        *_pair(b + attn + ".norm", blk, ("ln_attn_s", "ln_attn_b")),
+                        *_pair(b + attn + ".fn.qkv", blk, ("qkv_w", "qkv_b"), "t"),
+                        *_pair(b + attn + ".fn.proj", blk, ("proj_w", "proj_b"), "t"),
+                        *_pair(b + "conv2.fn.dw", blk, ("conv2", "conv2_b")),
+                        *_pair(b + "ffn.norm", blk, ("ln_ffn_s", "ln_ffn_b")),
+                        *_pair(b + "ffn.fn.net.fc1", blk, ("fc1_w", "fc1_b"), "t"),
+                        *_pair(b + "ffn.fn.net.fc2", blk, ("fc2_w", "fc2_b"), "t")]
+    return out
 
 
 def backbone_table(cfg, prefix: str = "backbone.") -> list:
     if cfg.backbone_name in _FOCAL:
         return focalnet_table(cfg.backbone, prefix)
+    if cfg.backbone_name == "davit":
+        return davit_table(cfg.backbone, prefix)
     if cfg.backbone_name == "vit":
         return sam_vit_table(cfg.backbone, prefix)
-    if cfg.backbone_name == "davit":
-        _davit()
     raise KeyError(f"backbone {cfg.backbone_name!r}")
 
 
@@ -362,7 +382,8 @@ def import_text_encoder(state, cfg, prefix="sem_seg_head.predictor.lang_encoder.
     return import_from_table(state, text_encoder_table(cfg, prefix))
 
 
-import_davit = _davit
+def import_davit(state, cfg, prefix="backbone."):
+    return import_from_table(state, davit_table(cfg, prefix))
 
 
 def import_backbone(state, cfg, prefix="backbone."):

@@ -12,8 +12,8 @@
     is skipped with one line on stderr, one that is present but lacks a
     file it needs raises ``FileNotFoundError``, and one whose names are
     all registered already (a second call in one process) is left as it
-    is.  The VLP Arrow splits under ``<root>/vlp`` raise: their reader
-    comes with the VLP slice.
+    is.  The VLP Arrow splits register from ``<root>/vlp`` when it exists
+    (``vlp_datasets.register_all_vlp``).
   * the COCO segment decoders ``polygons_to_mask`` (even-odd scanline fill)
     and ``rle_to_mask`` (uncompressed, column-major RLE), numpy only.
 
@@ -29,6 +29,7 @@ import numpy as np
 
 from cullavo_tpu_torch.data.coco_panoptic import load_coco_panoptic_json
 from cullavo_tpu_torch.data.registry import list_datasets, register_dataset
+from cullavo_tpu_torch.data.vlp_datasets import register_all_vlp
 
 
 def load_vqa(questions_json: str, annotations_json: Optional[str],
@@ -307,6 +308,5 @@ def register_all_segmentation(root: str) -> list:
             register_dataset(name, loader, md)
             done.append(name)
     if os.path.isdir(os.path.join(root, "vlp")):
-        raise NotImplementedError(f"{os.path.join(root, 'vlp')}: the VLP Arrow splits wait for "
-                                  "the VLP slice (a port-owned Arrow IPC reader)")
+        done += register_all_vlp(os.path.join(root, "vlp"))
     return done

@@ -27,9 +27,9 @@ from cullavo_tpu_torch.data.image_processing import CLIP_SIZE, preprocess_numpy
 from cullavo_tpu_torch.models.xdecoder.model import PIXEL_MEAN, PIXEL_STD
 
 
-def load_image_rgb(path: str, rgb: bool = True) -> np.ndarray:
-    """An image file through PIL -> uint8 [H, W, 3] (``rgb``), or its own
-    channels.  Needs PIL, imported here only: where it is not installed this
+def load_image_rgb(path, rgb: bool = True) -> np.ndarray:
+    """An image file (a path or a binary file object) through PIL -> uint8
+    [H, W, 3] (``rgb``), or its own channels.  Needs PIL, imported here only: where it is not installed this
     raises, and records carry decoded arrays instead."""
     from PIL import Image
 

@@ -6,10 +6,11 @@ with the card has no PIL).
 Average, Paeth) and returns uint8 RGB ``[H, W, 3]``: grey repeated over the
 three channels and alpha dropped, as PIL's ``convert("RGB")`` gives them.
 Any other PNG (palette, 16-bit, interlaced, grey with alpha) raises.
-``read_png_array`` returns the file's own channels, as PIL's
+``decode_png_rgb`` does the same for PNG bytes (an image of an Arrow
+file).  ``read_png_array`` returns the file's own channels, as PIL's
 ``np.asarray(Image.open(path))`` does: ``[H, W]`` for grey (a label map),
-``[H, W, 3]`` or ``[H, W, 4]``.  ``write_png`` writes uint8 ``[H, W]``,
-``[H, W, 3]`` or ``[H, W, 4]`` with filter 0 on every row.  ``rgb2id`` /
+``[H, W, 3]`` or ``[H, W, 4]``.  ``encode_png`` / ``write_png`` write uint8
+``[H, W]``, ``[H, W, 3]`` or ``[H, W, 4]`` with filter 0 on every row.  ``rgb2id`` /
 ``id2rgb`` are panopticapi's RGB <-> segment-id encoding of panoptic PNGs.
 """
 from __future__ import annotations
@@ -104,13 +105,18 @@ def decode_png(data: bytes) -> np.ndarray:
     return out.reshape(height, width, bpp)
 
 
-def read_png(path: str) -> np.ndarray:
-    """A PNG file -> uint8 RGB [H, W, 3]."""
-    with open(path, "rb") as f:
-        img = decode_png(f.read())
+def decode_png_rgb(data: bytes) -> np.ndarray:
+    """PNG bytes -> uint8 RGB [H, W, 3]."""
+    img = decode_png(data)
     if img.shape[2] == 1:
         return np.repeat(img, 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
+
+
+def read_png(path: str) -> np.ndarray:
+    """A PNG file -> uint8 RGB [H, W, 3]."""
+    with open(path, "rb") as f:
+        return decode_png_rgb(f.read())
 
 
 def read_png_array(path: str) -> np.ndarray:
@@ -134,13 +140,13 @@ def id2rgb(ids: np.ndarray) -> np.ndarray:
     return out
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """uint8 [H, W] (grey), [H, W, 3] (RGB) or [H, W, 4] (RGBA) -> a PNG
-    file, filter 0 on every row."""
+def encode_png(img: np.ndarray) -> bytes:
+    """uint8 [H, W] (grey), [H, W, 3] (RGB) or [H, W, 4] (RGBA) -> PNG
+    bytes, filter 0 on every row."""
     img = np.asarray(img)
     if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3
                                                            and img.shape[2] not in (3, 4)):
-        raise ValueError(f"write_png takes uint8 [H, W], [H, W, 3] or [H, W, 4], got "
+        raise ValueError(f"encode_png takes uint8 [H, W], [H, W, 3] or [H, W, 4], got "
                          f"{img.dtype} {img.shape}")
     height, width = img.shape[:2]
     color = 0 if img.ndim == 2 else {3: 2, 4: 6}[img.shape[2]]
@@ -151,8 +157,11 @@ def write_png(path: str, img: np.ndarray) -> None:
         return (struct.pack(">I", len(body)) + kind + body
                 + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
+    return (SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """``encode_png(img)`` written to ``path``."""
     with open(path, "wb") as f:
-        f.write(SIGNATURE)
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, color, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(chunk(b"IEND", b""))
+        f.write(encode_png(img))

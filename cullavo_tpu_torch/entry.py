@@ -14,9 +14,11 @@ registered VQA datasets), the step2_pre data generation
 (``train`` with an "xdecoder" ``NAME``, over registered
 ``coco_panoptic_caption_grounding`` datasets) and eval (``RESUME_FROM`` a
 reference checkpoint or the port's own, the CLIP BPE tokenizer of
-``MODEL.TEXT.TOKENIZER``, then ``XDecoderPipeline`` or ``RefCOCOPipeline``
-per ``DATASETS.TEST`` entry over registered ``semseg``, ``coco_panoptic``
-and ``refcoco`` datasets or the bulk table under ``DETECTRON2_DATASETS``).
+``MODEL.TEXT.TOKENIZER``, then ``XDecoderPipeline``, ``RefCOCOPipeline``,
+``VLPRetrievalPipeline`` or ``COCOCaptionXDecPipeline`` per
+``DATASETS.TEST`` entry over registered ``semseg``, ``coco_panoptic`` and
+``refcoco`` datasets or the bulk table under ``DETECTRON2_DATASETS``, the
+VLP Arrow splits of its ``vlp`` directory included).
 
 ``MODEL.LLM.LOAD_PATH`` names a local snapshot: ``config.json``,
 ``*.safetensors`` shards and ``tokenizer.json`` (read by the port's own
@@ -72,6 +74,7 @@ from cullavo_tpu_torch.models.llava.modeling import (GenerationConfig, expand_im
 from cullavo_tpu_torch.models.xdecoder.model import init_xdecoder_model_params
 from cullavo_tpu_torch.models.xdecoder.text_encoder import class_embeddings_ensembled
 from cullavo_tpu_torch.pipelines import cullavo_pipeline  # noqa: F401 (registration)
+from cullavo_tpu_torch.pipelines import vlp_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines import vqa_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines import xdecoder_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines.base import build_pipeline
@@ -447,6 +450,60 @@ def _make_text_tokenize(cfg: dict, text_cfg):
     return tokenize
 
 
+def _make_text_decode(cfg: dict):
+    """ids -> caption text for the captioning evaluator: the CLIP BPE
+    tokenizer of ``MODEL.TEXT.TOKENIZER`` (ids up to the first
+    <|endoftext|>, special tokens dropped), else the ids joined as numbers
+    (the smoke mode's captions)."""
+    path = ((cfg.get("MODEL") or {}).get("TEXT") or {}).get("TOKENIZER")
+    if not path:
+        return lambda ids: " ".join(str(int(i)) for i in ids)
+    tk = CLIPTokenizer.from_dir(path)
+    eot = tk.eos_token_id
+
+    def decode(ids):
+        ids = [int(i) for i in ids]
+        if eot in ids:
+            ids = ids[:ids.index(eot)]
+        return tk.decode(ids, skip_special_tokens=True)
+
+    return decode
+
+
+def _vlp_image_loader(ds_name: str, md: dict, records: list):
+    """The images of a VLP dataset's rows: the registration's Arrow loader,
+    else ``load_image_file`` where the rows carry a ``file_name``; anything
+    else raises, naming the dataset."""
+    loader = (md.get("image_loader") or {}).get("loader")
+    if loader is not None:
+        return loader
+    if records and all("file_name" in r for r in records):
+        return lambda r: load_image_file(r["file_name"])
+    raise ValueError(f"{ds_name}: no image loader in its registration and rows without a "
+                     "file_name")
+
+
+def _eval_vlp(cfg: dict, ds_name: str, md: dict, records: list, model_cfg, params, tokenize):
+    """One retrieval or captioning dataset (``BATCH_SIZE``, default 8;
+    ``VLP_IMAGE_SIZE``, default 224; the captions to
+    ``SAVE_DIR/<name>_captions.json``)."""
+    kw = {"batch_size": int(cfg.get("BATCH_SIZE", 8)),
+          "image_size": int(cfg.get("VLP_IMAGE_SIZE", 224))}
+    image_loader = _vlp_image_loader(ds_name, md, records)
+    if md.get("evaluator_type") == "captioning" or "captioning" in ds_name:
+        out_dir = cfg.get("SAVE_DIR")
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+        pipe = build_pipeline("COCOCaptionXDecPipeline", cfg, model_cfg=model_cfg, params=params,
+                              image_loader=image_loader, decode_text=_make_text_decode(cfg),
+                              start_token_id=model_cfg.text.vocab_size - 2, **kw)
+        return pipe.evaluate_model(records, out_path=(
+            os.path.join(out_dir, f"{ds_name}_captions.json") if out_dir else None))
+    pipe = build_pipeline("VLPRetrievalPipeline", cfg, model_cfg=model_cfg, params=params,
+                          tokenize=tokenize, image_loader=image_loader, **kw)
+    return pipe.evaluate_model(records)
+
+
 def _read_reference_state(path: str) -> dict:
     """A reference-layout state dict file -> {key: f32 numpy}: a torch
     file (``.pt``, ``.pth``, ``.bin``; its ``model`` sub-dict when it has
@@ -638,12 +695,15 @@ def _eval_tasks(ds_name: str, md: dict) -> EvalTasks:
 def _eval_xdecoder(cfg: dict, device) -> dict:
     """The xdecoder workload: the model, its weights and the text tokenizer
     from the config, then per ``DATASETS.TEST`` entry (``LIMIT`` rows,
-    ``EVAL_BATCH``, ``SAVE_DIR``): a dataset with "ref" in its name, or
-    whose rows carry ``text``, through ``RefCOCOPipeline``; any other
-    through ``XDecoderPipeline`` with its class names' prompt-ensembled
-    embeddings, ``PanopticEvalMapper`` for panoptic records else
-    ``SemSegEvalMapper``, and the thing ids of its segments.  Returns the
-    metric dicts by dataset.  Retrieval and captioning datasets raise."""
+    ``EVAL_BATCH``, ``SAVE_DIR``): a retrieval or captioning dataset (its
+    ``evaluator_type``, or a name starting with "vlp") through
+    ``VLPRetrievalPipeline`` or ``COCOCaptionXDecPipeline``
+    (``_eval_vlp``; no class names are looked up for it); a dataset with
+    "ref" in its name, or whose rows carry ``text``, through
+    ``RefCOCOPipeline``; any other through ``XDecoderPipeline`` with its
+    class names' prompt-ensembled embeddings, ``PanopticEvalMapper`` for
+    panoptic records else ``SemSegEvalMapper``, and the thing ids of its
+    segments.  Returns the metric dicts by dataset."""
     model_cfg = xdecoder_model_config_from(cfg)
     params = _load_xdecoder_params(cfg, model_cfg, device)
     tokenize = _make_text_tokenize(cfg, model_cfg.text)
@@ -656,8 +716,8 @@ def _eval_xdecoder(cfg: dict, device) -> dict:
         records = every[:limit]
         md = get_metadata(ds_name) or {}
         if md.get("evaluator_type") in ("retrieval", "captioning") or ds_name.startswith("vlp"):
-            raise NotImplementedError(f"{ds_name}: retrieval and captioning eval wait for the VLP "
-                                      "slice (a port-owned Arrow IPC reader)")
+            results[ds_name] = _eval_vlp(cfg, ds_name, md, records, model_cfg, params, tokenize)
+            continue
         if "ref" in ds_name or (records and "text" in records[0]):
             pipe = build_pipeline("RefCOCOPipeline", cfg, model_cfg=model_cfg, params=params,
                                   tokenize=tokenize, eval_batch=eval_batch)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Any
 
+from cullavo_tpu_torch.models.xdecoder.davit import DaViTConfig
 from cullavo_tpu_torch.models.xdecoder.decoder import XDecoderConfig
 from cullavo_tpu_torch.models.xdecoder.deform_encoder import DeformEncoderConfig
 from cullavo_tpu_torch.models.xdecoder.focalnet import FocalNetConfig
@@ -46,6 +47,17 @@ def focalnet_config_from(cfg) -> FocalNetConfig:
     )
 
 
+def davit_config_from(cfg) -> DaViTConfig:
+    d = "MODEL.BACKBONE.DAVIT"
+    return DaViTConfig(
+        embed_dims=tuple(_get(cfg, d + ".DIM_EMBED", (128, 256, 512, 1024))),
+        num_heads=tuple(_get(cfg, d + ".NUM_HEADS", (4, 8, 16, 32))),
+        num_groups=tuple(_get(cfg, d + ".NUM_GROUPS", (4, 8, 16, 32))),
+        depths=tuple(_get(cfg, d + ".DEPTHS", (1, 1, 9, 1))),
+        window_size=int(_get(cfg, d + ".WINDOW_SIZE", 12)),
+    )
+
+
 def sam_vit_config_from(cfg) -> SamVitConfig:
     v = "MODEL.BACKBONE.VIT"
     return SamVitConfig(
@@ -59,17 +71,18 @@ def backbone_config_from(cfg):
     name = _get(cfg, "MODEL.BACKBONE.NAME", "focal")
     if name in ("focal", "focal_dw"):
         return name, focalnet_config_from(cfg)
+    if name == "davit":
+        return name, davit_config_from(cfg)
     if name == "vit":
         return name, sam_vit_config_from(cfg)
-    if name == "davit":
-        raise NotImplementedError("the DaViT backbone waits for a later part of the "
-                                  "X-Decoder slice")
     raise KeyError(f"MODEL.BACKBONE.NAME {name!r}")
 
 
 def _backbone_channels(backbone) -> tuple:
     if isinstance(backbone, FocalNetConfig):
         return tuple(backbone.num_features)
+    if isinstance(backbone, DaViTConfig):
+        return tuple(backbone.embed_dims)
     return tuple(backbone.out_dims)   # SAM-ViT: the simple-FPN neck's widths
 
 

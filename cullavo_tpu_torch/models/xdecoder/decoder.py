@@ -15,8 +15,8 @@ counterpart of ``jax.image.resize`` for the methods the X-Decoder uses
 over in-bounds taps, which ``F.interpolate(antialias=True)`` computes).
 
 Training runs the seg task with grounding tokens (duplicated queries) and
-the vlp task with caption tokens; greedy captioning eval
-(``forward_captioning``) waits for its slice and raises.
+the vlp task with caption tokens; ``forward_captioning`` runs the caption
+slots greedily, one decoder pass a token.
 """
 from __future__ import annotations
 
@@ -367,6 +367,25 @@ def xdecoder_forward(params, cfg: XDecoderConfig, features: list, mask_features,
     }
 
 
-def forward_captioning(*args, **kwargs):
-    raise NotImplementedError("forward_captioning (greedy captioning eval) waits for the "
-                              "captioning eval slice")
+def forward_captioning(params, cfg: XDecoderConfig, features: list, mask_features,
+                       token_embedding_fn, vocab_embs, token_ids_start: int,
+                       captioning_mask=None):
+    """Greedy captioning: ``min(captioning_step, contxt_len - 1)`` steps,
+    each re-encoding the partial caption (``token_embedding_fn(ids) -> [B,
+    contxt_len, hidden_dim]``), running the decoder with the caption slots
+    (and, when given, ``captioning_mask`` [B, H, W] bool, True = a region
+    the caption tokens may not attend), and writing at ``t + 1`` the
+    argmax of slot ``t``'s raw dot with the vocabulary table ``vocab_embs``
+    [V, dim_proj].  Returns the ids [B, contxt_len] int32 (the start id at
+    0), kept on the device: no step reads anything back to the host."""
+    cl = cfg.contxt_len
+    B = features[0].shape[0]
+    ids = torch.zeros((B, cl), dtype=torch.int32, device=mask_features.device)
+    ids[:, 0] = token_ids_start
+    for t in range(min(cfg.captioning_step, cl - 1)):
+        out = xdecoder_forward(params, cfg, features, mask_features,
+                               caption_tokens=token_embedding_fn(ids),
+                               captioning_spatial_mask=captioning_mask, task="vlp", is_train=True)
+        logits = out["pred_captionings"][:, t] @ vocab_embs.t()
+        ids[:, t + 1] = torch.argmax(logits, dim=-1).to(torch.int32)
+    return ids

@@ -10,11 +10,14 @@ trunk.  The per-pixel parts of the
 inferences (``semantic_inference_argmax``, ``panoptic_inference_device``,
 ``instance_inference_device``) run on the tensors' device, so only compact
 maps and Q-sized vectors reach the host; ``panoptic_assemble_host`` and
-``unpack_mask_planes`` are their numpy tails.  Training: the seg forward
-(``forward_seg_train``) and the joint objective (``forward_joint_train``)
-through ``criterion.set_criterion``.  The VLP-only forward,
-classification and retrieval eval, and the DaViT backbone wait for their
-slices and raise.
+``unpack_mask_planes`` are their numpy tails.  ``evaluate_retrieval_embedding``
+(the class-token caption embedding and the res5 ``backbone_proj``
+ensemble) and ``evaluate_classification`` (the class token's logits) run
+on the same trunk; ``evaluate_dispatch`` picks among the eval modes.
+Training: the seg forward (``forward_seg_train``) and the joint objective
+(``forward_joint_train``) through ``criterion.set_criterion``.  The
+VLP-only training forward (``forward_vlp_train``), which no entry point
+reaches, waits for the VLP training slice and raises.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from cullavo_tpu_torch.models.xdecoder.criterion import (CriterionConfig, loss_c
                                                          loss_captions, loss_grounding_ce,
                                                          loss_groundings, match_groundings,
                                                          set_criterion)
+from cullavo_tpu_torch.models.xdecoder.davit import DaViTConfig, davit_forward, init_davit_params
 from cullavo_tpu_torch.models.xdecoder.decoder import (XDecoderConfig, init_xdecoder_params,
                                                        l2_normalize, resize, xdecoder_forward)
 from cullavo_tpu_torch.models.xdecoder.deform_encoder import (DeformEncoderConfig,
@@ -50,7 +54,8 @@ PIXEL_STD = (58.395, 57.12, 57.375)
 
 @dataclasses.dataclass(frozen=True)
 class XDecoderModelConfig:
-    # ``backbone`` matches ``backbone_name`` (FocalNetConfig | SamVitConfig);
+    # ``backbone`` matches ``backbone_name`` (FocalNetConfig | DaViTConfig |
+    # SamVitConfig);
     # ``fpn`` matches ``encoder_name`` (FPNConfig | DeformEncoderConfig)
     backbone: object = dataclasses.field(default_factory=FocalNetConfig)
     fpn: object = dataclasses.field(default_factory=FPNConfig)
@@ -65,16 +70,13 @@ class XDecoderModelConfig:
     encoder_name: str = "transformer_encoder_fpn"
 
 
-_DAVIT = "the DaViT backbone waits for a later part of the X-Decoder slice"
-
-
 def _backbone_apply(params, cfg: XDecoderModelConfig, images, remat: bool = False):
     if cfg.backbone_name in ("focal", "focal_dw"):
         return focalnet_forward(params, cfg.backbone, images, remat=remat)
+    if cfg.backbone_name == "davit":
+        return davit_forward(params, cfg.backbone, images)
     if cfg.backbone_name == "vit":
         return sam_vit_forward(params, cfg.backbone, images)
-    if cfg.backbone_name == "davit":
-        raise NotImplementedError(_DAVIT)
     raise KeyError(f"backbone {cfg.backbone_name!r}")
 
 
@@ -90,9 +92,11 @@ def _backbone_last_channels(cfg: XDecoderModelConfig) -> int:
     bb = cfg.backbone
     if isinstance(bb, FocalNetConfig):
         return bb.num_features[-1]
+    if isinstance(bb, DaViTConfig):
+        return bb.embed_dims[-1]
     if isinstance(bb, SamVitConfig):
         return bb.out_dims[-1]
-    raise NotImplementedError(_DAVIT)
+    raise AttributeError(f"cannot infer channels for {type(bb).__name__}")
 
 
 def tiny_xdecoder_config() -> XDecoderModelConfig:
@@ -116,10 +120,12 @@ def init_xdecoder_model_params(cfg: XDecoderModelConfig, gen: torch.Generator, d
     """Random parameters from ``gen`` on ``device`` (the port's layouts)."""
     if cfg.backbone_name in ("focal", "focal_dw"):
         backbone = init_focalnet_params(cfg.backbone, gen, device, dtype)
+    elif cfg.backbone_name == "davit":
+        backbone = init_davit_params(cfg.backbone, gen, device, dtype)
     elif cfg.backbone_name == "vit":
         backbone = init_sam_vit_params(cfg.backbone, gen, device, dtype)
     else:
-        raise NotImplementedError(_DAVIT)
+        raise KeyError(f"backbone {cfg.backbone_name!r}")
     if cfg.encoder_name == "transformer_encoder_fpn":
         fpn = init_fpn_params(cfg.fpn, gen, device, dtype)
     else:
@@ -128,7 +134,7 @@ def init_xdecoder_model_params(cfg: XDecoderModelConfig, gen: torch.Generator, d
         "backbone": backbone, "fpn": fpn,
         "decoder": init_xdecoder_params(cfg.decoder, gen, device, dtype),
         "text": init_text_encoder_params(cfg.text, gen, device, dtype),
-        # res5 -> language space, for the backbone-ensemble retrieval (not run by eval)
+        # res5 -> language space, for the backbone-ensemble retrieval
         "backbone_proj": (torch.randn((_backbone_last_channels(cfg), cfg.text.dim_lang),
                                       generator=gen, device=device) * 0.02).to(dtype),
     }
@@ -504,13 +510,51 @@ def evaluate_grounding(params, cfg: XDecoderModelConfig, images, text_ids, text_
     return picked[:, 0]
 
 
-def _waits(what):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{what} waits for a later part of the X-Decoder slice")
-    fn.__name__ = what
-    return fn
+def forward_vlp_train(*args, **kwargs):
+    raise NotImplementedError("forward_vlp_train (the VLP training forward, which no entry point "
+                              "reaches) waits for the VLP training slice")
 
 
-forward_vlp_train = _waits("forward_vlp_train")
-evaluate_classification = _waits("evaluate_classification")
-evaluate_retrieval_embedding = _waits("evaluate_retrieval_embedding")
+def evaluate_classification(params, cfg: XDecoderModelConfig, images, text_class_embeds):
+    """Zero-shot classification by the class token: its logits [B, C + 1]
+    against ``text_class_embeds`` (the background column included, as the
+    reference scores them)."""
+    mask_features, pyramid = backbone_and_pixel_decoder(params, cfg, images)
+    out = xdecoder_forward(params["decoder"], cfg.decoder, pyramid, mask_features,
+                           text_class_embeds=text_class_embeds,
+                           logit_scale=params["text"]["logit_scale"], task="eval")
+    return out["pred_logits"][:, -1]
+
+
+def evaluate_retrieval_embedding(params, cfg: XDecoderModelConfig, images, ensemble: bool = True):
+    """Image embeddings for retrieval: ``(class_token_emb, backbone_emb or
+    None)``, each normalized (``+ 1e-7``).  The first is the class token's
+    caption embedding (query ``nq - 1``); the second, with ``ensemble`` and
+    a ``backbone_proj`` in ``params``, res5 averaged over the map through
+    ``backbone_proj`` (the evaluator averages the two score matrices 0.5 /
+    0.5)."""
+    feats, mask_features, pyramid = _trunk(params, cfg, images)
+    out = xdecoder_forward(params["decoder"], cfg.decoder, pyramid, mask_features, task="eval")
+    emb = l2_normalize(out["pred_captions"][:, cfg.decoder.num_queries - 1])
+    emb2 = None
+    if ensemble and "backbone_proj" in params:
+        emb2 = l2_normalize(feats["res5"].mean(dim=(2, 3)) @ params["backbone_proj"])
+    return emb, emb2
+
+
+def evaluate_dispatch(params, cfg: XDecoderModelConfig, images, mode: str = "default",
+                      text_class_embeds=None, text_ids=None, text_mask=None, out_size=None):
+    """The eval modes: retrieval | classification | grounding_refcoco |
+    default (the dense forward).  Captioning goes through
+    ``decoder.forward_captioning`` with a token-embedding function (see
+    ``pipelines.vlp_pipeline``), so ``mode="captioning"`` raises."""
+    if mode == "retrieval":
+        return evaluate_retrieval_embedding(params, cfg, images)
+    if mode == "classification":
+        return evaluate_classification(params, cfg, images, text_class_embeds)
+    if mode == "grounding_refcoco":
+        return evaluate_grounding(params, cfg, images, text_ids, text_mask, out_size)
+    if mode == "captioning":
+        raise ValueError("mode 'captioning': use decoder.forward_captioning with a "
+                         "tokenizer-backed token_embedding_fn (pipelines.vlp_pipeline)")
+    return forward_eval(params, cfg, images, text_class_embeds, out_size)

@@ -39,7 +39,7 @@ from cullavo_tpu_torch.models.xdecoder.model import (XDecoderModelConfig, evalua
                                                      panoptic_inference_device,
                                                      semantic_inference_argmax,
                                                      unpack_mask_planes)
-from cullavo_tpu_torch.pipelines.base import register_pipeline
+from cullavo_tpu_torch.pipelines.base import batch_timing, register_pipeline
 
 
 @dataclasses.dataclass
@@ -144,21 +144,6 @@ class SemSegMetrics:
 def _bucket_hw(h: int, w: int, step: int = 128) -> tuple:
     """Round (h, w) up to multiples of ``step``."""
     return (-(-h // step) * step, -(-w // step) * step)
-
-
-def _timing(data_t, compute_t, eval_t, n_images, batch, warmup) -> dict:
-    """Per-batch means over the batches after the first ``warmup`` ones,
-    and the images per second over them."""
-    w = min(warmup, max(len(compute_t) - 1, 0))
-    out = {"data_s": float(np.mean(data_t[w:])) if data_t[w:] else 0.0,
-           "compute_s": float(np.mean(compute_t[w:])) if compute_t[w:] else 0.0,
-           "eval_s": float(np.mean(eval_t[w:])) if eval_t[w:] else 0.0,
-           "eval_batch": batch}
-    total = sum(data_t[w:]) + sum(compute_t[w:]) + sum(eval_t[w:])
-    imgs = max(n_images - w * batch, 0)
-    if total > 0 and imgs > 0:
-        out["images_per_s"] = imgs / total
-    return out
 
 
 @register_pipeline("XDecoderPipeline")
@@ -288,7 +273,7 @@ class XDecoderPipeline:
             out["instance_outputs"] = inst_outputs
             if inst_metrics.n_gt:
                 out["instance_ap"] = inst_metrics.results()
-        out["timing"] = _timing(data_t, compute_t, eval_t, n_images, self.eval_batch, warmup)
+        out["timing"] = batch_timing(data_t, compute_t, eval_t, n_images, self.eval_batch, warmup)
         return out
 
 
@@ -380,5 +365,5 @@ class RefCOCOPipeline:
                     r = gm.results()
                     w.writerow([cls] + [round(r[k], 2) for k in results])
                 w.writerow(["TOTAL"] + [round(results[k], 2) for k in results])
-        results["timing"] = _timing(data_t, compute_t, eval_t, n_images, B, warmup)
+        results["timing"] = batch_timing(data_t, compute_t, eval_t, n_images, B, warmup)
         return results

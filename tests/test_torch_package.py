@@ -106,6 +106,10 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.trainer.xdecoder_step",
     "cullavo_tpu_torch.data.clip_tokenizer",
     "cullavo_tpu_torch.checkpoint.xdecoder_import",
+    "cullavo_tpu_torch.data.arrow_ipc",
+    "cullavo_tpu_torch.data.vlp_datasets",
+    "cullavo_tpu_torch.models.xdecoder.davit",
+    "cullavo_tpu_torch.pipelines.vlp_pipeline",
 )
 
 
@@ -125,7 +129,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in SLICE_MODULES)
             + "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'cullavo_tpu', 'yaml',"
-              " 'optax', 'transformers', 'tokenizers', 'safetensors', 'PIL')]\n"
+              " 'optax', 'transformers', 'tokenizers', 'safetensors', 'PIL', 'pyarrow')]\n"
               "print(bad)\n"
               "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
@@ -1354,6 +1358,7 @@ def _focal_case(dev, dtype, B, C, H, W, kernels, seed, strided):
     (1, 96, 100, 75, (3, 5, 7), False), (3, 8, 5, 3, (3, 5, 7, 9), False),
     (1, 16, 70, 130, (3, 5, 7, 9, 11, 13, 15, 17), False), (1, 4, 33, 17, (1,), False),
     (1, 192, 128, 160, (3, 5, 7, 9), True),      # the 512 x 640 bucket's stage 1
+    (8, 1536, 7, 7, (3, 5, 7, 9), True),         # stage 4 at 224^2: a map under the 9 x 9 kernel
     (1, 8, 154, 154, (3, 5, 7, 9), False),       # just past one pass: tiles of 128
     (2, 3, 300, 200, (3, 5, 7, 9), True)])
 def test_cuda_focal_ctx_matches_plain(cuda_device, dtype, approximate, B, C, H, W, kernels,

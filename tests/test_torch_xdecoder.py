@@ -468,10 +468,6 @@ def _plain(cfg):
 @pytest.mark.parametrize("path", CONFIGS)
 def test_from_config_matches_jax(path):
     cfg = _yaml(path)
-    if (cfg.get("MODEL") or {}).get("BACKBONE", {}).get("NAME") == "davit":
-        with pytest.raises(NotImplementedError, match="DaViT"):
-            tfc.xdecoder_model_config_from(cfg)
-        return
     assert _plain(tfc.xdecoder_model_config_from(cfg)) == \
         _plain(jfc.xdecoder_model_config_from(cfg))
 

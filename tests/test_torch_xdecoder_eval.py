@@ -33,6 +33,7 @@ import cullavo_tpu.data.mappers.eval_mappers as jmap
 import cullavo_tpu.data.registry as jreg
 import cullavo_tpu.entry as jentry
 import cullavo_tpu.models.from_config as jfc
+import cullavo_tpu.models.xdecoder.davit as jdavit
 import cullavo_tpu.models.xdecoder.model as jmodel
 import cullavo_tpu.models.xdecoder.text_encoder as jte
 import cullavo_tpu.pipelines.xdecoder_pipeline as jpipe
@@ -40,8 +41,10 @@ import cullavo_tpu_torch.checkpoint.xdecoder_import as timp
 import cullavo_tpu_torch.data.datasets as tds
 import cullavo_tpu_torch.data.mappers.eval_mappers as tmap
 import cullavo_tpu_torch.data.registry as treg
+import cullavo_tpu_torch.data.vlp_datasets as tvlp
 import cullavo_tpu_torch.entry as tentry
 import cullavo_tpu_torch.models.from_config as tfc
+import cullavo_tpu_torch.models.xdecoder.davit as tdavit
 import cullavo_tpu_torch.models.xdecoder.model as tmodel
 import cullavo_tpu_torch.models.xdecoder.text_encoder as tte
 import cullavo_tpu_torch.pipelines.xdecoder_pipeline as tpipe
@@ -51,7 +54,8 @@ from cullavo_tpu_torch.checkpoint.store import save_checkpoint
 from cullavo_tpu_torch.data import png_io
 from test_torch_joint_data import chip_smoke
 from test_torch_xdecoder import _jax_sam_deform_config, _noisy_numpy, port_config
-from test_xdecoder_import import _deform_state, _samvit_state, _synthetic_reference_state
+from test_xdecoder_import import (_davit_state, _deform_state, _samvit_state,
+                                  _synthetic_reference_state)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -290,8 +294,13 @@ def test_missing_extra_and_misshapen_leaves_raise():
         timp.align_and_update(target, extra)
     assert timp.unused_keys({**sd, "criterion.empty_weight": np.ones(7)}, tcfg) == [
         "criterion.empty_weight"]
-    with pytest.raises(NotImplementedError, match="DaViT"):
-        timp.import_davit(sd, None)
+    # DaViT (the JAX tests' small configuration): bit-equal to JAX's import
+    dcfg = jdavit.DaViTConfig(embed_dims=(8, 16, 32, 64), num_heads=(2, 2, 4, 4),
+                              num_groups=(2, 2, 4, 4), depths=(1, 1, 1, 1), window_size=4)
+    dstate = _davit_state(dcfg)
+    _assert_trees_equal(timp.import_davit(dstate, tdavit.DaViTConfig(**dataclasses.asdict(dcfg))),
+                        xdecoder_params_from_numpy(jax.tree.map(
+                            np.asarray, jimp.import_davit(dstate, dcfg)), "cpu"))
 
 
 def test_evaluate_grounding_matches_jax(tiny, vocab, data_root):
@@ -443,10 +452,13 @@ def test_bulk_registration_records_match_jax(tmp_path, capsys):
     capsys.readouterr()
     assert tds.register_all_segmentation(monkey_root) == ["pascalvoc_val_Point"]
     assert capsys.readouterr().err.count("not registered") == 9
+    # a vlp directory registers the VLP Arrow splits (read when first asked for)
     os.makedirs(os.path.join(monkey_root, "vlp"))
     treg._DATASETS.clear()
-    with pytest.raises(NotImplementedError, match="Arrow"):
-        tds.register_all_segmentation(monkey_root)
+    treg._METADATA.clear()
+    assert tds.register_all_segmentation(monkey_root) == ["pascalvoc_val_Point"] + list(
+        tvlp.PREDEFINED_SPLITS)
+    assert treg.get_metadata("vlp_captioning_val")["evaluator_type"] == "captioning"
 
 
 # ---------------------------------------------------------------------------
@@ -509,8 +521,10 @@ def test_entry_eval_refusals(tiny, data_root, tmp_path):
     with pytest.raises(ValueError, match="no class names"):
         tentry.evaluate({**cfg, "DATASETS": {"TEST": ["plain_set"],
                                              "REGISTER": {"plain_set": spec}}}, device="cpu")
-    treg.register_dataset("vlp_val", lambda: [], {"evaluator_type": "retrieval"})
-    with pytest.raises(NotImplementedError, match="Arrow"):
+    # a retrieval dataset with no Arrow loader and rows without a file_name
+    treg.register_dataset("vlp_val", lambda: [{"image_id": 1, "captions": ["a"]}],
+                          {"evaluator_type": "retrieval"})
+    with pytest.raises(ValueError, match="vlp_val: no image loader"):
         tentry.evaluate({**cfg, "DATASETS": {"TEST": ["vlp_val"]}}, device="cpu")
     with pytest.raises(NotImplementedError, match="ImageNet"):
         tentry.register_datasets_from_cfg({"DATASETS": {"REGISTER": {"i": {"KIND": "imagenet"}}}})
