@@ -5,7 +5,7 @@
                                         # eval, vl_test from a written 7B snapshot, the VL
                                         # zoo, the training loop, the matmul probe, X-Decoder
                                         # training and eval from a checkpoint, the VLP eval
-                                        # and DaViT
+                                        # and DaViT, serving over HTTP with adapters
     python3 chip_smoke.py --profile     # the same + a profiled run of each path
 
 Phases (each raises on failure, and the script exits non-zero):
@@ -292,6 +292,29 @@ Phases (each raises on failure, and the script exits non-zero):
      retrieval images/s, captioning s a batch and ms a decode step, DaViT-d3
      images/s and compute s a batch, peak memory.  The kernels line gains
      ``vlp_eval_launches``.
+  18. the rest of ``serve`` (run right after phase 7, on its 7B NF4
+     parameters): (a) ``python -m cullavo_tpu_torch serve --conf_files
+     configs/serve.yaml`` with ``SERVE.PORT 0`` in a subprocess (the tiny
+     smoke model): the port read from its stderr line, /healthz, a blocking
+     and a streamed POST /generate, /stats with 2 completed, then SIGINT and
+     exit 0 within HTTP_EXIT_S; (b) two r = 64 adapter sets on the seven LLM
+     targets (random A and B) written with ``save_adapters`` and read back
+     bit-equal; (c) an engine from ``entry._engine_from_cfg`` (the SERVE
+     block + ``ADAPTERS``) behind ``make_server`` on 127.0.0.1:0: phase 7's
+     24 requests (images as ``.npy`` paths, adapter ids alternating) from 8
+     client threads, 8 streamed: all 200, each stream's tokens its final
+     line's, every token its own set's teacher-forced argmax within 0.1,
+     most streams not the other set's, /stats 24 completed with at least 16
+     prefix misses (keys by image and adapter), 400 for a duplicate id in
+     flight, an over-long prompt and ``adapter_id`` 2, 404 for an unknown
+     path, K1, K5, K6 and K7 launched; (d) ``DO_SAMPLE: true`` (SPEC_K
+     switched off): the 24 requests offline twice from one seed, identical
+     tokens, every draw inside its replayed top-k / top-p set within
+     SAMPLE_MARGIN, K5 at W = 1; (e) ms per quantum and per forward with
+     and without the stack; requests/s, tokens/s, TTFT / E2E, peak memory.
+     The kernels line gains ``serve_http_launches``.  With ``--profile``,
+     at the end: one 16-row decode forward without adapters, with one set
+     and with the two-set stack under torch.profiler.
 The last two lines are the kernels' JSON record and the result line.
 Imports neither JAX nor the JAX package.
 """
@@ -300,6 +323,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -334,6 +358,15 @@ SERVE_IMAGES, SERVE_QUESTIONS, SERVE_HEAD_TEXT, SERVE_SHARED_TEXT = 8, 3, 4, 32
 SERVE_OWN_TEXT, SERVE_BUDGETS = (8, 28), (8, 16, 24, 32)
 SERVE_DECODE_M = SERVE_CFG["SLOTS"] * SERVE_CFG["SPEC_K"]
 SERVE_SUFFIX_W = (32, 64, 128)   # the engine's default suffix buckets
+# phase 18: two r = 64 adapter sets on the seven LLM targets (alpha 16:
+# scaling 0.25), A ~ N(0, 1/d_in) as init_lora_params draws it and B ~
+# N(0, ADAPTER_B_STD^2) (PEFT's zero B would make every adapter a no-op); the
+# HTTP traffic is phase 7's 24 requests with adapter ids alternating 0 / 1 from
+# HTTP_CLIENTS client threads, every HTTP_STREAM_EVERY-th request streamed; a
+# sampled token may lie SAMPLE_MARGIN (logit) below the least logit of its
+# replayed top-k / top-p set; the entry point exits within HTTP_EXIT_S of SIGINT
+ADAPTER_R, ADAPTER_ALPHA, ADAPTER_B_STD = 64, 16, 0.05
+HTTP_CLIENTS, HTTP_STREAM_EVERY, SAMPLE_MARGIN, HTTP_EXIT_S = 8, 3, 0.1, 10.0
 # configs/cullavo_step1.yaml (the Q-LoRA train step), its dataset left unset
 TRAIN_CFG = {"NAME": "cullavo_step1", "PIPELINE": "CuLLaVOPipeline", "WORKLOAD": "step1",
              "EPOCHS": 1, "BATCH_SIZE": 8, "LR": 2.0e-5, "LAST_LR": 0.0, "GRAD_MAX": 10.0,
@@ -2070,37 +2103,52 @@ def make_run(params, cfg, device, requests, kv_quant=None, spec_k=None):
     return run
 
 
-def replay(params, cfg, device, requests, tokens, kv_quant, chunk=CHUNK):
+def replay(params, cfg, device, requests, tokens, kv_quant, chunk=CHUNK, lora=None,
+           lora_scaling=0.0, gen=None):
     """Teacher-forced sequential decode: a full prefill, then T = 1
-    stale-cache steps fed ``tokens`` [B, N].  Returns, per position, how far
-    the given token's logit lies below the step's maximum (0 where it is the
-    argmax) and the step's top-2 gap, both [B, N] on the host."""
+    stale-cache steps fed ``tokens`` [B, N] (with a single adapter set
+    ``lora`` when given).  Returns, per position, how far the given token's
+    logit lies below the step's maximum (0 where it is the argmax) and the
+    step's top-2 gap, both [B, N] on the host; with a sampled ``gen`` also
+    how far it lies below the least logit of the step's top-k / top-p set
+    (0 inside the set)."""
     import torch
 
-    from cullavo_tpu_torch.models.llava.modeling import generate_prefill_chunked, llava_forward
+    from cullavo_tpu_torch.models.llava.modeling import (_cast_params, _filter_logits,
+                                                         generate_prefill_chunked, llava_forward)
+    from cullavo_tpu_torch.models.llava.llama import NEG_INF
 
     ids, mask, pix, _, T_pad = requests
+    lora = _cast_params(lora, torch.bfloat16) if lora else None
     st = generate_prefill_chunked(params, cfg, ids, pix, mask, T_pad + tokens.shape[1], chunk,
-                                  compute_dtype=torch.bfloat16, kv_quant=kv_quant)
+                                  compute_dtype=torch.bfloat16, kv_quant=kv_quant, lora=lora,
+                                  lora_scaling=lora_scaling)
     toks = tokens.to(device).long()
     cur_pos, write_idx = st["cur_pos"], st["write_idx"]
-    below, gap = [], []
+    below, gap, outside = [], [], []
 
     def score(logits, i):
         top = torch.topk(logits, 2, dim=-1).values
-        below.append(top[:, 0] - logits.gather(1, toks[:, i:i + 1])[:, 0])
+        mine = logits.gather(1, toks[:, i:i + 1])[:, 0]
+        below.append(top[:, 0] - mine)
         gap.append(top[:, 0] - top[:, 1])
+        if gen is not None:
+            kept = _filter_logits(logits, gen) > NEG_INF / 2
+            edge = torch.where(kept, logits, torch.full_like(logits, torch.inf)).amin(dim=-1)
+            outside.append((edge - mine).clamp_min(0))
 
     score(st["logits"], 0)
     for i in range(tokens.shape[1] - 1):
         logits, _ = llava_forward(params, cfg, toks[:, i:i + 1].int(), None, None,
                                   cur_pos[:, None], st["cache"], write_idx, st["full_mask"],
-                                  st["key_pos"], stale_cache=True)
+                                  st["key_pos"], stale_cache=True, lora=lora,
+                                  lora_scaling=lora_scaling)
         st["full_mask"][:, write_idx] = 1
         st["key_pos"][:, write_idx] = cur_pos
         score(logits[:, 0], i + 1)
         cur_pos, write_idx = cur_pos + 1, write_idx + 1
-    return torch.stack(below, dim=1).cpu(), torch.stack(gap, dim=1).cpu()
+    out = (torch.stack(below, dim=1).cpu(), torch.stack(gap, dim=1).cpu())
+    return out + (torch.stack(outside, dim=1).cpu(),) if gen is not None else out
 
 
 def check_streams(label, params, cfg, device, requests, kv_quant, tok_spec, tok_greedy):
@@ -2384,11 +2432,11 @@ def make_serving_run(params, cfg, device, reqs):
     return run
 
 
-def check_serving_streams(params, cfg, device, reqs, results):
-    """Every served token against a teacher-forced sequential replay that
-    starts from a FULL prefill of each prompt (so prefix reuse, the
-    speculative windows and the slot pool are all held): the token must be
-    the step's argmax within ``LOGIT_TOL``."""
+def replay_served(params, cfg, device, reqs, results, **kw):
+    """``replay`` of the served streams, each request from a FULL prefill of
+    its prompt (so prefix reuse, the speculative windows and the slot pool
+    are all held).  Returns ``replay``'s tensors and the [n, N] mask of the
+    positions each request emitted."""
     import numpy as np
     import torch
 
@@ -2407,15 +2455,25 @@ def check_serving_streams(params, cfg, device, reqs, results):
         valid[i, :len(out)] = True
     pix = torch.from_numpy(np.stack([r.pixel_values for r in reqs])).to(device)
     requests = (ids.to(device), mask.to(device), pix, None, T_pad)
-    below, gap = replay(params, cfg, device, requests, toks, SERVE_CFG["KV_QUANT"],
-                        chunk=SERVE_CFG["PREFILL_CHUNK"])
+    return replay(params, cfg, device, requests, toks, SERVE_CFG["KV_QUANT"],
+                  chunk=SERVE_CFG["PREFILL_CHUNK"], **kw) + (valid,)
+
+
+def check_serving_streams(params, cfg, device, reqs, results, label="serving", **kw):
+    """Every served token against ``replay_served``: the token must be the
+    step's argmax within ``LOGIT_TOL`` (with ``lora``, the set the requests
+    were served with).  Returns (below, valid)."""
+    n = len(reqs)
+    below, gap, valid = replay_served(params, cfg, device, reqs, results, **kw)
     worst = below[valid].max().item()
-    log(f"serving replay: worst served token lies {worst:.4f} below the sequential step's "
+    log(f"{label} replay: worst served token lies {worst:.4f} below the sequential step's "
         f"maximum over {int(valid.sum())} tokens of {n} requests (tol {LOGIT_TOL}); "
         f"{int((gap[valid] <= LOGIT_TOL).sum())} of those steps have a top-2 gap within "
         f"the tolerance")
     if not worst <= LOGIT_TOL:
-        raise RuntimeError(f"a served token is not the sequential step's argmax: {worst}")
+        raise RuntimeError(f"{label}: a served token is not the sequential step's argmax: "
+                           f"{worst}")
+    return below, valid
 
 
 def run_serving_path(params, cfg, device, wrappers):
@@ -2500,6 +2558,448 @@ def serve_smoke(device):
             for r in rows):
         raise RuntimeError(f"entry.serve smoke mode: bad results {rows}")
     log(f"entry.serve smoke mode on the card: {summary}")
+
+
+def _read_lines(stream, sink):
+    """Thread body: every line of ``stream`` into the queue ``sink``."""
+    for line in iter(stream.readline, ""):
+        sink.put(line)
+    sink.put(None)
+
+
+def _http(port, method, path, payload=None, timeout=600):
+    """(status, body) of one HTTP call to 127.0.0.1:port: a dict, or the
+    lines of a chunked JSONL stream."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request(method, path, None if payload is None else json.dumps(payload),
+                 {"Content-Type": "application/json"})
+    r = conn.getresponse()
+    body = r.read().decode()
+    conn.close()
+    if r.getheader("Content-Type") == "application/jsonl":
+        return r.status, [json.loads(line) for line in body.splitlines()]
+    return r.status, json.loads(body)
+
+
+def http_entry_smoke(smi):
+    """Phase 18a: ``python -m cullavo_tpu_torch serve --conf_files
+    configs/serve.yaml`` with ``SERVE.PORT 0`` in a subprocess (the tiny
+    smoke model): the bound port from its stderr line, /healthz, a blocking
+    and a streamed POST /generate, /stats with 2 completed, then SIGINT and
+    exit 0 within HTTP_EXIT_S."""
+    import queue
+    import signal
+    import threading
+
+    from cullavo_tpu_torch.entry import smoke_llava_config
+
+    mcfg = smoke_llava_config()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    with tempfile.TemporaryDirectory(prefix="cullavo_chip_http_") as tmp:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "cullavo_tpu_torch", "serve", "--conf_files",
+             os.path.join(REPO, "configs", "serve.yaml"), "--overrides", "SERVE.PORT", "0",
+             "SERVE.RESULTS", os.path.join(tmp, "unused.jsonl")],
+            cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            lines = queue.Queue()
+            threading.Thread(target=_read_lines, args=(proc.stderr, lines), daemon=True).start()
+            port, seen = None, []
+            while port is None:
+                line = lines.get(timeout=300)
+                if line is None:
+                    raise RuntimeError(f"serve exited before binding: {seen[-8:]}")
+                seen.append(line.rstrip())
+                if line.startswith("[entry] serving on http://"):
+                    port = int(line.split("http://", 1)[1].split()[0].rsplit(":", 1)[1])
+            t_bound = time.perf_counter() - t0
+            if _http(port, "GET", "/healthz") != (200, {"ok": True}):
+                raise RuntimeError("serve: /healthz did not answer 200 ok")
+            row = {"input_ids": [1, mcfg.image_token_id] + list(range(40, 46)),
+                   "image": [[[0.0] * 28] * 28] * 3, "max_new_tokens": 8}
+            s1, b1 = _http(port, "POST", "/generate", {**row, "id": 1})
+            s2, b2 = _http(port, "POST", "/generate", {**row, "id": 2, "stream": True})
+            if s1 != 200 or s2 != 200 or not b1["tokens"] or \
+                    [x["token"] for x in b2[:-1]] != b2[-1]["tokens"] or not b2[-1]["done"]:
+                raise RuntimeError(f"serve: bad replies {s1} {b1} {s2} {b2}")
+            stats = _http(port, "GET", "/stats")[1]
+            if stats["completed"] != 2:
+                raise RuntimeError(f"serve: /stats {stats}")
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=60)
+            t_exit = time.perf_counter() - t1
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if rc != 0 or t_exit > HTTP_EXIT_S:
+        raise RuntimeError(f"serve: exit {rc} {t_exit:.2f} s after SIGINT; stderr {seen[-8:]}")
+    log(f"phase 18a ({smi}): python -m cullavo_tpu_torch serve bound port {port} after "
+        f"{t_bound:.2f} s; /healthz 200; blocking {b1['tokens']}, streamed "
+        f"{b2[-1]['tokens']} (text {b1['text']!r}); /stats completed 2; exit 0 "
+        f"{t_exit:.2f} s after SIGINT")
+
+
+def make_adapter_dirs(params, cfg, device, work, smi):
+    """Phase 18b: two r = 64 LLM adapter sets (A as ``init_lora_params``
+    draws it, B ~ N(0, ADAPTER_B_STD^2)) written with ``save_adapters`` and
+    read back bit-equal with ``load_adapters``.  Returns (dirs, sets on the
+    card)."""
+    import torch
+
+    from cullavo_tpu_torch.checkpoint.store import load_adapters, save_adapters
+    from cullavo_tpu_torch.models.llava.lora import LoraConfig, init_lora_params
+
+    lcfg = LoraConfig(r=ADAPTER_R, alpha=ADAPTER_ALPHA)
+    dirs, sets = [], []
+    t_write = t_read = 0.0
+    for k in range(2):
+        g = torch.Generator(device=device).manual_seed(SEED + 40 + k)
+        lm = init_lora_params(params, cfg, lcfg, g)["language_model"]
+        for ab in lm.values():
+            ab["b"] = torch.randn(ab["b"].shape, generator=g, device=device) * ADAPTER_B_STD
+        path = os.path.join(work, f"adapters{k}")
+        t0 = time.perf_counter()
+        save_adapters(path, {"language_model": lm}, {"r": lcfg.r, "alpha": lcfg.alpha,
+                                                     "target_modules": sorted(lm)})
+        t1 = time.perf_counter()
+        back, acfg = load_adapters(path)
+        same = all(torch.equal(back["language_model"][t][n].to(device), a)
+                   for t, ab in lm.items() for n, a in ab.items())
+        t_read += time.perf_counter() - t1
+        t_write += t1 - t0
+        if not same or acfg["r"] != lcfg.r or sorted(back) != ["language_model"]:
+            raise RuntimeError(f"adapter set {k}: read back unequal ({acfg})")
+        dirs.append(path)
+        sets.append(lm)
+    size = sum(os.path.getsize(os.path.join(d, "adapter_model.safetensors")) for d in dirs)
+    log(f"phase 18b ({smi}): two r = {lcfg.r} adapter sets on {len(sets[0])} LLM targets, "
+        f"{size / 2**30:.2f} GiB f32 on disk, written in {t_write:.2f} s and read back "
+        f"bit-equal in {t_read:.2f} s")
+    return dirs, sets
+
+
+def run_http_path(params, cfg, device, wrappers, smi, dirs, sets, work):
+    """Phase 18c: the 24 requests of phase 7 over HTTP at 7B with the two
+    sets (adapter ids alternating), from HTTP_CLIENTS client threads; every
+    token replayed from a full prefill with the request's own set; the error
+    replies; launches counted.  Returns the launch counts."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.serving import make_server
+
+    reqs = [dataclasses.replace(r, adapter_id=i % 2)
+            for i, r in enumerate(make_serving_requests(cfg))]
+    buckets = SERVE_CFG["PROMPT_BUCKETS"]
+    max_len = max(buckets) + max(r.max_new_tokens for r in reqs)
+    scfg = {**SERVE_CFG, "ADAPTERS": dirs}
+    _, eng = entry._engine_from_cfg(scfg, cfg, params, None, buckets, max_len)
+    if eng._num_adapters != 2:
+        raise RuntimeError(f"the engine serves {eng._num_adapters} adapter sets")
+    server = make_server(eng, cfg, None, port=0, timeout_s=600.0)
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    port = server.server_address[1]
+    images = {}
+    for r in reqs:
+        key = id(r.pixel_values)
+        if key not in images:
+            images[key] = os.path.join(work, f"image{len(images)}.npy")
+            np.save(images[key], r.pixel_values)
+    rows = [{"id": r.req_id, "input_ids": r.input_ids.tolist(),
+             "image": images[id(r.pixel_values)], "max_new_tokens": r.max_new_tokens,
+             "adapter_id": r.adapter_id, "stream": i % HTTP_STREAM_EVERY == HTTP_STREAM_EVERY - 1}
+            for i, r in enumerate(reqs)]
+    replies = {}
+
+    def client(mine):
+        for row in mine:
+            replies[row["id"]] = _http(port, "POST", "/generate", row)
+
+    def run():
+        threads = [threading.Thread(target=client, args=(rows[c::HTTP_CLIENTS],))
+                   for c in range(HTTP_CLIENTS)]
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return time.perf_counter() - t0
+
+    wall, counts = counted(wrappers, run)
+    results, n_stream = {}, 0
+    for row in rows:
+        status, body = replies[row["id"]]
+        if status != 200:
+            raise RuntimeError(f"HTTP request {row['id']}: {status} {body}")
+        if row["stream"]:
+            n_stream += 1
+            if not body[-1].get("done") or [x["token"] for x in body[:-1]] != body[-1]["tokens"]:
+                raise RuntimeError(f"HTTP stream {row['id']}: lines disagree: {body[-3:]}")
+            body = body[-1]
+        results[row["id"]] = body["tokens"]
+    stats = _http(port, "GET", "/stats")[1]
+    sched = stats["scheduler"]
+    if stats["completed"] != len(reqs) or sched["prefix_hits"] + sched["prefix_misses"] != \
+            len(reqs) or sched["prefix_misses"] < 2 * SERVE_IMAGES:
+        raise RuntimeError(f"HTTP /stats: {stats}")
+    for name in ("flash_fwd", "wwin_decode_q8", "nf4_linear_planar", "nf4_dequant_planar"):
+        if not counts[name]:
+            raise RuntimeError(f"{name} never launched on the HTTP path: {counts}")
+    # the refusals, on the same server
+    errors = {}
+    for label, payload in (("over-long prompt", {"id": 900, "input_ids": [1] * 700,
+                                                 "max_new_tokens": 4}),
+                           ("adapter_id 2", {**rows[0], "id": 901, "adapter_id": 2,
+                                             "stream": False})):
+        errors[label] = _http(port, "POST", "/generate", payload)
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/generate", json.dumps({**rows[3], "id": 902, "stream": True,
+                                                  "max_new_tokens": 32}))
+    flowing = conn.getresponse()                  # headers back: 902 is admitted
+    errors["duplicate id"] = _http(port, "POST", "/generate",
+                                   {**rows[3], "id": 902, "stream": False})
+    flowing.read()
+    conn.close()
+    errors["unknown path"] = _http(port, "GET", "/nope")
+    want = {"over-long prompt": (400, "bucket"), "adapter_id 2": (400, "adapter_id 2"),
+            "duplicate id": (400, "duplicate req_id 902"), "unknown path": (404, "unknown path")}
+    for label, (code, word) in want.items():
+        status, body = errors[label]
+        if status != code or word not in body["error"]:
+            raise RuntimeError(f"HTTP {label}: {status} {body}")
+    server.shutdown()
+    server.runner.stop()
+    server.server_close()
+    serving.join(10)
+    n_tok = sum(len(v) for v in results.values())
+    log(f"phase 18c HTTP ({smi}): {len(reqs)} requests ({n_stream} streamed, adapters 0 / 1) "
+        f"from {HTTP_CLIENTS} clients, {n_tok} tokens in {wall:.4f} s: "
+        f"{len(reqs) / wall:.4f} requests/s, {n_tok / wall:.3f} tokens/s; /stats TTFT p50 "
+        f"{stats['ttft_s']['p50']} s p95 {stats['ttft_s']['p95']} s, E2E p50 "
+        f"{stats['e2e_s']['p50']} s p95 {stats['e2e_s']['p95']} s; counters {sched}; "
+        f"400 / 404 as expected: {sorted(want)}; launches {counts}")
+    # every token against its own set's replay; how many streams the other set
+    # would not have chosen
+    other = {}
+    for k in range(2):
+        mine = [r for r in reqs if r.adapter_id == k]
+        check_serving_streams(params, cfg, device, mine, results, label=f"HTTP adapter {k}",
+                              lora={"language_model": sets[k]},
+                              lora_scaling=ADAPTER_ALPHA / ADAPTER_R)
+        below, _, valid = replay_served(params, cfg, device, mine, results,
+                                        lora={"language_model": sets[1 - k]},
+                                        lora_scaling=ADAPTER_ALPHA / ADAPTER_R)
+        for i, r in enumerate(mine):
+            other[r.req_id] = below[i][valid[i]].max().item()
+    differ = sum(v > LOGIT_TOL for v in other.values())
+    log(f"HTTP adapters: {differ} of {len(reqs)} streams hold a token more than {LOGIT_TOL} "
+        f"below the other set's step maximum (worst per request "
+        f"{[round(other[r.req_id], 3) for r in reqs]})")
+    if 2 * differ <= len(reqs):
+        raise RuntimeError("the two adapter sets' streams agree on most requests")
+    return counts
+
+
+def run_sampled_serving(params, cfg, device, wrappers, smi, dirs, sets):
+    """Phase 18d: ``DO_SAMPLE: true`` on the same block (SPEC_K switched
+    off): the 24 requests offline twice on fresh engines from one seed,
+    identical tokens; every drawn token inside its filtered set of a
+    teacher-forced replay (within SAMPLE_MARGIN); K5 at W = 1 (and at the
+    suffix prefills' widths)."""
+    import io
+
+    import torch
+
+    from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.models.llava import llama as llama_mod
+
+    reqs = [dataclasses.replace(r, adapter_id=i % 2)
+            for i, r in enumerate(make_serving_requests(cfg))]
+    buckets = SERVE_CFG["PROMPT_BUCKETS"]
+    max_len = max(buckets) + max(r.max_new_tokens for r in reqs)
+    scfg = {**SERVE_CFG, "ADAPTERS": dirs, "DO_SAMPLE": True}
+    widths = collections.Counter()
+    k5 = llama_mod.wwin_decode_smajor_q8
+
+    def recording(qh, *a, **kw):
+        widths[qh.shape[2]] += 1
+        return k5(qh, *a, **kw)
+
+    def run():
+        said = io.StringIO()
+        with contextlib.redirect_stderr(said):
+            gen, eng = entry._engine_from_cfg(scfg, cfg, params, None, buckets, max_len)
+        if eng.spec_k is not None or "disables speculative decoding" not in said.getvalue():
+            raise RuntimeError(f"DO_SAMPLE: SPEC_K stayed on ({said.getvalue()!r})")
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        res = eng.run()
+        torch.cuda.synchronize(device)
+        return dict(res), gen, time.perf_counter() - t0
+
+    llama_mod.wwin_decode_smajor_q8 = recording
+    (res1, gen, wall1), counts = counted(wrappers, run)
+    llama_mod.wwin_decode_smajor_q8 = k5
+    res2, _, wall2 = run()
+    if res1 != res2:
+        raise RuntimeError("two sampled serving runs from one seed gave different tokens")
+    if not widths[1] or set(widths) - {1, *SERVE_SUFFIX_W}:
+        raise RuntimeError(f"sampled serving: K5 window widths {dict(widths)}")
+    worst = 0.0
+    for k in range(2):
+        mine = [r for r in reqs if r.adapter_id == k]
+        _, _, outside, valid = replay_served(params, cfg, device, mine, res1,
+                                             lora={"language_model": sets[k]},
+                                             lora_scaling=ADAPTER_ALPHA / ADAPTER_R, gen=gen)
+        worst = max(worst, outside[valid].max().item())
+    n_tok = sum(len(v) for v in res1.values())
+    log(f"phase 18d sampled ({smi}): temperature {gen.temperature}, top-k {gen.top_k}, top-p "
+        f"{gen.top_p}, seed 0; {len(reqs)} requests twice, tokens identical; {n_tok} tokens in "
+        f"{wall1:.4f} / {wall2:.4f} s = {n_tok / wall1:.3f} / {n_tok / wall2:.3f} tokens/s; "
+        f"K5 launches by window width {dict(widths)}; worst drawn token {worst:.4f} below its "
+        f"filtered set's least logit in the replay (margin {SAMPLE_MARGIN}); launches {counts}")
+    if not worst <= SAMPLE_MARGIN:
+        raise RuntimeError(f"a sampled token lies outside its top-k / top-p set: {worst}")
+    return counts
+
+
+def time_quanta(params, cfg, device, smi, dirs):
+    """Phase 18e: ms per quantum (and per speculative forward) over the same
+    pool, greedy, without adapters and with the two-set stack: the 24
+    requests offline, every quantum timed with the card synchronized."""
+    import torch
+
+    from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.serving import engine as engine_mod
+
+    reqs = [dataclasses.replace(r, adapter_id=i % 2)
+            for i, r in enumerate(make_serving_requests(cfg))]
+    buckets = SERVE_CFG["PROMPT_BUCKETS"]
+    max_len = max(buckets) + max(r.max_new_tokens for r in reqs)
+    quantum = engine_mod.decode_quantum_spec
+    out = {}
+    for label, scfg, rows in (("no adapters", SERVE_CFG,
+                               [dataclasses.replace(r, adapter_id=0) for r in reqs]),
+                              ("two-set stack", {**SERVE_CFG, "ADAPTERS": dirs}, reqs)):
+        spans = []
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize(device)
+            n0, t0 = int(a[3].get("n_fwd", 0)), time.perf_counter()
+            got = quantum(*a, **kw)
+            torch.cuda.synchronize(device)
+            spans.append((time.perf_counter() - t0, got[3]["n_fwd"] - n0))
+            return got
+
+        _, eng = entry._engine_from_cfg(scfg, cfg, params, None, buckets, max_len)
+        engine_mod.decode_quantum_spec = timed
+        for r in rows:
+            eng.submit(r)
+        eng.run()
+        engine_mod.decode_quantum_spec = quantum
+        ms = sorted(1e3 * s for s, _ in spans)
+        out[label] = (statistics.median(ms), 1e3 * sum(s for s, _ in spans)
+                      / sum(n for _, n in spans), len(spans))
+        del eng
+    log(f"phase 18e quanta ({smi}), {SERVE_CFG['SLOTS']} slots, quantum "
+        f"{SERVE_CFG['QUANTUM']}, windows of {SERVE_CFG['SPEC_K']}: "
+        + "; ".join(f"{k}: median {v[0]:.3f} ms per quantum, {v[1]:.3f} ms per forward over "
+                    f"{v[2]} quanta" for k, v in out.items()))
+
+
+def profile_adapter_stack(params, cfg, device, sets, smi, n=4):
+    """``--profile``: the stale-cache decode forward over SLOTS rows (after
+    a 32-token text prefill into the SERVE block's cache) without adapters,
+    with one set and with the two-set stack (rows alternating): first the
+    wall of ``n`` forwards each unprofiled, then ``n`` each under
+    torch.profiler for the device-busy time and the device launches a
+    forward; the stack's kernels by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cullavo_tpu_torch.models.llava import modeling as tm
+    from cullavo_tpu_torch.models.llava.lora import stack_adapter_sets
+
+    B, T = SERVE_CFG["SLOTS"], 32
+    g = torch.Generator(device=device).manual_seed(SEED + 50)
+    ids = torch.randint(4, 32000, (B, T), generator=g, device=device, dtype=torch.int32)
+    bf16 = torch.bfloat16
+    lm = tm._cast_params(params, bf16)
+    forms = {"no adapters": (None, None),
+             "one set": (tm._cast_params({"language_model": sets[0]}, bf16), None),
+             "two-set stack": (tm._cast_params({"language_model": stack_adapter_sets(sets)},
+                                               bf16),
+                               torch.arange(B, device=device, dtype=torch.int32) % 2)}
+    with torch.no_grad():
+        st = tm.generate_prefill(lm, cfg, ids, None, torch.ones_like(ids), 2 * T,
+                                 kv_quant=SERVE_CFG["KV_QUANT"])
+    tok = torch.argmax(st["logits"], dim=-1).to(torch.int32)[:, None]
+
+    def forwards(lora, aid):
+        with torch.no_grad():
+            for _ in range(n):
+                tm.llava_forward(lm, cfg, tok, None, None, st["cur_pos"][:, None], st["cache"],
+                                 T, st["full_mask"], st["key_pos"], stale_cache=True, lora=lora,
+                                 lora_scaling=ADAPTER_ALPHA / ADAPTER_R, adapter_ids=aid)
+        torch.cuda.synchronize(device)
+
+    walls = {}
+    for label, form in forms.items():      # unprofiled first: the profiler slows launches
+        forwards(*form)
+        t0 = time.perf_counter()
+        forwards(*form)
+        walls[label] = (time.perf_counter() - t0) / n
+    for label, form in forms.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            forwards(*form)
+            wall = (time.perf_counter() - t0) / n
+        ka = prof.key_averages()
+        launches = sum(e.count for e in ka if e.device_type == DeviceType.CUDA) / n
+        log(f"profile adapters, {label} ({smi}): a {B}-row decode forward {1e3 * walls[label]:.3f} "
+            f"ms unprofiled, {1e3 * wall:.3f} ms profiled, device busy "
+            f"{1e3 * device_seconds(ka) / n:.3f} ms, {launches:.0f} device launches")
+    log(ka.table(sort_by="self_device_time_total", row_limit=14, max_name_column_width=70))
+
+
+def run_serving_rest(params, cfg, device, wrappers, smi, profile=False):
+    """Phase 18: the HTTP entry point, adapter files, HTTP at 7B with two
+    adapter sets, sampled serving, the quanta timed.  Returns the HTTP run's
+    launch counts and, with ``profile``, a callable that runs
+    ``profile_adapter_stack`` on the same sets (else None)."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(device)
+    http_entry_smoke(smi)
+    with tempfile.TemporaryDirectory(prefix="cullavo_chip_adapters_") as work:
+        dirs, sets = make_adapter_dirs(params, cfg, device, work, smi)
+        counts = run_http_path(params, cfg, device, wrappers, smi, dirs, sets, work)
+        run_sampled_serving(params, cfg, device, wrappers, smi, dirs, sets)
+        time_quanta(params, cfg, device, smi, dirs)
+    later = (functools.partial(profile_adapter_stack, params, cfg, device, sets, smi)
+             if profile else None)
+    del sets
+    torch.cuda.empty_cache()
+    log(f"phase 18 ({smi}): {time.perf_counter() - t0:.1f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    return counts, later
 
 
 def train_smoke(device):
@@ -5801,6 +6301,9 @@ def main(argv):
         f"{torch.cuda.memory_allocated(device) / 2**30:.2f} GiB allocated")
     reference_check_nf4(params_nf4, cfg, device)
     counts_serve, run_serve = run_serving_path(params_nf4, cfg, device, wrappers)
+    # phase 18 (phase 7's NF4 parameters)
+    counts_http, profile_adapters = run_serving_rest(params_nf4, cfg, device, wrappers, smi,
+                                                     profile="--profile" in argv)
 
     # phases 8 and 8b
     train_smoke(device)
@@ -5878,6 +6381,7 @@ def main(argv):
         profile_xdecoder(focal_pipe, xdec_rows, device)
         profile_train(train_pipe, train_batch, device)
         profile_serving(run_serve)
+        profile_adapters()
         profile_path("greedy bf16-cache", run_greedy)
         profile_path("speculative int8-cache", run_spec)
 
@@ -5905,6 +6409,7 @@ def main(argv):
         k["xdecoder_train_launches"] = counts_xtrain[k["name"]]   # phase 15's entry.train
         k["xdecoder_eval_launches"] = counts_xeval[k["name"]]     # phase 16's entry.evaluate
         k["vlp_eval_launches"] = counts_vlp[k["name"]]            # phase 17's entry.evaluate
+        k["serve_http_launches"] = counts_http[k["name"]]         # phase 18's HTTP run
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -17,8 +17,16 @@ with a ``template`` (a freshly initialized ``TrainState``, optimizer moments
 included) exactly its structure, tensors on the template leaf's device in
 the saved dtype, Python numbers where the template holds them; without one,
 the keys are parsed into plain dicts and lists of numpy arrays.
-``save_adapters``, ``load_adapters``, ``export_hf`` and the orbax pair come
-with a later slice.
+
+``save_adapters(out_dir, lora_params, lora_config)`` writes a PEFT-like
+adapter directory: ``adapter_model.safetensors`` (the same keystr names,
+written by the port's own safetensors writer in each leaf's dtype, bf16
+included) and ``adapter_config.json``.  ``load_adapters(out_dir,
+template=None)`` reads one back as ``(tree, config)``, CPU tensors in the
+stored dtype, through the port's own reader (the JAX reader,
+``safe_open(framework="np")``, raises on bf16 where safetensors predates
+ml_dtypes).  A directory written by either package reads in the other, bit
+for bit.  ``export_hf`` and the orbax pair are not ported.
 """
 from __future__ import annotations
 
@@ -30,6 +38,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from cullavo_tpu_torch.checkpoint.safetensors_io import read_safetensors, write_safetensors
+
+ADAPTER_FILE, ADAPTER_CONFIG = "adapter_model.safetensors", "adapter_config.json"
 
 _TOKEN = re.compile(r"\[u?'([^']*)'\]|\[(\d+)\]|\.([A-Za-z_]\w*)")
 
@@ -68,7 +80,9 @@ def _to_numpy(key: str, leaf) -> np.ndarray:
     return arr
 
 
-def _from_numpy(arr: np.ndarray, like):
+def _from_numpy(arr, like):
+    if isinstance(arr, torch.Tensor):       # an adapter file's leaf (load_adapters)
+        return arr.to(like.device) if isinstance(like, torch.Tensor) else arr
     if isinstance(like, torch.Tensor):
         return torch.from_numpy(np.array(arr)).to(like.device)
     if isinstance(like, (bool, int, float)):
@@ -150,3 +164,26 @@ def load_checkpoint(ckpt_dir: str, step: Optional[int] = None, template: Any = N
     with np.load(os.path.join(path, "arrays.npz")) as data:
         flat = {k: data[k] for k in manifest["keys"]}
     return _unflatten(flat, template=template)
+
+
+def save_adapters(out_dir: str, lora_params: Any, lora_config: dict) -> str:
+    """Write ``{out_dir}/adapter_model.safetensors`` (every tensor leaf of
+    ``lora_params`` under its keystr path, in its own dtype) and
+    ``adapter_config.json``; returns ``out_dir``."""
+    os.makedirs(out_dir, exist_ok=True)
+    flat = {k: torch.as_tensor(v) for k, v in _flatten(lora_params).items()}
+    write_safetensors(flat, os.path.join(out_dir, ADAPTER_FILE))
+    with open(os.path.join(out_dir, ADAPTER_CONFIG), "w") as f:
+        json.dump(lora_config, f)
+    return out_dir
+
+
+def load_adapters(out_dir: str, template: Any = None) -> tuple:
+    """(adapter tree, config dict) from an adapter directory.  Without
+    ``template`` the keystr paths parse into plain dicts of CPU tensors in
+    the stored dtype; with one (e.g. ``init_lora_params``'s output), its
+    exact structure, each leaf moved to the template leaf's device."""
+    flat = read_safetensors(os.path.join(out_dir, ADAPTER_FILE))
+    with open(os.path.join(out_dir, ADAPTER_CONFIG)) as f:
+        cfg = json.load(f)
+    return _unflatten(flat, template=template), cfg

@@ -2,7 +2,11 @@
 ``main``, the command line (``python -m cullavo_tpu_torch
 {train,eval,serve} --conf_files ... [--config_overrides JSON] [--overrides
 K V ...]``, read by the port's own config reader); ``serve``, the
-continuous-batching engine over a JSONL request stream; ``train`` (the
+continuous-batching engine over a JSONL request stream or, with
+``SERVE.PORT``, behind the HTTP front end (``serving/server.py``), greedy
+or sampled (``DO_SAMPLE``), with runtime LoRA adapters (``ADAPTERS``: one
+directory for every request, or several picked per request by
+``adapter_id``); ``train`` (the
 Q-LoRA epoch loop over a registered COCO-panoptic dataset with
 ``step_{N}`` and reference ``epoch{N}`` checkpoints and ``RESUME_FROM``,
 or one smoke step on synthetic records); and ``evaluate`` for the VL eval
@@ -29,7 +33,7 @@ tokenizer) are not copied.
 The entry points take the parsed config as a dict (the layout of
 ``configs/serve.yaml``) and run on the GPU unless the caller names another
 device; ``main`` too (its ``device`` is a keyword for tests, not a flag).
-The HTTP mode and several processes come with later slices.
+Several processes come with a later slice.
 """
 from __future__ import annotations
 
@@ -46,7 +50,7 @@ import torch
 from cullavo_tpu_torch.checkpoint.hf_import import llava_config_from_json, load_llava_safetensors
 from cullavo_tpu_torch.checkpoint.reference_layout import (load_reference_layout,
                                                            save_reference_layout)
-from cullavo_tpu_torch.checkpoint.store import load_checkpoint, save_checkpoint
+from cullavo_tpu_torch.checkpoint.store import load_adapters, load_checkpoint, save_checkpoint
 from cullavo_tpu_torch.checkpoint.xdecoder_import import (align_and_update,
                                                           import_xdecoder_checkpoint, unused_keys)
 from cullavo_tpu_torch.config import load_opt_command
@@ -67,7 +71,7 @@ from cullavo_tpu_torch.data.tokenizer import ByteTokenizer, HFTokenizer
 from cullavo_tpu_torch.models.blip2 import tiny_blip2_config
 from cullavo_tpu_torch.models.kosmos2 import tiny_kosmos2_config
 from cullavo_tpu_torch.models.llava.config import tiny_llava_config
-from cullavo_tpu_torch.models.llava.lora import maybe_quantize_base
+from cullavo_tpu_torch.models.llava.lora import maybe_quantize_base, stack_adapter_sets
 from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
 from cullavo_tpu_torch.models.llava.modeling import (GenerationConfig, expand_image_token,
                                                      init_llava_params)
@@ -84,6 +88,7 @@ from cullavo_tpu_torch.pipelines.vl_zoo_pipeline import (MODEL_SPECS, VLZooVQAPi
                                                          native_kosmos2_answer_fn)
 from cullavo_tpu_torch.serving import Request, ServingEngine
 from cullavo_tpu_torch.serving.io import request_from_row
+from cullavo_tpu_torch.serving.server import make_server
 from cullavo_tpu_torch.trainer.loop import LoopConfig, train_loop
 from cullavo_tpu_torch.trainer.optimizer import xdecoder_optimizer
 from cullavo_tpu_torch.trainer.step import TrainState
@@ -136,11 +141,56 @@ def _build_llava(cfg: dict, device):
     return model_cfg, params, tokenizer
 
 
+def _load_serving_adapters(scfg: dict, model_cfg, params):
+    """``SERVE.ADAPTERS: [dir, ...]`` -> (lora tree on the parameters'
+    device in the stored dtype, scaling), or (None, 0.0) without it.
+
+    One directory: the reference's eval mode (unmerged adapters over the
+    quantized base), its vision-tower adapters included.  Several: one multi
+    stack of their LLM adapters (``stack_adapter_sets``), each request
+    picking one by ``adapter_id`` (its index in the list).  The scaling is
+    ``SERVE.LORA_SCALING`` when given, else each ``adapter_config.json``'s
+    ``scaling`` (or ``alpha / r``).  Raises, where the JAX entry carries on:
+    several directories of which one holds vision-tower adapters (the multi
+    path is LLM-only, so those sets would answer otherwise than alone), and
+    several directories whose scalings differ without ``LORA_SCALING`` (JAX
+    serves them all at the last one's)."""
+    paths = scfg.get("ADAPTERS") or []
+    if not paths:
+        return None, 0.0
+    device = params["language_model"]["embed_tokens"].device
+    sets, vision, scales = [], [], []
+    for p in paths:
+        tree, acfg = load_adapters(p)
+        sets.append(tree["language_model"])
+        vision.append(tree.get("vision_tower") or None)
+        scales.append(float(acfg.get("scaling")
+                            or float(acfg.get("alpha", 16.0)) / float(acfg.get("r", 64))))
+    if scfg.get("LORA_SCALING") is not None:
+        scale = float(scfg["LORA_SCALING"])
+    elif len(set(scales)) > 1:
+        raise ValueError(f"SERVE.ADAPTERS: the sets' scalings differ "
+                         f"({dict(zip(paths, scales))}) and one scaling serves them all: "
+                         "set SERVE.LORA_SCALING")
+    else:
+        scale = scales[0]
+    if len(sets) == 1:
+        lora = {"language_model": sets[0]}
+        if vision[0]:
+            lora["vision_tower"] = vision[0]
+    else:
+        lost = [p for p, v in zip(paths, vision) if v]
+        if lost:
+            raise ValueError(f"SERVE.ADAPTERS: multi-adapter serving is LLM-only, and the "
+                             f"vision-tower adapters of {lost} would be lost (serve such a "
+                             "set alone)")
+        lora = {"language_model": stack_adapter_sets(sets)}
+    return tree_map(lambda a: a.to(device), lora), scale
+
+
 def _engine_from_cfg(scfg: dict, model_cfg, params, tokenizer, buckets, max_len):
     """``SERVE.*`` config block -> (GenerationConfig, ServingEngine)."""
-    if scfg.get("ADAPTERS"):
-        raise NotImplementedError("SERVE.ADAPTERS: per-request adapter sets wait for the "
-                                  "multi-adapter serving slice")
+    lora, lora_scaling = _load_serving_adapters(scfg, model_cfg, params)
     default_eos = getattr(tokenizer, "eos_token_id", 2)
     gen = GenerationConfig(
         do_sample=bool(scfg.get("DO_SAMPLE", False)),
@@ -155,6 +205,7 @@ def _engine_from_cfg(scfg: dict, model_cfg, params, tokenizer, buckets, max_len)
         kv_quant=scfg.get("KV_QUANT") or None,
         compute_dtype=(torch.bfloat16 if str(scfg.get("DTYPE", "bfloat16")) == "bfloat16"
                        else torch.float32),
+        lora=lora, lora_scaling=lora_scaling,
         spec_k=int(scfg["SPEC_K"]) if scfg.get("SPEC_K") else None,
         prefix_cache=bool(scfg.get("PREFIX", True)),
         prefix_min=int(scfg.get("PREFIX_MIN", 32)),
@@ -165,20 +216,50 @@ def _engine_from_cfg(scfg: dict, model_cfg, params, tokenizer, buckets, max_len)
     return gen, eng
 
 
-def serve(cfg: dict, device=None) -> dict:
+def _serve_http(scfg: dict, model_cfg, params, tokenizer):
+    """``SERVE.PORT`` set: run the HTTP endpoint until interrupted (SIGINT
+    stops the scheduler and closes the socket).  Buckets are fixed up
+    front: ``SERVE.PROMPT_BUCKETS``, by default one bucket for an image and
+    72 text tokens; ``MAX_LEN`` defaults to the largest bucket plus
+    ``MAX_NEW_TOKENS_MAX`` (64).  Prints ``[entry] serving on
+    http://host:port`` on stderr once bound; returns the (closed) server."""
+    n_img = model_cfg.num_image_tokens
+    buckets = scfg.get("PROMPT_BUCKETS") or [-(-(1 + n_img + 72) // 64) * 64]
+    max_new_max = int(scfg.get("MAX_NEW_TOKENS_MAX", 64))
+    max_len = int(scfg.get("MAX_LEN", max(buckets) + max_new_max))
+    _, eng = _engine_from_cfg(scfg, model_cfg, params, tokenizer, buckets, max_len)
+    server = make_server(eng, model_cfg, tokenizer, host=str(scfg.get("HOST", "127.0.0.1")),
+                         port=int(scfg.get("PORT", 0)),
+                         timeout_s=float(scfg.get("TIMEOUT_S", 300.0)))
+    host, port = server.server_address[:2]
+    print(f"[entry] serving on http://{host}:{port} (buckets={buckets}, max_len={max_len})",
+          file=sys.stderr, flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.runner.stop()
+        server.server_close()
+    return server
+
+
+def serve(cfg: dict, device=None):
     """Serving workload: run the continuous-batching engine over a JSONL
-    request stream and write a JSONL result stream.
+    request stream and write a JSONL result stream, or with ``SERVE.PORT``
+    serve HTTP (``_serve_http``) until interrupted.
 
     Request rows: ``{"id": int, "prompt": str | "input_ids": [int, ...],
-    "image": path(.npy [3,H,W] f32) | nested list, "max_new_tokens": int}``.
-    With ``SERVE.REQUESTS`` unset, a few random smoke requests are
-    synthesized.  Returns (and prints) the run's summary."""
+    "image": path(.npy [3,H,W] f32) | nested list, "max_new_tokens": int,
+    "adapter_id": int}``.  With ``SERVE.REQUESTS`` unset, a few random smoke
+    requests are synthesized.  Returns (and prints) the run's summary; the
+    HTTP mode returns the closed server."""
     device = _device(device)
     model_cfg, params, tokenizer = _build_llava(cfg, device)
     scfg = cfg.get("SERVE", {}) or {}
     n_img = model_cfg.num_image_tokens
     if scfg.get("PORT") is not None:
-        raise NotImplementedError("SERVE.PORT: the HTTP server waits for a later slice")
+        return _serve_http(scfg, model_cfg, params, tokenizer)
 
     req_path = scfg.get("REQUESTS")
     if req_path:

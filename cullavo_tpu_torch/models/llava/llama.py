@@ -293,12 +293,14 @@ _TARGET_INDEX = {"q": 0, "k": 1, "v": 2, "o": 3, "gate": 4, "up": 5, "down": 6}
 
 
 class _Adapters:
-    """One layer's slice of a single stack of LoRA adapters, with the
-    layer's dropout seeds (None: no dropout)."""
+    """One layer's slice of a single or a multi stack of LoRA adapters, with
+    the layer's dropout seeds (None: no dropout) and, for a multi stack, each
+    batch row's adapter (``adapter_ids``, int64 [B])."""
 
-    def __init__(self, lora, li, scaling, dropout, seeds):
+    def __init__(self, lora, li, scaling, dropout, seeds, adapter_ids=None):
         self.ad = {t: {k: a[li] for k, a in ab.items()} for t, ab in (lora or {}).items()}
         self.scaling, self.dropout, self.seeds = scaling, dropout, seeds
+        self.adapter_ids = adapter_ids
 
     def add(self, y, x, name):
         """y + scaling * ((drop(x) @ a) @ b) when ``name`` has an adapter."""
@@ -306,7 +308,8 @@ class _Adapters:
         if ad is None:
             return y
         seed = None if self.seeds is None else self.seeds[_TARGET_INDEX[name]]
-        return y + lora_update(x, ad, self.scaling, y.dtype, self.dropout, seed)
+        return y + lora_update(x, ad, self.scaling, y.dtype, self.dropout, seed,
+                               self.adapter_ids)
 
 
 def _mm_group(x, w, names, adapters):
@@ -342,11 +345,13 @@ def llama_forward(
     stale_cache: bool = False,
     prefill_pad_len: Optional[int] = None,
     kv_quant: Optional[str] = None,       # "int8": the prefill builds a quantized cache
-    lora: Optional[dict] = None,          # single stack: {target: {"a": [L, D, r], "b": [L, r, N]}}
+    lora: Optional[dict] = None,          # {target: {"a": [L, D, r], "b": [L, r, N]}}, or a
+                                          # multi stack ([L, K, D, r], [L, K, r, N])
     lora_scaling: float = 0.0,
     lora_dropout: float = 0.0,
     dropout_rng: Optional[torch.Generator] = None,   # a CPU generator: the layers' seeds
     remat: bool = False,                  # checkpoint each layer (no-cache forward only)
+    adapter_ids: Optional[torch.Tensor] = None,   # [B]: each row's set of a multi stack
 ):
     """Run the decoder stack; returns (final_hidden, new_cache).
 
@@ -373,7 +378,8 @@ def llama_forward(
     is a pure function of its seed.  ``remat`` wraps each layer in
     ``torch.utils.checkpoint``: the backward keeps only the layer inputs
     and recomputes the rest (the adapters' ``x @ a`` included), with the
-    same dropout masks."""
+    same dropout masks.  A multi stack (``lora.stack_adapter_sets``) needs
+    ``adapter_ids``: row b takes set ``adapter_ids[b]`` in every layer."""
     B, T, D = inputs_embeds.shape
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     n_rep = H // KV
@@ -392,8 +398,10 @@ def llama_forward(
     if kv_quant not in (None, "int8"):
         raise ValueError(f"unknown kv_quant {kv_quant!r}")
     if lora and any(ab["a"].dim() == 4 for ab in lora.values()):
-        raise NotImplementedError("multi-stacked adapter sets (per-request adapter_ids) "
-                                  "wait for the multi-adapter serving slice")
+        if adapter_ids is None:
+            raise ValueError("multi-stacked lora adapters need adapter_ids ([B] int32 "
+                             "per-row picks)")
+        adapter_ids = adapter_ids.to(inputs_embeds.device, torch.int64)
     if remat and (cache is not None or prefill_pad_len is not None):
         raise ValueError("remat is for the no-cache (training) forward")
     # an existing quantized cache carries its scale planes; a prefill opts in
@@ -439,7 +447,7 @@ def llama_forward(
     def layer(h, li):
         w = {name: _layer_slice(a, li) for name, a in layers.items()}
         ad = _Adapters(lora, li, lora_scaling, lora_dropout,
-                       None if seeds is None else seeds[li])
+                       None if seeds is None else seeds[li], adapter_ids)
         residual = h
         x = rms_norm(h, w["input_ln"], cfg.rms_norm_eps)
         yq, yk, yv = _mm_group(x, w, ("q", "k", "v"), ad)

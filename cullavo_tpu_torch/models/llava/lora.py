@@ -10,11 +10,14 @@ separately trainable full modules are the projector, ``lm_head`` and
 ``maybe_quantize_base``): int8 per output channel, or NF4 (planar where
 the dims allow it, byte-packed ``q4`` otherwise, as the JAX quantizer
 picks).
-Multi-stacked adapter sets (``stack_adapter_sets``) and the int8 vision
-tower wait for the serving slice that uses them."""
+Multi-stacked adapter sets (``stack_adapter_sets``, ``{"a": [L, K, d_in,
+r], "b": [L, K, r, d_out]}``) serve K LLM adapter sets at once, each batch
+row picking its own by ``adapter_ids``.  The int8 vision tower is not
+ported (no entry point of the JAX package reaches it)."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -116,16 +119,30 @@ def dropout_mask(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
 
 
 def lora_update(x, adapter: dict, scaling: float, out_dtype,
-                dropout: float = 0.0, seed: Optional[int] = None):
+                dropout: float = 0.0, seed: Optional[int] = None,
+                adapter_ids: Optional[torch.Tensor] = None):
     """The low-rank term ``scaling * ((drop(x) @ a) @ b)`` (times the
     per-layer mask of a vision adapter) for ONE layer's adapter slice.
     Dropout (``seed`` given and ``dropout`` > 0) zeroes inputs and scales
-    the kept ones by 1 / (1 - dropout)."""
+    the kept ones by 1 / (1 - dropout).
+
+    A multi stack's layer slice (``a`` [K, d_in, r], ``b`` [K, r, d_out])
+    gives row b of x [B, T, d_in] adapter ``adapter_ids[b]``: the rows'
+    ``a`` and ``b`` are gathered by index (JAX's one-hot einsum selects the
+    same values exactly) and applied as batched products."""
     xa = x
     if seed is not None and dropout > 0.0:
         xa = torch.where(dropout_mask(x, dropout, seed), x / (1.0 - dropout),
                          torch.zeros_like(x))
-    update = (xa @ adapter["a"]) @ adapter["b"]
+    a, b = adapter["a"], adapter["b"]
+    if a.dim() == 3:
+        if "mask" in adapter:
+            raise NotImplementedError("multi-stacked adapters with per-layer masks (vision "
+                                      "tower style) are not supported: serve vision adapters "
+                                      "as a shared single stack")
+        update = torch.matmul(torch.matmul(xa, a[adapter_ids]), b[adapter_ids])
+    else:
+        update = (xa @ a) @ b
     if "mask" in adapter:
         update = update * adapter["mask"].reshape(())
     return scaling * update.to(out_dtype)
@@ -195,6 +212,44 @@ def add_step2_adapters(params: dict, step1_lora: dict, cfg: LlavaConfig, lora: L
     if merge_step1 and step1_lora:
         base = merge_lora(params, step1_lora, lora)
     return base, init_lora_params(base, cfg, lora, generator, dtype)
+
+
+def _structure(tree):
+    if isinstance(tree, dict):
+        return tuple(sorted((k, _structure(v)) for k, v in tree.items()))
+    return None
+
+
+def stack_adapter_sets(sets: list) -> dict:
+    """Stack K structurally identical LLM adapter dicts for per-request
+    multi-adapter serving: each ``{target: {a: [L, D, r], b: [L, r, N]}}``
+    becomes ``{target: {a: [L, K, D, r], b: [L, K, r, N]}}``, the layer axis
+    first (the forward slices layers) and the adapter axis second (each
+    batch row picks one by ``adapter_ids``).  Leaves of different float
+    dtypes are promoted, as ``jnp.stack`` does.
+
+    Pass the LANGUAGE-MODEL adapter subtree only: vision-tower adapters
+    carry per-layer masks, which the multi path rejects.  Differing
+    structures or leaf shapes raise."""
+    if not sets:
+        raise ValueError("stack_adapter_sets: need at least one adapter set")
+    structs = [_structure(s) for s in sets]
+    if any(st != structs[0] for st in structs[1:]):
+        raise ValueError(f"adapter sets differ in structure: {structs}")
+
+    def stack(*leaves):
+        shapes = {tuple(leaf.shape) for leaf in leaves}
+        if len(shapes) != 1:
+            raise ValueError(f"adapter leaf shapes differ: {shapes}")
+        dtype = functools.reduce(torch.promote_types, [leaf.dtype for leaf in leaves])
+        return torch.stack([leaf.to(dtype) for leaf in leaves], dim=1)
+
+    def walk(*nodes):
+        if isinstance(nodes[0], dict):
+            return {k: walk(*(n[k] for n in nodes)) for k in nodes[0]}
+        return stack(*nodes)
+
+    return walk(*sets)
 
 
 def _quantize_target(w, bits: int, smooth_scale=None):

@@ -1,8 +1,9 @@
 """LLaVA-1.5 in PyTorch: vision tower + projector + LLaMA, token merge,
-the fused ``generate`` (greedy or sampled), two-phase greedy generation,
-plain and speculative, and the serving
-engine's device functions: prefix reuse, the slot pool and decode quanta
-(counterpart of ``cullavo_tpu/models/llava/modeling.py``).
+the fused ``generate`` (greedy or sampled), two-phase generation (greedy or
+sampled; speculative greedy), and the serving engine's device functions:
+prefix reuse, the slot pool and decode quanta, greedy or sampled, with
+unmerged runtime LoRA adapters, one set or a multi stack picked per row by
+``adapter_ids`` (counterpart of ``cullavo_tpu/models/llava/modeling.py``).
 
 Parameters are plain dicts of tensors in the JAX package's layout, and the
 prefill/decode states keep its keys and layouts (S-major cache
@@ -14,7 +15,9 @@ copy, the port updates it in place (``merge_decode_state``,
 Generation runs eagerly: a Python loop over decode steps with ``write_idx``
 a host integer (the fused ``generate`` reads one done flag per step to
 stop early), or over speculative windows with ``write_idx`` an int32
-[B] tensor on the device and one host read per window.
+[B] tensor on the device and one host read per window.  A sampled draw
+takes its Gumbel noise from an explicit ``torch.Generator`` (JAX's key),
+one [B, V] draw per sampled batch of tokens, in JAX's order.
 """
 from __future__ import annotations
 
@@ -153,12 +156,15 @@ def llava_forward(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
                   lora: Optional[dict] = None, lora_scaling: float = 0.0,
                   lora_dropout: float = 0.0,
                   dropout_rng: Optional[torch.Generator] = None,
-                  remat: bool = False, return_hidden: bool = False):
+                  remat: bool = False, return_hidden: bool = False,
+                  adapter_ids: Optional[torch.Tensor] = None):
     """Returns (f32 logits [B, T or 1, V], new_cache), or with
     ``return_hidden`` the final hidden states in place of the logits (the
     trainer projects them chunk by chunk).  ``cache_index``: an int, or an
     int32 [B] tensor of per-row write positions.  ``lora``:
-    ``{"language_model": ..., "vision_tower": ...}`` adapter stacks.
+    ``{"language_model": ..., "vision_tower": ...}`` adapter stacks; a multi
+    stack of LLM adapters (``lora.stack_adapter_sets``) takes each row's set
+    from ``adapter_ids`` [B].
     Differentiable where the inputs ask for it; the generation functions
     call it without gradients."""
     embed = params["language_model"]["embed_tokens"]
@@ -177,7 +183,8 @@ def llava_forward(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
         cache, cache_index, key_position_ids, use_flash=use_flash,
         stale_cache=stale_cache, prefill_pad_len=prefill_pad_len, kv_quant=kv_quant,
         lora=(lora or {}).get("language_model"), lora_scaling=lora_scaling,
-        lora_dropout=lora_dropout, dropout_rng=dropout_rng, remat=remat)
+        lora_dropout=lora_dropout, dropout_rng=dropout_rng, remat=remat,
+        adapter_ids=adapter_ids)
     if last_logit_only:
         # only the last valid position feeds sampling
         last = attention_mask.sum(dim=1).to(torch.int64) - 1
@@ -262,9 +269,9 @@ def _sample_token(logits: torch.Tensor, gen: GenerationConfig,
     if not gen.do_sample:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     if generator is None:
-        raise NotImplementedError("sampled decoding needs an explicit torch.Generator: the "
-                                  "fused generate takes one; the two-phase decode and the "
-                                  "serving engine's DO_SAMPLE wait for a later slice")
+        raise NotImplementedError("sampled decoding needs an explicit torch.Generator (the "
+                                  "rng of generate, generate_decode and decode_quantum; the "
+                                  "serving engine holds one seeded from its seed)")
     filtered = _filter_logits(logits, gen)
     noise = gumbel_noise(filtered.shape, generator, filtered.device)
     return torch.argmax(filtered + noise, dim=-1).to(torch.int32)
@@ -319,14 +326,24 @@ def generate_prefill(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
                      pixel_values: Optional[torch.Tensor],
                      attention_mask: torch.Tensor, max_len: int,
                      compute_dtype=torch.bfloat16,
-                     kv_quant: Optional[str] = None) -> dict:
+                     kv_quant: Optional[str] = None, lora: Optional[dict] = None,
+                     lora_scaling: float = 0.0,
+                     adapter_ids: Optional[torch.Tensor] = None) -> dict:
     """Prefill phase: build the cache (``kv_quant="int8"``: int8 codes +
     bf16 scale planes) and return the decode state (``logits``, ``cache``,
     ``full_mask``, ``key_pos``, ``cur_pos``, ``write_idx``,
-    ``adapter_ids``) — the JAX state layout."""
+    ``adapter_ids``) — the JAX state layout.
+
+    ``lora``: unmerged runtime adapters over the (possibly quantized) base
+    (cast like the parameters); a multi stack applies row b's set
+    ``adapter_ids[b]`` (zeros when None), and the ids travel in the state so
+    that the decode applies each row's set too."""
     B, T = input_ids.shape
     dev = input_ids.device
     lm = _cast_params(params, compute_dtype)
+    lora = _cast_params(lora, compute_dtype) if lora else None
+    adapter_ids = (torch.zeros((B,), dtype=torch.int32, device=dev) if adapter_ids is None
+                   else adapter_ids.to(dev, torch.int32))
     full_mask = torch.zeros((B, max_len), dtype=torch.int32, device=dev)
     full_mask[:, :T] = attention_mask.to(torch.int32)
     position_ids = _positions(attention_mask)
@@ -334,11 +351,12 @@ def generate_prefill(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
     key_pos[:, :T] = position_ids.to(torch.int32)
     logits, cache = llava_forward(lm, cfg, input_ids, pixel_values, attention_mask,
                                   position_ids, last_logit_only=True,
-                                  prefill_pad_len=max_len, kv_quant=kv_quant)
+                                  prefill_pad_len=max_len, kv_quant=kv_quant, lora=lora,
+                                  lora_scaling=lora_scaling, adapter_ids=adapter_ids)
     last_idx = attention_mask.sum(dim=1).to(torch.int32) - 1
     return {"logits": logits[:, 0], "cache": cache, "full_mask": full_mask,
             "key_pos": key_pos, "cur_pos": last_idx + 1, "write_idx": T,
-            "adapter_ids": torch.zeros((B,), dtype=torch.int32, device=dev)}
+            "adapter_ids": adapter_ids}
 
 
 def alloc_decode_state(chunk_state: dict, total_batch: int) -> dict:
@@ -377,7 +395,9 @@ def generate_prefill_chunked(params: dict, cfg: LlavaConfig, input_ids: torch.Te
                              pixel_values: Optional[torch.Tensor],
                              attention_mask: torch.Tensor, max_len: int, chunk: int,
                              compute_dtype=torch.bfloat16,
-                             kv_quant: Optional[str] = None) -> dict:
+                             kv_quant: Optional[str] = None, lora: Optional[dict] = None,
+                             lora_scaling: float = 0.0,
+                             adapter_ids: Optional[torch.Tensor] = None) -> dict:
     """Prefill in batch chunks of ``chunk`` rows, merged into one full-batch
     decode state (decode cost is dominated by the batch-independent weight
     stream, so one large decode batch amortizes it).  A non-divisible batch
@@ -385,13 +405,18 @@ def generate_prefill_chunked(params: dict, cfg: LlavaConfig, input_ids: torch.Te
     B = input_ids.shape[0]
     if chunk >= B:
         return generate_prefill(params, cfg, input_ids, pixel_values, attention_mask,
-                                max_len, compute_dtype=compute_dtype, kv_quant=kv_quant)
+                                max_len, compute_dtype=compute_dtype, kv_quant=kv_quant,
+                                lora=lora, lora_scaling=lora_scaling, adapter_ids=adapter_ids)
+    lora = _cast_params(lora, compute_dtype) if lora else None   # once for every chunk
     state = None
     for off in range(0, B, chunk):
         cs = generate_prefill(params, cfg, input_ids[off:off + chunk],
                               None if pixel_values is None else pixel_values[off:off + chunk],
                               attention_mask[off:off + chunk], max_len,
-                              compute_dtype=compute_dtype, kv_quant=kv_quant)
+                              compute_dtype=compute_dtype, kv_quant=kv_quant, lora=lora,
+                              lora_scaling=lora_scaling,
+                              adapter_ids=None if adapter_ids is None
+                              else adapter_ids[off:off + chunk])
         if state is None:
             state = alloc_decode_state(cs, B)
         merge_decode_state(state, cs, off)
@@ -400,10 +425,12 @@ def generate_prefill_chunked(params: dict, cfg: LlavaConfig, input_ids: torch.Te
 
 
 def _decode_steps(lm: dict, cfg: LlavaConfig, state: dict, gen: GenerationConfig,
-                  draw, early_stop: bool) -> torch.Tensor:
+                  draw, early_stop: bool, lora: Optional[dict] = None,
+                  lora_scaling: float = 0.0) -> torch.Tensor:
     """The token that ``draw`` (logits [B, V] -> [B] int32) takes from the
-    prefill logits, then stale-cache T = 1 steps over ``lm`` (already cast)
-    up to ``max_new_tokens``, each drawing its token; finished rows emit
+    prefill logits, then stale-cache T = 1 steps over ``lm`` (and ``lora``,
+    both already cast; each row's set from the state's ``adapter_ids``) up
+    to ``max_new_tokens``, each drawing its token; finished rows emit
     eos.  ``early_stop``: stop once every row is done, reading one flag from
     the device per step (the rest of the output stays eos).  The state's
     cache, ``full_mask`` and ``key_pos`` are updated IN PLACE (JAX donates
@@ -421,7 +448,9 @@ def _decode_steps(lm: dict, cfg: LlavaConfig, state: dict, gen: GenerationConfig
             break
         logits, cache = llava_forward(lm, cfg, tok[:, None], None, None,
                                       cur_pos[:, None], cache, write_idx,
-                                      full_mask, key_pos, stale_cache=True)
+                                      full_mask, key_pos, stale_cache=True, lora=lora,
+                                      lora_scaling=lora_scaling,
+                                      adapter_ids=state.get("adapter_ids"))
         full_mask[:, write_idx] = 1
         key_pos[:, write_idx] = cur_pos
         nxt = draw(logits[:, 0])
@@ -434,12 +463,17 @@ def _decode_steps(lm: dict, cfg: LlavaConfig, state: dict, gen: GenerationConfig
 
 @torch.no_grad()
 def generate_decode(params: dict, cfg: LlavaConfig, state: dict, gen: GenerationConfig,
-                    compute_dtype=torch.bfloat16):
+                    rng: Optional[torch.Generator] = None, compute_dtype=torch.bfloat16,
+                    lora: Optional[dict] = None, lora_scaling: float = 0.0):
     """Decode phase: ``_decode_steps`` without the early stop (all rows run
-    to the end), over a bf16 or an int8 cache, greedy only.  Returns tokens
+    to the end), over a bf16 or an int8 cache.  Sampled: the first token and
+    every step draw from ``rng`` in turn (JAX splits its key before each
+    draw); a sampled config without ``rng`` raises.  Returns tokens
     [B, max_new_tokens] int32."""
+    lora = _cast_params(lora, compute_dtype) if lora else None
     return _decode_steps(_cast_params(params, compute_dtype), cfg, state, gen,
-                         lambda lg: _sample_token(lg, gen), early_stop=False)
+                         lambda lg: _sample_token(lg, gen, rng), early_stop=False,
+                         lora=lora, lora_scaling=lora_scaling)
 
 
 # ---------------------------------------------------------------------------
@@ -606,7 +640,9 @@ def extract_prefix_state(state: dict, row: int) -> dict:
 def generate_prefill_prefix(params: dict, cfg: LlavaConfig, prefix_state: dict,
                             suffix_ids: torch.Tensor, pixel_values: Optional[torch.Tensor],
                             suffix_mask: torch.Tensor, prefix_len: int,
-                            compute_dtype=torch.bfloat16) -> dict:
+                            compute_dtype=torch.bfloat16, lora: Optional[dict] = None,
+                            lora_scaling: float = 0.0,
+                            adapter_ids: Optional[torch.Tensor] = None) -> dict:
     """Prefill that CONTINUES from a cached KV prefix.
 
     ``prefix_state``: a 1-row state (``extract_prefix_state``) whose cache
@@ -621,11 +657,16 @@ def generate_prefill_prefix(params: dict, cfg: LlavaConfig, prefix_state: dict,
     the prefix cache gated to ``[0, prefix_len)`` (slots past it in a longer
     stored prefix stay masked) plus the intra-window causal fresh block, and
     each layer writes its W-slot slab at ``prefix_len`` in place, into a real
-    B-row copy of the prefix (the stored row is not touched)."""
+    B-row copy of the prefix (the stored row is not touched).  ``lora``,
+    ``lora_scaling`` and ``adapter_ids`` as in ``generate_prefill`` (the
+    prefix was built with the same set: the engine keys it by adapter)."""
     B, W = suffix_ids.shape
     dev = suffix_ids.device
     P = int(prefix_len)
     lm = _cast_params(params, compute_dtype)
+    lora = _cast_params(lora, compute_dtype) if lora else None
+    adapter_ids = (torch.zeros((B,), dtype=torch.int32, device=dev) if adapter_ids is None
+                   else adapter_ids.to(dev, torch.int32))
     cache = {name: a.expand(-1, -1, B, *a.shape[3:]).contiguous()
              for name, a in prefix_state["cache"].items()}
     S = cache["k"].shape[1]
@@ -636,29 +677,35 @@ def generate_prefill_prefix(params: dict, cfg: LlavaConfig, prefix_state: dict,
     suffix_pos = P + _positions(suffix_mask)                           # [B, W]
     logits, cache = llava_forward(lm, cfg, suffix_ids, pixel_values, suffix_mask, suffix_pos,
                                   cache, P, full_mask, key_pos, stale_cache=True,
-                                  last_logit_only=True)
+                                  last_logit_only=True, lora=lora, lora_scaling=lora_scaling,
+                                  adapter_ids=adapter_ids)
     full_mask[:, P:P + W] = suffix_mask.to(torch.int32)
     key_pos[:, P:P + W] = suffix_pos.to(torch.int32)
     return {"logits": logits[:, 0], "cache": cache, "full_mask": full_mask,
             "key_pos": key_pos,
             "cur_pos": (P + suffix_mask.sum(dim=1)).to(torch.int32),
-            "write_idx": P + W,
-            "adapter_ids": torch.zeros((B,), dtype=torch.int32, device=dev)}
+            "write_idx": P + W, "adapter_ids": adapter_ids}
 
 
 @torch.no_grad()
 def decode_quantum(params: dict, cfg: LlavaConfig, state: dict, gen: GenerationConfig,
-                   num_steps: int, compute_dtype=torch.bfloat16):
+                   num_steps: int, rng: Optional[torch.Generator] = None,
+                   compute_dtype=torch.bfloat16, lora: Optional[dict] = None,
+                   lora_scaling: float = 0.0):
     """Continuous-batching decode: ``num_steps`` T=1 steps over a slot POOL
     whose rows are independent requests mid-generation: per-row write
     positions (``state["write_idx"]`` [B]), current tokens (``cur_tok``) and
     done flags (``done``).  Never samples from ``state["logits"]`` (the
     engine samples each row's first token at admission).  The pool's cache,
     ``full_mask`` and ``key_pos`` are updated IN PLACE; rows whose write
-    position runs past the cache stop writing.  No host read.
+    position runs past the cache stop writing.  No host read.  Sampled: each
+    step draws [B, V] noise from ``rng`` (JAX splits its key per step).
+    ``lora`` applies each row's set from the state's ``adapter_ids``.
 
     Returns (tokens [B, num_steps] int32, new_state)."""
     lm = _cast_params(params, compute_dtype)
+    lora = _cast_params(lora, compute_dtype) if lora else None
+    adapter_ids = state.get("adapter_ids")
     eos = gen.eos_token_id
     tok, cur_pos, write_idx = state["cur_tok"], state["cur_pos"], state["write_idx"]
     full_mask, key_pos, cache, done = (state["full_mask"], state["key_pos"], state["cache"],
@@ -667,10 +714,12 @@ def decode_quantum(params: dict, cfg: LlavaConfig, state: dict, gen: GenerationC
     toks = []
     for _ in range(num_steps):
         logits, cache = llava_forward(lm, cfg, tok[:, None], None, None, cur_pos[:, None],
-                                      cache, write_idx, full_mask, key_pos, stale_cache=True)
+                                      cache, write_idx, full_mask, key_pos, stale_cache=True,
+                                      lora=lora, lora_scaling=lora_scaling,
+                                      adapter_ids=adapter_ids)
         _put_rows(full_mask, write_idx, one, one)
         _put_rows(key_pos, write_idx, one, cur_pos[:, None])
-        nxt = _sample_token(logits[:, 0], gen)
+        nxt = _sample_token(logits[:, 0], gen, rng)
         nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
         done = done | (nxt == eos)
         toks.append(nxt)
@@ -683,7 +732,8 @@ def decode_quantum(params: dict, cfg: LlavaConfig, state: dict, gen: GenerationC
 @torch.no_grad()
 def decode_quantum_spec(params: dict, cfg: LlavaConfig, state: dict, hist_state: dict,
                         gen: GenerationConfig, num_steps: int, spec_k: int,
-                        compute_dtype=torch.bfloat16):
+                        compute_dtype=torch.bfloat16, lora: Optional[dict] = None,
+                        lora_scaling: float = 0.0):
     """``decode_quantum`` with prompt-lookup speculative windows
     (``generate_decode_spec``'s machinery on the serving slot pool).
 
@@ -704,13 +754,16 @@ def decode_quantum_spec(params: dict, cfg: LlavaConfig, state: dict, hist_state:
     new_hist_state)``: row b's valid tokens are ``tokens[b, :n_emit[b]]``
     (done and idle rows emit 0); ``new_hist_state["n_fwd"]`` counts the
     forwards so far (a host int).  Unlike the JAX function, a window never
-    carries a row past the quantum's end (see the loop)."""
+    carries a row past the quantum's end (see the loop).  ``lora`` as in
+    ``decode_quantum``."""
     if gen.do_sample:
         raise ValueError("speculative decode is greedy-only (exactness "
                          "contract); use decode_quantum for sampling")
     if spec_k < 2:
         raise ValueError("spec_k < 2 is plain decode: use decode_quantum")
     lm = _cast_params(params, compute_dtype)
+    lora = _cast_params(lora, compute_dtype) if lora else None
+    adapter_ids = state.get("adapter_ids")
     dev = state["cur_tok"].device
     B, W, eos = state["cur_tok"].shape[0], spec_k, gen.eos_token_id
     out = torch.full((B, num_steps + W), eos, dtype=torch.int32, device=dev)   # W of slack
@@ -727,7 +780,8 @@ def decode_quantum_spec(params: dict, cfg: LlavaConfig, state: dict, hist_state:
         tokens_in = torch.cat([cur_tok[:, None], draft], dim=1)
         logits, cache = llava_forward(lm, cfg, tokens_in, None, None, cur_pos[:, None] + j,
                                       cache, write_idx, full_mask, key_pos,
-                                      stale_cache=True)
+                                      stale_cache=True, lora=lora, lora_scaling=lora_scaling,
+                                      adapter_ids=adapter_ids)
         t = torch.argmax(logits, dim=-1).to(torch.int32)           # [B, W]
         match = (draft == t[:, :-1]).to(torch.int32)               # [B, W-1]
         a = torch.cumprod(match, dim=1).sum(dim=1)

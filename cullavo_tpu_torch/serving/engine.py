@@ -15,7 +15,14 @@
     requests into the freed slots;
   * requests sharing a prompt head (a system prompt, or the whole image run
     of several questions about one image) prefill only their suffix from a
-    stored 1-row KV prefix (``generate_prefill_prefix``).
+    stored 1-row KV prefix (``generate_prefill_prefix``);
+  * unmerged runtime LoRA adapters over the (quantized) base: one set for
+    every request, or a multi stack (``lora.stack_adapter_sets``) of which
+    each request picks one by ``adapter_id`` (prefixes are keyed by it too);
+  * greedy or sampled decoding: one ``torch.Generator`` on the engine's
+    device, seeded from ``seed``, gives each admission group's first tokens
+    one [chunk rows, V] draw and each quantum ``quantum`` draws of
+    [num_slots, V] (the JAX engine's key splits, in the same order).
 
 Iteration-level scheduling is the throughput lever at 7B decode: the
 per-step weight stream does not depend on the batch, so keeping every pool
@@ -23,9 +30,7 @@ row busy amortizes it.  Host reads: the first tokens of a group at
 admission, one boolean per speculative window, and the tokens of a quantum
 at its harvest.
 
-Greedy decoding only (the first sampled token raises) and no runtime
-adapters: both wait for a later slice.  The scheduler, its counters and its
-token streams are the JAX engine's.
+The scheduler, its counters and its token streams are the JAX engine's.
 """
 from __future__ import annotations
 
@@ -42,7 +47,8 @@ import torch
 
 from cullavo_tpu_torch.models.llava.config import LlavaConfig
 from cullavo_tpu_torch.models.llava.llama import round_cache_len
-from cullavo_tpu_torch.models.llava.modeling import (GenerationConfig, _sample_token,
+from cullavo_tpu_torch.models.llava.modeling import (GenerationConfig, _cast_params,
+                                                     _sample_token,
                                                      alloc_decode_state, decode_quantum,
                                                      decode_quantum_spec,
                                                      extract_prefix_state, generate_prefill,
@@ -59,7 +65,8 @@ class Request:
     input_ids: np.ndarray                       # [T] int32
     pixel_values: Optional[np.ndarray] = None   # [3, H, W] float32
     max_new_tokens: int = 16
-    adapter_id: int = 0                         # must be 0: no stacked adapters yet
+    adapter_id: int = 0                         # row of the engine's stacked adapters
+                                                # (0 when none)
     extra_hist: Optional[np.ndarray] = None     # [E] int32 extra lookup corpus for
                                                 # spec_k engines (retrieved text, prior
                                                 # turns), prepended to the prompt in
@@ -97,25 +104,34 @@ class ServingEngine:
         smallest power of two that holds it, padded with inert rows).
     quantum : decode steps between scheduler interventions.  Smaller =
         faster slot turnaround, more host round-trips.
+    seed : the sampler's generator seed (sampled ``gen`` only).
+    lora, lora_scaling : runtime adapters (``{"language_model": ...,
+        "vision_tower": ...}``, cast once to ``compute_dtype`` as the JAX
+        functions cast them per call); a multi stack of LLM adapters serves
+        ``Request.adapter_id``.
     """
 
     def __init__(self, params, cfg: LlavaConfig, gen: GenerationConfig, *,
                  num_slots: int = 8, max_len: int, prompt_buckets=(128, 256),
                  prefill_chunk: int = 2, quantum: int = 8,
                  kv_quant: Optional[str] = None,
-                 compute_dtype=torch.bfloat16, lora: Optional[dict] = None,
+                 compute_dtype=torch.bfloat16, seed: int = 0,
+                 lora: Optional[dict] = None, lora_scaling: float = 0.0,
                  spec_k: Optional[int] = None,
                  prefix_cache: bool = True, prefix_min: int = 32,
                  suffix_buckets=(32, 64, 128),
                  max_prefixes: Optional[int] = None,
                  admit_groups: Optional[int] = 1):
-        if lora:
-            raise NotImplementedError("runtime LoRA adapters wait for a later slice")
         self.params = params
         self.cfg = cfg
         self.gen = gen
         self.device = params["language_model"]["embed_tokens"].device
+        self.lora = _cast_params(lora, compute_dtype) if lora else None
+        self.lora_scaling = float(lora_scaling)
         self._num_adapters = 1
+        stacks = [t["a"] for t in ((self.lora or {}).get("language_model") or {}).values()]
+        if stacks and stacks[0].dim() == 4:         # a multi stack: [L, K, D, r]
+            self._num_adapters = int(stacks[0].shape[1])
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
         self.buckets = tuple(sorted(int(b) for b in prompt_buckets))
@@ -164,6 +180,7 @@ class ServingEngine:
         # every step
         self.admit_groups = admit_groups if admit_groups is None else int(admit_groups)
         self._fit_slots_to_memory()
+        self._rng = torch.Generator(device=self.device).manual_seed(int(seed))
 
         self.pool: Optional[dict] = None
         self.free: list = list(range(self.num_slots))
@@ -203,7 +220,8 @@ class ServingEngine:
             budget = float(torch.cuda.mem_get_info(self.device)[1])
         else:
             return
-        weights = sum(t.numel() * t.element_size() for t in _tree_leaves(self.params))
+        weights = sum(t.numel() * t.element_size()
+                      for tree in (self.params, self.lora or {}) for t in _tree_leaves(tree))
         avail = budget * 0.92 - weights          # 8% workspace margin
         per_slot = self._pool_bytes_per_slot()
         if self.prefix_cache:
@@ -387,6 +405,11 @@ class ServingEngine:
         chunk_b = self._pow2_rows(len(group), self.prefill_chunk)
         self.counters["prefill_rows"] += chunk_b
         self.counters["prefill_pad_rows"] += chunk_b - len(group)
+        aids = np.zeros((chunk_b,), np.int32)          # pad rows: adapter 0
+        for i, r in enumerate(group):
+            aids[i] = r.adapter_id
+        adapters = dict(lora=self.lora, lora_scaling=self.lora_scaling,
+                        adapter_ids=self._to_dev(aids))
 
         if lead[0] == "prefix":
             _, key, P, wb = lead
@@ -415,7 +438,7 @@ class ServingEngine:
             chunk = generate_prefill_prefix(
                 self.params, self.cfg, self._prefix_reg[key]["state"], self._to_dev(sfx),
                 None if pix is None else self._to_dev(pix), self._to_dev(smask), P,
-                compute_dtype=self.compute_dtype)
+                compute_dtype=self.compute_dtype, **adapters)
         else:
             bucket = lead[1]
             if self.prefix_cache:
@@ -437,9 +460,10 @@ class ServingEngine:
             chunk = generate_prefill(
                 self.params, self.cfg, self._to_dev(ids),
                 None if pix is None else self._to_dev(pix), self._to_dev(mask),
-                self.max_len, compute_dtype=self.compute_dtype, kv_quant=self.kv_quant)
+                self.max_len, compute_dtype=self.compute_dtype, kv_quant=self.kv_quant,
+                **adapters)
         self._maybe_register(group, chunk)
-        first = _sample_token(chunk["logits"], self.gen).cpu().numpy()
+        first = _sample_token(chunk["logits"], self.gen, self._rng).cpu().numpy()
         t_first = time.perf_counter()
 
         if self.pool is None:
@@ -509,14 +533,18 @@ class ServingEngine:
         if self.spec_k is not None:
             toks, n_emit, self.pool, self.hist = decode_quantum_spec(
                 self.params, self.cfg, self.pool, self.hist, self.gen, self.quantum,
-                self.spec_k, compute_dtype=self.compute_dtype)
+                self.spec_k, compute_dtype=self.compute_dtype, lora=self.lora,
+                lora_scaling=self.lora_scaling)
             toks = toks.cpu().numpy()               # [num_slots, quantum]
             n_emit = n_emit.cpu().numpy()
         else:
             toks, self.pool = decode_quantum(self.params, self.cfg, self.pool, self.gen,
-                                             self.quantum, compute_dtype=self.compute_dtype)
+                                             self.quantum, rng=self._rng,
+                                             compute_dtype=self.compute_dtype, lora=self.lora,
+                                             lora_scaling=self.lora_scaling)
             toks = toks.cpu().numpy()               # [num_slots, quantum]
             n_emit = np.full((toks.shape[0],), toks.shape[1], np.int64)
+        retired = []
         for slot in list(self.active):
             req, out = self.active[slot]
             for t in toks[slot][:n_emit[slot]]:
@@ -530,6 +558,14 @@ class ServingEngine:
                 self._req_keys.pop(req.req_id, None)
                 del self.active[slot]
                 self.free.append(slot)
+                retired.append(slot)
+        if retired:
+            # a row retired by its budget is not done on the device: it would
+            # go on decoding in every later quantum until its slot is reused,
+            # past its cache and its lookup history (the JAX engine lets it
+            # run, where an out-of-range gather does not fail).  Idle rows
+            # decode as done
+            self.pool["done"][self._to_dev(retired, torch.int64)] = True
 
     def run(self) -> dict:
         """Drive until every submitted request has a result; returns

@@ -148,9 +148,9 @@ def test_greedy_stream_matches_jax(mode, monkeypatch):
     seen = []
     sample = tm._sample_token
 
-    def recording(logits, gen):
+    def recording(logits, gen, *generator):
         seen.append(logits.clone())
-        return sample(logits, gen)
+        return sample(logits, gen, *generator)
 
     monkeypatch.setattr(tm, "_sample_token", recording)
     ts = tm.generate_prefill_chunked(tp, tcfg, *_t(ids, pix, mask), max_len, 2,

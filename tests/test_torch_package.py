@@ -50,6 +50,7 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.serving",
     "cullavo_tpu_torch.serving.engine",
     "cullavo_tpu_torch.serving.io",
+    "cullavo_tpu_torch.serving.server",
     "cullavo_tpu_torch.entry",
     "cullavo_tpu_torch.utils.tree",
     "cullavo_tpu_torch.utils.constants",
@@ -638,13 +639,62 @@ def test_p32_wrapper_takes_the_plain_version_only_for_cpu_tensors():
         assert banned not in cuda_half, banned
 
 
+# every ``try`` of the port: (file, enclosing function, caught exceptions,
+# has a finally).  The HTTP front end turns a bad request into a 400, a
+# deadline into a 504 (a stream's into its timeout line) and a failed
+# scheduler into a 500 / 503; the scheduler thread keeps its error for the
+# waiters and re-raises; ``_serve_http`` stops the runner and closes the
+# socket on SIGINT.  No try wraps an engine step that carries on, or a launch.
+ALLOWED_TRY = sorted([
+    ("serving/server.py", "_Handler.do_POST", ("ValueError", "json.JSONDecodeError"), False),
+    ("serving/server.py", "_Handler.do_POST", ("KeyError", "SchedulerFailed", "ValueError"),
+     False),
+    ("serving/server.py", "_Handler.do_POST", ("SchedulerFailed", "TimeoutError"), False),
+    ("serving/server.py", "_Handler._stream_reply", ("queue.Empty",), False),
+    ("serving/server.py", "EngineRunner._loop", ("BaseException",), False),
+    ("entry.py", "_serve_http", ("KeyboardInterrupt",), True),
+])
+
+
+def _try_sites():
+    import ast
+
+    found = []
+
+    def walk(node, scope, rel):
+        for child in ast.iter_child_nodes(node):
+            inner = scope
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                inner = f"{scope}.{child.name}" if scope else child.name
+            if isinstance(child, (ast.Try, getattr(ast, "TryStar", ast.Try))):
+                names = []
+                for h in child.handlers:
+                    types = h.type.elts if isinstance(h.type, ast.Tuple) else [h.type]
+                    names += ["<bare>" if t is None else ast.unparse(t) for t in types]
+                    if names[-1] == "BaseException":   # the scheduler guard re-raises
+                        assert isinstance(h.body[-1], ast.Raise) and h.body[-1].exc is None
+                found.append((rel, scope, tuple(sorted(names)), bool(child.finalbody)))
+            walk(child, inner, rel)
+
+    for path in sorted(PORT.rglob("*.py")):
+        walk(ast.parse(path.read_text()), "", path.relative_to(PORT).as_posix())
+    return sorted(found)
+
+
+def test_try_statements_only_at_the_http_sites():
+    """The port's ``try`` statements sit only at the HTTP front end's
+    sites and catch only the exceptions listed there."""
+    assert _try_sites() == ALLOWED_TRY
+
+
 def test_port_has_no_library_stand_ins_for_its_kernels():
-    """No fused-attention or grid-sampling library call, torch.compile, CPU
-    fallback after a failed launch, or import of JAX anywhere in the port's
-    sources; the CUDA routes of K9 and K10 hold no gather and no
-    (depthwise) convolution."""
+    """No fused-attention or grid-sampling library call, torch.compile, or
+    import of JAX anywhere in the port's sources (a CPU fallback after a
+    failed launch would need a ``try``: test_try_statements_only_at_the_http_sites);
+    the CUDA routes of K9 and K10 hold no gather and no (depthwise)
+    convolution."""
     banned = (r"scaled_dot_product_attention", r"grid_sample\s*\(", r"torch\.compile",
-              r"^\s*import jax", r"^\s*from jax", r"^\s*try\s*:")
+              r"^\s*import jax", r"^\s*from jax")
     for path in sorted(PORT.rglob("*.py")):
         text = path.read_text()
         for pat in banned:

@@ -311,11 +311,21 @@ def test_serving_rejects_bad_submissions(bases):
         eng.submit(TRequest(**_spec(tcfg, rng, 8, 5, 40)))
     with pytest.raises(ValueError, match="largest bucket"):
         eng.submit(TRequest(**_spec(tcfg, rng, 9, 30, 2)))
-    # adapters are accepted as arguments and must be absent
+    # without adapters, or with one set, only adapter 0 is served; a multi
+    # stack of two serves 0 and 1
     with pytest.raises(ValueError, match="adapter_id 1 out of range"):
         eng.submit(TRequest(**{**_spec(tcfg, rng, 10, 3, 4), "adapter_id": 1}))
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        TEngine(tp, tcfg, TGEN, max_len=64, lora={"language_model": {}, "x": 1})
+    from cullavo_tpu_torch.models.llava import lora as tl
+
+    one = tl.init_lora_params(tp, tcfg, tl.LoraConfig(r=4), torch.Generator().manual_seed(1))
+    kw = dict(max_len=buckets[-1] + 8, prompt_buckets=buckets, compute_dtype=torch.float32)
+    assert TEngine(tp, tcfg, TGEN, lora=one, lora_scaling=0.25, **kw)._num_adapters == 1
+    two = TEngine(tp, tcfg, TGEN, lora={"language_model": tl.stack_adapter_sets(
+        [one["language_model"]] * 2)}, lora_scaling=0.25, **kw)
+    assert two._num_adapters == 2
+    two.submit(TRequest(**{**_spec(tcfg, rng, 11, 3, 4), "adapter_id": 1}))
+    with pytest.raises(ValueError, match="adapter_id 2 out of range"):
+        two.submit(TRequest(**{**_spec(tcfg, rng, 12, 3, 4), "adapter_id": 2}))
 
 
 def test_serving_batched_admission_and_latency(bases, monkeypatch):
@@ -406,7 +416,8 @@ def test_serving_spec_k_matches_plain_engine(bases):
 def test_spec_auto_disabled_under_sampling(bases, capsys):
     """serve.yaml ships SPEC_K 4, so a config that merely flips DO_SAMPLE
     must not fail at engine init: spec is disabled with a warning, as in
-    JAX.  Sampling itself is not ported: the first sampled token raises."""
+    JAX, and the sampled engine serves with plain quanta (its draws against
+    JAX's: tests/test_torch_multi_lora.py)."""
     jcfg, tcfg, _, tp = bases["f32"]
     rng = np.random.default_rng(7)
     buckets = _buckets(tcfg)
@@ -416,8 +427,8 @@ def test_spec_auto_disabled_under_sampling(bases, capsys):
     assert eng.spec_k is None and eng.max_len == buckets[-1] + 8
     assert "disables speculative decoding" in capsys.readouterr().err
     eng.submit(TRequest(**_spec(tcfg, rng, 0, 3, 4)))
-    with pytest.raises(NotImplementedError, match="sampled decoding"):
-        eng.run()
+    out = eng.run()[0]
+    assert len(out) == 4 and all(0 <= t < VOCAB for t in out) and eng.hist is None
 
 
 def test_engine_derates_slots_to_memory_budget(bases, monkeypatch):
@@ -833,8 +844,11 @@ def test_entry_serve_smoke_mode_on_cpu(tmp_path, capsys, bits):
     assert [json.loads(line) for line in out.read_text().splitlines()] == rows
     with pytest.raises(FileNotFoundError, match="config.json"):
         t_entry.serve({"MODEL": {"LLM": {"LOAD_PATH": "/some/snapshot"}}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="HTTP"):
-        t_entry.serve({"SERVE": {"PORT": 0}}, device="cpu")
+    # SERVE.PORT builds its engine, adapters included, before it binds
+    # (the HTTP mode itself: tests/test_torch_serving_http.py)
+    with pytest.raises(FileNotFoundError, match="adapter_model.safetensors"):
+        t_entry.serve({"SERVE": {"PORT": 0, "ADAPTERS": [str(tmp_path / "none")]}},
+                      device="cpu")
 
 
 def test_entry_serve_needs_a_gpu_unless_told_otherwise():

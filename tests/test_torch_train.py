@@ -217,14 +217,28 @@ def test_partition_strip_apply_and_step2_adapters(models):
 
 
 def test_multi_stacked_adapters_raise(models):
-    _, tcfg, jp, jlora, batch = models
+    """A multi stack (the set and its negated-B twin) with per-row
+    ``adapter_ids`` gives JAX's stacked forward on every valid position;
+    without the ids it raises, as in JAX."""
+    jcfg, tcfg, jp, jlora, batch = models
     tp = bridge.llava_params_from_numpy(_np(jp), "cpu")
     lo = bridge.lora_from_numpy(_np(jlora), "cpu")["language_model"]
-    stacked = {t: {k: torch.stack([a, a], dim=1) for k, a in ab.items()} for t, ab in lo.items()}
-    tb = _tbatch(batch)
-    with pytest.raises(NotImplementedError, match="multi-stacked"):
+    twin = {t: {"a": ab["a"], "b": -ab["b"]} for t, ab in lo.items()}
+    stacked = {"language_model": tl.stack_adapter_sets([lo, twin])}
+    jstacked = {"language_model": jl.stack_adapter_sets(
+        [jlora["language_model"], {t: {"a": ab["a"], "b": -ab["b"]}
+                                   for t, ab in jlora["language_model"].items()}])}
+    ids = np.arange(B, dtype=np.int32) % 2
+    jb, tb = _jbatch(batch), _tbatch(batch)
+    want, _ = jm.llava_forward(jp, jcfg, jb["input_ids"], None, jb["attention_mask"],
+                               lora=jstacked, lora_scaling=1.0, adapter_ids=jnp.asarray(ids))
+    got, _ = tm.llava_forward(tp, tcfg, tb["input_ids"], None, tb["attention_mask"],
+                              lora=stacked, lora_scaling=1.0, adapter_ids=torch.from_numpy(ids))
+    valid = batch["attention_mask"].astype(bool)         # padded rows differ by contract
+    np.testing.assert_allclose(got.numpy()[valid], np.asarray(want)[valid], atol=2e-4, rtol=0)
+    with pytest.raises(ValueError, match="multi-stacked"):
         tm.llava_forward(tp, tcfg, tb["input_ids"], None, tb["attention_mask"],
-                         lora={"language_model": stacked}, lora_scaling=1.0)
+                         lora=stacked, lora_scaling=1.0)
 
 
 # ---------------------------------------------------------------------------
