@@ -315,6 +315,34 @@ Phases (each raises on failure, and the script exits non-zero):
      The kernels line gains ``serve_http_launches``.  With ``--profile``,
      at the end: one 16-row decode forward without adapters, with one set
      and with the two-set stack under torch.profiler.
+  19. the rest of the VL zoo (after phase 17): (a) InstructBLIP
+     (Salesforce/instructblip-vicuna-7b: EVA-ViT-g, the text-input
+     Q-Former, Vicuna-7B), f32: a card-vs-CPU check at 2 layers per tower
+     and full width (forward logits with the question into the Q-Former,
+     the prefill's last logits, four decode steps; K12 8 launches), then
+     ``entry.evaluate`` with ``MODEL.ZOO: instructblip`` (the tiny smoke
+     tower, 4 questions), then 7.9 G random parameters built on the card
+     answering phase 11's 16 questions through ``VLZooVQAPipeline`` with the
+     native answerer (beam 5, length penalty -1, 10 tokens) twice: n = 16,
+     identical answers, K12 launched 32 x 9 x 16 and nothing else;
+     questions/s, ms per question (vision + Q-Former, the Vicuna prefill,
+     beam decode, host), peak memory; (b) the zero-shot ImageNet eval on
+     that tower's EVA-ViT-g and Q-Former: a 2-layer card-vs-CPU check of
+     the image and text embeddings (1e-4), 8 synset folders x 8 PNGs of
+     224^2 written here, ``python -m cullavo_tpu_torch eval`` with ``NAME:
+     imagenet_test`` and a ``KIND: imagenet`` root in a subprocess (the
+     smoke tower; exit 0, n = 64, the per-class CSV) equal to
+     ``entry.evaluate`` in this process, then the full-width tower over the
+     1000 ImageNet names twice (equal top-1 / top-5; images/s, text-embedding
+     seconds, peak memory); (c) the topic classifier at LLaMA-2-7B
+     (bf16) and CLIP-L/336's text tower (f32), random, over 16 questions in
+     the 256 and 320 prompt buckets twice from one seed: equal classes, K1
+     32 a question and K4 32 a decode forward; ms per question (generate,
+     CLIP), peak memory; then ``entry.evaluate`` on vl_test with
+     ``MODEL.TOPIC: tiny`` and ``SAVE_DIR`` (the per-topic CSV read back).
+     The kernels line gains ``vl_zoo_rest_launches``.  Phase 3 also holds
+     K12 at InstructBLIP's decode shape ([5, 32, 96, 128] f32 through the
+     S-major view), timed beside ``scaled_dot_product_attention``.
 The last two lines are the kernels' JSON record and the result line.
 Imports neither JAX nor the JAX package.
 """
@@ -1954,9 +1982,61 @@ def check_decode_kernels(device, g):
                                        host_us=host, shape=f"q [{Bz},32,1,64], k/v one layer of "
                                                            f"[24,{Bz},32,{Sz},64] f32")
         del kc, vc, kl, vl
+
+    # InstructBLIP's Vicuna decoder (phase 19a): f32, 5 beams x 32 heads,
+    # d = 128, one layer of the S-major cache [L, S, B, KV, d] read through
+    # its [B, KV, S, d] view in place (the stale decode's [B, 1, S] bias)
+    Bi, Si = ZOO_BEAMS, ib_cache_len()
+    n_prompt = Si - ZOO_NEW - 1
+    kc, vc = (torch.randn((4, Si, Bi, 32, 128), generator=g, device=device) for _ in range(2))
+    kl, vl = kc[2].permute(1, 2, 0, 3), vc[2].permute(1, 2, 0, 3)
+    for step in (1, ZOO_NEW // 2, ZOO_NEW - 1):
+        q, k_cur, v_cur = (torch.randn((Bi, 32, 1, 128), generator=g, device=device)
+                           for _ in range(3))
+        bias = torch.where(torch.arange(Si, device=device) < n_prompt + step - 1, 0.0,
+                           -1e9).expand(Bi, 1, 1, Si)
+        label = f"InstructBLIP Vicuna decoder B={Bi} S={Si} step {step} (S-major view)"
+        worst = max(worst, partials(label, q, kl, vl, bias[:, :, 0], 128 ** -0.5)[0])
+        out = sdpa_decode_stale(q, kl, vl, k_cur, v_cur, bias)
+        ref = sdpa_decode_stale_plain(q, kl.contiguous(), vl.contiguous(), k_cur, v_cur, bias)
+        worst = max(worst, hold(label + " merged", out, ref, f32))
+    bl = bias[:, :, 0]
+    mask = (bias == 0)                                     # [B, 1, 1, S] boolean
+    med, turns, host = timed_turns({
+        "kernel": lambda: fa.decode_partials(q, kl, vl, bl, 128 ** -0.5),
+        "library": lambda: sdpa_lib(q, kl, vl, attn_mask=mask)}, device)
+    i_plain = bench_ms(lambda: fa._decode_partials_plain(
+        q, kl, vl, bl.expand(Bi, 32, Si), 128 ** -0.5), device)
+    i_merged = bench_ms(lambda: sdpa_decode_stale(q, kl, vl, k_cur, v_cur, bias), device,
+                        lead_cycles=lead)
+    i_bd = bound(nbytes(q, kl, vl, bl), 4 * Bi * 32 * Si * 128, "f32")
+    log(f"K12 InstructBLIP Vicuna decoder [{Bi},32,{Si},128] f32 (S-major view, strides "
+        f"{tuple(kl.stride())}): kernel {med['kernel']:.4f} ms, plain {i_plain:.4f} ms, library "
+        f"sdpa (boolean mask) {med['library']:.4f} ms, sdpa_decode_stale (K12 + the f32 merge) "
+        f"{i_merged:.4f} ms, bound {i_bd['bound_ms']:.6f} ms ({i_bd['bound_by']}); in turns "
+        f"{turns}; host us per call {host}")
+    rec["zoo_shapes"]["InstructBLIP Vicuna decoder"] = dict(
+        ms=med["kernel"], plain_ms=i_plain, library_ms=med["library"], merged_ms=i_merged,
+        bound_ms=i_bd["bound_ms"], times_in_turns=turns, host_us=host,
+        shape=f"q [{Bi},32,1,128], k/v one layer of [4,{Si},{Bi},32,128] f32 through "
+              "permute(1, 2, 0, 3)")
+    del kc, vc, kl, vl
     rec["max_abs_err"] = worst
     torch.cuda.empty_cache()
     return {"flash_decode": rec}
+
+
+def ib_cache_len():
+    """The cache slots of InstructBLIP's longest phase-19a prompt: the
+    queries, the byte ids of '{q} Answer briefly.' and ``ZOO_NEW`` + 1
+    beam slots."""
+    from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
+    from cullavo_tpu_torch.models.blip2 import instructblip_vicuna7b_config
+    from cullavo_tpu_torch.pipelines.vl_zoo_pipeline import MODEL_SPECS
+
+    text = max(len(ByteTokenizer().encode(MODEL_SPECS["instructblip"].prompt.format(q=x)))
+               for x in VL_QUESTION_TEXT)
+    return instructblip_vicuna7b_config().num_query_tokens + text + ZOO_NEW + 1
 
 
 def build_params(cfg, device):
@@ -5175,7 +5255,7 @@ def _zoo_probe(name, cfg, params, inputs):
     if name == "blip2":
         logits = b2m.blip2_forward(params, cfg, pix, ids, mask, decoder_input_ids=dec)
         lm = params["language_model"]
-        embeds, emask = b2m._t5_inputs(params, b2m.encode_image(params, cfg, pix), ids, mask)
+        embeds, emask = b2m._prefix_inputs(params, b2m.encode_image(params, cfg, pix), ids, mask)
         enc = t5m.t5_encode(lm, cfg.text, embeds, emask)
         cache = t5m.t5_init_cache(cfg.text, 1, dec.shape[1], enc.dtype, dev)
         for i in range(dec.shape[1]):
@@ -5418,6 +5498,463 @@ def profile_zoo(name, fn, row):
     log(f"profile {name} one answer: wall {wall:.4f} s (profiled), device busy {busy:.4f} s "
         f"({100 * busy / wall:.1f}%)")
     log(ka.table(sort_by="self_device_time_total", row_limit=18, max_name_column_width=70))
+
+
+def _ib_probe(cfg, params, inputs):
+    """InstructBLIP's forward logits (the instruction into the Q-Former) and
+    the logits of the prefill's last position and of decode steps over the
+    cache (K12 on the card in f32), on one device."""
+    import torch
+
+    from cullavo_tpu_torch.models.blip2 import modeling as b2m
+
+    pix, ids, qids, dec = inputs
+    mask, qmask = torch.ones_like(ids), torch.ones_like(qids)
+    logits = b2m.blip2_forward(params, cfg, pix, ids, mask, qids, qmask)
+    lang_img = b2m.encode_image(params, cfg, pix, qids, qmask)
+    embeds, mask0 = b2m._prefix_inputs(params, lang_img, ids, mask)
+    cache, full_mask, key_pos, first, last_pos = b2m._prefill(params, cfg, embeds, mask0,
+                                                             dec.shape[1] + 1)
+    steps, T = [first], mask0.shape[1]
+    for i in range(dec.shape[1]):
+        last_pos = last_pos + 1
+        steps.append(b2m._step(params, cfg, dec[:, i], cache, full_mask, key_pos, T + i,
+                               last_pos, embeds.dtype))
+    return logits, torch.stack(steps, 1)
+
+
+def _cut_depth_check(label, probe, cfg, params, inputs, device, wrappers, want_launches):
+    """``probe`` at cut depth: f32 on the card (TF32 off) against f64 on the
+    CPU (the softmaxes and K12's plain version stay f32), within ``ZOO_TOL``
+    times the CPU's own f32 error + 1e-5 of the largest entry, as phase 11
+    holds the zoo; the kernels launched as ``want_launches`` says."""
+    import torch
+
+    from cullavo_tpu_torch.utils.tree import tree_map
+
+    got, counts = counted(wrappers, lambda: probe(cfg, params, inputs))
+    cpu = tree_map(lambda t: t.cpu(), params)
+    cpu_in = tuple(t.cpu() for t in inputs)
+    want32 = probe(cfg, cpu, cpu_in)
+    cpu = tree_map(lambda t: t.double(), cpu)
+    want = probe(cfg, cpu, tuple(t.double() if t.is_floating_point() else t for t in cpu_in))
+    for i, (a, r32, r) in enumerate(zip(got, want32, want)):
+        err = (a.cpu().double() - r).abs().max().item()
+        err_cpu = (r32.double() - r).abs().max().item()
+        scale = r.abs().max().item()
+        tol = ZOO_TOL * err_cpu + 1e-5 * scale
+        log(f"{label} card (f32) vs CPU (f64), output {i} {tuple(r.shape)}: max_abs_err="
+            f"{err:.3e}; the CPU's f32 {err_cpu:.3e}; max |ref| {scale:.3f}; tol {tol:.3e}")
+        if not (torch.isfinite(a).all() and err <= tol):
+            raise RuntimeError(f"{label}: the card disagrees with the CPU on output {i}: {err}")
+    bad = {k: (counts[k], n) for k, n in want_launches.items() if counts[k] != n}
+    if bad:
+        raise RuntimeError(f"{label}: launches (got, predicted) {bad}")
+
+
+def _phase_timers(timers, spent, device):
+    """Wrap each ``(module, attribute)`` of ``timers`` so that its calls add
+    their synchronised seconds to ``spent[key]``; returns the restore."""
+    import torch
+
+    originals = {k: getattr(mod, attr) for k, (mod, attr) in timers.items()}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize(device)
+            spent[key] += time.perf_counter() - t
+            return out
+        return run
+
+    for k, (mod, attr) in timers.items():
+        setattr(mod, attr, timed(k, originals[k]))
+
+    def restore():
+        for k, (mod, attr) in timers.items():
+            setattr(mod, attr, originals[k])
+    return restore
+
+
+def run_instructblip_path(device, wrappers, smi, work, profile=False):
+    """Phase 19a and 19b on one tower, Salesforce/instructblip-vicuna-7b at
+    full width and depth in f32 (7.9 G random parameters built on the card).
+    19a: a card-vs-CPU check at ``ZOO_CUT`` layers per tower (forward logits
+    with the instruction into the Q-Former, the prefill's last logits and
+    four decode steps, K12 ``ZOO_CUT`` x 4); ``entry.evaluate`` with
+    ``MODEL.ZOO: instructblip`` (JAX's tiny smoke tower) on 4 questions;
+    then ``ZOO_QUESTIONS`` questions through ``VLZooVQAPipeline`` with the
+    native answerer (beam 5, length penalty -1, ``ZOO_NEW`` tokens, the byte
+    tokenizer) twice: n = 16, a finite accuracy, identical answers, K12
+    launched 32 layers x 9 beam steps x 16; questions/s, ms per question by
+    phase and peak memory (``profile``: one more answer under
+    torch.profiler).  19b: ``run_imagenet_path`` on the same vision tower
+    and Q-Former.  Returns the launches of 19a's first run."""
+    import math
+
+    import torch
+
+    from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.data.mappers.eval_mappers import VQAEvalMapper
+    from cullavo_tpu_torch.data.registry import list_datasets, register_dataset
+    from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
+    from cullavo_tpu_torch.models.blip2 import modeling as b2m
+    from cullavo_tpu_torch.models.blip2 import instructblip_vicuna7b_config, init_blip2_params
+    from cullavo_tpu_torch.pipelines import vl_zoo_pipeline as zoo
+    from cullavo_tpu_torch.utils.tree import tree_leaves
+
+    cfg = instructblip_vicuna7b_config()
+    r = dataclasses.replace
+    cut = r(cfg, vision=r(cfg.vision, num_hidden_layers=ZOO_CUT),
+            qformer=r(cfg.qformer, num_hidden_layers=ZOO_CUT),
+            text=r(cfg.text, num_hidden_layers=ZOO_CUT))
+    params = init_blip2_params(cut, torch.Generator(device=device).manual_seed(SEED + 21), device)
+    tok = ByteTokenizer()
+    text = zoo.MODEL_SPECS["instructblip"].prompt.format(q=VL_QUESTION_TEXT[0])
+    ids = torch.tensor([tok.encode(text)], device=device)
+    g = torch.Generator(device=device).manual_seed(SEED + 22)
+    inputs = (torch.randn((1, 3, ZOO_SIDE, ZOO_SIDE), generator=g, device=device), ids, ids,
+              torch.randint(4, 260, (1, 4), generator=g, device=device))
+    _cut_depth_check("InstructBLIP", _ib_probe, cut, params, inputs, device, wrappers,
+                     {"flash_decode": ZOO_CUT * 4})
+    del params
+    torch.cuda.empty_cache()
+
+    if ZOO_DATASET not in list_datasets():
+        records = zoo_records()
+        register_dataset(ZOO_DATASET, lambda: records, {})
+    res, counts = counted(wrappers, lambda: entry.evaluate(
+        {"NAME": "vl_test", "MAX_NEW_TOKENS": ZOO_NEW, "LIMIT": 4,
+         "MODEL": {"ZOO": "instructblip"}, "DATASETS": {"TEST": [ZOO_DATASET]}}))
+    rr = res[ZOO_DATASET]
+    log(f"entry.evaluate MODEL.ZOO instructblip (tiny config, card): {rr}; K12 launches "
+        f"{counts['flash_decode']}")
+    if not (rr["n"] == 4 and math.isfinite(rr["overall"]) and 0 <= rr["overall"] <= 100
+            and counts["flash_decode"] > 0):
+        raise RuntimeError(f"entry.evaluate MODEL.ZOO instructblip: {rr}, {counts}")
+
+    t0 = time.perf_counter()
+    params = init_blip2_params(cfg, torch.Generator(device=device).manual_seed(SEED + 23), device)
+    torch.cuda.synchronize(device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"instructblip-vicuna-7b: {n_params / 1e9:.3f} G parameters in f32 built on the card in "
+        f"{time.perf_counter() - t0:.3f} s, {torch.cuda.memory_allocated(device) / 2**30:.2f} "
+        "GiB allocated")
+    mapper = VQAEvalMapper(image_size=ZOO_SIDE)
+    rows = []
+    for rec in zoo_records():
+        m = mapper(rec)
+        m["image"] = m.pop("pixel_values")
+        rows.append(m)
+    fn = zoo.native_blip2_answer_fn(cfg, params, ByteTokenizer(), max_new_tokens=ZOO_NEW,
+                                    kind="instructblip")
+    spent = dict.fromkeys(("answer", "vision", "prefill"), 0.0)
+    outs = []
+    original_beam = zoo.blip2_beam_generate
+
+    def keep(*a, **kw):
+        out = original_beam(*a, **kw)
+        outs.append(out.cpu())
+        return out
+
+    zoo.blip2_beam_generate = keep
+    restore = _phase_timers({"answer": (zoo, "blip2_beam_generate"),
+                             "vision": (b2m, "encode_image"), "prefill": (b2m, "_prefill")},
+                            spent, device)
+    runs = []
+    for _ in range(2):
+        pipe = zoo.VLZooVQAPipeline(None, "instructblip", answer_fn=fn)
+        spent.update(dict.fromkeys(spent, 0.0))
+        outs.clear()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        res, counts = counted(wrappers, lambda: pipe.evaluate_model(rows))
+        torch.cuda.synchronize(device)
+        runs.append((res, counts, time.perf_counter() - t0, dict(spent), list(outs),
+                     [x["answer"] for x in pipe.evaluator.results],
+                     torch.cuda.max_memory_allocated(device) / 2**30))
+    restore()
+    zoo.blip2_beam_generate = original_beam
+    (res, counts, _, _, toks, answers, _), (res2, _, _, _, toks2, answers2, _) = runs
+    want = cfg.text.num_hidden_layers * (ZOO_NEW - 1) * ZOO_QUESTIONS
+    log(f"launches on the InstructBLIP path: {counts}; K12 predicted {want} "
+        f"({cfg.text.num_hidden_layers} layers x {ZOO_NEW - 1} beam steps x {ZOO_QUESTIONS} "
+        "questions)")
+    if counts["flash_decode"] != want or any(n for k, n in counts.items() if k != "flash_decode"):
+        raise RuntimeError(f"InstructBLIP: launches {counts}, K12 predicted {want}")
+    if not (res["n"] == ZOO_QUESTIONS and math.isfinite(res["overall"])
+            and 0.0 <= res["overall"] <= 100.0):
+        raise RuntimeError(f"InstructBLIP: bad metrics {res}")
+    if answers != answers2 or res != res2 or not all(
+            torch.equal(a, b) for a, b in zip(toks, toks2)):
+        raise RuntimeError("InstructBLIP: two runs gave different answers")
+    log(f"InstructBLIP: {res}; answers identical across the two runs; answers[:3] "
+        f"{answers[:3]}; tokens[0] {toks[0].tolist()}")
+    for i, (_, c, wall, t, _, _, peak) in enumerate(runs, 1):
+        per_q = 1e3 / ZOO_QUESTIONS
+        decode = t["answer"] - t["vision"] - t["prefill"]
+        log(f"InstructBLIP run {i} ({smi}): {ZOO_QUESTIONS / wall:.4f} questions/s "
+            f"({wall:.3f} s for {ZOO_QUESTIONS}); ms per question: vision + Q-Former/projection "
+            f"{t['vision'] * per_q:.2f}, Vicuna prefill {t['prefill'] * per_q:.2f}, beam decode "
+            f"{decode * per_q:.2f}, the rest (host: tokenizer, pipeline, scoring) "
+            f"{(wall - t['answer']) * per_q:.2f}; peak memory {peak:.2f} GiB; K12 launches "
+            f"{c['flash_decode']}")
+    if profile:
+        profile_zoo("instructblip", fn, rows[0])
+    run_imagenet_path(cfg, params, device, smi, work)
+    del params, fn, pipe
+    torch.cuda.empty_cache()
+    return counts
+
+
+IMAGENET_FOLDERS, IMAGENET_PER_FOLDER = 8, 8
+
+
+def write_imagenet_folders(root):
+    """``IMAGENET_FOLDERS`` synset folders of the 1000-synset table (every
+    125th), ``IMAGENET_PER_FOLDER`` random 224^2 PNG images each, written by
+    the port's PNG writer.  Returns the folder names."""
+    import numpy as np
+
+    from cullavo_tpu_torch.data import png_io
+    from cullavo_tpu_torch.utils import constants
+
+    rng = np.random.default_rng(SEED + 24)
+    folders = constants.IMAGENET_FOLDER_NAMES[::1000 // IMAGENET_FOLDERS][:IMAGENET_FOLDERS]
+    for folder in folders:
+        os.makedirs(os.path.join(root, folder))
+        for j in range(IMAGENET_PER_FOLDER):
+            png_io.write_png(os.path.join(root, folder, f"ILSVRC2012_val_{j:08d}.png"),
+                             rng.integers(0, 256, (VLP_SIDE, VLP_SIDE, 3), dtype=np.uint8))
+    return folders
+
+
+def run_imagenet_path(cfg, params, device, smi, work):
+    """Phase 19b, the zero-shot ImageNet eval over class folders written
+    here (8 synsets x 8 PNGs at 224^2): (1) EVA-ViT-g and the text-input
+    Q-Former at InstructBLIP's width at ``ZOO_CUT`` layers, f32, card
+    against CPU: an image's pooled queries and the 1000 class prompts' text
+    states within 1e-4, and top-1 / top-5 / n over 16 of the images equal;
+    (2) ``python -m cullavo_tpu_torch eval --conf_files
+    configs/vl_test.yaml`` with ``NAME: imagenet_test`` and a ``KIND:
+    imagenet`` root in a subprocess (JAX's smoke tower): exit 0, n = 64,
+    top-1 / top-5 in [0, 100], the per-class CSV read back, then
+    ``entry.evaluate`` on the same config in this process: equal results;
+    (3) the full-width tower (``params``) through ``blip2_imagenet_fns``
+    over the 1000 ImageNet names and ``ImageNetPipeline`` twice: equal
+    top-1 / top-5 / n; images/s, the text-embedding seconds, peak memory."""
+    import csv
+    import math
+
+    import torch
+
+    from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.data.datasets import load_imagenet_folder
+    from cullavo_tpu_torch.data.image_processing import preprocess_numpy
+    from cullavo_tpu_torch.data.png_io import read_png
+    from cullavo_tpu_torch.pipelines.imagenet_pipeline import ImageNetPipeline
+    from cullavo_tpu_torch.pipelines.vl_zoo_pipeline import blip2_imagenet_fns
+    from cullavo_tpu_torch.utils import constants
+    from cullavo_tpu_torch.utils.tree import tree_map
+
+    root = os.path.join(work, "imagenet")
+    folders = write_imagenet_folders(root)
+    n_images = IMAGENET_FOLDERS * IMAGENET_PER_FOLDER
+    side = cfg.vision.image_size
+    rows = [{"pixel_values": preprocess_numpy([read_png(x["file_name"])], side)[0],
+             "label": x["label"]} for x in load_imagenet_folder(root)]
+
+    r = dataclasses.replace
+    cut = r(cfg, vision=r(cfg.vision, num_hidden_layers=ZOO_CUT),
+            qformer=r(cfg.qformer, num_hidden_layers=ZOO_CUT))
+    small = {"query_tokens": params["query_tokens"],
+             "vision": dict(params["vision"], layers={
+                 k: a[:ZOO_CUT] for k, a in params["vision"]["layers"].items()}),
+             "qformer": dict(params["qformer"], layers=params["qformer"]["layers"][:ZOO_CUT])}
+    fns_card = blip2_imagenet_fns(cut, small, constants.IMAGENET_CLASSES)
+    cpu = tree_map(lambda t: t.cpu(), small)
+    fns_cpu = blip2_imagenet_fns(cut, cpu, constants.IMAGENET_CLASSES)
+    pix = torch.from_numpy(rows[0]["pixel_values"][None])
+    for what, a, b in (("image embeds", fns_card[0](pix.to(device)), fns_cpu[0](pix)),
+                       ("class embeds", fns_card[1], fns_cpu[1])):
+        err = (a.cpu() - b).abs().max().item()
+        log(f"ImageNet towers at {ZOO_CUT} layers, full width, card vs CPU (f32), {what} "
+            f"{tuple(b.shape)}: max_abs_err={err:.3e} (tol 1e-4)")
+        if not (torch.isfinite(a).all() and err <= 1e-4):
+            raise RuntimeError(f"ImageNet: the card disagrees with the CPU on {what}: {err}")
+    scored = [ImageNetPipeline(None, fn, cls, constants.IMAGENET_CLASSES, batch_size=8)
+              .evaluate_model(rows[::n_images // 16]) for fn, cls in (fns_card, fns_cpu)]
+    log(f"ImageNet at {ZOO_CUT} layers over 16 of the images: card {scored[0]}, CPU {scored[1]}")
+    if scored[0] != scored[1]:
+        raise RuntimeError(f"ImageNet at cut depth: card {scored[0]} != CPU {scored[1]}")
+    del small, cpu, fns_card, fns_cpu
+
+    name = "chip_imagenet_synthetic"
+    over = {"NAME": "imagenet_test", "MODEL.ZOO": "instructblip", "BATCH_SIZE": 16,
+            "DATASETS.TEST": [name], "DATASETS.REGISTER": {name: {"KIND": "imagenet",
+                                                                "ROOT": root}}}
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    cli_dir = os.path.join(work, "imagenet_cli")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "cullavo_tpu_torch", "eval", "--conf_files",
+                          os.path.join(REPO, "configs/vl_test.yaml"), "--config_overrides",
+                          json.dumps(over), "--overrides", "SAVE_DIR", cli_dir], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=600)
+    for line in (res.stdout + res.stderr).strip().splitlines()[-4:]:
+        log(f"  imagenet CLI: {line}")
+    if res.returncode != 0:
+        raise RuntimeError(f"imagenet: python -m cullavo_tpu_torch exited {res.returncode}")
+    cli = json.loads(res.stdout.strip().splitlines()[-1])[name]
+    with open(os.path.join(cli_dir, "imagenet_per_class.csv"), newline="") as f:
+        table = list(csv.reader(f))
+    if not (cli["n"] == n_images and all(0 <= cli[k] <= 100 for k in ("top1", "top5"))
+            and len(table) == 2 + IMAGENET_FOLDERS and table[-1][0] == "TOTAL"):
+        raise RuntimeError(f"imagenet CLI: {cli}, CSV {table}")
+    log(f"imagenet CLI ({smi}): exit 0 in {time.perf_counter() - t0:.2f} s; {cli}; CSV "
+        f"{len(table) - 2} classes + TOTAL {table[-1]}")
+    inproc = entry.evaluate({"NAME": "imagenet_test", "BATCH_SIZE": 16,
+                             "MODEL": {"ZOO": "instructblip"}, "DATASETS": {
+                                 "TEST": [name], "REGISTER": over["DATASETS.REGISTER"]}})
+    if inproc[name] != cli:
+        raise RuntimeError(f"imagenet: entry.evaluate {inproc[name]} != the CLI's {cli}")
+
+    t0 = time.perf_counter()
+    embed_fn, class_embeds = blip2_imagenet_fns(cfg, params, constants.IMAGENET_CLASSES)
+    torch.cuda.synchronize(device)
+    t_text = time.perf_counter() - t0
+    runs = []
+    for _ in range(2):
+        pipe = ImageNetPipeline(None, embed_fn, class_embeds, constants.IMAGENET_CLASSES,
+                                batch_size=32)
+        torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = pipe.evaluate_model(rows, out_dir=os.path.join(work, "imagenet_full"))
+        torch.cuda.synchronize(device)
+        runs.append((out, time.perf_counter() - t0,
+                     torch.cuda.max_memory_allocated(device) / 2**30))
+    if runs[0][0] != runs[1][0] or runs[0][0]["n"] != n_images or not all(
+            math.isfinite(runs[0][0][k]) for k in ("top1", "top5")):
+        raise RuntimeError(f"imagenet: {runs[0][0]} vs {runs[1][0]}")
+    log(f"ImageNet at full width ({smi}): class embeddings of {len(constants.IMAGENET_CLASSES)} "
+        f"names in {t_text:.3f} s; {runs[0][0]} in both runs; folders {folders[:2]}...")
+    for i, (out, wall, peak) in enumerate(runs, 1):
+        log(f"ImageNet run {i} ({smi}): {n_images / wall:.2f} images/s ({wall:.3f} s for "
+            f"{n_images}, batch 32, preprocessed beforehand); peak memory {peak:.2f} GiB")
+
+
+TOPIC_QUESTIONS = VL_QUESTION_TEXT + ("What is it?", "Who is there?", "Any dogs?",
+                                      "Is it raining?", "What color?", "How many cats?",
+                                      "Where is he?", "Is it day?")
+
+
+def run_topic_path(device, wrappers, smi, profile=False):
+    """Phase 19c, the question-topic classifier at the reference's widths:
+    a LLaMA-2-7B (vocabulary 32000) in bf16 and CLIP-L/336's text tower (12
+    x 768, projection 768) in f32, random on the card, byte tokenizers,
+    through ``make_topic_fn`` over COCO's 91 semantic names; the
+    ``TOPIC_QUESTIONS`` (16, their prompts in the 256 and 320 buckets)
+    twice from one seed: the same classes, K1 32 a question (the prefill)
+    and K4 32 a decode forward, nothing else launched; ms per question by
+    phase (generate, CLIP), peak memory.  Then ``entry.evaluate`` on vl_test
+    with ``MODEL.TOPIC: tiny`` and ``SAVE_DIR`` over 4 questions: the
+    per-topic CSV read back.  ``profile``: one more question under
+    torch.profiler.  Returns the launches of the first run."""
+    import csv
+
+    import torch
+
+    from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.data.registry import list_datasets, register_dataset
+    from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
+    from cullavo_tpu_torch.models.llava.config import LlamaConfig, LlavaConfig
+    from cullavo_tpu_torch.models.llava.llama import init_llama_params
+    from cullavo_tpu_torch.models.xdecoder.text_encoder import (clip_text_config,
+                                                                init_text_encoder_params)
+    from cullavo_tpu_torch.pipelines import vqa_pipeline as vq
+    from cullavo_tpu_torch.utils import constants
+
+    lcfg = LlavaConfig(text=LlamaConfig(vocab_size=32000))
+    ccfg = clip_text_config()
+    t0 = time.perf_counter()
+    lparams = {"language_model": init_llama_params(
+        lcfg.text, torch.Generator(device=device).manual_seed(SEED + 26), device, torch.bfloat16)}
+    cparams = init_text_encoder_params(ccfg, torch.Generator(device=device).manual_seed(
+        SEED + 27), device)
+    torch.cuda.synchronize(device)
+    log(f"topic towers (LLaMA-2-7B bf16, CLIP-L/336 text f32) built on the card in "
+        f"{time.perf_counter() - t0:.3f} s, {torch.cuda.memory_allocated(device) / 2**30:.2f} "
+        "GiB allocated")
+    buckets = sorted({vq._bucket(len(ByteTokenizer().encode(vq.topic_prompt(q))))
+                      for q in TOPIC_QUESTIONS})
+    spent = dict.fromkeys(("generate", "clip"), 0.0)
+    outs = []
+    original_generate = vq.generate
+
+    def keep(*a, **kw):
+        out = original_generate(*a, **kw)
+        outs.append(out[0].cpu())
+        return out
+
+    vq.generate = keep
+    restore = _phase_timers({"generate": (vq, "generate"), "clip": (vq, "_clip_embed")},
+                            spent, device)
+    runs = []
+    for _ in range(2):
+        fn = vq.make_topic_fn(lparams, lcfg, vq._ByteHFTok(32000), cparams, ccfg,
+                              vq._ByteHFTok(ccfg.vocab_size, max_len=77, eot_is_max=True),
+                              seed=SEED)
+        spent.update(dict.fromkeys(spent, 0.0))
+        outs.clear()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        classes, counts = counted(wrappers, lambda: [fn(q) for q in TOPIC_QUESTIONS])
+        torch.cuda.synchronize(device)
+        runs.append((classes, counts, time.perf_counter() - t0, dict(spent), list(outs),
+                     torch.cuda.max_memory_allocated(device) / 2**30))
+    restore()
+    vq.generate = original_generate
+    classes, counts, _, _, toks, _ = runs[0]
+    forwards = [int((t == 2).nonzero()[0]) if (t == 2).any() else len(t) - 1 for t in toks]
+    n_layers = lcfg.text.num_hidden_layers
+    want = {"flash_fwd": n_layers * len(TOPIC_QUESTIONS), "wwin_decode": n_layers * sum(forwards)}
+    log(f"launches on the topic path: {counts}; predicted {want} (prompt buckets {buckets}; "
+        f"decode forwards per question {forwards})")
+    if any(counts[k] != n for k, n in want.items()) or any(
+            n for k, n in counts.items() if k not in want):
+        raise RuntimeError(f"topic classifier: launches {counts}, predicted {want}")
+    if classes != runs[1][0] or not all(c in constants.COCO_SEMANTIC_CLASSES for c in classes):
+        raise RuntimeError(f"topic classifier: {classes} vs {runs[1][0]}")
+    log(f"topic classifier: classes identical across the two runs: {classes}")
+    for i, (_, c, wall, t, _, peak) in enumerate(runs, 1):
+        per_q = 1e3 / len(TOPIC_QUESTIONS)
+        log(f"topic run {i} ({smi}): {wall * per_q:.2f} ms per question (generate "
+            f"{t['generate'] * per_q:.2f}, CLIP {t['clip'] * per_q:.2f}, the rest "
+            f"{(wall - t['generate'] - t['clip']) * per_q:.2f}); peak memory {peak:.2f} GiB")
+    if profile:
+        profile_zoo("topic classifier", lambda q, image: fn(q),
+                    {"question": TOPIC_QUESTIONS[0], "image": None})
+    del lparams, cparams, fn
+    torch.cuda.empty_cache()
+
+    if ZOO_DATASET not in list_datasets():
+        records = zoo_records()
+        register_dataset(ZOO_DATASET, lambda: records, {})
+    with tempfile.TemporaryDirectory(prefix="cullavo_chip_topic_") as out_dir:
+        res = entry.evaluate({"NAME": "vl_test", "BATCH_SIZE": 4, "MAX_NEW_TOKENS": 8,
+                              "LIMIT": 4, "SAVE_DIR": out_dir, "MODEL": {"TOPIC": "tiny"},
+                              "DATASETS": {"TEST": [ZOO_DATASET]}})[ZOO_DATASET]
+        with open(os.path.join(out_dir, "vqa_per_class.csv"), newline="") as f:
+            table = list(csv.reader(f))
+    n_topics = sum(int(row[2]) for row in table[1:-1])
+    log(f"entry.evaluate vl_test MODEL.TOPIC tiny (card): {res}; vqa_per_class.csv {table}")
+    if not (res["n"] == 4 and table[0] == ["class", "accuracy", "n"] and n_topics == 4
+            and table[-1][0] == "TOTAL"):
+        raise RuntimeError(f"vl_test with MODEL.TOPIC tiny: {res}, {table}")
+    return counts
 
 
 def check_packed_kernel(device, g):
@@ -6355,6 +6892,12 @@ def main(argv):
         counts_xeval, pt_focal = run_xeval_path(device, wrappers, smi, work, rec)
         # phase 17 (phase 16's checkpoint and CLIP files)
         counts_vlp = run_vlp_path(device, wrappers, smi, work, rec, pt_focal)
+    torch.cuda.empty_cache()
+    # phase 19: InstructBLIP and the ImageNet eval on its towers, then the
+    # topic classifier
+    with tempfile.TemporaryDirectory(prefix="cullavo_chip_zoo_rest_") as work:
+        counts_ib = run_instructblip_path(device, wrappers, smi, work, "--profile" in argv)
+    counts_topic = run_topic_path(device, wrappers, smi, "--profile" in argv)
     # each kernel's launches on the main path that runs it: K1-K4 the greedy
     # bf16-cache batch, K5 the speculative int8-cache batch, K6 and K7 the
     # serving run, K1-lse the train steps, K8 the attention probe, K9 the
@@ -6410,6 +6953,8 @@ def main(argv):
         k["xdecoder_eval_launches"] = counts_xeval[k["name"]]     # phase 16's entry.evaluate
         k["vlp_eval_launches"] = counts_vlp[k["name"]]            # phase 17's entry.evaluate
         k["serve_http_launches"] = counts_http[k["name"]]         # phase 18's HTTP run
+        # phase 19: InstructBLIP's 16 questions and the topic classifier's
+        k["vl_zoo_rest_launches"] = counts_ib[k["name"]] + counts_topic[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -32,8 +32,11 @@ k]``, ``[in, out, 2, 2]`` spatially flipped); every other leaf keeps its
 layout.  ``xdecoder_params_to_numpy`` is the inverse (exact).
 
 VL zoo: ``blip2_params_from_numpy`` (the Q-Former's per-layer list stays a
-list) and ``kosmos2_params_from_numpy`` keep every leaf's layout and dtype;
-their ``_to_numpy`` inverses are exact.
+list, the text-input Q-Former's ``ffn_t``, ``word_emb`` and ``pos_emb``
+and a Flan-T5 or LLaMA tower alike) and ``kosmos2_params_from_numpy`` keep
+every leaf's layout and dtype; their ``_to_numpy`` inverses are exact.
+``topic_params_from_numpy`` carries the topic classifier's two towers (the
+LLaMA ``{"language_model": ...}`` and the CLIP text encoder) the same way.
 """
 from __future__ import annotations
 
@@ -237,3 +240,11 @@ def blip2_params_to_numpy(params: dict) -> dict:
 
 # a KOSMOS-2 tree carries no layout of its own either
 kosmos2_params_from_numpy, kosmos2_params_to_numpy = blip2_params_from_numpy, blip2_params_to_numpy
+
+
+def topic_params_from_numpy(llama_tree: dict, clip_tree: dict, device) -> tuple:
+    """The topic classifier's towers, JAX trees of numpy leaves -> the
+    port's (LLaMA ``{"language_model": ...}``, CLIP text encoder) on
+    ``device``, every leaf in its layout and dtype."""
+    return (blip2_params_from_numpy(llama_tree, device),
+            blip2_params_from_numpy(clip_tree, device))

@@ -15,6 +15,9 @@ quietly returns the 7B config), and ``load_llava_safetensors`` reads the
 shards with the port's own reader, keeps the snapshot's dtype unless told
 otherwise (JAX converts to f32 on the host, ~28 GB for 7B; its numpy reader
 cannot read bf16 at all) and builds the stacks on ``device``.
+
+A text-only ``LlamaForCausalLM`` snapshot (the topic classifier's LLaMA-2):
+``llama_config_from_json`` and ``load_llama_causal_lm_safetensors``.
 """
 from __future__ import annotations
 
@@ -30,18 +33,24 @@ from cullavo_tpu_torch.checkpoint.safetensors_io import read_safetensors
 from cullavo_tpu_torch.models.llava.config import ClipVisionConfig, LlamaConfig, LlavaConfig
 
 __all__ = ["from_hf_state_dict", "llava_config_from_json", "load_llava_safetensors",
-           "to_hf_state_dict", "llama_from_causal_lm_state_dict"]
+           "to_hf_state_dict", "llama_from_causal_lm_state_dict", "llama_config_from_json",
+           "load_llama_causal_lm_safetensors", "read_config_json", "read_safetensors_dir"]
 
 
-def llava_config_from_json(model_dir: str) -> LlavaConfig:
-    """A LlavaConfig from an HF snapshot's ``config.json`` (its
-    ``text_config`` / ``vision_config`` fields that the dataclasses know)."""
+def read_config_json(model_dir: str) -> dict:
+    """A snapshot's ``config.json``; a missing one raises."""
     path = os.path.join(model_dir, "config.json")
     if not os.path.exists(path):
         raise FileNotFoundError(f"no config.json under {model_dir}: the architecture is "
                                 "read from the snapshot, never assumed")
     with open(path) as f:
-        hf = json.load(f)
+        return json.load(f)
+
+
+def llava_config_from_json(model_dir: str) -> LlavaConfig:
+    """A LlavaConfig from an HF snapshot's ``config.json`` (its
+    ``text_config`` / ``vision_config`` fields that the dataclasses know)."""
+    hf = read_config_json(model_dir)
     tc, vc = hf.get("text_config", {}), hf.get("vision_config", {})
 
     def take(cls, src):
@@ -135,16 +144,21 @@ def from_hf_state_dict(state: Mapping, cfg: LlavaConfig, dtype=None, device="cpu
     return {"vision_tower": vt, "projector": proj, "language_model": lm}
 
 
-def load_llava_safetensors(model_dir: str, cfg: LlavaConfig, dtype=None, device="cpu") -> dict:
-    """Every ``*.safetensors`` shard under ``model_dir``, read with the port's
-    reader, imported by ``from_hf_state_dict`` onto ``device``."""
+def read_safetensors_dir(model_dir: str) -> dict:
+    """Every ``*.safetensors`` shard under ``model_dir`` by the port's reader."""
     files = sorted(glob.glob(os.path.join(model_dir, "*.safetensors")))
     if not files:
         raise FileNotFoundError(f"no safetensors under {model_dir}")
     state: dict = {}
     for path in files:
         state.update(read_safetensors(path))
-    return from_hf_state_dict(state, cfg, dtype, device)
+    return state
+
+
+def load_llava_safetensors(model_dir: str, cfg: LlavaConfig, dtype=None, device="cpu") -> dict:
+    """Every ``*.safetensors`` shard under ``model_dir``, read with the port's
+    reader, imported by ``from_hf_state_dict`` onto ``device``."""
+    return from_hf_state_dict(read_safetensors_dir(model_dir), cfg, dtype, device)
 
 
 def to_hf_state_dict(params: dict, cfg: LlavaConfig) -> dict:
@@ -192,3 +206,26 @@ def llama_from_causal_lm_state_dict(state: Mapping, cfg: LlamaConfig, dtype=None
     lm["lm_head"] = (get("lm_head.weight") if "lm_head.weight" in sd
                      else lm["embed_tokens"]).T.contiguous()
     return lm
+
+
+def llama_config_from_json(model_dir: str) -> LlamaConfig:
+    """A LlamaConfig from a text-only ``LlamaForCausalLM`` snapshot's
+    ``config.json``: the fields the JAX topic classifier reads (vocabulary,
+    widths, depth, heads, kv heads defaulting to the heads, positions, RMS
+    eps, rope theta defaulting to 10000, the sliding window)."""
+    hc = read_config_json(model_dir)
+    return LlamaConfig(
+        vocab_size=hc["vocab_size"], hidden_size=hc["hidden_size"],
+        intermediate_size=hc["intermediate_size"], num_hidden_layers=hc["num_hidden_layers"],
+        num_attention_heads=hc["num_attention_heads"],
+        num_key_value_heads=hc.get("num_key_value_heads") or hc["num_attention_heads"],
+        max_position_embeddings=hc["max_position_embeddings"], rms_norm_eps=hc["rms_norm_eps"],
+        rope_theta=hc.get("rope_theta") or 10000.0, sliding_window=hc.get("sliding_window"))
+
+
+def load_llama_causal_lm_safetensors(model_dir: str, cfg: LlamaConfig, dtype=None,
+                                     device="cpu") -> dict:
+    """A text-only ``LlamaForCausalLM`` snapshot's shards (the port's reader,
+    the snapshot's dtype unless ``dtype``) -> the ``language_model`` subtree
+    on ``device`` (``llama_from_causal_lm_state_dict``)."""
+    return llama_from_causal_lm_state_dict(read_safetensors_dir(model_dir), cfg, dtype, device)

@@ -15,9 +15,10 @@
     is.  The VLP Arrow splits register from ``<root>/vlp`` when it exists
     (``vlp_datasets.register_all_vlp``).
   * the COCO segment decoders ``polygons_to_mask`` (even-odd scanline fill)
-    and ``rle_to_mask`` (uncompressed, column-major RLE), numpy only.
-
-ImageNet's folder scan comes with the ImageNet eval."""
+    and ``rle_to_mask`` (uncompressed, column-major RLE), numpy only;
+  * ImageNet's class folders (``load_imagenet_folder``,
+    ``register_imagenet``): one row per image file, labelled by its synset
+    folder's index in the 1000-synset table or in ``folder_names``."""
 from __future__ import annotations
 
 import json
@@ -30,6 +31,7 @@ import numpy as np
 from cullavo_tpu_torch.data.coco_panoptic import load_coco_panoptic_json
 from cullavo_tpu_torch.data.registry import list_datasets, register_dataset
 from cullavo_tpu_torch.data.vlp_datasets import register_all_vlp
+from cullavo_tpu_torch.utils import constants
 
 
 def load_vqa(questions_json: str, annotations_json: Optional[str],
@@ -61,6 +63,37 @@ def register_vqa(name: str, questions_json: str, annotations_json: Optional[str]
     register_dataset(name, lambda: load_vqa(questions_json, annotations_json,
                                             image_dir, **kw),
                      {"gt_json": annotations_json})
+
+
+def load_imagenet_folder(root: str, folder_names: Optional[list] = None) -> list:
+    """``{"file_name", "label"}`` for every file of every synset folder under
+    ``root`` that ``folder_names`` (default: the 1000-synset table) lists,
+    folders and files in sorted order; the label is the folder's index in
+    that list.  Other folders are skipped."""
+    index = {f: i for i, f in enumerate(folder_names or constants.IMAGENET_FOLDER_NAMES)}
+    rows = []
+    for folder in sorted(os.listdir(root)):
+        if folder not in index:
+            continue
+        d = os.path.join(root, folder)
+        rows.extend({"file_name": os.path.join(d, fn), "label": index[folder]}
+                    for fn in sorted(os.listdir(d)))
+    return rows
+
+
+def register_imagenet(name: str, root: str, folder_names: Optional[list] = None,
+                      class_names: Optional[list] = None):
+    """Register the class folders under ``root`` (the reference's
+    register_imagenet_cls.py).  ``folder_names`` restricts and orders the
+    synset folders; ``class_names`` (the zero-shot prompts' labels) default
+    to each folder's human-readable ImageNet name, the folder's own name
+    where the table has none."""
+    if class_names is None:
+        syn2cls = dict(zip(constants.IMAGENET_FOLDER_NAMES, constants.IMAGENET_CLASSES))
+        class_names = ([syn2cls.get(f, f) for f in folder_names] if folder_names
+                       else list(constants.IMAGENET_CLASSES))
+    register_dataset(name, lambda: load_imagenet_folder(root, folder_names),
+                     {"num_classes": len(class_names), "class_names": class_names})
 
 
 def polygons_to_mask(segmentation, height: int, width: int) -> np.ndarray:

@@ -10,9 +10,13 @@ directory for every request, or several picked per request by
 Q-LoRA epoch loop over a registered COCO-panoptic dataset with
 ``step_{N}`` and reference ``epoch{N}`` checkpoints and ``RESUME_FROM``,
 or one smoke step on synthetic records); and ``evaluate`` for the VL eval
-(``vl_test``: LLaVA from a local HF snapshot or the smoke model, or a zoo
-tower, BLIP-2 Flan-T5 or KOSMOS-2, with tiny random weights, over
-registered VQA datasets), the step2_pre data generation
+(``vl_test``: LLaVA from a local HF snapshot or the smoke model, with the
+question-topic classifier of ``MODEL.TOPIC`` (``tiny``, or
+``{LLAMA_PATH, CLIP_PATH}`` snapshots), or a zoo tower, BLIP-2 Flan-T5,
+InstructBLIP or KOSMOS-2, with tiny random weights, over registered VQA
+datasets), the zero-shot ImageNet eval (``imagenet_test``: the BLIP-2
+family's Q-Former text and image embeddings, tiny random weights, over
+registered ``imagenet`` class folders), the step2_pre data generation
 (``cullavo_step2_pre``: sampled captions with boxes over a registered
 ``conversations`` dataset) and the X-Decoder workloads: joint training
 (``train`` with an "xdecoder" ``NAME``, over registered
@@ -60,7 +64,8 @@ from cullavo_tpu_torch.data.clip_tokenizer import CLIPTokenizer
 from cullavo_tpu_torch.data.coco_panoptic import (PanopticMapper, load_image_file,
                                                    register_coco_panoptic)
 from cullavo_tpu_torch.data.datasets import (load_semseg_pairs, register_all_segmentation,
-                                             register_refcoco, register_vqa)
+                                             register_imagenet, register_refcoco, register_vqa)
+from cullavo_tpu_torch.data.image_processing import preprocess_numpy
 from cullavo_tpu_torch.data.instruction_data import load_conversation_json
 from cullavo_tpu_torch.data.mappers.eval_mappers import (PanopticEvalMapper, RefCOCOEvalMapper,
                                                          SemSegEvalMapper, VQAEvalMapper,
@@ -70,7 +75,7 @@ from cullavo_tpu_torch.data.step1_synthesis import SYSTEM_PROMPT
 from cullavo_tpu_torch.data.tokenizer import ByteTokenizer, HFTokenizer
 from cullavo_tpu_torch.models.blip2 import tiny_blip2_config
 from cullavo_tpu_torch.models.kosmos2 import tiny_kosmos2_config
-from cullavo_tpu_torch.models.llava.config import tiny_llava_config
+from cullavo_tpu_torch.models.llava.config import smoke_llava_config
 from cullavo_tpu_torch.models.llava.lora import maybe_quantize_base, stack_adapter_sets
 from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
 from cullavo_tpu_torch.models.llava.modeling import (GenerationConfig, expand_image_token,
@@ -82,10 +87,13 @@ from cullavo_tpu_torch.pipelines import vlp_pipeline  # noqa: F401 (registration
 from cullavo_tpu_torch.pipelines import vqa_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines import xdecoder_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines.base import build_pipeline
+from cullavo_tpu_torch.pipelines.imagenet_pipeline import ImageNetPipeline
 from cullavo_tpu_torch.pipelines.xdecoder_pipeline import EvalTasks, tasks_for_dataset
 from cullavo_tpu_torch.pipelines.vl_zoo_pipeline import (MODEL_SPECS, VLZooVQAPipeline,
                                                          native_blip2_answer_fn,
+                                                         native_blip2_imagenet_fns,
                                                          native_kosmos2_answer_fn)
+from cullavo_tpu_torch.pipelines.vqa_pipeline import make_reference_topic_fn, make_tiny_topic_fn
 from cullavo_tpu_torch.serving import Request, ServingEngine
 from cullavo_tpu_torch.serving.io import request_from_row
 from cullavo_tpu_torch.serving.server import make_server
@@ -104,17 +112,6 @@ def _device(device):
             raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(device)
-
-
-def smoke_llava_config():
-    """The tiny random model of the smoke modes: the JAX package's
-    ``tiny_llava_config(260)`` with its two text heads widened to the head
-    dim of 128 that the attention kernels take, so that the same model runs
-    on the card and on the CPU."""
-    cfg = tiny_llava_config(260)
-    text = dataclasses.replace(cfg.text, hidden_size=256, intermediate_size=512,
-                               num_attention_heads=2, num_key_value_heads=2)
-    return dataclasses.replace(cfg, text=text)
 
 
 def _build_llava(cfg: dict, device):
@@ -639,9 +636,10 @@ def register_datasets_from_cfg(cfg: dict) -> None:
     ``IMAGE_TEMPLATE``), ``coco_panoptic`` (``JSON``, ``IMAGE_DIR``,
     ``PANOPTIC_DIR``, ``NUM_CLASSES``, ``CLASS_NAMES``, ``TASKS``),
     ``coco_panoptic_caption_grounding`` (those of ``coco_panoptic`` but
-    ``TASKS``, plus ``CAPTION_JSON``, ``GROUNDING_JSON`` and ``LVIS_JSON``)
-    and ``conversations`` (``JSON``, ``IMAGE_ROOT``).  Loaders run when a
-    dataset is first asked for; ``imagenet`` raises (its slice)."""
+    ``TASKS``, plus ``CAPTION_JSON``, ``GROUNDING_JSON`` and ``LVIS_JSON``),
+    ``conversations`` (``JSON``, ``IMAGE_ROOT``) and ``imagenet`` (``ROOT``,
+    ``FOLDERS``, ``CLASS_NAMES``).  Loaders run when a dataset is first
+    asked for."""
     root = os.environ.get("DETECTRON2_DATASETS") or os.environ.get("DATASET")
     if root and os.path.isdir(root):
         register_all_segmentation(root)
@@ -680,8 +678,11 @@ def register_datasets_from_cfg(cfg: dict) -> None:
             register_vqa(name, spec["QUESTIONS_JSON"], spec.get("ANNOTATIONS_JSON"),
                          spec["IMAGE_DIR"], **kw)
         elif kind == "imagenet":
-            raise NotImplementedError(f"DATASETS.REGISTER kind 'imagenet' ({name}) waits for the "
-                                      "ImageNet eval slice")
+            if "ROOT" not in spec:
+                raise ValueError(f"DATASETS.REGISTER {name}: the imagenet kind needs ROOT")
+            register_imagenet(name, spec["ROOT"],
+                              folder_names=list(spec.get("FOLDERS", [])) or None,
+                              class_names=list(spec.get("CLASS_NAMES", [])) or None)
         else:
             raise ValueError(f"unknown DATASETS.REGISTER KIND {kind!r} ({name})")
 
@@ -689,15 +690,22 @@ def register_datasets_from_cfg(cfg: dict) -> None:
 def _eval_vl(cfg: dict, device) -> dict:
     """vl_test: LLaVA (``MODEL.LLM``) through the VQA pipeline of ``PIPELINE``
     over each ``DATASETS.TEST`` entry, with ``KV_QUANT``, ``SPEC_K``,
-    ``BATCH_SIZE``, ``MAX_NEW_TOKENS``, ``LIMIT`` and ``SAVE_DIR``."""
+    ``BATCH_SIZE``, ``MAX_NEW_TOKENS``, ``LIMIT`` and ``SAVE_DIR``; with
+    ``MODEL.TOPIC`` (``tiny`` or ``{LLAMA_PATH, CLIP_PATH}``) the
+    question-topic classifier buckets the accuracy (``vqa_per_class.csv``)."""
     model = cfg.get("MODEL") or {}
     if model.get("ZOO"):
         return _eval_vl_zoo(cfg, model["ZOO"], device)
-    if model.get("TOPIC"):
-        raise NotImplementedError("MODEL.TOPIC (the per-class topic classifier) waits for the "
-                                  "rest of the VL-zoo slice")
-    model_cfg, params, tokenizer = _build_llava(cfg, device)
     extra = {}
+    topic = model.get("TOPIC")
+    if isinstance(topic, str) and topic.lower() == "tiny":
+        extra["topic_fn"] = make_tiny_topic_fn(device=device)
+    elif isinstance(topic, dict) and {"LLAMA_PATH", "CLIP_PATH"} <= set(topic):
+        extra["topic_fn"] = make_reference_topic_fn(topic["LLAMA_PATH"], topic["CLIP_PATH"],
+                                                    device=device)
+    elif topic:
+        raise ValueError(f"MODEL.TOPIC {topic!r}: 'tiny' or {{LLAMA_PATH, CLIP_PATH}}")
+    model_cfg, params, tokenizer = _build_llava(cfg, device)
     if cfg.get("KV_QUANT"):
         extra["kv_quant"] = cfg["KV_QUANT"]
     if cfg.get("SPEC_K"):
@@ -718,25 +726,27 @@ def _eval_vl_zoo(cfg: dict, zoo: str, device) -> dict:
     the tiny config and seeded random weights (the JAX entry's
     checkpoint-free path) through ``VLZooVQAPipeline`` over each
     ``DATASETS.TEST`` entry, ``MAX_NEW_TOKENS`` (10), ``LIMIT`` and
-    ``SAVE_DIR``.  BLIP-2 (Flan-T5) and KOSMOS-2 run; the rest raise."""
+    ``SAVE_DIR``.  BLIP-2 (Flan-T5), InstructBLIP and KOSMOS-2 run;
+    ``ZOO_PATH``, ``ZOO_TORCH`` and BakLLaVA raise."""
     model = cfg.get("MODEL") or {}
     if zoo not in MODEL_SPECS:
         raise SystemExit(f"unknown MODEL.ZOO {zoo!r}; one of {sorted(MODEL_SPECS)}")
     if model.get("ZOO_PATH"):
         raise NotImplementedError("MODEL.ZOO_PATH (a local HF snapshot of a zoo model) waits for "
-                                  "the zoo snapshot slice: its Unigram and WordPiece tokenizers")
+                                  "the zoo snapshot item (queue 1 item 2.4 of ROADMAP.md): its "
+                                  "Unigram and WordPiece tokenizers")
     if model.get("ZOO_TORCH"):
         raise NotImplementedError("MODEL.ZOO_TORCH (the transformers harness) has no counterpart: "
                                   "the port answers through its native towers")
-    if zoo == "instructblip":
-        raise NotImplementedError("MODEL.ZOO: instructblip (Vicuna tower, text-input Q-Former) "
-                                  "waits for the InstructBLIP slice")
     if zoo == "bakllava":
         raise NotImplementedError("MODEL.ZOO: bakllava (Mistral's sliding-window attention) "
-                                  "waits for the BakLLaVA slice")
+                                  "waits for the BakLLaVA item (queue 1 item 2.5 of ROADMAP.md)")
     mnt = int(cfg.get("MAX_NEW_TOKENS", 10))
-    if zoo == "blip2":
-        answer_fn = native_blip2_answer_fn(max_new_tokens=mnt, device=device)
+    if zoo in ("blip2", "instructblip"):
+        answer_fn = native_blip2_answer_fn(max_new_tokens=mnt, device=device,
+                                           kind="instructblip" if zoo == "instructblip"
+                                           else "flant5")
+        # both smoke towers read JAX's T5 image size (the tiny configs share it)
         img_size = tiny_blip2_config("t5").vision.image_size
     else:
         answer_fn = native_kosmos2_answer_fn(max_new_tokens=mnt, device=device)
@@ -756,6 +766,36 @@ def _eval_vl_zoo(cfg: dict, zoo: str, device) -> dict:
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
             pipe.evaluator.dump_results(os.path.join(out_dir, "vqa_results.json"))
+    return results
+
+
+def _eval_imagenet(cfg: dict, device) -> dict:
+    """imagenet_test: zero-shot classification over each ``DATASETS.TEST``
+    class-folder dataset (``LIMIT``, ``BATCH_SIZE`` (64), ``SAVE_DIR``):
+    ``native_blip2_imagenet_fns`` ('This is {class}' through the text-input
+    Q-Former against the pooled image queries, tiny random weights; an
+    image through the port's PNG reader, other formats through PIL, then
+    CLIP preprocessing at the tower's size) into ``ImageNetPipeline``.
+    ``MODEL.ZOO_PATH`` raises (its item)."""
+    model = cfg.get("MODEL") or {}
+    zoo = model.get("ZOO", "blip2")
+    limit = int(cfg.get("LIMIT", 0)) or None
+    results = {}
+    for name in _dataset_names(cfg):
+        class_names = (get_metadata(name) or {}).get("class_names") or []
+        embed_fn, class_embeds = native_blip2_imagenet_fns(
+            hf_model_dir=model.get("ZOO_PATH"), class_names=class_names,
+            kind="instructblip" if zoo == "instructblip" else "flant5", device=device)
+        side = embed_fn.image_size
+        pipe = ImageNetPipeline(cfg, embed_fn, class_embeds, class_names,
+                                batch_size=int(cfg.get("BATCH_SIZE", 64)))
+
+        def rows(name=name, side=side):
+            for rec in get_dataset(name):
+                yield {"pixel_values": preprocess_numpy([load_image_file(rec["file_name"])],
+                                                        side)[0],
+                       "label": rec["label"]}
+        results[name] = pipe.evaluate_model(rows(), limit=limit, out_dir=cfg.get("SAVE_DIR"))
     return results
 
 
@@ -889,15 +929,15 @@ def _eval_step2_pre(cfg: dict, device) -> dict:
 
 
 def evaluate(cfg: dict, device=None) -> dict:
-    """Eval workload by ``NAME``: ``cullavo_step2_pre``, ``vl_test`` and
-    ``xdecoder*`` run here; ImageNet waits for its slice."""
+    """Eval workload by ``NAME``: ``cullavo_step2_pre``, ``imagenet*``,
+    ``vl_test`` and ``xdecoder*``."""
     device = _device(device)
     register_datasets_from_cfg(cfg)
     name = cfg.get("NAME", "")
     if "step2_pre" in name:
         results = _eval_step2_pre(cfg, device)
     elif "imagenet" in name:
-        raise NotImplementedError("ImageNet eval waits for the rest of the VL-zoo slice")
+        results = _eval_imagenet(cfg, device)
     elif "vl_test" in name or name == "vl":
         results = _eval_vl(cfg, device)
     elif "xdecoder" in name:

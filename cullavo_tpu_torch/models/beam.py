@@ -28,9 +28,10 @@ import torch
 NEG_INF = -1.0e9
 
 
-def _top_k(x: torch.Tensor, k: int):
+def top_k(x: torch.Tensor, k: int):
     """(values, indices) of the k largest entries per row, ties to the
-    lower index."""
+    lower index (``jax.lax.top_k``'s order, which ``torch.topk`` does not
+    promise)."""
     idx = torch.argsort(x, dim=1, descending=True, stable=True)[:, :k]
     return torch.gather(x, 1, idx), idx
 
@@ -74,7 +75,7 @@ def beam_search(step_fn: Callable[[torch.Tensor, Any, int], tuple],
     for t in range(T):
         logp = torch.log_softmax(logits.to(f32), dim=-1)
         cand = (beam_scores.reshape(B * nb, 1) + logp).reshape(B, nb * V)
-        vals, idx = _top_k(cand, k2)                           # [B, 2nb], rank order
+        vals, idx = top_k(cand, k2)                           # [B, 2nb], rank order
         tok = (idx % V).to(torch.int32)
         parent = idx // V
         is_eos = tok == eos_token_id
@@ -87,7 +88,7 @@ def beam_search(step_fn: Callable[[torch.Tensor, Any, int], tuple],
         all_seq = torch.cat([hyp_seq, _take_rows(seq, parent)], dim=1)
         all_len = torch.cat([hyp_len, torch.full((B, k2), t, dtype=torch.int32, device=dev)],
                             dim=1)
-        hyp_score, top_i = _top_k(all_scores, nb)
+        hyp_score, top_i = top_k(all_scores, nb)
         hyp_seq = _take_rows(all_seq, top_i)
         hyp_len = torch.gather(all_len, 1, top_i)
 

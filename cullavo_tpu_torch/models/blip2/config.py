@@ -5,7 +5,8 @@ frozen dataclasses, fields and defaults, field names as in the HF configs.
 Defaults: BLIP-2 OPT-2.7b (Salesforce/blip2-opt-2.7b): EVA-ViT-g (39
 layers, width 1408), Q-Former (12 layers, width 768, cross-attention every
 2), OPT-2.7b.  ``blip2_flant5xl_config`` is the reference's headline
-checkpoint, Salesforce/blip2-flan-t5-xl.
+checkpoint, Salesforce/blip2-flan-t5-xl; ``instructblip_vicuna7b_config``
+is Salesforce/instructblip-vicuna-7b (the text-input Q-Former and Vicuna-7B).
 """
 from __future__ import annotations
 
@@ -78,7 +79,7 @@ class Blip2Config:
     vision: Blip2VisionConfig = dataclasses.field(default_factory=Blip2VisionConfig)
     qformer: QFormerConfig = dataclasses.field(default_factory=QFormerConfig)
     # OPT (blip2-opt-*), LLaMA/Vicuna (instructblip-vicuna-*) or Flan-T5
-    # (blip2-flan-t5-*); only the T5 tower is ported so far
+    # (blip2-flan-t5-*); the T5 and LLaMA towers are ported
     text: Union[OptConfig, LlamaConfig, T5Config] = dataclasses.field(
         default_factory=OptConfig)
     num_query_tokens: int = 32
@@ -100,6 +101,17 @@ def blip2_flant5xl_config() -> Blip2Config:
     """Salesforce/blip2-flan-t5-xl, the checkpoint the reference evaluates
     (its BLIP2VQAVALPipeline)."""
     return Blip2Config(text=T5Config())
+
+
+def instructblip_vicuna7b_config() -> Blip2Config:
+    """Salesforce/instructblip-vicuna-7b: the instruction-aware Q-Former and
+    the Vicuna-7B (LLaMA) decoder (the reference's InstructBLIPVQAVALPipeline)."""
+    return Blip2Config(
+        qformer=QFormerConfig(use_text_input=True),
+        text=LlamaConfig(vocab_size=32001, hidden_size=4096, intermediate_size=11008,
+                         num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=32,
+                         max_position_embeddings=2048),
+    )
 
 
 def tiny_blip2_config(text: str = "opt") -> Blip2Config:

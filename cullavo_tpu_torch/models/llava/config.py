@@ -87,3 +87,14 @@ def tiny_llava_config(vocab_size: int = 128) -> LlavaConfig:
         image_token_id=vocab_size - 2,
         pad_token_id=vocab_size - 1,
     )
+
+
+def smoke_llava_config() -> LlavaConfig:
+    """The tiny random model of the smoke modes: ``tiny_llava_config(260)``
+    with its two text heads widened to the head dim of 128 that the
+    attention kernels take, so that the same model runs on the card and on
+    the CPU."""
+    cfg = tiny_llava_config(260)
+    text = dataclasses.replace(cfg.text, hidden_size=256, intermediate_size=512,
+                               num_attention_heads=2, num_key_value_heads=2)
+    return dataclasses.replace(cfg, text=text)

@@ -15,15 +15,21 @@ Modes:
   * ``stale_cache`` decode of T >= 1 fresh tokens (T = 1: the classic step;
     T > 1: a speculative-verification window) with a scalar ``cache_index``
     or a per-row int32 ``[B]`` one: attention reads the cache without the
-    fresh tokens and folds their k/v in out of band (K4 / K5 on CUDA
-    tensors, the plain ``sdpa_decode_stale_smajor[_q8]`` on CPU tensors),
+    fresh tokens and folds their k/v in out of band (bf16 and int8 caches:
+    K4 / K5 on CUDA tensors; an f32 cache at T = 1, the VL zoo's Vicuna
+    tower: ``sdpa_decode_stale``, K12 over the layer's S-major slice read
+    in place; the plain ``sdpa_decode_stale_smajor[_q8]`` on CPU tensors),
     and the fresh k/v are then written into the cache IN PLACE (the
-    returned cache is the input tensors).
+    returned cache is the input tensors);
+  * a cached forward without ``stale_cache`` (the prefill of the BLIP-2
+    Vicuna tower, JAX's ``sdpa_smajor`` branch): the T tokens are written at
+    the scalar ``cache_index`` first, then attend the whole cache under the
+    bias of ``key_position_ids`` and the mask, in plain PyTorch (JAX leaves
+    it to XLA).  Over an int8 cache (``sdpa_smajor_q8``) it raises.
 A prefix-reuse suffix prefill is one such window of width T at a scalar
 ``cache_index``; windows wider than the kernels' 64 rows take the plain
-attention on either device.  Cached forwards without ``stale_cache`` (the
-fused ``generate``), sliding windows and multi-stacked adapter sets wait for
-later slices and raise.
+attention on either device.  Sliding windows wait for a later slice and
+raise.
 
 Training: the no-cache forward is differentiable end to end (no in-place
 write on that path), takes a single stack of LoRA adapters (``lora``, with
@@ -174,6 +180,19 @@ def sdpa_decode_stale_smajor(q, k_cache, v_cache, k_cur, v_cur, bias, n_rep=1, s
     return out.to(q.dtype)
 
 
+def sdpa_smajor(q, k_cache, v_cache, bias, n_rep=1, scale=None):
+    """Attention of q [B, H, T, hd] over a whole S-major cache slice
+    ``[S, B, KV, hd]`` (the fresh tokens already written), additive bias
+    [B|1, 1|H, T, S]; f32 scores and softmax, the probabilities rounded to
+    q's dtype for the PV product (JAX's ``sdpa_smajor``)."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    k = k_cache if n_rep == 1 else torch.repeat_interleave(k_cache, n_rep, dim=2)
+    v = v_cache if n_rep == 1 else torch.repeat_interleave(v_cache, n_rep, dim=2)
+    s = torch.einsum("bhqd,sbhd->bhqs", q.float(), k.float()) * scale + bias
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqs,sbhd->bhqd", p.float(), v.float()).to(q.dtype)
+
+
 def quantize_kv(x: torch.Tensor):
     """Symmetric per-vector int8 quantization over the head dim:
     x [..., hd] float -> (int8 [..., hd], bf16 scale [...]).  The codes are
@@ -218,6 +237,40 @@ def sdpa_decode_stale_smajor_q8(q, k_q, k_s, v_q, v_s, k_cur, v_cur, bias,
     else:
         out = out + torch.matmul(e_s / denom, v_cur.float())
     return out.to(q.dtype)
+
+
+def init_llama_params(cfg: LlamaConfig, gen: torch.Generator, device,
+                      dtype=torch.float32) -> dict:
+    """Random decoder parameters in the JAX layout (stacked [L, ...] layer
+    leaves), drawn from ``gen`` on ``device`` in JAX's order: the
+    embedding N(0, 0.02), then q, k, v, o, gate, up, down and (untied) the
+    head, each N(0, 1/fan_in); unit norms."""
+    L, D, I = cfg.num_hidden_layers, cfg.hidden_size, cfg.intermediate_size
+    H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+
+    def n(shape, std):
+        return (torch.randn(shape, generator=gen, device=device) * std).to(dtype)
+
+    def dense(shape):
+        return n(shape, shape[-2] ** -0.5)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    params = {
+        "embed_tokens": n((cfg.vocab_size, D), 0.02),
+        "layers": {
+            "input_ln": ones(L, D),
+            "q": dense((L, D, H * hd)), "k": dense((L, D, KV * hd)),
+            "v": dense((L, D, KV * hd)), "o": dense((L, H * hd, D)),
+            "post_ln": ones(L, D),
+            "gate": dense((L, D, I)), "up": dense((L, D, I)), "down": dense((L, I, D)),
+        },
+        "norm": ones(D),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = dense((D, cfg.vocab_size))
+    return params
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=torch.bfloat16,
@@ -371,6 +424,11 @@ def llama_forward(
     cache carries scale planes.  A per-row ``cache_index`` drops writes that
     fall outside the cache.
 
+    A ``cache`` without ``stale_cache``: each layer writes the T tokens' k/v
+    at the scalar ``cache_index`` in place, then the tokens attend every
+    slot under ``attention_mask`` [B, S] and causality on
+    ``key_position_ids`` (JAX's ``sdpa_smajor`` branch).
+
     ``lora``: runtime LoRA, ``y = x @ w + lora_scaling * ((drop(x) @ a) @ b)``
     per target.  Dropout is on when ``dropout_rng`` is given and
     ``lora_dropout`` > 0: one seed per layer and target is drawn from
@@ -388,9 +446,15 @@ def llama_forward(
         raise NotImplementedError("Mistral sliding-window attention (BakLLaVA) "
                                   "waits for slice 6")
     if cache is not None and not stale_cache:
-        raise NotImplementedError("cached forwards without stale_cache (JAX's sdpa_smajor "
-                                  "path, which no JAX module calls; the fused generate "
-                                  "decodes with stale_cache) are not ported")
+        # the BLIP-2 Vicuna tower's prefill (JAX's blip2_generate and
+        # blip2_beam_generate, reached from entry._eval_vl_zoo with
+        # MODEL.ZOO: instructblip)
+        if "k_s" in cache:
+            raise NotImplementedError("a cached forward without stale_cache over an int8 cache "
+                                      "(JAX's sdpa_smajor_q8) waits for queue 1 item 4 of "
+                                      "ROADMAP.md; no JAX entry reaches it")
+        if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
+            raise ValueError("a per-row cache_index needs stale_cache")
     if stale_cache and cache is None:
         raise ValueError("stale_cache needs a cache")
     if prefill_pad_len is not None and cache is not None:
@@ -431,13 +495,20 @@ def llama_forward(
     if prefill_pad_len is not None:
         new_cache = init_kv_cache(cfg, B, prefill_pad_len, dtype, kv_quant,
                                   device=inputs_embeds.device)
-    elif stale_cache:
+    elif cache is not None:     # written in place, stale or not
         new_cache = cache
     # K4/K5 take windows of 1..WWIN_MAX_W rows, which covers the engine's
     # default suffix buckets; only a suffix bucket configured wider than that
     # takes the plain attention (the JAX package sends wide windows to its
     # XLA branch), and the engine counts those in ``suffix_wide_windows``
     plain_attn = inputs_embeds.device.type == "cpu" or T > WWIN_MAX_W
+    # an f32 cache (the VL zoo's towers run in f32): K12 takes the one-token
+    # step; K4 takes bf16 only, and no path decodes an f32 window
+    f32_step = stale_cache and not kv_q8 and dtype == torch.float32 and not plain_attn
+    if f32_step and T != 1:
+        raise NotImplementedError(f"an f32 stale-cache window of {T} tokens on "
+                                  f"{inputs_embeds.device}: the card decodes f32 one token "
+                                  "at a time (K12); K4 takes bf16")
 
     seeds = None
     if lora and dropout_rng is not None and lora_dropout > 0.0:
@@ -489,10 +560,21 @@ def llama_forward(
                     kr, vr, bias, n_rep=n_rep, win_q8=win_q8)
             for name, new in (("k", kq), ("k_s", ks), ("v", vq), ("v_s", vs)):
                 _write_window(cache[name], li, cache_index, new)
+        elif not stale_cache:
+            # JAX's sdpa_smajor: write the window first, then attend the slice
+            _write_window(cache["k"], li, cache_index, k_sm.to(cache["k"].dtype))
+            _write_window(cache["v"], li, cache_index, v_sm.to(cache["v"].dtype))
+            attn = sdpa_smajor(qh, cache["k"][li].to(dtype), cache["v"][li].to(dtype), bias,
+                               n_rep=n_rep)
         else:
-            # CUDA tensors: K4 reads the stacked cache in place; CPU: plain slice
+            # CUDA tensors: K4 (bf16) reads the stacked cache in place, K12
+            # (f32, T = 1) the layer's [S, B, KV, hd] slice as a [B, KV, S,
+            # hd] view; CPU: plain slice
             kr, vr = repeat_kv(kh, n_rep), repeat_kv(vh, n_rep)
-            if plain_attn:
+            if f32_step:
+                attn = sdpa_decode_stale(qh, cache["k"][li].permute(1, 2, 0, 3),
+                                         cache["v"][li].permute(1, 2, 0, 3), kr, vr, bias)
+            elif plain_attn:
                 attn = sdpa_decode_stale_smajor(
                     qh, cache["k"][li].to(dtype), cache["v"][li].to(dtype), kr, vr, bias,
                     n_rep=n_rep)

@@ -30,7 +30,8 @@ import torch.nn.functional as F
 
 from cullavo_tpu_torch.models.llava.clip_vit import clip_vision_forward, init_clip_vision_params
 from cullavo_tpu_torch.models.llava.config import LlavaConfig
-from cullavo_tpu_torch.models.llava.llama import NEG_INF, llama_forward, lm_logits
+from cullavo_tpu_torch.models.llava.llama import (NEG_INF, init_llama_params, llama_forward,
+                                                  lm_logits)
 
 # ---------------------------------------------------------------------------
 # init
@@ -46,37 +47,16 @@ def init_llava_params(cfg: LlavaConfig, generator: torch.Generator,
     """Random parameters in the JAX layout (stacked [L, ...] layer leaves),
     drawn from ``generator`` on ``device`` (same shapes and scales as the
     JAX initializer; the values differ, as the generators do)."""
-    vc, tc = cfg.vision, cfg.text
-    Dv = vc.hidden_size
-    L, D, I = tc.num_hidden_layers, tc.hidden_size, tc.intermediate_size
-    H, KV, hd = tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim
-
-    def n(shape, std):
-        return _normal(generator, shape, std, dtype, device)
+    Dv, D = cfg.vision.hidden_size, cfg.text.hidden_size
 
     def dense(shape):
-        return n(shape, shape[-2] ** -0.5)
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=device)
+        return _normal(generator, shape, shape[-2] ** -0.5, dtype, device)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
-    vision = init_clip_vision_params(vc, generator, device, dtype)
-    language = {
-        "embed_tokens": n((tc.vocab_size, D), 0.02),
-        "layers": {
-            "input_ln": ones(L, D),
-            "q": dense((L, D, H * hd)), "k": dense((L, D, KV * hd)),
-            "v": dense((L, D, KV * hd)), "o": dense((L, H * hd, D)),
-            "post_ln": ones(L, D),
-            "gate": dense((L, D, I)), "up": dense((L, D, I)), "down": dense((L, I, D)),
-        },
-        "norm": ones(D),
-    }
-    if not tc.tie_word_embeddings:
-        language["lm_head"] = dense((D, tc.vocab_size))
+    vision = init_clip_vision_params(cfg.vision, generator, device, dtype)
+    language = init_llama_params(cfg.text, generator, device, dtype)
     return {
         "vision_tower": vision,
         "projector": {"linear_1": {"kernel": dense((Dv, D)), "bias": zeros(D)},

@@ -2,17 +2,19 @@
 ``cullavo_tpu/pipelines/vl_zoo_pipeline.py``): the reference's BLIP-2,
 InstructBLIP, KOSMOS-2 and BakLLaVA baselines, each a ``ModelSpec`` (prompt
 format, generation settings) run on the VQA harness by
-``VLZooVQAPipeline``.
+``VLZooVQAPipeline``; and the zero-shot ImageNet functions of the BLIP-2
+family (``native_blip2_imagenet_fns``).
 
 The port answers through its native towers: ``native_blip2_answer_fn``
-(Flan-T5 BLIP-2: beam 5, length penalty -1, at most 10 new tokens) and
-``native_kosmos2_answer_fn`` (greedy, the text after the last 'Answer:').
-Without weights they build the JAX package's tiny configs with seeded
-random weights and the byte tokenizer (the checkpoint-free smoke path); a
-caller may pass a config, weights and a tokenizer.  The HF harness (a
-pipeline without an ``answer_fn`` loads the checkpoint with transformers),
-local snapshots (``hf_model_dir``), InstructBLIP and BakLLaVA wait for
-later slices and raise.
+(Flan-T5 BLIP-2, or with ``kind="instructblip"`` InstructBLIP's Vicuna
+tower with the question into the Q-Former: beam 5, length penalty -1, at
+most 10 new tokens) and ``native_kosmos2_answer_fn`` (greedy, the text
+after the last 'Answer:').  Without weights they build the JAX package's
+tiny configs with seeded random weights and the byte tokenizer (the
+checkpoint-free smoke path); a caller may pass a config, weights and a
+tokenizer.  The HF harness (a pipeline without an ``answer_fn`` loads the
+checkpoint with transformers), local snapshots (``hf_model_dir``), the OPT
+tower and BakLLaVA wait for later items and raise.
 """
 from __future__ import annotations
 
@@ -25,8 +27,10 @@ import torch
 
 from cullavo_tpu_torch.data.evaluation.vqa_eval import VQAEvaluator
 from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
-from cullavo_tpu_torch.models.blip2 import (blip2_beam_generate, init_blip2_params,
-                                            tiny_blip2_config)
+from cullavo_tpu_torch.models.blip2 import (Blip2Config, blip2_beam_generate,
+                                            blip2_flant5xl_config, blip2_image_embed,
+                                            blip2_text_embed, init_blip2_params,
+                                            instructblip_vicuna7b_config, tiny_blip2_config)
 from cullavo_tpu_torch.models.kosmos2 import (init_kosmos2_params, kosmos2_generate,
                                               tiny_kosmos2_config)
 from cullavo_tpu_torch.pipelines.base import register_pipeline
@@ -102,43 +106,121 @@ def _decode(tokenizer, toks) -> str:
             else " ".join(map(str, toks)))
 
 
+def _blip2_cfg_cls(kind: str):
+    """kind -> (the published config, its HF class name), shared by the
+    answerer and the ImageNet functions: "flant5", "opt" or "instructblip"."""
+    if kind == "flant5":
+        return blip2_flant5xl_config(), "Blip2ForConditionalGeneration"
+    if kind == "opt":
+        return Blip2Config(), "Blip2ForConditionalGeneration"
+    if kind == "instructblip":
+        return instructblip_vicuna7b_config(), "InstructBlipForConditionalGeneration"
+    raise ValueError(f"unknown BLIP-2 kind {kind!r}: flant5, opt or instructblip")
+
+
+def _snapshot_waits(what: str):
+    return NotImplementedError(f"{what}(hf_model_dir=...): local BLIP-2 snapshots wait for the "
+                               "zoo snapshot item (queue 1 item 2.4 of ROADMAP.md: the Unigram "
+                               "and WordPiece tokenizers)")
+
+
 def native_blip2_answer_fn(model_cfg=None, params=None, tokenizer=None,
                            max_new_tokens: int = 10, num_beams: int = 5,
                            length_penalty: float = -1.0, hf_model_dir: Optional[str] = None,
                            kind: str = "flant5", device=None) -> Callable:
-    """``answer(question, image) -> str`` through the Flan-T5 BLIP-2 tower
-    with the reference's decode (beam 5, length penalty -1, <= 10 tokens).
-    With no ``model_cfg`` the JAX package's tiny T5 config with random
+    """``answer(question, image) -> str`` through a BLIP-2 tower with the
+    reference's decode (beam 5, length penalty -1, <= 10 tokens, eos 1,
+    ids <= 1 dropped).  ``kind="instructblip"``: the prompt '{q} Answer
+    briefly.', which a text-input Q-Former also reads (its ids folded into
+    the Q-Former's vocabulary).  With no ``model_cfg`` the JAX package's
+    tiny config (T5, or for InstructBLIP the "llama_text" one) with random
     weights from seed 0 (values differ from JAX's PRNG) and the byte
     tokenizer drive the whole path; answers are arbitrary strings.
     ``device``: default the weights' device, else the GPU."""
     if hf_model_dir is not None:
-        raise NotImplementedError("native_blip2_answer_fn(hf_model_dir=...): local BLIP-2 "
-                                  "snapshots wait for the zoo snapshot slice (Unigram tokenizer)")
-    if kind != "flant5":
-        raise NotImplementedError(f"native_blip2_answer_fn(kind={kind!r}): only the Flan-T5 "
-                                  "tower is ported; InstructBLIP and BLIP-2 OPT wait for their "
-                                  "slices")
+        raise _snapshot_waits("native_blip2_answer_fn")
+    _blip2_cfg_cls(kind)
+    if kind == "opt":
+        raise NotImplementedError("native_blip2_answer_fn(kind='opt'): the OPT tower waits for "
+                                  "the BLIP-2 OPT item (queue 1 item 2.6 of ROADMAP.md)")
     dev = _resolve_device(device, params)
     if model_cfg is None:
-        model_cfg = tiny_blip2_config("t5")
+        model_cfg = tiny_blip2_config("llama_text" if kind == "instructblip" else "t5")
         params = init_blip2_params(model_cfg, torch.Generator(device=dev).manual_seed(0), dev)
     tokenizer = ByteTokenizer() if tokenizer is None else tokenizer
     vocab = model_cfg.text.vocab_size
+    qf_vocab = model_cfg.qformer.vocab_size
+    use_qf_text = model_cfg.qformer.use_text_input
     side = model_cfg.vision.image_size
-    spec = MODEL_SPECS["blip2"]
+    spec = MODEL_SPECS["instructblip" if kind == "instructblip" else "blip2"]
 
     def answer(question: str, image) -> str:
         text = spec.prompt.format(q=question)
-        ids = _fold_ids(np.asarray(tokenizer.encode(text), np.int64), vocab)
+        raw = np.asarray(tokenizer.encode(text), np.int64)
+        ids = _fold_ids(raw, vocab)
         pix = torch.from_numpy(_fit_image(image, side)[None]).to(dev)
+        kwargs = {}
+        if use_qf_text:
+            # the instruction-aware Q-Former reads the prompt too (the
+            # reference's qformer_tokenizer input)
+            qids = _fold_ids(raw, qf_vocab)
+            kwargs = {"qformer_text_ids": torch.from_numpy(qids[None]).to(dev),
+                      "qformer_text_mask": torch.ones((1, len(qids)), dtype=torch.int64,
+                                                      device=dev)}
         out = blip2_beam_generate(
             params, model_cfg, pix, torch.from_numpy(ids[None]).to(dev),
             torch.ones((1, len(ids)), dtype=torch.int64, device=dev), max_new_tokens,
-            num_beams=num_beams, length_penalty=length_penalty, eos_token_id=1)
+            num_beams=num_beams, length_penalty=length_penalty, eos_token_id=1, **kwargs)
         return _decode(tokenizer, [int(t) for t in out[0].tolist() if int(t) > 1])
 
     return answer
+
+
+def blip2_imagenet_fns(model_cfg: Blip2Config, params: dict, class_names, tokenizer=None):
+    """(image_embed_fn, class_embeds) of the zero-shot ImageNet eval over a
+    built text-input tower: 'This is {class}' through the Q-Former's text
+    branch (byte-tokenizer ids folded into its vocabulary, right-padded),
+    L2-normalised, [C, D_q]; ``image_embed_fn(pixel_values [B, 3, S, S])``
+    the L2-normalised first query state [B, D_q], with its ``image_size``
+    S.  On the weights' device."""
+    tokenizer = ByteTokenizer() if tokenizer is None else tokenizer
+    dev = tree_leaves(params)[0].device
+    qv = model_cfg.qformer.vocab_size
+    rows = [_fold_ids(np.asarray(tokenizer.encode(f"This is {c}"), np.int64), qv)
+            for c in class_names]
+    W = max(len(r) for r in rows)
+    ids = np.zeros((len(rows), W), np.int64)
+    mask = np.zeros((len(rows), W), np.int64)
+    for i, r in enumerate(rows):
+        ids[i, :len(r)] = r
+        mask[i, :len(r)] = 1
+    with torch.inference_mode():
+        class_embeds = blip2_text_embed(params, model_cfg, torch.from_numpy(ids).to(dev),
+                                        torch.from_numpy(mask).to(dev))
+
+    def image_embed_fn(pixel_values):
+        with torch.inference_mode():
+            return blip2_image_embed(params, model_cfg, pixel_values)
+
+    image_embed_fn.image_size = model_cfg.vision.image_size
+    return image_embed_fn, class_embeds
+
+
+def native_blip2_imagenet_fns(hf_model_dir: Optional[str] = None, class_names=(),
+                              kind: str = "flant5", device=None):
+    """(image_embed_fn, class_embeds) for ``ImageNetPipeline``, the
+    checkpoint-free form of the reference's BLIP2 / InstructBLIP ImageNet
+    pipelines: the tiny "llama_text" config (the tiny config with
+    text-input Q-Former weights) with random weights from seed 0 and the
+    byte tokenizer, through ``blip2_imagenet_fns``.  ``device``: default
+    the GPU."""
+    if hf_model_dir is not None:
+        raise _snapshot_waits("native_blip2_imagenet_fns")
+    _blip2_cfg_cls(kind)
+    dev = _resolve_device(device, None)
+    cfg = tiny_blip2_config("llama_text")
+    params = init_blip2_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    return blip2_imagenet_fns(cfg, params, list(class_names))
 
 
 def native_kosmos2_answer_fn(model_cfg=None, params=None, tokenizer=None,
@@ -151,7 +233,8 @@ def native_kosmos2_answer_fn(model_cfg=None, params=None, tokenizer=None,
     byte tokenizer (smoke mode)."""
     if hf_model_dir is not None:
         raise NotImplementedError("native_kosmos2_answer_fn(hf_model_dir=...): local KOSMOS-2 "
-                                  "snapshots wait for the zoo snapshot slice (Unigram tokenizer)")
+                                  "snapshots wait for the zoo snapshot item (queue 1 item 2.4 "
+                                  "of ROADMAP.md: the Unigram tokenizer)")
     dev = _resolve_device(device, params)
     if model_cfg is None:
         model_cfg = tiny_kosmos2_config()

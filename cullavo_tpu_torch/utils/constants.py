@@ -1,7 +1,9 @@
 """Dataset class-name constants and CLIP prompt templates (the port's own
 copy of what it needs from ``cullavo_tpu/utils/constants.py``): the label
 sets of the X-Decoder's eval datasets (COCO panoptic, ADE20K 150 and 847,
-ImageNet-1k, Cityscapes, BDD, ScanNet, SUN-RGBD, Pascal VOC), the
+ImageNet-1k, Cityscapes, BDD, ScanNet, SUN-RGBD, Pascal VOC), ImageNet's
+1000 synset folder names (the folder scan's label order), COCO's 91
+semantic names (the topic classifier's default classes), the
 prompt-template ensemble of its eval-time class embeddings, the
 one-template sampler of its training and ``class_names_for``, a dataset
 name's label set by name fragment.  Public dataset metadata, stored as JSON
@@ -16,8 +18,9 @@ import random
 _ASSET = os.path.join(os.path.dirname(__file__), "assets", "class_names.json")
 
 _NAMES = ("ADE20K_847", "ADE_PANOPTIC_CLASSES", "BDD_PANO", "BDD_SEM", "CITYSCAPES",
-          "COCO_PANOPTIC_CLASSES", "IMAGENET_CLASSES", "PASCAL_CLASSES", "SCAN_20", "SCAN_37",
-          "SCAN_40", "SUN_RGBD_37")
+          "COCO_PANOPTIC_CLASSES", "COCO_SEMANTIC_CLASSES", "IMAGENET_CLASSES",
+          "IMAGENET_FOLDER_NAMES", "PASCAL_CLASSES", "SCAN_20", "SCAN_37", "SCAN_40",
+          "SUN_RGBD_37")
 
 __all__ = list(_NAMES) + ["get_prompt_templates", "prompt_engineering", "class_names_for",
                           "class_names_by_key", "class_names_key_for"]

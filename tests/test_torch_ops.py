@@ -194,8 +194,9 @@ def test_out_of_slice_modes_raise():
     with pytest.raises(NotImplementedError, match="later slice"):
         tnf4.int8_linear(torch.zeros(2, 4), {"q8t": q["q8"].T, "scale8": q["scale8"]})
     # the decoder: speculative windows, the int8 cache, per-row write
-    # positions and prefix-reuse windows run now; the cached forward of the
-    # fused generate, sliding windows and sampling wait
+    # positions, prefix-reuse windows and the cached forward without
+    # stale_cache run now; that forward over an int8 cache, sliding windows
+    # and sampling without a generator raise
     import dataclasses
 
     from cullavo_tpu_torch.models.llava import llama as tllama
@@ -206,8 +207,8 @@ def test_out_of_slice_modes_raise():
     params = tmod.init_llava_params(cfg, torch.Generator().manual_seed(0), "cpu")
     lm, tc = params["language_model"], cfg.text
     emb, pos = torch.ones(1, 2, tc.hidden_size), torch.arange(2)[None]
-    cache = tllama.init_kv_cache(tc, 1, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="fused generate"):
+    cache = tllama.init_kv_cache(tc, 1, 8, torch.float32, "int8")
+    with pytest.raises(NotImplementedError, match="sdpa_smajor_q8"):
         tllama.llama_forward(lm, tc, emb, torch.ones(1, 8), pos, cache, 0)
     with pytest.raises(NotImplementedError, match="sliding-window"):
         tllama.llama_forward(lm, dataclasses.replace(tc, sliding_window=4), emb,

@@ -111,6 +111,7 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.data.vlp_datasets",
     "cullavo_tpu_torch.models.xdecoder.davit",
     "cullavo_tpu_torch.pipelines.vlp_pipeline",
+    "cullavo_tpu_torch.pipelines.imagenet_pipeline",
 )
 
 
@@ -645,6 +646,39 @@ def test_p32_wrapper_takes_the_plain_version_only_for_cpu_tensors():
 # scheduler into a 500 / 503; the scheduler thread keeps its error for the
 # waiters and re-raises; ``_serve_http`` stops the runner and closes the
 # socket on SIGINT.  No try wraps an engine step that carries on, or a launch.
+def test_the_raises_that_remain_name_their_items():
+    """What the port still refuses on the VL zoo's paths names its item of
+    ROADMAP.md's queue 1: the zoo snapshots (2.4), BakLLaVA (2.5), the OPT
+    tower (2.6) and the cached forward without stale_cache over an int8
+    cache (4)."""
+    from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.models.blip2 import config as bcfg
+    from cullavo_tpu_torch.models.blip2 import modeling as bmod
+    from cullavo_tpu_torch.models.llava import llama
+    from cullavo_tpu_torch.pipelines import vl_zoo_pipeline as zoo
+
+    for model, item in (({"ZOO": "kosmos2", "ZOO_PATH": "/x"}, "ZOO_PATH.*item 2.4"),
+                        ({"ZOO": "bakllava"}, "bakllava.*item 2.5")):
+        with pytest.raises(NotImplementedError, match=item):
+            entry.evaluate({"NAME": "vl_test", "MODEL": model}, device="cpu")
+    for fn in (lambda: zoo.native_blip2_imagenet_fns(hf_model_dir="/x", device="cpu"),
+               lambda: zoo.native_blip2_answer_fn(hf_model_dir="/x", device="cpu")):
+        with pytest.raises(NotImplementedError, match="item 2.4"):
+            fn()
+    opt = bcfg.tiny_blip2_config("opt")
+    for fn in (lambda: bmod.init_blip2_params(opt, torch.Generator(), "cpu"),
+               lambda: bmod.blip2_beam_generate(None, opt, None, None, None, 2),
+               lambda: zoo.native_blip2_answer_fn(kind="opt", device="cpu")):
+        with pytest.raises(NotImplementedError, match="OPT.*item 2.6"):
+            fn()
+    tc = bcfg.tiny_blip2_config("llama_text").text
+    lm = llama.init_llama_params(tc, torch.Generator().manual_seed(0), "cpu")
+    cache = llama.init_kv_cache(tc, 1, 4, kv_quant="int8")
+    with pytest.raises(NotImplementedError, match="sdpa_smajor_q8.*item 4"):
+        llama.llama_forward(lm, tc, torch.zeros(1, 2, tc.hidden_size), torch.ones(1, 4),
+                            torch.arange(2)[None], cache, 0)
+
+
 ALLOWED_TRY = sorted([
     ("serving/server.py", "_Handler.do_POST", ("ValueError", "json.JSONDecodeError"), False),
     ("serving/server.py", "_Handler.do_POST", ("KeyError", "SchedulerFailed", "ValueError"),
@@ -1547,6 +1581,82 @@ def test_cuda_decode_partials_match_plain(cuda_device, dtype, B, H, KV, S, d, st
         assert torch.allclose(o, ro, atol=tol[0], rtol=tol[1]), (o - ro).abs().max().item()
         assert torch.allclose(m, rm, atol=1e-4, rtol=1e-5)
         assert torch.allclose(l, rl, atol=0, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,S,d", [(5, 32, 32, 88, 128), (5, 8, 2, 37, 64),
+                                        (2, 4, 4, 11, 16)])
+def test_cuda_decode_partials_read_an_smajor_f32_slice(cuda_device, B, H, KV, S, d):
+    """K12 over one layer of the S-major cache ``[L, S, B, KV, d]`` through
+    the ``[B, KV, S, d]`` view ``permute(1, 2, 0, 3)`` (strides ``(KV d, d,
+    B KV d, 1)``, read in place) with the stale decode's ``[B, 1, S]`` bias
+    (expanded over heads with stride 0): equal to the plain version on
+    contiguous copies within 1e-5 + 1e-5 |ref|, one launch."""
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda_device).manual_seed(S + d)
+    k_all, v_all = (torch.randn((3, S, B, KV, d), generator=g, device=cuda_device)
+                    for _ in range(2))
+    k, v = k_all[1].permute(1, 2, 0, 3), v_all[1].permute(1, 2, 0, 3)
+    assert k.stride() == (KV * d, d, B * KV * d, 1)
+    q = torch.randn((B, H, 1, d), generator=g, device=cuda_device)
+    valid = torch.rand((B, 1, S), generator=g, device=cuda_device) > 0.2
+    bias = torch.where(valid, 0.0, -1e9)
+    n0 = fa.decode_partials.launches
+    o, m, l = fa.decode_partials(q, k, v, bias, d ** -0.5)
+    assert fa.decode_partials.launches == n0 + 1
+    ro, rm, rl = fa._decode_partials_plain(q, k.contiguous(), v.contiguous(),
+                                           bias.expand(B, H, S), d ** -0.5)
+    assert torch.allclose(o, ro, atol=1e-5, rtol=1e-5), (o - ro).abs().max().item()
+    assert torch.allclose(m, rm, atol=1e-4, rtol=1e-5)
+    assert torch.allclose(l, rl, atol=0, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_stale_decode_takes_k12(cuda_device):
+    """``llama_forward``'s one-token stale decode over an f32 cache on the
+    card (the zoo's Vicuna tower): K12 once a layer over the layer's
+    S-major slice, the current token merged in f32; the hidden states and
+    the written slot against the CPU's plain path within 1e-4 (TF32 off).
+    A bf16 cache keeps K4; an f32 window of two tokens on the card raises."""
+    from cullavo_tpu_torch.models.llava import llama
+    from cullavo_tpu_torch.models.llava.config import LlamaConfig
+    from cullavo_tpu_torch.ops import flash_attention as fa
+    from cullavo_tpu_torch.ops import wwin_decode as ww
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig(vocab_size=64, hidden_size=256, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=2)
+    lm = llama.init_llama_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    B, S, n = 5, 24, 10
+    g = torch.Generator().manual_seed(1)
+    cache = {k: torch.randn((2, S, B, 2, 128), generator=g) for k in "kv"}
+    mask = torch.zeros((B, S), dtype=torch.int64)
+    mask[:, :n] = 1
+    key_pos = torch.arange(S)[None].expand(B, S).contiguous()
+    emb = torch.randn((B, 1, 256), generator=g)
+    pos = torch.full((B, 1), n)
+
+    def run(dev, dtype, T=1):
+        p = {k: (v.to(dev, dtype) if torch.is_tensor(v) else
+                 {a: b.to(dev, dtype) for a, b in v.items()}) for k, v in lm.items()}
+        c = {k: a.to(dev, dtype) for k, a in cache.items()}
+        e = torch.cat([emb] * T, 1).to(dev, dtype)
+        h, c = llama.llama_forward(p, cfg, e, mask.to(dev), (pos + torch.arange(T)).to(dev),
+                                   c, n, key_pos.to(dev), stale_cache=True)
+        return h, c
+
+    want, wc = run("cpu", torch.float32)
+    n0, w0 = fa.decode_partials.launches, ww.wwin_decode_smajor.launches
+    got, gc = run(cuda_device, torch.float32)
+    assert fa.decode_partials.launches == n0 + 2 and ww.wwin_decode_smajor.launches == w0
+    assert torch.allclose(got.cpu(), want, atol=1e-4, rtol=1e-4), (got.cpu() - want).abs().max()
+    for k in "kv":
+        assert torch.allclose(gc[k].cpu(), wc[k], atol=1e-5, rtol=1e-5)
+    run(cuda_device, torch.bfloat16)
+    assert fa.decode_partials.launches == n0 + 2 and ww.wwin_decode_smajor.launches == w0 + 2
+    with pytest.raises(NotImplementedError, match="f32 stale-cache window"):
+        run(cuda_device, torch.float32, T=2)
 
 
 @pytest.mark.cuda

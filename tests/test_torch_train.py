@@ -606,14 +606,14 @@ def test_data_copies_match_the_originals():
 
 def test_pipeline_builds_state_and_batches_and_trains(models, tmp_path):
     _, tcfg, jp, _, _ = models
-    # the X-Decoder's, the VLP eval's, the VQA eval's and the VL zoo's pipelines
-    # register when their module is imported (by entry, or by another test file
-    # in this worker)
+    # the X-Decoder's, the VLP eval's, the VQA eval's, the VL zoo's and the
+    # ImageNet eval's pipelines register when their module is imported (by
+    # entry, or by another test file in this worker)
     assert "CuLLaVOPipeline" in list_pipelines()
     assert set(list_pipelines()) <= {"CuLLaVOPipeline", "XDecoderPipeline", "RefCOCOPipeline",
                                      "VLPRetrievalPipeline", "COCOCaptionXDecPipeline",
                                      "LLaVAVQAVALPipeline", "LLaVAVQATESTPipeline",
-                                     "VLZooVQAPipeline"}
+                                     "VLZooVQAPipeline", "LLaVAImageNetPipeline"}
     with pytest.raises(KeyError, match="not registered"):
         build_pipeline("NoSuchPipeline", {})
     tp = bridge.llava_params_from_numpy(_np(jp), "cpu")

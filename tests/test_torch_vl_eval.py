@@ -411,16 +411,19 @@ def test_bits4_quantizes_the_tiny_snapshot_as_jax(snapshot):
 
 
 def test_evaluate_vl_test_keeps_raising_for_the_zoo_and_topics():
-    """The zoo towers still to port (BLIP-2 and KOSMOS-2 run: tests/
-    test_torch_zoo.py, test_torch_kosmos2.py) and the topic classifier."""
-    for model, match in (({"ZOO": "bakllava"}, "BakLLaVA slice"),
-                         ({"ZOO": "instructblip"}, "InstructBLIP slice"),
-                         ({"TOPIC": "tiny"}, "VL-zoo")):
+    """The zoo tower and snapshots still to port (BLIP-2, InstructBLIP and
+    KOSMOS-2 run: tests/test_torch_zoo.py, test_torch_instructblip.py,
+    test_torch_kosmos2.py), and a topic classifier the entry does not know
+    (``tiny`` and snapshots run: tests/test_torch_topic.py)."""
+    for model, match in (({"ZOO": "bakllava"}, "BakLLaVA item"),
+                         ({"ZOO": "instructblip", "ZOO_PATH": "/x"}, "WordPiece")):
         with pytest.raises(NotImplementedError, match=match):
             t_entry.evaluate({"NAME": "vl_test", "MODEL": model}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ImageNet"):
+    with pytest.raises(ValueError, match="MODEL.TOPIC"):
+        t_entry.evaluate({"NAME": "vl_test", "MODEL": {"TOPIC": "small"}}, device="cpu")
+    with pytest.raises(ValueError, match="ROOT"):
         t_entry.evaluate({"NAME": "vl_test", "DATASETS": {"REGISTER": {
-            "x": {"KIND": "imagenet", "ROOT": "i"}}}}, device="cpu")
+            "x": {"KIND": "imagenet"}}}}, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -499,10 +499,9 @@ def test_entry_evaluate_on_cpu():
         tentry.evaluate({**cfg, "MODEL": {"TINY": True, "TEXT": {"TOKENIZER": "/x"}}},
                         device="cpu")
     assert tentry.evaluate({"NAME": "vl_test"}, device="cpu") == {}   # no DATASETS.TEST
-    # step2_pre runs (no DATASETS.TEST: no rows, as in JAX); ImageNet waits for its slice
+    # step2_pre and ImageNet run (no DATASETS.TEST: no rows, no datasets, as in JAX)
     assert tentry.evaluate({"NAME": "cullavo_step2_pre"}, device="cpu") == {"rows": 0}
-    with pytest.raises(NotImplementedError):
-        tentry.evaluate({"NAME": "imagenet_test"}, device="cpu")
+    assert tentry.evaluate({"NAME": "imagenet_test"}, device="cpu") == {}
     with pytest.raises(SystemExit):
         tentry.evaluate({"NAME": "nothing"}, device="cpu")
     if not torch.cuda.is_available():

@@ -526,7 +526,7 @@ def test_entry_eval_refusals(tiny, data_root, tmp_path):
                           {"evaluator_type": "retrieval"})
     with pytest.raises(ValueError, match="vlp_val: no image loader"):
         tentry.evaluate({**cfg, "DATASETS": {"TEST": ["vlp_val"]}}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ImageNet"):
+    with pytest.raises(ValueError, match="imagenet kind needs ROOT"):
         tentry.register_datasets_from_cfg({"DATASETS": {"REGISTER": {"i": {"KIND": "imagenet"}}}})
     with pytest.raises(ValueError, match="DTYPE"):
         tentry._load_xdecoder_params({"DTYPE": "float16"}, tiny.tcfg, torch.device("cpu"))
