@@ -1,7 +1,9 @@
 """Builds and loads the port's CUDA kernels (``csrc/*.cu``).
 
 All sources compile with ``nvcc`` (one compiler process per source, all
-started together) and link into ONE shared library with a plain C
+started together; ``SPLIT`` compiles a source with many template
+instantiations as several parts, each with a ``-D`` that selects its share)
+and link into ONE shared library with a plain C
 interface, loaded with ``ctypes`` (no PyTorch headers: a source that
 includes them takes minutes to compile, a plain-C one seconds).  The
 library lands in ``cullavo_tpu_torch/_build/`` under a name keyed by a hash
@@ -28,6 +30,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# source -> (its part macro, parts): nf4_gemv_sm90.cu's four formats (K6,
+# K11, K14, K3: 37 instantiations) are four compilers side by side
+SPLIT = {"nf4_gemv_sm90.cu": ("NF4_GEMV_PART", 4)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -91,7 +97,7 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(sorted(SPLIT.items()))).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -103,10 +109,13 @@ def lib() -> ctypes.CDLL:
         t0 = time.time()
         jobs = []
         for src in sorted(CSRC.glob("*.cu")):
-            obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
-            jobs.append((obj, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            macro, n = SPLIT.get(src.name, (None, 1))
+            for k in range(n):
+                obj = BUILD_DIR / f"{src.stem}.{k}.{os.getpid()}.o"
+                part = [f"-D{macro}={k}"] if macro else []
+                jobs.append((obj, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, *part, "-c", "-o", str(obj), str(src)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         logs = [(obj, proc, proc.communicate()[1]) for obj, proc in jobs]
         failed = [f"{obj.name} ({proc.returncode}):\n{err}"
                   for obj, proc, err in logs if proc.returncode != 0]

@@ -143,6 +143,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// NF4_GEMV_PART = 0..3 compiles one format's entry point (K6, K11, K14, K3)
+// and only its instantiations, so that the build runs four compilers side by
+// side (_build.py); unset, all four
+#ifdef NF4_GEMV_PART
+#define NF4_PART(k) (NF4_GEMV_PART == (k))
+#else
+#define NF4_PART(k) 1
+#endif
+
 namespace {
 
 constexpr int kPlanar = 0, kBytes = 1, kInt8 = 2, kP32 = 3;
@@ -1129,6 +1138,7 @@ int dispatch(const void* x, const void* wq, const void* scale, void* out, void* 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+#if NF4_PART(3)
 // K3: one or two 64-column blocks a CTA at every token tile (a 64 x 256 f32
 // accumulator per thread of a warpgroup leaves room for at most two
 // warpgroups; at decode M two measured at least as fast as four)
@@ -1171,6 +1181,7 @@ __global__ void int8_linear_prep(const __nv_bfloat16* __restrict__ x,
   }
   reinterpret_cast<uint4*>(xs)[i] = o;
 }
+#endif
 
 }  // namespace
 
@@ -1183,30 +1194,36 @@ __global__ void int8_linear_prep(const __nv_bfloat16* __restrict__ x,
 // gives them; for S > 1 (a grid of at most one CTA per SM), ws: f32
 // workspace of S * ceil(N / 64G) * ceil(M / nt) * 64 G nt, ctr: two int32
 // per (column, token) tile, zero (the kernel leaves them zero).
+#if NF4_PART(0)
 extern "C" int cullavo_nf4_gemv_planar(const void* x, const void* words, const void* scale,
                                        void* out, void* ws, void* ctr, int M, int K, int N,
                                        int xp, int nt, int G, int S, void* stream) {
   return dispatch<kPlanar>(x, words, scale, out, ws, ctr, M, K, N, xp, nt, G, S, stream);
 }
+#endif
 
 // K11: x bf16 [M, K] (16-byte aligned); q4 uint8 [K, N/2]; scale f32
 // [K, N/64]; out bf16 [M, N]; the same conditions, plan and scratch.
+#if NF4_PART(1)
 extern "C" int cullavo_nf4_gemv_q4(const void* x, const void* q4, const void* scale, void* out,
                                    void* ws, void* ctr, int M, int K, int N, int nt, int G, int S,
                                    void* stream) {
   return dispatch<kBytes>(x, q4, scale, out, ws, ctr, M, K, N, 0, nt, G, S, stream);
 }
+#endif
 
 // K14: x bf16 [M, K] (16-byte aligned); w32 int32 [K/4, N] (16-byte
 // aligned), byte j of word (kk, n) the int8 weight of k = j K/4 + kk; scale
 // f32 [N]; out bf16 [M, N].  K % 8 == 0, N % 4 == 0.  (nt, G, S) as
 // p32_gemv_plan gives them (nt 16, 32 or 64; G 1, 2 or 4); ws and ctr as for
 // K6.
+#if NF4_PART(2)
 extern "C" int cullavo_p32_linear(const void* x, const void* w32, const void* scale, void* out,
                                   void* ws, void* ctr, int M, int K, int N, int nt, int G, int S,
                                   void* stream) {
   return dispatch<kP32>(x, w32, scale, out, ws, ctr, M, K, N, 0, nt, G, S, stream);
 }
+#endif
 
 // K3: x bf16 [M, K] (16-byte aligned); sq_inv bf16 [K] or null (16-byte
 // aligned); q8 int8 [K, N] (16-byte aligned); scale8 f32 [N]; xs: bf16 [M, K]
@@ -1214,6 +1231,7 @@ extern "C" int cullavo_p32_linear(const void* x, const void* w32, const void* sc
 // bf16 [M, N].  K % 8 == 0 (x's rows are a tensor map's 16-byte strides),
 // N % 16 == 0.  (nt, G, S) as int8_gemv_plan gives them (nt up to 256, G 1
 // or 2); ws and ctr as for K6.
+#if NF4_PART(3)
 extern "C" int cullavo_int8_linear(const void* x, const void* sq_inv, const void* q8,
                                    const void* scale8, void* xs, void* out, void* ws, void* ctr,
                                    int M, int K, int N, int nt, int G, int S, void* stream) {
@@ -1235,3 +1253,4 @@ extern "C" int cullavo_int8_linear(const void* x, const void* sq_inv, const void
   return dispatch_int8(xin, q8, scale8, out, ws, ctr, M, K, N, nt, G, S,
                        static_cast<cudaStream_t>(stream));
 }
+#endif

@@ -143,6 +143,7 @@ class HFTokenizer:
         self.eos_token_id = token_id("eos_token", "</s>")
         pad = token_id("pad_token", None)
         self.pad_token_id = pad or self.eos_token_id
+        self.config_pad_token_id = pad     # the config's own pad token (None: none)
         self.add_bos = bool(config.get("add_bos_token", True))
         self.add_eos = bool(config.get("add_eos_token", False))
         if (self.add_bos and self.bos_token_id is None) or (self.add_eos and self.eos_token_id is None):

@@ -13,10 +13,12 @@ or one smoke step on synthetic records); and ``evaluate`` for the VL eval
 (``vl_test``: LLaVA from a local HF snapshot or the smoke model, with the
 question-topic classifier of ``MODEL.TOPIC`` (``tiny``, or
 ``{LLAMA_PATH, CLIP_PATH}`` snapshots), or a zoo tower, BLIP-2 Flan-T5,
-InstructBLIP or KOSMOS-2, with tiny random weights, over registered VQA
-datasets), the zero-shot ImageNet eval (``imagenet_test``: the BLIP-2
-family's Q-Former text and image embeddings, tiny random weights, over
-registered ``imagenet`` class folders), the step2_pre data generation
+InstructBLIP, KOSMOS-2 or BakLLaVA, from a local HF snapshot
+(``MODEL.ZOO_PATH``) or, but for BakLLaVA, with tiny random weights, over
+registered VQA datasets), the zero-shot ImageNet eval (``imagenet_test``:
+the BLIP-2 family's Q-Former text and image embeddings, from an
+InstructBLIP snapshot or tiny random weights, over registered ``imagenet``
+class folders), the step2_pre data generation
 (``cullavo_step2_pre``: sampled captions with boxes over a registered
 ``conversations`` dataset) and the X-Decoder workloads: joint training
 (``train`` with an "xdecoder" ``NAME``, over registered
@@ -90,6 +92,7 @@ from cullavo_tpu_torch.pipelines.base import build_pipeline
 from cullavo_tpu_torch.pipelines.imagenet_pipeline import ImageNetPipeline
 from cullavo_tpu_torch.pipelines.xdecoder_pipeline import EvalTasks, tasks_for_dataset
 from cullavo_tpu_torch.pipelines.vl_zoo_pipeline import (MODEL_SPECS, VLZooVQAPipeline,
+                                                         native_bakllava_answer_fn,
                                                          native_blip2_answer_fn,
                                                          native_blip2_imagenet_fns,
                                                          native_kosmos2_answer_fn)
@@ -722,45 +725,64 @@ def _eval_vl(cfg: dict, device) -> dict:
 
 
 def _eval_vl_zoo(cfg: dict, zoo: str, device) -> dict:
-    """vl_test with a zoo tower (``MODEL.ZOO``): the native answerer with
-    the tiny config and seeded random weights (the JAX entry's
-    checkpoint-free path) through ``VLZooVQAPipeline`` over each
-    ``DATASETS.TEST`` entry, ``MAX_NEW_TOKENS`` (10), ``LIMIT`` and
-    ``SAVE_DIR``.  BLIP-2 (Flan-T5), InstructBLIP and KOSMOS-2 run;
-    ``ZOO_PATH``, ``ZOO_TORCH`` and BakLLaVA raise."""
+    """vl_test with a zoo tower (``MODEL.ZOO``) through ``VLZooVQAPipeline``
+    over each ``DATASETS.TEST`` entry, ``MAX_NEW_TOKENS`` (10), ``LIMIT`` and
+    ``SAVE_DIR``.  With ``MODEL.ZOO_PATH`` (a local HF snapshot) the native
+    answerer of the snapshot's kind, as JAX's entry dispatches them: BLIP-2
+    Flan-T5, InstructBLIP, KOSMOS-2 or BakLLaVA; each row's image goes to
+    the answerer as decoded (the reference hands the processor the image; the
+    JAX entry's mapper CLIP-preprocesses it first, and its answerers then
+    preprocess those pixels as an image again).  Without a snapshot the
+    tiny config with seeded random weights (JAX's checkpoint-free path) for
+    BLIP-2, InstructBLIP and KOSMOS-2; BakLLaVA needs a snapshot.
+    ``ZOO_TORCH`` raises."""
     model = cfg.get("MODEL") or {}
     if zoo not in MODEL_SPECS:
         raise SystemExit(f"unknown MODEL.ZOO {zoo!r}; one of {sorted(MODEL_SPECS)}")
-    if model.get("ZOO_PATH"):
-        raise NotImplementedError("MODEL.ZOO_PATH (a local HF snapshot of a zoo model) waits for "
-                                  "the zoo snapshot item (queue 1 item 2.4 of ROADMAP.md): its "
-                                  "Unigram and WordPiece tokenizers")
     if model.get("ZOO_TORCH"):
         raise NotImplementedError("MODEL.ZOO_TORCH (the transformers harness) has no counterpart: "
                                   "the port answers through its native towers")
-    if zoo == "bakllava":
-        raise NotImplementedError("MODEL.ZOO: bakllava (Mistral's sliding-window attention) "
-                                  "waits for the BakLLaVA item (queue 1 item 2.5 of ROADMAP.md)")
+    zoo_path = model.get("ZOO_PATH")
     mnt = int(cfg.get("MAX_NEW_TOKENS", 10))
-    if zoo in ("blip2", "instructblip"):
+    img_size = None
+    if zoo_path:
+        if zoo in ("blip2", "instructblip"):
+            answer_fn = native_blip2_answer_fn(hf_model_dir=zoo_path, max_new_tokens=mnt,
+                                               kind="flant5" if zoo == "blip2"
+                                               else "instructblip", device=device)
+        elif zoo == "kosmos2":
+            answer_fn = native_kosmos2_answer_fn(hf_model_dir=zoo_path, max_new_tokens=mnt,
+                                                 device=device)
+        else:
+            answer_fn = native_bakllava_answer_fn(zoo_path, max_new_tokens=mnt, device=device)
+    elif zoo in ("blip2", "instructblip"):
         answer_fn = native_blip2_answer_fn(max_new_tokens=mnt, device=device,
                                            kind="instructblip" if zoo == "instructblip"
                                            else "flant5")
         # both smoke towers read JAX's T5 image size (the tiny configs share it)
         img_size = tiny_blip2_config("t5").vision.image_size
-    else:
+    elif zoo == "kosmos2":
         answer_fn = native_kosmos2_answer_fn(max_new_tokens=mnt, device=device)
         img_size = tiny_kosmos2_config().vision.image_size
-    pipe = VLZooVQAPipeline(cfg, zoo, answer_fn=answer_fn)
+    else:
+        raise SystemExit(f"MODEL.ZOO: {zoo} needs MODEL.ZOO_PATH (local HF snapshot) — "
+                         "blip2/instructblip/kosmos2 have checkpoint-free native smoke answerers")
+    pipe = VLZooVQAPipeline(cfg, zoo, model_path=zoo_path, answer_fn=answer_fn)
     limit = int(cfg.get("LIMIT", 0)) or None
     mapper = VQAEvalMapper(image_size=img_size)
     out_dir = cfg.get("SAVE_DIR")
     results = {}
     for name in _dataset_names(cfg):
-        def rows():
+        def rows(name=name):
             for rec in get_dataset(name):
-                m = mapper(rec)
-                m["image"] = m.pop("pixel_values")
+                if zoo_path:
+                    image = rec.get("image")
+                    m = {k: rec.get(k) for k in ("question_id", "question", "answers",
+                                                 "question_type", "answer_type")}
+                    m["image"] = load_image_file(rec["file_name"]) if image is None else image
+                else:
+                    m = mapper(rec)
+                    m["image"] = m.pop("pixel_values")
                 yield m
         results[name] = pipe.evaluate_model(rows(), limit=limit)
         if out_dir:
@@ -773,10 +795,10 @@ def _eval_imagenet(cfg: dict, device) -> dict:
     """imagenet_test: zero-shot classification over each ``DATASETS.TEST``
     class-folder dataset (``LIMIT``, ``BATCH_SIZE`` (64), ``SAVE_DIR``):
     ``native_blip2_imagenet_fns`` ('This is {class}' through the text-input
-    Q-Former against the pooled image queries, tiny random weights; an
-    image through the port's PNG reader, other formats through PIL, then
-    CLIP preprocessing at the tower's size) into ``ImageNetPipeline``.
-    ``MODEL.ZOO_PATH`` raises (its item)."""
+    Q-Former against the pooled image queries: tiny random weights, or
+    ``MODEL.ZOO_PATH``'s InstructBLIP snapshot; an image through the port's
+    PNG reader, other formats through PIL, then CLIP preprocessing at the
+    tower's size) into ``ImageNetPipeline``."""
     model = cfg.get("MODEL") or {}
     zoo = model.get("ZOO", "blip2")
     limit = int(cfg.get("LIMIT", 0)) or None

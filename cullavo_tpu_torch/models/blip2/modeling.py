@@ -9,9 +9,9 @@ decoder-only towers prefill once per row (a cached forward at slot 0,
 future slots masked) and decode one token a step with ``stale_cache``
 (on the card in f32: K12 over each layer's slice).  The zero-shot ImageNet
 branches are ``blip2_image_embed`` and ``blip2_text_embed``.  The OPT tower
-(``blip2-opt-*``) raises and names the item it waits for;
-``import_blip2_torch`` (which takes a transformers model) has no
-counterpart: the snapshot path comes with a later slice.
+(``blip2-opt-*``) raises and names the item it waits for.  A snapshot's
+weights come through ``checkpoint/zoo_import.py`` (JAX's
+``import_blip2_torch`` takes a transformers model).
 """
 from __future__ import annotations
 

@@ -1,9 +1,12 @@
 """BLIP-2 vision tower, EVA-ViT-g as HF's Blip2 ships it (counterpart of
 ``cullavo_tpu/models/blip2/vision.py``): the patchify "conv" as reshape +
 matmul, a class embedding, a learned position table over 1 + patches,
-pre-norm blocks with a fused bias-free QKV projection and exact GELU, a
-post-LayerNorm.  Stacked ``[L, ...]`` layer leaves; attention is a plain
-matmul + f32 softmax, as JAX leaves it to XLA.
+pre-norm blocks with a fused QKV projection and exact GELU, a
+post-LayerNorm.  The random initializer has JAX's tree (no patch or QKV
+bias); a snapshot's import (``checkpoint/zoo_import.py``) adds the
+checkpoint's ``patch_b`` and ``layers.qkv_b``, which the forward adds.
+Stacked ``[L, ...]`` layer leaves; attention is a plain matmul + f32
+softmax, as JAX leaves it to XLA.
 """
 from __future__ import annotations
 
@@ -60,6 +63,8 @@ def blip2_vision_forward(params: dict, cfg: Blip2VisionConfig, pixel_values: tor
     x = pixel_values.to(dtype).reshape(B, 3, n, P, n, P)
     x = x.permute(0, 2, 4, 1, 3, 5).reshape(B, n * n, 3 * P * P)
     x = x @ params["patch_kernel"].to(dtype)
+    if "patch_b" in params:      # a snapshot's patch bias (JAX's import drops it)
+        x = x + params["patch_b"].to(dtype)
     cls = params["class_emb"].to(dtype).expand(B, 1, D)
     h = torch.cat([cls, x], dim=1) + params["pos_emb"].to(dtype)
     T = h.shape[1]
@@ -67,7 +72,10 @@ def blip2_vision_forward(params: dict, cfg: Blip2VisionConfig, pixel_values: tor
     for li in range(cfg.num_hidden_layers):
         w = {k: a[li].to(dtype) for k, a in layers.items()}
         x = layer_norm(h, w["ln1"], w["ln1_b"], eps)
-        qkv = (x @ w["qkv"]).reshape(B, T, 3, H, hd)
+        qkv = x @ w["qkv"]
+        if "qkv_b" in w:         # a snapshot's q / zero / v bias (JAX's import drops it)
+            qkv = qkv + w["qkv_b"]
+        qkv = qkv.reshape(B, T, 3, H, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         att = torch.matmul(q, k.transpose(-1, -2)).float() * (hd ** -0.5)
         att = torch.softmax(att, dim=-1).to(dtype)

@@ -74,6 +74,20 @@ class LlavaConfig:
         return n
 
 
+def bakllava_config() -> LlavaConfig:
+    """BakLLaVA-1 (llava-hf/bakLlava-v1-hf): LLaVA-1.5's vision tower and
+    projector over a Mistral-7B text tower (8 KV heads under 32 query
+    heads, FFN 14336, sliding window 4096), as the JAX package hard-codes
+    it."""
+    return LlavaConfig(
+        text=LlamaConfig(
+            vocab_size=32064, hidden_size=4096, intermediate_size=14336,
+            num_hidden_layers=32, num_attention_heads=32,
+            num_key_value_heads=8, max_position_embeddings=32768,
+            rms_norm_eps=1e-5, rope_theta=10000.0, sliding_window=4096),
+    )
+
+
 def tiny_llava_config(vocab_size: int = 128) -> LlavaConfig:
     """A small config for tests."""
     return LlavaConfig(

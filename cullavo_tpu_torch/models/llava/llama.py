@@ -28,8 +28,11 @@ Modes:
     it to XLA).  Over an int8 cache (``sdpa_smajor_q8``) it raises.
 A prefix-reuse suffix prefill is one such window of width T at a scalar
 ``cache_index``; windows wider than the kernels' 64 rows take the plain
-attention on either device.  Sliding windows wait for a later slice and
-raise.
+attention on either device.  Mistral's sliding window (BakLLaVA) masks
+the keys at positions <= query position - W: in the bias of every cached
+forward (so K4 and K12 take it), and where it binds in a forward without a
+cache (T > W) on the plain attention with that bias, as JAX runs XLA
+there; ``llama_forward.window_prefills`` counts those forwards.
 
 Training: the no-cache forward is differentiable end to end (no in-place
 write on that path), takes a single stack of LoRA adapters (``lora``, with
@@ -377,10 +380,13 @@ def _mm_group(x, w, names, adapters):
     return [adapters.add(y, x, n) for n, y in zip(names, ys)]
 
 
-def _attention_bias(attention_mask, position_ids, key_pos):
+def _attention_bias(attention_mask, position_ids, key_pos, window=None):
     """Additive f32 bias [B, 1, T, S]: causal on logical positions, key
-    validity from ``attention_mask``."""
+    validity from ``attention_mask``, and with Mistral's ``window`` only the
+    keys at positions > query position - window (HF's convention)."""
     ok = (position_ids[:, :, None] >= key_pos[:, None, :]) & attention_mask[:, None, :].bool()
+    if window is not None:
+        ok = ok & (key_pos[:, None, :] > position_ids[:, :, None] - window)
     zero = torch.zeros((), dtype=torch.float32, device=ok.device)
     return torch.where(ok[:, None], zero, torch.full_like(zero, NEG_INF))
 
@@ -442,9 +448,17 @@ def llama_forward(
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     n_rep = H // KV
     dtype = inputs_embeds.dtype
-    if cfg.sliding_window is not None:
-        raise NotImplementedError("Mistral sliding-window attention (BakLLaVA) "
-                                  "waits for slice 6")
+    # Mistral's sliding window: in the bias of every cached forward (K4 and
+    # K12 take it as it is), and in a forward without a cache where it
+    # binds (T > W: a query W or more positions past the first key), which
+    # then runs the plain attention with the bias, as JAX runs XLA there
+    # (its flash kernel takes no window); ``llama_forward.window_prefills``
+    # counts those forwards.  T <= W: the window cuts nothing, K1 stays.
+    window = cfg.sliding_window
+    window_binds = window is not None and cache is None and T > window
+    if window_binds and use_flash:
+        raise ValueError(f"use_flash with a sliding window of {window} < T = {T}: the flash "
+                         "kernel takes no window")
     if cache is not None and not stale_cache:
         # the BLIP-2 Vicuna tower's prefill (JAX's blip2_generate and
         # blip2_beam_generate, reached from entry._eval_vl_zoo with
@@ -471,7 +485,9 @@ def llama_forward(
     # an existing quantized cache carries its scale planes; a prefill opts in
     kv_q8 = kv_quant == "int8" or (cache is not None and "k_s" in cache)
     if use_flash is None:
-        use_flash = cache is None
+        use_flash = cache is None and not window_binds
+    if window_binds:
+        llama_forward.window_prefills += 1
     # JAX's opt-in packed-heads forward (CULLAVO_FLASH_PACKED=1, read per
     # call): q/k/v stay [B, T, H*hd] from the projections to the o-projection
     # (K13); MHA with a head dim that is a multiple of 128, no cache
@@ -487,7 +503,7 @@ def llama_forward(
             key_pos = key_position_ids
         else:
             key_pos = torch.arange(cache["k"].shape[1], device=position_ids.device)[None, :]
-        bias = _attention_bias(attention_mask, position_ids, key_pos)
+        bias = _attention_bias(attention_mask, position_ids, key_pos, window)
 
     layers = params["layers"]
     L = layers["input_ln"].shape[0]
@@ -598,6 +614,9 @@ def llama_forward(
     for li in range(L):
         h = checkpoint(layer, h, li, use_reentrant=False) if remat else layer(h, li)
     return rms_norm(h, params["norm"], cfg.rms_norm_eps), new_cache
+
+
+llama_forward.window_prefills = 0
 
 
 def lm_logits(params: dict, cfg: LlamaConfig, hidden: torch.Tensor) -> torch.Tensor:

@@ -182,7 +182,8 @@ def test_evaluate_imagenet_matches_jax(tmp_path, class_root, weights, monkeypatc
     """``entry.evaluate`` on ``imagenet_test`` over a registered ``imagenet``
     root (four synset folders, one outside the table skipped) in both
     packages, the port's smoke weights made JAX's: results and the
-    per-class CSV equal.  ``MODEL.ZOO_PATH`` raises naming its item; a
+    per-class CSV equal.  ``MODEL.ZOO_PATH`` without a snapshot there raises
+    naming config.json (tests/test_torch_zoo_path.py runs a snapshot); a
     root-less registration raises; no ``DATASETS.TEST`` gives {}."""
     _, params = weights
     monkeypatch.setattr(t_zoo, "init_blip2_params", lambda cfg, gen, dev: params)
@@ -198,7 +199,7 @@ def test_evaluate_imagenet_matches_jax(tmp_path, class_root, weights, monkeypatc
     assert out["port"] == out["jax"] and out["port"]["n"] == 10
     assert _read_csv(tmp_path / "port" / "imagenet_per_class.csv") == _read_csv(
         tmp_path / "jax" / "imagenet_per_class.csv")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2.4"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         t_entry.evaluate({"NAME": "imagenet_test", "MODEL": {"ZOO_PATH": "/x"},
                           "DATASETS": {"TEST": ["imagenet_val_port"]}}, device="cpu")
     with pytest.raises(ValueError, match="ROOT"):

@@ -333,7 +333,8 @@ def vqa_files(tmp_path_factory):
 def test_evaluate_instructblip_matches_jax(tmp_path, vqa_files, weights, monkeypatch):
     """``entry.evaluate`` with ``MODEL.ZOO: instructblip`` in both packages,
     the port's smoke weights made JAX's: the metrics dict and the answers
-    file equal.  ``ZOO_PATH`` still raises, naming its queue item."""
+    file equal.  ``ZOO_PATH`` without a snapshot there raises naming
+    config.json (tests/test_torch_zoo_path.py runs a snapshot)."""
     _, params = weights
     monkeypatch.setattr(t_zoo, "init_blip2_params", lambda cfg, gen, dev: params)
     out = {}
@@ -350,6 +351,6 @@ def test_evaluate_instructblip_matches_jax(tmp_path, vqa_files, weights, monkeyp
     with open(tmp_path / "jax" / "vqa_results.json") as f, \
             open(tmp_path / "port" / "vqa_results.json") as g:
         assert json.load(g) == json.load(f)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2.4"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         t_entry.evaluate({"NAME": "vl_test", "MODEL": {"ZOO": "instructblip",
                                                        "ZOO_PATH": "/x"}}, device="cpu")

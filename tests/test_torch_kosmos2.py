@@ -169,5 +169,7 @@ def test_evaluate_zoo_kosmos2_matches_jax(tmp_path, vqa_files, weights, monkeypa
 
 
 def test_kosmos2_answerer_raises_for_snapshots():
-    with pytest.raises(NotImplementedError, match="snapshot"):
+    """A snapshot directory without its files raises naming config.json
+    (snapshots run: tests/test_torch_zoo_path.py)."""
+    with pytest.raises(FileNotFoundError, match="config.json"):
         t_zoo.native_kosmos2_answer_fn(hf_model_dir="/x", device="cpu")

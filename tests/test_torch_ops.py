@@ -195,8 +195,9 @@ def test_out_of_slice_modes_raise():
         tnf4.int8_linear(torch.zeros(2, 4), {"q8t": q["q8"].T, "scale8": q["scale8"]})
     # the decoder: speculative windows, the int8 cache, per-row write
     # positions, prefix-reuse windows and the cached forward without
-    # stale_cache run now; that forward over an int8 cache, sliding windows
-    # and sampling without a generator raise
+    # stale_cache run now, and Mistral's sliding window; that forward over
+    # an int8 cache, the flash kernel forced under a binding window and
+    # sampling without a generator raise
     import dataclasses
 
     from cullavo_tpu_torch.models.llava import llama as tllama
@@ -210,9 +211,13 @@ def test_out_of_slice_modes_raise():
     cache = tllama.init_kv_cache(tc, 1, 8, torch.float32, "int8")
     with pytest.raises(NotImplementedError, match="sdpa_smajor_q8"):
         tllama.llama_forward(lm, tc, emb, torch.ones(1, 8), pos, cache, 0)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        tllama.llama_forward(lm, dataclasses.replace(tc, sliding_window=4), emb,
-                             torch.ones(1, 2), pos)
+    # T = 2 inside a window of 4: the window cuts nothing
+    wide, _ = tllama.llama_forward(lm, dataclasses.replace(tc, sliding_window=4), emb,
+                                   torch.ones(1, 2), pos)
+    assert torch.equal(wide, tllama.llama_forward(lm, tc, emb, torch.ones(1, 2), pos)[0])
+    with pytest.raises(ValueError, match="takes no window"):
+        tllama.llama_forward(lm, dataclasses.replace(tc, sliding_window=1), emb,
+                             torch.ones(1, 2), pos, use_flash=True)
     with pytest.raises(NotImplementedError, match="sampled decoding"):
         tmod._sample_token(torch.zeros(1, 4), tmod.GenerationConfig(do_sample=True))
     for kv_quant in (None, "int8"):

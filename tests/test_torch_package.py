@@ -47,6 +47,9 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.checkpoint.from_jax",
     "cullavo_tpu_torch.pipelines.vqa_pipeline",
     "cullavo_tpu_torch.data.tokenizer",
+    "cullavo_tpu_torch.data.tokenizer_json",
+    "cullavo_tpu_torch.data.kosmos2_processor",
+    "cullavo_tpu_torch.checkpoint.zoo_import",
     "cullavo_tpu_torch.serving",
     "cullavo_tpu_torch.serving.engine",
     "cullavo_tpu_torch.serving.io",
@@ -131,7 +134,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in SLICE_MODULES)
             + "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'cullavo_tpu', 'yaml',"
-              " 'optax', 'transformers', 'tokenizers', 'safetensors', 'PIL', 'pyarrow')]\n"
+              " 'optax', 'transformers', 'tokenizers', 'safetensors', 'PIL', 'pyarrow',"
+              " 'sentencepiece')]\n"
               "print(bad)\n"
               "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=_env(),
@@ -161,11 +165,12 @@ def test_no_source_names_jax_or_the_jax_package_in_an_import():
 
 
 def test_port_reads_snapshots_without_the_hf_libraries():
-    """No import of transformers, tokenizers or safetensors anywhere in the
-    port or in ``chip_smoke.py`` (the machine with the card has none of
-    them: the port reads safetensors and tokenizer.json itself); PIL only
-    inside ``load_image_rgb``."""
-    hf = re.compile(r"^\s*(import|from)\s+(transformers|tokenizers|safetensors)(\.|\s|$)", re.M)
+    """No import of transformers, tokenizers, sentencepiece or safetensors
+    anywhere in the port or in ``chip_smoke.py`` (the machine with the card
+    has none of them: the port reads safetensors, tokenizer.json and
+    SentencePiece's charsmap itself); PIL only inside ``load_image_rgb``."""
+    hf = re.compile(r"^\s*(import|from)\s+(transformers|tokenizers|sentencepiece|safetensors)"
+                    r"(\.|\s|$)", re.M)
     pil = re.compile(r"^(\s*)(import|from)\s+PIL(\.|\s|$)", re.M)
     paths = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     for path in paths:
@@ -177,6 +182,7 @@ def test_port_reads_snapshots_without_the_hf_libraries():
             assert (path.name, fn, m.group(1)) == ("eval_mappers.py", "load_image_rgb", "    "), (
                 f"{path.relative_to(REPO)}: PIL imported in {fn!r}")
     assert hf.search("from safetensors import safe_open") and hf.search("    import tokenizers")
+    assert hf.search("import sentencepiece as spm")
     assert not hf.search("from cullavo_tpu_torch.checkpoint import safetensors_io")
 
 
@@ -648,27 +654,35 @@ def test_p32_wrapper_takes_the_plain_version_only_for_cpu_tensors():
 # socket on SIGINT.  No try wraps an engine step that carries on, or a launch.
 def test_the_raises_that_remain_name_their_items():
     """What the port still refuses on the VL zoo's paths names its item of
-    ROADMAP.md's queue 1: the zoo snapshots (2.4), BakLLaVA (2.5), the OPT
-    tower (2.6) and the cached forward without stale_cache over an int8
-    cache (4)."""
+    ROADMAP.md's queue 1: the OPT tower (2.6) and the cached forward without
+    stale_cache over an int8 cache (4).  The zoo snapshots (2.4) and BakLLaVA
+    (2.5) run now: a snapshot directory without its files raises naming the
+    file, and BakLLaVA without ``MODEL.ZOO_PATH`` exits as JAX's entry does."""
     from cullavo_tpu_torch import entry
+    from cullavo_tpu_torch.checkpoint import zoo_import
     from cullavo_tpu_torch.models.blip2 import config as bcfg
     from cullavo_tpu_torch.models.blip2 import modeling as bmod
     from cullavo_tpu_torch.models.llava import llama
     from cullavo_tpu_torch.pipelines import vl_zoo_pipeline as zoo
 
-    for model, item in (({"ZOO": "kosmos2", "ZOO_PATH": "/x"}, "ZOO_PATH.*item 2.4"),
-                        ({"ZOO": "bakllava"}, "bakllava.*item 2.5")):
-        with pytest.raises(NotImplementedError, match=item):
-            entry.evaluate({"NAME": "vl_test", "MODEL": model}, device="cpu")
+    for zoo_name in ("blip2", "instructblip", "kosmos2", "bakllava"):
+        with pytest.raises(FileNotFoundError, match="config.json"):
+            entry.evaluate({"NAME": "vl_test", "MODEL": {"ZOO": zoo_name, "ZOO_PATH": "/x"}},
+                           device="cpu")
+    with pytest.raises(SystemExit, match="bakllava needs MODEL.ZOO_PATH"):
+        entry.evaluate({"NAME": "vl_test", "MODEL": {"ZOO": "bakllava"}}, device="cpu")
     for fn in (lambda: zoo.native_blip2_imagenet_fns(hf_model_dir="/x", device="cpu"),
-               lambda: zoo.native_blip2_answer_fn(hf_model_dir="/x", device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 2.4"):
+               lambda: zoo.native_blip2_answer_fn(hf_model_dir="/x", device="cpu"),
+               lambda: zoo.native_kosmos2_answer_fn(hf_model_dir="/x", device="cpu"),
+               lambda: zoo.native_bakllava_answer_fn("/x", device="cpu")):
+        with pytest.raises(FileNotFoundError, match="config.json"):
             fn()
     opt = bcfg.tiny_blip2_config("opt")
     for fn in (lambda: bmod.init_blip2_params(opt, torch.Generator(), "cpu"),
                lambda: bmod.blip2_beam_generate(None, opt, None, None, None, 2),
-               lambda: zoo.native_blip2_answer_fn(kind="opt", device="cpu")):
+               lambda: zoo.native_blip2_answer_fn(kind="opt", device="cpu"),
+               lambda: zoo.native_blip2_answer_fn(hf_model_dir="/x", kind="opt", device="cpu"),
+               lambda: zoo_import.load_blip2_safetensors("/x", opt)):
         with pytest.raises(NotImplementedError, match="OPT.*item 2.6"):
             fn()
     tc = bcfg.tiny_blip2_config("llama_text").text
@@ -1657,6 +1671,64 @@ def test_cuda_f32_stale_decode_takes_k12(cuda_device):
     assert fa.decode_partials.launches == n0 + 2 and ww.wwin_decode_smajor.launches == w0 + 2
     with pytest.raises(NotImplementedError, match="f32 stale-cache window"):
         run(cuda_device, torch.float32, T=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,S", [(1, 700), (4, 700), (1, 300)])
+def test_cuda_wwin_decode_with_a_binding_sliding_window(cuda_device, W, S):
+    """K4 on BakLLaVA's decode: 32 query heads over 8 kv heads (n_rep = 4),
+    the additive bias of ``llama._attention_bias`` with Mistral's window of
+    256 (keys 0 .. S - 257 masked where S > 256) and a padded row: equal to
+    the plain version within 1e-2 (bf16), and the window's keys matter."""
+    from cullavo_tpu_torch.models.llava import llama
+    from cullavo_tpu_torch.ops import wwin_decode as ww
+
+    g = torch.Generator(device=cuda_device).manual_seed(70 + W + S)
+    L, B, KV, hd, n_rep, window = 2, 2, 8, 128, 4, 256
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda_device).to(torch.bfloat16)
+
+    kc, vc = rnd(L, S, B, KV, hd), rnd(L, S, B, KV, hd)
+    q = rnd(B, W, KV * n_rep, hd).transpose(1, 2)
+    k_cur, v_cur = rnd(B, KV * n_rep, W, hd), rnd(B, KV * n_rep, W, hd)
+    mask = torch.ones((B, S), dtype=torch.int32, device=cuda_device)
+    mask[1, S - 40:] = 0
+    key_pos = torch.arange(S, device=cuda_device)[None].expand(B, S)
+    pos = (mask.sum(1, keepdim=True) + torch.arange(W, device=cuda_device)[None]).to(torch.int64)
+    bias = llama._attention_bias(mask, pos, key_pos, window)
+    n0 = ww.wwin_decode_smajor.launches
+    out = ww.wwin_decode_smajor(q, kc, vc, 1, k_cur, v_cur, bias, n_rep=n_rep)
+    assert ww.wwin_decode_smajor.launches == n0 + 1
+    acc, m, l = ww._cache_part_plain(q, kc, vc, 1, bias[:, 0], n_rep, hd ** -0.5)
+    ref = ww._merge_self_window(q, k_cur, v_cur, acc, m, l, hd ** -0.5)
+    assert torch.isfinite(out).all()
+    assert torch.allclose(out.float(), ref.float(), rtol=1e-2, atol=1e-2)
+    free = ww.wwin_decode_smajor(q, kc, vc, 1, k_cur, v_cur,
+                                 llama._attention_bias(mask, pos, key_pos), n_rep=n_rep)
+    assert ((free.float() - out.float()).abs().max() > 0.05) == (S > window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,d", [(5, 32, 10, 64), (5, 32, 46, 64), (1, 32, 84, 64),
+                                     (5, 32, 30, 128)])
+def test_cuda_decode_partials_on_the_zoo_snapshot_shapes(cuda_device, B, H, S, d):
+    """K12 at the decode shapes of the zoo snapshots' paths, f32: Flan-T5-XL's
+    beams over the decoder's own cache and over the encoder (32 queries and
+    a prompt), KOSMOS-2's greedy step past its 64 image tokens, Vicuna's
+    beams over InstructBLIP's prompt; against the plain version within
+    1e-5 + 1e-5 |ref|, one launch each."""
+    from cullavo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, bias = _decode_case(cuda_device, torch.float32, B, H, H, S, d, seed=S + d + 7,
+                                 stacked=False)
+    n0 = fa.decode_partials.launches
+    o, m, l = fa.decode_partials(q, k, v, bias, d ** -0.5)
+    assert fa.decode_partials.launches == n0 + 1
+    ro, rm, rl = fa._decode_partials_plain(q, k, v, bias.expand(B, H, S), d ** -0.5)
+    assert torch.allclose(o, ro, atol=1e-5, rtol=1e-5), (o - ro).abs().max().item()
+    assert torch.allclose(m, rm, atol=1e-4, rtol=1e-5)
+    assert torch.allclose(l, rl, atol=0, rtol=1e-5)
 
 
 @pytest.mark.cuda

@@ -411,14 +411,17 @@ def test_bits4_quantizes_the_tiny_snapshot_as_jax(snapshot):
 
 
 def test_evaluate_vl_test_keeps_raising_for_the_zoo_and_topics():
-    """The zoo tower and snapshots still to port (BLIP-2, InstructBLIP and
-    KOSMOS-2 run: tests/test_torch_zoo.py, test_torch_instructblip.py,
-    test_torch_kosmos2.py), and a topic classifier the entry does not know
-    (``tiny`` and snapshots run: tests/test_torch_topic.py)."""
-    for model, match in (({"ZOO": "bakllava"}, "BakLLaVA item"),
-                         ({"ZOO": "instructblip", "ZOO_PATH": "/x"}, "WordPiece")):
-        with pytest.raises(NotImplementedError, match=match):
-            t_entry.evaluate({"NAME": "vl_test", "MODEL": model}, device="cpu")
+    """What the zoo and the topic classifier refuse (every tower runs, from
+    a snapshot too: tests/test_torch_zoo*.py, test_torch_instructblip.py,
+    test_torch_kosmos2.py): BakLLaVA without ``MODEL.ZOO_PATH`` (as JAX's
+    entry), a ``ZOO_PATH`` without its files, and a topic classifier the
+    entry does not know (``tiny`` and snapshots run:
+    tests/test_torch_topic.py)."""
+    with pytest.raises(SystemExit, match="bakllava needs MODEL.ZOO_PATH"):
+        t_entry.evaluate({"NAME": "vl_test", "MODEL": {"ZOO": "bakllava"}}, device="cpu")
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        t_entry.evaluate({"NAME": "vl_test", "MODEL": {"ZOO": "instructblip", "ZOO_PATH": "/x"}},
+                         device="cpu")
     with pytest.raises(ValueError, match="MODEL.TOPIC"):
         t_entry.evaluate({"NAME": "vl_test", "MODEL": {"TOPIC": "small"}}, device="cpu")
     with pytest.raises(ValueError, match="ROOT"):

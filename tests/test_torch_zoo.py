@@ -384,10 +384,10 @@ def test_evaluate_zoo_blip2_matches_jax(tmp_path, vqa_files, weights, monkeypatc
 
 
 @pytest.mark.parametrize("model,exc,match", [
-    ({"ZOO": "blip2", "ZOO_PATH": "/nonexistent"}, NotImplementedError, "Unigram"),
+    ({"ZOO": "blip2", "ZOO_PATH": "/nonexistent"}, FileNotFoundError, "config.json"),
     ({"ZOO": "kosmos2", "ZOO_TORCH": True}, NotImplementedError, "transformers"),
-    ({"ZOO": "instructblip", "ZOO_PATH": "/nonexistent"}, NotImplementedError, "WordPiece"),
-    ({"ZOO": "bakllava"}, NotImplementedError, "sliding-window"),
+    ({"ZOO": "instructblip", "ZOO_PATH": "/nonexistent"}, FileNotFoundError, "config.json"),
+    ({"ZOO": "bakllava"}, SystemExit, "needs MODEL.ZOO_PATH"),
     ({"ZOO": "flamingo"}, SystemExit, None),
     ({"TOPIC": {"LLAMA_PATH": "/nonexistent"}}, ValueError, "MODEL.TOPIC"),
 ], ids=["zoo_path", "zoo_torch", "instructblip", "bakllava", "unknown", "topic"])
@@ -397,12 +397,13 @@ def test_evaluate_zoo_raises_where_it_waits(model, exc, match):
 
 
 def test_what_waits_for_later_slices_raises(weights):
-    """What still waits raises and names its item: the zoo snapshots (item
-    2.4), the OPT tower (item 2.6).  InstructBLIP, ImageNet and the text
-    input of the Q-Former run (tests/test_torch_instructblip.py,
-    test_torch_imagenet.py)."""
+    """What still waits raises and names its item: the OPT tower (item
+    2.6).  InstructBLIP, ImageNet, the text input of the Q-Former and the
+    zoo snapshots run (tests/test_torch_instructblip.py,
+    test_torch_imagenet.py, test_torch_zoo_path.py); a snapshot directory
+    without its files raises naming config.json."""
     _, params = weights
-    with pytest.raises(NotImplementedError, match="item 2.4"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         t_entry.evaluate({"NAME": "imagenet_test", "MODEL": {"ZOO_PATH": "/x"},
                           "DATASETS": {"TEST": ["none"]}}, device="cpu")
     opt_cfg = t_cfg.tiny_blip2_config("opt")
@@ -411,7 +412,7 @@ def test_what_waits_for_later_slices_raises(weights):
                lambda: t_mod.blip2_generate(params, opt_cfg, None, None, None, 2)):
         with pytest.raises(NotImplementedError, match="OPT.*item 2.6"):
             fn()
-    with pytest.raises(NotImplementedError, match="snapshot"):
+    with pytest.raises(FileNotFoundError, match="config.json"):
         t_zoo.native_blip2_answer_fn(hf_model_dir="/x", device="cpu")
     with pytest.raises(NotImplementedError, match="OPT"):
         t_zoo.native_blip2_answer_fn(kind="opt", device="cpu")
