@@ -7,6 +7,9 @@
                                         # training and eval from a checkpoint, the VLP eval
                                         # and DaViT, serving over HTTP with adapters
     python3 chip_smoke.py --profile     # the same + a profiled run of each path
+    python3 chip_smoke.py --par-calibrate   # phases 22a and 22b in one process and on
+                                        # two ranks at three seeds, and two planted
+                                        # faults: the readings PAR_TOL is set from
 
 Phases (each raises on failure, and the script exits non-zero):
   1. print the card's name and power limit (nvidia-smi); disable TF32.
@@ -196,7 +199,7 @@ Phases (each raises on failure, and the script exits non-zero):
      f32 (3.94 G and 1.66 G random parameters built on the card) answering
      16 questions on 8 random 224^2 images through
      ``VLZooVQAPipeline.evaluate_model`` with its native answerer and the
-     byte tokenizer, then the first 8 again (``ZOO_SECOND``): n = 16,
+     byte tokenizer, then the first 4 again (``ZOO_SECOND``): n = 16,
      identical answers, K12 launched as the shapes predict;
      questions/s, ms per question by phase, peak memory.
   12. the training loop: ``entry.train`` on configs/cullavo_step1.yaml
@@ -240,11 +243,12 @@ Phases (each raises on failure, and the script exits non-zero):
      points pinned: every loss within 1e-3 and every gradient leaf within
      1e-3 in its 2-norm (1e-2 entry by entry: ReLU / GroupNorm kinks flip
      on f32 rounding), card against CPU; (d) over a registered caption-grounding dataset of 16 synthetic
-     images (12 of 512^2, 4 of 480 x 640), ``python -m cullavo_tpu_torch
-     train`` in a subprocess and ``entry.train`` in process, 2 steps each:
-     every reference loss key finite, grad_norm > 0, the checkpoint read back
-     bit-equal, K10 launched 48 times a step; (e) 4 steps on one batch
-     twice from one seed (step-1 losses within 1e-3 relative; s per step,
+     images (12 of 512^2, 4 of 480 x 640), ``entry.train`` in process on
+     ``python -m cullavo_tpu_torch train``'s arguments (the command line
+     itself runs on two ranks in phase 22b), 2 steps: every reference loss
+     key finite, grad_norm > 0, the checkpoint read back bit-equal, K10
+     launched 48 times a step; (e) 4 steps on one batch, then 1 again from
+     one seed (step-1 losses within 1e-3 relative; s per step,
      images/s, the matcher's host seconds, peak memory); (f) 6 steps at
      BASE_LR 1e-3: the loss falls.  The kernels line gains
      ``xdecoder_train_launches``.
@@ -324,8 +328,9 @@ Phases (each raises on failure, and the script exits non-zero):
      ``entry.evaluate`` with ``MODEL.ZOO: instructblip`` (the tiny smoke
      tower, 4 questions), then 7.9 G random parameters built on the card
      answering phase 11's 16 questions through ``VLZooVQAPipeline`` with the
-     native answerer (beam 5, length penalty -1, 10 tokens) twice: n = 16,
-     identical answers, K12 launched 32 x 9 x 16 and nothing else;
+     native answerer (beam 5, length penalty -1, 10 tokens), then the first
+     4 again: n = 16, identical answers, K12 launched 32 x
+     9 x 16 and nothing else;
      questions/s, ms per question (vision + Q-Former, the Vicuna prefill,
      beam decode, host), peak memory; (b) the zero-shot ImageNet eval on
      that tower's EVA-ViT-g and Q-Former: a 2-layer card-vs-CPU check of
@@ -337,7 +342,8 @@ Phases (each raises on failure, and the script exits non-zero):
      1000 ImageNet names twice (equal top-1 / top-5; images/s, text-embedding
      seconds, peak memory); (c) the topic classifier at LLaMA-2-7B
      (bf16) and CLIP-L/336's text tower (f32), random, over 16 questions in
-     the 256 and 320 prompt buckets twice from one seed: equal classes, K1
+     the 256 and 320 prompt buckets, then the first 8 again, from one seed:
+     equal classes, K1
      32 a question and K4 32 a decode forward; ms per question (generate,
      CLIP), peak memory; then ``entry.evaluate`` on vl_test with
      ``MODEL.TOPIC: tiny`` and ``SAVE_DIR`` (the per-topic CSV read back).
@@ -369,11 +375,46 @@ Phases (each raises on failure, and the script exits non-zero):
      heads) and K4 at its decode (n_rep 4, one layer of a 608-slot cache,
      the window's bias at 4096 and at 256): ``bakllava_shape`` on the
      kernels line.
+  21. BLIP-2 OPT (after phase 20): (a) Salesforce/blip2-opt-2.7b (EVA-ViT-g,
+     the Q-Former, OPT 32 x 2560 with 32 heads of 80) in f32, random on the
+     card: a 2-layer full-width card-vs-CPU check (K12 8 launches), then 16
+     questions through ``native_blip2_answer_fn(kind="opt")`` (beam 5,
+     length penalty -1, 10 tokens) and the first 4 again: identical answers,
+     K12 32 x 9 x 16 and nothing else; questions/s, ms per question by
+     phase, peak memory; (b) a blip2-opt-2.7b-shaped snapshot at
+     ``ZOO_PATH_CUT`` depth (GPT-2's byte-level BPE of 50265 ids) written,
+     read back bit for bit and answering the 16 questions through the
+     snapshot answerer (K12 only).  The kernels line gains
+     ``vl_zoo_opt_launches``.  Phase 3 also holds and times K12 at OPT's beam
+     shape ([5, 32, 104, 80] f32, one layer of the head-major cache).
+  22. several processes over ``torch.distributed`` (the data axis), each
+     rank ``entry.main`` as ``python -m cullavo_tpu_torch`` runs it, on this
+     card over Gloo, started as ``chip_smoke.py --rank -- ARGS`` so that it
+     reports its kernels' launches: (a) after phase 12, its run 1 (Q-LoRA
+     at 7B from phase 10's snapshot, batch 8 x 1024 split 4 + 4, 4 steps)
+     on two ranks: losses and gradient norms equal across ranks and within
+     ``PAR_TOL["qlora"]`` of phase 12's, each rank's launches equal to that
+     run's, only rank 0 writing; s per step, the gradient all-reduce's ms
+     and share, peak GiB a rank; (b) after phase 15, its in-process
+     X-Decoder run (FocalNet-L at 512², 2 steps of 8 split 4 + 4,
+     ``MESH_DATA: 2``) the same way (``PAR_TOL["xtrain"]``), in place of
+     phase 15's one-process CLI run; (c) after phase 14, step2_pre through
+     the CLI on two ranks from phase 10's snapshot at ``STEP2_PAR_NEW``
+     tokens (the rows merged, written once; K1 once a layer and chunk, K4
+     whole decode steps), in place of phase 14's one-process CLI run; (d)
+     one rank over NCCL in this process: a 2-layer 7B-width Q-LoRA step
+     bit-equal to the step without a process group, launches equal.  The
+     kernels line gains ``two_rank_launches``.  Paid for by those two CLI
+     runs, phase 14's replay at 32 tokens, phase 15's second seeded run at
+     1 step, phase 17's second in-process run at 16 rows, the zoo's second
+     runs at 4 questions (phases 11, 19a, 21a), the topic classifier's at 8
+     and BakLLaVA's CLI at 4.
 The last two lines are the kernels' JSON record and the result line.
 Imports neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
+import ast
 import collections
 import contextlib
 import dataclasses
@@ -527,8 +568,9 @@ ZOO_DATASET, ZOO_IMAGES, ZOO_QUESTIONS, ZOO_SIDE, ZOO_NEW, ZOO_BEAMS = (
 # CPU's f64 result may be ZOO_TOL times the CPU's own f32 error, + 1e-5 max |ref|
 ZOO_CUT, ZOO_TOL = 2, 4.0
 # phase 11's second run of each tower answers the first ZOO_SECOND questions
-# (its identical-answers check; half the first run's, to pay for phase 20)
-ZOO_SECOND = 8
+# (its identical-answers check; 8 to pay for phase 20, 4 for phases 21-22;
+# phases 19a and 21a take the same)
+ZOO_SECOND = 4
 # the zoo from local snapshots (phase 20): BakLLaVA-1's cut-depth checks
 # prefill BAK_CUT_T text tokens, once under Mistral's window and once under a
 # window of BAK_CUT_WINDOW, which binds in the prefill and the decode; the
@@ -539,7 +581,7 @@ BAK_CUT_T, BAK_CUT_WINDOW = 320, 256
 # tokens + the text of 'USER: <image>\n{q} ASSISTANT:' under the port's BPE
 BAK_PROMPT_T = 592
 # its CLI run answers the first BAK_CLI_QUESTIONS of the 16 (process, load)
-BAK_CLI_QUESTIONS = 8
+BAK_CLI_QUESTIONS = 4
 ZOO_PATH_CUT = {"vision": 4, "qformer": 2, "text": 4}
 # step2_pre (phase 14): configs/cullavo_step2_pre.yaml through the command line
 # over a registered conversations dataset of this many rows whose images are
@@ -2167,6 +2209,43 @@ def check_decode_kernels(device, g):
         shape=f"q [{Bi},32,1,128], k/v one layer of [4,{Si},{Bi},32,128] f32 through "
               "permute(1, 2, 0, 3)")
     del kc, vc, kl, vl
+
+    # BLIP-2 OPT-2.7b's decoder (phase 21a): f32, 5 beams x 32 heads, d = 80,
+    # one layer of the head-major cache [L, B, H, S, 80] read in place
+    Bo, So = ZOO_BEAMS, opt_cache_len()
+    n_prompt = So - ZOO_NEW - 1
+    kc, vc = (torch.randn((4, Bo, 32, So, 80), generator=g, device=device) for _ in range(2))
+    kl, vl = kc[2], vc[2]
+    for step in (1, ZOO_NEW // 2, ZOO_NEW - 1):
+        q, k_cur, v_cur = (torch.randn((Bo, 32, 1, 80), generator=g, device=device)
+                           for _ in range(3))
+        bias = torch.where(torch.arange(So, device=device) < n_prompt + step - 1, 0.0,
+                           -1e9).expand(Bo, 1, 1, So)
+        label = f"BLIP-2 OPT-2.7b decoder B={Bo} S={So} d=80 step {step}"
+        worst = max(worst, partials(label, q, kl, vl, bias[:, :, 0], 80 ** -0.5)[0])
+        out = sdpa_decode_stale(q, kl, vl, k_cur, v_cur, bias)
+        ref = sdpa_decode_stale_plain(q, kl, vl, k_cur, v_cur, bias)
+        worst = max(worst, hold(label + " merged", out, ref, f32))
+    bl = bias[:, :, 0]
+    mask = (bias == 0)                                     # [B, 1, 1, S] boolean
+    med, turns, host = timed_turns({
+        "kernel": lambda: fa.decode_partials(q, kl, vl, bl, 80 ** -0.5),
+        "library": lambda: sdpa_lib(q, kl, vl, attn_mask=mask)}, device)
+    o_plain = bench_ms(lambda: fa._decode_partials_plain(
+        q, kl, vl, bl.expand(Bo, 32, So), 80 ** -0.5), device)
+    o_merged = bench_ms(lambda: sdpa_decode_stale(q, kl, vl, k_cur, v_cur, bias), device,
+                        lead_cycles=lead)
+    o_bd = bound(nbytes(q, kl, vl, bl), 4 * Bo * 32 * So * 80, "f32")
+    log(f"K12 BLIP-2 OPT-2.7b decoder [{Bo},32,{So},80] f32 (one layer of the head-major "
+        f"cache): kernel {med['kernel']:.4f} ms, plain {o_plain:.4f} ms, library sdpa (boolean "
+        f"mask) {med['library']:.4f} ms, sdpa_decode_stale (K12 + the f32 merge) "
+        f"{o_merged:.4f} ms, bound {o_bd['bound_ms']:.6f} ms ({o_bd['bound_by']}); in turns "
+        f"{turns}; host us per call {host}")
+    rec["zoo_shapes"]["BLIP-2 OPT-2.7b decoder"] = dict(
+        ms=med["kernel"], plain_ms=o_plain, library_ms=med["library"], merged_ms=o_merged,
+        bound_ms=o_bd["bound_ms"], times_in_turns=turns, host_us=host,
+        shape=f"q [{Bo},32,1,80], k/v one layer of [4,{Bo},32,{So},80] f32")
+    del kc, vc, kl, vl
     rec["max_abs_err"] = worst
     torch.cuda.empty_cache()
     return {"flash_decode": rec}
@@ -2183,6 +2262,19 @@ def ib_cache_len():
     text = max(len(ByteTokenizer().encode(MODEL_SPECS["instructblip"].prompt.format(q=x)))
                for x in VL_QUESTION_TEXT)
     return instructblip_vicuna7b_config().num_query_tokens + text + ZOO_NEW + 1
+
+
+def opt_cache_len():
+    """The cache slots of BLIP-2 OPT's longest phase-21a prompt: the
+    queries, the byte ids of 'Question: {q} Answer:' and ``ZOO_NEW`` + 1
+    beam slots."""
+    from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
+    from cullavo_tpu_torch.models.blip2 import Blip2Config
+    from cullavo_tpu_torch.pipelines.vl_zoo_pipeline import MODEL_SPECS
+
+    text = max(len(ByteTokenizer().encode(MODEL_SPECS["blip2"].prompt.format(q=x)))
+               for x in VL_QUESTION_TEXT)
+    return Blip2Config().num_query_tokens + text + ZOO_NEW + 1
 
 
 def build_params(cfg, device):
@@ -3792,11 +3884,14 @@ def write_refcoco_dataset(root, sizes, class_names, seed=0):
     return spec
 
 
-def xtrain_argv(over, save_dir):
+def xtrain_argv(over, save_dir=None, seed=None):
     """The command line of phase 15: ``train`` on configs/xdecoder_train.yaml
-    with ``over`` as ``--config_overrides`` and ``SAVE_DIR``."""
+    with ``over`` as ``--config_overrides``, ``SAVE_DIR`` and ``SEED``
+    where given."""
+    pairs = (["SAVE_DIR", save_dir] if save_dir else []) + (
+        ["SEED", str(seed)] if seed is not None else [])
     return ["train", "--conf_files", os.path.join(REPO, XTRAIN_CFG), "--config_overrides",
-            json.dumps(over), "--overrides", "SAVE_DIR", save_dir]
+            json.dumps(over)] + (["--overrides", *pairs] if pairs else [])
 
 
 def xtrain_config(over=None, save_dir="unused"):
@@ -4112,17 +4207,19 @@ def run_xtrain_path(device, wrappers, smi, work, rec):
     panoptic PNGs by the port's writer, thing and stuff segments and a
     crowd one, 5 captions an image, polygon and RLE grounding segments; the
     133 COCO panoptic names); (c) the cut-depth card-vs-CPU check on its
-    first 2 images; (d) ``python -m cullavo_tpu_torch train --conf_files
-    configs/xdecoder_train.yaml`` in a subprocess (exit 0, 2 steps, its
-    checkpoint finite, peak memory of a fresh process), then the main path:
-    ``entry.train`` on the same arguments in this process, launches counted
+    first 2 images; (d) the main path: ``entry.train`` on ``python -m
+    cullavo_tpu_torch train --conf_files configs/xdecoder_train.yaml``'s
+    arguments in this process (the command line itself runs in phase 22b,
+    on two ranks), launches counted
     (K10: 48 a step), every reference loss key present and finite in both
     steps, grad_norm finite and > 0, the checkpoint read back bit-equal;
-    (e) 4 steps on the first batch twice from one seed: step-1 losses
-    within 1e-3 relative, s per step (median of steps 2-4), images/s, the
+    (e) 4 steps on the first batch, then 1 step again from one seed:
+    step-1 losses within 1e-3 relative, s per step (median
+    of steps 2-4), images/s, the
     matcher's host seconds and the forward's seconds a step, K10's plain
     backward a step; (f) 6 steps at BASE_LR 1e-3 without warmup: the loss
-    at step 6 below step 1.  Returns the launch counts of (d)."""
+    at step 6 below step 1.  Returns the launch counts of (d) and phase
+    22b's reference (the dataset's registration, (d)'s steps' metrics)."""
     import statistics as st
 
     import torch
@@ -4146,29 +4243,6 @@ def run_xtrain_path(device, wrappers, smi, work, rec):
 
     over = {"DATASETS.TRAIN": [XTRAIN_DATASET],
             "DATASETS.REGISTER": {XTRAIN_DATASET: spec}}
-    cli_dir = os.path.join(work, "xtrain_cli")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "cullavo_tpu_torch"]
-                         + xtrain_argv(over, cli_dir), cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=600)
-    t_cli = time.perf_counter() - t0
-    lines = (res.stdout + res.stderr).strip().splitlines()
-    for line in lines[-6:]:
-        log(f"  xdecoder train CLI: {line}")
-    if res.returncode != 0:
-        raise RuntimeError(f"xdecoder train: python -m cullavo_tpu_torch exited "
-                           f"{res.returncode}")
-    steps_cli = [line for line in lines if line.startswith("{'step'")]
-    peak_cli = [line for line in lines if line.startswith("[entry] peak device memory")]
-    ckpt = tree_leaves(load_checkpoint(cli_dir)["params"])
-    if len(steps_cli) != 2 or not all(np_isfinite(a) for a in ckpt):
-        raise RuntimeError(f"xdecoder train CLI: {len(steps_cli)} steps, checkpoint finite: "
-                           f"{all(np_isfinite(a) for a in ckpt)}")
-    log(f"xdecoder train CLI ({smi}): exit 0 in {t_cli:.2f} s (process start, model, 2 "
-        f"steps); {peak_cli[-1] if peak_cli else ''}; checkpoint {len(ckpt)} leaves, finite")
-
     in_dir = os.path.join(work, "xtrain_in_process")
     cfg = xtrain_config(over, in_dir)
     torch.cuda.reset_peak_memory_stats(device)
@@ -4186,6 +4260,7 @@ def run_xtrain_path(device, wrappers, smi, work, rec):
             a.dtype == b.dtype and (a == b).all() for a, b in zip(saved, final)):
         raise RuntimeError("entry.train: not 2 steps, or the checkpoint does not read back "
                            "bit-equal")
+    ref = {"spec": spec, "history": history, "launches": counts}
     log(f"xdecoder train entry.train in process ({smi}): 2 steps in {t_in:.2f} s, losses "
         f"{[round(m['loss_total'], 4) for m in history]}, grad_norm "
         f"{[round(m['grad_norm'], 6) for m in history]}, {len(XTRAIN_LOSS_KEYS)} reference "
@@ -4216,8 +4291,7 @@ def run_xtrain_path(device, wrappers, smi, work, rec):
     focal._FocalCtx.backward = staticmethod(orig)
     torch.cuda.synchronize(device)
     k10_bwd_ms = sum(a.elapsed_time(b) for a, b in events) / XTRAIN_DET_STEPS
-    second = _train_steps(model_cfg, sol, batch, device, XTRAIN_DET_STEPS,
-                          float(sol["BASE_LR"]), 10)
+    second = _train_steps(model_cfg, sol, batch, device, 1, float(sol["BASE_LR"]), 10)
     a, b = first[0][0], second[0][0]
     worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6) for k in XTRAIN_LOSS_KEYS)
     hist, secs, host, fwd = first
@@ -4235,8 +4309,7 @@ def run_xtrain_path(device, wrappers, smi, work, rec):
     rec["focal_ctx"]["xdecoder_train"] = {
         "s_per_step": s_step, "images_per_s": XDEC_BATCH / s_step,
         "forward_s": st.median(fwd[1:]), "matcher_host_s": st.median(host[1:]),
-        "k10_plain_backward_ms_per_step": k10_bwd_ms, "peak_gib_in_process": peak_in,
-        "peak_fresh_process": peak_cli[-1] if peak_cli else None}
+        "k10_plain_backward_ms_per_step": k10_bwd_ms, "peak_gib_in_process": peak_in}
     learn = _train_steps(model_cfg, sol, batch, device, XTRAIN_LEARN_STEPS, XTRAIN_LEARN_LR, 0)[0]
     losses = [m["loss_total"] for m in learn]
     log(f"xdecoder train learning (BASE_LR {XTRAIN_LEARN_LR}, no warmup; {smi}): losses "
@@ -4244,7 +4317,7 @@ def run_xtrain_path(device, wrappers, smi, work, rec):
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"xdecoder train: the loss at step {len(losses)} is not below step 1")
     torch.cuda.empty_cache()
-    return counts
+    return counts, ref
 
 
 XEVAL_SEMSEG, XEVAL_PANOPTIC, XEVAL_REFCOCO = (
@@ -4693,7 +4766,8 @@ def run_vlp_path(device, wrappers, smi, work, rec, pt_focal):
     ``RESUME_FROM``, ``MODEL.TEXT.TOKENIZER``, ``SAVE_DIR`` and ``LIMIT``
     16: exit 0, recall in [0, 100], the caption metrics finite, 16 captions
     written.  (d) ``entry.evaluate`` on all 48 rows in bf16 in this
-    process, twice: equal metrics and captions, K10 24 times a forward (6
+    process, then the first 16 again: equal captions,
+    K10 24 times a forward (6
     retrieval and 6 captioning forwards; the first run's counts are
     returned; its timing covers the 5 batches after the first).  (e) DaViT-d3: random
     weights at full width and depth through the inverse table and back
@@ -4757,12 +4831,13 @@ def run_vlp_path(device, wrappers, smi, work, rec, pt_focal):
     log(f"vlp eval CLI ({smi}): exit 0 in {t_cli:.2f} s (process start, checkpoint, 2 "
         f"datasets of {VLP_CLI_ROWS} rows, f32); {vals}; first caption {caps[0]['caption']!r}")
 
-    # (d) in this process, bf16, twice
+    # (d) in this process, bf16, then the first VLP_CLI_ROWS rows again
     runs = []
     for i in range(2):
         out_dir = os.path.join(work, f"vlp_run{i}")
+        n_rows = len(VLP_SIZES) if i == 0 else VLP_CLI_ROWS
         cfg = load_opt_command(xeval_argv(over, "RESUME_FROM", pt_focal, "DTYPE", "bfloat16",
-                                          "SAVE_DIR", out_dir))[0].to_dict()
+                                          "SAVE_DIR", out_dir, "LIMIT", str(n_rows)))[0].to_dict()
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
         with _datasets_root(root):
@@ -4770,7 +4845,7 @@ def run_vlp_path(device, wrappers, smi, work, rec, pt_focal):
         torch.cuda.synchronize(device)
         runs.append((out, counts, time.perf_counter() - t0,
                      torch.cuda.max_memory_allocated(device) / 2**30,
-                     _read_captions(out_dir, len(VLP_SIZES))))
+                     _read_captions(out_dir, n_rows)))
     (res1, counts, wall, peak, caps1), (res2, _, wall2, _, caps2) = runs
     vals = _check_vlp(res1, "vlp entry.evaluate", len(VLP_SIZES))
     forwards = 2 * -(-len(VLP_SIZES) // XDEC_BATCH)   # retrieval + captioning batches
@@ -4779,8 +4854,8 @@ def run_vlp_path(device, wrappers, smi, work, rec, pt_focal):
     if counts["focal_ctx"] != blocks * forwards or sum(counts.values()) != counts["focal_ctx"]:
         raise RuntimeError(f"vlp eval: K10 launched {counts['focal_ctx']} times, not "
                            f"{blocks} x {forwards}: {counts}")
-    if _strip_timing(res1) != _strip_timing(res2) or caps1 != caps2:
-        raise RuntimeError(f"two VLP evals differ: {res1} {res2}")
+    if caps1[:VLP_CLI_ROWS] != caps2:
+        raise RuntimeError(f"two VLP evals' captions differ: {caps1[:2]} {caps2[:2]}")
     timing = {name: r["timing"] for name, r in res1.items()}
     for i, res in enumerate((res1, res2), 1):
         t_ret, t_cap = res["vlp_val"]["timing"], res["vlp_captioning_val"]["timing"]
@@ -4792,8 +4867,9 @@ def run_vlp_path(device, wrappers, smi, work, rec, pt_focal):
             f"{t_cap['compute_s']:.4f} s a batch over the {t_cap['batches_timed']} after the "
             f"first (trunk {t_cap['trunk_s']:.4f} s, {t_cap['step_ms']:.2f} ms a decode step), "
             f"{t_cap.get('images_per_s', 0.0):.3f} images/s")
-    log(f"vlp eval in process ({smi}): run 1 {wall:.2f} s, run 2 {wall2:.2f} s (checkpoint "
-        f"load, 2 datasets of {len(VLP_SIZES)} rows), metrics and captions equal; peak memory {peak:.2f} GiB; {vals}")
+    log(f"vlp eval in process ({smi}): run 1 {wall:.2f} s (checkpoint load, 2 datasets of "
+        f"{len(VLP_SIZES)} rows), run 2 {wall2:.2f} s (the first {VLP_CLI_ROWS} rows), their "
+        f"captions equal; peak memory {peak:.2f} GiB; {vals}")
 
     # (e) DaViT-d3
     davit_dict = load_opt_command(["eval", "--conf_files",
@@ -5275,6 +5351,83 @@ def write_wordpiece_tokenizer(path, n_vocab, seed=0):
                    "cls_token": "[CLS]", "mask_token": "[MASK]", "bos_token": "[DEC]",
                    "model_max_length": 512, "clean_up_tokenization_spaces": True}, f)
     return {t: j for j, t in added}
+
+
+OPT_SPECIALS = ("<s>", "<pad>", "</s>", "<unk>")   # ids 0-3 of facebook/opt's vocabulary
+OPT_TOKENIZER_IDS = 50265                         # its tokenizer; the model's table has 50272
+
+
+def write_bytelevel_tokenizer(path, n_vocab, merges=TOKENIZER_MERGES):
+    """An OPT / GPT-2 style byte-level BPE ``tokenizer.json`` of ``n_vocab``
+    ids (OPT's 50265 at the published size): <s>, <pad>, </s>, <unk> at 0-3
+    as added special tokens, GPT-2's 256 byte characters, up to ``merges``
+    merges learned here on the zoo's words (the most frequent pair first),
+    then filler merges of byte-character pairs up to ``n_vocab``; the
+    ByteLevel pre-tokenizer (no prefix space) and decoder, OPT's "</s> $A"
+    post-processor; its tokenizer_config.json (GPT2Tokenizer, bos / eos /
+    unk </s>, pad <pad>).  Returns the special tokens' ids."""
+    from collections import Counter
+
+    from cullavo_tpu_torch.data.tokenizer_json import _BYTE_ENC, gpt2_split
+
+    def pieces(text):
+        return ["".join(_BYTE_ENC[b] for b in p.encode("utf-8")) for p in gpt2_split(text)]
+
+    byte_chars = [_BYTE_ENC[b] for b in range(256)]
+    vocab = list(OPT_SPECIALS) + byte_chars
+    seqs = [list(p) for t in TOKENIZER_CORPUS + tuple(_zoo_words()) for p in pieces(" " + t)]
+    learned = []
+    for _ in range(merges):
+        counts = Counter(pair for seq in seqs for pair in zip(seq, seq[1:]))
+        if not counts or len(vocab) >= n_vocab:
+            break
+        (a, b), n = max(counts.items(), key=lambda kv: (kv[1], kv[0]))
+        if n < 2:
+            break
+        learned.append((a, b))
+        if a + b not in vocab:
+            vocab.append(a + b)
+        seqs = [_merge_pair(seq, a, b) for seq in seqs]
+    known = set(vocab)
+    fill = ((a, b) for a in byte_chars for b in byte_chars if a + b not in known)
+    while len(vocab) < n_vocab:
+        a, b = next(fill)
+        learned.append((a, b))
+        vocab.append(a + b)
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": c, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": True, "special": True}
+                         for i, c in enumerate(OPT_SPECIALS)],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+                          "use_regex": True},
+        "post_processor": {"type": "TemplateProcessing",
+                           "single": [{"SpecialToken": {"id": "</s>", "type_id": 0}},
+                                      {"Sequence": {"id": "A", "type_id": 0}}],
+                           "pair": [{"SpecialToken": {"id": "</s>", "type_id": 0}},
+                                    {"Sequence": {"id": "A", "type_id": 0}},
+                                    {"SpecialToken": {"id": "</s>", "type_id": 1}},
+                                    {"Sequence": {"id": "B", "type_id": 1}}],
+                           "special_tokens": {"</s>": {"id": "</s>", "ids": [2],
+                                                       "tokens": ["</s>"]}}},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                    "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": "", "end_of_word_suffix": "",
+                  "fuse_unk": False, "byte_fallback": False,
+                  "vocab": {t: i for i, t in enumerate(vocab)},
+                  "merges": [f"{a} {b}" for a, b in learned]}}
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"tokenizer_class": "GPT2Tokenizer", "add_bos_token": True,
+                   "add_prefix_space": False, "bos_token": "</s>", "eos_token": "</s>",
+                   "unk_token": "</s>", "pad_token": "<pad>", "errors": "replace",
+                   "model_max_length": 1000000000000000019884624838656,
+                   "clean_up_tokenization_spaces": False}, f)
+    return {t: i for i, t in enumerate(OPT_SPECIALS)}
 
 
 def write_snapshot(params, cfg, path):
@@ -5943,8 +6096,9 @@ def run_instructblip_path(device, wrappers, smi, work, profile=False):
     ``MODEL.ZOO: instructblip`` (JAX's tiny smoke tower) on 4 questions;
     then ``ZOO_QUESTIONS`` questions through ``VLZooVQAPipeline`` with the
     native answerer (beam 5, length penalty -1, ``ZOO_NEW`` tokens, the byte
-    tokenizer) twice: n = 16, a finite accuracy, identical answers, K12
-    launched 32 layers x 9 beam steps x 16; questions/s, ms per question by
+    tokenizer), then the first ``ZOO_SECOND`` again: n = 16, a finite
+    accuracy, identical answers, K12 launched 32 layers x 9 beam steps x
+    16; questions/s, ms per question by
     phase and peak memory (``profile``: one more answer under
     torch.profiler).  19b: ``run_imagenet_path`` on the same vision tower
     and Q-Former.  Returns the launches of 19a's first run."""
@@ -6020,13 +6174,14 @@ def run_instructblip_path(device, wrappers, smi, work, profile=False):
                              "vision": (b2m, "encode_image"), "prefill": (b2m, "_prefill")},
                             spent, device)
     runs = []
-    for _ in range(2):
+    for i in range(2):   # the second run over the first ZOO_SECOND questions
         pipe = zoo.VLZooVQAPipeline(None, "instructblip", answer_fn=fn)
         spent.update(dict.fromkeys(spent, 0.0))
         outs.clear()
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        res, counts = counted(wrappers, lambda: pipe.evaluate_model(rows))
+        res, counts = counted(wrappers, lambda: pipe.evaluate_model(
+            rows if i == 0 else rows[:ZOO_SECOND]))
         torch.cuda.synchronize(device)
         runs.append((res, counts, time.perf_counter() - t0, dict(spent), list(outs),
                      [x["answer"] for x in pipe.evaluator.results],
@@ -6043,16 +6198,16 @@ def run_instructblip_path(device, wrappers, smi, work, profile=False):
     if not (res["n"] == ZOO_QUESTIONS and math.isfinite(res["overall"])
             and 0.0 <= res["overall"] <= 100.0):
         raise RuntimeError(f"InstructBLIP: bad metrics {res}")
-    if answers != answers2 or res != res2 or not all(
+    if answers[:ZOO_SECOND] != answers2 or res2["n"] != ZOO_SECOND or not all(
             torch.equal(a, b) for a, b in zip(toks, toks2)):
         raise RuntimeError("InstructBLIP: two runs gave different answers")
-    log(f"InstructBLIP: {res}; answers identical across the two runs; answers[:3] "
+    log(f"InstructBLIP: {res}; the second run's {ZOO_SECOND} answers identical; answers[:3] "
         f"{answers[:3]}; tokens[0] {toks[0].tolist()}")
-    for i, (_, c, wall, t, _, _, peak) in enumerate(runs, 1):
-        per_q = 1e3 / ZOO_QUESTIONS
+    for i, (r, c, wall, t, _, _, peak) in enumerate(runs, 1):
+        per_q = 1e3 / r["n"]
         decode = t["answer"] - t["vision"] - t["prefill"]
-        log(f"InstructBLIP run {i} ({smi}): {ZOO_QUESTIONS / wall:.4f} questions/s "
-            f"({wall:.3f} s for {ZOO_QUESTIONS}); ms per question: vision + Q-Former/projection "
+        log(f"InstructBLIP run {i} ({smi}): {r['n'] / wall:.4f} questions/s "
+            f"({wall:.3f} s for {r['n']}); ms per question: vision + Q-Former/projection "
             f"{t['vision'] * per_q:.2f}, Vicuna prefill {t['prefill'] * per_q:.2f}, beam decode "
             f"{decode * per_q:.2f}, the rest (host: tokenizer, pipeline, scoring) "
             f"{(wall - t['answer']) * per_q:.2f}; peak memory {peak:.2f} GiB; K12 launches "
@@ -6202,6 +6357,7 @@ def run_imagenet_path(cfg, params, device, smi, work):
             f"{n_images}, batch 32, preprocessed beforehand); peak memory {peak:.2f} GiB")
 
 
+TOPIC_SECOND = 8              # the second run's questions
 TOPIC_QUESTIONS = VL_QUESTION_TEXT + ("What is it?", "Who is there?", "Any dogs?",
                                       "Is it raining?", "What color?", "How many cats?",
                                       "Where is he?", "Is it day?")
@@ -6259,7 +6415,7 @@ def run_topic_path(device, wrappers, smi, profile=False):
     restore = _phase_timers({"generate": (vq, "generate"), "clip": (vq, "_clip_embed")},
                             spent, device)
     runs = []
-    for _ in range(2):
+    for i in range(2):   # the second run over the first TOPIC_SECOND questions
         fn = vq.make_topic_fn(lparams, lcfg, vq._ByteHFTok(32000), cparams, ccfg,
                               vq._ByteHFTok(ccfg.vocab_size, max_len=77, eot_is_max=True),
                               seed=SEED)
@@ -6267,7 +6423,8 @@ def run_topic_path(device, wrappers, smi, profile=False):
         outs.clear()
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        classes, counts = counted(wrappers, lambda: [fn(q) for q in TOPIC_QUESTIONS])
+        qs = TOPIC_QUESTIONS if i == 0 else TOPIC_QUESTIONS[:TOPIC_SECOND]
+        classes, counts = counted(wrappers, lambda: [fn(q) for q in qs])
         torch.cuda.synchronize(device)
         runs.append((classes, counts, time.perf_counter() - t0, dict(spent), list(outs),
                      torch.cuda.max_memory_allocated(device) / 2**30))
@@ -6282,11 +6439,12 @@ def run_topic_path(device, wrappers, smi, profile=False):
     if any(counts[k] != n for k, n in want.items()) or any(
             n for k, n in counts.items() if k not in want):
         raise RuntimeError(f"topic classifier: launches {counts}, predicted {want}")
-    if classes != runs[1][0] or not all(c in constants.COCO_SEMANTIC_CLASSES for c in classes):
+    if classes[:TOPIC_SECOND] != runs[1][0] or not all(
+            c in constants.COCO_SEMANTIC_CLASSES for c in classes):
         raise RuntimeError(f"topic classifier: {classes} vs {runs[1][0]}")
-    log(f"topic classifier: classes identical across the two runs: {classes}")
-    for i, (_, c, wall, t, _, peak) in enumerate(runs, 1):
-        per_q = 1e3 / len(TOPIC_QUESTIONS)
+    log(f"topic classifier: the second run's {TOPIC_SECOND} classes identical: {classes}")
+    for i, (cl, c, wall, t, _, peak) in enumerate(runs, 1):
+        per_q = 1e3 / len(cl)
         log(f"topic run {i} ({smi}): {wall * per_q:.2f} ms per question (generate "
             f"{t['generate'] * per_q:.2f}, CLIP {t['clip'] * per_q:.2f}, the rest "
             f"{(wall - t['generate'] - t['clip']) * per_q:.2f}); peak memory {peak:.2f} GiB")
@@ -6557,27 +6715,34 @@ def _blip2_hf_config(cfg, kind):
             "vocab_size", "d_model", "d_kv", "num_heads", "d_ff", "num_layers",
             "num_decoder_layers", "relative_attention_num_buckets",
             "relative_attention_max_distance")}}
+    elif cfg.text_is_opt:
+        text = {"model_type": "opt", "word_embed_proj_dim": t.hidden_size, **{
+            k: getattr(t, k) for k in ("vocab_size", "hidden_size", "ffn_dim",
+                                       "num_hidden_layers", "num_attention_heads",
+                                       "max_position_embeddings", "do_layer_norm_before",
+                                       "activation_function")}}
     else:
         text = {"model_type": "llama", **{k: getattr(t, k) for k in (
             "vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",
             "num_attention_heads", "num_key_value_heads")}}
-    arch = ("Blip2ForConditionalGeneration" if kind == "flant5"
-            else "InstructBlipForConditionalGeneration")
-    return {"architectures": [arch], "model_type": "blip-2" if kind == "flant5" else "instructblip",
+    blip2 = kind in ("flant5", "opt")
+    arch = "Blip2ForConditionalGeneration" if blip2 else "InstructBlipForConditionalGeneration"
+    return {"architectures": [arch], "model_type": "blip-2" if blip2 else "instructblip",
             "num_query_tokens": cfg.num_query_tokens, "vision_config": vision,
             "qformer_config": qformer, "text_config": text}
 
 
 def write_zoo_snapshot(path, kind, cfg, params):
-    """A snapshot of ``kind`` ("flant5", "instructblip", "kosmos2") in the
-    HF layout from the port's tree: config.json, model.safetensors (f32, by
-    ``zoo_import``'s exporters and the port's writer), the synthetic
-    tokenizers of the published sizes (Flan-T5: Unigram 32128 with 100
-    <extra_id_N>; InstructBLIP: Vicuna's BPE of 32000 pieces with <pad> at
-    32000, and under
-    qformer_tokenizer/ BERT's WordPiece 30522 + [DEC]; KOSMOS-2: XLM-R's
-    Unigram 65037 with its tags and 1024 patch tokens) and the image
-    processor's config.  Returns the bytes of weights."""
+    """A snapshot of ``kind`` ("flant5", "opt", "instructblip", "kosmos2")
+    in the HF layout from the port's tree: config.json, model.safetensors
+    (f32, by ``zoo_import``'s exporters and the port's writer), the
+    synthetic tokenizers of the published sizes (Flan-T5: Unigram 32128
+    with 100 <extra_id_N>; OPT: GPT-2's byte-level BPE of 50265 ids;
+    InstructBLIP: Vicuna's BPE of 32000 pieces with <pad> at 32000, and
+    under qformer_tokenizer/ BERT's WordPiece 30522 + [DEC]; KOSMOS-2:
+    XLM-R's Unigram 65037 with its tags and 1024 patch tokens) and, for
+    KOSMOS-2, the image processor's config.  Returns the bytes of
+    weights."""
     from cullavo_tpu_torch.checkpoint.safetensors_io import write_safetensors
     from cullavo_tpu_torch.checkpoint.zoo_import import (blip2_to_hf_state_dict,
                                                          kosmos2_to_hf_state_dict)
@@ -6610,6 +6775,8 @@ def write_zoo_snapshot(path, kind, cfg, params):
         state = blip2_to_hf_state_dict(params, cfg)
         if kind == "flant5":
             write_unigram_tokenizer(path, "t5", cfg.text.vocab_size, n_extra=100, seed=SEED + 42)
+        elif kind == "opt":
+            write_bytelevel_tokenizer(path, OPT_TOKENIZER_IDS)
         else:
             write_tokenizer(path, added=((32000, "<pad>"),), n_vocab=32000)
             write_wordpiece_tokenizer(os.path.join(path, "qformer_tokenizer"), 30522,
@@ -6722,6 +6889,205 @@ def run_zoo_snapshot_path(device, wrappers, smi, work):
         torch.cuda.empty_cache()
     zoo._blip2_cfg_cls, zoo.Kosmos2Config = saved
     return dict(total)
+
+
+def _opt_probe(cfg, params, inputs):
+    """BLIP-2 OPT's forward logits, and the logits of the prefill's last
+    position and of decode steps over the head-major cache (K12 on the card
+    in f32), on one device."""
+    import torch
+
+    from cullavo_tpu_torch.models.blip2 import modeling as b2m
+
+    pix, ids, dec = inputs
+    mask = torch.ones_like(ids)
+    logits = b2m.blip2_forward(params, cfg, pix, ids, mask)
+    embeds, mask0 = b2m._prefix_inputs(params, b2m.encode_image(params, cfg, pix), ids, mask)
+    cache, full_mask, key_pos, first, last_pos = b2m._prefill(params, cfg, embeds, mask0,
+                                                             dec.shape[1] + 1)
+    steps, T = [first], mask0.shape[1]
+    for i in range(dec.shape[1]):
+        last_pos = last_pos + 1
+        steps.append(b2m._step(params, cfg, dec[:, i], cache, full_mask, key_pos, T + i,
+                               last_pos, embeds.dtype))
+    return logits, torch.stack(steps, 1)
+
+
+def _opt_cut(cfg, vision, qformer, text):
+    r = dataclasses.replace
+    return r(cfg, vision=r(cfg.vision, num_hidden_layers=vision),
+             qformer=r(cfg.qformer, num_hidden_layers=qformer),
+             text=r(cfg.text, num_hidden_layers=text))
+
+
+def run_opt_path(device, wrappers, smi, work, profile=False):
+    """Phase 21, BLIP-2 OPT (Salesforce/blip2-opt-2.7b: EVA-ViT-g 39 x 1408,
+    the Q-Former 12 x 768, OPT 32 x 2560 with 32 heads of 80), f32.  21a: a
+    card-vs-CPU check at ``ZOO_CUT`` layers per tower (forward logits, the
+    prefill's last logits and four decode steps: K12 ``ZOO_CUT`` x 4), then
+    the full width and depth with seeded random weights built on the card
+    answering ``ZOO_QUESTIONS`` questions through ``VLZooVQAPipeline`` with
+    the checkpoint-free native answerer (``kind="opt"``: beam 5, length
+    penalty -1, ``ZOO_NEW`` tokens, the byte tokenizer), then the first
+    ``ZOO_SECOND`` again: n = 16, a finite accuracy, identical answers and
+    tokens, K12 launched 32 layers x 9 beam steps x 16 and nothing else;
+    questions/s, ms per question by phase, peak memory.  21b: a
+    blip2-opt-2.7b-shaped snapshot at ``ZOO_PATH_CUT`` depth (full width,
+    the byte-level BPE tokenizer of 50265 ids) written by
+    ``write_zoo_snapshot``, read back bit-equal by ``load_blip2_safetensors``,
+    then ``native_blip2_answer_fn(hf_model_dir=..., kind="opt")`` (the
+    published config factory swapped for the cut one) answering phase 11's
+    ``ZOO_QUESTIONS`` raw images through the pipeline: n = 16, a finite
+    accuracy, K12 launched cut layers x 9 x 16.  Returns the launches of
+    21a's first run and of 21b."""
+    import math
+
+    import torch
+
+    from cullavo_tpu_torch.checkpoint.zoo_import import load_blip2_safetensors
+    from cullavo_tpu_torch.data.mappers.eval_mappers import VQAEvalMapper
+    from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
+    from cullavo_tpu_torch.models.blip2 import Blip2Config, init_blip2_params
+    from cullavo_tpu_torch.models.blip2 import modeling as b2m
+    from cullavo_tpu_torch.pipelines import vl_zoo_pipeline as zoo
+    from cullavo_tpu_torch.utils.tree import tree_leaves
+
+    cfg = Blip2Config()
+    cut = _opt_cut(cfg, ZOO_CUT, ZOO_CUT, ZOO_CUT)
+    params = init_blip2_params(cut, torch.Generator(device=device).manual_seed(SEED + 51), device)
+    text = zoo.MODEL_SPECS["blip2"].prompt.format(q=VL_QUESTION_TEXT[0])
+    ids = torch.tensor([ByteTokenizer().encode(text)], device=device)
+    g = torch.Generator(device=device).manual_seed(SEED + 52)
+    inputs = (torch.randn((1, 3, ZOO_SIDE, ZOO_SIDE), generator=g, device=device), ids,
+              torch.randint(4, 260, (1, 4), generator=g, device=device))
+    _cut_depth_check("BLIP-2 OPT", _opt_probe, cut, params, inputs, device, wrappers,
+                     {"flash_decode": ZOO_CUT * 4})
+    del params
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    params = init_blip2_params(cfg, torch.Generator(device=device).manual_seed(SEED + 53), device)
+    torch.cuda.synchronize(device)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"blip2-opt-2.7b: {n_params / 1e9:.3f} G parameters in f32 built on the card in "
+        f"{time.perf_counter() - t0:.3f} s, {torch.cuda.memory_allocated(device) / 2**30:.2f} "
+        "GiB allocated")
+    mapper = VQAEvalMapper(image_size=ZOO_SIDE)
+    rows = []
+    for rec in zoo_records():
+        m = mapper(rec)
+        m["image"] = m.pop("pixel_values")
+        rows.append(m)
+    fn = zoo.native_blip2_answer_fn(cfg, params, ByteTokenizer(), max_new_tokens=ZOO_NEW,
+                                    kind="opt")
+    spent = dict.fromkeys(("answer", "vision", "prefill"), 0.0)
+    outs = []
+    original_beam = zoo.blip2_beam_generate
+
+    def keep(*a, **kw):
+        out = original_beam(*a, **kw)
+        outs.append(out.cpu())
+        return out
+
+    zoo.blip2_beam_generate = keep
+    restore = _phase_timers({"answer": (zoo, "blip2_beam_generate"),
+                             "vision": (b2m, "encode_image"), "prefill": (b2m, "_prefill")},
+                            spent, device)
+    runs = []
+    for i in range(2):   # the second run over the first ZOO_SECOND questions
+        pipe = zoo.VLZooVQAPipeline(None, "blip2", answer_fn=fn)
+        spent.update(dict.fromkeys(spent, 0.0))
+        outs.clear()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        res, counts = counted(wrappers, lambda: pipe.evaluate_model(
+            rows if i == 0 else rows[:ZOO_SECOND]))
+        torch.cuda.synchronize(device)
+        runs.append((res, counts, time.perf_counter() - t0, dict(spent), list(outs),
+                     [x["answer"] for x in pipe.evaluator.results],
+                     torch.cuda.max_memory_allocated(device) / 2**30))
+    restore()
+    zoo.blip2_beam_generate = original_beam
+    (res, counts, _, _, toks, answers, _), (res2, counts2, _, _, toks2, answers2, _) = runs
+    L = cfg.text.num_hidden_layers
+    want = L * (ZOO_NEW - 1) * ZOO_QUESTIONS
+    log(f"launches on the BLIP-2 OPT path: {counts}; K12 predicted {want} ({L} layers x "
+        f"{ZOO_NEW - 1} beam steps x {ZOO_QUESTIONS} questions)")
+    if (counts["flash_decode"] != want
+            or counts2["flash_decode"] != L * (ZOO_NEW - 1) * ZOO_SECOND
+            or any(n for k, n in counts.items() if k != "flash_decode")):
+        raise RuntimeError(f"BLIP-2 OPT: launches {counts} / {counts2}, K12 predicted {want}")
+    if not (res["n"] == ZOO_QUESTIONS and math.isfinite(res["overall"])
+            and 0.0 <= res["overall"] <= 100.0):
+        raise RuntimeError(f"BLIP-2 OPT: bad metrics {res}")
+    if answers[:ZOO_SECOND] != answers2 or res2["n"] != ZOO_SECOND or not all(
+            torch.equal(a, b) for a, b in zip(toks, toks2)):
+        raise RuntimeError("BLIP-2 OPT: two runs gave different answers")
+    log(f"BLIP-2 OPT: {res}; the second run's {ZOO_SECOND} answers identical; answers[:3] "
+        f"{answers[:3]}; tokens[0] {toks[0].tolist()}")
+    for i, (r, c, wall, t, _, _, peak) in enumerate(runs, 1):
+        per_q = 1e3 / r["n"]
+        decode = t["answer"] - t["vision"] - t["prefill"]
+        log(f"BLIP-2 OPT run {i} ({smi}): {r['n'] / wall:.4f} questions/s ({wall:.3f} s for "
+            f"{r['n']}); ms per question: vision + Q-Former/projection "
+            f"{t['vision'] * per_q:.2f}, OPT prefill {t['prefill'] * per_q:.2f}, beam decode "
+            f"{decode * per_q:.2f}, the rest (host: tokenizer, pipeline, scoring) "
+            f"{(wall - t['answer']) * per_q:.2f}; peak memory {peak:.2f} GiB; K12 launches "
+            f"{c['flash_decode']}")
+    if profile:
+        profile_zoo("blip2-opt", fn, rows[0])
+    del params, fn, pipe
+    torch.cuda.empty_cache()
+
+    # 21b: a snapshot at cut depth through the snapshot answerer
+    c = ZOO_PATH_CUT
+    snap_cfg = _opt_cut(cfg, c["vision"], c["qformer"], c["text"])
+    t0 = time.perf_counter()
+    params = init_blip2_params(snap_cfg, torch.Generator(device=device).manual_seed(SEED + 54),
+                               device)
+    snap = os.path.join(work, "zoo_opt")
+    nb = write_zoo_snapshot(snap, "opt", snap_cfg, params)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_blip2_safetensors(snap, snap_cfg, dtype=torch.float32, device=device)
+    t_read = time.perf_counter() - t0
+    bad = _same_tree(back, params)
+    log(f"blip2-opt snapshot ({c} layers, full width, f32): {nb / 1e9:.3f} GB built and written "
+        f"in {t_write:.2f} s, read back in {t_read:.2f} s: {len(bad)} leaves differ "
+        "(bit-equal demanded)")
+    if bad:
+        raise RuntimeError(f"the blip2-opt snapshot differs from the written weights: {bad[:5]}")
+    del params, back
+    torch.cuda.empty_cache()
+    saved = zoo._blip2_cfg_cls
+    zoo._blip2_cfg_cls = lambda kind: (snap_cfg, None)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    fn = zoo.native_blip2_answer_fn(hf_model_dir=snap, kind="opt", max_new_tokens=ZOO_NEW)
+    torch.cuda.synchronize(device)
+    t_load = time.perf_counter() - t0
+    pipe = zoo.VLZooVQAPipeline(None, "blip2", answer_fn=fn)
+    t0 = time.perf_counter()
+    res, counts = counted(wrappers, lambda: pipe.evaluate_model(zoo_records()))
+    torch.cuda.synchronize(device)
+    t_eval = time.perf_counter() - t0
+    zoo._blip2_cfg_cls = saved
+    answers = [x["answer"] for x in pipe.evaluator.results]
+    want = c["text"] * (ZOO_NEW - 1) * ZOO_QUESTIONS
+    log(f"blip2-opt snapshot through native_blip2_answer_fn(hf_model_dir, kind='opt'): {res}; "
+        f"launches {counts} (K12 predicted {want}); answers[:3] {answers[:3]}")
+    if not (res["n"] == ZOO_QUESTIONS and math.isfinite(res["overall"])
+            and 0.0 <= res["overall"] <= 100.0 and counts["flash_decode"] == want
+            and not any(n for k, n in counts.items() if k != "flash_decode")):
+        raise RuntimeError(f"blip2-opt snapshot: {res}, launches {counts}")
+    log(f"blip2-opt snapshot ({smi}): snapshot load (tokenizer, config, weights) "
+        f"{t_load:.3f} s, {ZOO_QUESTIONS / t_eval:.4f} questions/s ({t_eval:.3f} s for "
+        f"{ZOO_QUESTIONS}, raw images CLIP-preprocessed by the answerer), peak memory "
+        f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB")
+    shutil.rmtree(snap)
+    del fn, pipe
+    torch.cuda.empty_cache()
+    return runs[0][1], counts
 
 
 def check_packed_kernel(device, g):
@@ -7034,9 +7400,13 @@ def write_panoptic_dataset(root, n=LOOP_IMAGES, hw=LOOP_IMAGE_HW):
 
 
 def _same_tree(a, b, prefix=""):
-    """Paths where two trees (dicts of tensors, ints, None) differ bit for bit."""
+    """Paths where two trees (dicts and lists of tensors, ints, None) differ
+    bit for bit."""
     import torch
 
+    if isinstance(a, (list, tuple)):
+        return [p for i, (x, y) in enumerate(zip(a, b)) for p in _same_tree(
+            x, y, f"{prefix}/{i}")] + ([prefix + "/<len>"] if len(a) != len(b) else [])
     if isinstance(a, dict):
         return [p for k in a for p in _same_tree(a[k], b[k], f"{prefix}/{k}")] + (
             [prefix + "/<keys>"] if sorted(a) != sorted(b) else [])
@@ -7058,7 +7428,9 @@ def run_train_loop_path(snap, cfg, device, wrappers, smi, work):
     before its first step, losses finite), then 2 steps with
     ``CULLAVO_FLASH_PACKED=1`` without saving (step-1 loss within 1e-3
     relative of the first run's; K13 64 and K1-lse 32 launches per step).
-    Returns the packed run's launch counts."""
+    Returns the packed run's launch counts and run 1's reference for phase
+    22a (the dataset's registration, each step's metrics and seconds, the
+    trainable partition's GB)."""
     import math
 
     import torch
@@ -7075,10 +7447,10 @@ def run_train_loop_path(snap, cfg, device, wrappers, smi, work):
     base = {**TRAIN_CFG, "LOG_EVERY": 1,
             "MODEL": {"LLM": {**TRAIN_CFG["MODEL"]["LLM"], "LOAD_PATH": snap}},
             "DATASETS": {"TRAIN": LOOP_DATASET}}
+    dataset = {"KIND": "coco_panoptic", "JSON": json_file, "IMAGE_DIR": img_dir,
+               "PANOPTIC_DIR": pan_dir, "NUM_CLASSES": 133}
     cfg1 = {**base, "EPOCHS": 2, "SAVE_DIR": save_dir,
-            "DATASETS": {"TRAIN": LOOP_DATASET, "REGISTER": {LOOP_DATASET: {
-                "KIND": "coco_panoptic", "JSON": json_file, "IMAGE_DIR": img_dir,
-                "PANOPTIC_DIR": pan_dir, "NUM_CLASSES": 133}}}}
+            "DATASETS": {"TRAIN": LOOP_DATASET, "REGISTER": {LOOP_DATASET: dataset}}}
 
     # record what each run's loop starts from, its step and save seconds
     real_loop = entry.train_loop
@@ -7142,6 +7514,9 @@ def run_train_loop_path(snap, cfg, device, wrappers, smi, work):
         raise RuntimeError(f"train loop: checkpoints read back differ: {bad[:5]}")
     du = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(save_dir) for f in fs)
     del back, ref_back
+    ref = {"dataset": dataset, "history": res1["history"], "launches": counts1,
+           "steps": [round(x, 4) for x in info1["steps"]],
+           "trainable_gb": nbytes(*(t for _, t in _tree_leaves(state1.trainable))) / 1e9}
     final1 = state1.trainable
     del res1, state1
     torch.cuda.empty_cache()
@@ -7177,7 +7552,7 @@ def run_train_loop_path(snap, cfg, device, wrappers, smi, work):
             f"+ epochN) {[round(x, 2) for x in info['saves']]} s; wall {info['wall']:.2f} s "
             f"(snapshot load and NF4 quantization included); peak memory {info['peak']:.2f} GiB")
     log(f"checkpoints on disk: {du / 1e9:.3f} GB (step_2, step_4, epoch0, epoch1)")
-    return counts3
+    return counts3, ref
 
 
 def run_matmul_probe(device, wrappers):
@@ -7244,12 +7619,14 @@ def run_step2_pre_path(snap, device, wrappers, smi, work):
     (``--config_overrides``) with ``LOAD_PATH`` the snapshot
     (``--overrides``): 256 sampled tokens, batch 8, so two chunks, the
     second padded by repetition.  (1) ``python -m cullavo_tpu_torch eval
-    --conf_files configs/cullavo_step2_pre.yaml ...`` in a subprocess: exit
-    0 and well-formed rows.  (2) The main path: ``entry.main`` on the same
+    --conf_files configs/cullavo_step2_pre.yaml ...`` runs in phase 22c, on
+    two ranks.
+    (2) The main path: ``entry.main`` on the same
     arguments in this process, launches counted; the pipeline's ``generate``
     calls are recorded, their prefill and decode steps timed apart; exit
-    and rows as in (1).  (3) The first chunk's call again with its recorded
-    seed: equal tokens.  (4) On the first chunk's inputs at 32 new tokens:
+    and well-formed rows.  (3) The first chunk's call again with its
+    recorded seed at 32 new tokens: equal to the first chunk's first 32.
+    (4) On the first chunk's inputs at 32 new tokens:
     the sampled fused ``generate``, the greedy fused ``generate`` and
     ``generate_prefill`` + ``generate_decode``, each with prefill and steps
     timed apart (the sampler's cost and the early stop's host read apart);
@@ -7275,21 +7652,6 @@ def run_step2_pre_path(snap, device, wrappers, smi, work):
         return ["eval", "--conf_files", os.path.join(REPO, STEP2_CFG),
                 "--config_overrides", json.dumps(over),
                 "--overrides", "MODEL.LLM.LOAD_PATH", snap, "SAVE_DIR", out_dir]
-
-    cli_dir = os.path.join(work, "step2_pre_cli")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-m", "cullavo_tpu_torch"] + argv(cli_dir), cwd=REPO,
-                         env=env, capture_output=True, text=True, timeout=600)
-    t_cli = time.perf_counter() - t0
-    for line in (res.stdout + res.stderr).strip().splitlines()[-6:]:
-        log(f"  step2_pre CLI: {line}")
-    if res.returncode != 0:
-        raise RuntimeError(f"step2_pre: python -m cullavo_tpu_torch exited {res.returncode}")
-    made_cli = check_step2_rows(cli_dir, json.loads(res.stdout.strip().splitlines()[-1]))
-    log(f"step2_pre CLI ({smi}): exit 0 in {t_cli:.2f} s (process start, snapshot load, both "
-        f"chunks); {len(made_cli)} rows")
 
     # the pipeline's generate calls, and every prefill and decode loop timed
     # (a decode loop also keeps the host clock at each of its forwards: the
@@ -7383,19 +7745,21 @@ def run_step2_pre_path(snap, device, wrappers, smi, work):
         f"last {k} steps {first_last} ms); {emitted} tokens emitted "
         f"in {gen_s:.3f} s of generate = {emitted / gen_s:.1f} tokens/s; peak memory "
         f"{peak:.2f} GiB; K1 {counts['flash_fwd']} and K4 {counts['wwin_decode']} launches; "
-        f"{len(made)} rows (random weights: a sampled text rarely parses into boxes); "
-        f"rows equal to the CLI's: {made == made_cli}")
+        f"{len(made)} rows (random weights: a sampled text rarely parses into boxes)")
 
     first = calls[0]
     params, model_cfg, ids, pix, mask = first["args"]
-    again = tm.generate(params, model_cfg, ids, pix, mask, first["gen"], first["max_len"],
+    again = tm.generate(params, model_cfg, ids, pix, mask,
+                        dataclasses.replace(first["gen"], max_new_tokens=STEP2_CHECK_NEW),
+                        first["max_len"],
                         rng=torch.Generator(device=device).manual_seed(first["seed"]),
                         compute_dtype=first["dtype"])
     take_spans()
-    if not torch.equal(again, first["out"]):
+    if not torch.equal(again, first["out"][:, :STEP2_CHECK_NEW]):
         raise RuntimeError("step2_pre: the first chunk again from its seed gave other tokens")
-    log(f"step2_pre sampled: the first chunk again from seed {first['seed']}: tokens identical; "
-        f"tokens[0][:12] {again[0, :12].tolist()}")
+    log(f"step2_pre sampled: the first chunk again from seed {first['seed']} at "
+        f"{STEP2_CHECK_NEW} tokens: equal to its first {STEP2_CHECK_NEW}; tokens[0][:12] "
+        f"{again[0, :12].tolist()}")
 
     short = T + STEP2_CHECK_NEW
     sampled = dataclasses.replace(first["gen"], max_new_tokens=STEP2_CHECK_NEW)
@@ -7476,6 +7840,467 @@ def run_step2_pre_path(snap, device, wrappers, smi, work):
     return counts
 
 
+PAR_RANKS = 2
+PAR_TIMEOUT = 600                         # s a spawn of ranks may take
+# two ranks against one process, relative, per path: (loss, grad_norm).  bf16
+# compute: the halves' GEMMs round apart from the whole batch's.  From
+# ``--par-calibrate`` (PERF.md §6).  Q-LoRA is deterministic: each
+# limit lies between the largest sound reading (5.4e-5, 4.0e-4) and the
+# local-denominator fault's (1.3e-4, 6.2e-4).  The X-Decoder's step is not
+# (one process twice: 5.2e-5, 3.9e-4) and its sound readings reach 6.6e-5 and
+# 5.4e-3, as far as that fault's: the limits sit 3x and ~4x above them, the
+# grad_norm limit 26x below the missing gradient all-reduce's 0.52
+PAR_TOL = {"qlora": (8e-5, 5e-4), "xtrain": (2e-4, 2e-2)}
+# the faults ``--par-calibrate`` plants on two ranks: each rank's loss over
+# its own denominator (per-rank means averaged, as DDP does), or no
+# all-reduce of the gradient (each rank steps on its own rows' gradient)
+PAR_FAULTS = ("local_denominator", "no_grad_allreduce")
+PAR_CAL_SEEDS = (0, 1, 2)
+STEP2_PAR_NEW, STEP2_PAR_BATCH = 64, 4    # phase 22c: 12 rows, 6 a rank, 2 chunks each
+# each kernel's wrapper (its module, its function); every wrapper counts its
+# kernel's launches in ``.launches``
+WRAPPERS = {
+    "flash_fwd": ("ops.flash_attention", "flash_attention"),
+    "quant_rows": ("ops.nf4", "quantize_rows"), "int8_linear": ("ops.nf4", "int8_linear"),
+    "wwin_decode": ("ops.wwin_decode", "wwin_decode_smajor"),
+    "wwin_decode_q8": ("ops.wwin_decode", "wwin_decode_smajor_q8"),
+    "nf4_linear_planar": ("ops.nf4", "nf4_linear_planar"),
+    "nf4_dequant_planar": ("ops.nf4", "nf4_dequant_planar"),
+    "flash_fwd_lse": ("ops.flash_attention", "flash_lse"),
+    "flash_rows": ("ops.flash_attention", "flash_rows"),
+    "ms_deform_attn": ("ops.msdeform", "ms_deform_attn_kernel"),
+    "focal_ctx": ("ops.focal", "focal_ctx_kernel"),
+    "nf4_linear_q4": ("ops.nf4", "nf4_linear_q4"), "nf4_dequant_q4": ("ops.nf4", "nf4_dequant_q4"),
+    "flash_decode": ("ops.flash_attention", "decode_partials"),
+    "flash_packed": ("ops.flash_attention", "flash_attention_packed"),
+    "p32_linear": ("scripts.matmul_probe", "p32_linear")}
+
+
+def load_wrappers():
+    import importlib
+
+    return {name: getattr(importlib.import_module(f"cullavo_tpu_torch.{mod}"), fn)
+            for name, (mod, fn) in WRAPPERS.items()}
+
+
+def plant_fault(name):
+    """One of ``PAR_FAULTS``, patched into this rank's modules."""
+    from cullavo_tpu_torch.parallel.mesh import BatchPart
+    from cullavo_tpu_torch.trainer import step, xdecoder_step
+
+    if name == "local_denominator":   # each denominator W x this rank's own
+        own = step.loss_weight_sum
+        step.loss_weight_sum = lambda labels, mask, weights, parallel: (
+            own(labels, mask, weights) * parallel.process_count)
+        BatchPart.sum = lambda self, x: x.detach().clone() * self.ctx.process_count
+    elif name == "no_grad_allreduce":
+        step.all_reduce_tree = xdecoder_step.all_reduce_tree = list
+    else:
+        raise ValueError(f"no planted fault {name!r}: {PAR_FAULTS}")
+
+
+def rank_main(argv):
+    """``chip_smoke.py --rank [--fault NAME] -- ARGS``: one process of phase
+    22's runs (or of ``--par-calibrate``): ``entry.main(ARGS)`` with every
+    wrapper's launch count set to 0 just before it, then one JSON line
+    ``{"rank_report": {"launches", "history"}}`` (a training run's steps'
+    loss and grad_norm); TF32 off, as phase 1 sets it.  ``--fault``:
+    ``plant_fault``'s, for ``--par-calibrate`` only."""
+    import torch
+
+    sep = argv.index("--")
+    opts, args = argv[:sep], argv[sep + 1:]
+    sys.path.insert(0, REPO)
+    from cullavo_tpu_torch import entry
+
+    # phase 1's settings, under which the in-process runs compared with
+    # these ranks ran
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    if "--fault" in opts:
+        plant_fault(opts[opts.index("--fault") + 1])
+    wrappers = load_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    out = entry.main(args)
+    hist = out.get("history") if isinstance(out, dict) else None
+    keys = ("loss_llm", "loss_total", "grad_norm")
+    print(json.dumps({"rank_report": {
+        "launches": {name: w.launches for name, w in wrappers.items()},
+        "history": [{k: h[k] for k in keys if k in h} for h in hist] if hist else None}}),
+        flush=True)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(label, argvs, work, timeout=PAR_TIMEOUT, fault=None):
+    """``len(argvs)`` ranks of ``rank_main`` (``entry.main`` as ``python -m
+    cullavo_tpu_torch`` runs it) on this card (the launcher's env contract:
+    ``CULLAVO_NUM_PROCS``, ``CULLAVO_PROC_ID``, ``CULLAVO_COORDINATOR`` at a
+    free local port; ``CULLAVO_DIST_BACKEND`` gloo, since NCCL takes one
+    rank a device; one argv: one process, no group), their output in files
+    under ``work``.  A rank that exits non-zero, or the time limit, stops
+    every rank and raises.  Returns each rank's (stdout, stderr), its
+    report and the wall s."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]),
+        CULLAVO_NUM_PROCS=str(len(argvs)), CULLAVO_COORDINATOR=f"127.0.0.1:{port}",
+        CULLAVO_DIST_BACKEND="gloo")
+    procs, files = [], []
+    t0 = time.perf_counter()
+    for r, argv in enumerate(argvs):
+        out, err = (open(os.path.join(work, f"{label}_rank{r}.{x}"), "w") for x in ("out", "err"))
+        files.append((out, err))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"), "--rank"]
+            + (["--fault", fault] if fault else []) + ["--", *argv],
+            cwd=REPO, env=dict(env, CULLAVO_PROC_ID=str(r)), stdout=out, stderr=err))
+    while (any(p.poll() is None for p in procs) and time.perf_counter() - t0 < timeout
+           and not any(p.poll() not in (None, 0) for p in procs)):
+        time.sleep(0.5)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    wall = time.perf_counter() - t0
+    texts = []
+    for (out, err), p in zip(files, procs):
+        out.close()
+        err.close()
+        with open(out.name) as fo, open(err.name) as fe:
+            texts.append((fo.read(), fe.read()))
+    for r, (p, (_, err)) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            raise RuntimeError(f"{label}: rank {r} exited {p.returncode} after {wall:.1f} s:\n"
+                               + "\n".join(err.strip().splitlines()[-12:]))
+    reports = [json.loads([ln for ln in out.splitlines() if ln.startswith('{"rank_report"')][
+        -1])["rank_report"] for out, _ in texts]
+    return texts, reports, wall
+
+
+def _rank_lines(texts):
+    """Each rank's last ``{"rank": ...}`` JSON line of stdout."""
+    return [json.loads([ln for ln in out.splitlines() if ln.startswith('{"rank"')][-1])
+            for out, _ in texts]
+
+
+def _rel(got, want):
+    """The worst relative gap of two lists of floats."""
+    if len(got) != len(want):
+        return math.inf
+    return max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(got, want))
+
+
+def _held(label, got, want, tol):
+    rel = _rel(got, want)
+    if not rel <= tol:
+        raise RuntimeError(f"{label}: {got} against one process's {want} (tol {tol} relative)")
+    return rel
+
+
+def _same_launches(label, reports, want):
+    """Every rank launched each kernel as often as the one-process run of
+    the same steps (a kernel launches per layer and step, whatever a
+    rank's share of the rows)."""
+    got = [r["launches"] for r in reports]
+    if any(g != want for g in got):
+        raise RuntimeError(f"{label}: launches per rank {got}, one process {want}")
+    return got
+
+
+def qlora_argv(snap, dataset, save=None, seed=None):
+    """Phase 22a's command line: configs/cullavo_step1.yaml from ``snap``
+    over the registered ``dataset``, 2 epochs (4 steps of 8); ``SAVE_DIR``
+    and ``SEED`` where given."""
+    over = {"DATASETS.TRAIN": LOOP_DATASET, "DATASETS.REGISTER": {LOOP_DATASET: dataset}}
+    return (["train", "--conf_files", os.path.join(REPO, "configs/cullavo_step1.yaml"),
+             "--config_overrides", json.dumps(over), "--overrides", "EPOCHS", "2",
+             "LOG_EVERY", "1", "MODEL.LLM.LOAD_PATH", snap]
+            + (["SAVE_DIR", save] if save else [])
+            + (["SEED", str(seed)] if seed is not None else []))
+
+
+def run_parallel_train_path(snap, smi, work, ref):
+    """Phase 22a: ``python -m cullavo_tpu_torch train --conf_files
+    configs/cullavo_step1.yaml`` as two ranks on this card over Gloo, from
+    phase 10's 7B snapshot (``BITS: 4``, full width and depth) over phase
+    12's dataset, ``EPOCHS 2``: the global batch of 8 x 1024 split 4 + 4, 4
+    steps, LoRA dropout on.  Each step's ``loss_llm`` and ``grad_norm``
+    equal on the two ranks and within ``PAR_TOL["qlora"]`` relative of
+    phase 12's one-process run of the same config and ``SEED``; each rank
+    launched every kernel as often as that run (K1-lse 4 x 2 x 32, K7);
+    rank 0 writes step_2, step_4, epoch0 and epoch1, rank 1 (its own
+    ``SAVE_DIR``) nothing.  s per step (rank 0's log, median of steps
+    2-4), the gradient all-reduce's ms a step and share (host-staged over
+    Gloo: device -> host, the loopback, host -> device; not an NCCL
+    figure), peak GiB per rank.  Returns those and each rank's launches."""
+    saves = [os.path.join(work, f"step1_ranks_{r}") for r in range(PAR_RANKS)]
+    texts, reports, wall = run_ranks("qlora", [qlora_argv(snap, ref["dataset"], s)
+                                               for s in saves], work)
+    lines = _rank_lines(texts)
+    want_l = [h["loss_llm"] for h in ref["history"]]
+    want_n = [h["grad_norm"] for h in ref["history"]]
+    if any(ln["loss_llm"] != lines[0]["loss_llm"] or ln["grad_norm"] != lines[0]["grad_norm"]
+           for ln in lines):
+        raise RuntimeError(f"two-rank Q-LoRA: the ranks disagree: {lines}")
+    tol_l, tol_n = PAR_TOL["qlora"]
+    rel_l = _held("two-rank Q-LoRA loss_llm", lines[0]["loss_llm"], want_l, tol_l)
+    rel_n = _held("two-rank Q-LoRA grad_norm", lines[0]["grad_norm"], want_n, tol_n)
+    launches = _same_launches("two-rank Q-LoRA", reports, ref["launches"])
+    written = sorted(os.listdir(saves[0]))
+    if written != ["epoch0", "epoch1", "step_2", "step_4"] or os.path.exists(saves[1]):
+        raise RuntimeError(f"two-rank Q-LoRA: rank 0 wrote {written}, rank 1 "
+                           f"{os.listdir(saves[1]) if os.path.exists(saves[1]) else 'nothing'}")
+    logs = [ast.literal_eval(ln) for ln in texts[0][1].splitlines() if ln.startswith("{'epoch'")]
+    avg = [d["step_s"] for d in logs]
+    step_s = [avg[0]] + [(i + 1) * avg[i] - i * avg[i - 1] for i in range(1, len(avg))]
+    s_step = statistics.median(step_s[1:])
+    ar = lines[0]["allreduce_ms"]
+    log(f"two-rank Q-LoRA at 7B ({smi}; 2 processes on one card over Gloo): loss_llm "
+        f"{lines[0]['loss_llm']} (one process {want_l}, worst {rel_l:.2e} relative, tol "
+        f"{tol_l}), grad_norm {lines[0]['grad_norm']} (one process {want_n}, worst "
+        f"{rel_n:.2e}, tol {tol_n}); equal on both ranks; launches per rank as one process's "
+        f"({ {k: n for k, n in launches[0].items() if n} }); rank 0 wrote {written}, rank 1 "
+        "nothing")
+    log(f"two-rank Q-LoRA ({smi}): {s_step:.4f} s per step (median of steps 2-4; steps "
+        f"{[round(x, 4) for x in step_s]}; one process at batch 8 {ref['steps']}); gradient "
+        f"all-reduce (Gloo, host-staged, {ref['trainable_gb']:.3f} GB of f32 gradients) "
+        f"{[round(x, 2) for x in ar]} ms, {statistics.median(ar[1:]) / 1e3 / s_step:.1%} of a "
+        f"step; peak GiB per rank {[round(ln['peak_gib'], 2) for ln in lines]}; wall "
+        f"{wall:.1f} s (two process starts, two snapshot loads, 4 steps, the saves)")
+    return {"s_per_step": s_step, "allreduce_ms": ar,
+            "peak_gib": [ln["peak_gib"] for ln in lines], "launches": launches}
+
+
+def run_parallel_xtrain_path(work, smi, ref, rec):
+    """Phase 22b: ``python -m cullavo_tpu_torch train --conf_files
+    configs/xdecoder_train.yaml`` with ``MESH_DATA: 2`` as two ranks over
+    Gloo on phase 15's dataset (FocalNet-L + FPN at 512², bf16, remat; 16
+    images: 2 steps of 8 split 4 + 4): each step's ``loss_total`` and
+    ``grad_norm`` equal on both ranks and within ``PAR_TOL["xtrain"]`` of
+    phase 15's one-process ``entry.train`` on the same arguments; each rank
+    launched every kernel as often as that run (K10 2 x 48); rank 0 writes
+    the checkpoint (read back: every leaf finite), rank 1 nothing.  s per
+    step, the all-reduce's ms, peak GiB per rank (each a fresh process of
+    4 images a step: phase 15's ``peak_fresh_process``).  Returns those
+    and each rank's launches."""
+    over = {"DATASETS.TRAIN": [XTRAIN_DATASET], "DATASETS.REGISTER": {XTRAIN_DATASET: ref["spec"]},
+            "MESH_DATA": PAR_RANKS}
+    saves = [os.path.join(work, f"xtrain_ranks_{r}") for r in range(PAR_RANKS)]
+    texts, reports, wall = run_ranks("xtrain", [xtrain_argv(over, s) for s in saves], work)
+    lines = _rank_lines(texts)
+    want_l = [h["loss_total"] for h in ref["history"]]
+    want_n = [h["grad_norm"] for h in ref["history"]]
+    if any(ln["loss_total"] != lines[0]["loss_total"] or ln["grad_norm"] != lines[0]["grad_norm"]
+           for ln in lines):
+        raise RuntimeError(f"two-rank X-Decoder: the ranks disagree: {lines}")
+    tol_l, tol_n = PAR_TOL["xtrain"]
+    rel_l = _held("two-rank X-Decoder loss_total", lines[0]["loss_total"], want_l, tol_l)
+    rel_n = _held("two-rank X-Decoder grad_norm", lines[0]["grad_norm"], want_n, tol_n)
+    launches = _same_launches("two-rank X-Decoder", reports, ref["launches"])
+    from cullavo_tpu_torch.checkpoint.store import load_checkpoint
+    from cullavo_tpu_torch.utils.tree import tree_leaves
+
+    ckpt = tree_leaves(load_checkpoint(saves[0])["params"])
+    if os.listdir(saves[0]) != ["step_2"] or os.path.exists(saves[1]) or not all(
+            np_isfinite(a) for a in ckpt):
+        raise RuntimeError(f"two-rank X-Decoder: rank 0 wrote {os.listdir(saves[0])}, "
+                           f"finite: {all(np_isfinite(a) for a in ckpt)}")
+    peaks = [ln["peak_gib"] for ln in lines]
+    rec["focal_ctx"]["xdecoder_train"]["peak_fresh_process"] = {
+        "gib_per_rank": peaks, "images_per_rank_step": XDEC_BATCH // PAR_RANKS}
+    log(f"two-rank X-Decoder joint training ({smi}; MESH_DATA 2, Gloo, one card): loss_total "
+        f"{lines[0]['loss_total']} (one process {want_l}, worst {rel_l:.2e} relative, tol "
+        f"{tol_l}), grad_norm {lines[0]['grad_norm']} (one process {want_n}, worst "
+        f"{rel_n:.2e}, tol {tol_n}); launches per rank as one process's "
+        f"({ {k: n for k, n in launches[0].items() if n} }); s per step "
+        f"{[round(x, 3) for x in lines[0]['step_s']]} (rank 0), gradient all-reduce "
+        f"{[round(x, 2) for x in lines[0]['allreduce_ms']]} ms; peak GiB per rank (fresh "
+        f"processes, 4 images a step) {[round(x, 2) for x in peaks]}; wall {wall:.1f} s")
+    return {"step_s": lines[0]["step_s"], "peak_gib": peaks, "launches": launches}
+
+
+def run_parallel_step2_path(snap, smi, work, layers):
+    """Phase 22c: step2_pre as two ranks of ``python -m cullavo_tpu_torch eval
+    --conf_files configs/cullavo_step2_pre.yaml`` over Gloo, from phase 10's
+    7B bf16 snapshot, over 12 conversation rows (6 a rank, chunks of
+    ``STEP2_PAR_BATCH``), ``STEP2_PAR_NEW`` sampled tokens (the command
+    line's run of phase 14, at cut depth): both ranks exit 0 and print the
+    same row count, rank 0's ``lbk_new_version.json`` holds that many
+    well-formed rows, every image named by its global index; each rank
+    launched K1 once a layer and chunk and K4 a whole number of decode
+    steps of every layer, at most ``STEP2_PAR_NEW`` a chunk (the sampled
+    rows' ends decide).  Returns each rank's launches."""
+    root = os.path.join(work, "step2_par_rows")
+    os.makedirs(root)
+    rows = write_conversations(root)
+    out_dir = os.path.join(work, "step2_par_out")
+    over = {"DATASETS.TEST": [STEP2_DATASET + "_par"], "DATASETS.REGISTER": {
+        STEP2_DATASET + "_par": {"KIND": "conversations", "JSON": rows, "IMAGE_ROOT": root}}}
+    argv = ["eval", "--conf_files", os.path.join(REPO, STEP2_CFG), "--config_overrides",
+            json.dumps(over), "--overrides", "MODEL.LLM.LOAD_PATH", snap, "SAVE_DIR", out_dir,
+            "MAX_NEW_TOKENS", str(STEP2_PAR_NEW), "BATCH_SIZE", str(STEP2_PAR_BATCH)]
+    texts, reports, wall = run_ranks("step2", [argv] * PAR_RANKS, work)
+    printed = [json.loads([ln for ln in out.strip().splitlines()
+                           if not ln.startswith('{"rank_report"')][-1]) for out, _ in texts]
+    made = check_step2_rows(out_dir, printed[0])
+    names = {r["image"] for r in made}
+    if printed[1] != printed[0] or not names <= {f"step2_{i}.png" for i in range(STEP2_ROWS)}:
+        raise RuntimeError(f"two-rank step2_pre: printed {printed}, images {sorted(names)}")
+    chunks = -(-(STEP2_ROWS // PAR_RANKS) // STEP2_PAR_BATCH)
+    launches = [r["launches"] for r in reports]
+    for c in launches:
+        steps, rest = divmod(c["wwin_decode"], layers)
+        if c["flash_fwd"] != layers * chunks or rest or not 0 < steps <= chunks * STEP2_PAR_NEW:
+            raise RuntimeError(f"two-rank step2_pre: K1/K4 launches per rank "
+                               f"{[(x['flash_fwd'], x['wwin_decode']) for x in launches]}")
+    log(f"two-rank step2_pre ({smi}; LLaVA-1.5-7B bf16, {STEP2_PAR_NEW} tokens, Gloo): both "
+        f"ranks printed {printed[0]}; {len(made)} rows written once by rank 0; K1/K4 launches "
+        f"per rank {[(x['flash_fwd'], x['wwin_decode']) for x in launches]} ({chunks} chunks "
+        f"of {layers} layers); wall {wall:.1f} s (two process starts, two snapshot loads, "
+        f"{chunks} chunks a rank)")
+    return launches
+
+
+def run_nccl_step(device, smi, wrappers):
+    """Phase 22d: one rank in an NCCL process group (world size 1, this
+    process): the Q-LoRA step of LLaVA-1.5-7B's width at 2 LLM layers (NF4
+    base, r 64, dropout on, bf16 compute, batch 8 x 1024) with the
+    ``ParallelContext`` (NCCL all-reduces of the loss denominator, the loss
+    and the flat gradient buffer) bit-equal to the same step without a
+    process group: loss, grad_norm and every updated leaf; each step's
+    launches counted, equal, K1-lse 2 x 2 (forward and remat, 2 layers) and
+    K7 launched.  Returns the step's launches with the group."""
+    import torch
+    import torch.distributed as dist
+
+    from cullavo_tpu_torch.models.llava import lora as lora_mod
+    from cullavo_tpu_torch.models.llava.config import LlavaConfig
+    from cullavo_tpu_torch.models.llava.modeling import init_llava_params
+    from cullavo_tpu_torch.parallel import ParallelContext
+    from cullavo_tpu_torch.trainer.optimizer import cullavo_optimizer
+    from cullavo_tpu_torch.trainer.step import TrainState, make_train_step
+    from cullavo_tpu_torch.utils.tree import tree_map
+
+    cfg = LlavaConfig()
+    cfg = dataclasses.replace(cfg, text=dataclasses.replace(cfg.text, num_hidden_layers=2))
+    params = init_llava_params(cfg, torch.Generator(device=device).manual_seed(SEED + 62),
+                               device, dtype=torch.bfloat16)
+    params = lora_mod.maybe_quantize_base(params, 4)
+    lcfg = lora_mod.LoraConfig(r=64, alpha=16.0, dropout=0.05)
+    lora = lora_mod.init_lora_params(params, cfg, lcfg,
+                                     torch.Generator(device=device).manual_seed(SEED + 63))
+    trainable = tree_map(lambda t: t.float(), lora_mod.trainable_partition(params, lora))
+    frozen = lora_mod.strip_trainable(params)
+    batch, _ = make_train_batch(cfg, device)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    backend = dist.get_backend()
+    out = []
+    for par in (None, ParallelContext()):
+        tx = cullavo_optimizer(2e-5, 1000, grad_clip=10.0)
+        step = make_train_step(cfg, lcfg, tx, remat=True, compute_dtype=torch.bfloat16,
+                               loss_chunk=256, parallel=par)
+        (st, m), counts = counted(wrappers, lambda: step(
+            TrainState(trainable, tx.init(trainable), 0), frozen, batch,
+            torch.Generator().manual_seed(SEED + 64)))
+        torch.cuda.synchronize(device)
+        out.append((m, st.trainable, par, counts))
+    dist.destroy_process_group()
+    (m0, t0, _, c0), (m1, t1, par, c1) = out
+    bad = _same_tree(t0, t1) + [k for k in ("loss_llm", "grad_norm")
+                                if not torch.equal(m0[k], m1[k])]
+    log(f"one rank over {backend} ({smi}): the 2-layer 7B-width Q-LoRA step with the process "
+        f"group, loss {float(m1['loss_llm']):.6f}, grad_norm {float(m1['grad_norm']):.6f}, the "
+        f"flat all-reduce {par.timed_ms()[0]:.3f} ms; {len(bad)} of loss, norm and updated "
+        f"leaves differ from the step without a group (bit-equal demanded); launches "
+        f"{ {k: n for k, n in c1.items() if n} } (without the group the same: {c0 == c1})")
+    if backend != "nccl" or bad:
+        raise RuntimeError(f"one-rank NCCL step: backend {backend}, differs at {bad[:5]}")
+    if c0 != c1 or c1["flash_fwd_lse"] != 2 * 2 or not c1["nf4_dequant_planar"]:
+        raise RuntimeError(f"one-rank NCCL step: launches {c1}, without the group {c0}")
+    del params, frozen, trainable, out
+    torch.cuda.empty_cache()
+    return c1
+
+
+def par_calibrate(smi):
+    """``chip_smoke.py --par-calibrate``: the readings ``PAR_TOL`` is set
+    from.  For each seed of ``PAR_CAL_SEEDS``: phase 22a's Q-LoRA run (7B
+    from a snapshot written here, 4 steps of 8 x 1024) and phase 22b's
+    X-Decoder run (2 steps of 8 at 512²), each in one process and on two
+    ranks, and their worst relative gaps in loss and grad_norm (the sound
+    readings); then at ``SEED`` the one-process run again (its own spread)
+    and each fault of ``PAR_FAULTS`` on two ranks, its gaps from the
+    one-process run (rank 0's; the ranks may disagree under a fault).
+    Nothing is saved (a Q-LoRA run's saves write ~15 GB, and a call's disk
+    writes are capped).  Logs each reading and prints one JSON line
+    ``{"par_calibration": ...}``; a rank that fails fails the script."""
+    import torch
+
+    from cullavo_tpu_torch.models.llava.config import LlavaConfig
+    from cullavo_tpu_torch.models.llava.modeling import init_llava_params
+    from cullavo_tpu_torch.utils.constants import COCO_PANOPTIC_CLASSES
+
+    device = torch.device("cuda", 0)
+    readings = {"qlora": {}, "xtrain": {}}
+    with tempfile.TemporaryDirectory(prefix="cullavo_chip_cal_") as work:
+        snap = os.path.join(work, "snapshot")
+        os.makedirs(snap)
+        cfg = LlavaConfig()
+        params = init_llava_params(cfg, torch.Generator(device=device).manual_seed(SEED + 6),
+                                   device, dtype=torch.bfloat16)
+        write_snapshot(params, cfg, snap)
+        del params
+        torch.cuda.empty_cache()
+        json_file, img_dir, pan_dir = write_panoptic_dataset(os.path.join(work, "coco"))
+        dataset = {"KIND": "coco_panoptic", "JSON": json_file, "IMAGE_DIR": img_dir,
+                   "PANOPTIC_DIR": pan_dir, "NUM_CLASSES": 133}
+        spec = write_joint_dataset(os.path.join(work, "xtrain_data"), XDEC_SIZES,
+                                   list(COCO_PANOPTIC_CLASSES), len(XDEC_THINGS), seed=SEED)
+        over = {"DATASETS.TRAIN": [XTRAIN_DATASET], "DATASETS.REGISTER": {XTRAIN_DATASET: spec}}
+        key = {"qlora": "loss_llm", "xtrain": "loss_total"}
+
+        def run(path, seed, n, tag, fault=None):
+            if path == "qlora":
+                argv = qlora_argv(snap, dataset, seed=seed)
+            else:
+                argv = xtrain_argv(dict(over, **({"MESH_DATA": n} if n > 1 else {})), seed=seed)
+            return run_ranks(f"{path}_{tag}", [argv] * n, work, fault=fault)[1]
+
+        def gap(path, tag, got, want, agree=True):
+            k = key[path]
+            row = {"loss": _rel([h[k] for h in got], [h[k] for h in want]),
+                   "grad_norm": _rel([h["grad_norm"] for h in got],
+                                     [h["grad_norm"] for h in want]), "ranks_agree": agree}
+            readings[path][tag] = row
+            log(f"par calibration {path} {tag} ({smi}): worst relative gap loss "
+                f"{row['loss']:.3e}, grad_norm {row['grad_norm']:.3e}; ranks agree {agree}; "
+                f"{got} against one process's {want}")
+
+        for path in ("qlora", "xtrain"):
+            one = {}
+            for seed in PAR_CAL_SEEDS:
+                one[seed] = run(path, seed, 1, f"one{seed}")[0]["history"]
+                drv = run(path, seed, PAR_RANKS, f"seed{seed}")
+                gap(path, f"seed{seed}", drv[0]["history"], one[seed],
+                    all(d["history"] == drv[0]["history"] for d in drv))
+            gap(path, "one_process_again", run(path, SEED, 1, "again")[0]["history"], one[SEED])
+            for fault in PAR_FAULTS:
+                drv = run(path, SEED, PAR_RANKS, fault, fault)
+                gap(path, fault, drv[0]["history"], one[SEED],
+                    all(d["history"] == drv[0]["history"] for d in drv))
+    print(json.dumps({"par_calibration": readings, "tol": PAR_TOL, "device": smi}), flush=True)
+
+
 def main(argv):
     import torch
 
@@ -7485,25 +8310,27 @@ def main(argv):
     sys.path.insert(0, REPO)
     from cullavo_tpu_torch import _build
     from cullavo_tpu_torch.models.llava.config import LlavaConfig
-    from cullavo_tpu_torch.ops import flash_attention as fa
-    from cullavo_tpu_torch.ops import focal, msdeform, nf4
-    from cullavo_tpu_torch.ops import wwin_decode as ww
-    from cullavo_tpu_torch.scripts import matmul_probe as mp
 
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    t_start = time.perf_counter()
+
+    def phase(name):
+        log(f"== phase {name} at {time.perf_counter() - t_start:.1f} s")
 
     # phase 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     log(smi)
+    if "--par-calibrate" in argv:
+        return par_calibrate(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    # phase 2
+    phase(2)
     t0 = time.perf_counter()
     _build.lib()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s wall "
@@ -7524,23 +8351,13 @@ def main(argv):
                    for row in sm90.values())):
         raise RuntimeError(f"Hopper kernels: an instantiation is missing or spills: {sm90}")
 
-    # phase 3
+    phase(3)
     rec = check_kernels(device)
     for key, (label, forms, _) in SM90_FORMS.items():   # each instantiation's report
         for form in forms:
             if label in sm90:
                 rec[form].setdefault("ptxas", {})[label] = sm90[label]
-    wrappers = {"flash_fwd": fa.flash_attention, "quant_rows": nf4.quantize_rows,
-                "int8_linear": nf4.int8_linear, "wwin_decode": ww.wwin_decode_smajor,
-                "wwin_decode_q8": ww.wwin_decode_smajor_q8,
-                "nf4_linear_planar": nf4.nf4_linear_planar,
-                "nf4_dequant_planar": nf4.nf4_dequant_planar,
-                "flash_fwd_lse": fa.flash_lse, "flash_rows": fa.flash_rows,
-                "ms_deform_attn": msdeform.ms_deform_attn_kernel,
-                "focal_ctx": focal.focal_ctx_kernel,
-                "nf4_linear_q4": nf4.nf4_linear_q4, "nf4_dequant_q4": nf4.nf4_dequant_q4,
-                "flash_decode": fa.decode_partials, "flash_packed": fa.flash_attention_packed,
-                "p32_linear": mp.p32_linear}
+    wrappers = load_wrappers()
     meta = {"flash_fwd": ("cullavo_tpu_torch/csrc/flash_fwd_sm90.cu",
                           "cullavo_tpu/ops/flash_attention.py:259"),
             "quant_rows": ("cullavo_tpu_torch/csrc/quant_rows.cu",
@@ -7581,7 +8398,7 @@ def main(argv):
             "p32_linear": ("cullavo_tpu_torch/csrc/nf4_gemv_sm90.cu",
                            "scripts/matmul_probe.py:154")}
 
-    # phases 4-6b
+    phase("4-6c")
     cfg = LlavaConfig()
     t0 = time.perf_counter()
     params = build_params(cfg, device)
@@ -7597,7 +8414,7 @@ def main(argv):
         del params, run_greedy, run_spec
         torch.cuda.empty_cache()
 
-    # phase 7
+    phase("7 and 18")
     serve_smoke(device)
     t0 = time.perf_counter()
     params_nf4 = build_nf4_params(cfg, device)
@@ -7609,7 +8426,7 @@ def main(argv):
     counts_http, profile_adapters = run_serving_rest(params_nf4, cfg, device, wrappers, smi,
                                                      profile="--profile" in argv)
 
-    # phases 8 and 8b
+    phase("8 and 8b")
     train_smoke(device)
     reference_check_train(params_nf4, cfg, device)
     counts_train, train_pipe, train_batch = run_train_path(params_nf4, cfg, device, wrappers)
@@ -7618,7 +8435,7 @@ def main(argv):
         del params_nf4, train_pipe, train_batch, run_serve
         torch.cuda.empty_cache()
 
-    # phase 9
+    phase(9)
     xdecoder_entry_smoke(device)
     reference_check_xdecoder(device, wrappers)
     counts_focal, focal_pipe, xdec_rows = run_xdecoder_path(XDEC_FOCAL, device, wrappers, smi)
@@ -7631,45 +8448,67 @@ def main(argv):
     with tempfile.TemporaryDirectory(prefix="cullavo_chip_") as work:
         snap = os.path.join(work, "snapshot")
         os.makedirs(snap)
-        # phases 10 and 10b
+        phase("10 and 10b")
         counts_vl, params_vl = run_vl_snapshot_path(cfg, device, wrappers, smi, snap)
         counts_q4 = run_q4_path(params_vl, cfg, device, requests, wrappers, smi)
         del params_vl
         torch.cuda.empty_cache()
 
-        # phase 11
+        phase(11)
         zoo_entry_smoke(device, wrappers)
         reference_check_zoo(device, wrappers)
         counts_zoo = run_zoo_path(device, wrappers, smi, "--profile" in argv)
         torch.cuda.empty_cache()
 
-        # phase 12
-        counts_loop = run_train_loop_path(snap, cfg, device, wrappers, smi, work)
+        phase(12)
+        counts_loop, loop_ref = run_train_loop_path(snap, cfg, device, wrappers, smi, work)
         torch.cuda.empty_cache()
+        # phase 22a: phase 12's run 1 on two ranks
+        phase("22a")
+        par_train = run_parallel_train_path(snap, smi, work, loop_ref)
 
-        # phase 14
+        phase(14)
         counts_step2 = run_step2_pre_path(snap, device, wrappers, smi, work)
+        torch.cuda.empty_cache()
+        phase("22c")
+        par_step2 = run_parallel_step2_path(snap, smi, work, cfg.text.num_hidden_layers)
+    phase("22d")
+    par_nccl = run_nccl_step(device, smi, wrappers)
 
-    # phase 13
+    phase(13)
     counts_probe13 = run_matmul_probe(device, wrappers)
-    # phase 15
+    phase(15)
     with tempfile.TemporaryDirectory(prefix="cullavo_chip_xtrain_") as work:
-        counts_xtrain = run_xtrain_path(device, wrappers, smi, work, rec)
+        counts_xtrain, xtrain_ref = run_xtrain_path(device, wrappers, smi, work, rec)
+        # phase 22b: phase 15's entry.train on two ranks
+        phase("22b")
+        par_xtrain = run_parallel_xtrain_path(work, smi, xtrain_ref, rec)
         # phase 16 (its train -> eval step reads phase 15's checkpoint)
+        phase(16)
         counts_xeval, pt_focal = run_xeval_path(device, wrappers, smi, work, rec)
         # phase 17 (phase 16's checkpoint and CLIP files)
+        phase(17)
         counts_vlp = run_vlp_path(device, wrappers, smi, work, rec, pt_focal)
     torch.cuda.empty_cache()
     # phase 19: InstructBLIP and the ImageNet eval on its towers, then the
     # topic classifier
+    phase(19)
     with tempfile.TemporaryDirectory(prefix="cullavo_chip_zoo_rest_") as work:
         counts_ib = run_instructblip_path(device, wrappers, smi, work, "--profile" in argv)
     counts_topic = run_topic_path(device, wrappers, smi, "--profile" in argv)
     # phase 20: BakLLaVA and the zoo's other towers from snapshots written here
+    phase(20)
     with tempfile.TemporaryDirectory(prefix="cullavo_chip_zoo_path_") as work:
         counts_bak = run_bakllava_path(device, wrappers, smi, work)
         counts_zoo_path = run_zoo_snapshot_path(device, wrappers, smi, work)
     torch.cuda.empty_cache()
+    # phase 21: BLIP-2 OPT at full width and depth, then from a snapshot
+    phase(21)
+    with tempfile.TemporaryDirectory(prefix="cullavo_chip_opt_") as work:
+        counts_opt, counts_opt_snap = run_opt_path(device, wrappers, smi, work,
+                                                   "--profile" in argv)
+    torch.cuda.empty_cache()
+    phase("end of the paths")
     # each kernel's launches on the main path that runs it: K1-K4 the greedy
     # bf16-cache batch, K5 the speculative int8-cache batch, K6 and K7 the
     # serving run, K1-lse the train steps, K8 the attention probe, K9 the
@@ -7730,6 +8569,15 @@ def main(argv):
         k["vl_zoo_rest_launches"] = counts_ib[k["name"]] + counts_topic[k["name"]]
         # phase 20: BakLLaVA's 16 questions and the three zoo snapshots' 16 each
         k["vl_zoo_path_launches"] = counts_bak[k["name"]] + counts_zoo_path.get(k["name"], 0)
+        # phase 21: BLIP-2 OPT-2.7b's 16 questions and the cut snapshot's 16
+        k["vl_zoo_opt_launches"] = counts_opt[k["name"]] + counts_opt_snap[k["name"]]
+        # phase 22: each rank's launches (22a-c, other processes) and 22d's
+        k["two_rank_launches"] = {
+            "qlora": [c[k["name"]] for c in par_train["launches"]],
+            "xdecoder_train": [c[k["name"]] for c in par_xtrain["launches"]],
+            "step2_pre": [c[k["name"]] for c in par_step2],
+            "nccl_one_rank_step": par_nccl[k["name"]]}
+    log(f"two ranks: Q-LoRA {par_train}; X-Decoder {par_xtrain}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -7738,4 +8586,7 @@ def main(argv):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(sys.argv[2:])
+    else:
+        main(sys.argv[1:])

@@ -33,7 +33,8 @@ layout.  ``xdecoder_params_to_numpy`` is the inverse (exact).
 
 VL zoo: ``blip2_params_from_numpy`` (the Q-Former's per-layer list stays a
 list, the text-input Q-Former's ``ffn_t``, ``word_emb`` and ``pos_emb``
-and a Flan-T5 or LLaMA tower alike) and ``kosmos2_params_from_numpy`` keep
+and an OPT, Flan-T5 or LLaMA tower alike: OPT's stacked ``[L, ...]``
+leaves and its tables keep JAX's layout) and ``kosmos2_params_from_numpy`` keep
 every leaf's layout and dtype; their ``_to_numpy`` inverses are exact.
 ``topic_params_from_numpy`` carries the topic classifier's two towers (the
 LLaMA ``{"language_model": ...}`` and the CLIP text encoder) the same way.

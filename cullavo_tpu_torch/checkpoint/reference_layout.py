@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 
 from cullavo_tpu_torch.checkpoint.safetensors_io import read_safetensors, write_safetensors
+from cullavo_tpu_torch.parallel.mesh import process_index
 
 # the stacked target name -> the HF module path inside the tower
 _LLM_MODULES = {"q": "self_attn.q_proj", "k": "self_attn.k_proj", "v": "self_attn.v_proj",
@@ -97,8 +98,11 @@ def save_reference_layout(save_dir: str, epoch: int, trainable: dict, lora_cfg,
     """Write one ``epoch{N}`` tree from a trainable partition (``{"lora",
     "projector", "lm_head", "embed_tokens"}``).  ``other_state``: extra
     (non-LLM) weights for ``CuLLaVO.pt``, empty for the LLaVA workloads.
-    Returns the epoch directory."""
+    Returns the epoch directory.  Under several processes only rank 0
+    writes."""
     ep = os.path.join(save_dir, f"epoch{epoch}")
+    if process_index() != 0:
+        return ep
     cullavo = os.path.join(ep, "cullavo")
     llm_dir = os.path.join(cullavo, "language_model")
     vis_dir = os.path.join(cullavo, "vision_tower")

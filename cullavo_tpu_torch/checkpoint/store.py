@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from cullavo_tpu_torch.checkpoint.safetensors_io import read_safetensors, write_safetensors
+from cullavo_tpu_torch.parallel.mesh import process_index
 
 ADAPTER_FILE, ADAPTER_CONFIG = "adapter_model.safetensors", "adapter_config.json"
 
@@ -135,8 +136,10 @@ def _unflatten(flat: dict, template: Any = None) -> Any:
 
 def save_checkpoint(ckpt_dir: str, step: int, state: Any) -> str:
     """Write ``{ckpt_dir}/step_{step}/`` (``arrays.npz`` + ``manifest.json``);
-    returns that directory."""
+    returns that directory.  Under several processes only rank 0 writes."""
     path = os.path.join(ckpt_dir, f"step_{step}")
+    if process_index() != 0:
+        return path
     os.makedirs(path, exist_ok=True)
     arrays = {k: _to_numpy(k, v) for k, v in _flatten(state).items()}
     np.savez(os.path.join(path, "arrays.npz"), **arrays)
@@ -169,7 +172,9 @@ def load_checkpoint(ckpt_dir: str, step: Optional[int] = None, template: Any = N
 def save_adapters(out_dir: str, lora_params: Any, lora_config: dict) -> str:
     """Write ``{out_dir}/adapter_model.safetensors`` (every tensor leaf of
     ``lora_params`` under its keystr path, in its own dtype) and
-    ``adapter_config.json``; returns ``out_dir``."""
+    ``adapter_config.json``; returns ``out_dir``.  Only rank 0 writes."""
+    if process_index() != 0:
+        return out_dir
     os.makedirs(out_dir, exist_ok=True)
     flat = {k: torch.as_tensor(v) for k, v in _flatten(lora_params).items()}
     write_safetensors(flat, os.path.join(out_dir, ADAPTER_FILE))

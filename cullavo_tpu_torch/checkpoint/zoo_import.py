@@ -1,5 +1,5 @@
 """The VL zoo's HF snapshots (``*.safetensors`` shards, read by the port's
-own reader) into the port's parameter trees: BLIP-2 Flan-T5 and
+own reader) into the port's parameter trees: BLIP-2 Flan-T5, BLIP-2 OPT and
 InstructBLIP-Vicuna (counterparts of JAX's ``import_blip2_torch`` and
 ``import_t5_torch``, which take a live transformers module) and KOSMOS-2
 (``import_kosmos2_torch``).
@@ -10,9 +10,10 @@ in] to [in, out]).  The alignment is strict: a leaf whose key is missing
 raises, and so does a key of the files that no leaf reads, naming the key
 and its shard.  ``save_pretrained`` drops tied duplicates, so a tied
 weight may be stored under any one of its names: T5's shared embedding
-(``shared``, ``encoder.embed_tokens``, ``decoder.embed_tokens``) is taken
-from whichever is present, and KOSMOS-2's ``lm_head`` (tied to its
-embedding, as JAX reads it) is read only to be dropped.
+(``shared``, ``encoder.embed_tokens``, ``decoder.embed_tokens``) and OPT's
+(``model.decoder.embed_tokens``, ``lm_head``) are taken from whichever is
+present, and KOSMOS-2's ``lm_head`` (tied to its embedding, as JAX reads
+it) is read only to be dropped.
 
 Where the JAX importer differs, the port does not copy it: JAX reads
 neither the EVA-ViT-g patch embedding's bias nor the attention's fused
@@ -169,6 +170,19 @@ _LLAMA_LAYER = {"q": "T layers.{}.self_attn.q_proj.weight",
                 "post_ln": "layers.{}.post_attention_layernorm.weight"}
 
 
+_OPT_LAYER = {"attn_ln": "layers.{}.self_attn_layer_norm.weight",
+              "attn_ln_b": "layers.{}.self_attn_layer_norm.bias",
+              "final_ln": "layers.{}.final_layer_norm.weight",
+              "final_ln_b": "layers.{}.final_layer_norm.bias"}
+for _leaf, _hf in (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+                   ("v", "self_attn.v_proj"), ("o", "self_attn.out_proj"), ("fc1", "fc1"),
+                   ("fc2", "fc2")):
+    _OPT_LAYER[_leaf] = f"T layers.{{}}.{_hf}.weight"
+    _OPT_LAYER[_leaf + "_b"] = f"layers.{{}}.{_hf}.bias"
+_OPT = "language_model.model.decoder."
+_OPT_TIED = (_OPT + "embed_tokens.weight", "language_model.lm_head.weight")
+
+
 def _blip2_vision(r: _Reader, cfg: Blip2Config) -> dict:
     vc, L = cfg.vision, cfg.vision.num_hidden_layers
     p = "vision_model."
@@ -227,17 +241,23 @@ def _blip2_qformer(r: _Reader, cfg: Blip2Config) -> dict:
     return out
 
 
-def _t5_tower(r: _Reader, cfg) -> dict:
-    p = "language_model."
-    names = [p + n for n in ("shared.weight", "encoder.embed_tokens.weight",
-                             "decoder.embed_tokens.weight")]
+def _tied(r: _Reader, names, what: str) -> torch.Tensor:
+    """A tied table stored under any of ``names`` (every copy present must
+    be equal)."""
     present = [n for n in names if r.has(n)]
     if not present:
-        raise KeyError(f"{r.dir}: the snapshot has none of the tied T5 embeddings {names}")
+        raise KeyError(f"{r.dir}: the snapshot has none of the tied {what} tables {list(names)}")
     embed = r.get(present[0])
     for n in present[1:]:
         if not torch.equal(r.get(n), embed):
-            raise ValueError(f"{r.dir}: {n} differs from {present[0]}; they are tied in T5")
+            raise ValueError(f"{r.dir}: {n} differs from {present[0]}; they are tied in {what}")
+    return embed
+
+
+def _t5_tower(r: _Reader, cfg) -> dict:
+    p = "language_model."
+    embed = _tied(r, [p + n for n in ("shared.weight", "encoder.embed_tokens.weight",
+                                      "decoder.embed_tokens.weight")], "T5")
     t = cfg.text
     return {
         "embed_tokens": embed,
@@ -263,19 +283,25 @@ def _llama_tower(r: _Reader, cfg) -> dict:
             "layers": r.tree(_LLAMA_LAYER, p, cfg.text.num_hidden_layers)}
 
 
+def _opt_tower(r: _Reader, cfg) -> dict:
+    return {"embed_tokens": _tied(r, _OPT_TIED, "OPT"),
+            "embed_positions": r.get(_OPT + "embed_positions.weight"),
+            "final_ln": r.get(_OPT + "final_layer_norm.weight"),
+            "final_ln_b": r.get(_OPT + "final_layer_norm.bias"),
+            "layers": r.tree(_OPT_LAYER, _OPT, cfg.text.num_hidden_layers)}
+
+
 def load_blip2_safetensors(model_dir: str, cfg: Blip2Config, dtype=None, device="cpu") -> dict:
-    """A Blip2ForConditionalGeneration (Flan-T5 tower) or
+    """A Blip2ForConditionalGeneration (Flan-T5 or OPT tower) or
     InstructBlipForConditionalGeneration (Vicuna tower) snapshot -> the
     port's BLIP-2 tree on ``device`` (``dtype``: None keeps the files')."""
-    if cfg.text_is_opt:
-        raise NotImplementedError("load_blip2_safetensors: the OPT tower (blip2-opt-*) waits "
-                                  "for the BLIP-2 OPT item (queue 1 item 2.6 of ROADMAP.md)")
     r = _Reader(model_dir, dtype, device)
     params = {"vision": _blip2_vision(r, cfg), "qformer": _blip2_qformer(r, cfg),
               "query_tokens": r.get("query_tokens").reshape(cfg.num_query_tokens,
                                                             cfg.qformer.hidden_size),
               "projection": r.tree(_dense("language_projection"), "")}
-    params["language_model"] = (_t5_tower if cfg.text_is_t5 else _llama_tower)(r, cfg)
+    params["language_model"] = (_opt_tower if cfg.text_is_opt else
+                                _t5_tower if cfg.text_is_t5 else _llama_tower)(r, cfg)
     r.finish()
     return params
 
@@ -366,10 +392,11 @@ def _put(out: dict, table: dict, prefix: str, node: dict, n: int = 0):
 
 def blip2_to_hf_state_dict(params: dict, cfg: Blip2Config) -> dict:
     """The port's BLIP-2 tree -> HF names and layouts, as
-    Blip2ForConditionalGeneration (Flan-T5 tower) or, with a text-input
-    Q-Former, InstructBlipForConditionalGeneration (Vicuna tower) saves
-    them: the inverse of ``load_blip2_safetensors`` (T5's tied embedding as
-    ``shared`` alone)."""
+    Blip2ForConditionalGeneration (Flan-T5 or OPT tower) or, with a
+    text-input Q-Former, InstructBlipForConditionalGeneration (Vicuna tower)
+    saves them: the inverse of ``load_blip2_safetensors`` (T5's tied
+    embedding as ``shared`` alone, OPT's as ``model.decoder.embed_tokens``
+    alone)."""
     out: dict = {}
     vc, v = cfg.vision, params["vision"]
     p = "vision_model."
@@ -407,6 +434,12 @@ def blip2_to_hf_state_dict(params: dict, cfg: Blip2Config) -> dict:
         out[p + "encoder.final_layer_norm.weight"] = lm["enc_final_ln"]
         out[p + "decoder.final_layer_norm.weight"] = lm["dec_final_ln"]
         out[p + "lm_head.weight"] = lm["lm_head"].T.contiguous()
+    elif cfg.text_is_opt:
+        out[_OPT_TIED[0]] = lm["embed_tokens"]
+        out[_OPT + "embed_positions.weight"] = lm["embed_positions"]
+        out[_OPT + "final_layer_norm.weight"] = lm["final_ln"]
+        out[_OPT + "final_layer_norm.bias"] = lm["final_ln_b"]
+        _put(out, _OPT_LAYER, _OPT, lm["layers"], t.num_hidden_layers)
     else:
         p = "language_model.model."
         out[p + "embed_tokens.weight"] = lm["embed_tokens"]
@@ -493,6 +526,12 @@ def check_blip2_config(model_dir: str, cfg: Blip2Config):
             "vocab_size", "d_model", "d_kv", "num_heads", "d_ff", "num_layers",
             "num_decoder_layers", "relative_attention_num_buckets",
             "relative_attention_max_distance")})
+    elif cfg.text_is_opt:
+        want.update({f"text_config.{k}": getattr(t, k) for k in (
+            "vocab_size", "hidden_size", "ffn_dim", "num_hidden_layers", "num_attention_heads",
+            "max_position_embeddings", "do_layer_norm_before", "activation_function")})
+        # the 350m checkpoint projects its embeddings (project_in / _out): not this tower
+        want["text_config.word_embed_proj_dim"] = t.hidden_size
     else:
         want.update({f"text_config.{k}": getattr(t, k) for k in (
             "vocab_size", "hidden_size", "intermediate_size", "num_hidden_layers",

@@ -1,6 +1,6 @@
-"""The Unigram and WordPiece ``tokenizer.json`` families, read by the port's
-own code (the machine with the card has neither ``tokenizers`` nor
-``transformers`` nor ``sentencepiece``).
+r"""The Unigram, WordPiece and byte-level BPE ``tokenizer.json`` families,
+read by the port's own code (the machine with the card has neither
+``tokenizers`` nor ``transformers`` nor ``sentencepiece`` nor ``regex``).
 
 Scope: what the VL zoo's snapshots ship, with the semantics of the
 ``tokenizers`` library under transformers' fast tokenizers:
@@ -8,7 +8,8 @@ Scope: what the VL zoo's snapshots ship, with the semantics of the
 * ``T5TokenizerFast`` (Flan-T5: a Unigram model over SentencePiece pieces),
   ``XLMRobertaTokenizerFast`` (KOSMOS-2's text, the same model) and
   ``BertTokenizerFast`` (InstructBLIP's Q-Former, a WordPiece model; its
-  ``[DEC]`` token is an added token);
+  ``[DEC]`` token is an added token) and ``GPT2TokenizerFast`` (BLIP-2
+  OPT's, a byte-level BPE model);
 * added tokens are split out of the raw text first (leftmost, longest; an
   ``lstrip`` / ``rstrip`` token takes the whitespace beside it), those
   marked ``normalized`` out of each normalized piece after, in their own
@@ -18,15 +19,22 @@ Scope: what the VL zoo's snapshots ship, with the semantics of the
   ``BertNormalizer`` and a ``Sequence`` of them;
 * pre-tokenizers ``WhitespaceSplit``, ``Metaspace`` (replacement "▁",
   ``prepend_scheme`` "always" or "never", split or not; the legacy
-  ``add_prefix_space`` form too), ``BertPreTokenizer`` and a ``Sequence``;
+  ``add_prefix_space`` form too), ``BertPreTokenizer``, ``ByteLevel`` (GPT-2's
+  split, below, then each piece's UTF-8 bytes through GPT-2's byte-to-unicode
+  map; ``add_prefix_space`` either way) and a ``Sequence``;
 * models ``Unigram`` (Viterbi over the pieces' scores; an unknown character
   scores the lowest piece's score less 10; runs of unknown characters fuse
   into one ``unk_id``; no byte fallback) and ``WordPiece`` (greedy longest
-  match, ``##`` continuations, ``max_input_chars_per_word``);
-* post-processor ``TemplateProcessing`` (a single sequence: ``$A </s>``,
-  ``<s> $A </s>``, ``[CLS] $A [SEP]``);
-* decoders ``Metaspace`` and ``WordPiece``; transformers' clean-up of
-  tokenization spaces when ``tokenizer_config.json`` asks for it;
+  match, ``##`` continuations, ``max_input_chars_per_word``) and ``BPE``
+  (GPT-2's merge loop: the adjacent pair of lowest merge rank, every
+  occurrence left to right, until none merges; no dropout, prefixes or
+  suffixes);
+* post-processors ``TemplateProcessing`` (a single sequence: ``$A </s>``,
+  ``<s> $A </s>``, ``[CLS] $A [SEP]``, OPT's ``</s> $A``), ``ByteLevel``
+  (no ids of its own) and a ``Sequence`` of them;
+* decoders ``Metaspace``, ``WordPiece`` and ``ByteLevel`` (the bytes back,
+  invalid UTF-8 replaced); transformers' clean-up of tokenization spaces
+  when ``tokenizer_config.json`` asks for it;
 * ``padding=True``: right-padded to the longest row with the pad id.
 
 Anything else in the files raises ``NotImplementedError`` naming the file
@@ -47,6 +55,12 @@ pairs (the tests and ``chip_smoke.py`` make their charsmaps with it).
 Grapheme clusters follow UAX #29's rules for CR LF, controls, extending
 and spacing marks, zero-width joiners, Hangul syllables and regional
 indicator pairs.
+
+GPT-2's split is the pattern ``'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+|
+?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+``, scanned by hand over ``unicodedata``
+classes (``\s`` is Unicode's White_Space): a run of whitespace before a
+non-space gives up its last character, which a following letter, digit or
+other run takes when it is a plain space.
 """
 from __future__ import annotations
 
@@ -267,6 +281,62 @@ def _bert_normalize(text: str, clean: bool, cjk: bool, strip_accents: bool,
     return "".join(c.lower() for c in text) if lower else text
 
 
+def _bytes_to_unicode() -> dict:
+    """GPT-2's byte -> printable character map."""
+    bs = (list(range(ord("!"), ord("~") + 1)) + list(range(ord("\xa1"), ord("\xac") + 1))
+          + list(range(ord("\xae"), ord("\xff") + 1)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, map(chr, cs)))
+
+
+_BYTE_ENC = _bytes_to_unicode()
+_BYTE_DEC = {c: b for b, c in _BYTE_ENC.items()}
+_CONTRACTIONS = ("s", "t", "re", "ve", "m", "ll", "d")
+
+
+def _gpt2_class(c: str) -> str:
+    """"S" whitespace, "L" letter, "N" number, "O" anything else."""
+    if _is_ws(c):
+        return "S"
+    cat = unicodedata.category(c)[0]
+    return cat if cat in "LN" else "O"
+
+
+def gpt2_split(text: str) -> list:
+    """GPT-2's pre-tokenizer pattern over ``text`` (module docstring)."""
+    out, i, n = [], 0, len(text)
+    cls = [_gpt2_class(c) for c in text]
+
+    def run(j, kind):
+        while j < n and cls[j] == kind:
+            j += 1
+        return j
+
+    while i < n:
+        if text[i] == "'":
+            suf = next((x for x in _CONTRACTIONS if text.startswith(x, i + 1)), None)
+            if suf is not None:
+                out.append(text[i:i + 1 + len(suf)])
+                i += 1 + len(suf)
+                continue
+        start = i + 1 if text[i] == " " and i + 1 < n and cls[i + 1] != "S" else i
+        if cls[start] != "S":
+            end = run(start, cls[start])
+        else:
+            end = run(i, "S")
+            if end < n and end - i > 1:     # \s+(?!\S): leave the last one
+                end -= 1
+        out.append(text[i:end])
+        i = end
+    return out
+
+
 def _pattern(step: dict, where: str):
     pat = step.get("pattern") or {}
     if set(pat) == {"String"}:
@@ -374,6 +444,17 @@ def _pre_tokenizer(spec, where: str):
                 out.append("".join(cur))
             return out
         return bert
+    if kind == "ByteLevel":
+        if not spec.get("use_regex", True):
+            raise _refuse(f"{where} ByteLevel pre_tokenizer", "use_regex false")
+        prefix = bool(spec.get("add_prefix_space", True))
+
+        def bytelevel(text):
+            if prefix and not text.startswith(" "):
+                text = " " + text
+            return ["".join(_BYTE_ENC[b] for b in piece.encode("utf-8"))
+                    for piece in gpt2_split(text)]
+        return bytelevel
     raise _refuse(f"{where} pre_tokenizer", kind)
 
 
@@ -467,6 +548,62 @@ class _WordPiece:
         return out
 
 
+class _BPE:
+    def __init__(self, spec: dict, where: str):
+        for key in ("dropout", "continuing_subword_prefix", "end_of_word_suffix"):
+            if spec.get(key):
+                raise _refuse(f"{where} BPE", key)
+        for key in ("byte_fallback", "ignore_merges"):
+            if spec.get(key):
+                raise _refuse(f"{where} BPE", key)
+        self.vocab = dict(spec["vocab"])
+        self.inv = {i: t for t, i in self.vocab.items()}
+        self.unk = spec.get("unk_token")
+        merges = [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m)
+                  for m in spec.get("merges") or []]
+        self.ranks = {pair: r for r, pair in enumerate(merges)}
+        self.cache: dict = {}
+
+    def id_to_token(self, i):
+        return self.inv.get(i)
+
+    def token_to_id(self, tok):
+        return self.vocab.get(tok)
+
+    def _merge(self, word: str) -> list:
+        parts = list(word)
+        while len(parts) > 1:
+            pairs = {(a, b) for a, b in zip(parts, parts[1:])}
+            best = min(pairs, key=lambda p: self.ranks.get(p, float("inf")))
+            if best not in self.ranks:
+                break
+            merged, j = [], 0
+            while j < len(parts):
+                if j + 1 < len(parts) and (parts[j], parts[j + 1]) == best:
+                    merged.append(parts[j] + parts[j + 1])
+                    j += 2
+                else:
+                    merged.append(parts[j])
+                    j += 1
+            parts = merged
+        return parts
+
+    def tokenize(self, word: str) -> list:
+        ids = self.cache.get(word)
+        if ids is None:
+            ids = []
+            for p in self._merge(word):
+                i = self.vocab.get(p)
+                if i is None:
+                    if self.unk is None or self.unk not in self.vocab:
+                        raise ValueError(f"BPE piece {p!r} is not in the vocab and the model "
+                                         "has no unk_token")
+                    i = self.vocab[self.unk]
+                ids.append(i)
+            self.cache[word] = ids
+        return list(ids)
+
+
 # transformers' clean_up_tokenization, and the WordPiece decoder's own
 _CLEAN_UP = ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"),
              (" n't", "n't"), (" 'm", "'m"), (" 's", "'s"), (" 've", "'ve"), (" 're", "'re"))
@@ -505,13 +642,26 @@ def _decoder(spec, where: str):
                 out.append(_clean_up(t, _WP_CLEAN_UP) if cleanup else t)
             return "".join(out)
         return wordpiece
+    if kind == "ByteLevel":
+        def bytelevel(tokens):
+            raw = b"".join(bytes([_BYTE_DEC[c]]) if c in _BYTE_DEC else c.encode("utf-8")
+                           for t in tokens for c in t)
+            return raw.decode("utf-8", errors="replace")
+        return bytelevel
     raise _refuse(f"{where} decoder", kind)
 
 
 def _template(spec, where: str):
-    """``TemplateProcessing`` (single sequence) -> (ids before $A, ids after)."""
-    if spec is None:
+    """``TemplateProcessing`` (single sequence) -> (ids before $A, ids after);
+    ``ByteLevel`` adds none, a ``Sequence`` their concatenation."""
+    if spec is None or spec.get("type") == "ByteLevel":
         return [], []
+    if spec.get("type") == "Sequence":
+        before, after = [], []
+        for step in spec["processors"]:
+            b, a = _template(step, where)
+            before, after = before + b, after + a
+        return before, after
     if spec.get("type") != "TemplateProcessing":
         raise _refuse(f"{where} post_processor", spec.get("type"))
     specials = spec.get("special_tokens") or {}
@@ -548,19 +698,23 @@ _CLASSES = {"T5Tokenizer": ("Unigram", ("eos_token", "unk_token", "pad_token")),
                                                 "cls_token", "unk_token", "pad_token",
                                                 "mask_token")),
             "BertTokenizer": ("WordPiece", ("unk_token", "sep_token", "pad_token", "cls_token",
-                                            "mask_token"))}
+                                            "mask_token")),
+            "GPT2Tokenizer": ("BPE", ("bos_token", "eos_token", "unk_token", "pad_token"))}
 _DEFAULTS = {"eos_token": "</s>", "unk_token": "<unk>", "pad_token": "<pad>",
              "bos_token": "<s>", "sep_token": "</s>", "cls_token": "<s>",
              "mask_token": "<mask>"}
+_GPT2_DEFAULTS = {"bos_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
+                  "unk_token": "<|endoftext|>"}
 _BERT_DEFAULTS = {"unk_token": "[UNK]", "sep_token": "[SEP]", "pad_token": "[PAD]",
                   "cls_token": "[CLS]", "mask_token": "[MASK]"}
 
 
 class TokenizerJSON:
-    """A T5 / XLM-RoBERTa (Unigram) or BERT (WordPiece) tokenizer from a
-    snapshot directory: ``tokenizer.json`` plus ``tokenizer_config.json`` and
-    ``special_tokens_map.json`` (the class, the special tokens, the
-    clean-up switch, BERT's normalizer switches)."""
+    """A T5 / XLM-RoBERTa (Unigram), BERT (WordPiece) or GPT-2 / OPT
+    (byte-level BPE) tokenizer from a snapshot directory: ``tokenizer.json``
+    plus ``tokenizer_config.json`` and ``special_tokens_map.json`` (the
+    class, the special tokens, the clean-up switch, BERT's normalizer
+    switches)."""
 
     def __init__(self, path: str):
         tok_path = os.path.join(path, "tokenizer.json")
@@ -582,8 +736,8 @@ class TokenizerJSON:
         model = spec.get("model") or {}
         if model.get("type") != model_kind:
             raise _refuse(f"{where} model (for {cls})", model.get("type"))
-        self.model = _Unigram(model, where) if model_kind == "Unigram" else _WordPiece(model,
-                                                                                       where)
+        self.model = {"Unigram": _Unigram, "WordPiece": _WordPiece, "BPE": _BPE}[model_kind](
+            model, where)
         self.normalize = _normalizer(spec.get("normalizer"), where)
         self.pre_tokenize = _pre_tokenizer(spec.get("pre_tokenizer"), where)
         self.decode_tokens = _decoder(spec.get("decoder"), where)
@@ -599,7 +753,8 @@ class TokenizerJSON:
             self.set_added(t["content"], int(t["id"]), normalized=bool(t.get("normalized")),
                            special=bool(t.get("special")), lstrip=bool(t.get("lstrip")),
                            rstrip=bool(t.get("rstrip")))
-        defaults = _BERT_DEFAULTS if cls == "BertTokenizer" else _DEFAULTS
+        defaults = {"BertTokenizer": _BERT_DEFAULTS, "GPT2Tokenizer": _GPT2_DEFAULTS}.get(
+            cls, _DEFAULTS)
         names = list(special_names) + (["bos_token"] if "bos_token" in config else [])
         extra = [_content(t) for t in config.get("additional_special_tokens") or []]
         if cls == "T5Tokenizer" and not config.get("additional_special_tokens"):
@@ -613,6 +768,12 @@ class TokenizerJSON:
             self._special_id(content, path, "additional_special_tokens")
         if cls == "BertTokenizer":
             self._check_bert(spec.get("normalizer") or {}, config, path)
+        pre = spec.get("pre_tokenizer") or {}
+        if (cls == "GPT2Tokenizer" and "add_prefix_space" in config
+                and bool(config["add_prefix_space"]) != bool(pre.get("add_prefix_space", True))):
+            # transformers rebuilds the pre-tokenizer to the config's switch
+            raise _refuse(f"{path}: tokenizer_config.json add_prefix_space against the "
+                          "pre_tokenizer", pre)
         self.unk_token_id = self.ids_of.get("unk_token")
         self.eos_token_id = self.ids_of.get("eos_token")
         self.bos_token_id = self.ids_of.get("bos_token")

@@ -39,7 +39,15 @@ tokenizer) are not copied.
 The entry points take the parsed config as a dict (the layout of
 ``configs/serve.yaml``) and run on the GPU unless the caller names another
 device; ``main`` too (its ``device`` is a keyword for tests, not a flag).
-Several processes come with a later slice.
+
+Several processes (``scripts/node_run.sh``'s contract: ``CULLAVO_NUM_PROCS``,
+``CULLAVO_PROC_ID``, ``CULLAVO_COORDINATOR`` host:port; ``parallel/mesh.py``):
+``main`` joins the process group before it parses the config.  ``train``
+(Q-LoRA) and ``train_xdecoder`` then run the data axis of
+``MESH_DATA`` (-1, the default, is every rank): each rank reads the same
+global batches and takes its rows, and only rank 0 logs and writes;
+step2_pre splits its rows over the ranks and rank 0 writes the merged
+JSON; the eval paths run whole on every rank, as JAX's do.
 """
 from __future__ import annotations
 
@@ -84,6 +92,7 @@ from cullavo_tpu_torch.models.llava.modeling import (GenerationConfig, expand_im
                                                      init_llava_params)
 from cullavo_tpu_torch.models.xdecoder.model import init_xdecoder_model_params
 from cullavo_tpu_torch.models.xdecoder.text_encoder import class_embeddings_ensembled
+from cullavo_tpu_torch.parallel.mesh import initialize_distributed, parallel_context
 from cullavo_tpu_torch.pipelines import cullavo_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines import vlp_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines import vqa_pipeline  # noqa: F401 (registration)
@@ -336,10 +345,15 @@ def train(cfg: dict, device=None) -> dict:
     Without it: one smoke step on synthetic records; returns (and prints)
     its metrics, ``loss_llm`` and ``grad_norm``.  A conversations dataset in
     ``DATASETS.TRAIN`` raises a ``ValueError`` before the model is built.
-    A ``NAME`` with "xdecoder" goes to ``train_xdecoder``."""
+    A ``NAME`` with "xdecoder" goes to ``train_xdecoder``.  Under several
+    processes the ``MESH_*`` axes resolve over them (``MESH_DATA: -1`` is
+    every rank), each rank's step takes its rows of the global batch, and
+    each rank prints its steps' ``loss_llm`` and ``grad_norm`` as one JSON
+    line at the end."""
     register_datasets_from_cfg(cfg)
     if "xdecoder" in cfg.get("NAME", ""):
         return train_xdecoder(cfg, device=device)
+    parallel = parallel_context(cfg)
     dataset_name = (cfg.get("DATASETS") or {}).get("TRAIN")
     records = get_dataset(dataset_name) if dataset_name else []
     if records and "conversations" in records[0]:
@@ -353,7 +367,7 @@ def train(cfg: dict, device=None) -> dict:
     # features at its config's id: make them one
     model_cfg = dataclasses.replace(model_cfg, image_token_id=tokenizer.image_token_id)
     pipe = build_pipeline(cfg.get("PIPELINE", "CuLLaVOPipeline"), cfg, model_cfg=model_cfg,
-                          tokenizer=tokenizer, params=params)
+                          tokenizer=tokenizer, params=params, parallel=parallel)
     state = pipe.initialize_model()
     if cfg.get("RESUME_FROM"):
         state = TrainState(load_reference_layout(cfg["RESUME_FROM"], state.trainable),
@@ -396,7 +410,21 @@ def train(cfg: dict, device=None) -> dict:
                                 steps_per_epoch=len(records) // batch_size, cfg=loop_cfg,
                                 rng=torch.Generator().manual_seed(0),
                                 log_fn=lambda d: print(d, file=sys.stderr), save_fn=save_fn)
+    if parallel is not None:
+        _print_rank_line(parallel, device, history, ("loss_llm", "grad_norm"))
     return {"state": state, "history": history}
+
+
+def _print_rank_line(parallel, device, history, keys, **extra):
+    """One JSON line a rank: its steps' metrics (equal on every rank), the
+    ms of each step's gradient all-reduce and, on the card, its peak
+    memory."""
+    line = {"rank": parallel.process_index, "world": parallel.process_count,
+            **{k: [h[k] for h in history] for k in keys}, **extra,
+            "allreduce_ms": parallel.timed_ms()}
+    if device.type == "cuda":
+        line["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+    print(json.dumps(line), flush=True)
 
 
 def _resolve_class_names(ds_name: str, md: dict) -> list:
@@ -429,10 +457,14 @@ def train_xdecoder(cfg: dict, device=None):
     parameters through the npz store at the last step.  Without
     ``DATASETS.TRAIN``, returns None after building the model, as JAX
     does; else ``{"state", "history"}`` (every step's metrics as floats).
-    One process: a ``MESH_*`` other than 0 raises."""
-    if any(int(cfg.get(k, 0) or 0) != 0 for k in ("MESH_DATA", "MESH_FSDP", "MESH_TENSOR")):
-        raise NotImplementedError("MESH_*: the sharded X-Decoder step waits for the "
-                                  "multi-process training slice")
+    Several processes: the data axis of ``MESH_DATA`` (-1 or unset: every
+    rank); each rank's step takes its rows of the global batch
+    (``make_xdecoder_joint_train_step(parallel=...)``), only rank 0 logs the
+    steps and writes; a ``MESH_DATA`` other than the process count, or
+    ``MESH_FSDP`` / ``MESH_TENSOR`` above 1, raises (as in one process).
+    Each rank prints its steps' ``loss_total``, ``grad_norm`` and seconds as
+    one JSON line at the end."""
+    parallel = parallel_context(cfg)
     device = _device(device)
     model_cfg = xdecoder_model_config_from(cfg)
     params = _load_xdecoder_params(cfg, model_cfg, device)
@@ -444,7 +476,8 @@ def train_xdecoder(cfg: dict, device=None):
     state = TrainState(params, tx.init(params), 0)
     step_fn = make_xdecoder_joint_train_step(
         model_cfg, tx, remat=bool(cfg.get("REMAT", True)),
-        compute_dtype=None if cfg.get("FP32_TRAIN") else torch.bfloat16)
+        compute_dtype=None if cfg.get("FP32_TRAIN") else torch.bfloat16, parallel=parallel)
+    main = parallel is None or parallel.is_main
     names = (cfg.get("DATASETS") or {}).get("TRAIN")
     if isinstance(names, str):
         names = [names]
@@ -474,19 +507,25 @@ def train_xdecoder(cfg: dict, device=None):
                     yield buf
                     buf = []
 
+    step_s = []
     for _ in range(int(cfg.get("EPOCHS", 1))):
         for mapped in full_batches(rng_np.permutation(len(records))):
             batch = collate_joint(mapped, tokenize, class_names, rng_np,
                                   max_instances=int(cfg.get("MAX_INSTANCES", 20)))
             batch["image"] = np.stack([normalize_np(m["image"]) for m in mapped])
             batch["class_ids"], batch["class_mask"] = cls_ids, cls_mask
+            t0 = time.perf_counter()
             state, metrics = step_fn(state, batch, generator)
             metrics = {k: float(v) for k, v in metrics.items()}
+            step_s.append(time.perf_counter() - t0)
             history.append(metrics)
-            print({"step": len(history), "loss_total": metrics["loss_total"],
-                   "grad_norm": metrics["grad_norm"]}, file=sys.stderr)
+            if main:
+                print({"step": len(history), "loss_total": metrics["loss_total"],
+                       "grad_norm": metrics["grad_norm"]}, file=sys.stderr)
     if cfg.get("SAVE_DIR"):
         save_checkpoint(cfg["SAVE_DIR"], len(history), {"params": state.trainable})
+    if parallel is not None:
+        _print_rank_line(parallel, device, history, ("loss_total", "grad_norm"), step_s=step_s)
     if device.type == "cuda":
         print(f"[entry] peak device memory {torch.cuda.max_memory_allocated(device) / 2**30:.2f}"
               " GiB", file=sys.stderr)
@@ -925,7 +964,9 @@ def _eval_step2_pre(cfg: dict, device) -> dict:
     skipped): one prompt, the system prompt with the image and the boxes
     question, through ``CuLLaVOPipeline.generate_step2_rows`` with
     ``MAX_NEW_TOKENS``, ``BATCH_SIZE`` and ``SAVE_DIR`` (default
-    ``step2_pre_out``).  One process (JAX shards the rows over processes)."""
+    ``step2_pre_out``).  Several processes: each rank generates its
+    ``np.array_split`` share of the rows (image names by global index), and
+    rank 0 writes the merged rows."""
     model_cfg, params, tokenizer = _build_llava(cfg, device)
     # the prompt carries the tokenizer's <image> id; the model merges image
     # features at its config's id: make them one
@@ -943,10 +984,16 @@ def _eval_step2_pre(cfg: dict, device) -> dict:
     if not keep:
         print("[entry] step2_pre: no images in dataset", file=sys.stderr)
         return {"rows": 0}
+    parallel, offset = parallel_context(cfg), 0
+    if parallel is not None:
+        # np.array_split: every rank gets a share, so each reaches the gather
+        sl = parallel.rows(len(keep))
+        keep, offset = keep[sl], sl.start
     ids = np.tile(ids_row[None], (len(keep), 1))
     rows = pipe.generate_step2_rows(_LazyImages(keep), ids, np.ones_like(ids), out_dir,
                                     max_new_tokens=int(cfg.get("MAX_NEW_TOKENS", 256)),
-                                    batch_size=int(cfg.get("BATCH_SIZE", 8)))
+                                    batch_size=int(cfg.get("BATCH_SIZE", 8)),
+                                    parallel_ctx=parallel, index_offset=offset)
     return {"rows": len(rows), "out_dir": out_dir}
 
 
@@ -972,27 +1019,33 @@ def evaluate(cfg: dict, device=None) -> dict:
     return results
 
 
-def _maybe_init_distributed():
-    """``CULLAVO_NUM_PROCS`` > 1 asks for several processes, which the port
-    does not run yet."""
+def _maybe_init_distributed(device=None) -> bool:
+    """Join the process group that ``CULLAVO_NUM_PROCS`` > 1 asks for
+    (``CULLAVO_COORDINATOR``, ``CULLAVO_PROC_ID``); returns whether one was
+    joined."""
     num = os.environ.get("CULLAVO_NUM_PROCS")
-    if num and int(num) > 1:
-        raise NotImplementedError(f"CULLAVO_NUM_PROCS={num}: several processes wait for the "
-                                  "parallelism slice; run one process")
+    pid = os.environ.get("CULLAVO_PROC_ID")
+    return initialize_distributed(os.environ.get("CULLAVO_COORDINATOR"),
+                                  int(num) if num else None, int(pid) if pid else 0, device)
 
 
 def main(argv=None, device=None):
     """The command line: parse ``argv`` (``sys.argv[1:]`` when None) with
     ``load_opt_command`` and run ``train``, ``evaluate`` (``eval``) or
-    ``serve`` on the config, on the GPU unless ``device`` names another."""
-    _maybe_init_distributed()
+    ``serve`` on the config, on the GPU unless ``device`` names another;
+    under ``CULLAVO_NUM_PROCS`` > 1 in the process group, left at the end."""
+    joined = _maybe_init_distributed(device)
     cfg, args = load_opt_command(argv)
     cfg = cfg.to_dict()
     if args.command == "train":
-        return train(cfg, device=device)
-    if args.command == "serve":
-        return serve(cfg, device=device)
-    return evaluate(cfg, device=device)
+        out = train(cfg, device=device)
+    elif args.command == "serve":
+        out = serve(cfg, device=device)
+    else:
+        out = evaluate(cfg, device=device)
+    if joined:
+        torch.distributed.destroy_process_group()
+    return out
 
 
 if __name__ == "__main__":

@@ -1,17 +1,18 @@
 """BLIP-2 / InstructBLIP assembly: EVA-ViT-g -> Q-Former -> projection ->
 language tower (counterpart of ``cullavo_tpu/models/blip2/modeling.py``).
-Two towers are ported: Flan-T5 (``blip2-flan-t5-*``, the reference's
-headline BLIP-2 checkpoint; encoder-decoder) and LLaMA / Vicuna
-(``instructblip-vicuna-*``, the decoder of ``models/llava/llama.py``, whose
-S-major cache ``[L, S, B, KV, hd]`` it shares): forward, greedy and beam
-decode, with InstructBLIP's instruction text into the Q-Former.  The
-decoder-only towers prefill once per row (a cached forward at slot 0,
-future slots masked) and decode one token a step with ``stale_cache``
-(on the card in f32: K12 over each layer's slice).  The zero-shot ImageNet
-branches are ``blip2_image_embed`` and ``blip2_text_embed``.  The OPT tower
-(``blip2-opt-*``) raises and names the item it waits for.  A snapshot's
-weights come through ``checkpoint/zoo_import.py`` (JAX's
-``import_blip2_torch`` takes a transformers model).
+Three towers: Flan-T5 (``blip2-flan-t5-*``, the reference's headline
+BLIP-2 checkpoint; encoder-decoder), OPT (``blip2-opt-*``,
+``models/blip2/opt.py``: head-major cache ``[L, B, H, S, hd]``, the head
+tied to the embedding) and LLaMA / Vicuna (``instructblip-vicuna-*``, the
+decoder of ``models/llava/llama.py``, whose S-major cache ``[L, S, B, KV,
+hd]`` it shares): forward, greedy and beam decode, with InstructBLIP's
+instruction text into the Q-Former.  The decoder-only towers prefill once
+per row (a cached forward at slot 0, future slots masked) and decode one
+token a step with ``stale_cache`` (on the card in f32: K12 over each
+layer's slice).  The zero-shot ImageNet branches are ``blip2_image_embed``
+and ``blip2_text_embed``.  A snapshot's weights come through
+``checkpoint/zoo_import.py`` (JAX's ``import_blip2_torch`` takes a
+transformers model).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 
 from cullavo_tpu_torch.models.beam import beam_search
 from cullavo_tpu_torch.models.blip2.config import Blip2Config
+from cullavo_tpu_torch.models.blip2.opt import init_opt_params, opt_forward, opt_init_cache
 from cullavo_tpu_torch.models.blip2.qformer import (init_qformer_params, qformer_encode_text,
                                                     qformer_forward)
 from cullavo_tpu_torch.models.blip2.t5 import (init_t5_params, t5_beam_generate, t5_forward,
@@ -28,18 +30,11 @@ from cullavo_tpu_torch.models.blip2.vision import (blip2_vision_forward,
 from cullavo_tpu_torch.models.llava.llama import init_kv_cache, init_llama_params, llama_forward
 
 
-def _refuse_opt(cfg: Blip2Config, what: str) -> None:
-    if cfg.text_is_opt:
-        raise NotImplementedError(f"{what}: the OPT tower (blip2-opt-*) waits for the BLIP-2 "
-                                  "OPT item (queue 1 item 2.6 of ROADMAP.md)")
-
-
 def init_blip2_params(cfg: Blip2Config, gen: torch.Generator, device,
                       dtype=torch.float32) -> dict:
     """Random parameters in the JAX layout and scales, drawn from ``gen``
     (a seeded ``torch.Generator`` on ``device``): vision, Q-Former, query
-    tokens, projection, then the T5 or LLaMA tower."""
-    _refuse_opt(cfg, "init_blip2_params")
+    tokens, projection, then the OPT, T5 or LLaMA tower."""
     D_q, D_lm = cfg.qformer.hidden_size, cfg.lm_hidden_size
     params = {
         "vision": init_blip2_vision_params(cfg.vision, gen, device, dtype),
@@ -48,7 +43,8 @@ def init_blip2_params(cfg: Blip2Config, gen: torch.Generator, device,
         "projection": {"w": normal(gen, (D_q, D_lm), 0.02, dtype, device),
                        "b": torch.zeros((D_lm,), dtype=dtype, device=device)},
     }
-    init_lm = init_t5_params if cfg.text_is_t5 else init_llama_params
+    init_lm = (init_opt_params if cfg.text_is_opt
+               else init_t5_params if cfg.text_is_t5 else init_llama_params)
     params["language_model"] = init_lm(cfg.text, gen, device, dtype)
     return params
 
@@ -83,15 +79,21 @@ def _lm_embed(params: dict, ids: torch.Tensor) -> torch.Tensor:
     return params["language_model"]["embed_tokens"][ids.long()]
 
 
-def _lm_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    return hidden @ params["language_model"]["lm_head"]
+def _lm_logits(params: dict, cfg: Blip2Config, hidden: torch.Tensor) -> torch.Tensor:
+    lm = params["language_model"]
+    if cfg.text_is_opt:
+        return hidden @ lm["embed_tokens"].T          # the tied head
+    return hidden @ lm["lm_head"]
 
 
 def _lm_forward(params, cfg: Blip2Config, embeds, mask, pos, cache=None, cache_index=None,
                 key_position_ids=None, stale_cache=False):
-    """The LLaMA tower; without a cache the attention takes the key-padding
-    bias (JAX's ``sdpa`` branch off the TPU), not the flash kernel's
-    right-padded contract."""
+    """The OPT or LLaMA tower; without a cache LLaMA's attention takes the
+    key-padding bias (JAX's ``sdpa`` branch off the TPU), not the flash
+    kernel's right-padded contract."""
+    if cfg.text_is_opt:
+        return opt_forward(params["language_model"], cfg.text, embeds, mask, pos, cache,
+                           cache_index, key_position_ids, stale_cache=stale_cache)
     return llama_forward(params["language_model"], cfg.text, embeds, mask, pos, cache,
                          cache_index, key_position_ids, use_flash=False if cache is None else None,
                          stale_cache=stale_cache)
@@ -101,16 +103,21 @@ def blip2_forward(params: dict, cfg: Blip2Config, pixel_values, input_ids, atten
                   qformer_text_ids=None, qformer_text_mask=None, decoder_input_ids=None,
                   compute_dtype=None) -> torch.Tensor:
     """T5 tower: encodes [queries; prompt] and returns the decoder's logits
-    [B, Td, V] over ``decoder_input_ids``.  LLaMA tower: the logits [B, Q +
-    T, V] of [queries; prompt]."""
-    _refuse_opt(cfg, "blip2_forward")
+    [B, Td, V] over ``decoder_input_ids``.  OPT and LLaMA towers: the
+    logits [B, Q + T, V] of [queries; prompt]."""
     lang_img = encode_image(params, cfg, pixel_values, qformer_text_ids, qformer_text_mask,
                             compute_dtype)
     embeds, mask = _prefix_inputs(params, lang_img, input_ids, attention_mask)
     if cfg.text_is_t5:
         return t5_forward(params["language_model"], cfg.text, embeds, mask, decoder_input_ids)
     h, _ = _lm_forward(params, cfg, embeds, mask, _positions(mask))
-    return _lm_logits(params, h)
+    return _lm_logits(params, cfg, h)
+
+
+def _init_cache(cfg: Blip2Config, batch: int, max_len: int, dtype, device) -> dict:
+    if cfg.text_is_opt:
+        return opt_init_cache(cfg.text, batch, max_len, dtype, device=device)
+    return init_kv_cache(cfg.text, batch, max_len, dtype, device=device)
 
 
 def _prefill(params, cfg: Blip2Config, embeds, mask0, spare: int):
@@ -120,13 +127,14 @@ def _prefill(params, cfg: Blip2Config, embeds, mask0, spare: int):
     B, T = mask0.shape
     dev = embeds.device
     pos0 = _positions(mask0)
-    cache = init_kv_cache(cfg.text, B, T + spare, embeds.dtype, device=dev)
+    cache = _init_cache(cfg, B, T + spare, embeds.dtype, dev)
     full_mask = torch.cat([mask0, torch.zeros((B, spare), dtype=mask0.dtype, device=dev)], dim=1)
     key_pos = torch.cat([pos0, torch.zeros((B, spare), dtype=pos0.dtype, device=dev)], dim=1)
     h, cache = _lm_forward(params, cfg, embeds, full_mask, pos0, cache, 0, key_pos)
     rows = torch.arange(B, device=dev)
     last_idx = mask0.sum(dim=1).long() - 1
-    return cache, full_mask, key_pos, _lm_logits(params, h[rows, last_idx]), pos0[rows, last_idx]
+    return (cache, full_mask, key_pos, _lm_logits(params, cfg, h[rows, last_idx]),
+            pos0[rows, last_idx])
 
 
 def _step(params, cfg: Blip2Config, tok, cache, full_mask, key_pos, idx: int, new_pos, dtype):
@@ -138,16 +146,15 @@ def _step(params, cfg: Blip2Config, tok, cache, full_mask, key_pos, idx: int, ne
                        stale_cache=True)
     full_mask[:, idx] = 1
     key_pos[:, idx] = new_pos.to(key_pos.dtype)
-    return _lm_logits(params, h[:, -1])
+    return _lm_logits(params, cfg, h[:, -1])
 
 
 def blip2_generate(params: dict, cfg: Blip2Config, pixel_values, input_ids, attention_mask,
                    max_new_tokens: int, eos_token_id: int = -1, qformer_text_ids=None,
                    qformer_text_mask=None, compute_dtype=None) -> torch.Tensor:
-    """Greedy decode; returns [B, max_new_tokens] int32.  The LLaMA tower
-    fills a row's slots after its eos with 0, and stops once every row is
-    done (JAX's ``while_loop``)."""
-    _refuse_opt(cfg, "blip2_generate")
+    """Greedy decode; returns [B, max_new_tokens] int32.  The decoder-only
+    towers fill a row's slots after its eos with 0, and stop once every row
+    is done (JAX's ``while_loop``)."""
     lang_img = encode_image(params, cfg, pixel_values, qformer_text_ids, qformer_text_mask,
                             compute_dtype)
     embeds, mask0 = _prefix_inputs(params, lang_img, input_ids, attention_mask)
@@ -180,14 +187,14 @@ def blip2_beam_generate(params: dict, cfg: Blip2Config, pixel_values, input_ids,
                         compute_dtype=None) -> torch.Tensor:
     """Beam-search decode (the reference's BLIP-2 / InstructBLIP settings:
     beam 5, length penalty -1, at most 10 new tokens); returns [B,
-    max_new_tokens].  The T5 tower pads with its config's pad id.  The
-    LLaMA tower prefills each row once into a cache of T + max_new_tokens +
-    1 slots, repeats it to B x num_beams rows along the cache's batch axis
-    (2 of [L, S, B, KV, hd]) and runs ``models.beam.beam_search`` with the
-    state (cache, full mask, key positions): a step writes its slot in
-    place, and the reorder gathers only the cache (the masks and positions
-    of a row's beams are equal), as JAX's does."""
-    _refuse_opt(cfg, "blip2_beam_generate")
+    max_new_tokens].  The T5 tower pads with its config's pad id.  The OPT
+    and LLaMA towers prefill each row once into a cache of T +
+    max_new_tokens + 1 slots, repeat it to B x num_beams rows along the
+    cache's batch axis (1 of OPT's [L, B, H, S, hd], 2 of LLaMA's [L, S, B,
+    KV, hd]) and run ``models.beam.beam_search`` with the state (cache, full
+    mask, key positions): a step writes its slot in place, and the reorder
+    gathers only the cache (the masks and positions of a row's beams are
+    equal), as JAX's does."""
     lang_img = encode_image(params, cfg, pixel_values, qformer_text_ids, qformer_text_mask,
                             compute_dtype)
     embeds, mask0 = _prefix_inputs(params, lang_img, input_ids, attention_mask)
@@ -199,7 +206,8 @@ def blip2_beam_generate(params: dict, cfg: Blip2Config, pixel_values, input_ids,
     nb = num_beams
     cache, full_mask, key_pos, logits, last_pos = _prefill(params, cfg, embeds, mask0,
                                                            max_new_tokens + 1)
-    cache = {k: a.repeat_interleave(nb, dim=2) for k, a in cache.items()}
+    bax = 1 if cfg.text_is_opt else 2
+    cache = {k: a.repeat_interleave(nb, dim=bax) for k, a in cache.items()}
     full_mask, key_pos, last_pos, init_logits = (
         a.repeat_interleave(nb, dim=0) for a in (full_mask, key_pos, last_pos, logits.float()))
 
@@ -211,7 +219,7 @@ def blip2_beam_generate(params: dict, cfg: Blip2Config, pixel_values, input_ids,
 
     def reorder_fn(state, flat_parent):
         cache, full_mask, key_pos = state
-        return ({k: a.index_select(2, flat_parent) for k, a in cache.items()}, full_mask,
+        return ({k: a.index_select(bax, flat_parent) for k, a in cache.items()}, full_mask,
                 key_pos)
 
     return beam_search(step_fn, reorder_fn, init_logits, (cache, full_mask, key_pos), B, nb,

@@ -353,10 +353,10 @@ class _Adapters:
     the layer's dropout seeds (None: no dropout) and, for a multi stack, each
     batch row's adapter (``adapter_ids``, int64 [B])."""
 
-    def __init__(self, lora, li, scaling, dropout, seeds, adapter_ids=None):
+    def __init__(self, lora, li, scaling, dropout, seeds, adapter_ids=None, rows=None):
         self.ad = {t: {k: a[li] for k, a in ab.items()} for t, ab in (lora or {}).items()}
         self.scaling, self.dropout, self.seeds = scaling, dropout, seeds
-        self.adapter_ids = adapter_ids
+        self.adapter_ids, self.rows = adapter_ids, rows
 
     def add(self, y, x, name):
         """y + scaling * ((drop(x) @ a) @ b) when ``name`` has an adapter."""
@@ -365,7 +365,7 @@ class _Adapters:
             return y
         seed = None if self.seeds is None else self.seeds[_TARGET_INDEX[name]]
         return y + lora_update(x, ad, self.scaling, y.dtype, self.dropout, seed,
-                               self.adapter_ids)
+                               self.adapter_ids, self.rows)
 
 
 def _mm_group(x, w, names, adapters):
@@ -411,6 +411,7 @@ def llama_forward(
     dropout_rng: Optional[torch.Generator] = None,   # a CPU generator: the layers' seeds
     remat: bool = False,                  # checkpoint each layer (no-cache forward only)
     adapter_ids: Optional[torch.Tensor] = None,   # [B]: each row's set of a multi stack
+    dropout_rows: Optional[tuple] = None,  # (offset, total): these rows of a global batch
 ):
     """Run the decoder stack; returns (final_hidden, new_cache).
 
@@ -442,8 +443,11 @@ def llama_forward(
     is a pure function of its seed.  ``remat`` wraps each layer in
     ``torch.utils.checkpoint``: the backward keeps only the layer inputs
     and recomputes the rest (the adapters' ``x @ a`` included), with the
-    same dropout masks.  A multi stack (``lora.stack_adapter_sets``) needs
-    ``adapter_ids``: row b takes set ``adapter_ids[b]`` in every layer."""
+    same dropout masks.  ``dropout_rows`` (offset, total): the batch is
+    rows offset.. of a global batch of ``total`` (a data-parallel rank's);
+    each mask is drawn for the global batch and these rows taken.  A multi
+    stack (``lora.stack_adapter_sets``) needs ``adapter_ids``: row b takes
+    set ``adapter_ids[b]`` in every layer."""
     B, T, D = inputs_embeds.shape
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     n_rep = H // KV
@@ -534,7 +538,7 @@ def llama_forward(
     def layer(h, li):
         w = {name: _layer_slice(a, li) for name, a in layers.items()}
         ad = _Adapters(lora, li, lora_scaling, lora_dropout,
-                       None if seeds is None else seeds[li], adapter_ids)
+                       None if seeds is None else seeds[li], adapter_ids, dropout_rows)
         residual = h
         x = rms_norm(h, w["input_ln"], cfg.rms_norm_eps)
         yq, yk, yv = _mm_group(x, w, ("q", "k", "v"), ad)

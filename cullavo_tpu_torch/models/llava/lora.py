@@ -111,20 +111,27 @@ def init_lora_params(params: dict, cfg: LlavaConfig, lora: LoraConfig,
     return out
 
 
-def dropout_mask(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def dropout_mask(x: torch.Tensor, rate: float, seed: int, rows: Optional[tuple] = None):
     """Keep-mask for LoRA dropout on x, a pure function of ``seed`` (so a
-    rematerialized layer draws the same mask again)."""
+    rematerialized layer draws the same mask again).  ``rows`` (offset,
+    total): x holds rows offset.. of a batch of ``total``; the mask is drawn
+    for that whole batch and these rows taken, so that a data-parallel rank
+    drops what one process would."""
     g = torch.Generator(device=x.device).manual_seed(seed)
-    return torch.rand(x.shape, generator=g, device=x.device) >= rate
+    if rows is None:
+        return torch.rand(x.shape, generator=g, device=x.device) >= rate
+    offset, total = rows
+    full = torch.rand((total,) + tuple(x.shape[1:]), generator=g, device=x.device)
+    return full[offset:offset + x.shape[0]] >= rate
 
 
 def lora_update(x, adapter: dict, scaling: float, out_dtype,
                 dropout: float = 0.0, seed: Optional[int] = None,
-                adapter_ids: Optional[torch.Tensor] = None):
+                adapter_ids: Optional[torch.Tensor] = None, rows: Optional[tuple] = None):
     """The low-rank term ``scaling * ((drop(x) @ a) @ b)`` (times the
     per-layer mask of a vision adapter) for ONE layer's adapter slice.
     Dropout (``seed`` given and ``dropout`` > 0) zeroes inputs and scales
-    the kept ones by 1 / (1 - dropout).
+    the kept ones by 1 / (1 - dropout); ``rows`` as in ``dropout_mask``.
 
     A multi stack's layer slice (``a`` [K, d_in, r], ``b`` [K, r, d_out])
     gives row b of x [B, T, d_in] adapter ``adapter_ids[b]``: the rows'
@@ -132,7 +139,7 @@ def lora_update(x, adapter: dict, scaling: float, out_dtype,
     same values exactly) and applied as batched products."""
     xa = x
     if seed is not None and dropout > 0.0:
-        xa = torch.where(dropout_mask(x, dropout, seed), x / (1.0 - dropout),
+        xa = torch.where(dropout_mask(x, dropout, seed, rows), x / (1.0 - dropout),
                          torch.zeros_like(x))
     a, b = adapter["a"], adapter["b"]
     if a.dim() == 3:

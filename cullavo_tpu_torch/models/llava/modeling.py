@@ -137,14 +137,15 @@ def llava_forward(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
                   lora_dropout: float = 0.0,
                   dropout_rng: Optional[torch.Generator] = None,
                   remat: bool = False, return_hidden: bool = False,
-                  adapter_ids: Optional[torch.Tensor] = None):
+                  adapter_ids: Optional[torch.Tensor] = None,
+                  dropout_rows: Optional[tuple] = None):
     """Returns (f32 logits [B, T or 1, V], new_cache), or with
     ``return_hidden`` the final hidden states in place of the logits (the
     trainer projects them chunk by chunk).  ``cache_index``: an int, or an
     int32 [B] tensor of per-row write positions.  ``lora``:
     ``{"language_model": ..., "vision_tower": ...}`` adapter stacks; a multi
     stack of LLM adapters (``lora.stack_adapter_sets``) takes each row's set
-    from ``adapter_ids`` [B].
+    from ``adapter_ids`` [B].  ``dropout_rows``: ``llama_forward``'s.
     Differentiable where the inputs ask for it; the generation functions
     call it without gradients."""
     embed = params["language_model"]["embed_tokens"]
@@ -164,7 +165,7 @@ def llava_forward(params: dict, cfg: LlavaConfig, input_ids: torch.Tensor,
         stale_cache=stale_cache, prefill_pad_len=prefill_pad_len, kv_quant=kv_quant,
         lora=(lora or {}).get("language_model"), lora_scaling=lora_scaling,
         lora_dropout=lora_dropout, dropout_rng=dropout_rng, remat=remat,
-        adapter_ids=adapter_ids)
+        adapter_ids=adapter_ids, dropout_rows=dropout_rows)
     if last_logit_only:
         # only the last valid position feeds sampling
         last = attention_mask.sum(dim=1).to(torch.int64) - 1

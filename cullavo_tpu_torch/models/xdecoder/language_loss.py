@@ -2,21 +2,24 @@
 ``cullavo_tpu/models/xdecoder/language_loss.py``): the scaled similarity,
 soft cross-entropy, symmetric InfoNCE, the multi-positive form, the
 image-text contrastive loss of the VLP pass and its fine-grained
-query-token term.  One process: there is no gather, and a ``data_axis``
-other than None raises (several processes are a later slice)."""
+query-token term.  ``data_axis`` (a ``parallel.BatchPart``; None for one
+process): the features are this rank's rows of a global batch; the
+batch-coupled losses gather every rank's rows with gradient (JAX's
+``all_gather`` inside ``shard_map``) and return this rank's share of the
+global batch's loss."""
 from __future__ import annotations
-
-from typing import Optional
 
 import torch
 
 from cullavo_tpu_torch.models.xdecoder.decoder import l2_normalize
 
 
-def _one_process(data_axis):
-    if data_axis is not None:
-        raise NotImplementedError(f"data_axis={data_axis!r}: the gather over processes waits "
-                                  "for the multi-process training slice")
+def _whole(data_axis, *xs):
+    return xs if data_axis is None else tuple(data_axis.gather(x) for x in xs)
+
+
+def _share(data_axis, loss):
+    return loss if data_axis is None else data_axis.share(loss)
 
 
 def _scale(temperature):
@@ -40,12 +43,11 @@ def _ce_diag(logits):
     return -torch.diagonal(logp).mean()
 
 
-def vl_contrastive_loss(image_feat, text_feat, temperature=1.0,
-                        data_axis: Optional[str] = None):
+def vl_contrastive_loss(image_feat, text_feat, temperature=1.0, data_axis=None):
     """Symmetric InfoNCE over normalized [N, D] features."""
-    _one_process(data_axis)
+    image_feat, text_feat = _whole(data_axis, image_feat, text_feat)
     logits = (image_feat @ text_feat.t()) * _scale(temperature)
-    return 0.5 * (_ce_diag(logits) + _ce_diag(logits.t()))
+    return _share(data_axis, 0.5 * (_ce_diag(logits) + _ce_diag(logits.t())))
 
 
 def multilabel_contrastive_loss(image_feat, text_feat, positive_mask, temperature=1.0):
@@ -58,17 +60,17 @@ def multilabel_contrastive_loss(image_feat, text_feat, positive_mask, temperatur
     return 0.5 * (soft_cross_entropy(logits, row) + soft_cross_entropy(logits.t(), col))
 
 
-def image_text_contrastive_loss(image_emb, text_emb, logit_scale,
-                                data_axis: Optional[str] = None):
+def image_text_contrastive_loss(image_emb, text_emb, logit_scale, data_axis=None):
     """The VLP pass's ITC loss: normalize, then symmetric InfoNCE."""
     return vl_contrastive_loss(l2_normalize(image_emb), l2_normalize(text_emb), logit_scale,
                                data_axis)
 
 
-def fine_grained_itc_loss(query_emb, token_emb, token_mask, logit_scale):
+def fine_grained_itc_loss(query_emb, token_emb, token_mask, logit_scale, data_axis=None):
     """Object queries [B, Q, D] against the batch's caption tokens [B, T, D]
     (mask [B, T]): soft targets weighted by token position (mask *
     cumsum(mask)), image-to-text and text-to-image combined 0.7 / 0.3."""
+    query_emb, token_emb, token_mask = _whole(data_axis, query_emb, token_emb, token_mask)
     B, Q, D = query_emb.shape
     T = token_emb.shape[1]
     v, t = l2_normalize(query_emb), l2_normalize(token_emb)
@@ -86,4 +88,4 @@ def fine_grained_itc_loss(query_emb, token_emb, token_mask, logit_scale):
     logits_tv = scale * torch.einsum("kd,bqd->kbq", tt, v).mean(dim=-1)
     ce_rows = -(gt.t() * torch.log_softmax(logits_tv, dim=-1)).sum(dim=-1)
     loss_tv = (ce_rows * valid).sum() / valid.sum().clamp_min(1.0)
-    return loss_vt * 0.7 + loss_tv * 0.3
+    return _share(data_axis, loss_vt * 0.7 + loss_tv * 0.3)

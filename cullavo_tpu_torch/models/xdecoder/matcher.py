@@ -12,7 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cullavo_tpu_torch.ops.point_sample import point_sample_batch, uniform_points
+from cullavo_tpu_torch.ops.point_sample import (drawn_rows, drawn_shape, point_sample_batch,
+                                                uniform_points)
 
 
 def batch_sigmoid_ce_cost(inputs, targets):
@@ -68,17 +69,19 @@ hungarian_match.host_seconds = 0.0
 def compute_match_costs(pred_logits, pred_masks, tgt_classes, tgt_masks, tgt_valid,
                         generator: torch.Generator, num_points: int = 12544,
                         cost_class: float = 2.0, cost_mask: float = 5.0,
-                        cost_dice: float = 5.0, coords=None):
+                        cost_dice: float = 5.0, coords=None, rows=None):
     """pred_logits [B, Q, C], pred_masks [B, Q, H, W], targets padded to N
     with ``tgt_valid`` [B, N] -> cost [B, Q, N] (no gradient), over uniform
-    points drawn from ``generator`` (or ``coords`` [B, P, 2])."""
+    points drawn from ``generator`` (or ``coords`` [B, P, 2]; ``rows``:
+    ``point_sample.drawn_shape``'s)."""
     B = pred_logits.shape[0]
     with torch.no_grad():
         probs = torch.softmax(pred_logits, dim=-1)
         safe = tgt_classes.long().clamp(0, pred_logits.shape[-1] - 1)
         cls_cost = -torch.gather(probs, 2, safe[:, None, :].expand(-1, probs.shape[1], -1))
         if coords is None:
-            coords = uniform_points((B, num_points, 2), generator, pred_masks.device)
+            coords = drawn_rows(uniform_points(drawn_shape((B, num_points, 2), rows), generator,
+                                               pred_masks.device), rows)
         pred_pts = point_sample_batch(pred_masks, coords)
         # the targets are sampled bilinearly, not binarized (the reference)
         tgt_pts = point_sample_batch(tgt_masks.float(), coords)

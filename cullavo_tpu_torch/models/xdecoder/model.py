@@ -368,6 +368,11 @@ _RENAME = {"loss_ce": "loss_mask_ce", "loss_mask_bce": "loss_mask_bce",
            "loss_mask_dice": "loss_mask_dice", "loss_bbox": "loss_bbox", "loss_giou": "loss_giou"}
 
 
+# batch leaves that are per-class tables, not per-image rows: every rank
+# holds them whole
+REPLICATED_BATCH_KEYS = ("class_ids", "class_mask")
+
+
 def forward_joint_train(params, cfg: XDecoderModelConfig, batch, generator, data_axis=None,
                         remat: bool = False):
     """The joint objective of one step: mask / class / box losses, caption,
@@ -384,9 +389,22 @@ def forward_joint_train(params, cfg: XDecoderModelConfig, batch, generator, data
     embeddings are computed here, so the text encoder trains.  The text-side
     losses supervise the top layers: reference layer_id r is prediction
     ``aux[L - 1 - r]`` (0 = final); grounding is re-matched at every one of
-    them.  Random points come from ``generator``, in call order."""
+    them.  Random points come from ``generator``, in call order.
+
+    ``data_axis``: a ``parallel.ParallelContext`` (several processes), and
+    ``batch`` the global batch.  This rank runs the text tower, the trunk,
+    the decoder and every loss on its images (``data_axis.part``; the class
+    tables whole), and each loss returns this rank's share
+    (``criterion``'s module docstring): the matcher per image, the point
+    draws and ``num_masks`` as one process's, the contrastive terms over
+    the embeddings of every rank.  The ranks' summed losses and gradients
+    are the one-process step's."""
     dev = params["text"]["token_embedding"].device
     batch = _to_device(batch, dev)
+    part = None if data_axis is None else data_axis.part(batch["caption_ids"].shape[0])
+    if part is not None:
+        batch = {k: (v if k in REPLICATED_BATCH_KEYS else v[part.offset:part.offset + part.n])
+                 for k, v in batch.items()}
     tp, tc = params["text"], cfg.text
     class_embs = te.forward_language(tp, tc, batch["class_ids"], batch["class_mask"], norm=True,
                                      remat=remat)
@@ -414,7 +432,7 @@ def forward_joint_train(params, cfg: XDecoderModelConfig, batch, generator, data
     targets = {k: batch[k] for k in ("classes", "masks", "boxes", "valid")}
     nq = cfg.decoder.num_queries
     raw, all_idx = set_criterion(_object_queries(out, nq), targets, cfg.criterion, generator,
-                                 data_axis, return_indices="all")
+                                 part, return_indices="all")
     losses = {}
     for k, v in raw.items():
         for old, new in _RENAME.items():
@@ -435,21 +453,21 @@ def forward_joint_train(params, cfg: XDecoderModelConfig, batch, generator, data
         losses[f"loss_caption_{r}"] = crit.weight_caption * loss_captions(
             seg_pred(r)["pred_captions"][:, :nq - 1], *all_idx[r], batch["classes"],
             batch["labels_hash"], class_embs, cap_embs, batch["caption_hash"],
-            batch["caption_valid"], logit_scale)
+            batch["caption_valid"], logit_scale, part)
     for r in range(min(crit.top_x_layers_grounding, L)):
         p = seg_pred(r)
         g_masks_all = p["pred_masks"][:, nq:]
         g_src, g_valid, g_sim = match_groundings(
             g_masks_all, p["pred_captions"][:, nq:], batch["grounding_masks"], grounding_tokens,
-            batch["grounding_valid"], logit_scale, generator, crit)
+            batch["grounding_valid"], logit_scale, generator, crit, data_axis=part)
         g_masks_pred = torch.gather(
             g_masks_all, 1, g_src[:, :, None, None].expand(-1, -1, *g_masks_all.shape[2:]))
         bce, dice = loss_groundings(g_masks_pred, batch["grounding_masks"], g_valid, generator,
-                                    crit)
+                                    crit, part)
         losses[f"loss_grounding_bce_{r}"] = crit.weight_grounding_bce * bce
         losses[f"loss_grounding_dice_{r}"] = crit.weight_grounding_dice * dice
         losses[f"loss_grounding_ce_{r}"] = crit.weight_grounding_ce * loss_grounding_ce(
-            g_sim, g_src, g_valid, batch["grounding_hash"])
+            g_sim, g_src, g_valid, batch["grounding_hash"], part)
 
     out_vlp = xdecoder_forward(params["decoder"], cfg.decoder, pyramid, mask_features,
                                caption_tokens=cap_tok, task="vlp", is_train=True, remat=remat)
@@ -462,18 +480,18 @@ def forward_joint_train(params, cfg: XDecoderModelConfig, batch, generator, data
     for r in range(min(crit.top_x_layers_captioning, Lv)):
         losses[f"loss_captioning_{r}"] = crit.weight_captioning * loss_captionings(
             vlp_pred(r)["pred_captionings"], cap_tok, batch["caption_text_ids"],
-            batch["caption_text_mask"], vocab_embs, logit_scale)
+            batch["caption_text_mask"], vocab_embs, logit_scale, part)
     for r in range(min(crit.top_x_layers_retrieval, Lv)):
         pc = vlp_pred(r)["pred_captions"]
-        coarse = image_text_contrastive_loss(pc[:, nq - 1], cap_sent, logit_scale, data_axis)
+        coarse = image_text_contrastive_loss(pc[:, nq - 1], cap_sent, logit_scale, part)
         fine = fine_grained_itc_loss(pc[:, :nq - 1], cap_tok, batch["caption_text_mask"],
-                                     logit_scale)
+                                     logit_scale, part)
         losses[f"loss_retrieval_decoder_{r}"] = crit.weight_retrieval_decoder * (
             coarse + 0.5 * fine)
     if "backbone_proj" in params:
         v5 = feats["res5"].mean(dim=(2, 3)) @ params["backbone_proj"]
         losses["loss_retrieval_backbone_0"] = crit.weight_retrieval_backbone * (
-            image_text_contrastive_loss(v5, cap_sent, logit_scale, data_axis))
+            image_text_contrastive_loss(v5, cap_sent, logit_scale, part))
     return losses
 
 

@@ -25,6 +25,18 @@ def uniform_points(shape, generator: torch.Generator, device) -> torch.Tensor:
     return torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
 
 
+def drawn_shape(shape, rows=None) -> tuple:
+    """The shape to draw for ``shape``'s rows: ``rows`` (start, stop, total)
+    names a rank's rows start:stop of a global batch's ``total`` (the draws
+    are the global batch's, as in one process), None the whole shape."""
+    return tuple(shape) if rows is None else (rows[2],) + tuple(shape[1:])
+
+
+def drawn_rows(draws, rows=None):
+    """This rank's rows of ``drawn_shape``'s draws."""
+    return draws if rows is None else draws[rows[0]:rows[1]]
+
+
 def point_sample_batch(features, coords, align_corners: bool = False):
     """[N, C, H, W], [N, P, 2] -> [N, C, P] f32."""
     N, C, H, W = features.shape
@@ -62,12 +74,14 @@ def calculate_uncertainty(logits):
 
 def uncertain_point_coords(mask_logits, generator: torch.Generator, num_points: int,
                            oversample_ratio: float = 3.0,
-                           importance_sample_ratio: float = 0.75):
-    """mask_logits [N, 1, H, W] -> [N, num_points, 2] coords (no gradient)."""
+                           importance_sample_ratio: float = 0.75, rows=None):
+    """mask_logits [N, 1, H, W] -> [N, num_points, 2] coords (no gradient);
+    ``rows``: ``drawn_shape``'s, for both draws."""
     N = mask_logits.shape[0]
     dev = mask_logits.device
     n_sampled = int(num_points * oversample_ratio)
-    coords = uniform_points((N, n_sampled, 2), generator, dev)
+    coords = drawn_rows(uniform_points(drawn_shape((N, n_sampled, 2), rows), generator, dev),
+                        rows)
     with torch.no_grad():
         uncert = calculate_uncertainty(point_sample_batch(mask_logits.detach(), coords))[:, 0]
     n_uncertain = int(importance_sample_ratio * num_points)
@@ -75,5 +89,6 @@ def uncertain_point_coords(mask_logits, generator: torch.Generator, num_points: 
     top = torch.topk(uncert, n_uncertain, dim=1).indices
     picked = torch.gather(coords, 1, top[..., None].expand(N, n_uncertain, 2))
     if n_random > 0:
-        picked = torch.cat([picked, uniform_points((N, n_random, 2), generator, dev)], dim=1)
+        extra = uniform_points(drawn_shape((N, n_random, 2), rows), generator, dev)
+        picked = torch.cat([picked, drawn_rows(extra, rows)], dim=1)
     return picked

@@ -3,7 +3,10 @@
 LLaVA (model and optimizer state, batch synthesis, the train step) and the
 step2_pre model-in-the-loop dataset generation (``generate_step2_rows``:
 sampled continuations through the fused ``generate``, parsed for boxes and
-classes, drawn, written as PNGs and ``lbk_new_version.json`` rows).
+classes, drawn, written as PNGs and ``lbk_new_version.json`` rows).  With a
+``ParallelContext`` (several processes) the train step takes this rank's
+rows of each global batch, and step2_pre gathers the ranks' rows for rank 0
+to write.
 """
 from __future__ import annotations
 
@@ -34,11 +37,12 @@ class CuLLaVOPipeline:
     """Owns model config + tokenizer + data synthesis + the train step.
     ``params`` live on the device the step runs on."""
 
-    def __init__(self, cfg, model_cfg: LlavaConfig, tokenizer, params):
+    def __init__(self, cfg, model_cfg: LlavaConfig, tokenizer, params, parallel=None):
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.tokenizer = tokenizer
         self.params = params
+        self.parallel = parallel
         self.workload = cfg.get("WORKLOAD", "step1")
         self._rng = np.random.default_rng(cfg.get("SEED", 0))
 
@@ -79,7 +83,8 @@ class CuLLaVOPipeline:
         # the production memory configuration: per-layer remat, bf16 compute
         # over f32 masters, chunked CE so [B, T, V] logits never exist
         self.step_fn = make_train_step(self.model_cfg, lora_cfg, tx, remat=True,
-                                       compute_dtype=torch.bfloat16, loss_chunk=256)
+                                       compute_dtype=torch.bfloat16, loss_chunk=256,
+                                       parallel=self.parallel)
         self.state, self.frozen, self.lora_cfg = state, frozen, lora_cfg
         return state
 
@@ -101,7 +106,8 @@ class CuLLaVOPipeline:
     # -- step2_pre data generation ----------------------------------------
     def generate_step2_rows(self, images_u8, prompts_ids: np.ndarray,
                             attention_mask: np.ndarray, out_dir: str, max_new_tokens: int = 256,
-                            batch_size: Optional[int] = None) -> list:
+                            batch_size: Optional[int] = None, parallel_ctx=None,
+                            index_offset: int = 0) -> list:
         """Model-in-the-loop enrichment: sample a caption + boxes
         continuation per row (temperature 0.9, top-k 50, top-p 0.95), parse
         it, draw the boxes on the row's image, and emit the dataset rows.
@@ -117,9 +123,12 @@ class CuLLaVOPipeline:
         f32 snapshot or the smoke model, bf16 for a bf16 snapshot; on the
         card the attention kernels take bf16 only, so an f32 base there
         raises.  Images go to ``out_dir`` as
-        ``step2_{b}.png`` through the port's PNG writer, the rows to
-        ``out_dir/lbk_new_version.json``.  One process: JAX's rank offset
-        and all-gather of the ranks' rows have no counterpart."""
+        ``step2_{index_offset + b}.png`` through the port's PNG writer, the
+        rows to ``out_dir/lbk_new_version.json``.  ``parallel_ctx`` (several
+        processes, each generating its shard of the rows, ``index_offset``
+        its first row's global index): the ranks' rows are gathered in rank
+        order, rank 0 writes the JSON and every rank returns the merged
+        rows."""
         emb = self.params["language_model"]["embed_tokens"]
         device, dtype = emb.device, emb.dtype
         if device.type == "cuda" and dtype != torch.bfloat16:
@@ -154,10 +163,14 @@ class CuLLaVOPipeline:
                 H, W = img.shape[:2]
                 abs_boxes = boxes * np.asarray([W, H, W, H], np.float32)
                 drawn = draw_boxes(img, abs_boxes, COLOR_LIST[:len(boxes)])
-                img_name = f"step2_{b}.png"
+                img_name = f"step2_{index_offset + b}.png"
                 png_io.write_png(os.path.join(out_dir, img_name), drawn)
                 rows.append({"image": img_name, "boxes": boxes.tolist(),
                              "classes": classes, "text": text})
+        if parallel_ctx is not None:
+            rows = [r for shard in parallel_ctx.allgather_objects(rows) for r in shard]
+            if not parallel_ctx.is_main:
+                return rows
         with open(os.path.join(out_dir, "lbk_new_version.json"), "w") as f:
             json.dump(rows, f)
         return rows

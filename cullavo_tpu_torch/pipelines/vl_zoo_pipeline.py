@@ -6,9 +6,9 @@ format, generation settings) run on the VQA harness by
 family (``native_blip2_imagenet_fns``).
 
 The port answers through its native towers: ``native_blip2_answer_fn``
-(Flan-T5 BLIP-2, or with ``kind="instructblip"`` InstructBLIP's Vicuna
-tower with the question into the Q-Former: beam 5, length penalty -1, at
-most 10 new tokens), ``native_kosmos2_answer_fn`` (greedy, the text after
+(Flan-T5 BLIP-2, with ``kind="opt"`` BLIP-2 OPT, or with
+``kind="instructblip"`` InstructBLIP's Vicuna tower with the question into
+the Q-Former: beam 5, length penalty -1, at most 10 new tokens), ``native_kosmos2_answer_fn`` (greedy, the text after
 the last 'Answer:') and ``native_bakllava_answer_fn`` (LLaVA over Mistral's
 sliding window, greedy).  Without weights the first two build the JAX
 package's tiny configs with seeded random weights and the byte tokenizer
@@ -18,14 +18,15 @@ published configuration JAX hard-codes (``_blip2_cfg_cls``,
 ``Kosmos2Config()``, ``bakllava_config()``), holds the snapshot's
 ``config.json`` to it, and reads the weights (``checkpoint/zoo_import.py``,
 ``hf_import.load_llava_safetensors``), the tokenizers
-(``data/tokenizer_json.py``: T5's Unigram, InstructBLIP's WordPiece
-Q-Former tokenizer under ``qformer_tokenizer/``; ``data/tokenizer.py``:
+(``data/tokenizer_json.py``: T5's Unigram, OPT's byte-level BPE,
+InstructBLIP's WordPiece Q-Former tokenizer under ``qformer_tokenizer/``;
+``data/tokenizer.py``:
 Vicuna's and Mistral's BPE) and KOSMOS-2's processor
 (``data/kosmos2_processor.py``) with the port's own code.  The BLIP-2 family
 reads its snapshots in f32, as JAX does; BakLLaVA reads them in bf16 on the
-card, so that K1 and K4 run, and in the snapshot's dtype elsewhere.  The HF harness (a pipeline
-without an ``answer_fn`` loads the checkpoint with transformers) and the
-OPT tower raise.
+card, so that K1 and K4 run, and in the snapshot's dtype elsewhere.  The
+HF harness (a pipeline without an ``answer_fn`` loads the checkpoint with
+transformers) raises.
 """
 from __future__ import annotations
 
@@ -149,7 +150,8 @@ def native_blip2_answer_fn(model_cfg=None, params=None, tokenizer=None,
     ids <= 1 dropped).  ``kind="instructblip"``: the prompt '{q} Answer
     briefly.', which a text-input Q-Former also reads (its ids folded into
     the Q-Former's vocabulary).  With no ``model_cfg`` the JAX package's
-    tiny config (T5, or for InstructBLIP the "llama_text" one) with random
+    tiny config (T5, OPT for ``kind="opt"``, or for InstructBLIP the
+    "llama_text" one) with random
     weights from seed 0 (values differ from JAX's PRNG) and the byte
     tokenizer drive the whole path; answers are arbitrary strings.
     ``hf_model_dir``: a local snapshot of ``kind``'s published checkpoint
@@ -159,12 +161,11 @@ def native_blip2_answer_fn(model_cfg=None, params=None, tokenizer=None,
         return _hf_blip2_answer_fn(hf_model_dir, kind, max_new_tokens, num_beams,
                                    length_penalty, device)
     _blip2_cfg_cls(kind)
-    if kind == "opt":
-        raise NotImplementedError("native_blip2_answer_fn(kind='opt'): the OPT tower waits for "
-                                  "the BLIP-2 OPT item (queue 1 item 2.6 of ROADMAP.md)")
     dev = _resolve_device(device, params)
     if model_cfg is None:
-        model_cfg = tiny_blip2_config("llama_text" if kind == "instructblip" else "t5")
+        # JAX builds the tiny T5 tower for kind="opt" too; the port builds
+        # the tower the kind names
+        model_cfg = tiny_blip2_config({"instructblip": "llama_text", "opt": "opt"}.get(kind, "t5"))
         params = init_blip2_params(model_cfg, torch.Generator(device=dev).manual_seed(0), dev)
     tokenizer = ByteTokenizer() if tokenizer is None else tokenizer
     vocab = model_cfg.text.vocab_size
@@ -305,16 +306,13 @@ def _hf_blip2_answer_fn(model_dir: str, kind: str, max_new_tokens: int, num_beam
                         length_penalty: float, device=None) -> Callable:
     """``answer(question, image)`` from a local snapshot: ``kind``'s
     published config (held to the snapshot's config.json), the weights in
-    f32, the prompt through the snapshot's tokenizer (Flan-T5's Unigram, or
-    InstructBLIP's Vicuna BPE and, into the Q-Former, its WordPiece
-    ``qformer_tokenizer/``), the image through the CLIP preprocessing at the
+    f32, the prompt through the snapshot's tokenizer (Flan-T5's Unigram,
+    OPT's byte-level BPE with its leading ``</s>``, or InstructBLIP's Vicuna
+    BPE and, into the Q-Former, its WordPiece ``qformer_tokenizer/``), the image through the CLIP preprocessing at the
     tower's size, then beam search (greedy when ``num_beams`` is 1) with the
     tokenizer's eos and pad (0 when it has none), the special tokens
     dropped from the decoded answer."""
     cfg, _ = _blip2_cfg_cls(kind)
-    if kind == "opt":
-        raise NotImplementedError("native_blip2_answer_fn(kind='opt'): the OPT tower waits for "
-                                  "the BLIP-2 OPT item (queue 1 item 2.6 of ROADMAP.md)")
     check_blip2_config(model_dir, cfg)
     dev = _resolve_device(device, None)
     params = load_blip2_safetensors(model_dir, cfg, dtype=torch.float32, device=dev)

@@ -5,7 +5,10 @@ seconds), one host transfer of each step's metrics, the headline loss
 progress every ``log_every`` steps, checkpoints every ``updates_per_epoch //
 PERIOD`` steps (re-derived from the real count after epoch 0, since a
 mapper may drop records) and at each epoch's end, an optional profiler
-window over chosen steps and optional wandb scalars.
+window over chosen steps and optional wandb scalars.  Under several
+processes every rank walks the same epochs and steps; only rank 0 logs and
+runs wandb and the profiler window (the checkpoint writers write on rank 0
+only).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from typing import Any, Callable, Iterable, Optional
 import torch
 
 from cullavo_tpu_torch.checkpoint.store import save_checkpoint
+from cullavo_tpu_torch.parallel.mesh import process_index
 from cullavo_tpu_torch.trainer.step import TrainState
 
 
@@ -85,10 +89,11 @@ def train_loop(state: TrainState, frozen_params: Any, step_fn: Callable,
     loss_meter, data_time, step_time = AverageMeter(), AverageMeter(), AverageMeter()
     ckpt_every = steps_per_epoch // cfg.checkpoint_period if cfg.checkpoint_period else 0
     global_step = int(state.step)
-    logger = log_fn or (lambda d: None)
+    main = process_index() == 0
+    logger = (log_fn if main else None) or (lambda d: None)
     save = save_fn or _default_save
     wandb_run = None
-    if cfg.wandb:
+    if cfg.wandb and main:
         import wandb
 
         wandb_run = wandb.run or wandb.init(project="cullavo_tpu")
@@ -104,7 +109,8 @@ def train_loop(state: TrainState, frozen_params: Any, step_fn: Callable,
             # >= so that a resume already past profile_start still gets a
             # window; one window only (JAX's loop opens a new one every step
             # after the first closes)
-            if cfg.profile_steps and not window_done and global_step >= cfg.profile_start:
+            if (cfg.profile_steps and main and not window_done
+                    and global_step >= cfg.profile_start):
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if torch.cuda.is_available():
                     activities.append(torch.profiler.ProfilerActivity.CUDA)

@@ -2,8 +2,16 @@
 ``cullavo_tpu/trainer/step.py``): forward, masked cross-entropy, backward,
 clip, AdamW step.
 
-Per-sample ``weights`` make an empty-sample batch a no-op.  The sharded
-step (``shard_train_step``) comes with the multi-chip slice.
+Per-sample ``weights`` make an empty-sample batch a no-op.  With a
+``ParallelContext`` (several processes, the data axis) every rank is handed
+the same global batch and takes its rows: its loss is its weighted NLL sum
+over the global weight sum (an all-reduce before the backward, which does
+not depend on the parameters), its LoRA dropout masks are its rows of the
+global batch's, and the gradient tree is summed over the ranks in flat
+buffers, so that the ranks take the one-process step on the global batch
+(JAX's ``shard_train_step`` is that step under SPMD).  A DDP wrapper would
+average per-rank means, which is another loss when the ranks' token counts
+differ.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from cullavo_tpu_torch.models.llava.config import LlavaConfig
 from cullavo_tpu_torch.models.llava.lora import LoraConfig, apply_trainable
 from cullavo_tpu_torch.models.llava.modeling import _cast_params, llava_forward
+from cullavo_tpu_torch.parallel.mesh import ParallelContext, all_reduce_tree
 from cullavo_tpu_torch.trainer.optimizer import (GradientTransformation, apply_updates,
                                                  global_norm)
 from cullavo_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -45,16 +54,24 @@ def _weighted_nll(logits, safe, valid, w):
     return (torch.where(valid, -ll, torch.zeros_like(ll)) * w).sum(), w.sum()
 
 
+def loss_weight_sum(labels, attention_mask, weights, parallel=None, ignore_index: int = -100):
+    """The loss's denominator: the sum of the per-token weights of the valid
+    shifted targets (with ``parallel``, of every rank's rows)."""
+    w = _shifted_targets(labels, attention_mask, weights, ignore_index)[2].sum()
+    return w if parallel is None else parallel.all_reduce(w)
+
+
 def weighted_causal_lm_loss(logits, labels, attention_mask, weights,
-                            ignore_index: int = -100):
-    """Shifted CE with per-sample weights; mean over weighted valid tokens."""
+                            ignore_index: int = -100, denom=None):
+    """Shifted CE with per-sample weights; mean over weighted valid tokens
+    (``denom``: another denominator, such as the global batch's)."""
     safe, valid, w = _shifted_targets(labels, attention_mask, weights, ignore_index)
-    total, denom = _weighted_nll(logits[:, :-1], safe, valid, w)
-    return total / denom.clamp_min(1.0)
+    total, own = _weighted_nll(logits[:, :-1], safe, valid, w)
+    return total / (own if denom is None else denom).clamp_min(1.0)
 
 
 def chunked_weighted_causal_lm_loss(hidden, lm_head, labels, attention_mask, weights,
-                                    chunk: int = 512, ignore_index: int = -100):
+                                    chunk: int = 512, ignore_index: int = -100, denom=None):
     """``weighted_causal_lm_loss(lm_logits(hidden), ...)`` computed in
     sequence chunks, each under ``torch.utils.checkpoint``: a chunk's
     ``hidden @ lm_head`` and softmax are rematerialized in the backward, so
@@ -70,12 +87,13 @@ def chunked_weighted_causal_lm_loss(hidden, lm_head, labels, attention_mask, wei
         sl = slice(c0, min(c0 + chunk, hidden.shape[1] - 1))
         sums = sums + checkpoint(chunk_fn, hidden[:, sl], safe[:, sl], valid[:, sl], w[:, sl],
                                  use_reentrant=False)
-    return sums[0] / sums[1].clamp_min(1.0)
+    return sums[0] / (sums[1] if denom is None else denom).clamp_min(1.0)
 
 
 def make_train_step(cfg: LlavaConfig, lora_cfg: Optional[LoraConfig],
                     tx: GradientTransformation, remat: bool = True, compute_dtype=None,
-                    loss_chunk: Optional[int] = None):
+                    loss_chunk: Optional[int] = None,
+                    parallel: Optional[ParallelContext] = None):
     """Returns ``step_fn(state, frozen_params, batch, rng) -> (state, metrics)``.
 
     ``frozen_params`` is the base tree (NF4 / bf16, not updated);
@@ -88,7 +106,9 @@ def make_train_step(cfg: LlavaConfig, lora_cfg: Optional[LoraConfig],
     optionally ``pixel_values``.  The returned state is made of new tensors;
     ``metrics`` are ``loss_llm`` and the UNCLIPPED ``grad_norm``, as f32
     scalar tensors.  A vision adapter's ``mask`` is a constant: its
-    gradient is zero and it never moves."""
+    gradient is zero and it never moves.  ``parallel``: this rank's rows of
+    the global ``batch`` (module docstring); the metrics are the global
+    step's, equal on every rank."""
     scaling = lora_cfg.scaling if lora_cfg else 0.0
     dropout = lora_cfg.dropout if lora_cfg else 0.0
 
@@ -97,30 +117,30 @@ def make_train_step(cfg: LlavaConfig, lora_cfg: Optional[LoraConfig],
             return tree
         return _cast_params(tree, compute_dtype)
 
-    def loss_fn(trainable, frozen_params, batch, rng):
+    def loss_fn(trainable, frozen_params, batch, rng, denom, rows):
         full, lora = apply_trainable(frozen_params, trainable)
         full, lora = _cast(full), _cast(lora)
         out, _ = llava_forward(full, cfg, batch["input_ids"], batch.get("pixel_values"),
                                batch["attention_mask"], lora=lora, lora_scaling=scaling,
                                lora_dropout=dropout, dropout_rng=rng, remat=remat,
-                               return_hidden=loss_chunk is not None)
+                               return_hidden=loss_chunk is not None, dropout_rows=rows)
         if loss_chunk is None:
             return weighted_causal_lm_loss(out, batch["labels"], batch["attention_mask"],
-                                           batch["weights"])
+                                           batch["weights"], denom=denom)
         lm = full["language_model"]
         head = lm["lm_head"] if "lm_head" in lm else lm["embed_tokens"].T
         return chunked_weighted_causal_lm_loss(out, head, batch["labels"],
                                                batch["attention_mask"], batch["weights"],
-                                               chunk=loss_chunk)
+                                               chunk=loss_chunk, denom=denom)
 
-    def value_and_grad(trainable, frozen_params, batch, rng):
+    def value_and_grad(trainable, frozen_params, batch, rng, denom, rows):
         """(loss, gradient tree shaped like ``trainable``)."""
         leaves = tree_map(lambda t: t.detach().requires_grad_(True), trainable)
         for ab in ((leaves.get("lora") or {}).get("vision_tower") or {}).values():
             if "mask" in ab:
                 ab["mask"].requires_grad_(False)
         with torch.enable_grad():
-            loss = loss_fn(leaves, frozen_params, batch, rng)
+            loss = loss_fn(leaves, frozen_params, batch, rng, denom, rows)
         wanted = [t for t in tree_leaves(leaves) if t.requires_grad]
         got = dict(zip(map(id, wanted), torch.autograd.grad(loss, wanted, allow_unused=True)))
         grads = tree_map(lambda t: torch.zeros_like(t) if got.get(id(t)) is None
@@ -128,7 +148,19 @@ def make_train_step(cfg: LlavaConfig, lora_cfg: Optional[LoraConfig],
         return loss.detach(), grads
 
     def step_fn(state: TrainState, frozen_params, batch, rng):
-        loss, grads = value_and_grad(state.trainable, frozen_params, batch, rng)
+        rows = None
+        if parallel is not None:
+            B = batch["input_ids"].shape[0]
+            sl = parallel.rows(B)
+            batch, rows = {k: v[sl] for k, v in batch.items()}, (sl.start, B)
+        denom = loss_weight_sum(batch["labels"], batch["attention_mask"], batch["weights"],
+                                parallel)
+        loss, grads = value_and_grad(state.trainable, frozen_params, batch, rng, denom, rows)
+        if parallel is not None:
+            loss = parallel.all_reduce(loss.clone())
+            with parallel.timed(loss.is_cuda):
+                summed = iter(all_reduce_tree(tree_leaves(grads)))
+            grads = tree_map(lambda _: next(summed), grads)
         with torch.no_grad():
             updates, new_opt = tx.update(grads, state.opt_state, state.trainable)
             new_trainable = apply_updates(state.trainable, updates)

@@ -6,8 +6,14 @@ the gradient of every parameter, and one step of ``xdecoder_optimizer``.
 f32 master parameters (``_cast_compute`` is a differentiable cast, so the
 gradients arrive in f32).  ``remat`` checkpoints each backbone block,
 text layer and decoder layer.  The metrics are ``loss_total``, the
-unclipped ``grad_norm`` and every loss, as f32 scalar tensors.  The sharded
-step (``shard_xdecoder_step``) waits for the multi-process slice.
+unclipped ``grad_norm`` and every loss, as f32 scalar tensors.
+
+The joint step with a ``ParallelContext`` (several processes, the data
+axis; JAX's ``shard_xdecoder_step``): every rank is handed the global
+batch, ``forward_joint_train`` runs this rank's images and returns this
+rank's share of each loss of the global batch; the losses and the gradient
+tree are summed over the ranks (flat buffers), so every rank takes the
+one-process step.
 """
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import torch
 
 from cullavo_tpu_torch.models.xdecoder.model import (XDecoderModelConfig, forward_joint_train,
                                                      forward_seg_train)
+from cullavo_tpu_torch.parallel.mesh import all_reduce_tree
 from cullavo_tpu_torch.trainer.optimizer import (GradientTransformation, apply_updates,
                                                  global_norm)
 from cullavo_tpu_torch.trainer.step import TrainState
@@ -76,20 +83,32 @@ def make_xdecoder_train_step(cfg: XDecoderModelConfig, tx: GradientTransformatio
 
 
 def make_xdecoder_joint_train_step(cfg: XDecoderModelConfig, tx: GradientTransformation,
-                                   remat: bool = False, compute_dtype=None):
+                                   remat: bool = False, compute_dtype=None, parallel=None):
     """``step_fn(state, batch, generator) -> (state, metrics)`` over
     ``forward_joint_train``; ``batch`` is ``collate_joint``'s plus
     "class_ids" / "class_mask" and the normalized "image" (numpy or
-    tensors; integer ids and f32 targets are not cast)."""
+    tensors; integer ids and f32 targets are not cast).  ``parallel``: a
+    ``ParallelContext`` (module docstring); the metrics are then the global
+    step's, equal on every rank."""
 
     def loss_fn(params, batch, generator):
         if compute_dtype is not None:
             params = _cast_compute(params, compute_dtype)
             batch = dict(batch, image=torch.as_tensor(batch["image"]).to(compute_dtype))
-        losses = forward_joint_train(params, cfg, batch, generator, remat=remat)
+        losses = forward_joint_train(params, cfg, batch, generator, data_axis=parallel,
+                                     remat=remat)
         return sum(losses.values()), losses
 
     def step_fn(state: TrainState, batch, generator):
-        return _finish(tx, state, *_value_and_grad(loss_fn, state.trainable, batch, generator))
+        total, losses, grads = _value_and_grad(loss_fn, state.trainable, batch, generator)
+        if parallel is not None:
+            names = list(losses)
+            summed = parallel.all_reduce(torch.stack([total.float()] + [
+                losses[k].float() for k in names]))
+            total, losses = summed[0], dict(zip(names, summed[1:]))
+            with parallel.timed(total.is_cuda):
+                back = iter(all_reduce_tree(tree_leaves(grads)))
+            grads = tree_map(lambda _: next(back), grads)
+        return _finish(tx, state, total, losses, grads)
 
     return step_fn

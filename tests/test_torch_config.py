@@ -256,8 +256,16 @@ def test_main_dispatches_each_command_with_the_config_dict(monkeypatch, command,
 
 
 def test_main_refuses_several_processes(monkeypatch):
+    """Several processes run (tests/test_torch_parallel.py); without the
+    launcher's rendezvous address, or with a rank outside the group, main
+    refuses before it joins a group."""
     monkeypatch.setenv("CULLAVO_NUM_PROCS", "2")
-    with pytest.raises(NotImplementedError, match="CULLAVO_NUM_PROCS=2"):
+    monkeypatch.delenv("CULLAVO_COORDINATOR", raising=False)
+    with pytest.raises(ValueError, match="CULLAVO_COORDINATOR"):
+        t_entry.main(["eval", "--conf_files", str(REPO / "configs/vl_test.yaml")], device="cpu")
+    monkeypatch.setenv("CULLAVO_COORDINATOR", "127.0.0.1:1")
+    monkeypatch.setenv("CULLAVO_PROC_ID", "2")
+    with pytest.raises(ValueError, match="CULLAVO_PROC_ID=2 is not a rank of 2"):
         t_entry.main(["eval", "--conf_files", str(REPO / "configs/vl_test.yaml")], device="cpu")
 
 

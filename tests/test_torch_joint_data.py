@@ -17,6 +17,7 @@ the seg forward's losses 1e-4 relative, data equal.
 import importlib.util
 import json
 import os
+import types
 
 import numpy as np
 import pytest
@@ -331,8 +332,17 @@ def test_caption_and_language_losses_match_jax():
     for g, w in zip(got[:5], want[:5]):
         _rel(g, w)
     _close(got[5], want[5], atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        tll.vl_contrastive_loss(_t(img), _t(txt), 1.0, data_axis="data")
+    # a data axis of one rank (its gather and share the identity): the
+    # batch-coupled losses take the same path and give the same values
+    one_rank = types.SimpleNamespace(gather=lambda x: x, share=lambda x: x,
+                                     sum=lambda x: x, rows=lambda k=1: (0, B * k, B * k),
+                                     total=B)
+    targs = tuple(map(_t, args))
+    assert torch.equal(tll.vl_contrastive_loss(_t(img), _t(txt), 1.0, data_axis=one_rank),
+                       tll.vl_contrastive_loss(_t(img), _t(txt), 1.0))
+    assert torch.equal(tll.fine_grained_itc_loss(*targs[0:1], targs[10], targs[12], targs[9],
+                                                 data_axis=one_rank), got[3])
+    assert torch.equal(tcrit.loss_captions(*targs[:10], data_axis=one_rank), got[0])
 
 
 # ---------------------------------------------------------------------------

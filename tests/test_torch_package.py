@@ -115,6 +115,9 @@ SLICE_MODULES = (
     "cullavo_tpu_torch.models.xdecoder.davit",
     "cullavo_tpu_torch.pipelines.vlp_pipeline",
     "cullavo_tpu_torch.pipelines.imagenet_pipeline",
+    "cullavo_tpu_torch.models.blip2.opt",
+    "cullavo_tpu_torch.parallel",
+    "cullavo_tpu_torch.parallel.mesh",
 )
 
 
@@ -653,11 +656,12 @@ def test_p32_wrapper_takes_the_plain_version_only_for_cpu_tensors():
 # waiters and re-raises; ``_serve_http`` stops the runner and closes the
 # socket on SIGINT.  No try wraps an engine step that carries on, or a launch.
 def test_the_raises_that_remain_name_their_items():
-    """What the port still refuses on the VL zoo's paths names its item of
-    ROADMAP.md's queue 1: the OPT tower (2.6) and the cached forward without
-    stale_cache over an int8 cache (4).  The zoo snapshots (2.4) and BakLLaVA
-    (2.5) run now: a snapshot directory without its files raises naming the
-    file, and BakLLaVA without ``MODEL.ZOO_PATH`` exits as JAX's entry does."""
+    """What the port still refuses names its item of ROADMAP.md's queue 1:
+    the cached forward without stale_cache over an int8 cache (4) and the
+    fsdp / tensor axes of several processes (3).  The zoo snapshots (2.4),
+    BakLLaVA (2.5) and the OPT tower (2.6) run now: a snapshot directory
+    without its files raises naming the file, and BakLLaVA without
+    ``MODEL.ZOO_PATH`` exits as JAX's entry does."""
     from cullavo_tpu_torch import entry
     from cullavo_tpu_torch.checkpoint import zoo_import
     from cullavo_tpu_torch.models.blip2 import config as bcfg
@@ -678,13 +682,15 @@ def test_the_raises_that_remain_name_their_items():
         with pytest.raises(FileNotFoundError, match="config.json"):
             fn()
     opt = bcfg.tiny_blip2_config("opt")
-    for fn in (lambda: bmod.init_blip2_params(opt, torch.Generator(), "cpu"),
-               lambda: bmod.blip2_beam_generate(None, opt, None, None, None, 2),
-               lambda: zoo.native_blip2_answer_fn(kind="opt", device="cpu"),
-               lambda: zoo.native_blip2_answer_fn(hf_model_dir="/x", kind="opt", device="cpu"),
-               lambda: zoo_import.load_blip2_safetensors("/x", opt)):
-        with pytest.raises(NotImplementedError, match="OPT.*item 2.6"):
+    assert bmod.init_blip2_params(opt, torch.Generator(), "cpu")["language_model"]["layers"]
+    for fn in (lambda: zoo.native_blip2_answer_fn(hf_model_dir="/x", kind="opt", device="cpu"),
+               lambda: zoo_import.check_blip2_config("/x", opt)):
+        with pytest.raises(FileNotFoundError, match="config.json"):
             fn()
+    for over in ({"MESH_FSDP": 2}, {"MESH_TENSOR": 4}):
+        with pytest.raises(NotImplementedError, match="next slice of ROADMAP.md queue 1 item 3"):
+            entry.train({"NAME": "xdecoder_train", "MODEL": {"TINY": True}, **over},
+                        device="cpu")
     tc = bcfg.tiny_blip2_config("llama_text").text
     lm = llama.init_llama_params(tc, torch.Generator().manual_seed(0), "cpu")
     cache = llama.init_kv_cache(tc, 1, 4, kv_quant="int8")
@@ -1577,7 +1583,7 @@ def _decode_case(dev, dtype, B, H, KV, S, d, seed, stacked=False):
 @pytest.mark.parametrize("B,H,KV,S,d,stacked", [
     (14, 32, 32, 768, 128, False), (3, 32, 8, 300, 128, False), (5, 32, 32, 11, 64, True),
     (1, 32, 32, 84, 64, True), (2, 4, 1, 1, 16, False), (2, 6, 2, 97, 80, True),
-    (10, 4, 4, 11, 8, True)])
+    (10, 4, 4, 11, 8, True), (5, 32, 32, 104, 80, True)])
 def test_cuda_decode_partials_match_plain(cuda_device, dtype, B, H, KV, S, d, stacked):
     """K12 against its plain version: o within 1e-5 + 1e-5 |ref| in f32 and
     1e-2 + 1e-2 |ref| in bf16 (the plain version widens the same bf16
@@ -2061,3 +2067,62 @@ def test_cuda_evaluate_grounding_matches_cpu(cuda_device):
     assert focal.focal_ctx_kernel.launches == n0 + sum(cfg.backbone.depths)
     err = (got.cpu() - want).abs().max().item()
     assert err <= 1e-3 * want.abs().max().item(), err
+
+
+GLOO_RANK = """
+import os, sys
+import torch
+sys.path.insert(0, sys.argv[2])
+from cullavo_tpu_torch.parallel import all_reduce_tree, initialize_distributed, parallel_context
+rank = int(os.environ["CULLAVO_PROC_ID"])
+assert initialize_distributed(os.environ["CULLAVO_COORDINATOR"], 2, rank)
+dev = torch.device("cuda", torch.cuda.current_device())
+par = parallel_context({})
+g = torch.Generator(device=dev).manual_seed(0)
+x_all = torch.randn(5, 3, generator=g, device=dev)
+w = torch.randn(3, 4, generator=g, device=dev)
+x = x_all[par.rows(5)].clone().requires_grad_(True)
+part = par.part(5)
+loss = (torch.softmax(part.gather(x) @ w, dim=0) * torch.arange(20., device=dev).reshape(5, 4))
+part.share(loss.sum()).backward()
+big = torch.full((3 << 20,), rank + 1.0, device=dev)
+tree = all_reduce_tree([big, torch.full((7,), rank + 1, dtype=torch.bfloat16, device=dev)])
+torch.save({"grad": x.grad.cpu(), "tree": [t.cpu() for t in tree],
+            "objs": par.allgather_objects(rank), "backend": torch.distributed.get_backend()},
+           os.path.join(sys.argv[1], f"rank{rank}.pt"))
+torch.distributed.destroy_process_group()
+"""
+
+
+@pytest.mark.cuda
+def test_cuda_gloo_collectives_on_two_ranks(cuda_device, tmp_path):
+    """Two ranks on the one card over Gloo (``CULLAVO_DIST_BACKEND=gloo``:
+    NCCL takes one rank a device): the gather with gradient, the flat
+    all-reduce of CUDA tensors (12 MB of f32 and a bf16 leaf) and the object
+    gather; the gradient equals the one-process gradient."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    script = tmp_path / "rank.py"
+    script.write_text(GLOO_RANK)
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), str(tmp_path), str(REPO)],
+        env=dict(os.environ, CULLAVO_NUM_PROCS="2", CULLAVO_PROC_ID=str(r),
+                 CULLAVO_COORDINATOR=f"127.0.0.1:{port}", CULLAVO_DIST_BACKEND="gloo"),
+        stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    errs = [p.communicate(timeout=300)[1] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], errs
+    got = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x_all = torch.randn(5, 3, generator=g, device=cuda_device).requires_grad_(True)
+    w = torch.randn(3, 4, generator=g, device=cuda_device)
+    (torch.softmax(x_all @ w, dim=0)
+     * torch.arange(20., device=cuda_device).reshape(5, 4)).sum().backward()
+    torch.testing.assert_close(torch.cat([r["grad"] for r in got]), x_all.grad.cpu(),
+                               rtol=1e-5, atol=1e-6)
+    for r in got:
+        assert r["backend"] == "gloo" and r["objs"] == [0, 1]
+        assert bool((r["tree"][0] == 3.0).all()) and r["tree"][1].tolist() == [3.0] * 7

@@ -257,7 +257,7 @@ def test_entry_train_without_datasets_returns_none():
     cfg = {"NAME": "xdecoder_train", "MODEL": {"TINY": True}, "DATASETS": {"TRAIN": None}}
     assert tentry.train(cfg, device="cpu") is None
     with pytest.raises(NotImplementedError):
-        tentry.train(dict(cfg, MESH_DATA=2), device="cpu")
+        tentry.train(dict(cfg, MESH_TENSOR=2), device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -142,13 +142,13 @@ def test_what_the_readers_do_not_read_raises(cs, tmp_path):
     rewrite(lambda s: s["pre_tokenizer"]["pretokenizers"][1].update(prepend_scheme="first"),
             "Metaspace")
     rewrite(lambda s: s.update(normalizer={"type": "NFKC"}), "NFKC")
-    rewrite(lambda s: s.update(decoder={"type": "ByteLevel"}), "ByteLevel")
+    rewrite(lambda s: s.update(decoder={"type": "BPEDecoder"}), "BPEDecoder")
     rewrite(lambda s: s["added_tokens"][0].update(single_word=True), "single_word")
     rewrite(lambda s: s.update(post_processor={"type": "RobertaProcessing"}),
             "RobertaProcessing")
     rewrite(lambda s: s["model"].update(type="BPE"), "BPE")
     rewrite(lambda s: None, "pad_token", {"tokenizer_class": "T5Tokenizer",
                                           "pad_token": "<nothere>", "extra_ids": 0})
-    rewrite(lambda s: None, "tokenizer_class", {"tokenizer_class": "GPT2Tokenizer"})
+    rewrite(lambda s: None, "tokenizer_class", {"tokenizer_class": "RobertaTokenizer"})
     with pytest.raises(FileNotFoundError):
         tj.TokenizerJSON(str(tmp_path / "missing"))
