@@ -10,6 +10,8 @@
     python3 chip_smoke.py --par-calibrate   # phases 22a and 22b in one process and on
                                         # two ranks at three seeds, and two planted
                                         # faults: the readings PAR_TOL is set from
+    python3 chip_smoke.py --par-calibrate sharded   # the same under MESH_FSDP 2 (and
+                                        # MESH_TENSOR 2), one planted fault
 
 Phases (each raises on failure, and the script exits non-zero):
   1. print the card's name and power limit (nvidia-smi); disable TF32.
@@ -155,9 +157,10 @@ Phases (each raises on failure, and the script exits non-zero):
      ``CuLLaVOPipeline.initialize_model`` (r = 64 adapters on the seven LLM
      targets and on vision layers 12-22, f32 masters, AdamW) and 4 steps of
      ``forward_step`` (remat, bf16 compute, chunked loss, dropout 0.05) on
-     one batch of 8 right-padded to T = 1024, twice from the same seed: every
-     loss finite, the loss of step 4 below step 1, ``grad_norm`` finite and
-     non-zero, the two runs equal within 1e-3 relative, the frozen base
+     one batch of 8 right-padded to T = 1024, then the first 2 again from
+     the same seed: every loss finite, the loss of step 4 below step 1,
+     ``grad_norm`` finite and non-zero, the two runs' common steps equal
+     within 1e-3 relative, the frozen base
      bit-unchanged, and K1-lse and K7 launched as often as the shapes say.
   8b. the package's ``attn_probe`` at its default shape, which runs K8.
   9. the X-Decoder eval path: ``entry.evaluate`` on
@@ -197,9 +200,9 @@ Phases (each raises on failure, and the script exits non-zero):
      per tower, f32 on the card against f64 on the CPU (the forward's
      logits and four decode steps); then each at full width and depth in
      f32 (3.94 G and 1.66 G random parameters built on the card) answering
-     16 questions on 8 random 224^2 images through
+     8 questions on 8 random 224^2 images through
      ``VLZooVQAPipeline.evaluate_model`` with its native answerer and the
-     byte tokenizer, then the first 4 again (``ZOO_SECOND``): n = 16,
+     byte tokenizer, then the first 4 again (``ZOO_SECOND``): n = 8,
      identical answers, K12 launched as the shapes predict;
      questions/s, ms per question by phase, peak memory.
   12. the training loop: ``entry.train`` on configs/cullavo_step1.yaml
@@ -207,16 +210,17 @@ Phases (each raises on failure, and the script exits non-zero):
      depth) over a registered ``coco_panoptic`` dataset of 16 synthetic
      480 x 640 images (PNG images, id-encoded panoptic PNGs and a
      panopticapi JSON written with the port's PNG writer; thing and stuff
-     segments, one crowd), batch 8, 2 epochs (4 steps), ``SAVE_DIR`` a
-     temporary directory: every loss finite, ``step_2``, ``step_4``,
-     ``epoch0`` and ``epoch1`` written, the npz store read back with the
-     TrainState as template and the reference layout read back, both
-     bit-equal to the state they saved; then ``RESUME_FROM`` epoch1 for 2
-     steps (its trainable partition before the first step bit-equal to the
-     first run's final one); then 2 steps with ``CULLAVO_FLASH_PACKED=1``:
-     step-1 loss within 1e-3 relative of the first run's, K13 launched 64 and
-     K1-lse 32 per step.  Seconds per step, checkpoint write seconds and
-     peak memory printed.
+     segments, one crowd), batch 8, 1 epoch (2 steps), ``SAVE_DIR`` a
+     temporary directory: every loss finite, ``step_2`` and ``epoch0``
+     written, the npz store read back with the TrainState as template and
+     the reference layout read back, both bit-equal to the state they
+     saved; then ``RESUME_FROM`` epoch0 for 1
+     step (its trainable partition before the step bit-equal to the first
+     run's final one); then 1 step with ``CULLAVO_FLASH_PACKED=1``: its loss
+     within 1e-3 relative of the first run's step 1, K13 launched 64 and
+     K1-lse 32.  Both single steps on ``first_batch_dataset`` (run 1's first
+     batch).  Seconds per step, checkpoint write seconds and peak memory
+     printed.
   13. the port's matmul probe (``scripts/matmul_probe.main``) at M = 8 over
      24 stacked [4096, 11008] weights with the p32 variants: every variant's
      JSON line, parity to the first within 2e-2, K14 launched as predicted.
@@ -224,7 +228,8 @@ Phases (each raises on failure, and the script exits non-zero):
      13, while the snapshot exists): ``python -m cullavo_tpu_torch eval
      --conf_files configs/cullavo_step2_pre.yaml`` in a subprocess over a
      registered conversations dataset of 12 rows (PNG images of 336^2 and
-     480 x 640), 256 sampled tokens (temperature 0.9, top-k 50, top-p 0.95)
+     480 x 640), 128 sampled tokens (the config's 256, cut; temperature
+     0.9, top-k 50, top-p 0.95)
      in two chunks of 8, the second padded by repetition: exit 0,
      ``lbk_new_version.json`` well-formed; then in this process the first
      chunk's sampled fused ``generate`` twice from its seed (equal tokens;
@@ -327,10 +332,10 @@ Phases (each raises on failure, and the script exits non-zero):
      the prefill's last logits, four decode steps; K12 8 launches), then
      ``entry.evaluate`` with ``MODEL.ZOO: instructblip`` (the tiny smoke
      tower, 4 questions), then 7.9 G random parameters built on the card
-     answering phase 11's 16 questions through ``VLZooVQAPipeline`` with the
+     answering phase 11's 8 questions through ``VLZooVQAPipeline`` with the
      native answerer (beam 5, length penalty -1, 10 tokens), then the first
-     4 again: n = 16, identical answers, K12 launched 32 x
-     9 x 16 and nothing else;
+     4 again: n = 8, identical answers, K12 launched 32 x
+     9 x 8 and nothing else;
      questions/s, ms per question (vision + Q-Former, the Vicuna prefill,
      beam decode, host), peak memory; (b) the zero-shot ImageNet eval on
      that tower's EVA-ViT-g and Q-Former: a 2-layer card-vs-CPU check of
@@ -359,8 +364,8 @@ Phases (each raises on failure, and the script exits non-zero):
      counted, and K4 with it); the snapshot written in the llava-hf layout
      (Mistral's config.json, the BPE tokenizer) and read back bit for bit;
      ``python -m cullavo_tpu_torch eval`` with ``MODEL.ZOO: bakllava`` and
-     ``MODEL.ZOO_PATH`` in a subprocess over 8 of 16 questions written as
-     a ``vqa`` dataset, then all 16 through ``entry.evaluate`` here: the
+     ``MODEL.ZOO_PATH`` in a subprocess over 4 of 16 questions written as
+     a ``vqa`` dataset, then the first 8 through ``entry.evaluate`` here: the
      CLI's answers equal, K1 32 a question (GQA's k/v repeated) and K4 32 a decode
      forward (n_rep 4); (b) Salesforce/blip2-flan-t5-xl,
      instructblip-vicuna-7b and microsoft/kosmos-2-patch14-224 at full width
@@ -368,7 +373,7 @@ Phases (each raises on failure, and the script exits non-zero):
      exporters and synthetic tokenizers of the published sizes (Unigram
      32128 with a SentencePiece charsmap, WordPiece 30522 + [DEC], Unigram
      65037), each through ``entry.evaluate`` with ``MODEL.ZOO_PATH`` over
-     phase 11's 16 questions (K12 only), and ``imagenet_test`` from the
+     phase 11's 8 questions (K12 only), and ``imagenet_test`` from the
      InstructBLIP snapshot; load s, questions/s, peak memory.  The kernels
      line gains ``vl_zoo_path_launches``.  Phase 3 also holds and times K1
      at BakLLaVA's prefill ([1, 32, 592, 128] bf16, k/v repeated from 8
@@ -377,13 +382,13 @@ Phases (each raises on failure, and the script exits non-zero):
      kernels line.
   21. BLIP-2 OPT (after phase 20): (a) Salesforce/blip2-opt-2.7b (EVA-ViT-g,
      the Q-Former, OPT 32 x 2560 with 32 heads of 80) in f32, random on the
-     card: a 2-layer full-width card-vs-CPU check (K12 8 launches), then 16
+     card: a 2-layer full-width card-vs-CPU check (K12 8 launches), then 8
      questions through ``native_blip2_answer_fn(kind="opt")`` (beam 5,
      length penalty -1, 10 tokens) and the first 4 again: identical answers,
-     K12 32 x 9 x 16 and nothing else; questions/s, ms per question by
+     K12 32 x 9 x 8 and nothing else; questions/s, ms per question by
      phase, peak memory; (b) a blip2-opt-2.7b-shaped snapshot at
      ``ZOO_PATH_CUT`` depth (GPT-2's byte-level BPE of 50265 ids) written,
-     read back bit for bit and answering the 16 questions through the
+     read back bit for bit and answering the 8 questions through the
      snapshot answerer (K12 only).  The kernels line gains
      ``vl_zoo_opt_launches``.  Phase 3 also holds and times K12 at OPT's beam
      shape ([5, 32, 104, 80] f32, one layer of the head-major cache).
@@ -391,7 +396,7 @@ Phases (each raises on failure, and the script exits non-zero):
      rank ``entry.main`` as ``python -m cullavo_tpu_torch`` runs it, on this
      card over Gloo, started as ``chip_smoke.py --rank -- ARGS`` so that it
      reports its kernels' launches: (a) after phase 12, its run 1 (Q-LoRA
-     at 7B from phase 10's snapshot, batch 8 x 1024 split 4 + 4, 4 steps)
+     at 7B from phase 10's snapshot, batch 8 x 1024 split 4 + 4, 2 steps)
      on two ranks: losses and gradient norms equal across ranks and within
      ``PAR_TOL["qlora"]`` of phase 12's, each rank's launches equal to that
      run's, only rank 0 writing; s per step, the gradient all-reduce's ms
@@ -403,12 +408,34 @@ Phases (each raises on failure, and the script exits non-zero):
      tokens (the rows merged, written once; K1 once a layer and chunk, K4
      whole decode steps), in place of phase 14's one-process CLI run; (d)
      one rank over NCCL in this process: a 2-layer 7B-width Q-LoRA step
-     bit-equal to the step without a process group, launches equal.  The
+     through a ``Layout`` bit-equal to the step without a process group,
+     launches equal, and an NCCL all-reduce of its loss.  The
      kernels line gains ``two_rank_launches``.  Paid for by those two CLI
      runs, phase 14's replay at 32 tokens, phase 15's second seeded run at
      1 step, phase 17's second in-process run at 16 rows, the zoo's second
      runs at 4 questions (phases 11, 19a, 21a), the topic classifier's at 8
      and BakLLaVA's CLI at 4.
+  23. the fsdp and tensor axes (``MESH_FSDP``, ``MESH_TENSOR``) on two ranks
+     of this card over Gloo, run as phase 22's: (a) after phase 22a, phase
+     12's run 1 (2 steps, ``EPOCHS 1``) under ``MESH_FSDP: 2``;
+     (b) its first step under ``MESH_TENSOR: 2`` (an 8-record copy of the
+     dataset whose epoch draws run 1's first batch); (c) after phase 22b,
+     phase 15's X-Decoder run under ``MESH_FSDP: 2``.  Each: losses and
+     gradient norms equal across ranks and within ``PAR_TOL`` of the
+     one-process run's same steps, each rank launching K7, K1-lse and K10
+     per step as that run did, only rank 0 writing (its checkpoint read
+     back); s per step, the gathers' and reductions' ms and share, each
+     rank's resident GiB after the run, its step peak and its load's peak
+     beside phase 22a's data-axis ranks; (a) fails where a rank keeps more
+     than ``SHARD_RESIDENT_MAX`` of a 22a rank's resident memory or other
+     than half of the NF4 base.  The kernels line gains
+     ``sharded_launches``.  Paid for by phase 22a at 2 steps (``EPOCHS
+     1``), phase 12's run 1 at 1 epoch and its second runs at 1 step each,
+     phase 8's second run at 2 steps, phase 14 at 128 tokens, phase 22c at
+     32, the VL zoo's 8 questions (phases 11, 19a, 20b, 21) and BakLLaVA's
+     8 in process.  ``--par-calibrate sharded`` runs only the sharded readings
+     (``MESH_FSDP: 2`` at 3 seeds, ``MESH_TENSOR: 2`` at one, the
+     ``local_norm`` fault).
 The last two lines are the kernels' JSON record and the result line.
 Imports neither JAX nor the JAX package.
 """
@@ -560,10 +587,11 @@ VL_QUESTION_TEXT = ("What is the color of the car?", "How many dogs are there?",
 VL_ANSWERS = ("red", "two", "yes", "no", "food", "sofa", "tennis", "night")
 # the VL zoo path: Salesforce/blip2-flan-t5-xl and microsoft/kosmos-2-patch14-224
 # at full width and depth in f32 (as the pipeline's ModelSpec loads them), each
-# answering 16 questions on 8 random 224^2 images with its reference decode
+# answering 8 questions (16 before phase 23 had to be paid for) on 8 random
+# 224^2 images with its reference decode
 # (BLIP-2: beam 5, length penalty -1; KOSMOS-2: greedy), <= 10 new tokens
 ZOO_DATASET, ZOO_IMAGES, ZOO_QUESTIONS, ZOO_SIDE, ZOO_NEW, ZOO_BEAMS = (
-    "chip_vqa_zoo", 8, 16, 224, 10, 5)
+    "chip_vqa_zoo", 8, 8, 224, 10, 5)
 # the card-vs-CPU check: layers per tower; the card's f32 error against the
 # CPU's f64 result may be ZOO_TOL times the CPU's own f32 error, + 1e-5 max |ref|
 ZOO_CUT, ZOO_TOL = 2, 4.0
@@ -580,17 +608,20 @@ BAK_CUT_T, BAK_CUT_WINDOW = 320, 256
 # phase 3 times K1 and K4 at a BakLLaVA VQA prompt's length: 1 + 576 image
 # tokens + the text of 'USER: <image>\n{q} ASSISTANT:' under the port's BPE
 BAK_PROMPT_T = 592
-# its CLI run answers the first BAK_CLI_QUESTIONS of the 16 (process, load)
-BAK_CLI_QUESTIONS = 4
+# its CLI run answers the first BAK_CLI_QUESTIONS of phase 9's 16 (process,
+# load), the run in this process the first BAK_QUESTIONS (16 before phase 23
+# had to be paid for)
+BAK_CLI_QUESTIONS, BAK_QUESTIONS = 4, 8
 ZOO_PATH_CUT = {"vision": 4, "qformer": 2, "text": 4}
 # step2_pre (phase 14): configs/cullavo_step2_pre.yaml through the command line
 # over a registered conversations dataset of this many rows whose images are
-# PNGs of these sizes; its MAX_NEW_TOKENS (256) and the default BATCH_SIZE (8);
+# PNGs of these sizes; MAX_NEW_TOKENS cut from the config's 256 to STEP2_NEW (to
+# pay for phase 23) and the default BATCH_SIZE (8);
 # the greedy fused-vs-two-phase check decodes STEP2_CHECK_NEW tokens
 STEP2_CFG = "configs/cullavo_step2_pre.yaml"
 STEP2_DATASET, STEP2_ROWS, STEP2_IMAGE_HW = "chip_conversations_synthetic", 12, (
     (336, 336), (480, 640))
-STEP2_NEW, STEP2_BATCH, STEP2_CHECK_NEW, STEP2_TURNS = 256, 8, 32, 3
+STEP2_NEW, STEP2_BATCH, STEP2_CHECK_NEW, STEP2_TURNS = 128, 8, 32, 3
 # the X-Decoder eval from a checkpoint (phase 16): configs/xdecoder_test.yaml
 # through the command line and entry.evaluate, RESUME_FROM a reference-layout
 # .pt of random weights, MODEL.TEXT.TOKENIZER a synthesized CLIP vocabulary of
@@ -3517,16 +3548,16 @@ def run_train_path(params_nf4, cfg, device, wrappers):
     (state, losses, norms, secs), counts = counted(wrappers, run)
     peak = torch.cuda.max_memory_allocated(device) / 2**30
     log(f"launches on the train path: {counts}")
-    _, losses2, norms2, secs2 = run()
+    _, losses2, norms2, secs2 = run(2)      # the first 2 steps again (to pay for phase 23)
     if _base_digest(pipe.frozen) != before:
         raise RuntimeError("the train step changed the frozen base")
     if not all(math.isfinite(x) for x in losses + norms) or min(norms) <= 0:
         raise RuntimeError(f"train path: bad losses {losses} or grad norms {norms}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"train path: the loss did not fall: {losses}")
-    drift = max(abs(a - b) / abs(a) for a, b in zip(losses + norms, losses2 + norms2))
+    drift = max(abs(a - b) / abs(a) for a, b in zip(losses[:2] + norms[:2], losses2 + norms2))
     log(f"two runs from one seed: losses {losses} and {losses2}; equal bit for bit: "
-        f"{losses == losses2 and norms == norms2}; largest relative difference {drift:.3e} "
+        f"{losses[:2] == losses2 and norms[:2] == norms2}; largest relative difference {drift:.3e} "
         "(tol 1e-3: cuBLAS may pick another split of a reduction between runs)")
     if not drift <= 1e-3:
         raise RuntimeError(f"train path: two runs from one seed differ by {drift}")
@@ -3542,7 +3573,7 @@ def run_train_path(params_nf4, cfg, device, wrappers):
     for i, sec in enumerate((secs, secs2), 1):
         med = statistics.median(sec[1:])
         log(f"train run {i}: s per step {[round(x, 4) for x in sec]}, median of steps 2-"
-            f"{TRAIN_STEPS} {med:.4f} s: {B * T / med:.1f} padded tokens/s, "
+            f"{len(sec)} {med:.4f} s: {B * T / med:.1f} padded tokens/s, "
             f"{n_real / med:.1f} real tokens/s")
     log(f"batch {B} x T {T} ({n_real} real tokens), NF4 base, r 64, remat, bf16 compute, loss "
         f"chunk 256, dropout 0.05: losses {[round(x, 5) for x in losses]}, grad_norm "
@@ -5876,7 +5907,7 @@ def run_zoo_path(device, wrappers, smi, profile):
     (CLIP-preprocessed at 224^2 beforehand, as ``entry.evaluate``'s mapper
     does) through ``VLZooVQAPipeline.evaluate_model`` with its native
     answerer and the byte tokenizer, then the first ``ZOO_SECOND`` again:
-    n = 16, a finite accuracy, the second run's answers and tokens equal to
+    n = 8, a finite accuracy, the second run's answers and tokens equal to
     the first's, and K12 launched as the shapes predict (BLIP-2:
     decoder layers x 10 beam steps x questions; KOSMOS-2: decoder layers x
     the greedy steps each question ran, one per token up to its first eos).
@@ -6096,9 +6127,9 @@ def run_instructblip_path(device, wrappers, smi, work, profile=False):
     ``MODEL.ZOO: instructblip`` (JAX's tiny smoke tower) on 4 questions;
     then ``ZOO_QUESTIONS`` questions through ``VLZooVQAPipeline`` with the
     native answerer (beam 5, length penalty -1, ``ZOO_NEW`` tokens, the byte
-    tokenizer), then the first ``ZOO_SECOND`` again: n = 16, a finite
+    tokenizer), then the first ``ZOO_SECOND`` again: n = 8, a finite
     accuracy, identical answers, K12 launched 32 layers x 9 beam steps x
-    16; questions/s, ms per question by
+    8; questions/s, ms per question by
     phase and peak memory (``profile``: one more answer under
     torch.profiler).  19b: ``run_imagenet_path`` on the same vision tower
     and Q-Former.  Returns the launches of 19a's first run."""
@@ -6614,7 +6645,8 @@ def run_bakllava_path(device, wrappers, smi, work):
     ``python -m cullavo_tpu_torch eval --conf_files configs/vl_test.yaml``
     with ``MODEL.ZOO: bakllava`` and ``MODEL.ZOO_PATH`` in a subprocess over
     the first ``BAK_CLI_QUESTIONS`` of ``VL_QUESTIONS`` questions written as
-    a ``vqa`` dataset (exit 0), and all 16 through ``entry.evaluate`` here,
+    a ``vqa`` dataset (exit 0), and the first ``BAK_QUESTIONS`` through
+    ``entry.evaluate`` here,
     counted: the CLI's answers equal, K1 32 a question and K4 32 a decode
     forward; load s, questions/s, peak memory.  Returns the in-process run's
     launches."""
@@ -6675,7 +6707,7 @@ def run_bakllava_path(device, wrappers, smi, work):
         cli_answers = [a["answer"] for a in json.load(f)]
     log(f"BakLLaVA CLI ({smi}): {cli} in {t_cli:.2f} s (the process, the snapshot load and "
         f"{BAK_CLI_QUESTIONS} answers)")
-    vl = {"NAME": "vl_test", "MAX_NEW_TOKENS": 16, "LIMIT": 0,
+    vl = {"NAME": "vl_test", "MAX_NEW_TOKENS": 16, "LIMIT": BAK_QUESTIONS,
           "SAVE_DIR": os.path.join(work, "bakllava_out"),
           "MODEL": {"ZOO": "bakllava", "ZOO_PATH": snap},
           "DATASETS": {"TEST": [name], "REGISTER": {name: spec}}}
@@ -6684,17 +6716,17 @@ def run_bakllava_path(device, wrappers, smi, work):
     n_layers = cfg.text.num_hidden_layers
     log(f"launches on the BakLLaVA path: {counts}")
     if not (answers[:BAK_CLI_QUESTIONS] == cli_answers and cli["n"] == BAK_CLI_QUESTIONS
-            and res["n"] == VL_QUESTIONS and math.isfinite(res["overall"])
+            and res["n"] == BAK_QUESTIONS and math.isfinite(res["overall"])
             and 0.0 <= res["overall"] <= 100.0):
         raise RuntimeError(f"BakLLaVA: in process {res} vs the CLI's {cli}")
-    if (counts["flash_fwd"] != n_layers * VL_QUESTIONS or counts["wwin_decode"] == 0
+    if (counts["flash_fwd"] != n_layers * BAK_QUESTIONS or counts["wwin_decode"] == 0
             or counts["wwin_decode"] % n_layers
             or any(n for k, n in counts.items() if k not in ("flash_fwd", "wwin_decode"))):
         raise RuntimeError(f"BakLLaVA: launches {counts}")
     log(f"BakLLaVA: {res}; the CLI's {BAK_CLI_QUESTIONS} answers equal; answers[:4] "
         f"{answers[:4]}")
-    log(f"BakLLaVA ({smi}): snapshot load {t_load:.3f} s, {VL_QUESTIONS / t_eval:.4f} "
-        f"questions/s ({t_eval:.3f} s for {VL_QUESTIONS}, {counts['wwin_decode'] // n_layers} "
+    log(f"BakLLaVA ({smi}): snapshot load {t_load:.3f} s, {BAK_QUESTIONS / t_eval:.4f} "
+        f"questions/s ({t_eval:.3f} s for {BAK_QUESTIONS}, {counts['wwin_decode'] // n_layers} "
         f"decode forwards), peak memory {peak:.2f} GiB")
     shutil.rmtree(snap)
     torch.cuda.empty_cache()
@@ -6796,7 +6828,7 @@ def run_zoo_snapshot_path(device, wrappers, smi, work):
     ``write_zoo_snapshot`` and read through ``entry.evaluate`` with
     ``MODEL.ZOO_PATH`` (the published config factories swapped for the cut
     ones while it runs) over phase 11's ``ZOO_QUESTIONS`` questions (beam 5
-    / greedy, ``ZOO_NEW`` tokens): n = 16, a finite accuracy, K12 launched
+    / greedy, ``ZOO_NEW`` tokens): n = 8, a finite accuracy, K12 launched
     and nothing else; then ``imagenet_test`` from the InstructBLIP snapshot
     over phase 19b's class folders.  Load s, questions/s, peak memory; each
     snapshot deleted after its run.  Returns the summed launches."""
@@ -6929,16 +6961,16 @@ def run_opt_path(device, wrappers, smi, work, profile=False):
     answering ``ZOO_QUESTIONS`` questions through ``VLZooVQAPipeline`` with
     the checkpoint-free native answerer (``kind="opt"``: beam 5, length
     penalty -1, ``ZOO_NEW`` tokens, the byte tokenizer), then the first
-    ``ZOO_SECOND`` again: n = 16, a finite accuracy, identical answers and
-    tokens, K12 launched 32 layers x 9 beam steps x 16 and nothing else;
+    ``ZOO_SECOND`` again: n = 8, a finite accuracy, identical answers and
+    tokens, K12 launched 32 layers x 9 beam steps x 8 and nothing else;
     questions/s, ms per question by phase, peak memory.  21b: a
     blip2-opt-2.7b-shaped snapshot at ``ZOO_PATH_CUT`` depth (full width,
     the byte-level BPE tokenizer of 50265 ids) written by
     ``write_zoo_snapshot``, read back bit-equal by ``load_blip2_safetensors``,
     then ``native_blip2_answer_fn(hf_model_dir=..., kind="opt")`` (the
     published config factory swapped for the cut one) answering phase 11's
-    ``ZOO_QUESTIONS`` raw images through the pipeline: n = 16, a finite
-    accuracy, K12 launched cut layers x 9 x 16.  Returns the launches of
+    ``ZOO_QUESTIONS`` raw images through the pipeline: n = 8, a finite
+    accuracy, K12 launched cut layers x 9 x 8.  Returns the launches of
     21a's first run and of 21b."""
     import math
 
@@ -7419,15 +7451,17 @@ def _same_tree(a, b, prefix=""):
 def run_train_loop_path(snap, cfg, device, wrappers, smi, work):
     """Phase 12: ``entry.train`` on configs/cullavo_step1.yaml from phase 10's
     7B bf16 snapshot (``BITS: 4``, full width and depth) over a registered
-    ``coco_panoptic`` dataset of 16 synthetic 480 x 640 images, batch 8, 2
-    epochs (4 steps), ``SAVE_DIR`` a temporary directory: every loss finite;
-    ``step_2``, ``step_4``, ``epoch0`` and ``epoch1`` written;
-    ``load_checkpoint(template=...)`` and ``load_reference_layout`` bit-equal
-    to the trainable state they saved.  Then ``RESUME_FROM`` epoch1 for 2
-    steps (the trainable partition bit-equal to the first run's final one
-    before its first step, losses finite), then 2 steps with
-    ``CULLAVO_FLASH_PACKED=1`` without saving (step-1 loss within 1e-3
-    relative of the first run's; K13 64 and K1-lse 32 launches per step).
+    ``coco_panoptic`` dataset of 16 synthetic 480 x 640 images, batch 8, 1
+    epoch (2 steps; it ran 2 epochs before phase 23 had to be paid for),
+    ``SAVE_DIR`` a temporary directory: every loss finite; ``step_2`` and
+    ``epoch0`` written; ``load_checkpoint(template=...)`` and
+    ``load_reference_layout`` bit-equal to the trainable state they saved.
+    Then ``RESUME_FROM`` epoch0 for 1
+    step (the trainable partition bit-equal to the first run's final one
+    before the step, the loss finite), then 1 step with
+    ``CULLAVO_FLASH_PACKED=1`` without saving (its loss within 1e-3
+    relative of the first run's step 1; K13 64 and K1-lse 32 launches), both
+    on ``first_batch_dataset`` (run 1's first batch).
     Returns the packed run's launch counts and run 1's reference for phase
     22a (the dataset's registration, each step's metrics and seconds, the
     trainable partition's GB)."""
@@ -7449,7 +7483,7 @@ def run_train_loop_path(snap, cfg, device, wrappers, smi, work):
             "DATASETS": {"TRAIN": LOOP_DATASET}}
     dataset = {"KIND": "coco_panoptic", "JSON": json_file, "IMAGE_DIR": img_dir,
                "PANOPTIC_DIR": pan_dir, "NUM_CLASSES": 133}
-    cfg1 = {**base, "EPOCHS": 2, "SAVE_DIR": save_dir,
+    cfg1 = {**base, "EPOCHS": 1, "SAVE_DIR": save_dir,
             "DATASETS": {"TRAIN": LOOP_DATASET, "REGISTER": {LOOP_DATASET: dataset}}}
 
     # record what each run's loop starts from, its step and save seconds
@@ -7493,22 +7527,21 @@ def run_train_loop_path(snap, cfg, device, wrappers, smi, work):
     state1 = res1["state"]
     written = sorted(os.listdir(save_dir))
     log(f"train loop run 1 (K1): losses {losses1}; launches {counts1}; written {written}")
-    if len(losses1) != 4 or state1.step != 4 or not {"step_2", "step_4", "epoch0",
-                                                     "epoch1"} <= set(written):
+    if len(losses1) != 2 or state1.step != 2 or not {"step_2", "epoch0"} <= set(written):
         raise RuntimeError(f"train loop run 1: {len(losses1)} steps, wrote {written}")
     L = cfg.text.num_hidden_layers
-    if counts1["flash_fwd_lse"] != 4 * 2 * L or counts1["flash_packed"]:
+    if counts1["flash_fwd_lse"] != 2 * 2 * L or counts1["flash_packed"]:
         raise RuntimeError(f"train loop run 1: launches {counts1}")
     t = time.perf_counter()
-    back = load_checkpoint(save_dir, 4, template=state1)
+    back = load_checkpoint(save_dir, 2, template=state1)
     t_ckpt = time.perf_counter() - t
     bad = _same_tree({"t": back.trainable, "o": back.opt_state, "s": back.step},
                      {"t": state1.trainable, "o": state1.opt_state, "s": state1.step})
     t = time.perf_counter()
-    ref_back = load_reference_layout(os.path.join(save_dir, "epoch1"), state1.trainable)
+    ref_back = load_reference_layout(os.path.join(save_dir, "epoch0"), state1.trainable)
     t_ref = time.perf_counter() - t
     bad += _same_tree(ref_back, state1.trainable)
-    log(f"step_4 read back with the TrainState template in {t_ckpt:.2f} s, epoch1 in "
+    log(f"step_2 read back with the TrainState template in {t_ckpt:.2f} s, epoch0 in "
         f"{t_ref:.2f} s: {len(bad)} leaves differ (bit-equal demanded)")
     if bad:
         raise RuntimeError(f"train loop: checkpoints read back differ: {bad[:5]}")
@@ -7521,24 +7554,28 @@ def run_train_loop_path(snap, cfg, device, wrappers, smi, work):
     del res1, state1
     torch.cuda.empty_cache()
 
-    cfg2 = {**base, "RESUME_FROM": os.path.join(save_dir, "epoch1", "CuLLaVO.pt")}
+    # runs 2 and 3: one step each, on run 1's first batch
+    first = "coco_2017_train_panoptic_first_batch"
+    one_step = {**base, "DATASETS": {"TRAIN": first, "REGISTER": {
+        first: first_batch_dataset(dataset, work, base["BATCH_SIZE"])}}}
+    cfg2 = {**one_step, "RESUME_FROM": os.path.join(save_dir, "epoch0", "CuLLaVO.pt")}
     res2, counts2, losses2, info2 = train(cfg2)
     bad = _same_tree(info2["start"].trainable, final1)
-    log(f"train loop run 2 (RESUME_FROM epoch1): losses {losses2}; its trainable partition "
+    log(f"train loop run 2 (RESUME_FROM epoch0): losses {losses2}; its trainable partition "
         f"before step 1: {len(bad)} leaves differ from run 1's final one (bit-equal demanded)")
-    if bad or len(losses2) != 2 or info2["start"].opt_state["count"] != 0:
+    if bad or len(losses2) != 1 or info2["start"].opt_state["count"] != 0:
         raise RuntimeError(f"train loop: the resumed state differs: {bad[:5]}")
     del res2, info2["start"], final1
     torch.cuda.empty_cache()
 
     os.environ["CULLAVO_FLASH_PACKED"] = "1"
-    res3, counts3, losses3, info3 = train(base)
+    res3, counts3, losses3, info3 = train({**base, "DATASETS": {"TRAIN": first}})
     os.environ.pop("CULLAVO_FLASH_PACKED")
     entry.train_loop = real_loop
     rel = abs(losses3[0] - losses1[0]) / abs(losses1[0])
     log(f"train loop run 3 (CULLAVO_FLASH_PACKED=1): losses {losses3}; launches {counts3}; "
         f"step-1 loss {rel:.3e} relative from run 1's (tol 1e-3)")
-    want = {"flash_packed": 2 * 2 * L, "flash_fwd_lse": 2 * L, "flash_fwd": 0}
+    want = {"flash_packed": 2 * L, "flash_fwd_lse": L, "flash_fwd": 0}
     if any(counts3[k] != n for k, n in want.items()) or not rel <= 1e-3:
         raise RuntimeError(f"train loop, packed: launches {counts3} (want {want}), "
                            f"step-1 loss {losses3[0]} vs {losses1[0]}")
@@ -7551,7 +7588,7 @@ def run_train_loop_path(snap, cfg, device, wrappers, smi, work):
             f"{statistics.median(s[1:] if len(s) > 2 else s):.4f} s; checkpoint writes (step_N "
             f"+ epochN) {[round(x, 2) for x in info['saves']]} s; wall {info['wall']:.2f} s "
             f"(snapshot load and NF4 quantization included); peak memory {info['peak']:.2f} GiB")
-    log(f"checkpoints on disk: {du / 1e9:.3f} GB (step_2, step_4, epoch0, epoch1)")
+    log(f"checkpoints on disk: {du / 1e9:.3f} GB (step_2, epoch0)")
     return counts3, ref
 
 
@@ -7617,7 +7654,7 @@ def run_step2_pre_path(snap, device, wrappers, smi, work):
     """Phase 14: step2_pre data generation at LLaVA-1.5-7B from phase 10's
     bf16 snapshot, over a registered conversations dataset of 12 rows
     (``--config_overrides``) with ``LOAD_PATH`` the snapshot
-    (``--overrides``): 256 sampled tokens, batch 8, so two chunks, the
+    (``--overrides``): ``STEP2_NEW`` sampled tokens, batch 8, so two chunks, the
     second padded by repetition.  (1) ``python -m cullavo_tpu_torch eval
     --conf_files configs/cullavo_step2_pre.yaml ...`` runs in phase 22c, on
     two ranks.
@@ -7651,7 +7688,8 @@ def run_step2_pre_path(snap, device, wrappers, smi, work):
     def argv(out_dir):
         return ["eval", "--conf_files", os.path.join(REPO, STEP2_CFG),
                 "--config_overrides", json.dumps(over),
-                "--overrides", "MODEL.LLM.LOAD_PATH", snap, "SAVE_DIR", out_dir]
+                "--overrides", "MODEL.LLM.LOAD_PATH", snap, "SAVE_DIR", out_dir,
+                "MAX_NEW_TOKENS", str(STEP2_NEW)]
 
     # the pipeline's generate calls, and every prefill and decode loop timed
     # (a decode loop also keeps the host clock at each of its forwards: the
@@ -7855,8 +7893,14 @@ PAR_TOL = {"qlora": (8e-5, 5e-4), "xtrain": (2e-4, 2e-2)}
 # its own denominator (per-rank means averaged, as DDP does), or no
 # all-reduce of the gradient (each rank steps on its own rows' gradient)
 PAR_FAULTS = ("local_denominator", "no_grad_allreduce")
+# the fault ``--par-calibrate sharded`` plants on the sharded runs: the clip's
+# and the metric's norm over this rank's gradient shards only
+SHARD_FAULTS = ("local_norm",)
+# phase 23a: a MESH_FSDP 2 rank's resident memory after its run, at most this
+# share of a phase 22a data-axis rank's (the state halves: about 0.5)
+SHARD_RESIDENT_MAX = 0.6
 PAR_CAL_SEEDS = (0, 1, 2)
-STEP2_PAR_NEW, STEP2_PAR_BATCH = 64, 4    # phase 22c: 12 rows, 6 a rank, 2 chunks each
+STEP2_PAR_NEW, STEP2_PAR_BATCH = 32, 4    # phase 22c: 12 rows, 6 a rank, 2 chunks each
 # each kernel's wrapper (its module, its function); every wrapper counts its
 # kernel's launches in ``.launches``
 WRAPPERS = {
@@ -7885,18 +7929,23 @@ def load_wrappers():
 
 def plant_fault(name):
     """One of ``PAR_FAULTS``, patched into this rank's modules."""
+    from cullavo_tpu_torch.parallel import mesh
     from cullavo_tpu_torch.parallel.mesh import BatchPart
-    from cullavo_tpu_torch.trainer import step, xdecoder_step
+    from cullavo_tpu_torch.trainer import step
 
     if name == "local_denominator":   # each denominator W x this rank's own
         own = step.loss_weight_sum
         step.loss_weight_sum = lambda labels, mask, weights, parallel: (
-            own(labels, mask, weights) * parallel.process_count)
-        BatchPart.sum = lambda self, x: x.detach().clone() * self.ctx.process_count
+            own(labels, mask, weights) * parallel.axis_size("batch"))
+        BatchPart.sum = lambda self, x: x.detach().clone() * self.ctx.axis_size("batch")
     elif name == "no_grad_allreduce":
-        step.all_reduce_tree = xdecoder_step.all_reduce_tree = list
+        mesh.all_reduce_tree = lambda leaves, group=None: list(leaves)
+    elif name == "local_norm":
+        from cullavo_tpu_torch.trainer.optimizer import global_norm
+
+        mesh.Layout.global_norm = lambda self, grads: global_norm(grads)
     else:
-        raise ValueError(f"no planted fault {name!r}: {PAR_FAULTS}")
+        raise ValueError(f"no planted fault {name!r}: {PAR_FAULTS + SHARD_FAULTS}")
 
 
 def rank_main(argv):
@@ -8016,68 +8065,218 @@ def _same_launches(label, reports, want):
     return got
 
 
-def qlora_argv(snap, dataset, save=None, seed=None):
+def qlora_argv(snap, dataset, save=None, seed=None, epochs=2, grid=None):
     """Phase 22a's command line: configs/cullavo_step1.yaml from ``snap``
-    over the registered ``dataset``, 2 epochs (4 steps of 8); ``SAVE_DIR``
-    and ``SEED`` where given."""
-    over = {"DATASETS.TRAIN": LOOP_DATASET, "DATASETS.REGISTER": {LOOP_DATASET: dataset}}
+    over the registered ``dataset``, ``epochs`` epochs (2: 4 steps of 8),
+    the ``MESH_*`` of ``grid``; ``SAVE_DIR`` and ``SEED`` where given."""
+    over = {"DATASETS.TRAIN": LOOP_DATASET, "DATASETS.REGISTER": {LOOP_DATASET: dataset},
+            **(grid or {})}
     return (["train", "--conf_files", os.path.join(REPO, "configs/cullavo_step1.yaml"),
-             "--config_overrides", json.dumps(over), "--overrides", "EPOCHS", "2",
+             "--config_overrides", json.dumps(over), "--overrides", "EPOCHS", str(epochs),
              "LOG_EVERY", "1", "MODEL.LLM.LOAD_PATH", snap]
             + (["SAVE_DIR", save] if save else [])
             + (["SEED", str(seed)] if seed is not None else []))
+
+
+def _step_seconds(texts):
+    """Each step's seconds from rank 0's loop log (``step_s`` is the running
+    mean of the steps so far)."""
+    logs = [ast.literal_eval(ln) for ln in texts[0][1].splitlines() if ln.startswith("{'epoch'")]
+    avg = [d["step_s"] for d in logs]
+    return [avg[0]] + [(i + 1) * avg[i] - i * avg[i - 1] for i in range(1, len(avg))]
+
+
+def _scaled_launches(launches, steps, of):
+    """A run's launch counts for ``steps`` of its ``of`` steps (each kernel
+    launches the same number of times every step)."""
+    if any(n * steps % of for n in launches.values()):
+        raise RuntimeError(f"launches {launches} are not {of} equal steps")
+    return {k: n * steps // of for k, n in launches.items()}
+
+
+def _memory(lines):
+    """Each rank's resident, step-peak and load-peak GiB, rounded."""
+    return {k: [round(ln[k], 2) for ln in lines] for k in ("resident_gib", "peak_gib",
+                                                          "load_peak_gib") if k in lines[0]}
 
 
 def run_parallel_train_path(snap, smi, work, ref):
     """Phase 22a: ``python -m cullavo_tpu_torch train --conf_files
     configs/cullavo_step1.yaml`` as two ranks on this card over Gloo, from
     phase 10's 7B snapshot (``BITS: 4``, full width and depth) over phase
-    12's dataset, ``EPOCHS 2``: the global batch of 8 x 1024 split 4 + 4, 4
+    12's dataset, ``EPOCHS 1``: the global batch of 8 x 1024 split 4 + 4, 2
     steps, LoRA dropout on.  Each step's ``loss_llm`` and ``grad_norm``
     equal on the two ranks and within ``PAR_TOL["qlora"]`` relative of
-    phase 12's one-process run of the same config and ``SEED``; each rank
-    launched every kernel as often as that run (K1-lse 4 x 2 x 32, K7);
-    rank 0 writes step_2, step_4, epoch0 and epoch1, rank 1 (its own
-    ``SAVE_DIR``) nothing.  s per step (rank 0's log, median of steps
-    2-4), the gradient all-reduce's ms a step and share (host-staged over
-    Gloo: device -> host, the loopback, host -> device; not an NCCL
-    figure), peak GiB per rank.  Returns those and each rank's launches."""
+    phase 12's one-process run of the same config and ``SEED`` (its first 2
+    steps); each rank launched every kernel as often a step as that run
+    (K1-lse 2 x 32 a step, K7); rank 0 writes step_2 and epoch0, rank 1
+    (its own ``SAVE_DIR``) nothing (then removed: phase 23 writes its own).
+    s per step (rank 0's log), the gradient all-reduce's ms a step and
+    share (host-staged over Gloo: device -> host, the loopback, host ->
+    device; not an NCCL figure), each rank's resident GiB after the run, its
+    step peak and its load's peak.  Returns those, each rank's launches and
+    its NF4 base bytes (phase 23's yardsticks)."""
     saves = [os.path.join(work, f"step1_ranks_{r}") for r in range(PAR_RANKS)]
-    texts, reports, wall = run_ranks("qlora", [qlora_argv(snap, ref["dataset"], s)
+    texts, reports, wall = run_ranks("qlora", [qlora_argv(snap, ref["dataset"], s, epochs=1)
                                                for s in saves], work)
     lines = _rank_lines(texts)
-    want_l = [h["loss_llm"] for h in ref["history"]]
-    want_n = [h["grad_norm"] for h in ref["history"]]
+    want_l = [h["loss_llm"] for h in ref["history"][:2]]
+    want_n = [h["grad_norm"] for h in ref["history"][:2]]
     if any(ln["loss_llm"] != lines[0]["loss_llm"] or ln["grad_norm"] != lines[0]["grad_norm"]
            for ln in lines):
         raise RuntimeError(f"two-rank Q-LoRA: the ranks disagree: {lines}")
     tol_l, tol_n = PAR_TOL["qlora"]
     rel_l = _held("two-rank Q-LoRA loss_llm", lines[0]["loss_llm"], want_l, tol_l)
     rel_n = _held("two-rank Q-LoRA grad_norm", lines[0]["grad_norm"], want_n, tol_n)
-    launches = _same_launches("two-rank Q-LoRA", reports, ref["launches"])
+    launches = _same_launches("two-rank Q-LoRA", reports,
+                              _scaled_launches(ref["launches"], 2, len(ref["history"])))
     written = sorted(os.listdir(saves[0]))
-    if written != ["epoch0", "epoch1", "step_2", "step_4"] or os.path.exists(saves[1]):
+    if written != ["epoch0", "step_2"] or os.path.exists(saves[1]):
         raise RuntimeError(f"two-rank Q-LoRA: rank 0 wrote {written}, rank 1 "
                            f"{os.listdir(saves[1]) if os.path.exists(saves[1]) else 'nothing'}")
-    logs = [ast.literal_eval(ln) for ln in texts[0][1].splitlines() if ln.startswith("{'epoch'")]
-    avg = [d["step_s"] for d in logs]
-    step_s = [avg[0]] + [(i + 1) * avg[i] - i * avg[i - 1] for i in range(1, len(avg))]
-    s_step = statistics.median(step_s[1:])
+    shutil.rmtree(saves[0])
+    step_s = _step_seconds(texts)
+    s_step = step_s[-1]
     ar = lines[0]["allreduce_ms"]
+    mem = _memory(lines)
     log(f"two-rank Q-LoRA at 7B ({smi}; 2 processes on one card over Gloo): loss_llm "
         f"{lines[0]['loss_llm']} (one process {want_l}, worst {rel_l:.2e} relative, tol "
         f"{tol_l}), grad_norm {lines[0]['grad_norm']} (one process {want_n}, worst "
         f"{rel_n:.2e}, tol {tol_n}); equal on both ranks; launches per rank as one process's "
-        f"({ {k: n for k, n in launches[0].items() if n} }); rank 0 wrote {written}, rank 1 "
-        "nothing")
-    log(f"two-rank Q-LoRA ({smi}): {s_step:.4f} s per step (median of steps 2-4; steps "
+        f"2 steps ({ {k: n for k, n in launches[0].items() if n} }); rank 0 wrote {written}, "
+        "rank 1 nothing")
+    log(f"two-rank Q-LoRA ({smi}): {s_step:.4f} s at step 2 (steps "
         f"{[round(x, 4) for x in step_s]}; one process at batch 8 {ref['steps']}); gradient "
         f"all-reduce (Gloo, host-staged, {ref['trainable_gb']:.3f} GB of f32 gradients) "
-        f"{[round(x, 2) for x in ar]} ms, {statistics.median(ar[1:]) / 1e3 / s_step:.1%} of a "
-        f"step; peak GiB per rank {[round(ln['peak_gib'], 2) for ln in lines]}; wall "
-        f"{wall:.1f} s (two process starts, two snapshot loads, 4 steps, the saves)")
-    return {"s_per_step": s_step, "allreduce_ms": ar,
-            "peak_gib": [ln["peak_gib"] for ln in lines], "launches": launches}
+        f"{[round(x, 2) for x in ar]} ms, {ar[-1] / 1e3 / s_step:.1%} of step 2; GiB per rank "
+        f"{mem}; wall {wall:.1f} s (two process starts, two snapshot loads, 2 steps, the "
+        "saves)")
+    return {"s_per_step": s_step, "allreduce_ms": ar, "launches": launches,
+            "base_bytes": lines[0]["base_bytes"], **mem}
+
+
+def first_batch_dataset(dataset, work, n):
+    """A copy of a coco_panoptic registration whose JSON holds only the ``n``
+    records of its first batch, ordered so that epoch 0 of the copy
+    (``np.random.default_rng(0)``'s permutation, as ``entry.train`` draws
+    it) takes them in the same order: one step of it is the first step of
+    the original."""
+    import numpy as np
+
+    with open(dataset["JSON"]) as f:
+        info = json.load(f)
+    anns = info["annotations"]
+    first = np.random.default_rng(0).permutation(len(anns))[:n]
+    order = np.random.default_rng(0).permutation(n)
+    picked = [None] * n
+    for j in range(n):
+        picked[order[j]] = anns[first[j]]
+    info["annotations"] = picked
+    path = os.path.join(work, "first_batch.json")
+    with open(path, "w") as f:
+        json.dump(info, f)
+    return dict(dataset, JSON=path)
+
+
+def _sharded_report(label, texts, reports, want_hist, want_launches, key, tol, smi, wall,
+                    saves, written_want):
+    """Phase 23's checks of one run of two ranks: the ranks agree, each
+    step's loss and grad_norm within ``tol`` of the one-process run's same
+    steps, each rank's launches that run's, only rank 0 wrote
+    ``written_want`` (then removed).  Logs the step seconds, the gathers'
+    and reductions' ms and share, the memory; returns the rank lines and
+    the launches."""
+    lines = _rank_lines(texts)
+    want_l, want_n = [h[key] for h in want_hist], [h["grad_norm"] for h in want_hist]
+    if any(ln[key] != lines[0][key] or ln["grad_norm"] != lines[0]["grad_norm"]
+           for ln in lines):
+        raise RuntimeError(f"{label}: the ranks disagree: {lines}")
+    rel_l = _held(f"{label} {key}", lines[0][key], want_l, tol[0])
+    rel_n = _held(f"{label} grad_norm", lines[0]["grad_norm"], want_n, tol[1])
+    launches = _same_launches(label, reports, want_launches)
+    written = sorted(os.listdir(saves[0]))
+    if written != written_want or os.path.exists(saves[1]):
+        raise RuntimeError(f"{label}: rank 0 wrote {written}, rank 1 "
+                           f"{os.listdir(saves[1]) if os.path.exists(saves[1]) else 'nothing'}")
+    step_s = lines[0].get("step_s") or _step_seconds(texts)
+    gather, reduce = lines[0]["gather_ms"], lines[0]["allreduce_ms"]
+    share = [(g + r) / 1e3 / s for g, r, s in zip(gather, reduce, step_s)]
+    log(f"{label} ({smi}; 2 processes on one card over Gloo): {key} {lines[0][key]} (one "
+        f"process {want_l}, worst {rel_l:.2e} relative, tol {tol[0]}), grad_norm "
+        f"{lines[0]['grad_norm']} (one process {want_n}, worst {rel_n:.2e}, tol {tol[1]}); "
+        f"equal on both ranks; launches per rank as one process's "
+        f"({ {k: n for k, n in launches[0].items() if n} }); rank 0 wrote {written}, rank 1 "
+        "nothing")
+    log(f"{label} ({smi}): s per step {[round(x, 4) for x in step_s]}; gathers (with their "
+        f"backward reduce-scatters) {[round(x, 1) for x in gather]} ms, gradient reductions "
+        f"{[round(x, 1) for x in reduce]} ms, together {[f'{x:.1%}' for x in share]} of the "
+        f"step (Gloo, host-staged: not an NCCL figure); GiB per rank {_memory(lines)}; wall "
+        f"{wall:.1f} s")
+    return lines, launches
+
+
+def run_sharded_train_path(snap, smi, work, ref, par):
+    """Phase 23a-b: phase 22a's command line as two ranks over Gloo under
+    (a) ``MESH_FSDP: 2``, ``EPOCHS 1`` (2 steps of 8 x 1024, each rank 4
+    rows), (b) ``MESH_TENSOR: 2`` on ``first_batch_dataset`` (1 step, each
+    rank all 8 rows): the checks of ``_sharded_report`` against phase 12's
+    run 1 (``PAR_TOL["qlora"]``; K1-lse 2 x 32 and K7 672 a step), each
+    rank's NF4 base bytes half of a 22a rank's, and (a)'s resident GiB at
+    most ``SHARD_RESIDENT_MAX`` of a 22a rank's (``par``: 22a's return).
+    Returns each run's launches and memory."""
+    n_ref = len(ref["history"])
+    out = {}
+    for tag, grid, dataset, steps in (
+            ("fsdp", {"MESH_FSDP": 2}, ref["dataset"], 2),
+            ("tensor", {"MESH_TENSOR": 2}, first_batch_dataset(ref["dataset"], work, 8), 1)):
+        saves = [os.path.join(work, f"step1_{tag}_{r}") for r in range(PAR_RANKS)]
+        texts, reports, wall = run_ranks(
+            f"qlora_{tag}", [qlora_argv(snap, dataset, sv, epochs=1, grid=grid) for sv in saves],
+            work)
+        lines, launches = _sharded_report(
+            f"Q-LoRA at 7B under {grid}", texts, reports, ref["history"][:steps],
+            _scaled_launches(ref["launches"], steps, n_ref), "loss_llm", PAR_TOL["qlora"], smi,
+            wall, saves, ["epoch0", f"step_{steps}"])
+        shutil.rmtree(saves[0])
+        base = [ln["base_bytes"] for ln in lines]
+        if base != [par["base_bytes"] // 2] * PAR_RANKS:
+            raise RuntimeError(f"Q-LoRA under {grid}: NF4 base bytes per rank {base}, a 22a "
+                               f"rank's {par['base_bytes']}")
+        mem = _memory(lines)
+        out[tag] = {"launches": launches, **mem}
+        log(f"Q-LoRA under {grid} ({smi}): each rank holds {base[0] / 1e9:.3f} GB of the NF4 "
+            f"base (a 22a rank {par['base_bytes'] / 1e9:.3f} GB); resident GiB per rank "
+            f"{mem['resident_gib']} against 22a's {par['resident_gib']} "
+            f"({max(mem['resident_gib']) / max(par['resident_gib']):.1%}); step peak "
+            f"{mem['peak_gib']} (22a {par['peak_gib']}); load peak {mem['load_peak_gib']} (22a "
+            f"{par['load_peak_gib']})")
+    ratio = max(out["fsdp"]["resident_gib"]) / max(par["resident_gib"])
+    if not ratio <= SHARD_RESIDENT_MAX:
+        raise RuntimeError(f"Q-LoRA under MESH_FSDP 2: a rank keeps {ratio:.1%} of a 22a "
+                           f"rank's resident memory (at most {SHARD_RESIDENT_MAX:.0%})")
+    return out
+
+
+def run_sharded_xtrain_path(work, smi, ref):
+    """Phase 23c: phase 22b's command line under ``MESH_FSDP: 2`` (FocalNet-L
+    + FPN at 512², bf16, remat; 2 steps of 8, each rank 4 images): the
+    checks of ``_sharded_report`` against phase 15's in-process run
+    (``PAR_TOL["xtrain"]``; K10 2 x 48), rank 0's checkpoint read back
+    finite.  Returns each rank's launches and memory."""
+    from cullavo_tpu_torch.checkpoint.store import load_checkpoint
+    from cullavo_tpu_torch.utils.tree import tree_leaves
+
+    over = {"DATASETS.TRAIN": [XTRAIN_DATASET], "DATASETS.REGISTER": {XTRAIN_DATASET: ref["spec"]},
+            "MESH_FSDP": PAR_RANKS}
+    saves = [os.path.join(work, f"xtrain_fsdp_{r}") for r in range(PAR_RANKS)]
+    texts, reports, wall = run_ranks("xtrain_fsdp", [xtrain_argv(over, sv) for sv in saves], work)
+    lines, launches = _sharded_report(
+        "X-Decoder joint training under {'MESH_FSDP': 2}", texts, reports, ref["history"],
+        ref["launches"], "loss_total", PAR_TOL["xtrain"], smi, wall, saves, ["step_2"])
+    ckpt = tree_leaves(load_checkpoint(saves[0])["params"])
+    if not all(np_isfinite(a) for a in ckpt):
+        raise RuntimeError("X-Decoder under MESH_FSDP 2: a leaf of the checkpoint is not finite")
+    return {"launches": launches, **_memory(lines)}
 
 
 def run_parallel_xtrain_path(work, smi, ref, rec):
@@ -8124,7 +8323,8 @@ def run_parallel_xtrain_path(work, smi, ref, rec):
         f"({ {k: n for k, n in launches[0].items() if n} }); s per step "
         f"{[round(x, 3) for x in lines[0]['step_s']]} (rank 0), gradient all-reduce "
         f"{[round(x, 2) for x in lines[0]['allreduce_ms']]} ms; peak GiB per rank (fresh "
-        f"processes, 4 images a step) {[round(x, 2) for x in peaks]}; wall {wall:.1f} s")
+        f"processes, 4 images a step) {[round(x, 2) for x in peaks]}; GiB per rank "
+        f"{_memory(lines)}; wall {wall:.1f} s")
     return {"step_s": lines[0]["step_s"], "peak_gib": peaks, "launches": launches}
 
 
@@ -8173,19 +8373,20 @@ def run_parallel_step2_path(snap, smi, work, layers):
 def run_nccl_step(device, smi, wrappers):
     """Phase 22d: one rank in an NCCL process group (world size 1, this
     process): the Q-LoRA step of LLaVA-1.5-7B's width at 2 LLM layers (NF4
-    base, r 64, dropout on, bf16 compute, batch 8 x 1024) with the
-    ``ParallelContext`` (NCCL all-reduces of the loss denominator, the loss
-    and the flat gradient buffer) bit-equal to the same step without a
+    base, r 64, dropout on, bf16 compute, batch 8 x 1024) through a
+    ``Layout`` of the trainable tree on that grid (its reductions span one
+    rank, so they make no collective) bit-equal to the same step without a
     process group: loss, grad_norm and every updated leaf; each step's
     launches counted, equal, K1-lse 2 x 2 (forward and remat, 2 layers) and
-    K7 launched.  Returns the step's launches with the group."""
+    K7 launched; then an NCCL all-reduce of the step's loss on the card,
+    equal to the loss.  Returns the step's launches with the group."""
     import torch
     import torch.distributed as dist
 
     from cullavo_tpu_torch.models.llava import lora as lora_mod
     from cullavo_tpu_torch.models.llava.config import LlavaConfig
     from cullavo_tpu_torch.models.llava.modeling import init_llava_params
-    from cullavo_tpu_torch.parallel import ParallelContext
+    from cullavo_tpu_torch.parallel import Layout, ParallelContext
     from cullavo_tpu_torch.trainer.optimizer import cullavo_optimizer
     from cullavo_tpu_torch.trainer.step import TrainState, make_train_step
     from cullavo_tpu_torch.utils.tree import tree_map
@@ -8205,26 +8406,30 @@ def run_nccl_step(device, smi, wrappers):
                             world_size=1, rank=0)
     backend = dist.get_backend()
     out = []
-    for par in (None, ParallelContext()):
-        tx = cullavo_optimizer(2e-5, 1000, grad_clip=10.0)
+    for layout in (None, Layout(ParallelContext(), trainable)):
+        norm = {} if layout is None else {"norm_fn": layout.global_norm}
+        tx = cullavo_optimizer(2e-5, 1000, grad_clip=10.0, **norm)
         step = make_train_step(cfg, lcfg, tx, remat=True, compute_dtype=torch.bfloat16,
-                               loss_chunk=256, parallel=par)
+                               loss_chunk=256, layout=layout)
         (st, m), counts = counted(wrappers, lambda: step(
             TrainState(trainable, tx.init(trainable), 0), frozen, batch,
             torch.Generator().manual_seed(SEED + 64)))
         torch.cuda.synchronize(device)
-        out.append((m, st.trainable, par, counts))
+        out.append((m, st.trainable, counts))
+    (m0, t0, c0), (m1, t1, c1) = out
+    summed = m1["loss_llm"].clone()
+    dist.all_reduce(summed)
     dist.destroy_process_group()
-    (m0, t0, _, c0), (m1, t1, par, c1) = out
     bad = _same_tree(t0, t1) + [k for k in ("loss_llm", "grad_norm")
                                 if not torch.equal(m0[k], m1[k])]
     log(f"one rank over {backend} ({smi}): the 2-layer 7B-width Q-LoRA step with the process "
-        f"group, loss {float(m1['loss_llm']):.6f}, grad_norm {float(m1['grad_norm']):.6f}, the "
-        f"flat all-reduce {par.timed_ms()[0]:.3f} ms; {len(bad)} of loss, norm and updated "
-        f"leaves differ from the step without a group (bit-equal demanded); launches "
-        f"{ {k: n for k, n in c1.items() if n} } (without the group the same: {c0 == c1})")
-    if backend != "nccl" or bad:
-        raise RuntimeError(f"one-rank NCCL step: backend {backend}, differs at {bad[:5]}")
+        f"group, loss {float(m1['loss_llm']):.6f}, grad_norm {float(m1['grad_norm']):.6f}; "
+        f"{len(bad)} of loss, norm and updated leaves differ from the step without a group "
+        f"(bit-equal demanded); launches { {k: n for k, n in c1.items() if n} } (without the "
+        f"group the same: {c0 == c1}); the loss all-reduced over one rank {float(summed):.6f}")
+    if backend != "nccl" or bad or not torch.equal(summed, m1["loss_llm"]):
+        raise RuntimeError(f"one-rank NCCL step: backend {backend}, differs at {bad[:5]}, "
+                           f"all-reduced loss {float(summed)}")
     if c0 != c1 or c1["flash_fwd_lse"] != 2 * 2 or not c1["nf4_dequant_planar"]:
         raise RuntimeError(f"one-rank NCCL step: launches {c1}, without the group {c0}")
     del params, frozen, trainable, out
@@ -8232,7 +8437,7 @@ def run_nccl_step(device, smi, wrappers):
     return c1
 
 
-def par_calibrate(smi):
+def par_calibrate(smi, sharded=False):
     """``chip_smoke.py --par-calibrate``: the readings ``PAR_TOL`` is set
     from.  For each seed of ``PAR_CAL_SEEDS``: phase 22a's Q-LoRA run (7B
     from a snapshot written here, 4 steps of 8 x 1024) and phase 22b's
@@ -8241,9 +8446,13 @@ def par_calibrate(smi):
     readings); then at ``SEED`` the one-process run again (its own spread)
     and each fault of ``PAR_FAULTS`` on two ranks, its gaps from the
     one-process run (rank 0's; the ranks may disagree under a fault).
-    Nothing is saved (a Q-LoRA run's saves write ~15 GB, and a call's disk
-    writes are capped).  Logs each reading and prints one JSON line
-    ``{"par_calibration": ...}``; a rank that fails fails the script."""
+    ``sharded`` (``--par-calibrate sharded``): instead, for each seed the
+    one-process runs and two ranks under ``MESH_FSDP: 2``, the Q-LoRA run
+    under ``MESH_TENSOR: 2`` at ``SEED``, and each fault of ``SHARD_FAULTS``
+    under ``MESH_FSDP: 2``.  Nothing is saved (a Q-LoRA run's saves write
+    ~15 GB, and a call's disk writes are capped).  Logs each reading and
+    prints one JSON line ``{"par_calibration": ...}``; a rank that fails
+    fails the script."""
     import torch
 
     from cullavo_tpu_torch.models.llava.config import LlavaConfig
@@ -8269,11 +8478,12 @@ def par_calibrate(smi):
         over = {"DATASETS.TRAIN": [XTRAIN_DATASET], "DATASETS.REGISTER": {XTRAIN_DATASET: spec}}
         key = {"qlora": "loss_llm", "xtrain": "loss_total"}
 
-        def run(path, seed, n, tag, fault=None):
+        def run(path, seed, n, tag, fault=None, grid=None):
+            grid = grid or ({"MESH_DATA": n} if n > 1 and path == "xtrain" else {})
             if path == "qlora":
-                argv = qlora_argv(snap, dataset, seed=seed)
+                argv = qlora_argv(snap, dataset, seed=seed, grid=grid)
             else:
-                argv = xtrain_argv(dict(over, **({"MESH_DATA": n} if n > 1 else {})), seed=seed)
+                argv = xtrain_argv(dict(over, **grid), seed=seed)
             return run_ranks(f"{path}_{tag}", [argv] * n, work, fault=fault)[1]
 
         def gap(path, tag, got, want, agree=True):
@@ -8286,7 +8496,23 @@ def par_calibrate(smi):
                 f"{row['loss']:.3e}, grad_norm {row['grad_norm']:.3e}; ranks agree {agree}; "
                 f"{got} against one process's {want}")
 
-        for path in ("qlora", "xtrain"):
+        for path in ("qlora", "xtrain") if sharded else ():
+            one = {seed: run(path, seed, 1, f"one{seed}")[0]["history"]
+                   for seed in PAR_CAL_SEEDS}
+            fsdp = {"MESH_FSDP": PAR_RANKS}
+            for seed in PAR_CAL_SEEDS:
+                drv = run(path, seed, PAR_RANKS, f"fsdp{seed}", grid=fsdp)
+                gap(path, f"fsdp_seed{seed}", drv[0]["history"], one[seed],
+                    all(d["history"] == drv[0]["history"] for d in drv))
+            if path == "qlora":
+                drv = run(path, SEED, PAR_RANKS, "tensor", grid={"MESH_TENSOR": PAR_RANKS})
+                gap(path, "tensor_seed0", drv[0]["history"], one[SEED],
+                    all(d["history"] == drv[0]["history"] for d in drv))
+            for fault in SHARD_FAULTS:
+                drv = run(path, SEED, PAR_RANKS, fault, fault, grid=fsdp)
+                gap(path, f"fsdp_{fault}", drv[0]["history"], one[SEED],
+                    all(d["history"] == drv[0]["history"] for d in drv))
+        for path in () if sharded else ("qlora", "xtrain"):
             one = {}
             for seed in PAR_CAL_SEEDS:
                 one[seed] = run(path, seed, 1, f"one{seed}")[0]["history"]
@@ -8324,7 +8550,8 @@ def main(argv):
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     log(smi)
     if "--par-calibrate" in argv:
-        return par_calibrate(smi)
+        return par_calibrate(smi, sharded=argv[argv.index("--par-calibrate") + 1:][:1]
+                             == ["sharded"])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -8462,10 +8689,14 @@ def main(argv):
 
         phase(12)
         counts_loop, loop_ref = run_train_loop_path(snap, cfg, device, wrappers, smi, work)
+        shutil.rmtree(os.path.join(work, "step1_out"))   # the later phases write their own
         torch.cuda.empty_cache()
         # phase 22a: phase 12's run 1 on two ranks
         phase("22a")
         par_train = run_parallel_train_path(snap, smi, work, loop_ref)
+        # phase 23a-b: the same under MESH_FSDP 2 and MESH_TENSOR 2
+        phase("23a-b")
+        shard_train = run_sharded_train_path(snap, smi, work, loop_ref, par_train)
 
         phase(14)
         counts_step2 = run_step2_pre_path(snap, device, wrappers, smi, work)
@@ -8483,6 +8714,9 @@ def main(argv):
         # phase 22b: phase 15's entry.train on two ranks
         phase("22b")
         par_xtrain = run_parallel_xtrain_path(work, smi, xtrain_ref, rec)
+        # phase 23c: the same under MESH_FSDP 2
+        phase("23c")
+        shard_xtrain = run_sharded_xtrain_path(work, smi, xtrain_ref)
         # phase 16 (its train -> eval step reads phase 15's checkpoint)
         phase(16)
         counts_xeval, pt_focal = run_xeval_path(device, wrappers, smi, work, rec)
@@ -8565,11 +8799,11 @@ def main(argv):
         k["xdecoder_eval_launches"] = counts_xeval[k["name"]]     # phase 16's entry.evaluate
         k["vlp_eval_launches"] = counts_vlp[k["name"]]            # phase 17's entry.evaluate
         k["serve_http_launches"] = counts_http[k["name"]]         # phase 18's HTTP run
-        # phase 19: InstructBLIP's 16 questions and the topic classifier's
+        # phase 19: InstructBLIP's 8 questions and the topic classifier's
         k["vl_zoo_rest_launches"] = counts_ib[k["name"]] + counts_topic[k["name"]]
-        # phase 20: BakLLaVA's 16 questions and the three zoo snapshots' 16 each
+        # phase 20: BakLLaVA's 8 questions and the three zoo snapshots' 8 each
         k["vl_zoo_path_launches"] = counts_bak[k["name"]] + counts_zoo_path.get(k["name"], 0)
-        # phase 21: BLIP-2 OPT-2.7b's 16 questions and the cut snapshot's 16
+        # phase 21: BLIP-2 OPT-2.7b's 8 questions and the cut snapshot's 8
         k["vl_zoo_opt_launches"] = counts_opt[k["name"]] + counts_opt_snap[k["name"]]
         # phase 22: each rank's launches (22a-c, other processes) and 22d's
         k["two_rank_launches"] = {
@@ -8577,7 +8811,13 @@ def main(argv):
             "xdecoder_train": [c[k["name"]] for c in par_xtrain["launches"]],
             "step2_pre": [c[k["name"]] for c in par_step2],
             "nccl_one_rank_step": par_nccl[k["name"]]}
+        # phase 23: each rank's launches under MESH_FSDP 2 / MESH_TENSOR 2
+        k["sharded_launches"] = {
+            "qlora_fsdp": [c[k["name"]] for c in shard_train["fsdp"]["launches"]],
+            "qlora_tensor": [c[k["name"]] for c in shard_train["tensor"]["launches"]],
+            "xdecoder_train_fsdp": [c[k["name"]] for c in shard_xtrain["launches"]]}
     log(f"two ranks: Q-LoRA {par_train}; X-Decoder {par_xtrain}")
+    log(f"two ranks, sharded: Q-LoRA {shard_train}; X-Decoder {shard_xtrain}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,11 @@ shards with the port's own reader, keeps the snapshot's dtype unless told
 otherwise (JAX converts to f32 on the host, ~28 GB for 7B; its numpy reader
 cannot read bf16 at all) and builds the stacks on ``device``.
 
+``linears`` (``from_hf_state_dict``, ``load_llava_safetensors``) builds
+each stacked LLM linear from its layers itself, as ``entry._build_llava``
+does: one layer at a time, quantized, of which a rank on a sharded grid
+keeps its shard.
+
 A text-only ``LlamaForCausalLM`` snapshot (the topic classifier's LLaMA-2):
 ``llama_config_from_json`` and ``load_llama_causal_lm_safetensors``.
 """
@@ -110,20 +115,29 @@ def _getter(sd: Mapping, dtype, device):
     return get, stack
 
 
-def _lm_tree(get, stack, prefix: str, n: int) -> dict:
+def _lm_tree(get, stack, prefix: str, n: int, linears=None) -> dict:
+    def layers(key, suffix, tr):
+        fmt = f"{prefix}layers.{{}}.{suffix}"
+        if linears is None or not tr:
+            return stack(fmt, n, tr)
+        return linears(key, lambda i: get(fmt.format(i)).T, n)
+
     return {"embed_tokens": get(f"{prefix}embed_tokens.weight"),
-            "layers": {key: stack(f"{prefix}layers.{{}}.{suffix}", n, tr)
-                       for key, (suffix, tr) in _LM_LAYER.items()},
+            "layers": {key: layers(key, suffix, tr) for key, (suffix, tr) in _LM_LAYER.items()},
             "norm": get(f"{prefix}norm.weight")}
 
 
-def from_hf_state_dict(state: Mapping, cfg: LlavaConfig, dtype=None, device="cpu") -> dict:
+def from_hf_state_dict(state: Mapping, cfg: LlavaConfig, dtype=None, device="cpu",
+                       linears=None) -> dict:
     """The LLaVA params tree from a flat HF state dict (tensors or numpy
-    arrays), on ``device`` in ``dtype`` (None: each tensor's own dtype)."""
+    arrays), on ``device`` in ``dtype`` (None: each tensor's own dtype).
+    ``linears(key, layer, n)``: the stacked leaf of the LLM linear ``key``
+    from ``layer(i)``, its [d_in, d_out] weight in layer i (default: the
+    layers stacked)."""
     sd = {_normalize_key(k): v for k, v in state.items()}
     get, stack = _getter(sd, dtype, device)
     Lt, Lv = cfg.text.num_hidden_layers, cfg.vision.num_hidden_layers
-    lm = _lm_tree(get, stack, "lm.", Lt)
+    lm = _lm_tree(get, stack, "lm.", Lt, linears)
     if "lm_head.weight" in sd:
         lm["lm_head"] = get("lm_head.weight").T.contiguous()
     # HF CLIP has a historical typo: "pre_layrnorm"
@@ -155,10 +169,11 @@ def read_safetensors_dir(model_dir: str) -> dict:
     return state
 
 
-def load_llava_safetensors(model_dir: str, cfg: LlavaConfig, dtype=None, device="cpu") -> dict:
+def load_llava_safetensors(model_dir: str, cfg: LlavaConfig, dtype=None, device="cpu",
+                           linears=None) -> dict:
     """Every ``*.safetensors`` shard under ``model_dir``, read with the port's
     reader, imported by ``from_hf_state_dict`` onto ``device``."""
-    return from_hf_state_dict(read_safetensors_dir(model_dir), cfg, dtype, device)
+    return from_hf_state_dict(read_safetensors_dir(model_dir), cfg, dtype, device, linears)
 
 
 def to_hf_state_dict(params: dict, cfg: LlavaConfig) -> dict:

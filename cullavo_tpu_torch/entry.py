@@ -43,11 +43,14 @@ device; ``main`` too (its ``device`` is a keyword for tests, not a flag).
 Several processes (``scripts/node_run.sh``'s contract: ``CULLAVO_NUM_PROCS``,
 ``CULLAVO_PROC_ID``, ``CULLAVO_COORDINATOR`` host:port; ``parallel/mesh.py``):
 ``main`` joins the process group before it parses the config.  ``train``
-(Q-LoRA) and ``train_xdecoder`` then run the data axis of
-``MESH_DATA`` (-1, the default, is every rank): each rank reads the same
-global batches and takes its rows, and only rank 0 logs and writes;
-step2_pre splits its rows over the ranks and rank 0 writes the merged
-JSON; the eval paths run whole on every rank, as JAX's do.
+(Q-LoRA) and ``train_xdecoder`` then run the grid of ``MESH_DATA`` (-1,
+the default, absorbs the ranks), ``MESH_FSDP`` and ``MESH_TENSOR``: each
+rank reads the same global batches and takes its part's rows, with an
+fsdp or tensor axis it keeps only its shards of the state (and of the
+NF4 base, quantized layer by layer at the load), the checkpoints are
+gathered whole, and only rank 0 logs and writes; step2_pre splits its rows
+over the ranks and rank 0 writes the merged JSON; the eval paths run whole
+on every rank, as JAX's do.
 """
 from __future__ import annotations
 
@@ -86,13 +89,15 @@ from cullavo_tpu_torch.data.tokenizer import ByteTokenizer, HFTokenizer
 from cullavo_tpu_torch.models.blip2 import tiny_blip2_config
 from cullavo_tpu_torch.models.kosmos2 import tiny_kosmos2_config
 from cullavo_tpu_torch.models.llava.config import smoke_llava_config
-from cullavo_tpu_torch.models.llava.lora import maybe_quantize_base, stack_adapter_sets
+from cullavo_tpu_torch.models.llava.lora import (maybe_quantize_base, quantize_stacked,
+                                                 stack_adapter_sets)
 from cullavo_tpu_torch.models.from_config import xdecoder_model_config_from
 from cullavo_tpu_torch.models.llava.modeling import (GenerationConfig, expand_image_token,
                                                      init_llava_params)
 from cullavo_tpu_torch.models.xdecoder.model import init_xdecoder_model_params
 from cullavo_tpu_torch.models.xdecoder.text_encoder import class_embeddings_ensembled
-from cullavo_tpu_torch.parallel.mesh import initialize_distributed, parallel_context
+from cullavo_tpu_torch.parallel.mesh import (Layout, ParallelContext, initialize_distributed,
+                                             parallel_context)
 from cullavo_tpu_torch.pipelines import cullavo_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines import vlp_pipeline  # noqa: F401 (registration)
 from cullavo_tpu_torch.pipelines import vqa_pipeline  # noqa: F401 (registration)
@@ -126,17 +131,25 @@ def _device(device):
     return torch.device(device)
 
 
-def _build_llava(cfg: dict, device):
+def _build_llava(cfg: dict, device, parallel=None):
     """(model config, params on ``device``, tokenizer) from ``MODEL.LLM``:
     a local HF snapshot (``LOAD_PATH``), or the tiny random smoke model; then
-    the base quantization of ``BITS`` (4 = NF4, 8 = int8)."""
+    the base quantization of ``BITS`` (4 = NF4, 8 = int8).  From a snapshot
+    each LLM linear is quantized one layer at a time, so the whole dense
+    base never exists; on a grid with fsdp or tensor axes (``parallel``)
+    this rank keeps only its slices of those stacked leaves (``Shard``s), so
+    the load never holds the whole base, dense or quantized (the rest loads
+    whole and ``CuLLaVOPipeline`` shards it)."""
     llm_cfg = (cfg.get("MODEL") or {}).get("LLM") or {}
     model_path = llm_cfg.get("LOAD_PATH")
     if model_path:
         model_cfg = llava_config_from_json(model_path)
         # before the weights: a snapshot without a tokenizer fails at once
         tokenizer = HFTokenizer(model_path)
-        params = load_llava_safetensors(model_path, model_cfg, device=device)
+        bits = int(llm_cfg.get("BITS") or 0)
+        params = load_llava_safetensors(
+            model_path, model_cfg, device=device,
+            linears=lambda key, layer, n: quantize_stacked(layer, n, bits, parallel))
     else:
         print("[entry] no MODEL.LLM.LOAD_PATH: using tiny random model (smoke mode)",
               file=sys.stderr)
@@ -346,10 +359,12 @@ def train(cfg: dict, device=None) -> dict:
     its metrics, ``loss_llm`` and ``grad_norm``.  A conversations dataset in
     ``DATASETS.TRAIN`` raises a ``ValueError`` before the model is built.
     A ``NAME`` with "xdecoder" goes to ``train_xdecoder``.  Under several
-    processes the ``MESH_*`` axes resolve over them (``MESH_DATA: -1`` is
-    every rank), each rank's step takes its rows of the global batch, and
-    each rank prints its steps' ``loss_llm`` and ``grad_norm`` as one JSON
-    line at the end."""
+    processes the ``MESH_*`` axes resolve over them (``MESH_DATA: -1``
+    absorbs the ranks), each rank's step takes its part's rows of the global
+    batch, an fsdp or tensor axis shards the base (``_build_llava``)
+    and the train state, ``RESUME_FROM`` is read whole and sharded, the
+    saves gather the state whole (rank 0 writes), and each rank prints its
+    steps' ``loss_llm`` and ``grad_norm`` as one JSON line at the end."""
     register_datasets_from_cfg(cfg)
     if "xdecoder" in cfg.get("NAME", ""):
         return train_xdecoder(cfg, device=device)
@@ -362,18 +377,21 @@ def train(cfg: dict, device=None) -> dict:
                          "conversations is no path of the JAX entry either; there its rows "
                          "fail in PanopticMapper)")
     device = _device(device)
-    model_cfg, params, tokenizer = _build_llava(cfg, device)
+    model_cfg, params, tokenizer = _build_llava(cfg, device, parallel=parallel)
     # the prompts carry the tokenizer's <image> id; the model merges image
     # features at its config's id: make them one
     model_cfg = dataclasses.replace(model_cfg, image_token_id=tokenizer.image_token_id)
     pipe = build_pipeline(cfg.get("PIPELINE", "CuLLaVOPipeline"), cfg, model_cfg=model_cfg,
                           tokenizer=tokenizer, params=params, parallel=parallel)
+    del params      # the pipeline holds what it keeps (on a grid: this rank's shards)
     state = pipe.initialize_model()
+    layout = pipe.layout
     if cfg.get("RESUME_FROM"):
-        state = TrainState(load_reference_layout(cfg["RESUME_FROM"], state.trainable),
-                           state.opt_state, state.step)
-        pipe.state = state
+        state = _resume(state, cfg["RESUME_FROM"], layout)
         print(f"[entry] resumed trainable state from {cfg['RESUME_FROM']}", file=sys.stderr)
+    if device.type == "cuda" and parallel is not None:
+        load_peak = torch.cuda.max_memory_allocated(device) / 2**30
+        torch.cuda.reset_peak_memory_stats(device)
 
     if not dataset_name:
         print("[entry] no DATASETS.TRAIN configured: smoke step only", file=sys.stderr)
@@ -398,6 +416,9 @@ def train(cfg: dict, device=None) -> dict:
                 buf = []
 
     def save_fn(save_dir, global_step, st, epoch):
+        if layout is not None:    # every rank gathers, rank 0 writes
+            st = TrainState(layout.unshard(st.trainable, "cpu"),
+                            layout.unshard_opt(st.opt_state, "cpu"), st.step)
         save_checkpoint(save_dir, global_step, st)
         ep = save_reference_layout(save_dir, epoch, st.trainable, pipe.lora_cfg)
         print(f"[entry] reference-layout checkpoint at {ep}", file=sys.stderr)
@@ -406,24 +427,51 @@ def train(cfg: dict, device=None) -> dict:
                           checkpoint_period=int(cfg.get("PERIOD", 0) or 0),
                           log_every=int(cfg.get("LOG_EVERY", 10)),
                           save_dir=cfg.get("SAVE_DIR"))
-    state, history = train_loop(state, pipe.frozen, pipe.step_fn, data_iter,
+    # no reference here to the first state: the loop's first step frees it
+    first = [state]
+    del state
+    state, history = train_loop(first.pop(), pipe.frozen, pipe.step_fn, data_iter,
                                 steps_per_epoch=len(records) // batch_size, cfg=loop_cfg,
                                 rng=torch.Generator().manual_seed(0),
                                 log_fn=lambda d: print(d, file=sys.stderr), save_fn=save_fn)
     if parallel is not None:
-        _print_rank_line(parallel, device, history, ("loss_llm", "grad_norm"))
+        extra = {"load_peak_gib": load_peak} if device.type == "cuda" else {}
+        _print_rank_line(parallel, device, history, ("loss_llm", "grad_norm"),
+                         base_bytes=_base_bytes(pipe.frozen), **extra)
     return {"state": state, "history": history}
+
+
+def _resume(state: TrainState, path: str, layout) -> TrainState:
+    """``state`` with the trainable partition read from the reference layout
+    at ``path`` (whole leaves; on a grid, this rank's shards kept)."""
+    whole = state.trainable if layout is None else layout.unshard(state.trainable)
+    trainable = load_reference_layout(path, whole)
+    return TrainState(trainable if layout is None else layout.shard(trainable),
+                      state.opt_state, state.step)
+
+
+def _base_bytes(frozen: dict) -> int:
+    """The bytes of the LLM linears this rank holds (its shards on a grid)."""
+    layers = frozen["language_model"]["layers"]
+    leaves = [x for t in ("q", "k", "v", "o", "gate", "up", "down")
+              for x in (layers[t].values() if isinstance(layers[t], dict) else [layers[t]])]
+    return sum(getattr(x, "local", x).numel() * getattr(x, "local", x).element_size()
+               for x in leaves)
 
 
 def _print_rank_line(parallel, device, history, keys, **extra):
     """One JSON line a rank: its steps' metrics (equal on every rank), the
-    ms of each step's gradient all-reduce and, on the card, its peak
-    memory."""
+    ms of each step's gradient reductions and of its gathers (with their
+    backward reduce-scatters) and, on the card, the memory it holds after
+    the run (its state and base) and its peak (the steps' where the entry
+    reset it after the load)."""
     line = {"rank": parallel.process_index, "world": parallel.process_count,
+            "grid": [parallel.axis_size("data"), parallel.fsdp, parallel.tensor],
             **{k: [h[k] for h in history] for k in keys}, **extra,
-            "allreduce_ms": parallel.timed_ms()}
+            "allreduce_ms": parallel.timed_ms(), "gather_ms": parallel.timed_ms("gather")}
     if device.type == "cuda":
         line["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
+        line["resident_gib"] = torch.cuda.memory_allocated(device) / 2**30
     print(json.dumps(line), flush=True)
 
 
@@ -457,26 +505,33 @@ def train_xdecoder(cfg: dict, device=None):
     parameters through the npz store at the last step.  Without
     ``DATASETS.TRAIN``, returns None after building the model, as JAX
     does; else ``{"state", "history"}`` (every step's metrics as floats).
-    Several processes: the data axis of ``MESH_DATA`` (-1 or unset: every
-    rank); each rank's step takes its rows of the global batch
-    (``make_xdecoder_joint_train_step(parallel=...)``), only rank 0 logs the
-    steps and writes; a ``MESH_DATA`` other than the process count, or
-    ``MESH_FSDP`` / ``MESH_TENSOR`` above 1, raises (as in one process).
-    Each rank prints its steps' ``loss_total``, ``grad_norm`` and seconds as
-    one JSON line at the end."""
+    Several processes: the grid of ``MESH_DATA`` / ``MESH_FSDP`` /
+    ``MESH_TENSOR`` (resolved as JAX's mesh; one process with an axis above
+    1 raises its ``ValueError``); each rank's step takes its part's rows of
+    the global batch (``make_xdecoder_joint_train_step(layout=...)``),
+    with an fsdp or tensor axis it keeps only its shards of the parameters
+    and the moments (``parallel.Layout``) and the save gathers them whole;
+    only rank 0 logs the steps and writes.  Each rank prints its steps'
+    ``loss_total``, ``grad_norm`` and seconds as one JSON line at the end."""
     parallel = parallel_context(cfg)
     device = _device(device)
     model_cfg = xdecoder_model_config_from(cfg)
     params = _load_xdecoder_params(cfg, model_cfg, device)
     tokenize = _make_text_tokenize(cfg, model_cfg.text)
     sol = cfg.get("SOLVER") or {}
+    layout = None
+    if parallel is not None:
+        layout = Layout(parallel, params)
+        params = layout.shard(params)
     tx = xdecoder_optimizer(base_lr=float(sol.get("BASE_LR", 1e-4)),
                             total_steps=int(sol.get("MAX_ITER", 1000)),
-                            grad_clip=float(sol.get("CLIP_VALUE", 0.01)))
+                            grad_clip=float(sol.get("CLIP_VALUE", 0.01)),
+                            **({} if layout is None else {"norm_fn": layout.global_norm}))
     state = TrainState(params, tx.init(params), 0)
+    del params
     step_fn = make_xdecoder_joint_train_step(
         model_cfg, tx, remat=bool(cfg.get("REMAT", True)),
-        compute_dtype=None if cfg.get("FP32_TRAIN") else torch.bfloat16, parallel=parallel)
+        compute_dtype=None if cfg.get("FP32_TRAIN") else torch.bfloat16, layout=layout)
     main = parallel is None or parallel.is_main
     names = (cfg.get("DATASETS") or {}).get("TRAIN")
     if isinstance(names, str):
@@ -523,7 +578,8 @@ def train_xdecoder(cfg: dict, device=None):
                 print({"step": len(history), "loss_total": metrics["loss_total"],
                        "grad_norm": metrics["grad_norm"]}, file=sys.stderr)
     if cfg.get("SAVE_DIR"):
-        save_checkpoint(cfg["SAVE_DIR"], len(history), {"params": state.trainable})
+        params = state.trainable if layout is None else layout.unshard(state.trainable, "cpu")
+        save_checkpoint(cfg["SAVE_DIR"], len(history), {"params": params})
     if parallel is not None:
         _print_rank_line(parallel, device, history, ("loss_total", "grad_norm"), step_s=step_s)
     if device.type == "cuda":
@@ -986,7 +1042,10 @@ def _eval_step2_pre(cfg: dict, device) -> dict:
         return {"rows": 0}
     parallel, offset = parallel_context(cfg), 0
     if parallel is not None:
-        # np.array_split: every rank gets a share, so each reaches the gather
+        # an eval: each rank runs the whole model on its share of the rows,
+        # whatever the grid's axes (np.array_split: every rank gets a share,
+        # so each reaches the gather)
+        parallel = ParallelContext()
         sl = parallel.rows(len(keep))
         keep, offset = keep[sl], sl.start
     ids = np.tile(ids_row[None], (len(keep), 1))

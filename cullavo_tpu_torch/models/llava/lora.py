@@ -301,6 +301,37 @@ def quantize_llm_weights(params: dict, bits: int = 4,
     return {**params, "language_model": lm}
 
 
+def quantize_stacked(layer, n: int, bits: int, parallel=None):
+    """The stacked base leaf of one LLM linear from its layers (``layer(i)``:
+    the dense [d_in, d_out] weight of layer i), quantized one layer at a
+    time as ``quantize_llm_weights`` quantizes the stack (``bits`` 4 or 8;
+    else kept dense).  ``parallel`` (a ``ParallelContext`` on a sharded
+    grid): each stacked leaf keeps only this rank's slice, as JAX's rule
+    shards the whole ``[n, ...]`` leaf, and comes back as a ``Shard``; the
+    whole stack, dense or quantized, never exists."""
+    from cullavo_tpu_torch.parallel.mesh import Shard, shard_spec
+
+    def one(i):
+        w = layer(i)
+        return _quantize_target(w, bits) if bits in (4, 8) else {"w": w}
+
+    out, specs = {}, {}
+    for i in range(n):
+        for k, x in one(i).items():
+            if i == 0:
+                whole = (n,) + tuple(x.shape)
+                specs[k] = None if parallel is None else shard_spec(
+                    whole, (parallel.fsdp, parallel.tensor))
+                shape = list(whole)
+                if specs[k] is not None:
+                    shape[specs[k][0]] //= parallel.axis_size(specs[k][1])
+                out[k] = torch.empty(shape, dtype=x.dtype, device=x.device)
+            spec = specs[k]
+            out[k][i] = x if spec is None else parallel.own(x, spec[0] - 1, spec[1])
+    out = {k: v if specs[k] is None else Shard(v, specs[k], parallel) for k, v in out.items()}
+    return out["w"] if "w" in out else out
+
+
 def maybe_quantize_base(params: dict, bits: int) -> dict:
     """Config-driven base quantization (``MODEL.LLM.BITS``: 4 = NF4, 8 =
     int8).  No-op when ``bits`` is neither, or when the LLM linears are

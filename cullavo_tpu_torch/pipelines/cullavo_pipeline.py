@@ -26,6 +26,7 @@ from cullavo_tpu_torch.models.llava.modeling import GenerationConfig, generate
 from cullavo_tpu_torch.models.llava.lora import (LoraConfig, init_lora_params,
                                                  maybe_quantize_base, strip_trainable,
                                                  trainable_partition)
+from cullavo_tpu_torch.parallel.mesh import Layout
 from cullavo_tpu_torch.pipelines.base import register_pipeline
 from cullavo_tpu_torch.trainer.optimizer import cullavo_optimizer
 from cullavo_tpu_torch.trainer.step import TrainState, make_train_step
@@ -45,6 +46,8 @@ class CuLLaVOPipeline:
         self.parallel = parallel
         self.workload = cfg.get("WORKLOAD", "step1")
         self._rng = np.random.default_rng(cfg.get("SEED", 0))
+        self.device = params["language_model"]["embed_tokens"].device
+        self.layout = None      # the trainable tree's, on a grid of processes
 
     # -- model ------------------------------------------------------------
     def initialize_model(self):
@@ -68,24 +71,32 @@ class CuLLaVOPipeline:
             # configurable so that tiny towers can carry adapters too
             vision_layer_start=int(_opt_get("LORA_VISION_START", 12)),
             vision_layer_stop=int(_opt_get("LORA_VISION_STOP", 23)))
-        device = self.params["language_model"]["embed_tokens"].device
         lora = init_lora_params(self.params, self.model_cfg, lora_cfg,
-                                torch.Generator(device=device).manual_seed(1))
+                                torch.Generator(device=self.device).manual_seed(1))
         # f32 masters whatever the snapshot's dtype (JAX reads snapshots in f32)
         trainable = tree_map(lambda t: t.float(), trainable_partition(self.params, lora))
         frozen = strip_trainable(self.params)
+        norm_fn = {}
+        if self.parallel is not None:
+            # this rank's shards only, as JAX's _fsdp_spec places them
+            self.layout = Layout(self.parallel, trainable)
+            trainable = self.layout.shard(trainable)
+            frozen = self.parallel.shard_tree(frozen)
+            self.params = frozen
+            norm_fn = {"norm_fn": self.layout.global_norm}
         tx = cullavo_optimizer(float(self.cfg.get("LR", 2e-5)),
                                int(self.cfg.get("TOTAL_STEPS", 1000)),
                                eta_min=float(self.cfg.get("LAST_LR", 0.0)),
                                grad_clip=float(self.cfg.get("GRAD_MAX", 10.0)),
-                               grad_accum=int(self.cfg.get("GRAD_CUM", 1)))
+                               grad_accum=int(self.cfg.get("GRAD_CUM", 1)), **norm_fn)
         state = TrainState(trainable, tx.init(trainable), 0)
         # the production memory configuration: per-layer remat, bf16 compute
         # over f32 masters, chunked CE so [B, T, V] logits never exist
         self.step_fn = make_train_step(self.model_cfg, lora_cfg, tx, remat=True,
                                        compute_dtype=torch.bfloat16, loss_chunk=256,
-                                       parallel=self.parallel)
-        self.state, self.frozen, self.lora_cfg = state, frozen, lora_cfg
+                                       layout=self.layout)
+        # the state is the caller's: a copy kept here would outlive the steps
+        self.frozen, self.lora_cfg = frozen, lora_cfg
         return state
 
     # -- data -------------------------------------------------------------
@@ -95,8 +106,7 @@ class CuLLaVOPipeline:
         samples = [synthesize_step1(r, self.tokenizer, self._rng) for r in records]
         batch = collate_step1(samples, self.tokenizer, self.model_cfg.num_image_tokens,
                               pad_to=pad_to, image_size=self.model_cfg.vision.image_size)
-        device = self.params["language_model"]["embed_tokens"].device
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                 for k, v in batch.items()}
 
     # -- train ------------------------------------------------------------

@@ -17,6 +17,12 @@ State without accumulation: ``{"count", "mu", "nu"}`` (optax's
 (optax's ``MultiStepsState``).  The update functions return new tensors
 and leave their inputs as they were.
 
+On a grid the gradients, parameters and moments are this rank's shards:
+Adam is elementwise and runs on them as they are, ``count`` is
+replicated, and the clip takes the global norm of the sharded tree
+(``norm_fn``: ``parallel.Layout.global_norm``), so that every rank clips by
+one factor.
+
 X-Decoder: the ``warmup_cosine`` / ``warmup_multistep`` schedules (computed
 in f32, as JAX computes them) and ``xdecoder_optimizer``: one global-norm
 clip, then AdamW per parameter group, each leaf's group named by
@@ -63,9 +69,10 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: (p + u).to(p.dtype), params, updates)
 
 
-def _clip(grads, grad_clip: float):
-    """Clip by global norm: unchanged while norm < grad_clip."""
-    norm = global_norm(grads)
+def _clip(grads, grad_clip: float, norm_fn=global_norm):
+    """Clip by global norm (``norm_fn``'s: a sharded tree's is
+    ``parallel.Layout.global_norm``): unchanged while norm < grad_clip."""
+    norm = norm_fn(grads)
     # one host read: the step already reads the loss and the norm
     if not float(norm) < grad_clip:
         grads = tree_map(lambda g: (g / norm.to(g.dtype)) * grad_clip, grads)
@@ -94,10 +101,11 @@ def _adam_init(params):
             "nu": tree_map(torch.zeros_like, params)}
 
 
-def _adamw(schedule, weight_decay: float, grad_clip: float) -> GradientTransformation:
+def _adamw(schedule, weight_decay: float, grad_clip: float,
+           norm_fn=global_norm) -> GradientTransformation:
     def update(grads, state, params):
         lr = schedule(state["count"])
-        return _adam_update(_clip(grads, grad_clip), state, params,
+        return _adam_update(_clip(grads, grad_clip, norm_fn), state, params,
                             tree_map(lambda _: lr, params),
                             tree_map(lambda _: weight_decay, params))
 
@@ -124,9 +132,11 @@ def _multi_steps(inner: GradientTransformation, k: int) -> GradientTransformatio
 
 def cullavo_optimizer(base_lr: float, total_steps: int, eta_min: float = 0.0,
                       weight_decay: float = 0.0, grad_clip: float = 10.0,
-                      grad_accum: int = 1) -> GradientTransformation:
-    """AdamW + cosine annealing + total-norm clip (+ accumulation)."""
-    tx = _adamw(cosine_annealing(base_lr, total_steps, eta_min), weight_decay, grad_clip)
+                      grad_accum: int = 1, norm_fn=global_norm) -> GradientTransformation:
+    """AdamW + cosine annealing + total-norm clip (+ accumulation).
+    ``norm_fn``: the clip's global norm (a sharded tree's on a grid)."""
+    tx = _adamw(cosine_annealing(base_lr, total_steps, eta_min), weight_decay, grad_clip,
+                norm_fn)
     return _multi_steps(tx, grad_accum) if grad_accum > 1 else tx
 
 
@@ -202,10 +212,11 @@ def xdecoder_optimizer(base_lr: float, total_steps: int, weight_decay: float = 0
                        backbone_lr_multiplier: float = 0.1, lang_lr_multiplier: float = 0.1,
                        grad_clip: float = 0.01, warmup_steps: int = 10,
                        schedule: str = "cosine", milestones=(), gamma: float = 0.1,
-                       path_class=None) -> GradientTransformation:
+                       path_class=None, norm_fn=global_norm) -> GradientTransformation:
     """Clip by global norm, then AdamW per group: learning rate
     ``schedule(count) * multiplier`` and weight decay by group.
-    ``path_class(path string) -> group`` replaces the default labels."""
+    ``path_class(path string) -> group`` replaces the default labels;
+    ``norm_fn``: the clip's global norm (a sharded tree's on a grid)."""
     sched = (warmup_cosine(base_lr, total_steps, warmup_steps) if schedule == "cosine"
              else warmup_multistep(base_lr, milestones, gamma, warmup_steps))
     groups = {"backbone": (backbone_lr_multiplier, weight_decay),
@@ -217,6 +228,6 @@ def xdecoder_optimizer(base_lr: float, total_steps: int, weight_decay: float = 0
         base = np.float32(sched(state["count"]))
         lr = tree_map(lambda g: float(base * np.float32(groups[g][0])), labels)
         wd = tree_map(lambda g: groups[g][1], labels)
-        return _adam_update(_clip(grads, grad_clip), state, params, lr, wd)
+        return _adam_update(_clip(grads, grad_clip, norm_fn), state, params, lr, wd)
 
     return GradientTransformation(_adam_init, update)

@@ -3,15 +3,26 @@
 clip, AdamW step.
 
 Per-sample ``weights`` make an empty-sample batch a no-op.  With a
-``ParallelContext`` (several processes, the data axis) every rank is handed
-the same global batch and takes its rows: its loss is its weighted NLL sum
-over the global weight sum (an all-reduce before the backward, which does
-not depend on the parameters), its LoRA dropout masks are its rows of the
-global batch's, and the gradient tree is summed over the ranks in flat
-buffers, so that the ranks take the one-process step on the global batch
-(JAX's ``shard_train_step`` is that step under SPMD).  A DDP wrapper would
-average per-rank means, which is another loss when the ranks' token counts
-differ.
+``parallel.Layout`` of the trainable tree (several processes: its
+``ParallelContext`` is the grid) every rank is handed the same global batch
+and takes its rows (its part of the batch group's): its loss is its
+weighted NLL sum over the global weight sum (summed over the batch group
+before the backward, which does not depend on the parameters), its LoRA
+dropout masks are its rows of the global batch's, and the gradient tree is
+summed over the ranks that hold other rows (``Layout.reduce``), so that the
+ranks take the one-process step on the global batch (JAX's
+``shard_train_step`` is that step under SPMD).  A DDP wrapper would average
+per-rank means, which is another loss when the ranks' token counts differ.
+
+With fsdp or tensor axes the state and the frozen base (a tree of
+``parallel.Shard``s) hold this rank's shards: the step gathers the
+non-layer leaves whole (the vision tower, the projector, ``embed_tokens``,
+``lm_head``, the final norm) and hands ``llama_forward`` its stacked layer
+leaves and LLM adapters as ``Shard``s, gathered a layer at a time inside
+the checkpointed layer function; the gradients come back as shards (the
+gathers' backward), are reduced by the layout, and AdamW steps on the
+shards.  On the data axis alone every spec is None: the gathers are the
+identity and the reduction is the flat sum over the batch group.
 """
 from __future__ import annotations
 
@@ -24,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from cullavo_tpu_torch.models.llava.config import LlavaConfig
 from cullavo_tpu_torch.models.llava.lora import LoraConfig, apply_trainable
 from cullavo_tpu_torch.models.llava.modeling import _cast_params, llava_forward
-from cullavo_tpu_torch.parallel.mesh import ParallelContext, all_reduce_tree
+from cullavo_tpu_torch.parallel.mesh import Layout, ParallelContext, gather_tree
 from cullavo_tpu_torch.trainer.optimizer import (GradientTransformation, apply_updates,
                                                  global_norm)
 from cullavo_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -56,9 +67,10 @@ def _weighted_nll(logits, safe, valid, w):
 
 def loss_weight_sum(labels, attention_mask, weights, parallel=None, ignore_index: int = -100):
     """The loss's denominator: the sum of the per-token weights of the valid
-    shifted targets (with ``parallel``, of every rank's rows)."""
+    shifted targets (with ``parallel``, of every part's rows: the batch
+    group's sum)."""
     w = _shifted_targets(labels, attention_mask, weights, ignore_index)[2].sum()
-    return w if parallel is None else parallel.all_reduce(w)
+    return w if parallel is None else parallel.sum_rows(w)
 
 
 def weighted_causal_lm_loss(logits, labels, attention_mask, weights,
@@ -90,10 +102,20 @@ def chunked_weighted_causal_lm_loss(hidden, lm_head, labels, attention_mask, wei
     return sums[0] / (sums[1] if denom is None else denom).clamp_min(1.0)
 
 
+def share_metrics(parallel: ParallelContext, x: torch.Tensor) -> torch.Tensor:
+    """This part's share of a metric -> the global value, equal on every rank:
+    summed over the batch group, then taken from the tensor group's first
+    rank (its ranks computed the same rows)."""
+    x = parallel.sum_rows(x.detach().clone())
+    if parallel.tensor > 1:
+        root = parallel.process_index - parallel.axis_index("tensor")
+        torch.distributed.broadcast(x, root, group=parallel.group("tensor"))
+    return x
+
+
 def make_train_step(cfg: LlavaConfig, lora_cfg: Optional[LoraConfig],
                     tx: GradientTransformation, remat: bool = True, compute_dtype=None,
-                    loss_chunk: Optional[int] = None,
-                    parallel: Optional[ParallelContext] = None):
+                    loss_chunk: Optional[int] = None, layout: Optional[Layout] = None):
     """Returns ``step_fn(state, frozen_params, batch, rng) -> (state, metrics)``.
 
     ``frozen_params`` is the base tree (NF4 / bf16, not updated);
@@ -106,9 +128,13 @@ def make_train_step(cfg: LlavaConfig, lora_cfg: Optional[LoraConfig],
     optionally ``pixel_values``.  The returned state is made of new tensors;
     ``metrics`` are ``loss_llm`` and the UNCLIPPED ``grad_norm``, as f32
     scalar tensors.  A vision adapter's ``mask`` is a constant: its
-    gradient is zero and it never moves.  ``parallel``: this rank's rows of
-    the global ``batch`` (module docstring); the metrics are the global
-    step's, equal on every rank."""
+    gradient is zero and it never moves.  ``layout``: the trainable tree's
+    ``Layout`` on a grid of processes: this rank's rows of the global
+    ``batch`` (module docstring), ``state`` its shards (and
+    ``frozen_params`` ``Shard`` leaves); ``tx`` clips by its
+    ``global_norm``, and the metrics are the global step's, equal on every
+    rank."""
+    parallel = None if layout is None else layout.par
     scaling = lora_cfg.scaling if lora_cfg else 0.0
     dropout = lora_cfg.dropout if lora_cfg else 0.0
 
@@ -118,6 +144,9 @@ def make_train_step(cfg: LlavaConfig, lora_cfg: Optional[LoraConfig],
         return _cast_params(tree, compute_dtype)
 
     def loss_fn(trainable, frozen_params, batch, rng, denom, rows):
+        if layout is not None:
+            trainable = layout.gather(trainable, stacked=(("lora", "language_model"),))
+            frozen_params = gather_tree(frozen_params, stacked=(("language_model", "layers"),))
         full, lora = apply_trainable(frozen_params, trainable)
         full, lora = _cast(full), _cast(lora)
         out, _ = llava_forward(full, cfg, batch["input_ids"], batch.get("pixel_values"),
@@ -147,9 +176,12 @@ def make_train_step(cfg: LlavaConfig, lora_cfg: Optional[LoraConfig],
                          else got[id(t)], leaves)
         return loss.detach(), grads
 
+    norm = global_norm if layout is None else layout.global_norm
+
     def step_fn(state: TrainState, frozen_params, batch, rng):
         rows = None
         if parallel is not None:
+            parallel.begin_step()
             B = batch["input_ids"].shape[0]
             sl = parallel.rows(B)
             batch, rows = {k: v[sl] for k, v in batch.items()}, (sl.start, B)
@@ -157,14 +189,14 @@ def make_train_step(cfg: LlavaConfig, lora_cfg: Optional[LoraConfig],
                                 parallel)
         loss, grads = value_and_grad(state.trainable, frozen_params, batch, rng, denom, rows)
         if parallel is not None:
-            loss = parallel.all_reduce(loss.clone())
-            with parallel.timed(loss.is_cuda):
-                summed = iter(all_reduce_tree(tree_leaves(grads)))
-            grads = tree_map(lambda _: next(summed), grads)
+            loss = share_metrics(parallel, loss)
+            grads = layout.reduce(grads)
         with torch.no_grad():
             updates, new_opt = tx.update(grads, state.opt_state, state.trainable)
             new_trainable = apply_updates(state.trainable, updates)
-            gnorm = global_norm(grads)
+            gnorm = norm(grads)
+        if parallel is not None:
+            parallel.end_step()
         return (TrainState(new_trainable, new_opt, state.step + 1),
                 {"loss_llm": loss, "grad_norm": gnorm})
 

@@ -8,12 +8,16 @@ gradients arrive in f32).  ``remat`` checkpoints each backbone block,
 text layer and decoder layer.  The metrics are ``loss_total``, the
 unclipped ``grad_norm`` and every loss, as f32 scalar tensors.
 
-The joint step with a ``ParallelContext`` (several processes, the data
-axis; JAX's ``shard_xdecoder_step``): every rank is handed the global
+The joint step with the parameter tree's ``parallel.Layout`` (several
+processes; JAX's ``shard_xdecoder_step``): every rank is handed the global
 batch, ``forward_joint_train`` runs this rank's images and returns this
 rank's share of each loss of the global batch; the losses and the gradient
-tree are summed over the ranks (flat buffers), so every rank takes the
-one-process step.
+tree are summed over the ranks that hold other rows (flat buffers), so
+every rank takes the one-process step.  With fsdp or tensor axes the
+parameters and the moments are this rank's shards: the step gathers the
+tree whole at its start (with a gradient; freed after the backward), the
+gradients come back as shards and are reduced by the layout, and AdamW
+steps on the shards.  K10 runs on the gathered weights as in one process.
 """
 from __future__ import annotations
 
@@ -21,10 +25,9 @@ import torch
 
 from cullavo_tpu_torch.models.xdecoder.model import (XDecoderModelConfig, forward_joint_train,
                                                      forward_seg_train)
-from cullavo_tpu_torch.parallel.mesh import all_reduce_tree
 from cullavo_tpu_torch.trainer.optimizer import (GradientTransformation, apply_updates,
                                                  global_norm)
-from cullavo_tpu_torch.trainer.step import TrainState
+from cullavo_tpu_torch.trainer.step import TrainState, share_metrics
 from cullavo_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -46,11 +49,12 @@ def _value_and_grad(loss_fn, params, *args):
     return total.detach(), {k: v.detach() for k, v in losses.items()}, grads
 
 
-def _finish(tx: GradientTransformation, state: TrainState, total, losses, grads):
+def _finish(tx: GradientTransformation, state: TrainState, total, losses, grads,
+            norm_fn=global_norm):
     with torch.no_grad():
         updates, new_opt = tx.update(grads, state.opt_state, state.trainable)
         new_params = apply_updates(state.trainable, updates)
-        metrics = {"loss_total": total.float(), "grad_norm": global_norm(grads),
+        metrics = {"loss_total": total.float(), "grad_norm": norm_fn(grads),
                    **{k: v.float() for k, v in losses.items()}}
     return TrainState(new_params, new_opt, state.step + 1), metrics
 
@@ -83,15 +87,21 @@ def make_xdecoder_train_step(cfg: XDecoderModelConfig, tx: GradientTransformatio
 
 
 def make_xdecoder_joint_train_step(cfg: XDecoderModelConfig, tx: GradientTransformation,
-                                   remat: bool = False, compute_dtype=None, parallel=None):
+                                   remat: bool = False, compute_dtype=None, layout=None):
     """``step_fn(state, batch, generator) -> (state, metrics)`` over
     ``forward_joint_train``; ``batch`` is ``collate_joint``'s plus
     "class_ids" / "class_mask" and the normalized "image" (numpy or
-    tensors; integer ids and f32 targets are not cast).  ``parallel``: a
-    ``ParallelContext`` (module docstring); the metrics are then the global
-    step's, equal on every rank."""
+    tensors; integer ids and f32 targets are not cast).  ``layout``: the
+    parameter tree's ``Layout`` on a grid of processes (module docstring;
+    ``state`` holds this rank's shards, ``tx`` clips by the layout's
+    ``global_norm``); the metrics are then the global step's, equal on
+    every rank."""
+    parallel = None if layout is None else layout.par
+    norm = {} if layout is None else {"norm_fn": layout.global_norm}
 
     def loss_fn(params, batch, generator):
+        if layout is not None:
+            params = layout.gather(params)
         if compute_dtype is not None:
             params = _cast_compute(params, compute_dtype)
             batch = dict(batch, image=torch.as_tensor(batch["image"]).to(compute_dtype))
@@ -100,15 +110,18 @@ def make_xdecoder_joint_train_step(cfg: XDecoderModelConfig, tx: GradientTransfo
         return sum(losses.values()), losses
 
     def step_fn(state: TrainState, batch, generator):
+        if parallel is not None:
+            parallel.begin_step()
         total, losses, grads = _value_and_grad(loss_fn, state.trainable, batch, generator)
         if parallel is not None:
             names = list(losses)
-            summed = parallel.all_reduce(torch.stack([total.float()] + [
+            summed = share_metrics(parallel, torch.stack([total.float()] + [
                 losses[k].float() for k in names]))
             total, losses = summed[0], dict(zip(names, summed[1:]))
-            with parallel.timed(total.is_cuda):
-                back = iter(all_reduce_tree(tree_leaves(grads)))
-            grads = tree_map(lambda _: next(back), grads)
-        return _finish(tx, state, total, losses, grads)
+            grads = layout.reduce(grads)
+        out = _finish(tx, state, total, losses, grads, **norm)
+        if parallel is not None:
+            parallel.end_step()
+        return out
 
     return step_fn

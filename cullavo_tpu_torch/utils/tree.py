@@ -22,3 +22,13 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (tuple, list)):
         return [leaf for v in tree for leaf in tree_leaves(v)]
     return [] if tree is None else [tree]
+
+
+def tree_paths(tree, prefix: tuple = ()) -> list:
+    """The path (a tuple of dict keys and sequence indices) of every leaf of
+    ``tree_leaves``, in its order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in tree_paths(v, prefix + (k,))]
+    if isinstance(tree, (tuple, list)):
+        return [p for i, v in enumerate(tree) for p in tree_paths(v, prefix + (i,))]
+    return [] if tree is None else [prefix]

@@ -657,11 +657,12 @@ def test_p32_wrapper_takes_the_plain_version_only_for_cpu_tensors():
 # socket on SIGINT.  No try wraps an engine step that carries on, or a launch.
 def test_the_raises_that_remain_name_their_items():
     """What the port still refuses names its item of ROADMAP.md's queue 1:
-    the cached forward without stale_cache over an int8 cache (4) and the
-    fsdp / tensor axes of several processes (3).  The zoo snapshots (2.4),
-    BakLLaVA (2.5) and the OPT tower (2.6) run now: a snapshot directory
-    without its files raises naming the file, and BakLLaVA without
-    ``MODEL.ZOO_PATH`` exits as JAX's entry does."""
+    the cached forward without stale_cache over an int8 cache (4).  The zoo
+    snapshots (2.4), BakLLaVA (2.5) and the OPT tower (2.6) run now: a
+    snapshot directory without its files raises naming the file, and
+    BakLLaVA without ``MODEL.ZOO_PATH`` exits as JAX's entry does; the fsdp
+    / tensor axes (3) run on several processes, and one process with one of
+    them raises JAX's ``ValueError``."""
     from cullavo_tpu_torch import entry
     from cullavo_tpu_torch.checkpoint import zoo_import
     from cullavo_tpu_torch.models.blip2 import config as bcfg
@@ -687,8 +688,9 @@ def test_the_raises_that_remain_name_their_items():
                lambda: zoo_import.check_blip2_config("/x", opt)):
         with pytest.raises(FileNotFoundError, match="config.json"):
             fn()
-    for over in ({"MESH_FSDP": 2}, {"MESH_TENSOR": 4}):
-        with pytest.raises(NotImplementedError, match="next slice of ROADMAP.md queue 1 item 3"):
+    for over, msg in (({"MESH_FSDP": 2}, "mesh 0x2x1 != 1 devices"),
+                      ({"MESH_TENSOR": 4}, "mesh 0x1x4 != 1 devices")):
+        with pytest.raises(ValueError, match=msg):
             entry.train({"NAME": "xdecoder_train", "MODEL": {"TINY": True}, **over},
                         device="cpu")
     tc = bcfg.tiny_blip2_config("llama_text").text

@@ -1,6 +1,6 @@
 """Several processes in the torch port (``parallel/mesh.py``, the data axis),
-on the CPU over Gloo: ``MeshConfig.resolve`` against JAX's, the fsdp /
-tensor refusal; the collectives two ranks use (the gather with gradient,
+on the CPU over Gloo: ``MeshConfig.resolve`` against JAX's, an fsdp /
+tensor axis in one process; the collectives two ranks use (the gather with gradient,
 the flat gradient all-reduce, ``all_gather_object``); the Q-LoRA step on
 two ranks (a global batch of 8 split 4 + 4 with different token counts)
 against JAX's ``shard_train_step`` on a two-device data mesh without
@@ -113,8 +113,9 @@ def spawn_ranks(tmp_path, name, body, n=2, timeout=300):
 
 def test_mesh_config_and_what_waits():
     """``resolve`` gives JAX's axes and raises where JAX's does; without a
-    process group there is no context; an fsdp or tensor axis above 1
-    raises and names the next slice; ``rows`` is ``np.array_split``'s; the
+    process group there is no context; one process with an fsdp or tensor
+    axis above 1 raises JAX's ``ValueError`` (several ranks run them:
+    test_torch_parallel_shard.py); ``rows`` is ``np.array_split``'s; the
     launcher's contract is checked before a group is joined."""
     cases = [(-1, 1, 1, 8), (2, 2, 2, 8), (-1, 2, 1, 8), (-1, 1, 4, 8), (2, 1, 1, 2),
              (-1, 1, 1, 1), (1, 1, 1, 1), (4, 1, 1, 8), (3, 1, 1, 2), (-1, 3, 1, 8)]
@@ -129,8 +130,10 @@ def test_mesh_config_and_what_waits():
         assert tcfg.resolve(n) == want
     assert t_mesh.parallel_context({"MESH_DATA": -1}) is None
     assert t_mesh.parallel_context({}) is None
-    for cfg in ({"MESH_FSDP": 2}, {"MESH_TENSOR": 2}, {"MESH_DATA": 1, "MESH_FSDP": 4}):
-        with pytest.raises(NotImplementedError, match="next slice.*queue 1 item 3"):
+    for cfg, msg in (({"MESH_FSDP": 2}, "mesh 0x2x1 != 1 devices"),
+                     ({"MESH_TENSOR": 2}, "mesh 0x1x2 != 1 devices"),
+                     ({"MESH_DATA": 1, "MESH_FSDP": 4}, "mesh 1x4x1 != 1 devices")):
+        with pytest.raises(ValueError, match=msg):
             t_mesh.parallel_context(cfg)
     with pytest.raises(ValueError, match="mesh 2x1x1 != 1"):
         t_mesh.parallel_context({"MESH_DATA": 2})
@@ -230,14 +233,15 @@ def qlora():
 QLORA_BODY = JOIN + """
 from cullavo_tpu_torch.models.llava.lora import LoraConfig
 from cullavo_tpu_torch.trainer import optimizer as t_opt
+from cullavo_tpu_torch.parallel import Layout
 from cullavo_tpu_torch.trainer import step as t_step
 d = torch.load(os.path.join(WORK, "qlora_in.pt"), weights_only=False)
-par = parallel_context({"MESH_DATA": 2})
+layout = Layout(parallel_context({"MESH_DATA": 2}), d["train"])
 out = {}
 for name, dropout, seed in (("plain", 0.0, None), ("dropout", 0.3, 7)):
     tx = t_opt.cullavo_optimizer(d["lr"], 10, grad_clip=d["clip"])
     step = t_step.make_train_step(d["cfg"], LoraConfig(**{**d["lora"], "dropout": dropout}), tx,
-                                  remat=True, compute_dtype=None, loss_chunk=8, parallel=par)
+                                  remat=True, compute_dtype=None, loss_chunk=8, layout=layout)
     rng = None if seed is None else torch.Generator().manual_seed(seed)
     st, m = step(t_step.TrainState(d["train"], d["opt"], 0), d["frozen"], d["batch"], rng)
     out[name] = {"loss": float(m["loss_llm"]), "gnorm": float(m["grad_norm"]),
@@ -304,11 +308,12 @@ def test_qlora_step_on_two_ranks_matches_jax_and_one_process(tmp_path, qlora):
 XDEC_BODY = JOIN + """
 from cullavo_tpu_torch.trainer import optimizer as topt
 from cullavo_tpu_torch.trainer import xdecoder_step as tstep
+from cullavo_tpu_torch.parallel import Layout
 from cullavo_tpu_torch.trainer.step import TrainState
 d = torch.load(os.path.join(WORK, "xdec_in.pt"), weights_only=False)
-par = parallel_context({"MESH_DATA": 2})
+layout = Layout(parallel_context({"MESH_DATA": 2}), d["params"])
 tx = topt.xdecoder_optimizer(base_lr=1e-4, total_steps=20, grad_clip=0.01)
-step = tstep.make_xdecoder_joint_train_step(d["cfg"], tx, remat=False, parallel=par)
+step = tstep.make_xdecoder_joint_train_step(d["cfg"], tx, remat=False, layout=layout)
 st, m = step(TrainState(d["params"], tx.init(d["params"]), 0), d["batch"],
              torch.Generator().manual_seed(5))
 torch.save({"metrics": {k: float(v) for k, v in m.items()}, "params": st.trainable},
@@ -316,12 +321,10 @@ torch.save({"metrics": {k: float(v) for k, v in m.items()}, "params": st.trainab
 """
 
 
-def test_xdecoder_joint_step_on_two_ranks_matches_one_process(tmp_path):
-    """The tiny X-Decoder, f32, a global batch of 4 images split 2 + 2: every
-    loss, the total and the gradient norm within 1e-5 relative of the
-    port's one-process step on the whole batch (the same generator: the
-    point draws are the global batch's), the parameters after the AdamW step
-    within 1e-6; both ranks' results equal."""
+def xdecoder_inputs(tmp_path):
+    """The tiny X-Decoder's config and weights (seed 0) and a global batch of
+    4 images (64 x 64 and others) from a caption-grounding dataset written
+    under ``tmp_path``."""
     cfg = tmodel.tiny_xdecoder_config()
     params = tmodel.init_xdecoder_model_params(cfg, torch.Generator().manual_seed(0), "cpu")
     spec = chip_smoke().write_joint_dataset(str(tmp_path / "joint"), [(64, 64), (48, 80),
@@ -339,6 +342,16 @@ def test_xdecoder_joint_step_on_two_ranks_matches_one_process(tmp_path):
     batch["image"] = np.stack([normalize_np(m["image"]) for m in mapped])
     batch["class_ids"], batch["class_mask"] = tokenize(
         [f"a photo of a {c}." for c in CLASS_NAMES] + ["A background in coco."])
+    return cfg, params, batch
+
+
+def test_xdecoder_joint_step_on_two_ranks_matches_one_process(tmp_path):
+    """The tiny X-Decoder, f32, a global batch of 4 images split 2 + 2: every
+    loss, the total and the gradient norm within 1e-5 relative of the
+    port's one-process step on the whole batch (the same generator: the
+    point draws are the global batch's), the parameters after the AdamW step
+    within 1e-6; both ranks' results equal."""
+    cfg, params, batch = xdecoder_inputs(tmp_path)
     torch.save({"cfg": cfg, "params": params, "batch": batch}, tmp_path / "xdec_in.pt")
     spawn_ranks(tmp_path, "xdec", XDEC_BODY)
     ranks = [torch.load(tmp_path / f"xdec{r}.pt", weights_only=False) for r in range(2)]
@@ -453,7 +466,7 @@ from cullavo_tpu_torch.models.llava.modeling import init_llava_params
 from cullavo_tpu_torch.pipelines import cullavo_pipeline as tpipe
 argv = json.load(open(os.path.join(WORK, "entry_argv.json")))[RANK]
 cfg = dataclasses.replace(tiny_llava_config(260), image_token_id=ByteTokenizer.image_token_id)
-entry._build_llava = lambda c, device: (
+entry._build_llava = lambda c, device, parallel=None: (
     cfg, init_llava_params(cfg, torch.Generator().manual_seed(0), device), ByteTokenizer())
 make = tpipe.make_train_step
 tpipe.make_train_step = lambda *a, **kw: make(*a, **{**kw, "compute_dtype": None})
@@ -498,7 +511,7 @@ def test_entry_main_trains_on_two_ranks_and_only_rank0_writes(tmp_path, monkeypa
     from cullavo_tpu_torch.data.tokenizer import ByteTokenizer
     from cullavo_tpu_torch.models.llava.modeling import init_llava_params
     cfg = dataclasses.replace(t_tiny(260), image_token_id=ByteTokenizer.image_token_id)
-    monkeypatch.setattr(t_entry, "_build_llava", lambda c, device: (
+    monkeypatch.setattr(t_entry, "_build_llava", lambda c, device, parallel=None: (
         cfg, init_llava_params(cfg, torch.Generator().manual_seed(0), device), ByteTokenizer()))
     make = tpipe.make_train_step
     monkeypatch.setattr(tpipe, "make_train_step",

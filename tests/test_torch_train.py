@@ -668,10 +668,10 @@ def test_entry_train_smoke_mode_on_the_cpu(capsys):
     assert again == metrics                          # seeded end to end
     # an X-Decoder NAME goes to the joint trainer (tests/test_torch_xdecoder_train.py):
     # without DATASETS.TRAIN it builds the model and returns None; an fsdp
-    # axis raises, and so does a data axis of 2 in one process
+    # axis of 2 in one process raises JAX's error, and so does a data axis of 2
     xdec = {**cfg, "NAME": "xdecoder_step", "MODEL": {**cfg["MODEL"], "TINY": True}}
     assert t_entry.train(xdec, device="cpu") is None
-    with pytest.raises(NotImplementedError, match="MESH"):
+    with pytest.raises(ValueError, match="mesh 0x2x1 != 1"):
         t_entry.train({**xdec, "MESH_FSDP": 2}, device="cpu")
     with pytest.raises(ValueError, match="mesh 2x1x1 != 1"):
         t_entry.train({**xdec, "MESH_DATA": 2}, device="cpu")

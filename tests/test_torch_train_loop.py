@@ -535,7 +535,7 @@ def both_entries(monkeypatch):
     monkeypatch.setattr(j_entry, "_build_llava", lambda cfg: (
         jcfg, jax.tree.map(jnp.asarray, weights), JByteTokenizer()))
     monkeypatch.setattr(j_entry, "_build_mesh", lambda cfg: None)
-    monkeypatch.setattr(t_entry, "_build_llava", lambda cfg, device: (
+    monkeypatch.setattr(t_entry, "_build_llava", lambda cfg, device, parallel=None: (
         tcfg, bridge.llava_params_from_numpy(weights, device), TByteTokenizer()))
     runs = {"jax": [], "torch": []}
     for pipe_mod, loop_mod, key in ((j_pipe, j_loop, "jax"), (t_pipe, t_entry, "torch")):

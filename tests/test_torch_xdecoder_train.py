@@ -256,7 +256,7 @@ def test_entry_train_matches_jax(sl, monkeypatch, tmp_path, capsys):
 def test_entry_train_without_datasets_returns_none():
     cfg = {"NAME": "xdecoder_train", "MODEL": {"TINY": True}, "DATASETS": {"TRAIN": None}}
     assert tentry.train(cfg, device="cpu") is None
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh 0x1x2 != 1 devices"):
         tentry.train(dict(cfg, MESH_TENSOR=2), device="cpu")
 
 
